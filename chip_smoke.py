@@ -4,14 +4,24 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ with nvcc, holds each against its plain
-PyTorch version on the card at the shapes of the main path, runs one
+PyTorch version on the card at the shapes of the main paths, runs one
 full-width denoiser forward through the kernels against the plain module,
-then drives the main path: the flip-TTA DDIM-9 eval step at the flagship
-size (243 frames, 17 joints, embed 512, depth 8, 8 heads, mlp_ratio 2,
-cosine T=1000, clip_denoised, logical batch 2), with weights from the
-port's seeded init. Any failed check raises and the script exits non-zero.
+then drives the two main paths at the flagship size (243 frames, 17
+joints, embed 512, depth 8, 8 heads, mlp_ratio 2, cosine T=1000), with
+weights from the port's seeded init:
 
-Output: one line per phase; then a JSON line with every kernel's numbers;
+  eval   the flip-TTA DDIM-9 eval step (clip_denoised, logical batch 2);
+  train  the f32 fast-train AdamW step (configs/h36m_gt_s2s_243f.json:
+         clip_loss, lr 4e-5, lr_decay 0.99, batch 24; drop_path_rate 0.1),
+         pair-boundary backward with the attention kernels (attn_bwd).
+
+Any failed check raises and the script exits non-zero.
+
+Output: one line per phase (1 build; 2 B1 vs plain, with drop-path too;
+3 full-width forward; 4 the eval step; 5 its profile; 6 B3 and B4 vs
+plain at the train shape; 7a the train step's loss, gradients and
+launches vs the plain module at B=4; 7b three timed AdamW steps at B=24;
+7c their profile); then a JSON line with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA device, and where the port's package is not beside this script.
 """
@@ -36,6 +46,15 @@ KERNEL_REL_TOL = 1e-4   # kernel and forward vs the plain version, relative to m
 # ~ 1e-3 absolute bounds the sum as long as the untrained net does not
 # amplify its input differences by more than ~1 per step.
 EVAL_ABS_BOUND = 1e-3
+TRAIN_BATCH, CHECK_BATCH = 24, 4  # the config's batch; the batch of the plain-path check
+LR, LR_DECAY, DROP_PATH = 4e-5, 0.99, 0.1
+# Train-step check against the plain module under plain autograd (same dp,
+# t and noise): the loss to 1e-5 relative; every parameter's gradient to
+# max|dg| / max|g_plain| <= 1e-3. The kernel path's forward differs from
+# the plain one by f32 rounding only (the recompute backward is the plain
+# module's own autograd apart from B4), and eight pairs of depth pass those
+# roundings on through the backward.
+LOSS_REL_TOL, GRAD_REL_TOL = 1e-5, 1e-3
 
 # Peaks used for bound_ms (NVIDIA data sheets, dense, full power limit):
 # float32 outside the tensor cores, and device-memory bandwidth.
@@ -70,6 +89,28 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def profile_step(label, fn, top_n=10):
+    """Profiles one fn() and prints its wall time, device busy time, idle
+    share and the device time of the top kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(busy_ms > 0, "the profiler saw no device time")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
+    say(f"{label}: wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
+        f"idle_share={1 - busy_ms / wall_ms:.4f}; by kernel: " + " | ".join(
+            f"{e.key.replace('(anonymous namespace)::', '').split('(')[0][:60]} x{e.count} "
+            f"{e.self_device_time_total / 1e3:.3f} ms "
+            f"({e.self_device_time_total / 1e3 / busy_ms:.3f})" for e in top))
+
+
 def rel_err(out, ref):
     abs_err = (out - ref).abs().max().item()
     return abs_err, abs_err / ref.abs().max().item()
@@ -102,15 +143,31 @@ def block_work(r, n, c, hidden, items):
     return flops, 4 * (2 * r * c + items * c + weights)
 
 
+def train_step_flops(b, hidden):
+    """FLOPs one fast-train step needs at batch b: the block GEMMs of four
+    forwards' worth (the fused forward, the recompute, and the backward's
+    two products per GEMM), the attention products of the two forwards
+    (4·n·C per row), and of the backward (10·n·C per row, the five N×N×d
+    products of the GRAND backward)."""
+    r = b * FRAMES * JOINTS
+    gemm = 2 * r * EMBED * (3 * EMBED + EMBED + 2 * hidden) * 2 * DEPTH
+    attn_fwd = 4 * r * EMBED * (JOINTS + FRAMES) * DEPTH
+    return 4 * gemm + 2 * attn_fwd + 10 * attn_fwd // 4
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    from torch.nn import functional as F
+
     from diff3dhpe_torch import (
-        GaussianDiffusion, MixSTEDenoiser, fast_forward_denoise, flip_pose,
-        fused_transformer_block, fused_transformer_block_ref, make_denoise_fn,
-        make_eval_step, make_fast_denoise_fn,
+        GaussianDiffusion, MixSTEDenoiser, draw_drop_path_scales, fast_forward_denoise,
+        flip_pose, fused_transformer_block, fused_transformer_block_ref, grand_attention_bwd,
+        grand_attention_bwd_ref, grand_attention_fullseq, grand_attention_fullseq_ref,
+        make_denoise_fn, make_eval_step, make_fast_denoise_fn, make_fast_train_denoise_fn,
+        make_optimizer, make_train_denoise_fn, make_train_step,
     )
     from diff3dhpe_torch.models.mixste import Block, init_weights
     from diff3dhpe_torch.ops._build import SOURCES, build_all
@@ -161,6 +218,14 @@ def main():
             lib_abs, _ = rel_err(lib(), ref)
             check(torch.isfinite(out).all().item(), f"{shape} kernel output not finite")
             check(rel <= KERNEL_REL_TOL, f"{shape} kernel rel err {rel:.3e} > {KERNEL_REL_TOL}")
+            # Drop-path: per-row branch scales of 0 or 1/keep (keep 0.9).
+            dp = (torch.rand(rows, 2, generator=gen, device=dev) < 0.9).float() / 0.9
+            dp_abs, dp_rel = rel_err(fused_transformer_block(x, block, n, HEADS, dp_scales=dp, **kw),
+                                     fused_transformer_block_ref(x, block, n, HEADS, dp_scales=dp,
+                                                                 **kw))
+            check(dp_rel <= KERNEL_REL_TOL,
+                  f"{shape} kernel with drop-path rel err {dp_rel:.3e} > {KERNEL_REL_TOL}")
+            abs_err = max(abs_err, dp_abs)
             ms, plain_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(lib)
             flops, nbytes = block_work(rows, n, EMBED, hidden, 2 * BATCH)
             per_shape[shape] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
@@ -170,9 +235,10 @@ def main():
                 f"hidden={hidden} max_abs_err={abs_err:.3e} rel_err={rel:.3e} "
                 f"(tol {KERNEL_REL_TOL}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={lib_ms:.4f} (library vs plain max_abs {lib_abs:.3e}) "
+                f"drop-path rel_err={dp_rel:.3e} "
                 f"bound_ms={bound_ms:.4f} GFLOP={flops / 1e9:.2f} "
                 f"achieved_TFLOPs={flops / ms / 1e9:.2f}")
-            del block, out_ln, x, out, ref
+            del block, out_ln, x, out, ref, dp
 
     # Phase 3: one full-width denoiser forward, kernel path vs plain module.
     model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
@@ -233,35 +299,153 @@ def main():
         f"plain_step_s={plain_s:.4f} plain_seq_per_s={BATCH / plain_s:.3f}")
 
     # Phase 5: where one eval step's device time goes, by kernel name.
-    from torch.profiler import ProfilerActivity, profile
+    profile_step("phase 5 profile of one eval step",
+                 lambda: step_fast(x2d, x2d_flip, x_init=x_init))
+    eval_launches = launches
+    del step_fast, step_plain, model, pred, pred_plain
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # Phase 6: the attention kernels B3 and B4 against their plain versions
+    # at the train path's shape and layout: q, k, v are views of one
+    # [B*J, F, 3, H, 64] qkv projection, dO is [B*J, F, H, 64] seen as
+    # [B*J, H, F, 64], as the temporal blocks of the recompute hand them over.
+    groups, hd = TRAIN_BATCH * JOINTS, EMBED // HEADS
+    qkv = randn(groups, FRAMES, 3, HEADS, hd)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    do = randn(groups, FRAMES, HEADS, hd).transpose(1, 2)
+    g_all, n, elems = groups * HEADS, FRAMES, groups * HEADS * FRAMES * hd
+    attn = {}
+    with torch.no_grad():
+        for name, run, plain, work, nbytes in (
+            ("grand_attention_fullseq", lambda: (grand_attention_fullseq(q, k, v),),
+             lambda: (grand_attention_fullseq_ref(q, k, v),), 4 * g_all * n * n * hd,
+             4 * 4 * elems),
+            ("grand_attention_bwd", lambda: grand_attention_bwd(q, k, v, do),
+             lambda: grand_attention_bwd_ref(q, k, v, do), 10 * g_all * n * n * hd, 7 * 4 * elems),
+        ):
+            outs, refs = run(), plain()
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(outs, refs)]
+            abs_err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+            check(all(torch.isfinite(a).all().item() for a in outs), f"{name} not finite")
+            check(rel <= KERNEL_REL_TOL, f"{name} rel err {rel:.3e} > {KERNEL_REL_TOL}")
+            del outs, refs
+            attn[name] = dict(abs_err=abs_err, rel=rel, ms=cuda_ms(run), plain_ms=cuda_ms(plain),
+                              flops=work, bytes=nbytes)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg) - vg
+    attn["grand_attention_fullseq"]["lib_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v) - v)
+    attn["grand_attention_bwd"]["lib_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do, retain_graph=True))
+    del lib_out, qg, kg, vg, qkv, q, k, v, do
+    for name, a in attn.items():
+        a["bound_ms"] = max(a["flops"] / peak_flops, a["bytes"] / mem_rate) * 1e3
+        a["bound_by"] = "operations" if a["flops"] / peak_flops >= a["bytes"] / mem_rate else "bytes"
+        say(f"phase 6 {name}: [B*H={g_all}, N={n}, D={hd}] max_abs_err={a['abs_err']:.3e} "
+            f"rel_err={a['rel']:.3e} (tol {KERNEL_REL_TOL}) ms={a['ms']:.4f} "
+            f"plain_ms={a['plain_ms']:.4f} library_ms={a['lib_ms']:.4f} "
+            f"bound_ms={a['bound_ms']:.4f} ({a['bound_by']}) GFLOP={a['flops'] / 1e9:.2f} "
+            f"achieved_TFLOPs={a['flops'] / a['ms'] / 1e9:.2f}")
+    torch.cuda.empty_cache()
+
+    # Phase 7: the train main path.
+    model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
+                           num_heads=HEADS, mlp_ratio=MLP_RATIO, seed=0, device=dev).train()
+    params = list(model.parameters())
+    dkw = dict(timesteps=TIMESTEPS, sampling_timesteps=DDIM_STEPS, clip_denoised=True,
+               clip_loss=True, beta_schedule="cosine")
+    diff_fast = GaussianDiffusion.create(
+        make_fast_train_denoise_fn(model, DROP_PATH, attn_bwd=True), **dkw)
+    diff_plain = GaussianDiffusion.create(make_train_denoise_fn(model, DROP_PATH), **dkw)
+    counters = (fused_transformer_block, grand_attention_fullseq, grand_attention_bwd)
+    # Per step: 16 block calls x 8 kernels; B3 once and B4 (2 kernels) once
+    # for each temporal block of the recompute (n = 243 > 64).
+    per_step = {"fused_transformer_block": 2 * DEPTH * per_call,
+                "grand_attention_fullseq": DEPTH, "grand_attention_bwd": 2 * DEPTH}
+
+    def batch(b):
+        gt = randn(b, FRAMES, JOINTS, 3, scale=0.3)
+        x2d = torch.rand(b, FRAMES, JOINTS, 2, generator=gen, device=dev) * 2 - 1
+        return gt, x2d
+
+    # (a) B=4: kernel path against the plain module on the same dp, t, noise.
+    gt, x2d = batch(CHECK_BATCH)
+    inject = dict(t=torch.randint(0, TIMESTEPS, (CHECK_BATCH,), generator=gen, device=dev),
+                  noise=randn(CHECK_BATCH, FRAMES, JOINTS, 3),
+                  dp_scales=draw_drop_path_scales(gen, CHECK_BATCH, DEPTH, DROP_PATH, FRAMES,
+                                                  JOINTS))
+    for c in counters:
+        c.launches = 0
+    loss_fast = diff_fast.training_loss(gt, x2d, **inject)
+    grads_fast = torch.autograd.grad(loss_fast, params)
+    torch.cuda.synchronize()
+    check_launches = {c.__name__: c.launches for c in counters}
+    loss_plain = diff_plain.training_loss(gt, x2d, **inject)
+    grads_plain = torch.autograd.grad(loss_plain, params)
+    loss_rel = abs(loss_fast.item() - loss_plain.item()) / abs(loss_plain.item())
+    grad_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(grads_fast, grads_plain))
+    check(check_launches == per_step, f"train check launched {check_launches}, expected {per_step}")
+    check(loss_rel <= LOSS_REL_TOL, f"train loss rel err {loss_rel:.3e} > {LOSS_REL_TOL}")
+    check(grad_rel <= GRAD_REL_TOL, f"train grad rel err {grad_rel:.3e} > {GRAD_REL_TOL}")
+    say(f"phase 7a train check B={CHECK_BATCH}: loss={loss_fast.item():.6f} "
+        f"plain_loss={loss_plain.item():.6f} loss_rel_err={loss_rel:.3e} (tol {LOSS_REL_TOL}) "
+        f"max_param_grad_rel_err={grad_rel:.3e} (tol {GRAD_REL_TOL}, over {len(params)} "
+        f"parameters) launches={check_launches}")
+    del grads_fast, grads_plain, loss_fast, loss_plain, gt, x2d, inject
+    torch.cuda.empty_cache()
+
+    # (b) B=24: the train step as a user calls it, t/noise/dp drawn from gen.
+    optimizer, scheduler = make_optimizer(params, LR, LR_DECAY, steps_per_epoch=1000)
+    train_step = make_train_step(diff_fast, optimizer, scheduler)
+    gt, x2d = batch(TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    train_step(gt, x2d, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    train_launches = {c.__name__: c.launches for c in counters}
+    check(train_launches == per_step, f"train step launched {train_launches}, expected {per_step}")
+    before = [p.detach().clone() for p in params]
+    secs, losses = [], []
+    for _ in range(3):
         t0 = time.perf_counter()
-        step_fast(x2d, x2d_flip, x_init=x_init)
+        losses.append(train_step(gt, x2d, generator=gen).item())
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    check(busy_ms > 0, "the profiler saw no device time")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    say(f"phase 5 profile of one eval step: wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
-        f"idle_share={1 - busy_ms / wall_ms:.4f}; by kernel: " + " | ".join(
-            f"{e.key.replace('(anonymous namespace)::', '').split('(')[0][:60]} x{e.count} "
-            f"{e.self_device_time_total / 1e3:.3f} ms "
-            f"({e.self_device_time_total / 1e3 / busy_ms:.3f})" for e in top))
+        secs.append(time.perf_counter() - t0)
+    moved = max((p.detach() - b).abs().max().item() for p, b in zip(params, before))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(v) for v in losses), f"train losses {losses}")
+    check(moved > 0, "no parameter moved")
+    step_s = statistics.median(secs)
+    step_flops = train_step_flops(TRAIN_BATCH, hidden)
+    say(f"phase 7b train step B={TRAIN_BATCH}: step_s={[round(s, 4) for s in secs]} "
+        f"median_step_s={step_s:.4f} samples_per_s={TRAIN_BATCH / step_s:.3f} "
+        f"TFLOP_per_step={step_flops / 1e12:.3f} f32_bound_s={step_flops / peak_flops:.4f} "
+        f"bound_share={step_flops / peak_flops / step_s:.3f} losses={losses} "
+        f"max_param_change={moved:.3e} max_memory_allocated_GB={peak_gb:.3f} "
+        f"launches_per_step={train_launches}")
+    del before
 
-    # One entry per kernel; its work is one spatial + one temporal call, the
-    # pair each of the 8 depth levels of a forward runs.
+    # (c) where one train step's device time goes.
+    profile_step("phase 7c profile of one train step", lambda: train_step(gt, x2d, generator=gen),
+                 top_n=20)
+
+    # One entry per kernel. B1's work is one spatial + one temporal call at
+    # the eval shape, the pair each depth level of a forward runs; B3 and B4
+    # are one call at the train shape.
     tot = lambda key: sum(s[key] for s in per_shape.values())
     flops, nbytes = tot("flops"), tot("bytes")
     bound_s = max(flops / peak_flops, nbytes / mem_rate)
-    say(json.dumps({"kernels": [{
+    entries = [{
         "name": "fused_transformer_block",
         "route": "cuda",
         "source": "diff3dhpe_torch/csrc/fused_block.cu",
         "replaces": "diff3dhpe_tpu/ops/fused_block.py:231",
-        "launches": launches,
+        "launches": eval_launches + train_launches["fused_transformer_block"],
+        "launches_by_path": {"eval_step": eval_launches,
+                             "train_step": train_launches["fused_transformer_block"]},
         "max_abs_err": max(s["abs_err"] for s in per_shape.values()),
         "ms": tot("ms"),
         "plain_ms": tot("plain_ms"),
@@ -269,8 +453,20 @@ def main():
         "bound_by": "operations" if flops / peak_flops >= nbytes / mem_rate else "bytes",
         "library_ms": tot("lib_ms"),
         "work": f"one spatial (n={JOINTS}) + one temporal (n={FRAMES}) call, R={rows}, C={EMBED}",
-    }]}))
-    check(all(math.isfinite(s["ms"]) for s in per_shape.values()), "timing failed")
+    }]
+    for name, replaces in (("grand_attention_fullseq", "diff3dhpe_tpu/ops/attention.py:185"),
+                           ("grand_attention_bwd", "diff3dhpe_tpu/ops/attention.py:303")):
+        a = attn[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": "diff3dhpe_torch/csrc/grand_attention.cu",
+            "replaces": replaces, "launches": train_launches[name],
+            "launches_by_path": {"eval_step": 0, "train_step": train_launches[name]},
+            "max_abs_err": a["abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
+            "bound_ms": a["bound_ms"], "bound_by": a["bound_by"], "library_ms": a["lib_ms"],
+            "work": f"one call, [B*H={g_all}, N={n}, D={hd}] f32",
+        })
+    say(json.dumps({"kernels": entries}))
+    check(all(math.isfinite(e["ms"]) for e in entries), "timing failed")
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

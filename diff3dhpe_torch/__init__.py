@@ -11,18 +11,35 @@ from diff3dhpe_torch.engine import (
     make_denoise_fn,
     make_eval_step,
     make_fast_denoise_fn,
+    make_fast_train_denoise_fn,
+    make_optimizer,
+    make_train_denoise_fn,
+    make_train_step,
 )
 from diff3dhpe_torch.io import state_dict_from_flax
-from diff3dhpe_torch.models import MixSTEDenoiser, fast_forward_denoise
+from diff3dhpe_torch.models import (
+    MixSTEDenoiser,
+    draw_drop_path_scales,
+    fast_forward_denoise,
+    fast_forward_denoise_train_pairs,
+)
 from diff3dhpe_torch.ops import (
     fused_transformer_block,
     fused_transformer_block_ref,
     grand_attention,
+    grand_attention_bwd,
+    grand_attention_bwd_ref,
+    grand_attention_fullseq,
+    grand_attention_fullseq_ref,
+    grand_attention_trainable,
 )
 
 __all__ = [
-    "GaussianDiffusion", "MixSTEDenoiser", "ddim_time_pairs", "fast_forward_denoise",
-    "flip_pose", "fused_transformer_block", "fused_transformer_block_ref",
-    "grand_attention", "make_denoise_fn", "make_eval_step", "make_fast_denoise_fn",
-    "state_dict_from_flax",
+    "GaussianDiffusion", "MixSTEDenoiser", "ddim_time_pairs", "draw_drop_path_scales",
+    "fast_forward_denoise", "fast_forward_denoise_train_pairs", "flip_pose",
+    "fused_transformer_block", "fused_transformer_block_ref", "grand_attention",
+    "grand_attention_bwd", "grand_attention_bwd_ref", "grand_attention_fullseq",
+    "grand_attention_fullseq_ref", "grand_attention_trainable", "make_denoise_fn",
+    "make_eval_step", "make_fast_denoise_fn", "make_fast_train_denoise_fn", "make_optimizer",
+    "make_train_denoise_fn", "make_train_step", "state_dict_from_flax",
 ]

@@ -8,10 +8,12 @@
 // What it computes, on x [R, C] whose rows form groups of n_pad rows (the
 // first n of each group real):
 //   xs  = x [+ t_rows[row / rows_per_item]]
-//   h1  = xs + proj(GRAND(LN1(xs)))           GRAND = softmax(q kᵀ·d^-½) v − v
-//   out = h1 + fc2(GELU(fc1(LN2(h1))))        GELU exact (erff)
+//   h1  = xs + s0 · proj(GRAND(LN1(xs)))      GRAND = softmax(q kᵀ·d^-½) v − v
+//   out = h1 + s1 · fc2(GELU(fc1(LN2(h1))))   GELU exact (erff)
 //   out = LN_out(out)                          when an out-LN is given
-// Attention stays inside each group and reads only its n real keys.
+// Attention stays inside each group and reads only its n real keys. s0, s1
+// are the row's drop-path scales dp[row, 0], dp[row, 1] (1 without dp),
+// applied to each branch, bias included, before its residual add.
 //
 // What bounds it on an H100: at C=512, hidden=1024 and R=16,524 rows the
 // four GEMMs carry ~69 GFLOP against ~0.3 GB of compulsory traffic, so the
@@ -25,13 +27,12 @@
 //   gemm_nt_kernel<EPI>   128x128x8 shared-memory tiles, 8x8 outputs per
 //                         thread, register-staged double buffering; the
 //                         epilogue adds the bias and then either nothing,
-//                         exact GELU, or the residual.
-//   grand_attn_kernel     one block per (group, head): the group's K and V
-//                         for that head sit in shared memory (>48 KB at
-//                         n=243, hence cudaFuncSetAttribute); each warp
-//                         takes 4 queries at a time, holds their scores in
-//                         registers (n <= 256, 8 keys per lane), and
-//                         normalises after the AV product.
+//                         exact GELU, or the residual (after the row's
+//                         drop-path scale).
+//   grand_attn_kernel     grand_attn.cuh, shared with grand_attention.cu:
+//                         one block per (group, head) with the group's K
+//                         and V in shared memory, reading q, k and v out of
+//                         the qkv buffer through strides.
 // The intermediates (LN output, qkv, attention output, h1, MLP hidden)
 // make one round trip through device memory each; a single fused kernel
 // with wgmma/TMA is later work.
@@ -39,29 +40,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "grand_attn.cuh"
+
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kMaxN = 256;             // keys per group the attention kernel holds
-constexpr int kKeysPerLane = kMaxN / 32;
-constexpr int kQueriesPerWarp = 4;
-constexpr int kAttnMaxWarps = 8;
+using grand::warp_sum;
 
 constexpr int BM = 128, BN = 128, BK = 8, kGemmThreads = 256;
 
 enum Epilogue { kEpiBias = 0, kEpiGelu = 1, kEpiResidual = 2 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
@@ -96,13 +83,15 @@ __global__ void ln_rows_kernel(const float* __restrict__ x, const float* __restr
   }
 }
 
-// out[M, N] = A[M, K] · W[N, K]ᵀ + bias, then the epilogue. K % 8 == 0,
-// N % 4 == 0 and 16-byte aligned rows (checked by the caller).
+// out[M, N] = A[M, K] · W[N, K]ᵀ + bias, then the epilogue; the residual
+// epilogue computes res + s[row] · (A·Wᵀ + bias) with s[row] =
+// rscale[2 * row] (1 where rscale is null). K % 8 == 0, N % 4 == 0 and
+// 16-byte aligned rows (checked by the caller).
 template <int EPI>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_nt_kernel(const float* __restrict__ A, const float* __restrict__ W,
                const float* __restrict__ bias, const float* __restrict__ res,
-               float* __restrict__ out, int M, int N, int K) {
+               const float* __restrict__ rscale, float* __restrict__ out, int M, int N, int K) {
   __shared__ __align__(16) float As[2][BK][BM + 4];
   __shared__ __align__(16) float Ws[2][BK][BN + 4];
   const int tid = threadIdx.x;
@@ -182,6 +171,11 @@ gemm_nt_kernel(const float* __restrict__ A, const float* __restrict__ W,
         for (int j = 0; j < 4; ++j) v[j] = gelu_erf(v[j]);
       } else if (EPI == kEpiResidual) {
         const float4 r = *reinterpret_cast<const float4*>(res + (size_t)row * N + col);
+        if (rscale) {
+          const float s = rscale[2 * (size_t)row];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] *= s;
+        }
         v[0] = r.x + v[0];
         v[1] = r.y + v[1];
         v[2] = r.z + v[2];
@@ -192,141 +186,24 @@ gemm_nt_kernel(const float* __restrict__ A, const float* __restrict__ W,
   }
 }
 
-// Shared memory of grand_attn_kernel, in floats, laid out so that every
-// float4 access is 16-byte aligned: Q [warps][4][64], P [warps][n32][4],
-// V [n][64], K [n][65] (the pad column keeps the per-lane key reads free of
-// bank conflicts).
-__host__ __device__ inline size_t attn_smem_floats(int n, int warps) {
-  const int n32 = (n + 31) & ~31;
-  return (size_t)warps * kQueriesPerWarp * kHeadDim + (size_t)warps * n32 * kQueriesPerWarp +
-         (size_t)n * kHeadDim + (size_t)n * (kHeadDim + 1);
-}
-
-// GRAND attention for one (group, head): out[i] = Σ_j softmax_j(q_i·k_j·scale) v_j − v_i
-// over the group's n real keys, for all n_pad query rows of the group.
-// qkv [R, 3C] holds q | k | v, head h at columns h*64 of each third.
-__global__ void grand_attn_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                                  int n, int n_pad, int C, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int g = blockIdx.x, h = blockIdx.y;
-  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n32 = (n + 31) & ~31;
-  float* Qs = smem;
-  float* Ps = Qs + warps * kQueriesPerWarp * kHeadDim;
-  float* Vs = Ps + warps * n32 * kQueriesPerWarp;
-  float* Ks = Vs + n * kHeadDim;
-
-  const size_t ld = 3 * (size_t)C;
-  const size_t row0 = (size_t)g * n_pad;
-  const float* qbase = qkv + row0 * ld + h * kHeadDim;
-  const float* kbase = qbase + C;
-  const float* vbase = qbase + 2 * C;
-
-  for (int e = threadIdx.x; e < n * (kHeadDim / 4); e += blockDim.x) {
-    const int j = e / (kHeadDim / 4), c4 = (e % (kHeadDim / 4)) * 4;
-    const float4 kv = *reinterpret_cast<const float4*>(kbase + j * ld + c4);
-    const float4 vv = *reinterpret_cast<const float4*>(vbase + j * ld + c4);
-    float* kd = Ks + j * (kHeadDim + 1) + c4;
-    kd[0] = kv.x;
-    kd[1] = kv.y;
-    kd[2] = kv.z;
-    kd[3] = kv.w;
-    *reinterpret_cast<float4*>(Vs + j * kHeadDim + c4) = vv;
-  }
-  __syncthreads();
-
-  float* Qw = Qs + warp * kQueriesPerWarp * kHeadDim;
-  float* Pw = Ps + warp * n32 * kQueriesPerWarp;
-  for (int i0 = warp * kQueriesPerWarp; i0 < n_pad; i0 += warps * kQueriesPerWarp) {
-    for (int e = lane; e < kQueriesPerWarp * kHeadDim; e += 32) {
-      const int i = i0 + e / kHeadDim;
-      Qw[e] = i < n_pad ? qbase[i * ld + e % kHeadDim] * scale : 0.f;
-    }
-    __syncwarp();
-
-    float s[kQueriesPerWarp][kKeysPerLane];
-#pragma unroll
-    for (int kk = 0; kk < kKeysPerLane; ++kk) {
-#pragma unroll
-      for (int q = 0; q < kQueriesPerWarp; ++q) s[q][kk] = -INFINITY;
-      const int j = kk * 32 + lane;
-      if (kk * 32 < n && j < n) {
-        float dot[kQueriesPerWarp] = {};
-        const float* kr = Ks + j * (kHeadDim + 1);
-#pragma unroll 4
-        for (int d = 0; d < kHeadDim; d += 4) {
-          const float k0 = kr[d], k1 = kr[d + 1], k2 = kr[d + 2], k3 = kr[d + 3];
-#pragma unroll
-          for (int q = 0; q < kQueriesPerWarp; ++q) {
-            const float4 qv = *reinterpret_cast<const float4*>(Qw + q * kHeadDim + d);
-            dot[q] = fmaf(qv.x, k0, dot[q]);
-            dot[q] = fmaf(qv.y, k1, dot[q]);
-            dot[q] = fmaf(qv.z, k2, dot[q]);
-            dot[q] = fmaf(qv.w, k3, dot[q]);
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < kQueriesPerWarp; ++q) s[q][kk] = dot[q];
-      }
-    }
-
-    float inv_sum[kQueriesPerWarp];
-#pragma unroll
-    for (int q = 0; q < kQueriesPerWarp; ++q) {
-      float m = -INFINITY;
-#pragma unroll
-      for (int kk = 0; kk < kKeysPerLane; ++kk) m = fmaxf(m, s[q][kk]);
-      m = warp_max(m);
-      float sum = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKeysPerLane; ++kk) {
-        const float e = kk * 32 + lane < n ? expf(s[q][kk] - m) : 0.f;
-        s[q][kk] = e;
-        sum += e;
-      }
-      inv_sum[q] = 1.0f / warp_sum(sum);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kKeysPerLane; ++kk) {
-      if (kk * 32 < n) {
-        *reinterpret_cast<float4*>(Pw + (kk * 32 + lane) * kQueriesPerWarp) =
-            make_float4(s[0][kk], s[1][kk], s[2][kk], s[3][kk]);
-      }
-    }
-    __syncwarp();
-
-    float o[kQueriesPerWarp][2] = {};
-    for (int j = 0; j < n; ++j) {
-      const float4 p = *reinterpret_cast<const float4*>(Pw + j * kQueriesPerWarp);
-      const float v0 = Vs[j * kHeadDim + lane], v1 = Vs[j * kHeadDim + 32 + lane];
-      o[0][0] = fmaf(p.x, v0, o[0][0]);
-      o[0][1] = fmaf(p.x, v1, o[0][1]);
-      o[1][0] = fmaf(p.y, v0, o[1][0]);
-      o[1][1] = fmaf(p.y, v1, o[1][1]);
-      o[2][0] = fmaf(p.z, v0, o[2][0]);
-      o[2][1] = fmaf(p.z, v1, o[2][1]);
-      o[3][0] = fmaf(p.w, v0, o[3][0]);
-      o[3][1] = fmaf(p.w, v1, o[3][1]);
-    }
-#pragma unroll
-    for (int q = 0; q < kQueriesPerWarp; ++q) {
-      const int i = i0 + q;
-      if (i >= n_pad) break;
-      const float* vi = vbase + i * ld;
-      float* oi = out + (row0 + i) * (size_t)C + h * kHeadDim;
-      oi[lane] = o[q][0] * inv_sum[q] - vi[lane];
-      oi[32 + lane] = o[q][1] * inv_sum[q] - vi[32 + lane];
-    }
-    __syncwarp();
-  }
-}
-
 template <int EPI>
 cudaError_t launch_gemm(const float* A, const float* W, const float* bias, const float* res,
-                        float* out, int M, int N, int K, cudaStream_t stream) {
+                        const float* rscale, float* out, int M, int N, int K,
+                        cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_nt_kernel<EPI><<<grid, kGemmThreads, 0, stream>>>(A, W, bias, res, out, M, N, K);
+  gemm_nt_kernel<EPI><<<grid, kGemmThreads, 0, stream>>>(A, W, bias, res, rscale, out, M, N, K);
   return cudaGetLastError();
+}
+
+cudaError_t launch_attention(const float* qkv, float* out, int R, int C, int heads, int n,
+                             int n_pad, float scale, cudaStream_t stream) {
+  // Group g, head h: q at qkv[g * n_pad + i, h * 64], k and v C and 2C
+  // columns further; the output at out[g * n_pad + i, h * 64].
+  const long long ld = 3LL * C;
+  const grand::Strides s_in{n_pad * ld, grand::kHeadDim, ld};
+  const grand::Strides s_out{(long long)n_pad * C, grand::kHeadDim, C};
+  return grand::launch_grand_attn(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in, s_out,
+                                  R / n_pad, heads, n, n_pad, scale, stream);
 }
 
 cudaError_t launch_ln(const float* x, const float* t, int rows_per_item, const float* w,
@@ -335,19 +212,6 @@ cudaError_t launch_ln(const float* x, const float* t, int rows_per_item, const f
   constexpr int kRowsPerBlock = 8;
   ln_rows_kernel<<<(R + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
       x, t, rows_per_item, w, b, eps, xs, y, R, C);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_attention(const float* qkv, float* out, int R, int C, int heads, int n,
-                             int n_pad, float scale, cudaStream_t stream) {
-  int warps = (n_pad + kQueriesPerWarp - 1) / kQueriesPerWarp;
-  warps = warps < kAttnMaxWarps ? warps : kAttnMaxWarps;
-  const size_t bytes = attn_smem_floats(n, warps) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(grand_attn_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(R / n_pad, heads);
-  grand_attn_kernel<<<grid, 32 * warps, bytes, stream>>>(qkv, out, n, n_pad, C, scale);
   return cudaGetLastError();
 }
 
@@ -364,10 +228,11 @@ cudaError_t launch_attention(const float* qkv, float* out, int R, int C, int hea
 // Returns the first cudaError_t that a launch reported (0 on success) and
 // adds one to *launches for every kernel it launched. Null bias pointers
 // mean "no bias"; t_rows == nullptr skips the time add (xs is then unused);
-// oln_w == nullptr skips the out-LN (fc2_out is then unused).
+// oln_w == nullptr skips the out-LN (fc2_out is then unused); dp == nullptr
+// skips the drop-path scales, else dp is [R, 2] (attention, MLP branch).
 // Scratch: xn [R, C], qkv [R, 3C], attn [R, C], h1 [R, C], mid [R, hidden].
 extern "C" int diff3dhpe_fused_block_f32(
-    const float* x, const float* t_rows, int rows_per_item,
+    const float* x, const float* t_rows, int rows_per_item, const float* dp,
     const float* ln1_w, const float* ln1_b, float ln1_eps,
     const float* w_qkv, const float* b_qkv, const float* w_proj, const float* b_proj,
     const float* ln2_w, const float* ln2_b, float ln2_eps,
@@ -380,13 +245,13 @@ extern "C" int diff3dhpe_fused_block_f32(
   const float* resid = t_rows ? xs : x;
   DIFF_CHECK(launch_ln(x, t_rows, rows_per_item, ln1_w, ln1_b, ln1_eps, t_rows ? xs : nullptr,
                        xn, R, C, stream));
-  DIFF_CHECK(launch_gemm<kEpiBias>(xn, w_qkv, b_qkv, nullptr, qkv, R, 3 * C, C, stream));
+  DIFF_CHECK(launch_gemm<kEpiBias>(xn, w_qkv, b_qkv, nullptr, nullptr, qkv, R, 3 * C, C, stream));
   DIFF_CHECK(launch_attention(qkv, attn, R, C, heads, n, n_pad, scale, stream));
-  DIFF_CHECK(launch_gemm<kEpiResidual>(attn, w_proj, b_proj, resid, h1, R, C, C, stream));
+  DIFF_CHECK(launch_gemm<kEpiResidual>(attn, w_proj, b_proj, resid, dp, h1, R, C, C, stream));
   DIFF_CHECK(launch_ln(h1, nullptr, 1, ln2_w, ln2_b, ln2_eps, nullptr, xn, R, C, stream));
-  DIFF_CHECK(launch_gemm<kEpiGelu>(xn, w_fc1, b_fc1, nullptr, mid, R, hidden, C, stream));
+  DIFF_CHECK(launch_gemm<kEpiGelu>(xn, w_fc1, b_fc1, nullptr, nullptr, mid, R, hidden, C, stream));
   float* fc2_out = oln_w ? attn : out;
-  DIFF_CHECK(launch_gemm<kEpiResidual>(mid, w_fc2, b_fc2, h1, fc2_out, R, C, hidden, stream));
+  DIFF_CHECK(launch_gemm<kEpiResidual>(mid, w_fc2, b_fc2, h1, dp ? dp + 1 : nullptr, fc2_out, R, C, hidden, stream));
   if (oln_w) {
     DIFF_CHECK(launch_ln(fc2_out, nullptr, 1, oln_w, oln_b, oln_eps, nullptr, out, R, C, stream));
   }
@@ -395,5 +260,5 @@ extern "C" int diff3dhpe_fused_block_f32(
 
 // Head width the attention kernel is compiled for, and the most keys per
 // group it holds; the wrapper checks both before launching.
-extern "C" int diff3dhpe_attn_head_dim() { return kHeadDim; }
-extern "C" int diff3dhpe_attn_max_n() { return kMaxN; }
+extern "C" int diff3dhpe_attn_head_dim() { return grand::kHeadDim; }
+extern "C" int diff3dhpe_attn_max_n() { return grand::kMaxN; }

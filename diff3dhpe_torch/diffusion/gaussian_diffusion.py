@@ -1,14 +1,15 @@
-"""Conditional Gaussian diffusion sampler (direct-x0 prediction), eval side.
+"""Conditional Gaussian diffusion (direct-x0 prediction, variable loss).
 
 Port of ``diff3dhpe_tpu/diffusion/gaussian_diffusion.py``: the DDIM reverse
-loop, the forward process and the multi-hypothesis pose estimate. The
-denoiser is any callable ``denoise_fn(x, t) -> x0`` ([B, F, J, Cin + 3],
-[B] -> [B, F_out, J, 3]); the JAX scan over steps becomes a Python loop.
+loop, the forward process, the multi-hypothesis pose estimate and the
+training loss. The denoiser is any callable ``denoise_fn(x, t) -> x0``
+([B, F, J, Cin + 3], [B] -> [B, F_out, J, 3]); the JAX scan over steps
+becomes a Python loop. A training denoiser also takes ``dp_scales`` and
+``generator`` keywords (``engine.steps.make_fast_train_denoise_fn``).
 
-Randomness is explicit: x_T is either passed in as ``x_init`` or drawn
-from a ``torch.Generator`` the caller passes. Torch cannot reproduce JAX's
-per-row ``fold_in`` draw, so parity tests inject the same x_T into both.
-The training objective is not ported yet.
+Randomness is explicit: x_T, the training t and noise are either passed
+in or drawn from a ``torch.Generator`` the caller passes. Torch cannot
+reproduce JAX's draws, so parity tests inject the same values into both.
 """
 from __future__ import annotations
 
@@ -38,8 +39,11 @@ class GaussianDiffusion:
     denoise_fn: Callable[..., torch.Tensor]
     constants: DiffusionConstants
     sampling_timesteps: int
+    loss_type: str = "l2"
+    conditional: bool = True
     clip_denoised: bool = False
     ddim_sampling_eta: float = 0.0
+    clip_loss: bool = False
     mode: str = "s2s"  # "s2s" | "s2f"
     # When set, the LAST ``final_denoise_steps`` DDIM steps call
     # ``final_denoise_fn`` instead of ``denoise_fn`` (the JAX package's
@@ -57,6 +61,9 @@ class GaussianDiffusion:
         beta_schedule: str = "cosine",
         ddim_sampling_eta: float = 0.0,
         mode: str = "s2s",
+        loss_type: str = "l2",
+        conditional: bool = True,
+        clip_loss: bool = False,
         final_denoise_fn=None,
         final_denoise_steps: int = 1,
     ) -> "GaussianDiffusion":
@@ -65,6 +72,8 @@ class GaussianDiffusion:
         if not 0 < sampling_timesteps <= timesteps:
             raise ValueError(f"need 0 < sampling_timesteps <= timesteps, got "
                              f"{sampling_timesteps} and {timesteps}")
+        if loss_type not in ("l1", "l2"):
+            raise ValueError(f"invalid loss type {loss_type}")
         return cls(
             denoise_fn=denoise_fn,
             constants=make_diffusion_constants(beta_schedule, timesteps),
@@ -72,6 +81,9 @@ class GaussianDiffusion:
             clip_denoised=clip_denoised,
             ddim_sampling_eta=float(ddim_sampling_eta),
             mode=mode,
+            loss_type=loss_type,
+            conditional=conditional,
+            clip_loss=clip_loss,
             final_denoise_fn=final_denoise_fn,
             final_denoise_steps=int(final_denoise_steps),
         )
@@ -80,14 +92,51 @@ class GaussianDiffusion:
     def num_timesteps(self) -> int:
         return self.constants.num_timesteps
 
+    def _at(self, name, t, like):
+        """constants.<name>[t] on like's device, shaped to broadcast over
+        like's trailing dims."""
+        table = torch.as_tensor(getattr(self.constants, name), device=like.device)
+        return table[t.to(like.device)].reshape((t.shape[0],) + (1,) * (like.ndim - 1))
+
     def q_sample(self, x_start, t, noise):
         """x_t = sqrt(acp_t) x0 + sqrt(1 - acp_t) eps (reference :360-366)."""
-        c = self.constants
-        idx = t.cpu().numpy()
-        shape = (t.shape[0],) + (1,) * (x_start.ndim - 1)
-        sqrt_acp = torch.as_tensor(c.sqrt_alphas_cumprod[idx], device=x_start.device)
-        sqrt_om = torch.as_tensor(c.sqrt_one_minus_alphas_cumprod[idx], device=x_start.device)
-        return sqrt_acp.reshape(shape) * x_start + sqrt_om.reshape(shape) * noise
+        return (self._at("sqrt_alphas_cumprod", t, x_start) * x_start
+                + self._at("sqrt_one_minus_alphas_cumprod", t, x_start) * noise)
+
+    def p_losses(self, x_start, pose_2d, *, t=None, noise=None, generator=None,
+                 dp_scales=None):
+        """Per-element training loss (reference p_losses:392-419), with
+        x_start's shape: (l1|l2)(x0_hat, x0) * (1 + acp_t / sqrt(1 - acp_t)),
+        the weight clamped at 3 under ``clip_loss``.
+
+        x_start: clean normalised 3D pose [B, F_out, J, 3]; pose_2d:
+        conditioning [B, F, J, 2]. ``t`` [B] (int) and ``noise`` are drawn
+        from ``generator`` when not given, in that order; ``dp_scales`` and
+        ``generator`` go on to the denoiser, which draws its drop-path
+        scales from the generator when ``dp_scales`` is None."""
+        b, f = x_start.shape[0], pose_2d.shape[1]
+        dev = x_start.device
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (b,), generator=generator, device=dev)
+        t = torch.as_tensor(t, device=dev)
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, device=dev)
+        x_noisy = self.q_sample(x_start, t, noise)
+        x_in = x_noisy.repeat_interleave(f, dim=1) if self.mode == "s2f" else x_noisy
+        model_in = torch.cat([pose_2d, x_in], dim=-1) if self.conditional else x_in
+        model_out = self.denoise_fn(model_in, t.float(), dp_scales=dp_scales, generator=generator)
+
+        coef = 1.0 + self._at("alphas_cumprod", t, x_start) / self._at(
+            "sqrt_one_minus_alphas_cumprod", t, x_start)
+        if self.clip_loss:
+            coef = torch.clamp(coef, max=3.0)
+        diff = model_out - x_start
+        err = diff ** 2 if self.loss_type == "l2" else diff.abs()
+        return err * coef
+
+    def training_loss(self, x_start, pose_2d, **kw):
+        """Mean training loss (a scalar tensor); ``kw`` as ``p_losses``."""
+        return self.p_losses(x_start, pose_2d, **kw).mean()
 
     def _ddim_step_tables(self):
         """Per-step schedule scalars as float32 numpy arrays [S]."""

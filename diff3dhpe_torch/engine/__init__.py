@@ -3,6 +3,13 @@ from diff3dhpe_torch.engine.steps import (
     make_denoise_fn,
     make_eval_step,
     make_fast_denoise_fn,
+    make_fast_train_denoise_fn,
+    make_optimizer,
+    make_train_denoise_fn,
+    make_train_step,
 )
 
-__all__ = ["flip_pose", "make_denoise_fn", "make_eval_step", "make_fast_denoise_fn"]
+__all__ = [
+    "flip_pose", "make_denoise_fn", "make_eval_step", "make_fast_denoise_fn",
+    "make_fast_train_denoise_fn", "make_optimizer", "make_train_denoise_fn", "make_train_step",
+]

@@ -1,9 +1,14 @@
-"""Eval step factory: DDIM sampling with flip test-time augmentation.
+"""Train and eval step factories.
 
-Port of the eval side of ``diff3dhpe_tpu/engine/steps.py`` (reference
-evaluate():557-596): the flipped copy of the 2D input rides the same batch
-through ONE sampling pass ([x2d; x2d_flip]); the second half is un-flipped
-with a joint permutation and the two are averaged.
+Port of ``diff3dhpe_tpu/engine/steps.py``:
+
+- train step (reference epoch-loop body, run.py:322-347; the JAX
+  single-device branch): loss = mean(p_losses), one AdamW step with the
+  per-epoch exponential lr decay as a step schedule;
+- eval step (reference evaluate():557-596): the flipped copy of the 2D
+  input rides the same batch through ONE sampling pass ([x2d; x2d_flip]);
+  the second half is un-flipped with a joint permutation and the two are
+  averaged.
 """
 from __future__ import annotations
 
@@ -13,7 +18,12 @@ import torch
 
 from diff3dhpe_torch.device import resolve_device
 from diff3dhpe_torch.diffusion.gaussian_diffusion import GaussianDiffusion
-from diff3dhpe_torch.models.fast_eval import fast_forward_denoise
+from diff3dhpe_torch.models.fast_eval import (
+    FastTrainCfg,
+    draw_drop_path_scales,
+    fast_forward_denoise,
+    fast_forward_denoise_train_pairs,
+)
 
 
 def make_denoise_fn(model) -> Callable:
@@ -34,6 +44,75 @@ def make_fast_denoise_fn(model) -> Callable:
         return fast_forward_denoise(model, x, t)
 
     return denoise_fn
+
+
+def _train_denoise_fn(model, drop_path_rate, forward):
+    """denoise_fn(x, t, *, dp_scales=None, generator=None) for training:
+    ``forward(x, t, dp_scales)``, with the drop-path scales drawn from the
+    generator when they are not given (neither: no drop-path)."""
+
+    def denoise_fn(x, t, *, dp_scales=None, generator=None):
+        if dp_scales is None and generator is not None:
+            dp_scales = draw_drop_path_scales(generator, x.shape[0], model.depth, drop_path_rate,
+                                              x.shape[1], x.shape[2])
+        return forward(x, t, dp_scales)
+
+    return denoise_fn
+
+
+def make_fast_train_denoise_fn(model, drop_path_rate: float = 0.1, attn_bwd: bool = False,
+                               pair_vjp: bool = True, ckpt_blocks: bool = False) -> Callable:
+    """Training denoise_fn on the fused forward with the pair-boundary
+    recompute backward (``models.fast_eval.fast_forward_denoise_train_pairs``).
+    ``attn_bwd``: the recompute's attention runs through
+    ``grand_attention_trainable`` (its kernels on CUDA). The monolithic
+    backward (``pair_vjp=False``) and ``ckpt_blocks`` are not ported."""
+    if not pair_vjp:
+        raise NotImplementedError("only the pair-boundary backward (pair_vjp=True) is ported")
+    cfg = FastTrainCfg(attn_bwd=attn_bwd, ckpt_blocks=ckpt_blocks)
+    return _train_denoise_fn(
+        model, drop_path_rate,
+        lambda x, t, dp: fast_forward_denoise_train_pairs(model, x, t, dp, cfg),
+    )
+
+
+def make_train_denoise_fn(model, drop_path_rate: float = 0.1) -> Callable:
+    """The plain counterpart: the module under ordinary autograd, with the
+    same drop-path scales."""
+    return _train_denoise_fn(model, drop_path_rate, lambda x, t, dp: model(x, t, dp))
+
+
+def make_optimizer(params, learning_rate: float, lr_decay: float, steps_per_epoch: int,
+                   weight_decay: float = 0.1):
+    """(AdamW, LambdaLR): optax's adamw as JAX ``make_optimizer`` builds it
+    (β 0.9/0.999, eps 1e-8 outside the square root, decoupled weight decay
+    on every parameter) with lr = learning_rate · lr_decay^(step //
+    steps_per_epoch) for the update of step ``step`` (from 0)."""
+    opt = torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay)
+    spe = max(steps_per_epoch, 1)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda step: lr_decay ** (step // spe))
+    return opt, sched
+
+
+def make_train_step(diffusion: GaussianDiffusion, optimizer, scheduler=None):
+    """Returns train_step(gt_3d_norm, input_2d, *, generator=None, t=None,
+    noise=None, dp_scales=None) -> loss (a detached scalar tensor): one
+    AdamW step on mean(p_losses) over the parameters ``optimizer`` holds.
+    t, noise and the drop-path scales are drawn from ``generator`` where
+    they are not given."""
+
+    def train_step(gt_3d_norm, input_2d, *, generator=None, t=None, noise=None, dp_scales=None):
+        optimizer.zero_grad(set_to_none=True)
+        loss = diffusion.training_loss(gt_3d_norm, input_2d, t=t, noise=noise,
+                                       generator=generator, dp_scales=dp_scales)
+        loss.backward()
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        return loss.detach()
+
+    return train_step
 
 
 def flip_pose(pose, joints_left: Sequence[int], joints_right: Sequence[int]):

@@ -7,6 +7,9 @@ it takes the JAX param tree as nested dicts of numpy arrays (anything
 of ``ConditionalDiffusionMixSTES2SGRANDLinLift.state_dict()``, which
 ``models.mixste.MixSTEDenoiser`` also uses. Dense kernels are transposed
 from flax [in, out] to torch [out, in].
+
+A JAX gradient tree has the param tree's structure, so the same call maps
+gradients to the names of the port's parameters (and their ``.grad``).
 """
 from __future__ import annotations
 

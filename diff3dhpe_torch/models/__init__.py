@@ -1,4 +1,12 @@
-from diff3dhpe_torch.models.fast_eval import fast_forward_denoise
+from diff3dhpe_torch.models.fast_eval import (
+    FastTrainCfg,
+    draw_drop_path_scales,
+    fast_forward_denoise,
+    fast_forward_denoise_train_pairs,
+)
 from diff3dhpe_torch.models.mixste import MixSTEDenoiser, sinusoidal_pos_emb
 
-__all__ = ["MixSTEDenoiser", "fast_forward_denoise", "sinusoidal_pos_emb"]
+__all__ = [
+    "FastTrainCfg", "MixSTEDenoiser", "draw_drop_path_scales", "fast_forward_denoise",
+    "fast_forward_denoise_train_pairs", "sinusoidal_pos_emb",
+]

@@ -17,7 +17,10 @@ Per denoise call (x: [B, F, J, in_chans + 3] = 2D xy ++ noisy 3D xyz):
   [s2f: learned weighted mean over frames]
   head: LayerNorm (eps 1e-5) -> Linear C->3
 
-Eval only: dropout and drop-path are inactive at eval and not ported yet.
+Drop-path (stochastic depth) takes explicit scales: ``forward(x, time,
+dp_scales)`` with one scale per attention group and residual branch, the
+counterpart of the flax ``DropPath`` and of JAX's ``xla_forward_denoise``
+with ``dp_scales``. Dropout is 0 in every shipped config and not ported.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from diff3dhpe_torch.device import resolve_device
-from diff3dhpe_torch.ops.attention import grand_attention
+from diff3dhpe_torch.ops.attention import grand_attention, grand_attention_trainable
 
 
 def sinusoidal_pos_emb(t, dim: int):
@@ -78,11 +81,14 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x):
+    def forward(self, x, attn_bwd: bool = False):
+        """``attn_bwd``: the attention core runs through
+        ``grand_attention_trainable`` (its kernels on CUDA) instead of the
+        autograd of the plain formulas."""
         b, n, c = x.shape
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        out = grand_attention(q, k, v, self.scale)
+        out = grand_attention_trainable(q, k, v) if attn_bwd else grand_attention(q, k, v, self.scale)
         return self.proj(out.transpose(1, 2).reshape(b, n, c))
 
 
@@ -90,7 +96,9 @@ class Block(nn.Module):
     """Pre-norm transformer block with per-block diffusion-time injection
     (reference Block:90-135). Operates on [B, F, J, C]; ``is_spatial``
     selects whether attention mixes joints (per frame) or frames (per
-    joint)."""
+    joint). ``dp`` [B, G, 2] scales the attention (column 0) and MLP
+    (column 1) branches of each attention group: G = F frames for a spatial
+    block, J joints for a temporal one (JAX ``_xla_block``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, qkv_bias: bool,
                  with_time_emb: bool = True):
@@ -103,7 +111,7 @@ class Block(nn.Module):
             nn.Sequential(nn.SiLU(), nn.Linear(dim * 2, dim)) if with_time_emb else None
         )
 
-    def forward(self, x, is_spatial: bool, time_emb=None):
+    def forward(self, x, is_spatial: bool, time_emb=None, dp=None, attn_bwd: bool = False):
         b, f, p, c = x.shape
         if self.time_mlp is not None and time_emb is not None:
             x = x + self.time_mlp(time_emb)[:, None, None, :]
@@ -111,8 +119,11 @@ class Block(nn.Module):
             tokens = x.reshape(b * f, p, c)
         else:
             tokens = x.transpose(1, 2).reshape(b * p, f, c)
-        tokens = tokens + self.attn(self.norm1(tokens))
-        tokens = tokens + self.mlp(self.norm2(tokens))
+        def branch(col, y):
+            return y if dp is None else dp[:, :, col].reshape(-1, 1, 1) * y
+
+        tokens = tokens + branch(0, self.attn(self.norm1(tokens), attn_bwd))
+        tokens = tokens + branch(1, self.mlp(self.norm2(tokens)))
         if is_spatial:
             return tokens.reshape(b, f, p, c)
         return tokens.reshape(b, p, f, c).transpose(1, 2)
@@ -190,18 +201,36 @@ class MixSTEDenoiser(nn.Module):
         w = self.weighted_mean.weight.reshape(-1)
         return torch.einsum("bfpc,f->bpc", x, w)[:, None] + self.weighted_mean.bias
 
-    def forward(self, x, time):
+    def pair(self, i, x, t, dp_s=None, dp_t=None, attn_bwd: bool = False):
+        """Block pair i on [B, F, J, C]: spatial block, Spatial_norm, [the
+        temporal position embedding when i == 0], temporal block,
+        Temporal_norm. ``t`` is the [B, 2C] time embedding (or None); dp_s
+        [B, F, 2], dp_t [B, J, 2] the pair's drop-path scales. The port of
+        JAX ``_xla_pair``, and the recompute target of the fused pair's
+        backward (``models.fast_eval``)."""
+        x = self.Spatial_norm(self.STEblocks[i](x, True, t, dp_s, attn_bwd))
+        if i == 0:
+            x = x + self.Temporal_pos_embed[:, :, None, :]
+        return self.Temporal_norm(self.TTEblocks[i](x, False, t, dp_t, attn_bwd))
+
+    def pair_parameters(self, i):
+        """The parameters that block pair i reads, in a fixed order."""
+        mods = (self.STEblocks[i], self.TTEblocks[i], self.Spatial_norm, self.Temporal_norm)
+        params = [p for m in mods for p in m.parameters()]
+        return params + [self.Temporal_pos_embed] if i == 0 else params
+
+    def forward(self, x, time, dp_scales=None):
+        """``dp_scales``: None, or (dp_spatial [depth, B, F, 2], dp_temporal
+        [depth, B, J, 2]) drop-path scales (``draw_drop_path_scales``)."""
         if x.ndim != 4:
             raise ValueError(f"expected x of shape [B, F, J, C], got {tuple(x.shape)}")
+        dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
         x = self.fusion_layer(x)
         t = self.time_embedding(time)
+        x = x + self.Spatial_pos_embed[None]
         for i in range(self.depth):
-            if i == 0:
-                x = x + self.Spatial_pos_embed[None]
-            x = self.Spatial_norm(self.STEblocks[i](x, True, t))
-            if i == 0:
-                x = x + self.Temporal_pos_embed[:, :, None, :]
-            x = self.Temporal_norm(self.TTEblocks[i](x, False, t))
+            x = self.pair(i, x, t, None if dp_sp is None else dp_sp[i],
+                          None if dp_tp is None else dp_tp[i])
         if self.mode == "s2f":
             x = self.weighted_mean_over_frames(x)
         return self.head(x)

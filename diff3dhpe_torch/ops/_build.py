@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with nvcc and bind them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``build/diff3dhpe_torch/<name>-<hash>.so``
-at first use, where the hash covers the source and the flags, so an edited
-source rebuilds and an unchanged one loads from the cache. The libraries
+at first use, where the hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads from the cache. The libraries
 have a plain C interface (no PyTorch headers), so a build takes seconds.
 Nothing here runs at import time: this module imports on machines without
 nvcc or a GPU.
@@ -20,7 +21,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "diff3dhpe_torch"
-SOURCES = ("fused_block",)
+SOURCES = ("fused_block", "grand_attention")
 # No --use_fast_math: exact erff/expf/sqrtf are part of the numerics.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -30,12 +31,13 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes per exported function. Every pointer and the stream go as
 # c_void_p: a bare Python int would be passed as a 32-bit int.
 SIGNATURES = {
     "fused_block": {
         "diff3dhpe_fused_block_f32": (
-            [_P, _P, _I]                       # x, t_rows, rows_per_item
+            [_P, _P, _I, _P]                   # x, t_rows, rows_per_item, dp
             + [_P, _P, _F]                     # ln1 w, b, eps
             + [_P, _P, _P, _P]                 # qkv w, b; proj w, b
             + [_P, _P, _F]                     # ln2 w, b, eps
@@ -47,6 +49,20 @@ SIGNATURES = {
         ),
         "diff3dhpe_attn_head_dim": [],
         "diff3dhpe_attn_max_n": [],
+    },
+    "grand_attention": {
+        "diff3dhpe_grand_attn_fwd_f32": (
+            [_P] * 4 + [_I] * 3                # q, k, v, out; B, H, n
+            + [_L] * 12                        # (b, h, n) strides of q, k, v, out
+            + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
+        ),
+        "diff3dhpe_grand_attn_bwd_f32": (
+            [_P] * 8 + [_I] * 3                # q, k, v, dO, dq, dk, dv, stats; B, H, n
+            + [_L] * 21                        # (b, h, n) strides of q, k, v, dO, dq, dk, dv
+            + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
+        ),
+        "diff3dhpe_grand_head_dim": [],
+        "diff3dhpe_grand_max_n": [],
     },
 }
 
@@ -62,7 +78,7 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

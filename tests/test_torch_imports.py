@@ -57,3 +57,21 @@ def test_default_device_raises_without_gpu(monkeypatch):
         make_eval_step(GaussianDiffusion.create(None, 10, 2), [1], [4])
     cpu_model = MixSTEDenoiser(embed_dim=32, depth=1, num_heads=4, device="cpu")
     assert next(cpu_model.parameters()).device.type == "cpu"
+
+
+def test_every_binding_names_a_function_of_its_source():
+    """Each library in SOURCES has its csrc/<name>.cu, and every function
+    the ctypes binding declares is exported there with the declared number
+    of parameters (a mismatch would pass garbage without any error)."""
+    import re
+
+    from diff3dhpe_torch.ops._build import CSRC, SIGNATURES, SOURCES
+
+    assert set(SIGNATURES) == set(SOURCES)
+    for name in SOURCES:
+        src = (CSRC / f"{name}.cu").read_text()
+        for fn, argtypes in SIGNATURES[name].items():
+            m = re.search(rf'extern "C" int {fn}\(([^)]*)\)', src)
+            assert m, f"{fn} is not exported by {name}.cu"
+            params = [p for p in m.group(1).split(",") if p.strip()]
+            assert len(params) == len(argtypes), (fn, len(params), len(argtypes))
