@@ -17,9 +17,10 @@ weights from the port's seeded init:
 
 Any failed check raises and the script exits non-zero.
 
-Output: one line per phase (1 build; 2 B1 vs plain, with drop-path too;
-3 full-width forward; 4 the eval step; 5 its profile; 6 B3 and B4 vs
-plain at the train shape; 7a the train step's loss, gradients and
+Output: one line per phase (1 build; 2 B1 vs plain, with drop-path too,
+at the eval and the train step's row counts; 3 full-width forward; 4 the
+eval step; 5 its profile; 6 B3 and B4 vs plain at the train shape; 7a
+the train step's loss, gradients and
 launches vs the plain module at B=4; 7b three timed AdamW steps at B=24;
 7c their profile); then a JSON line with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Exits non-zero without a
@@ -225,7 +226,22 @@ def main():
                                                                  **kw))
             check(dp_rel <= KERNEL_REL_TOL,
                   f"{shape} kernel with drop-path rel err {dp_rel:.3e} > {KERNEL_REL_TOL}")
-            abs_err = max(abs_err, dp_abs)
+            # The train step's row count, R = 24·243·17, with per-row
+            # drop-path scales, the time add and the out-LN, as its 16 block
+            # calls run B1.
+            r_train = TRAIN_BATCH * FRAMES * JOINTS
+            x_train = randn(r_train, EMBED)
+            kw_train = dict(t_rows=randn(TRAIN_BATCH, EMBED, scale=0.5),
+                            rows_per_item=FRAMES * JOINTS, out_ln=out_ln,
+                            dp_scales=(torch.rand(r_train, 2, generator=gen, device=dev)
+                                       < 0.9).float() / 0.9)
+            tr_abs, tr_rel = rel_err(
+                fused_transformer_block(x_train, block, n, HEADS, **kw_train),
+                fused_transformer_block_ref(x_train, block, n, HEADS, **kw_train))
+            check(tr_rel <= KERNEL_REL_TOL, f"{shape} kernel with drop-path at R={r_train} "
+                  f"rel err {tr_rel:.3e} > {KERNEL_REL_TOL}")
+            del x_train, kw_train
+            abs_err = max(abs_err, dp_abs, tr_abs)
             ms, plain_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(lib)
             flops, nbytes = block_work(rows, n, EMBED, hidden, 2 * BATCH)
             per_shape[shape] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
@@ -236,6 +252,7 @@ def main():
                 f"(tol {KERNEL_REL_TOL}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={lib_ms:.4f} (library vs plain max_abs {lib_abs:.3e}) "
                 f"drop-path rel_err={dp_rel:.3e} "
+                f"drop-path at train R={r_train} rel_err={tr_rel:.3e} max_abs_err={tr_abs:.3e} "
                 f"bound_ms={bound_ms:.4f} GFLOP={flops / 1e9:.2f} "
                 f"achieved_TFLOPs={flops / ms / 1e9:.2f}")
             del block, out_ln, x, out, ref, dp

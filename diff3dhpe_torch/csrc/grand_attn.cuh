@@ -90,11 +90,17 @@ __global__ void grand_attn_kernel(const float* __restrict__ q, const float* __re
   const float* vbase = v + b * sv.b + h * sv.h;
   float* obase = out + b * so.b + h * so.h;
 
-  load_padded(Ks, kbase, sk.n, n, 1.0f);
+  // K and V in one loop: two loads in flight per thread and iteration.
   for (int e = threadIdx.x; e < n * (kHeadDim / 4); e += blockDim.x) {
     const int j = e / (kHeadDim / 4), c4 = (e % (kHeadDim / 4)) * 4;
-    *reinterpret_cast<float4*>(Vs + j * kHeadDim + c4) =
-        *reinterpret_cast<const float4*>(vbase + j * sv.n + c4);
+    const float4 kv = *reinterpret_cast<const float4*>(kbase + j * sk.n + c4);
+    const float4 vv = *reinterpret_cast<const float4*>(vbase + j * sv.n + c4);
+    float* kd = Ks + j * kPadDim + c4;
+    kd[0] = kv.x;
+    kd[1] = kv.y;
+    kd[2] = kv.z;
+    kd[3] = kv.w;
+    *reinterpret_cast<float4*>(Vs + j * kHeadDim + c4) = vv;
   }
   __syncthreads();
 

@@ -19,7 +19,6 @@ import torch
 from diff3dhpe_torch.device import resolve_device
 from diff3dhpe_torch.diffusion.gaussian_diffusion import GaussianDiffusion
 from diff3dhpe_torch.models.fast_eval import (
-    FastTrainCfg,
     draw_drop_path_scales,
     fast_forward_denoise,
     fast_forward_denoise_train_pairs,
@@ -60,19 +59,15 @@ def _train_denoise_fn(model, drop_path_rate, forward):
     return denoise_fn
 
 
-def make_fast_train_denoise_fn(model, drop_path_rate: float = 0.1, attn_bwd: bool = False,
-                               pair_vjp: bool = True, ckpt_blocks: bool = False) -> Callable:
+def make_fast_train_denoise_fn(model, drop_path_rate: float = 0.1,
+                               attn_bwd: bool = False) -> Callable:
     """Training denoise_fn on the fused forward with the pair-boundary
     recompute backward (``models.fast_eval.fast_forward_denoise_train_pairs``).
     ``attn_bwd``: the recompute's attention runs through
-    ``grand_attention_trainable`` (its kernels on CUDA). The monolithic
-    backward (``pair_vjp=False``) and ``ckpt_blocks`` are not ported."""
-    if not pair_vjp:
-        raise NotImplementedError("only the pair-boundary backward (pair_vjp=True) is ported")
-    cfg = FastTrainCfg(attn_bwd=attn_bwd, ckpt_blocks=ckpt_blocks)
+    ``grand_attention_trainable`` (its kernels on CUDA)."""
     return _train_denoise_fn(
         model, drop_path_rate,
-        lambda x, t, dp: fast_forward_denoise_train_pairs(model, x, t, dp, cfg),
+        lambda x, t, dp: fast_forward_denoise_train_pairs(model, x, t, dp, attn_bwd),
     )
 
 

@@ -1,5 +1,4 @@
 from diff3dhpe_torch.models.fast_eval import (
-    FastTrainCfg,
     draw_drop_path_scales,
     fast_forward_denoise,
     fast_forward_denoise_train_pairs,
@@ -7,6 +6,6 @@ from diff3dhpe_torch.models.fast_eval import (
 from diff3dhpe_torch.models.mixste import MixSTEDenoiser, sinusoidal_pos_emb
 
 __all__ = [
-    "FastTrainCfg", "MixSTEDenoiser", "draw_drop_path_scales", "fast_forward_denoise",
+    "MixSTEDenoiser", "draw_drop_path_scales", "fast_forward_denoise",
     "fast_forward_denoise_train_pairs", "sinusoidal_pos_emb",
 ]

@@ -25,32 +25,11 @@ the pair through the plain module (``MixSTEDenoiser.pair``) under autograd.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 from torch.nn import functional as F
 
 from diff3dhpe_torch.ops.fused_block import fused_transformer_block
-
-
-@dataclasses.dataclass(frozen=True)
-class FastTrainCfg:
-    """What the port of JAX's ``FastTrainCfg`` keeps; the shapes come from
-    the model. ``attn_bwd``: the recompute's attention runs through
-    ``grand_attention_trainable`` (its kernels on CUDA). Only the f32 rows
-    layout with the pair-boundary backward is ported."""
-
-    attn_bwd: bool = False
-    dtype_name: str = "float32"
-    temporal_mode: str = "rows"
-    ckpt_blocks: bool = False
-
-    def __post_init__(self):
-        if (self.dtype_name, self.temporal_mode, self.ckpt_blocks) != ("float32", "rows", False):
-            raise NotImplementedError(
-                "the port's fast-train path is f32, temporal_mode='rows', without ckpt_blocks"
-            )
 
 
 def _fused_pair(model, i, shape, x_flat, t, dp_s, dp_t):
@@ -147,13 +126,16 @@ class _FusedPair(torch.autograd.Function):
         return (None, None, None, None, d_x, d_t, None, None, *grads)
 
 
-def fast_forward_denoise_train_pairs(model, x, time, dp_scales=None, cfg=FastTrainCfg()):
+def fast_forward_denoise_train_pairs(model, x, time, dp_scales=None, attn_bwd=False):
     """Training forward (JAX ``fast_forward_denoise_train_pairs``): the
     fused forward of ``fast_forward_denoise``, differentiable, with each
     block pair a ``_FusedPair`` whose backward recomputes just that pair.
     The gradients are those of the plain module with the same drop-path
     scales, up to rounding; autograd keeps one [B*F*J, C] boundary per
-    pair plus one pair's recompute at a time."""
+    pair plus one pair's recompute at a time. ``attn_bwd``: the
+    recompute's attention runs through ``grand_attention_trainable`` (its
+    kernels on CUDA). The port has only JAX's f32 rows layout with the
+    pair-boundary backward."""
     b, f, p, _ = x.shape
     dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
     x = model.fusion_layer(x)
@@ -161,7 +143,7 @@ def fast_forward_denoise_train_pairs(model, x, time, dp_scales=None, cfg=FastTra
     x_flat = (x + model.Spatial_pos_embed[None]).reshape(b * f * p, model.embed_dim)
     for i in range(model.depth):
         x_flat = _FusedPair.apply(
-            model, i, (b, f, p), cfg.attn_bwd, x_flat, t,
+            model, i, (b, f, p), attn_bwd, x_flat, t,
             None if dp_sp is None else dp_sp[i], None if dp_tp is None else dp_tp[i],
             *model.pair_parameters(i),
         )

@@ -16,7 +16,6 @@ from diff3dhpe_torch import (
     grand_attention_fullseq_ref, grand_attention_trainable, make_denoise_fn, make_eval_step,
     make_fast_denoise_fn,
 )
-from diff3dhpe_torch.models.fast_eval import FastTrainCfg
 
 C = 128  # heads = C // 64: the kernel's head width is 64
 
@@ -134,7 +133,7 @@ def test_fast_train_grads_match_module(cuda_device):
     t = torch.tensor([3.0, 700.0], device=cuda_device)
     dp = draw_drop_path_scales(gen, 2, 1, 0.5, 81, 17)
     params = list(model.parameters())
-    out = fast_forward_denoise_train_pairs(model, x, t, dp, FastTrainCfg(attn_bwd=True))
+    out = fast_forward_denoise_train_pairs(model, x, t, dp, attn_bwd=True)
     got = torch.autograd.grad((out ** 2).sum(), params)
     ref = model(x, t, dp)
     want = torch.autograd.grad((ref ** 2).sum(), params)

@@ -17,7 +17,6 @@ from diff3dhpe_torch import (
     fast_forward_denoise_train_pairs, fused_transformer_block, make_fast_train_denoise_fn,
     make_optimizer, make_train_denoise_fn, make_train_step, state_dict_from_flax,
 )
-from diff3dhpe_torch.models.fast_eval import FastTrainCfg
 from diff3dhpe_tpu.diffusion import GaussianDiffusion as JaxDiffusion
 from diff3dhpe_tpu.engine import build_train_state
 from diff3dhpe_tpu.engine import make_train_step as jax_make_train_step
@@ -100,8 +99,7 @@ def test_forward_and_train_forward_with_drop_path_match_jax(rng, pair9):
                                 temporal_mode="rows", attn_bwd=True)
     expected_train = np.asarray(jax.jit(lambda p: jax_fast.fast_forward_denoise_train_pairs(
         p, jnp.asarray(x), jnp.asarray(t), dp, cfg))(params))
-    out_train = fast_forward_denoise_train_pairs(port, _t(x), _t(t), dp_t,
-                                                 FastTrainCfg(attn_bwd=True))
+    out_train = fast_forward_denoise_train_pairs(port, _t(x), _t(t), dp_t, attn_bwd=True)
     np.testing.assert_allclose(out_train.detach().numpy(), expected_train, rtol=1e-5, atol=1e-5)
 
 
@@ -123,7 +121,7 @@ def test_pair_train_grads_match_jax(num_frame, embed, heads, depth):
     expected = jax.jit(jax.grad(lambda p: jnp.sum(jax_fast.fast_forward_denoise_train_pairs(
         p, jnp.asarray(x), jnp.asarray(t), dp, cfg) ** 2)))(params)
     out = fast_forward_denoise_train_pairs(port, _t(x), _t(t), tuple(_t(a) for a in dp),
-                                           FastTrainCfg(attn_bwd=True))
+                                           attn_bwd=True)
     (out ** 2).sum().backward()
     rel = _grad_rel(expected, port, depth)
     assert max(rel.values()) < 2e-4, rel
