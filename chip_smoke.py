@@ -10,7 +10,11 @@ then drives the two main paths at the flagship size (243 frames, 17
 joints, embed 512, depth 8, 8 heads, mlp_ratio 2, cosine T=1000), with
 weights from the port's seeded init:
 
-  eval   the flip-TTA DDIM-9 eval step (clip_denoised, logical batch 2);
+  eval   the flip-TTA DDIM-9 eval step (clip_denoised, logical batch 2), in
+         f32 and in the JAX package's shipped "mixed" mode (bench.py: a bf16
+         trunk with an f32 head for 8 steps, the f32 forward for the last),
+         in both temporal layouts (rows: B1 for every block; cols: B2 for
+         the temporal blocks);
   train  the f32 fast-train AdamW step (configs/h36m_gt_s2s_243f.json:
          clip_loss, lr 4e-5, lr_decay 0.99, batch 24; drop_path_rate 0.1),
          pair-boundary backward with the attention kernels (attn_bwd).
@@ -18,14 +22,18 @@ weights from the port's seeded init:
 Any failed check raises and the script exits non-zero.
 
 Output: one line per phase (1 build; 2 B1 vs plain, with drop-path too,
-at the eval and the train step's row counts; 3 full-width forward; 4 the
-eval step; 5 its profile; 6 B3 and B4 vs plain at the train shape; 7a
-the train step's loss, gradients and
-launches vs the plain module at B=4; 7b three timed AdamW steps at B=24;
-7c their profile); then a JSON line with every kernel's numbers;
-the last line is {"ok": true, "device": {...}}. Exits non-zero without a
-CUDA device, and where the port's package is not beside this script.
+at the eval and the train step's row counts; 2b B1 at bf16 vs plain; 2c
+B2 vs plain at f32 (with drop-path also at the train step's rows) and
+bf16; 3 full-width forward; 4 the f32 eval step; 5 its profile; 4b the
+mixed eval step in rows and cols, and the pure-bf16 one; 5b the mixed rows
+step's profile; 6 B3 and B4 vs plain at the train shape; 7a the train
+step's loss, gradients and launches vs the plain module at B=4; 7b three
+timed AdamW steps at B=24; 7c their profile); then a JSON line with every
+kernel's numbers; the last line is {"ok": true, "device": {...}}. Exits
+non-zero without a CUDA device, and where the port's package is not
+beside this script.
 """
+import copy
 import json
 import math
 import statistics
@@ -56,14 +64,24 @@ LR, LR_DECAY, DROP_PATH = 4e-5, 0.99, 0.1
 # module's own autograd apart from B4), and eight pairs of depth pass those
 # roundings on through the backward.
 LOSS_REL_TOL, GRAD_REL_TOL = 1e-5, 1e-3
+# bf16 kernels vs their plain versions, relative to max|plain|, compared in
+# f32: both round at the same points, and f32 sums taken in another order
+# flip single bf16 roundings (2^-8 relative each).
+BF16_MAX_TOL, BF16_MEAN_TOL = 1e-2, 1e-3
+COLS_VS_ROWS_BOUND = 1e-3  # the mixed eval in the two layouts, absolute
+# The mixed eval is held against the pure-bf16 one by their mean per-joint
+# position error (the repo's MPJPE, in normalised units) from the plain f32
+# eval: on this untrained net each forward carries bf16 rounding on to a
+# few percent of its output, and the max over ~25k values is one outlier.
 
 # Peaks used for bound_ms (NVIDIA data sheets, dense, full power limit):
-# float32 outside the tensor cores, and device-memory bandwidth.
-CARD_PEAKS = {  # name fragment -> (f32 FLOP/s, bytes/s)
-    "H100 PCIe": (51e12, 2.0e12),
-    "H100 NVL": (60e12, 3.9e12),
-    "H200": (67e12, 4.8e12),
-    "H100": (67e12, 3.35e12),  # SXM
+# float32 outside the tensor cores, bf16 on the tensor cores, and
+# device-memory bandwidth.
+CARD_PEAKS = {  # name fragment -> (f32 FLOP/s, bf16 FLOP/s, bytes/s)
+    "H100 PCIe": (51e12, 756e12, 2.0e12),
+    "H100 NVL": (60e12, 835e12, 3.9e12),
+    "H200": (67e12, 989e12, 4.8e12),
+    "H100": (67e12, 989e12, 3.35e12),  # SXM
 }
 
 
@@ -112,14 +130,27 @@ def profile_step(label, fn, top_n=10):
             f"({e.self_device_time_total / 1e3 / busy_ms:.3f})" for e in top))
 
 
+def mpjpe(pred, ref):
+    """Mean over (sample, frame, joint) of the L2 distance of the xyz."""
+    return (pred.float() - ref.float()).norm(dim=-1).mean().item()
+
+
 def rel_err(out, ref):
     abs_err = (out - ref).abs().max().item()
     return abs_err, abs_err / ref.abs().max().item()
 
 
+def bf16_errs(out, ref):
+    """(max abs, max rel, mean rel) of a bf16 kernel against its plain
+    version, in f32, relative to max|plain|."""
+    diff, scale = (out.float() - ref.float()).abs(), ref.float().abs().max().item()
+    return diff.max().item(), diff.max().item() / scale, diff.mean().item() / scale
+
+
 def library_block(x, block, n, heads, t_rows, rows_per_item, out_ln):
     """The same block composed from PyTorch library calls (SDPA for the
-    attention core): the yardstick of library_ms, never called by the port."""
+    attention core): the yardstick of library_ms, never called by the port.
+    Runs in x's dtype (block, out_ln and t_rows in it too)."""
     from torch.nn import functional as F
 
     r, c = x.shape
@@ -135,13 +166,25 @@ def library_block(x, block, n, heads, t_rows, rows_per_item, out_ln):
     return F.layer_norm(out, (c,), out_ln.weight, out_ln.bias, out_ln.eps)
 
 
-def block_work(r, n, c, hidden, items):
+def library_cols(x, block, n, j_groups, heads, t_rows, out_ln):
+    """B2's function from library calls: the transposes around
+    ``library_block`` on frame-contiguous groups."""
+    rows, cols = x.shape
+    b, c = rows // n, cols // j_groups
+    xt = x.view(b, n, j_groups, c).transpose(1, 2).reshape(-1, c)
+    out = library_block(xt, block, n, heads, t_rows, n * j_groups, out_ln)
+    return out.view(b, j_groups, n, c).transpose(1, 2).reshape(rows, cols)
+
+
+def block_work(r, n, c, hidden, items, itemsize=4):
     """(FLOPs, bytes) one block call must do and move: the four GEMMs and
     the attention products; x, t_rows and the weights read once, the
-    output written once."""
+    output written once, in storage of ``itemsize`` bytes (LN parameters
+    and biases float32)."""
     flops = 2 * r * c * (3 * c + c + 2 * hidden) + 4 * r * n * c
-    weights = 3 * c * c + 3 * c + c * c + c + c * hidden + hidden + hidden * c + c + 6 * c
-    return flops, 4 * (2 * r * c + items * c + weights)
+    weights = 3 * c * c + c * c + c * hidden + hidden * c
+    vectors = 3 * c + c + hidden + c + 6 * c
+    return flops, itemsize * (2 * r * c + items * c + weights) + 4 * vectors
 
 
 def train_step_flops(b, hidden):
@@ -165,10 +208,11 @@ def main():
 
     from diff3dhpe_torch import (
         GaussianDiffusion, MixSTEDenoiser, draw_drop_path_scales, fast_forward_denoise,
-        flip_pose, fused_transformer_block, fused_transformer_block_ref, grand_attention_bwd,
+        flip_pose, fused_temporal_block_cols, fused_temporal_block_cols_ref,
+        fused_transformer_block, fused_transformer_block_ref, grand_attention_bwd,
         grand_attention_bwd_ref, grand_attention_fullseq, grand_attention_fullseq_ref,
         make_denoise_fn, make_eval_step, make_fast_denoise_fn, make_fast_train_denoise_fn,
-        make_optimizer, make_train_denoise_fn, make_train_step,
+        make_mixed_diffusion, make_optimizer, make_train_denoise_fn, make_train_step,
     )
     from diff3dhpe_torch.models.mixste import Block, init_weights
     from diff3dhpe_torch.ops._build import SOURCES, build_all
@@ -180,7 +224,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     say(smi.stdout.strip().splitlines()[0])
-    peak_flops, mem_rate = next(v for k, v in CARD_PEAKS.items() if k in kind)
+    peak_flops, peak_bf16, mem_rate = next(v for k, v in CARD_PEAKS.items() if k in kind)
 
     # Phase 1: build every kernel source from the checkout.
     t0 = time.perf_counter()
@@ -257,6 +301,134 @@ def main():
                 f"achieved_TFLOPs={flops / ms / 1e9:.2f}")
             del block, out_ln, x, out, ref, dp
 
+    def timings(run, plain, lib, flops, nbytes, peak):
+        ms, plain_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(lib)
+        by_ops = flops / peak >= nbytes / mem_rate
+        return dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, flops=flops, bytes=nbytes,
+                    bound_ms=max(flops / peak, nbytes / mem_rate) * 1e3,
+                    bound_by="operations" if by_ops else "bytes")
+
+    def make_block(seed):
+        """A block and an out-LN with random weights and non-trivial LNs."""
+        block = Block(EMBED, HEADS, MLP_RATIO, qkv_bias=True)
+        init_weights(block, torch.Generator().manual_seed(seed))
+        block = block.to(dev)
+        out_ln = torch.nn.LayerNorm(EMBED, eps=1e-6).to(dev)
+        with torch.no_grad():
+            for ln in (block.norm1, block.norm2, out_ln):
+                ln.weight.copy_(1.0 + randn(EMBED, scale=0.2))
+                ln.bias.copy_(randn(EMBED, scale=0.2))
+        return block, out_ln
+
+    def check_bf16(label, out, ref):
+        abs_err, rel, mean_rel = bf16_errs(out, ref)
+        check(out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all().item(),
+              f"{label}: output not finite bf16")
+        check(rel <= BF16_MAX_TOL and mean_rel <= BF16_MEAN_TOL,
+              f"{label}: max rel err {rel:.3e} (tol {BF16_MAX_TOL}), mean {mean_rel:.3e} "
+              f"(tol {BF16_MEAN_TOL})")
+        return abs_err, rel, mean_rel
+
+    # Phase 2b: B1 at bf16 against its plain version at both eval shapes,
+    # with the time add and the out-LN; weights made bf16 once (as the bf16
+    # denoise_fn's snapshot holds them). The library yardstick is the same
+    # block in bf16 from F.layer_norm/F.linear/SDPA.
+    per_shape_bf16 = {}
+    with torch.no_grad():
+        for shape, n in (("spatial", JOINTS), ("temporal", FRAMES)):
+            block, out_ln = make_block(1)
+            block_bf = copy.deepcopy(block)
+            for m in (block_bf.attn.qkv, block_bf.attn.proj, block_bf.mlp.fc1, block_bf.mlp.fc2):
+                m.weight.data = m.weight.data.bfloat16()
+            block_lib, out_ln_lib = copy.deepcopy(block).bfloat16(), copy.deepcopy(out_ln).bfloat16()
+            x = randn(rows, EMBED).bfloat16()
+            t_rows = randn(2 * BATCH, EMBED, scale=0.5).bfloat16()
+            kw = dict(t_rows=t_rows, rows_per_item=rows // (2 * BATCH), out_ln=out_ln)
+            run = lambda: fused_transformer_block(x, block_bf, n, HEADS, **kw)
+            plain = lambda: fused_transformer_block_ref(x, block_bf, n, HEADS, **kw)
+            lib = lambda: library_block(x, block_lib, n, HEADS, t_rows, rows // (2 * BATCH),
+                                        out_ln_lib)
+            abs_err, rel, mean_rel = check_bf16(f"{shape} bf16 kernel", run(), plain())
+            lib_abs, _, _ = bf16_errs(lib(), plain())
+            t = timings(run, plain, lib, *block_work(rows, n, EMBED, hidden, 2 * BATCH, 2),
+                        peak_bf16)
+            per_shape_bf16[shape] = dict(abs_err=abs_err, **t)
+            say(f"phase 2b fused_transformer_block bf16 {shape}: R={rows} n={n} "
+                f"max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} (tol {BF16_MAX_TOL}) "
+                f"mean_rel_err={mean_rel:.3e} (tol {BF16_MEAN_TOL}) ms={t['ms']:.4f} "
+                f"plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} "
+                f"(library vs plain max_abs {lib_abs:.3e}) bound_ms={t['bound_ms']:.4f} "
+                f"({t['bound_by']}) achieved_TFLOPs={t['flops'] / t['ms'] / 1e9:.2f}")
+            del block, block_bf, block_lib, out_ln, out_ln_lib, x
+
+    # Phase 2c: B2 against its plain version at the eval shape, x [B*F, J*C]
+    # with per-sample time rows, the out-LN and per-group drop-path, at f32
+    # and bf16; then at f32 at the train step's R = 24·243·17 rows.
+    cols_res = {}
+    with torch.no_grad():
+        block, out_ln = make_block(2)
+        items = 2 * BATCH
+        for dt in (torch.float32, torch.bfloat16):
+            blk, oln = block, out_ln
+            if dt == torch.bfloat16:
+                blk = copy.deepcopy(block)
+                for m in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+                    m.weight.data = m.weight.data.bfloat16()
+            lib_blk, lib_oln = copy.deepcopy(block).to(dt), copy.deepcopy(out_ln).to(dt)
+            x = randn(items * FRAMES, JOINTS * EMBED).to(dt)
+            t_rows = randn(items, EMBED, scale=0.5).to(dt)
+            dp = (torch.rand(items * JOINTS, 2, generator=gen, device=dev) < 0.9).float() / 0.9
+            kw = dict(t_rows=t_rows, out_ln=oln)
+            run = lambda: fused_temporal_block_cols(x, blk, FRAMES, JOINTS, HEADS, **kw)
+            plain = lambda: fused_temporal_block_cols_ref(x, blk, FRAMES, JOINTS, HEADS, **kw)
+            lib = lambda: library_cols(x, lib_blk, FRAMES, JOINTS, HEADS, t_rows, lib_oln)
+            out, ref = run(), plain()
+            out_dp = fused_temporal_block_cols(x, blk, FRAMES, JOINTS, HEADS, dp_scales=dp, **kw)
+            ref_dp = fused_temporal_block_cols_ref(x, blk, FRAMES, JOINTS, HEADS, dp_scales=dp,
+                                                   **kw)
+            torch.cuda.synchronize()
+            name = "f32" if dt == torch.float32 else "bf16"
+            if dt == torch.float32:
+                abs_err, rel = rel_err(out, ref)
+                dp_abs, dp_rel = rel_err(out_dp, ref_dp)
+                check(torch.isfinite(out).all().item(), "B2 f32 output not finite")
+                check(max(rel, dp_rel) <= KERNEL_REL_TOL,
+                      f"B2 f32 rel err {max(rel, dp_rel):.3e} > {KERNEL_REL_TOL}")
+                errs = f"rel_err={rel:.3e} drop-path rel_err={dp_rel:.3e} (tol {KERNEL_REL_TOL})"
+            else:
+                abs_err, rel, mean_rel = check_bf16("B2 bf16", out, ref)
+                dp_abs, dp_rel, dp_mean = check_bf16("B2 bf16 with drop-path", out_dp, ref_dp)
+                errs = (f"max_rel_err={rel:.3e} mean_rel_err={mean_rel:.3e} drop-path "
+                        f"max_rel_err={dp_rel:.3e} mean_rel_err={dp_mean:.3e} "
+                        f"(tol {BF16_MAX_TOL}, {BF16_MEAN_TOL})")
+            lib_abs = (lib().float() - ref.float()).abs().max().item()
+            t = timings(run, plain, lib, *block_work(rows, FRAMES, EMBED, hidden, items,
+                                                     dt.itemsize),
+                        peak_flops if dt == torch.float32 else peak_bf16)
+            cols_res[name] = dict(abs_err=max(abs_err, dp_abs), **t)
+            say(f"phase 2c fused_temporal_block_cols {name}: x=[{items}*{FRAMES}, "
+                f"{JOINTS}*{EMBED}] max_abs_err={max(abs_err, dp_abs):.3e} {errs} "
+                f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} "
+                f"(library vs plain max_abs {lib_abs:.3e}) bound_ms={t['bound_ms']:.4f} "
+                f"({t['bound_by']}) achieved_TFLOPs={t['flops'] / t['ms'] / 1e9:.2f}")
+            del out, ref, out_dp, ref_dp, x, lib_blk, lib_oln
+        # The train step's rows, with per-group drop-path, at f32.
+        x = randn(TRAIN_BATCH * FRAMES, JOINTS * EMBED)
+        kw = dict(t_rows=randn(TRAIN_BATCH, EMBED, scale=0.5), out_ln=out_ln,
+                  dp_scales=(torch.rand(TRAIN_BATCH * JOINTS, 2, generator=gen, device=dev)
+                             < 0.9).float() / 0.9)
+        tr_abs, tr_rel = rel_err(fused_temporal_block_cols(x, block, FRAMES, JOINTS, HEADS, **kw),
+                                 fused_temporal_block_cols_ref(x, block, FRAMES, JOINTS, HEADS,
+                                                               **kw))
+        check(tr_rel <= KERNEL_REL_TOL, f"B2 with drop-path at R={x.numel() // EMBED} rel err "
+              f"{tr_rel:.3e} > {KERNEL_REL_TOL}")
+        cols_res["f32"]["abs_err"] = max(cols_res["f32"]["abs_err"], tr_abs)
+        say(f"phase 2c fused_temporal_block_cols f32 with drop-path at train "
+            f"R={x.numel() // EMBED}: max_abs_err={tr_abs:.3e} rel_err={tr_rel:.3e} "
+            f"(tol {KERNEL_REL_TOL})")
+        del x, kw, block, out_ln
+    torch.cuda.empty_cache()
+
     # Phase 3: one full-width denoiser forward, kernel path vs plain module.
     model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
                            num_heads=HEADS, mlp_ratio=MLP_RATIO, seed=0, device=dev).eval()
@@ -270,8 +442,13 @@ def main():
     check(fast.shape == (2 * BATCH, FRAMES, JOINTS, 3), f"forward shape {tuple(fast.shape)}")
     check(torch.isfinite(fast).all().item(), "forward output not finite")
     check(rel <= KERNEL_REL_TOL, f"forward rel err {rel:.3e} > {KERNEL_REL_TOL}")
+    with torch.no_grad():
+        fast_bf16 = fast_forward_denoise(model, x_in, t_in, dtype=torch.bfloat16)
+    check(torch.isfinite(fast_bf16.float()).all().item(), "bf16 forward output not finite")
+    bf16_abs, bf16_rel = rel_err(fast_bf16.float(), plain)
     say(f"phase 3 forward B={2 * BATCH} F={FRAMES} J={JOINTS} C={EMBED} depth={DEPTH}: "
-        f"max_abs_err={abs_err:.3e} rel_err={rel:.3e} (tol {KERNEL_REL_TOL})")
+        f"max_abs_err={abs_err:.3e} rel_err={rel:.3e} (tol {KERNEL_REL_TOL}); the bf16 forward "
+        f"vs the plain f32 module: max_abs_dev={bf16_abs:.3e} rel_dev={bf16_rel:.3e}")
 
     # Phase 4: the main path, the flip-TTA DDIM eval step.
     kw = dict(timesteps=TIMESTEPS, sampling_timesteps=DDIM_STEPS, clip_denoised=True,
@@ -319,7 +496,71 @@ def main():
     profile_step("phase 5 profile of one eval step",
                  lambda: step_fast(x2d, x2d_flip, x_init=x_init))
     eval_launches = launches
-    del step_fast, step_plain, model, pred, pred_plain
+
+    # Phase 4b: the shipped "mixed" eval (bench.py:101-135) in both layouts,
+    # held against the plain f32 eval of phase 4 on the same x_T, then the
+    # pure-bf16 eval (bench.py's opt-in "bfloat16") once. Counts per path:
+    # 16 block calls x 8 kernels per forward; rows runs B1 for all 16, cols
+    # B1 for the 8 spatial blocks and B2 for the 8 temporal ones; 8 of the
+    # 9 forwards are bf16.
+    counters = (fused_transformer_block, fused_temporal_block_cols)
+
+    def drive(step):
+        for c in counters:
+            c.launches = c.launches_bf16 = 0
+        out = step(x2d, x2d_flip, x_init=x_init)
+        torch.cuda.synchronize()
+        return out, {f"{c.__name__}{suffix}": getattr(c, "launches" + suffix)
+                     for c in counters for suffix in ("", "_bf16")}
+
+    def counts(b1_calls, b2_calls, bf16_steps):
+        per_fwd = {"fused_transformer_block": b1_calls, "fused_temporal_block_cols": b2_calls}
+        return {f"{k}{suffix}": v * per_call * (DDIM_STEPS if suffix == "" else bf16_steps)
+                for k, v in per_fwd.items() for suffix in ("", "_bf16")}
+
+    mixed = {}
+    for mode, b1_calls, b2_calls in (("rows", 2 * DEPTH, 0), ("cols", DEPTH, DEPTH)):
+        step = make_eval_step(make_mixed_diffusion(model, mode, **kw), JOINTS_LEFT, JOINTS_RIGHT,
+                              device=dev)
+        out, got = drive(step)
+        want = counts(b1_calls, b2_calls, DDIM_STEPS - 1)
+        check(got == want, f"mixed {mode} eval launched {got}, expected {want}")
+        check(out.shape == pred_plain.shape and out.dtype == torch.float32
+              and torch.isfinite(out).all().item(), f"mixed {mode} eval output")
+        secs = timed(step)
+        mixed[mode] = dict(out=out, launches=got, dev=(out - pred_plain).abs().max().item(),
+                           mpjpe=mpjpe(out, pred_plain), step_s=secs, step=step)
+    step_bf16 = make_eval_step(GaussianDiffusion.create(
+        make_fast_denoise_fn(model, torch.bfloat16), **kw), JOINTS_LEFT, JOINTS_RIGHT, device=dev)
+    pred_bf16, bf16_launches = drive(step_bf16)
+    want = counts(2 * DEPTH, 0, DDIM_STEPS)
+    check(bf16_launches == want, f"bf16 eval launched {bf16_launches}, expected {want}")
+    check(torch.isfinite(pred_bf16).all().item(), "bf16 eval output not finite")
+    bf16_dev, bf16_mpjpe = (pred_bf16 - pred_plain).abs().max().item(), mpjpe(pred_bf16, pred_plain)
+    bf16_s = timed(step_bf16, reps=1)
+    cols_vs_rows = (mixed["cols"]["out"] - mixed["rows"]["out"]).abs().max().item()
+    for mode, m in mixed.items():
+        say(f"phase 4b mixed eval step {mode} B={BATCH} (x2 flip) DDIM-{DDIM_STEPS}: "
+            f"vs plain f32 max_abs_dev={m['dev']:.3e} mpjpe={m['mpjpe']:.4e} (bound: the bf16 "
+            f"eval's mpjpe {bf16_mpjpe:.4e}) step_s={m['step_s']:.4f} "
+            f"seq_per_s={BATCH / m['step_s']:.3f} launches={m['launches']}")
+    say(f"phase 4b bf16 eval step rows: vs plain f32 max_abs_dev={bf16_dev:.3e} "
+        f"mpjpe={bf16_mpjpe:.4e} step_s={bf16_s:.4f} seq_per_s={BATCH / bf16_s:.3f} "
+        f"launches={bf16_launches}; mixed cols vs rows max_abs={cols_vs_rows:.3e} "
+        f"(bound {COLS_VS_ROWS_BOUND})")
+    for mode, m in mixed.items():
+        check(m["mpjpe"] <= bf16_mpjpe, f"mixed {mode} mpjpe {m['mpjpe']:.4e} > the bf16 "
+              f"eval's {bf16_mpjpe:.4e}")
+    check(cols_vs_rows <= COLS_VS_ROWS_BOUND,
+          f"mixed cols vs rows {cols_vs_rows:.3e} > {COLS_VS_ROWS_BOUND}")
+
+    # Phase 5b: where one mixed rows eval step's device time goes.
+    profile_step("phase 5b profile of one mixed rows eval step",
+                 lambda: mixed["rows"]["step"](x2d, x2d_flip, x_init=x_init), top_n=14)
+    mixed_launches = {f"mixed_eval_{mode}": m["launches"] for mode, m in mixed.items()}
+    mixed_launches["bf16_eval_rows"] = bf16_launches
+    del step_fast, step_plain, step_bf16, step, out, model, pred, pred_plain, pred_bf16, mixed
+    torch.cuda.empty_cache()
 
     # Phase 6: the attention kernels B3 and B4 against their plain versions
     # at the train path's shape and layout: q, k, v are views of one
@@ -450,26 +691,51 @@ def main():
                  top_n=20)
 
     # One entry per kernel. B1's work is one spatial + one temporal call at
-    # the eval shape, the pair each depth level of a forward runs; B3 and B4
-    # are one call at the train shape.
-    tot = lambda key: sum(s[key] for s in per_shape.values())
-    flops, nbytes = tot("flops"), tot("bytes")
-    bound_s = max(flops / peak_flops, nbytes / mem_rate)
+    # the eval shape, the pair each depth level of a forward runs (f32, and
+    # under "bf16" the same at bf16); B2's one call at the eval shape; B3
+    # and B4 are one call at the train shape.
+    def pair_numbers(shapes, peak):
+        tot = lambda key: sum(v[key] for v in shapes.values())
+        flops, nbytes = tot("flops"), tot("bytes")
+        return {"max_abs_err": max(v["abs_err"] for v in shapes.values()), "ms": tot("ms"),
+                "plain_ms": tot("plain_ms"),
+                "bound_ms": max(flops / peak, nbytes / mem_rate) * 1e3,
+                "bound_by": "operations" if flops / peak >= nbytes / mem_rate else "bytes",
+                "library_ms": tot("lib_ms")}
+
+    def one_call(r):
+        return {"max_abs_err": r["abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["lib_ms"]}
+
+    b1_by_path = {"eval_step": eval_launches,
+                  "train_step": train_launches["fused_transformer_block"],
+                  **{k: v["fused_transformer_block"] for k, v in mixed_launches.items()}}
+    b2_by_path = {"eval_step": 0, "train_step": 0,
+                  **{k: v["fused_temporal_block_cols"] for k, v in mixed_launches.items()}}
     entries = [{
         "name": "fused_transformer_block",
         "route": "cuda",
         "source": "diff3dhpe_torch/csrc/fused_block.cu",
         "replaces": "diff3dhpe_tpu/ops/fused_block.py:231",
-        "launches": eval_launches + train_launches["fused_transformer_block"],
-        "launches_by_path": {"eval_step": eval_launches,
-                             "train_step": train_launches["fused_transformer_block"]},
-        "max_abs_err": max(s["abs_err"] for s in per_shape.values()),
-        "ms": tot("ms"),
-        "plain_ms": tot("plain_ms"),
-        "bound_ms": bound_s * 1e3,
-        "bound_by": "operations" if flops / peak_flops >= nbytes / mem_rate else "bytes",
-        "library_ms": tot("lib_ms"),
+        "launches": sum(b1_by_path.values()),
+        "launches_by_path": b1_by_path,
+        "launches_bf16_by_path": {k: v["fused_transformer_block_bf16"]
+                                  for k, v in mixed_launches.items()},
+        **pair_numbers(per_shape, peak_flops),
+        "bf16": pair_numbers(per_shape_bf16, peak_bf16),
         "work": f"one spatial (n={JOINTS}) + one temporal (n={FRAMES}) call, R={rows}, C={EMBED}",
+    }, {
+        "name": "fused_temporal_block_cols",
+        "route": "cuda",
+        "source": "diff3dhpe_torch/csrc/fused_block.cu",
+        "replaces": "diff3dhpe_tpu/ops/fused_block.py:642",
+        "launches": sum(b2_by_path.values()),
+        "launches_by_path": b2_by_path,
+        "launches_bf16_by_path": {k: v["fused_temporal_block_cols_bf16"]
+                                  for k, v in mixed_launches.items()},
+        **one_call(cols_res["f32"]),
+        "bf16": one_call(cols_res["bf16"]),
+        "work": f"one call, x=[{2 * BATCH}*{FRAMES}, {JOINTS}*{EMBED}] (n={FRAMES}), f32",
     }]
     for name, replaces in (("grand_attention_fullseq", "diff3dhpe_tpu/ops/attention.py:185"),
                            ("grand_attention_bwd", "diff3dhpe_tpu/ops/attention.py:303")):
@@ -477,7 +743,8 @@ def main():
         entries.append({
             "name": name, "route": "cuda", "source": "diff3dhpe_torch/csrc/grand_attention.cu",
             "replaces": replaces, "launches": train_launches[name],
-            "launches_by_path": {"eval_step": 0, "train_step": train_launches[name]},
+            "launches_by_path": {"eval_step": 0, "train_step": train_launches[name],
+                                 **{k: 0 for k in mixed_launches}},
             "max_abs_err": a["abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
             "bound_ms": a["bound_ms"], "bound_by": a["bound_by"], "library_ms": a["lib_ms"],
             "work": f"one call, [B*H={g_all}, N={n}, D={hd}] f32",

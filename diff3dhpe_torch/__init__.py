@@ -12,6 +12,7 @@ from diff3dhpe_torch.engine import (
     make_eval_step,
     make_fast_denoise_fn,
     make_fast_train_denoise_fn,
+    make_mixed_diffusion,
     make_optimizer,
     make_train_denoise_fn,
     make_train_step,
@@ -19,11 +20,14 @@ from diff3dhpe_torch.engine import (
 from diff3dhpe_torch.io import state_dict_from_flax
 from diff3dhpe_torch.models import (
     MixSTEDenoiser,
+    bf16_snapshot,
     draw_drop_path_scales,
     fast_forward_denoise,
     fast_forward_denoise_train_pairs,
 )
 from diff3dhpe_torch.ops import (
+    fused_temporal_block_cols,
+    fused_temporal_block_cols_ref,
     fused_transformer_block,
     fused_transformer_block_ref,
     grand_attention,
@@ -35,11 +39,13 @@ from diff3dhpe_torch.ops import (
 )
 
 __all__ = [
-    "GaussianDiffusion", "MixSTEDenoiser", "ddim_time_pairs", "draw_drop_path_scales",
-    "fast_forward_denoise", "fast_forward_denoise_train_pairs", "flip_pose",
+    "GaussianDiffusion", "MixSTEDenoiser", "bf16_snapshot", "ddim_time_pairs",
+    "draw_drop_path_scales", "fast_forward_denoise", "fast_forward_denoise_train_pairs",
+    "flip_pose", "fused_temporal_block_cols", "fused_temporal_block_cols_ref",
     "fused_transformer_block", "fused_transformer_block_ref", "grand_attention",
     "grand_attention_bwd", "grand_attention_bwd_ref", "grand_attention_fullseq",
     "grand_attention_fullseq_ref", "grand_attention_trainable", "make_denoise_fn",
-    "make_eval_step", "make_fast_denoise_fn", "make_fast_train_denoise_fn", "make_optimizer",
-    "make_train_denoise_fn", "make_train_step", "state_dict_from_flax",
+    "make_eval_step", "make_fast_denoise_fn", "make_fast_train_denoise_fn",
+    "make_mixed_diffusion", "make_optimizer", "make_train_denoise_fn", "make_train_step",
+    "state_dict_from_flax",
 ]

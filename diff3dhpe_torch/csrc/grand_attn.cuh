@@ -1,5 +1,5 @@
-// GRAND attention forward for Hopper (sm_90a), f32, shared by
-// fused_block.cu (the attention step of B1) and grand_attention.cu (B3).
+// GRAND attention forward for Hopper (sm_90a), shared by fused_block.cu
+// (the attention step of B1 and B2) and grand_attention.cu (B3).
 //
 //   out[i] = Σ_j softmax_j(q_i·k_j·scale) v_j − v_i
 //
@@ -8,17 +8,26 @@
 // with unit stride along the 64-wide head dimension, so B1 reads q, k and
 // v straight out of its packed qkv [R, 3C] buffer and B3 reads [G, N, 64]
 // tensors or [B, N, 3, H, 64] views of a qkv projection without a copy.
+// With kOuter a group has a second index, blockIdx.z, with its own stride:
+// B2's group (b, j) of the spatial-major rows (b·F + f)·J + j.
 //
 // Design: one block per (group, head). The group's K and V for that head
 // sit in shared memory (> 48 KB at n = 243, hence dynamic shared memory);
 // each warp takes 4 queries at a time, holds their scores in registers
-// (n <= 256: 8 keys per lane), and normalises after the AV product, as the
-// JAX f32 epilogue does. K carries a pad column so that the per-lane key
-// reads are free of bank conflicts. expf and IEEE division, no fast math.
+// (n <= 256: 8 keys per lane). K carries a pad column so that the per-lane
+// key reads are free of bank conflicts. expf and IEEE division, no fast math.
+//
+// Storage type T: float, or __nv_bfloat16 with float arithmetic. As in JAX
+// (ops/attention.py::grand_attend_tile), float normalises after the AV
+// product; bf16 normalises first, rounds P to bf16, and rounds the output
+// (P·V − v, summed in float) to bf16 once.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace grand {
 
@@ -29,10 +38,26 @@ constexpr int kQueriesPerWarp = 4;
 constexpr int kMaxWarps = 8;
 constexpr int kPadDim = kHeadDim + 1;  // row stride of a padded [n][64] tile
 
-// Element strides of one [B, H, N, 64] operand.
+// Element strides of one [B, H, N, 64] operand; z is the stride of the
+// outer group index (read only by the kOuter kernel).
 struct Strides {
-  long long b, h, n;
+  long long b, h, n, z;
 };
+
+// Row stride of the K tile in shared memory: one pad element for float
+// (65 words), two for bf16 (33 words), so that lane j's reads of row j fall
+// in distinct banks.
+template <typename T>
+__host__ __device__ constexpr int k_stride() {
+  return std::is_same<T, float>::value ? kHeadDim + 1 : kHeadDim + 2;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -63,44 +88,70 @@ __device__ __forceinline__ void load_padded(float* dst, const float* src, long l
   }
 }
 
-// Shared memory of grand_attn_kernel, in floats, laid out so that every
-// float4 access is 16-byte aligned: Q [warps][4][64], P [warps][n32][4],
-// V [n][64], K [n][65].
-__host__ __device__ inline size_t attn_smem_floats(int n, int warps) {
-  return (size_t)warps * kQueriesPerWarp * kHeadDim +
-         (size_t)warps * round32(n) * kQueriesPerWarp + (size_t)n * kHeadDim +
-         (size_t)n * kPadDim;
+// Shared memory of grand_attn_kernel<T>, in bytes, laid out so that every
+// 16-byte access is aligned: float Q [warps][4][64] and P [warps][n32][4],
+// then T V [n][64] and K [n][k_stride<T>()].
+template <typename T>
+__host__ __device__ inline size_t attn_smem_bytes(int n, int warps) {
+  return ((size_t)warps * kQueriesPerWarp * kHeadDim + (size_t)warps * round32(n) * kQueriesPerWarp) *
+             sizeof(float) +
+         ((size_t)n * kHeadDim + (size_t)n * k_stride<T>()) * sizeof(T);
 }
 
-__global__ void grand_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                  const float* __restrict__ v, float* __restrict__ out,
+template <typename T, bool kOuter>
+__global__ void grand_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                  const T* __restrict__ v, T* __restrict__ out,
                                   Strides sq, Strides sk, Strides sv, Strides so,
                                   int n_keys, int n_queries, float scale) {
-  extern __shared__ __align__(16) float smem[];
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kKs = k_stride<T>();
+  extern __shared__ __align__(16) unsigned char grand_attn_smem[];
   const int b = blockIdx.x, h = blockIdx.y;
   const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = n_keys, n32 = round32(n);
-  float* Qs = smem;
+  float* Qs = reinterpret_cast<float*>(grand_attn_smem);
   float* Ps = Qs + warps * kQueriesPerWarp * kHeadDim;
-  float* Vs = Ps + warps * n32 * kQueriesPerWarp;
-  float* Ks = Vs + n * kHeadDim;
+  T* Vs = reinterpret_cast<T*>(Ps + warps * n32 * kQueriesPerWarp);
+  T* Ks = Vs + n * kHeadDim;
 
-  const float* qbase = q + b * sq.b + h * sq.h;
-  const float* kbase = k + b * sk.b + h * sk.h;
-  const float* vbase = v + b * sv.b + h * sv.h;
-  float* obase = out + b * so.b + h * so.h;
+  const T* qbase = q + b * sq.b + h * sq.h;
+  const T* kbase = k + b * sk.b + h * sk.h;
+  const T* vbase = v + b * sv.b + h * sv.h;
+  T* obase = out + b * so.b + h * so.h;
+  if constexpr (kOuter) {
+    const long long z = blockIdx.z;
+    qbase += z * sq.z;
+    kbase += z * sk.z;
+    vbase += z * sv.z;
+    obase += z * so.z;
+  }
 
   // K and V in one loop: two loads in flight per thread and iteration.
-  for (int e = threadIdx.x; e < n * (kHeadDim / 4); e += blockDim.x) {
-    const int j = e / (kHeadDim / 4), c4 = (e % (kHeadDim / 4)) * 4;
-    const float4 kv = *reinterpret_cast<const float4*>(kbase + j * sk.n + c4);
-    const float4 vv = *reinterpret_cast<const float4*>(vbase + j * sv.n + c4);
-    float* kd = Ks + j * kPadDim + c4;
-    kd[0] = kv.x;
-    kd[1] = kv.y;
-    kd[2] = kv.z;
-    kd[3] = kv.w;
-    *reinterpret_cast<float4*>(Vs + j * kHeadDim + c4) = vv;
+  if constexpr (kF32) {
+    for (int e = threadIdx.x; e < n * (kHeadDim / 4); e += blockDim.x) {
+      const int j = e / (kHeadDim / 4), c4 = (e % (kHeadDim / 4)) * 4;
+      const float4 kv = *reinterpret_cast<const float4*>(kbase + j * sk.n + c4);
+      const float4 vv = *reinterpret_cast<const float4*>(vbase + j * sv.n + c4);
+      float* kd = Ks + j * kKs + c4;
+      kd[0] = kv.x;
+      kd[1] = kv.y;
+      kd[2] = kv.z;
+      kd[3] = kv.w;
+      *reinterpret_cast<float4*>(Vs + j * kHeadDim + c4) = vv;
+    }
+  } else {
+    // 8 bf16 (16 bytes) per load; a K row starts 4-byte aligned only.
+    for (int e = threadIdx.x; e < n * (kHeadDim / 8); e += blockDim.x) {
+      const int j = e / (kHeadDim / 8), c8 = (e % (kHeadDim / 8)) * 8;
+      const uint4 kv = *reinterpret_cast<const uint4*>(kbase + j * sk.n + c8);
+      const uint4 vv = *reinterpret_cast<const uint4*>(vbase + j * sv.n + c8);
+      unsigned* kd = reinterpret_cast<unsigned*>(Ks + j * kKs + c8);
+      kd[0] = kv.x;
+      kd[1] = kv.y;
+      kd[2] = kv.z;
+      kd[3] = kv.w;
+      *reinterpret_cast<uint4*>(Vs + j * kHeadDim + c8) = vv;
+    }
   }
   __syncthreads();
 
@@ -109,7 +160,7 @@ __global__ void grand_attn_kernel(const float* __restrict__ q, const float* __re
   for (int i0 = warp * kQueriesPerWarp; i0 < n_queries; i0 += warps * kQueriesPerWarp) {
     for (int e = lane; e < kQueriesPerWarp * kHeadDim; e += 32) {
       const int i = i0 + e / kHeadDim;
-      Qw[e] = i < n_queries ? qbase[i * sq.n + e % kHeadDim] * scale : 0.f;
+      Qw[e] = i < n_queries ? to_float(qbase[i * sq.n + e % kHeadDim]) * scale : 0.f;
     }
     __syncwarp();
 
@@ -121,10 +172,24 @@ __global__ void grand_attn_kernel(const float* __restrict__ q, const float* __re
       const int j = kk * 32 + lane;
       if (kk * 32 < n && j < n) {
         float dot[kQueriesPerWarp] = {};
-        const float* kr = Ks + j * kPadDim;
+        const T* kr = Ks + j * kKs;
 #pragma unroll 4
         for (int d = 0; d < kHeadDim; d += 4) {
-          const float k0 = kr[d], k1 = kr[d + 1], k2 = kr[d + 2], k3 = kr[d + 3];
+          float k0, k1, k2, k3;
+          if constexpr (kF32) {
+            k0 = kr[d];
+            k1 = kr[d + 1];
+            k2 = kr[d + 2];
+            k3 = kr[d + 3];
+          } else {
+            const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kr + d));
+            const float2 hi =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kr + d + 2));
+            k0 = lo.x;
+            k1 = lo.y;
+            k2 = hi.x;
+            k3 = hi.y;
+          }
 #pragma unroll
           for (int qq = 0; qq < kQueriesPerWarp; ++qq) {
             const float4 qv = *reinterpret_cast<const float4*>(Qw + qq * kHeadDim + d);
@@ -153,7 +218,13 @@ __global__ void grand_attn_kernel(const float* __restrict__ q, const float* __re
         s[qq][kk] = e;
         sum += e;
       }
-      inv_sum[qq] = 1.0f / warp_sum(sum);
+      if constexpr (kF32) {
+        inv_sum[qq] = 1.0f / warp_sum(sum);
+      } else {
+        const float total = warp_sum(sum);
+#pragma unroll
+        for (int kk = 0; kk < kKeysPerLane; ++kk) s[qq][kk] = bf16_round(s[qq][kk] / total);
+      }
     }
 #pragma unroll
     for (int kk = 0; kk < kKeysPerLane; ++kk) {
@@ -164,10 +235,20 @@ __global__ void grand_attn_kernel(const float* __restrict__ q, const float* __re
     }
     __syncwarp();
 
+    // float: lane holds columns lane and 32 + lane; bf16: 2·lane and 2·lane + 1.
     float o[kQueriesPerWarp][2] = {};
     for (int j = 0; j < n; ++j) {
       const float4 p = *reinterpret_cast<const float4*>(Pw + j * kQueriesPerWarp);
-      const float v0 = Vs[j * kHeadDim + lane], v1 = Vs[j * kHeadDim + 32 + lane];
+      float v0, v1;
+      if constexpr (kF32) {
+        v0 = Vs[j * kHeadDim + lane];
+        v1 = Vs[j * kHeadDim + 32 + lane];
+      } else {
+        const float2 vv =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Vs + j * kHeadDim + 2 * lane));
+        v0 = vv.x;
+        v1 = vv.y;
+      }
       o[0][0] = fmaf(p.x, v0, o[0][0]);
       o[0][1] = fmaf(p.x, v1, o[0][1]);
       o[1][0] = fmaf(p.y, v0, o[1][0]);
@@ -181,28 +262,35 @@ __global__ void grand_attn_kernel(const float* __restrict__ q, const float* __re
     for (int qq = 0; qq < kQueriesPerWarp; ++qq) {
       const int i = i0 + qq;
       if (i >= n_queries) break;
-      const float* vi = vbase + i * sv.n;
-      float* oi = obase + i * so.n;
-      oi[lane] = o[qq][0] * inv_sum[qq] - vi[lane];
-      oi[32 + lane] = o[qq][1] * inv_sum[qq] - vi[32 + lane];
+      const T* vi = vbase + i * sv.n;
+      T* oi = obase + i * so.n;
+      if constexpr (kF32) {
+        oi[lane] = o[qq][0] * inv_sum[qq] - vi[lane];
+        oi[32 + lane] = o[qq][1] * inv_sum[qq] - vi[32 + lane];
+      } else {
+        const float2 vv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vi + 2 * lane));
+        *reinterpret_cast<__nv_bfloat162*>(oi + 2 * lane) =
+            __floats2bfloat162_rn(o[qq][0] - vv.x, o[qq][1] - vv.y);
+      }
     }
     __syncwarp();
   }
 }
 
-// Launches grand_attn_kernel on a grid of (B, H) blocks.
-inline cudaError_t launch_grand_attn(const float* q, const float* k, const float* v, float* out,
-                                     Strides sq, Strides sk, Strides sv, Strides so, int B,
-                                     int H, int n_keys, int n_queries, float scale,
-                                     cudaStream_t stream) {
+// Launches grand_attn_kernel<T, kOuter> on a grid of (B, H, outer) blocks.
+template <typename T, bool kOuter = false>
+inline cudaError_t launch_grand_attn(const T* q, const T* k, const T* v, T* out, Strides sq,
+                                     Strides sk, Strides sv, Strides so, int B, int H,
+                                     int n_keys, int n_queries, float scale, cudaStream_t stream,
+                                     int outer = 1) {
   int warps = (n_queries + kQueriesPerWarp - 1) / kQueriesPerWarp;
   warps = warps < kMaxWarps ? warps : kMaxWarps;
-  const size_t bytes = attn_smem_floats(n_keys, warps) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(grand_attn_kernel,
+  const size_t bytes = attn_smem_bytes<T>(n_keys, warps);
+  cudaError_t err = cudaFuncSetAttribute(grand_attn_kernel<T, kOuter>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  grand_attn_kernel<<<dim3(B, H), 32 * warps, bytes, stream>>>(q, k, v, out, sq, sk, sv, so,
-                                                               n_keys, n_queries, scale);
+  grand_attn_kernel<T, kOuter><<<dim3(B, H, outer), 32 * warps, bytes, stream>>>(
+      q, k, v, out, sq, sk, sv, so, n_keys, n_queries, scale);
   return cudaGetLastError();
 }
 

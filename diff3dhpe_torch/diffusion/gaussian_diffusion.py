@@ -166,7 +166,9 @@ class GaussianDiffusion:
         x_start = denoise_fn(model_in, t)
         if self.clip_denoised:
             x_start = x_start.clamp(-1.0, 1.0)
-        return x_start
+        # A bf16 estimate enters the float32 update exactly, as JAX promotes
+        # it against its float32 step tables.
+        return x_start.to(torch.float32)
 
     @torch.no_grad()
     def ddim_sample_loop(self, x_cond, target_shape, x_init=None, generator=None):

@@ -4,6 +4,7 @@ from diff3dhpe_torch.engine.steps import (
     make_eval_step,
     make_fast_denoise_fn,
     make_fast_train_denoise_fn,
+    make_mixed_diffusion,
     make_optimizer,
     make_train_denoise_fn,
     make_train_step,
@@ -11,5 +12,5 @@ from diff3dhpe_torch.engine.steps import (
 
 __all__ = [
     "flip_pose", "make_denoise_fn", "make_eval_step", "make_fast_denoise_fn",
-    "make_fast_train_denoise_fn", "make_optimizer", "make_train_denoise_fn", "make_train_step",
+    "make_fast_train_denoise_fn", "make_mixed_diffusion", "make_optimizer", "make_train_denoise_fn", "make_train_step",
 ]

@@ -19,6 +19,7 @@ import torch
 from diff3dhpe_torch.device import resolve_device
 from diff3dhpe_torch.diffusion.gaussian_diffusion import GaussianDiffusion
 from diff3dhpe_torch.models.fast_eval import (
+    bf16_snapshot,
     draw_drop_path_scales,
     fast_forward_denoise,
     fast_forward_denoise_train_pairs,
@@ -35,14 +36,38 @@ def make_denoise_fn(model) -> Callable:
     return denoise_fn
 
 
-def make_fast_denoise_fn(model) -> Callable:
+def make_fast_denoise_fn(model, dtype=torch.float32, temporal_mode: str = "rows",
+                         f32_head: bool = False) -> Callable:
     """denoise_fn(x, t) through the fused-block forward
-    (``models.fast_eval.fast_forward_denoise``) on the same weights."""
+    (``models.fast_eval.fast_forward_denoise``), JAX ``make_fast_denoise_fn``.
+
+    ``dtype``: float32 (the function reads ``model``'s weights as they are
+    at each call) or bfloat16, where the function holds a snapshot of the
+    weights taken when it is made (``bf16_snapshot``: the bf16 copies are
+    made once, not on every call; later changes to ``model`` are not seen).
+    ``temporal_mode``: "rows" or "cols". ``f32_head``: the head runs at
+    float32 on the bf16 trunk's output, as in the mixed mode."""
+    weights = model if dtype == torch.float32 else bf16_snapshot(model, f32_head)
 
     def denoise_fn(x, t):
-        return fast_forward_denoise(model, x, t)
+        return fast_forward_denoise(weights, x, t, dtype=dtype, temporal_mode=temporal_mode,
+                                    f32_head=f32_head)
 
     return denoise_fn
+
+
+def make_mixed_diffusion(model, temporal_mode: str = "rows", **diffusion_kw) -> GaussianDiffusion:
+    """The JAX package's default eval (``bench.py`` DTYPE="mixed", :101-135):
+    a bf16 trunk with an f32 head for the DDIM steps, and the f32 fused
+    forward for the last one. JAX runs that final step under its hand-split
+    bf16x3 contraction ("high3"), a TPU workaround for Precision.HIGH; the
+    port's f32 kernels contract in full float32. ``diffusion_kw`` go to
+    ``GaussianDiffusion.create``."""
+    return GaussianDiffusion.create(
+        make_fast_denoise_fn(model, torch.bfloat16, temporal_mode, f32_head=True),
+        final_denoise_fn=make_fast_denoise_fn(model, torch.float32, temporal_mode),
+        final_denoise_steps=1, **diffusion_kw,
+    )
 
 
 def _train_denoise_fn(model, drop_path_rate, forward):
@@ -59,15 +84,17 @@ def _train_denoise_fn(model, drop_path_rate, forward):
     return denoise_fn
 
 
-def make_fast_train_denoise_fn(model, drop_path_rate: float = 0.1,
-                               attn_bwd: bool = False) -> Callable:
+def make_fast_train_denoise_fn(model, drop_path_rate: float = 0.1, attn_bwd: bool = False,
+                               temporal_mode: str = "rows") -> Callable:
     """Training denoise_fn on the fused forward with the pair-boundary
     recompute backward (``models.fast_eval.fast_forward_denoise_train_pairs``).
     ``attn_bwd``: the recompute's attention runs through
-    ``grand_attention_trainable`` (its kernels on CUDA)."""
+    ``grand_attention_trainable`` (its kernels on CUDA). ``temporal_mode``:
+    the fused forward's temporal layout, "rows" or "cols" (B2)."""
     return _train_denoise_fn(
         model, drop_path_rate,
-        lambda x, t, dp: fast_forward_denoise_train_pairs(model, x, t, dp, attn_bwd),
+        lambda x, t, dp: fast_forward_denoise_train_pairs(model, x, t, dp, attn_bwd,
+                                                          temporal_mode),
     )
 
 

@@ -1,4 +1,5 @@
 from diff3dhpe_torch.models.fast_eval import (
+    bf16_snapshot,
     draw_drop_path_scales,
     fast_forward_denoise,
     fast_forward_denoise_train_pairs,
@@ -6,6 +7,6 @@ from diff3dhpe_torch.models.fast_eval import (
 from diff3dhpe_torch.models.mixste import MixSTEDenoiser, sinusoidal_pos_emb
 
 __all__ = [
-    "MixSTEDenoiser", "draw_drop_path_scales", "fast_forward_denoise",
+    "MixSTEDenoiser", "bf16_snapshot", "draw_drop_path_scales", "fast_forward_denoise",
     "fast_forward_denoise_train_pairs", "sinusoidal_pos_emb",
 ]

@@ -197,9 +197,9 @@ class MixSTEDenoiser(nn.Module):
         return self.time_mlp(sinusoidal_pos_emb(time, self.embed_dim))
 
     def weighted_mean_over_frames(self, x):
-        """s2f head: [B, F, J, C] -> [B, 1, J, C]."""
-        w = self.weighted_mean.weight.reshape(-1)
-        return torch.einsum("bfpc,f->bpc", x, w)[:, None] + self.weighted_mean.bias
+        """s2f head: [B, F, J, C] -> [B, 1, J, C], with the weights in x's dtype."""
+        w = self.weighted_mean.weight.reshape(-1).to(x.dtype)
+        return torch.einsum("bfpc,f->bpc", x, w)[:, None] + self.weighted_mean.bias.to(x.dtype)
 
     def pair(self, i, x, t, dp_s=None, dp_t=None, attn_bwd: bool = False):
         """Block pair i on [B, F, J, C]: spatial block, Spatial_norm, [the

@@ -36,7 +36,7 @@ _L = ctypes.c_longlong
 # c_void_p: a bare Python int would be passed as a 32-bit int.
 SIGNATURES = {
     "fused_block": {
-        "diff3dhpe_fused_block_f32": (
+        name: (
             [_P, _P, _I, _P]                   # x, t_rows, rows_per_item, dp
             + [_P, _P, _F]                     # ln1 w, b, eps
             + [_P, _P, _P, _P]                 # qkv w, b; proj w, b
@@ -44,9 +44,11 @@ SIGNATURES = {
             + [_P, _P, _P, _P]                 # fc1 w, b; fc2 w, b
             + [_P, _P, _F]                     # out-LN w, b, eps
             + [_P] * 7                         # xs, xn, qkv, attn, h1, mid, out
-            + [_I] * 6 + [_F]                  # R, C, hidden, n, n_pad, heads, scale
+            + [_I] * 7 + [_F]                  # R, C, hidden, n, n_pad, j_groups, heads, scale
             + [ctypes.POINTER(_I), _P]         # launches, stream
-        ),
+        )
+        for name in ("diff3dhpe_fused_block_f32", "diff3dhpe_fused_block_bf16")
+    } | {
         "diff3dhpe_attn_head_dim": [],
         "diff3dhpe_attn_max_n": [],
     },

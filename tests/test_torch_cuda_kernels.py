@@ -11,10 +11,11 @@ import torch
 
 from diff3dhpe_torch import (
     GaussianDiffusion, MixSTEDenoiser, draw_drop_path_scales, fast_forward_denoise,
-    fast_forward_denoise_train_pairs, fused_transformer_block, fused_transformer_block_ref,
-    grand_attention_bwd, grand_attention_bwd_ref, grand_attention_fullseq,
-    grand_attention_fullseq_ref, grand_attention_trainable, make_denoise_fn, make_eval_step,
-    make_fast_denoise_fn,
+    fast_forward_denoise_train_pairs, fused_temporal_block_cols, fused_temporal_block_cols_ref,
+    fused_transformer_block, fused_transformer_block_ref, grand_attention_bwd,
+    grand_attention_bwd_ref, grand_attention_fullseq, grand_attention_fullseq_ref,
+    grand_attention_trainable, make_denoise_fn, make_eval_step, make_fast_denoise_fn,
+    make_mixed_diffusion,
 )
 
 C = 128  # heads = C // 64: the kernel's head width is 64
@@ -77,6 +78,62 @@ def test_block_kernel_drop_path_matches_ref(cuda_device, n, groups):
         out = fused_transformer_block(x, model.STEblocks[0], n, C // 64, **kw)
         ref = fused_transformer_block_ref(x, model.STEblocks[0], n, C // 64, **kw)
     torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
+
+
+def assert_bf16_close(out, ref):
+    """The bf16 bars: kernel and plain version round at the same points, and
+    float32 sums taken in another order flip single bf16 roundings (2^-8
+    relative each): max |diff| <= 1e-2 max|ref|, mean |diff| <= 1e-3 max|ref|."""
+    diff, scale = (out.float() - ref.float()).abs(), ref.float().abs().max()
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert diff.max() <= 1e-2 * scale and diff.mean() <= 1e-3 * scale, (diff.max(), diff.mean(), scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_pad,groups,with_t,with_out_ln,c", [
+    (17, 17, 40, True, True, C), (243, 243, 4, True, True, C), (27, 32, 12, True, True, C),
+    (17, 17, 8, False, False, C), (256, 256, 2, True, True, C),
+    (17, 17, 10, True, True, 192),  # 3C = 576 and M = 170: partial GEMM tiles both ways
+])
+def test_block_kernel_bf16_matches_ref(cuda_device, n, n_pad, groups, with_t, with_out_ln, c):
+    model = _model(cuda_device, embed_dim=c)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 1)
+    x = torch.randn(groups * n_pad, c, generator=gen, device=cuda_device).bfloat16()
+    t = torch.randn(2, c, generator=gen, device=cuda_device)
+    dp = (torch.rand(groups * n_pad, 2, generator=gen, device=cuda_device) < 0.7) / 0.7
+    kw = dict(n_pad=n_pad, t_rows=t if with_t else None,
+              rows_per_item=groups * n_pad // 2 if with_t else None,
+              out_ln=model.Spatial_norm if with_out_ln else None, dp_scales=dp.float())
+    before = fused_transformer_block.launches_bf16
+    with torch.no_grad():
+        out = fused_transformer_block(x, model.STEblocks[0], n, c // 64, **kw)
+        ref = fused_transformer_block_ref(x, model.STEblocks[0], n, c // 64, **kw)
+    torch.cuda.synchronize()
+    assert fused_transformer_block.launches_bf16 - before == (8 if with_out_ln else 7)
+    real = lambda a: a.reshape(groups, n_pad, c)[:, :n]
+    assert_bf16_close(real(out), real(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f,j", [(2, 27, 17), (1, 243, 5), (3, 9, 4)])
+def test_cols_kernel_matches_ref(cuda_device, dtype, b, f, j):
+    model = _model(cuda_device, num_frame=f)
+    gen = torch.Generator(device=cuda_device).manual_seed(f)
+    x = torch.randn(b * f, j * C, generator=gen, device=cuda_device).to(dtype)
+    kw = dict(t_rows=torch.randn(b, C, generator=gen, device=cuda_device),
+              out_ln=model.Temporal_norm,
+              dp_scales=((torch.rand(b * j, 2, generator=gen, device=cuda_device) < 0.7) / 0.7).float())
+    before = fused_temporal_block_cols.launches
+    with torch.no_grad():
+        out = fused_temporal_block_cols(x, model.TTEblocks[0], f, j, C // 64, **kw)
+        ref = fused_temporal_block_cols_ref(x, model.TTEblocks[0], f, j, C // 64, **kw)
+    torch.cuda.synchronize()
+    assert fused_temporal_block_cols.launches - before == 8
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
+    else:
+        assert_bf16_close(out, ref)
 
 
 def _qkv_views(device, b, h, n, seed):
@@ -168,3 +225,53 @@ def test_eval_step_runs_through_the_kernel(cuda_device):
     out = fast(x2d, x2d.flip(0), x_init=x_init)
     assert fused_transformer_block.launches == 2 * 1 * 5 * 8  # blocks x steps x kernels
     torch.testing.assert_close(out, plain(x2d, x2d.flip(0), x_init=x_init), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temporal_mode", ["rows", "cols"])
+def test_mixed_eval_step_runs_through_the_kernels(cuda_device, temporal_mode):
+    """The mixed eval (bf16 trunk with an f32 head, f32 final step): bf16
+    launches on every step but the last, f32 launches on the last, and the
+    result no further from the f32 eval than the pure-bf16 eval, by the
+    mean per-joint position error."""
+    model = _model(cuda_device, num_frame=9)
+    kw = dict(timesteps=50, sampling_timesteps=5, clip_denoised=True)
+    jl, jr = [4, 5, 6, 11, 12, 13], [1, 2, 3, 14, 15, 16]
+    mixed = make_eval_step(make_mixed_diffusion(model, temporal_mode, **kw), jl, jr)
+    bf16 = make_eval_step(GaussianDiffusion.create(
+        make_fast_denoise_fn(model, torch.bfloat16, temporal_mode), **kw), jl, jr)
+    f32 = make_eval_step(GaussianDiffusion.create(make_denoise_fn(model), **kw), jl, jr)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x2d = torch.rand(2, 9, 17, 2, generator=gen, device=cuda_device) * 2 - 1
+    x_init = torch.randn(4, 9, 17, 3, generator=gen, device=cuda_device)
+    counters = (fused_transformer_block, fused_temporal_block_cols)
+    for c in counters:
+        c.launches = c.launches_bf16 = 0
+    out = mixed(x2d, x2d.flip(0), x_init=x_init)
+    # 5 forwards, 4 of them bf16; per forward 8 kernels for each block call:
+    # B1 for both blocks in rows mode, B1 and B2 for one block each in cols.
+    want_b1 = (2 if temporal_mode == "rows" else 1) * 8
+    assert fused_transformer_block.launches == 5 * want_b1
+    assert fused_transformer_block.launches_bf16 == 4 * want_b1
+    want_b2 = 0 if temporal_mode == "rows" else 8
+    assert fused_temporal_block_cols.launches == 5 * want_b2
+    assert fused_temporal_block_cols.launches_bf16 == 4 * want_b2
+    ref = f32(x2d, x2d.flip(0), x_init=x_init)
+    mpjpe = lambda a: (a - ref).norm(dim=-1).mean()
+    dev_mixed, dev_bf16 = mpjpe(out), mpjpe(bf16(x2d, x2d.flip(0), x_init=x_init))
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert dev_mixed <= dev_bf16, (dev_mixed, dev_bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cols_forward_equals_rows(cuda_device, dtype):
+    """B2 on the spatial-major rows computes what B1 computes on their
+    transpose, in the same order: the two layouts give the same forward."""
+    model = _model(cuda_device, num_frame=27)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(2, 27, 17, 5, generator=gen, device=cuda_device)
+    t = torch.tensor([3.0, 700.0], device=cuda_device)
+    rows, cols = (fast_forward_denoise(model, x, t, dtype=dtype, temporal_mode=m)
+                  for m in ("rows", "cols"))
+    torch.testing.assert_close(cols, rows, rtol=0, atol=0)

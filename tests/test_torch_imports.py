@@ -60,9 +60,11 @@ def test_default_device_raises_without_gpu(monkeypatch):
 
 
 def test_every_binding_names_a_function_of_its_source():
-    """Each library in SOURCES has its csrc/<name>.cu, and every function
-    the ctypes binding declares is exported there with the declared number
-    of parameters (a mismatch would pass garbage without any error)."""
+    """Each library in SOURCES has its csrc/<name>.cu, every function the
+    ctypes binding declares is exported there with the declared number of
+    parameters (a mismatch would pass garbage without any error), and every
+    function a source exports (the f32 and bf16 blocks among them) has a
+    binding."""
     import re
 
     from diff3dhpe_torch.ops._build import CSRC, SIGNATURES, SOURCES
@@ -75,3 +77,7 @@ def test_every_binding_names_a_function_of_its_source():
             assert m, f"{fn} is not exported by {name}.cu"
             params = [p for p in m.group(1).split(",") if p.strip()]
             assert len(params) == len(argtypes), (fn, len(params), len(argtypes))
+        exported = set(re.findall(r'extern "C" int (\w+)\(', src))
+        assert exported == set(SIGNATURES[name]), (name, exported ^ set(SIGNATURES[name]))
+    assert {"diff3dhpe_fused_block_f32", "diff3dhpe_fused_block_bf16"} <= set(
+        SIGNATURES["fused_block"])

@@ -67,3 +67,15 @@ def jax_x_init(key, rows, row_shape):
         np.asarray(jax.random.normal(jax.random.fold_in(key_init, i), row_shape, jnp.float32))
         for i in range(rows)
     ])
+
+
+def assert_bf16_bars(out, expected):
+    """The bf16 bars, in float32: max |out - expected| <= 1e-2 max|expected|
+    and mean |out - expected| <= 1e-3 max|expected|. Two bf16 paths that
+    round at the same points differ where float32 sums taken in another
+    order flip single bf16 roundings, each worth 2^-8 relative."""
+    out, expected = np.asarray(out, np.float32), np.asarray(expected, np.float32)
+    assert out.shape == expected.shape, (out.shape, expected.shape)
+    diff, scale = np.abs(out - expected), np.abs(expected).max()
+    assert diff.max() <= 1e-2 * scale, (diff.max(), scale)
+    assert diff.mean() <= 1e-3 * scale, (diff.mean(), scale)
