@@ -6,9 +6,9 @@
 Builds the CUDA kernels from csrc/ with nvcc, holds each against its plain
 PyTorch version on the card at the shapes of the main paths, runs one
 full-width denoiser forward through the kernels against the plain module,
-then drives the two main paths at the flagship size (243 frames, 17
-joints, embed 512, depth 8, 8 heads, mlp_ratio 2, cosine T=1000), with
-weights from the port's seeded init:
+then drives the main paths at the flagship size (243 frames, 17 joints,
+embed 512, depth 8, 8 heads, mlp_ratio 2, cosine T=1000), with weights from
+the port's seeded init:
 
   eval   the flip-TTA DDIM-9 eval step (clip_denoised, logical batch 2), in
          f32 and in the JAX package's shipped "mixed" mode (bench.py: a bf16
@@ -17,7 +17,13 @@ weights from the port's seeded init:
          the temporal blocks);
   train  the f32 fast-train AdamW step (configs/h36m_gt_s2s_243f.json:
          clip_loss, lr 4e-5, lr_decay 0.99, batch 24; drop_path_rate 0.1),
-         pair-boundary backward with the attention kernels (attn_bwd).
+         pair-boundary backward with the attention kernels (attn_bwd);
+  cli    the evaluate entry point, diff3dhpe_torch.cli.run.main([--config
+         <json> --synthetic --evaluate <seed-0 state dict .bin> ...]), on
+         configs/h36m_gt_s2s_243f.json at DDIM-9 with batch 2: the plain
+         module, the module with "use_pallas_attention" (B6 for the joints,
+         B3 for the frames), --fast-eval at f32, the mixed mode and pure
+         bf16, each printing the per-action report.
 
 Any failed check raises and the script exits non-zero.
 
@@ -28,17 +34,24 @@ bf16; 3 full-width forward; 4 the f32 eval step; 5 its profile; 4b the
 mixed eval step in rows and cols, and the pure-bf16 one; 5b the mixed rows
 step's profile; 6 B3 and B4 vs plain at the train shape; 7a the train
 step's loss, gradients and launches vs the plain module at B=4; 7b three
-timed AdamW steps at B=24; 7c their profile); then a JSON line with every
-kernel's numbers; the last line is {"ok": true, "device": {...}}. Exits
+timed AdamW steps at B=24; 7c their profile; 8 B6 vs plain at the eval
+shape as qkv views and contiguous, at n = 64 and n = 27; 9 B5 vs plain at
+both eval shapes, f32 and bf16, and its launches as an op; 10 the evaluate
+entry point in its configurations; 10b the profile of one eval step of
+the use_pallas module); then a JSON line with every kernel's numbers; the last line is {"ok": true, "device": {...}}. Exits
 non-zero without a CUDA device, and where the port's package is not
 beside this script.
 """
+import contextlib
 import copy
+import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -69,6 +82,9 @@ LOSS_REL_TOL, GRAD_REL_TOL = 1e-5, 1e-3
 # flip single bf16 roundings (2^-8 relative each).
 BF16_MAX_TOL, BF16_MEAN_TOL = 1e-2, 1e-3
 COLS_VS_ROWS_BOUND = 1e-3  # the mixed eval in the two layouts, absolute
+SMALL_ATTN_ABS_TOL = 1e-5  # B6 vs its plain version, absolute (outputs of order 1)
+ATTN_BLOCK_ABS_TOL = 1e-5  # B5 at f32 vs its plain version, absolute, beside KERNEL_REL_TOL
+CLI_CONFIG = "configs/h36m_gt_s2s_243f.json"
 # The mixed eval is held against the pure-bf16 one by their mean per-joint
 # position error (the repo's MPJPE, in normalised units) from the plain f32
 # eval: on this untrained net each forward carries bf16 rounding on to a
@@ -166,6 +182,19 @@ def library_block(x, block, n, heads, t_rows, rows_per_item, out_ln):
     return F.layer_norm(out, (c,), out_ln.weight, out_ln.bias, out_ln.eps)
 
 
+def library_attn_block(x, block, n, heads):
+    """B5's function from PyTorch library calls, in x's dtype (block too)."""
+    from torch.nn import functional as F
+
+    r, c = x.shape
+    xn = F.layer_norm(x, (c,), block.norm1.weight, block.norm1.bias, block.norm1.eps)
+    qkv = F.linear(xn, block.attn.qkv.weight, block.attn.qkv.bias)
+    q, k, v = qkv.view(r // n, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+    a = F.scaled_dot_product_attention(q, k, v) - v
+    return x + F.linear(a.transpose(1, 2).reshape(r, c), block.attn.proj.weight,
+                        block.attn.proj.bias)
+
+
 def library_cols(x, block, n, j_groups, heads, t_rows, out_ln):
     """B2's function from library calls: the transposes around
     ``library_block`` on frame-contiguous groups."""
@@ -185,6 +214,14 @@ def block_work(r, n, c, hidden, items, itemsize=4):
     weights = 3 * c * c + c * c + c * hidden + hidden * c
     vectors = 3 * c + c + hidden + c + 6 * c
     return flops, itemsize * (2 * r * c + items * c + weights) + 4 * vectors
+
+
+def attn_block_work(r, n, c, itemsize=4):
+    """(FLOPs, bytes) of one B5 call: the qkv and proj GEMMs and the
+    attention products; x and the weights read once, the output written
+    once (LN parameters and biases float32)."""
+    flops = 2 * r * c * 4 * c + 4 * r * n * c
+    return flops, itemsize * (2 * r * c + 4 * c * c) + 4 * (2 * c + 3 * c + c)
 
 
 def train_step_flops(b, hidden):
@@ -207,13 +244,16 @@ def main():
     from torch.nn import functional as F
 
     from diff3dhpe_torch import (
-        GaussianDiffusion, MixSTEDenoiser, draw_drop_path_scales, fast_forward_denoise,
-        flip_pose, fused_temporal_block_cols, fused_temporal_block_cols_ref,
-        fused_transformer_block, fused_transformer_block_ref, grand_attention_bwd,
-        grand_attention_bwd_ref, grand_attention_fullseq, grand_attention_fullseq_ref,
-        make_denoise_fn, make_eval_step, make_fast_denoise_fn, make_fast_train_denoise_fn,
-        make_mixed_diffusion, make_optimizer, make_train_denoise_fn, make_train_step,
+        GaussianDiffusion, MixSTEDenoiser, Runner, draw_drop_path_scales, fast_forward_denoise,
+        flip_pose, fused_attention_block, fused_attention_block_ref, fused_temporal_block_cols,
+        fused_temporal_block_cols_ref, fused_transformer_block, fused_transformer_block_ref,
+        grand_attention_bwd, grand_attention_bwd_ref, grand_attention_fullseq,
+        grand_attention_fullseq_ref, make_denoise_fn, make_eval_step, make_fast_denoise_fn,
+        make_fast_train_denoise_fn, make_mixed_diffusion, make_optimizer, make_train_denoise_fn,
+        make_train_step, packed_grand_attention, packed_grand_attention_ref,
     )
+    from diff3dhpe_torch.cli.run import main as cli_main
+    from diff3dhpe_torch.models import mixste
     from diff3dhpe_torch.models.mixste import Block, init_weights
     from diff3dhpe_torch.ops._build import SOURCES, build_all
 
@@ -616,11 +656,14 @@ def main():
     diff_fast = GaussianDiffusion.create(
         make_fast_train_denoise_fn(model, DROP_PATH, attn_bwd=True), **dkw)
     diff_plain = GaussianDiffusion.create(make_train_denoise_fn(model, DROP_PATH), **dkw)
-    counters = (fused_transformer_block, grand_attention_fullseq, grand_attention_bwd)
-    # Per step: 16 block calls x 8 kernels; B3 once and B4 (2 kernels) once
-    # for each temporal block of the recompute (n = 243 > 64).
+    counters = (fused_transformer_block, grand_attention_fullseq, grand_attention_bwd,
+                packed_grand_attention)
+    # Per step: 16 block calls x 8 kernels; in the recompute B3 once and B4
+    # (2 kernels) once for each temporal block (n = 243 > 64), and B6 once
+    # for each spatial block (n = 17; its backward is the plain formulas).
     per_step = {"fused_transformer_block": 2 * DEPTH * per_call,
-                "grand_attention_fullseq": DEPTH, "grand_attention_bwd": 2 * DEPTH}
+                "grand_attention_fullseq": DEPTH, "grand_attention_bwd": 2 * DEPTH,
+                "packed_grand_attention": DEPTH}
 
     def batch(b):
         gt = randn(b, FRAMES, JOINTS, 3, scale=0.3)
@@ -690,10 +733,240 @@ def main():
     profile_step("phase 7c profile of one train step", lambda: train_step(gt, x2d, generator=gen),
                  top_n=20)
 
+    del train_step, optimizer, scheduler, diff_fast, diff_plain, model, params, gt, x2d
+    torch.cuda.empty_cache()
+
+    # Phase 8: B6 against its plain version at the use_pallas eval path's
+    # shape, 4·243 joint groups x 8 heads of n = 17: as views of one
+    # [972, 17, 3, 8, 64] qkv projection (what the module hands over) and
+    # as contiguous [7776, 17, 64] operands; then at n = 64 (two keys a
+    # lane) and at an odd n. The library yardstick is SDPA - v.
+    hd = EMBED // HEADS
+    small = {}
+    with torch.no_grad():
+        for label, b, h, n, strided in (("qkv_views", 2 * BATCH * FRAMES, HEADS, JOINTS, True),
+                                        ("contiguous", 2 * BATCH * FRAMES * HEADS, 1, JOINTS, False),
+                                        ("n64", 243, HEADS, 64, True), ("n27", 101, HEADS, 27, True)):
+            if strided:
+                q, k, v = randn(b, n, 3, h, hd).permute(2, 0, 3, 1, 4)
+            else:
+                q, k, v = randn(b, n, hd), randn(b, n, hd), randn(b, n, hd)
+            run = lambda: packed_grand_attention(q, k, v)
+            plain = lambda: packed_grand_attention_ref(q, k, v)
+            lib = lambda: F.scaled_dot_product_attention(q, k, v) - v
+            out, ref = run(), plain()
+            torch.cuda.synchronize()
+            abs_err, _ = rel_err(out, ref)
+            lib_abs, _ = rel_err(lib(), ref)
+            check(out.shape == q.shape and torch.isfinite(out).all().item(),
+                  f"B6 {label} output shape or values")
+            check(abs_err <= SMALL_ATTN_ABS_TOL,
+                  f"B6 {label} abs err {abs_err:.3e} > {SMALL_ATTN_ABS_TOL}")
+            pairs = b * h
+            t = timings(run, plain, lib, 4 * pairs * n * n * hd, 4 * 4 * pairs * n * hd, peak_flops)
+            small[label] = dict(abs_err=abs_err, **t)
+            say(f"phase 8 packed_grand_attention {label}: [G={pairs}, N={n}, D={hd}] "
+                f"max_abs_err={abs_err:.3e} (tol {SMALL_ATTN_ABS_TOL}) ms={t['ms']:.4f} "
+                f"plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} (library vs plain "
+                f"max_abs {lib_abs:.3e}) bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
+                f"GB_per_s={t['bytes'] / t['ms'] / 1e6:.1f}")
+            del q, k, v, out, ref
+
+    # Phase 9: B5 against its plain version at both eval shapes (R rows in
+    # groups of 17 joints and of 243 frames), at f32 and at bf16 (weights
+    # made bf16 once, as a bf16 snapshot holds them). The library yardstick
+    # is F.layer_norm / F.linear / SDPA - v / F.linear in the same dtype.
+    attn_block = {"f32": {}, "bf16": {}}
+    with torch.no_grad():
+        block, _ = make_block(3)
+        block_bf = copy.deepcopy(block)
+        for m in (block_bf.attn.qkv, block_bf.attn.proj):
+            m.weight.data = m.weight.data.bfloat16()
+        block_lib_bf = copy.deepcopy(block).bfloat16()
+        drive = []
+        for shape, n in (("spatial", JOINTS), ("temporal", FRAMES)):
+            for name, dt, blk, lib_blk, peak in (("f32", torch.float32, block, block, peak_flops),
+                                                 ("bf16", torch.bfloat16, block_bf, block_lib_bf,
+                                                  peak_bf16)):
+                x = randn(rows, EMBED).to(dt)
+                run = lambda: fused_attention_block(x, blk, n, HEADS)
+                plain = lambda: fused_attention_block_ref(x, blk, n, HEADS)
+                lib = lambda: library_attn_block(x, lib_blk, n, HEADS)
+                out, ref = run(), plain()
+                torch.cuda.synchronize()
+                if dt == torch.float32:
+                    abs_err, rel = rel_err(out, ref)
+                    check(torch.isfinite(out).all().item(), f"B5 f32 {shape} output not finite")
+                    check(rel <= KERNEL_REL_TOL and abs_err <= ATTN_BLOCK_ABS_TOL,
+                          f"B5 f32 {shape} abs err {abs_err:.3e} (tol {ATTN_BLOCK_ABS_TOL}), "
+                          f"rel {rel:.3e} (tol {KERNEL_REL_TOL})")
+                    errs = (f"max_abs_err={abs_err:.3e} (tol {ATTN_BLOCK_ABS_TOL}) "
+                            f"rel_err={rel:.3e} (tol {KERNEL_REL_TOL})")
+                else:
+                    abs_err, rel, mean_rel = check_bf16(f"B5 bf16 {shape}", out, ref)
+                    errs = (f"max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} (tol {BF16_MAX_TOL}) "
+                            f"mean_rel_err={mean_rel:.3e} (tol {BF16_MEAN_TOL})")
+                lib_abs = (lib().float() - ref.float()).abs().max().item()
+                t = timings(run, plain, lib, *attn_block_work(rows, n, EMBED, dt.itemsize), peak)
+                attn_block[name][shape] = dict(abs_err=abs_err, **t)
+                say(f"phase 9 fused_attention_block {name} {shape}: R={rows} n={n} C={EMBED} {errs} "
+                    f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} "
+                    f"(library vs plain max_abs {lib_abs:.3e}) bound_ms={t['bound_ms']:.4f} "
+                    f"({t['bound_by']}) GFLOP={t['flops'] / 1e9:.2f} "
+                    f"achieved_TFLOPs={t['flops'] / t['ms'] / 1e9:.2f}")
+                drive.append((x, blk, n))
+                del out, ref
+        # B5 has no caller in the model: its path is the op itself. One call
+        # per shape and dtype with the counts set to 0 just before: 4 calls
+        # x 4 kernels, half of them bf16.
+        fused_attention_block.launches = fused_attention_block.launches_bf16 = 0
+        for x, blk, n in drive:
+            check(torch.isfinite(fused_attention_block(x, blk, n, HEADS).float()).all().item(),
+                  "B5 op output not finite")
+        torch.cuda.synchronize()
+        b5_launches = (fused_attention_block.launches, fused_attention_block.launches_bf16)
+        check(b5_launches == (16, 8), f"B5 op launched {b5_launches}, expected (16, 8)")
+        say(f"phase 9 fused_attention_block as an op: {len(drive)} calls, "
+            f"launches={b5_launches[0]} (bf16 {b5_launches[1]})")
+        del drive, x, block, block_bf, block_lib_bf
+    torch.cuda.empty_cache()
+
+    # Phase 10: the evaluate entry point, as a user calls it: a config JSON,
+    # --synthetic data (subject S9, action Walking: 4 cameras x 972 frames =
+    # 16 windows of 243 frames), a seed-0 state dict in a reference .bin,
+    # DDIM-9, flip-TTA, batch 2 (8 timed eval steps after one warm-up step).
+    # Configurations: the plain module; the module with
+    # "use_pallas_attention" in the config JSON (B6 and B3); --fast-eval at
+    # f32 (B1); the mixed mode (B1 bf16 and f32, rows); and pure bf16, the
+    # yardstick of the mixed mode's bar as in phase 4b. Every run draws x_T
+    # from a generator seeded with the config's seed, so their predictions
+    # are comparable.
+    kernel_counters = (fused_transformer_block, fused_temporal_block_cols, grand_attention_fullseq,
+                       grand_attention_bwd, packed_grand_attention, fused_attention_block)
+    records, plain_calls = [], [0]
+    evaluate, plain_attention = Runner.evaluate, mixste.grand_attention
+
+    def recording_evaluate(self, test_ds, *args, **kwargs):
+        m = evaluate(self, test_ds, *args, **kwargs)
+        records.append(dict(m, scale=test_ds.scale))
+        return m
+
+    def counting_attention(*args, **kwargs):
+        plain_calls[0] += 1
+        return plain_attention(*args, **kwargs)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    report_lines = ("----Walking----", "eval_frame:", "inference_speed:", "Protocol #1 Error (MPJPE):",
+                    "Protocol #2 Error (P-MPJPE):", "Protocol #3 Error (N-MPJPE):",
+                    "Velocity Error (MPJVE):", "Protocol #1   (MPJPE) action-wise average:")
+    bf16_args = ["--fast-eval", "--compute-dtype", "bfloat16"]
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "seed0.bin")
+        torch.save(MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED,
+                                  depth=DEPTH, num_heads=HEADS, mlp_ratio=MLP_RATIO, seed=0,
+                                  device=dev).state_dict(), weights)
+        with open(os.path.join(here, CLI_CONFIG)) as f:
+            config = json.load(f)
+        config["params"]["use_pallas_attention"] = True
+        use_pallas_config = os.path.join(tmp, "use_pallas.json")
+        with open(use_pallas_config, "w") as f:
+            json.dump(config, f)
+        Runner.evaluate, mixste.grand_attention = recording_evaluate, counting_attention
+        try:
+            for name, config_path, extra in (
+                ("plain", os.path.join(here, CLI_CONFIG), []),
+                ("use_pallas", use_pallas_config, []),
+                ("fast_eval", os.path.join(here, CLI_CONFIG), ["--fast-eval"]),
+                ("mixed", os.path.join(here, CLI_CONFIG),
+                 bf16_args + ["--eval-f32-head", "--eval-f32-final-steps", "1"]),
+                ("bf16", os.path.join(here, CLI_CONFIG), bf16_args),
+            ):
+                records.clear()
+                plain_calls[0] = 0
+                for c in kernel_counters:
+                    c.launches = 0
+                    if hasattr(c, "launches_bf16"):
+                        c.launches_bf16 = 0
+                text = io.StringIO()
+                with contextlib.redirect_stdout(text):
+                    errors = cli_main(
+                        ["--config", config_path, "--synthetic", "-str", "S1", "-ste", "S9",
+                         "-a", "Walking", "--sampling_timesteps", str(DDIM_STEPS),
+                         "--batch-size-eval", str(BATCH), "-c", os.path.join(tmp, name),
+                         "--evaluate", weights] + extra)
+                torch.cuda.synchronize()
+                say(f"phase 10 cli {name}: the report\n{text.getvalue().rstrip()}")
+                check(all(line in text.getvalue() for line in report_lines),
+                      f"cli {name}: a line of the report is missing")
+                check(all(len(v) == 1 and math.isfinite(v[0]) for v in errors.values()),
+                      f"cli {name}: errors {errors}")
+                check(len(records) == 1 and records[0]["n_frames"] == 16 * FRAMES,
+                      f"cli {name}: evaluated {[r['n_frames'] for r in records]} frames")
+                rec = records[0]
+                got = {c.__name__: c.launches for c in kernel_counters}
+                got["fused_transformer_block_bf16"] = fused_transformer_block.launches_bf16
+                got["plain_attention_calls"] = plain_calls[0]
+                cli[name] = dict(
+                    pred=torch.from_numpy(rec["predictions"] / rec["scale"]), launches=got,
+                    errors={k: v[0] for k, v in errors.items()},
+                    frames_per_s=rec["n_frames"] / rec["model_time"],
+                    seq_per_s=rec["n_frames"] / rec["model_time"] / FRAMES)
+        finally:
+            Runner.evaluate, mixste.grand_attention = evaluate, plain_attention
+    steps = 16 // BATCH + 1  # the timed eval steps and the warm-up step
+    forwards = steps * DDIM_STEPS
+    zero = {c.__name__: 0 for c in kernel_counters}
+    zero.update(fused_transformer_block_bf16=0, plain_attention_calls=0)
+    b1 = 2 * DEPTH * per_call * forwards
+    want = {
+        "plain": dict(zero, plain_attention_calls=2 * DEPTH * forwards),
+        "use_pallas": dict(zero, packed_grand_attention=DEPTH * forwards,
+                           grand_attention_fullseq=DEPTH * forwards),
+        "fast_eval": dict(zero, fused_transformer_block=b1),
+        "mixed": dict(zero, fused_transformer_block=b1,
+                      fused_transformer_block_bf16=b1 * (DDIM_STEPS - 1) // DDIM_STEPS),
+        "bf16": dict(zero, fused_transformer_block=b1, fused_transformer_block_bf16=b1),
+    }
+    for name, c in cli.items():
+        check(c["launches"] == want[name], f"cli {name} launched {c['launches']}, expected "
+              f"{want[name]}")
+        c["dev"] = (c["pred"] - cli["plain"]["pred"]).abs().max().item()
+        c["mpjpe"] = mpjpe(c["pred"], cli["plain"]["pred"])
+        say(f"phase 10 cli {name} B={BATCH} (x2 flip) DDIM-{DDIM_STEPS}, {steps - 1} timed steps: "
+            f"inference_speed_frames_per_s={c['frames_per_s']:.1f} seq_per_s={c['seq_per_s']:.3f} "
+            f"e1_mm={c['errors']['e1']:.4f} e2_mm={c['errors']['e2']:.4f} "
+            f"e3_mm={c['errors']['e3']:.4f} ev_mm={c['errors']['ev']:.4f} vs the plain run "
+            f"(normalised units): max_abs_dev={c['dev']:.3e} mpjpe={c['mpjpe']:.4e} "
+            f"launches={ {k: v for k, v in c['launches'].items() if v} }")
+    for name in ("use_pallas", "fast_eval"):
+        check(cli[name]["dev"] <= EVAL_ABS_BOUND, f"cli {name} deviates from the plain run by "
+              f"{cli[name]['dev']:.3e} > {EVAL_ABS_BOUND}")
+    check(cli["mixed"]["mpjpe"] <= cli["bf16"]["mpjpe"], f"cli mixed mpjpe "
+          f"{cli['mixed']['mpjpe']:.4e} > the bf16 run's {cli['bf16']['mpjpe']:.4e}")
+    cli_launches = {f"cli_{name}": c["launches"] for name, c in cli.items()}
+
+    # Phase 10b: where one eval step of the use_pallas module goes.
+    model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
+                           num_heads=HEADS, mlp_ratio=MLP_RATIO, use_pallas=True, seed=0,
+                           device=dev).eval()
+    step = make_eval_step(
+        GaussianDiffusion.create(make_denoise_fn(model), timesteps=TIMESTEPS,
+                                 sampling_timesteps=DDIM_STEPS, clip_denoised=True,
+                                 beta_schedule="cosine"), JOINTS_LEFT, JOINTS_RIGHT, device=dev)
+    pose_2d = torch.rand(BATCH, FRAMES, JOINTS, 2, generator=gen, device=dev) * 2 - 1
+    pose_2d_flip = flip_pose(pose_2d, JOINTS_LEFT, JOINTS_RIGHT)
+    step(pose_2d, pose_2d_flip, generator=gen)  # warm-up
+    profile_step("phase 10b profile of one use_pallas eval step",
+                 lambda: step(pose_2d, pose_2d_flip, generator=gen))
+    del model, step
+
     # One entry per kernel. B1's work is one spatial + one temporal call at
     # the eval shape, the pair each depth level of a forward runs (f32, and
     # under "bf16" the same at bf16); B2's one call at the eval shape; B3
-    # and B4 are one call at the train shape.
+    # and B4 are one call at the train shape; B5's is B1's pair of shapes;
+    # B6's one call at the eval shape on qkv views. "launches" sums the
+    # counts read after each driven path (launches_by_path).
     def pair_numbers(shapes, peak):
         tot = lambda key: sum(v[key] for v in shapes.values())
         flops, nbytes = tot("flops"), tot("bytes")
@@ -707,11 +980,14 @@ def main():
         return {"max_abs_err": r["abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["lib_ms"]}
 
-    b1_by_path = {"eval_step": eval_launches,
-                  "train_step": train_launches["fused_transformer_block"],
-                  **{k: v["fused_transformer_block"] for k, v in mixed_launches.items()}}
-    b2_by_path = {"eval_step": 0, "train_step": 0,
-                  **{k: v["fused_temporal_block_cols"] for k, v in mixed_launches.items()}}
+    def by_path(name, eval_step=0, train_step=0, mixed_key=None):
+        return {"eval_step": eval_step, "train_step": train_step,
+                **{k: v[mixed_key] if mixed_key else 0 for k, v in mixed_launches.items()},
+                **{k: v[name] for k, v in cli_launches.items()}}
+
+    b1_by_path = by_path("fused_transformer_block", eval_launches,
+                         train_launches["fused_transformer_block"], "fused_transformer_block")
+    b2_by_path = by_path("fused_temporal_block_cols", mixed_key="fused_temporal_block_cols")
     entries = [{
         "name": "fused_transformer_block",
         "route": "cuda",
@@ -720,7 +996,7 @@ def main():
         "launches": sum(b1_by_path.values()),
         "launches_by_path": b1_by_path,
         "launches_bf16_by_path": {k: v["fused_transformer_block_bf16"]
-                                  for k, v in mixed_launches.items()},
+                                  for k, v in {**mixed_launches, **cli_launches}.items()},
         **pair_numbers(per_shape, peak_flops),
         "bf16": pair_numbers(per_shape_bf16, peak_bf16),
         "work": f"one spatial (n={JOINTS}) + one temporal (n={FRAMES}) call, R={rows}, C={EMBED}",
@@ -740,15 +1016,43 @@ def main():
     for name, replaces in (("grand_attention_fullseq", "diff3dhpe_tpu/ops/attention.py:185"),
                            ("grand_attention_bwd", "diff3dhpe_tpu/ops/attention.py:303")):
         a = attn[name]
+        paths = by_path(name, train_step=train_launches[name])
         entries.append({
             "name": name, "route": "cuda", "source": "diff3dhpe_torch/csrc/grand_attention.cu",
-            "replaces": replaces, "launches": train_launches[name],
-            "launches_by_path": {"eval_step": 0, "train_step": train_launches[name],
-                                 **{k: 0 for k in mixed_launches}},
+            "replaces": replaces, "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": a["abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
             "bound_ms": a["bound_ms"], "bound_by": a["bound_by"], "library_ms": a["lib_ms"],
-            "work": f"one call, [B*H={g_all}, N={n}, D={hd}] f32",
+            "work": f"one call, [B*H={g_all}, N={FRAMES}, D={EMBED // HEADS}] f32",
         })
+    entries.append({
+        "name": "fused_attention_block",
+        "route": "cuda",
+        "source": "diff3dhpe_torch/csrc/fused_block.cu",
+        "replaces": "diff3dhpe_tpu/ops/fused_block.py:184",
+        "launches": b5_launches[0],
+        "launches_by_path": {**by_path("fused_attention_block"), "op": b5_launches[0]},
+        "launches_bf16_by_path": {"op": b5_launches[1]},
+        **pair_numbers(attn_block["f32"], peak_flops),
+        "bf16": pair_numbers(attn_block["bf16"], peak_bf16),
+        "work": f"one call with n={JOINTS} + one with n={FRAMES}, R={rows}, C={EMBED}",
+    })
+    paths = by_path("packed_grand_attention",
+                    train_step=train_launches["packed_grand_attention"])
+    entries.append({
+        "name": "packed_grand_attention",
+        "route": "cuda",
+        "source": "diff3dhpe_torch/csrc/grand_attention.cu",
+        "replaces": "diff3dhpe_tpu/ops/attention.py:120",
+        "launches": sum(paths.values()),
+        "launches_by_path": paths,
+        **one_call(small["qkv_views"]),
+        "max_abs_err": max(v["abs_err"] for v in small.values()),
+        "other_shapes": {k: one_call(v) for k, v in small.items() if k != "qkv_views"},
+        "work": f"one call, [G={2 * BATCH * FRAMES * HEADS}, N={JOINTS}, D={EMBED // HEADS}] "
+                f"f32 as views of a qkv projection",
+    })
+    check(len(entries) == 6 and all(e["launches"] > 0 for e in entries),
+          f"a kernel was launched no time: { {e['name']: e['launches'] for e in entries} }")
     say(json.dumps({"kernels": entries}))
     check(all(math.isfinite(e["ms"]) for e in entries), "timing failed")
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

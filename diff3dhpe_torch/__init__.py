@@ -17,8 +17,10 @@ from diff3dhpe_torch.engine import (
     make_train_denoise_fn,
     make_train_step,
 )
-from diff3dhpe_torch.io import state_dict_from_flax
+from diff3dhpe_torch.engine.runner import Runner, RunLogger
+from diff3dhpe_torch.io import load_torch_state_dict, state_dict_from_flax
 from diff3dhpe_torch.models import (
+    HPE_model,
     MixSTEDenoiser,
     bf16_snapshot,
     draw_drop_path_scales,
@@ -26,6 +28,9 @@ from diff3dhpe_torch.models import (
     fast_forward_denoise_train_pairs,
 )
 from diff3dhpe_torch.ops import (
+    fused_attention_block,
+    fused_attention_block_ref,
+    fused_grand_attention,
     fused_temporal_block_cols,
     fused_temporal_block_cols_ref,
     fused_transformer_block,
@@ -36,16 +41,20 @@ from diff3dhpe_torch.ops import (
     grand_attention_fullseq,
     grand_attention_fullseq_ref,
     grand_attention_trainable,
+    packed_grand_attention,
+    packed_grand_attention_ref,
 )
 
 __all__ = [
-    "GaussianDiffusion", "MixSTEDenoiser", "bf16_snapshot", "ddim_time_pairs",
-    "draw_drop_path_scales", "fast_forward_denoise", "fast_forward_denoise_train_pairs",
-    "flip_pose", "fused_temporal_block_cols", "fused_temporal_block_cols_ref",
-    "fused_transformer_block", "fused_transformer_block_ref", "grand_attention",
-    "grand_attention_bwd", "grand_attention_bwd_ref", "grand_attention_fullseq",
-    "grand_attention_fullseq_ref", "grand_attention_trainable", "make_denoise_fn",
-    "make_eval_step", "make_fast_denoise_fn", "make_fast_train_denoise_fn",
-    "make_mixed_diffusion", "make_optimizer", "make_train_denoise_fn", "make_train_step",
-    "state_dict_from_flax",
+    "GaussianDiffusion", "HPE_model", "MixSTEDenoiser", "RunLogger", "Runner", "bf16_snapshot",
+    "ddim_time_pairs", "draw_drop_path_scales", "fast_forward_denoise",
+    "fast_forward_denoise_train_pairs", "flip_pose", "fused_attention_block",
+    "fused_attention_block_ref", "fused_grand_attention", "fused_temporal_block_cols",
+    "fused_temporal_block_cols_ref", "fused_transformer_block", "fused_transformer_block_ref",
+    "grand_attention", "grand_attention_bwd", "grand_attention_bwd_ref",
+    "grand_attention_fullseq", "grand_attention_fullseq_ref", "grand_attention_trainable",
+    "load_torch_state_dict", "make_denoise_fn", "make_eval_step", "make_fast_denoise_fn",
+    "make_fast_train_denoise_fn", "make_mixed_diffusion", "make_optimizer",
+    "make_train_denoise_fn", "make_train_step", "packed_grand_attention",
+    "packed_grand_attention_ref", "state_dict_from_flax",
 ]

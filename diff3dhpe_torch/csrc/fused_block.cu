@@ -7,6 +7,9 @@
 //   B2 diff3dhpe_tpu/ops/fused_block.py::_fused_temporal_group_kernel
 //      (wrapper fused_temporal_block_cols): the temporal group (b, j) of
 //      the spatial-major rows (b·F + f)·J + j, with no transpose;
+//   B5 diff3dhpe_tpu/ops/fused_block.py::_fused_attn_block_kernel (wrapper
+//      fused_attention_block): the attention half alone,
+//      out = x + proj(GRAND(LN1(x))), groups of n consecutive rows;
 // with their device functions ops/attention.py::grand_attend_tile,
 // fused_block.py::_layernorm_rows and fused_block.py::_gelu_exact.
 //
@@ -459,6 +462,24 @@ int run_block(const T* x, const T* t_rows, int rows_per_item, const float* dp,
   return 0;
 }
 
+// B5: the attention half of the block in storage type T, as the first 4
+// kernels of run_block without the time add and the drop-path scales:
+// out = x + proj(GRAND(LN1(x))) on groups of n consecutive rows. bf16
+// rounds xn, qkv (bias added first), the attention output and out, where
+// the TPU kernel rounds (fused_block.py:206-228). Scratch: xn [R, C],
+// qkv [R, 3C], attn [R, C].
+template <typename T>
+int run_attn_block(const T* x, const float* ln_w, const float* ln_b, float ln_eps, const T* w_qkv,
+                   const float* b_qkv, const T* w_proj, const float* b_proj, T* xn, T* qkv,
+                   T* attn, T* out, int R, int C, int n, int heads, float scale, int* launches,
+                   cudaStream_t stream) {
+  DIFF_CHECK(launch_ln<T>(x, nullptr, 1, ln_w, ln_b, ln_eps, nullptr, xn, R, C, stream));
+  DIFF_CHECK(launch_gemm<kEpiBias>(xn, w_qkv, b_qkv, nullptr, nullptr, qkv, R, 3 * C, C, stream));
+  DIFF_CHECK(launch_attention(qkv, attn, R, C, heads, n, n, 0, scale, stream));
+  DIFF_CHECK(launch_gemm<kEpiResidual>(attn, w_proj, b_proj, x, nullptr, out, R, C, C, stream));
+  return 0;
+}
+
 }  // namespace
 
 #define BLOCK_ARGS                                                                              \
@@ -496,6 +517,28 @@ extern "C" int diff3dhpe_fused_block_bf16(
     int R, int C, int hidden, int n, int n_pad, int j_groups, int heads, float scale,
     int* launches, void* stream_ptr) {
   return run_block<bf16>(BLOCK_ARGS);
+}
+
+#define ATTN_BLOCK_ARGS                                                                    \
+  x, ln_w, ln_b, ln_eps, w_qkv, b_qkv, w_proj, b_proj, xn, qkv, attn, out, R, C, n, heads, \
+      scale, launches, static_cast<cudaStream_t>(stream_ptr)
+
+// B5 at f32 and at bf16 (activations, weights and scratch bf16; LN
+// parameters and biases float). See run_attn_block.
+extern "C" int diff3dhpe_fused_attn_block_f32(
+    const float* x, const float* ln_w, const float* ln_b, float ln_eps,
+    const float* w_qkv, const float* b_qkv, const float* w_proj, const float* b_proj,
+    float* xn, float* qkv, float* attn, float* out,
+    int R, int C, int n, int heads, float scale, int* launches, void* stream_ptr) {
+  return run_attn_block<float>(ATTN_BLOCK_ARGS);
+}
+
+extern "C" int diff3dhpe_fused_attn_block_bf16(
+    const bf16* x, const float* ln_w, const float* ln_b, float ln_eps,
+    const bf16* w_qkv, const float* b_qkv, const bf16* w_proj, const float* b_proj,
+    bf16* xn, bf16* qkv, bf16* attn, bf16* out,
+    int R, int C, int n, int heads, float scale, int* launches, void* stream_ptr) {
+  return run_attn_block<bf16>(ATTN_BLOCK_ARGS);
 }
 
 // Head width the attention kernel is compiled for, and the most keys per

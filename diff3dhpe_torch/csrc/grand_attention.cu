@@ -1,4 +1,5 @@
-// Hopper (sm_90a) ports of the GRAND attention forward and backward, f32.
+// Hopper (sm_90a) ports of the GRAND attention forward (long and small
+// groups) and backward, f32.
 //
 // Replaces:
 //   B3 diff3dhpe_tpu/ops/attention.py::_fullseq_grand_attn_kernel
@@ -9,6 +10,9 @@
 //        dP = dO Vᵀ,  Dᵢ = Σⱼ dPᵢⱼ Pᵢⱼ
 //        dS = P ∘ (dP − D) · scale
 //        dQ = dS K,   dK = dSᵀ Q
+//   B6 diff3dhpe_tpu/ops/attention.py::_packed_grand_attn_kernel (wrapper
+//      packed_grand_attention): the same forward for many small groups,
+//      n <= 64 (the spatial attention: n = 17 joints).
 //
 // Operands are [B, H, N, 64] read through element strides (unit stride on
 // the head dimension), so the trainable attention hands over q, k and v as
@@ -19,7 +23,9 @@
 // of N = 243, d = 64) B3 does 4·N²·d FLOP per group (49 GFLOP) against
 // 0.8 GB of compulsory traffic and B4 10·N²·d (123 GFLOP) against 1.4 GB,
 // so both are bound by float32 arithmetic (67 TFLOP/s outside the tensor
-// cores). All products are plain f32 FMAs (no TF32).
+// cores). All products are plain f32 FMAs (no TF32). B6 at the eval shape
+// (7,776 groups of N = 17) does 0.58 GFLOP against 135 MB, so memory
+// bounds it.
 //
 // Design:
 //   B3  grand_attn_kernel from grand_attn.cuh, the kernel B1 runs for its
@@ -39,6 +45,17 @@
 //       gradients are deterministic. P is rebuilt in both passes with the
 //       same products in the same order, so the two passes see the same P.
 //       The passes cost 14·N²·d FLOP where the formulas need 10.
+//   B6  grand_attn_small_kernel: B3's one block per (group, head) would
+//       leave most of a block idle at n = 17, so here one WARP takes a
+//       (group, head) and a block holds several. The warp's Q (times
+//       scale), K and V sit in its own slice of shared memory; lane j owns
+//       key j (and key 32 + j for n > 32), so a query's scores are one or
+//       two registers per lane and the softmax is two warp reductions. For
+//       the AV product the lanes turn to the head dimension (columns lane
+//       and 32 + lane) and take each P from its owner by shuffle. expf,
+//       IEEE division, normalisation after the AV product as in B3. The
+//       TPU kernel's 119-row packed tile, block-diagonal mask and group
+//       padding serve its matrix unit and have no counterpart.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -325,6 +342,120 @@ __global__ void grand_attn_bwd_dkdv_kernel(const float* __restrict__ q,
   }
 }
 
+// ---- B6: small groups, one warp per (group, head) ---------------------------
+
+constexpr int kSmallMaxN = 64;
+constexpr int kSmallMaxWarps = 8;
+
+// Floats of shared memory one warp of grand_attn_small_kernel holds: V and
+// Q [n][64] (16-byte aligned rows), then K [n][65] rounded up to 4 floats.
+__host__ __device__ inline int small_warp_floats(int n) {
+  return 2 * n * kHeadDim + ((n * kPadDim + 3) & ~3);
+}
+
+// out = softmax(q kᵀ·scale) v − v for pairs (b, h) of [B, H, n, 64]
+// operands, n <= 32·kKpl; warp w of block x takes pair x·warps + w.
+template <int kKpl>
+__global__ void grand_attn_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                        const float* __restrict__ v, float* __restrict__ out,
+                                        Strides sq, Strides sk, Strides sv, Strides so,
+                                        int pairs, int H, int n, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pair = blockIdx.x * warps + warp;
+  if (pair >= pairs) return;  // warps share nothing: no block-wide barrier below
+  const int b = pair / H, h = pair % H;
+  float* Vs = smem + (size_t)warp * small_warp_floats(n);
+  float* Qs = Vs + n * kHeadDim;
+  float* Ks = Qs + n * kHeadDim;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  float* ob = out + b * so.b + h * so.h;
+
+  for (int e = lane; e < n * (kHeadDim / 4); e += 32) {
+    const int j = e / (kHeadDim / 4), c4 = (e % (kHeadDim / 4)) * 4;
+    const float4 qv = *reinterpret_cast<const float4*>(qb + j * sq.n + c4);
+    const float4 kv = *reinterpret_cast<const float4*>(kb + j * sk.n + c4);
+    const float4 vv = *reinterpret_cast<const float4*>(vb + j * sv.n + c4);
+    *reinterpret_cast<float4*>(Qs + j * kHeadDim + c4) =
+        make_float4(qv.x * scale, qv.y * scale, qv.z * scale, qv.w * scale);
+    *reinterpret_cast<float4*>(Vs + j * kHeadDim + c4) = vv;
+    float* kd = Ks + j * kPadDim + c4;
+    kd[0] = kv.x;
+    kd[1] = kv.y;
+    kd[2] = kv.z;
+    kd[3] = kv.w;
+  }
+  __syncwarp();
+
+  for (int i = 0; i < n; ++i) {
+    const float* qi = Qs + i * kHeadDim;
+    float s[kKpl];
+#pragma unroll
+    for (int kk = 0; kk < kKpl; ++kk) {
+      const int j = kk * 32 + lane;
+      s[kk] = -INFINITY;
+      if (j < n) {
+        const float* kr = Ks + j * kPadDim;
+        float dot = 0.f;
+#pragma unroll 4
+        for (int d = 0; d < kHeadDim; d += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qi + d);
+          dot = fmaf(qv.x, kr[d], dot);
+          dot = fmaf(qv.y, kr[d + 1], dot);
+          dot = fmaf(qv.z, kr[d + 2], dot);
+          dot = fmaf(qv.w, kr[d + 3], dot);
+        }
+        s[kk] = dot;
+      }
+    }
+    float m = s[0];
+#pragma unroll
+    for (int kk = 1; kk < kKpl; ++kk) m = fmaxf(m, s[kk]);
+    m = warp_max(m);
+    float sum = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKpl; ++kk) {
+      s[kk] = kk * 32 + lane < n ? expf(s[kk] - m) : 0.f;
+      sum += s[kk];
+    }
+    const float inv = 1.0f / warp_sum(sum);
+
+    float o0 = 0.f, o1 = 0.f;  // columns lane and 32 + lane
+#pragma unroll
+    for (int kk = 0; kk < kKpl; ++kk) {
+      const int end = n - kk * 32 < 32 ? n - kk * 32 : 32;
+      for (int j = 0; j < end; ++j) {
+        const float p = __shfl_sync(0xffffffffu, s[kk], j);
+        const float* vr = Vs + (kk * 32 + j) * kHeadDim;
+        o0 = fmaf(p, vr[lane], o0);
+        o1 = fmaf(p, vr[32 + lane], o1);
+      }
+    }
+    float* oi = ob + i * so.n;
+    oi[lane] = o0 * inv - Vs[i * kHeadDim + lane];
+    oi[32 + lane] = o1 * inv - Vs[i * kHeadDim + 32 + lane];
+  }
+}
+
+template <int kKpl>
+cudaError_t launch_small(const float* q, const float* k, const float* v, float* out, Strides sq,
+                         Strides sk, Strides sv, Strides so, int B, int H, int n, float scale,
+                         cudaStream_t stream) {
+  // As many warps a block as 96 KB of shared memory hold (two blocks an SM).
+  int warps = (96 * 1024) / (small_warp_floats(n) * (int)sizeof(float));
+  warps = warps < kSmallMaxWarps ? warps : kSmallMaxWarps;
+  const size_t bytes = (size_t)warps * small_warp_floats(n) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      grand_attn_small_kernel<kKpl>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int pairs = B * H;
+  grand_attn_small_kernel<kKpl><<<(pairs + warps - 1) / warps, 32 * warps, bytes, stream>>>(
+      q, k, v, out, sq, sk, sv, so, pairs, H, n, scale);
+  return cudaGetLastError();
+}
+
 int warps_for(int rows) {
   const int w = (rows + kRowsPerWarp - 1) / kRowsPerWarp;
   return w < kMaxWarps ? w : kMaxWarps;
@@ -351,6 +482,26 @@ extern "C" int diff3dhpe_grand_attn_fwd_f32(
   const cudaError_t err = grand::launch_grand_attn(q, k, v, out, STRIDES(q), STRIDES(k),
                                                    STRIDES(v), STRIDES(o), B, H, n, n, scale,
                                                    stream);
+  if (err != cudaSuccess) return (int)err;
+  ++*launches;
+  return 0;
+}
+
+// B6: the same function for small groups, n <= 64 (checked by the
+// wrapper), one warp per (b, h). One kernel; adds one to *launches when it
+// launched. Returns the cudaError_t of the launch.
+extern "C" int diff3dhpe_grand_attn_small_f32(
+    const float* q, const float* k, const float* v, float* out, int B, int H, int n,
+    long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
+    long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
+    long long o_sh, long long o_sn, float scale, int* launches, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n <= 0 || n > kSmallMaxN) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      n <= 32 ? launch_small<1>(q, k, v, out, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(o), B,
+                                H, n, scale, stream)
+              : launch_small<2>(q, k, v, out, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(o), B,
+                                H, n, scale, stream);
   if (err != cudaSuccess) return (int)err;
   ++*launches;
   return 0;
@@ -394,3 +545,5 @@ extern "C" int diff3dhpe_grand_attn_bwd_f32(
 // check both before launching.
 extern "C" int diff3dhpe_grand_head_dim() { return kHeadDim; }
 extern "C" int diff3dhpe_grand_max_n() { return kMaxN; }
+// The most keys per group B6 takes.
+extern "C" int diff3dhpe_grand_small_max_n() { return kSmallMaxN; }

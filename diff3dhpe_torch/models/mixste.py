@@ -30,7 +30,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from diff3dhpe_torch.device import resolve_device
-from diff3dhpe_torch.ops.attention import grand_attention, grand_attention_trainable
+from diff3dhpe_torch.ops.attention import (
+    fused_grand_attention,
+    grand_attention,
+    grand_attention_trainable,
+)
 
 
 def sinusoidal_pos_emb(t, dim: int):
@@ -72,11 +76,14 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with the GRAND (attn − I) v modification."""
+    """Multi-head self-attention with the GRAND (attn − I) v modification.
+    ``use_pallas`` (JAX's name for it): the attention core goes through the
+    dispatcher ``fused_grand_attention``, whose kernels are float32."""
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool, use_pallas: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.use_pallas = use_pallas
         self.scale = (dim // num_heads) ** -0.5
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
@@ -88,7 +95,12 @@ class Attention(nn.Module):
         b, n, c = x.shape
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        out = grand_attention_trainable(q, k, v) if attn_bwd else grand_attention(q, k, v, self.scale)
+        if attn_bwd:
+            out = grand_attention_trainable(q, k, v)
+        elif self.use_pallas:
+            out = fused_grand_attention(q, k, v, self.scale)
+        else:
+            out = grand_attention(q, k, v, self.scale)
         return self.proj(out.transpose(1, 2).reshape(b, n, c))
 
 
@@ -101,10 +113,10 @@ class Block(nn.Module):
     block, J joints for a temporal one (JAX ``_xla_block``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, qkv_bias: bool,
-                 with_time_emb: bool = True):
+                 with_time_emb: bool = True, use_pallas: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.attn = Attention(dim, num_heads, qkv_bias, use_pallas)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.time_mlp = (
@@ -136,7 +148,10 @@ class MixSTEDenoiser(nn.Module):
 
     Parameters are drawn from ``seed`` (torch.nn.Linear's default
     U(±1/sqrt(fan_in)) for weights and biases, zero position embeddings)
-    and placed on ``device``."""
+    and placed on ``device``. ``use_pallas``: every block's attention goes
+    through ``ops.attention.fused_grand_attention`` (B6 for the joints, B3
+    for the frames, on CUDA; their plain versions on the CPU). Those kernels
+    are float32, so such a model cast to bfloat16 raises in its forward."""
 
     def __init__(
         self,
@@ -151,6 +166,7 @@ class MixSTEDenoiser(nn.Module):
         with_time_emb: bool = True,
         mode: str = "s2s",
         out_dim: int = 3,
+        use_pallas: bool = False,
         seed: int = 0,
         device="cuda",
     ):
@@ -161,7 +177,7 @@ class MixSTEDenoiser(nn.Module):
         c = embed_dim
         self.num_frame, self.num_joints, self.depth = num_frame, num_joints, depth
         self.num_heads, self.embed_dim, self.mode = num_heads, c, mode
-        self.with_time_emb = with_time_emb
+        self.with_time_emb, self.use_pallas = with_time_emb, use_pallas
 
         self.fusion_layer = nn.Linear(in_chans + 3, c)
         # nn.Sequential(SinusoidalPosEmb, Linear, GELU, Linear) in the
@@ -175,7 +191,7 @@ class MixSTEDenoiser(nn.Module):
 
         def blocks():
             return nn.ModuleList(
-                Block(c, num_heads, mlp_ratio, qkv_bias, with_time_emb)
+                Block(c, num_heads, mlp_ratio, qkv_bias, with_time_emb, use_pallas)
                 for _ in range(depth)
             )
 
@@ -224,6 +240,9 @@ class MixSTEDenoiser(nn.Module):
         [depth, B, J, 2]) drop-path scales (``draw_drop_path_scales``)."""
         if x.ndim != 4:
             raise ValueError(f"expected x of shape [B, F, J, C], got {tuple(x.shape)}")
+        if self.use_pallas and self.fusion_layer.weight.dtype != torch.float32:
+            raise ValueError("use_pallas needs a float32 model: the attention kernels are "
+                             f"float32, the weights are {self.fusion_layer.weight.dtype}")
         dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
         x = self.fusion_layer(x)
         t = self.time_embedding(time)

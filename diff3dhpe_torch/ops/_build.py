@@ -49,12 +49,26 @@ SIGNATURES = {
         )
         for name in ("diff3dhpe_fused_block_f32", "diff3dhpe_fused_block_bf16")
     } | {
+        name: (
+            [_P, _P, _P, _F]                   # x; ln w, b, eps
+            + [_P, _P, _P, _P]                 # qkv w, b; proj w, b
+            + [_P] * 4                         # xn, qkv, attn, out
+            + [_I] * 4 + [_F]                  # R, C, n, heads, scale
+            + [ctypes.POINTER(_I), _P]         # launches, stream
+        )
+        for name in ("diff3dhpe_fused_attn_block_f32", "diff3dhpe_fused_attn_block_bf16")
+    } | {
         "diff3dhpe_attn_head_dim": [],
         "diff3dhpe_attn_max_n": [],
     },
     "grand_attention": {
         "diff3dhpe_grand_attn_fwd_f32": (
             [_P] * 4 + [_I] * 3                # q, k, v, out; B, H, n
+            + [_L] * 12                        # (b, h, n) strides of q, k, v, out
+            + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
+        ),
+        "diff3dhpe_grand_attn_small_f32": (
+            [_P] * 4 + [_I] * 3                # q, k, v, out; B, H, n (n <= 64)
             + [_L] * 12                        # (b, h, n) strides of q, k, v, out
             + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
         ),
@@ -65,6 +79,7 @@ SIGNATURES = {
         ),
         "diff3dhpe_grand_head_dim": [],
         "diff3dhpe_grand_max_n": [],
+        "diff3dhpe_grand_small_max_n": [],
     },
 }
 

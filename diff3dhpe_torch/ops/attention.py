@@ -6,17 +6,19 @@ is algebraically (attn @ v) − v, so no [N, N] identity is materialised.
 Port of ``diff3dhpe_tpu/ops/attention.py``:
 
 - ``grand_attention``: plain PyTorch, any shape;
-- ``grand_attention_fullseq`` (B3, port of ``grand_attention_pallas_3d``)
-  and ``grand_attention_bwd`` (B4, port of ``grand_attention_bwd_pallas``):
-  the kernels of ``csrc/grand_attention.cu`` for CUDA tensors, each with a
-  plain version (``*_ref``) that runs for CPU tensors;
+- ``grand_attention_fullseq`` (B3, port of ``grand_attention_pallas_3d``),
+  ``grand_attention_bwd`` (B4, port of ``grand_attention_bwd_pallas``) and
+  ``packed_grand_attention`` (B6, port of ``packed_grand_attention``, the
+  forward for many small groups): the kernels of
+  ``csrc/grand_attention.cu`` for CUDA tensors, each with a plain version
+  (``*_ref``) that runs for CPU tensors;
 - ``fused_grand_attention``: the dispatcher over [B, H, N, D];
 - ``grand_attention_trainable``: the same function with the hand-written
   backward, a ``torch.autograd.Function`` (JAX's custom VJP).
 
-The kernels take head_dim 64 and n <= 256 and read their operands through
-strides (unit stride on the head dim), so views of a qkv projection go in
-without a copy.
+The kernels take head_dim 64 and n <= 256 (B6: n <= 64) and read their
+operands through strides (unit stride on the head dim), so views of a qkv
+projection go in without a copy.
 """
 from __future__ import annotations
 
@@ -24,8 +26,8 @@ import ctypes
 
 import torch
 
-# n at or below which the dispatcher and the trainable backward stay on the
-# plain formulas, as JAX does (ops/attention.py:240-246, :401-402).
+# n at or below which the dispatcher sends a group to B6 and the trainable
+# backward stays on the plain formulas (JAX ops/attention.py:240, :401-402).
 SMALL_N = 64
 
 
@@ -41,6 +43,7 @@ def grand_attention(q, k, v, scale=None):
 
 
 grand_attention_fullseq_ref = grand_attention  # the plain version of B3
+packed_grand_attention_ref = grand_attention   # and of B6
 
 
 def grand_attention_bwd_ref(q, k, v, do, scale=None):
@@ -75,12 +78,37 @@ def grand_attention_fullseq(q, k, v, scale=None):
 grand_attention_fullseq.launches = 0
 
 
+def packed_grand_attention(q, k, v, scale=None):
+    """B6: GRAND attention for many small groups, q, k, v [G, N, D] (or
+    [B, H, N, D]) with N <= 64.
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the kernel
+    (``packed_grand_attention.launches`` counts launches) or raises. The
+    name is JAX's, whose kernel packs groups into one tile of its matrix
+    unit; this kernel gives each (group, head) a warp and packs nothing."""
+    if q.shape[-2] > SMALL_N:
+        raise ValueError(f"packed_grand_attention takes n <= {SMALL_N}, got n {q.shape[-2]}")
+    if q.device.type == "cpu":
+        return packed_grand_attention_ref(q, k, v, scale)
+    q4, k4, v4 = (_as4d(t) for t in (q, k, v))
+    out = _empty_like_heads(q4)
+    _launch_fwd(q4, k4, v4, out, scale, small=True)
+    return out.view(q.shape) if q.ndim == 3 else out
+
+
+packed_grand_attention.launches = 0
+
+
 def fused_grand_attention(q, k, v, scale=None):
-    """q, k, v [B, H, N, D] -> [B, H, N, D]: N <= 64 through the plain
-    ``grand_attention`` (as JAX computes it outside Pallas), larger N
-    through B3."""
+    """q, k, v [B, H, N, D] -> [B, H, N, D]: N <= 64 through B6, larger N
+    through B3.
+
+    JAX's dispatcher keeps N <= 64 on its plain formulas, because its
+    packed kernel needs a relayout of [G, 17, 64] into 119-row tiles first
+    (ops/attention.py:240-246). B6 reads the qkv projection through strides
+    and needs none, so the port sends small N to its kernel."""
     if q.shape[-2] <= SMALL_N:
-        return grand_attention(q, k, v, scale)
+        return packed_grand_attention(q, k, v, scale)
     return grand_attention_fullseq(q, k, v, scale)
 
 
@@ -106,8 +134,9 @@ grand_attention_bwd.launches = 0
 
 class _GrandAttentionTrainable(torch.autograd.Function):
     """Port of JAX's ``grand_attention_trainable`` custom VJP: the forward
-    through ``fused_grand_attention``, the backward through B4 for N > 64
-    and through the plain formulas for N <= 64 (JAX ``_gat_bwd``)."""
+    through ``fused_grand_attention`` (B6 or B3), the backward through B4
+    for N > 64 and through the plain formulas for N <= 64 (JAX ``_gat_bwd``:
+    there is no small-N backward kernel)."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -160,36 +189,41 @@ def _strides(t):
     return [ctypes.c_longlong(s) for s in t.stride()[:3]]
 
 
-def _library(q, scale):
-    """The loaded library and the scale, after checking what the kernels take."""
+def _library(q, scale, small=False):
+    """The loaded library and the scale, after checking what the kernel
+    takes (B6's bound on n with ``small``)."""
     from diff3dhpe_torch.ops._build import load_library
 
     if q.device.type != "cuda":
         raise ValueError(f"the attention kernels run on cuda, not {q.device}")
     lib = load_library("grand_attention")
     b, h, n, d = q.shape
-    if d != lib.diff3dhpe_grand_head_dim() or not 0 < n <= lib.diff3dhpe_grand_max_n():
+    max_n = lib.diff3dhpe_grand_small_max_n() if small else lib.diff3dhpe_grand_max_n()
+    if d != lib.diff3dhpe_grand_head_dim() or not 0 < n <= max_n:
         raise ValueError(
-            f"the CUDA kernels take head_dim {lib.diff3dhpe_grand_head_dim()} and "
-            f"0 < n <= {lib.diff3dhpe_grand_max_n()}, got head_dim {d} and n {n}"
+            f"the CUDA kernel takes head_dim {lib.diff3dhpe_grand_head_dim()} and "
+            f"0 < n <= {max_n}, got head_dim {d} and n {n}"
         )
     return lib, d ** -0.5 if scale is None else float(scale)
 
 
-def _launch_fwd(q, k, v, out, scale):
-    lib, scale = _library(q, scale)
+def _launch_fwd(q, k, v, out, scale, small=False):
+    """Launches B3, or B6 with ``small``, and counts it on its wrapper."""
+    lib, scale = _library(q, scale, small)
     q, k, v = (_kernel_operand(t, q) for t in (q, k, v))
     b, h, n, _ = q.shape
+    wrapper, fn = ((packed_grand_attention, lib.diff3dhpe_grand_attn_small_f32) if small
+                   else (grand_attention_fullseq, lib.diff3dhpe_grand_attn_fwd_f32))
     launched = ctypes.c_int(0)
     with torch.cuda.device(q.device):
-        err = lib.diff3dhpe_grand_attn_fwd_f32(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n,
             *_strides(q), *_strides(k), *_strides(v), *_strides(out),
             scale, ctypes.byref(launched), torch.cuda.current_stream(q.device).cuda_stream,
         )
-    grand_attention_fullseq.launches += launched.value
+    wrapper.launches += launched.value
     if err:
-        raise RuntimeError(f"grand_attention forward kernel failed: cudaError_t {err}")
+        raise RuntimeError(f"{wrapper.__name__} kernel failed: cudaError_t {err}")
 
 
 def _launch_bwd(q, k, v, do, dq, dk, dv, scale):

@@ -1,6 +1,7 @@
 """One whole MixSTE transformer block on flat rows: the ports of
-``diff3dhpe_tpu/ops/fused_block.py::fused_transformer_block`` (B1) and
-``fused_temporal_block_cols`` (B2).
+``diff3dhpe_tpu/ops/fused_block.py::fused_transformer_block`` (B1),
+``fused_temporal_block_cols`` (B2) and ``fused_attention_block`` (B5, the
+attention half alone: out = x + proj(GRAND(LN1(x)))).
 
 Each wrapper launches the hand-written CUDA kernels of
 ``csrc/fused_block.cu`` for a CUDA tensor and runs its plain PyTorch
@@ -93,31 +94,49 @@ def _out_ln_params(out_ln):
     return None if out_ln is None else (out_ln.weight, out_ln.bias, out_ln.eps)
 
 
+def _ref_ops(dt):
+    """(rnd, lin, ln) of the plain versions for storage type ``dt``: ``rnd``
+    rounds to dt where a kernel stores; ``lin`` is a float32 matmul of the
+    operands as the kernel sees them (weights rounded to dt, bias float32);
+    ``ln`` a float32 LayerNorm."""
+    rnd = (lambda a: a) if dt == torch.float32 else (lambda a: a.to(dt).float())
+
+    def lin(a, m):
+        return F.linear(a, rnd(m.weight.float()), None if m.bias is None else m.bias.float())
+
+    def ln(a, m):
+        return F.layer_norm(a, (a.shape[-1],), m.weight.float(), m.bias.float(), m.eps)
+
+    return rnd, lin, ln
+
+
+def _attn_branch_ref(x, block, n, heads, n_pad, dt):
+    """proj(GRAND(LN1(x))) in float32 on float32 rows x [R, C] that hold
+    values of type ``dt``, rounding to dt where the kernels store: the LN
+    output, qkv (after the bias), P and the attention output."""
+    rnd, lin, ln = _ref_ops(dt)
+    r, c = x.shape
+    qkv = rnd(lin(rnd(ln(x, block.norm1)), block.attn.qkv))
+    q, k, v = qkv.reshape(r // n_pad, n_pad, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+    logits = q @ k[:, :, :n].transpose(-1, -2) * (c // heads) ** -0.5
+    attn = rnd(rnd(torch.softmax(logits, dim=-1)) @ v[:, :, :n] - v)
+    return lin(attn.permute(0, 2, 1, 3).reshape(r, c), block.attn.proj)
+
+
 def _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, out_ln, dp_scales):
     """The plain block on groups of n_pad rows; ``out_ln`` is (w, b, eps)
     or None. Every product is a float32 matmul of the operands as the
     kernel sees them (exact for bf16-rounded operands), and ``rnd`` rounds
     to x's dtype where the kernel stores."""
     dt = x.dtype
-    rnd = (lambda a: a) if dt == torch.float32 else (lambda a: a.to(dt).float())
+    rnd, lin, ln = _ref_ops(dt)
     r, c = x.shape
     s_attn, s_mlp = (1.0, 1.0) if dp_scales is None else (dp_scales[:, 0:1], dp_scales[:, 1:2])
-
-    def lin(a, m):
-        return F.linear(a, rnd(m.weight.float()), None if m.bias is None else m.bias.float())
-
-    def ln(a, m):
-        return F.layer_norm(a, (c,), m.weight.float(), m.bias.float(), m.eps)
 
     x = x.float()
     if t_rows is not None:
         x = rnd(x + rnd(t_rows.float())[torch.arange(r, device=x.device) // rows_per_item])
-    qkv = rnd(lin(rnd(ln(x, block.norm1)), block.attn.qkv))
-    q, k, v = qkv.reshape(r // n_pad, n_pad, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
-    logits = q @ k[:, :, :n].transpose(-1, -2) * (c // heads) ** -0.5
-    attn = rnd(rnd(torch.softmax(logits, dim=-1)) @ v[:, :, :n] - v)
-    attn = attn.permute(0, 2, 1, 3).reshape(r, c)
-    h1 = rnd(x + s_attn * lin(attn, block.attn.proj))
+    h1 = rnd(x + s_attn * _attn_branch_ref(x, block, n, heads, n_pad, dt))
     mid = rnd(F.gelu(lin(rnd(ln(h1, block.norm2)), block.mlp.fc1)))
     out = h1 + s_mlp * lin(mid, block.mlp.fc2)
     if out_ln is not None:
@@ -217,6 +236,50 @@ fused_temporal_block_cols.launches = 0
 fused_temporal_block_cols.launches_bf16 = 0
 
 
+def _check_attn_args(x, block, n, heads):
+    if x.ndim != 2 or n <= 0 or x.shape[0] % n:
+        raise ValueError(f"x must be [R, C] with R a multiple of n={n}, got {tuple(x.shape)}")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    c = x.shape[1]
+    if c % heads:
+        raise ValueError(f"C={c} is not a multiple of heads={heads}")
+    for name, shape in (("qkv", (3 * c, c)), ("proj", (c, c))):
+        got = tuple(getattr(block.attn, name).weight.shape)
+        if got != shape:
+            raise ValueError(f"block attn.{name}.weight has shape {got}, expected {shape}")
+
+
+def fused_attention_block_ref(x, block, n, heads):
+    """Plain PyTorch version of ``fused_attention_block`` (same arguments,
+    same result)."""
+    _check_attn_args(x, block, n, heads)
+    return (x.float() + _attn_branch_ref(x.float(), block, n, heads, n, x.dtype)).to(x.dtype)
+
+
+def fused_attention_block(x, block, n, heads):
+    """B5: the attention half of a block on flat rows x [R, C], groups of
+    ``n`` consecutive rows: x + proj(GRAND(LN1(x))), without the time add,
+    drop-path, MLP or out-LN. Reads ``block.norm1``, ``block.attn.qkv`` and
+    ``block.attn.proj``. x float32 or bfloat16; bf16 rounds the LN output,
+    qkv (after the bias), the attention output and the result, as JAX's
+    kernel does (fused_block.py:206-228).
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the 4
+    kernels (``fused_attention_block.launches`` counts them,
+    ``.launches_bf16`` those at bf16) or raises."""
+    if x.device.type == "cpu":
+        return fused_attention_block_ref(x, block, n, heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_attention_block runs on cpu or cuda, not {x.device}")
+    _check_attn_args(x, block, n, heads)
+    return _launch_attn(x, block, n, heads)
+
+
+fused_attention_block.launches = 0
+fused_attention_block.launches_bf16 = 0
+
+
 def _ptr(t, dtype):
     """Device pointer of a CUDA tensor of ``dtype`` the kernels may read 16
     bytes at a time: contiguous and 16-byte aligned. None -> NULL."""
@@ -236,6 +299,58 @@ def _as(t, dtype):
     return t if t is None or t.dtype == dtype else t.to(dtype)
 
 
+def _kernel_limits(lib, x, n, heads, widths):
+    """Raises unless the block kernels take this head_dim, n and these GEMM
+    widths at x's dtype."""
+    d = x.shape[1] // heads
+    if d != lib.diff3dhpe_attn_head_dim() or n > lib.diff3dhpe_attn_max_n():
+        raise ValueError(
+            f"the CUDA kernel takes head_dim {lib.diff3dhpe_attn_head_dim()} and "
+            f"n <= {lib.diff3dhpe_attn_max_n()}, got head_dim {d} and n {n}"
+        )
+    step = 8 if x.dtype == torch.float32 else 32  # the bf16 GEMM takes K in steps of 32
+    if any(w % step for w in widths):
+        raise ValueError(f"the CUDA kernel needs C and hidden multiples of {step} at {x.dtype}, "
+                         f"got {widths}")
+
+
+def _launch_attn(x, block, n, heads):
+    """Launches B5's kernels on rows x [R, C] and counts them."""
+    from diff3dhpe_torch.ops._build import load_library
+
+    lib = load_library("fused_block")
+    r, c = x.shape
+    _kernel_limits(lib, x, n, heads, (c,))
+    dt, f32 = x.dtype, torch.float32
+    # Cast copies are held here until the launch is enqueued (see _launch).
+    attn = block.attn
+    operands = [_as(block.norm1.weight, f32), _as(block.norm1.bias, f32),
+                _as(attn.qkv.weight, dt), _as(attn.qkv.bias, f32),
+                _as(attn.proj.weight, dt), _as(attn.proj.bias, f32)]
+    for t in operands:
+        if t is not None and t.device != x.device:
+            raise ValueError(f"operand on {t.device}, x on {x.device}")
+    ln_w, ln_b, wq, bq, wp, bp = operands
+    empty = lambda cols: torch.empty((r, cols), device=x.device, dtype=dt)
+    xn, qkv, att, out = empty(c), empty(3 * c), empty(c), empty(c)
+    launched = ctypes.c_int(0)
+    fn = lib.diff3dhpe_fused_attn_block_f32 if dt == f32 else lib.diff3dhpe_fused_attn_block_bf16
+    with torch.cuda.device(x.device):
+        err = fn(
+            _ptr(x, dt), _ptr(ln_w, f32), _ptr(ln_b, f32), block.norm1.eps,
+            _ptr(wq, dt), _ptr(bq, f32), _ptr(wp, dt), _ptr(bp, f32),
+            _ptr(xn, dt), _ptr(qkv, dt), _ptr(att, dt), _ptr(out, dt),
+            r, c, n, heads, (c // heads) ** -0.5,
+            ctypes.byref(launched), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    fused_attention_block.launches += launched.value
+    if dt != f32:
+        fused_attention_block.launches_bf16 += launched.value
+    if err:
+        raise RuntimeError(f"fused_attention_block kernel launch failed: cudaError_t {err}")
+    return out
+
+
 def _launch(wrapper, x, block, n, heads, n_pad, j_groups, t_rows, rows_per_item, out_ln,
             dp_scales):
     """Launches the block kernels on rows x [R, C]: the rows layout (groups
@@ -248,16 +363,8 @@ def _launch(wrapper, x, block, n, heads, n_pad, j_groups, t_rows, rows_per_item,
     r, c = x.shape
     d = c // heads
     hidden = block.mlp.fc1.weight.shape[0]
-    if d != lib.diff3dhpe_attn_head_dim() or n > lib.diff3dhpe_attn_max_n():
-        raise ValueError(
-            f"the CUDA kernel takes head_dim {lib.diff3dhpe_attn_head_dim()} and "
-            f"n <= {lib.diff3dhpe_attn_max_n()}, got head_dim {d} and n {n}"
-        )
+    _kernel_limits(lib, x, n, heads, (c, hidden))
     dt, f32 = x.dtype, torch.float32
-    step = 8 if dt == f32 else 32  # the bf16 GEMM takes K in steps of 32
-    if c % step or hidden % step:
-        raise ValueError(f"the CUDA kernel needs C and hidden multiples of {step} at {dt}, "
-                         f"got {c}, {hidden}")
     # Operands in the types the kernels read, held here until the launch
     # is enqueued (a cast copy freed earlier could be handed to the scratch
     # buffers below).

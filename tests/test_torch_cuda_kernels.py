@@ -11,11 +11,12 @@ import torch
 
 from diff3dhpe_torch import (
     GaussianDiffusion, MixSTEDenoiser, draw_drop_path_scales, fast_forward_denoise,
-    fast_forward_denoise_train_pairs, fused_temporal_block_cols, fused_temporal_block_cols_ref,
+    fast_forward_denoise_train_pairs, fused_attention_block, fused_attention_block_ref,
+    fused_grand_attention, fused_temporal_block_cols, fused_temporal_block_cols_ref,
     fused_transformer_block, fused_transformer_block_ref, grand_attention_bwd,
     grand_attention_bwd_ref, grand_attention_fullseq, grand_attention_fullseq_ref,
     grand_attention_trainable, make_denoise_fn, make_eval_step, make_fast_denoise_fn,
-    make_mixed_diffusion,
+    make_mixed_diffusion, packed_grand_attention, packed_grand_attention_ref,
 )
 
 C = 128  # heads = C // 64: the kernel's head width is 64
@@ -168,6 +169,82 @@ def test_attention_bwd_matches_ref(cuda_device, n):
     assert grand_attention_bwd.launches - before == 2
     for a, b in zip(got, grand_attention_bwd_ref(q, k, v, do)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 1, 27, 32, 33, 64])
+def test_packed_attention_matches_ref(cuda_device, n):
+    """B6 on strided qkv views (13 groups x 3 heads: the last block is
+    partly empty) and on contiguous [G, n, 64] operands."""
+    (q, k, v), gen = _qkv_views(cuda_device, 13, 3, n, n)
+    before = packed_grand_attention.launches
+    out = packed_grand_attention(q, k, v)
+    torch.testing.assert_close(out, packed_grand_attention_ref(q, k, v), rtol=1e-5, atol=1e-5)
+    assert out.permute(0, 2, 1, 3).is_contiguous()  # laid out [B, N, H, 64]
+    g = torch.randn(5, n, 64, generator=gen, device=cuda_device)
+    q3, k3, v3 = g, g.flip(0), g * 0.5
+    torch.testing.assert_close(packed_grand_attention(q3, k3, v3),
+                               packed_grand_attention_ref(q3, k3, v3), rtol=1e-5, atol=1e-5)
+    assert packed_grand_attention.launches - before == 2
+
+
+@pytest.mark.cuda
+def test_dispatcher_picks_the_kernel_by_n(cuda_device):
+    counters = (packed_grand_attention, grand_attention_fullseq)
+    for n, want in ((17, (1, 0)), (64, (1, 0)), (65, (0, 1)), (243, (0, 1))):
+        (q, k, v), _ = _qkv_views(cuda_device, 2, 2, n, n)
+        before = [c.launches for c in counters]
+        out = fused_grand_attention(q, k, v)
+        assert tuple(c.launches - b for c, b in zip(counters, before)) == want
+        torch.testing.assert_close(out, grand_attention_fullseq_ref(q, k, v), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="n <= 64"):
+        packed_grand_attention(q, k, v)  # n = 243
+    with pytest.raises(ValueError, match="head_dim"):
+        packed_grand_attention(*(t[:, :, :17, :32] for t in (q, k, v)))
+    with pytest.raises(ValueError, match="float32"):
+        fused_grand_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,groups,c", [(17, 40, C), (243, 4, C), (27, 9, C), (81, 5, C),
+                                        (17, 10, 192)])
+def test_attention_block_kernel_matches_ref(cuda_device, dtype, n, groups, c):
+    model = _model(cuda_device, embed_dim=c)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 2)
+    x = torch.randn(groups * n, c, generator=gen, device=cuda_device).to(dtype)
+    before = fused_attention_block.launches, fused_attention_block.launches_bf16
+    with torch.no_grad():
+        out = fused_attention_block(x, model.STEblocks[0], n, c // 64)
+        ref = fused_attention_block_ref(x, model.STEblocks[0], n, c // 64)
+    torch.cuda.synchronize()
+    assert fused_attention_block.launches - before[0] == 4
+    assert fused_attention_block.launches_bf16 - before[1] == (0 if dtype == torch.float32 else 4)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
+    else:
+        assert_bf16_close(out, ref)
+
+
+@pytest.mark.cuda
+def test_use_pallas_model_runs_through_the_attention_kernels(cuda_device):
+    """The module with use_pallas: B6 for every spatial block, B3 for every
+    temporal one (81 frames), and the plain module's output."""
+    plain = _model(cuda_device, num_frame=81)
+    fused = MixSTEDenoiser(num_frame=81, embed_dim=C, depth=1, num_heads=C // 64,
+                           use_pallas=True, device=cuda_device).eval()
+    fused.load_state_dict(plain.state_dict())
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(3, 81, 17, 5, generator=gen, device=cuda_device)
+    t = torch.tensor([3.0, 500.0, 999.0], device=cuda_device)
+    counters = (packed_grand_attention, grand_attention_fullseq)
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        out, ref = fused(x, t), plain(x, t)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1]
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="float32"):
+        fused.bfloat16()(x.bfloat16(), t)
 
 
 @pytest.mark.cuda
