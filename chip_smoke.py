@@ -30,9 +30,11 @@ Any failed check raises and the script exits non-zero.
 Output: one line per phase (1 build; 2 B1 vs plain, with drop-path too,
 at the eval and the train step's row counts; 2b B1 at bf16 vs plain; 2c
 B2 vs plain at f32 (with drop-path also at the train step's rows) and
-bf16; 3 full-width forward; 4 the f32 eval step; 5 its profile; 4b the
+bf16; 2d the bf16 GEMM alone at the block's four products; 3 full-width
+forward; 4 the f32 eval step; 5 its profile; 4b the
 mixed eval step in rows and cols, and the pure-bf16 one; 5b the mixed rows
-step's profile; 6 B3 and B4 vs plain at the train shape; 7a the train
+step's profile; 6 B3 and B4 vs plain at the train shape; 6b B3 at bf16
+(the tensor-core attention kernel alone) at both eval shapes; 7a the train
 step's loss, gradients and launches vs the plain module at B=4; 7b three
 timed AdamW steps at B=24; 7c their profile; 8 B6 vs plain at the eval
 shape as qkv views and contiguous, at n = 64 and n = 27; 9 B5 vs plain at
@@ -126,7 +128,8 @@ def cuda_ms(fn, iters=10, warmup=2):
 
 def profile_step(label, fn, top_n=10):
     """Profiles one fn() and prints its wall time, device busy time, idle
-    share and the device time of the top kernels by name."""
+    share and the device time of the top kernels by name. Returns the names
+    of all kernels that ran."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -144,6 +147,7 @@ def profile_step(label, fn, top_n=10):
             f"{e.key.replace('(anonymous namespace)::', '').split('(')[0][:60]} x{e.count} "
             f"{e.self_device_time_total / 1e3:.3f} ms "
             f"({e.self_device_time_total / 1e3 / busy_ms:.3f})" for e in top))
+    return [e.key for e in kernels]
 
 
 def mpjpe(pred, ref):
@@ -256,6 +260,7 @@ def main():
     from diff3dhpe_torch.models import mixste
     from diff3dhpe_torch.models.mixste import Block, init_weights
     from diff3dhpe_torch.ops._build import SOURCES, build_all
+    from diff3dhpe_torch.ops.fused_block import _gemm_bf16, _gemm_bf16_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -469,6 +474,47 @@ def main():
         del x, kw, block, out_ln
     torch.cuda.empty_cache()
 
+    # Phase 2d: the bf16 GEMM of the block kernels alone, at the four
+    # products of a bf16 block call (M = R rows) with their epilogues. The
+    # library yardstick is F.linear (cuBLAS) on the same operands, which
+    # adds the bias and no more. Bound: 2·M·N·K FLOPs on the tensor cores
+    # against A, W, the bias, the residual and the output moved once.
+    gemms = []
+    with torch.no_grad():
+        for label, n_out, k_in, epilogue in (("qkv", 3 * EMBED, EMBED, "bias"),
+                                             ("proj", EMBED, EMBED, "residual"),
+                                             ("fc1", hidden, EMBED, "gelu"),
+                                             ("fc2", EMBED, hidden, "residual")):
+            a = randn(rows, k_in).bfloat16()
+            w = randn(n_out, k_in, scale=k_in ** -0.5).bfloat16()
+            bias, bias_bf = randn(n_out), randn(n_out).bfloat16()
+            res = rscale = None
+            if epilogue == "residual":
+                res = randn(rows, n_out).bfloat16()
+                rscale = (torch.rand(rows, 2, generator=gen, device=dev) < 0.9).float() / 0.9
+            run = lambda: _gemm_bf16(a, w, bias, epilogue, res, rscale)
+            plain = lambda: _gemm_bf16_ref(a, w, bias, epilogue, res, rscale)
+            lib = lambda: F.linear(a, w, bias_bf)
+            abs_err, rel, mean_rel = check_bf16(f"bf16 GEMM {label}", run(), plain())
+            flops = 2 * rows * n_out * k_in
+            nbytes = 2 * (rows * k_in + n_out * k_in + rows * n_out * (1 if res is None else 2)) \
+                + 4 * n_out + (0 if rscale is None else 4 * rows)
+            t = timings(run, plain, lib, flops, nbytes, peak_bf16)
+            gemms.append(dict(name=label, M=rows, N=n_out, K=k_in, epilogue=epilogue,
+                              max_abs_err=abs_err, ms=t["ms"], plain_ms=t["plain_ms"],
+                              bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                              library_ms=t["lib_ms"]))
+            say(f"phase 2d bf16 GEMM {label}: M={rows} N={n_out} K={k_in} epilogue={epilogue} "
+                f"max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} (tol {BF16_MAX_TOL}) "
+                f"mean_rel_err={mean_rel:.3e} (tol {BF16_MEAN_TOL}) ms={t['ms']:.4f} "
+                f"TFLOPs={flops / t['ms'] / 1e9:.1f} plain_ms={t['plain_ms']:.4f} "
+                f"F.linear_ms={t['lib_ms']:.4f} ({flops / t['lib_ms'] / 1e9:.1f} TFLOP/s) "
+                f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
+            del a, w, res, rscale
+    say(f"phase 2d bf16 GEMM: the four products of a block {sum(g['ms'] for g in gemms):.4f} ms, "
+        f"F.linear {sum(g['library_ms'] for g in gemms):.4f} ms")
+    torch.cuda.empty_cache()
+
     # Phase 3: one full-width denoiser forward, kernel path vs plain module.
     model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
                            num_heads=HEADS, mlp_ratio=MLP_RATIO, seed=0, device=dev).eval()
@@ -595,8 +641,10 @@ def main():
           f"mixed cols vs rows {cols_vs_rows:.3e} > {COLS_VS_ROWS_BOUND}")
 
     # Phase 5b: where one mixed rows eval step's device time goes.
-    profile_step("phase 5b profile of one mixed rows eval step",
-                 lambda: mixed["rows"]["step"](x2d, x2d_flip, x_init=x_init), top_n=14)
+    names = profile_step("phase 5b profile of one mixed rows eval step",
+                         lambda: mixed["rows"]["step"](x2d, x2d_flip, x_init=x_init), top_n=14)
+    for kernel in ("grand_attn_bf16_kernel", "gemm_bf16_wgmma_kernel"):
+        check(any(kernel in name for name in names), f"the mixed step ran no {kernel}")
     mixed_launches = {f"mixed_eval_{mode}": m["launches"] for mode, m in mixed.items()}
     mixed_launches["bf16_eval_rows"] = bf16_launches
     del step_fast, step_plain, step_bf16, step, out, model, pred, pred_plain, pred_bf16, mixed
@@ -645,6 +693,36 @@ def main():
             f"plain_ms={a['plain_ms']:.4f} library_ms={a['lib_ms']:.4f} "
             f"bound_ms={a['bound_ms']:.4f} ({a['bound_by']}) GFLOP={a['flops'] / 1e9:.2f} "
             f"achieved_TFLOPs={a['flops'] / a['ms'] / 1e9:.2f}")
+    torch.cuda.empty_cache()
+
+    # Phase 6b: B3 at bf16, the tensor-core attention kernel that B1, B2 and
+    # B5 run for their attention step, alone: q, k, v as views of one
+    # [G, n, 3, H, 64] bf16 qkv projection at both eval shapes (68 temporal
+    # groups of 243 frames, 972 spatial groups of 17 joints, 8 heads). The
+    # library yardstick is SDPA − v at bf16.
+    attn_bf16 = {}
+    with torch.no_grad():
+        for label, b, n in (("temporal", 2 * BATCH * JOINTS, FRAMES),
+                            ("spatial", 2 * BATCH * FRAMES, JOINTS)):
+            q, k, v = randn(b, n, 3, HEADS, hd).bfloat16().permute(2, 0, 3, 1, 4)
+            run = lambda: grand_attention_fullseq(q, k, v)
+            plain = lambda: grand_attention_fullseq_ref(q, k, v)
+            lib = lambda: F.scaled_dot_product_attention(q, k, v) - v
+            out = run()
+            check(out.shape == q.shape, f"B3 bf16 {label} output shape {tuple(out.shape)}")
+            abs_err, rel, mean_rel = check_bf16(f"B3 bf16 {label}", out, plain())
+            lib_abs, _, _ = bf16_errs(lib(), plain())
+            elems = b * HEADS * n * hd
+            t = timings(run, plain, lib, 4 * elems * n, 4 * 2 * elems, peak_bf16)
+            attn_bf16[label] = dict(abs_err=abs_err, **t)
+            say(f"phase 6b grand_attention_fullseq bf16 {label}: [B={b}, H={HEADS}, N={n}, D={hd}] "
+                f"as qkv views max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} "
+                f"(tol {BF16_MAX_TOL}) mean_rel_err={mean_rel:.3e} (tol {BF16_MEAN_TOL}) "
+                f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} "
+                f"(library vs plain max_abs {lib_abs:.3e}) bound_ms={t['bound_ms']:.4f} "
+                f"({t['bound_by']}) GFLOP={t['flops'] / 1e9:.2f} "
+                f"GB_per_s={t['bytes'] / t['ms'] / 1e6:.1f}")
+            del q, k, v, out
     torch.cuda.empty_cache()
 
     # Phase 7: the train main path.
@@ -999,6 +1077,7 @@ def main():
                                   for k, v in {**mixed_launches, **cli_launches}.items()},
         **pair_numbers(per_shape, peak_flops),
         "bf16": pair_numbers(per_shape_bf16, peak_bf16),
+        "bf16_gemm": gemms,
         "work": f"one spatial (n={JOINTS}) + one temporal (n={FRAMES}) call, R={rows}, C={EMBED}",
     }, {
         "name": "fused_temporal_block_cols",
@@ -1024,6 +1103,10 @@ def main():
             "bound_ms": a["bound_ms"], "bound_by": a["bound_by"], "library_ms": a["lib_ms"],
             "work": f"one call, [B*H={g_all}, N={FRAMES}, D={EMBED // HEADS}] f32",
         })
+    entries[2]["bf16"] = dict(
+        pair_numbers(attn_bf16, peak_bf16),
+        work=f"one call at [{2 * BATCH * JOINTS}, {HEADS}, {FRAMES}, {EMBED // HEADS}] + one at "
+             f"[{2 * BATCH * FRAMES}, {HEADS}, {JOINTS}, {EMBED // HEADS}], bf16 qkv views")
     entries.append({
         "name": "fused_attention_block",
         "route": "cuda",

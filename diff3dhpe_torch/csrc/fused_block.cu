@@ -33,32 +33,49 @@
 // so the block is bound by arithmetic: 67 TFLOP/s of f32 outside the tensor
 // cores (the f32 products are plain FMAs, no TF32, matching the JAX
 // "highest" contraction), or 989 TFLOP/s of bf16 on the tensor cores.
-// Attention adds 0.6 GFLOP at n=17 and 8.2 GFLOP at n=243 on CUDA cores.
+// Attention adds 0.6 GFLOP at n=17 and 8.2 GFLOP at n=243: on the CUDA cores
+// at f32, on the tensor cores at bf16, where the softmax's exponentials and
+// the K/V loads bound it, not the products.
 //
 // Design: a small set of kernels, each right first and simple.
 //   ln_rows_kernel<T>     one warp per row: [time add] + LayerNorm.
 //   gemm_nt_kernel<EPI>   f32: 128x128x8 shared-memory tiles, 8x8 outputs
 //                         per thread, register-staged double buffering.
-//   gemm_bf16_kernel<EPI> bf16: 128x128x32 tiles through a 3-stage cp.async
-//                         ring, 8 warps of 64x32, ldmatrix + mma.sync
-//                         m16n8k16 with f32 accumulators.
+//   gemm_bf16_wgmma_kernel<EPI>
+//                         bf16, gemm_wgmma.cuh: the _dot_f32 products of the
+//                         TPU kernel as wgmma m64n128k16 on 128x128 tiles, a
+//                         TMA producer warp feeding a 3-stage swizzled ring
+//                         through mbarriers, two blocks an SM.
 //                         Both GEMM epilogues add the bias and then either
 //                         nothing, exact GELU, or the residual (after the
-//                         row's drop-path scale).
-//   grand_attn_kernel     grand_attn.cuh, shared with grand_attention.cu:
+//                         row's drop-path scale); the bf16 one stages the
+//                         accumulators through shared memory and stores
+//                         16-byte pieces of a row.
+//   grand_attn_kernel     f32, grand_attn.cuh, shared with grand_attention.cu:
 //                         one block per (group, head) with the group's K
 //                         and V in shared memory, reading q, k and v out of
 //                         the qkv buffer through strides; B2 adds the outer
 //                         group index b as blockIdx.z.
+//   grand_attn_bf16_kernel
+//                         bf16, grand_attn_bf16.cuh: the TPU device function
+//                         grand_attend_tile with both products as mma.sync
+//                         m16n8k16, a warp's whole score block in registers
+//                         (normalise first, then round P), P handed to the
+//                         second product in registers; the same strided
+//                         views and outer index.
 // The intermediates (LN output, qkv, attention output, h1, MLP hidden)
-// make one round trip through device memory each; a single fused kernel
-// with wgmma/TMA is later work.
+// make one round trip through device memory each: a block call is 7
+// launches (8 with the out-LN), 4 for B5.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "grand_attn.cuh"
+#include "gemm_wgmma.cuh"
+#include "grand_attn_bf16.cuh"
 
 namespace {
 
@@ -69,11 +86,10 @@ using grand::warp_sum;
 
 constexpr int BM = 128, BN = 128, BK = 8, kGemmThreads = 256;
 
-enum Epilogue { kEpiBias = 0, kEpiGelu = 1, kEpiResidual = 2 };
-
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-}
+using wg::gelu_erf;
+using wg::kEpiBias;
+using wg::kEpiGelu;
+using wg::kEpiResidual;
 
 __device__ __forceinline__ float round_to(float x, float) { return x; }
 __device__ __forceinline__ float round_to(float x, bf16) { return bf16_round(x); }
@@ -226,162 +242,17 @@ cudaError_t launch_gemm(const float* A, const float* W, const float* bias, const
   return cudaGetLastError();
 }
 
-// ---- bf16 GEMM on the tensor cores ----------------------------------------
-
-constexpr int TBM = 128, TBN = 128, TBK = 32, kTcStages = 3, kTcThreads = 256;
-constexpr int kTcLds = TBK + 8;  // bf16 per shared row: 80 bytes, so ldmatrix's 8 rows hit distinct banks
-constexpr size_t kTcSmemBytes = (size_t)kTcStages * (TBM + TBN) * kTcLds * sizeof(bf16);
-
-// 16 bytes global -> shared, asynchronously; zero-filled where !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
-// addresses of matrix i, and register i receives matrix i.
-__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// d[16x8] += a[16x16] · b[16x8], bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float d[4], const unsigned a[4], const unsigned b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// ---- bf16 GEMM on the tensor cores: gemm_wgmma.cuh ----------------------------
 
 // out[M, N] = bf16(epilogue(A[M, K] · W[N, K]ᵀ + bias)), A, W and res bf16,
 // bias and rscale f32, the product and the epilogue in f32: as
 // gemm_nt_kernel, with the residual epilogue res + s[row] · (A·Wᵀ + bias).
-// K % 32 == 0, N % 8 == 0 and 16-byte aligned rows (checked by the caller).
-template <int EPI>
-__global__ void __launch_bounds__(kTcThreads)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                 const float* __restrict__ bias, const bf16* __restrict__ res,
-                 const float* __restrict__ rscale, bf16* __restrict__ out, int M, int N, int K) {
-  extern __shared__ __align__(16) unsigned char gemm_smem[];
-  bf16* As = reinterpret_cast<bf16*>(gemm_smem);  // [stage][TBM][kTcLds]
-  bf16* Ws = As + kTcStages * TBM * kTcLds;       // [stage][TBN][kTcLds]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;  // this warp's 64x32 of the tile
-
-  // One k-tile of A and W: 128 rows x 4 chunks of 8 bf16 each, 2 + 2 chunks a thread.
-  auto load_tile = [&](int stage, int kt) {
-    const int k0 = kt * TBK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kTcThreads, r = c >> 2, kc = (c & 3) * 8;
-      const int am = m0 + r, wr = n0 + r;
-      cp_async16(As + (stage * TBM + r) * kTcLds + kc, A + (size_t)(am < M ? am : 0) * K + k0 + kc,
-                 am < M);
-      cp_async16(Ws + (stage * TBN + r) * kTcLds + kc, W + (size_t)(wr < N ? wr : 0) * K + k0 + kc,
-                 wr < N);
-    }
-  };
-
-  float acc[4][4][4];  // [m16 tile][n8 tile][fragment]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int nk = K / TBK;
-#pragma unroll
-  for (int st = 0; st < kTcStages - 1; ++st) {
-    if (st < nk) load_tile(st, st);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kTcStages - 2>();  // k-tile kt has landed
-    __syncthreads();                 // and every warp is done with the stage refilled next
-    if (kt + kTcStages - 1 < nk) load_tile((kt + kTcStages - 1) % kTcStages, kt + kTcStages - 1);
-    cp_async_commit();
-    const bf16* as = As + (kt % kTcStages) * TBM * kTcLds;
-    const bf16* ws = Ws + (kt % kTcStages) * TBN * kTcLds;
-#pragma unroll
-    for (int kk = 0; kk < TBK; kk += 16) {
-      unsigned af[4][4], bfrag[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        // matrices: rows 0-7 / 8-15 by bit 3 of the lane, k 0-7 / 8-15 by bit 4.
-        const int row = wm + mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(af[mi], as + row * kTcLds + kk + (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        // matrices: k 0-7 / 8-15 by bit 3 of the lane, n 0-7 / 8-15 by bit 4.
-        const int row = wn + nj * 16 + (lane & 7) + (lane >> 4) * 8;
-        unsigned r[4];
-        ldmatrix_x4(r, ws + row * kTcLds + kk + ((lane >> 3) & 1) * 8);
-        bfrag[2 * nj][0] = r[0];
-        bfrag[2 * nj][1] = r[1];
-        bfrag[2 * nj + 1][0] = r[2];
-        bfrag[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfrag[ni]);
-    }
-  }
-
-  // Fragment (mi, ni): rows g and g + 8 of the m16 tile, columns 2·t, 2·t + 1.
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm + mi * 16 + g + half * 8;
-      if (row >= M) continue;
-      const float s = (EPI == kEpiResidual && rscale) ? rscale[2 * (size_t)row] : 1.0f;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn + ni * 8 + 2 * t;
-        if (col >= N) continue;
-        float v0 = acc[mi][ni][2 * half] + (bias ? bias[col] : 0.f);
-        float v1 = acc[mi][ni][2 * half + 1] + (bias ? bias[col + 1] : 0.f);
-        if (EPI == kEpiGelu) {
-          v0 = gelu_erf(v0);
-          v1 = gelu_erf(v1);
-        } else if (EPI == kEpiResidual) {
-          const float2 r = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)row * N + col));
-          v0 = r.x + v0 * s;
-          v1 = r.y + v1 * s;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-    }
-  }
-}
-
+// K % 8 == 0, N % 8 == 0 and 16-byte aligned rows (checked by the caller).
 template <int EPI>
 cudaError_t launch_gemm(const bf16* A, const bf16* W, const float* bias, const bf16* res,
                         const float* rscale, bf16* out, int M, int N, int K,
                         cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      gemm_bf16_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
-  gemm_bf16_kernel<EPI><<<grid, kTcThreads, kTcSmemBytes, stream>>>(A, W, bias, res, rscale, out,
-                                                                     M, N, K);
-  return cudaGetLastError();
+  return wg::launch_gemm_wgmma<EPI>(A, W, bias, res, rscale, out, M, N, K, stream);
 }
 
 // ---- the block ---------------------------------------------------------------
@@ -393,20 +264,33 @@ template <typename T>
 cudaError_t launch_attention(const T* qkv, T* out, int R, int C, int heads, int n, int n_pad,
                              int j_groups, float scale, cudaStream_t stream) {
   // q of row r, head h at qkv[r, h * 64], k and v C and 2C columns
-  // further; the output at out[r, h * 64].
+  // further; the output at out[r, h * 64]. float runs grand_attn_kernel on
+  // the CUDA cores, bf16 the tensor-core kernel of grand_attn_bf16.cuh.
+  constexpr bool kF32 = std::is_same<T, float>::value;
   const long long ld = 3LL * C;
   if (j_groups == 0) {
     const grand::Strides s_in{n_pad * ld, grand::kHeadDim, ld};
     const grand::Strides s_out{(long long)n_pad * C, grand::kHeadDim, C};
-    return grand::launch_grand_attn(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in, s_out,
-                                    R / n_pad, heads, n, n_pad, scale, stream);
+    if constexpr (kF32) {
+      return grand::launch_grand_attn(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in, s_out,
+                                      R / n_pad, heads, n, n_pad, scale, stream);
+    } else {
+      return grand::launch_grand_attn_bf16(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in,
+                                           s_out, R / n_pad, heads, n, n_pad, scale, stream);
+    }
   }
   const long long J = j_groups;
   const grand::Strides s_in{ld, grand::kHeadDim, J * ld, n * J * ld};
   const grand::Strides s_out{C, grand::kHeadDim, J * C, n * J * C};
-  return grand::launch_grand_attn<T, true>(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in, s_out,
-                                           j_groups, heads, n, n, scale, stream,
-                                           R / (n * j_groups));
+  if constexpr (kF32) {
+    return grand::launch_grand_attn<true>(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in,
+                                             s_out, j_groups, heads, n, n, scale, stream,
+                                             R / (n * j_groups));
+  } else {
+    return grand::launch_grand_attn_bf16<true>(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in,
+                                               s_out, j_groups, heads, n, n, scale, stream,
+                                               R / (n * j_groups));
+  }
 }
 
 template <typename T>
@@ -539,6 +423,29 @@ extern "C" int diff3dhpe_fused_attn_block_bf16(
     bf16* xn, bf16* qkv, bf16* attn, bf16* out,
     int R, int C, int n, int heads, float scale, int* launches, void* stream_ptr) {
   return run_attn_block<bf16>(ATTN_BLOCK_ARGS);
+}
+
+// One bf16 product with a fused epilogue, the GEMM the four products of a
+// bf16 block run: out[M, N] = bf16(epilogue(A[M, K] · W[N, K]ᵀ + bias)) with
+// epilogue 0 = bias only, 1 = exact GELU, 2 = res + s[row] · (…), s[row] =
+// rscale[2 · row] or 1 where rscale is null. bias may be null. One kernel;
+// adds one to *launches when it launched. For measuring and testing the
+// GEMM alone: no model path calls it.
+extern "C" int diff3dhpe_gemm_bf16(const bf16* a, const bf16* w, const float* bias,
+                                   const bf16* res, const float* rscale, bf16* out, int M, int N,
+                                   int K, int epilogue, int* launches, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (epilogue == kEpiBias) {
+    err = launch_gemm<kEpiBias>(a, w, bias, res, rscale, out, M, N, K, stream);
+  } else if (epilogue == kEpiGelu) {
+    err = launch_gemm<kEpiGelu>(a, w, bias, res, rscale, out, M, N, K, stream);
+  } else if (epilogue == kEpiResidual && res != nullptr) {
+    err = launch_gemm<kEpiResidual>(a, w, bias, res, rscale, out, M, N, K, stream);
+  }
+  if (err != cudaSuccess) return (int)err;
+  ++*launches;
+  return 0;
 }
 
 // Head width the attention kernel is compiled for, and the most keys per

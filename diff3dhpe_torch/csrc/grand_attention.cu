@@ -61,6 +61,7 @@
 #include <math.h>
 
 #include "grand_attn.cuh"
+#include "grand_attn_bf16.cuh"
 
 namespace {
 
@@ -482,6 +483,26 @@ extern "C" int diff3dhpe_grand_attn_fwd_f32(
   const cudaError_t err = grand::launch_grand_attn(q, k, v, out, STRIDES(q), STRIDES(k),
                                                    STRIDES(v), STRIDES(o), B, H, n, n, scale,
                                                    stream);
+  if (err != cudaSuccess) return (int)err;
+  ++*launches;
+  return 0;
+}
+
+// B3 at bf16: the same arguments on bf16 operands, through the tensor-core
+// kernel of grand_attn_bf16.cuh (P rounded to bf16 after the normalisation,
+// one rounding of P·v − v). Every stride a multiple of 8 elements and every
+// base 16-byte aligned (checked by the wrapper).
+extern "C" int diff3dhpe_grand_attn_fwd_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, __nv_bfloat16* out,
+    int B, int H, int n,
+    long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
+    long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
+    long long o_sh, long long o_sn, float scale, int* launches, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = grand::launch_grand_attn_bf16(q, k, v, out, STRIDES(q), STRIDES(k),
+                                                        STRIDES(v), STRIDES(o), B, H, n, n, scale,
+                                                        stream);
   if (err != cudaSuccess) return (int)err;
   ++*launches;
   return 0;

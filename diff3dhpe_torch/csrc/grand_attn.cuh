@@ -1,5 +1,7 @@
-// GRAND attention forward for Hopper (sm_90a), shared by fused_block.cu
-// (the attention step of B1 and B2) and grand_attention.cu (B3).
+// GRAND attention forward at float32 for Hopper (sm_90a), shared by
+// fused_block.cu (the attention step of B1, B2 and B5 at f32) and
+// grand_attention.cu (B3 at f32). The bf16 attention is the tensor-core
+// kernel of grand_attn_bf16.cuh.
 //
 //   out[i] = Σ_j softmax_j(q_i·k_j·scale) v_j − v_i
 //
@@ -15,19 +17,14 @@
 // sit in shared memory (> 48 KB at n = 243, hence dynamic shared memory);
 // each warp takes 4 queries at a time, holds their scores in registers
 // (n <= 256: 8 keys per lane). K carries a pad column so that the per-lane
-// key reads are free of bank conflicts. expf and IEEE division, no fast math.
-//
-// Storage type T: float, or __nv_bfloat16 with float arithmetic. As in JAX
-// (ops/attention.py::grand_attend_tile), float normalises after the AV
-// product; bf16 normalises first, rounds P to bf16, and rounds the output
-// (P·V − v, summed in float) to bf16 once.
+// key reads are free of bank conflicts. expf and IEEE division, no fast
+// math. As in JAX's f32 branch (ops/attention.py::grand_attend_tile), the
+// normalisation comes after the AV product.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-
-#include <type_traits>
 
 namespace grand {
 
@@ -43,14 +40,6 @@ constexpr int kPadDim = kHeadDim + 1;  // row stride of a padded [n][64] tile
 struct Strides {
   long long b, h, n, z;
 };
-
-// Row stride of the K tile in shared memory: one pad element for float
-// (65 words), two for bf16 (33 words), so that lane j's reads of row j fall
-// in distinct banks.
-template <typename T>
-__host__ __device__ constexpr int k_stride() {
-  return std::is_same<T, float>::value ? kHeadDim + 1 : kHeadDim + 2;
-}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -88,36 +77,35 @@ __device__ __forceinline__ void load_padded(float* dst, const float* src, long l
   }
 }
 
-// Shared memory of grand_attn_kernel<T>, in bytes, laid out so that every
-// 16-byte access is aligned: float Q [warps][4][64] and P [warps][n32][4],
-// then T V [n][64] and K [n][k_stride<T>()].
-template <typename T>
+// Shared memory of grand_attn_kernel, in bytes, laid out so that every
+// 16-byte access is aligned: Q [warps][4][64] and P [warps][n32][4], then V
+// [n][64] and K [n][65] (the pad column keeps lane j's reads of row j in
+// distinct banks).
 __host__ __device__ inline size_t attn_smem_bytes(int n, int warps) {
-  return ((size_t)warps * kQueriesPerWarp * kHeadDim + (size_t)warps * round32(n) * kQueriesPerWarp) *
-             sizeof(float) +
-         ((size_t)n * kHeadDim + (size_t)n * k_stride<T>()) * sizeof(T);
+  return ((size_t)warps * kQueriesPerWarp * kHeadDim + (size_t)warps * round32(n) * kQueriesPerWarp +
+          (size_t)n * kHeadDim + (size_t)n * kPadDim) *
+         sizeof(float);
 }
 
-template <typename T, bool kOuter>
-__global__ void grand_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                  const T* __restrict__ v, T* __restrict__ out,
+template <bool kOuter>
+__global__ void grand_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, float* __restrict__ out,
                                   Strides sq, Strides sk, Strides sv, Strides so,
                                   int n_keys, int n_queries, float scale) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr int kKs = k_stride<T>();
+  constexpr int kKs = kPadDim;
   extern __shared__ __align__(16) unsigned char grand_attn_smem[];
   const int b = blockIdx.x, h = blockIdx.y;
   const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = n_keys, n32 = round32(n);
   float* Qs = reinterpret_cast<float*>(grand_attn_smem);
   float* Ps = Qs + warps * kQueriesPerWarp * kHeadDim;
-  T* Vs = reinterpret_cast<T*>(Ps + warps * n32 * kQueriesPerWarp);
-  T* Ks = Vs + n * kHeadDim;
+  float* Vs = Ps + warps * n32 * kQueriesPerWarp;
+  float* Ks = Vs + n * kHeadDim;
 
-  const T* qbase = q + b * sq.b + h * sq.h;
-  const T* kbase = k + b * sk.b + h * sk.h;
-  const T* vbase = v + b * sv.b + h * sv.h;
-  T* obase = out + b * so.b + h * so.h;
+  const float* qbase = q + b * sq.b + h * sq.h;
+  const float* kbase = k + b * sk.b + h * sk.h;
+  const float* vbase = v + b * sv.b + h * sv.h;
+  float* obase = out + b * so.b + h * so.h;
   if constexpr (kOuter) {
     const long long z = blockIdx.z;
     qbase += z * sq.z;
@@ -127,31 +115,16 @@ __global__ void grand_attn_kernel(const T* __restrict__ q, const T* __restrict__
   }
 
   // K and V in one loop: two loads in flight per thread and iteration.
-  if constexpr (kF32) {
-    for (int e = threadIdx.x; e < n * (kHeadDim / 4); e += blockDim.x) {
-      const int j = e / (kHeadDim / 4), c4 = (e % (kHeadDim / 4)) * 4;
-      const float4 kv = *reinterpret_cast<const float4*>(kbase + j * sk.n + c4);
-      const float4 vv = *reinterpret_cast<const float4*>(vbase + j * sv.n + c4);
-      float* kd = Ks + j * kKs + c4;
-      kd[0] = kv.x;
-      kd[1] = kv.y;
-      kd[2] = kv.z;
-      kd[3] = kv.w;
-      *reinterpret_cast<float4*>(Vs + j * kHeadDim + c4) = vv;
-    }
-  } else {
-    // 8 bf16 (16 bytes) per load; a K row starts 4-byte aligned only.
-    for (int e = threadIdx.x; e < n * (kHeadDim / 8); e += blockDim.x) {
-      const int j = e / (kHeadDim / 8), c8 = (e % (kHeadDim / 8)) * 8;
-      const uint4 kv = *reinterpret_cast<const uint4*>(kbase + j * sk.n + c8);
-      const uint4 vv = *reinterpret_cast<const uint4*>(vbase + j * sv.n + c8);
-      unsigned* kd = reinterpret_cast<unsigned*>(Ks + j * kKs + c8);
-      kd[0] = kv.x;
-      kd[1] = kv.y;
-      kd[2] = kv.z;
-      kd[3] = kv.w;
-      *reinterpret_cast<uint4*>(Vs + j * kHeadDim + c8) = vv;
-    }
+  for (int e = threadIdx.x; e < n * (kHeadDim / 4); e += blockDim.x) {
+    const int j = e / (kHeadDim / 4), c4 = (e % (kHeadDim / 4)) * 4;
+    const float4 kv = *reinterpret_cast<const float4*>(kbase + j * sk.n + c4);
+    const float4 vv = *reinterpret_cast<const float4*>(vbase + j * sv.n + c4);
+    float* kd = Ks + j * kKs + c4;
+    kd[0] = kv.x;
+    kd[1] = kv.y;
+    kd[2] = kv.z;
+    kd[3] = kv.w;
+    *reinterpret_cast<float4*>(Vs + j * kHeadDim + c4) = vv;
   }
   __syncthreads();
 
@@ -160,7 +133,7 @@ __global__ void grand_attn_kernel(const T* __restrict__ q, const T* __restrict__
   for (int i0 = warp * kQueriesPerWarp; i0 < n_queries; i0 += warps * kQueriesPerWarp) {
     for (int e = lane; e < kQueriesPerWarp * kHeadDim; e += 32) {
       const int i = i0 + e / kHeadDim;
-      Qw[e] = i < n_queries ? to_float(qbase[i * sq.n + e % kHeadDim]) * scale : 0.f;
+      Qw[e] = i < n_queries ? qbase[i * sq.n + e % kHeadDim] * scale : 0.f;
     }
     __syncwarp();
 
@@ -172,24 +145,10 @@ __global__ void grand_attn_kernel(const T* __restrict__ q, const T* __restrict__
       const int j = kk * 32 + lane;
       if (kk * 32 < n && j < n) {
         float dot[kQueriesPerWarp] = {};
-        const T* kr = Ks + j * kKs;
+        const float* kr = Ks + j * kKs;
 #pragma unroll 4
         for (int d = 0; d < kHeadDim; d += 4) {
-          float k0, k1, k2, k3;
-          if constexpr (kF32) {
-            k0 = kr[d];
-            k1 = kr[d + 1];
-            k2 = kr[d + 2];
-            k3 = kr[d + 3];
-          } else {
-            const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kr + d));
-            const float2 hi =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kr + d + 2));
-            k0 = lo.x;
-            k1 = lo.y;
-            k2 = hi.x;
-            k3 = hi.y;
-          }
+          const float k0 = kr[d], k1 = kr[d + 1], k2 = kr[d + 2], k3 = kr[d + 3];
 #pragma unroll
           for (int qq = 0; qq < kQueriesPerWarp; ++qq) {
             const float4 qv = *reinterpret_cast<const float4*>(Qw + qq * kHeadDim + d);
@@ -218,13 +177,7 @@ __global__ void grand_attn_kernel(const T* __restrict__ q, const T* __restrict__
         s[qq][kk] = e;
         sum += e;
       }
-      if constexpr (kF32) {
-        inv_sum[qq] = 1.0f / warp_sum(sum);
-      } else {
-        const float total = warp_sum(sum);
-#pragma unroll
-        for (int kk = 0; kk < kKeysPerLane; ++kk) s[qq][kk] = bf16_round(s[qq][kk] / total);
-      }
+      inv_sum[qq] = 1.0f / warp_sum(sum);
     }
 #pragma unroll
     for (int kk = 0; kk < kKeysPerLane; ++kk) {
@@ -235,20 +188,11 @@ __global__ void grand_attn_kernel(const T* __restrict__ q, const T* __restrict__
     }
     __syncwarp();
 
-    // float: lane holds columns lane and 32 + lane; bf16: 2·lane and 2·lane + 1.
+    // The lane holds columns lane and 32 + lane.
     float o[kQueriesPerWarp][2] = {};
     for (int j = 0; j < n; ++j) {
       const float4 p = *reinterpret_cast<const float4*>(Pw + j * kQueriesPerWarp);
-      float v0, v1;
-      if constexpr (kF32) {
-        v0 = Vs[j * kHeadDim + lane];
-        v1 = Vs[j * kHeadDim + 32 + lane];
-      } else {
-        const float2 vv =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Vs + j * kHeadDim + 2 * lane));
-        v0 = vv.x;
-        v1 = vv.y;
-      }
+      const float v0 = Vs[j * kHeadDim + lane], v1 = Vs[j * kHeadDim + 32 + lane];
       o[0][0] = fmaf(p.x, v0, o[0][0]);
       o[0][1] = fmaf(p.x, v1, o[0][1]);
       o[1][0] = fmaf(p.y, v0, o[1][0]);
@@ -262,34 +206,29 @@ __global__ void grand_attn_kernel(const T* __restrict__ q, const T* __restrict__
     for (int qq = 0; qq < kQueriesPerWarp; ++qq) {
       const int i = i0 + qq;
       if (i >= n_queries) break;
-      const T* vi = vbase + i * sv.n;
-      T* oi = obase + i * so.n;
-      if constexpr (kF32) {
-        oi[lane] = o[qq][0] * inv_sum[qq] - vi[lane];
-        oi[32 + lane] = o[qq][1] * inv_sum[qq] - vi[32 + lane];
-      } else {
-        const float2 vv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vi + 2 * lane));
-        *reinterpret_cast<__nv_bfloat162*>(oi + 2 * lane) =
-            __floats2bfloat162_rn(o[qq][0] - vv.x, o[qq][1] - vv.y);
-      }
+      const float* vi = vbase + i * sv.n;
+      float* oi = obase + i * so.n;
+      oi[lane] = o[qq][0] * inv_sum[qq] - vi[lane];
+      oi[32 + lane] = o[qq][1] * inv_sum[qq] - vi[32 + lane];
     }
     __syncwarp();
   }
 }
 
-// Launches grand_attn_kernel<T, kOuter> on a grid of (B, H, outer) blocks.
-template <typename T, bool kOuter = false>
-inline cudaError_t launch_grand_attn(const T* q, const T* k, const T* v, T* out, Strides sq,
+// Launches grand_attn_kernel<kOuter> on a grid of (B, H, outer) blocks.
+template <bool kOuter = false>
+inline cudaError_t launch_grand_attn(const float* q, const float* k, const float* v, float* out,
+                                     Strides sq,
                                      Strides sk, Strides sv, Strides so, int B, int H,
                                      int n_keys, int n_queries, float scale, cudaStream_t stream,
                                      int outer = 1) {
   int warps = (n_queries + kQueriesPerWarp - 1) / kQueriesPerWarp;
   warps = warps < kMaxWarps ? warps : kMaxWarps;
-  const size_t bytes = attn_smem_bytes<T>(n_keys, warps);
-  cudaError_t err = cudaFuncSetAttribute(grand_attn_kernel<T, kOuter>,
+  const size_t bytes = attn_smem_bytes(n_keys, warps);
+  cudaError_t err = cudaFuncSetAttribute(grand_attn_kernel<kOuter>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  grand_attn_kernel<T, kOuter><<<dim3(B, H, outer), 32 * warps, bytes, stream>>>(
+  grand_attn_kernel<kOuter><<<dim3(B, H, outer), 32 * warps, bytes, stream>>>(
       q, k, v, out, sq, sk, sv, so, n_keys, n_queries, scale);
   return cudaGetLastError();
 }

@@ -1,0 +1,358 @@
+// bf16 GRAND attention forward on the tensor cores, for Hopper (sm_90a):
+// the attention step of B1, B2 and B5 at bf16 (fused_block.cu) and B3 at
+// bf16 (grand_attention.cu).
+//
+//   out[i] = bf16( Σ_j bf16(softmax_j(q_i·k_j·scale)) v_j − v_i )
+//
+// Stands for the bf16 branch of the TPU device function
+// diff3dhpe_tpu/ops/attention.py::grand_attend_tile, and keeps its rounding
+// points: S = q·kᵀ summed in f32 and scaled in f32, the row's softmax
+// normalised in f32 FIRST, then P rounded to bf16, P·v summed in f32, and
+// one rounding of P·v − v. The normalisation multiplies exp(S − max) by the
+// row's reciprocal 1 / Σ (one IEEE division a row): at most one f32 ulp
+// from the quotient, before a rounding that keeps 8 bits. A division an
+// element cost a third of the kernel's time (0.138 against 0.093 ms at
+// the eval shape, H100 at 700 W).
+//
+// What bounds it on an H100: at the eval shape (544 (group, head) pairs of
+// n = 243, d = 64) the two products are 8.2 GFLOP and q, k, v and the
+// output 67 MB: ~0.02 ms either way. The 32 M exact exponentials of the
+// softmax and the K/V loads cost more than the products, so the design
+// spends tensor-core work freely and keeps everything else in registers.
+//
+// Design:
+// - Both products are mma.sync m16n8k16 (bf16 in, f32 out). A warp owns 16
+//   query rows and keeps their WHOLE score block in registers (n <= 256:
+//   at most 32 n8 tiles x 4 floats = 128 registers a thread), so the row
+//   sum is known before P is rounded, with one pass over the keys. The
+//   other choice, two passes that recompute S, costs a third more
+//   tensor-core work and every exponential twice; an online softmax would
+//   round unnormalised exponentials, another rounding than the TPU
+//   kernel's. The kernel is compiled for 32, 64, 128 and 256 padded keys
+//   (the register arrays need constant bounds); the launcher picks by n.
+// - The C fragment of S has the register layout of the A fragment of P·V,
+//   so P goes from the softmax into the second product in registers,
+//   rounded to bf16 pairs on the way. V is that product's B operand with
+//   the keys along k: ldmatrix.trans from the [key][64] tile.
+// - q, k and v stay strided views (a head's row is 128 contiguous bytes):
+//   eight 16-byte cp.async a row into shared tiles whose rows are padded to
+//   144 bytes, so the 8 rows of an ldmatrix fall in distinct banks. Rows
+//   past n are zero-filled (0 x garbage cannot make a NaN), pad keys get
+//   −inf before the max, pad query rows are computed and not stored. V is
+//   its own cp.async group and lands while S and the softmax are computed.
+// - Parallelism: a block takes one (group, head) and 64 queries (4 warps;
+//   2 blocks an SM at up to 255 registers), each block loading the pair's
+//   whole K and V (2 x 36 KB from L2). At n <= 32 a pair has one or two
+//   m16 tiles, so a block of 8 warps takes 4 or 8 pairs, each with its own
+//   tiles. The output tile is staged through the warp's Q rows in shared
+//   memory and stored as 16-byte rows.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "grand_attn.cuh"
+
+// bf16 tensor-core building blocks: 16-byte asynchronous copies into shared
+// memory, ldmatrix fragment loads, and mma.sync m16n8k16 with f32
+// accumulators.
+namespace mma {
+
+using bf16 = __nv_bfloat16;
+
+// 16 bytes global -> shared, asynchronously; zero-filled where !pred (the
+// source is then not read, but must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i, and register i receives matrix i: lane l holds
+// elements (l / 4, 2·(l % 4)) and (l / 4, 2·(l % 4) + 1) of each.
+__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// The same with each matrix transposed on the way: lane l holds elements
+// (2·(l % 4), l / 4) and (2·(l % 4) + 1, l / 4) of each stored matrix.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d[16x8] += a[16x16] · b[16x8], bf16 inputs, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float d[4], const unsigned a[4], const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two floats rounded to bf16 (nearest even), x in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+}  // namespace mma
+
+namespace grand {
+
+constexpr int kTcLd = kHeadDim + 8;  // bf16 per shared row: 144 bytes
+
+// Bytes of shared memory one (group, head) pair holds in a block: K and V
+// [16·KT16][72] and Q [16·qtb][72].
+__host__ __device__ constexpr size_t tc_slot_bytes(int kt16, int qtb) {
+  return (size_t)(2 * 16 * kt16 + 16 * qtb) * kTcLd * sizeof(__nv_bfloat16);
+}
+
+// Rows [row0, row0 + rows) of one head of a strided operand into a
+// [rows][72] shared tile by the `threads` threads of a team; rows at or
+// past n_valid are zero-filled.
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           long long row_stride, int row0, int rows, int n_valid,
+                                           int tid, int threads) {
+  for (int e = tid; e < rows * (kHeadDim / 8); e += threads) {
+    const int r = e >> 3, c = (e & 7) * 8, i = row0 + r;
+    const bool ok = i < n_valid;
+    mma::cp_async16(dst + r * kTcLd + c, src + (ok ? i : 0) * row_stride + c, ok);
+  }
+}
+
+// Warps are grouped in teams of qtb: team s of block x takes pair
+// x·teams + s (b = pair / H, h = pair % H) and warp w of the team its
+// query rows (blockIdx.y·qtb + w)·16 ... + 15. Keys are padded to 16·KT16.
+template <int KT16, bool kOuter>
+__global__ void __launch_bounds__(KT16 <= 2 ? 256 : 128, 2)
+grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                       Strides sq, Strides sk, Strides sv, Strides so, int pairs, int H,
+                       int n_keys, int n_queries, int qtb, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kKeys = 16 * KT16, kTiles = 2 * KT16;  // padded keys; n8 tiles of S
+  extern __shared__ __align__(16) unsigned char grand_attn_bf16_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int team = warp / qtb, wq = warp % qtb, teams = (blockDim.x >> 5) / qtb;
+  const int pair = blockIdx.x * teams + team;
+  const bool live = pair < pairs;
+  const int b = live ? pair / H : 0, h = live ? pair % H : 0;
+
+  bf16* Ks = reinterpret_cast<bf16*>(grand_attn_bf16_smem + team * tc_slot_bytes(KT16, qtb));
+  bf16* Vs = Ks + kKeys * kTcLd;
+  bf16* Qs = Vs + kKeys * kTcLd;
+
+  const bf16* qbase = q + b * sq.b + h * sq.h;
+  const bf16* kbase = k + b * sk.b + h * sk.h;
+  const bf16* vbase = v + b * sv.b + h * sv.h;
+  bf16* obase = out + b * so.b + h * so.h;
+  if constexpr (kOuter) {
+    const long long z = blockIdx.z;
+    qbase += z * sq.z;
+    kbase += z * sk.z;
+    vbase += z * sv.z;
+    obase += z * so.z;
+  }
+
+  // Q and K first, V as a second group that lands during the softmax.
+  const int q0 = blockIdx.y * qtb * 16;  // first query row of the team
+  const int tid = wq * 32 + lane, team_threads = qtb * 32;
+  stage_rows(Qs, qbase, sq.n, q0, qtb * 16, live ? n_queries : 0, tid, team_threads);
+  stage_rows(Ks, kbase, sk.n, 0, kKeys, live ? n_keys : 0, tid, team_threads);
+  mma::cp_async_commit();
+  stage_rows(Vs, vbase, sv.n, 0, kKeys, live ? n_keys : 0, tid, team_threads);
+  mma::cp_async_commit();
+  mma::cp_async_wait<1>();
+  __syncthreads();
+
+  const int i0 = q0 + wq * 16;  // this warp's first query row
+  const bool active = live && i0 < n_queries;
+  const int g = lane >> 2, t = lane & 3;
+  unsigned p[KT16][4];  // P as the A fragments of P·V: 16 keys each
+  if (active) {
+    // S = Q·Kᵀ: Q as A fragments (rows by bit 3 of the lane, d by bit 4), K
+    // as B fragments (d by bit 3, keys by bit 4).
+    unsigned qf[4][4];
+#pragma unroll
+    for (int kd = 0; kd < 4; ++kd) {
+      mma::ldmatrix_x4(qf[kd], Qs + (wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kTcLd +
+                                   kd * 16 + (lane >> 4) * 8);
+    }
+    float s[kTiles][4];
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KT16; ++kc) {
+      if (kc * 16 < n_keys) {
+#pragma unroll
+        for (int kd = 0; kd < 4; ++kd) {
+          unsigned r[4];
+          mma::ldmatrix_x4(r, Ks + (kc * 16 + (lane & 7) + (lane >> 4) * 8) * kTcLd + kd * 16 +
+                                  ((lane >> 3) & 1) * 8);
+          mma::mma_bf16(s[2 * kc], qf[kd], r);
+          mma::mma_bf16(s[2 * kc + 1], qf[kd], r + 2);
+        }
+      }
+    }
+
+    // Fragment (j, e): row g (e < 2) or g + 8, key 8·j + 2·t + (e & 1).
+    // Pad keys get −inf; only the tiles that reach past n_keys are tested.
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j) {
+      if (8 * j + 8 > n_keys) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (8 * j + 2 * t + (e & 1) >= n_keys) s[j][e] = -INFINITY;
+        }
+      }
+      m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+      m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+    }
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+    // exp(S·scale − max·scale) with the scale folded into one fma: for
+    // scale = 64^-½ = 2^-3 this is the scaled logit minus its max, exactly.
+    m0 *= -scale;
+    m1 *= -scale;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j) {
+      s[j][0] = expf(fmaf(s[j][0], scale, m0));
+      s[j][1] = expf(fmaf(s[j][1], scale, m0));
+      s[j][2] = expf(fmaf(s[j][2], scale, m1));
+      s[j][3] = expf(fmaf(s[j][3], scale, m1));
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+    }
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+    // Normalise, then round: the C fragments of tiles 2·kc and 2·kc + 1 are
+    // the A fragment of key chunk kc.
+    const float r0 = 1.0f / sum0, r1 = 1.0f / sum1;
+#pragma unroll
+    for (int kc = 0; kc < KT16; ++kc) {
+      p[kc][0] = mma::pack_bf16(s[2 * kc][0] * r0, s[2 * kc][1] * r0);
+      p[kc][1] = mma::pack_bf16(s[2 * kc][2] * r1, s[2 * kc][3] * r1);
+      p[kc][2] = mma::pack_bf16(s[2 * kc + 1][0] * r0, s[2 * kc + 1][1] * r0);
+      p[kc][3] = mma::pack_bf16(s[2 * kc + 1][2] * r1, s[2 * kc + 1][3] * r1);
+    }
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();  // V has landed
+  if (!active) return;
+
+  // O = P·V: V as B fragments through ldmatrix.trans (keys by bit 3 of the
+  // lane, the d tile by bit 4).
+  float o[kHeadDim / 8][4];
+#pragma unroll
+  for (int jd = 0; jd < kHeadDim / 8; ++jd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[jd][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < KT16; ++kc) {
+    if (kc * 16 < n_keys) {
+#pragma unroll
+      for (int jd = 0; jd < kHeadDim / 8; jd += 2) {
+        unsigned r[4];
+        mma::ldmatrix_x4_trans(r, Vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kTcLd +
+                                      (jd + (lane >> 4)) * 8);
+        mma::mma_bf16(o[jd], p[kc], r);
+        mma::mma_bf16(o[jd + 1], p[kc], r + 2);
+      }
+    }
+  }
+
+  // out = bf16(O − v), staged in this warp's Q rows (no other warp reads
+  // them) and stored as 16-byte chunks. v_i comes from the V tile; a pad
+  // query row (n_keys <= i < n_queries) reads it from device memory.
+  bf16* Os = Qs + wq * 16 * kTcLd;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = g + half * 8, i = i0 + r;
+#pragma unroll
+    for (int jd = 0; jd < kHeadDim / 8; ++jd) {
+      const int col = jd * 8 + 2 * t;
+      float2 vv = make_float2(0.f, 0.f);
+      if (i < n_keys) {
+        vv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Vs + i * kTcLd + col));
+      } else if (i < n_queries) {
+        vv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(vbase + i * sv.n + col));
+      }
+      *reinterpret_cast<__nv_bfloat162*>(Os + r * kTcLd + col) =
+          __floats2bfloat162_rn(o[jd][2 * half] - vv.x, o[jd][2 * half + 1] - vv.y);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < 16 * (kHeadDim / 8) / 32; ++it) {
+    const int e = it * 32 + lane, r = e >> 3, c = (e & 7) * 8;
+    if (i0 + r < n_queries) {
+      *reinterpret_cast<uint4*>(obase + (i0 + r) * so.n + c) =
+          *reinterpret_cast<const uint4*>(Os + r * kTcLd + c);
+    }
+  }
+}
+
+template <int KT16, bool kOuter>
+inline cudaError_t launch_grand_attn_bf16_keys(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                               const __nv_bfloat16* v, __nv_bfloat16* out,
+                                               Strides sq, Strides sk, Strides sv, Strides so,
+                                               int B, int H, int n_keys, int n_queries,
+                                               float scale, cudaStream_t stream, int outer) {
+  constexpr int kWarps = KT16 <= 2 ? 8 : 4;
+  constexpr size_t kSmemBudget = 110 * 1024;  // two blocks an SM
+  const int q_tiles = (n_queries + 15) / 16;
+  const int qtb = q_tiles < kWarps ? q_tiles : kWarps;
+  int teams = kWarps / qtb;
+  while (teams > 1 && teams * tc_slot_bytes(KT16, qtb) > kSmemBudget) --teams;
+  const size_t bytes = teams * tc_slot_bytes(KT16, qtb);
+  const cudaError_t err =
+      cudaFuncSetAttribute(grand_attn_bf16_kernel<KT16, kOuter>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int pairs = B * H;
+  const dim3 grid((pairs + teams - 1) / teams, (q_tiles + qtb - 1) / qtb, outer);
+  grand_attn_bf16_kernel<KT16, kOuter><<<grid, 32 * qtb * teams, bytes, stream>>>(
+      q, k, v, out, sq, sk, sv, so, pairs, H, n_keys, n_queries, qtb, scale);
+  return cudaGetLastError();
+}
+
+// Launches the bf16 attention on (B, H[, outer]) groups of n_keys keys and
+// n_queries >= n_keys query rows, n_keys <= kMaxN; every stride a multiple
+// of 8 elements and every base 16-byte aligned (checked by the callers).
+template <bool kOuter = false>
+inline cudaError_t launch_grand_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                          const __nv_bfloat16* v, __nv_bfloat16* out, Strides sq,
+                                          Strides sk, Strides sv, Strides so, int B, int H,
+                                          int n_keys, int n_queries, float scale,
+                                          cudaStream_t stream, int outer = 1) {
+#define GRAND_TC_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer
+  if (n_keys <= 32) return launch_grand_attn_bf16_keys<2, kOuter>(GRAND_TC_ARGS);
+  if (n_keys <= 64) return launch_grand_attn_bf16_keys<4, kOuter>(GRAND_TC_ARGS);
+  if (n_keys <= 128) return launch_grand_attn_bf16_keys<8, kOuter>(GRAND_TC_ARGS);
+  return launch_grand_attn_bf16_keys<16, kOuter>(GRAND_TC_ARGS);
+#undef GRAND_TC_ARGS
+}
+
+}  // namespace grand

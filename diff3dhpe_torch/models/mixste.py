@@ -78,7 +78,8 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention with the GRAND (attn − I) v modification.
     ``use_pallas`` (JAX's name for it): the attention core goes through the
-    dispatcher ``fused_grand_attention``, whose kernels are float32."""
+    dispatcher ``fused_grand_attention``; the model takes that path at
+    float32 only."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool, use_pallas: bool = False):
         super().__init__()
@@ -150,8 +151,9 @@ class MixSTEDenoiser(nn.Module):
     U(±1/sqrt(fan_in)) for weights and biases, zero position embeddings)
     and placed on ``device``. ``use_pallas``: every block's attention goes
     through ``ops.attention.fused_grand_attention`` (B6 for the joints, B3
-    for the frames, on CUDA; their plain versions on the CPU). Those kernels
-    are float32, so such a model cast to bfloat16 raises in its forward."""
+    for the frames, on CUDA; their plain versions on the CPU). That path is
+    float32 (B6 and the trainable backward have no bf16 instance), so such
+    a model cast to bfloat16 raises in its forward."""
 
     def __init__(
         self,
@@ -241,7 +243,7 @@ class MixSTEDenoiser(nn.Module):
         if x.ndim != 4:
             raise ValueError(f"expected x of shape [B, F, J, C], got {tuple(x.shape)}")
         if self.use_pallas and self.fusion_layer.weight.dtype != torch.float32:
-            raise ValueError("use_pallas needs a float32 model: the attention kernels are "
+            raise ValueError("use_pallas needs a float32 model: its attention path is "
                              f"float32, the weights are {self.fusion_layer.weight.dtype}")
         dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
         x = self.fusion_layer(x)

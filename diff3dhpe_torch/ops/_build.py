@@ -58,15 +58,21 @@ SIGNATURES = {
         )
         for name in ("diff3dhpe_fused_attn_block_f32", "diff3dhpe_fused_attn_block_bf16")
     } | {
+        "diff3dhpe_gemm_bf16": (
+            [_P] * 6 + [_I] * 4                # a, w, bias, res, rscale, out; M, N, K, epilogue
+            + [ctypes.POINTER(_I), _P]         # launches, stream
+        ),
         "diff3dhpe_attn_head_dim": [],
         "diff3dhpe_attn_max_n": [],
     },
     "grand_attention": {
-        "diff3dhpe_grand_attn_fwd_f32": (
+        name: (
             [_P] * 4 + [_I] * 3                # q, k, v, out; B, H, n
             + [_L] * 12                        # (b, h, n) strides of q, k, v, out
             + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
-        ),
+        )
+        for name in ("diff3dhpe_grand_attn_fwd_f32", "diff3dhpe_grand_attn_fwd_bf16")
+    } | {
         "diff3dhpe_grand_attn_small_f32": (
             [_P] * 4 + [_I] * 3                # q, k, v, out; B, H, n (n <= 64)
             + [_L] * 12                        # (b, h, n) strides of q, k, v, out

@@ -18,7 +18,10 @@ Port of ``diff3dhpe_tpu/ops/attention.py``:
 
 The kernels take head_dim 64 and n <= 256 (B6: n <= 64) and read their
 operands through strides (unit stride on the head dim), so views of a qkv
-projection go in without a copy.
+projection go in without a copy. B3 also takes bfloat16 (JAX's takes q's
+dtype): the tensor-core kernel of ``csrc/grand_attn_bf16.cuh``, which
+rounds P to bf16 after the normalisation and the output once, as
+``grand_attention_stored`` does. B4 and B6 are float32.
 """
 from __future__ import annotations
 
@@ -42,8 +45,29 @@ def grand_attention(q, k, v, scale=None):
     return torch.matmul(attn, v) - v
 
 
-grand_attention_fullseq_ref = grand_attention  # the plain version of B3
-packed_grand_attention_ref = grand_attention   # and of B6
+def grand_attention_stored(q, k, v, scale, rnd, v_self=None):
+    """GRAND attention in float32 on float32 q, k, v that hold values of a
+    storage type, with ``rnd`` rounding to that type where the kernels
+    store: P after the normalisation, and the output (P·v − v) once. The
+    attention step of the block kernels' plain versions and the plain
+    version of B3 at bf16. ``v_self``: the rows subtracted where they are
+    not v (B1's pad query rows attend to the real keys only)."""
+    logits = q @ k.transpose(-1, -2) * scale
+    return rnd(rnd(torch.softmax(logits, dim=-1)) @ v - (v if v_self is None else v_self))
+
+
+def grand_attention_fullseq_ref(q, k, v, scale=None):
+    """The plain version of B3: ``grand_attention`` at float32; at bfloat16
+    ``grand_attention_stored``, float32 sums of the bf16 operands with P and
+    the output rounded to bf16 (JAX ``grand_attend_tile``'s bf16 branch)."""
+    if q.dtype == torch.float32:
+        return grand_attention(q, k, v, scale)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    rnd = lambda a: a.to(q.dtype).float()
+    return grand_attention_stored(q.float(), k.float(), v.float(), scale, rnd).to(q.dtype)
+
+
+packed_grand_attention_ref = grand_attention   # the plain version of B6
 
 
 def grand_attention_bwd_ref(q, k, v, do, scale=None):
@@ -65,8 +89,11 @@ def grand_attention_bwd_ref(q, k, v, do, scale=None):
 def grand_attention_fullseq(q, k, v, scale=None):
     """B3: GRAND attention on q, k, v [G, N, D] (or [B, H, N, D]).
 
-    A CPU tensor runs the plain version. A CUDA tensor launches the kernel
+    q, k and v are all float32 or all bfloat16 (else ``ValueError``). A CPU
+    tensor runs the plain version. A CUDA tensor launches the kernel, the
+    CUDA-core one at float32 and the tensor-core one at bfloat16
     (``grand_attention_fullseq.launches`` counts launches) or raises."""
+    _check_dtypes(q, k, v)
     if q.device.type == "cpu":
         return grand_attention_fullseq_ref(q, k, v, scale)
     q4, k4, v4 = (_as4d(t) for t in (q, k, v))
@@ -101,13 +128,15 @@ packed_grand_attention.launches = 0
 
 def fused_grand_attention(q, k, v, scale=None):
     """q, k, v [B, H, N, D] -> [B, H, N, D]: N <= 64 through B6, larger N
-    through B3.
+    through B3; at bfloat16 every N through B3, because B6 has no bf16
+    instance (and B3's bf16 kernel packs small groups into a block itself).
 
     JAX's dispatcher keeps N <= 64 on its plain formulas, because its
     packed kernel needs a relayout of [G, 17, 64] into 119-row tiles first
     (ops/attention.py:240-246). B6 reads the qkv projection through strides
     and needs none, so the port sends small N to its kernel."""
-    if q.shape[-2] <= SMALL_N:
+    _check_dtypes(q, k, v)
+    if q.shape[-2] <= SMALL_N and q.dtype == torch.float32:
         return packed_grand_attention(q, k, v, scale)
     return grand_attention_fullseq(q, k, v, scale)
 
@@ -156,6 +185,12 @@ def grand_attention_trainable(q, k, v):
     return _GrandAttentionTrainable.apply(q, k, v)
 
 
+def _check_dtypes(q, k, v):
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("q, k and v must all be float32 or all bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+
+
 def _as4d(t):
     if t.ndim == 3:
         return t.unsqueeze(1)
@@ -168,19 +203,21 @@ def _empty_like_heads(t):
     """[B, H, N, D] output buffer laid out [B, N, H, D] (what the caller's
     transpose back to rows wants), returned as the [B, H, N, D] view."""
     b, h, n, d = t.shape
-    return torch.empty((b, n, h, d), device=t.device, dtype=torch.float32).permute(0, 2, 1, 3)
+    return torch.empty((b, n, h, d), device=t.device, dtype=t.dtype).permute(0, 2, 1, 3)
 
 
-def _kernel_operand(t, like):
-    """t as the kernels read it: f32 on like's device, shaped like ``like``,
-    unit stride on the head dim, other strides multiples of 4 floats and a
-    16-byte aligned base (copied into that layout where it is not)."""
-    if t.dtype != torch.float32 or t.device != like.device or t.shape != like.shape:
+def _kernel_operand(t, like, dtype=torch.float32):
+    """t as the kernels read it: ``dtype`` on like's device, shaped like
+    ``like``, unit stride on the head dim, other strides multiples of 16
+    bytes and a 16-byte aligned base (copied into that layout where it is
+    not)."""
+    if t.dtype != dtype or t.device != like.device or t.shape != like.shape:
         raise ValueError(
-            f"attention operands must be float32 on {like.device} with shape "
+            f"attention operands must be {dtype} on {like.device} with shape "
             f"{tuple(like.shape)}, got {t.dtype} on {t.device} with {tuple(t.shape)}"
         )
-    if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) or t.data_ptr() % 16:
+    step = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(s % step for s in t.stride()[:-1]) or t.data_ptr() % 16:
         t = t.contiguous()
     return t
 
@@ -208,12 +245,20 @@ def _library(q, scale, small=False):
 
 
 def _launch_fwd(q, k, v, out, scale, small=False):
-    """Launches B3, or B6 with ``small``, and counts it on its wrapper."""
+    """Launches B3 (in q's dtype), or B6 with ``small`` (float32 only), and
+    counts it on its wrapper."""
     lib, scale = _library(q, scale, small)
-    q, k, v = (_kernel_operand(t, q) for t in (q, k, v))
+    dtype = torch.float32 if small else q.dtype
+    q, k, v = (_kernel_operand(t, q, dtype) for t in (q, k, v))
     b, h, n, _ = q.shape
-    wrapper, fn = ((packed_grand_attention, lib.diff3dhpe_grand_attn_small_f32) if small
-                   else (grand_attention_fullseq, lib.diff3dhpe_grand_attn_fwd_f32))
+    if small:
+        wrapper, fn = packed_grand_attention, lib.diff3dhpe_grand_attn_small_f32
+    elif dtype == torch.float32:
+        wrapper, fn = grand_attention_fullseq, lib.diff3dhpe_grand_attn_fwd_f32
+    else:
+        if not scale > 0:  # it takes the row max before it scales
+            raise ValueError(f"the bf16 attention kernel takes a positive scale, got {scale}")
+        wrapper, fn = grand_attention_fullseq, lib.diff3dhpe_grand_attn_fwd_bf16
     launched = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         err = fn(

@@ -34,6 +34,8 @@ import ctypes
 import torch
 from torch.nn import functional as F
 
+from diff3dhpe_torch.ops.attention import grand_attention_stored
+
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -118,8 +120,7 @@ def _attn_branch_ref(x, block, n, heads, n_pad, dt):
     r, c = x.shape
     qkv = rnd(lin(rnd(ln(x, block.norm1)), block.attn.qkv))
     q, k, v = qkv.reshape(r // n_pad, n_pad, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
-    logits = q @ k[:, :, :n].transpose(-1, -2) * (c // heads) ** -0.5
-    attn = rnd(rnd(torch.softmax(logits, dim=-1)) @ v[:, :, :n] - v)
+    attn = grand_attention_stored(q, k[:, :, :n], v[:, :, :n], (c // heads) ** -0.5, rnd, v_self=v)
     return lin(attn.permute(0, 2, 1, 3).reshape(r, c), block.attn.proj)
 
 
@@ -278,6 +279,63 @@ def fused_attention_block(x, block, n, heads):
 
 fused_attention_block.launches = 0
 fused_attention_block.launches_bf16 = 0
+
+
+EPILOGUES = ("bias", "gelu", "residual")  # the kernel's epilogue codes 0, 1, 2
+
+
+def _gemm_bf16_ref(a, w, bias=None, epilogue="bias", res=None, rscale=None):
+    """Plain version of ``_gemm_bf16``: a float32 matmul of the bf16
+    operands, the epilogue in float32, one rounding to bf16."""
+    acc = F.linear(a.float(), w.float(), None if bias is None else bias.float())
+    if epilogue == "gelu":
+        acc = F.gelu(acc)
+    elif epilogue == "residual":
+        acc = res.float() + (acc if rscale is None else rscale[:, 0:1].float() * acc)
+    return acc.to(torch.bfloat16)
+
+
+def _gemm_bf16(a, w, bias=None, epilogue="bias", res=None, rscale=None):
+    """The block kernels' bf16 GEMM alone, for tests and measurements (no
+    model path calls it): bf16(epilogue(a[M, K] · w[N, K]ᵀ + bias)) with a,
+    w and ``res`` [M, N] bfloat16, ``bias`` [N] float32 or None, and the
+    epilogue one of ``EPILOGUES``: the bias only, exact GELU, or
+    res + s · (…) with the row's scale s = rscale[row, 0] for ``rscale``
+    [M, 2] float32 (the layout of the block's drop-path scales) or 1.
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the kernel
+    (``_gemm_bf16.launches`` counts launches) or raises."""
+    (m, k), n = a.shape, w.shape[0]
+    if epilogue not in EPILOGUES or (epilogue == "residual") != (res is not None):
+        raise ValueError(f"epilogue must be one of {EPILOGUES}, with res for 'residual' only")
+    if w.shape != (n, k) or (res is not None and res.shape != (m, n)) or (
+            bias is not None and bias.shape != (n,)) or (
+            rscale is not None and (res is None or rscale.shape != (m, 2))):
+        raise ValueError(f"need a [M, K], w [N, K], bias [N], res [M, N], rscale [M, 2]; got a "
+                         f"{tuple(a.shape)} and w {tuple(w.shape)}")
+    if a.device.type == "cpu":
+        return _gemm_bf16_ref(a, w, bias, epilogue, res, rscale)
+    from diff3dhpe_torch.ops._build import load_library
+
+    if k % 32 or n % 8:
+        raise ValueError(f"the CUDA kernel needs K % 32 == 0 and N % 8 == 0, got K={k}, N={n}")
+    lib = load_library("fused_block")
+    bf, f32 = torch.bfloat16, torch.float32
+    out = torch.empty((m, n), device=a.device, dtype=bf)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(a.device):
+        err = lib.diff3dhpe_gemm_bf16(
+            _ptr(a, bf), _ptr(w, bf), _ptr(bias, f32), _ptr(res, bf), _ptr(rscale, f32),
+            _ptr(out, bf), m, n, k, EPILOGUES.index(epilogue), ctypes.byref(launched),
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
+    _gemm_bf16.launches += launched.value
+    if err:
+        raise RuntimeError(f"the bf16 GEMM kernel failed: cudaError_t {err}")
+    return out
+
+
+_gemm_bf16.launches = 0
 
 
 def _ptr(t, dtype):

@@ -18,6 +18,7 @@ from diff3dhpe_torch import (
     grand_attention_trainable, make_denoise_fn, make_eval_step, make_fast_denoise_fn,
     make_mixed_diffusion, packed_grand_attention, packed_grand_attention_ref,
 )
+from diff3dhpe_torch.ops.fused_block import _gemm_bf16, _gemm_bf16_ref
 
 C = 128  # heads = C // 64: the kernel's head width is 64
 
@@ -137,11 +138,11 @@ def test_cols_kernel_matches_ref(cuda_device, dtype, b, f, j):
         assert_bf16_close(out, ref)
 
 
-def _qkv_views(device, b, h, n, seed):
+def _qkv_views(device, b, h, n, seed, dtype=torch.float32):
     """q, k, v [b, h, n, 64] as strided views of one [b, n, 3, h, 64]
     projection, the layout the trainable attention hands to the kernels."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    qkv = torch.randn(b, n, 3, h, 64, generator=gen, device=device)
+    qkv = torch.randn(b, n, 3, h, 64, generator=gen, device=device).to(dtype)
     return qkv.permute(2, 0, 3, 1, 4), gen
 
 
@@ -202,7 +203,58 @@ def test_dispatcher_picks_the_kernel_by_n(cuda_device):
     with pytest.raises(ValueError, match="head_dim"):
         packed_grand_attention(*(t[:, :, :17, :32] for t in (q, k, v)))
     with pytest.raises(ValueError, match="float32"):
-        fused_grand_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+        packed_grand_attention(*(t[:, :, :17].bfloat16() for t in (q, k, v)))
+    with pytest.raises(ValueError, match="all be float32 or all bfloat16"):
+        fused_grand_attention(q.bfloat16(), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 16, 17, 27, 64, 65, 243, 248, 256])
+def test_fullseq_attention_bf16_matches_ref(cuda_device, n):
+    """B3 at bf16 (the tensor-core kernel) on strided qkv views (13 groups x
+    3 heads: at small n the last block is partly empty) and on contiguous
+    [G, n, 64] operands, under the bf16 bars; the dispatcher sends every n
+    to it at bf16."""
+    (q, k, v), gen = _qkv_views(cuda_device, 13, 3, n, n, torch.bfloat16)
+    counters = (grand_attention_fullseq, packed_grand_attention)
+    before = [c.launches for c in counters]
+    out = fused_grand_attention(q, k, v)
+    assert out.dtype == torch.bfloat16 and out.permute(0, 2, 1, 3).is_contiguous()
+    assert_bf16_close(out, grand_attention_fullseq_ref(q, k, v))
+    g = torch.randn(5, n, 64, generator=gen, device=cuda_device).bfloat16()
+    q3, k3, v3 = g, g.flip(0), g * 0.5
+    assert_bf16_close(grand_attention_fullseq(q3, k3, v3), grand_attention_fullseq_ref(q3, k3, v3))
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 0]
+
+
+@pytest.mark.cuda
+def test_fullseq_attention_bf16_limits(cuda_device):
+    x = torch.zeros(2, 257, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="n <= 256"):
+        grand_attention_fullseq(x, x, x)
+    with pytest.raises(ValueError, match="all be float32 or all bfloat16"):
+        grand_attention_fullseq(x, x.float(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue,with_rscale", [("bias", False), ("gelu", False),
+                                                  ("residual", False), ("residual", True)])
+@pytest.mark.parametrize("m,n,k", [(170, 576, 192), (16524, 1536, 512), (300, 512, 1024)])
+def test_gemm_bf16_matches_ref(cuda_device, m, n, k, epilogue, with_rscale):
+    """The block kernels' bf16 GEMM alone, with partial tiles along M, N and
+    K, under the bf16 bars."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=cuda_device)
+    a, w = randn(m, k).bfloat16(), (randn(n, k) * k ** -0.5).bfloat16()
+    bias = randn(n)
+    res = randn(m, n).bfloat16() if epilogue == "residual" else None
+    rscale = ((torch.rand(m, 2, generator=gen, device=cuda_device) < 0.7) / 0.7).float() \
+        if with_rscale else None
+    before = _gemm_bf16.launches
+    out = _gemm_bf16(a, w, bias, epilogue, res, rscale)
+    torch.cuda.synchronize()
+    assert _gemm_bf16.launches - before == 1
+    assert_bf16_close(out, _gemm_bf16_ref(a, w, bias, epilogue, res, rscale))
 
 
 @pytest.mark.cuda
