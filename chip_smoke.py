@@ -28,16 +28,19 @@ the port's seeded init:
 Any failed check raises and the script exits non-zero.
 
 Output: one line per phase (1 build; 2 B1 vs plain, with drop-path too,
-at the eval and the train step's row counts; 2b B1 at bf16 vs plain; 2c
+at the eval and the train step's row counts, and at f32 with 4 heads of
+head_dim 128 at both eval shapes; 2b B1 at bf16 vs plain; 2c
 B2 vs plain at f32 (with drop-path also at the train step's rows) and
 bf16; 2d the bf16 GEMM alone at the block's four products; 3 full-width
 forward; 4 the f32 eval step; 5 its profile; 4b the
 mixed eval step in rows and cols, and the pure-bf16 one; 5b the mixed rows
-step's profile; 6 B3 and B4 vs plain at the train shape; 6b B3 at bf16
+step's profile; 6 B3 and B4 vs plain at the train shape with 8 heads
+(d = 64) and 4 heads (d = 128), B4 twice with the same bits; 6b B3 at bf16
 (the tensor-core attention kernel alone) at both eval shapes; 7a the train
-step's loss, gradients and launches vs the plain module at B=4; 7b three
-timed AdamW steps at B=24; 7c their profile; 8 B6 vs plain at the eval
-shape as qkv views and contiguous, at n = 64 and n = 27; 9 B5 vs plain at
+step's loss, gradients and launches vs the plain module at B=4, with 8
+heads and with 4; 7b three timed AdamW steps at B=24; 7c their profile; 8
+B6 vs plain at the eval shape as qkv views and contiguous, at n = 64, n =
+27 and with 4 heads of head_dim 128; 9 B5 vs plain at
 both eval shapes, f32 and bf16, and its launches as an op; 10 the evaluate
 entry point in its configurations; 10b the profile of one eval step of
 the use_pallas module); then a JSON line with every kernel's numbers; the last line is {"ok": true, "device": {...}}. Exits
@@ -59,6 +62,7 @@ import time
 import torch
 
 FRAMES, JOINTS, EMBED, DEPTH, HEADS, MLP_RATIO = 243, 17, 512, 8, 8, 2.0
+HEADS4 = 4  # num_heads of configs/h36m_gt_s2s_243f_tpu.json: head_dim 128 at embed 512
 BATCH = 2  # logical sequences per eval step; flip-TTA doubles the rows
 TIMESTEPS, DDIM_STEPS = 1000, 9
 JOINTS_LEFT, JOINTS_RIGHT = [4, 5, 6, 11, 12, 13], [1, 2, 3, 14, 15, 16]
@@ -101,6 +105,47 @@ CARD_PEAKS = {  # name fragment -> (f32 FLOP/s, bf16 FLOP/s, bytes/s)
     "H200": (67e12, 989e12, 4.8e12),
     "H100": (67e12, 989e12, 3.35e12),  # SXM
 }
+
+
+def ptxas_summary(log):
+    """'kernel<template ints>: R regs, S B spilled' for each entry function
+    of an nvcc -Xptxas=-v log (ptxas prints a function's properties, its
+    spills, then its registers)."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = kernel_label(ln.split("Function properties for", 1)[1].strip())
+        elif "spill stores" in ln and name is not None:
+            spill = ln.split("bytes spill stores")[0].split(",")[-1].strip()
+        elif "Used" in ln and "registers" in ln and name is not None:
+            regs = ln.split("Used", 1)[1].split("registers")[0].strip()
+            out.append(f"{name}: {regs} regs, {spill} B spilled")
+            name = None
+    return out
+
+
+def kernel_label(sym):
+    """The kernel's name and integer template arguments from an Itanium-
+    mangled symbol (the symbol itself where no '...kernel' name is found)."""
+    i = 0
+    while i < len(sym):
+        digits = len(sym[i:]) - len(sym[i:].lstrip("0123456789"))
+        if not digits:
+            i += 1
+            continue
+        n, j = int(sym[i:i + digits]), i + digits
+        ident = sym[j:j + n]
+        if n and ident.endswith("kernel"):
+            rest = sym[j + n:]
+            args = []
+            if rest.startswith("I"):
+                for part in rest[1:].split("E"):
+                    if part[:1] != "L" or not part[2:].isdigit():
+                        break
+                    args.append(part[2:])
+            return f"{ident}<{','.join(args)}>"
+        i = j + max(n, 1)
+    return sym
 
 
 def check(cond, msg):
@@ -260,6 +305,7 @@ def main():
     from diff3dhpe_torch.models import mixste
     from diff3dhpe_torch.models.mixste import Block, init_weights
     from diff3dhpe_torch.ops._build import SOURCES, build_all
+    from diff3dhpe_torch.ops.attention import _bwd, _bwd_stats, _fullseq
     from diff3dhpe_torch.ops.fused_block import _gemm_bf16, _gemm_bf16_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -274,8 +320,7 @@ def main():
     # Phase 1: build every kernel source from the checkout.
     t0 = time.perf_counter()
     reports = build_all()
-    regs = [ln.strip() for log in reports.values() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln]
+    regs = [f"{name}.cu {entry}" for name, log in reports.items() for entry in ptxas_summary(log)]
     say(f"phase 1 build: {time.perf_counter() - t0:.3f} s for {list(SOURCES)}; "
         f"{len(reports)} built now; ptxas: {' | '.join(regs)}")
 
@@ -345,6 +390,40 @@ def main():
                 f"bound_ms={bound_ms:.4f} GFLOP={flops / 1e9:.2f} "
                 f"achieved_TFLOPs={flops / ms / 1e9:.2f}")
             del block, out_ln, x, out, ref, dp
+
+    # Phase 2, head_dim 128: B1 at f32 with 4 heads (the width of the
+    # configs with num_heads 4 at embed 512) at both eval shapes, with the
+    # time add, the out-LN and drop-path, against its plain version.
+    per_shape_hd128 = {}
+    with torch.no_grad():
+        for shape, n in (("spatial", JOINTS), ("temporal", FRAMES)):
+            block = Block(EMBED, HEADS4, MLP_RATIO, qkv_bias=True)
+            init_weights(block, torch.Generator().manual_seed(4))
+            block = block.to(dev)
+            out_ln = torch.nn.LayerNorm(EMBED, eps=1e-6).to(dev)
+            x = randn(rows, EMBED)
+            t_rows = randn(2 * BATCH, EMBED, scale=0.5)
+            dp = (torch.rand(rows, 2, generator=gen, device=dev) < 0.9).float() / 0.9
+            kw = dict(t_rows=t_rows, rows_per_item=rows // (2 * BATCH), out_ln=out_ln)
+            run = lambda: fused_transformer_block(x, block, n, HEADS4, **kw)
+            plain = lambda: fused_transformer_block_ref(x, block, n, HEADS4, **kw)
+            lib = lambda: library_block(x, block, n, HEADS4, t_rows, rows // (2 * BATCH), out_ln)
+            abs_err, rel = rel_err(run(), plain())
+            dp_abs, dp_rel = rel_err(fused_transformer_block(x, block, n, HEADS4, dp_scales=dp, **kw),
+                                     fused_transformer_block_ref(x, block, n, HEADS4, dp_scales=dp,
+                                                                 **kw))
+            check(max(rel, dp_rel) <= KERNEL_REL_TOL,
+                  f"{shape} kernel at head_dim 128 rel err {max(rel, dp_rel):.3e} > {KERNEL_REL_TOL}")
+            ms, plain_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(lib)
+            flops, nbytes = block_work(rows, n, EMBED, hidden, 2 * BATCH)
+            per_shape_hd128[shape] = dict(abs_err=max(abs_err, dp_abs), ms=ms, plain_ms=plain_ms,
+                                          lib_ms=lib_ms, flops=flops, bytes=nbytes)
+            say(f"phase 2 fused_transformer_block {shape} head_dim 128: R={rows} n={n} C={EMBED} "
+                f"heads={HEADS4} max_abs_err={max(abs_err, dp_abs):.3e} rel_err={rel:.3e} "
+                f"drop-path rel_err={dp_rel:.3e} (tol {KERNEL_REL_TOL}) ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={max(flops / peak_flops, nbytes / mem_rate) * 1e3:.4f}")
+            del block, out_ln, x, dp
 
     def timings(run, plain, lib, flops, nbytes, peak):
         ms, plain_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(lib)
@@ -652,48 +731,74 @@ def main():
 
     # Phase 6: the attention kernels B3 and B4 against their plain versions
     # at the train path's shape and layout: q, k, v are views of one
-    # [B*J, F, 3, H, 64] qkv projection, dO is [B*J, F, H, 64] seen as
-    # [B*J, H, F, 64], as the temporal blocks of the recompute hand them over.
-    groups, hd = TRAIN_BATCH * JOINTS, EMBED // HEADS
-    qkv = randn(groups, FRAMES, 3, HEADS, hd)
-    q, k, v = qkv.permute(2, 0, 3, 1, 4)
-    do = randn(groups, FRAMES, HEADS, hd).transpose(1, 2)
-    g_all, n, elems = groups * HEADS, FRAMES, groups * HEADS * FRAMES * hd
-    attn = {}
-    with torch.no_grad():
-        for name, run, plain, work, nbytes in (
-            ("grand_attention_fullseq", lambda: (grand_attention_fullseq(q, k, v),),
-             lambda: (grand_attention_fullseq_ref(q, k, v),), 4 * g_all * n * n * hd,
-             4 * 4 * elems),
-            ("grand_attention_bwd", lambda: grand_attention_bwd(q, k, v, do),
-             lambda: grand_attention_bwd_ref(q, k, v, do), 10 * g_all * n * n * hd, 7 * 4 * elems),
-        ):
-            outs, refs = run(), plain()
-            torch.cuda.synchronize()
-            errs = [rel_err(a, b) for a, b in zip(outs, refs)]
-            abs_err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
-            check(all(torch.isfinite(a).all().item() for a in outs), f"{name} not finite")
-            check(rel <= KERNEL_REL_TOL, f"{name} rel err {rel:.3e} > {KERNEL_REL_TOL}")
-            del outs, refs
-            attn[name] = dict(abs_err=abs_err, rel=rel, ms=cuda_ms(run), plain_ms=cuda_ms(plain),
-                              flops=work, bytes=nbytes)
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    with torch.enable_grad():
-        lib_out = F.scaled_dot_product_attention(qg, kg, vg) - vg
-    attn["grand_attention_fullseq"]["lib_ms"] = cuda_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v) - v)
-    attn["grand_attention_bwd"]["lib_ms"] = cuda_ms(
-        lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do, retain_graph=True))
-    del lib_out, qg, kg, vg, qkv, q, k, v, do
-    for name, a in attn.items():
-        a["bound_ms"] = max(a["flops"] / peak_flops, a["bytes"] / mem_rate) * 1e3
-        a["bound_by"] = "operations" if a["flops"] / peak_flops >= a["bytes"] / mem_rate else "bytes"
-        say(f"phase 6 {name}: [B*H={g_all}, N={n}, D={hd}] max_abs_err={a['abs_err']:.3e} "
-            f"rel_err={a['rel']:.3e} (tol {KERNEL_REL_TOL}) ms={a['ms']:.4f} "
-            f"plain_ms={a['plain_ms']:.4f} library_ms={a['lib_ms']:.4f} "
-            f"bound_ms={a['bound_ms']:.4f} ({a['bound_by']}) GFLOP={a['flops'] / 1e9:.2f} "
-            f"achieved_TFLOPs={a['flops'] / a['ms'] / 1e9:.2f}")
-    torch.cuda.empty_cache()
+    # [B*J, F, 3, H, d] qkv projection, dO is [B*J, F, H, d] seen as
+    # [B*J, H, F, d], as the temporal blocks of the recompute hand them over;
+    # at 8 heads (d = 64) and at 4 heads (d = 128). B4 is called twice and
+    # must give the same bits (no atomics).
+    groups = TRAIN_BATCH * JOINTS
+    attn_by_heads = {}
+    for heads in (HEADS, HEADS4):
+        hd = EMBED // heads
+        qkv = randn(groups, FRAMES, 3, heads, hd)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        do = randn(groups, FRAMES, heads, hd).transpose(1, 2)
+        g_all, n, elems = groups * heads, FRAMES, groups * heads * FRAMES * hd
+        attn = attn_by_heads[heads] = {}
+        with torch.no_grad():
+            for name, run, plain, work, nbytes in (
+                ("grand_attention_fullseq", lambda: (grand_attention_fullseq(q, k, v),),
+                 lambda: (grand_attention_fullseq_ref(q, k, v),), 4 * g_all * n * n * hd,
+                 4 * 4 * elems),
+                ("grand_attention_bwd", lambda: grand_attention_bwd(q, k, v, do),
+                 lambda: grand_attention_bwd_ref(q, k, v, do), 10 * g_all * n * n * hd,
+                 7 * 4 * elems),
+            ):
+                outs, refs = run(), plain()
+                torch.cuda.synchronize()
+                refs_bwd = refs
+                errs = [rel_err(a, b) for a, b in zip(outs, refs)]
+                abs_err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+                check(all(torch.isfinite(a).all().item() for a in outs), f"{name} not finite")
+                check(rel <= KERNEL_REL_TOL, f"{name} d={hd} rel err {rel:.3e} > {KERNEL_REL_TOL}")
+                if name == "grand_attention_bwd":
+                    check(all(torch.equal(a, b) for a, b in zip(outs, run())),
+                          f"grand_attention_bwd d={hd}: two calls gave different bits")
+                del outs, refs
+                attn[name] = dict(abs_err=abs_err, rel=rel, ms=cuda_ms(run),
+                                  plain_ms=cuda_ms(plain), flops=work, bytes=nbytes, g=g_all, d=hd)
+            # B4 as the train step calls it: from B3's output and the row
+            # statistics B3's launch wrote (its dq pass skips the forward sweep).
+            fwd_stats = _bwd_stats(q)
+            fwd_out = _fullseq(q, k, v, None, fwd_stats)
+            train_form = lambda: _bwd(q, k, v, do, None, (fwd_out, fwd_stats))
+            t_abs, t_rel = max((rel_err(a, b) for a, b in zip(train_form(), refs_bwd)),
+                               key=lambda e: e[1])
+            check(t_rel <= KERNEL_REL_TOL, f"grand_attention_bwd from B3's statistics d={hd} rel "
+                  f"err {t_rel:.3e} > {KERNEL_REL_TOL}")
+            attn["grand_attention_bwd"].update(train_ms=cuda_ms(train_form), train_abs_err=t_abs)
+            del fwd_out, fwd_stats, refs_bwd
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(qg, kg, vg) - vg
+        attn["grand_attention_fullseq"]["lib_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v) - v)
+        attn["grand_attention_bwd"]["lib_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do, retain_graph=True))
+        del lib_out, qg, kg, vg, qkv, q, k, v, do
+        for name, a in attn.items():
+            a["bound_ms"] = max(a["flops"] / peak_flops, a["bytes"] / mem_rate) * 1e3
+            a["bound_by"] = ("operations" if a["flops"] / peak_flops >= a["bytes"] / mem_rate
+                             else "bytes")
+            say(f"phase 6 {name}: [B*H={g_all}, N={n}, D={hd}] max_abs_err={a['abs_err']:.3e} "
+                f"rel_err={a['rel']:.3e} (tol {KERNEL_REL_TOL}) ms={a['ms']:.4f} "
+                f"plain_ms={a['plain_ms']:.4f} library_ms={a['lib_ms']:.4f} "
+                f"bound_ms={a['bound_ms']:.4f} ({a['bound_by']}) GFLOP={a['flops'] / 1e9:.2f} "
+                f"achieved_TFLOPs={a['flops'] / a['ms'] / 1e9:.2f}"
+                + (f" same bits in two calls; from B3's statistics (the train step's call) "
+                   f"ms={a['train_ms']:.4f} max_abs_err={a['train_abs_err']:.3e}"
+                   if name == "grand_attention_bwd" else ""))
+        torch.cuda.empty_cache()
+    attn, hd = attn_by_heads[HEADS], EMBED // HEADS
 
     # Phase 6b: B3 at bf16, the tensor-core attention kernel that B1, B2 and
     # B5 run for their attention step, alone: q, k, v as views of one
@@ -748,32 +853,46 @@ def main():
         x2d = torch.rand(b, FRAMES, JOINTS, 2, generator=gen, device=dev) * 2 - 1
         return gt, x2d
 
-    # (a) B=4: kernel path against the plain module on the same dp, t, noise.
-    gt, x2d = batch(CHECK_BATCH)
-    inject = dict(t=torch.randint(0, TIMESTEPS, (CHECK_BATCH,), generator=gen, device=dev),
-                  noise=randn(CHECK_BATCH, FRAMES, JOINTS, 3),
-                  dp_scales=draw_drop_path_scales(gen, CHECK_BATCH, DEPTH, DROP_PATH, FRAMES,
-                                                  JOINTS))
-    for c in counters:
-        c.launches = 0
-    loss_fast = diff_fast.training_loss(gt, x2d, **inject)
-    grads_fast = torch.autograd.grad(loss_fast, params)
-    torch.cuda.synchronize()
-    check_launches = {c.__name__: c.launches for c in counters}
-    loss_plain = diff_plain.training_loss(gt, x2d, **inject)
-    grads_plain = torch.autograd.grad(loss_plain, params)
-    loss_rel = abs(loss_fast.item() - loss_plain.item()) / abs(loss_plain.item())
-    grad_rel = max(((a - b).abs().max() / b.abs().max()).item()
-                   for a, b in zip(grads_fast, grads_plain))
-    check(check_launches == per_step, f"train check launched {check_launches}, expected {per_step}")
-    check(loss_rel <= LOSS_REL_TOL, f"train loss rel err {loss_rel:.3e} > {LOSS_REL_TOL}")
-    check(grad_rel <= GRAD_REL_TOL, f"train grad rel err {grad_rel:.3e} > {GRAD_REL_TOL}")
-    say(f"phase 7a train check B={CHECK_BATCH}: loss={loss_fast.item():.6f} "
-        f"plain_loss={loss_plain.item():.6f} loss_rel_err={loss_rel:.3e} (tol {LOSS_REL_TOL}) "
-        f"max_param_grad_rel_err={grad_rel:.3e} (tol {GRAD_REL_TOL}, over {len(params)} "
-        f"parameters) launches={check_launches}")
-    del grads_fast, grads_plain, loss_fast, loss_plain, gt, x2d, inject
-    torch.cuda.empty_cache()
+    # (a) B=4: kernel path against the plain module on the same dp, t, noise;
+    # at 8 heads and, on a second seed-0 model, at 4 heads (head_dim 128).
+    def train_check(fast, plain, ps, label):
+        gt, x2d = batch(CHECK_BATCH)
+        inject = dict(t=torch.randint(0, TIMESTEPS, (CHECK_BATCH,), generator=gen, device=dev),
+                      noise=randn(CHECK_BATCH, FRAMES, JOINTS, 3),
+                      dp_scales=draw_drop_path_scales(gen, CHECK_BATCH, DEPTH, DROP_PATH, FRAMES,
+                                                      JOINTS))
+        for c in counters:
+            c.launches = 0
+        loss_fast = fast.training_loss(gt, x2d, **inject)
+        grads_fast = torch.autograd.grad(loss_fast, ps)
+        torch.cuda.synchronize()
+        got = {c.__name__: c.launches for c in counters}
+        loss_plain = plain.training_loss(gt, x2d, **inject)
+        grads_plain = torch.autograd.grad(loss_plain, ps)
+        loss_rel = abs(loss_fast.item() - loss_plain.item()) / abs(loss_plain.item())
+        grad_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                       for a, b in zip(grads_fast, grads_plain))
+        check(got == per_step, f"train check {label} launched {got}, expected {per_step}")
+        check(loss_rel <= LOSS_REL_TOL, f"train {label} loss rel err {loss_rel:.3e} > "
+              f"{LOSS_REL_TOL}")
+        check(grad_rel <= GRAD_REL_TOL, f"train {label} grad rel err {grad_rel:.3e} > "
+              f"{GRAD_REL_TOL}")
+        say(f"phase 7a train check {label} B={CHECK_BATCH}: loss={loss_fast.item():.6f} "
+            f"plain_loss={loss_plain.item():.6f} loss_rel_err={loss_rel:.3e} (tol {LOSS_REL_TOL}) "
+            f"max_param_grad_rel_err={grad_rel:.3e} (tol {GRAD_REL_TOL}, over {len(ps)} "
+            f"parameters) launches={got}")
+        torch.cuda.empty_cache()
+        return got
+
+    train_check(diff_fast, diff_plain, params, f"heads {HEADS}")
+    model4 = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
+                            num_heads=HEADS4, mlp_ratio=MLP_RATIO, seed=0, device=dev).train()
+    train_check(
+        GaussianDiffusion.create(make_fast_train_denoise_fn(model4, DROP_PATH, attn_bwd=True),
+                                 **dkw),
+        GaussianDiffusion.create(make_train_denoise_fn(model4, DROP_PATH), **dkw),
+        list(model4.parameters()), f"heads {HEADS4} (head_dim {EMBED // HEADS4})")
+    del model4
 
     # (b) B=24: the train step as a user calls it, t/noise/dp drawn from gen.
     optimizer, scheduler = make_optimizer(params, LR, LR_DECAY, steps_per_epoch=1000)
@@ -818,13 +937,15 @@ def main():
     # shape, 4·243 joint groups x 8 heads of n = 17: as views of one
     # [972, 17, 3, 8, 64] qkv projection (what the module hands over) and
     # as contiguous [7776, 17, 64] operands; then at n = 64 (two keys a
-    # lane) and at an odd n. The library yardstick is SDPA - v.
-    hd = EMBED // HEADS
+    # lane), at an odd n, and with 4 heads of head_dim 128 ([3888, 17, 128]
+    # as qkv views). The library yardstick is SDPA - v.
     small = {}
     with torch.no_grad():
         for label, b, h, n, strided in (("qkv_views", 2 * BATCH * FRAMES, HEADS, JOINTS, True),
                                         ("contiguous", 2 * BATCH * FRAMES * HEADS, 1, JOINTS, False),
-                                        ("n64", 243, HEADS, 64, True), ("n27", 101, HEADS, 27, True)):
+                                        ("n64", 243, HEADS, 64, True), ("n27", 101, HEADS, 27, True),
+                                        ("d128", 2 * BATCH * FRAMES, HEADS4, JOINTS, True)):
+            hd = EMBED // (HEADS4 if label == "d128" else HEADS)
             if strided:
                 q, k, v = randn(b, n, 3, h, hd).permute(2, 0, 3, 1, 4)
             else:
@@ -1077,6 +1198,8 @@ def main():
                                   for k, v in {**mixed_launches, **cli_launches}.items()},
         **pair_numbers(per_shape, peak_flops),
         "bf16": pair_numbers(per_shape_bf16, peak_bf16),
+        "d128": dict(pair_numbers(per_shape_hd128, peak_flops),
+                     work=f"the same pair of calls with {HEADS4} heads (head_dim 128), f32"),
         "bf16_gemm": gemms,
         "work": f"one spatial (n={JOINTS}) + one temporal (n={FRAMES}) call, R={rows}, C={EMBED}",
     }, {
@@ -1101,7 +1224,11 @@ def main():
             "replaces": replaces, "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": a["abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
             "bound_ms": a["bound_ms"], "bound_by": a["bound_by"], "library_ms": a["lib_ms"],
-            "work": f"one call, [B*H={g_all}, N={FRAMES}, D={EMBED // HEADS}] f32",
+            **({"train_step_form_ms": a["train_ms"]} if "train_ms" in a else {}),
+            "work": f"one call, [B*H={a['g']}, N={FRAMES}, D={a['d']}] f32",
+            "d128": dict(one_call(attn_by_heads[HEADS4][name]),
+                         work=f"one call, [B*H={attn_by_heads[HEADS4][name]['g']}, N={FRAMES}, "
+                              f"D={EMBED // HEADS4}] f32"),
         })
     entries[2]["bf16"] = dict(
         pair_numbers(attn_bf16, peak_bf16),

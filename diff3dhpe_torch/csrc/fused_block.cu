@@ -51,10 +51,13 @@
 //                         row's drop-path scale); the bf16 one stages the
 //                         accumulators through shared memory and stores
 //                         16-byte pieces of a row.
-//   grand_attn_kernel     f32, grand_attn.cuh, shared with grand_attention.cu:
-//                         one block per (group, head) with the group's K
-//                         and V in shared memory, reading q, k and v out of
-//                         the qkv buffer through strides; B2 adds the outer
+//   grand_attn_tiled_kernel, grand_attn_small_kernel
+//                         f32, grand_attn.cuh, shared with grand_attention.cu
+//                         (head width 64 or 128): 64-query blocks streaming
+//                         64-key tiles of K and V through a cp.async ring
+//                         with an online softmax, or at n <= 32 one warp per
+//                         (group, head); both read q, k and v out of the qkv
+//                         buffer through strides, and B2 adds the outer
 //                         group index b as blockIdx.z.
 //   grand_attn_bf16_kernel
 //                         bf16, grand_attn_bf16.cuh: the TPU device function
@@ -263,29 +266,31 @@ cudaError_t launch_gemm(const bf16* A, const bf16* W, const float* bias, const b
 template <typename T>
 cudaError_t launch_attention(const T* qkv, T* out, int R, int C, int heads, int n, int n_pad,
                              int j_groups, float scale, cudaStream_t stream) {
-  // q of row r, head h at qkv[r, h * 64], k and v C and 2C columns
-  // further; the output at out[r, h * 64]. float runs grand_attn_kernel on
-  // the CUDA cores, bf16 the tensor-core kernel of grand_attn_bf16.cuh.
+  // q of row r, head h at qkv[r, h * d] (d = C / heads), k and v C and 2C
+  // columns further; the output at out[r, h * d]. float runs the f32
+  // kernels of grand_attn.cuh (d = 64 or 128), bf16 the tensor-core kernel
+  // of grand_attn_bf16.cuh (d = 64).
   constexpr bool kF32 = std::is_same<T, float>::value;
-  const long long ld = 3LL * C;
+  const long long ld = 3LL * C, d = C / heads;
+  if (!kF32 && d != grand::kHeadDim) return cudaErrorInvalidValue;
   if (j_groups == 0) {
-    const grand::Strides s_in{n_pad * ld, grand::kHeadDim, ld};
-    const grand::Strides s_out{(long long)n_pad * C, grand::kHeadDim, C};
+    const grand::Strides s_in{n_pad * ld, d, ld};
+    const grand::Strides s_out{(long long)n_pad * C, d, C};
     if constexpr (kF32) {
       return grand::launch_grand_attn(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in, s_out,
-                                      R / n_pad, heads, n, n_pad, scale, stream);
+                                      R / n_pad, heads, n, n_pad, (int)d, scale, stream);
     } else {
       return grand::launch_grand_attn_bf16(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in,
                                            s_out, R / n_pad, heads, n, n_pad, scale, stream);
     }
   }
   const long long J = j_groups;
-  const grand::Strides s_in{ld, grand::kHeadDim, J * ld, n * J * ld};
-  const grand::Strides s_out{C, grand::kHeadDim, J * C, n * J * C};
+  const grand::Strides s_in{ld, d, J * ld, n * J * ld};
+  const grand::Strides s_out{C, d, J * C, n * J * C};
   if constexpr (kF32) {
     return grand::launch_grand_attn<true>(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in,
-                                             s_out, j_groups, heads, n, n, scale, stream,
-                                             R / (n * j_groups));
+                                          s_out, j_groups, heads, n, n, (int)d, scale, stream,
+                                          R / (n * j_groups));
   } else {
     return grand::launch_grand_attn_bf16<true>(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in,
                                                s_out, j_groups, heads, n, n, scale, stream,
@@ -448,7 +453,11 @@ extern "C" int diff3dhpe_gemm_bf16(const bf16* a, const bf16* w, const float* bi
   return 0;
 }
 
-// Head width the attention kernel is compiled for, and the most keys per
-// group it holds; the wrapper checks both before launching.
-extern "C" int diff3dhpe_attn_head_dim() { return grand::kHeadDim; }
+// 1 where the block's attention step takes head width d in this dtype
+// (bf16 != 0: the tensor-core kernel, d = 64; else the f32 kernels, d = 64
+// or 128), and the most keys per group it holds; the wrapper checks both
+// before launching.
+extern "C" int diff3dhpe_attn_takes_head_dim(int d, int bf16) {
+  return bf16 ? d == grand::kHeadDim : grand::f32_head_dim(d);
+}
 extern "C" int diff3dhpe_attn_max_n() { return grand::kMaxN; }

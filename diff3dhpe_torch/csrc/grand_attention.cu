@@ -14,10 +14,11 @@
 //      packed_grand_attention): the same forward for many small groups,
 //      n <= 64 (the spatial attention: n = 17 joints).
 //
-// Operands are [B, H, N, 64] read through element strides (unit stride on
-// the head dimension), so the trainable attention hands over q, k and v as
-// views of its [B, N, 3, H, 64] qkv projection and receives outputs laid
-// out [B, N, H, 64], with no copy on either side.
+// Operands are [B, H, N, D] read through element strides (unit stride on
+// the head dimension), D = 64 or 128 (one template, two instances) and
+// N <= 256, so the trainable attention hands over q, k and v as views of its
+// [B, N, 3, H, D] qkv projection and receives outputs laid out [B, N, H, D],
+// with no copy on either side.
 //
 // What bounds them on an H100: at the training shape (B·H = 3,264 groups
 // of N = 243, d = 64) B3 does 4·N²·d FLOP per group (49 GFLOP) against
@@ -28,32 +29,35 @@
 // bounds it.
 //
 // Design:
-//   B3  grand_attn_kernel from grand_attn.cuh, the kernel B1 runs for its
-//       attention step (one block per (group, head), K and V in shared
-//       memory, scores in registers).
-//   B4  two kernels after FlashAttention-2's split, because K, V, Q and dO
-//       of one group (4 × 62 KB at N = 243) do not fit one block's 227 KB:
-//       1. dq pass, one block per (group, head), K and V resident: each
-//          warp takes 4 queries, recomputes their P rows and dP rows in
-//          registers, writes dQ and the row statistics (max, 1/sum, D) to
-//          a small [B·H, N] buffer;
-//       2. dk/dv pass, one block per (group, head), Q (times scale) and dO
-//          resident with the statistics: each warp takes 4 keys and
-//          recomputes their P and dS columns from the stored statistics,
-//          then forms dK and dV with the lanes split over the head dim.
-//       Each output element is written by one thread: no atomics, so the
-//       gradients are deterministic. P is rebuilt in both passes with the
-//       same products in the same order, so the two passes see the same P.
-//       The passes cost 14·N²·d FLOP where the formulas need 10.
-//   B6  grand_attn_small_kernel: B3's one block per (group, head) would
-//       leave most of a block idle at n = 17, so here one WARP takes a
-//       (group, head) and a block holds several. The warp's Q (times
-//       scale), K and V sit in its own slice of shared memory; lane j owns
-//       key j (and key 32 + j for n > 32), so a query's scores are one or
-//       two registers per lane and the softmax is two warp reductions. For
-//       the AV product the lanes turn to the head dimension (columns lane
-//       and 32 + lane) and take each P from its owner by shuffle. expf,
-//       IEEE division, normalisation after the AV product as in B3. The
+//   B3  the shared f32 launcher of grand_attn.cuh, which B1, B2 and B5 run
+//       for their attention step: 64-query blocks streaming key tiles of K
+//       and V through a cp.async ring with an online softmax, or one warp
+//       per (group, head) at n <= 32.
+//   B4  two kernels, with P and dS spilled to HBM, because K, V, Q and dO
+//       of one group (4 x 124 KB at N = 243, D = 128) do not fit a block and
+//       a one-pass dk/dv with dq would need float atomics:
+//       1. dq pass, a block of 128 threads per 64 queries, streaming ~8 KB
+//          chunks of key tiles through a two-stage cp.async ring with
+//          register micro-tiles fed by 128-bit shared loads (as the forward,
+//          grand_attn.cuh). Sweep 1 is the forward's online softmax over
+//          64-key tiles (S, then O = P·V), which gives the row's max, 1/sum
+//          and D = dO·O / l = Σ P·dP; it is skipped when B3's launch left
+//          the statistics (the train step's call). Sweep 2 forms S and dP
+//          (4 x 8 micro-tiles each), P and dS = P ∘ (dP − D) · scale, stores
+//          both to a [2][B·H][n64][n64] scratch (8 lanes write 32 contiguous
+//          bytes) and dS to shared memory, and dQ += dS·K;
+//       2. dk/dv pass, a block per 64 keys and product: dV = Pᵀ·dO − dO or
+//          dK = dSᵀ·Q from the stored P or dS, 32-row chunks of both
+//          operands through the ring, 4 x D/8 micro-tiles.
+//       So the call does the 10·N²·d FLOP of the formulas (14 without B3's
+//       statistics) and moves P and dS through HBM once each way (3.4 GB at
+//       the train shape, 1 ms at the card's rate, under the 1.8 ms of f32
+//       arithmetic). Shared memory 93 KB for pass 1 (two blocks an SM), 48
+//       KB (D = 128) or 32 KB (D = 64) for pass 2. Each output element is
+//       written by one thread: no atomics, so the gradients are deterministic.
+//   B6  the small-group kernel of grand_attn.cuh (one warp per (group,
+//       head), n <= 64): lane j owns key j (and 32 + j for n > 32) for the
+//       scores, the lanes take columns 32c + lane (c < D / 32) for P·V. The
 //       TPU kernel's 119-row packed tile, block-diagonal mask and group
 //       padding serve its matrix unit and have no counterpart.
 
@@ -65,401 +69,335 @@
 
 namespace {
 
-using grand::kHeadDim;
-using grand::kKeysPerLane;
+using grand::axpy4;
+using grand::cp_async_commit;
+using grand::cp_async_wait;
+using grand::kKT;
+using grand::kLdC;
 using grand::kMaxN;
-using grand::kMaxWarps;
-using grand::kPadDim;
+using grand::kQT;
+using grand::kSmallMaxN;
+using grand::kThreads;
+using grand::ld4;
+using grand::load_block;
+using grand::mm_acc;
+using grand::mm_rows;
+using grand::oct_max;
+using grand::oct_sum;
 using grand::Strides;
-using grand::load_padded;
-using grand::round32;
-using grand::warp_max;
-using grand::warp_sum;
 
-constexpr int kRowsPerWarp = 4;  // queries (dq pass) or keys (dk/dv pass) a warp holds
+// n rounded up to the 64-row tiles of both passes: the rows of the
+// statistics and the rows and columns of P and dS a (group, head) holds.
+__host__ __device__ inline int stat_rows(int n) { return (n + kQT - 1) / kQT * kQT; }
 
-// Shared memory of the dq pass, in floats: per warp Q, dO [4][64] and dS
-// [n32][4], then K, V [n][65] (the float4 tiles first, for alignment).
-size_t dq_smem_floats(int n, int warps) {
-  return 2 * (size_t)n * kPadDim + (size_t)warps * (2 * kRowsPerWarp * kHeadDim) +
-         (size_t)warps * round32(n) * kRowsPerWarp;
-}
+// The dq pass: chunks of a key tile and shared memory in floats. A logit
+// chunk is Q, K, dO and V [64 rows][32 columns] (the first two only in
+// sweep 1); a row chunk is V (sweep 1) or K (sweep 2) [kRR rows][D], kRR =
+// 2048 / D. Then the tile of P (sweep 1) or dS (sweep 2), [64][72], and the
+// statistics m, 1/l, D [3][64].
+template <int D>
+struct DqLayout {
+  static constexpr int kSC = D / 32, kRR = 2048 / D, kRC = kKT / kRR;
+  static constexpr int kChunks = kSC + kRC;
+  static constexpr int kBlock = kQT * kLdC;  // one [64][32] chunk
+  static constexpr int kStage = 4 * kBlock;
+  static constexpr int kLdW = kKT + 8;
+  static constexpr int kW = 2 * kStage, kStats = kW + kQT * kLdW;
+  static constexpr int kFloats = kStats + 3 * kQT;
+};
 
-// Shared memory of the dk/dv pass, in floats: per warp K, V [4][64] and
-// P, dS [n32][4]; then Q·scale, dO [n][65] and the statistics m, 1/sum,
-// D [n] each.
-size_t dkdv_smem_floats(int n, int warps) {
-  return 2 * (size_t)n * kPadDim + 3 * (size_t)n +
-         (size_t)warps * (2 * kRowsPerWarp * kHeadDim) +
-         (size_t)warps * 2 * round32(n) * kRowsPerWarp;
-}
-
-// Copies 4 rows starting at row i0 (zeros past n) of one head into a
-// [4][64] warp tile, times mul.
-__device__ __forceinline__ void load_rows4(float* dst, const float* src, long long row_stride,
-                                           int i0, int n, float mul, int lane) {
-  for (int e = lane; e < kRowsPerWarp * kHeadDim; e += 32) {
-    const int i = i0 + e / kHeadDim;
-    dst[e] = i < n ? src[i * row_stride + e % kHeadDim] * mul : 0.f;
-  }
-}
-
-// Per lane, for its 8 rows r = kk·32 + lane of a padded [n][65] tile A and
-// B, and the 4 rows of the warp tiles X and Y [4][64]:
-//   xa[x][kk] = X[x]·A[r],  yb[x][kk] = Y[x]·B[r]   (−inf / 0 past n).
-__device__ __forceinline__ void dots4x8(const float* A, const float* B, const float* X,
-                                        const float* Y, int n, int lane,
-                                        float xa[kRowsPerWarp][kKeysPerLane],
-                                        float yb[kRowsPerWarp][kKeysPerLane]) {
-#pragma unroll
-  for (int kk = 0; kk < kKeysPerLane; ++kk) {
-#pragma unroll
-    for (int x = 0; x < kRowsPerWarp; ++x) {
-      xa[x][kk] = -INFINITY;
-      yb[x][kk] = 0.f;
-    }
-    const int r = kk * 32 + lane;
-    if (kk * 32 < n && r < n) {
-      float da[kRowsPerWarp] = {}, db[kRowsPerWarp] = {};
-      const float* ar = A + r * kPadDim;
-      const float* br = B + r * kPadDim;
-#pragma unroll 4
-      for (int d = 0; d < kHeadDim; d += 4) {
-        const float a0 = ar[d], a1 = ar[d + 1], a2 = ar[d + 2], a3 = ar[d + 3];
-        const float b0 = br[d], b1 = br[d + 1], b2 = br[d + 2], b3 = br[d + 3];
-#pragma unroll
-        for (int x = 0; x < kRowsPerWarp; ++x) {
-          const float4 xv = *reinterpret_cast<const float4*>(X + x * kHeadDim + d);
-          const float4 yv = *reinterpret_cast<const float4*>(Y + x * kHeadDim + d);
-          da[x] = fmaf(xv.x, a0, da[x]);
-          da[x] = fmaf(xv.y, a1, da[x]);
-          da[x] = fmaf(xv.z, a2, da[x]);
-          da[x] = fmaf(xv.w, a3, da[x]);
-          db[x] = fmaf(yv.x, b0, db[x]);
-          db[x] = fmaf(yv.y, b1, db[x]);
-          db[x] = fmaf(yv.z, b2, db[x]);
-          db[x] = fmaf(yv.w, b3, db[x]);
-        }
-      }
-#pragma unroll
-      for (int x = 0; x < kRowsPerWarp; ++x) {
-        xa[x][kk] = da[x];
-        yb[x][kk] = db[x];
-      }
-    }
-  }
-}
-
-// acc[x][0..1] += Σ_r W[r][x] · T[r][lane, lane + 32] over r < n, for a
-// per-warp weight tile W [n32][4] and a padded [n][65] tile T.
-__device__ __forceinline__ void accumulate_rows(const float* W, const float* T, int n, int lane,
-                                                float acc[kRowsPerWarp][2]) {
-  for (int r = 0; r < n; ++r) {
-    const float4 w = *reinterpret_cast<const float4*>(W + r * kRowsPerWarp);
-    const float t0 = T[r * kPadDim + lane], t1 = T[r * kPadDim + 32 + lane];
-    acc[0][0] = fmaf(w.x, t0, acc[0][0]);
-    acc[0][1] = fmaf(w.x, t1, acc[0][1]);
-    acc[1][0] = fmaf(w.y, t0, acc[1][0]);
-    acc[1][1] = fmaf(w.y, t1, acc[1][1]);
-    acc[2][0] = fmaf(w.z, t0, acc[2][0]);
-    acc[2][1] = fmaf(w.z, t1, acc[2][1]);
-    acc[3][0] = fmaf(w.w, t0, acc[3][0]);
-    acc[3][1] = fmaf(w.w, t1, acc[3][1]);
-  }
-}
-
-// B4, pass 1: dQ and the per-query statistics of one (group, head).
-// stats holds three [B·H, n] planes: max of the scaled logits, 1/sum of
-// their exponentials, and D.
-__global__ void grand_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                         const float* __restrict__ v,
-                                         const float* __restrict__ dout,
-                                         float* __restrict__ dq, float* __restrict__ stats,
-                                         Strides sq, Strides sk, Strides sv, Strides sdo,
-                                         Strides sdq, int n, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.x, h = blockIdx.y, H = gridDim.y;
-  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n32 = round32(n);
-  float* Ws = smem;  // per warp: Q [4][64], dO [4][64]
-  float* Ss = Ws + warps * 2 * kRowsPerWarp * kHeadDim;
-  float* Ks = Ss + warps * n32 * kRowsPerWarp;
-  float* Vs = Ks + n * kPadDim;
-
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* dob = dout + b * sdo.b + h * sdo.h;
-  float* dqb = dq + b * sdq.b + h * sdq.h;
-  const size_t plane = (size_t)gridDim.x * H * n;
-  float* st = stats + ((size_t)b * H + h) * n;
-
-  load_padded(Ks, k + b * sk.b + h * sk.h, sk.n, n, 1.0f);
-  load_padded(Vs, v + b * sv.b + h * sv.h, sv.n, n, 1.0f);
-  __syncthreads();
-
-  float* Qw = Ws + warp * 2 * kRowsPerWarp * kHeadDim;
-  float* DOw = Qw + kRowsPerWarp * kHeadDim;
-  float* Sw = Ss + warp * n32 * kRowsPerWarp;
-  for (int i0 = warp * kRowsPerWarp; i0 < n; i0 += warps * kRowsPerWarp) {
-    load_rows4(Qw, qb, sq.n, i0, n, scale, lane);
-    load_rows4(DOw, dob, sdo.n, i0, n, 1.0f, lane);
-    __syncwarp();
-
-    float s[kRowsPerWarp][kKeysPerLane], dp[kRowsPerWarp][kKeysPerLane];
-    dots4x8(Ks, Vs, Qw, DOw, n, lane, s, dp);
-
-#pragma unroll
-    for (int x = 0; x < kRowsPerWarp; ++x) {
-      float m = -INFINITY;
-#pragma unroll
-      for (int kk = 0; kk < kKeysPerLane; ++kk) m = fmaxf(m, s[x][kk]);
-      m = warp_max(m);
-      float sum = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKeysPerLane; ++kk) {
-        const float e = kk * 32 + lane < n ? expf(s[x][kk] - m) : 0.f;
-        s[x][kk] = e;
-        sum += e;
-      }
-      const float inv = 1.0f / warp_sum(sum);
-      float dsum = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKeysPerLane; ++kk) {
-        s[x][kk] *= inv;  // P
-        dsum = fmaf(s[x][kk], dp[x][kk], dsum);
-      }
-      dsum = warp_sum(dsum);
-#pragma unroll
-      for (int kk = 0; kk < kKeysPerLane; ++kk) s[x][kk] = s[x][kk] * (dp[x][kk] - dsum) * scale;
-      if (lane == 0 && i0 + x < n) {
-        st[i0 + x] = m;
-        st[plane + i0 + x] = inv;
-        st[2 * plane + i0 + x] = dsum;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < kKeysPerLane; ++kk) {
-      if (kk * 32 < n) {
-        *reinterpret_cast<float4*>(Sw + (kk * 32 + lane) * kRowsPerWarp) =
-            make_float4(s[0][kk], s[1][kk], s[2][kk], s[3][kk]);
-      }
-    }
-    __syncwarp();
-
-    float acc[kRowsPerWarp][2] = {};
-    accumulate_rows(Sw, Ks, n, lane, acc);
-#pragma unroll
-    for (int x = 0; x < kRowsPerWarp; ++x) {
-      const int i = i0 + x;
-      if (i >= n) break;
-      float* o = dqb + i * sdq.n;
-      o[lane] = acc[x][0];
-      o[32 + lane] = acc[x][1];
-    }
-    __syncwarp();
-  }
-}
-
-// B4, pass 2: dK and dV of one (group, head) from the statistics of pass 1.
-__global__ void grand_attn_bwd_dkdv_kernel(const float* __restrict__ q,
-                                           const float* __restrict__ k,
-                                           const float* __restrict__ v,
-                                           const float* __restrict__ dout,
-                                           const float* __restrict__ stats,
-                                           float* __restrict__ dk, float* __restrict__ dv,
-                                           Strides sq, Strides sk, Strides sv, Strides sdo,
-                                           Strides sdk, Strides sdv, int n, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.x, h = blockIdx.y, H = gridDim.y;
-  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n32 = round32(n);
-  float* Ws = smem;                // per warp: K [4][64], V [4][64]
-  float* Ps = Ws + warps * 2 * kRowsPerWarp * kHeadDim;  // per warp: P, dS [n32][4]
-  float* Qs = Ps + warps * 2 * n32 * kRowsPerWarp;       // q · scale
-  float* DOs = Qs + n * kPadDim;
-  float* Ms = DOs + n * kPadDim;   // statistics
-  float* Is = Ms + n;
-  float* Ds = Is + n;
-
+// B4, pass 1: dQ, P and dS of 64 queries of one (group, head). Thread
+// (tq, tk) = (tid / 8, tid % 8) owns queries q0 + tq + 16i (i < 4), keys tk
+// + 8j (j < 8) of each 64-key tile, and columns 4·tk + 32c of O and dQ.
+// Sweep 1 is the forward's online softmax (S, then O = P·V): the row's max
+// m, 1/l and D = dO·O / l = Σ P·dP. With kFwdStats, m and 1/l come from
+// stats (two [B·H, n64] planes B3 wrote) and D = dO·(out + v) instead.
+// Sweep 2 forms S and dP, P = exp(S − m) / l and dS = P ∘ (dP − D) · scale
+// into pds (two [B·H][n64][n64] planes, zero past n) and dS into shared
+// memory, and dQ += dS·K.
+template <int D, bool kFwdStats>
+__global__ void __launch_bounds__(kThreads)
+grand_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ fout, const float* __restrict__ stats,
+                         float* __restrict__ dq, float* __restrict__ pds, Strides sq,
+                         Strides sk, Strides sv, Strides sdo, Strides sfo, Strides sdq, int n,
+                         int q_tiles, float scale) {
+  using L = DqLayout<D>;
+  constexpr int kC = D / 32;
+  extern __shared__ __align__(16) float dq_smem[];
+  float* ring = dq_smem;
+  float* Ws = dq_smem + L::kW;  // P, then dS
+  float* Sq = dq_smem + L::kStats;
+  const int b = blockIdx.x / q_tiles, q0 = (blockIdx.x % q_tiles) * kQT;
+  const int h = blockIdx.y, H = gridDim.y;
+  const int tq = threadIdx.x >> 3, tk = threadIdx.x & 7;
+  const float* qb = q + b * sq.b + h * sq.h + (long long)q0 * sq.n;
+  const float* dob = dout + b * sdo.b + h * sdo.h + (long long)q0 * sdo.n;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
-  const float* dob = dout + b * sdo.b + h * sdo.h;
-  float* dkb = dk + b * sdk.b + h * sdk.h;
-  float* dvb = dv + b * sdv.b + h * sdv.h;
-  const size_t plane = (size_t)gridDim.x * H * n;
-  const float* st = stats + ((size_t)b * H + h) * n;
+  const int nq = n - q0;  // valid query rows of the block
+  const int per_sweep = (n + kKT - 1) / kKT * L::kChunks;
 
-  load_padded(Qs, q + b * sq.b + h * sq.h, sq.n, n, scale);
-  load_padded(DOs, dob, sdo.n, n, 1.0f);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    Ms[i] = st[i];
-    Is[i] = st[plane + i];
-    Ds[i] = st[2 * plane + i];
-  }
-  __syncthreads();
-
-  float* Kw = Ws + warp * 2 * kRowsPerWarp * kHeadDim;
-  float* Vw = Kw + kRowsPerWarp * kHeadDim;
-  float* Pw = Ps + warp * 2 * n32 * kRowsPerWarp;
-  float* Sw = Pw + n32 * kRowsPerWarp;
-  for (int j0 = warp * kRowsPerWarp; j0 < n; j0 += warps * kRowsPerWarp) {
-    load_rows4(Kw, kb, sk.n, j0, n, 1.0f, lane);
-    load_rows4(Vw, vb, sv.n, j0, n, 1.0f, lane);
-    __syncwarp();
-
-    // s[x][kk]: scaled logit of query kk·32 + lane against key j0 + x,
-    // summed in the order pass 1 and the forward use; dp likewise.
-    float s[kRowsPerWarp][kKeysPerLane], dp[kRowsPerWarp][kKeysPerLane];
-    dots4x8(Qs, DOs, Kw, Vw, n, lane, s, dp);
-#pragma unroll
-    for (int kk = 0; kk < kKeysPerLane; ++kk) {
-      const int i = kk * 32 + lane;
-      if (kk * 32 >= n) continue;
-      float p[kRowsPerWarp], ds[kRowsPerWarp];
-#pragma unroll
-      for (int x = 0; x < kRowsPerWarp; ++x) {
-        p[x] = i < n && j0 + x < n ? expf(s[x][kk] - Ms[i]) * Is[i] : 0.f;
-        ds[x] = i < n ? p[x] * (dp[x][kk] - Ds[i]) : 0.f;  // scale is folded into Qs
+  auto issue = [&](int g) {
+    float* st = ring + (g & 1) * L::kStage;
+    const int sweep = g / per_sweep, t = g % per_sweep / L::kChunks, c = g % L::kChunks;
+    if (c < L::kSC) {
+      load_block<kQT, 32>(st, kLdC, qb, sq.n, 0, 32 * c, nq);
+      load_block<kKT, 32>(st + L::kBlock, kLdC, kb, sk.n, t * kKT, 32 * c, n);
+      if (sweep == 1) {
+        load_block<kQT, 32>(st + 2 * L::kBlock, kLdC, dob, sdo.n, 0, 32 * c, nq);
+        load_block<kKT, 32>(st + 3 * L::kBlock, kLdC, vb, sv.n, t * kKT, 32 * c, n);
       }
-      *reinterpret_cast<float4*>(Pw + i * kRowsPerWarp) = make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(Sw + i * kRowsPerWarp) = make_float4(ds[0], ds[1], ds[2], ds[3]);
+    } else {
+      load_block<L::kRR, D>(st, D + 4, sweep == 0 ? vb : kb, sweep == 0 ? sv.n : sk.n,
+                            t * kKT + (c - L::kSC) * L::kRR, 0, n);
     }
-    __syncwarp();
-
-    float acc_v[kRowsPerWarp][2] = {}, acc_k[kRowsPerWarp][2] = {};
-    accumulate_rows(Pw, DOs, n, lane, acc_v);
-    accumulate_rows(Sw, Qs, n, lane, acc_k);
+  };
+  const int g0 = kFwdStats ? per_sweep : 0;  // with the forward's statistics, sweep 2 only
+  issue(g0);
+  cp_async_commit();
+  if constexpr (kFwdStats) {
+    const size_t plane = (size_t)gridDim.x * kQT * H;
+    const float* stb = stats + ((size_t)b * H + h) * (q_tiles * kQT) + q0;
+    // m and 1/l from the forward; D = dO·(out + v) = dO·O / l by the row's 8 lanes.
+    for (int e = threadIdx.x; e < 2 * kQT; e += blockDim.x) Sq[e] = stb[e / kQT * plane + e % kQT];
+    const float* fob = fout + b * sfo.b + h * sfo.h + (long long)q0 * sfo.n;
+    const float* vq = vb + (long long)q0 * sv.n;
 #pragma unroll
-    for (int x = 0; x < kRowsPerWarp; ++x) {
-      const int j = j0 + x;
-      if (j >= n) break;
-      float* ov = dvb + j * sdv.n;
-      float* ok = dkb + j * sdk.n;
-      ov[lane] = acc_v[x][0] - DOs[j * kPadDim + lane];
-      ov[32 + lane] = acc_v[x][1] - DOs[j * kPadDim + 32 + lane];
-      ok[lane] = acc_k[x][0];
-      ok[32 + lane] = acc_k[x][1];
-    }
-    __syncwarp();
-  }
-}
-
-// ---- B6: small groups, one warp per (group, head) ---------------------------
-
-constexpr int kSmallMaxN = 64;
-constexpr int kSmallMaxWarps = 8;
-
-// Floats of shared memory one warp of grand_attn_small_kernel holds: V and
-// Q [n][64] (16-byte aligned rows), then K [n][65] rounded up to 4 floats.
-__host__ __device__ inline int small_warp_floats(int n) {
-  return 2 * n * kHeadDim + ((n * kPadDim + 3) & ~3);
-}
-
-// out = softmax(q kᵀ·scale) v − v for pairs (b, h) of [B, H, n, 64]
-// operands, n <= 32·kKpl; warp w of block x takes pair x·warps + w.
-template <int kKpl>
-__global__ void grand_attn_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                        const float* __restrict__ v, float* __restrict__ out,
-                                        Strides sq, Strides sk, Strides sv, Strides so,
-                                        int pairs, int H, int n, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * warps + warp;
-  if (pair >= pairs) return;  // warps share nothing: no block-wide barrier below
-  const int b = pair / H, h = pair % H;
-  float* Vs = smem + (size_t)warp * small_warp_floats(n);
-  float* Qs = Vs + n * kHeadDim;
-  float* Ks = Qs + n * kHeadDim;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  float* ob = out + b * so.b + h * so.h;
-
-  for (int e = lane; e < n * (kHeadDim / 4); e += 32) {
-    const int j = e / (kHeadDim / 4), c4 = (e % (kHeadDim / 4)) * 4;
-    const float4 qv = *reinterpret_cast<const float4*>(qb + j * sq.n + c4);
-    const float4 kv = *reinterpret_cast<const float4*>(kb + j * sk.n + c4);
-    const float4 vv = *reinterpret_cast<const float4*>(vb + j * sv.n + c4);
-    *reinterpret_cast<float4*>(Qs + j * kHeadDim + c4) =
-        make_float4(qv.x * scale, qv.y * scale, qv.z * scale, qv.w * scale);
-    *reinterpret_cast<float4*>(Vs + j * kHeadDim + c4) = vv;
-    float* kd = Ks + j * kPadDim + c4;
-    kd[0] = kv.x;
-    kd[1] = kv.y;
-    kd[2] = kv.z;
-    kd[3] = kv.w;
-  }
-  __syncwarp();
-
-  for (int i = 0; i < n; ++i) {
-    const float* qi = Qs + i * kHeadDim;
-    float s[kKpl];
+    for (int i = 0; i < 4; ++i) {
+      const int r = tq + 16 * i;
+      float part = 0.f;
+      if (r < nq) {
 #pragma unroll
-    for (int kk = 0; kk < kKpl; ++kk) {
-      const int j = kk * 32 + lane;
-      s[kk] = -INFINITY;
-      if (j < n) {
-        const float* kr = Ks + j * kPadDim;
-        float dot = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < kHeadDim; d += 4) {
-          const float4 qv = *reinterpret_cast<const float4*>(qi + d);
-          dot = fmaf(qv.x, kr[d], dot);
-          dot = fmaf(qv.y, kr[d + 1], dot);
-          dot = fmaf(qv.z, kr[d + 2], dot);
-          dot = fmaf(qv.w, kr[d + 3], dot);
+        for (int cc = 0; cc < kC; ++cc) {
+          const int col = 4 * tk + 32 * cc;
+          const float4 gv = ld4(dob + (long long)r * sdo.n + col);
+          const float4 ov = ld4(fob + (long long)r * sfo.n + col);
+          const float4 vv = ld4(vq + (long long)r * sv.n + col);
+          part = fmaf(gv.x, ov.x + vv.x, part);
+          part = fmaf(gv.y, ov.y + vv.y, part);
+          part = fmaf(gv.z, ov.z + vv.z, part);
+          part = fmaf(gv.w, ov.w + vv.w, part);
         }
-        s[kk] = dot;
       }
+      part = oct_sum(part);
+      if (tk == 0) Sq[2 * kQT + r] = part;
     }
-    float m = s[0];
-#pragma unroll
-    for (int kk = 1; kk < kKpl; ++kk) m = fmaxf(m, s[kk]);
-    m = warp_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKpl; ++kk) {
-      s[kk] = kk * 32 + lane < n ? expf(s[kk] - m) : 0.f;
-      sum += s[kk];
-    }
-    const float inv = 1.0f / warp_sum(sum);
+  }
 
-    float o0 = 0.f, o1 = 0.f;  // columns lane and 32 + lane
+  float s[4][8], dp4[4][8], acc[4][4 * kC];
+  float m[4], l[4];
 #pragma unroll
-    for (int kk = 0; kk < kKpl; ++kk) {
-      const int end = n - kk * 32 < 32 ? n - kk * 32 : 32;
-      for (int j = 0; j < end; ++j) {
-        const float p = __shfl_sync(0xffffffffu, s[kk], j);
-        const float* vr = Vs + (kk * 32 + j) * kHeadDim;
-        o0 = fmaf(p, vr[lane], o0);
-        o1 = fmaf(p, vr[32 + lane], o1);
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * kC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int g = g0; g < 2 * per_sweep; ++g) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk g has landed; every thread is done with chunk g - 1
+    if (g + 1 < 2 * per_sweep) issue(g + 1);
+    cp_async_commit();
+    const float* st = ring + (g & 1) * L::kStage;
+    const int sweep = g / per_sweep, t = g % per_sweep / L::kChunks, c = g % L::kChunks;
+
+    if (!kFwdStats && sweep == 1 && t == 0 && c == 0) {
+      // Sweep 1 is over: acc holds O = Σ exp(S − m)·V. D = dO·O / l by the
+      // row's 8 lanes; the statistics go to shared memory; acc restarts as dQ.
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float inv = 1.0f / oct_sum(l[i]);
+        float part = 0.f;
+        if (tq + 16 * i < nq) {
+          const float* gi = dob + (long long)(tq + 16 * i) * sdo.n + 4 * tk;
+#pragma unroll
+          for (int cc = 0; cc < kC; ++cc) {
+            const float4 gv = ld4(gi + 32 * cc);
+            part = fmaf(gv.x, acc[i][4 * cc], part);
+            part = fmaf(gv.y, acc[i][4 * cc + 1], part);
+            part = fmaf(gv.z, acc[i][4 * cc + 2], part);
+            part = fmaf(gv.w, acc[i][4 * cc + 3], part);
+          }
+        }
+        const float dsum = oct_sum(part) * inv;
+        if (tk == 0) {
+          Sq[tq + 16 * i] = m[i];
+          Sq[kQT + tq + 16 * i] = inv;
+          Sq[2 * kQT + tq + 16 * i] = dsum;
+        }
+#pragma unroll
+        for (int cc = 0; cc < 4 * kC; ++cc) acc[i][cc] = 0.f;
       }
     }
-    float* oi = ob + i * so.n;
-    oi[lane] = o0 * inv - Vs[i * kHeadDim + lane];
-    oi[32 + lane] = o1 * inv - Vs[i * kHeadDim + 32 + lane];
+
+    if (c < L::kSC) {
+      if (sweep == 0) {
+        if (c == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+        }
+        mm_rows<4, 8, 16, 8>(s, st, kLdC, tq, st + L::kBlock, kLdC, tk);
+        if (c == L::kSC - 1) {  // online softmax, as the forward
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float mt = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              s[i][j] = t * kKT + tk + 8 * j < n ? s[i][j] * scale : -INFINITY;
+              mt = fmaxf(mt, s[i][j]);
+            }
+            const float m_new = fmaxf(m[i], oct_max(mt));
+            const float alpha = expf(m[i] - m_new);
+            m[i] = m_new;
+            l[i] *= alpha;
+#pragma unroll
+            for (int cc = 0; cc < 4 * kC; ++cc) acc[i][cc] *= alpha;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float p = expf(s[i][j] - m_new);
+              l[i] += p;
+              Ws[(tq + 16 * i) * L::kLdW + tk + 8 * j] = p;
+            }
+          }
+        }
+      } else {
+        if (c == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) s[i][j] = dp4[i][j] = 0.f;
+        }
+        mm_rows<4, 8, 16, 8>(s, st, kLdC, tq, st + L::kBlock, kLdC, tk);
+        mm_rows<4, 8, 16, 8>(dp4, st + 2 * L::kBlock, kLdC, tq, st + 3 * L::kBlock, kLdC, tk);
+        if (c == L::kSC - 1) {  // P and dS of the tile to shared memory and to pds
+          const size_t n64 = (size_t)q_tiles * kQT;
+          float* pg = pds + (((size_t)b * H + h) * n64 + q0) * n64 + t * kKT + tk;
+          float* dsg = pg + (size_t)gridDim.x * kQT * H * n64;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = tq + 16 * i;
+            const float mr = Sq[r], ir = Sq[kQT + r], dr = Sq[2 * kQT + r];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const bool ok = r < nq && t * kKT + tk + 8 * j < n;
+              const float p = ok ? expf(s[i][j] * scale - mr) * ir : 0.f;
+              const float ds = ok ? p * (dp4[i][j] - dr) * scale : 0.f;
+              Ws[r * L::kLdW + tk + 8 * j] = ds;
+              pg[r * n64 + 8 * j] = p;
+              dsg[r * n64 + 8 * j] = ds;
+            }
+          }
+        }
+      }
+    } else {  // sweep 1: O += P·V; sweep 2: dQ += dS·K
+      mm_acc<4, 16, kC, 32>(acc, Ws + (c - L::kSC) * L::kRR, L::kLdW, tq, st, D + 4, tk, L::kRR);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = tq + 16 * i;
+    if (r >= nq) continue;
+    float* o = dq + b * sdq.b + h * sdq.h + (long long)(q0 + r) * sdq.n + 4 * tk;
+#pragma unroll
+    for (int cc = 0; cc < kC; ++cc) {
+      *reinterpret_cast<float4*>(o + 32 * cc) =
+          make_float4(acc[i][4 * cc], acc[i][4 * cc + 1], acc[i][4 * cc + 2], acc[i][4 * cc + 3]);
+    }
   }
 }
 
-template <int kKpl>
-cudaError_t launch_small(const float* q, const float* k, const float* v, float* out, Strides sq,
-                         Strides sk, Strides sv, Strides so, int B, int H, int n, float scale,
-                         cudaStream_t stream) {
-  // As many warps a block as 96 KB of shared memory hold (two blocks an SM).
-  int warps = (96 * 1024) / (small_warp_floats(n) * (int)sizeof(float));
-  warps = warps < kSmallMaxWarps ? warps : kSmallMaxWarps;
-  const size_t bytes = (size_t)warps * small_warp_floats(n) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      grand_attn_small_kernel<kKpl>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const int pairs = B * H;
-  grand_attn_small_kernel<kKpl><<<(pairs + warps - 1) / warps, 32 * warps, bytes, stream>>>(
-      q, k, v, out, sq, sk, sv, so, pairs, H, n, scale);
-  return cudaGetLastError();
-}
+// The dk/dv pass: a block takes 64 keys of one (group, head) and one of
+// the two products; chunks of 32 query rows stream through a two-stage
+// cp.async ring, each P or dS [32 rows][64 keys] and dO or Q [32 rows][D].
+constexpr int kKB = 64;  // keys a block of the dk/dv pass
+constexpr int kQR = 32;  // query rows a chunk
 
-int warps_for(int rows) {
-  const int w = (rows + kRowsPerWarp - 1) / kRowsPerWarp;
-  return w < kMaxWarps ? w : kMaxWarps;
+template <int D>
+struct DkdvLayout {
+  static constexpr int kA = kQR * kKB;
+  static constexpr int kStage = kA + kQR * D;
+  static constexpr int kFloats = 2 * kStage;
+};
+
+// B4, pass 2: of 64 keys of one (group, head), dV = Pᵀ·dO − dO
+// (blockIdx.z = 0) or dK = dSᵀ·Q (blockIdx.z = 1), from the P and dS planes
+// the dq pass stored ([B·H][n64][n64] each, zero past n). Thread (tk, tc) =
+// (tid / 8, tid % 8) owns keys k0 + 4·tk + i (i < 4) and columns 4·tc + 32c
+// (c < D / 32): per query row one 128-bit load of four P (or dS) and D / 32
+// of dO (or Q) feed 16·D/32 FMAs, as the forward's P·V.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+grand_attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ dout,
+                           const float* __restrict__ pds, float* __restrict__ dk,
+                           float* __restrict__ dv, Strides sq, Strides sdo, Strides sdk,
+                           Strides sdv, int n, int k_tiles) {
+  using L = DkdvLayout<D>;
+  constexpr int kC = D / 32;
+  extern __shared__ __align__(16) float dkdv_smem[];
+  const int b = blockIdx.x / k_tiles, k0 = (blockIdx.x % k_tiles) * kKB;
+  const int h = blockIdx.y, H = gridDim.y;
+  const bool is_dk = blockIdx.z == 1;
+  const int tk = threadIdx.x >> 3, tc = threadIdx.x & 7;
+  const int n64 = k_tiles * kKB;
+  const size_t plane = (size_t)gridDim.x * kKB * H * n64;
+  const float* a_src = pds + (is_dk ? plane : 0) + ((size_t)b * H + h) * n64 * n64 + k0;
+  const float* x_src = is_dk ? q + b * sq.b + h * sq.h : dout + b * sdo.b + h * sdo.h;
+  const long long x_row = is_dk ? sq.n : sdo.n;
+  const int total = (n + kQR - 1) / kQR;  // P and dS rows past n are zero
+  auto issue = [&](int g) {
+    float* st = dkdv_smem + (g & 1) * L::kStage;
+    load_block<kQR, kKB>(st, kKB, a_src, n64, g * kQR, 0, n64);
+    load_block<kQR, D>(st + L::kA, D, x_src, x_row, g * kQR, 0, n);
+  };
+  issue(0);
+  cp_async_commit();
+  float acc[4][4 * kC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * kC; ++c) acc[i][c] = 0.f;
+  for (int g = 0; g < total; ++g) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk g has landed; every thread is done with chunk g - 1
+    if (g + 1 < total) issue(g + 1);
+    cp_async_commit();
+    const float* As = dkdv_smem + (g & 1) * L::kStage;
+    const float* Xs = As + L::kA;
+#pragma unroll 8
+    for (int r = 0; r < kQR; ++r) {
+      const float4 a = ld4(As + r * kKB + 4 * tk);
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const float4 x = ld4(Xs + r * D + 4 * tc + 32 * c);
+        axpy4(a.x, x, &acc[0][4 * c]);
+        axpy4(a.y, x, &acc[1][4 * c]);
+        axpy4(a.z, x, &acc[2][4 * c]);
+        axpy4(a.w, x, &acc[3][4 * c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long j = k0 + 4 * tk + i;
+    if (j >= n) continue;
+    float* o = is_dk ? dk + b * sdk.b + h * sdk.h + j * sdk.n
+                     : dv + b * sdv.b + h * sdv.h + j * sdv.n;
+    const float* gj = dout + b * sdo.b + h * sdo.h + j * sdo.n;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const int col = 4 * tc + 32 * c;
+      const float* e = &acc[i][4 * c];
+      const float4 g4 = is_dk ? make_float4(0.f, 0.f, 0.f, 0.f) : ld4(gj + col);
+      *reinterpret_cast<float4*>(o + col) =
+          make_float4(e[0] - g4.x, e[1] - g4.y, e[2] - g4.z, e[3] - g4.w);
+    }
+  }
 }
 
 template <typename Kernel>
@@ -467,39 +405,83 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <int D, bool kFwdStats>
+cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
+                      const float* fout, const float* stats, float* dq, float* pds, Strides sq,
+                      Strides sk, Strides sv, Strides sdo, Strides sfo, Strides sdq, int B, int H,
+                      int n, float scale, cudaStream_t stream) {
+  const int q_tiles = stat_rows(n) / kQT;
+  const size_t bytes = DqLayout<D>::kFloats * sizeof(float);
+  const cudaError_t err = allow_smem(grand_attn_bwd_dq_kernel<D, kFwdStats>, bytes);
+  if (err != cudaSuccess) return err;
+  grand_attn_bwd_dq_kernel<D, kFwdStats><<<dim3(B * q_tiles, H), kThreads, bytes, stream>>>(
+      q, k, v, dout, fout, stats, dq, pds, sq, sk, sv, sdo, sfo, sdq, n, q_tiles, scale);
+  return cudaGetLastError();
+}
+
+// B4 at head width D: the dq pass, then the dk/dv pass. With fout (the
+// forward's output, whose launch also wrote m and 1/l into stats) the dq
+// pass skips its first sweep. Adds one to *launches for each kernel
+// launched.
+template <int D>
+cudaError_t launch_bwd(const float* q, const float* k, const float* v, const float* dout,
+                       const float* fout, const float* stats, float* dq, float* dk, float* dv,
+                       float* pds, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sfo,
+                       Strides sdq, Strides sdk, Strides sdv, int B, int H, int n, float scale,
+                       int* launches, cudaStream_t stream) {
+#define DQ_ARGS \
+  q, k, v, dout, fout, stats, dq, pds, sq, sk, sv, sdo, sfo, sdq, B, H, n, scale, stream
+  cudaError_t err = fout ? launch_dq<D, true>(DQ_ARGS) : launch_dq<D, false>(DQ_ARGS);
+#undef DQ_ARGS
+  if (err != cudaSuccess) return err;
+  ++*launches;
+  const int k_tiles = stat_rows(n) / kKB;
+  const size_t bytes = DkdvLayout<D>::kFloats * sizeof(float);
+  if ((err = allow_smem(grand_attn_bwd_dkdv_kernel<D>, bytes)) != cudaSuccess) return err;
+  grand_attn_bwd_dkdv_kernel<D><<<dim3(B * k_tiles, H, 2), kThreads, bytes, stream>>>(
+      q, dout, pds, dk, dv, sq, sdo, sdk, sdv, n, k_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ++*launches;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 #define STRIDES(p) Strides{p##_sb, p##_sh, p##_sn}
 
-// B3: out = softmax(q kᵀ·scale) v − v for every (b, h) of [B, H, n, 64]
-// operands given by their element strides (sb, sh, sn). One kernel; adds
-// one to *launches when it launched. Returns the cudaError_t of the launch.
+// B3: out = softmax(q kᵀ·scale) v − v for every (b, h) of [B, H, n, d]
+// operands (d = 64 or 128) given by their element strides (sb, sh, sn).
+// stats may be null; else (n > 32) it holds 2·B·H·n64 floats, and the
+// launch writes each row's max and 1/sum into its two planes for a later
+// diff3dhpe_grand_attn_bwd_f32. One kernel; adds one to
+// *launches when it launched. Returns the cudaError_t of the launch.
 extern "C" int diff3dhpe_grand_attn_fwd_f32(
-    const float* q, const float* k, const float* v, float* out, int B, int H, int n,
+    const float* q, const float* k, const float* v, float* out, int B, int H, int n, int d,
     long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
-    long long o_sh, long long o_sn, float scale, int* launches, void* stream_ptr) {
+    long long o_sh, long long o_sn, float scale, float* stats, int* launches,
+    void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const cudaError_t err = grand::launch_grand_attn(q, k, v, out, STRIDES(q), STRIDES(k),
-                                                   STRIDES(v), STRIDES(o), B, H, n, n, scale,
-                                                   stream);
+                                                   STRIDES(v), STRIDES(o), B, H, n, n, d, scale,
+                                                   stream, 1, stats);
   if (err != cudaSuccess) return (int)err;
   ++*launches;
   return 0;
 }
 
-// B3 at bf16: the same arguments on bf16 operands, through the tensor-core
-// kernel of grand_attn_bf16.cuh (P rounded to bf16 after the normalisation,
-// one rounding of P·v − v). Every stride a multiple of 8 elements and every
-// base 16-byte aligned (checked by the wrapper).
+// B3 at bf16: the same arguments on bf16 operands (d = 64 only), through the
+// tensor-core kernel of grand_attn_bf16.cuh (P rounded to bf16 after the
+// normalisation, one rounding of P·v − v). Every stride a multiple of 8
+// elements and every base 16-byte aligned (checked by the wrapper).
 extern "C" int diff3dhpe_grand_attn_fwd_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, __nv_bfloat16* out,
-    int B, int H, int n,
+    int B, int H, int n, int d,
     long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
     long long o_sh, long long o_sn, float scale, int* launches, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n > kMaxN || d != grand::kHeadDim) return (int)cudaErrorInvalidValue;
   const cudaError_t err = grand::launch_grand_attn_bf16(q, k, v, out, STRIDES(q), STRIDES(k),
                                                         STRIDES(v), STRIDES(o), B, H, n, n, scale,
                                                         stream);
@@ -509,62 +491,64 @@ extern "C" int diff3dhpe_grand_attn_fwd_bf16(
 }
 
 // B6: the same function for small groups, n <= 64 (checked by the
-// wrapper), one warp per (b, h). One kernel; adds one to *launches when it
-// launched. Returns the cudaError_t of the launch.
+// wrapper), one warp per (b, h): the small-group kernel of grand_attn.cuh.
+// One kernel; adds one to *launches when it launched. Returns the
+// cudaError_t of the launch.
 extern "C" int diff3dhpe_grand_attn_small_f32(
-    const float* q, const float* k, const float* v, float* out, int B, int H, int n,
+    const float* q, const float* k, const float* v, float* out, int B, int H, int n, int d,
     long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
     long long o_sh, long long o_sn, float scale, int* launches, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || n > kSmallMaxN) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n > kSmallMaxN || !grand::f32_head_dim(d)) return (int)cudaErrorInvalidValue;
+#define SMALL_ARGS q, k, v, out, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(o), B, H, n, n, \
+                   scale, stream, 1
   const cudaError_t err =
-      n <= 32 ? launch_small<1>(q, k, v, out, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(o), B,
-                                H, n, scale, stream)
-              : launch_small<2>(q, k, v, out, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(o), B,
-                                H, n, scale, stream);
+      d == 64 ? (n <= 32 ? grand::launch_small<64, 1, false>(SMALL_ARGS)
+                         : grand::launch_small<64, 2, false>(SMALL_ARGS))
+              : (n <= 32 ? grand::launch_small<128, 1, false>(SMALL_ARGS)
+                         : grand::launch_small<128, 2, false>(SMALL_ARGS));
+#undef SMALL_ARGS
   if (err != cudaSuccess) return (int)err;
   ++*launches;
   return 0;
 }
 
 // B4: dq, dk, dv of B3 given dO, as two kernels (the dq pass, then the
-// dk/dv pass). stats is scratch of 3·B·H·n floats. Adds one to *launches
-// for each kernel launched; returns the first cudaError_t reported.
+// dk/dv pass), at d = 64 or 128 and n <= 256. pds is scratch of
+// 2·B·H·n64² floats, n64 = n rounded up to 64: the dq pass stores P and dS
+// there for the dk/dv pass. fout may be null; else it is B3's output for
+// these q, k, v, from a launch of diff3dhpe_grand_attn_fwd_f32 that wrote
+// its statistics into stats (2·B·H·n64 floats), and the dq pass starts from
+// them. Adds one to *launches for each kernel launched; returns the first
+// cudaError_t reported.
 extern "C" int diff3dhpe_grand_attn_bwd_f32(
-    const float* q, const float* k, const float* v, const float* dout, float* dq, float* dk,
-    float* dv, float* stats, int B, int H, int n,
+    const float* q, const float* k, const float* v, const float* dout, const float* fout,
+    const float* stats, float* dq, float* dk, float* dv, float* pds, int B, int H, int n, int d,
     long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long g_sb,
-    long long g_sh, long long g_sn, long long dq_sb, long long dq_sh, long long dq_sn,
-    long long dk_sb, long long dk_sh, long long dk_sn, long long dv_sb, long long dv_sh,
-    long long dv_sn, float scale, int* launches, void* stream_ptr) {
+    long long g_sh, long long g_sn, long long f_sb, long long f_sh, long long f_sn,
+    long long dq_sb, long long dq_sh, long long dq_sn, long long dk_sb, long long dk_sh,
+    long long dk_sn, long long dv_sb, long long dv_sh, long long dv_sn, float scale,
+    int* launches, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int warps = warps_for(n);
-  const dim3 grid(B, H);
-
-  size_t bytes = dq_smem_floats(n, warps) * sizeof(float);
-  cudaError_t err = allow_smem(grand_attn_bwd_dq_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  grand_attn_bwd_dq_kernel<<<grid, 32 * warps, bytes, stream>>>(
-      q, k, v, dout, dq, stats, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(g), STRIDES(dq), n,
-      scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ++*launches;
-
-  bytes = dkdv_smem_floats(n, warps) * sizeof(float);
-  if ((err = allow_smem(grand_attn_bwd_dkdv_kernel, bytes)) != cudaSuccess) return (int)err;
-  grand_attn_bwd_dkdv_kernel<<<grid, 32 * warps, bytes, stream>>>(
-      q, k, v, dout, stats, dk, dv, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(g),
-      STRIDES(dk), STRIDES(dv), n, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ++*launches;
-  return 0;
+  if (n <= 0 || n > kMaxN || !grand::f32_head_dim(d) || (fout != nullptr && stats == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define BWD_ARGS q, k, v, dout, fout, stats, dq, dk, dv, pds, STRIDES(q), STRIDES(k), STRIDES(v), \
+                 STRIDES(g), STRIDES(f), STRIDES(dq), STRIDES(dk), STRIDES(dv), B, H, n, scale, \
+                 launches, stream
+  const cudaError_t err = d == 64 ? launch_bwd<64>(BWD_ARGS) : launch_bwd<128>(BWD_ARGS);
+#undef BWD_ARGS
+  return (int)err;
 }
 
-// Head width and the most keys per group the kernels take; the wrappers
-// check both before launching.
-extern "C" int diff3dhpe_grand_head_dim() { return kHeadDim; }
+// 1 where the kernels take head width d in this dtype (bf16 != 0: B3's
+// bf16 kernel, d = 64; else the f32 kernels B3, B4 and B6, d = 64 or 128).
+extern "C" int diff3dhpe_grand_takes_head_dim(int d, int bf16) {
+  return bf16 ? d == grand::kHeadDim : grand::f32_head_dim(d);
+}
+// The most keys per group the kernels take; the wrappers check it.
 extern "C" int diff3dhpe_grand_max_n() { return kMaxN; }
 // The most keys per group B6 takes.
 extern "C" int diff3dhpe_grand_small_max_n() { return kSmallMaxN; }

@@ -61,18 +61,10 @@ namespace mma {
 
 using bf16 = __nv_bfloat16;
 
-// 16 bytes global -> shared, asynchronously; zero-filled where !pred (the
-// source is then not read, but must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// 16-byte asynchronous copies into shared memory (grand_attn.cuh).
+using grand::cp_async16;
+using grand::cp_async_commit;
+using grand::cp_async_wait;
 
 // Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
 // addresses of matrix i, and register i receives matrix i: lane l holds

@@ -24,6 +24,7 @@ from diff3dhpe_torch.engine.steps import make_denoise_fn, make_eval_step, make_f
 from diff3dhpe_torch.io.convert import state_dict_from_flax
 from diff3dhpe_torch.metrics import mean_velocity_error, mpjpe, n_mpjpe, p_mpjpe
 from diff3dhpe_torch.models import HPE_model
+from diff3dhpe_torch.ops.attention import HEAD_DIMS
 
 
 class RunLogger:
@@ -58,9 +59,12 @@ class RunLogger:
         self._write(self.results_path, text if text.endswith("\n") else text + "\n")
 
 
-def check_supported(cfg: Config) -> None:
+def check_supported(cfg: Config, device="cpu") -> None:
     """Raises ValueError, naming the field, for a configuration the JAX
-    package runs and the port does not yet."""
+    package runs and the port does not yet. On a CUDA ``device`` also for a
+    head width that the kernels of the configured path do not take: the
+    float32 kernels take head_dim 64 and 128, the bf16 ones (the mixed and
+    pure-bf16 ``fast_eval``) 64 only; the CPU runs every head width."""
     def refuse(field, why):
         raise ValueError(f"{field}={getattr(cfg, field)!r} is not ported: {why}")
 
@@ -81,6 +85,12 @@ def check_supported(cfg: Config) -> None:
     if cfg.eval_final_prec not in ("high3", "highest"):
         refuse("eval_final_prec", "the float32 kernels contract in exact float32 "
                "('high3' and 'highest' both mean that)")
+    if torch.device(device).type == "cuda" and (cfg.fast_eval or cfg.use_pallas_attention):
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        head_dim = cfg.embed_dim // cfg.num_heads
+        if head_dim not in HEAD_DIMS[dtype]:
+            refuse("num_heads", f"head_dim {head_dim} (embed_dim {cfg.embed_dim}): the CUDA "
+                   f"kernels of this path take head_dim {HEAD_DIMS[dtype]} at {dtype}")
 
 
 class Runner:
@@ -100,12 +110,12 @@ class Runner:
 
     def __init__(self, cfg: Config, num_joints: int, joints_left, joints_right,
                  logger: Optional[RunLogger] = None, device="cuda"):
-        check_supported(cfg)
+        self.device = resolve_device(device)
+        check_supported(cfg, self.device)
         self.cfg = cfg
         self.num_joints = num_joints
         self.joints_left = list(joints_left)
         self.joints_right = list(joints_right)
-        self.device = resolve_device(device)
         self.logger = logger or RunLogger(cfg.checkpoint, enabled=False)
 
         self._model_kw = dict(

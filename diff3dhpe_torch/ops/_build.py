@@ -62,28 +62,32 @@ SIGNATURES = {
             [_P] * 6 + [_I] * 4                # a, w, bias, res, rscale, out; M, N, K, epilogue
             + [ctypes.POINTER(_I), _P]         # launches, stream
         ),
-        "diff3dhpe_attn_head_dim": [],
+        "diff3dhpe_attn_takes_head_dim": [_I, _I],   # head_dim, bf16
         "diff3dhpe_attn_max_n": [],
     },
     "grand_attention": {
-        name: (
-            [_P] * 4 + [_I] * 3                # q, k, v, out; B, H, n
+        "diff3dhpe_grand_attn_fwd_f32": (
+            [_P] * 4 + [_I] * 4                # q, k, v, out; B, H, n, head_dim
+            + [_L] * 12                        # (b, h, n) strides of q, k, v, out
+            + [_F, _P, ctypes.POINTER(_I), _P]  # scale, B4's statistics or NULL, launches, stream
+        ),
+        "diff3dhpe_grand_attn_fwd_bf16": (
+            [_P] * 4 + [_I] * 4                # q, k, v, out; B, H, n, head_dim
             + [_L] * 12                        # (b, h, n) strides of q, k, v, out
             + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
-        )
-        for name in ("diff3dhpe_grand_attn_fwd_f32", "diff3dhpe_grand_attn_fwd_bf16")
-    } | {
+        ),
         "diff3dhpe_grand_attn_small_f32": (
-            [_P] * 4 + [_I] * 3                # q, k, v, out; B, H, n (n <= 64)
+            [_P] * 4 + [_I] * 4                # q, k, v, out; B, H, n (n <= 64), head_dim
             + [_L] * 12                        # (b, h, n) strides of q, k, v, out
             + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
         ),
         "diff3dhpe_grand_attn_bwd_f32": (
-            [_P] * 8 + [_I] * 3                # q, k, v, dO, dq, dk, dv, stats; B, H, n
-            + [_L] * 21                        # (b, h, n) strides of q, k, v, dO, dq, dk, dv
+            [_P] * 10 + [_I] * 4               # q, k, v, dO, B3's out and statistics or NULL,
+                                               # dq, dk, dv, P/dS scratch; B, H, n, head_dim
+            + [_L] * 24                        # (b, h, n) strides of q, k, v, dO, out, dq, dk, dv
             + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
         ),
-        "diff3dhpe_grand_head_dim": [],
+        "diff3dhpe_grand_takes_head_dim": [_I, _I],  # head_dim, bf16
         "diff3dhpe_grand_max_n": [],
         "diff3dhpe_grand_small_max_n": [],
     },

@@ -16,12 +16,13 @@ Port of ``diff3dhpe_tpu/ops/attention.py``:
 - ``grand_attention_trainable``: the same function with the hand-written
   backward, a ``torch.autograd.Function`` (JAX's custom VJP).
 
-The kernels take head_dim 64 and n <= 256 (B6: n <= 64) and read their
-operands through strides (unit stride on the head dim), so views of a qkv
-projection go in without a copy. B3 also takes bfloat16 (JAX's takes q's
-dtype): the tensor-core kernel of ``csrc/grand_attn_bf16.cuh``, which
-rounds P to bf16 after the normalisation and the output once, as
-``grand_attention_stored`` does. B4 and B6 are float32.
+The float32 kernels take head_dim 64 or 128 and n <= 256 (B6: n <= 64)
+and read their operands through strides (unit stride on the head dim), so
+views of a qkv projection go in without a copy. B3 also takes bfloat16 at
+head_dim 64 (JAX's takes q's dtype): the tensor-core kernel of
+``csrc/grand_attn_bf16.cuh``, which rounds P to bf16 after the
+normalisation and the output once, as ``grand_attention_stored`` does. B4
+and B6 are float32.
 """
 from __future__ import annotations
 
@@ -32,6 +33,9 @@ import torch
 # n at or below which the dispatcher sends a group to B6 and the trainable
 # backward stays on the plain formulas (JAX ops/attention.py:240, :401-402).
 SMALL_N = 64
+# Head widths the kernels take, by dtype (the library's
+# diff3dhpe_grand_takes_head_dim is what the wrappers ask).
+HEAD_DIMS = {torch.float32: (64, 128), torch.bfloat16: (64,)}
 
 
 def grand_attention(q, k, v, scale=None):
@@ -96,13 +100,19 @@ def grand_attention_fullseq(q, k, v, scale=None):
     _check_dtypes(q, k, v)
     if q.device.type == "cpu":
         return grand_attention_fullseq_ref(q, k, v, scale)
-    q4, k4, v4 = (_as4d(t) for t in (q, k, v))
-    out = _empty_like_heads(q4)
-    _launch_fwd(q4, k4, v4, out, scale)
-    return out.view(q.shape) if q.ndim == 3 else out
+    return _fullseq(q, k, v, scale)
 
 
 grand_attention_fullseq.launches = 0
+
+
+def _fullseq(q, k, v, scale, stats=None):
+    """B3 on CUDA tensors; ``stats``: B4's statistics (``_bwd_stats``) for B3
+    at float32 to fill with the rows' max and 1/sum, or None."""
+    q4, k4, v4 = (_as4d(t) for t in (q, k, v))
+    out = _empty_like_heads(q4)
+    _launch_fwd(q4, k4, v4, out, scale, stats=stats)
+    return out.view(q.shape) if q.ndim == 3 else out
 
 
 def packed_grand_attention(q, k, v, scale=None):
@@ -150,9 +160,16 @@ def grand_attention_bwd(q, k, v, do, scale=None):
     or raises."""
     if q.device.type == "cpu":
         return grand_attention_bwd_ref(q, k, v, do, scale)
+    return _bwd(q, k, v, do, scale)
+
+
+def _bwd(q, k, v, do, scale, fwd=None):
+    """B4 on a CUDA tensor; ``fwd``: (B3's output, its statistics) from the
+    trainable forward, or None."""
     q4, k4, v4, do4 = (_as4d(t) for t in (q, k, v, do))
     dq, dk, dv = (_empty_like_heads(q4) for _ in range(3))
-    _launch_bwd(q4, k4, v4, do4, dq, dk, dv, scale)
+    _launch_bwd(q4, k4, v4, do4, dq, dk, dv, scale,
+                None if fwd is None else (_as4d(fwd[0]), fwd[1]))
     if q.ndim == 3:
         return tuple(t.view(q.shape) for t in (dq, dk, dv))
     return dq, dk, dv
@@ -165,19 +182,27 @@ class _GrandAttentionTrainable(torch.autograd.Function):
     """Port of JAX's ``grand_attention_trainable`` custom VJP: the forward
     through ``fused_grand_attention`` (B6 or B3), the backward through B4
     for N > 64 and through the plain formulas for N <= 64 (JAX ``_gat_bwd``:
-    there is no small-N backward kernel)."""
+    there is no small-N backward kernel). On CUDA float32 with N > 64, B3
+    also keeps each row's softmax max and 1/sum, and B4 starts from them and
+    from B3's output instead of recomputing the forward (its first sweep)."""
 
     @staticmethod
     def forward(ctx, q, k, v):
+        if q.device.type == "cuda" and q.shape[-2] > SMALL_N and q.dtype == torch.float32:
+            _check_dtypes(q, k, v)
+            stats = _bwd_stats(_as4d(q))
+            out = _fullseq(q, k, v, None, stats)
+            ctx.save_for_backward(q, k, v, out, stats)
+            return out
         ctx.save_for_backward(q, k, v)
         return fused_grand_attention(q, k, v)
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
+        q, k, v, *fwd = ctx.saved_tensors
         if q.shape[-2] <= SMALL_N:
             return grand_attention_bwd_ref(q, k, v, do)
-        return grand_attention_bwd(q, k, v, do)
+        return _bwd(q, k, v, do, None, fwd) if fwd else grand_attention_bwd(q, k, v, do)
 
 
 def grand_attention_trainable(q, k, v):
@@ -226,9 +251,9 @@ def _strides(t):
     return [ctypes.c_longlong(s) for s in t.stride()[:3]]
 
 
-def _library(q, scale, small=False):
+def _library(q, scale, small=False, dtype=torch.float32):
     """The loaded library and the scale, after checking what the kernel
-    takes (B6's bound on n with ``small``)."""
+    takes at ``dtype`` (B6's bound on n with ``small``)."""
     from diff3dhpe_torch.ops._build import load_library
 
     if q.device.type != "cuda":
@@ -236,25 +261,39 @@ def _library(q, scale, small=False):
     lib = load_library("grand_attention")
     b, h, n, d = q.shape
     max_n = lib.diff3dhpe_grand_small_max_n() if small else lib.diff3dhpe_grand_max_n()
-    if d != lib.diff3dhpe_grand_head_dim() or not 0 < n <= max_n:
+    if not lib.diff3dhpe_grand_takes_head_dim(d, dtype == torch.bfloat16) or not 0 < n <= max_n:
         raise ValueError(
-            f"the CUDA kernel takes head_dim {lib.diff3dhpe_grand_head_dim()} and "
+            f"the CUDA kernel takes head_dim {HEAD_DIMS[dtype]} at {dtype} and "
             f"0 < n <= {max_n}, got head_dim {d} and n {n}"
         )
     return lib, d ** -0.5 if scale is None else float(scale)
 
 
-def _launch_fwd(q, k, v, out, scale, small=False):
-    """Launches B3 (in q's dtype), or B6 with ``small`` (float32 only), and
-    counts it on its wrapper."""
-    lib, scale = _library(q, scale, small)
-    dtype = torch.float32 if small else q.dtype
-    q, k, v = (_kernel_operand(t, q, dtype) for t in (q, k, v))
+def _n64(n):
+    return -(-n // 64) * 64
+
+
+def _bwd_stats(q):
+    """What B3 at float32 hands B4 for [B, H, N, D] operands: the rows'
+    softmax max and 1/sum, two planes of B·H·n64 rows (n rounded up to 64)."""
     b, h, n, _ = q.shape
+    return torch.empty((2, b * h * _n64(n)), device=q.device, dtype=torch.float32)
+
+
+def _launch_fwd(q, k, v, out, scale, small=False, stats=None):
+    """Launches B3 (in q's dtype), or B6 with ``small`` (float32 only), and
+    counts it on its wrapper. ``stats``: B4's statistics (``_bwd_stats``),
+    which B3 at float32 fills with the rows' max and 1/sum."""
+    dtype = torch.float32 if small else q.dtype
+    lib, scale = _library(q, scale, small, dtype)
+    q, k, v = (_kernel_operand(t, q, dtype) for t in (q, k, v))
+    b, h, n, d = q.shape
+    extra = []  # the f32 B3 entry point's statistics pointer
     if small:
         wrapper, fn = packed_grand_attention, lib.diff3dhpe_grand_attn_small_f32
     elif dtype == torch.float32:
         wrapper, fn = grand_attention_fullseq, lib.diff3dhpe_grand_attn_fwd_f32
+        extra = [None if stats is None else stats.data_ptr()]
     else:
         if not scale > 0:  # it takes the row max before it scales
             raise ValueError(f"the bf16 attention kernel takes a positive scale, got {scale}")
@@ -262,26 +301,33 @@ def _launch_fwd(q, k, v, out, scale, small=False):
     launched = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, d,
             *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-            scale, ctypes.byref(launched), torch.cuda.current_stream(q.device).cuda_stream,
+            scale, *extra, ctypes.byref(launched),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     wrapper.launches += launched.value
     if err:
         raise RuntimeError(f"{wrapper.__name__} kernel failed: cudaError_t {err}")
 
 
-def _launch_bwd(q, k, v, do, dq, dk, dv, scale):
+def _launch_bwd(q, k, v, do, dq, dk, dv, scale, fwd=None):
+    """Launches B4's two kernels; ``fwd``: (B3's output, the statistics its
+    launch wrote) or None. The dq pass hands P and dS to the dk/dv pass
+    through a scratch of two [B·H, n64, n64] planes."""
     lib, scale = _library(q, scale)
     q, k, v, do = (_kernel_operand(t, q) for t in (q, k, v, do))
-    b, h, n, _ = q.shape
-    stats = torch.empty((3, b * h * n), device=q.device, dtype=torch.float32)
+    b, h, n, d = q.shape
+    out, stats = (None, None) if fwd is None else fwd
+    pds = torch.empty((2, b * h, _n64(n), _n64(n)), device=q.device, dtype=torch.float32)
     launched = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         err = lib.diff3dhpe_grand_attn_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h, n,
+            None if out is None else out.data_ptr(), None if out is None else stats.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), pds.data_ptr(), b, h, n, d,
             *_strides(q), *_strides(k), *_strides(v), *_strides(do),
+            *(_strides(out) if out is not None else [ctypes.c_longlong(0)] * 3),
             *_strides(dq), *_strides(dk), *_strides(dv),
             scale, ctypes.byref(launched), torch.cuda.current_stream(q.device).cuda_stream,
         )

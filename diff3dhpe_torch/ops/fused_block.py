@@ -34,7 +34,7 @@ import ctypes
 import torch
 from torch.nn import functional as F
 
-from diff3dhpe_torch.ops.attention import grand_attention_stored
+from diff3dhpe_torch.ops.attention import HEAD_DIMS, grand_attention_stored
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -361,9 +361,10 @@ def _kernel_limits(lib, x, n, heads, widths):
     """Raises unless the block kernels take this head_dim, n and these GEMM
     widths at x's dtype."""
     d = x.shape[1] // heads
-    if d != lib.diff3dhpe_attn_head_dim() or n > lib.diff3dhpe_attn_max_n():
+    bf16 = x.dtype == torch.bfloat16
+    if not lib.diff3dhpe_attn_takes_head_dim(d, bf16) or n > lib.diff3dhpe_attn_max_n():
         raise ValueError(
-            f"the CUDA kernel takes head_dim {lib.diff3dhpe_attn_head_dim()} and "
+            f"the CUDA kernel takes head_dim {HEAD_DIMS[x.dtype]} at {x.dtype} and "
             f"n <= {lib.diff3dhpe_attn_max_n()}, got head_dim {d} and n {n}"
         )
     step = 8 if x.dtype == torch.float32 else 32  # the bf16 GEMM takes K in steps of 32

@@ -31,9 +31,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _model(device, num_frame=27, embed_dim=C, **kw):
+def _model(device, num_frame=27, embed_dim=C, head_dim=64, **kw):
     model = MixSTEDenoiser(num_frame=num_frame, embed_dim=embed_dim, depth=1,
-                           num_heads=embed_dim // 64, device="cpu", **kw)
+                           num_heads=embed_dim // head_dim, device="cpu", **kw)
     g = np.random.default_rng(0)
     with torch.no_grad():  # non-trivial LayerNorms and position embeddings
         for name, p in model.named_parameters():
@@ -65,6 +65,28 @@ def test_block_kernel_matches_ref(cuda_device, n, n_pad, groups, with_t, with_ou
     assert fused_transformer_block.launches - before == (8 if with_out_ln else 7)
     real = lambda a: a.reshape(groups, n_pad, c)[:, :n]
     torch.testing.assert_close(real(out), real(ref), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_pad,groups", [(17, 17, 40), (243, 243, 4), (27, 32, 12),
+                                            (200, 256, 2)])
+def test_block_kernel_at_head_dim_128_matches_ref(cuda_device, n, n_pad, groups):
+    """B1 at f32 with head_dim 128 (C = 256, 2 heads); at bf16 the
+    tensor-core attention takes head_dim 64 only and the wrapper says so."""
+    c = 256
+    model = _model(cuda_device, embed_dim=c, head_dim=128)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 3)
+    x = torch.randn(groups * n_pad, c, generator=gen, device=cuda_device)
+    dp = (torch.rand(groups * n_pad, 2, generator=gen, device=cuda_device) < 0.7) / 0.7
+    kw = dict(n_pad=n_pad, t_rows=torch.randn(2, c, generator=gen, device=cuda_device),
+              rows_per_item=groups * n_pad // 2, out_ln=model.Spatial_norm, dp_scales=dp.float())
+    with torch.no_grad():
+        out = fused_transformer_block(x, model.STEblocks[0], n, 2, **kw)
+        ref = fused_transformer_block_ref(x, model.STEblocks[0], n, 2, **kw)
+        real = lambda a: a.reshape(groups, n_pad, c)[:, :n]
+        torch.testing.assert_close(real(out), real(ref), rtol=2e-4, atol=2e-5)
+        with pytest.raises(ValueError, match="head_dim"):
+            fused_transformer_block(x.bfloat16(), model.STEblocks[0], n, 2, **kw)
 
 
 @pytest.mark.cuda
@@ -138,11 +160,11 @@ def test_cols_kernel_matches_ref(cuda_device, dtype, b, f, j):
         assert_bf16_close(out, ref)
 
 
-def _qkv_views(device, b, h, n, seed, dtype=torch.float32):
-    """q, k, v [b, h, n, 64] as strided views of one [b, n, 3, h, 64]
+def _qkv_views(device, b, h, n, seed, dtype=torch.float32, d=64):
+    """q, k, v [b, h, n, d] as strided views of one [b, n, 3, h, d]
     projection, the layout the trainable attention hands to the kernels."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    qkv = torch.randn(b, n, 3, h, 64, generator=gen, device=device).to(dtype)
+    qkv = torch.randn(b, n, 3, h, d, generator=gen, device=device).to(dtype)
     return qkv.permute(2, 0, 3, 1, 4), gen
 
 
@@ -170,6 +192,38 @@ def test_attention_bwd_matches_ref(cuda_device, n):
     assert grand_attention_bwd.launches - before == 2
     for a, b in zip(got, grand_attention_bwd_ref(q, k, v, do)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n", [17, 31, 64, 200, 243, 256])
+def test_f32_attention_kernels_at_both_head_widths(cuda_device, d, n):
+    """B3, B4 and (n <= 64) B6 at head_dim 64 and 128 on strided qkv views
+    (dO and the outputs laid out [B, N, H, d]) against their plain versions."""
+    (q, k, v), gen = _qkv_views(cuda_device, 3, 2, n, n + d, d=d)
+    do = torch.randn(3, n, 2, d, generator=gen, device=cuda_device).transpose(1, 2)
+    counters = (grand_attention_fullseq, grand_attention_bwd, packed_grand_attention)
+    before = [c.launches for c in counters]
+    out = grand_attention_fullseq(q, k, v)
+    torch.testing.assert_close(out, grand_attention_fullseq_ref(q, k, v), rtol=1e-5, atol=1e-5)
+    for a, b in zip(grand_attention_bwd(q, k, v, do), grand_attention_bwd_ref(q, k, v, do)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    if n <= 64:
+        torch.testing.assert_close(packed_grand_attention(q, k, v),
+                                   packed_grand_attention_ref(q, k, v), rtol=1e-5, atol=1e-5)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 2, int(n <= 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_bwd_is_deterministic(cuda_device, d):
+    """B4 writes every gradient element from one thread, with no atomics:
+    two calls on the same inputs give the same bits."""
+    (q, k, v), gen = _qkv_views(cuda_device, 4, 3, 243, d, d=d)
+    do = torch.randn(4, 243, 3, d, generator=gen, device=cuda_device).transpose(1, 2)
+    first = grand_attention_bwd(q, k, v, do)
+    for a, b in zip(first, grand_attention_bwd(q, k, v, do)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -206,6 +260,9 @@ def test_dispatcher_picks_the_kernel_by_n(cuda_device):
         packed_grand_attention(*(t[:, :, :17].bfloat16() for t in (q, k, v)))
     with pytest.raises(ValueError, match="all be float32 or all bfloat16"):
         fused_grand_attention(q.bfloat16(), k, v)
+    (q, k, v), _ = _qkv_views(cuda_device, 2, 2, 243, 0, torch.bfloat16, d=128)
+    with pytest.raises(ValueError, match="head_dim"):  # the bf16 kernel takes 64 only
+        grand_attention_fullseq(q, k, v)
 
 
 @pytest.mark.cuda
@@ -300,11 +357,12 @@ def test_use_pallas_model_runs_through_the_attention_kernels(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("n", [17, 243])
-def test_trainable_attention_grads(cuda_device, n):
-    (q, k, v), gen = _qkv_views(cuda_device, 2, 2, n, 7)
+def test_trainable_attention_grads(cuda_device, n, d):
+    (q, k, v), gen = _qkv_views(cuda_device, 2, 2, n, 7, d=d)
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-    do = torch.randn(2, 2, n, 64, generator=gen, device=cuda_device)
+    do = torch.randn(2, 2, n, d, generator=gen, device=cuda_device)
     got = torch.autograd.grad(grand_attention_trainable(q, k, v), (q, k, v), do)
     ref = torch.autograd.grad(grand_attention_fullseq_ref(q, k, v), (q, k, v), do)
     for a, b in zip(got, ref):
@@ -404,3 +462,20 @@ def test_cols_forward_equals_rows(cuda_device, dtype):
     rows, cols = (fast_forward_denoise(model, x, t, dtype=dtype, temporal_mode=m)
                   for m in ("rows", "cols"))
     torch.testing.assert_close(cols, rows, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [27, 81])
+def test_cols_forward_equals_rows_at_head_dim_128(cuda_device, frames):
+    """The same at f32 with head_dim 128 (C = 256, 2 heads), through the
+    small-group kernel (27 frames) and the tiled one (81), and the forward
+    against the plain module."""
+    model = _model(cuda_device, num_frame=frames, embed_dim=256, head_dim=128)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn(2, frames, 17, 5, generator=gen, device=cuda_device)
+    t = torch.tensor([3.0, 700.0], device=cuda_device)
+    with torch.no_grad():
+        rows, cols = (fast_forward_denoise(model, x, t, temporal_mode=m) for m in ("rows", "cols"))
+        plain = model(x, t)
+    torch.testing.assert_close(cols, rows, rtol=0, atol=0)
+    torch.testing.assert_close(rows, plain, rtol=2e-4, atol=2e-5)
