@@ -23,29 +23,37 @@ the port's seeded init:
          configs/h36m_gt_s2s_243f.json at DDIM-9 with batch 2: the plain
          module, the module with "use_pallas_attention" (B6 for the joints,
          B3 for the frames), --fast-eval at f32, the mixed mode and pure
-         bf16, each printing the per-action report.
+         bf16, each printing the per-action report; then the file of the
+         TPU-recommended config, configs/h36m_gt_s2s_243f_tpu.json (4 heads
+         of head_dim 128, the mixed mode, remat, DDIM-5), on 4-head weights,
+         held against the same file run as the plain module and as pure
+         bf16.
 
 Any failed check raises and the script exits non-zero.
 
 Output: one line per phase (1 build; 2 B1 vs plain, with drop-path too,
 at the eval and the train step's row counts, and at f32 with 4 heads of
-head_dim 128 at both eval shapes; 2b B1 at bf16 vs plain; 2c
-B2 vs plain at f32 (with drop-path also at the train step's rows) and
-bf16; 2d the bf16 GEMM alone at the block's four products; 3 full-width
-forward; 4 the f32 eval step; 5 its profile; 4b the
-mixed eval step in rows and cols, and the pure-bf16 one; 5b the mixed rows
-step's profile; 6 B3 and B4 vs plain at the train shape with 8 heads
-(d = 64) and 4 heads (d = 128), B4 twice with the same bits; 6b B3 at bf16
-(the tensor-core attention kernel alone) at both eval shapes; 7a the train
-step's loss, gradients and launches vs the plain module at B=4, with 8
-heads and with 4; 7b three timed AdamW steps at B=24; 7c their profile; 8
-B6 vs plain at the eval shape as qkv views and contiguous, at n = 64, n =
-27 and with 4 heads of head_dim 128; 9 B5 vs plain at
-both eval shapes, f32 and bf16, and its launches as an op; 10 the evaluate
-entry point in its configurations; 10b the profile of one eval step of
-the use_pallas module); then a JSON line with every kernel's numbers; the last line is {"ok": true, "device": {...}}. Exits
-non-zero without a CUDA device, and where the port's package is not
-beside this script.
+head_dim 128 at both eval shapes; 2b B1 at bf16 vs plain, with 8 heads and
+with 4; 2c B2 vs plain at f32 (with drop-path also at the train step's
+rows) and bf16, with 8 heads and with 4; 2d the bf16 GEMM alone at the
+block's four products; 2e the f32 GEMM alone at the block's four products, at the eval and the train
+step's row counts; 2f the LayerNorm alone, f32 and bf16, with and without
+the time add; 3 full-width forward; 4 the f32 eval step; 5 its profile; 4b
+the mixed eval step in rows and cols, and the pure-bf16 one, then the
+mixed rows and pure-bf16 evals of a 4-head model; 5b the mixed rows step's
+profile; 6 B3 and B4 vs plain at the train shape with 8 heads (d = 64)
+and 4 heads (d = 128), B4 twice with the same bits; 6b B3 at bf16 (the
+tensor-core attention kernel alone) at both eval shapes, d = 64 and 128;
+7a the train step's loss, gradients and launches vs the plain module at
+B=4, with 8 heads and with 4; 7b three timed AdamW steps at B=24; 7c their
+profile; 8 B6 vs plain at the eval shape as qkv views and contiguous, at n
+= 64, n = 27 and with 4 heads of head_dim 128; 9 B5 vs plain at both eval
+shapes, f32 and bf16 (also at head_dim 128), and its launches as an op; 10
+the evaluate entry point in its configurations; 10b the profile of one
+eval step of the use_pallas module); then a JSON line with every kernel's
+numbers; the last line is {"ok": true, "device": {...}}. Exits non-zero
+without a CUDA device, and where the port's package is not beside this
+script.
 """
 import contextlib
 import copy
@@ -88,9 +96,13 @@ LOSS_REL_TOL, GRAD_REL_TOL = 1e-5, 1e-3
 # flip single bf16 roundings (2^-8 relative each).
 BF16_MAX_TOL, BF16_MEAN_TOL = 1e-2, 1e-3
 COLS_VS_ROWS_BOUND = 1e-3  # the mixed eval in the two layouts, absolute
+# The f32 GEMM alone vs F.linear in f32, relative to max|plain|: both sum
+# K <= 1024 products of order 1 exactly in f32, in other orders.
+GEMM_F32_REL_TOL = 1e-5
 SMALL_ATTN_ABS_TOL = 1e-5  # B6 vs its plain version, absolute (outputs of order 1)
 ATTN_BLOCK_ABS_TOL = 1e-5  # B5 at f32 vs its plain version, absolute, beside KERNEL_REL_TOL
 CLI_CONFIG = "configs/h36m_gt_s2s_243f.json"
+TPU_CONFIG = "configs/h36m_gt_s2s_243f_tpu.json"  # 4 heads, mixed, remat: the TPU-recommended
 # The mixed eval is held against the pure-bf16 one by their mean per-joint
 # position error (the repo's MPJPE, in normalised units) from the plain f32
 # eval: on this untrained net each forward carries bf16 rounding on to a
@@ -125,8 +137,11 @@ def ptxas_summary(log):
 
 
 def kernel_label(sym):
-    """The kernel's name and integer template arguments from an Itanium-
-    mangled symbol (the symbol itself where no '...kernel' name is found)."""
+    """The kernel's name and template arguments (integers, bools, float /
+    bf16, also those of a class argument) from an Itanium-mangled symbol
+    (the symbol itself where no '...kernel' name is found)."""
+    import re
+
     i = 0
     while i < len(sym):
         digits = len(sym[i:]) - len(sym[i:].lstrip("0123456789"))
@@ -139,10 +154,9 @@ def kernel_label(sym):
             rest = sym[j + n:]
             args = []
             if rest.startswith("I"):
-                for part in rest[1:].split("E"):
-                    if part[:1] != "L" or not part[2:].isdigit():
-                        break
-                    args.append(part[2:])
+                region = rest[:rest.find("Ev")] if "Ev" in rest else rest
+                for m in re.finditer(r"L[ib](\d+)E|13__nv_bfloat16|I(f)", region):
+                    args.append(m.group(1) or ("float" if m.group(2) else "bf16"))
             return f"{ident}<{','.join(args)}>"
         i = j + max(n, 1)
     return sym
@@ -169,6 +183,27 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, tries=3):
+    """Mean device time of fn() in ms: the sum of every kernel's own device
+    time over `iters` calls, from the profiler. Unlike cuda_ms it leaves out
+    the host's time between launches, which a short kernel called through
+    Python does not hide. A profile that records no kernel is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / iters
+    check(False, "the profiler saw no device time")
 
 
 def profile_step(label, fn, top_n=10):
@@ -306,7 +341,9 @@ def main():
     from diff3dhpe_torch.models.mixste import Block, init_weights
     from diff3dhpe_torch.ops._build import SOURCES, build_all
     from diff3dhpe_torch.ops.attention import _bwd, _bwd_stats, _fullseq
-    from diff3dhpe_torch.ops.fused_block import _gemm_bf16, _gemm_bf16_ref
+    from diff3dhpe_torch.ops.fused_block import (
+        _gemm_bf16, _gemm_bf16_ref, _gemm_f32, _gemm_f32_ref, layer_norm_rows, layer_norm_rows_ref,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -328,6 +365,21 @@ def main():
     randn = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device=dev) * scale
     rows = 2 * BATCH * FRAMES * JOINTS
     hidden = int(EMBED * MLP_RATIO)
+
+    # The f32 GEMM and the LayerNorm run inside B1, B2 and B5, whose
+    # wrappers count their launches by kind (csrc/fused_block.cu,
+    # LaunchCount). Each driven path sets these counts to 0 with the
+    # others and records them after its run in inner_by_path.
+    blocks = (fused_transformer_block, fused_temporal_block_cols, fused_attention_block)
+    inner_by_path = {}
+
+    def zero_inner():
+        for b in blocks:
+            b.launches_gemm_f32 = b.launches_ln = 0
+
+    def inner():
+        return {"gemm_f32": sum(b.launches_gemm_f32 for b in blocks),
+                "layer_norm": sum(b.launches_ln for b in blocks)}
 
     # Phase 2: the block kernel against its plain version at both main-path shapes.
     per_shape = {}
@@ -425,16 +477,20 @@ def main():
                 f"bound_ms={max(flops / peak_flops, nbytes / mem_rate) * 1e3:.4f}")
             del block, out_ln, x, dp
 
-    def timings(run, plain, lib, flops, nbytes, peak):
-        ms, plain_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(lib)
+    def timings(run, plain, lib, flops, nbytes, peak, timer=cuda_ms):
+        """The kernel's, the plain version's and the library's times, all
+        three by `timer`: CUDA events around a loop of calls, or the
+        profiler's device time where a kernel is shorter than the host's
+        time between calls."""
+        ms, plain_ms, lib_ms = timer(run), timer(plain), timer(lib)
         by_ops = flops / peak >= nbytes / mem_rate
         return dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, flops=flops, bytes=nbytes,
                     bound_ms=max(flops / peak, nbytes / mem_rate) * 1e3,
                     bound_by="operations" if by_ops else "bytes")
 
-    def make_block(seed):
+    def make_block(seed, heads=HEADS):
         """A block and an out-LN with random weights and non-trivial LNs."""
-        block = Block(EMBED, HEADS, MLP_RATIO, qkv_bias=True)
+        block = Block(EMBED, heads, MLP_RATIO, qkv_bias=True)
         init_weights(block, torch.Generator().manual_seed(seed))
         block = block.to(dev)
         out_ln = torch.nn.LayerNorm(EMBED, eps=1e-6).to(dev)
@@ -455,63 +511,71 @@ def main():
 
     # Phase 2b: B1 at bf16 against its plain version at both eval shapes,
     # with the time add and the out-LN; weights made bf16 once (as the bf16
-    # denoise_fn's snapshot holds them). The library yardstick is the same
-    # block in bf16 from F.layer_norm/F.linear/SDPA.
-    per_shape_bf16 = {}
+    # denoise_fn's snapshot holds them); with 8 heads and with 4 (head_dim
+    # 128, the tensor-core attention's second instance). The library
+    # yardstick is the same block in bf16 from F.layer_norm/F.linear/SDPA.
+    per_shape_bf16, per_shape_bf16_hd128 = {}, {}
     with torch.no_grad():
-        for shape, n in (("spatial", JOINTS), ("temporal", FRAMES)):
-            block, out_ln = make_block(1)
-            block_bf = copy.deepcopy(block)
-            for m in (block_bf.attn.qkv, block_bf.attn.proj, block_bf.mlp.fc1, block_bf.mlp.fc2):
-                m.weight.data = m.weight.data.bfloat16()
-            block_lib, out_ln_lib = copy.deepcopy(block).bfloat16(), copy.deepcopy(out_ln).bfloat16()
-            x = randn(rows, EMBED).bfloat16()
-            t_rows = randn(2 * BATCH, EMBED, scale=0.5).bfloat16()
-            kw = dict(t_rows=t_rows, rows_per_item=rows // (2 * BATCH), out_ln=out_ln)
-            run = lambda: fused_transformer_block(x, block_bf, n, HEADS, **kw)
-            plain = lambda: fused_transformer_block_ref(x, block_bf, n, HEADS, **kw)
-            lib = lambda: library_block(x, block_lib, n, HEADS, t_rows, rows // (2 * BATCH),
-                                        out_ln_lib)
-            abs_err, rel, mean_rel = check_bf16(f"{shape} bf16 kernel", run(), plain())
-            lib_abs, _, _ = bf16_errs(lib(), plain())
-            t = timings(run, plain, lib, *block_work(rows, n, EMBED, hidden, 2 * BATCH, 2),
-                        peak_bf16)
-            per_shape_bf16[shape] = dict(abs_err=abs_err, **t)
-            say(f"phase 2b fused_transformer_block bf16 {shape}: R={rows} n={n} "
-                f"max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} (tol {BF16_MAX_TOL}) "
-                f"mean_rel_err={mean_rel:.3e} (tol {BF16_MEAN_TOL}) ms={t['ms']:.4f} "
-                f"plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} "
-                f"(library vs plain max_abs {lib_abs:.3e}) bound_ms={t['bound_ms']:.4f} "
-                f"({t['bound_by']}) achieved_TFLOPs={t['flops'] / t['ms'] / 1e9:.2f}")
-            del block, block_bf, block_lib, out_ln, out_ln_lib, x
+        for heads, results in ((HEADS, per_shape_bf16), (HEADS4, per_shape_bf16_hd128)):
+            for shape, n in (("spatial", JOINTS), ("temporal", FRAMES)):
+                block, out_ln = make_block(1, heads)
+                block_bf = copy.deepcopy(block)
+                for m in (block_bf.attn.qkv, block_bf.attn.proj, block_bf.mlp.fc1,
+                          block_bf.mlp.fc2):
+                    m.weight.data = m.weight.data.bfloat16()
+                block_lib = copy.deepcopy(block).bfloat16()
+                out_ln_lib = copy.deepcopy(out_ln).bfloat16()
+                x = randn(rows, EMBED).bfloat16()
+                t_rows = randn(2 * BATCH, EMBED, scale=0.5).bfloat16()
+                kw = dict(t_rows=t_rows, rows_per_item=rows // (2 * BATCH), out_ln=out_ln)
+                run = lambda: fused_transformer_block(x, block_bf, n, heads, **kw)
+                plain = lambda: fused_transformer_block_ref(x, block_bf, n, heads, **kw)
+                lib = lambda: library_block(x, block_lib, n, heads, t_rows, rows // (2 * BATCH),
+                                            out_ln_lib)
+                label = f"{shape} bf16 kernel head_dim {EMBED // heads}"
+                abs_err, rel, mean_rel = check_bf16(label, run(), plain())
+                lib_abs, _, _ = bf16_errs(lib(), plain())
+                t = timings(run, plain, lib, *block_work(rows, n, EMBED, hidden, 2 * BATCH, 2),
+                            peak_bf16)
+                results[shape] = dict(abs_err=abs_err, **t)
+                say(f"phase 2b fused_transformer_block bf16 {shape} heads={heads} "
+                    f"(head_dim {EMBED // heads}): R={rows} n={n} "
+                    f"max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} (tol {BF16_MAX_TOL}) "
+                    f"mean_rel_err={mean_rel:.3e} (tol {BF16_MEAN_TOL}) ms={t['ms']:.4f} "
+                    f"plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} "
+                    f"(library vs plain max_abs {lib_abs:.3e}) bound_ms={t['bound_ms']:.4f} "
+                    f"({t['bound_by']}) achieved_TFLOPs={t['flops'] / t['ms'] / 1e9:.2f}")
+                del block, block_bf, block_lib, out_ln, out_ln_lib, x
 
     # Phase 2c: B2 against its plain version at the eval shape, x [B*F, J*C]
     # with per-sample time rows, the out-LN and per-group drop-path, at f32
-    # and bf16; then at f32 at the train step's R = 24·243·17 rows.
+    # and bf16 (8 heads, and 4 of head_dim 128); then at f32 at the train
+    # step's R = 24·243·17 rows.
     cols_res = {}
     with torch.no_grad():
         block, out_ln = make_block(2)
         items = 2 * BATCH
-        for dt in (torch.float32, torch.bfloat16):
-            blk, oln = block, out_ln
+        for name, dt, heads in (("f32", torch.float32, HEADS), ("bf16", torch.bfloat16, HEADS),
+                                ("bf16_d128", torch.bfloat16, HEADS4)):
+            base, oln = (block, out_ln) if heads == HEADS else make_block(6, heads)
+            blk = base
             if dt == torch.bfloat16:
-                blk = copy.deepcopy(block)
+                blk = copy.deepcopy(base)
                 for m in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
                     m.weight.data = m.weight.data.bfloat16()
-            lib_blk, lib_oln = copy.deepcopy(block).to(dt), copy.deepcopy(out_ln).to(dt)
+            lib_blk, lib_oln = copy.deepcopy(base).to(dt), copy.deepcopy(oln).to(dt)
             x = randn(items * FRAMES, JOINTS * EMBED).to(dt)
             t_rows = randn(items, EMBED, scale=0.5).to(dt)
             dp = (torch.rand(items * JOINTS, 2, generator=gen, device=dev) < 0.9).float() / 0.9
             kw = dict(t_rows=t_rows, out_ln=oln)
-            run = lambda: fused_temporal_block_cols(x, blk, FRAMES, JOINTS, HEADS, **kw)
-            plain = lambda: fused_temporal_block_cols_ref(x, blk, FRAMES, JOINTS, HEADS, **kw)
-            lib = lambda: library_cols(x, lib_blk, FRAMES, JOINTS, HEADS, t_rows, lib_oln)
+            run = lambda: fused_temporal_block_cols(x, blk, FRAMES, JOINTS, heads, **kw)
+            plain = lambda: fused_temporal_block_cols_ref(x, blk, FRAMES, JOINTS, heads, **kw)
+            lib = lambda: library_cols(x, lib_blk, FRAMES, JOINTS, heads, t_rows, lib_oln)
             out, ref = run(), plain()
-            out_dp = fused_temporal_block_cols(x, blk, FRAMES, JOINTS, HEADS, dp_scales=dp, **kw)
-            ref_dp = fused_temporal_block_cols_ref(x, blk, FRAMES, JOINTS, HEADS, dp_scales=dp,
+            out_dp = fused_temporal_block_cols(x, blk, FRAMES, JOINTS, heads, dp_scales=dp, **kw)
+            ref_dp = fused_temporal_block_cols_ref(x, blk, FRAMES, JOINTS, heads, dp_scales=dp,
                                                    **kw)
             torch.cuda.synchronize()
-            name = "f32" if dt == torch.float32 else "bf16"
             if dt == torch.float32:
                 abs_err, rel = rel_err(out, ref)
                 dp_abs, dp_rel = rel_err(out_dp, ref_dp)
@@ -520,8 +584,8 @@ def main():
                       f"B2 f32 rel err {max(rel, dp_rel):.3e} > {KERNEL_REL_TOL}")
                 errs = f"rel_err={rel:.3e} drop-path rel_err={dp_rel:.3e} (tol {KERNEL_REL_TOL})"
             else:
-                abs_err, rel, mean_rel = check_bf16("B2 bf16", out, ref)
-                dp_abs, dp_rel, dp_mean = check_bf16("B2 bf16 with drop-path", out_dp, ref_dp)
+                abs_err, rel, mean_rel = check_bf16(f"B2 {name}", out, ref)
+                dp_abs, dp_rel, dp_mean = check_bf16(f"B2 {name} with drop-path", out_dp, ref_dp)
                 errs = (f"max_rel_err={rel:.3e} mean_rel_err={mean_rel:.3e} drop-path "
                         f"max_rel_err={dp_rel:.3e} mean_rel_err={dp_mean:.3e} "
                         f"(tol {BF16_MAX_TOL}, {BF16_MEAN_TOL})")
@@ -531,7 +595,7 @@ def main():
                         peak_flops if dt == torch.float32 else peak_bf16)
             cols_res[name] = dict(abs_err=max(abs_err, dp_abs), **t)
             say(f"phase 2c fused_temporal_block_cols {name}: x=[{items}*{FRAMES}, "
-                f"{JOINTS}*{EMBED}] max_abs_err={max(abs_err, dp_abs):.3e} {errs} "
+                f"{JOINTS}*{EMBED}] heads={heads} max_abs_err={max(abs_err, dp_abs):.3e} {errs} "
                 f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} "
                 f"(library vs plain max_abs {lib_abs:.3e}) bound_ms={t['bound_ms']:.4f} "
                 f"({t['bound_by']}) achieved_TFLOPs={t['flops'] / t['ms'] / 1e9:.2f}")
@@ -594,6 +658,127 @@ def main():
         f"F.linear {sum(g['library_ms'] for g in gemms):.4f} ms")
     torch.cuda.empty_cache()
 
+    # Phase 2e: the f32 GEMM of the block kernels alone (exact f32 FMAs on
+    # the CUDA cores), at the four products of an f32 block call with their
+    # epilogues, at the eval step's R rows and the train step's. The library
+    # yardstick is one torch.matmul family call in f32 with TF32 off plus
+    # the epilogue (torch.addmm for the bias, F.gelu after it, and
+    # torch.addmm into the residual for the residual products). Bound:
+    # 2·M·N·K FLOPs at the f32 FMA rate against A, W, the bias, the
+    # residual and the output moved once.
+    gemms_f32 = {}
+    with torch.no_grad():
+        for m_rows in (rows, TRAIN_BATCH * FRAMES * JOINTS):
+            products = []
+            for label, n_out, k_in, epilogue in (("qkv", 3 * EMBED, EMBED, "bias"),
+                                                 ("proj", EMBED, EMBED, "residual"),
+                                                 ("fc1", hidden, EMBED, "gelu"),
+                                                 ("fc2", EMBED, hidden, "residual")):
+                a = randn(m_rows, k_in)
+                w = randn(n_out, k_in, scale=k_in ** -0.5)
+                bias = randn(n_out)
+                res = rscale = None
+                if epilogue == "residual":
+                    res = randn(m_rows, n_out)
+                    rscale = (torch.rand(m_rows, 2, generator=gen, device=dev) < 0.9).float() / 0.9
+                run = lambda: _gemm_f32(a, w, bias, epilogue, res, rscale)
+                plain = lambda: _gemm_f32_ref(a, w, bias, epilogue, res, rscale)
+                if epilogue == "residual":
+                    s_col = rscale[:, 0:1]
+                    lib = lambda: res + s_col * torch.addmm(bias, a, w.t())
+                elif epilogue == "gelu":
+                    lib = lambda: F.gelu(torch.addmm(bias, a, w.t()))
+                else:
+                    lib = lambda: torch.addmm(bias, a, w.t())
+                out, ref = run(), plain()
+                abs_err, rel = rel_err(out, ref)
+                lib_abs, _ = rel_err(lib(), ref)
+                check(torch.isfinite(out).all().item() and rel <= GEMM_F32_REL_TOL,
+                      f"f32 GEMM {label} at M={m_rows}: rel err {rel:.3e} > {GEMM_F32_REL_TOL}")
+                flops = 2 * m_rows * n_out * k_in
+                nbytes = 4 * (m_rows * k_in + n_out * k_in + n_out
+                              + m_rows * n_out * (1 if res is None else 2)
+                              + (0 if rscale is None else 2 * m_rows))
+                t = timings(run, plain, lib, flops, nbytes, peak_flops)
+                products.append(dict(name=label, M=m_rows, N=n_out, K=k_in, epilogue=epilogue,
+                                     max_abs_err=abs_err, ms=t["ms"], plain_ms=t["plain_ms"],
+                                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                                     library_ms=t["lib_ms"]))
+                say(f"phase 2e f32 GEMM {label}: M={m_rows} N={n_out} K={k_in} "
+                    f"epilogue={epilogue} max_abs_err={abs_err:.3e} rel_err={rel:.3e} "
+                    f"(tol {GEMM_F32_REL_TOL}) ms={t['ms']:.4f} "
+                    f"TFLOPs={flops / t['ms'] / 1e9:.2f} (of {peak_flops / 1e12:.0f}) "
+                    f"plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} "
+                    f"({flops / t['lib_ms'] / 1e9:.2f} TFLOP/s; library vs plain max_abs "
+                    f"{lib_abs:.3e}) bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
+                del a, w, res, rscale, out, ref
+            tot = lambda key: sum(g[key] for g in products)
+            flops = sum(2 * g["M"] * g["N"] * g["K"] for g in products)
+            gemms_f32[m_rows] = products
+            say(f"phase 2e f32 GEMM: the four products of a block at M={m_rows} "
+                f"{tot('ms'):.4f} ms ({flops / tot('ms') / 1e9:.2f} TFLOP/s), library "
+                f"{tot('library_ms'):.4f} ms, bound {tot('bound_ms'):.4f} ms "
+                f"({flops / 1e9:.2f} GFLOP at {peak_flops / 1e12:.0f} TFLOP/s)")
+    torch.cuda.empty_cache()
+
+    # Phase 2f: the LayerNorm of the block kernels alone at R rows of C, f32
+    # and bf16, with and without the time add (which also writes xs), against
+    # its plain version and F.layer_norm in the same dtype (the library
+    # yardstick; it does no time add). Bound: x (and t) read once, y (and
+    # xs) written once, at the card's memory rate. All three are timed by
+    # the profiler's device time (one call through the Python wrapper takes
+    # longer on the host than the kernel on the card), each call on the
+    # next of LN_COPIES copies of x, so that x comes from device memory as
+    # on the main path, not from the 50 MB L2 that one 34 MB input fits.
+    LN_COPIES = 6
+    layer_norms = []
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            for with_t in (False, True):
+                x = (randn(rows, EMBED, scale=2.0) + 0.5).to(dt)
+                copies, turn = [x] + [x.clone() for _ in range(LN_COPIES - 1)], [0]
+
+                def next_x():
+                    turn[0] += 1
+                    return copies[turn[0] % LN_COPIES]
+
+                w_ln, b_ln = 1.0 + randn(EMBED, scale=0.2), randn(EMBED, scale=0.2)
+                kw = dict(t_rows=randn(2 * BATCH, EMBED), rows_per_item=rows // (2 * BATCH)) \
+                    if with_t else {}
+                run = lambda: layer_norm_rows(next_x(), w_ln, b_ln, 1e-6, **kw)
+                plain = lambda: layer_norm_rows_ref(next_x(), w_ln, b_ln, 1e-6, **kw)
+                w_lib, b_lib = w_ln.to(dt), b_ln.to(dt)
+                lib = lambda: F.layer_norm(next_x(), (EMBED,), w_lib, b_lib, 1e-6)
+                (y, xs), (y_ref, xs_ref) = run(), plain()
+                check(torch.equal(xs, xs_ref), f"LN {dt} time add: xs differs from the plain")
+                name = "f32" if dt == torch.float32 else "bf16"
+                if dt == torch.float32:
+                    abs_err, rel = rel_err(y, y_ref)
+                    check(rel <= KERNEL_REL_TOL, f"LN f32 rel err {rel:.3e} > {KERNEL_REL_TOL}")
+                    errs = f"rel_err={rel:.3e} (tol {KERNEL_REL_TOL})"
+                else:
+                    abs_err, rel, mean_rel = check_bf16(f"LN bf16 t={with_t}", y, y_ref)
+                    errs = (f"max_rel_err={rel:.3e} (tol {BF16_MAX_TOL}) "
+                            f"mean_rel_err={mean_rel:.3e} (tol {BF16_MEAN_TOL})")
+                nbytes = x.element_size() * rows * EMBED * (3 if with_t else 2) + 8 * EMBED \
+                    + (4 * 2 * BATCH * EMBED if with_t else 0)
+                t = timings(run, plain, lib, 8 * rows * EMBED, nbytes, peak_flops, device_ms)
+                call_ms = cuda_ms(run)
+                layer_norms.append(dict(name=f"{name}{'_time_add' if with_t else ''}", R=rows,
+                                        C=EMBED, max_abs_err=abs_err, ms=t["ms"],
+                                        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                                        bound_by=t["bound_by"], library_ms=t["lib_ms"],
+                                        call_ms=call_ms))
+                say(f"phase 2f layer_norm_rows {name} time_add={with_t}: R={rows} C={EMBED} "
+                    f"max_abs_err={abs_err:.3e} {errs} xs equal to the plain version "
+                    f"device ms={t['ms']:.4f} (one call through Python {call_ms:.4f}) "
+                    f"GB_per_s={nbytes / t['ms'] / 1e6:.1f} (of "
+                    f"{mem_rate / 1e9:.0f}) bound_share={t['bound_ms'] / t['ms']:.3f} "
+                    f"plain_ms={t['plain_ms']:.4f} F.layer_norm_ms={t['lib_ms']:.4f} "
+                    f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
+                del x, copies, y, xs, y_ref, xs_ref
+    torch.cuda.empty_cache()
+
     # Phase 3: one full-width denoiser forward, kernel path vs plain module.
     model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
                            num_heads=HEADS, mlp_ratio=MLP_RATIO, seed=0, device=dev).eval()
@@ -627,9 +812,11 @@ def main():
     x_init = randn(2 * BATCH, FRAMES, JOINTS, 3)
 
     fused_transformer_block.launches = 0
+    zero_inner()
     pred = step_fast(x2d, x2d_flip, x_init=x_init)
     torch.cuda.synchronize()
     launches = fused_transformer_block.launches
+    inner_by_path["eval_step"] = inner()
     per_call = 8  # kernels per block call with the out-LN (csrc/fused_block.cu)
     expected = 2 * DEPTH * DDIM_STEPS * per_call
     check(launches == expected, f"main path launched {launches} kernels, expected {expected}")
@@ -670,11 +857,14 @@ def main():
     # 9 forwards are bf16.
     counters = (fused_transformer_block, fused_temporal_block_cols)
 
-    def drive(step):
+    def drive(step, path=None):
         for c in counters:
             c.launches = c.launches_bf16 = 0
+        zero_inner()
         out = step(x2d, x2d_flip, x_init=x_init)
         torch.cuda.synchronize()
+        if path:
+            inner_by_path[path] = inner()
         return out, {f"{c.__name__}{suffix}": getattr(c, "launches" + suffix)
                      for c in counters for suffix in ("", "_bf16")}
 
@@ -687,7 +877,7 @@ def main():
     for mode, b1_calls, b2_calls in (("rows", 2 * DEPTH, 0), ("cols", DEPTH, DEPTH)):
         step = make_eval_step(make_mixed_diffusion(model, mode, **kw), JOINTS_LEFT, JOINTS_RIGHT,
                               device=dev)
-        out, got = drive(step)
+        out, got = drive(step, f"mixed_eval_{mode}")
         want = counts(b1_calls, b2_calls, DDIM_STEPS - 1)
         check(got == want, f"mixed {mode} eval launched {got}, expected {want}")
         check(out.shape == pred_plain.shape and out.dtype == torch.float32
@@ -697,7 +887,7 @@ def main():
                            mpjpe=mpjpe(out, pred_plain), step_s=secs, step=step)
     step_bf16 = make_eval_step(GaussianDiffusion.create(
         make_fast_denoise_fn(model, torch.bfloat16), **kw), JOINTS_LEFT, JOINTS_RIGHT, device=dev)
-    pred_bf16, bf16_launches = drive(step_bf16)
+    pred_bf16, bf16_launches = drive(step_bf16, "bf16_eval_rows")
     want = counts(2 * DEPTH, 0, DDIM_STEPS)
     check(bf16_launches == want, f"bf16 eval launched {bf16_launches}, expected {want}")
     check(torch.isfinite(pred_bf16).all().item(), "bf16 eval output not finite")
@@ -719,6 +909,34 @@ def main():
     check(cols_vs_rows <= COLS_VS_ROWS_BOUND,
           f"mixed cols vs rows {cols_vs_rows:.3e} > {COLS_VS_ROWS_BOUND}")
 
+    # Phase 4b at 4 heads (head_dim 128, the TPU-recommended config's
+    # width): the mixed rows eval and the pure-bf16 eval of a seed-0 4-head
+    # model, held against its plain f32 eval on the same x_T by MPJPE.
+    model4 = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
+                            num_heads=HEADS4, mlp_ratio=MLP_RATIO, seed=0, device=dev).eval()
+    ref4 = make_eval_step(GaussianDiffusion.create(make_denoise_fn(model4), **kw), JOINTS_LEFT,
+                          JOINTS_RIGHT, device=dev)(x2d, x2d_flip, x_init=x_init)
+    step4 = make_eval_step(make_mixed_diffusion(model4, "rows", **kw), JOINTS_LEFT, JOINTS_RIGHT,
+                           device=dev)
+    out4, got4 = drive(step4, "mixed_eval_rows_heads4")
+    check(got4 == counts(2 * DEPTH, 0, DDIM_STEPS - 1),
+          f"mixed eval at {HEADS4} heads launched {got4}")
+    bf16_4, _ = drive(make_eval_step(GaussianDiffusion.create(
+        make_fast_denoise_fn(model4, torch.bfloat16), **kw), JOINTS_LEFT, JOINTS_RIGHT, device=dev))
+    check(torch.isfinite(out4).all().item() and torch.isfinite(bf16_4).all().item(),
+          f"the evals at {HEADS4} heads are not finite")
+    mixed4 = dict(mpjpe=mpjpe(out4, ref4), bf16_mpjpe=mpjpe(bf16_4, ref4), step_s=timed(step4),
+                  launches=got4)
+    say(f"phase 4b mixed eval step rows at {HEADS4} heads (head_dim {EMBED // HEADS4}) "
+        f"B={BATCH} (x2 flip) DDIM-{DDIM_STEPS}: vs its plain f32 eval "
+        f"max_abs_dev={(out4 - ref4).abs().max().item():.3e} mpjpe={mixed4['mpjpe']:.4e} "
+        f"(bound: the bf16 eval's mpjpe {mixed4['bf16_mpjpe']:.4e}) "
+        f"step_s={mixed4['step_s']:.4f} seq_per_s={BATCH / mixed4['step_s']:.3f} launches={got4}")
+    check(mixed4["mpjpe"] <= mixed4["bf16_mpjpe"], f"mixed at {HEADS4} heads mpjpe "
+          f"{mixed4['mpjpe']:.4e} > the bf16 eval's {mixed4['bf16_mpjpe']:.4e}")
+    mixed_launches_h4 = {"mixed_eval_rows_heads4": got4}
+    del model4, step4, ref4, out4, bf16_4
+
     # Phase 5b: where one mixed rows eval step's device time goes.
     names = profile_step("phase 5b profile of one mixed rows eval step",
                          lambda: mixed["rows"]["step"](x2d, x2d_flip, x_init=x_init), top_n=14)
@@ -726,6 +944,7 @@ def main():
         check(any(kernel in name for name in names), f"the mixed step ran no {kernel}")
     mixed_launches = {f"mixed_eval_{mode}": m["launches"] for mode, m in mixed.items()}
     mixed_launches["bf16_eval_rows"] = bf16_launches
+    mixed_launches.update(mixed_launches_h4)
     del step_fast, step_plain, step_bf16, step, out, model, pred, pred_plain, pred_bf16, mixed
     torch.cuda.empty_cache()
 
@@ -802,32 +1021,36 @@ def main():
 
     # Phase 6b: B3 at bf16, the tensor-core attention kernel that B1, B2 and
     # B5 run for their attention step, alone: q, k, v as views of one
-    # [G, n, 3, H, 64] bf16 qkv projection at both eval shapes (68 temporal
-    # groups of 243 frames, 972 spatial groups of 17 joints, 8 heads). The
-    # library yardstick is SDPA − v at bf16.
-    attn_bf16 = {}
+    # [G, n, 3, H, d] bf16 qkv projection at both eval shapes (68 temporal
+    # groups of 243 frames, 972 spatial groups of 17 joints), with 8 heads
+    # of 64 and 4 of 128. The library yardstick is SDPA − v at bf16. All
+    # three times are device times from the profiler (at n = 17 the call
+    # through Python takes longer on the host than the kernel on the card).
+    attn_bf16, attn_bf16_hd128 = {}, {}
     with torch.no_grad():
-        for label, b, n in (("temporal", 2 * BATCH * JOINTS, FRAMES),
-                            ("spatial", 2 * BATCH * FRAMES, JOINTS)):
-            q, k, v = randn(b, n, 3, HEADS, hd).bfloat16().permute(2, 0, 3, 1, 4)
-            run = lambda: grand_attention_fullseq(q, k, v)
-            plain = lambda: grand_attention_fullseq_ref(q, k, v)
-            lib = lambda: F.scaled_dot_product_attention(q, k, v) - v
-            out = run()
-            check(out.shape == q.shape, f"B3 bf16 {label} output shape {tuple(out.shape)}")
-            abs_err, rel, mean_rel = check_bf16(f"B3 bf16 {label}", out, plain())
-            lib_abs, _, _ = bf16_errs(lib(), plain())
-            elems = b * HEADS * n * hd
-            t = timings(run, plain, lib, 4 * elems * n, 4 * 2 * elems, peak_bf16)
-            attn_bf16[label] = dict(abs_err=abs_err, **t)
-            say(f"phase 6b grand_attention_fullseq bf16 {label}: [B={b}, H={HEADS}, N={n}, D={hd}] "
-                f"as qkv views max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} "
-                f"(tol {BF16_MAX_TOL}) mean_rel_err={mean_rel:.3e} (tol {BF16_MEAN_TOL}) "
-                f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} "
-                f"(library vs plain max_abs {lib_abs:.3e}) bound_ms={t['bound_ms']:.4f} "
-                f"({t['bound_by']}) GFLOP={t['flops'] / 1e9:.2f} "
-                f"GB_per_s={t['bytes'] / t['ms'] / 1e6:.1f}")
-            del q, k, v, out
+        for heads, results in ((HEADS, attn_bf16), (HEADS4, attn_bf16_hd128)):
+            hdim = EMBED // heads
+            for label, b, n in (("temporal", 2 * BATCH * JOINTS, FRAMES),
+                                ("spatial", 2 * BATCH * FRAMES, JOINTS)):
+                q, k, v = randn(b, n, 3, heads, hdim).bfloat16().permute(2, 0, 3, 1, 4)
+                run = lambda: grand_attention_fullseq(q, k, v)
+                plain = lambda: grand_attention_fullseq_ref(q, k, v)
+                lib = lambda: F.scaled_dot_product_attention(q, k, v) - v
+                out = run()
+                check(out.shape == q.shape, f"B3 bf16 {label} output shape {tuple(out.shape)}")
+                abs_err, rel, mean_rel = check_bf16(f"B3 bf16 {label} d={hdim}", out, plain())
+                lib_abs, _, _ = bf16_errs(lib(), plain())
+                elems = b * heads * n * hdim
+                t = timings(run, plain, lib, 4 * elems * n, 4 * 2 * elems, peak_bf16, device_ms)
+                results[label] = dict(abs_err=abs_err, **t)
+                say(f"phase 6b grand_attention_fullseq bf16 {label}: [B={b}, H={heads}, N={n}, "
+                    f"D={hdim}] as qkv views max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} "
+                    f"(tol {BF16_MAX_TOL}) mean_rel_err={mean_rel:.3e} (tol {BF16_MEAN_TOL}) "
+                    f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} "
+                    f"(library vs plain max_abs {lib_abs:.3e}) bound_ms={t['bound_ms']:.4f} "
+                    f"({t['bound_by']}) GFLOP={t['flops'] / 1e9:.2f} "
+                    f"GB_per_s={t['bytes'] / t['ms'] / 1e6:.1f}")
+                del q, k, v, out
     torch.cuda.empty_cache()
 
     # Phase 7: the train main path.
@@ -901,9 +1124,11 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
+    zero_inner()
     train_step(gt, x2d, generator=gen)  # warm-up
     torch.cuda.synchronize()
     train_launches = {c.__name__: c.launches for c in counters}
+    inner_by_path["train_step"] = inner()
     check(train_launches == per_step, f"train step launched {train_launches}, expected {per_step}")
     before = [p.detach().clone() for p in params]
     secs, losses = [], []
@@ -975,22 +1200,25 @@ def main():
     # groups of 17 joints and of 243 frames), at f32 and at bf16 (weights
     # made bf16 once, as a bf16 snapshot holds them). The library yardstick
     # is F.layer_norm / F.linear / SDPA - v / F.linear in the same dtype.
-    attn_block = {"f32": {}, "bf16": {}}
+    attn_block = {"f32": {}, "bf16": {}, "bf16_d128": {}}
     with torch.no_grad():
         block, _ = make_block(3)
-        block_bf = copy.deepcopy(block)
-        for m in (block_bf.attn.qkv, block_bf.attn.proj):
+        block4, _ = make_block(5, HEADS4)
+        block_bf, block4_bf = copy.deepcopy(block), copy.deepcopy(block4)
+        for m in (block_bf.attn.qkv, block_bf.attn.proj, block4_bf.attn.qkv, block4_bf.attn.proj):
             m.weight.data = m.weight.data.bfloat16()
         block_lib_bf = copy.deepcopy(block).bfloat16()
+        block4_lib_bf = copy.deepcopy(block4).bfloat16()
         drive = []
         for shape, n in (("spatial", JOINTS), ("temporal", FRAMES)):
-            for name, dt, blk, lib_blk, peak in (("f32", torch.float32, block, block, peak_flops),
-                                                 ("bf16", torch.bfloat16, block_bf, block_lib_bf,
-                                                  peak_bf16)):
+            for name, dt, blk, lib_blk, peak, heads in (
+                    ("f32", torch.float32, block, block, peak_flops, HEADS),
+                    ("bf16", torch.bfloat16, block_bf, block_lib_bf, peak_bf16, HEADS),
+                    ("bf16_d128", torch.bfloat16, block4_bf, block4_lib_bf, peak_bf16, HEADS4)):
                 x = randn(rows, EMBED).to(dt)
-                run = lambda: fused_attention_block(x, blk, n, HEADS)
-                plain = lambda: fused_attention_block_ref(x, blk, n, HEADS)
-                lib = lambda: library_attn_block(x, lib_blk, n, HEADS)
+                run = lambda: fused_attention_block(x, blk, n, heads)
+                plain = lambda: fused_attention_block_ref(x, blk, n, heads)
+                lib = lambda: library_attn_block(x, lib_blk, n, heads)
                 out, ref = run(), plain()
                 torch.cuda.synchronize()
                 if dt == torch.float32:
@@ -1002,32 +1230,35 @@ def main():
                     errs = (f"max_abs_err={abs_err:.3e} (tol {ATTN_BLOCK_ABS_TOL}) "
                             f"rel_err={rel:.3e} (tol {KERNEL_REL_TOL})")
                 else:
-                    abs_err, rel, mean_rel = check_bf16(f"B5 bf16 {shape}", out, ref)
+                    abs_err, rel, mean_rel = check_bf16(f"B5 {name} {shape}", out, ref)
                     errs = (f"max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} (tol {BF16_MAX_TOL}) "
                             f"mean_rel_err={mean_rel:.3e} (tol {BF16_MEAN_TOL})")
                 lib_abs = (lib().float() - ref.float()).abs().max().item()
                 t = timings(run, plain, lib, *attn_block_work(rows, n, EMBED, dt.itemsize), peak)
                 attn_block[name][shape] = dict(abs_err=abs_err, **t)
-                say(f"phase 9 fused_attention_block {name} {shape}: R={rows} n={n} C={EMBED} {errs} "
+                say(f"phase 9 fused_attention_block {name} {shape}: R={rows} n={n} C={EMBED} "
+                    f"heads={heads} {errs} "
                     f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} "
                     f"(library vs plain max_abs {lib_abs:.3e}) bound_ms={t['bound_ms']:.4f} "
                     f"({t['bound_by']}) GFLOP={t['flops'] / 1e9:.2f} "
                     f"achieved_TFLOPs={t['flops'] / t['ms'] / 1e9:.2f}")
-                drive.append((x, blk, n))
+                drive.append((x, blk, n, heads))
                 del out, ref
         # B5 has no caller in the model: its path is the op itself. One call
-        # per shape and dtype with the counts set to 0 just before: 4 calls
-        # x 4 kernels, half of them bf16.
+        # per shape, dtype and head width with the counts set to 0 just
+        # before: 6 calls x 4 kernels, 4 of the calls bf16.
         fused_attention_block.launches = fused_attention_block.launches_bf16 = 0
-        for x, blk, n in drive:
-            check(torch.isfinite(fused_attention_block(x, blk, n, HEADS).float()).all().item(),
+        zero_inner()
+        for x, blk, n, heads in drive:
+            check(torch.isfinite(fused_attention_block(x, blk, n, heads).float()).all().item(),
                   "B5 op output not finite")
         torch.cuda.synchronize()
         b5_launches = (fused_attention_block.launches, fused_attention_block.launches_bf16)
-        check(b5_launches == (16, 8), f"B5 op launched {b5_launches}, expected (16, 8)")
+        inner_by_path["b5_op"] = inner()
+        check(b5_launches == (24, 16), f"B5 op launched {b5_launches}, expected (24, 16)")
         say(f"phase 9 fused_attention_block as an op: {len(drive)} calls, "
             f"launches={b5_launches[0]} (bf16 {b5_launches[1]})")
-        del drive, x, block, block_bf, block_lib_bf
+        del drive, x, block, block_bf, block_lib_bf, block4, block4_bf, block4_lib_bf
     torch.cuda.empty_cache()
 
     # Phase 10: the evaluate entry point, as a user calls it: a config JSON,
@@ -1060,26 +1291,47 @@ def main():
                     "Velocity Error (MPJVE):", "Protocol #1   (MPJPE) action-wise average:")
     bf16_args = ["--fast-eval", "--compute-dtype", "bfloat16"]
     cli = {}
+    ddim_steps = dict.fromkeys(("plain", "use_pallas", "fast_eval", "mixed", "bf16"), DDIM_STEPS)
+    with open(os.path.join(here, TPU_CONFIG)) as f:
+        tpu = json.load(f)
+    ddim_steps.update(dict.fromkeys(("tpu_config", "tpu_plain", "tpu_bf16"),
+                                    tpu["params"]["sampling_timesteps"]))
     with tempfile.TemporaryDirectory() as tmp:
-        weights = os.path.join(tmp, "seed0.bin")
-        torch.save(MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED,
-                                  depth=DEPTH, num_heads=HEADS, mlp_ratio=MLP_RATIO, seed=0,
-                                  device=dev).state_dict(), weights)
+        weights, weights4 = os.path.join(tmp, "seed0.bin"), os.path.join(tmp, "seed0_heads4.bin")
+        for path, heads in ((weights, HEADS), (weights4, HEADS4)):
+            torch.save(MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED,
+                                      depth=DEPTH, num_heads=heads, mlp_ratio=MLP_RATIO, seed=0,
+                                      device=dev).state_dict(), path)
         with open(os.path.join(here, CLI_CONFIG)) as f:
             config = json.load(f)
         config["params"]["use_pallas_attention"] = True
         use_pallas_config = os.path.join(tmp, "use_pallas.json")
         with open(use_pallas_config, "w") as f:
             json.dump(config, f)
+        # The TPU config's yardsticks: the same file as the plain f32 module,
+        # and as pure bf16 (no f32 head, no f32 final step).
+        tpu_paths = {}
+        for name, changes in (("tpu_plain", dict(fast_eval=False, compute_dtype="float32")),
+                              ("tpu_bf16", dict(eval_f32_final_steps=0, eval_f32_head=False))):
+            tpu_paths[name] = os.path.join(tmp, f"{name}.json")
+            with open(tpu_paths[name], "w") as f:
+                json.dump({**tpu, "params": {**tpu["params"], **changes}}, f)
         Runner.evaluate, mixste.grand_attention = recording_evaluate, counting_attention
         try:
+            ddim = ["--sampling_timesteps", str(DDIM_STEPS)]
             for name, config_path, extra in (
-                ("plain", os.path.join(here, CLI_CONFIG), []),
-                ("use_pallas", use_pallas_config, []),
-                ("fast_eval", os.path.join(here, CLI_CONFIG), ["--fast-eval"]),
+                ("plain", os.path.join(here, CLI_CONFIG), ddim),
+                ("use_pallas", use_pallas_config, ddim),
+                ("fast_eval", os.path.join(here, CLI_CONFIG), ddim + ["--fast-eval"]),
                 ("mixed", os.path.join(here, CLI_CONFIG),
-                 bf16_args + ["--eval-f32-head", "--eval-f32-final-steps", "1"]),
-                ("bf16", os.path.join(here, CLI_CONFIG), bf16_args),
+                 ddim + bf16_args + ["--eval-f32-head", "--eval-f32-final-steps", "1"]),
+                ("bf16", os.path.join(here, CLI_CONFIG), ddim + bf16_args),
+                # The TPU-recommended config file as it stands (4 heads, the
+                # mixed mode, remat, its own DDIM steps), on 4-head weights,
+                # then as the plain module and as pure bf16 on the same.
+                ("tpu_config", os.path.join(here, TPU_CONFIG), []),
+                ("tpu_plain", tpu_paths["tpu_plain"], []),
+                ("tpu_bf16", tpu_paths["tpu_bf16"], []),
             ):
                 records.clear()
                 plain_calls[0] = 0
@@ -1087,14 +1339,16 @@ def main():
                     c.launches = 0
                     if hasattr(c, "launches_bf16"):
                         c.launches_bf16 = 0
+                zero_inner()
                 text = io.StringIO()
                 with contextlib.redirect_stdout(text):
                     errors = cli_main(
                         ["--config", config_path, "--synthetic", "-str", "S1", "-ste", "S9",
-                         "-a", "Walking", "--sampling_timesteps", str(DDIM_STEPS),
-                         "--batch-size-eval", str(BATCH), "-c", os.path.join(tmp, name),
-                         "--evaluate", weights] + extra)
+                         "-a", "Walking", "--batch-size-eval", str(BATCH),
+                         "-c", os.path.join(tmp, name),
+                         "--evaluate", weights4 if name.startswith("tpu") else weights] + extra)
                 torch.cuda.synchronize()
+                inner_by_path[f"cli_{name}"] = inner()
                 say(f"phase 10 cli {name}: the report\n{text.getvalue().rstrip()}")
                 check(all(line in text.getvalue() for line in report_lines),
                       f"cli {name}: a line of the report is missing")
@@ -1114,35 +1368,52 @@ def main():
         finally:
             Runner.evaluate, mixste.grand_attention = evaluate, plain_attention
     steps = 16 // BATCH + 1  # the timed eval steps and the warm-up step
-    forwards = steps * DDIM_STEPS
     zero = {c.__name__: 0 for c in kernel_counters}
     zero.update(fused_transformer_block_bf16=0, plain_attention_calls=0)
-    b1 = 2 * DEPTH * per_call * forwards
+    forwards = {name: steps * k for name, k in ddim_steps.items()}
+    b1 = {name: 2 * DEPTH * per_call * f for name, f in forwards.items()}
+    mixed_bf16 = lambda name: b1[name] * (ddim_steps[name] - 1) // ddim_steps[name]
     want = {
-        "plain": dict(zero, plain_attention_calls=2 * DEPTH * forwards),
-        "use_pallas": dict(zero, packed_grand_attention=DEPTH * forwards,
-                           grand_attention_fullseq=DEPTH * forwards),
-        "fast_eval": dict(zero, fused_transformer_block=b1),
-        "mixed": dict(zero, fused_transformer_block=b1,
-                      fused_transformer_block_bf16=b1 * (DDIM_STEPS - 1) // DDIM_STEPS),
-        "bf16": dict(zero, fused_transformer_block=b1, fused_transformer_block_bf16=b1),
+        "plain": dict(zero, plain_attention_calls=2 * DEPTH * forwards["plain"]),
+        "use_pallas": dict(zero, packed_grand_attention=DEPTH * forwards["use_pallas"],
+                           grand_attention_fullseq=DEPTH * forwards["use_pallas"]),
+        "fast_eval": dict(zero, fused_transformer_block=b1["fast_eval"]),
+        "mixed": dict(zero, fused_transformer_block=b1["mixed"],
+                      fused_transformer_block_bf16=mixed_bf16("mixed")),
+        "bf16": dict(zero, fused_transformer_block=b1["bf16"],
+                     fused_transformer_block_bf16=b1["bf16"]),
+        "tpu_config": dict(zero, fused_transformer_block=b1["tpu_config"],
+                           fused_transformer_block_bf16=mixed_bf16("tpu_config")),
+        "tpu_plain": dict(zero, plain_attention_calls=2 * DEPTH * forwards["tpu_plain"]),
+        "tpu_bf16": dict(zero, fused_transformer_block=b1["tpu_bf16"],
+                         fused_transformer_block_bf16=b1["tpu_bf16"]),
     }
     for name, c in cli.items():
         check(c["launches"] == want[name], f"cli {name} launched {c['launches']}, expected "
               f"{want[name]}")
-        c["dev"] = (c["pred"] - cli["plain"]["pred"]).abs().max().item()
-        c["mpjpe"] = mpjpe(c["pred"], cli["plain"]["pred"])
-        say(f"phase 10 cli {name} B={BATCH} (x2 flip) DDIM-{DDIM_STEPS}, {steps - 1} timed steps: "
-            f"inference_speed_frames_per_s={c['frames_per_s']:.1f} seq_per_s={c['seq_per_s']:.3f} "
-            f"e1_mm={c['errors']['e1']:.4f} e2_mm={c['errors']['e2']:.4f} "
-            f"e3_mm={c['errors']['e3']:.4f} ev_mm={c['errors']['ev']:.4f} vs the plain run "
-            f"(normalised units): max_abs_dev={c['dev']:.3e} mpjpe={c['mpjpe']:.4e} "
+        # Each run is held against the plain run on its weights (the TPU
+        # config's runs have 4 heads).
+        vs_plain = ""
+        ref = "tpu_plain" if name.startswith("tpu") else "plain"
+        if name != ref:
+            c["dev"] = (c["pred"] - cli[ref]["pred"]).abs().max().item()
+            c["mpjpe"] = mpjpe(c["pred"], cli[ref]["pred"])
+            vs_plain = (f" vs the cli {ref} run (normalised units): max_abs_dev={c['dev']:.3e} "
+                        f"mpjpe={c['mpjpe']:.4e}")
+        check(torch.isfinite(c["pred"]).all().item(), f"cli {name}: predictions not finite")
+        say(f"phase 10 cli {name} B={BATCH} (x2 flip) DDIM-{ddim_steps[name]}, {steps - 1} timed "
+            f"steps: inference_speed_frames_per_s={c['frames_per_s']:.1f} "
+            f"seq_per_s={c['seq_per_s']:.3f} e1_mm={c['errors']['e1']:.4f} "
+            f"e2_mm={c['errors']['e2']:.4f} e3_mm={c['errors']['e3']:.4f} "
+            f"ev_mm={c['errors']['ev']:.4f}{vs_plain} "
             f"launches={ {k: v for k, v in c['launches'].items() if v} }")
     for name in ("use_pallas", "fast_eval"):
         check(cli[name]["dev"] <= EVAL_ABS_BOUND, f"cli {name} deviates from the plain run by "
               f"{cli[name]['dev']:.3e} > {EVAL_ABS_BOUND}")
-    check(cli["mixed"]["mpjpe"] <= cli["bf16"]["mpjpe"], f"cli mixed mpjpe "
-          f"{cli['mixed']['mpjpe']:.4e} > the bf16 run's {cli['bf16']['mpjpe']:.4e}")
+    for mixed_run, bf16_run in (("mixed", "bf16"), ("tpu_config", "tpu_bf16")):
+        check(cli[mixed_run]["mpjpe"] <= cli[bf16_run]["mpjpe"], f"cli {mixed_run} mpjpe "
+              f"{cli[mixed_run]['mpjpe']:.4e} > the {bf16_run} run's "
+              f"{cli[bf16_run]['mpjpe']:.4e}")
     cli_launches = {f"cli_{name}": c["launches"] for name, c in cli.items()}
 
     # Phase 10b: where one eval step of the use_pallas module goes.
@@ -1187,6 +1458,50 @@ def main():
     b1_by_path = by_path("fused_transformer_block", eval_launches,
                          train_launches["fused_transformer_block"], "fused_transformer_block")
     b2_by_path = by_path("fused_temporal_block_cols", mixed_key="fused_temporal_block_cols")
+    b1_bf16_by_path = {k: v["fused_transformer_block_bf16"]
+                       for k, v in {**mixed_launches, **cli_launches}.items()}
+    b2_bf16_by_path = {k: v["fused_temporal_block_cols_bf16"] for k, v in mixed_launches.items()}
+    # The f32 GEMM and LN launches the block wrappers counted on each path
+    # (inner_by_path), held against the blocks' structure: a B1 or B2 call
+    # of per_call kernels launches 3 LNs and 4 GEMMs, f32 ones in an f32
+    # call; a B5 call 1 LN and 2 GEMMs.
+    for path, got in inner_by_path.items():
+        b12, b12_bf16 = (b1_by_path.get(path, 0) + b2_by_path.get(path, 0),
+                         b1_bf16_by_path.get(path, 0) + b2_bf16_by_path.get(path, 0))
+        b5, b5_bf16 = b5_launches if path == "b5_op" else (0, 0)
+        want = {"gemm_f32": 4 * (b12 - b12_bf16) // per_call + 2 * (b5 - b5_bf16) // 4,
+                "layer_norm": 3 * b12 // per_call + b5 // 4}
+        check(got == want, f"{path}: the blocks launched {got} f32 GEMMs and LNs, expected "
+              f"{want}")
+    gemm_f32_by_path = {k: v["gemm_f32"] for k, v in inner_by_path.items()}
+    ln_by_path = {k: v["layer_norm"] for k, v in inner_by_path.items()}
+
+    def part(name, source, replaces, by_path_counts, numbers, work):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(by_path_counts.values()), "launches_by_path": by_path_counts,
+                **numbers, "work": work}
+
+    def sum_numbers(items):
+        tot = lambda key: sum(g[key] for g in items)
+        return {"max_abs_err": max(g["max_abs_err"] for g in items), "ms": tot("ms"),
+                "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+                "bound_by": "operations" if all(g["bound_by"] == "operations" for g in items)
+                else "bytes", "library_ms": tot("library_ms")}
+
+    gemm_part = part(
+        "gemm_f32_kernel", "diff3dhpe_torch/csrc/gemm_f32.cuh",
+        "diff3dhpe_tpu/ops/fused_block.py:147 (_dot_f32 inside the block kernel)",
+        gemm_f32_by_path, sum_numbers(gemms_f32[rows]),
+        f"the four products of an f32 block at M={rows} (launches: counted by the block "
+        f"wrappers, 4 a B1 or B2 call at f32, 2 a B5 call)")
+    gemm_part["products"] = [g for m_rows in gemms_f32 for g in gemms_f32[m_rows]]
+    ln_part = part(
+        "ln_rows_kernel", "diff3dhpe_torch/csrc/fused_block.cu",
+        "diff3dhpe_tpu/ops/fused_block.py:175 (_layernorm_rows inside the block kernel)",
+        ln_by_path, sum_numbers(layer_norms[:1]),
+        f"one f32 call at R={rows}, C={EMBED}, input cold (launches: counted by the block "
+        f"wrappers, 3 a B1 or B2 call, 1 a B5 call, f32 or bf16)")
+    ln_part["calls"] = layer_norms
     entries = [{
         "name": "fused_transformer_block",
         "route": "cuda",
@@ -1194,13 +1509,16 @@ def main():
         "replaces": "diff3dhpe_tpu/ops/fused_block.py:231",
         "launches": sum(b1_by_path.values()),
         "launches_by_path": b1_by_path,
-        "launches_bf16_by_path": {k: v["fused_transformer_block_bf16"]
-                                  for k, v in {**mixed_launches, **cli_launches}.items()},
+        "launches_bf16_by_path": b1_bf16_by_path,
         **pair_numbers(per_shape, peak_flops),
         "bf16": pair_numbers(per_shape_bf16, peak_bf16),
         "d128": dict(pair_numbers(per_shape_hd128, peak_flops),
                      work=f"the same pair of calls with {HEADS4} heads (head_dim 128), f32"),
+        "bf16_d128": dict(pair_numbers(per_shape_bf16_hd128, peak_bf16),
+                          work=f"the same pair of calls with {HEADS4} heads (head_dim 128), bf16"),
         "bf16_gemm": gemms,
+        "gemm_f32": gemm_part,
+        "layer_norm": ln_part,
         "work": f"one spatial (n={JOINTS}) + one temporal (n={FRAMES}) call, R={rows}, C={EMBED}",
     }, {
         "name": "fused_temporal_block_cols",
@@ -1209,10 +1527,11 @@ def main():
         "replaces": "diff3dhpe_tpu/ops/fused_block.py:642",
         "launches": sum(b2_by_path.values()),
         "launches_by_path": b2_by_path,
-        "launches_bf16_by_path": {k: v["fused_temporal_block_cols_bf16"]
-                                  for k, v in mixed_launches.items()},
+        "launches_bf16_by_path": b2_bf16_by_path,
         **one_call(cols_res["f32"]),
         "bf16": one_call(cols_res["bf16"]),
+        "bf16_d128": dict(one_call(cols_res["bf16_d128"]),
+                          work=f"the same call with {HEADS4} heads (head_dim 128), bf16"),
         "work": f"one call, x=[{2 * BATCH}*{FRAMES}, {JOINTS}*{EMBED}] (n={FRAMES}), f32",
     }]
     for name, replaces in (("grand_attention_fullseq", "diff3dhpe_tpu/ops/attention.py:185"),
@@ -1234,6 +1553,10 @@ def main():
         pair_numbers(attn_bf16, peak_bf16),
         work=f"one call at [{2 * BATCH * JOINTS}, {HEADS}, {FRAMES}, {EMBED // HEADS}] + one at "
              f"[{2 * BATCH * FRAMES}, {HEADS}, {JOINTS}, {EMBED // HEADS}], bf16 qkv views")
+    entries[2]["bf16_d128"] = dict(
+        pair_numbers(attn_bf16_hd128, peak_bf16),
+        work=f"one call at [{2 * BATCH * JOINTS}, {HEADS4}, {FRAMES}, {EMBED // HEADS4}] + one at "
+             f"[{2 * BATCH * FRAMES}, {HEADS4}, {JOINTS}, {EMBED // HEADS4}], bf16 qkv views")
     entries.append({
         "name": "fused_attention_block",
         "route": "cuda",
@@ -1244,6 +1567,8 @@ def main():
         "launches_bf16_by_path": {"op": b5_launches[1]},
         **pair_numbers(attn_block["f32"], peak_flops),
         "bf16": pair_numbers(attn_block["bf16"], peak_bf16),
+        "bf16_d128": dict(pair_numbers(attn_block["bf16_d128"], peak_bf16),
+                          work=f"the same pair of calls with {HEADS4} heads (head_dim 128), bf16"),
         "work": f"one call with n={JOINTS} + one with n={FRAMES}, R={rows}, C={EMBED}",
     })
     paths = by_path("packed_grand_attention",
@@ -1261,8 +1586,9 @@ def main():
         "work": f"one call, [G={2 * BATCH * FRAMES * HEADS}, N={JOINTS}, D={EMBED // HEADS}] "
                 f"f32 as views of a qkv projection",
     })
-    check(len(entries) == 6 and all(e["launches"] > 0 for e in entries),
-          f"a kernel was launched no time: { {e['name']: e['launches'] for e in entries} }")
+    check(len(entries) == 6 and all(e["launches"] > 0 for e in entries + [gemm_part, ln_part]),
+          f"a kernel was launched no time: { {e['name']: e['launches'] for e in entries} }, "
+          f"f32 GEMM {gemm_part['launches']}, LN {ln_part['launches']}")
     say(json.dumps({"kernels": entries}))
     check(all(math.isfinite(e["ms"]) for e in entries), "timing failed")
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

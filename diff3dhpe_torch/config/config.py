@@ -84,7 +84,7 @@ class Config:
     # The module's attention goes through the attention kernels
     # (ops.attention.fused_grand_attention); float32 only.
     use_pallas_attention: bool = False
-    remat: bool = False  # rematerialised backward (JAX); not ported
+    remat: bool = False  # rematerialised backward of training (JAX); evaluation ignores it
     remat_mode: str = "block"
     # Fused-kernel inference path (models/fast_eval.py) for the evaluation.
     fast_eval: bool = False

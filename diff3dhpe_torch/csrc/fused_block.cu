@@ -37,10 +37,20 @@
 // at f32, on the tensor cores at bf16, where the softmax's exponentials and
 // the K/V loads bound it, not the products.
 //
-// Design: a small set of kernels, each right first and simple.
-//   ln_rows_kernel<T>     one warp per row: [time add] + LayerNorm.
-//   gemm_nt_kernel<EPI>   f32: 128x128x8 shared-memory tiles, 8x8 outputs
-//                         per thread, register-staged double buffering.
+// Design: a small set of kernels.
+//   ln_rows_kernel<T, kPL>
+//                         [time add] + LayerNorm, one warp a row held in
+//                         registers: each lane loads kPL 16-byte pieces of
+//                         the row (and of its time row) at once, then the
+//                         mean, the variance about it and the output come
+//                         from registers, and the output (and xs) go out as
+//                         16-byte stores. Bound by bytes: one read of x (and
+//                         t), one write of y (and xs).
+//   gemm_f32_kernel<EPI>
+//                         f32, gemm_f32.cuh: 128 x 128 tiles, k-tiles of 32
+//                         columns of both K-contiguous operands by cp.async
+//                         into a 3-stage ring, 8 x 8 outputs a thread read
+//                         as 128-bit broadcasts along k.
 //   gemm_bf16_wgmma_kernel<EPI>
 //                         bf16, gemm_wgmma.cuh: the _dot_f32 products of the
 //                         TPU kernel as wgmma m64n128k16 on 128x128 tiles, a
@@ -60,12 +70,12 @@
 //                         buffer through strides, and B2 adds the outer
 //                         group index b as blockIdx.z.
 //   grand_attn_bf16_kernel
-//                         bf16, grand_attn_bf16.cuh: the TPU device function
-//                         grand_attend_tile with both products as mma.sync
-//                         m16n8k16, a warp's whole score block in registers
-//                         (normalise first, then round P), P handed to the
-//                         second product in registers; the same strided
-//                         views and outer index.
+//                         bf16, grand_attn_bf16.cuh (head width 64 or 128):
+//                         the TPU device function grand_attend_tile with
+//                         both products as mma.sync m16n8k16, a warp's whole
+//                         score block in registers (normalise first, then
+//                         round P), P handed to the second product in
+//                         registers; the same strided views and outer index.
 // The intermediates (LN output, qkv, attention output, h1, MLP hidden)
 // make one round trip through device memory each: a block call is 7
 // launches (8 with the out-LN), 4 for B5.
@@ -76,180 +86,156 @@
 
 #include <type_traits>
 
-#include "grand_attn.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_wgmma.cuh"
+#include "grand_attn.cuh"
 #include "grand_attn_bf16.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using grand::bf16_round;
-using grand::to_float;
 using grand::warp_sum;
 
-constexpr int BM = 128, BN = 128, BK = 8, kGemmThreads = 256;
-
-using wg::gelu_erf;
 using wg::kEpiBias;
 using wg::kEpiGelu;
 using wg::kEpiResidual;
 
 __device__ __forceinline__ float round_to(float x, float) { return x; }
 __device__ __forceinline__ float round_to(float x, bf16) { return bf16_round(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+// One 16-byte piece of a row: 4 floats or 8 bf16, unpacked to float and
+// packed back (rounding to nearest even).
+template <typename T>
+struct Piece {
+  static constexpr int kE = 16 / sizeof(T);
+  static __device__ __forceinline__ void unpack(const uint4& raw, float (&v)[kE]) {
+    if constexpr (std::is_same<T, float>::value) {
+      v[0] = __uint_as_float(raw.x), v[1] = __uint_as_float(raw.y);
+      v[2] = __uint_as_float(raw.z), v[3] = __uint_as_float(raw.w);
+    } else {
+      const unsigned u[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
+        v[2 * i] = f.x, v[2 * i + 1] = f.y;
+      }
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&v)[kE]) {
+    if constexpr (std::is_same<T, float>::value) {
+      return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                        __float_as_uint(v[3]));
+    } else {
+      unsigned u[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+        u[i] = *reinterpret_cast<const unsigned*>(&h);
+      }
+      return make_uint4(u[0], u[1], u[2], u[3]);
+    }
+  }
+};
 
 // y[r] = LN(xs[r]) * w + b with xs[r] = x[r] + t[r / rows_per_item]
 // rounded to T; with xs != nullptr xs is also written (the residual
-// stream the block adds to). Statistics and the affine map in float.
-template <typename T>
-__global__ void ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ t,
-                               int rows_per_item, const float* __restrict__ w,
-                               const float* __restrict__ b, float eps,
-                               T* __restrict__ xs, T* __restrict__ y, int R, int C) {
+// stream the block adds to). Statistics and the affine map in float. One
+// warp a row: lane l holds pieces l, l + 32, ... (kPL of them at most) of
+// the row; C is a multiple of a piece (checked by the caller).
+template <typename T, int kPL>
+__global__ void __launch_bounds__(256)
+ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ t, int rows_per_item,
+               const float* __restrict__ w, const float* __restrict__ b, float eps,
+               T* __restrict__ xs, T* __restrict__ y, int R, int C) {
+  using P = Piece<T>;
+  constexpr int kE = P::kE;
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= R) return;
-  const T* xr = x + (size_t)row * C;
-  const T* tr = t ? t + (size_t)(row / rows_per_item) * C : nullptr;
-  auto in = [&](int c) {
-    return tr ? round_to(to_float(xr[c]) + to_float(tr[c]), T()) : to_float(xr[c]);
-  };
+  const int pieces = C / kE;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * C);
+  const uint4* tr = t ? reinterpret_cast<const uint4*>(t + (size_t)(row / rows_per_item) * C)
+                      : nullptr;
+  uint4 raw[kPL], traw[kPL];
+#pragma unroll
+  for (int p = 0; p < kPL; ++p) {
+    const int c = lane + 32 * p;
+    if (c < pieces) {
+      raw[p] = xr[c];
+      if (tr) traw[p] = tr[c];
+    }
+  }
+  float v[kPL][kE];
   float sum = 0.f;
-  for (int c = lane; c < C; c += 32) sum += in(c);
+#pragma unroll
+  for (int p = 0; p < kPL; ++p) {
+    if (lane + 32 * p >= pieces) continue;
+    P::unpack(raw[p], v[p]);
+    if (tr) {
+      float tv[kE];
+      P::unpack(traw[p], tv);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) v[p][e] = round_to(v[p][e] + tv[e], T());
+    }
+#pragma unroll
+    for (int e = 0; e < kE; ++e) sum += v[p][e];
+  }
   const float mu = warp_sum(sum) / C;
   float sq = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = in(c) - mu;
-    sq += d * d;
+#pragma unroll
+  for (int p = 0; p < kPL; ++p) {
+    if (lane + 32 * p >= pieces) continue;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const float d = v[p][e] - mu;
+      sq += d * d;
+    }
   }
   const float rstd = 1.0f / sqrtf(warp_sum(sq) / C + eps);
-  T* yr = y + (size_t)row * C;
-  T* xsr = xs ? xs + (size_t)row * C : nullptr;
-  for (int c = lane; c < C; c += 32) {
-    const float v = in(c);
-    if (xsr) store(xsr + c, v);
-    store(yr + c, (v - mu) * rstd * w[c] + b[c]);
+  uint4* yr = reinterpret_cast<uint4*>(y + (size_t)row * C);
+  uint4* xsr = xs ? reinterpret_cast<uint4*>(xs + (size_t)row * C) : nullptr;
+#pragma unroll
+  for (int p = 0; p < kPL; ++p) {
+    const int c = lane + 32 * p;
+    if (c >= pieces) continue;
+    if (xsr) xsr[c] = P::pack(v[p]);
+    float o[kE];
+#pragma unroll
+    for (int e = 0; e < kE; e += 4) {
+      const float4 wv = *reinterpret_cast<const float4*>(w + c * kE + e);
+      const float4 bv = *reinterpret_cast<const float4*>(b + c * kE + e);
+      o[e + 0] = (v[p][e + 0] - mu) * rstd * wv.x + bv.x;
+      o[e + 1] = (v[p][e + 1] - mu) * rstd * wv.y + bv.y;
+      o[e + 2] = (v[p][e + 2] - mu) * rstd * wv.z + bv.z;
+      o[e + 3] = (v[p][e + 3] - mu) * rstd * wv.w + bv.w;
+    }
+    yr[c] = P::pack(o);
   }
 }
 
-// out[M, N] = A[M, K] · W[N, K]ᵀ + bias, then the epilogue; the residual
-// epilogue computes res + s[row] · (A·Wᵀ + bias) with s[row] =
-// rscale[2 * row] (1 where rscale is null). K % 8 == 0, N % 4 == 0 and
-// 16-byte aligned rows (checked by the caller).
-template <int EPI>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_nt_kernel(const float* __restrict__ A, const float* __restrict__ W,
-               const float* __restrict__ bias, const float* __restrict__ res,
-               const float* __restrict__ rscale, float* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) float As[2][BK][BM + 4];
-  __shared__ __align__(16) float Ws[2][BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+// The most 16-byte pieces a lane holds: rows of up to 32 · 16 pieces
+// (C <= 2048 at f32, 4096 at bf16).
+constexpr int kLnMaxPiecesPerLane = 16;
 
-  // Loader: each thread brings one float4 of A and one of W per k-tile.
-  const int lrow = tid >> 1, lk = (tid & 1) * 4;
-  const bool a_ok = m0 + lrow < M, w_ok = n0 + lrow < N;
-  const float* a_ptr = A + (size_t)(a_ok ? m0 + lrow : 0) * K + lk;
-  const float* w_ptr = W + (size_t)(w_ok ? n0 + lrow : 0) * K + lk;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 a_reg = a_ok ? *reinterpret_cast<const float4*>(a_ptr) : zero;
-  float4 w_reg = w_ok ? *reinterpret_cast<const float4*>(w_ptr) : zero;
+// ---- f32 GEMM on the CUDA cores: gemm_f32.cuh --------------------------------
 
-  // Compute: rows ty*4+{0..3} and 64+ty*4+{0..3}, columns likewise by tx.
-  const int tx = tid & 15, ty = tid >> 4;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  auto stage = [&](int buf) {
-    As[buf][lk + 0][lrow] = a_reg.x;
-    As[buf][lk + 1][lrow] = a_reg.y;
-    As[buf][lk + 2][lrow] = a_reg.z;
-    As[buf][lk + 3][lrow] = a_reg.w;
-    Ws[buf][lk + 0][lrow] = w_reg.x;
-    Ws[buf][lk + 1][lrow] = w_reg.y;
-    Ws[buf][lk + 2][lrow] = w_reg.z;
-    Ws[buf][lk + 3][lrow] = w_reg.w;
-  };
-  stage(0);
-  __syncthreads();
-
-  const int nk = K / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      const int k0 = (kt + 1) * BK;
-      a_reg = a_ok ? *reinterpret_cast<const float4*>(a_ptr + k0) : zero;
-      w_reg = w_ok ? *reinterpret_cast<const float4*>(w_ptr + k0) : zero;
-    }
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][64 + ty * 4]);
-      const float4 w0 = *reinterpret_cast<const float4*>(&Ws[cur][k][tx * 4]);
-      const float4 w1 = *reinterpret_cast<const float4*>(&Ws[cur][k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (kt + 1 < nk) stage(cur ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (row >= M) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int col = n0 + half * 64 + tx * 4;
-      if (col >= N) continue;
-      float v[4];
-      const float4 bv = bias ? *reinterpret_cast<const float4*>(bias + col) : zero;
-      v[0] = acc[i][half * 4 + 0] + bv.x;
-      v[1] = acc[i][half * 4 + 1] + bv.y;
-      v[2] = acc[i][half * 4 + 2] + bv.z;
-      v[3] = acc[i][half * 4 + 3] + bv.w;
-      if (EPI == kEpiGelu) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = gelu_erf(v[j]);
-      } else if (EPI == kEpiResidual) {
-        const float4 r = *reinterpret_cast<const float4*>(res + (size_t)row * N + col);
-        if (rscale) {
-          const float s = rscale[2 * (size_t)row];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] *= s;
-        }
-        v[0] = r.x + v[0];
-        v[1] = r.y + v[1];
-        v[2] = r.z + v[2];
-        v[3] = r.w + v[3];
-      }
-      *reinterpret_cast<float4*>(out + (size_t)row * N + col) = make_float4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
-
+// out[M, N] = epilogue(A[M, K] · W[N, K]ᵀ + bias), the residual epilogue
+// res + s[row] · (A·Wᵀ + bias) with s[row] = rscale[2 * row] (1 where
+// rscale is null). K % 4 == 0 and 16-byte aligned rows (checked by the
+// caller).
 template <int EPI>
 cudaError_t launch_gemm(const float* A, const float* W, const float* bias, const float* res,
                         const float* rscale, float* out, int M, int N, int K,
                         cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_nt_kernel<EPI><<<grid, kGemmThreads, 0, stream>>>(A, W, bias, res, rscale, out, M, N, K);
-  return cudaGetLastError();
+  return gf::launch_gemm_f32<EPI>(A, W, bias, res, rscale, out, M, N, K, stream);
 }
 
 // ---- bf16 GEMM on the tensor cores: gemm_wgmma.cuh ----------------------------
 
 // out[M, N] = bf16(epilogue(A[M, K] · W[N, K]ᵀ + bias)), A, W and res bf16,
 // bias and rscale f32, the product and the epilogue in f32: as
-// gemm_nt_kernel, with the residual epilogue res + s[row] · (A·Wᵀ + bias).
+// the f32 GEMM, with the residual epilogue res + s[row] · (A·Wᵀ + bias).
 // K % 8 == 0, N % 8 == 0 and 16-byte aligned rows (checked by the caller).
 template <int EPI>
 cudaError_t launch_gemm(const bf16* A, const bf16* W, const float* bias, const bf16* res,
@@ -268,11 +254,10 @@ cudaError_t launch_attention(const T* qkv, T* out, int R, int C, int heads, int 
                              int j_groups, float scale, cudaStream_t stream) {
   // q of row r, head h at qkv[r, h * d] (d = C / heads), k and v C and 2C
   // columns further; the output at out[r, h * d]. float runs the f32
-  // kernels of grand_attn.cuh (d = 64 or 128), bf16 the tensor-core kernel
-  // of grand_attn_bf16.cuh (d = 64).
+  // kernels of grand_attn.cuh, bf16 the tensor-core kernel of
+  // grand_attn_bf16.cuh (both d = 64 or 128).
   constexpr bool kF32 = std::is_same<T, float>::value;
   const long long ld = 3LL * C, d = C / heads;
-  if (!kF32 && d != grand::kHeadDim) return cudaErrorInvalidValue;
   if (j_groups == 0) {
     const grand::Strides s_in{n_pad * ld, d, ld};
     const grand::Strides s_out{(long long)n_pad * C, d, C};
@@ -281,7 +266,8 @@ cudaError_t launch_attention(const T* qkv, T* out, int R, int C, int heads, int 
                                       R / n_pad, heads, n, n_pad, (int)d, scale, stream);
     } else {
       return grand::launch_grand_attn_bf16(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in,
-                                           s_out, R / n_pad, heads, n, n_pad, scale, stream);
+                                           s_out, R / n_pad, heads, n, n_pad, (int)d, scale,
+                                           stream);
     }
   }
   const long long J = j_groups;
@@ -293,31 +279,55 @@ cudaError_t launch_attention(const T* qkv, T* out, int R, int C, int heads, int 
                                           R / (n * j_groups));
   } else {
     return grand::launch_grand_attn_bf16<true>(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in,
-                                               s_out, j_groups, heads, n, n, scale, stream,
-                                               R / (n * j_groups));
+                                               s_out, j_groups, heads, n, n, (int)d, scale,
+                                               stream, R / (n * j_groups));
   }
 }
 
-template <typename T>
-cudaError_t launch_ln(const T* x, const T* t, int rows_per_item, const float* w, const float* b,
-                      float eps, T* xs, T* y, int R, int C, cudaStream_t stream) {
+template <typename T, int kPL>
+cudaError_t launch_ln_pieces(const T* x, const T* t, int rows_per_item, const float* w,
+                             const float* b, float eps, T* xs, T* y, int R, int C,
+                             cudaStream_t stream) {
   constexpr int kRowsPerBlock = 8;
-  ln_rows_kernel<T><<<(R + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
-      x, t, rows_per_item, w, b, eps, xs, y, R, C);
+  ln_rows_kernel<T, kPL><<<(R + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0,
+                           stream>>>(x, t, rows_per_item, w, b, eps, xs, y, R, C);
   return cudaGetLastError();
 }
 
-#define DIFF_CHECK(call)                   \
+// The LN kernel instance that holds a row of C values: C a multiple of a
+// 16-byte piece and at most 32 · kLnMaxPiecesPerLane pieces.
+template <typename T>
+cudaError_t launch_ln(const T* x, const T* t, int rows_per_item, const float* w, const float* b,
+                      float eps, T* xs, T* y, int R, int C, cudaStream_t stream) {
+  constexpr int kE = 16 / sizeof(T);
+  const int per_lane = (C / kE + 31) / 32;
+  if (C <= 0 || C % kE || per_lane > kLnMaxPiecesPerLane) return cudaErrorInvalidValue;
+#define LN_ARGS x, t, rows_per_item, w, b, eps, xs, y, R, C, stream
+  if (per_lane <= 1) return launch_ln_pieces<T, 1>(LN_ARGS);
+  if (per_lane <= 2) return launch_ln_pieces<T, 2>(LN_ARGS);
+  if (per_lane <= 4) return launch_ln_pieces<T, 4>(LN_ARGS);
+  if (per_lane <= 8) return launch_ln_pieces<T, 8>(LN_ARGS);
+  return launch_ln_pieces<T, 16>(LN_ARGS);
+#undef LN_ARGS
+}
+
+// A block entry point counts its launches in launches[3]: every kernel
+// (kAll), and of them the LayerNorms (kLn) and the GEMMs (kGemm); the rest
+// are the attention step's.
+enum LaunchCount { kAll = 0, kLn = 1, kGemm = 2 };
+
+#define DIFF_CHECK(kind, call)             \
   do {                                     \
     const cudaError_t e_ = (call);         \
     if (e_ != cudaSuccess) return (int)e_; \
-    ++*launches;                           \
+    ++launches[kAll];                      \
+    if (kind != kAll) ++launches[kind];    \
   } while (0)
 
 // The whole block in storage type T (float, or bf16 with f32 LN parameters
 // and biases), launched on `stream` as 7 kernels (8 with the out-LN).
 // Returns the first cudaError_t that a launch reported (0 on success) and
-// adds one to *launches for every kernel it launched. Null bias pointers
+// counts every kernel it launched in launches[3] (see LaunchCount). Null bias pointers
 // mean "no bias"; t_rows == nullptr skips the time add (xs is then unused);
 // oln_w == nullptr skips the out-LN; dp == nullptr skips the drop-path
 // scales, else dp is [R, 2] (attention, MLP branch) per row. j_groups == 0
@@ -334,19 +344,22 @@ int run_block(const T* x, const T* t_rows, int rows_per_item, const float* dp,
               int hidden, int n, int n_pad, int j_groups, int heads, float scale, int* launches,
               cudaStream_t stream) {
   const T* resid = t_rows ? xs : x;
-  DIFF_CHECK(launch_ln(x, t_rows, rows_per_item, ln1_w, ln1_b, ln1_eps, t_rows ? xs : nullptr,
-                       xn, R, C, stream));
-  DIFF_CHECK(launch_gemm<kEpiBias>(xn, w_qkv, b_qkv, nullptr, nullptr, qkv, R, 3 * C, C, stream));
-  DIFF_CHECK(launch_attention(qkv, attn, R, C, heads, n, n_pad, j_groups, scale, stream));
-  DIFF_CHECK(launch_gemm<kEpiResidual>(attn, w_proj, b_proj, resid, dp, h1, R, C, C, stream));
-  DIFF_CHECK(launch_ln<T>(h1, nullptr, 1, ln2_w, ln2_b, ln2_eps, nullptr, xn, R, C, stream));
-  DIFF_CHECK(launch_gemm<kEpiGelu>(xn, w_fc1, b_fc1, nullptr, nullptr, mid, R, hidden, C, stream));
+  DIFF_CHECK(kLn, launch_ln(x, t_rows, rows_per_item, ln1_w, ln1_b, ln1_eps,
+                            t_rows ? xs : nullptr, xn, R, C, stream));
+  DIFF_CHECK(kGemm, launch_gemm<kEpiBias>(xn, w_qkv, b_qkv, nullptr, nullptr, qkv, R, 3 * C, C,
+                                          stream));
+  DIFF_CHECK(kAll, launch_attention(qkv, attn, R, C, heads, n, n_pad, j_groups, scale, stream));
+  DIFF_CHECK(kGemm, launch_gemm<kEpiResidual>(attn, w_proj, b_proj, resid, dp, h1, R, C, C,
+                                              stream));
+  DIFF_CHECK(kLn, launch_ln<T>(h1, nullptr, 1, ln2_w, ln2_b, ln2_eps, nullptr, xn, R, C, stream));
+  DIFF_CHECK(kGemm, launch_gemm<kEpiGelu>(xn, w_fc1, b_fc1, nullptr, nullptr, mid, R, hidden, C,
+                                          stream));
   T* fc2_out = oln_w ? attn : out;
-  DIFF_CHECK(launch_gemm<kEpiResidual>(mid, w_fc2, b_fc2, h1, dp ? dp + 1 : nullptr, fc2_out, R,
-                                       C, hidden, stream));
+  DIFF_CHECK(kGemm, launch_gemm<kEpiResidual>(mid, w_fc2, b_fc2, h1, dp ? dp + 1 : nullptr,
+                                              fc2_out, R, C, hidden, stream));
   if (oln_w) {
-    DIFF_CHECK(launch_ln<T>(fc2_out, nullptr, 1, oln_w, oln_b, oln_eps, nullptr, out, R, C,
-                            stream));
+    DIFF_CHECK(kLn, launch_ln<T>(fc2_out, nullptr, 1, oln_w, oln_b, oln_eps, nullptr, out, R, C,
+                                 stream));
   }
   return 0;
 }
@@ -362,10 +375,12 @@ int run_attn_block(const T* x, const float* ln_w, const float* ln_b, float ln_ep
                    const float* b_qkv, const T* w_proj, const float* b_proj, T* xn, T* qkv,
                    T* attn, T* out, int R, int C, int n, int heads, float scale, int* launches,
                    cudaStream_t stream) {
-  DIFF_CHECK(launch_ln<T>(x, nullptr, 1, ln_w, ln_b, ln_eps, nullptr, xn, R, C, stream));
-  DIFF_CHECK(launch_gemm<kEpiBias>(xn, w_qkv, b_qkv, nullptr, nullptr, qkv, R, 3 * C, C, stream));
-  DIFF_CHECK(launch_attention(qkv, attn, R, C, heads, n, n, 0, scale, stream));
-  DIFF_CHECK(launch_gemm<kEpiResidual>(attn, w_proj, b_proj, x, nullptr, out, R, C, C, stream));
+  DIFF_CHECK(kLn, launch_ln<T>(x, nullptr, 1, ln_w, ln_b, ln_eps, nullptr, xn, R, C, stream));
+  DIFF_CHECK(kGemm, launch_gemm<kEpiBias>(xn, w_qkv, b_qkv, nullptr, nullptr, qkv, R, 3 * C, C,
+                                          stream));
+  DIFF_CHECK(kAll, launch_attention(qkv, attn, R, C, heads, n, n, 0, scale, stream));
+  DIFF_CHECK(kGemm, launch_gemm<kEpiResidual>(attn, w_proj, b_proj, x, nullptr, out, R, C, C,
+                                              stream));
   return 0;
 }
 
@@ -379,7 +394,8 @@ int run_attn_block(const T* x, const float* ln_w, const float* ln_b, float ln_ep
 
 // The block at f32: B1 with j_groups == 0 (groups of n_pad rows, the first
 // n real), B2 with j_groups = J (groups of n frames of the spatial-major
-// rows; n_pad unused, rows_per_item = n·J). See run_block.
+// rows; n_pad unused, rows_per_item = n·J). launches points at int[3]
+// (LaunchCount). See run_block.
 extern "C" int diff3dhpe_fused_block_f32(
     const float* x, const float* t_rows, int rows_per_item, const float* dp,
     const float* ln1_w, const float* ln1_b, float ln1_eps,
@@ -413,7 +429,8 @@ extern "C" int diff3dhpe_fused_block_bf16(
       scale, launches, static_cast<cudaStream_t>(stream_ptr)
 
 // B5 at f32 and at bf16 (activations, weights and scratch bf16; LN
-// parameters and biases float). See run_attn_block.
+// parameters and biases float). launches points at int[3] (LaunchCount).
+// See run_attn_block.
 extern "C" int diff3dhpe_fused_attn_block_f32(
     const float* x, const float* ln_w, const float* ln_b, float ln_eps,
     const float* w_qkv, const float* b_qkv, const float* w_proj, const float* b_proj,
@@ -430,15 +447,13 @@ extern "C" int diff3dhpe_fused_attn_block_bf16(
   return run_attn_block<bf16>(ATTN_BLOCK_ARGS);
 }
 
-// One bf16 product with a fused epilogue, the GEMM the four products of a
-// bf16 block run: out[M, N] = bf16(epilogue(A[M, K] · W[N, K]ᵀ + bias)) with
-// epilogue 0 = bias only, 1 = exact GELU, 2 = res + s[row] · (…), s[row] =
-// rscale[2 · row] or 1 where rscale is null. bias may be null. One kernel;
-// adds one to *launches when it launched. For measuring and testing the
-// GEMM alone: no model path calls it.
-extern "C" int diff3dhpe_gemm_bf16(const bf16* a, const bf16* w, const float* bias,
-                                   const bf16* res, const float* rscale, bf16* out, int M, int N,
-                                   int K, int epilogue, int* launches, void* stream_ptr) {
+namespace {
+
+// One GEMM of the block alone: epilogue 0 = bias only, 1 = exact GELU,
+// 2 = res + s[row] · (…); adds one to *launches when it launched.
+template <typename T>
+int run_gemm(const T* a, const T* w, const float* bias, const T* res, const float* rscale,
+             T* out, int M, int N, int K, int epilogue, int* launches, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = cudaErrorInvalidValue;
   if (epilogue == kEpiBias) {
@@ -453,11 +468,62 @@ extern "C" int diff3dhpe_gemm_bf16(const bf16* a, const bf16* w, const float* bi
   return 0;
 }
 
-// 1 where the block's attention step takes head width d in this dtype
-// (bf16 != 0: the tensor-core kernel, d = 64; else the f32 kernels, d = 64
-// or 128), and the most keys per group it holds; the wrapper checks both
-// before launching.
-extern "C" int diff3dhpe_attn_takes_head_dim(int d, int bf16) {
-  return bf16 ? d == grand::kHeadDim : grand::f32_head_dim(d);
+}  // namespace
+
+// One product with a fused epilogue, the GEMM the four products of a block
+// run, at f32 (the CUDA-core kernel of gemm_f32.cuh, exact f32 FMAs) or at
+// bf16 (the wgmma kernel): out[M, N] = epilogue(a[M, K] · w[N, K]ᵀ + bias)
+// with epilogue 0 = bias only, 1 = exact GELU, 2 = res + s[row] · (…),
+// s[row] = rscale[2 · row] or 1 where rscale is null; bf16 rounds the
+// output once. bias may be null. One kernel; adds one to *launches when it
+// launched. For measuring and testing the GEMM alone: no model path calls
+// these entry points.
+extern "C" int diff3dhpe_gemm_f32(const float* a, const float* w, const float* bias,
+                                  const float* res, const float* rscale, float* out, int M, int N,
+                                  int K, int epilogue, int* launches, void* stream_ptr) {
+  return run_gemm<float>(a, w, bias, res, rscale, out, M, N, K, epilogue, launches, stream_ptr);
 }
+
+extern "C" int diff3dhpe_gemm_bf16(const bf16* a, const bf16* w, const float* bias,
+                                   const bf16* res, const float* rscale, bf16* out, int M, int N,
+                                   int K, int epilogue, int* launches, void* stream_ptr) {
+  return run_gemm<bf16>(a, w, bias, res, rscale, out, M, N, K, epilogue, launches, stream_ptr);
+}
+
+// The block's LayerNorm alone, f32 or bf16: y = LN(xs) · w + b on R rows of
+// C with xs = x + t[row / rows_per_item] rounded to the storage type (t may
+// be null; xs, when not null, receives xs). w, b float. One kernel; adds one
+// to *launches when it launched. For measuring and testing: the block calls
+// the same kernel.
+extern "C" int diff3dhpe_layer_norm_f32(const float* x, const float* t, int rows_per_item,
+                                        const float* w, const float* b, float eps, float* xs,
+                                        float* y, int R, int C, int* launches,
+                                        void* stream_ptr) {
+  const cudaError_t err = launch_ln(x, t, rows_per_item, w, b, eps, xs, y, R, C,
+                                    static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return (int)err;
+  ++*launches;
+  return 0;
+}
+
+extern "C" int diff3dhpe_layer_norm_bf16(const bf16* x, const bf16* t, int rows_per_item,
+                                         const float* w, const float* b, float eps, bf16* xs,
+                                         bf16* y, int R, int C, int* launches, void* stream_ptr) {
+  const cudaError_t err = launch_ln(x, t, rows_per_item, w, b, eps, xs, y, R, C,
+                                    static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return (int)err;
+  ++*launches;
+  return 0;
+}
+
+// 1 where the block's attention step takes head width d (64 or 128, at f32
+// and at bf16), and the most keys per group it holds; the wrapper checks
+// both before launching.
+extern "C" int diff3dhpe_attn_takes_head_dim(int d) { return grand::takes_head_dim(d); }
 extern "C" int diff3dhpe_attn_max_n() { return grand::kMaxN; }
+
+// The widest row C the LayerNorm takes at elem_bytes (4: f32, 2: bf16); C
+// must also be a multiple of a 16-byte piece. The wrapper checks it.
+extern "C" int diff3dhpe_ln_max_c(int elem_bytes) {
+  return 32 * kLnMaxPiecesPerLane * (16 / elem_bytes);
+}

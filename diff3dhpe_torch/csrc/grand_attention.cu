@@ -470,8 +470,8 @@ extern "C" int diff3dhpe_grand_attn_fwd_f32(
   return 0;
 }
 
-// B3 at bf16: the same arguments on bf16 operands (d = 64 only), through the
-// tensor-core kernel of grand_attn_bf16.cuh (P rounded to bf16 after the
+// B3 at bf16: the same arguments on bf16 operands (d = 64 or 128), through
+// the tensor-core kernel of grand_attn_bf16.cuh (P rounded to bf16 after the
 // normalisation, one rounding of P·v − v). Every stride a multiple of 8
 // elements and every base 16-byte aligned (checked by the wrapper).
 extern "C" int diff3dhpe_grand_attn_fwd_bf16(
@@ -481,10 +481,9 @@ extern "C" int diff3dhpe_grand_attn_fwd_bf16(
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
     long long o_sh, long long o_sn, float scale, int* launches, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || n > kMaxN || d != grand::kHeadDim) return (int)cudaErrorInvalidValue;
   const cudaError_t err = grand::launch_grand_attn_bf16(q, k, v, out, STRIDES(q), STRIDES(k),
-                                                        STRIDES(v), STRIDES(o), B, H, n, n, scale,
-                                                        stream);
+                                                        STRIDES(v), STRIDES(o), B, H, n, n, d,
+                                                        scale, stream);
   if (err != cudaSuccess) return (int)err;
   ++*launches;
   return 0;
@@ -500,7 +499,7 @@ extern "C" int diff3dhpe_grand_attn_small_f32(
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
     long long o_sh, long long o_sn, float scale, int* launches, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || n > kSmallMaxN || !grand::f32_head_dim(d)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n > kSmallMaxN || !grand::takes_head_dim(d)) return (int)cudaErrorInvalidValue;
 #define SMALL_ARGS q, k, v, out, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(o), B, H, n, n, \
                    scale, stream, 1
   const cudaError_t err =
@@ -532,7 +531,7 @@ extern "C" int diff3dhpe_grand_attn_bwd_f32(
     long long dk_sn, long long dv_sb, long long dv_sh, long long dv_sn, float scale,
     int* launches, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || n > kMaxN || !grand::f32_head_dim(d) || (fout != nullptr && stats == nullptr)) {
+  if (n <= 0 || n > kMaxN || !grand::takes_head_dim(d) || (fout != nullptr && stats == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
 #define BWD_ARGS q, k, v, dout, fout, stats, dq, dk, dv, pds, STRIDES(q), STRIDES(k), STRIDES(v), \
@@ -543,11 +542,8 @@ extern "C" int diff3dhpe_grand_attn_bwd_f32(
   return (int)err;
 }
 
-// 1 where the kernels take head width d in this dtype (bf16 != 0: B3's
-// bf16 kernel, d = 64; else the f32 kernels B3, B4 and B6, d = 64 or 128).
-extern "C" int diff3dhpe_grand_takes_head_dim(int d, int bf16) {
-  return bf16 ? d == grand::kHeadDim : grand::f32_head_dim(d);
-}
+// 1 where the kernels take head width d (64 or 128, at f32 and at bf16).
+extern "C" int diff3dhpe_grand_takes_head_dim(int d) { return grand::takes_head_dim(d); }
 // The most keys per group the kernels take; the wrappers check it.
 extern "C" int diff3dhpe_grand_max_n() { return kMaxN; }
 // The most keys per group B6 takes.

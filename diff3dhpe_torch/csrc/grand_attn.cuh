@@ -67,7 +67,6 @@
 
 namespace grand {
 
-constexpr int kHeadDim = 64;  // the head width of the bf16 kernels (grand_attn_bf16.cuh)
 constexpr int kMaxN = 256;    // keys per group the kernels take
 constexpr int kSmallKeys = 32;     // at or below: the small-group kernel (with <= 64 query rows)
 constexpr int kSmallMaxN = 64;     // the most keys the small-group kernel takes (B6)
@@ -510,8 +509,9 @@ inline cudaError_t launch_tiled(const float* q, const float* k, const float* v, 
   return cudaGetLastError();
 }
 
-// True for the head widths the f32 kernels are compiled for.
-__host__ __device__ inline bool f32_head_dim(int d) { return d == 64 || d == 128; }
+// True for the head widths the kernels are compiled for (f32 here, bf16 in
+// grand_attn_bf16.cuh).
+__host__ __device__ inline bool takes_head_dim(int d) { return d == 64 || d == 128; }
 
 // Launches the f32 attention on (B, H[, outer]) groups of n_keys keys and
 // n_queries >= n_keys query rows at head width d (64 or 128), n_keys <=
@@ -525,7 +525,7 @@ inline cudaError_t launch_grand_attn(const float* q, const float* k, const float
                                      Strides sq, Strides sk, Strides sv, Strides so, int B,
                                      int H, int n_keys, int n_queries, int d, float scale,
                                      cudaStream_t stream, int outer = 1, float* stats = nullptr) {
-  if (n_keys <= 0 || n_keys > kMaxN || n_queries < n_keys || !f32_head_dim(d) ||
+  if (n_keys <= 0 || n_keys > kMaxN || n_queries < n_keys || !takes_head_dim(d) ||
       (stats != nullptr && (kOuter || n_keys <= kSmallKeys))) {
     return cudaErrorInvalidValue;
   }

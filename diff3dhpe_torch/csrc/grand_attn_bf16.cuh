@@ -1,6 +1,6 @@
 // bf16 GRAND attention forward on the tensor cores, for Hopper (sm_90a):
 // the attention step of B1, B2 and B5 at bf16 (fused_block.cu) and B3 at
-// bf16 (grand_attention.cu).
+// bf16 (grand_attention.cu), at head width 64 or 128.
 //
 //   out[i] = bf16( Σ_j bf16(softmax_j(q_i·k_j·scale)) v_j − v_i )
 //
@@ -19,6 +19,8 @@
 // output 67 MB: ~0.02 ms either way. The 32 M exact exponentials of the
 // softmax and the K/V loads cost more than the products, so the design
 // spends tensor-core work freely and keeps everything else in registers.
+// At d = 128 (272 pairs) the products and bytes are the same and the
+// exponentials half as many.
 //
 // Design:
 // - Both products are mma.sync m16n8k16 (bf16 in, f32 out). A warp owns 16
@@ -30,22 +32,33 @@
 //   round unnormalised exponentials, another rounding than the TPU
 //   kernel's. The kernel is compiled for 32, 64, 128 and 256 padded keys
 //   (the register arrays need constant bounds); the launcher picks by n.
+// - Q·Kᵀ runs the head dimension in the outer loop: one 16-column A
+//   fragment of Q (4 registers) is live at a time, whatever D is. Each
+//   score tile still sums over d in order, so both loop orders give the
+//   same bits.
 // - The C fragment of S has the register layout of the A fragment of P·V,
 //   so P goes from the softmax into the second product in registers,
-//   rounded to bf16 pairs on the way. V is that product's B operand with
-//   the keys along k: ldmatrix.trans from the [key][64] tile.
-// - q, k and v stay strided views (a head's row is 128 contiguous bytes):
-//   eight 16-byte cp.async a row into shared tiles whose rows are padded to
-//   144 bytes, so the 8 rows of an ldmatrix fall in distinct banks. Rows
-//   past n are zero-filled (0 x garbage cannot make a NaN), pad keys get
-//   −inf before the max, pad query rows are computed and not stored. V is
-//   its own cp.async group and lands while S and the softmax are computed.
-// - Parallelism: a block takes one (group, head) and 64 queries (4 warps;
-//   2 blocks an SM at up to 255 registers), each block loading the pair's
-//   whole K and V (2 x 36 KB from L2). At n <= 32 a pair has one or two
-//   m16 tiles, so a block of 8 warps takes 4 or 8 pairs, each with its own
-//   tiles. The output tile is staged through the warp's Q rows in shared
-//   memory and stored as 16-byte rows.
+//   rounded to packed bf16 pairs on the way: after the rounding the f32
+//   scores are dead, and P·V's accumulators (D / 2 registers: 64 at
+//   d = 128) take their place. V is that product's B operand with the keys
+//   along k: ldmatrix.trans from the [key][D] tile.
+// - q, k and v stay strided views (a head's row is 2·D contiguous bytes):
+//   D / 8 16-byte cp.async a row into shared tiles whose rows are padded by
+//   16 bytes (144 or 272), so the 8 rows of an ldmatrix fall in distinct
+//   banks. Rows past n are zero-filled (0 x garbage cannot make a NaN), pad
+//   keys get −inf before the max, pad query rows are computed and not
+//   stored. V is its own cp.async group and lands while S and the softmax
+//   are computed.
+// - Parallelism: a team of warps takes one (group, head), each warp 16 of
+//   its queries, and loads the pair's whole K and V once for the team.
+//   d = 64: 4 warps a block above 32 keys, 2 blocks an SM at up to 255
+//   registers (K and V 2 x 36 KB). d = 128: K and V are 2 x 68 KB at 256
+//   keys, so a block of 8 warps (128 queries) shares them, one block an SM
+//   (174 KB of shared memory, 255 registers). At n <= 32 a pair has one or
+//   two m16 tiles, so a block of 8 warps takes up to 8 pairs (4 at n = 17),
+//   each team with its own tiles, 2 blocks an SM at either width. The
+//   output tile is staged through the warp's Q rows in shared memory and
+//   stored as 16-byte rows.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -104,37 +117,55 @@ __device__ __forceinline__ unsigned pack_bf16(float x, float y) {
 
 namespace grand {
 
-constexpr int kTcLd = kHeadDim + 8;  // bf16 per shared row: 144 bytes
-
-// Bytes of shared memory one (group, head) pair holds in a block: K and V
-// [16·KT16][72] and Q [16·qtb][72].
-__host__ __device__ constexpr size_t tc_slot_bytes(int kt16, int qtb) {
-  return (size_t)(2 * 16 * kt16 + 16 * qtb) * kTcLd * sizeof(__nv_bfloat16);
+// bf16 per shared row of a head of width D: 16 bytes of padding.
+template <int D>
+__host__ __device__ constexpr int tc_ld() {
+  return D + 8;
 }
 
+// Bytes of shared memory one (group, head) pair holds in a block: K and V
+// [16·KT16][D + 8] and Q [16·qtb][D + 8].
+template <int D>
+__host__ __device__ constexpr size_t tc_slot_bytes(int kt16, int qtb) {
+  return (size_t)(2 * 16 * kt16 + 16 * qtb) * tc_ld<D>() * sizeof(__nv_bfloat16);
+}
+
+// Warps a block, blocks an SM, and the shared memory a block may take, by
+// head width and padded keys (see the design notes above).
+template <int D, int KT16>
+struct TcConfig {
+  static constexpr bool kWide = D == 128 && KT16 > 2;  // one block an SM
+  static constexpr int kWarps = KT16 <= 2 || kWide ? 8 : 4;
+  static constexpr int kMinBlocks = kWide ? 1 : 2;
+  static constexpr size_t kSmemBudget = kWide ? 220 * 1024 : 110 * 1024;
+};
+
 // Rows [row0, row0 + rows) of one head of a strided operand into a
-// [rows][72] shared tile by the `threads` threads of a team; rows at or
+// [rows][D + 8] shared tile by the `threads` threads of a team; rows at or
 // past n_valid are zero-filled.
+template <int D>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                            long long row_stride, int row0, int rows, int n_valid,
                                            int tid, int threads) {
-  for (int e = tid; e < rows * (kHeadDim / 8); e += threads) {
-    const int r = e >> 3, c = (e & 7) * 8, i = row0 + r;
+  constexpr int kChunks = D / 8;  // 16-byte pieces of a row
+  for (int e = tid; e < rows * kChunks; e += threads) {
+    const int r = e / kChunks, c = (e % kChunks) * 8, i = row0 + r;
     const bool ok = i < n_valid;
-    mma::cp_async16(dst + r * kTcLd + c, src + (ok ? i : 0) * row_stride + c, ok);
+    mma::cp_async16(dst + r * tc_ld<D>() + c, src + (ok ? i : 0) * row_stride + c, ok);
   }
 }
 
 // Warps are grouped in teams of qtb: team s of block x takes pair
 // x·teams + s (b = pair / H, h = pair % H) and warp w of the team its
 // query rows (blockIdx.y·qtb + w)·16 ... + 15. Keys are padded to 16·KT16.
-template <int KT16, bool kOuter>
-__global__ void __launch_bounds__(KT16 <= 2 ? 256 : 128, 2)
+template <int D, int KT16, bool kOuter>
+__global__ void __launch_bounds__(32 * TcConfig<D, KT16>::kWarps, TcConfig<D, KT16>::kMinBlocks)
 grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                        Strides sq, Strides sk, Strides sv, Strides so, int pairs, int H,
                        int n_keys, int n_queries, int qtb, float scale) {
   using bf16 = __nv_bfloat16;
+  constexpr int kLd = tc_ld<D>();
   constexpr int kKeys = 16 * KT16, kTiles = 2 * KT16;  // padded keys; n8 tiles of S
   extern __shared__ __align__(16) unsigned char grand_attn_bf16_smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -143,9 +174,9 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const bool live = pair < pairs;
   const int b = live ? pair / H : 0, h = live ? pair % H : 0;
 
-  bf16* Ks = reinterpret_cast<bf16*>(grand_attn_bf16_smem + team * tc_slot_bytes(KT16, qtb));
-  bf16* Vs = Ks + kKeys * kTcLd;
-  bf16* Qs = Vs + kKeys * kTcLd;
+  bf16* Ks = reinterpret_cast<bf16*>(grand_attn_bf16_smem + team * tc_slot_bytes<D>(KT16, qtb));
+  bf16* Vs = Ks + kKeys * kLd;
+  bf16* Qs = Vs + kKeys * kLd;
 
   const bf16* qbase = q + b * sq.b + h * sq.h;
   const bf16* kbase = k + b * sk.b + h * sk.h;
@@ -162,10 +193,10 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   // Q and K first, V as a second group that lands during the softmax.
   const int q0 = blockIdx.y * qtb * 16;  // first query row of the team
   const int tid = wq * 32 + lane, team_threads = qtb * 32;
-  stage_rows(Qs, qbase, sq.n, q0, qtb * 16, live ? n_queries : 0, tid, team_threads);
-  stage_rows(Ks, kbase, sk.n, 0, kKeys, live ? n_keys : 0, tid, team_threads);
+  stage_rows<D>(Qs, qbase, sq.n, q0, qtb * 16, live ? n_queries : 0, tid, team_threads);
+  stage_rows<D>(Ks, kbase, sk.n, 0, kKeys, live ? n_keys : 0, tid, team_threads);
   mma::cp_async_commit();
-  stage_rows(Vs, vbase, sv.n, 0, kKeys, live ? n_keys : 0, tid, team_threads);
+  stage_rows<D>(Vs, vbase, sv.n, 0, kKeys, live ? n_keys : 0, tid, team_threads);
   mma::cp_async_commit();
   mma::cp_async_wait<1>();
   __syncthreads();
@@ -175,29 +206,26 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int g = lane >> 2, t = lane & 3;
   unsigned p[KT16][4];  // P as the A fragments of P·V: 16 keys each
   if (active) {
-    // S = Q·Kᵀ: Q as A fragments (rows by bit 3 of the lane, d by bit 4), K
-    // as B fragments (d by bit 3, keys by bit 4).
-    unsigned qf[4][4];
-#pragma unroll
-    for (int kd = 0; kd < 4; ++kd) {
-      mma::ldmatrix_x4(qf[kd], Qs + (wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kTcLd +
-                                   kd * 16 + (lane >> 4) * 8);
-    }
+    // S = Q·Kᵀ, 16 columns of d at a time: Q as an A fragment (rows by bit 3
+    // of the lane, d by bit 4), K as B fragments (d by bit 3, keys by bit 4).
     float s[kTiles][4];
 #pragma unroll
     for (int j = 0; j < kTiles; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < KT16; ++kc) {
-      if (kc * 16 < n_keys) {
+    for (int kd = 0; kd < D / 16; ++kd) {
+      unsigned qf[4];
+      mma::ldmatrix_x4(qf, Qs + (wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + kd * 16 +
+                               (lane >> 4) * 8);
 #pragma unroll
-        for (int kd = 0; kd < 4; ++kd) {
+      for (int kc = 0; kc < KT16; ++kc) {
+        if (kc * 16 < n_keys) {
           unsigned r[4];
-          mma::ldmatrix_x4(r, Ks + (kc * 16 + (lane & 7) + (lane >> 4) * 8) * kTcLd + kd * 16 +
+          mma::ldmatrix_x4(r, Ks + (kc * 16 + (lane & 7) + (lane >> 4) * 8) * kLd + kd * 16 +
                                   ((lane >> 3) & 1) * 8);
-          mma::mma_bf16(s[2 * kc], qf[kd], r);
-          mma::mma_bf16(s[2 * kc + 1], qf[kd], r + 2);
+          mma::mma_bf16(s[2 * kc], qf, r);
+          mma::mma_bf16(s[2 * kc + 1], qf, r + 2);
         }
       }
     }
@@ -221,7 +249,8 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
     m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
     // exp(S·scale − max·scale) with the scale folded into one fma: for
-    // scale = 64^-½ = 2^-3 this is the scaled logit minus its max, exactly.
+    // scale = d^-½ a power of two (d = 64) this is the scaled logit minus
+    // its max, exactly.
     m0 *= -scale;
     m1 *= -scale;
     float sum0 = 0.f, sum1 = 0.f;
@@ -255,18 +284,18 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
   // O = P·V: V as B fragments through ldmatrix.trans (keys by bit 3 of the
   // lane, the d tile by bit 4).
-  float o[kHeadDim / 8][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int jd = 0; jd < kHeadDim / 8; ++jd)
+  for (int jd = 0; jd < D / 8; ++jd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[jd][e] = 0.f;
 #pragma unroll
   for (int kc = 0; kc < KT16; ++kc) {
     if (kc * 16 < n_keys) {
 #pragma unroll
-      for (int jd = 0; jd < kHeadDim / 8; jd += 2) {
+      for (int jd = 0; jd < D / 8; jd += 2) {
         unsigned r[4];
-        mma::ldmatrix_x4_trans(r, Vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kTcLd +
+        mma::ldmatrix_x4_trans(r, Vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
                                       (jd + (lane >> 4)) * 8);
         mma::mma_bf16(o[jd], p[kc], r);
         mma::mma_bf16(o[jd + 1], p[kc], r + 2);
@@ -277,73 +306,89 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   // out = bf16(O − v), staged in this warp's Q rows (no other warp reads
   // them) and stored as 16-byte chunks. v_i comes from the V tile; a pad
   // query row (n_keys <= i < n_queries) reads it from device memory.
-  bf16* Os = Qs + wq * 16 * kTcLd;
+  bf16* Os = Qs + wq * 16 * kLd;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = g + half * 8, i = i0 + r;
 #pragma unroll
-    for (int jd = 0; jd < kHeadDim / 8; ++jd) {
+    for (int jd = 0; jd < D / 8; ++jd) {
       const int col = jd * 8 + 2 * t;
       float2 vv = make_float2(0.f, 0.f);
       if (i < n_keys) {
-        vv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Vs + i * kTcLd + col));
+        vv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Vs + i * kLd + col));
       } else if (i < n_queries) {
         vv = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(vbase + i * sv.n + col));
       }
-      *reinterpret_cast<__nv_bfloat162*>(Os + r * kTcLd + col) =
+      *reinterpret_cast<__nv_bfloat162*>(Os + r * kLd + col) =
           __floats2bfloat162_rn(o[jd][2 * half] - vv.x, o[jd][2 * half + 1] - vv.y);
     }
   }
   __syncwarp();
+  constexpr int kChunks = D / 8;  // 16-byte pieces of an output row
 #pragma unroll
-  for (int it = 0; it < 16 * (kHeadDim / 8) / 32; ++it) {
-    const int e = it * 32 + lane, r = e >> 3, c = (e & 7) * 8;
+  for (int it = 0; it < 16 * kChunks / 32; ++it) {
+    const int e = it * 32 + lane, r = e / kChunks, c = (e % kChunks) * 8;
     if (i0 + r < n_queries) {
       *reinterpret_cast<uint4*>(obase + (i0 + r) * so.n + c) =
-          *reinterpret_cast<const uint4*>(Os + r * kTcLd + c);
+          *reinterpret_cast<const uint4*>(Os + r * kLd + c);
     }
   }
 }
 
-template <int KT16, bool kOuter>
+template <int D, int KT16, bool kOuter>
 inline cudaError_t launch_grand_attn_bf16_keys(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                                const __nv_bfloat16* v, __nv_bfloat16* out,
                                                Strides sq, Strides sk, Strides sv, Strides so,
                                                int B, int H, int n_keys, int n_queries,
                                                float scale, cudaStream_t stream, int outer) {
-  constexpr int kWarps = KT16 <= 2 ? 8 : 4;
-  constexpr size_t kSmemBudget = 110 * 1024;  // two blocks an SM
+  using Cfg = TcConfig<D, KT16>;
   const int q_tiles = (n_queries + 15) / 16;
-  const int qtb = q_tiles < kWarps ? q_tiles : kWarps;
-  int teams = kWarps / qtb;
-  while (teams > 1 && teams * tc_slot_bytes(KT16, qtb) > kSmemBudget) --teams;
-  const size_t bytes = teams * tc_slot_bytes(KT16, qtb);
+  const int qtb = q_tiles < Cfg::kWarps ? q_tiles : Cfg::kWarps;
+  int teams = Cfg::kWarps / qtb;
+  while (teams > 1 && teams * tc_slot_bytes<D>(KT16, qtb) > Cfg::kSmemBudget) --teams;
+  const size_t bytes = teams * tc_slot_bytes<D>(KT16, qtb);
   const cudaError_t err =
-      cudaFuncSetAttribute(grand_attn_bf16_kernel<KT16, kOuter>,
+      cudaFuncSetAttribute(grand_attn_bf16_kernel<D, KT16, kOuter>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const int pairs = B * H;
   const dim3 grid((pairs + teams - 1) / teams, (q_tiles + qtb - 1) / qtb, outer);
-  grand_attn_bf16_kernel<KT16, kOuter><<<grid, 32 * qtb * teams, bytes, stream>>>(
+  grand_attn_bf16_kernel<D, KT16, kOuter><<<grid, 32 * qtb * teams, bytes, stream>>>(
       q, k, v, out, sq, sk, sv, so, pairs, H, n_keys, n_queries, qtb, scale);
   return cudaGetLastError();
 }
 
+template <int D, bool kOuter>
+inline cudaError_t launch_grand_attn_bf16_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                            const __nv_bfloat16* v, __nv_bfloat16* out,
+                                            Strides sq, Strides sk, Strides sv, Strides so, int B,
+                                            int H, int n_keys, int n_queries, float scale,
+                                            cudaStream_t stream, int outer) {
+#define GRAND_TC_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer
+  if (n_keys <= 32) return launch_grand_attn_bf16_keys<D, 2, kOuter>(GRAND_TC_ARGS);
+  if (n_keys <= 64) return launch_grand_attn_bf16_keys<D, 4, kOuter>(GRAND_TC_ARGS);
+  if (n_keys <= 128) return launch_grand_attn_bf16_keys<D, 8, kOuter>(GRAND_TC_ARGS);
+  return launch_grand_attn_bf16_keys<D, 16, kOuter>(GRAND_TC_ARGS);
+#undef GRAND_TC_ARGS
+}
+
 // Launches the bf16 attention on (B, H[, outer]) groups of n_keys keys and
-// n_queries >= n_keys query rows, n_keys <= kMaxN; every stride a multiple
-// of 8 elements and every base 16-byte aligned (checked by the callers).
+// n_queries >= n_keys query rows at head width d (64 or 128), n_keys <=
+// kMaxN; every stride a multiple of 8 elements and every base 16-byte
+// aligned (checked by the callers).
 template <bool kOuter = false>
 inline cudaError_t launch_grand_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                           const __nv_bfloat16* v, __nv_bfloat16* out, Strides sq,
                                           Strides sk, Strides sv, Strides so, int B, int H,
-                                          int n_keys, int n_queries, float scale,
+                                          int n_keys, int n_queries, int d, float scale,
                                           cudaStream_t stream, int outer = 1) {
+  if (n_keys <= 0 || n_keys > kMaxN || n_queries < n_keys || !takes_head_dim(d)) {
+    return cudaErrorInvalidValue;
+  }
 #define GRAND_TC_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer
-  if (n_keys <= 32) return launch_grand_attn_bf16_keys<2, kOuter>(GRAND_TC_ARGS);
-  if (n_keys <= 64) return launch_grand_attn_bf16_keys<4, kOuter>(GRAND_TC_ARGS);
-  if (n_keys <= 128) return launch_grand_attn_bf16_keys<8, kOuter>(GRAND_TC_ARGS);
-  return launch_grand_attn_bf16_keys<16, kOuter>(GRAND_TC_ARGS);
+  return d == 64 ? launch_grand_attn_bf16_d<64, kOuter>(GRAND_TC_ARGS)
+                 : launch_grand_attn_bf16_d<128, kOuter>(GRAND_TC_ARGS);
 #undef GRAND_TC_ARGS
 }
 

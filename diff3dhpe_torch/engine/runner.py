@@ -25,6 +25,7 @@ from diff3dhpe_torch.io.convert import state_dict_from_flax
 from diff3dhpe_torch.metrics import mean_velocity_error, mpjpe, n_mpjpe, p_mpjpe
 from diff3dhpe_torch.models import HPE_model
 from diff3dhpe_torch.ops.attention import HEAD_DIMS
+from diff3dhpe_torch.ops.fused_block import LN_MAX_C
 
 
 class RunLogger:
@@ -62,16 +63,21 @@ class RunLogger:
 def check_supported(cfg: Config, device="cpu") -> None:
     """Raises ValueError, naming the field, for a configuration the JAX
     package runs and the port does not yet. On a CUDA ``device`` also for a
-    head width that the kernels of the configured path do not take: the
-    float32 kernels take head_dim 64 and 128, the bf16 ones (the mixed and
-    pure-bf16 ``fast_eval``) 64 only; the CPU runs every head width."""
+    head width that the kernels of the configured path do not take: they
+    take head_dim 64 and 128 (float32 and bf16); and, with ``fast_eval``,
+    for an ``embed_dim`` wider than the block's LayerNorm kernel holds
+    (``LN_MAX_C``: 2048 where a step runs float32, 4096 at bf16 alone). The
+    CPU runs every width.
+
+    ``remat`` is accepted: in JAX it only chooses whether the blocks are
+    rematerialised in the backward pass of training
+    (diff3dhpe_tpu/models/mixste.py:262-279), so an evaluation with it on
+    computes what one without it computes, and the runner only evaluates."""
     def refuse(field, why):
         raise ValueError(f"{field}={getattr(cfg, field)!r} is not ported: {why}")
 
     if cfg.mesh_shape is not None and cfg.mesh_shape.replace(" ", "") not in ("data:1", ""):
         refuse("mesh_shape", "the port runs on one device")
-    if cfg.remat:
-        refuse("remat", "rematerialisation belongs to training, which the runner does not do yet")
     bf16 = cfg.compute_dtype == "bfloat16"
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         refuse("compute_dtype", "float32 or bfloat16")
@@ -86,11 +92,16 @@ def check_supported(cfg: Config, device="cpu") -> None:
         refuse("eval_final_prec", "the float32 kernels contract in exact float32 "
                "('high3' and 'highest' both mean that)")
     if torch.device(device).type == "cuda" and (cfg.fast_eval or cfg.use_pallas_attention):
-        dtype = torch.bfloat16 if bf16 else torch.float32
         head_dim = cfg.embed_dim // cfg.num_heads
-        if head_dim not in HEAD_DIMS[dtype]:
+        if head_dim not in HEAD_DIMS:
             refuse("num_heads", f"head_dim {head_dim} (embed_dim {cfg.embed_dim}): the CUDA "
-                   f"kernels of this path take head_dim {HEAD_DIMS[dtype]} at {dtype}")
+                   f"kernels of this path take head_dim {HEAD_DIMS}")
+    if torch.device(device).type == "cuda" and cfg.fast_eval:
+        f32_steps = not bf16 or cfg.eval_f32_final_steps > 0
+        widest = LN_MAX_C[torch.float32 if f32_steps else torch.bfloat16]
+        if cfg.embed_dim > widest:
+            refuse("embed_dim", f"the CUDA LayerNorm of the fused blocks takes rows of up to "
+                   f"{widest} at this path's dtypes")
 
 
 class Runner:

@@ -45,7 +45,7 @@ SIGNATURES = {
             + [_P, _P, _F]                     # out-LN w, b, eps
             + [_P] * 7                         # xs, xn, qkv, attn, h1, mid, out
             + [_I] * 7 + [_F]                  # R, C, hidden, n, n_pad, j_groups, heads, scale
-            + [ctypes.POINTER(_I), _P]         # launches, stream
+            + [ctypes.POINTER(_I), _P]         # launches[3], stream
         )
         for name in ("diff3dhpe_fused_block_f32", "diff3dhpe_fused_block_bf16")
     } | {
@@ -54,16 +54,26 @@ SIGNATURES = {
             + [_P, _P, _P, _P]                 # qkv w, b; proj w, b
             + [_P] * 4                         # xn, qkv, attn, out
             + [_I] * 4 + [_F]                  # R, C, n, heads, scale
-            + [ctypes.POINTER(_I), _P]         # launches, stream
+            + [ctypes.POINTER(_I), _P]         # launches[3], stream
         )
         for name in ("diff3dhpe_fused_attn_block_f32", "diff3dhpe_fused_attn_block_bf16")
     } | {
-        "diff3dhpe_gemm_bf16": (
+        name: (
             [_P] * 6 + [_I] * 4                # a, w, bias, res, rscale, out; M, N, K, epilogue
             + [ctypes.POINTER(_I), _P]         # launches, stream
-        ),
-        "diff3dhpe_attn_takes_head_dim": [_I, _I],   # head_dim, bf16
+        )
+        for name in ("diff3dhpe_gemm_f32", "diff3dhpe_gemm_bf16")
+    } | {
+        name: (
+            [_P, _P, _I, _P, _P, _F]           # x, t, rows_per_item, w, b, eps
+            + [_P, _P, _I, _I]                 # xs, y, R, C
+            + [ctypes.POINTER(_I), _P]         # launches, stream
+        )
+        for name in ("diff3dhpe_layer_norm_f32", "diff3dhpe_layer_norm_bf16")
+    } | {
+        "diff3dhpe_attn_takes_head_dim": [_I],       # head_dim
         "diff3dhpe_attn_max_n": [],
+        "diff3dhpe_ln_max_c": [_I],                  # bytes of an element
     },
     "grand_attention": {
         "diff3dhpe_grand_attn_fwd_f32": (
@@ -87,7 +97,7 @@ SIGNATURES = {
             + [_L] * 24                        # (b, h, n) strides of q, k, v, dO, out, dq, dk, dv
             + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
         ),
-        "diff3dhpe_grand_takes_head_dim": [_I, _I],  # head_dim, bf16
+        "diff3dhpe_grand_takes_head_dim": [_I],      # head_dim
         "diff3dhpe_grand_max_n": [],
         "diff3dhpe_grand_small_max_n": [],
     },

@@ -16,13 +16,12 @@ Port of ``diff3dhpe_tpu/ops/attention.py``:
 - ``grand_attention_trainable``: the same function with the hand-written
   backward, a ``torch.autograd.Function`` (JAX's custom VJP).
 
-The float32 kernels take head_dim 64 or 128 and n <= 256 (B6: n <= 64)
-and read their operands through strides (unit stride on the head dim), so
-views of a qkv projection go in without a copy. B3 also takes bfloat16 at
-head_dim 64 (JAX's takes q's dtype): the tensor-core kernel of
-``csrc/grand_attn_bf16.cuh``, which rounds P to bf16 after the
-normalisation and the output once, as ``grand_attention_stored`` does. B4
-and B6 are float32.
+The kernels take head_dim 64 or 128 and n <= 256 (B6: n <= 64) and read
+their operands through strides (unit stride on the head dim), so views of a
+qkv projection go in without a copy. B3 also takes bfloat16 (JAX's takes
+q's dtype): the tensor-core kernel of ``csrc/grand_attn_bf16.cuh``, which
+rounds P to bf16 after the normalisation and the output once, as
+``grand_attention_stored`` does. B4 and B6 are float32.
 """
 from __future__ import annotations
 
@@ -33,9 +32,9 @@ import torch
 # n at or below which the dispatcher sends a group to B6 and the trainable
 # backward stays on the plain formulas (JAX ops/attention.py:240, :401-402).
 SMALL_N = 64
-# Head widths the kernels take, by dtype (the library's
+# Head widths the kernels take, at float32 and at bfloat16 (the library's
 # diff3dhpe_grand_takes_head_dim is what the wrappers ask).
-HEAD_DIMS = {torch.float32: (64, 128), torch.bfloat16: (64,)}
+HEAD_DIMS = (64, 128)
 
 
 def grand_attention(q, k, v, scale=None):
@@ -251,9 +250,9 @@ def _strides(t):
     return [ctypes.c_longlong(s) for s in t.stride()[:3]]
 
 
-def _library(q, scale, small=False, dtype=torch.float32):
+def _library(q, scale, small=False):
     """The loaded library and the scale, after checking what the kernel
-    takes at ``dtype`` (B6's bound on n with ``small``)."""
+    takes (B6's bound on n with ``small``)."""
     from diff3dhpe_torch.ops._build import load_library
 
     if q.device.type != "cuda":
@@ -261,9 +260,9 @@ def _library(q, scale, small=False, dtype=torch.float32):
     lib = load_library("grand_attention")
     b, h, n, d = q.shape
     max_n = lib.diff3dhpe_grand_small_max_n() if small else lib.diff3dhpe_grand_max_n()
-    if not lib.diff3dhpe_grand_takes_head_dim(d, dtype == torch.bfloat16) or not 0 < n <= max_n:
+    if not lib.diff3dhpe_grand_takes_head_dim(d) or not 0 < n <= max_n:
         raise ValueError(
-            f"the CUDA kernel takes head_dim {HEAD_DIMS[dtype]} at {dtype} and "
+            f"the CUDA kernel takes head_dim {HEAD_DIMS} and "
             f"0 < n <= {max_n}, got head_dim {d} and n {n}"
         )
     return lib, d ** -0.5 if scale is None else float(scale)
@@ -285,7 +284,7 @@ def _launch_fwd(q, k, v, out, scale, small=False, stats=None):
     counts it on its wrapper. ``stats``: B4's statistics (``_bwd_stats``),
     which B3 at float32 fills with the rows' max and 1/sum."""
     dtype = torch.float32 if small else q.dtype
-    lib, scale = _library(q, scale, small, dtype)
+    lib, scale = _library(q, scale, small)
     q, k, v = (_kernel_operand(t, q, dtype) for t in (q, k, v))
     b, h, n, d = q.shape
     extra = []  # the f32 B3 entry point's statistics pointer

@@ -37,6 +37,9 @@ from torch.nn import functional as F
 from diff3dhpe_torch.ops.attention import HEAD_DIMS, grand_attention_stored
 
 DTYPES = (torch.float32, torch.bfloat16)
+# The widest row the LayerNorm kernel holds (32 lanes x 16 pieces of 16
+# bytes; csrc/fused_block.cu::diff3dhpe_ln_max_c).
+LN_MAX_C = {torch.float32: 2048, torch.bfloat16: 4096}
 
 
 def _check_block(x, block, heads):
@@ -171,7 +174,8 @@ def fused_transformer_block(x, block, n, heads, *, n_pad=None, t_rows=None,
 
     A CPU tensor runs the plain version. A CUDA tensor launches the
     kernels (7, or 8 with ``out_ln``; ``fused_transformer_block.launches``
-    counts them, ``.launches_bf16`` those at bf16) or raises."""
+    counts them, ``.launches_bf16`` those at bf16, ``.launches_ln`` the
+    LayerNorms and ``.launches_gemm_f32`` the GEMMs at f32) or raises."""
     if x.device.type == "cpu":
         return fused_transformer_block_ref(
             x, block, n, heads, n_pad=n_pad, t_rows=t_rows,
@@ -187,6 +191,8 @@ def fused_transformer_block(x, block, n, heads, *, n_pad=None, t_rows=None,
 
 fused_transformer_block.launches = 0
 fused_transformer_block.launches_bf16 = 0
+fused_transformer_block.launches_ln = 0
+fused_transformer_block.launches_gemm_f32 = 0
 
 
 def fused_temporal_block_cols_ref(x, block, n, j_groups, heads, *, t_rows=None, out_ln=None,
@@ -217,7 +223,8 @@ def fused_temporal_block_cols(x, block, n, j_groups, heads, *, t_rows=None, out_
 
     A CPU tensor runs the plain version. A CUDA tensor launches the kernels
     (7, or 8 with ``out_ln``; ``fused_temporal_block_cols.launches`` counts
-    them, ``.launches_bf16`` those at bf16) or raises."""
+    them, ``.launches_bf16``, ``.launches_ln`` and ``.launches_gemm_f32`` as
+    ``fused_transformer_block``'s) or raises."""
     if x.device.type == "cpu":
         return fused_temporal_block_cols_ref(x, block, n, j_groups, heads, t_rows=t_rows,
                                              out_ln=out_ln, dp_scales=dp_scales)
@@ -235,6 +242,8 @@ def fused_temporal_block_cols(x, block, n, j_groups, heads, *, t_rows=None, out_
 
 fused_temporal_block_cols.launches = 0
 fused_temporal_block_cols.launches_bf16 = 0
+fused_temporal_block_cols.launches_ln = 0
+fused_temporal_block_cols.launches_gemm_f32 = 0
 
 
 def _check_attn_args(x, block, n, heads):
@@ -268,7 +277,8 @@ def fused_attention_block(x, block, n, heads):
 
     A CPU tensor runs the plain version. A CUDA tensor launches the 4
     kernels (``fused_attention_block.launches`` counts them,
-    ``.launches_bf16`` those at bf16) or raises."""
+    ``.launches_bf16``, ``.launches_ln`` and ``.launches_gemm_f32`` as
+    ``fused_transformer_block``'s) or raises."""
     if x.device.type == "cpu":
         return fused_attention_block_ref(x, block, n, heads)
     if x.device.type != "cuda":
@@ -279,32 +289,39 @@ def fused_attention_block(x, block, n, heads):
 
 fused_attention_block.launches = 0
 fused_attention_block.launches_bf16 = 0
+fused_attention_block.launches_ln = 0
+fused_attention_block.launches_gemm_f32 = 0
 
 
-EPILOGUES = ("bias", "gelu", "residual")  # the kernel's epilogue codes 0, 1, 2
+EPILOGUES = ("bias", "gelu", "residual")  # the kernels' epilogue codes 0, 1, 2
+
+
+def _epilogue_ref(acc, epilogue, res, rscale):
+    """The GEMM epilogue in float32 on acc = a · wᵀ + bias."""
+    if epilogue == "gelu":
+        return F.gelu(acc)
+    if epilogue == "residual":
+        return res.float() + (acc if rscale is None else rscale[:, 0:1].float() * acc)
+    return acc
+
+
+def _gemm_f32_ref(a, w, bias=None, epilogue="bias", res=None, rscale=None):
+    """Plain version of ``_gemm_f32``: ``F.linear`` in float32 and the
+    epilogue."""
+    return _epilogue_ref(F.linear(a, w, bias), epilogue, res, rscale)
 
 
 def _gemm_bf16_ref(a, w, bias=None, epilogue="bias", res=None, rscale=None):
     """Plain version of ``_gemm_bf16``: a float32 matmul of the bf16
     operands, the epilogue in float32, one rounding to bf16."""
     acc = F.linear(a.float(), w.float(), None if bias is None else bias.float())
-    if epilogue == "gelu":
-        acc = F.gelu(acc)
-    elif epilogue == "residual":
-        acc = res.float() + (acc if rscale is None else rscale[:, 0:1].float() * acc)
-    return acc.to(torch.bfloat16)
+    return _epilogue_ref(acc, epilogue, res, rscale).to(torch.bfloat16)
 
 
-def _gemm_bf16(a, w, bias=None, epilogue="bias", res=None, rscale=None):
-    """The block kernels' bf16 GEMM alone, for tests and measurements (no
-    model path calls it): bf16(epilogue(a[M, K] · w[N, K]ᵀ + bias)) with a,
-    w and ``res`` [M, N] bfloat16, ``bias`` [N] float32 or None, and the
-    epilogue one of ``EPILOGUES``: the bias only, exact GELU, or
-    res + s · (…) with the row's scale s = rscale[row, 0] for ``rscale``
-    [M, 2] float32 (the layout of the block's drop-path scales) or 1.
-
-    A CPU tensor runs the plain version. A CUDA tensor launches the kernel
-    (``_gemm_bf16.launches`` counts launches) or raises."""
+def _gemm(wrapper, plain, dt, a, w, bias, epilogue, res, rscale):
+    """Checks the arguments of a block GEMM in storage type ``dt``; runs
+    ``plain`` for a CPU tensor, else launches the kernel and counts it on
+    ``wrapper``."""
     (m, k), n = a.shape, w.shape[0]
     if epilogue not in EPILOGUES or (epilogue == "residual") != (res is not None):
         raise ValueError(f"epilogue must be one of {EPILOGUES}, with res for 'residual' only")
@@ -314,28 +331,126 @@ def _gemm_bf16(a, w, bias=None, epilogue="bias", res=None, rscale=None):
         raise ValueError(f"need a [M, K], w [N, K], bias [N], res [M, N], rscale [M, 2]; got a "
                          f"{tuple(a.shape)} and w {tuple(w.shape)}")
     if a.device.type == "cpu":
-        return _gemm_bf16_ref(a, w, bias, epilogue, res, rscale)
+        return plain(a, w, bias, epilogue, res, rscale)
     from diff3dhpe_torch.ops._build import load_library
 
-    if k % 32 or n % 8:
+    f32 = torch.float32
+    if dt == f32 and k % 4:
+        raise ValueError(f"the f32 CUDA kernel needs K % 4 == 0, got K={k}")
+    if dt != f32 and (k % 32 or n % 8):
         raise ValueError(f"the CUDA kernel needs K % 32 == 0 and N % 8 == 0, got K={k}, N={n}")
     lib = load_library("fused_block")
-    bf, f32 = torch.bfloat16, torch.float32
-    out = torch.empty((m, n), device=a.device, dtype=bf)
+    fn = lib.diff3dhpe_gemm_f32 if dt == f32 else lib.diff3dhpe_gemm_bf16
+    out = torch.empty((m, n), device=a.device, dtype=dt)
     launched = ctypes.c_int(0)
     with torch.cuda.device(a.device):
-        err = lib.diff3dhpe_gemm_bf16(
-            _ptr(a, bf), _ptr(w, bf), _ptr(bias, f32), _ptr(res, bf), _ptr(rscale, f32),
-            _ptr(out, bf), m, n, k, EPILOGUES.index(epilogue), ctypes.byref(launched),
+        err = fn(
+            _ptr(a, dt), _ptr(w, dt), _ptr(bias, f32), _ptr(res, dt), _ptr(rscale, f32),
+            _ptr(out, dt), m, n, k, EPILOGUES.index(epilogue), ctypes.byref(launched),
             torch.cuda.current_stream(a.device).cuda_stream,
         )
-    _gemm_bf16.launches += launched.value
+    wrapper.launches += launched.value
     if err:
-        raise RuntimeError(f"the bf16 GEMM kernel failed: cudaError_t {err}")
+        raise RuntimeError(f"the {wrapper.__name__} kernel failed: cudaError_t {err}")
     return out
 
 
+def _gemm_f32(a, w, bias=None, epilogue="bias", res=None, rscale=None):
+    """The block kernels' f32 GEMM alone, for tests and measurements (no
+    model path calls it): epilogue(a[M, K] · w[N, K]ᵀ + bias) in exact
+    float32 FMAs, with a, w, ``res`` [M, N] and ``bias`` [N] (or None)
+    float32 and the epilogue one of ``EPILOGUES``: the bias only, exact
+    GELU, or res + s · (…) with the row's scale s = rscale[row, 0] for
+    ``rscale`` [M, 2] float32 (the layout of the block's drop-path scales)
+    or 1.
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the kernel
+    (``_gemm_f32.launches`` counts launches) or raises."""
+    return _gemm(_gemm_f32, _gemm_f32_ref, torch.float32, a, w, bias, epilogue, res, rscale)
+
+
+_gemm_f32.launches = 0
+
+
+def _gemm_bf16(a, w, bias=None, epilogue="bias", res=None, rscale=None):
+    """The same for the block kernels' bf16 GEMM: bf16(epilogue(a · wᵀ +
+    bias)) with a, w and ``res`` bfloat16 and ``bias`` and ``rscale``
+    float32.
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the kernel
+    (``_gemm_bf16.launches`` counts launches) or raises."""
+    return _gemm(_gemm_bf16, _gemm_bf16_ref, torch.bfloat16, a, w, bias, epilogue, res, rscale)
+
+
 _gemm_bf16.launches = 0
+
+
+def _check_ln_args(x, weight, bias, t_rows, rows_per_item):
+    if x.ndim != 2 or x.dtype not in DTYPES:
+        raise ValueError(f"x must be [R, C] float32 or bfloat16, got {tuple(x.shape)} {x.dtype}")
+    r, c = x.shape
+    if weight.shape != (c,) or bias.shape != (c,):
+        raise ValueError(f"weight and bias must be [{c}], got {tuple(weight.shape)} and "
+                         f"{tuple(bias.shape)}")
+    if t_rows is not None and (rows_per_item is None or rows_per_item <= 0 or t_rows.ndim != 2
+                               or t_rows.shape[1] != c
+                               or (r - 1) // rows_per_item >= t_rows.shape[0]):
+        raise ValueError(f"t_rows {tuple(t_rows.shape)} with rows_per_item {rows_per_item} does "
+                         f"not cover R={r} rows at C={c}")
+
+
+def layer_norm_rows_ref(x, weight, bias, eps=1e-6, *, t_rows=None, rows_per_item=None):
+    """Plain version of ``layer_norm_rows`` (same arguments, same result)."""
+    _check_ln_args(x, weight, bias, t_rows, rows_per_item)
+    dt = x.dtype
+    rnd = (lambda a: a) if dt == torch.float32 else (lambda a: a.to(dt).float())
+    xs = x.float()
+    if t_rows is not None:
+        rows = torch.arange(x.shape[0], device=x.device) // rows_per_item
+        xs = rnd(xs + rnd(t_rows.float())[rows])
+    y = F.layer_norm(xs, (x.shape[1],), weight.float(), bias.float(), eps)
+    return y.to(dt), xs.to(dt)
+
+
+def layer_norm_rows(x, weight, bias, eps=1e-6, *, t_rows=None, rows_per_item=None):
+    """The block kernels' LayerNorm alone, for tests and measurements (the
+    block launches the same kernel): (y, xs) with xs = x + t_rows[row //
+    rows_per_item] (x itself without ``t_rows``) and y = LN(xs) · weight +
+    bias, on rows x [R, C] of float32 or bfloat16. At bf16 xs is rounded to
+    bf16 before the statistics (JAX's ``_layernorm_rows`` on the stored
+    residual stream), which are float32, and y is rounded once. ``weight``
+    and ``bias`` [C] are read as float32.
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the kernel
+    (``layer_norm_rows.launches`` counts launches) or raises."""
+    if x.device.type == "cpu":
+        return layer_norm_rows_ref(x, weight, bias, eps, t_rows=t_rows,
+                                   rows_per_item=rows_per_item)
+    _check_ln_args(x, weight, bias, t_rows, rows_per_item)
+    from diff3dhpe_torch.ops._build import load_library
+
+    dt, f32 = x.dtype, torch.float32
+    r, c = x.shape
+    lib = load_library("fused_block")
+    _ln_limits(lib, x)
+    w, b, t = _as(weight, f32), _as(bias, f32), _as(t_rows, dt)
+    y = torch.empty_like(x)
+    xs = x if t is None else torch.empty_like(x)
+    launched = ctypes.c_int(0)
+    fn = lib.diff3dhpe_layer_norm_f32 if dt == f32 else lib.diff3dhpe_layer_norm_bf16
+    with torch.cuda.device(x.device):
+        err = fn(
+            _ptr(x, dt), _ptr(t, dt), rows_per_item or 1, _ptr(w, f32), _ptr(b, f32), eps,
+            None if t is None else _ptr(xs, dt), _ptr(y, dt), r, c, ctypes.byref(launched),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    layer_norm_rows.launches += launched.value
+    if err:
+        raise RuntimeError(f"the layer_norm_rows kernel failed: cudaError_t {err}")
+    return y, xs
+
+
+layer_norm_rows.launches = 0
 
 
 def _ptr(t, dtype):
@@ -357,20 +472,40 @@ def _as(t, dtype):
     return t if t is None or t.dtype == dtype else t.to(dtype)
 
 
+def _ln_limits(lib, x):
+    """Raises unless the LayerNorm kernel takes rows of x's width and dtype."""
+    c, dt = x.shape[1], x.dtype
+    if c % (16 // x.element_size()) or c > lib.diff3dhpe_ln_max_c(x.element_size()):
+        raise ValueError(f"the CUDA LayerNorm takes C in 16-byte pieces up to "
+                         f"{lib.diff3dhpe_ln_max_c(x.element_size())} at {dt}, got C={c}")
+
+
 def _kernel_limits(lib, x, n, heads, widths):
-    """Raises unless the block kernels take this head_dim, n and these GEMM
-    widths at x's dtype."""
+    """Raises unless the block kernels take this head_dim, n, LayerNorm
+    width and these GEMM widths at x's dtype."""
+    _ln_limits(lib, x)
     d = x.shape[1] // heads
-    bf16 = x.dtype == torch.bfloat16
-    if not lib.diff3dhpe_attn_takes_head_dim(d, bf16) or n > lib.diff3dhpe_attn_max_n():
+    if not lib.diff3dhpe_attn_takes_head_dim(d) or n > lib.diff3dhpe_attn_max_n():
         raise ValueError(
-            f"the CUDA kernel takes head_dim {HEAD_DIMS[x.dtype]} at {x.dtype} and "
+            f"the CUDA kernel takes head_dim {HEAD_DIMS} and "
             f"n <= {lib.diff3dhpe_attn_max_n()}, got head_dim {d} and n {n}"
         )
     step = 8 if x.dtype == torch.float32 else 32  # the bf16 GEMM takes K in steps of 32
     if any(w % step for w in widths):
         raise ValueError(f"the CUDA kernel needs C and hidden multiples of {step} at {x.dtype}, "
                          f"got {widths}")
+
+
+def _count(wrapper, launched, dt):
+    """Adds a block entry point's launches [all, LayerNorms, GEMMs] (see
+    LaunchCount in csrc/fused_block.cu) to the wrapper's counts."""
+    every, ln, gemm = launched
+    wrapper.launches += every
+    wrapper.launches_ln += ln
+    if dt == torch.float32:
+        wrapper.launches_gemm_f32 += gemm
+    else:
+        wrapper.launches_bf16 += every
 
 
 def _launch_attn(x, block, n, heads):
@@ -392,7 +527,7 @@ def _launch_attn(x, block, n, heads):
     ln_w, ln_b, wq, bq, wp, bp = operands
     empty = lambda cols: torch.empty((r, cols), device=x.device, dtype=dt)
     xn, qkv, att, out = empty(c), empty(3 * c), empty(c), empty(c)
-    launched = ctypes.c_int(0)
+    launched = (ctypes.c_int * 3)()
     fn = lib.diff3dhpe_fused_attn_block_f32 if dt == f32 else lib.diff3dhpe_fused_attn_block_bf16
     with torch.cuda.device(x.device):
         err = fn(
@@ -400,11 +535,9 @@ def _launch_attn(x, block, n, heads):
             _ptr(wq, dt), _ptr(bq, f32), _ptr(wp, dt), _ptr(bp, f32),
             _ptr(xn, dt), _ptr(qkv, dt), _ptr(att, dt), _ptr(out, dt),
             r, c, n, heads, (c // heads) ** -0.5,
-            ctypes.byref(launched), torch.cuda.current_stream(x.device).cuda_stream,
+            launched, torch.cuda.current_stream(x.device).cuda_stream,
         )
-    fused_attention_block.launches += launched.value
-    if dt != f32:
-        fused_attention_block.launches_bf16 += launched.value
+    _count(fused_attention_block, launched, dt)
     if err:
         raise RuntimeError(f"fused_attention_block kernel launch failed: cudaError_t {err}")
     return out
@@ -444,7 +577,7 @@ def _launch(wrapper, x, block, n, heads, n_pad, j_groups, t_rows, rows_per_item,
     empty = lambda cols: torch.empty((r, cols), device=x.device, dtype=dt)
     xs = empty(c) if t_rows is not None else None
     xn, qkv, attn, h1, mid, out = empty(c), empty(3 * c), empty(c), empty(c), empty(hidden), empty(c)
-    launched = ctypes.c_int(0)
+    launched = (ctypes.c_int * 3)()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     fn = lib.diff3dhpe_fused_block_f32 if dt == f32 else lib.diff3dhpe_fused_block_bf16
     with torch.cuda.device(x.device):
@@ -458,11 +591,9 @@ def _launch(wrapper, x, block, n, heads, n_pad, j_groups, t_rows, rows_per_item,
             _ptr(xs, dt), _ptr(xn, dt), _ptr(qkv, dt), _ptr(attn, dt), _ptr(h1, dt),
             _ptr(mid, dt), _ptr(out, dt),
             r, c, hidden, n, n_pad, j_groups, heads, d ** -0.5,
-            ctypes.byref(launched), stream,
+            launched, stream,
         )
-    wrapper.launches += launched.value
-    if dt != f32:
-        wrapper.launches_bf16 += launched.value
+    _count(wrapper, launched, dt)
     if err:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: cudaError_t {err}")
     return out

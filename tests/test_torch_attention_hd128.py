@@ -7,8 +7,8 @@ against ``packed_grand_attention``, and the ``use_pallas`` denoiser at
 depth 1 and 9 frames against the flax one. On the CPU the wrappers run
 their plain versions; the CUDA kernels are held against the same plain
 versions at head_dim 128 by tests/test_torch_cuda_kernels.py and
-chip_smoke.py. Also: which head widths ``check_supported`` refuses on a
-CUDA device.
+chip_smoke.py. Also: which head widths ``check_supported`` accepts and
+refuses on a CUDA device.
 
 Bars: the forward 1e-5 absolute (float32 sums in another order, outputs of
 order 1); the backward 2e-4 of max|g| (gradients sum n products of order
@@ -95,9 +95,7 @@ MIXED = dict(fast_eval=True, compute_dtype="bfloat16", eval_f32_final_steps=1, e
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(fast_eval=True, compute_dtype="bfloat16"),  # pure bf16: the bf16 block (K1, wgmma)
-    MIXED,                                           # the mixed mode's bf16 steps
-    dict(num_heads=16, fast_eval=True),              # head_dim 32: no f32 instance either
+    dict(num_heads=16, fast_eval=True),              # head_dim 32: no instance
     dict(num_heads=16, use_pallas_attention=True),
 ])
 def test_check_supported_refuses_head_widths_the_kernels_do_not_take(overrides):
@@ -109,8 +107,24 @@ def test_check_supported_refuses_head_widths_the_kernels_do_not_take(overrides):
 
 
 @pytest.mark.parametrize("overrides", [
+    dict(embed_dim=4096, num_heads=32, fast_eval=True),             # f32 rows of 4096
+    dict(embed_dim=4096, num_heads=32, **MIXED),                    # its final step is f32
+    dict(embed_dim=8192, num_heads=64, fast_eval=True, compute_dtype="bfloat16"),
+])
+def test_check_supported_refuses_rows_wider_than_the_layer_norm_takes(overrides):
+    cfg = Config(**{**HEADS4, **overrides})
+    with pytest.raises(ValueError, match="^embed_dim="):
+        check_supported(cfg, torch.device("cuda"))
+    check_supported(cfg, torch.device("cpu"))  # the plain LayerNorm takes every width
+
+
+@pytest.mark.parametrize("overrides", [
     dict(fast_eval=True), dict(use_pallas_attention=True), dict(),  # head_dim 128 at f32
+    dict(embed_dim=2048, num_heads=16, fast_eval=True),              # the widest f32 LN rows
+    dict(embed_dim=4096, num_heads=32, fast_eval=True, compute_dtype="bfloat16"),  # bf16's
     dict(num_heads=8, **MIXED),                                      # head_dim 64 at bf16
+    dict(fast_eval=True, compute_dtype="bfloat16"),  # pure bf16 at 128: the bf16 block (K1, wgmma)
+    MIXED,                                           # the mixed mode's bf16 steps at 128
 ])
 def test_check_supported_accepts_what_the_kernels_take(overrides):
     check_supported(Config(**{**HEADS4, **overrides}), torch.device("cuda"))

@@ -52,10 +52,11 @@ def _write_checkpoint(path, wrapped=True):
     torch.save(state, path)
 
 
-def _use_pallas_config(tmp_path):
+def _config_with(tmp_path, field):
+    """CONFIG with ``field`` set to true in its JSON (there is no flag)."""
     params = json.load(open(CONFIG))
-    params["params"]["use_pallas_attention"] = True
-    path = tmp_path / "use_pallas.json"
+    params["params"][field] = True
+    path = tmp_path / f"{field}.json"
     path.write_text(json.dumps(params))
     return str(path)
 
@@ -109,13 +110,16 @@ def test_main_takes_a_bare_state_dict_by_path(tmp_path):
     ("use_pallas_attention", [], 1e-3),
     ("fast_eval", ["--fast-eval"], 1e-3),
     ("mixed", MIXED, None),
+    ("remat", [], 0.0),
 ])
 def test_main_in_the_kernel_configurations(tmp_path, default_errors, name, extra, tol_mm):
     """The three configurations that run kernels on the card run their
     plain versions here: the f32 ones report the default run's errors to
-    1e-3 mm, the mixed one's are finite and within 2% of them."""
+    1e-3 mm, the mixed one's are finite and within 2% of them. ``remat`` in
+    the config JSON (it shapes only the backward of training) reports the
+    default run's errors exactly."""
     _write_checkpoint(tmp_path / "w.bin")
-    config = _use_pallas_config(tmp_path) if name == "use_pallas_attention" else CONFIG
+    config = _config_with(tmp_path, name) if name in ("use_pallas_attention", "remat") else CONFIG
     errors = main(["--config", config, "-c", str(tmp_path), "--evaluate", "w.bin"]
                   + ARGS_COMMON + extra, device="cpu")
     for k, v in errors.items():
@@ -142,21 +146,13 @@ def test_main_without_evaluate_exits(tmp_path, capsys):
     ("eval_f32_tail_pairs", MIXED + ["--eval-f32-tail-pairs", "1"]),
     ("eval_final_prec", MIXED + ["--eval-final-prec", "default"]),
     ("compute_dtype", ["--compute-dtype", "bfloat16"]),
-    ("remat", "json"),
     ("dataset", ["-d", "humaneva15"]),
     ("evaluate", ["--evaluate", "best_epoch"]),
 ])
 def test_main_refuses_what_is_not_ported(tmp_path, field, extra):
     _write_checkpoint(tmp_path / "w.bin")
-    config = CONFIG
-    if extra == "json":
-        params = json.load(open(CONFIG))
-        params["params"]["remat"] = True
-        config = str(tmp_path / "remat.json")
-        open(config, "w").write(json.dumps(params))
-        extra = []
     with pytest.raises(ValueError, match=f"^{field}="):
-        main(["--config", config, "-c", str(tmp_path), "--evaluate", "w.bin"] + ARGS_COMMON
+        main(["--config", CONFIG, "-c", str(tmp_path), "--evaluate", "w.bin"] + ARGS_COMMON
              + extra, device="cpu")
 
 

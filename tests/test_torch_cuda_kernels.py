@@ -18,9 +18,13 @@ from diff3dhpe_torch import (
     grand_attention_trainable, make_denoise_fn, make_eval_step, make_fast_denoise_fn,
     make_mixed_diffusion, packed_grand_attention, packed_grand_attention_ref,
 )
-from diff3dhpe_torch.ops.fused_block import _gemm_bf16, _gemm_bf16_ref
+from diff3dhpe_torch.ops._build import load_library
+from diff3dhpe_torch.ops.fused_block import (
+    LN_MAX_C, _gemm_bf16, _gemm_bf16_ref, _gemm_f32, _gemm_f32_ref, layer_norm_rows,
+    layer_norm_rows_ref,
+)
 
-C = 128  # heads = C // 64: the kernel's head width is 64
+C = 128  # heads = C // 64: head width 64
 
 
 @pytest.fixture
@@ -57,12 +61,16 @@ def test_block_kernel_matches_ref(cuda_device, n, n_pad, groups, with_t, with_ou
     kw = dict(n_pad=n_pad, t_rows=t if with_t else None,
               rows_per_item=groups * n_pad // 2 if with_t else None,
               out_ln=model.Spatial_norm if with_out_ln else None)
-    before = fused_transformer_block.launches
+    counts = lambda: [getattr(fused_transformer_block, f"launches{k}")
+                      for k in ("", "_ln", "_gemm_f32", "_bf16")]
+    before = counts()
     with torch.no_grad():
         out = fused_transformer_block(x, model.STEblocks[0], n, heads, **kw)
         ref = fused_transformer_block_ref(x, model.STEblocks[0], n, heads, **kw)
     torch.cuda.synchronize()
-    assert fused_transformer_block.launches - before == (8 if with_out_ln else 7)
+    # Every kernel, the LayerNorms, the f32 GEMMs, those at bf16.
+    assert [a - b for a, b in zip(counts(), before)] == (
+        [8, 3, 4, 0] if with_out_ln else [7, 2, 4, 0])
     real = lambda a: a.reshape(groups, n_pad, c)[:, :n]
     torch.testing.assert_close(real(out), real(ref), rtol=2e-4, atol=2e-5)
 
@@ -71,8 +79,9 @@ def test_block_kernel_matches_ref(cuda_device, n, n_pad, groups, with_t, with_ou
 @pytest.mark.parametrize("n,n_pad,groups", [(17, 17, 40), (243, 243, 4), (27, 32, 12),
                                             (200, 256, 2)])
 def test_block_kernel_at_head_dim_128_matches_ref(cuda_device, n, n_pad, groups):
-    """B1 at f32 with head_dim 128 (C = 256, 2 heads); at bf16 the
-    tensor-core attention takes head_dim 64 only and the wrapper says so."""
+    """B1 with head_dim 128 (C = 256, 2 heads) at f32, and at bf16 (the
+    tensor-core attention's d = 128 instance) under the bf16 bars; a head
+    width the kernels lack is refused by the wrapper."""
     c = 256
     model = _model(cuda_device, embed_dim=c, head_dim=128)
     gen = torch.Generator(device=cuda_device).manual_seed(n + 3)
@@ -85,8 +94,11 @@ def test_block_kernel_at_head_dim_128_matches_ref(cuda_device, n, n_pad, groups)
         ref = fused_transformer_block_ref(x, model.STEblocks[0], n, 2, **kw)
         real = lambda a: a.reshape(groups, n_pad, c)[:, :n]
         torch.testing.assert_close(real(out), real(ref), rtol=2e-4, atol=2e-5)
+        xb = x.bfloat16()
+        assert_bf16_close(real(fused_transformer_block(xb, model.STEblocks[0], n, 2, **kw)),
+                          real(fused_transformer_block_ref(xb, model.STEblocks[0], n, 2, **kw)))
         with pytest.raises(ValueError, match="head_dim"):
-            fused_transformer_block(x.bfloat16(), model.STEblocks[0], n, 2, **kw)
+            fused_transformer_block(xb, model.STEblocks[0], n, 8, **kw)
 
 
 @pytest.mark.cuda
@@ -128,12 +140,15 @@ def test_block_kernel_bf16_matches_ref(cuda_device, n, n_pad, groups, with_t, wi
     kw = dict(n_pad=n_pad, t_rows=t if with_t else None,
               rows_per_item=groups * n_pad // 2 if with_t else None,
               out_ln=model.Spatial_norm if with_out_ln else None, dp_scales=dp.float())
-    before = fused_transformer_block.launches_bf16
+    counts = lambda: [getattr(fused_transformer_block, f"launches{k}")
+                      for k in ("_bf16", "_ln", "_gemm_f32")]
+    before = counts()
     with torch.no_grad():
         out = fused_transformer_block(x, model.STEblocks[0], n, c // 64, **kw)
         ref = fused_transformer_block_ref(x, model.STEblocks[0], n, c // 64, **kw)
     torch.cuda.synchronize()
-    assert fused_transformer_block.launches_bf16 - before == (8 if with_out_ln else 7)
+    assert [a - b for a, b in zip(counts(), before)] == (
+        [8, 3, 0] if with_out_ln else [7, 2, 0])
     real = lambda a: a.reshape(groups, n_pad, c)[:, :n]
     assert_bf16_close(real(out), real(ref))
 
@@ -148,12 +163,14 @@ def test_cols_kernel_matches_ref(cuda_device, dtype, b, f, j):
     kw = dict(t_rows=torch.randn(b, C, generator=gen, device=cuda_device),
               out_ln=model.Temporal_norm,
               dp_scales=((torch.rand(b * j, 2, generator=gen, device=cuda_device) < 0.7) / 0.7).float())
-    before = fused_temporal_block_cols.launches
+    counts = lambda: [getattr(fused_temporal_block_cols, f"launches{k}")
+                      for k in ("", "_ln", "_gemm_f32")]
+    before = counts()
     with torch.no_grad():
         out = fused_temporal_block_cols(x, model.TTEblocks[0], f, j, C // 64, **kw)
         ref = fused_temporal_block_cols_ref(x, model.TTEblocks[0], f, j, C // 64, **kw)
     torch.cuda.synchronize()
-    assert fused_temporal_block_cols.launches - before == 8
+    assert [a - b for a, b in zip(counts(), before)] == [8, 3, 4 if dtype == torch.float32 else 0]
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
     else:
@@ -260,8 +277,8 @@ def test_dispatcher_picks_the_kernel_by_n(cuda_device):
         packed_grand_attention(*(t[:, :, :17].bfloat16() for t in (q, k, v)))
     with pytest.raises(ValueError, match="all be float32 or all bfloat16"):
         fused_grand_attention(q.bfloat16(), k, v)
-    (q, k, v), _ = _qkv_views(cuda_device, 2, 2, 243, 0, torch.bfloat16, d=128)
-    with pytest.raises(ValueError, match="head_dim"):  # the bf16 kernel takes 64 only
+    (q, k, v), _ = _qkv_views(cuda_device, 2, 2, 243, 0, torch.bfloat16, d=32)
+    with pytest.raises(ValueError, match="head_dim"):  # the bf16 kernel takes 64 and 128
         grand_attention_fullseq(q, k, v)
 
 
@@ -294,6 +311,137 @@ def test_fullseq_attention_bf16_limits(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 81, 243])
+def test_fullseq_attention_bf16_at_head_dim_128(cuda_device, n):
+    """The tensor-core attention's d = 128 instance (B3 at bf16) on strided
+    qkv views, 13 groups x 3 heads, under the bf16 bars."""
+    (q, k, v), _ = _qkv_views(cuda_device, 13, 3, n, n + 128, torch.bfloat16, d=128)
+    before = grand_attention_fullseq.launches
+    out = grand_attention_fullseq(q, k, v)
+    assert grand_attention_fullseq.launches - before == 1
+    assert out.dtype == torch.bfloat16 and out.permute(0, 2, 1, 3).is_contiguous()
+    assert_bf16_close(out, grand_attention_fullseq_ref(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+@pytest.mark.parametrize("n", [17, 81, 243])
+def test_bf16_block_at_head_dim_128(cuda_device, layout, n):
+    """B1 (rows) and B2 (cols) at bf16 with head_dim 128 (C = 256, 2 heads)
+    against their plain versions under the bf16 bars, with the time add,
+    the out-LN and drop-path."""
+    c, j = 256, 5
+    model = _model(cuda_device, num_frame=n, embed_dim=c, head_dim=128)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 11)
+    block = model.STEblocks[0] if layout == "rows" else model.TTEblocks[0]
+    if layout == "rows":
+        groups = max(2, 1024 // n)
+        x = torch.randn(groups * n, c, generator=gen, device=cuda_device).bfloat16()
+        dp = (torch.rand(groups * n, 2, generator=gen, device=cuda_device) < 0.7) / 0.7
+        kw = dict(t_rows=torch.randn(2, c, generator=gen, device=cuda_device),
+                  rows_per_item=groups * n // 2, out_ln=model.Spatial_norm, dp_scales=dp.float())
+        run = lambda f: f(x, block, n, 2, **kw)
+        fns = (fused_transformer_block, fused_transformer_block_ref)
+    else:
+        x = torch.randn(2 * n, j * c, generator=gen, device=cuda_device).bfloat16()
+        dp = (torch.rand(2 * j, 2, generator=gen, device=cuda_device) < 0.7) / 0.7
+        kw = dict(t_rows=torch.randn(2, c, generator=gen, device=cuda_device),
+                  out_ln=model.Temporal_norm, dp_scales=dp.float())
+        run = lambda f: f(x, block, n, j, 2, **kw)
+        fns = (fused_temporal_block_cols, fused_temporal_block_cols_ref)
+    with torch.no_grad():
+        out, ref = run(fns[0]), run(fns[1])
+    assert_bf16_close(out, ref)
+
+
+@pytest.mark.cuda
+def test_bf16_cols_forward_equals_rows_at_head_dim_128(cuda_device):
+    """The bf16 forward at head_dim 128 gives the same bits in both
+    temporal layouts, through the small-group (27 frames) instance."""
+    model = _model(cuda_device, num_frame=27, embed_dim=256, head_dim=128)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(2, 27, 17, 5, generator=gen, device=cuda_device)
+    t = torch.tensor([3.0, 700.0], device=cuda_device)
+    rows, cols = (fast_forward_denoise(model, x, t, dtype=torch.bfloat16, temporal_mode=m)
+                  for m in ("rows", "cols"))
+    torch.testing.assert_close(cols, rows, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue,with_rscale", [("bias", False), ("gelu", False),
+                                                  ("residual", False), ("residual", True)])
+@pytest.mark.parametrize("m,n,k", [(170, 576, 192), (301, 36, 64), (1000, 1028, 512),
+                                   (16524, 1536, 512)])
+def test_gemm_f32_matches_ref(cuda_device, m, n, k, epilogue, with_rscale):
+    """The block kernels' exact-f32 GEMM alone, at ragged M (no multiple of
+    128) and N (4 x odd), against F.linear in f32 (no TF32) and the same
+    epilogue: the two sum k in other orders, so 1e-5 of max|ref|."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + n + k)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=cuda_device)
+    a, w, bias = randn(m, k), randn(n, k) * k ** -0.5, randn(n)
+    res = randn(m, n) if epilogue == "residual" else None
+    rscale = ((torch.rand(m, 2, generator=gen, device=cuda_device) < 0.7) / 0.7).float() \
+        if with_rscale else None
+    before = _gemm_f32.launches
+    out = _gemm_f32(a, w, bias, epilogue, res, rscale)
+    torch.cuda.synchronize()
+    assert _gemm_f32.launches - before == 1
+    ref = _gemm_f32_ref(a, w, bias, epilogue, res, rscale)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_t", [False, True])
+@pytest.mark.parametrize("r,c", [(1001, 512), (17, 192), (33, 64), (7, 1024), (65, 2048)])
+def test_layer_norm_rows_matches_ref(cuda_device, dtype, with_t, r, c):
+    """The block kernels' LayerNorm alone at odd R, with and without the
+    time add (whose sum xs it also returns): f32 to 1e-5 of max|ref|, bf16
+    under the bf16 bars (xs equal: one rounding of the same f32 sum). The
+    widths reach every instance: 1 to 16 pieces a lane at f32, to 8 at
+    bf16 (16 in the test below)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(r + c)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=cuda_device)
+    x = (randn(r, c) * 3 + 1).to(dtype)
+    w, b = 1 + 0.2 * randn(c), 0.2 * randn(c)
+    kw = dict(t_rows=randn(3, c), rows_per_item=-(-r // 3)) if with_t else {}
+    before = layer_norm_rows.launches
+    y, xs = layer_norm_rows(x, w, b, 1e-6, **kw)
+    torch.cuda.synchronize()
+    assert layer_norm_rows.launches - before == 1
+    y_ref, xs_ref = layer_norm_rows_ref(x, w, b, 1e-6, **kw)
+    torch.testing.assert_close(xs, xs_ref, rtol=0, atol=0)
+    if dtype == torch.float32:
+        assert (y - y_ref).abs().max() <= 1e-5 * y_ref.abs().max()
+    else:
+        assert_bf16_close(y, y_ref)
+
+
+@pytest.mark.cuda
+def test_layer_norm_rows_width_limits(cuda_device):
+    """The widest rows the LayerNorm takes: the library says LN_MAX_C; bf16
+    at 4096 (16 pieces a lane) matches its plain version; wider rows, and
+    rows not in 16-byte pieces, are refused by name before a launch."""
+    lib = load_library("fused_block")
+    assert {dt: lib.diff3dhpe_ln_max_c(dt.itemsize) for dt in LN_MAX_C} == LN_MAX_C
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=cuda_device)
+    w, b = 1 + 0.2 * randn(4096), 0.2 * randn(4096)
+    x = (randn(9, 4096) * 3 + 1).bfloat16()
+    kw = dict(t_rows=randn(2, 4096), rows_per_item=5)
+    y, xs = layer_norm_rows(x, w, b, 1e-6, **kw)
+    y_ref, xs_ref = layer_norm_rows_ref(x, w, b, 1e-6, **kw)
+    torch.testing.assert_close(xs, xs_ref, rtol=0, atol=0)
+    assert_bf16_close(y, y_ref)
+    before = layer_norm_rows.launches
+    for x, c in ((x.float(), 4096), (randn(9, 8192).bfloat16(), 8192),
+                 (randn(9, 66), 66), (randn(9, 68).bfloat16(), 68)):
+        with pytest.raises(ValueError, match="LayerNorm takes C"):
+            layer_norm_rows(x, w[:1].expand(c).contiguous(), b[:1].expand(c).contiguous())
+    assert layer_norm_rows.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("epilogue,with_rscale", [("bias", False), ("gelu", False),
                                                   ("residual", False), ("residual", True)])
 @pytest.mark.parametrize("m,n,k", [(170, 576, 192), (16524, 1536, 512), (300, 512, 1024)])
@@ -322,13 +470,15 @@ def test_attention_block_kernel_matches_ref(cuda_device, dtype, n, groups, c):
     model = _model(cuda_device, embed_dim=c)
     gen = torch.Generator(device=cuda_device).manual_seed(n + 2)
     x = torch.randn(groups * n, c, generator=gen, device=cuda_device).to(dtype)
-    before = fused_attention_block.launches, fused_attention_block.launches_bf16
+    counts = lambda: [getattr(fused_attention_block, f"launches{k}")
+                      for k in ("", "_bf16", "_ln", "_gemm_f32")]
+    before = counts()
     with torch.no_grad():
         out = fused_attention_block(x, model.STEblocks[0], n, c // 64)
         ref = fused_attention_block_ref(x, model.STEblocks[0], n, c // 64)
     torch.cuda.synchronize()
-    assert fused_attention_block.launches - before[0] == 4
-    assert fused_attention_block.launches_bf16 - before[1] == (0 if dtype == torch.float32 else 4)
+    f32 = dtype == torch.float32
+    assert [a - b for a, b in zip(counts(), before)] == [4, 0 if f32 else 4, 1, 2 if f32 else 0]
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
     else:

@@ -143,7 +143,6 @@ def test_mixed_runner_rebuilds_its_bf16_snapshot():
     ("mesh_shape", dict(mesh_shape="data:4,model:2")),
     ("eval_f32_tail_pairs", dict(eval_f32_tail_pairs=2, **MIXED)),
     ("eval_final_prec", dict(eval_final_prec="default", **MIXED)),
-    ("remat", dict(remat=True)),
     ("compute_dtype", dict(compute_dtype="bfloat16")),
     ("compute_dtype", dict(compute_dtype="float16")),
     ("use_pallas_attention", dict(use_pallas_attention=True, **MIXED)),
@@ -157,9 +156,13 @@ def test_runner_refuses_what_is_not_ported(field, overrides):
 
 
 def test_runner_accepts_what_means_one_device_and_exact_f32():
+    """Also ``remat``: it only shapes the backward of training, and the
+    runner evaluates (tests/test_torch_bf16_hd128.py holds the results)."""
     for overrides in (dict(mesh_shape=None), dict(mesh_shape="data:1"),
-                      dict(eval_final_prec="highest", **MIXED), dict(eval_final_prec="high3")):
+                      dict(eval_final_prec="highest", **MIXED), dict(eval_final_prec="high3"),
+                      dict(remat=True), dict(remat=True, **MIXED)):
         check_supported(Config(**{**BASE, **overrides}))
+        Runner(Config(**{**BASE, **overrides}), 17, JOINTS_LEFT, JOINTS_RIGHT, device="cpu")
 
 
 def test_runner_needs_a_gpu_unless_the_cpu_is_asked_for(monkeypatch):
