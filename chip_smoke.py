@@ -47,7 +47,8 @@ tensor-core attention kernel alone) at both eval shapes, d = 64 and 128;
 7a the train step's loss, gradients and launches vs the plain module at
 B=4, with 8 heads and with 4; 7b three timed AdamW steps at B=24; 7c their
 profile; 8 B6 vs plain at the eval shape as qkv views and contiguous, at n
-= 64, n = 27 and with 4 heads of head_dim 128; 9 B5 vs plain at both eval
+= 64, n = 27 and with 4 heads of head_dim 128, then at bf16 (views, 8 heads
+and 4), all in device time, and B6 at bf16 as an op; 9 B5 vs plain at both eval
 shapes, f32 and bf16 (also at head_dim 128), and its launches as an op; 10
 the evaluate entry point in its configurations; 10b the profile of one
 eval step of the use_pallas module); then a JSON line with every kernel's
@@ -329,12 +330,12 @@ def main():
 
     from diff3dhpe_torch import (
         GaussianDiffusion, MixSTEDenoiser, Runner, draw_drop_path_scales, fast_forward_denoise,
-        flip_pose, fused_attention_block, fused_attention_block_ref, fused_temporal_block_cols,
-        fused_temporal_block_cols_ref, fused_transformer_block, fused_transformer_block_ref,
-        grand_attention_bwd, grand_attention_bwd_ref, grand_attention_fullseq,
-        grand_attention_fullseq_ref, make_denoise_fn, make_eval_step, make_fast_denoise_fn,
-        make_fast_train_denoise_fn, make_mixed_diffusion, make_optimizer, make_train_denoise_fn,
-        make_train_step, packed_grand_attention, packed_grand_attention_ref,
+        flip_pose, fused_attention_block, fused_attention_block_ref, fused_grand_attention,
+        fused_temporal_block_cols, fused_temporal_block_cols_ref, fused_transformer_block,
+        fused_transformer_block_ref, grand_attention_bwd, grand_attention_bwd_ref,
+        grand_attention_fullseq, grand_attention_fullseq_ref, make_denoise_fn, make_eval_step,
+        make_fast_denoise_fn, make_fast_train_denoise_fn, make_mixed_diffusion, make_optimizer,
+        make_train_denoise_fn, make_train_step, packed_grand_attention, packed_grand_attention_ref,
     )
     from diff3dhpe_torch.cli.run import main as cli_main
     from diff3dhpe_torch.models import mixste
@@ -1161,40 +1162,78 @@ def main():
     # Phase 8: B6 against its plain version at the use_pallas eval path's
     # shape, 4·243 joint groups x 8 heads of n = 17: as views of one
     # [972, 17, 3, 8, 64] qkv projection (what the module hands over) and
-    # as contiguous [7776, 17, 64] operands; then at n = 64 (two keys a
-    # lane), at an odd n, and with 4 heads of head_dim 128 ([3888, 17, 128]
-    # as qkv views). The library yardstick is SDPA - v.
-    small = {}
+    # as contiguous [7776, 17, 64] operands; then at n = 64, at an odd n, and
+    # with 4 heads of head_dim 128 ([3888, 17, 128] as qkv views); then at
+    # bf16 (B3's tensor-core kernel) at [7776, 17, 64] and [3888, 17, 128] as
+    # qkv views. The library yardstick is SDPA - v. The kernel, the plain
+    # version and the library are all timed by the profiler's device time:
+    # the kernel runs for less than a call through Python takes on the host.
+    # Bound: q, k, v read and the output written once at the memory rate.
+    # Then B6 at bf16 as an op (its only path; the use_pallas module is
+    # float32): the dispatcher on each bf16 input, counts set to 0 before.
+    small, small_bf16 = {}, {}
     with torch.no_grad():
-        for label, b, h, n, strided in (("qkv_views", 2 * BATCH * FRAMES, HEADS, JOINTS, True),
-                                        ("contiguous", 2 * BATCH * FRAMES * HEADS, 1, JOINTS, False),
-                                        ("n64", 243, HEADS, 64, True), ("n27", 101, HEADS, 27, True),
-                                        ("d128", 2 * BATCH * FRAMES, HEADS4, JOINTS, True)):
+        bf16_inputs = []
+        for label, b, h, n, strided, dt in (
+                ("qkv_views", 2 * BATCH * FRAMES, HEADS, JOINTS, True, torch.float32),
+                ("contiguous", 2 * BATCH * FRAMES * HEADS, 1, JOINTS, False, torch.float32),
+                ("n64", 243, HEADS, 64, True, torch.float32),
+                ("n27", 101, HEADS, 27, True, torch.float32),
+                ("d128", 2 * BATCH * FRAMES, HEADS4, JOINTS, True, torch.float32),
+                ("qkv_views", 2 * BATCH * FRAMES, HEADS, JOINTS, True, torch.bfloat16),
+                ("d128", 2 * BATCH * FRAMES, HEADS4, JOINTS, True, torch.bfloat16)):
             hd = EMBED // (HEADS4 if label == "d128" else HEADS)
             if strided:
-                q, k, v = randn(b, n, 3, h, hd).permute(2, 0, 3, 1, 4)
+                q, k, v = randn(b, n, 3, h, hd).to(dt).permute(2, 0, 3, 1, 4)
             else:
-                q, k, v = randn(b, n, hd), randn(b, n, hd), randn(b, n, hd)
+                q, k, v = (randn(b, n, hd).to(dt) for _ in range(3))
             run = lambda: packed_grand_attention(q, k, v)
             plain = lambda: packed_grand_attention_ref(q, k, v)
             lib = lambda: F.scaled_dot_product_attention(q, k, v) - v
             out, ref = run(), plain()
             torch.cuda.synchronize()
-            abs_err, _ = rel_err(out, ref)
-            lib_abs, _ = rel_err(lib(), ref)
-            check(out.shape == q.shape and torch.isfinite(out).all().item(),
-                  f"B6 {label} output shape or values")
-            check(abs_err <= SMALL_ATTN_ABS_TOL,
-                  f"B6 {label} abs err {abs_err:.3e} > {SMALL_ATTN_ABS_TOL}")
+            check(out.shape == q.shape and out.dtype == dt
+                  and torch.isfinite(out.float()).all().item(),
+                  f"B6 {label} {dt} output shape, dtype or values")
             pairs = b * h
-            t = timings(run, plain, lib, 4 * pairs * n * n * hd, 4 * 4 * pairs * n * hd, peak_flops)
-            small[label] = dict(abs_err=abs_err, **t)
-            say(f"phase 8 packed_grand_attention {label}: [G={pairs}, N={n}, D={hd}] "
-                f"max_abs_err={abs_err:.3e} (tol {SMALL_ATTN_ABS_TOL}) ms={t['ms']:.4f} "
-                f"plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} (library vs plain "
+            if dt == torch.float32:
+                abs_err, _ = rel_err(out, ref)
+                lib_abs, _ = rel_err(lib(), ref)
+                check(abs_err <= SMALL_ATTN_ABS_TOL,
+                      f"B6 {label} abs err {abs_err:.3e} > {SMALL_ATTN_ABS_TOL}")
+                check(torch.equal(out, run()), f"B6 {label}: two calls gave different bits")
+                errs = f"max_abs_err={abs_err:.3e} (tol {SMALL_ATTN_ABS_TOL}) same bits twice"
+                results, peak = small, peak_flops
+            else:
+                abs_err, rel, mean_rel = check_bf16(f"B6 bf16 {label}", out, ref)
+                lib_abs, _, _ = bf16_errs(lib(), ref)
+                errs = (f"max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} (tol {BF16_MAX_TOL}) "
+                        f"mean_rel_err={mean_rel:.3e} (tol {BF16_MEAN_TOL})")
+                results, peak = small_bf16, peak_bf16
+                bf16_inputs.append((q, k, v))
+            t = timings(run, plain, lib, 4 * pairs * n * n * hd, 4 * dt.itemsize * pairs * n * hd,
+                        peak, device_ms)
+            results[label] = dict(abs_err=abs_err, **t)
+            say(f"phase 8 packed_grand_attention {'f32' if dt == torch.float32 else 'bf16'} "
+                f"{label}: [G={pairs}, N={n}, D={hd}] {errs} device ms={t['ms']:.4f} "
+                f"plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} (SDPA - v; vs plain "
                 f"max_abs {lib_abs:.3e}) bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
-                f"GB_per_s={t['bytes'] / t['ms'] / 1e6:.1f}")
-            del q, k, v, out, ref
+                f"bound_share={t['bound_ms'] / t['ms']:.3f} "
+                f"GB_per_s={t['bytes'] / t['ms'] / 1e6:.1f} (of {mem_rate / 1e9:.0f})")
+            del out, ref
+        packed_grand_attention.launches = packed_grand_attention.launches_bf16 = 0
+        for q, k, v in bf16_inputs:
+            check(torch.isfinite(fused_grand_attention(q, k, v).float()).all().item(),
+                  "B6 bf16 op output not finite")
+        torch.cuda.synchronize()
+        b6_bf16_launches = (packed_grand_attention.launches, packed_grand_attention.launches_bf16)
+        check(b6_bf16_launches == (len(bf16_inputs),) * 2,
+              f"B6 bf16 op launched {b6_bf16_launches}, expected {(len(bf16_inputs),) * 2}")
+        say(f"phase 8 packed_grand_attention bf16 as an op (fused_grand_attention): "
+            f"{len(bf16_inputs)} calls, launches={b6_bf16_launches[0]} "
+            f"(bf16 {b6_bf16_launches[1]})")
+        del bf16_inputs, q, k, v
+    torch.cuda.empty_cache()
 
     # Phase 9: B5 against its plain version at both eval shapes (R rows in
     # groups of 17 joints and of 243 frames), at f32 and at bf16 (weights
@@ -1489,7 +1528,7 @@ def main():
                 else "bytes", "library_ms": tot("library_ms")}
 
     gemm_part = part(
-        "gemm_f32_kernel", "diff3dhpe_torch/csrc/gemm_f32.cuh",
+        "gemm_nt_kernel", "diff3dhpe_torch/csrc/fused_block.cu",
         "diff3dhpe_tpu/ops/fused_block.py:147 (_dot_f32 inside the block kernel)",
         gemm_f32_by_path, sum_numbers(gemms_f32[rows]),
         f"the four products of an f32 block at M={rows} (launches: counted by the block "
@@ -1584,9 +1623,18 @@ def main():
         "max_abs_err": max(v["abs_err"] for v in small.values()),
         "other_shapes": {k: one_call(v) for k, v in small.items() if k != "qkv_views"},
         "work": f"one call, [G={2 * BATCH * FRAMES * HEADS}, N={JOINTS}, D={EMBED // HEADS}] "
-                f"f32 as views of a qkv projection",
+                f"f32 as views of a qkv projection, device time",
+        "bf16": dict(
+            one_call(small_bf16["qkv_views"]), launches=b6_bf16_launches[1],
+            launches_by_path={"op": b6_bf16_launches[1]},
+            max_abs_err=max(v["abs_err"] for v in small_bf16.values()),
+            other_shapes={k: one_call(v) for k, v in small_bf16.items() if k != "qkv_views"},
+            source="diff3dhpe_torch/csrc/grand_attention.cu (grand_attn_bf16.cuh)",
+            work=f"one call, [G={2 * BATCH * FRAMES * HEADS}, N={JOINTS}, D={EMBED // HEADS}] "
+                 f"bf16 as views of a qkv projection, device time"),
     })
-    check(len(entries) == 6 and all(e["launches"] > 0 for e in entries + [gemm_part, ln_part]),
+    check(len(entries) == 6 and all(e["launches"] > 0 for e in entries + [gemm_part, ln_part])
+          and entries[-1]["bf16"]["launches"] > 0,
           f"a kernel was launched no time: { {e['name']: e['launches'] for e in entries} }, "
           f"f32 GEMM {gemm_part['launches']}, LN {ln_part['launches']}")
     say(json.dumps({"kernels": entries}))

@@ -46,11 +46,12 @@
 //                         from registers, and the output (and xs) go out as
 //                         16-byte stores. Bound by bytes: one read of x (and
 //                         t), one write of y (and xs).
-//   gemm_f32_kernel<EPI>
-//                         f32, gemm_f32.cuh: 128 x 128 tiles, k-tiles of 32
-//                         columns of both K-contiguous operands by cp.async
-//                         into a 3-stage ring, 8 x 8 outputs a thread read
-//                         as 128-bit broadcasts along k.
+//   gemm_nt_kernel<EPI>   f32: 128 x 128 x 8 shared-memory tiles, 8 x 8
+//                         outputs a thread, a register-staged double
+//                         buffer (the next k-tile's float4s are loaded into
+//                         registers while the current tile computes, then
+//                         stored k-major), exact f32 FMAs summed over k in
+//                         order.
 //   gemm_bf16_wgmma_kernel<EPI>
 //                         bf16, gemm_wgmma.cuh: the _dot_f32 products of the
 //                         TPU kernel as wgmma m64n128k16 on 128x128 tiles, a
@@ -65,10 +66,12 @@
 //                         f32, grand_attn.cuh, shared with grand_attention.cu
 //                         (head width 64 or 128): 64-query blocks streaming
 //                         64-key tiles of K and V through a cp.async ring
-//                         with an online softmax, or at n <= 32 one warp per
-//                         (group, head); both read q, k and v out of the qkv
-//                         buffer through strides, and B2 adds the outer
-//                         group index b as blockIdx.z.
+//                         with an online softmax, or at n <= 32 persistent
+//                         blocks walking the (group, head) pairs through a
+//                         two-stage ring of whole pairs; both read q, k and
+//                         v out of the qkv buffer through strides, and B2
+//                         adds the outer group index b (blockIdx.z, or part
+//                         of the pair index).
 //   grand_attn_bf16_kernel
 //                         bf16, grand_attn_bf16.cuh (head width 64 or 128):
 //                         the TPU device function grand_attend_tile with
@@ -86,7 +89,6 @@
 
 #include <type_traits>
 
-#include "gemm_f32.cuh"
 #include "gemm_wgmma.cuh"
 #include "grand_attn.cuh"
 #include "grand_attn_bf16.cuh"
@@ -97,6 +99,9 @@ using bf16 = __nv_bfloat16;
 using grand::bf16_round;
 using grand::warp_sum;
 
+constexpr int BM = 128, BN = 128, BK = 8, kGemmThreads = 256;  // the f32 GEMM's tile
+
+using wg::gelu_erf;
 using wg::kEpiBias;
 using wg::kEpiGelu;
 using wg::kEpiResidual;
@@ -218,17 +223,118 @@ ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ t, int rows_per_it
 // (C <= 2048 at f32, 4096 at bf16).
 constexpr int kLnMaxPiecesPerLane = 16;
 
-// ---- f32 GEMM on the CUDA cores: gemm_f32.cuh --------------------------------
+// ---- f32 GEMM on the CUDA cores ------------------------------------------------
 
-// out[M, N] = epilogue(A[M, K] · W[N, K]ᵀ + bias), the residual epilogue
-// res + s[row] · (A·Wᵀ + bias) with s[row] = rscale[2 * row] (1 where
-// rscale is null). K % 4 == 0 and 16-byte aligned rows (checked by the
-// caller).
+// out[M, N] = A[M, K] · W[N, K]ᵀ + bias, then the epilogue; the residual
+// epilogue computes res + s[row] · (A·Wᵀ + bias) with s[row] =
+// rscale[2 * row] (1 where rscale is null). K % 8 == 0, N % 4 == 0 and
+// 16-byte aligned rows (checked by the caller).
+template <int EPI>
+__global__ void __launch_bounds__(kGemmThreads)
+gemm_nt_kernel(const float* __restrict__ A, const float* __restrict__ W,
+               const float* __restrict__ bias, const float* __restrict__ res,
+               const float* __restrict__ rscale, float* __restrict__ out, int M, int N, int K) {
+  __shared__ __align__(16) float As[2][BK][BM + 4];
+  __shared__ __align__(16) float Ws[2][BK][BN + 4];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  // Loader: each thread brings one float4 of A and one of W per k-tile.
+  const int lrow = tid >> 1, lk = (tid & 1) * 4;
+  const bool a_ok = m0 + lrow < M, w_ok = n0 + lrow < N;
+  const float* a_ptr = A + (size_t)(a_ok ? m0 + lrow : 0) * K + lk;
+  const float* w_ptr = W + (size_t)(w_ok ? n0 + lrow : 0) * K + lk;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 a_reg = a_ok ? *reinterpret_cast<const float4*>(a_ptr) : zero;
+  float4 w_reg = w_ok ? *reinterpret_cast<const float4*>(w_ptr) : zero;
+
+  // Compute: rows ty*4+{0..3} and 64+ty*4+{0..3}, columns likewise by tx.
+  const int tx = tid & 15, ty = tid >> 4;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  auto stage = [&](int buf) {
+    As[buf][lk + 0][lrow] = a_reg.x;
+    As[buf][lk + 1][lrow] = a_reg.y;
+    As[buf][lk + 2][lrow] = a_reg.z;
+    As[buf][lk + 3][lrow] = a_reg.w;
+    Ws[buf][lk + 0][lrow] = w_reg.x;
+    Ws[buf][lk + 1][lrow] = w_reg.y;
+    Ws[buf][lk + 2][lrow] = w_reg.z;
+    Ws[buf][lk + 3][lrow] = w_reg.w;
+  };
+  stage(0);
+  __syncthreads();
+
+  const int nk = K / BK;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) {
+      const int k0 = (kt + 1) * BK;
+      a_reg = a_ok ? *reinterpret_cast<const float4*>(a_ptr + k0) : zero;
+      w_reg = w_ok ? *reinterpret_cast<const float4*>(w_ptr + k0) : zero;
+    }
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][64 + ty * 4]);
+      const float4 w0 = *reinterpret_cast<const float4*>(&Ws[cur][k][tx * 4]);
+      const float4 w1 = *reinterpret_cast<const float4*>(&Ws[cur][k][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (kt + 1 < nk) stage(cur ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
+    if (row >= M) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = n0 + half * 64 + tx * 4;
+      if (col >= N) continue;
+      float v[4];
+      const float4 bv = bias ? *reinterpret_cast<const float4*>(bias + col) : zero;
+      v[0] = acc[i][half * 4 + 0] + bv.x;
+      v[1] = acc[i][half * 4 + 1] + bv.y;
+      v[2] = acc[i][half * 4 + 2] + bv.z;
+      v[3] = acc[i][half * 4 + 3] + bv.w;
+      if (EPI == kEpiGelu) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = gelu_erf(v[j]);
+      } else if (EPI == kEpiResidual) {
+        const float4 r = *reinterpret_cast<const float4*>(res + (size_t)row * N + col);
+        if (rscale) {
+          const float s = rscale[2 * (size_t)row];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] *= s;
+        }
+        v[0] = r.x + v[0];
+        v[1] = r.y + v[1];
+        v[2] = r.z + v[2];
+        v[3] = r.w + v[3];
+      }
+      *reinterpret_cast<float4*>(out + (size_t)row * N + col) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
 template <int EPI>
 cudaError_t launch_gemm(const float* A, const float* W, const float* bias, const float* res,
                         const float* rscale, float* out, int M, int N, int K,
                         cudaStream_t stream) {
-  return gf::launch_gemm_f32<EPI>(A, W, bias, res, rscale, out, M, N, K, stream);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  gemm_nt_kernel<EPI><<<grid, kGemmThreads, 0, stream>>>(A, W, bias, res, rscale, out, M, N, K);
+  return cudaGetLastError();
 }
 
 // ---- bf16 GEMM on the tensor cores: gemm_wgmma.cuh ----------------------------
@@ -471,7 +577,7 @@ int run_gemm(const T* a, const T* w, const float* bias, const T* res, const floa
 }  // namespace
 
 // One product with a fused epilogue, the GEMM the four products of a block
-// run, at f32 (the CUDA-core kernel of gemm_f32.cuh, exact f32 FMAs) or at
+// run, at f32 (gemm_nt_kernel on the CUDA cores, exact f32 FMAs) or at
 // bf16 (the wgmma kernel): out[M, N] = epilogue(a[M, K] · w[N, K]ᵀ + bias)
 // with epilogue 0 = bias only, 1 = exact GELU, 2 = res + s[row] · (…),
 // s[row] = rscale[2 · row] or 1 where rscale is null; bf16 rounds the

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) ports of the GRAND attention forward (long and small
-// groups) and backward, f32.
+// groups, f32 and bf16) and backward (f32).
 //
 // Replaces:
 //   B3 diff3dhpe_tpu/ops/attention.py::_fullseq_grand_attn_kernel
@@ -12,7 +12,7 @@
 //        dQ = dS K,   dK = dSᵀ Q
 //   B6 diff3dhpe_tpu/ops/attention.py::_packed_grand_attn_kernel (wrapper
 //      packed_grand_attention): the same forward for many small groups,
-//      n <= 64 (the spatial attention: n = 17 joints).
+//      n <= 64 (the spatial attention: n = 17 joints), f32 and bf16.
 //
 // Operands are [B, H, N, D] read through element strides (unit stride on
 // the head dimension), D = 64 or 128 (one template, two instances) and
@@ -31,8 +31,8 @@
 // Design:
 //   B3  the shared f32 launcher of grand_attn.cuh, which B1, B2 and B5 run
 //       for their attention step: 64-query blocks streaming key tiles of K
-//       and V through a cp.async ring with an online softmax, or one warp
-//       per (group, head) at n <= 32.
+//       and V through a cp.async ring with an online softmax, or at n <= 32
+//       B6's small-group kernel.
 //   B4  two kernels, with P and dS spilled to HBM, because K, V, Q and dO
 //       of one group (4 x 124 KB at N = 243, D = 128) do not fit a block and
 //       a one-pass dk/dv with dq would need float atomics:
@@ -55,11 +55,14 @@
 //       arithmetic). Shared memory 93 KB for pass 1 (two blocks an SM), 48
 //       KB (D = 128) or 32 KB (D = 64) for pass 2. Each output element is
 //       written by one thread: no atomics, so the gradients are deterministic.
-//   B6  the small-group kernel of grand_attn.cuh (one warp per (group,
-//       head), n <= 64): lane j owns key j (and 32 + j for n > 32) for the
-//       scores, the lanes take columns 32c + lane (c < D / 32) for P·V. The
-//       TPU kernel's 119-row packed tile, block-diagonal mask and group
-//       padding serve its matrix unit and have no counterpart.
+//   B6  the small-group kernel of grand_attn.cuh (n <= 64): persistent
+//       blocks walk the (group, head) pairs through a two-stage cp.async
+//       ring of whole pairs, a lane holds a (query, key) micro-tile of the
+//       score block, output rows leave as 16-byte stores; bound by bytes.
+//       At bf16 it is B3's tensor-core kernel, which packs the pairs of
+//       small groups into a block. The TPU kernel's 119-row packed tile,
+//       block-diagonal mask and group padding serve its matrix unit and
+//       have no counterpart.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -489,28 +492,37 @@ extern "C" int diff3dhpe_grand_attn_fwd_bf16(
   return 0;
 }
 
-// B6: the same function for small groups, n <= 64 (checked by the
-// wrapper), one warp per (b, h): the small-group kernel of grand_attn.cuh.
-// One kernel; adds one to *launches when it launched. Returns the
-// cudaError_t of the launch.
+// B6: the same function for small groups, n <= 64, through the
+// small-group kernel of grand_attn.cuh (persistent blocks walking the
+// (b, h) pairs). One kernel; adds one to *launches when it launched.
+// Returns the cudaError_t of the launch.
 extern "C" int diff3dhpe_grand_attn_small_f32(
     const float* q, const float* k, const float* v, float* out, int B, int H, int n, int d,
     long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
     long long o_sh, long long o_sn, float scale, int* launches, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || n > kSmallMaxN || !grand::takes_head_dim(d)) return (int)cudaErrorInvalidValue;
-#define SMALL_ARGS q, k, v, out, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(o), B, H, n, n, \
-                   scale, stream, 1
   const cudaError_t err =
-      d == 64 ? (n <= 32 ? grand::launch_small<64, 1, false>(SMALL_ARGS)
-                         : grand::launch_small<64, 2, false>(SMALL_ARGS))
-              : (n <= 32 ? grand::launch_small<128, 1, false>(SMALL_ARGS)
-                         : grand::launch_small<128, 2, false>(SMALL_ARGS));
-#undef SMALL_ARGS
+      grand::launch_small(q, k, v, out, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(o), B, H, n,
+                          n, d, scale, static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return (int)err;
   ++*launches;
   return 0;
+}
+
+// B6 at bf16, n <= 64: the tensor-core kernel of grand_attn_bf16.cuh, which
+// packs the pairs of small groups into a block (P rounded to bf16 after
+// the normalisation, one rounding of P·v − v: the bf16 branch of JAX's
+// grand_attend_tile). Arguments and checks as B3 at bf16.
+extern "C" int diff3dhpe_grand_attn_small_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, __nv_bfloat16* out,
+    int B, int H, int n, int d,
+    long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
+    long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
+    long long o_sh, long long o_sn, float scale, int* launches, void* stream_ptr) {
+  if (n > kSmallMaxN) return (int)cudaErrorInvalidValue;
+  return diff3dhpe_grand_attn_fwd_bf16(q, k, v, out, B, H, n, d, q_sb, q_sh, q_sn, k_sb, k_sh,
+                                       k_sn, v_sb, v_sh, v_sn, o_sb, o_sh, o_sn, scale, launches,
+                                       stream_ptr);
 }
 
 // B4: dq, dk, dv of B3 given dO, as two kernels (the dq pass, then the

@@ -52,13 +52,11 @@
 // Small groups (grand_attn_small_kernel, n_keys <= 32 with at most 64 query
 // rows; also B6 up to 64 keys): a 64-query tile would leave most of a
 // block idle at n = 17 (the spatial blocks: 7,776 pairs at the eval shape),
-// so one WARP takes a (group, head) and a block holds several. The warp's
-// K (rows padded to D + 1 floats) and V sit in its slice of shared memory;
-// lane j owns key j (and 32 + j for n > 32), so a query's scores are one or
-// two registers a lane and the softmax is two warp reductions. Four queries
-// go at a time (four independent dot products a lane), their rows staged in
-// the warp's slice and read as 128-bit broadcasts. For P·V the lanes turn to the head
-// dimension (columns 32c + lane) and take each P from its owner by shuffle.
+// and the work is bound by bytes, not FMAs. Persistent blocks walk the
+// (group, head) pairs, a whole pair a stage of a two-stage cp.async ring,
+// the next pair's rows landing while the current one computes; a lane holds
+// a register micro-tile of the score block over (query, key), so every lane
+// works at n = 17. The design is set out above the kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,6 +68,10 @@ namespace grand {
 constexpr int kMaxN = 256;    // keys per group the kernels take
 constexpr int kSmallKeys = 32;     // at or below: the small-group kernel (with <= 64 query rows)
 constexpr int kSmallMaxN = 64;     // the most keys the small-group kernel takes (B6)
+
+// True for the head widths the kernels are compiled for (f32 here, bf16 in
+// grand_attn_bf16.cuh).
+__host__ __device__ inline bool takes_head_dim(int d) { return d == 64 || d == 128; }
 
 // Element strides of one [B, H, N, D] operand; z is the stride of the
 // outer group index (read only by the kOuter kernels).
@@ -344,153 +346,256 @@ grand_attn_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-// ---- small groups: one warp per (group, head) -------------------------------
+// ---- small groups: persistent teams walking (group, head) pairs ------------
 
-constexpr int kSmallQueries = 4;   // queries a warp takes at a time
-constexpr int kSmallMaxWarps = 8;
+// Replaces, with grand_attention.cu's B6 entry point,
+// diff3dhpe_tpu/ops/attention.py::_packed_grand_attn_kernel (:120-139),
+// and serves as the f32 attention step of B1, B2 and B5 for groups of at
+// most 32 keys: out = softmax(q kᵀ·scale) v − v on groups of n <= 64 keys.
+//
+// What bounds it on an H100: bytes. At the spatial eval shape (7,776
+// (group, head) pairs of n = 17, D = 64) q, k and v are read once and the
+// output written once, 135 MB: 0.040 ms at 3.35 TB/s, against 0.58 GFLOP
+// (0.009 ms of f32 FMAs). So the design keeps loads in flight and spends
+// little else:
+// - Persistent blocks: a block takes one pair at a time, the grid is as
+//   many blocks as are resident on the card, each walking pairs blockIdx.x
+//   + k·gridDim.x. A two-stage ring in shared memory holds a whole pair a
+//   stage (Q, K and V, all query rows): the next pair's rows arrive by
+//   16-byte cp.async while the current pair computes, so every resident
+//   block has a pair (13 KB at D = 64, n = 17) on its way from device memory.
+// - Rows are staged as they lie (D floats, padded by 4 so that the 8 rows
+//   a quarter-warp reads at one column fall in distinct bank groups); K is
+//   read by the same 128-bit micro-tile loads as the tiled kernel's, not
+//   copied and transposed. At n = 17 a stage is 14.7 KB (28.5 at D = 128):
+//   6 blocks an SM at D = 64, 3 at D = 128.
+// - Lanes: lane (a, b) = (lane / 8, lane % 8) holds a register micro-tile
+//   of queries a + 4i (i < kQI) and keys b + 8j (j < KJ) of the score block,
+//   so every lane works at n = 17; per 4 columns kQI + KJ loads feed
+//   4·kQI·KJ FMAs. The row max and sum are reductions over the row's 8
+//   lanes. P goes through the warp's slice of shared memory; for P·V the
+//   lane holds the same queries and columns 4b + 32c, so output rows leave
+//   as 16-byte stores and "− v" is read from the staged V.
+// - A block is a team of up to 4 warps, one for each chunk of kChunk query
+//   rows (12 at n <= 24, else 16): at n = 17 two warps share a pair's
+//   stages and take 12 x 24 tiles of its 17 x 17 score block, so 12 warps
+//   an SM hide each other's shared-memory latency (a warp a pair, 20 x 24
+//   tiles and 6 warps an SM, was slower on the card).
+// Exactly the f32 branch of JAX's grand_attend_tile: logits summed over d in
+// order (the same bits as the tiled kernel's), exact expf, the row max then
+// the sum, normalisation after P·V by one IEEE reciprocal: O · (1/l) − v.
 
-// Floats of shared memory one warp of grand_attn_small_kernel holds: Q
-// [4][D] and V [n][D] (16-byte aligned rows), then K [n][D + 1] rounded up
-// to 4 floats.
-__host__ __device__ inline int small_warp_floats(int n, int d) {
-  return kSmallQueries * d + n * d + ((n * (d + 1) + 3) & ~3);
+// The micro-tile for groups of at most 8·KJ keys (KJ = 3, 4 or 8: n <= 24,
+// 32, 64): queries a + 4i (i < kQI) of a chunk of kChunk query rows, keys
+// b + 8j (j < KJ).
+template <int D, int KJ>
+struct SmallTile {
+  static constexpr int kQI = KJ == 3 ? 3 : 4;
+  static constexpr int kChunk = 4 * kQI;  // 12 query rows (n <= 24), else 16
+  static constexpr int kKeys = 8 * KJ;    // keys a micro-tile spans
+  static constexpr int kLd = D + 4;       // floats a staged row
+  static constexpr int kLdP = (kKeys + 31) / 32 * 32 + 8;  // a row of P, 8 mod 32 banks
+  static constexpr int kMaxTeam = 4;      // warps a block
+};
+
+// Offsets (floats) in the shared memory of one block: a stage holds Q (nq
+// rows), K (n rows) and V (max(nq, n4) rows, n4 = n rounded up to 4; rows
+// nq..n4-1 are zeros, read by P·V with P = 0), and is long enough that a
+// micro-tile read past Q's or K's last row stays inside it (such rows give
+// logits of pad queries, never stored, or of pad keys, masked). Two
+// stages, then a P tile [kChunk][kLdP] for each warp of the team.
+struct SmallLayout {
+  int k, v, stage, p, total;
+};
+
+template <int D, int KJ>
+__host__ __device__ inline SmallLayout small_layout(int n, int nq, int team) {
+  using T = SmallTile<D, KJ>;
+  const int n4 = (n + 3) & ~3, v_rows = nq > n4 ? nq : n4;
+  const int q_read = (nq + T::kChunk - 1) / T::kChunk * T::kChunk;
+  int rows = nq + n + v_rows;
+  rows = rows > nq + T::kKeys ? rows : nq + T::kKeys;
+  rows = rows > q_read ? rows : q_read;
+  SmallLayout L;
+  L.k = nq * T::kLd;
+  L.v = (nq + n) * T::kLd;
+  L.stage = rows * T::kLd;
+  L.p = 2 * L.stage;
+  L.total = L.p + team * T::kChunk * T::kLdP;
+  return L;
 }
 
-// out = softmax(q kᵀ·scale) v − v for pairs (b, h) of [B, H, n, D]
-// operands with n_keys <= 32·kKpl keys and n_queries rows; warp w of block
-// x takes pair x·warps + w (and blockIdx.z as the outer index with kOuter).
-template <int D, int kKpl, bool kOuter>
-__global__ void grand_attn_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                        const float* __restrict__ v, float* __restrict__ out,
-                                        Strides sq, Strides sk, Strides sv, Strides so,
-                                        int pairs, int H, int n_keys, int n_queries,
-                                        float scale) {
-  constexpr int kCols = D / 32;  // columns a lane holds in the P·V product
-  constexpr int kQ = kSmallQueries;
+// out = softmax(q kᵀ·scale) v − v for the B·H·outer pairs (z, b, h)
+// of [B, H, n, D] operands (pair = (z·B + b)·H + h; z is the outer index of
+// B2's layout, 0 elsewhere) with n_keys keys and n_queries >= n_keys query
+// rows. Block x takes pairs x, x + gridDim.x, ...; gridDim.x <= pairs.
+template <int D, int KJ>
+__global__ void __launch_bounds__(32 * SmallTile<D, KJ>::kMaxTeam)
+grand_attn_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ out, Strides sq,
+                        Strides sk, Strides sv, Strides so, int pairs, int B, int H,
+                        int n_keys, int n_queries, float scale) {
+  using T = SmallTile<D, KJ>;
+  constexpr int kC = D / 32;   // 4-column groups a lane holds of an output row
+  constexpr int kP4 = D / 4;   // 16-byte pieces a row
   extern __shared__ __align__(16) float small_smem[];
-  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * warps + warp;
-  if (pair >= pairs) return;  // warps share nothing: no block-wide barrier below
-  const int b = pair / H, h = pair % H, n = n_keys;
-  float* Qw = small_smem + (size_t)warp * small_warp_floats(n, D);
-  float* Vs = Qw + kQ * D;
-  float* Ks = Vs + n * D;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  float* ob = out + b * so.b + h * so.h;
-  if constexpr (kOuter) {
-    const long long z = blockIdx.z;
-    qb += z * sq.z;
-    kb += z * sk.z;
-    vb += z * sv.z;
-    ob += z * so.z;
+  const int team = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int a = lane >> 3, b = lane & 7;
+  const int n = n_keys, nq = n_queries, n4 = (n + 3) & ~3;
+  const SmallLayout L = small_layout<D, KJ>(n, nq, team);
+  float* Pw = small_smem + L.p + warp * (T::kChunk * T::kLdP);
+  const int chunks = (nq + T::kChunk - 1) / T::kChunk;
+
+  // V's rows nq..n4-1 of both stages: zeros, written once (no cp.async
+  // writes there).
+  const int vpad = n4 > nq ? (n4 - nq) * kP4 : 0;
+  for (int e = threadIdx.x; e < 2 * vpad; e += blockDim.x) {
+    const int st = e / vpad, r = nq + (e % vpad) / kP4, c4 = (e % kP4) * 4;
+    *reinterpret_cast<float4*>(small_smem + st * L.stage + L.v + r * T::kLd + c4) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  for (int e = lane; e < n * (D / 4); e += 32) {
-    const int j = e / (D / 4), c4 = (e % (D / 4)) * 4;
-    const float4 kv = ld4(kb + j * sk.n + c4);
-    *reinterpret_cast<float4*>(Vs + j * D + c4) = ld4(vb + j * sv.n + c4);
-    float* kd = Ks + j * (D + 1) + c4;
-    kd[0] = kv.x;
-    kd[1] = kv.y;
-    kd[2] = kv.z;
-    kd[3] = kv.w;
-  }
-  __syncwarp();
-
-  for (int i0 = 0; i0 < n_queries; i0 += kQ) {
-    // Query rows past n_queries are zeros and are not stored.
-#pragma unroll
-    for (int e = lane; e < kQ * (D / 4); e += 32) {
-      const int x = e / (D / 4), c4 = (e % (D / 4)) * 4;
-      *reinterpret_cast<float4*>(Qw + x * D + c4) =
-          i0 + x < n_queries ? ld4(qb + (i0 + x) * sq.n + c4) : make_float4(0.f, 0.f, 0.f, 0.f);
+  // The element offset of pair p's (b, h[, z]) in an operand.
+  auto base = [&](int p, const Strides& s) {
+    const int h = p % H, rest = p / H;
+    return (long long)(rest % B) * s.b + (long long)h * s.h + (long long)(rest / B) * s.z;
+  };
+  // Pair p's Q, K and V rows into a stage, by every thread of the block.
+  auto issue = [&](int p, float* st) {
+    const float* qb = q + base(p, sq);
+    const float* kb = k + base(p, sk);
+    const float* vb = v + base(p, sv);
+    for (int e = threadIdx.x; e < nq * kP4; e += blockDim.x) {
+      const int r = e / kP4, c4 = (e % kP4) * 4;
+      cp_async16(st + r * T::kLd + c4, qb + r * sq.n + c4, true);
+      cp_async16(st + L.v + r * T::kLd + c4, vb + r * sv.n + c4, true);
     }
-    __syncwarp();
-    float s[kQ][kKpl];
+    for (int e = threadIdx.x; e < n * kP4; e += blockDim.x) {
+      const int r = e / kP4, c4 = (e % kP4) * 4;
+      cp_async16(st + L.k + r * T::kLd + c4, kb + r * sk.n + c4, true);
+    }
+  };
+
+  const int stride = gridDim.x;
+  int pair = blockIdx.x;
+  issue(pair, small_smem);
+  cp_async_commit();
+  for (int it = 0; pair < pairs; ++it, pair += stride) {
+    const float* st = small_smem + (it & 1) * L.stage;
+    if (pair + stride < pairs) issue(pair + stride, small_smem + ((it + 1) & 1) * L.stage);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this pair's stage has landed, for every thread
+    const float* Ks = st + L.k;
+    const float* Vs = st + L.v;
+    float* ob = out + base(pair, so);
+    for (int c = warp; c < chunks; c += team) {
+      const int r0 = c * T::kChunk;
+      float s[T::kQI][KJ];
 #pragma unroll
-    for (int kk = 0; kk < kKpl; ++kk) {
-      const int j = kk * 32 + lane;
-      float dot[kQ] = {};
-      if (j < n) {
-        const float* kr = Ks + j * (D + 1);
-#pragma unroll 4
-        for (int d = 0; d < D; d += 4) {
-          const float4 kv = make_float4(kr[d], kr[d + 1], kr[d + 2], kr[d + 3]);
+      for (int i = 0; i < T::kQI; ++i)
 #pragma unroll
-          for (int x = 0; x < kQ; ++x) dot[x] = dot4(ld4(Qw + x * D + d), kv, dot[x]);
+        for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < D / 32; ++cc) {
+        mm_rows<T::kQI, KJ, 4, 8>(s, st + 32 * cc, T::kLd, r0 + a, Ks + 32 * cc, T::kLd, b);
+      }
+      __syncwarp();  // every lane is done reading the previous chunk's P
+      float inv[T::kQI];
+#pragma unroll
+      for (int i = 0; i < T::kQI; ++i) {
+        float mt = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          s[i][j] = b + 8 * j < n ? s[i][j] * scale : -INFINITY;
+          mt = fmaxf(mt, s[i][j]);
+        }
+        const float m = oct_max(mt);  // finite: key 0 is in every row
+        float l = 0.f;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          const float p = expf(s[i][j] - m);
+          l += p;
+          Pw[(a + 4 * i) * T::kLdP + b + 8 * j] = p;
+        }
+        inv[i] = 1.0f / oct_sum(l);
+      }
+      __syncwarp();  // P is complete
+      float o[T::kQI][4 * kC];
+#pragma unroll
+      for (int i = 0; i < T::kQI; ++i)
+#pragma unroll
+        for (int e = 0; e < 4 * kC; ++e) o[i][e] = 0.f;
+      mm_acc<T::kQI, 4, kC, 32>(o, Pw, T::kLdP, a, Vs, T::kLd, b, n4);
+#pragma unroll
+      for (int i = 0; i < T::kQI; ++i) {
+        const int row = r0 + a + 4 * i;
+        if (row >= nq) continue;
+        const float* vi = Vs + row * T::kLd + 4 * b;
+        float* oi = ob + (long long)row * so.n + 4 * b;
+#pragma unroll
+        for (int cc = 0; cc < kC; ++cc) {
+          const float4 vv = ld4(vi + 32 * cc);
+          *reinterpret_cast<float4*>(oi + 32 * cc) =
+              make_float4(o[i][4 * cc] * inv[i] - vv.x, o[i][4 * cc + 1] * inv[i] - vv.y,
+                          o[i][4 * cc + 2] * inv[i] - vv.z, o[i][4 * cc + 3] * inv[i] - vv.w);
         }
       }
-#pragma unroll
-      for (int x = 0; x < kQ; ++x) s[x][kk] = j < n ? dot[x] * scale : -INFINITY;
     }
-    float inv[kQ];
-#pragma unroll
-    for (int x = 0; x < kQ; ++x) {
-      float m = s[x][0];
-#pragma unroll
-      for (int kk = 1; kk < kKpl; ++kk) m = fmaxf(m, s[x][kk]);
-      m = warp_max(m);
-      float sum = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKpl; ++kk) {
-        s[x][kk] = kk * 32 + lane < n ? expf(s[x][kk] - m) : 0.f;
-        sum += s[x][kk];
-      }
-      inv[x] = 1.0f / warp_sum(sum);
-    }
-
-    float o[kQ][kCols] = {};  // columns 32c + lane
-#pragma unroll
-    for (int kk = 0; kk < kKpl; ++kk) {
-      const int end = n - kk * 32 < 32 ? n - kk * 32 : 32;
-      for (int j = 0; j < end; ++j) {
-        const float* vr = Vs + (kk * 32 + j) * D + lane;
-        float vv[kCols];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) vv[c] = vr[32 * c];
-#pragma unroll
-        for (int x = 0; x < kQ; ++x) {
-          const float p = __shfl_sync(0xffffffffu, s[x][kk], j);
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) o[x][c] = fmaf(p, vv[c], o[x][c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int x = 0; x < kQ; ++x) {
-      const int i = i0 + x;
-      if (i >= n_queries) break;
-      const float* vi = vb + i * sv.n + lane;
-      float* oi = ob + i * so.n + lane;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) oi[32 * c] = o[x][c] * inv[x] - vi[32 * c];
-    }
-    __syncwarp();  // Qw is rewritten next
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 }
 
-template <int D, int kKpl, bool kOuter>
+template <int D, int KJ>
+inline cudaError_t launch_small_keys(const float* q, const float* k, const float* v, float* out,
+                                     Strides sq, Strides sk, Strides sv, Strides so, int B,
+                                     int H, int n_keys, int n_queries, float scale,
+                                     cudaStream_t stream, int outer) {
+  using T = SmallTile<D, KJ>;
+  const int chunks = (n_queries + T::kChunk - 1) / T::kChunk;
+  const int team = chunks < T::kMaxTeam ? chunks : T::kMaxTeam;
+  const int bytes = small_layout<D, KJ>(n_keys, n_queries, team).total * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(grand_attn_small_kernel<D, KJ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grand_attn_small_kernel<D, KJ>,
+                                                        32 * team, bytes);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long pairs = (long long)B * H * outer;
+  if (pairs > 0x7fffffff) return cudaErrorInvalidValue;
+  const int grid = (long long)sms * per_sm < pairs ? sms * per_sm : (int)pairs;
+  grand_attn_small_kernel<D, KJ><<<grid, 32 * team, bytes, stream>>>(
+      q, k, v, out, sq, sk, sv, so, (int)pairs, B, H, n_keys, n_queries, scale);
+  return cudaGetLastError();
+}
+
+// The small-group kernel on (B, H[, outer]) groups of n_keys <= kSmallMaxN
+// keys and n_keys <= n_queries <= kSmallMaxN query rows, head width d (64
+// or 128); strides as launch_grand_attn's. B6 takes it at n <= 64, the
+// block's attention step at n <= kSmallKeys.
 inline cudaError_t launch_small(const float* q, const float* k, const float* v, float* out,
                                 Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
-                                int n_keys, int n_queries, float scale, cudaStream_t stream,
-                                int outer) {
-  // As many warps a block as 72 KB of shared memory hold (three blocks an SM).
-  const int warp_bytes = small_warp_floats(n_keys, D) * (int)sizeof(float);
-  int warps = (72 * 1024) / warp_bytes;
-  warps = warps < kSmallMaxWarps ? warps : kSmallMaxWarps;
-  warps = warps > 0 ? warps : 1;
-  const size_t bytes = (size_t)warps * warp_bytes;
-  const cudaError_t err = cudaFuncSetAttribute(grand_attn_small_kernel<D, kKpl, kOuter>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)bytes);
-  if (err != cudaSuccess) return err;
-  const int pairs = B * H;
-  grand_attn_small_kernel<D, kKpl, kOuter>
-      <<<dim3((pairs + warps - 1) / warps, 1, outer), 32 * warps, bytes, stream>>>(
-          q, k, v, out, sq, sk, sv, so, pairs, H, n_keys, n_queries, scale);
-  return cudaGetLastError();
+                                int n_keys, int n_queries, int d, float scale,
+                                cudaStream_t stream, int outer = 1) {
+  if (n_keys <= 0 || n_keys > kSmallMaxN || n_queries < n_keys || n_queries > kSmallMaxN ||
+      !takes_head_dim(d) || B <= 0 || H <= 0 || outer <= 0) {
+    return cudaErrorInvalidValue;
+  }
+#define SMALL_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer
+  if (d == 64) {
+    return n_keys <= 24   ? launch_small_keys<64, 3>(SMALL_ARGS)
+           : n_keys <= 32 ? launch_small_keys<64, 4>(SMALL_ARGS)
+                          : launch_small_keys<64, 8>(SMALL_ARGS);
+  }
+  return n_keys <= 24   ? launch_small_keys<128, 3>(SMALL_ARGS)
+         : n_keys <= 32 ? launch_small_keys<128, 4>(SMALL_ARGS)
+                        : launch_small_keys<128, 8>(SMALL_ARGS);
+#undef SMALL_ARGS
 }
 
 template <int D, bool kOuter>
@@ -509,10 +614,6 @@ inline cudaError_t launch_tiled(const float* q, const float* k, const float* v, 
   return cudaGetLastError();
 }
 
-// True for the head widths the kernels are compiled for (f32 here, bf16 in
-// grand_attn_bf16.cuh).
-__host__ __device__ inline bool takes_head_dim(int d) { return d == 64 || d == 128; }
-
 // Launches the f32 attention on (B, H[, outer]) groups of n_keys keys and
 // n_queries >= n_keys query rows at head width d (64 or 128), n_keys <=
 // kMaxN: the small-group kernel for n_keys <= 32 (and at most 64 query
@@ -529,11 +630,11 @@ inline cudaError_t launch_grand_attn(const float* q, const float* k, const float
       (stats != nullptr && (kOuter || n_keys <= kSmallKeys))) {
     return cudaErrorInvalidValue;
   }
-#define GRAND_F32_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer
   if (n_keys <= kSmallKeys && n_queries <= kSmallMaxN) {
-    return d == 64 ? launch_small<64, 1, kOuter>(GRAND_F32_ARGS)
-                   : launch_small<128, 1, kOuter>(GRAND_F32_ARGS);
+    return launch_small(q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, d, scale, stream,
+                        outer);
   }
+#define GRAND_F32_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer
   return d == 64 ? launch_tiled<64, kOuter>(GRAND_F32_ARGS, stats)
                  : launch_tiled<128, kOuter>(GRAND_F32_ARGS, stats);
 #undef GRAND_F32_ARGS

@@ -84,7 +84,7 @@ def check_supported(cfg: Config, device="cpu") -> None:
     if bf16 and not cfg.fast_eval:
         refuse("compute_dtype", "bfloat16 runs only through fast_eval (the module is float32)")
     if bf16 and cfg.use_pallas_attention:
-        refuse("use_pallas_attention", "the attention kernels are float32; not with "
+        refuse("use_pallas_attention", "the use_pallas module runs at float32; not with "
                "compute_dtype='bfloat16'")
     if cfg.eval_f32_tail_pairs > 0:
         refuse("eval_f32_tail_pairs", "the final step's forward runs float32 as a whole")

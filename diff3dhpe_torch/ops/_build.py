@@ -81,16 +81,15 @@ SIGNATURES = {
             + [_L] * 12                        # (b, h, n) strides of q, k, v, out
             + [_F, _P, ctypes.POINTER(_I), _P]  # scale, B4's statistics or NULL, launches, stream
         ),
-        "diff3dhpe_grand_attn_fwd_bf16": (
-            [_P] * 4 + [_I] * 4                # q, k, v, out; B, H, n, head_dim
+    } | {
+        name: (
+            [_P] * 4 + [_I] * 4                # q, k, v, out; B, H, n (B6: n <= 64), head_dim
             + [_L] * 12                        # (b, h, n) strides of q, k, v, out
             + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
-        ),
-        "diff3dhpe_grand_attn_small_f32": (
-            [_P] * 4 + [_I] * 4                # q, k, v, out; B, H, n (n <= 64), head_dim
-            + [_L] * 12                        # (b, h, n) strides of q, k, v, out
-            + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
-        ),
+        )
+        for name in ("diff3dhpe_grand_attn_fwd_bf16", "diff3dhpe_grand_attn_small_f32",
+                     "diff3dhpe_grand_attn_small_bf16")
+    } | {
         "diff3dhpe_grand_attn_bwd_f32": (
             [_P] * 10 + [_I] * 4               # q, k, v, dO, B3's out and statistics or NULL,
                                                # dq, dk, dv, P/dS scratch; B, H, n, head_dim

@@ -18,10 +18,10 @@ Port of ``diff3dhpe_tpu/ops/attention.py``:
 
 The kernels take head_dim 64 or 128 and n <= 256 (B6: n <= 64) and read
 their operands through strides (unit stride on the head dim), so views of a
-qkv projection go in without a copy. B3 also takes bfloat16 (JAX's takes
-q's dtype): the tensor-core kernel of ``csrc/grand_attn_bf16.cuh``, which
-rounds P to bf16 after the normalisation and the output once, as
-``grand_attention_stored`` does. B4 and B6 are float32.
+qkv projection go in without a copy. B3 and B6 also take bfloat16 (JAX's
+take q's dtype): the tensor-core kernel of ``csrc/grand_attn_bf16.cuh``,
+which rounds P to bf16 after the normalisation and the output once, as
+``grand_attention_stored`` does. B4 is float32.
 """
 from __future__ import annotations
 
@@ -70,7 +70,9 @@ def grand_attention_fullseq_ref(q, k, v, scale=None):
     return grand_attention_stored(q.float(), k.float(), v.float(), scale, rnd).to(q.dtype)
 
 
-packed_grand_attention_ref = grand_attention   # the plain version of B6
+# The plain version of B6: B3's, at float32 and at bfloat16 (JAX's packed
+# kernel runs the same grand_attend_tile as its full-sequence one).
+packed_grand_attention_ref = grand_attention_fullseq_ref
 
 
 def grand_attention_bwd_ref(q, k, v, do, scale=None):
@@ -116,14 +118,19 @@ def _fullseq(q, k, v, scale, stats=None):
 
 def packed_grand_attention(q, k, v, scale=None):
     """B6: GRAND attention for many small groups, q, k, v [G, N, D] (or
-    [B, H, N, D]) with N <= 64.
+    [B, H, N, D]) with N <= 64, all float32 or all bfloat16 (else
+    ``ValueError``).
 
     A CPU tensor runs the plain version. A CUDA tensor launches the kernel
-    (``packed_grand_attention.launches`` counts launches) or raises. The
-    name is JAX's, whose kernel packs groups into one tile of its matrix
-    unit; this kernel gives each (group, head) a warp and packs nothing."""
+    (``packed_grand_attention.launches`` counts launches, ``.launches_bf16``
+    those at bf16) or raises: at float32 the small-group kernel, whose
+    persistent blocks walk the (group, head) pairs; at bfloat16 B3's
+    tensor-core kernel, which packs the pairs of small groups into a block.
+    The name is JAX's, whose kernel packs groups into one tile of its
+    matrix unit."""
     if q.shape[-2] > SMALL_N:
         raise ValueError(f"packed_grand_attention takes n <= {SMALL_N}, got n {q.shape[-2]}")
+    _check_dtypes(q, k, v)
     if q.device.type == "cpu":
         return packed_grand_attention_ref(q, k, v, scale)
     q4, k4, v4 = (_as4d(t) for t in (q, k, v))
@@ -133,19 +140,19 @@ def packed_grand_attention(q, k, v, scale=None):
 
 
 packed_grand_attention.launches = 0
+packed_grand_attention.launches_bf16 = 0
 
 
 def fused_grand_attention(q, k, v, scale=None):
-    """q, k, v [B, H, N, D] -> [B, H, N, D]: N <= 64 through B6, larger N
-    through B3; at bfloat16 every N through B3, because B6 has no bf16
-    instance (and B3's bf16 kernel packs small groups into a block itself).
+    """q, k, v [B, H, N, D] -> [B, H, N, D], float32 or bfloat16: N <= 64
+    through B6, larger N through B3.
 
     JAX's dispatcher keeps N <= 64 on its plain formulas, because its
     packed kernel needs a relayout of [G, 17, 64] into 119-row tiles first
     (ops/attention.py:240-246). B6 reads the qkv projection through strides
     and needs none, so the port sends small N to its kernel."""
     _check_dtypes(q, k, v)
-    if q.shape[-2] <= SMALL_N and q.dtype == torch.float32:
+    if q.shape[-2] <= SMALL_N:
         return packed_grand_attention(q, k, v, scale)
     return grand_attention_fullseq(q, k, v, scale)
 
@@ -280,23 +287,20 @@ def _bwd_stats(q):
 
 
 def _launch_fwd(q, k, v, out, scale, small=False, stats=None):
-    """Launches B3 (in q's dtype), or B6 with ``small`` (float32 only), and
-    counts it on its wrapper. ``stats``: B4's statistics (``_bwd_stats``),
-    which B3 at float32 fills with the rows' max and 1/sum."""
-    dtype = torch.float32 if small else q.dtype
+    """Launches B3, or B6 with ``small``, in q's dtype, and counts it on
+    its wrapper. ``stats``: B4's statistics (``_bwd_stats``), which B3 at
+    float32 fills with the rows' max and 1/sum."""
+    f32 = q.dtype == torch.float32
     lib, scale = _library(q, scale, small)
-    q, k, v = (_kernel_operand(t, q, dtype) for t in (q, k, v))
+    q, k, v = (_kernel_operand(t, q, q.dtype) for t in (q, k, v))
     b, h, n, d = q.shape
-    extra = []  # the f32 B3 entry point's statistics pointer
-    if small:
-        wrapper, fn = packed_grand_attention, lib.diff3dhpe_grand_attn_small_f32
-    elif dtype == torch.float32:
-        wrapper, fn = grand_attention_fullseq, lib.diff3dhpe_grand_attn_fwd_f32
-        extra = [None if stats is None else stats.data_ptr()]
-    else:
-        if not scale > 0:  # it takes the row max before it scales
-            raise ValueError(f"the bf16 attention kernel takes a positive scale, got {scale}")
-        wrapper, fn = grand_attention_fullseq, lib.diff3dhpe_grand_attn_fwd_bf16
+    if not f32 and not scale > 0:  # the bf16 kernel takes the row max before it scales
+        raise ValueError(f"the bf16 attention kernel takes a positive scale, got {scale}")
+    wrapper = packed_grand_attention if small else grand_attention_fullseq
+    kind, dt = "small" if small else "fwd", "f32" if f32 else "bf16"
+    fn = getattr(lib, f"diff3dhpe_grand_attn_{kind}_{dt}")
+    # The f32 B3 entry point's statistics pointer.
+    extra = [None if stats is None else stats.data_ptr()] if f32 and not small else []
     launched = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         err = fn(
@@ -306,6 +310,8 @@ def _launch_fwd(q, k, v, out, scale, small=False, stats=None):
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     wrapper.launches += launched.value
+    if small and not f32:
+        wrapper.launches_bf16 += launched.value
     if err:
         raise RuntimeError(f"{wrapper.__name__} kernel failed: cudaError_t {err}")
 

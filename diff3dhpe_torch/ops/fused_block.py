@@ -335,8 +335,8 @@ def _gemm(wrapper, plain, dt, a, w, bias, epilogue, res, rscale):
     from diff3dhpe_torch.ops._build import load_library
 
     f32 = torch.float32
-    if dt == f32 and k % 4:
-        raise ValueError(f"the f32 CUDA kernel needs K % 4 == 0, got K={k}")
+    if dt == f32 and (k % 8 or n % 4):
+        raise ValueError(f"the f32 CUDA kernel needs K % 8 == 0 and N % 4 == 0, got K={k}, N={n}")
     if dt != f32 and (k % 32 or n % 8):
         raise ValueError(f"the CUDA kernel needs K % 32 == 0 and N % 8 == 0, got K={k}, N={n}")
     lib = load_library("fused_block")

@@ -24,6 +24,7 @@ from diff3dhpe_torch.engine.runner import check_supported
 from diff3dhpe_torch.ops import attention as port
 from diff3dhpe_tpu.ops import attention as jax_attention
 from torch_port_helpers import build_pair, port_model
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 EMBED, HEADS, D = 256, 2, 128
 FWD_ABS = 1e-5

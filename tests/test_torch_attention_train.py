@@ -20,6 +20,7 @@ from diff3dhpe_torch.ops import (
     grand_attention_trainable,
 )
 from diff3dhpe_tpu.ops import attention as jax_attention
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -16,6 +16,7 @@ from diff3dhpe_torch.models.mixste import Block
 from diff3dhpe_torch.ops import fused_attention_block, fused_attention_block_ref
 from diff3dhpe_tpu.ops.fused_block import fused_attention_block as jax_attention_block
 from torch_port_helpers import assert_bf16_bars
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 C, HEADS = 64, 8
 

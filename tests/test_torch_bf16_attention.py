@@ -27,6 +27,7 @@ from diff3dhpe_torch.ops import attention as port
 from diff3dhpe_torch.ops.fused_block import _attn_branch_ref, _gemm_bf16, _gemm_bf16_ref
 from diff3dhpe_tpu.ops.attention import grand_attention_pallas_3d
 from torch_port_helpers import assert_bf16_bars
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 D = 64
 
@@ -85,7 +86,8 @@ def test_fullseq_bf16_is_the_blocks_attention_step(rng, n, n_pad, groups):
 
 @pytest.mark.parametrize("n", [17, 243])
 def test_dispatcher_sends_bf16_to_fullseq(rng, n, monkeypatch):
-    """B6 has no bf16 instance: at bf16 every n goes to B3's wrapper."""
+    """At bf16 as at float32, n <= 64 goes to B6's wrapper and larger n to
+    B3's (B6 at bf16 is B3's tensor-core kernel)."""
     qkv = _bf16(rng, 2, n, 3, 2, D)
     q, k, v = qkv.permute(2, 0, 3, 1, 4)
     calls = []
@@ -94,7 +96,8 @@ def test_dispatcher_sends_bf16_to_fullseq(rng, n, monkeypatch):
         monkeypatch.setattr(port, name, lambda *a, _fn=fn, _name=name: (calls.append(_name),
                                                                          _fn(*a))[1])
     out = port.fused_grand_attention(q, k, v)
-    assert calls == ["grand_attention_fullseq"] and out.dtype == torch.bfloat16
+    want = "packed_grand_attention" if n <= port.SMALL_N else "grand_attention_fullseq"
+    assert calls == [want] and out.dtype == torch.bfloat16
     expected = jax.jit(lambda a, b, c: grand_attention_pallas_3d(a, b, c, interpret=True))(
         *(_to_jax(t.reshape(4, n, D)) for t in (q, k, v)))
     assert_bf16_bars(out.reshape(4, n, D).float().numpy(),

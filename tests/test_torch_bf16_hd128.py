@@ -35,6 +35,7 @@ from diff3dhpe_tpu.ops.fused_block import fused_transformer_block as jax_fused_b
 from torch_port_helpers import (
     JOINTS_LEFT, JOINTS_RIGHT, assert_bf16_bars, build_pair, jax_x_init, perturb,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 EMBED, HEADS, D = 256, 2, 128
 TPU_CONFIG = "configs/h36m_gt_s2s_243f_tpu.json"

@@ -15,6 +15,7 @@ from diff3dhpe_torch.data import PoseDataset, make_synthetic_h36m_like
 from diff3dhpe_torch.engine.runner import Runner
 from diff3dhpe_torch.models import MixSTEDenoiser
 from torch_port_helpers import JOINTS_LEFT, JOINTS_RIGHT
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 CONFIG = "configs/h36m_gt_s2s_ConditionalDiffusionMixSTES2SGRANDLinLift.json"
 ARGS_COMMON = [

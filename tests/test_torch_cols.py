@@ -23,6 +23,7 @@ from diff3dhpe_torch import (
 from diff3dhpe_tpu.models.fast_eval import fast_forward_denoise as jax_fast_forward
 from diff3dhpe_tpu.ops.fused_block import fused_temporal_block_cols as jax_cols
 from torch_port_helpers import assert_bf16_bars, build_pair
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 C, HEADS, B, F, J = 32, 4, 2, 9, 5
 

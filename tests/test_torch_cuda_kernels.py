@@ -261,6 +261,76 @@ def test_packed_attention_matches_ref(cuda_device, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["views", "contiguous"])
+@pytest.mark.parametrize("n", [17, 27, 33, 64])
+@pytest.mark.parametrize("d", [64, 128])
+def test_small_kernel_matches_ref(cuda_device, d, n, layout):
+    """The small-group kernel (B6 at f32) on qkv views and on contiguous
+    [G, n, d] operands, with more pairs than the persistent grid holds, so
+    every block walks several: within 1e-5 of the plain version (outputs of
+    order 1), and the same bits in a second call."""
+    pairs = 2000 if d == 64 else 1000
+    if layout == "views":
+        (q, k, v), _ = _qkv_views(cuda_device, pairs // 4, 4, n, n + d, d=d)
+    else:
+        gen = torch.Generator(device=cuda_device).manual_seed(n + d)
+        q, k, v = (torch.randn(pairs, n, d, generator=gen, device=cuda_device) for _ in range(3))
+    before = packed_grand_attention.launches
+    out = packed_grand_attention(q, k, v)
+    assert packed_grand_attention.launches - before == 1
+    assert (out - packed_grand_attention_ref(q, k, v)).abs().max() <= 1e-5
+    assert torch.equal(out, packed_grand_attention(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 27, 64])
+@pytest.mark.parametrize("d", [64, 128])
+def test_packed_attention_bf16_matches_ref(cuda_device, d, n):
+    """B6 at bf16 (B3's tensor-core kernel) on qkv views and contiguous
+    operands under the bf16 bars, counted on packed_grand_attention at
+    bf16; n above 64 is refused by name."""
+    (q, k, v), gen = _qkv_views(cuda_device, 13, 3, n, n + 5, torch.bfloat16, d=d)
+    before = (packed_grand_attention.launches, packed_grand_attention.launches_bf16,
+              grand_attention_fullseq.launches)
+    out = packed_grand_attention(q, k, v)
+    assert out.dtype == torch.bfloat16 and out.permute(0, 2, 1, 3).is_contiguous()
+    assert_bf16_close(out, packed_grand_attention_ref(q, k, v))
+    g = torch.randn(7, n, d, generator=gen, device=cuda_device).bfloat16()
+    assert_bf16_close(packed_grand_attention(g, g.flip(0), g * 0.5),
+                      packed_grand_attention_ref(g, g.flip(0), g * 0.5))
+    assert (packed_grand_attention.launches, packed_grand_attention.launches_bf16,
+            grand_attention_fullseq.launches) == (before[0] + 2, before[1] + 2, before[2])
+    x = torch.zeros(2, 65, d, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="n <= 64"):
+        packed_grand_attention(x, x, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [27, 17])
+def test_f32_cols_block_equals_rows(cuda_device, f):
+    """B2 equals B1 bit for bit at f32: the temporal groups (b, j) of f <= 32
+    frames read in place from the spatial-major rows (B2, the small-group
+    kernel with the outer index) and the same groups transposed to
+    consecutive rows (B1, the same kernel without it), with the time add,
+    drop-path and the out-LN."""
+    b, j = 3, 17
+    model = _model(cuda_device, num_frame=f)
+    gen = torch.Generator(device=cuda_device).manual_seed(f + 1)
+    x = torch.randn(b * f, j * C, generator=gen, device=cuda_device)
+    t = torch.randn(b, C, generator=gen, device=cuda_device)
+    dp = ((torch.rand(b * j, 2, generator=gen, device=cuda_device) < 0.7) / 0.7).float()
+    block, out_ln = model.TTEblocks[0], model.Temporal_norm
+    with torch.no_grad():
+        cols = fused_temporal_block_cols(x, block, f, j, C // 64, t_rows=t, out_ln=out_ln,
+                                         dp_scales=dp)
+        x_rows = x.view(b, f, j, C).transpose(1, 2).reshape(b * j * f, C)
+        rows = fused_transformer_block(x_rows, block, f, C // 64, t_rows=t, rows_per_item=j * f,
+                                       out_ln=out_ln, dp_scales=dp.repeat_interleave(f, dim=0))
+    torch.testing.assert_close(cols.view(b, f, j, C).transpose(1, 2).reshape(b * j * f, C),
+                               rows, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
 def test_dispatcher_picks_the_kernel_by_n(cuda_device):
     counters = (packed_grand_attention, grand_attention_fullseq)
     for n, want in ((17, (1, 0)), (64, (1, 0)), (65, (0, 1)), (243, (0, 1))):
@@ -273,8 +343,8 @@ def test_dispatcher_picks_the_kernel_by_n(cuda_device):
         packed_grand_attention(q, k, v)  # n = 243
     with pytest.raises(ValueError, match="head_dim"):
         packed_grand_attention(*(t[:, :, :17, :32] for t in (q, k, v)))
-    with pytest.raises(ValueError, match="float32"):
-        packed_grand_attention(*(t[:, :, :17].bfloat16() for t in (q, k, v)))
+    with pytest.raises(ValueError, match="all be float32 or all bfloat16"):
+        packed_grand_attention(*(t[:, :, :17].double() for t in (q, k, v)))
     with pytest.raises(ValueError, match="all be float32 or all bfloat16"):
         fused_grand_attention(q.bfloat16(), k, v)
     (q, k, v), _ = _qkv_views(cuda_device, 2, 2, 243, 0, torch.bfloat16, d=32)
@@ -287,8 +357,8 @@ def test_dispatcher_picks_the_kernel_by_n(cuda_device):
 def test_fullseq_attention_bf16_matches_ref(cuda_device, n):
     """B3 at bf16 (the tensor-core kernel) on strided qkv views (13 groups x
     3 heads: at small n the last block is partly empty) and on contiguous
-    [G, n, 64] operands, under the bf16 bars; the dispatcher sends every n
-    to it at bf16."""
+    [G, n, 64] operands, under the bf16 bars; the dispatcher sends n <= 64
+    to B6's wrapper, which runs the same kernel at bf16."""
     (q, k, v), gen = _qkv_views(cuda_device, 13, 3, n, n, torch.bfloat16)
     counters = (grand_attention_fullseq, packed_grand_attention)
     before = [c.launches for c in counters]
@@ -298,7 +368,7 @@ def test_fullseq_attention_bf16_matches_ref(cuda_device, n):
     g = torch.randn(5, n, 64, generator=gen, device=cuda_device).bfloat16()
     q3, k3, v3 = g, g.flip(0), g * 0.5
     assert_bf16_close(grand_attention_fullseq(q3, k3, v3), grand_attention_fullseq_ref(q3, k3, v3))
-    assert [c.launches - b for c, b in zip(counters, before)] == [2, 0]
+    assert [c.launches - b for c, b in zip(counters, before)] == ([1, 1] if n <= 64 else [2, 0])
 
 
 @pytest.mark.cuda
@@ -371,10 +441,12 @@ def test_bf16_cols_forward_equals_rows_at_head_dim_128(cuda_device):
 @pytest.mark.parametrize("epilogue,with_rscale", [("bias", False), ("gelu", False),
                                                   ("residual", False), ("residual", True)])
 @pytest.mark.parametrize("m,n,k", [(170, 576, 192), (301, 36, 64), (1000, 1028, 512),
-                                   (16524, 1536, 512)])
+                                   (16524, 1536, 512), (16524, 512, 512), (16524, 1024, 512),
+                                   (16524, 512, 1024)])
 def test_gemm_f32_matches_ref(cuda_device, m, n, k, epilogue, with_rscale):
-    """The block kernels' exact-f32 GEMM alone, at ragged M (no multiple of
-    128) and N (4 x odd), against F.linear in f32 (no TF32) and the same
+    """The block kernels' exact-f32 GEMM (gemm_nt_kernel) alone, at ragged
+    M (no multiple of 128) and N (4 x odd), and at the four products of a
+    block at the eval rows, against F.linear in f32 (no TF32) and the same
     epilogue: the two sum k in other orders, so 1e-5 of max|ref|."""
     gen = torch.Generator(device=cuda_device).manual_seed(m + n + k)
     randn = lambda *shape: torch.randn(*shape, generator=gen, device=cuda_device)
@@ -388,6 +460,18 @@ def test_gemm_f32_matches_ref(cuda_device, m, n, k, epilogue, with_rscale):
     assert _gemm_f32.launches - before == 1
     ref = _gemm_f32_ref(a, w, bias, epilogue, res, rscale)
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(36, 64), (12, 64), (64, 30)])
+def test_gemm_f32_refuses_shapes(cuda_device, k, n):
+    """gemm_nt_kernel reads K in 8-column tiles and stores 4 columns at a
+    time: K % 8 or N % 4 is refused by name before a launch."""
+    a, w = torch.ones(16, k, device=cuda_device), torch.ones(n, k, device=cuda_device)
+    before = _gemm_f32.launches
+    with pytest.raises(ValueError, match=r"K % 8 == 0 and N % 4 == 0"):
+        _gemm_f32(a, w)
+    assert _gemm_f32.launches == before
 
 
 @pytest.mark.cuda

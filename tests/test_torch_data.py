@@ -27,6 +27,7 @@ from diff3dhpe_tpu.geometry import camera as jax_camera
 from diff3dhpe_tpu.geometry import quaternion as jax_quaternion
 from diff3dhpe_tpu.geometry.skeleton import Skeleton as JaxSkeleton
 from diff3dhpe_tpu.utils import deterministic_random as jax_deterministic_random
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 CONFIGS = ["configs/h36m_gt_s2s_243f.json",
            "configs/h36m_gt_s2s_ConditionalDiffusionMixSTES2SGRANDLinLift.json",

@@ -16,6 +16,7 @@ from diff3dhpe_tpu.diffusion.schedules import make_diffusion_constants as jax_co
 from diff3dhpe_tpu.engine import make_denoise_fn as jax_make_denoise_fn
 from make_golden import DIFF_KW, GOLDEN, MODEL_KW, build
 from torch_port_helpers import build_pair, jax_x_init, port_model
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("schedule", ["linear", "cosine", "logcosine", "quadratic", "sigmoid"])

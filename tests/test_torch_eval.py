@@ -13,6 +13,7 @@ from diff3dhpe_tpu.engine import make_denoise_fn as jax_make_denoise_fn
 from diff3dhpe_tpu.engine import make_eval_step as jax_make_eval_step
 from diff3dhpe_tpu.engine.steps import flip_pose_jnp
 from torch_port_helpers import JOINTS_LEFT, JOINTS_RIGHT, build_pair, jax_x_init
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_flip_pose_matches_jax(rng):

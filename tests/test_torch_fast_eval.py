@@ -13,6 +13,7 @@ import torch
 from diff3dhpe_torch.models import fast_forward_denoise
 from diff3dhpe_tpu.models.fast_eval import fast_forward_denoise as jax_fast_forward
 from torch_port_helpers import build_pair
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 C, HEADS = 32, 4
 

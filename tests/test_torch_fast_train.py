@@ -9,6 +9,7 @@ both packages; gradients are compared by state-dict name
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -26,6 +27,7 @@ from diff3dhpe_tpu.engine.steps import make_optimizer as jax_make_optimizer
 from diff3dhpe_tpu.models import fast_eval as jax_fast
 from diff3dhpe_tpu.ops.fused_block import fused_transformer_block as jax_fused_block
 from torch_port_helpers import build_pair
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 J = 17
 
@@ -82,48 +84,82 @@ def test_block_drop_path_matches_jax(rng, pair9, n, groups):
     np.testing.assert_allclose(out.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-5)
 
 
-def test_forward_and_train_forward_with_drop_path_match_jax(rng, pair9):
-    _, params, port = pair9
-    x = rng.standard_normal((3, 9, J, 5)).astype(np.float32)
-    t = np.array([3.0, 7.0, 11.0], np.float32)
-    dp = _dp(5, 3, 2, 9)
-    kw = dict(num_frame=9, num_joints=J, depth=2, num_heads=4, dtype=jnp.float32)
-    expected = np.asarray(jax.jit(lambda p: jax_fast.fast_forward_denoise(
-        p, jnp.asarray(x), jnp.asarray(t), interpret=True, dp_scales=dp, **kw))(params))
-    dp_t = tuple(_t(a) for a in dp)
-    out = fast_forward_denoise(port, _t(x), _t(t), dp_t)
-    np.testing.assert_allclose(out.numpy(), expected, rtol=1e-5, atol=1e-5)
+def _train_cfg(num_frame, depth, heads):
+    return jax_fast.FastTrainCfg(num_frame=num_frame, num_joints=J, depth=depth, num_heads=heads,
+                                 with_time_emb=True, mode="s2s", dtype_name="float32",
+                                 temporal_mode="rows", attn_bwd=True)
 
-    cfg = jax_fast.FastTrainCfg(num_frame=9, num_joints=J, depth=2, num_heads=4,
-                                with_time_emb=True, mode="s2s", dtype_name="float32",
-                                temporal_mode="rows", attn_bwd=True)
-    expected_train = np.asarray(jax.jit(lambda p: jax_fast.fast_forward_denoise_train_pairs(
-        p, jnp.asarray(x), jnp.asarray(t), dp, cfg))(params))
-    out_train = fast_forward_denoise_train_pairs(port, _t(x), _t(t), dp_t, attn_bwd=True)
-    np.testing.assert_allclose(out_train.detach().numpy(), expected_train, rtol=1e-5, atol=1e-5)
+
+def _jax_train_pairs(params, x, t, dp, cfg, fwd_kw=None):
+    """JAX's pair-boundary train forward at one input and the gradients of
+    sum(out²) through its backward, and with ``fwd_kw`` the fused forward
+    with the same drop-path, all from one jitted build (jit: the
+    interpreted kernels run op by op otherwise, several times slower)."""
+    x, t = jnp.asarray(x), jnp.asarray(t)
+
+    def run(p):
+        out, vjp = jax.vjp(lambda q: jax_fast.fast_forward_denoise_train_pairs(q, x, t, dp, cfg), p)
+        fwd = None if fwd_kw is None else jax_fast.fast_forward_denoise(
+            p, x, t, interpret=True, dp_scales=dp, **fwd_kw)
+        return out, vjp(2 * out)[0], fwd
+
+    with jax.default_matmul_precision("highest"):
+        out, grads, fwd = jax.jit(run)(params)
+    return dict(x=x, t=t, dp=dp, train=np.asarray(out), grads=grads,
+                fwd=None if fwd is None else np.asarray(fwd))
+
+
+@pytest.fixture(scope="module")
+def jax9(pair9):
+    """JAX on pair9 (F = 9, depth 2, 4 heads) at x [3, 9, J, 5] with
+    drop-path: the fused forward, the train forward and its gradients."""
+    _, params, _ = pair9
+    x = np.random.default_rng(0).standard_normal((3, 9, J, 5)).astype(np.float32)
+    return _jax_train_pairs(params, x, np.array([3.0, 7.0, 700.0], np.float32), _dp(5, 3, 2, 9),
+                            _train_cfg(9, 2, 4),
+                            dict(num_frame=9, num_joints=J, depth=2, num_heads=4,
+                                 dtype=jnp.float32))
+
+
+@pytest.fixture(scope="module")
+def jax81():
+    """(port model, JAX's train forward and gradients) at F = 81, depth 1,
+    2 heads: the temporal attention (n = 81 > 64) goes through the B3/B4
+    dispatch in both packages."""
+    rng = np.random.default_rng(81)
+    _, params, port = build_pair(rng, num_frame=81, embed_dim=32, depth=1, num_heads=2)
+    x = rng.standard_normal((2, 81, J, 5)).astype(np.float32)
+    return port, _jax_train_pairs(params, x, np.array([3.0, 700.0], np.float32),
+                                  _dp(9, 2, 1, 81), _train_cfg(81, 1, 2))
+
+
+def test_forward_and_train_forward_with_drop_path_match_jax(pair9, jax9):
+    _, _, port = pair9
+    x, t, dp_t = _t(jax9["x"]), _t(jax9["t"]), tuple(_t(a) for a in jax9["dp"])
+    out = fast_forward_denoise(port, x, t, dp_t)
+    np.testing.assert_allclose(out.numpy(), jax9["fwd"], rtol=1e-5, atol=1e-5)
+    out_train = fast_forward_denoise_train_pairs(port, x, t, dp_t, attn_bwd=True)
+    np.testing.assert_allclose(out_train.detach().numpy(), jax9["train"], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("num_frame,embed,heads,depth", [(9, 32, 4, 2), (81, 32, 2, 1)])
-def test_pair_train_grads_match_jax(num_frame, embed, heads, depth):
+def test_pair_train_grads_match_jax(request, num_frame, embed, heads, depth):
     """Gradients of sum(out²) through the pair-boundary backward with
-    attn_bwd. At F = 81 the temporal attention (n = 81 > 64) goes through
-    the B3/B4 dispatch in both packages."""
-    rng = np.random.default_rng(num_frame)
-    _, params, port = build_pair(rng, num_frame=num_frame, embed_dim=embed, depth=depth,
-                                 num_heads=heads)
-    x = rng.standard_normal((2, num_frame, J, 5)).astype(np.float32)
-    t = np.array([3.0, 700.0], np.float32)
-    dp = _dp(9, 2, depth, num_frame)
-    cfg = jax_fast.FastTrainCfg(num_frame=num_frame, num_joints=J, depth=depth,
-                                num_heads=heads, with_time_emb=True, mode="s2s",
-                                dtype_name="float32", temporal_mode="rows", attn_bwd=True)
-    # jit: the interpreted kernels run op by op otherwise, several times slower.
-    expected = jax.jit(jax.grad(lambda p: jnp.sum(jax_fast.fast_forward_denoise_train_pairs(
-        p, jnp.asarray(x), jnp.asarray(t), dp, cfg) ** 2)))(params)
-    out = fast_forward_denoise_train_pairs(port, _t(x), _t(t), tuple(_t(a) for a in dp),
-                                           attn_bwd=True)
+    attn_bwd, at F = 9 on pair9 (the temporal groups, n = 9, stay on the
+    plain formulas) and at F = 81, where the temporal attention (n = 81 >
+    64) goes through the B3/B4 dispatch in both packages."""
+    if num_frame == 9:
+        port, jax_run = request.getfixturevalue("pair9")[2], request.getfixturevalue("jax9")
+    else:
+        port, jax_run = request.getfixturevalue("jax81")
+    assert (port.num_frame, port.embed_dim, port.num_heads, port.depth) == (
+        num_frame, embed, heads, depth)
+    port.zero_grad(set_to_none=True)
+    out = fast_forward_denoise_train_pairs(port, _t(jax_run["x"]), _t(jax_run["t"]),
+                                           tuple(_t(a) for a in jax_run["dp"]), attn_bwd=True)
     (out ** 2).sum().backward()
-    rel = _grad_rel(expected, port, depth)
+    rel = _grad_rel(jax_run["grads"], port, depth)
+    port.zero_grad(set_to_none=True)
     assert max(rel.values()) < 2e-4, rel
 
 
@@ -157,13 +193,26 @@ def test_p_losses_matches_jax(rng, pair9, loss_type, clip_loss):
     kw = dict(timesteps=1000, sampling_timesteps=9, beta_schedule="cosine",
               loss_type=loss_type, clip_loss=clip_loss)
     ref = JaxDiffusion.create(jax_make_denoise_fn(model), **kw)
-    expected = np.asarray(ref.p_losses(params, key, jnp.asarray(gt), jnp.asarray(x2d),
-                                       noise=jnp.asarray(noise)))
+    # jit: the flax model op by op compiles each op on its first call.
+    expected = np.asarray(jax.jit(lambda p: ref.p_losses(
+        p, key, jnp.asarray(gt), jnp.asarray(x2d), noise=jnp.asarray(noise)))(params))
     t = np.asarray(jax.random.randint(jax.random.split(key)[0], (3,), 0, 1000))
     ours = GaussianDiffusion.create(make_train_denoise_fn(port, 0.0), **kw)
     ones = (torch.ones(2, 3, 9, 2), torch.ones(2, 3, J, 2))
     out = ours.p_losses(_t(gt), _t(x2d), t=_t(t), noise=_t(noise), dp_scales=ones)
     np.testing.assert_allclose(out.detach().numpy(), expected, rtol=1e-5, atol=1e-5)
+
+
+def _keeping_grads(opt):
+    """``opt`` whose state also holds the gradients of its last update."""
+    def init(params):
+        return opt.init(params), jax.tree.map(jnp.zeros_like, params)
+
+    def update(grads, state, params=None):
+        updates, inner = opt.update(grads, state[0], params)
+        return updates, (inner, grads)
+
+    return optax.GradientTransformation(init, update)
 
 
 def test_train_step_matches_jax():
@@ -187,12 +236,13 @@ def test_train_step_matches_jax():
     t = np.asarray(jax.random.randint(key_t, (b,), 0, T))
     noise = np.asarray(jax.random.normal(key_noise, gt.shape, jnp.float32))
     dp = jax_fast.draw_drop_path_scales(dropout_key, b, depth, rate, num_frame=f, num_joints=J)
-    expected_grads = jax.jit(jax.grad(lambda p: ref.training_loss(
-        p, diff_key, jnp.asarray(gt), jnp.asarray(x2d), dropout_key=dropout_key)))(params)
-    opt = jax_make_optimizer(lr, 0.99, steps_per_epoch=10)
+    # JAX's train step, compiled once: its optimizer also keeps the
+    # gradients it was handed, so the step yields JAX's gradients too.
+    opt = _keeping_grads(jax_make_optimizer(lr, 0.99, steps_per_epoch=10))
     state, loss = jax_make_train_step(ref, opt)(
         build_train_state(jax.tree.map(jnp.asarray, params), opt), key, jnp.asarray(gt),
         jnp.asarray(x2d))
+    expected_grads = state.opt_state[1]
 
     ours = GaussianDiffusion.create(
         make_fast_train_denoise_fn(port, drop_path_rate=rate, attn_bwd=True), **kw)

@@ -12,6 +12,7 @@ import torch
 from diff3dhpe_torch.ops import fused_transformer_block, fused_transformer_block_ref
 from diff3dhpe_tpu.ops.fused_block import fused_transformer_block as jax_fused_block
 from torch_port_helpers import build_pair
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 C, HEADS = 32, 4
 

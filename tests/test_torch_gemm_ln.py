@@ -23,6 +23,7 @@ from diff3dhpe_torch.ops.fused_block import (
 )
 from diff3dhpe_tpu.ops.fused_block import _layernorm_rows
 from torch_port_helpers import assert_bf16_bars
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _f32(rng, *shape, scale=1.0):

@@ -32,6 +32,7 @@ from diff3dhpe_tpu.ops.fused_block import fused_transformer_block as jax_fused_b
 from torch_port_helpers import (
     JOINTS_LEFT, JOINTS_RIGHT, assert_bf16_bars, build_pair, jax_x_init,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 F, C, HEADS, DEPTH = 9, 32, 4, 1
 FAST_KW = dict(num_frame=F, num_joints=17, depth=DEPTH, num_heads=HEADS)
@@ -77,16 +78,33 @@ def test_bf16_block_ref_matches_jax(rng, pair, n, n_pad, with_t, with_out_ln, wi
     assert not torch.equal(ref, f32.bfloat16())
 
 
+def _forward_kw(name):
+    """JAX fast_forward_denoise's settings for a forward of the tests below:
+    "bf16-<f32_head>-<layout>" or "f32-<f32_prec>-<layout>"."""
+    dt, opt, mode = name.split("-")
+    if dt == "bf16":
+        return dict(dtype=jnp.bfloat16, f32_head=opt == "True", temporal_mode=mode)
+    return dict(dtype=jnp.float32, f32_prec=opt, temporal_mode=mode)
+
+
+FORWARDS = [f"bf16-{h}-{m}" for h in (False, True) for m in ("rows", "cols")] + [
+    f"f32-{p}-{m}" for p in ("highest", "high3") for m in ("rows", "cols")]
+
+
 @pytest.fixture(scope="module")
 def forward_inputs(pair):
-    """(x, t, the flax f32 output) for the forward tests."""
+    """(x, t, the flax f32 output, {name: JAX's fast forward}) for the
+    forward tests, the JAX side from one jitted build (each forward is its
+    own graph in it)."""
     model, params, _ = pair
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, F, 17, 5)).astype(np.float32)
     t = np.array([3.0, 700.0], np.float32)
-    flax = np.asarray(jax.jit(lambda p: model.apply({"params": p}, jnp.asarray(x),
-                                                    jnp.asarray(t)))(params))
-    return x, t, flax
+    xj, tj = jnp.asarray(x), jnp.asarray(t)
+    flax, fast = jax.jit(lambda p: (model.apply({"params": p}, xj, tj), {
+        name: jax_fast_forward(p, xj, tj, interpret=True, **_forward_kw(name), **FAST_KW)
+        for name in FORWARDS}))(params)
+    return x, t, np.asarray(flax), fast
 
 
 @pytest.mark.parametrize("f32_head,temporal_mode", [
@@ -96,11 +114,9 @@ def test_bf16_forward_matches_jax(pair, forward_inputs, f32_head, temporal_mode)
     """The bf16 fast forward against JAX's at the same settings (within
     2e-2 of max|jax|), and no further from the flax f32 output than 1.5x
     JAX bf16's own deviation."""
-    _, params, port = pair
-    x, t, flax = forward_inputs
-    expected = jax.jit(lambda p: jax_fast_forward(
-        p, jnp.asarray(x), jnp.asarray(t), dtype=jnp.bfloat16, interpret=True,
-        f32_head=f32_head, temporal_mode=temporal_mode, **FAST_KW))(params)
+    _, _, port = pair
+    x, t, flax, fast = forward_inputs
+    expected = fast[f"bf16-{f32_head}-{temporal_mode}"]
     out = fast_forward_denoise(port, torch.from_numpy(x), torch.from_numpy(t),
                                dtype=torch.bfloat16, temporal_mode=temporal_mode,
                                f32_head=f32_head)
@@ -162,18 +178,40 @@ def test_ddim_promotes_a_bf16_estimate_as_jax_does(rng):
     np.testing.assert_allclose(out.numpy(), np.asarray(expected), rtol=1e-6, atol=1e-6)
 
 
+def _jax_mixed_diffusion(temporal_mode):
+    """JAX's mixed eval wired exactly as bench.py wires it: a bf16 trunk
+    with an f32 head, and the f32 fast forward at f32_prec="high3" for the
+    final step."""
+    jd = JaxDiffusion.create(jax_make_fast_denoise_fn(
+        dtype=jnp.bfloat16, f32_head=True, temporal_mode=temporal_mode, **FAST_KW), **DIFF_KW)
+    return dataclasses.replace(jd, final_denoise_fn=jax_make_fast_denoise_fn(
+        dtype=jnp.float32, f32_prec="high3", temporal_mode=temporal_mode, **FAST_KW),
+        final_denoise_steps=1)
+
+
 @pytest.fixture(scope="module")
 def eval_inputs(pair):
-    """(x2d, x2d_flip, key, x_init, the flax f32 eval) for the eval tests."""
+    """(x2d, x2d_flip, key, x_init, the flax f32 eval, {name: JAX's eval})
+    for the eval tests: JAX's mixed eval in both layouts ("mixed-rows",
+    "mixed-cols") and its pure-bf16 eval ("bf16"), all four JAX evals from
+    one jitted build."""
     model, params, _ = pair
     rng = np.random.default_rng(4)
     x2d = rng.uniform(-1, 1, (2, F, 17, 2)).astype(np.float32)
     x2d_flip = np.array(flip_pose_jnp(jnp.asarray(x2d), JOINTS_LEFT, JOINTS_RIGHT))
     key = jax.random.PRNGKey(7)
-    f32 = jax_make_eval_step(JaxDiffusion.create(jax_make_denoise_fn(model), **DIFF_KW),
-                             JOINTS_LEFT, JOINTS_RIGHT)
-    ref = np.asarray(f32(params, key, jnp.asarray(x2d), jnp.asarray(x2d_flip)))
-    return x2d, x2d_flip, key, jax_x_init(key, 4, (F, 17, 3)), ref
+    diffusions = {
+        "f32": JaxDiffusion.create(jax_make_denoise_fn(model), **DIFF_KW),
+        "mixed-rows": _jax_mixed_diffusion("rows"), "mixed-cols": _jax_mixed_diffusion("cols"),
+        "bf16": JaxDiffusion.create(jax_make_fast_denoise_fn(dtype=jnp.bfloat16, **FAST_KW),
+                                    **DIFF_KW),
+    }
+    steps = {name: jax_make_eval_step(d, JOINTS_LEFT, JOINTS_RIGHT)
+             for name, d in diffusions.items()}
+    evals = jax.jit(lambda p, k, a, b: {name: s(p, k, a, b) for name, s in steps.items()})(
+        params, key, jnp.asarray(x2d), jnp.asarray(x2d_flip))
+    evals = {name: np.asarray(e) for name, e in evals.items()}
+    return x2d, x2d_flip, key, jax_x_init(key, 4, (F, 17, 3)), evals.pop("f32"), evals
 
 
 @pytest.mark.parametrize("temporal_mode", ["rows", "cols"])
@@ -183,15 +221,9 @@ def test_mixed_eval_matches_jax(pair, eval_inputs, temporal_mode):
     deviation from the flax f32 eval is at most 1.5x JAX's + 1e-4. (At
     these sizes the two differ by about 4e-3 to 6e-3, from the bf16 trunk
     steps; the final steps alone differ by ~8e-6: test below.)"""
-    _, params, port = pair
-    x2d, x2d_flip, key, x_init, ref = eval_inputs
-    jd = JaxDiffusion.create(jax_make_fast_denoise_fn(
-        dtype=jnp.bfloat16, f32_head=True, temporal_mode=temporal_mode, **FAST_KW), **DIFF_KW)
-    jd = dataclasses.replace(jd, final_denoise_fn=jax_make_fast_denoise_fn(
-        dtype=jnp.float32, f32_prec="high3", temporal_mode=temporal_mode, **FAST_KW),
-        final_denoise_steps=1)
-    expected = np.asarray(jax_make_eval_step(jd, JOINTS_LEFT, JOINTS_RIGHT)(
-        params, key, jnp.asarray(x2d), jnp.asarray(x2d_flip)))
+    _, _, port = pair
+    x2d, x2d_flip, key, x_init, ref, evals = eval_inputs
+    expected = evals[f"mixed-{temporal_mode}"]
     step = make_eval_step(make_mixed_diffusion(port, temporal_mode, **DIFF_KW),
                           JOINTS_LEFT, JOINTS_RIGHT, device="cpu")
     out = step(x2d, x2d_flip, x_init=x_init)
@@ -204,11 +236,9 @@ def test_bf16_eval_matches_jax(pair, eval_inputs):
     """Pure bf16 (bench.py's opt-in "bfloat16": a bf16 output rounded to
     bf16 before every DDIM update), held like the mixed eval; and the
     mixed eval is closer to the f32 eval than it."""
-    _, params, port = pair
-    x2d, x2d_flip, key, x_init, ref = eval_inputs
-    jd = JaxDiffusion.create(jax_make_fast_denoise_fn(dtype=jnp.bfloat16, **FAST_KW), **DIFF_KW)
-    expected = np.asarray(jax_make_eval_step(jd, JOINTS_LEFT, JOINTS_RIGHT)(
-        params, key, jnp.asarray(x2d), jnp.asarray(x2d_flip)))
+    _, _, port = pair
+    x2d, x2d_flip, key, x_init, ref, evals = eval_inputs
+    expected = evals["bf16"]
     bf16 = make_eval_step(GaussianDiffusion.create(make_fast_denoise_fn(port, torch.bfloat16),
                                                    **DIFF_KW), JOINTS_LEFT, JOINTS_RIGHT,
                           device="cpu")
@@ -226,14 +256,12 @@ def test_f32_final_step_against_high3(pair, forward_inputs, temporal_mode):
     float32, JAX's under "high3" (bf16x3, a TPU workaround). The port is
     within the f32 bar of JAX's exact-f32 forward ("highest"), and within
     1e-5 of max|out| of JAX high3 (measured: 4.5e-6 at these sizes)."""
-    _, params, port = pair
-    x, t, _ = forward_inputs
+    _, _, port = pair
+    x, t, _, fast = forward_inputs
     out = fast_forward_denoise(port, torch.from_numpy(x), torch.from_numpy(t),
                                temporal_mode=temporal_mode).numpy()
     for prec, bound in (("highest", None), ("high3", 1e-5)):
-        expected = np.asarray(jax.jit(lambda p: jax_fast_forward(
-            p, jnp.asarray(x), jnp.asarray(t), dtype=jnp.float32, interpret=True, f32_prec=prec,
-            temporal_mode=temporal_mode, **FAST_KW))(params))
+        expected = np.asarray(fast[f"f32-{prec}-{temporal_mode}"])
         if bound is None:
             np.testing.assert_allclose(out, expected, rtol=2e-4, atol=2e-5)
         else:

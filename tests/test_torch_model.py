@@ -13,6 +13,7 @@ from diff3dhpe_torch.io import state_dict_from_flax
 from diff3dhpe_tpu.io.torch_convert import convert_params_to_torch_state_dict
 from make_golden import GOLDEN, MODEL_KW, build
 from torch_port_helpers import build_pair, port_model
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _inputs(rng, num_frame, num_joints=17):

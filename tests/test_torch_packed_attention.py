@@ -12,6 +12,7 @@ import torch
 from diff3dhpe_torch.ops import attention as port
 from diff3dhpe_tpu.ops.attention import grand_attention as jax_grand_attention
 from diff3dhpe_tpu.ops.attention import packed_grand_attention as jax_packed
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 D = 64
 

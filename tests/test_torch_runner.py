@@ -4,6 +4,7 @@ plain versions, Pallas in interpret mode). torch cannot reproduce JAX's
 per-row x_T draw, so the port's evaluate is handed, batch by batch, the x_T
 that JAX's evaluate draws from the keys it splits (runner.py:416-417)."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,6 +17,7 @@ from diff3dhpe_tpu.data import PoseDataset as JaxPoseDataset
 from diff3dhpe_tpu.data import make_synthetic_h36m_like as jax_make_synthetic
 from diff3dhpe_tpu.engine.runner import Runner as JaxRunner
 from torch_port_helpers import JOINTS_LEFT, JOINTS_RIGHT, jax_x_init, perturb
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 BASE = dict(subjects_train="S1", subjects_test="S9", number_of_frames=9, stride=9, embed_dim=32,
             transformer_depth=1, num_heads=4, timesteps=50, sampling_timesteps=3,
@@ -37,6 +39,23 @@ CASES = {
 }
 
 
+_INIT_PARAMS = {}
+
+
+def _init_params(jax_runner):
+    """``jax_runner.init_params()`` as numpy, jitted (eager flax init
+    compiles op by op) and built once for each architecture: the cases
+    that differ only in how they evaluate share one."""
+    cfg = jax_runner.cfg
+    arch = (cfg.model, cfg.number_of_frames)
+    if arch not in _INIT_PARAMS:
+        x = jnp.zeros((1, cfg.number_of_frames, 17, 5))
+        params = jax.jit(jax_runner.model.init)(jax.random.PRNGKey(cfg.seed), x,
+                                                jnp.zeros((1,)))["params"]
+        _INIT_PARAMS[arch] = jax.tree.map(np.asarray, params)
+    return _INIT_PARAMS[arch]
+
+
 def _pair(overrides):
     """(port runner, its dataset, JAX runner, its dataset) on the same
     synthetic subjects and the same perturbed flax weights."""
@@ -48,8 +67,7 @@ def _pair(overrides):
     test_ds = PoseDataset(cfg, ds, "data", "test", keypoints_data=kps)
     jax_test_ds = JaxPoseDataset(jax_cfg, jds, "data", "test", keypoints_data=jkps)
     jax_runner = JaxRunner(jax_cfg, 17, JOINTS_LEFT, JOINTS_RIGHT)
-    params = perturb(jax.tree.map(np.asarray, jax_runner.init_params()),
-                     np.random.default_rng(2))
+    params = perturb(_init_params(jax_runner), np.random.default_rng(2))
     jax_runner.set_params(params)
     runner = Runner(cfg, 17, JOINTS_LEFT, JOINTS_RIGHT, device="cpu")
     runner.set_params(params)

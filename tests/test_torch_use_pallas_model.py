@@ -12,6 +12,7 @@ from diff3dhpe_torch.models import HPE_model, MixSTEDenoiser
 from diff3dhpe_torch.ops import attention as port_attention
 from diff3dhpe_tpu.models import MixSTEDenoiser as FlaxMixSTE
 from torch_port_helpers import build_pair, port_model
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("num_frame,mode", [(9, "s2s"), (81, "s2s"), (9, "s2f")])

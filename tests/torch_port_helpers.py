@@ -4,6 +4,8 @@ parameter matters, loaded into the port's module by reference names."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from diff3dhpe_torch.io import state_dict_from_flax
 from diff3dhpe_torch.models import MixSTEDenoiser as TorchMixSTE
@@ -79,3 +81,16 @@ def assert_bf16_bars(out, expected):
     diff, scale = np.abs(out - expected), np.abs(expected).max()
     assert diff.max() <= 1e-2 * scale, (diff.max(), scale)
     assert diff.mean() <= 1e-3 * scale, (diff.mean(), scale)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Runs a test module's torch ops on one thread (imported by the port's
+    test files, so autouse there): the tier-1 run puts several pytest
+    workers on the machine's cores, and torch's OpenMP threads then spin
+    against each other and against XLA's (test_torch_runner.py took over
+    ten times longer in that run than alone at the default thread count)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
