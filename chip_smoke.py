@@ -27,7 +27,13 @@ the port's seeded init:
          TPU-recommended config, configs/h36m_gt_s2s_243f_tpu.json (4 heads
          of head_dim 128, the mixed mode, remat, DDIM-5), on 4-head weights,
          held against the same file run as the plain module and as pure
-         bf16.
+         bf16;
+  fit    the training entry point, diff3dhpe_torch.cli.run.main without
+         --evaluate, on configs/h36m_gt_s2s_243f.json with fast_train,
+         fast_train_attn_bwd and fast_eval: 2 epochs at batch 24 with
+         per-epoch flip-TTA validation (DDIM-5, batch 8) and a checkpoint
+         each epoch, then the run resumed from epoch_0, then --evaluate
+         best_epoch, each held against the unbroken run.
 
 Any failed check raises and the script exits non-zero.
 
@@ -51,7 +57,11 @@ profile; 8 B6 vs plain at the eval shape as qkv views and contiguous, at n
 and 4), all in device time, and B6 at bf16 as an op; 9 B5 vs plain at both eval
 shapes, f32 and bf16 (also at head_dim 128), and its launches as an op; 10
 the evaluate entry point in its configurations; 10b the profile of one
-eval step of the use_pallas module); then a JSON line with every kernel's
+eval step of the use_pallas module; 11 the training entry point: each
+epoch's loss, validation MPJPE and seconds, samples/s through fit, the
+checkpoint's size and write seconds, peak memory, the launches of one
+epoch, the resumed run and --evaluate best_epoch against the unbroken run,
+and no host wait inside the train loop); then a JSON line with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}. Exits non-zero
 without a CUDA device, and where the port's package is not beside this
 script.
@@ -62,11 +72,13 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import torch
 
@@ -97,6 +109,9 @@ LOSS_REL_TOL, GRAD_REL_TOL = 1e-5, 1e-3
 # flip single bf16 roundings (2^-8 relative each).
 BF16_MAX_TOL, BF16_MEAN_TOL = 1e-2, 1e-3
 COLS_VS_ROWS_BOUND = 1e-3  # the mixed eval in the two layouts, absolute
+# --evaluate of the best checkpoint against the training run's own final
+# report: the same weights, x_T from the same seed, the same kernels.
+EVAL_REPORT_TOL_MM = 1e-3
 # The f32 GEMM alone vs F.linear in f32, relative to max|plain|: both sum
 # K <= 1024 products of order 1 exactly in f32, in other orders.
 GEMM_F32_REL_TOL = 1e-5
@@ -1469,6 +1484,214 @@ def main():
     profile_step("phase 10b profile of one use_pallas eval step",
                  lambda: step(pose_2d, pose_2d_flip, generator=gen))
     del model, step
+
+    # Phase 11: the training entry point, as a user calls it: cli.run.main
+    # without --evaluate on a copy of CLI_CONFIG with fast_train,
+    # fast_train_attn_bwd and fast_eval, a checkpoint every epoch, on
+    # --synthetic data (train S1 and S5, validation on their val split, test
+    # S9, every action), 2 epochs at the config's batch and DDIM steps,
+    # validation batch 8, at full width. Then the same command resumed from
+    # epoch_0 (copied into a fresh directory), and --evaluate best_epoch
+    # alone. Inside the train loop the sync debug mode of torch.cuda warns
+    # of any call that makes the host wait for the card.
+    fits, fit, sync_warnings = [], Runner.fit, []
+
+    def watched_batches(batches):
+        def gen(*args, **kwargs):
+            for b in batches(*args, **kwargs):
+                torch.cuda.set_sync_debug_mode("warn")  # the step's body: upload + train step
+                try:
+                    yield b
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)   # the next batch's assembly is host work
+        return gen
+
+    def recording_fit(self, train_ds, val_ds, *args, **kwargs):
+        train_ds.batches = watched_batches(train_ds.batches)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            result = fit(self, train_ds, val_ds, *args, **kwargs)
+        sync_warnings.extend(str(w.message) for w in caught
+                             if "called a synchronizing CUDA operation" in str(w.message))
+        del train_ds.batches
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in train_ds.batches(self.cfg.batch_size, shuffle=True,
+                                                    drop_last=True))
+        fits.append(dict(result, n_train=len(train_ds), n_val=len(val_ds), batches=n_batches,
+                         host_batch_s=time.perf_counter() - t0, cfg=self.cfg, runner=self,
+                         val_ds=val_ds))
+        return result
+
+    with open(os.path.join(here, CLI_CONFIG)) as f:
+        config = json.load(f)
+    config["params"].update(fast_train=True, fast_train_attn_bwd=True, fast_eval=True)
+    train_cli = {}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_config = os.path.join(tmp, "train.json")
+        with open(train_config, "w") as f:
+            json.dump(config, f)
+        # --checkpoint-frequency: the flag's default (40) overrides the JSON.
+        common = ["--config", train_config, "--synthetic", "-str", "S1,S5", "-ste", "S9", "-a", "*",
+                  "--batch-size-eval", "8", "--checkpoint-frequency", "1"]
+        run_dir, resume_dir = os.path.join(tmp, "run"), os.path.join(tmp, "resumed")
+        Runner.evaluate, Runner.fit = recording_evaluate, recording_fit
+        mixste.grand_attention = counting_attention
+        try:
+            for name, argv in (
+                ("train", common + ["-e", "2", "-c", run_dir]),
+                ("train_resume", common + ["-e", "2", "-c", resume_dir, "--resume", "epoch_0"]),
+                ("train_evaluate", common + ["-c", run_dir, "--evaluate", "best_epoch"]),
+            ):
+                if name == "train_resume":
+                    shutil.copytree(os.path.join(run_dir, "epoch_0"),
+                                    os.path.join(resume_dir, "epoch_0"))
+                records.clear()
+                plain_calls[0] = 0
+                for c in kernel_counters:
+                    c.launches = 0
+                    if hasattr(c, "launches_bf16"):
+                        c.launches_bf16 = 0
+                zero_inner()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                text = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(text):
+                    errors = cli_main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                inner_by_path[f"cli_{name}"] = inner()
+                got = {c.__name__: c.launches for c in kernel_counters}
+                got["fused_transformer_block_bf16"] = fused_transformer_block.launches_bf16
+                got["plain_attention_calls"] = plain_calls[0]
+                out = text.getvalue()
+                say(f"phase 11 cli {name}: the log and report\n{out.rstrip()}")
+                check(all(v and all(math.isfinite(e) for e in v) for v in errors.values()),
+                      f"cli {name}: errors {errors}")
+                train_cli[name] = dict(errors={k: [float(e) for e in v] for k, v in errors.items()},
+                                       launches=got,
+                                       wall_s=wall, out=out,
+                                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                       evals=[r["n_frames"] for r in records])
+                if name == "train":
+                    ckpt = os.path.join(run_dir, "epoch_0")
+                    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                                     for f in os.listdir(ckpt))
+                    saved = sorted(d for d in os.listdir(run_dir) if os.path.isdir(
+                        os.path.join(run_dir, d)))
+                    check({"epoch_0", "epoch_1", "best_epoch"} <= set(saved),
+                          f"cli train saved {saved}")
+        finally:
+            Runner.evaluate, Runner.fit, mixste.grand_attention = evaluate, fit, plain_attention
+            torch.cuda.set_sync_debug_mode(0)
+    check(len(fits) == 2, f"fit ran {len(fits)} times")
+    run, resumed = fits
+    for line in ("Epoch: 0, Time(mins):", "Epoch: 1, Time(mins):", "Train/_pose_loss:",
+                 "Valid/_mpjpe_mm:", "Valid/_pose_loss:", "Saved checkpoint to",
+                 "save best checkpoint", "Training finished! Total time:",
+                 "Loaded the best model from", "Protocol #1   (MPJPE) action-wise average:"):
+        check(line in train_cli["train"]["out"], f"cli train: no line {line!r}")
+    check("Resumed from" in train_cli["train_resume"]["out"], "cli train_resume did not resume")
+    losses = run["losses_train"] + run["losses_valid"] + resumed["losses_train"]
+    check(len(run["losses_train"]) == 2 and len(resumed["losses_train"]) == 1
+          and all(math.isfinite(v) for v in losses), f"cli train losses {losses}")
+    resume_rel = abs(resumed["losses_train"][0] - run["losses_train"][1]) / abs(
+        run["losses_train"][1])
+    check(resume_rel <= LOSS_REL_TOL, f"resumed epoch-1 train loss {resumed['losses_train'][0]} "
+          f"vs {run['losses_train'][1]}: rel {resume_rel:.3e} > {LOSS_REL_TOL}")
+    report_dev = max(abs(a - b) for k in ("e1", "e2", "e3", "ev") for a, b in zip(
+        train_cli["train_evaluate"]["errors"][k], train_cli["train"]["errors"][k], strict=True))
+    check(report_dev <= EVAL_REPORT_TOL_MM, f"--evaluate best_epoch deviates from the fit run's "
+          f"report by {report_dev:.3e} mm > {EVAL_REPORT_TOL_MM}")
+    check(not sync_warnings, f"the train loop made the host wait for the card "
+          f"{len(sync_warnings)} times: {sync_warnings[:3]}")
+
+    # The launches each run must show: per train step B1's 2·DEPTH calls, B3
+    # and B6 once and B4 (2 kernels) once per block pair in the recompute;
+    # per validation batch and per evaluate batch (with each evaluate's
+    # warm-up batch) DDIM-steps fused forwards of 2·DEPTH B1 calls, and the
+    # validation loss's two plain-module forwards.
+    ddim, b_eval = config["params"]["sampling_timesteps"], 8
+    fwd_b1 = 2 * DEPTH * per_call
+    val_batches = -(-run["n_val"] // b_eval)
+
+    def want_train(f, epochs, evals):
+        steps = epochs * f["batches"]
+        eval_batches = sum(-(-(n // FRAMES) // b_eval) + 1 for n in evals)  # + warm-up
+        forwards = ddim * (epochs * val_batches + eval_batches)
+        return dict(zero, fused_transformer_block=steps * per_step["fused_transformer_block"]
+                    + forwards * fwd_b1,
+                    grand_attention_fullseq=steps * per_step["grand_attention_fullseq"],
+                    grand_attention_bwd=steps * per_step["grand_attention_bwd"],
+                    packed_grand_attention=steps * per_step["packed_grand_attention"],
+                    plain_attention_calls=epochs * val_batches * 2 * 2 * DEPTH)
+
+    want = {"train": want_train(run, 2, train_cli["train"]["evals"]),
+            "train_resume": want_train(resumed, 1, train_cli["train_resume"]["evals"]),
+            "train_evaluate": want_train(run, 0, train_cli["train_evaluate"]["evals"])}
+    for name, c in train_cli.items():
+        check(c["launches"] == want[name], f"cli {name} launched {c['launches']}, expected "
+              f"{want[name]}")
+        cli_launches[f"cli_{name}"] = c["launches"]
+    epoch_launches = {k: v // 2 for k, v in want_train(run, 2, []).items() if v}
+    for e, (loss, secs) in enumerate(zip(run["losses_train"], run["seconds"])):
+        say(f"phase 11 cli train epoch {e}: train_loss={loss:.8f} "
+            f"val_mpjpe_mm={run['losses_valid'][e] * 1000:.4f} train_s={secs['train']:.3f} "
+            f"validate_s={secs['validate']:.3f} checkpoint_write_s={secs['save']:.3f} "
+            f"samples_per_s={run['batches'] * run['cfg'].batch_size / secs['train']:.3f}")
+    train_s = statistics.median(s["train"] for s in run["seconds"] + resumed["seconds"])
+    say(f"phase 11 cli train at full width (embed {EMBED}, depth {DEPTH}, {FRAMES} frames, "
+        f"batch {run['cfg'].batch_size}, DDIM-{ddim}): {run['n_train']} train windows "
+        f"({run['batches']} steps an epoch), {run['n_val']} val windows ({val_batches} batches "
+        f"of {b_eval}); samples_per_s through fit (median of 3 epochs)="
+        f"{run['batches'] * run['cfg'].batch_size / train_s:.3f} beside phase 7b's "
+        f"{TRAIN_BATCH / step_s:.3f}; host batch assembly {run['host_batch_s']:.3f} s an epoch "
+        f"({run['host_batch_s'] / train_s:.3f} of the train seconds); validate_s="
+        f"{[round(s['validate'], 3) for s in run['seconds']]}; checkpoint {ckpt_bytes / 1e6:.1f} "
+        f"MB a directory, written in {[round(s['save'], 3) for s in run['seconds']]} s an epoch "
+        f"(epoch_n and best_epoch); resumed epoch-1 train loss {resumed['losses_train'][0]:.8f} "
+        f"vs {run['losses_train'][1]:.8f} (rel {resume_rel:.3e}, bit for bit "
+        f"{resumed['losses_train'][0] == run['losses_train'][1]}); --evaluate best_epoch vs the "
+        f"fit run's report: max |d| {report_dev:.3e} mm over e1..ev of each action "
+        f"{train_cli['train']['errors']}; max_memory_allocated_GB "
+        f"{ {k: round(c['peak_gb'], 3) for k, c in train_cli.items()} }; wall_s "
+        f"{ {k: round(c['wall_s'], 1) for k, c in train_cli.items()} }; syncs in the train loop "
+        f"{len(sync_warnings)}; launches in one epoch's training {epoch_launches}; per run "
+        f"{ {k: {n: v for n, v in c['launches'].items() if v} for k, c in train_cli.items()} }")
+
+    # Phase 11b: where one validation batch's time goes: the flip-TTA DDIM
+    # sampling through the fused forward, and the loss of both orientations
+    # through the plain module, each timed alone, then the whole val step
+    # profiled.
+    runner, b = run["runner"], next(run["val_ds"].batches(b_eval))
+    x2d, x2d_flip, gt = (torch.as_tensor(a, device=dev) for a in (b.input_2d, b.input_2d_flip,
+                                                                   b.gt_3d_norm))
+    gen11 = torch.Generator(device=dev).manual_seed(0)
+
+    def val_loss():
+        with torch.no_grad():
+            return runner.diffusion.training_loss(gt, x2d, generator=gen11)
+
+    parts = {"sampling": lambda: runner.eval_step(x2d, x2d_flip, generator=gen11),
+             "loss_one_orientation": val_loss,
+             "val_step": lambda: runner.val_step(gt, x2d, x2d_flip, generator=gen11)}
+    part_s = {}
+    for name, part in parts.items():
+        part()  # warm
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            part()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        part_s[name] = statistics.median(secs)
+    say(f"phase 11b one validation batch ({b_eval} windows x2 flip, DDIM-{ddim}), median of 3 "
+        f"(s): {', '.join(f'{k}={v:.4f}' for k, v in part_s.items())}")
+    profile_step("phase 11b profile of one validation batch", parts["val_step"], top_n=12)
+    del runner, b, x2d, x2d_flip, gt, fits, run, resumed
+    torch.cuda.empty_cache()
 
     # One entry per kernel. B1's work is one spatial + one temporal call at
     # the eval shape, the pair each depth level of a forward runs (f32, and

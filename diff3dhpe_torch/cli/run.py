@@ -1,21 +1,26 @@
-"""H3.6M evaluation entry point.
+"""H3.6M train + eval entry point.
 
-Port of the evaluate path of ``diff3dhpe_tpu/cli/run.py`` (itself the
-equivalent of the reference's run_conditionalDiffusionDDIM3dhpe
-NormalDirectPredictVariableLoss.py): config merge, dataset/model/diffusion
-construction, weight loading from a reference ``.bin`` checkpoint, and the
-final per-action evaluation protocol with its report.
+Port of ``diff3dhpe_tpu/cli/run.py`` (itself the equivalent of the
+reference's run_conditionalDiffusionDDIM3dhpeNormalDirectPredictVariableLoss.py):
+config merge, dataset/model/diffusion construction, training with
+per-epoch flip-TTA validation and checkpoints (``Runner.fit``), weight
+loading, and the final per-action evaluation protocol with its report.
 
 Usage (reference command lines work with the module path swapped):
     python -m diff3dhpe_torch.cli.run --config configs/h36m_gt_s2s_....json \\
-        --evaluate <ckpt.bin> [overrides...]
-    python -m diff3dhpe_torch.cli.run --synthetic --evaluate <ckpt.bin> ...
+        [--evaluate <ckpt>] [--resume <ckpt>] [overrides...]
+    python -m diff3dhpe_torch.cli.run --synthetic ...   # no dataset needed
+
+A checkpoint is a reference ``.bin`` file or a checkpoint directory the
+port wrote (``epoch_{n}/``, ``best_epoch/`` under ``--checkpoint``; a name
+that does not exist as given is looked up there). ``--pretrained_model``
+loads every parameter whose name and shape match (the reference's
+``load_pretrained_weights``) before training.
 
 Runs on the CUDA device; ``main(argv, device="cpu")`` runs the plain
-PyTorch path on the CPU. Training through the CLI (no ``--evaluate``) is
-not ported yet and exits with a message. The ``Params | FLOPs/forward``
-line counts FLOPs by formula (``utils.profiling.denoiser_matmul_flops``)
-where JAX asks XLA's cost analysis.
+PyTorch path on the CPU. The ``Params | FLOPs/forward`` line counts FLOPs
+by formula (``utils.profiling.denoiser_matmul_flops``) where JAX asks XLA's
+cost analysis.
 """
 from __future__ import annotations
 
@@ -34,13 +39,11 @@ def main(argv=None, device="cuda"):
     if args.resume and args.evaluate:
         print("Invalid flags: --resume and --evaluate cannot be set at the same time")
         sys.exit(1)
-    if not cfg.evaluate:
-        print("Training through the CLI is not ported yet: pass --evaluate <checkpoint.bin>")
-        sys.exit(2)
 
     from diff3dhpe_torch.data import Human36mDataset, PoseDataset, make_synthetic_h36m_like
     from diff3dhpe_torch.engine.runner import Runner, RunLogger
-    from diff3dhpe_torch.io.checkpoint import load_torch_state_dict
+    from diff3dhpe_torch.io.checkpoint import load_torch_state_dict, restore_checkpoint
+    from diff3dhpe_torch.io.convert import load_matching_params
     from diff3dhpe_torch.utils.profiling import clever_format, denoiser_matmul_flops
 
     os.makedirs(cfg.checkpoint, exist_ok=True)
@@ -97,15 +100,53 @@ def main(argv=None, device="cuda"):
     print(f"INFO: device: {runner.device}")
 
     # ------------------------------------------------------------------
-    # Weight loading (reference .bin)
+    # Optional weight loading (reference .bin or the port's checkpoint dir)
     # ------------------------------------------------------------------
-    path = (os.path.join(cfg.checkpoint, cfg.evaluate)
-            if not os.path.exists(cfg.evaluate) else cfg.evaluate)
-    if not path.endswith(".bin"):
-        raise ValueError(f"evaluate={cfg.evaluate!r} is not ported: only reference .bin "
-                         "checkpoints load so far")
-    runner.set_params(load_torch_state_dict(path))
-    print(f"Loaded checkpoint {path}")
+    def resolve(name):
+        return os.path.join(cfg.checkpoint, name) if not os.path.exists(name) else name
+
+    def load_weights(path, field):
+        """The denoiser's state dict of the .bin file or checkpoint directory."""
+        if path.endswith(".bin"):
+            return load_torch_state_dict(path)
+        return restore_checkpoint(path, field=field)[0]["model_diffusion"]
+
+    if cfg.evaluate:
+        path = resolve(cfg.evaluate)
+        runner.set_params(load_weights(path, "evaluate"))
+        print(f"Loaded checkpoint {path}")
+    elif cfg.pretrained_model:
+        merged, matched, discarded = load_matching_params(
+            runner.model.state_dict(), load_weights(cfg.pretrained_model, "pretrained_model"))
+        runner.set_params(merged)
+        print(f"Loaded checkpoint {cfg.pretrained_model}: {len(matched)} parameters, "
+              f"{len(discarded)} discarded {discarded}")
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+    if not cfg.evaluate:
+        train_ds = PoseDataset(
+            cfg, dataset, cfg.data_root, "train",
+            noise_std=cfg.train_extra_noise_std, joint_drop_rate=cfg.train_joint_drop,
+            keypoints_data=keypoints_data,
+        )
+        # Per-epoch validation split: train subjects, no augmentation, its
+        # own corruption knobs (reference run.py:278-284).
+        val_ds = PoseDataset(
+            cfg, dataset, cfg.data_root, "val",
+            noise_std=cfg.train_val_extra_noise_std,
+            joint_drop_rate=cfg.train_val_joint_drop,
+            keypoints_data=keypoints_data,
+        )
+        print(
+            f"INFO: Training on {len(train_ds)} windows, validating on "
+            f"{len(val_ds)}, testing on {len(test_ds)}"
+        )
+        result = runner.fit(train_ds, val_ds, resume=resolve(cfg.resume) if cfg.resume else None)
+        if result["best_path"]:
+            runner.set_params(load_weights(result["best_path"], "evaluate"))
+            logger.log(f"Loaded the best model from {result['best_path']}\n")
 
     # ------------------------------------------------------------------
     # Final per-action evaluation (reference run_evaluation:712-766)

@@ -15,3 +15,16 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' to run the plain PyTorch path on the CPU"
         )
     return device
+
+
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """``a`` (an array or a tensor) as a tensor on ``device``, in ``dtype``
+    where given. A host array bound for a CUDA device goes through pinned
+    memory and a non-blocking copy: PyTorch synchronises the stream after a
+    copy from pageable memory, which would make the host wait for the card
+    at every call on the train path."""
+    device = torch.device(device)
+    t = torch.as_tensor(a, dtype=dtype)
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -19,6 +19,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from diff3dhpe_torch.device import to_device
 from diff3dhpe_torch.diffusion.schedules import DiffusionConstants, make_diffusion_constants
 
 
@@ -95,7 +96,7 @@ class GaussianDiffusion:
     def _at(self, name, t, like):
         """constants.<name>[t] on like's device, shaped to broadcast over
         like's trailing dims."""
-        table = torch.as_tensor(getattr(self.constants, name), device=like.device)
+        table = to_device(getattr(self.constants, name), like.device)
         return table[t.to(like.device)].reshape((t.shape[0],) + (1,) * (like.ndim - 1))
 
     def q_sample(self, x_start, t, noise):

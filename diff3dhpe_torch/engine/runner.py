@@ -1,26 +1,42 @@
-"""Evaluation runner: the reference's evaluation protocol (reference
-evaluate:535-654) as a reusable component on top of the eval step.
+"""Training and evaluation runner: the reference's epoch loop and
+evaluation protocol (reference run.py:252-506 and evaluate:535-654) as a
+reusable component on top of the train, val and eval steps.
 
-Port of the evaluate half of ``diff3dhpe_tpu/engine/runner.py``:
-model/diffusion assembly from a ``Config`` and the final per-action
-evaluation with Protocols #1/#2/#3 + MPJVE and eval-throughput reporting.
-The epoch loop (``fit``), per-epoch validation and checkpoint saving are
-not ported yet.
+Port of ``diff3dhpe_tpu/engine/runner.py``: model/diffusion assembly from
+a ``Config``, the epoch loop (``fit``: train -> flip-TTA validation ->
+logging -> periodic/best checkpoints -> early stop / max time, lr decay by
+step), and the final per-action evaluation with Protocols #1/#2/#3 +
+MPJVE and eval-throughput reporting.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from diff3dhpe_torch.config import Config
-from diff3dhpe_torch.device import resolve_device
+from diff3dhpe_torch.device import resolve_device, to_device
 from diff3dhpe_torch.diffusion import GaussianDiffusion
-from diff3dhpe_torch.engine.steps import make_denoise_fn, make_eval_step, make_fast_denoise_fn
+from diff3dhpe_torch.engine.steps import (
+    make_denoise_fn,
+    make_eval_step,
+    make_fast_denoise_fn,
+    make_fast_train_denoise_fn,
+    make_optimizer,
+    make_train_denoise_fn,
+    make_train_step,
+    make_val_step,
+)
+from diff3dhpe_torch.io.checkpoint import (
+    restore_checkpoint,
+    rng_state_from_json,
+    rng_state_to_json,
+    save_checkpoint,
+)
 from diff3dhpe_torch.io.convert import state_dict_from_flax
 from diff3dhpe_torch.metrics import mean_velocity_error, mpjpe, n_mpjpe, p_mpjpe
 from diff3dhpe_torch.models import HPE_model
@@ -60,6 +76,10 @@ class RunLogger:
         self._write(self.results_path, text if text.endswith("\n") else text + "\n")
 
 
+def _refuse(cfg, field, why):
+    raise ValueError(f"{field}={getattr(cfg, field)!r} is not ported: {why}")
+
+
 def check_supported(cfg: Config, device="cpu") -> None:
     """Raises ValueError, naming the field, for a configuration the JAX
     package runs and the port does not yet. On a CUDA ``device`` also for a
@@ -67,15 +87,13 @@ def check_supported(cfg: Config, device="cpu") -> None:
     take head_dim 64 and 128 (float32 and bf16); and, with ``fast_eval``,
     for an ``embed_dim`` wider than the block's LayerNorm kernel holds
     (``LN_MAX_C``: 2048 where a step runs float32, 4096 at bf16 alone). The
-    CPU runs every width.
+    CPU runs every width. ``check_trainable`` adds what ``fit`` refuses.
 
     ``remat`` is accepted: in JAX it only chooses whether the blocks are
     rematerialised in the backward pass of training
     (diff3dhpe_tpu/models/mixste.py:262-279), so an evaluation with it on
-    computes what one without it computes, and the runner only evaluates."""
-    def refuse(field, why):
-        raise ValueError(f"{field}={getattr(cfg, field)!r} is not ported: {why}")
-
+    computes what one without it computes."""
+    refuse = lambda field, why: _refuse(cfg, field, why)
     if cfg.mesh_shape is not None and cfg.mesh_shape.replace(" ", "") not in ("data:1", ""):
         refuse("mesh_shape", "the port runs on one device")
     bf16 = cfg.compute_dtype == "bfloat16"
@@ -92,10 +110,7 @@ def check_supported(cfg: Config, device="cpu") -> None:
         refuse("eval_final_prec", "the float32 kernels contract in exact float32 "
                "('high3' and 'highest' both mean that)")
     if torch.device(device).type == "cuda" and (cfg.fast_eval or cfg.use_pallas_attention):
-        head_dim = cfg.embed_dim // cfg.num_heads
-        if head_dim not in HEAD_DIMS:
-            refuse("num_heads", f"head_dim {head_dim} (embed_dim {cfg.embed_dim}): the CUDA "
-                   f"kernels of this path take head_dim {HEAD_DIMS}")
+        _check_head_dim(cfg)
     if torch.device(device).type == "cuda" and cfg.fast_eval:
         f32_steps = not bf16 or cfg.eval_f32_final_steps > 0
         widest = LN_MAX_C[torch.float32 if f32_steps else torch.bfloat16]
@@ -104,9 +119,43 @@ def check_supported(cfg: Config, device="cpu") -> None:
                    f"{widest} at this path's dtypes")
 
 
+def _check_head_dim(cfg):
+    head_dim = cfg.embed_dim // cfg.num_heads
+    if head_dim not in HEAD_DIMS:
+        _refuse(cfg, "num_heads", f"head_dim {head_dim} (embed_dim {cfg.embed_dim}): the CUDA "
+                f"kernels of this path take head_dim {HEAD_DIMS}")
+
+
+def check_trainable(cfg: Config, device="cpu") -> None:
+    """What ``fit`` refuses beyond ``check_supported``, naming the field:
+    bfloat16 training and ``remat`` (ROADMAP A.5), the monolithic backward
+    (``fast_train_pair_vjp=False``), and ``use_pallas_attention`` without
+    ``fast_train``, whose attention kernels have no backward (JAX's
+    ``jax.grad`` through them raises too). On a CUDA ``device``, with
+    ``fast_train``: a head width the fast-train kernels do not take (64,
+    128) and an ``embed_dim`` wider than the float32 LayerNorm kernel holds."""
+    check_supported(cfg, device)
+    refuse = lambda field, why: _refuse(cfg, field, why)
+    if cfg.compute_dtype != "float32":
+        refuse("compute_dtype", "training runs at float32 (bfloat16 training is not ported)")
+    if cfg.remat:
+        refuse("remat", "the rematerialised backward of training is not ported")
+    if cfg.fast_train and not cfg.fast_train_pair_vjp:
+        refuse("fast_train_pair_vjp", "fast_train runs the pair-boundary backward only")
+    if cfg.use_pallas_attention and not cfg.fast_train:
+        refuse("use_pallas_attention", "its attention kernels have no backward; train with "
+               "fast_train (and fast_train_attn_bwd for the attention backward kernels)")
+    if torch.device(device).type == "cuda" and cfg.fast_train:
+        _check_head_dim(cfg)
+        if cfg.embed_dim > LN_MAX_C[torch.float32]:
+            refuse("embed_dim", f"the CUDA LayerNorm of the fused blocks takes rows of up to "
+                   f"{LN_MAX_C[torch.float32]} at float32")
+
+
 class Runner:
-    """Model, diffusion and eval step for one ``Config``; ``evaluate`` runs
-    the final evaluation protocol on a dataset.
+    """Model, diffusion, train, val and eval steps for one ``Config``;
+    ``fit`` runs the epoch loop, ``evaluate`` the final evaluation protocol
+    on a dataset.
 
     The denoiser of the evaluation is, as in JAX: the module
     (``use_pallas_attention`` sends its attention through the attention
@@ -114,10 +163,15 @@ class Runner:
     ``compute_dtype`` (``eval_f32_head`` keeps a bf16 trunk's head float32);
     with bfloat16 and ``eval_f32_final_steps`` > 0 the last steps run the
     float32 fused forward (the mixed mode). The temporal blocks run in the
-    rows layout, JAX's default.
+    rows layout, JAX's default. The denoiser of training is the module
+    under autograd, or with ``fast_train`` the fused forward with the
+    pair-boundary recompute backward (``fast_train_attn_bwd``: its
+    attention through the attention kernels), drop-path at
+    ``drop_path_rate`` either way.
 
     ``device`` is "cuda" unless the caller asks for "cpu"; nothing falls
-    back. ``check_supported`` lists what is refused."""
+    back. ``check_supported`` lists what is refused, ``check_trainable``
+    what ``fit`` refuses besides."""
 
     def __init__(self, cfg: Config, num_joints: int, joints_left, joints_right,
                  logger: Optional[RunLogger] = None, device="cuda"):
@@ -141,8 +195,7 @@ class Runner:
             with_time_emb=cfg.with_time_emb,
             use_pallas=cfg.use_pallas_attention,
         )
-        self.model = HPE_model(cfg.model)(**self._model_kw, seed=cfg.seed,
-                                          device=self.device).eval()
+        self.model = HPE_model(cfg.model)(**self._model_kw, seed=cfg.seed, device=self.device)
         self.diffusion = GaussianDiffusion.create(
             make_denoise_fn(self.model),
             timesteps=cfg.timesteps,
@@ -154,12 +207,16 @@ class Runner:
             clip_loss=cfg.clip_loss,
             mode="s2s" if cfg.out_all else "s2f",
         )
+        train_fn = (make_fast_train_denoise_fn(self.model, cfg.drop_path_rate,
+                                               attn_bwd=cfg.fast_train_attn_bwd)
+                    if cfg.fast_train else make_train_denoise_fn(self.model, cfg.drop_path_rate))
+        self.train_diffusion = dataclasses.replace(self.diffusion, denoise_fn=train_fn)
         self._build_eval()
 
     def _build_eval(self):
-        """``eval_diffusion`` and ``eval_step`` from the model's current
-        weights (a bf16 denoise_fn holds a snapshot of them, so this runs
-        again whenever the weights are replaced)."""
+        """``eval_diffusion``, ``eval_step`` and ``val_step`` from the
+        model's current weights (a bf16 denoise_fn holds a snapshot of
+        them, so this runs again whenever the weights are replaced)."""
         cfg = self.cfg
         self.eval_diffusion = self.diffusion
         if cfg.fast_eval:
@@ -179,6 +236,11 @@ class Runner:
         self.eval_step = make_eval_step(
             self.eval_diffusion, self.joints_left, self.joints_right,
             repeat_n=cfg.repeat_n, tta=cfg.test_time_augmentation, device=self.device,
+        )
+        self.val_step = make_val_step(
+            self.diffusion, self.joints_left, self.joints_right,
+            sample_diffusion=self.eval_diffusion, tta=cfg.test_time_augmentation,
+            device=self.device,
         )
 
     # ------------------------------------------------------------------
@@ -201,6 +263,219 @@ class Runner:
     def param_count(self) -> int:
         return sum(p.numel() for p in self.model.parameters())
 
+    def _to_device(self, value):
+        """Arrays (and tuples of them, and dicts of those) as tensors on the
+        runner's device, without making the host wait for the card
+        (``device.to_device``): integers as int64, the rest float32."""
+        if isinstance(value, dict):
+            return {k: self._to_device(v) for k, v in value.items()}
+        if isinstance(value, (tuple, list)):
+            return tuple(self._to_device(v) for v in value)
+        t = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.array(value))
+        return to_device(t, self.device, torch.float32 if t.is_floating_point() else torch.int64)
+
+    # ------------------------------------------------------------------
+    def fit(self, train_ds, val_ds, resume: Optional[str] = None, draws=None) -> Dict:
+        """Epoch loop (JAX ``Runner.fit``; reference run.py:252-506).
+        Per-epoch validation and early stopping run on ``val_ds``, the
+        reference's 'val' split (train subjects, no augmentation, its own
+        noise knobs; reference run.py:278-284 and load_noisy_data.py:95-107),
+        as JAX does; the final test evaluation is a separate ``evaluate``.
+
+        Each epoch: AdamW steps on shuffled train batches (``drop_last``),
+        lr = learning_rate · lr_decay^(step // steps_per_epoch); one host
+        read of the epoch's losses; validation (unless ``no_eval``); the
+        log line; ``epoch_{n}/`` every ``checkpoint_frequency`` epochs and
+        ``best_epoch/`` at a new best validation MPJPE (mm); then
+        ``patience`` and ``max_time`` (hours) may stop the loop.
+
+        Random draws (t, noise, drop-path scales, x_T) come from one
+        ``torch.Generator`` on the runner's device, seeded with ``cfg.seed
+        + epoch`` at the start of every epoch: JAX reseeds so only on
+        resume (its key chain otherwise runs on), and torch cannot draw
+        JAX's bits anyway; reseeding every epoch makes a resumed run equal
+        an unbroken one. ``resume``: a checkpoint directory of this port;
+        the model, optimizer, scheduler (so the lr schedule goes on from
+        the saved step), counters and ``train_ds.shuffle_rng`` are restored
+        and training goes on at the next epoch.
+
+        ``draws``: for tests, a callable (kind, epoch, index) -> the draws
+        to use instead of the generator's: for kind "train" and train batch
+        ``index`` dict(t=, noise=, dp_scales=), for "val" and validation
+        batch ``index`` dict(x_init=, losses=((t, noise), (t_flip,
+        noise_flip))), as ``make_train_step`` and ``make_val_step`` take
+        them. Entry points pass None.
+
+        Returns dict(losses_train, losses_valid (MPJPE in m), best_epoch,
+        min_loss (mm), best_path (None without a best checkpoint), seconds:
+        per epoch run, dict(train=, validate=, save=) host seconds)."""
+        cfg = self.cfg
+        log = self.logger
+        check_trainable(cfg, self.device)
+        steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
+        optimizer, scheduler = make_optimizer(self.model.parameters(), cfg.learning_rate,
+                                              cfg.lr_decay, steps_per_epoch, cfg.weight_decay)
+        train_step = make_train_step(self.train_diffusion, optimizer, scheduler)
+
+        epoch = 0
+        best_epoch = 0
+        min_loss = np.inf
+        min_train_loss = np.inf
+        curr_step = 0
+
+        if resume:
+            state, meta = restore_checkpoint(resume, field="resume")
+            self.model.load_state_dict(state["model_diffusion"], strict=True)
+            optimizer.load_state_dict(state["optimizer"])
+            scheduler.load_state_dict(state["lr_scheduler"])
+            epoch = meta["epoch"] + 1
+            best_epoch = meta.get("best_epoch", 0)
+            min_loss = meta.get("min_loss", np.inf)
+            min_train_loss = meta.get("min_train_loss", np.inf)
+            if meta.get("shuffle_rng_state"):
+                train_ds.shuffle_rng = rng_state_from_json(meta["shuffle_rng_state"])
+            log.log(f"Resumed from {resume} at epoch {epoch}\n")
+
+        losses_train: List[float] = []
+        losses_valid: List[float] = []
+        seconds: List[Dict[str, float]] = []
+        start_training_time = time.time()
+        best_path = os.path.join(cfg.checkpoint, "best_epoch")
+
+        def save(path):
+            save_checkpoint(path, dict(
+                model_diffusion=self.model.state_dict(), optimizer=optimizer.state_dict(),
+                lr_scheduler=scheduler.state_dict(), step=scheduler.last_epoch), meta)
+
+        while epoch < cfg.epochs:
+            start_time = time.time()
+            generator = torch.Generator(device=self.device).manual_seed(cfg.seed + epoch)
+            self.model.train()
+            epoch_losses = []
+            for i, b in enumerate(train_ds.batches(cfg.batch_size, shuffle=True, drop_last=True)):
+                injected = {} if draws is None else self._to_device(draws("train", epoch, i))
+                epoch_losses.append(train_step(
+                    self._to_device(b.gt_3d_norm), self._to_device(b.input_2d),
+                    generator=generator, **injected))
+            # The epoch's one host read of its losses (float32 mean, as JAX's).
+            train_loss = float(np.mean(torch.stack(epoch_losses).cpu().numpy())
+                               if epoch_losses else np.nan)
+            losses_train.append(train_loss)
+            self.model.eval()
+            time_trained = time.time()
+
+            if not cfg.no_eval:
+                # The eval denoiser may hold a snapshot of the weights.
+                self._build_eval()
+                val_mpjpe, val_loss = self._validate(val_ds, generator, draws, epoch)
+                losses_valid.append(val_mpjpe)
+            else:
+                val_mpjpe, val_loss = np.nan, np.nan
+            time_validated = time.time()
+
+            elapsed = (time.time() - start_time) / 60
+            log.log(
+                f"Epoch: {epoch}, Time(mins): {elapsed:.2f}, "
+                f"Train/_pose_loss: {train_loss:.8f}, "
+                f"Valid/_mpjpe_mm: {val_mpjpe * 1000:.4f}, Valid/_pose_loss: {val_loss:.8f}\n"
+            )
+
+            # The best is taken before either checkpoint is written, so a
+            # periodic checkpoint's meta counts its own epoch (JAX writes it
+            # before, and a run resumed from it forgets that epoch's best).
+            is_best = not cfg.no_eval and val_mpjpe * 1000 < min_loss
+            if is_best:
+                min_loss = val_mpjpe * 1000
+                min_train_loss = train_loss
+                best_epoch = epoch
+                curr_step = 0
+            else:
+                curr_step += 1
+            meta = dict(
+                epoch=epoch,
+                best_epoch=best_epoch,
+                min_loss=float(min_loss),
+                min_train_loss=float(min_train_loss),
+                shuffle_rng_state=rng_state_to_json(train_ds.shuffle_rng),
+            )
+            if (epoch + 1) % cfg.checkpoint_frequency == 0:
+                path = os.path.join(cfg.checkpoint, f"epoch_{epoch}")
+                save(path)
+                log.log(f"Saved checkpoint to {path}\n")
+            if is_best:
+                save(best_path)
+                log.log("save best checkpoint\n")
+            seconds.append(dict(train=time_trained - start_time,
+                                validate=time_validated - time_trained,
+                                save=time.time() - time_validated))
+
+            if curr_step >= cfg.patience:
+                log.log("Early stop!\n")
+                break
+            if time.time() - start_training_time > cfg.max_time * 3600:
+                log.log(f"Max_time for training elapsed {cfg.max_time:.2f} hours, stopping\n")
+                break
+            epoch += 1
+
+        log.log(f"Training finished! Total time: {(time.time() - start_training_time) / 60}\n")
+        if cfg.export_training_curves and len(losses_train) > 3:
+            self._export_curves(losses_train, losses_valid)
+        return dict(
+            losses_train=losses_train,
+            losses_valid=losses_valid,
+            best_epoch=best_epoch,
+            min_loss=min_loss,
+            best_path=best_path if os.path.isdir(best_path) else None,
+            seconds=seconds,
+        )
+
+    def _export_curves(self, losses_train, losses_valid):
+        """Loss-curve PNG (reference run.py:513-531)."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.figure()
+        epoch_x = np.arange(3, len(losses_train)) + 1
+        plt.plot(epoch_x, losses_train[3:], "--", color="C0", label="train loss")
+        if len(losses_valid) > 3:
+            plt.plot(epoch_x[: len(losses_valid) - 3], losses_valid[3:], color="C1",
+                     label="valid MPJPE (m)")
+        plt.legend()
+        plt.ylabel("loss / MPJPE (m)")
+        plt.xlabel("Epoch")
+        plt.savefig(os.path.join(self.cfg.checkpoint, "loss_3d.png"))
+        plt.close("all")
+
+    def _validate(self, val_ds, generator, draws=None, epoch=0):
+        """Per-epoch validation pass (JAX ``Runner._validate``). Returns
+        (mpjpe, loss):
+
+        - mpjpe: frame-mask-weighted MPJPE over real (non-padded) rows, the
+          early-stop / best-checkpoint signal.
+        - loss: plain mean of the per-batch p_losses values, matching the
+          reference's logged val loss (run.py:353-406 averages the loader's
+          batch losses uniformly). The final fixed-shape batch pads by
+          repeating its last real row, so padding contributes real data.
+
+        Draws come from ``generator``, or from ``draws("val", epoch, i)``."""
+        errs, losses, n = [], [], 0
+        for i, b in enumerate(val_ds.batches(self.cfg.batch_size_eval)):
+            injected = {} if draws is None else self._to_device(draws("val", epoch, i))
+            pred_norm, loss = self.val_step(
+                b.gt_3d_norm, b.input_2d,
+                b.input_2d_flip if b.input_2d_flip is not None else b.input_2d,
+                generator=generator, **injected)
+            pred = val_ds.reverse_norm_3d_pose(pred_norm.cpu().numpy())
+            mask = (b.target_mask & b.row_mask[:, None]).reshape(-1)
+            pred_f = pred.reshape(-1, self.num_joints, 3)[mask]
+            gt_f = b.gt_3d.reshape(-1, self.num_joints, 3)[mask]
+            errs.append(float(mpjpe(pred_f[:, None], gt_f[:, None])) * mask.sum())
+            losses.append(float(loss))
+            n += mask.sum()
+        return (np.sum(errs) / n, np.mean(losses)) if n else (np.nan, np.nan)
+
     # ------------------------------------------------------------------
     def evaluate(self, test_ds, action: Optional[str] = None, generator=None,
                  unit_scale: float = 1000.0, x_init=None) -> Dict:
@@ -217,6 +492,7 @@ class Runner:
         for meter-based datasets (H3.6M et al.)."""
         cfg = self.cfg
         log = self.logger
+        self.model.eval()
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         e1_sum = e2_sum = e3_sum = ev_sum = 0.0

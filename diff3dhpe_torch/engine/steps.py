@@ -8,7 +8,9 @@ Port of ``diff3dhpe_tpu/engine/steps.py``:
 - eval step (reference evaluate():557-596): the flipped copy of the 2D
   input rides the same batch through ONE sampling pass ([x2d; x2d_flip]);
   the second half is un-flipped with a joint permutation and the two are
-  averaged.
+  averaged;
+- val step (reference run.py:364-403): the eval step's prediction and the
+  mean ``p_losses`` of both orientations, without autograd.
 """
 from __future__ import annotations
 
@@ -27,11 +29,14 @@ from diff3dhpe_torch.models.fast_eval import (
 
 
 def make_denoise_fn(model) -> Callable:
-    """denoise_fn(x, t) through the plain PyTorch module (the parity path)."""
+    """denoise_fn(x, t) through the plain PyTorch module (the parity path),
+    without autograd. It also takes ``p_losses``'s keywords, as the
+    validation loss calls it: ``dp_scales`` (None: no drop-path) and
+    ``generator``, which it does not draw from."""
 
     @torch.no_grad()
-    def denoise_fn(x, t):
-        return model(x, t)
+    def denoise_fn(x, t, *, dp_scales=None, generator=None):
+        return model(x, t, dp_scales)
 
     return denoise_fn
 
@@ -183,3 +188,45 @@ def make_eval_step(
         return (pred[:b] + flip_pose(pred[b:], jl, jr)) / 2.0
 
     return eval_step
+
+
+def make_val_step(
+    diffusion: GaussianDiffusion,
+    joints_left: Sequence[int],
+    joints_right: Sequence[int],
+    sample_diffusion: GaussianDiffusion = None,
+    tta: bool = True,
+    device="cuda",
+):
+    """End-of-epoch validation (JAX ``make_val_step``; reference
+    run.py:364-403), without autograd. Returns val_step(gt_3d_norm,
+    input_2d, input_2d_flip, *, generator=None, x_init=None, losses=None)
+    -> (pred_norm, loss): the flip-TTA prediction of ``make_eval_step`` on
+    ``sample_diffusion`` (default ``diffusion``; e.g. the fused eval), and
+    the mean ``p_losses`` on ``diffusion`` of the batch and, with ``tta``,
+    of its flipped copy, averaged. x_T, then t and noise of each
+    orientation are drawn from ``generator`` in that order, unless given:
+    ``x_init`` as ``make_eval_step`` takes it, ``losses`` as ((t, noise),
+    (t_flip, noise_flip))."""
+    device = resolve_device(device)
+    jl, jr = list(joints_left), list(joints_right)
+    eval_step = make_eval_step(sample_diffusion or diffusion, jl, jr, tta=tta, device=device)
+
+    @torch.no_grad()
+    def val_step(gt_3d_norm, input_2d, input_2d_flip, *, generator=None, x_init=None,
+                 losses=None):
+        as_tensor = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+        gt_3d_norm, input_2d = as_tensor(gt_3d_norm), as_tensor(input_2d)
+        pred = eval_step(input_2d, input_2d_flip, x_init=x_init, generator=generator)
+        (t, noise), (t_flip, noise_flip) = losses or ((None, None), (None, None))
+        inject = lambda a: None if a is None else torch.as_tensor(a, device=device)
+        loss = diffusion.training_loss(gt_3d_norm, input_2d, t=inject(t), noise=inject(noise),
+                                       generator=generator)
+        if tta:
+            loss_flip = diffusion.training_loss(
+                flip_pose(gt_3d_norm, jl, jr), as_tensor(input_2d_flip), t=inject(t_flip),
+                noise=inject(noise_flip), generator=generator)
+            loss = 0.5 * (loss + loss_flip)
+        return pred, loss
+
+    return val_step

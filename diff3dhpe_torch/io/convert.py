@@ -10,6 +10,8 @@ from flax [in, out] to torch [out, in].
 
 A JAX gradient tree has the param tree's structure, so the same call maps
 gradients to the names of the port's parameters (and their ``.grad``).
+
+``load_matching_params`` is the port of JAX's tolerant partial loading.
 """
 from __future__ import annotations
 
@@ -70,3 +72,19 @@ def state_dict_from_flax(
         sd["weighted_mean.weight"] = _tensor(w.reshape(1, -1, 1))
         sd["weighted_mean.bias"] = _tensor(np.asarray(params["weighted_mean_bias"]).reshape(1))
     return sd
+
+
+def load_matching_params(target: Mapping[str, torch.Tensor], source: Mapping[str, torch.Tensor]):
+    """Tolerant partial loading (JAX ``io/torch_convert.py::load_matching_params``;
+    reference common/utils.py load_pretrained_weights:51-81) on state dicts:
+    every entry of ``source`` whose name and shape match one of ``target``
+    replaces it; the rest of ``target`` stays. Returns (merged, matched,
+    discarded), the last two lists of ``source``'s names."""
+    merged, matched, discarded = dict(target), [], []
+    for name, value in source.items():
+        if name in target and tuple(value.shape) == tuple(target[name].shape):
+            merged[name] = value
+            matched.append(name)
+        else:
+            discarded.append(name)
+    return merged, matched, discarded

@@ -30,7 +30,10 @@ Training (``fast_forward_denoise_train_pairs``) cuts the trunk into
 (spatial, temporal) block pairs, each a ``torch.autograd.Function``
 (``_FusedPair``, JAX's ``_fused_pair`` custom VJP): the forward runs the
 fused kernels and keeps only the pair's input, and the backward recomputes
-the pair through the plain module (``MixSTEDenoiser.pair``) under autograd.
+the pair through the plain module (``MixSTEDenoiser.pair``) under autograd,
+its attention through ``grand_attention_trainable`` (``attn_bwd``) or the
+plain formulas, whatever the module's ``use_pallas`` (JAX's recompute
+ignores it too).
 """
 from __future__ import annotations
 
@@ -40,7 +43,9 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from diff3dhpe_torch.device import to_device
 from diff3dhpe_torch.models.mixste import sinusoidal_pos_emb
+from diff3dhpe_torch.ops.attention import grand_attention, grand_attention_trainable
 from diff3dhpe_torch.ops.fused_block import fused_temporal_block_cols, fused_transformer_block
 
 TEMPORAL_MODES = ("rows", "cols")
@@ -205,7 +210,8 @@ class _FusedPair(torch.autograd.Function):
         with torch.enable_grad():
             x4 = x_flat.detach().view(b, f, p, c).requires_grad_()
             tt = None if t is None else t.detach().requires_grad_()
-            out = model.pair(i, x4, tt, dp_s, dp_t, ctx.attn_bwd)
+            core = grand_attention_trainable if ctx.attn_bwd else grand_attention
+            out = model.pair(i, x4, tt, dp_s, dp_t, core)
             inputs = [x4] + ([] if tt is None else [tt]) + params
             grads = torch.autograd.grad(out, inputs, grad.view(b, f, p, c), allow_unused=True)
         d_x, grads = grads[0].reshape(b * f * p, c), list(grads[1:])
@@ -249,8 +255,8 @@ def draw_drop_path_scales(generator, batch, depth, drop_path_rate, num_frame, nu
     ones; a kept branch is scaled by 1/keep. The draws are torch's, not
     JAX's: tests inject the same scales into both."""
     dev = generator.device
-    keep = torch.tensor(1.0 - np.linspace(0.0, drop_path_rate, depth), dtype=torch.float32,
-                        device=dev).view(depth, 1, 1, 1)
+    keep = to_device(1.0 - np.linspace(0.0, drop_path_rate, depth), dev,
+                     torch.float32).view(depth, 1, 1, 1)
     u_sp = torch.rand(depth, batch, num_frame, 2, generator=generator, device=dev)
     u_tp = torch.rand(depth, batch, num_joints, 2, generator=generator, device=dev)
     zero = torch.zeros((), device=dev)

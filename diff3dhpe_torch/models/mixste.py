@@ -30,11 +30,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from diff3dhpe_torch.device import resolve_device
-from diff3dhpe_torch.ops.attention import (
-    fused_grand_attention,
-    grand_attention,
-    grand_attention_trainable,
-)
+from diff3dhpe_torch.ops.attention import fused_grand_attention, grand_attention
 
 
 def sinusoidal_pos_emb(t, dim: int):
@@ -79,7 +75,8 @@ class Attention(nn.Module):
     """Multi-head self-attention with the GRAND (attn − I) v modification.
     ``use_pallas`` (JAX's name for it): the attention core goes through the
     dispatcher ``fused_grand_attention``; the model takes that path at
-    float32 only."""
+    float32 only. The dispatcher has no backward and refuses to run under
+    autograd, as ``jax.grad`` through JAX's ``use_pallas`` module raises."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool, use_pallas: bool = False):
         super().__init__()
@@ -89,15 +86,15 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, attn_bwd: bool = False):
-        """``attn_bwd``: the attention core runs through
-        ``grand_attention_trainable`` (its kernels on CUDA) instead of the
-        autograd of the plain formulas."""
+    def forward(self, x, core=None):
+        """``core``: the attention core, (q, k, v) [B, H, N, D] -> [B, H, N,
+        D] at the scale D^-½; default the module's own (the dispatcher with
+        ``use_pallas``, else the plain formulas)."""
         b, n, c = x.shape
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        if attn_bwd:
-            out = grand_attention_trainable(q, k, v)
+        if core is not None:
+            out = core(q, k, v)
         elif self.use_pallas:
             out = fused_grand_attention(q, k, v, self.scale)
         else:
@@ -124,7 +121,7 @@ class Block(nn.Module):
             nn.Sequential(nn.SiLU(), nn.Linear(dim * 2, dim)) if with_time_emb else None
         )
 
-    def forward(self, x, is_spatial: bool, time_emb=None, dp=None, attn_bwd: bool = False):
+    def forward(self, x, is_spatial: bool, time_emb=None, dp=None, attn_core=None):
         b, f, p, c = x.shape
         if self.time_mlp is not None and time_emb is not None:
             x = x + self.time_mlp(time_emb)[:, None, None, :]
@@ -135,7 +132,7 @@ class Block(nn.Module):
         def branch(col, y):
             return y if dp is None else dp[:, :, col].reshape(-1, 1, 1) * y
 
-        tokens = tokens + branch(0, self.attn(self.norm1(tokens), attn_bwd))
+        tokens = tokens + branch(0, self.attn(self.norm1(tokens), attn_core))
         tokens = tokens + branch(1, self.mlp(self.norm2(tokens)))
         if is_spatial:
             return tokens.reshape(b, f, p, c)
@@ -219,17 +216,18 @@ class MixSTEDenoiser(nn.Module):
         w = self.weighted_mean.weight.reshape(-1).to(x.dtype)
         return torch.einsum("bfpc,f->bpc", x, w)[:, None] + self.weighted_mean.bias.to(x.dtype)
 
-    def pair(self, i, x, t, dp_s=None, dp_t=None, attn_bwd: bool = False):
+    def pair(self, i, x, t, dp_s=None, dp_t=None, attn_core=None):
         """Block pair i on [B, F, J, C]: spatial block, Spatial_norm, [the
         temporal position embedding when i == 0], temporal block,
         Temporal_norm. ``t`` is the [B, 2C] time embedding (or None); dp_s
-        [B, F, 2], dp_t [B, J, 2] the pair's drop-path scales. The port of
-        JAX ``_xla_pair``, and the recompute target of the fused pair's
+        [B, F, 2], dp_t [B, J, 2] the pair's drop-path scales;
+        ``attn_core`` as ``Attention.forward``'s ``core``. The port of JAX
+        ``_xla_pair``, and the recompute target of the fused pair's
         backward (``models.fast_eval``)."""
-        x = self.Spatial_norm(self.STEblocks[i](x, True, t, dp_s, attn_bwd))
+        x = self.Spatial_norm(self.STEblocks[i](x, True, t, dp_s, attn_core))
         if i == 0:
             x = x + self.Temporal_pos_embed[:, :, None, :]
-        return self.Temporal_norm(self.TTEblocks[i](x, False, t, dp_t, attn_bwd))
+        return self.Temporal_norm(self.TTEblocks[i](x, False, t, dp_t, attn_core))
 
     def pair_parameters(self, i):
         """The parameters that block pair i reads, in a fixed order."""

@@ -16,6 +16,12 @@ Port of ``diff3dhpe_tpu/ops/attention.py``:
 - ``grand_attention_trainable``: the same function with the hand-written
   backward, a ``torch.autograd.Function`` (JAX's custom VJP).
 
+A kernel writes into a buffer that autograd does not see, so B3, B6 and the
+dispatcher refuse to run where autograd would record them
+(``refuse_autograd``), on the CPU too: training goes through
+``grand_attention_trainable``, as ``jax.grad`` through JAX's kernels
+raises.
+
 The kernels take head_dim 64 or 128 and n <= 256 (B6: n <= 64) and read
 their operands through strides (unit stride on the head dim), so views of a
 qkv projection go in without a copy. B3 and B6 also take bfloat16 (JAX's
@@ -35,6 +41,20 @@ SMALL_N = 64
 # Head widths the kernels take, at float32 and at bfloat16 (the library's
 # diff3dhpe_grand_takes_head_dim is what the wrappers ask).
 HEAD_DIMS = (64, 128)
+
+
+def refuse_autograd(op: str, *tensors,
+                    route="grand_attention_trainable (Config.fast_train with fast_train_attn_bwd)"):
+    """Raises a RuntimeError where autograd would record ``op``: grad mode
+    on and any of ``tensors`` (None is skipped) requiring grad. ``op``
+    launches kernels into buffers autograd does not see, so the gradient to
+    those inputs would be lost without an error; the plain version that
+    stands in for the kernel on a CPU tensor raises the same way, as
+    ``jax.grad`` through JAX's kernel does. ``route``: what trains instead."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op} has no backward: its kernel would drop the gradient to its inputs. "
+            f"Call it under torch.no_grad(), or train through {route}")
 
 
 def grand_attention(q, k, v, scale=None):
@@ -97,8 +117,10 @@ def grand_attention_fullseq(q, k, v, scale=None):
     q, k and v are all float32 or all bfloat16 (else ``ValueError``). A CPU
     tensor runs the plain version. A CUDA tensor launches the kernel, the
     CUDA-core one at float32 and the tensor-core one at bfloat16
-    (``grand_attention_fullseq.launches`` counts launches) or raises."""
+    (``grand_attention_fullseq.launches`` counts launches) or raises.
+    Under autograd it raises (``refuse_autograd``)."""
     _check_dtypes(q, k, v)
+    refuse_autograd("grand_attention_fullseq", q, k, v)
     if q.device.type == "cpu":
         return grand_attention_fullseq_ref(q, k, v, scale)
     return _fullseq(q, k, v, scale)
@@ -127,10 +149,11 @@ def packed_grand_attention(q, k, v, scale=None):
     persistent blocks walk the (group, head) pairs; at bfloat16 B3's
     tensor-core kernel, which packs the pairs of small groups into a block.
     The name is JAX's, whose kernel packs groups into one tile of its
-    matrix unit."""
+    matrix unit. Under autograd it raises (``refuse_autograd``)."""
     if q.shape[-2] > SMALL_N:
         raise ValueError(f"packed_grand_attention takes n <= {SMALL_N}, got n {q.shape[-2]}")
     _check_dtypes(q, k, v)
+    refuse_autograd("packed_grand_attention", q, k, v)
     if q.device.type == "cpu":
         return packed_grand_attention_ref(q, k, v, scale)
     q4, k4, v4 = (_as4d(t) for t in (q, k, v))
@@ -150,8 +173,10 @@ def fused_grand_attention(q, k, v, scale=None):
     JAX's dispatcher keeps N <= 64 on its plain formulas, because its
     packed kernel needs a relayout of [G, 17, 64] into 119-row tiles first
     (ops/attention.py:240-246). B6 reads the qkv projection through strides
-    and needs none, so the port sends small N to its kernel."""
+    and needs none, so the port sends small N to its kernel. Under autograd
+    it raises (``refuse_autograd``)."""
     _check_dtypes(q, k, v)
+    refuse_autograd("fused_grand_attention", q, k, v)
     if q.shape[-2] <= SMALL_N:
         return packed_grand_attention(q, k, v, scale)
     return grand_attention_fullseq(q, k, v, scale)

@@ -26,6 +26,11 @@ and output, h1, LN2, GELU(fc1), and the output before and after the out-LN.
 ``block`` is a ``models.mixste.Block`` (or anything with its norm1, attn.qkv,
 attn.proj, norm2, mlp.fc1 and mlp.fc2), whose GEMM weights may be float32
 or already in x's dtype; ``out_ln`` an ``nn.LayerNorm``.
+
+The kernels write into buffers autograd does not see, so the three
+wrappers refuse to run where autograd would record them, on the CPU too
+(``_refuse_autograd``); training runs them inside ``_FusedPair``
+(``models.fast_eval``), whose backward recomputes the pair.
 """
 from __future__ import annotations
 
@@ -34,12 +39,25 @@ import ctypes
 import torch
 from torch.nn import functional as F
 
-from diff3dhpe_torch.ops.attention import HEAD_DIMS, grand_attention_stored
+from diff3dhpe_torch.ops.attention import HEAD_DIMS, grand_attention_stored, refuse_autograd
 
 DTYPES = (torch.float32, torch.bfloat16)
 # The widest row the LayerNorm kernel holds (32 lanes x 16 pieces of 16
 # bytes; csrc/fused_block.cu::diff3dhpe_ln_max_c).
 LN_MAX_C = {torch.float32: 2048, torch.bfloat16: 4096}
+
+
+def _check_device(wrapper, x):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{wrapper.__name__} runs on cpu or cuda, not {x.device}")
+
+
+def _refuse_autograd(op, *inputs):
+    """``refuse_autograd`` over the tensors among ``inputs`` and the
+    parameters of the modules among them (the block, the out-LN)."""
+    tensors = [p for a in inputs
+               for p in (a.parameters() if isinstance(a, torch.nn.Module) else [a])]
+    refuse_autograd(op, *tensors, route="fast_forward_denoise_train_pairs (Config.fast_train)")
 
 
 def _check_block(x, block, heads):
@@ -175,16 +193,15 @@ def fused_transformer_block(x, block, n, heads, *, n_pad=None, t_rows=None,
     A CPU tensor runs the plain version. A CUDA tensor launches the
     kernels (7, or 8 with ``out_ln``; ``fused_transformer_block.launches``
     counts them, ``.launches_bf16`` those at bf16, ``.launches_ln`` the
-    LayerNorms and ``.launches_gemm_f32`` the GEMMs at f32) or raises."""
-    if x.device.type == "cpu":
-        return fused_transformer_block_ref(
-            x, block, n, heads, n_pad=n_pad, t_rows=t_rows,
-            rows_per_item=rows_per_item, out_ln=out_ln, dp_scales=dp_scales,
-        )
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_transformer_block runs on cpu or cuda, not {x.device}")
+    LayerNorms and ``.launches_gemm_f32`` the GEMMs at f32) or raises.
+    Under autograd it raises (``_refuse_autograd``)."""
+    _check_device(fused_transformer_block, x)
     n_pad = n if n_pad is None else n_pad
     _check_args(x, block, n, heads, n_pad, t_rows, rows_per_item, dp_scales)
+    _refuse_autograd("fused_transformer_block", x, block, out_ln, t_rows, dp_scales)
+    if x.device.type == "cpu":
+        return _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item,
+                          _out_ln_params(out_ln), dp_scales)
     return _launch(fused_transformer_block, x, block, n, heads, n_pad, 0, t_rows,
                    rows_per_item, _out_ln_params(out_ln), dp_scales)
 
@@ -224,13 +241,14 @@ def fused_temporal_block_cols(x, block, n, j_groups, heads, *, t_rows=None, out_
     A CPU tensor runs the plain version. A CUDA tensor launches the kernels
     (7, or 8 with ``out_ln``; ``fused_temporal_block_cols.launches`` counts
     them, ``.launches_bf16``, ``.launches_ln`` and ``.launches_gemm_f32`` as
-    ``fused_transformer_block``'s) or raises."""
+    ``fused_transformer_block``'s) or raises. Under autograd it raises
+    (``_refuse_autograd``)."""
+    _check_device(fused_temporal_block_cols, x)
+    _check_cols_args(x, block, n, j_groups, heads, t_rows, dp_scales)
+    _refuse_autograd("fused_temporal_block_cols", x, block, out_ln, t_rows, dp_scales)
     if x.device.type == "cpu":
         return fused_temporal_block_cols_ref(x, block, n, j_groups, heads, t_rows=t_rows,
                                              out_ln=out_ln, dp_scales=dp_scales)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_temporal_block_cols runs on cpu or cuda, not {x.device}")
-    _check_cols_args(x, block, n, j_groups, heads, t_rows, dp_scales)
     rows, cols = x.shape
     b, c = rows // n, cols // j_groups
     dp = None if dp_scales is None else dp_scales.view(b, 1, j_groups, 2).expand(
@@ -278,12 +296,13 @@ def fused_attention_block(x, block, n, heads):
     A CPU tensor runs the plain version. A CUDA tensor launches the 4
     kernels (``fused_attention_block.launches`` counts them,
     ``.launches_bf16``, ``.launches_ln`` and ``.launches_gemm_f32`` as
-    ``fused_transformer_block``'s) or raises."""
+    ``fused_transformer_block``'s) or raises. Under autograd it raises
+    (``_refuse_autograd``)."""
+    _check_device(fused_attention_block, x)
+    _check_attn_args(x, block, n, heads)
+    _refuse_autograd("fused_attention_block", x, block)
     if x.device.type == "cpu":
         return fused_attention_block_ref(x, block, n, heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attention_block runs on cpu or cuda, not {x.device}")
-    _check_attn_args(x, block, n, heads)
     return _launch_attn(x, block, n, heads)
 
 

@@ -353,6 +353,38 @@ def test_dispatcher_picks_the_kernel_by_n(cuda_device):
 
 
 @pytest.mark.cuda
+def test_kernel_ops_refuse_autograd_on_cuda(cuda_device):
+    """A kernel writes into a buffer autograd does not see: on CUDA tensors
+    that require grad, under grad mode, every kernel-launching wrapper
+    raises before it launches; under no_grad the same call launches."""
+    (q, k, v), _ = _qkv_views(cuda_device, 2, 2, 243, 5)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    model = _model(cuda_device)  # its parameters require grad
+    x = torch.randn(2 * 27 * 17, C, device=cuda_device)
+    block, heads = model.STEblocks[0], C // 64
+    calls = {
+        "fused_grand_attention": lambda: fused_grand_attention(q, k, v),
+        "grand_attention_fullseq": lambda: grand_attention_fullseq(q, k, v),
+        "packed_grand_attention": lambda: packed_grand_attention(q[:, :, :17], k[:, :, :17],
+                                                                 v[:, :, :17]),
+        "fused_transformer_block": lambda: fused_transformer_block(x, block, 17, heads),
+        "fused_temporal_block_cols": lambda: fused_temporal_block_cols(
+            x.view(2 * 27, 17 * C), model.TTEblocks[0], 27, 17, heads),
+        "fused_attention_block": lambda: fused_attention_block(x, block, 17, heads),
+    }
+    wrappers = (fused_grand_attention, grand_attention_fullseq, packed_grand_attention,
+                fused_transformer_block, fused_temporal_block_cols, fused_attention_block)
+    for name, call in calls.items():
+        before = sum(getattr(w, "launches", 0) for w in wrappers)
+        with pytest.raises(RuntimeError, match=f"^{name} has no backward"):
+            call()
+        assert sum(getattr(w, "launches", 0) for w in wrappers) == before, name
+        with torch.no_grad():
+            assert torch.isfinite(call()).all(), name
+        assert sum(getattr(w, "launches", 0) for w in wrappers) > before, name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 16, 17, 27, 64, 65, 243, 248, 256])
 def test_fullseq_attention_bf16_matches_ref(cuda_device, n):
     """B3 at bf16 (the tensor-core kernel) on strided qkv views (13 groups x

@@ -20,6 +20,12 @@ import diff3dhpe_torch
 names = [m.name for m in pkgutil.walk_packages(diff3dhpe_torch.__path__, "diff3dhpe_torch.")]
 for name in names:
     importlib.import_module(name)
+# The training slice's entry points among them.
+from diff3dhpe_torch.engine import make_val_step
+from diff3dhpe_torch.engine.runner import Runner, check_trainable
+from diff3dhpe_torch.io import (load_matching_params, restore_checkpoint, rng_state_from_json,
+                                rng_state_to_json, save_checkpoint)
+assert callable(Runner.fit) and callable(Runner._validate) and callable(Runner._export_curves)
 tree = ast.parse(open("chip_smoke.py").read())
 imported = set()
 for node in ast.walk(tree):
@@ -48,6 +54,7 @@ def test_port_and_chip_smoke_import_without_jax():
     walked = set(ast.literal_eval(line.split("MODULES ", 1)[1].split(" LOADED", 1)[0]))
     assert {f"diff3dhpe_torch.{name}" for name in (
         "cli.args", "cli.run", "config.config", "data.chunking", "data.dataset", "data.h36m",
+        "device",
         "data.mocap", "data.synthetic", "diffusion.gaussian_diffusion", "engine.runner",
         "engine.steps", "geometry.camera", "geometry.quaternion", "geometry.skeleton",
         "io.checkpoint", "io.convert", "metrics.metrics", "models.fast_eval", "models.mixste",
