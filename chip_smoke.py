@@ -17,7 +17,10 @@ the port's seeded init:
          the temporal blocks);
   train  the f32 fast-train AdamW step (configs/h36m_gt_s2s_243f.json:
          clip_loss, lr 4e-5, lr_decay 0.99, batch 24; drop_path_rate 0.1),
-         pair-boundary backward with the attention kernels (attn_bwd);
+         pair-boundary backward with the attention kernels (attn_bwd); then
+         at bf16 (the compute_dtype of configs/h36m_gt_s2s_243f_tpu.json),
+         8 and 4 heads, attn_bwd off and on, its drift from f32, one step of
+         the monolithic backward and one of the remat module;
   cli    the evaluate entry point, diff3dhpe_torch.cli.run.main([--config
          <json> --synthetic --evaluate <seed-0 state dict .bin> ...]), on
          configs/h36m_gt_s2s_243f.json at DDIM-9 with batch 2: the plain
@@ -33,7 +36,9 @@ the port's seeded init:
          fast_train_attn_bwd and fast_eval: 2 epochs at batch 24 with
          per-epoch flip-TTA validation (DDIM-5, batch 8) and a checkpoint
          each epoch, then the run resumed from epoch_0, then --evaluate
-         best_epoch, each held against the unbroken run.
+         best_epoch, each held against the unbroken run; then the same on
+         configs/h36m_gt_s2s_243f_tpu.json (bf16 training, remat, 4 heads,
+         mixed validation) with fast_train_attn_bwd.
 
 Any failed check raises and the script exits non-zero.
 
@@ -50,9 +55,12 @@ mixed rows and pure-bf16 evals of a 4-head model; 5b the mixed rows step's
 profile; 6 B3 and B4 vs plain at the train shape with 8 heads (d = 64)
 and 4 heads (d = 128), B4 twice with the same bits; 6b B3 at bf16 (the
 tensor-core attention kernel alone) at both eval shapes, d = 64 and 128;
-7a the train step's loss, gradients and launches vs the plain module at
-B=4, with 8 heads and with 4; 7b three timed AdamW steps at B=24; 7c their
-profile; 8 B6 vs plain at the eval shape as qkv views and contiguous, at n
+6c B4 at bf16 at the train shapes with SDPA's backward; 7a the train
+step's loss, gradients and launches vs the plain module at B=4, with 8
+heads and with 4; 7b three timed AdamW steps at B=24; 7c their profile; 7d
+the bf16 train step (8 and 4 heads, attn_bwd off and on); 7e its 20-step
+drift from f32; 7f a monolithic-backward step and a remat step; 7g the
+bf16 step's profile; 8 B6 vs plain at the eval shape as qkv views and contiguous, at n
 = 64, n = 27 and with 4 heads of head_dim 128, then at bf16 (views, 8 heads
 and 4), all in device time, and B6 at bf16 as an op; 9 B5 vs plain at both eval
 shapes, f32 and bf16 (also at head_dim 128), and its launches as an op; 10
@@ -61,7 +69,8 @@ eval step of the use_pallas module; 11 the training entry point: each
 epoch's loss, validation MPJPE and seconds, samples/s through fit, the
 checkpoint's size and write seconds, peak memory, the launches of one
 epoch, the resumed run and --evaluate best_epoch against the unbroken run,
-and no host wait inside the train loop); then a JSON line with every kernel's
+and no host wait inside the train loop; 11c the same on the TPU config at
+bf16); then a JSON line with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}. Exits non-zero
 without a CUDA device, and where the port's package is not beside this
 script.
@@ -1069,6 +1078,48 @@ def main():
                 del q, k, v, out
     torch.cuda.empty_cache()
 
+    # Phase 6c: B4 at bf16 (the tensor-core backward) against its plain
+    # version at the bf16 train path's shapes and layout, as phase 6 holds
+    # the f32 one: q, k, v views of one [B*J, F, 3, H, d] bf16 qkv
+    # projection, dO [B*J, H, F, d] as a transposed view, with 8 heads (d =
+    # 64) and 4 (d = 128); two calls give the same bits. The library
+    # yardstick is SDPA's backward at bf16 on the same operands. Bound: q,
+    # k, v, dO read and dq, dk, dv written once (bf16) against the formulas'
+    # 10·G·N²·d FLOP on the tensor cores.
+    attn_bwd_bf16 = {}
+    for heads in (HEADS, HEADS4):
+        hd = EMBED // heads
+        qkv = randn(groups, FRAMES, 3, heads, hd).bfloat16()
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        do = randn(groups, FRAMES, heads, hd).bfloat16().transpose(1, 2)
+        g_all, elems = groups * heads, groups * heads * FRAMES * hd
+        with torch.no_grad():
+            run = lambda: grand_attention_bwd(q, k, v, do)
+            plain = lambda: grand_attention_bwd_ref(q, k, v, do)
+            before = grand_attention_bwd.launches_bf16
+            outs = run()
+            check(grand_attention_bwd.launches_bf16 - before == 2,
+                  "B4 at bf16 did not launch its two tensor-core kernels")
+            errs = [check_bf16(f"B4 bf16 d={hd} {name}", a, b)
+                    for name, a, b in zip(("dq", "dk", "dv"), outs, plain())]
+            check(all(torch.equal(a, b) for a, b in zip(outs, run())),
+                  f"B4 bf16 d={hd}: two calls gave different bits")
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(qg, kg, vg) - vg
+        lib = lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do, retain_graph=True)
+        t = timings(run, plain, lib, 10 * g_all * FRAMES * FRAMES * hd, 7 * 2 * elems, peak_bf16)
+        attn_bwd_bf16[heads] = dict(abs_err=max(e[0] for e in errs), g=g_all, d=hd, **t)
+        say(f"phase 6c grand_attention_bwd bf16: [B*H={g_all}, N={FRAMES}, D={hd}] as qkv views "
+            f"max_abs_err={max(e[0] for e in errs):.3e} max_rel_err={max(e[1] for e in errs):.3e} "
+            f"(tol {BF16_MAX_TOL}) mean_rel_err={max(e[2] for e in errs):.3e} (tol "
+            f"{BF16_MEAN_TOL}) same bits in two calls; ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} (SDPA backward) "
+            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) GFLOP={t['flops'] / 1e9:.2f} "
+            f"achieved_TFLOPs={t['flops'] / t['ms'] / 1e9:.2f}")
+        del lib_out, qg, kg, vg, qkv, q, k, v, do, outs
+        torch.cuda.empty_cache()
+
     # Phase 7: the train main path.
     model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
                            num_heads=HEADS, mlp_ratio=MLP_RATIO, seed=0, device=dev).train()
@@ -1172,6 +1223,178 @@ def main():
                  top_n=20)
 
     del train_step, optimizer, scheduler, diff_fast, diff_plain, model, params, gt, x2d
+    torch.cuda.empty_cache()
+
+    # Phase 7d: bf16 training at full width and batch 24 (the compute_dtype
+    # of configs/h36m_gt_s2s_243f_tpu.json, ROADMAP A.5): the fast-train
+    # AdamW step with the fused forward and the pair recompute at bf16, the
+    # parameters float32, with 8 heads and with 4 (head_dim 128), attn_bwd
+    # off and on; 3 timed steps after a warm-up, peak memory and the
+    # launches of one step. With attn_bwd a step runs B1 at bf16 (16 calls),
+    # and in the recompute B3 and B4 (2 kernels) at bf16 for each temporal
+    # block and B6 at bf16 for each spatial block; without it B1 only.
+    def bf16_counts():
+        got = {c.__name__: c.launches for c in counters}
+        got.update(fused_transformer_block_bf16=fused_transformer_block.launches_bf16,
+                   grand_attention_bwd_bf16=grand_attention_bwd.launches_bf16,
+                   packed_grand_attention_bf16=packed_grand_attention.launches_bf16)
+        return got
+
+    def zero_counts():
+        for c in counters:
+            c.launches = 0
+        fused_transformer_block.launches_bf16 = grand_attention_bwd.launches_bf16 = 0
+        packed_grand_attention.launches_bf16 = 0
+
+    b1_step = 2 * DEPTH * per_call
+    per_step_bf16 = {
+        False: dict(fused_transformer_block=b1_step, grand_attention_fullseq=0,
+                    grand_attention_bwd=0, packed_grand_attention=0,
+                    fused_transformer_block_bf16=b1_step, grand_attention_bwd_bf16=0,
+                    packed_grand_attention_bf16=0),
+        True: dict(fused_transformer_block=b1_step, grand_attention_fullseq=DEPTH,
+                   grand_attention_bwd=2 * DEPTH, packed_grand_attention=DEPTH,
+                   fused_transformer_block_bf16=b1_step, grand_attention_bwd_bf16=2 * DEPTH,
+                   packed_grand_attention_bf16=DEPTH),
+    }
+    train_bf16 = {}
+    for heads in (HEADS, HEADS4):
+        for attn_bwd in (False, True):
+            model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED,
+                                   depth=DEPTH, num_heads=heads, mlp_ratio=MLP_RATIO, seed=0,
+                                   device=dev).train()
+            diff16 = GaussianDiffusion.create(make_fast_train_denoise_fn(
+                model, DROP_PATH, attn_bwd=attn_bwd, dtype=torch.bfloat16), **dkw)
+            optimizer, scheduler = make_optimizer(model.parameters(), LR, LR_DECAY, 1000)
+            step16 = make_train_step(diff16, optimizer, scheduler)
+            gt, x2d = batch(TRAIN_BATCH)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            step16(gt, x2d, generator=gen)  # warm-up
+            torch.cuda.synchronize()
+            got = bf16_counts()
+            check(got == per_step_bf16[attn_bwd], f"bf16 train step heads={heads} "
+                  f"attn_bwd={attn_bwd} launched {got}, expected {per_step_bf16[attn_bwd]}")
+            secs, losses = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                losses.append(step16(gt, x2d, generator=gen).item())
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            check(all(math.isfinite(v) for v in losses), f"bf16 train losses {losses}")
+            label = f"heads {heads}, attn_bwd {attn_bwd}"
+            r = train_bf16[label] = dict(
+                step_s=statistics.median(secs), secs=secs, losses=losses, launches=got,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            say(f"phase 7d bf16 train step B={TRAIN_BATCH} {label} (head_dim {EMBED // heads}): "
+                f"step_s={[round(v, 4) for v in secs]} median_step_s={r['step_s']:.4f} "
+                f"samples_per_s={TRAIN_BATCH / r['step_s']:.3f} (f32 step of phase 7b: "
+                f"{TRAIN_BATCH / step_s:.3f}) losses={losses} max_memory_allocated_GB="
+                f"{r['peak_gb']:.3f} launches_per_step={ {k: v for k, v in got.items() if v} }")
+            if heads == HEADS4 and attn_bwd:
+                # Phase 7g: where one bf16 step (the TPU config's geometry) goes.
+                profile_step(f"phase 7g profile of one bf16 train step ({label})",
+                             lambda: step16(gt, x2d, generator=gen), top_n=20)
+            del model, diff16, optimizer, scheduler, step16
+            torch.cuda.empty_cache()
+
+    # Phase 7e: the drift of bf16 training from f32 (the port's copy of JAX's
+    # tests/test_fast_train.py::test_bf16_training_drift_bounded at full
+    # width): 20 AdamW steps of the fast-train path (4 heads, attn_bwd,
+    # drop-path 0, lr 4e-5) from one seed-0 init on 20 fixed batches of 24,
+    # t and noise from one seed in both runs. JAX's bounds: 5% per step, 3%
+    # at the end.
+    drift_batches = [batch(TRAIN_BATCH) for _ in range(20)]
+
+    def drift_run(dtype):
+        model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
+                               num_heads=HEADS4, mlp_ratio=MLP_RATIO, seed=0, device=dev).train()
+        diffusion = GaussianDiffusion.create(make_fast_train_denoise_fn(
+            model, 0.0, attn_bwd=True, dtype=dtype), **dkw)
+        optimizer, scheduler = make_optimizer(model.parameters(), LR, LR_DECAY, 1000)
+        step = make_train_step(diffusion, optimizer, scheduler)
+        g = torch.Generator(device=dev).manual_seed(7)
+        losses = torch.stack([step(a, b, generator=g) for a, b in drift_batches]).tolist()
+        del model, diffusion, optimizer, scheduler, step
+        torch.cuda.empty_cache()
+        return losses
+
+    l32, l16 = drift_run(torch.float32), drift_run(torch.bfloat16)
+    drift = [abs(a - b) / abs(a) for a, b in zip(l32, l16)]
+    drift_end = abs(l32[-1] - l16[-1]) / abs(l32[-1])
+    check(all(math.isfinite(v) for v in l32 + l16), f"drift losses {l32} {l16}")
+    check(max(drift) < 0.05 and drift_end < 0.03, f"bf16 drift from f32: max per step "
+          f"{max(drift):.4f} (bound 0.05), at the end {drift_end:.4f} (bound 0.03)")
+    say(f"phase 7e bf16 vs f32 drift, 20 steps B={TRAIN_BATCH} heads={HEADS4}: max per step "
+        f"{max(drift):.5f} (bound 0.05), at the end {drift_end:.5f} (bound 0.03); f32 losses "
+        f"{[round(v, 6) for v in l32]}; bf16 {[round(v, 6) for v in l16]}")
+    del drift_batches
+
+    # Phase 7f: the monolithic backward (fast_train_pair_vjp=False) at bf16
+    # for one step at B = 8, against the pair backward on the same t, noise
+    # and drop-path (the two recompute from other bf16 boundaries, so they
+    # differ by bf16 rounding: bar 5e-2 of max|g| per parameter); and the
+    # bf16 module with remat_blocks for one step at B = 4, against the same
+    # module without it (the recompute runs the same kernels: bar 1e-6).
+    def model4(**kw):
+        return MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
+                              num_heads=HEADS4, mlp_ratio=MLP_RATIO, seed=0, device=dev,
+                              **kw).train()
+
+    def grads_of(denoise_fn, params, inject, label):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gt, x2d = inject["data"]
+        diffusion = GaussianDiffusion.create(denoise_fn, **dkw)
+        loss = diffusion.training_loss(gt, x2d, **{k: v for k, v in inject.items() if k != "data"})
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        check(math.isfinite(loss.item()) and all(torch.isfinite(g).all().item() for g in grads),
+              f"{label}: loss or gradients not finite")
+        return loss.item(), grads, torch.cuda.max_memory_allocated() / 1e9
+
+    def draws(b):
+        return dict(data=batch(b),
+                    t=torch.randint(0, TIMESTEPS, (b,), generator=gen, device=dev),
+                    noise=randn(b, FRAMES, JOINTS, 3),
+                    dp_scales=draw_drop_path_scales(gen, b, DEPTH, DROP_PATH, FRAMES, JOINTS))
+
+    def max_rel(a, b):
+        return max(((x - y).abs().max() / y.abs().max()).item() for x, y in zip(a, b))
+
+    model = model4()
+    inject = draws(8)
+    zero_counts()
+    mono = grads_of(make_fast_train_denoise_fn(model, DROP_PATH, attn_bwd=True,
+                                               dtype=torch.bfloat16, pair_vjp=False),
+                    list(model.parameters()), inject, "monolithic bf16")
+    mono_launches = bf16_counts()
+    pairs = grads_of(make_fast_train_denoise_fn(model, DROP_PATH, attn_bwd=True,
+                                                dtype=torch.bfloat16),
+                     list(model.parameters()), inject, "pairs bf16")
+    mono_rel = max_rel(mono[1], pairs[1])
+    check(mono_rel <= 5e-2, f"monolithic vs pair backward at bf16: {mono_rel:.3e} > 5e-2")
+    check(mono_launches == per_step_bf16[True],
+          f"monolithic step launched {mono_launches}, expected {per_step_bf16[True]}")
+    say(f"phase 7f monolithic backward bf16 B=8 heads={HEADS4}: loss={mono[0]:.6f} (pairs "
+        f"{pairs[0]:.6f}) max_param_grad_rel_dev_from_pairs={mono_rel:.3e} (bar 5e-2) "
+        f"max_memory_allocated_GB={mono[2]:.3f} (pairs {pairs[2]:.3f}) launches="
+        f"{ {k: v for k, v in mono_launches.items() if v} }")
+    del model, mono, pairs
+    inject = draws(CHECK_BATCH)
+    plain_model, remat_model = model4(dtype=torch.bfloat16), model4(dtype=torch.bfloat16,
+                                                                    remat_blocks=True)
+    plain16 = grads_of(make_train_denoise_fn(plain_model, DROP_PATH),
+                       list(plain_model.parameters()), inject, "bf16 module")
+    remat16 = grads_of(make_train_denoise_fn(remat_model, DROP_PATH),
+                       list(remat_model.parameters()), inject, "bf16 module with remat_blocks")
+    remat_rel = max_rel(remat16[1], plain16[1])
+    check(remat_rel <= 1e-6, f"remat_blocks changed the gradients by {remat_rel:.3e}")
+    say(f"phase 7f bf16 module with remat_blocks B={CHECK_BATCH} heads={HEADS4}: loss="
+        f"{remat16[0]:.6f} (without {plain16[0]:.6f}) max_param_grad_rel_dev={remat_rel:.3e} "
+        f"(bar 1e-6) max_memory_allocated_GB={remat16[2]:.3f} (without {plain16[2]:.3f})")
+    del plain_model, remat_model, plain16, remat16, inject
     torch.cuda.empty_cache()
 
     # Phase 8: B6 against its plain version at the use_pallas eval path's
@@ -1690,7 +1913,137 @@ def main():
     say(f"phase 11b one validation batch ({b_eval} windows x2 flip, DDIM-{ddim}), median of 3 "
         f"(s): {', '.join(f'{k}={v:.4f}' for k, v in part_s.items())}")
     profile_step("phase 11b profile of one validation batch", parts["val_step"], top_n=12)
-    del runner, b, x2d, x2d_flip, gt, fits, run, resumed
+    del runner, b, x2d, x2d_flip, gt, run, resumed
+    torch.cuda.empty_cache()
+
+    # Phase 11c: the training entry point on the TPU-recommended config:
+    # cli.run.main without --evaluate on a copy of TPU_CONFIG (bf16
+    # fast_train, remat, 4 heads of 128, the mixed fast eval) with
+    # fast_train_attn_bwd on, on phase 11's data, epochs and flags: 2 epochs
+    # with a checkpoint each, the run resumed from a copy of epoch_0 (its
+    # epoch-1 loss equal to the unbroken run's bit for bit), then --evaluate
+    # best_epoch (its report equal to the fit run's).
+    with open(os.path.join(here, TPU_CONFIG)) as f:
+        tpu_config = json.load(f)
+    tpu_config["params"].update(fast_train_attn_bwd=True)
+    tpu_cli = {}
+    fits.clear()
+    syncs_before = len(sync_warnings)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_config = os.path.join(tmp, "train_tpu.json")
+        with open(train_config, "w") as f:
+            json.dump(tpu_config, f)
+        common = ["--config", train_config, "--synthetic", "-str", "S1,S5", "-ste", "S9", "-a", "*",
+                  "--batch-size-eval", "8", "--checkpoint-frequency", "1"]
+        run_dir, resume_dir = os.path.join(tmp, "run"), os.path.join(tmp, "resumed")
+        Runner.evaluate, Runner.fit = recording_evaluate, recording_fit
+        mixste.grand_attention = counting_attention
+        try:
+            for name, argv in (
+                ("tpu_train", common + ["-e", "2", "-c", run_dir]),
+                ("tpu_train_resume", common + ["-e", "2", "-c", resume_dir, "--resume", "epoch_0"]),
+                ("tpu_train_evaluate", common + ["-c", run_dir, "--evaluate", "best_epoch"]),
+            ):
+                if name == "tpu_train_resume":
+                    shutil.copytree(os.path.join(run_dir, "epoch_0"),
+                                    os.path.join(resume_dir, "epoch_0"))
+                records.clear()
+                plain_calls[0] = 0
+                for c in kernel_counters:
+                    c.launches = 0
+                    if hasattr(c, "launches_bf16"):
+                        c.launches_bf16 = 0
+                zero_inner()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                text = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(text):
+                    errors = cli_main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                inner_by_path[f"cli_{name}"] = inner()
+                got = {c.__name__: c.launches for c in kernel_counters}
+                got.update(fused_transformer_block_bf16=fused_transformer_block.launches_bf16,
+                           grand_attention_bwd_bf16=grand_attention_bwd.launches_bf16,
+                           packed_grand_attention_bf16=packed_grand_attention.launches_bf16,
+                           plain_attention_calls=plain_calls[0])
+                out = text.getvalue()
+                say(f"phase 11c cli {name}: the log and report\n{out.rstrip()}")
+                check(all(v and all(math.isfinite(e) for e in v) for v in errors.values()),
+                      f"cli {name}: errors {errors}")
+                tpu_cli[name] = dict(errors={k: [float(e) for e in v] for k, v in errors.items()},
+                                     launches=got, wall_s=wall, out=out,
+                                     peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                     evals=[r["n_frames"] for r in records])
+        finally:
+            Runner.evaluate, Runner.fit, mixste.grand_attention = evaluate, fit, plain_attention
+            torch.cuda.set_sync_debug_mode(0)
+    check(len(fits) == 2, f"fit ran {len(fits)} times on the TPU config")
+    run_tpu, resumed_tpu = fits
+    cfg_tpu = run_tpu["cfg"]
+    check((cfg_tpu.compute_dtype, cfg_tpu.remat, cfg_tpu.num_heads, cfg_tpu.fast_train_attn_bwd)
+          == ("bfloat16", True, HEADS4, True), f"the TPU config ran as {cfg_tpu}")
+    for line in ("Epoch: 1, Time(mins):", "Saved checkpoint to", "Loaded the best model from",
+                 "Protocol #1   (MPJPE) action-wise average:"):
+        check(line in tpu_cli["tpu_train"]["out"], f"cli tpu_train: no line {line!r}")
+    check("Resumed from" in tpu_cli["tpu_train_resume"]["out"], "cli tpu_train_resume did not resume")
+    check(resumed_tpu["losses_train"][0] == run_tpu["losses_train"][1],
+          f"TPU config: resumed epoch-1 train loss {resumed_tpu['losses_train'][0]} vs "
+          f"{run_tpu['losses_train'][1]}, not bit for bit")
+    tpu_report_dev = max(abs(a - b) for k in ("e1", "e2", "e3", "ev") for a, b in zip(
+        tpu_cli["tpu_train_evaluate"]["errors"][k], tpu_cli["tpu_train"]["errors"][k],
+        strict=True))
+    check(tpu_report_dev <= EVAL_REPORT_TOL_MM, f"TPU config: --evaluate best_epoch deviates "
+          f"from the fit run's report by {tpu_report_dev:.3e} mm > {EVAL_REPORT_TOL_MM}")
+    tpu_syncs = sync_warnings[syncs_before:]
+    check(not tpu_syncs, f"the bf16 train loop made the host wait for the card "
+          f"{len(tpu_syncs)} times: {tpu_syncs[:3]}")
+    # The launches each run must show: per train step phase 7d's bf16 step
+    # with attn_bwd; per validation and evaluate batch DDIM-steps fused
+    # forwards, all but the last bf16, and per validation batch the loss's
+    # two bf16 module forwards (plain attention).
+    ddim_tpu = tpu_config["params"]["sampling_timesteps"]
+    val_batches_tpu = -(-run_tpu["n_val"] // b_eval)
+
+    def want_tpu(f, epochs, evals):
+        steps = epochs * f["batches"]
+        eval_batches = sum(-(-(n // FRAMES) // b_eval) + 1 for n in evals)
+        batches_fwd = epochs * val_batches_tpu + eval_batches
+        want = {c.__name__: 0 for c in kernel_counters}
+        want.update({k: steps * v for k, v in per_step_bf16[True].items()})
+        want["fused_transformer_block"] += batches_fwd * ddim_tpu * fwd_b1
+        want["fused_transformer_block_bf16"] += batches_fwd * (ddim_tpu - 1) * fwd_b1
+        want["plain_attention_calls"] = epochs * val_batches_tpu * 2 * 2 * DEPTH
+        return want
+
+    want = {"tpu_train": want_tpu(run_tpu, 2, tpu_cli["tpu_train"]["evals"]),
+            "tpu_train_resume": want_tpu(resumed_tpu, 1, tpu_cli["tpu_train_resume"]["evals"]),
+            "tpu_train_evaluate": want_tpu(run_tpu, 0, tpu_cli["tpu_train_evaluate"]["evals"])}
+    for name, c in tpu_cli.items():
+        check(c["launches"] == want[name], f"cli {name} launched {c['launches']}, expected "
+              f"{want[name]}")
+        cli_launches[f"cli_{name}"] = c["launches"]
+    tpu_train_s = statistics.median(s["train"] for s in run_tpu["seconds"] + resumed_tpu["seconds"])
+    tpu_step = train_bf16[f"heads {HEADS4}, attn_bwd True"]["step_s"]
+    for e, (loss, secs) in enumerate(zip(run_tpu["losses_train"], run_tpu["seconds"])):
+        say(f"phase 11c cli tpu_train epoch {e}: train_loss={loss:.8f} "
+            f"val_mpjpe_mm={run_tpu['losses_valid'][e] * 1000:.4f} train_s={secs['train']:.3f} "
+            f"validate_s={secs['validate']:.3f} checkpoint_write_s={secs['save']:.3f}")
+    say(f"phase 11c cli train on {TPU_CONFIG} with fast_train_attn_bwd (bf16, remat, {HEADS4} "
+        f"heads, batch {cfg_tpu.batch_size}, DDIM-{ddim_tpu} mixed validation): samples_per_s "
+        f"through fit (median of 3 epochs)={run_tpu['batches'] * cfg_tpu.batch_size / tpu_train_s:.3f}"
+        f" beside phase 7d's {TRAIN_BATCH / tpu_step:.3f}; validate_s="
+        f"{[round(s['validate'], 3) for s in run_tpu['seconds']]}; resumed epoch-1 train loss "
+        f"{resumed_tpu['losses_train'][0]:.8f} equal to the unbroken run's bit for bit; "
+        f"--evaluate best_epoch vs the fit run's report: max |d| {tpu_report_dev:.3e} mm; "
+        f"syncs in the train loop {len(tpu_syncs)}; "
+        f"max_memory_allocated_GB { {k: round(c['peak_gb'], 3) for k, c in tpu_cli.items()} }; "
+        f"wall_s { {k: round(c['wall_s'], 1) for k, c in tpu_cli.items()} }; per run "
+        f"{ {k: {n: v for n, v in c['launches'].items() if v} for k, c in tpu_cli.items()} }")
+    del run_tpu, resumed_tpu
+    fits.clear()
     torch.cuda.empty_cache()
 
     # One entry per kernel. B1's work is one spatial + one temporal call at
@@ -1811,6 +2164,21 @@ def main():
                          work=f"one call, [B*H={attn_by_heads[HEADS4][name]['g']}, N={FRAMES}, "
                               f"D={EMBED // HEADS4}] f32"),
         })
+    # B4's bf16 instance (csrc/grand_attn_bwd_bf16.cuh): its launches on the
+    # bf16 train paths (phase 7d's steps, phase 11c's CLI runs).
+    b4_bf16_by_path = {f"train_step_bf16 {label}": r["launches"]["grand_attention_bwd_bf16"]
+                       for label, r in train_bf16.items()}
+    b4_bf16_by_path.update({k: v.get("grand_attention_bwd_bf16", 0)
+                            for k, v in cli_launches.items()})
+    b4_bf16 = attn_bwd_bf16[HEADS]
+    entries[-1]["bf16"] = dict(
+        one_call(b4_bf16), launches=sum(b4_bf16_by_path.values()),
+        launches_by_path=b4_bf16_by_path,
+        source="diff3dhpe_torch/csrc/grand_attention.cu (grand_attn_bwd_bf16.cuh)",
+        work=f"one call, [B*H={b4_bf16['g']}, N={FRAMES}, D={b4_bf16['d']}] bf16 qkv views",
+        d128=dict(one_call(attn_bwd_bf16[HEADS4]),
+                  work=f"one call, [B*H={attn_bwd_bf16[HEADS4]['g']}, N={FRAMES}, "
+                       f"D={EMBED // HEADS4}] bf16 qkv views"))
     entries[2]["bf16"] = dict(
         pair_numbers(attn_bf16, peak_bf16),
         work=f"one call at [{2 * BATCH * JOINTS}, {HEADS}, {FRAMES}, {EMBED // HEADS}] + one at "
@@ -1835,6 +2203,10 @@ def main():
     })
     paths = by_path("packed_grand_attention",
                     train_step=train_launches["packed_grand_attention"])
+    b6_bf16_train = {f"train_step_bf16 {label}": r["launches"]["packed_grand_attention_bf16"]
+                     for label, r in train_bf16.items()}
+    b6_bf16_train.update({k: v["packed_grand_attention_bf16"] for k, v in cli_launches.items()
+                          if "packed_grand_attention_bf16" in v})
     entries.append({
         "name": "packed_grand_attention",
         "route": "cuda",
@@ -1848,8 +2220,9 @@ def main():
         "work": f"one call, [G={2 * BATCH * FRAMES * HEADS}, N={JOINTS}, D={EMBED // HEADS}] "
                 f"f32 as views of a qkv projection, device time",
         "bf16": dict(
-            one_call(small_bf16["qkv_views"]), launches=b6_bf16_launches[1],
-            launches_by_path={"op": b6_bf16_launches[1]},
+            one_call(small_bf16["qkv_views"]),
+            launches=b6_bf16_launches[1] + sum(b6_bf16_train.values()),
+            launches_by_path={"op": b6_bf16_launches[1], **b6_bf16_train},
             max_abs_err=max(v["abs_err"] for v in small_bf16.values()),
             other_shapes={k: one_call(v) for k, v in small_bf16.items() if k != "qkv_views"},
             source="diff3dhpe_torch/csrc/grand_attention.cu (grand_attn_bf16.cuh)",
@@ -1857,7 +2230,7 @@ def main():
                  f"bf16 as views of a qkv projection, device time"),
     })
     check(len(entries) == 6 and all(e["launches"] > 0 for e in entries + [gemm_part, ln_part])
-          and entries[-1]["bf16"]["launches"] > 0,
+          and entries[-1]["bf16"]["launches"] > 0 and entries[3]["bf16"]["launches"] > 0,
           f"a kernel was launched no time: { {e['name']: e['launches'] for e in entries} }, "
           f"f32 GEMM {gemm_part['launches']}, LN {ln_part['launches']}")
     say(json.dumps({"kernels": entries}))

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) ports of the GRAND attention forward (long and small
-// groups, f32 and bf16) and backward (f32).
+// groups, f32 and bf16) and backward (f32 and bf16).
 //
 // Replaces:
 //   B3 diff3dhpe_tpu/ops/attention.py::_fullseq_grand_attn_kernel
@@ -55,6 +55,8 @@
 //       arithmetic). Shared memory 93 KB for pass 1 (two blocks an SM), 48
 //       KB (D = 128) or 32 KB (D = 64) for pass 2. Each output element is
 //       written by one thread: no atomics, so the gradients are deterministic.
+//       At bf16, B4 is the tensor-core backward of grand_attn_bwd_bf16.cuh: a
+//       dq pass and a dk/dv pass on mma.sync, at JAX's rounding points.
 //   B6  the small-group kernel of grand_attn.cuh (n <= 64): persistent
 //       blocks walk the (group, head) pairs through a two-stage cp.async
 //       ring of whole pairs, a lane holds a (query, key) micro-tile of the
@@ -69,6 +71,7 @@
 
 #include "grand_attn.cuh"
 #include "grand_attn_bf16.cuh"
+#include "grand_attn_bwd_bf16.cuh"
 
 namespace {
 
@@ -550,6 +553,33 @@ extern "C" int diff3dhpe_grand_attn_bwd_f32(
                  STRIDES(g), STRIDES(f), STRIDES(dq), STRIDES(dk), STRIDES(dv), B, H, n, scale, \
                  launches, stream
   const cudaError_t err = d == 64 ? launch_bwd<64>(BWD_ARGS) : launch_bwd<128>(BWD_ARGS);
+#undef BWD_ARGS
+  return (int)err;
+}
+
+// B4 at bf16: dq, dk, dv of B3 at bf16 given dO, as two kernels (the dq
+// pass, then the dk/dv pass) on the tensor cores, with P recomputed from q
+// and k, at d = 64 or 128 and n <= 256; arguments as the f32 entry point
+// without B3's output, strides as B3 at bf16. stats is scratch of
+// 3·B·H·n16 floats (n16 = n rounded up to 16): the dq pass leaves each
+// row's softmax statistics and D there for the dk/dv pass. Adds one to
+// *launches for each kernel launched; returns the first cudaError_t
+// reported.
+extern "C" int diff3dhpe_grand_attn_bwd_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const __nv_bfloat16* dout, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
+    float* stats, int B, int H, int n, int d, long long q_sb, long long q_sh, long long q_sn,
+    long long k_sb, long long k_sh, long long k_sn, long long v_sb, long long v_sh,
+    long long v_sn, long long g_sb, long long g_sh, long long g_sn, long long dq_sb,
+    long long dq_sh, long long dq_sn, long long dk_sb, long long dk_sh, long long dk_sn,
+    long long dv_sb, long long dv_sh, long long dv_sn, float scale, int* launches,
+    void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n <= 0 || n > kMaxN || !grand::takes_head_dim(d)) return (int)cudaErrorInvalidValue;
+#define BWD_ARGS q, k, v, dout, dq, dk, dv, stats, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(g), \
+                 STRIDES(dq), STRIDES(dk), STRIDES(dv), B, H, n, scale, launches, stream
+  const cudaError_t err = d == 64 ? grand::launch_bwd_bf16<64>(BWD_ARGS)
+                                  : grand::launch_bwd_bf16<128>(BWD_ARGS);
 #undef BWD_ARGS
   return (int)err;
 }

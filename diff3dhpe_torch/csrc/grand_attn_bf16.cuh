@@ -155,6 +155,143 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
+// The tensor-core steps of one warp, shared by the forward here and the
+// backward of grand_attn_bwd_bf16.cuh. Fragments are mma.sync's: in a C
+// fragment c[j][e] lane (g, t) = (lane / 4, lane % 4) holds row g (e < 2)
+// or g + 8 and column 8·j + 2·t + (e & 1); the C fragments of two n8 tiles
+// are, rounded to packed bf16 pairs, the A fragment of a 16-deep product.
+
+// s = A·Bᵀ for the warp's 16 rows of A (Aw, rows of a [.][D + 8] tile)
+// against the first 16·KT16 rows of B, 16 columns of d at a time: A as an A
+// fragment (rows by bit 3 of the lane, d by bit 4), B as B fragments (d by
+// bit 3, rows by bit 4). 16-row chunks of B at or past n_rows are skipped
+// (left 0). Each element sums over d in order, as tc_chunk_product's do.
+template <int D, int KT16>
+__device__ __forceinline__ void tc_scores(float (&s)[2 * KT16][4], const __nv_bfloat16* Aw,
+                                          const __nv_bfloat16* Bs, int n_rows, int lane) {
+  constexpr int kLd = tc_ld<D>();
+#pragma unroll
+  for (int j = 0; j < 2 * KT16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    unsigned af[4];
+    mma::ldmatrix_x4(af, Aw + ((lane & 7) + ((lane >> 3) & 1) * 8) * kLd + kd * 16 +
+                             (lane >> 4) * 8);
+#pragma unroll
+    for (int kc = 0; kc < KT16; ++kc) {
+      if (kc * 16 < n_rows) {
+        unsigned r[4];
+        mma::ldmatrix_x4(r, Bs + (kc * 16 + (lane & 7) + (lane >> 4) * 8) * kLd + kd * 16 +
+                                ((lane >> 3) & 1) * 8);
+        mma::mma_bf16(s[2 * kc], af, r);
+        mma::mma_bf16(s[2 * kc + 1], af, r + 2);
+      }
+    }
+  }
+}
+
+// c = A·Bᵀ for the warp's 16 rows of A (Aw) against the 16 rows of B at Bc:
+// one 16-row chunk of tc_scores, with the same sums.
+template <int D>
+__device__ __forceinline__ void tc_chunk_product(float (&c)[2][4], const __nv_bfloat16* Aw,
+                                                 const __nv_bfloat16* Bc, int lane) {
+  constexpr int kLd = tc_ld<D>();
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    unsigned af[4], r[4];
+    mma::ldmatrix_x4(af, Aw + ((lane & 7) + ((lane >> 3) & 1) * 8) * kLd + kd * 16 +
+                             (lane >> 4) * 8);
+    mma::ldmatrix_x4(r, Bc + ((lane & 7) + (lane >> 4) * 8) * kLd + kd * 16 +
+                            ((lane >> 3) & 1) * 8);
+    mma::mma_bf16(c[0], af, r);
+    mma::mma_bf16(c[1], af, r + 2);
+  }
+}
+
+// Row softmax numerators in place: columns at or past n_cols get −inf, then
+// s = exp(s·scale − max·scale) with the scale folded into one fma (for
+// scale = d^-½ a power of two (d = 64) this is the scaled logit minus its
+// max, exactly). nm0, nm1: −max·scale of rows g and g + 8; sum0, sum1 their
+// sums over the row's four lanes.
+template <int KT16>
+__device__ __forceinline__ void tc_exp_rows(float (&s)[2 * KT16][4], int n_cols, float scale,
+                                            float& nm0, float& nm1, float& sum0, float& sum1) {
+  const int t = threadIdx.x & 3;
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 2 * KT16; ++j) {
+    if (8 * j + 8 > n_cols) {  // only the tiles that reach past n_cols are tested
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (8 * j + 2 * t + (e & 1) >= n_cols) s[j][e] = -INFINITY;
+      }
+    }
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+  nm0 = m0 * -scale;
+  nm1 = m1 * -scale;
+  sum0 = sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2 * KT16; ++j) {
+    s[j][0] = expf(fmaf(s[j][0], scale, nm0));
+    s[j][1] = expf(fmaf(s[j][1], scale, nm0));
+    s[j][2] = expf(fmaf(s[j][2], scale, nm1));
+    s[j][3] = expf(fmaf(s[j][3], scale, nm1));
+    sum0 += s[j][0] + s[j][1];
+    sum1 += s[j][2] + s[j][3];
+  }
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+}
+
+// acc += A·B for a 16 x 16 A fragment and the 16 rows of B at Bc ([row][D],
+// the rows along the product's depth): B as B fragments through
+// ldmatrix.trans (rows by bit 3 of the lane, the d tile by bit 4).
+template <int D>
+__device__ __forceinline__ void tc_acc_chunk(float (&acc)[D / 8][4], const unsigned (&a)[4],
+                                             const __nv_bfloat16* Bc, int lane) {
+  constexpr int kLd = tc_ld<D>();
+#pragma unroll
+  for (int jd = 0; jd < D / 8; jd += 2) {
+    unsigned r[4];
+    mma::ldmatrix_x4_trans(r, Bc + ((lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
+                                  (jd + (lane >> 4)) * 8);
+    mma::mma_bf16(acc[jd], a, r);
+    mma::mma_bf16(acc[jd + 1], a, r + 2);
+  }
+}
+
+// Rows i0 .. i0 + 15 of a warp's output, staged as bf16 in Os ([16][D + 8],
+// written by the warp), to rows of dst below n_rows as 16-byte chunks.
+template <int D>
+__device__ __forceinline__ void tc_store_rows(__nv_bfloat16* dst, long long row_stride,
+                                              const __nv_bfloat16* Os, int i0, int n_rows,
+                                              int lane) {
+  constexpr int kChunks = D / 8;  // 16-byte pieces of a row
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < 16 * kChunks / 32; ++it) {
+    const int e = it * 32 + lane, r = e / kChunks, c = (e % kChunks) * 8;
+    if (i0 + r < n_rows) {
+      *reinterpret_cast<uint4*>(dst + (i0 + r) * row_stride + c) =
+          *reinterpret_cast<const uint4*>(Os + r * tc_ld<D>() + c);
+    }
+  }
+}
+
 // Warps are grouped in teams of qtb: team s of block x takes pair
 // x·teams + s (b = pair / H, h = pair % H) and warp w of the team its
 // query rows (blockIdx.y·qtb + w)·16 ... + 15. Keys are padded to 16·KT16.
@@ -206,67 +343,11 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int g = lane >> 2, t = lane & 3;
   unsigned p[KT16][4];  // P as the A fragments of P·V: 16 keys each
   if (active) {
-    // S = Q·Kᵀ, 16 columns of d at a time: Q as an A fragment (rows by bit 3
-    // of the lane, d by bit 4), K as B fragments (d by bit 3, keys by bit 4).
+    // S = Q·Kᵀ, then exp(S·scale − max·scale) and the rows' sums.
     float s[kTiles][4];
-#pragma unroll
-    for (int j = 0; j < kTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      unsigned qf[4];
-      mma::ldmatrix_x4(qf, Qs + (wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + kd * 16 +
-                               (lane >> 4) * 8);
-#pragma unroll
-      for (int kc = 0; kc < KT16; ++kc) {
-        if (kc * 16 < n_keys) {
-          unsigned r[4];
-          mma::ldmatrix_x4(r, Ks + (kc * 16 + (lane & 7) + (lane >> 4) * 8) * kLd + kd * 16 +
-                                  ((lane >> 3) & 1) * 8);
-          mma::mma_bf16(s[2 * kc], qf, r);
-          mma::mma_bf16(s[2 * kc + 1], qf, r + 2);
-        }
-      }
-    }
-
-    // Fragment (j, e): row g (e < 2) or g + 8, key 8·j + 2·t + (e & 1).
-    // Pad keys get −inf; only the tiles that reach past n_keys are tested.
-    float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kTiles; ++j) {
-      if (8 * j + 8 > n_keys) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (8 * j + 2 * t + (e & 1) >= n_keys) s[j][e] = -INFINITY;
-        }
-      }
-      m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
-      m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
-    }
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
-    // exp(S·scale − max·scale) with the scale folded into one fma: for
-    // scale = d^-½ a power of two (d = 64) this is the scaled logit minus
-    // its max, exactly.
-    m0 *= -scale;
-    m1 *= -scale;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kTiles; ++j) {
-      s[j][0] = expf(fmaf(s[j][0], scale, m0));
-      s[j][1] = expf(fmaf(s[j][1], scale, m0));
-      s[j][2] = expf(fmaf(s[j][2], scale, m1));
-      s[j][3] = expf(fmaf(s[j][3], scale, m1));
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+    tc_scores<D, KT16>(s, Qs + wq * 16 * kLd, Ks, n_keys, lane);
+    float nm0, nm1, sum0, sum1;
+    tc_exp_rows<KT16>(s, n_keys, scale, nm0, nm1, sum0, sum1);
     // Normalise, then round: the C fragments of tiles 2·kc and 2·kc + 1 are
     // the A fragment of key chunk kc.
     const float r0 = 1.0f / sum0, r1 = 1.0f / sum1;
@@ -282,8 +363,7 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   __syncthreads();  // V has landed
   if (!active) return;
 
-  // O = P·V: V as B fragments through ldmatrix.trans (keys by bit 3 of the
-  // lane, the d tile by bit 4).
+  // O = P·V.
   float o[D / 8][4];
 #pragma unroll
   for (int jd = 0; jd < D / 8; ++jd)
@@ -291,16 +371,7 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     for (int e = 0; e < 4; ++e) o[jd][e] = 0.f;
 #pragma unroll
   for (int kc = 0; kc < KT16; ++kc) {
-    if (kc * 16 < n_keys) {
-#pragma unroll
-      for (int jd = 0; jd < D / 8; jd += 2) {
-        unsigned r[4];
-        mma::ldmatrix_x4_trans(r, Vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
-                                      (jd + (lane >> 4)) * 8);
-        mma::mma_bf16(o[jd], p[kc], r);
-        mma::mma_bf16(o[jd + 1], p[kc], r + 2);
-      }
-    }
+    if (kc * 16 < n_keys) tc_acc_chunk<D>(o, p[kc], Vs + kc * 16 * kLd, lane);
   }
 
   // out = bf16(O − v), staged in this warp's Q rows (no other warp reads
@@ -324,16 +395,7 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
           __floats2bfloat162_rn(o[jd][2 * half] - vv.x, o[jd][2 * half + 1] - vv.y);
     }
   }
-  __syncwarp();
-  constexpr int kChunks = D / 8;  // 16-byte pieces of an output row
-#pragma unroll
-  for (int it = 0; it < 16 * kChunks / 32; ++it) {
-    const int e = it * 32 + lane, r = e / kChunks, c = (e % kChunks) * 8;
-    if (i0 + r < n_queries) {
-      *reinterpret_cast<uint4*>(obase + (i0 + r) * so.n + c) =
-          *reinterpret_cast<const uint4*>(Os + r * kLd + c);
-    }
-  }
+  tc_store_rows<D>(obase, so.n, Os, i0, n_queries, lane);
 }
 
 template <int D, int KT16, bool kOuter>

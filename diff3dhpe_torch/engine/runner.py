@@ -89,21 +89,17 @@ def check_supported(cfg: Config, device="cpu") -> None:
     (``LN_MAX_C``: 2048 where a step runs float32, 4096 at bf16 alone). The
     CPU runs every width. ``check_trainable`` adds what ``fit`` refuses.
 
-    ``remat`` is accepted: in JAX it only chooses whether the blocks are
-    rematerialised in the backward pass of training
-    (diff3dhpe_tpu/models/mixste.py:262-279), so an evaluation with it on
-    computes what one without it computes."""
+    ``compute_dtype="bfloat16"`` builds the module at bf16 (flax's
+    ``dtype``), with or without ``fast_eval`` and ``use_pallas_attention``.
+    ``remat`` only chooses what the backward of training recomputes
+    (diff3dhpe_tpu/models/mixste.py:262-279, engine/steps.py:33-60), so an
+    evaluation with it computes what one without it computes."""
     refuse = lambda field, why: _refuse(cfg, field, why)
     if cfg.mesh_shape is not None and cfg.mesh_shape.replace(" ", "") not in ("data:1", ""):
         refuse("mesh_shape", "the port runs on one device")
     bf16 = cfg.compute_dtype == "bfloat16"
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         refuse("compute_dtype", "float32 or bfloat16")
-    if bf16 and not cfg.fast_eval:
-        refuse("compute_dtype", "bfloat16 runs only through fast_eval (the module is float32)")
-    if bf16 and cfg.use_pallas_attention:
-        refuse("use_pallas_attention", "the use_pallas module runs at float32; not with "
-               "compute_dtype='bfloat16'")
     if cfg.eval_f32_tail_pairs > 0:
         refuse("eval_f32_tail_pairs", "the final step's forward runs float32 as a whole")
     if cfg.eval_final_prec not in ("high3", "highest"):
@@ -126,30 +122,29 @@ def _check_head_dim(cfg):
                 f"kernels of this path take head_dim {HEAD_DIMS}")
 
 
+def _dtype(cfg):
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
 def check_trainable(cfg: Config, device="cpu") -> None:
     """What ``fit`` refuses beyond ``check_supported``, naming the field:
-    bfloat16 training and ``remat`` (ROADMAP A.5), the monolithic backward
-    (``fast_train_pair_vjp=False``), and ``use_pallas_attention`` without
-    ``fast_train``, whose attention kernels have no backward (JAX's
-    ``jax.grad`` through them raises too). On a CUDA ``device``, with
-    ``fast_train``: a head width the fast-train kernels do not take (64,
-    128) and an ``embed_dim`` wider than the float32 LayerNorm kernel holds."""
+    ``use_pallas_attention`` without ``fast_train``, whose attention kernels
+    have no backward (JAX's ``jax.grad`` through them raises too). On a
+    CUDA ``device``, with ``fast_train``: a head width the fast-train
+    kernels do not take (64, 128) and an ``embed_dim`` wider than the
+    LayerNorm kernel holds at the training dtype. bfloat16 training,
+    ``remat`` (both modes) and the monolithic backward
+    (``fast_train_pair_vjp=False``) train."""
     check_supported(cfg, device)
-    refuse = lambda field, why: _refuse(cfg, field, why)
-    if cfg.compute_dtype != "float32":
-        refuse("compute_dtype", "training runs at float32 (bfloat16 training is not ported)")
-    if cfg.remat:
-        refuse("remat", "the rematerialised backward of training is not ported")
-    if cfg.fast_train and not cfg.fast_train_pair_vjp:
-        refuse("fast_train_pair_vjp", "fast_train runs the pair-boundary backward only")
     if cfg.use_pallas_attention and not cfg.fast_train:
-        refuse("use_pallas_attention", "its attention kernels have no backward; train with "
-               "fast_train (and fast_train_attn_bwd for the attention backward kernels)")
+        _refuse(cfg, "use_pallas_attention", "its attention kernels have no backward; train "
+                "with fast_train (and fast_train_attn_bwd for the attention backward kernels)")
     if torch.device(device).type == "cuda" and cfg.fast_train:
         _check_head_dim(cfg)
-        if cfg.embed_dim > LN_MAX_C[torch.float32]:
-            refuse("embed_dim", f"the CUDA LayerNorm of the fused blocks takes rows of up to "
-                   f"{LN_MAX_C[torch.float32]} at float32")
+        widest = LN_MAX_C[_dtype(cfg)]
+        if cfg.embed_dim > widest:
+            _refuse(cfg, "embed_dim", f"the CUDA LayerNorm of the fused blocks takes rows of up "
+                    f"to {widest} at {cfg.compute_dtype}")
 
 
 class Runner:
@@ -157,17 +152,22 @@ class Runner:
     ``fit`` runs the epoch loop, ``evaluate`` the final evaluation protocol
     on a dataset.
 
-    The denoiser of the evaluation is, as in JAX: the module
-    (``use_pallas_attention`` sends its attention through the attention
-    kernels); with ``fast_eval`` the fused-block forward in
-    ``compute_dtype`` (``eval_f32_head`` keeps a bf16 trunk's head float32);
-    with bfloat16 and ``eval_f32_final_steps`` > 0 the last steps run the
-    float32 fused forward (the mixed mode). The temporal blocks run in the
-    rows layout, JAX's default. The denoiser of training is the module
-    under autograd, or with ``fast_train`` the fused forward with the
-    pair-boundary recompute backward (``fast_train_attn_bwd``: its
-    attention through the attention kernels), drop-path at
-    ``drop_path_rate`` either way.
+    The module is built at ``compute_dtype`` (flax's ``dtype``; the
+    parameters stay float32), with ``remat_blocks`` under ``remat`` and
+    ``remat_mode="block"``, as in JAX. The denoiser of the evaluation is,
+    as in JAX: the module (``use_pallas_attention`` sends its attention
+    through the attention kernels); with ``fast_eval`` the fused-block
+    forward in ``compute_dtype`` (``eval_f32_head`` keeps a bf16 trunk's
+    head float32); with bfloat16 and ``eval_f32_final_steps`` > 0 the last
+    steps run the float32 fused forward (the mixed mode). The temporal
+    blocks run in the rows layout, JAX's default. The validation loss runs
+    on the module. The denoiser of training is the module under autograd
+    (the whole forward recomputed under ``remat`` with ``remat_mode=
+    "whole"``), or with ``fast_train`` the fused forward in
+    ``compute_dtype`` with the pair-boundary recompute backward, or the
+    monolithic one with ``fast_train_pair_vjp=False``
+    (``fast_train_attn_bwd``: its attention through the attention
+    kernels), drop-path at ``drop_path_rate`` either way.
 
     ``device`` is "cuda" unless the caller asks for "cpu"; nothing falls
     back. ``check_supported`` lists what is refused, ``check_trainable``
@@ -194,6 +194,8 @@ class Runner:
             qkv_bias=True,
             with_time_emb=cfg.with_time_emb,
             use_pallas=cfg.use_pallas_attention,
+            dtype=_dtype(cfg),
+            remat_blocks=cfg.remat and cfg.remat_mode == "block",
         )
         self.model = HPE_model(cfg.model)(**self._model_kw, seed=cfg.seed, device=self.device)
         self.diffusion = GaussianDiffusion.create(
@@ -207,9 +209,13 @@ class Runner:
             clip_loss=cfg.clip_loss,
             mode="s2s" if cfg.out_all else "s2f",
         )
-        train_fn = (make_fast_train_denoise_fn(self.model, cfg.drop_path_rate,
-                                               attn_bwd=cfg.fast_train_attn_bwd)
-                    if cfg.fast_train else make_train_denoise_fn(self.model, cfg.drop_path_rate))
+        if cfg.fast_train:
+            train_fn = make_fast_train_denoise_fn(
+                self.model, cfg.drop_path_rate, attn_bwd=cfg.fast_train_attn_bwd,
+                dtype=_dtype(cfg), pair_vjp=cfg.fast_train_pair_vjp)
+        else:
+            train_fn = make_train_denoise_fn(self.model, cfg.drop_path_rate,
+                                             remat=cfg.remat and cfg.remat_mode == "whole")
         self.train_diffusion = dataclasses.replace(self.diffusion, denoise_fn=train_fn)
         self._build_eval()
 
@@ -223,9 +229,8 @@ class Runner:
             is_bf16 = cfg.compute_dtype == "bfloat16"
             self.eval_diffusion = dataclasses.replace(
                 self.diffusion,
-                denoise_fn=make_fast_denoise_fn(
-                    self.model, torch.bfloat16 if is_bf16 else torch.float32,
-                    f32_head=is_bf16 and cfg.eval_f32_head),
+                denoise_fn=make_fast_denoise_fn(self.model, _dtype(cfg),
+                                                f32_head=is_bf16 and cfg.eval_f32_head),
             )
             if is_bf16 and cfg.eval_f32_final_steps > 0:
                 self.eval_diffusion = dataclasses.replace(

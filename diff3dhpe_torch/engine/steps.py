@@ -14,9 +14,11 @@ Port of ``diff3dhpe_tpu/engine/steps.py``:
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from diff3dhpe_torch.device import resolve_device
 from diff3dhpe_torch.diffusion.gaussian_diffusion import GaussianDiffusion
@@ -24,6 +26,7 @@ from diff3dhpe_torch.models.fast_eval import (
     bf16_snapshot,
     draw_drop_path_scales,
     fast_forward_denoise,
+    fast_forward_denoise_train,
     fast_forward_denoise_train_pairs,
 )
 
@@ -90,23 +93,47 @@ def _train_denoise_fn(model, drop_path_rate, forward):
 
 
 def make_fast_train_denoise_fn(model, drop_path_rate: float = 0.1, attn_bwd: bool = False,
-                               temporal_mode: str = "rows") -> Callable:
-    """Training denoise_fn on the fused forward with the pair-boundary
-    recompute backward (``models.fast_eval.fast_forward_denoise_train_pairs``).
+                               temporal_mode: str = "rows", dtype=torch.float32,
+                               pair_vjp: bool = True, ckpt_blocks: bool = False) -> Callable:
+    """Training denoise_fn on the fused forward in ``dtype`` (float32 or
+    bfloat16) with a recompute backward, JAX ``make_fast_train_denoise_fn``
+    (:108-175): ``pair_vjp`` the pair-boundary backward
+    (``models.fast_eval.fast_forward_denoise_train_pairs``), else the
+    monolithic one (``fast_forward_denoise_train``), whose recompute
+    ``ckpt_blocks`` checkpoints block by block; with ``pair_vjp`` the flag
+    has nothing to act on and a warning says so, as JAX's does.
     ``attn_bwd``: the recompute's attention runs through
     ``grand_attention_trainable`` (its kernels on CUDA). ``temporal_mode``:
     the fused forward's temporal layout, "rows" or "cols" (B2)."""
-    return _train_denoise_fn(
-        model, drop_path_rate,
-        lambda x, t, dp: fast_forward_denoise_train_pairs(model, x, t, dp, attn_bwd,
-                                                          temporal_mode),
-    )
+    if pair_vjp and ckpt_blocks:
+        warnings.warn(
+            "ckpt_blocks has no effect when pair_vjp=True (the pair backward already "
+            "recomputes one pair at a time); set pair_vjp=False to use the "
+            "per-block-checkpointed monolithic backward", stacklevel=2)
+
+    def forward(x, t, dp):
+        if pair_vjp:
+            return fast_forward_denoise_train_pairs(model, x, t, dp, attn_bwd, temporal_mode,
+                                                    dtype)
+        return fast_forward_denoise_train(model, x, t, dp, attn_bwd, temporal_mode, dtype,
+                                          ckpt_blocks)
+
+    return _train_denoise_fn(model, drop_path_rate, forward)
 
 
-def make_train_denoise_fn(model, drop_path_rate: float = 0.1) -> Callable:
+def make_train_denoise_fn(model, drop_path_rate: float = 0.1, remat: bool = False) -> Callable:
     """The plain counterpart: the module under ordinary autograd, with the
-    same drop-path scales."""
-    return _train_denoise_fn(model, drop_path_rate, lambda x, t, dp: model(x, t, dp))
+    same drop-path scales. ``remat``: the whole forward is recomputed in the
+    backward (``checkpoint``; JAX ``make_denoise_fn(remat=True)``,
+    ``Config.remat_mode="whole"``); the module's own ``remat_blocks`` is the
+    per-block form."""
+
+    def forward(x, t, dp):
+        if remat and torch.is_grad_enabled():
+            return checkpoint(model, x, t, dp, use_reentrant=False)
+        return model(x, t, dp)
+
+    return _train_denoise_fn(model, drop_path_rate, forward)
 
 
 def make_optimizer(params, learning_rate: float, lr_decay: float, steps_per_epoch: int,

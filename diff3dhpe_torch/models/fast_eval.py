@@ -26,14 +26,25 @@ activation dtype and adds the bias after the product's rounding
 bf16, and ``f32_head`` casts the trunk output to float32 before the head.
 ``bf16_snapshot`` makes those bf16 weights once.
 
-Training (``fast_forward_denoise_train_pairs``) cuts the trunk into
-(spatial, temporal) block pairs, each a ``torch.autograd.Function``
-(``_FusedPair``, JAX's ``_fused_pair`` custom VJP): the forward runs the
-fused kernels and keeps only the pair's input, and the backward recomputes
-the pair through the plain module (``MixSTEDenoiser.pair``) under autograd,
-its attention through ``grand_attention_trainable`` (``attn_bwd``) or the
-plain formulas, whatever the module's ``use_pallas`` (JAX's recompute
-ignores it too).
+Training runs the fused forward with a recompute backward at float32 or
+bf16, as JAX's ``FastTrainCfg.dtype_name``. The recompute is the mirror
+``mirror_forward_denoise`` (JAX ``xla_forward_denoise``): the module's
+blocks at JAX's ``_xla_block`` casts, whose LayerNorms return their input's
+dtype, so at bf16 the whole trunk stays bf16 as the fused forward's does
+(the flax module's LayerNorms return float32). Its attention runs through
+``grand_attention_trainable`` (``attn_bwd``: B3 or B6 forward, B4 backward
+on CUDA) or the plain formulas, whatever the module's ``use_pallas`` (JAX's
+mirror ignores it too).
+
+- ``fast_forward_denoise_train_pairs`` cuts the trunk into (spatial,
+  temporal) block pairs, each a ``torch.autograd.Function`` (``_FusedPair``,
+  JAX's ``_fused_pair`` custom VJP): the forward runs the fused kernels and
+  keeps only the pair's input, and the backward recomputes that pair
+  through the mirror under autograd (JAX ``_xla_pair``).
+- ``fast_forward_denoise_train`` is one ``torch.autograd.Function`` over the
+  whole fused forward (JAX's monolithic ``fast_forward_denoise_train``, the
+  ``pair_vjp=False`` path) whose backward recomputes the whole mirror,
+  each block under ``checkpoint`` with ``ckpt_blocks``.
 """
 from __future__ import annotations
 
@@ -41,34 +52,15 @@ import copy
 
 import numpy as np
 import torch
-from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from diff3dhpe_torch.device import to_device
-from diff3dhpe_torch.models.mixste import sinusoidal_pos_emb
+from diff3dhpe_torch.models.mixste import dense as _dense
+from diff3dhpe_torch.models.mixste import layer_norm, silu
 from diff3dhpe_torch.ops.attention import grand_attention, grand_attention_trainable
 from diff3dhpe_torch.ops.fused_block import fused_temporal_block_cols, fused_transformer_block
 
 TEMPORAL_MODES = ("rows", "cols")
-
-
-def _dense(layer, x):
-    """JAX ``fast_eval._dense``: x @ W + b with W and b in x's dtype; below
-    float32 the bias is added to the rounded product."""
-    w = layer.weight.to(x.dtype)
-    b = None if layer.bias is None else layer.bias.to(x.dtype)
-    if x.dtype == torch.float32:
-        return F.linear(x, w, b)
-    y = F.linear(x, w)
-    return y if b is None else y + b
-
-
-def _time_embedding(model, time, dtype):
-    """[B] diffusion times -> [B, 2C] time embedding in ``dtype`` (None
-    without), JAX ``compute_t``."""
-    if model.time_mlp is None:
-        return None
-    tt = sinusoidal_pos_emb(time, model.embed_dim).to(dtype)
-    return _dense(model.time_mlp[3], F.gelu(_dense(model.time_mlp[1], tt)))
 
 
 def bf16_snapshot(model, f32_head=False):
@@ -109,7 +101,7 @@ def _fused_pair(model, i, shape, x_flat, t, dp_s, dp_t, temporal_mode="rows"):
     def time_rows(block):
         if t is None or block.time_mlp is None:
             return None
-        return _dense(block.time_mlp[1], F.silu(t)).contiguous()
+        return _dense(block.time_mlp[1], silu(t)).contiguous()
 
     def dp_rows(d, groups, per_group):
         if d is None:
@@ -148,14 +140,17 @@ def _head(model, x_flat, shape, f32_head=False):
         x = model.weighted_mean_over_frames(x)
     if f32_head:
         x = x.float()
-    ln = model.head[0]
-    x = F.layer_norm(x.float(), (model.embed_dim,), ln.weight, ln.bias, ln.eps).to(x.dtype)
-    return _dense(model.head[1], x)
+    return _dense(model.head[1], layer_norm(model.head[0], x, x.dtype))
 
 
 def _check_mode(temporal_mode):
     if temporal_mode not in TEMPORAL_MODES:
         raise ValueError(f"temporal_mode must be one of {TEMPORAL_MODES}, got {temporal_mode!r}")
+
+
+def _check_dtype(dtype):
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
 
 
 @torch.no_grad()
@@ -170,12 +165,11 @@ def fast_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
     trunk output is cast to float32 before the head, whose output is then
     float32; else the output is in ``dtype``."""
     _check_mode(temporal_mode)
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+    _check_dtype(dtype)
     b, f, p, _ = x.shape
     dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
     x = _dense(model.fusion_layer, x.to(dtype))
-    t = _time_embedding(model, time, dtype)
+    t = model.time_embedding(time, dtype)
     x = x + model.Spatial_pos_embed[None].to(dtype)
     x_flat = x.reshape(b * f * p, model.embed_dim).contiguous()
     for i in range(model.depth):
@@ -185,6 +179,44 @@ def fast_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
     return _head(model, x_flat, (b, f, p), f32_head)
 
 
+def _mirror_pair(model, i, x4, t, dp_s, dp_t, dtype, core, ckpt_blocks=False):
+    """Block pair i of the mirror on x4 [B, F, J, C] (JAX ``_xla_pair``):
+    the spatial block, Spatial_norm, [the temporal position embedding when
+    i == 0], the temporal block, Temporal_norm, the dense layers and the
+    attention (``core``) in ``dtype`` and each LayerNorm returning its
+    input's dtype. ``ckpt_blocks``: each block under ``checkpoint``."""
+
+    def block(blk, y, is_spatial, dp):
+        if ckpt_blocks:
+            return checkpoint(blk, y, is_spatial, t, dp, core, dtype, use_reentrant=False)
+        return blk(y, is_spatial, t, dp, core, dtype)
+
+    y = block(model.STEblocks[i], x4, True, dp_s)
+    x4 = layer_norm(model.Spatial_norm, y, y.dtype)
+    if i == 0:
+        x4 = x4 + model.Temporal_pos_embed[:, :, None, :].to(x4.dtype)
+    y = block(model.TTEblocks[i], x4, False, dp_t)
+    return layer_norm(model.Temporal_norm, y, y.dtype)
+
+
+def mirror_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
+                           core=grand_attention, ckpt_blocks=False):
+    """The differentiable mirror of the fused forward (JAX
+    ``xla_forward_denoise``) on the weights of ``model``: the recompute
+    target of the training backward. At float32 it computes what the
+    module computes; at bf16 the trunk stays bf16 (module doc)."""
+    dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
+    x = _dense(model.fusion_layer, x, dtype)
+    t = model.time_embedding(time, dtype)
+    x = x + model.Spatial_pos_embed[None].to(x.dtype)
+    for i in range(model.depth):
+        x = _mirror_pair(model, i, x, t, None if dp_sp is None else dp_sp[i],
+                         None if dp_tp is None else dp_tp[i], dtype, core, ckpt_blocks)
+    if model.mode == "s2f":
+        x = model.weighted_mean_over_frames(x)
+    return _dense(model.head[1], layer_norm(model.head[0], x, x.dtype))
+
+
 class _FusedPair(torch.autograd.Function):
     """One block pair with a recompute backward (JAX ``_fused_pair``).
 
@@ -192,7 +224,8 @@ class _FusedPair(torch.autograd.Function):
     the pair's parameters (``MixSTEDenoiser.pair_parameters``) are passed in
     as inputs and their gradients returned; the shared out-LNs collect one
     gradient from every pair. The drop-path scales are sampled, not
-    learned, and get none."""
+    learned, and get none. The recompute runs in the dtype of the pair's
+    input rows."""
 
     @staticmethod
     def forward(ctx, model, i, shape, attn_bwd, temporal_mode, x_flat, t, dp_s, dp_t, *params):
@@ -211,7 +244,7 @@ class _FusedPair(torch.autograd.Function):
             x4 = x_flat.detach().view(b, f, p, c).requires_grad_()
             tt = None if t is None else t.detach().requires_grad_()
             core = grand_attention_trainable if ctx.attn_bwd else grand_attention
-            out = model.pair(i, x4, tt, dp_s, dp_t, core)
+            out = _mirror_pair(model, i, x4, tt, dp_s, dp_t, x4.dtype, core)
             inputs = [x4] + ([] if tt is None else [tt]) + params
             grads = torch.autograd.grad(out, inputs, grad.view(b, f, p, c), allow_unused=True)
         d_x, grads = grads[0].reshape(b * f * p, c), list(grads[1:])
@@ -220,23 +253,25 @@ class _FusedPair(torch.autograd.Function):
 
 
 def fast_forward_denoise_train_pairs(model, x, time, dp_scales=None, attn_bwd=False,
-                                     temporal_mode="rows"):
+                                     temporal_mode="rows", dtype=torch.float32):
     """Training forward (JAX ``fast_forward_denoise_train_pairs``): the
-    fused forward of ``fast_forward_denoise``, differentiable, with each
-    block pair a ``_FusedPair`` whose backward recomputes just that pair.
-    The gradients are those of the plain module with the same drop-path
-    scales, up to rounding; autograd keeps one [B*F*J, C] boundary per
-    pair plus one pair's recompute at a time. ``attn_bwd``: the
-    recompute's attention runs through ``grand_attention_trainable`` (its
-    kernels on CUDA). ``temporal_mode`` picks the forward's layout; the
-    recompute backward does not depend on it. Training is float32 with
-    the pair-boundary backward only."""
+    fused forward of ``fast_forward_denoise`` in ``dtype`` (float32 or
+    bfloat16; the parameters stay float32 and are cast on the way),
+    differentiable, with each block pair a ``_FusedPair`` whose backward
+    recomputes just that pair through the mirror. The gradients are those
+    of ``mirror_forward_denoise`` with the same drop-path scales, up to
+    rounding (at float32 the plain module's); autograd keeps one [B*F*J, C]
+    boundary per pair plus one pair's recompute at a time. ``attn_bwd``:
+    the recompute's attention runs through ``grand_attention_trainable``
+    (its kernels on CUDA). ``temporal_mode`` picks the forward's layout; the
+    recompute backward does not depend on it."""
     _check_mode(temporal_mode)
+    _check_dtype(dtype)
     b, f, p, _ = x.shape
     dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
-    x = model.fusion_layer(x)
-    t = model.time_embedding(time)
-    x_flat = (x + model.Spatial_pos_embed[None]).reshape(b * f * p, model.embed_dim)
+    x = _dense(model.fusion_layer, x, dtype)
+    t = model.time_embedding(time, dtype)
+    x_flat = (x + model.Spatial_pos_embed[None].to(dtype)).reshape(b * f * p, model.embed_dim)
     for i in range(model.depth):
         x_flat = _FusedPair.apply(
             model, i, (b, f, p), attn_bwd, temporal_mode, x_flat, t,
@@ -244,6 +279,54 @@ def fast_forward_denoise_train_pairs(model, x, time, dp_scales=None, attn_bwd=Fa
             *model.pair_parameters(i),
         )
     return _head(model, x_flat, (b, f, p))
+
+
+class _FusedTrain(torch.autograd.Function):
+    """The whole fused forward with a recompute backward (JAX's monolithic
+    ``fast_forward_denoise_train`` custom VJP, ``_fftrain_fwd`` /
+    ``_fftrain_bwd``): the forward keeps only its inputs, the backward
+    runs the whole mirror under autograd. Every parameter of the model is
+    an input, for its gradient; x, the times and the drop-path scales get
+    none (JAX returns theirs, which nothing reads)."""
+
+    @staticmethod
+    def forward(ctx, model, opts, x, time, dp_sp, dp_tp, *params):
+        ctx.model, ctx.opts = model, opts
+        ctx.save_for_backward(x, time, dp_sp, dp_tp)
+        dp = None if dp_sp is None else (dp_sp, dp_tp)
+        return fast_forward_denoise(model, x, time, dp, dtype=opts["dtype"],
+                                    temporal_mode=opts["temporal_mode"])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, time, dp_sp, dp_tp = ctx.saved_tensors
+        model, opts = ctx.model, ctx.opts
+        params = list(model.parameters())
+        core = grand_attention_trainable if opts["attn_bwd"] else grand_attention
+        with torch.enable_grad():
+            out = mirror_forward_denoise(model, x, time, None if dp_sp is None else (dp_sp, dp_tp),
+                                         dtype=opts["dtype"], core=core,
+                                         ckpt_blocks=opts["ckpt_blocks"])
+            grads = torch.autograd.grad(out, params, grad, allow_unused=True)
+        return (None,) * 6 + tuple(grads)
+
+
+def fast_forward_denoise_train(model, x, time, dp_scales=None, attn_bwd=False,
+                               temporal_mode="rows", dtype=torch.float32, ckpt_blocks=False):
+    """Training forward with the monolithic backward (JAX
+    ``fast_forward_denoise_train``, ``fast_train_pair_vjp=False``): the
+    fused forward of ``fast_forward_denoise`` in ``dtype``, whose backward
+    recomputes the whole ``mirror_forward_denoise`` at once, so it holds a
+    whole forward's activations (each block's only, with ``ckpt_blocks``,
+    at the cost of one more forward). Arguments as
+    ``fast_forward_denoise_train_pairs``; the same gradients up to
+    rounding."""
+    _check_mode(temporal_mode)
+    _check_dtype(dtype)
+    dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
+    opts = dict(attn_bwd=attn_bwd, temporal_mode=temporal_mode, dtype=dtype,
+                ckpt_blocks=ckpt_blocks)
+    return _FusedTrain.apply(model, opts, x, time, dp_sp, dp_tp, *model.parameters())
 
 
 def draw_drop_path_scales(generator, batch, depth, drop_path_rate, num_frame, num_joints):

@@ -21,13 +21,25 @@ Drop-path (stochastic depth) takes explicit scales: ``forward(x, time,
 dp_scales)`` with one scale per attention group and residual branch, the
 counterpart of the flax ``DropPath`` and of JAX's ``xla_forward_denoise``
 with ``dp_scales``. Dropout is 0 in every shipped config and not ported.
+
+``dtype=torch.bfloat16`` is flax's ``MixSTEDenoiser(dtype=bfloat16)``:
+parameters stay float32 (flax's ``param_dtype``), every dense layer casts
+its input, weight and bias to bf16 (``dense``), the attention runs on bf16
+q, k, v with its softmax in float32, and a LayerNorm, which has no dtype in
+flax, returns float32 (its output type is promoted with its float32
+parameters), so the residual stream is float32 from the first
+``Spatial_norm`` on and the output is bf16. ``remat_blocks`` recomputes
+each block in the backward (``torch.utils.checkpoint``, JAX's
+``nn.remat(Block)``).
 """
 from __future__ import annotations
 
 import math
+
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from diff3dhpe_torch.device import resolve_device
 from diff3dhpe_torch.ops.attention import fused_grand_attention, grand_attention
@@ -61,22 +73,57 @@ def init_weights(module: nn.Module, generator: torch.Generator):
                 m.bias.uniform_(-bound, bound, generator=generator)
 
 
+def dense(layer, x, dtype=None):
+    """flax ``TorchDense`` (JAX ``fast_eval._dense``): x @ W + b in ``dtype``
+    (default x's), x, W and b cast to it; below float32 the bias is added to
+    the rounded product."""
+    dtype = x.dtype if dtype is None else dtype
+    x, w = x.to(dtype), layer.weight.to(dtype)
+    b = None if layer.bias is None else layer.bias.to(dtype)
+    if dtype == torch.float32:
+        return F.linear(x, w, b)
+    y = F.linear(x, w)
+    return y if b is None else y + b
+
+
+def gelu(x):
+    """Exact GELU; below float32 as JAX's ``jax.nn.gelu(approximate=False)``
+    is typed: (x / 2) · erfc(−x · √½), each step rounded to x's dtype and √½
+    a constant of it."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    return (x * 0.5) * torch.erfc(-x * float(torch.tensor(0.5 ** 0.5, dtype=x.dtype)))
+
+
+def silu(x):
+    """SiLU; below float32 as JAX's ``jax.nn.silu`` is typed, x · 1 / (1 +
+    exp(−x)) with each step rounded to x's dtype."""
+    return F.silu(x) if x.dtype == torch.float32 else x * (1 / (1 + torch.exp(-x)))
+
+
+def layer_norm(ln, x, dtype=torch.float32):
+    """The LayerNorm ``ln`` computed in float32 on x, returned in ``dtype``:
+    float32 as flax's LayerNorm returns it (the type of x promoted with its
+    float32 parameters), or x's dtype as JAX's ``fast_eval._layernorm``."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(dtype)
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x, dtype=torch.float32):
+        return dense(self.fc2, gelu(dense(self.fc1, x, dtype)), dtype)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention with the GRAND (attn − I) v modification.
     ``use_pallas`` (JAX's name for it): the attention core goes through the
-    dispatcher ``fused_grand_attention``; the model takes that path at
-    float32 only. The dispatcher has no backward and refuses to run under
-    autograd, as ``jax.grad`` through JAX's ``use_pallas`` module raises."""
+    dispatcher ``fused_grand_attention``, at float32 or bfloat16. The
+    dispatcher has no backward and refuses to run under autograd, as
+    ``jax.grad`` through JAX's ``use_pallas`` module raises."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool, use_pallas: bool = False):
         super().__init__()
@@ -86,12 +133,13 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, core=None):
+    def forward(self, x, core=None, dtype=torch.float32):
         """``core``: the attention core, (q, k, v) [B, H, N, D] -> [B, H, N,
         D] at the scale D^-½; default the module's own (the dispatcher with
-        ``use_pallas``, else the plain formulas)."""
+        ``use_pallas``, else the plain formulas). ``dtype``: of the dense
+        layers and so of q, k, v and the attention."""
         b, n, c = x.shape
-        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
+        qkv = dense(self.qkv, x, dtype).reshape(b, n, 3, self.num_heads, c // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
         if core is not None:
             out = core(q, k, v)
@@ -99,7 +147,7 @@ class Attention(nn.Module):
             out = fused_grand_attention(q, k, v, self.scale)
         else:
             out = grand_attention(q, k, v, self.scale)
-        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+        return dense(self.proj, out.transpose(1, 2).reshape(b, n, c), dtype)
 
 
 class Block(nn.Module):
@@ -121,19 +169,25 @@ class Block(nn.Module):
             nn.Sequential(nn.SiLU(), nn.Linear(dim * 2, dim)) if with_time_emb else None
         )
 
-    def forward(self, x, is_spatial: bool, time_emb=None, dp=None, attn_core=None):
+    def forward(self, x, is_spatial: bool, time_emb=None, dp=None, attn_core=None,
+                dtype=torch.float32):
+        """``dtype``: of the dense layers and the attention (flax's
+        ``dtype``); norm1 and norm2 feed dense layers only, so their output
+        type does not matter. A drop-path scale multiplies its branch in the
+        branch's dtype (JAX ``_xla_block``)."""
         b, f, p, c = x.shape
         if self.time_mlp is not None and time_emb is not None:
-            x = x + self.time_mlp(time_emb)[:, None, None, :]
+            x = x + dense(self.time_mlp[1], silu(time_emb), dtype)[:, None, None, :]
         if is_spatial:
             tokens = x.reshape(b * f, p, c)
         else:
             tokens = x.transpose(1, 2).reshape(b * p, f, c)
-        def branch(col, y):
-            return y if dp is None else dp[:, :, col].reshape(-1, 1, 1) * y
 
-        tokens = tokens + branch(0, self.attn(self.norm1(tokens), attn_core))
-        tokens = tokens + branch(1, self.mlp(self.norm2(tokens)))
+        def branch(col, y):
+            return y if dp is None else y * dp[:, :, col].reshape(-1, 1, 1).to(y.dtype)
+
+        tokens = tokens + branch(0, self.attn(layer_norm(self.norm1, tokens), attn_core, dtype))
+        tokens = tokens + branch(1, self.mlp(layer_norm(self.norm2, tokens), dtype))
         if is_spatial:
             return tokens.reshape(b, f, p, c)
         return tokens.reshape(b, p, f, c).transpose(1, 2)
@@ -148,9 +202,10 @@ class MixSTEDenoiser(nn.Module):
     U(±1/sqrt(fan_in)) for weights and biases, zero position embeddings)
     and placed on ``device``. ``use_pallas``: every block's attention goes
     through ``ops.attention.fused_grand_attention`` (B6 for the joints, B3
-    for the frames, on CUDA; their plain versions on the CPU). That path is
-    float32 (B6 and the trainable backward have no bf16 instance), so such
-    a model cast to bfloat16 raises in its forward."""
+    for the frames, on CUDA, at float32 or bfloat16; their plain versions on
+    the CPU). ``dtype``: float32 or bfloat16, the compute dtype of the
+    module doc (parameters stay float32). ``remat_blocks``: each block is
+    recomputed in the backward instead of keeping its activations."""
 
     def __init__(
         self,
@@ -166,17 +221,22 @@ class MixSTEDenoiser(nn.Module):
         mode: str = "s2s",
         out_dim: int = 3,
         use_pallas: bool = False,
+        dtype=torch.float32,
+        remat_blocks: bool = False,
         seed: int = 0,
         device="cuda",
     ):
         super().__init__()
         if mode not in ("s2s", "s2f"):
             raise ValueError(f"mode must be 's2s' or 's2f', got {mode!r}")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         device = resolve_device(device)
         c = embed_dim
         self.num_frame, self.num_joints, self.depth = num_frame, num_joints, depth
         self.num_heads, self.embed_dim, self.mode = num_heads, c, mode
         self.with_time_emb, self.use_pallas = with_time_emb, use_pallas
+        self.dtype, self.remat_blocks = dtype, remat_blocks
 
         self.fusion_layer = nn.Linear(in_chans + 3, c)
         # nn.Sequential(SinusoidalPosEmb, Linear, GELU, Linear) in the
@@ -205,29 +265,19 @@ class MixSTEDenoiser(nn.Module):
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(device)
 
-    def time_embedding(self, time):
-        """[B] diffusion times -> [B, 2C] time embedding (None without)."""
+    def time_embedding(self, time, dtype=None):
+        """[B] diffusion times -> [B, 2C] time embedding in ``dtype`` (default
+        the module's; None without), JAX ``compute_t``."""
         if self.time_mlp is None:
             return None
-        return self.time_mlp(sinusoidal_pos_emb(time, self.embed_dim))
+        dtype = self.dtype if dtype is None else dtype
+        t = dense(self.time_mlp[1], sinusoidal_pos_emb(time, self.embed_dim), dtype)
+        return dense(self.time_mlp[3], gelu(t), dtype)
 
     def weighted_mean_over_frames(self, x):
         """s2f head: [B, F, J, C] -> [B, 1, J, C], with the weights in x's dtype."""
         w = self.weighted_mean.weight.reshape(-1).to(x.dtype)
         return torch.einsum("bfpc,f->bpc", x, w)[:, None] + self.weighted_mean.bias.to(x.dtype)
-
-    def pair(self, i, x, t, dp_s=None, dp_t=None, attn_core=None):
-        """Block pair i on [B, F, J, C]: spatial block, Spatial_norm, [the
-        temporal position embedding when i == 0], temporal block,
-        Temporal_norm. ``t`` is the [B, 2C] time embedding (or None); dp_s
-        [B, F, 2], dp_t [B, J, 2] the pair's drop-path scales;
-        ``attn_core`` as ``Attention.forward``'s ``core``. The port of JAX
-        ``_xla_pair``, and the recompute target of the fused pair's
-        backward (``models.fast_eval``)."""
-        x = self.Spatial_norm(self.STEblocks[i](x, True, t, dp_s, attn_core))
-        if i == 0:
-            x = x + self.Temporal_pos_embed[:, :, None, :]
-        return self.Temporal_norm(self.TTEblocks[i](x, False, t, dp_t, attn_core))
 
     def pair_parameters(self, i):
         """The parameters that block pair i reads, in a fixed order."""
@@ -237,19 +287,36 @@ class MixSTEDenoiser(nn.Module):
 
     def forward(self, x, time, dp_scales=None):
         """``dp_scales``: None, or (dp_spatial [depth, B, F, 2], dp_temporal
-        [depth, B, J, 2]) drop-path scales (``draw_drop_path_scales``)."""
+        [depth, B, J, 2]) drop-path scales (``draw_drop_path_scales``). Each
+        block pair: spatial block, Spatial_norm, [the temporal position
+        embedding before the first temporal block], temporal block,
+        Temporal_norm; with ``remat_blocks`` and autograd recording, each
+        block under ``checkpoint`` (the drop-path scales are inputs, so the
+        recompute sees the same masks)."""
         if x.ndim != 4:
             raise ValueError(f"expected x of shape [B, F, J, C], got {tuple(x.shape)}")
-        if self.use_pallas and self.fusion_layer.weight.dtype != torch.float32:
-            raise ValueError("use_pallas needs a float32 model: its attention path is "
-                             f"float32, the weights are {self.fusion_layer.weight.dtype}")
+        if self.fusion_layer.weight.dtype != torch.float32:
+            raise ValueError("the module keeps float32 parameters (flax's param_dtype), got "
+                             f"{self.fusion_layer.weight.dtype}; build it with dtype="
+                             "torch.bfloat16 to compute at bf16")
         dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
-        x = self.fusion_layer(x)
+        dt = self.dtype
+        x = dense(self.fusion_layer, x, dt)
         t = self.time_embedding(time)
-        x = x + self.Spatial_pos_embed[None]
+        x = x + self.Spatial_pos_embed[None].to(x.dtype)
+
+        def block(blk, y, is_spatial, dp):
+            if self.remat_blocks and torch.is_grad_enabled():
+                return checkpoint(blk, y, is_spatial, t, dp, None, dt, use_reentrant=False)
+            return blk(y, is_spatial, t, dp, None, dt)
+
         for i in range(self.depth):
-            x = self.pair(i, x, t, None if dp_sp is None else dp_sp[i],
-                          None if dp_tp is None else dp_tp[i])
+            x = layer_norm(self.Spatial_norm, block(
+                self.STEblocks[i], x, True, None if dp_sp is None else dp_sp[i]))
+            if i == 0:
+                x = x + self.Temporal_pos_embed[:, :, None, :].to(x.dtype)
+            x = layer_norm(self.Temporal_norm, block(
+                self.TTEblocks[i], x, False, None if dp_tp is None else dp_tp[i]))
         if self.mode == "s2f":
             x = self.weighted_mean_over_frames(x)
-        return self.head(x)
+        return dense(self.head[1], layer_norm(self.head[0], x), dt)

@@ -96,6 +96,12 @@ SIGNATURES = {
             + [_L] * 24                        # (b, h, n) strides of q, k, v, dO, out, dq, dk, dv
             + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
         ),
+        "diff3dhpe_grand_attn_bwd_bf16": (
+            [_P] * 8 + [_I] * 4                # q, k, v, dO, dq, dk, dv, statistics scratch;
+                                               # B, H, n, head_dim
+            + [_L] * 21                        # (b, h, n) strides of q, k, v, dO, dq, dk, dv
+            + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
+        ),
         "diff3dhpe_grand_takes_head_dim": [_I],      # head_dim
         "diff3dhpe_grand_max_n": [],
         "diff3dhpe_grand_small_max_n": [],

@@ -27,7 +27,9 @@ their operands through strides (unit stride on the head dim), so views of a
 qkv projection go in without a copy. B3 and B6 also take bfloat16 (JAX's
 take q's dtype): the tensor-core kernel of ``csrc/grand_attn_bf16.cuh``,
 which rounds P to bf16 after the normalisation and the output once, as
-``grand_attention_stored`` does. B4 is float32.
+``grand_attention_stored`` does. So does B4: the tensor-core backward of
+``csrc/grand_attn_bwd_bf16.cuh``, at the rounding points of JAX's Pallas
+tile (``grand_attention_bwd_ref``).
 """
 from __future__ import annotations
 
@@ -60,9 +62,14 @@ def refuse_autograd(op: str, *tensors,
 def grand_attention(q, k, v, scale=None):
     """q, k, v: [..., N, head_dim] -> [..., N, head_dim] in the input dtype.
 
-    The softmax runs in float32 whatever the activation dtype."""
+    The softmax runs in float32 whatever the activation dtype. Below
+    float32 every other step rounds to the input dtype, as JAX's formulas
+    are typed, the scale too (a Python float is weakly typed in JAX: a
+    constant of the input dtype)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if q.dtype != torch.float32:  # the scale rounded to q's dtype, as a host float
+        scale = float(torch.tensor(scale, dtype=q.dtype))
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     attn = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return torch.matmul(attn, v) - v
@@ -95,9 +102,13 @@ def grand_attention_fullseq_ref(q, k, v, scale=None):
 packed_grand_attention_ref = grand_attention_fullseq_ref
 
 
-def grand_attention_bwd_ref(q, k, v, do, scale=None):
+def grand_attention_bwd_xla(q, k, v, do, scale=None):
     """(dq, dk, dv) of ``grand_attention`` given the output gradient ``do``:
-    the port of JAX's ``_grand_attention_bwd_xla`` (P recomputed)."""
+    the port of JAX's ``_grand_attention_bwd_xla`` (P recomputed), which the
+    trainable attention runs for n <= 64. Below float32 every product
+    rounds its output to the input dtype, as JAX's einsums are typed (so S,
+    dP and Pᵀ·do before the "− do"; B4's tile does not,
+    ``grand_attention_bwd_ref``)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float() * scale, dim=-1)
@@ -109,6 +120,24 @@ def grand_attention_bwd_ref(q, k, v, do, scale=None):
     dk = torch.matmul(ds.transpose(-1, -2), q)
     dv = torch.matmul(pq.transpose(-1, -2), do) - do
     return dq, dk, dv
+
+
+def grand_attention_bwd_ref(q, k, v, do, scale=None):
+    """The plain version of B4: (dq, dk, dv) of ``grand_attention`` given
+    ``do``, as JAX's Pallas tile ``_grand_attn_bwd_tile`` forms them, P
+    recomputed. Every product sums its operands in float32; S, P and dP
+    stay float32, dS and P are rounded to q's dtype, dq and dk once at the
+    end, and dv = Pᵀ·do − do is subtracted in float32 and rounded once."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    dt = q.dtype
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p = torch.softmax(qf @ kf.transpose(-1, -2) * scale, dim=-1)
+    dp = dof @ vf.transpose(-1, -2)
+    dsum = (dp * p).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - dsum) * scale).to(dt).float()
+    pq = p.to(dt).float()
+    return ((ds @ kf).to(dt), (ds.transpose(-1, -2) @ qf).to(dt),
+            (pq.transpose(-1, -2) @ dof - dof).to(dt))
 
 
 def grand_attention_fullseq(q, k, v, scale=None):
@@ -184,11 +213,16 @@ def fused_grand_attention(q, k, v, scale=None):
 
 def grand_attention_bwd(q, k, v, do, scale=None):
     """B4: (dq, dk, dv) of GRAND attention on [G, N, D] (or [B, H, N, D])
-    operands, given the output gradient ``do``.
+    operands, given the output gradient ``do``; q, k, v and do all float32
+    or all bfloat16 (else ``ValueError``), the gradients in their dtype.
 
     A CPU tensor runs the plain version. A CUDA tensor launches the two
-    kernels of the backward (``grand_attention_bwd.launches`` counts them)
-    or raises."""
+    kernels of the backward (``grand_attention_bwd.launches`` counts them,
+    ``.launches_bf16`` those at bf16): at float32 the CUDA-core pair, at
+    bfloat16 the tensor-core pair; or raises."""
+    _check_dtypes(q, k, v)
+    if do.dtype != q.dtype:
+        raise ValueError(f"do must be {q.dtype} like q, k and v, got {do.dtype}")
     if q.device.type == "cpu":
         return grand_attention_bwd_ref(q, k, v, do, scale)
     return _bwd(q, k, v, do, scale)
@@ -207,15 +241,18 @@ def _bwd(q, k, v, do, scale, fwd=None):
 
 
 grand_attention_bwd.launches = 0
+grand_attention_bwd.launches_bf16 = 0
 
 
 class _GrandAttentionTrainable(torch.autograd.Function):
     """Port of JAX's ``grand_attention_trainable`` custom VJP: the forward
     through ``fused_grand_attention`` (B6 or B3), the backward through B4
-    for N > 64 and through the plain formulas for N <= 64 (JAX ``_gat_bwd``:
-    there is no small-N backward kernel). On CUDA float32 with N > 64, B3
-    also keeps each row's softmax max and 1/sum, and B4 starts from them and
-    from B3's output instead of recomputing the forward (its first sweep)."""
+    for N > 64 and through the XLA formulas for N <= 64 (JAX ``_gat_bwd``:
+    there is no small-N backward kernel), in q's dtype, float32 or bfloat16.
+    On CUDA float32 with N > 64, B3 also keeps each row's softmax max and
+    1/sum, and B4 starts from them and from B3's output instead of
+    recomputing the forward (its first sweep); at bfloat16 B4 recomputes P
+    from q and k, as JAX's kernel does."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -232,7 +269,7 @@ class _GrandAttentionTrainable(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, *fwd = ctx.saved_tensors
         if q.shape[-2] <= SMALL_N:
-            return grand_attention_bwd_ref(q, k, v, do)
+            return grand_attention_bwd_xla(q, k, v, do)
         return _bwd(q, k, v, do, None, fwd) if fwd else grand_attention_bwd(q, k, v, do)
 
 
@@ -262,14 +299,14 @@ def _empty_like_heads(t):
     return torch.empty((b, n, h, d), device=t.device, dtype=t.dtype).permute(0, 2, 1, 3)
 
 
-def _kernel_operand(t, like, dtype=torch.float32):
-    """t as the kernels read it: ``dtype`` on like's device, shaped like
+def _kernel_operand(t, like):
+    """t as the kernels read it: like's dtype, on like's device, shaped like
     ``like``, unit stride on the head dim, other strides multiples of 16
     bytes and a 16-byte aligned base (copied into that layout where it is
     not)."""
-    if t.dtype != dtype or t.device != like.device or t.shape != like.shape:
+    if t.dtype != like.dtype or t.device != like.device or t.shape != like.shape:
         raise ValueError(
-            f"attention operands must be {dtype} on {like.device} with shape "
+            f"attention operands must be {like.dtype} on {like.device} with shape "
             f"{tuple(like.shape)}, got {t.dtype} on {t.device} with {tuple(t.shape)}"
         )
     step = 16 // t.element_size()
@@ -317,7 +354,7 @@ def _launch_fwd(q, k, v, out, scale, small=False, stats=None):
     float32 fills with the rows' max and 1/sum."""
     f32 = q.dtype == torch.float32
     lib, scale = _library(q, scale, small)
-    q, k, v = (_kernel_operand(t, q, q.dtype) for t in (q, k, v))
+    q, k, v = (_kernel_operand(t, q) for t in (q, k, v))
     b, h, n, d = q.shape
     if not f32 and not scale > 0:  # the bf16 kernel takes the row max before it scales
         raise ValueError(f"the bf16 attention kernel takes a positive scale, got {scale}")
@@ -342,25 +379,43 @@ def _launch_fwd(q, k, v, out, scale, small=False, stats=None):
 
 
 def _launch_bwd(q, k, v, do, dq, dk, dv, scale, fwd=None):
-    """Launches B4's two kernels; ``fwd``: (B3's output, the statistics its
-    launch wrote) or None. The dq pass hands P and dS to the dk/dv pass
-    through a scratch of two [B·H, n64, n64] planes."""
+    """Launches B4's two kernels in q's dtype; ``fwd``: (B3's output, the
+    statistics its launch wrote) or None (always None at bfloat16). At
+    float32 the dq pass hands P and dS to the dk/dv pass through a scratch
+    of two [B·H, n64, n64] planes; at bfloat16 each row's softmax
+    statistics and D through three [B·H, n16] planes."""
     lib, scale = _library(q, scale)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and not scale > 0:  # as the forward: the row max is taken before the scale
+        raise ValueError(f"the bf16 attention kernels take a positive scale, got {scale}")
     q, k, v, do = (_kernel_operand(t, q) for t in (q, k, v, do))
     b, h, n, d = q.shape
-    out, stats = (None, None) if fwd is None else fwd
-    pds = torch.empty((2, b * h, _n64(n), _n64(n)), device=q.device, dtype=torch.float32)
     launched = ctypes.c_int(0)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.diff3dhpe_grand_attn_bwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            None if out is None else out.data_ptr(), None if out is None else stats.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), pds.data_ptr(), b, h, n, d,
-            *_strides(q), *_strides(k), *_strides(v), *_strides(do),
-            *(_strides(out) if out is not None else [ctypes.c_longlong(0)] * 3),
-            *_strides(dq), *_strides(dk), *_strides(dv),
-            scale, ctypes.byref(launched), torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if bf16:
+            stats = torch.empty((3, b * h * (-(-n // 16) * 16)), device=q.device,
+                                dtype=torch.float32)
+            err = lib.diff3dhpe_grand_attn_bwd_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h, n, d,
+                *_strides(q), *_strides(k), *_strides(v), *_strides(do),
+                *_strides(dq), *_strides(dk), *_strides(dv), scale, ctypes.byref(launched), stream,
+            )
+        else:
+            out, stats = (None, None) if fwd is None else fwd
+            pds = torch.empty((2, b * h, _n64(n), _n64(n)), device=q.device, dtype=torch.float32)
+            err = lib.diff3dhpe_grand_attn_bwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                None if out is None else out.data_ptr(), None if out is None else stats.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), pds.data_ptr(), b, h, n, d,
+                *_strides(q), *_strides(k), *_strides(v), *_strides(do),
+                *(_strides(out) if out is not None else [ctypes.c_longlong(0)] * 3),
+                *_strides(dq), *_strides(dk), *_strides(dv),
+                scale, ctypes.byref(launched), stream,
+            )
     grand_attention_bwd.launches += launched.value
+    if bf16:
+        grand_attention_bwd.launches_bf16 += launched.value
     if err:
         raise RuntimeError(f"grand_attention backward kernels failed: cudaError_t {err}")

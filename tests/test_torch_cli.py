@@ -107,18 +107,24 @@ def test_main_takes_a_bare_state_dict_by_path(tmp_path):
     assert np.isfinite(errors["e1"][0])
 
 
+BF16 = ["--compute-dtype", "bfloat16"]
+
+
 @pytest.mark.parametrize("name,extra,tol_mm", [
     ("use_pallas_attention", [], 1e-3),
     ("fast_eval", ["--fast-eval"], 1e-3),
     ("mixed", MIXED, None),
     ("remat", [], 0.0),
+    ("bf16_module", BF16, None),
+    ("use_pallas_attention", BF16, None),
 ])
 def test_main_in_the_kernel_configurations(tmp_path, default_errors, name, extra, tol_mm):
-    """The three configurations that run kernels on the card run their
-    plain versions here: the f32 ones report the default run's errors to
-    1e-3 mm, the mixed one's are finite and within 2% of them. ``remat`` in
-    the config JSON (it shapes only the backward of training) reports the
-    default run's errors exactly."""
+    """The configurations that run kernels on the card run their plain
+    versions here: the f32 ones report the default run's errors to 1e-3
+    mm, the mixed one's and the bf16 module's (without and with
+    ``use_pallas_attention``) are finite and within 2% of them. ``remat``
+    in the config JSON (it shapes only the backward of training) reports
+    the default run's errors exactly."""
     _write_checkpoint(tmp_path / "w.bin")
     config = _config_with(tmp_path, name) if name in ("use_pallas_attention", "remat") else CONFIG
     errors = main(["--config", config, "-c", str(tmp_path), "--evaluate", "w.bin"]
@@ -144,7 +150,6 @@ def test_main_without_evaluate_exits(tmp_path, capsys):
     ("mesh_shape", ["--mesh-shape", "data:8"]),
     ("eval_f32_tail_pairs", MIXED + ["--eval-f32-tail-pairs", "1"]),
     ("eval_final_prec", MIXED + ["--eval-final-prec", "default"]),
-    ("compute_dtype", ["--compute-dtype", "bfloat16"]),
     ("dataset", ["-d", "humaneva15"]),
     ("evaluate", ["--evaluate", "not_a_port_checkpoint"]),
 ])

@@ -98,15 +98,34 @@ def _config_with(tmp_path, **fields):
 
 
 @pytest.mark.parametrize("field,fields,extra", [
-    ("remat", dict(remat=True), []),
-    ("compute_dtype", {}, ["--fast-eval", "--compute-dtype", "bfloat16"]),
-    ("fast_train_pair_vjp", dict(fast_train_pair_vjp=False), ["--fast-train"]),
     ("use_pallas_attention", dict(use_pallas_attention=True), []),
+    ("mesh_shape", dict(mesh_shape="data:2"), []),
+    ("eval_f32_tail_pairs", dict(eval_f32_tail_pairs=1), ["--fast-eval"]),
 ])
 def test_fit_refuses_what_is_not_ported(tmp_path, field, fields, extra):
     with pytest.raises(ValueError, match=f"^{field}="):
         main(["--config", _config_with(tmp_path, **fields), "-c", str(tmp_path), "-e", "1"]
              + ARGS_COMMON + extra, device="cpu")
+
+
+@pytest.mark.parametrize("fields,extra", [
+    (dict(remat=True), []),                                           # the module, per block
+    (dict(remat=True, remat_mode="whole"), []),
+    ({}, ["--fast-train", "--compute-dtype", "bfloat16"]),            # bf16 fast_train
+    (dict(remat=True), ["--compute-dtype", "bfloat16"]),              # the bf16 module
+    (dict(fast_train_pair_vjp=False), ["--fast-train"]),              # the monolithic backward
+    (dict(fast_train_pair_vjp=False, use_pallas_attention=True), ["--fast-train", "--fast-eval",
+                                                                  "--compute-dtype", "bfloat16"]),
+])
+def test_fit_trains_what_was_refused_before(tmp_path, fields, extra):
+    """bfloat16 training, ``remat`` in both modes and the monolithic
+    backward train through the CLI: one epoch, finite losses, a report."""
+    errors = main(["--config", _config_with(tmp_path, **fields), "-c", str(tmp_path), "-e", "1"]
+                  + ARGS_COMMON + extra, device="cpu")
+    assert all(np.isfinite(v[0]) for v in errors.values())
+    log = "".join(open(os.path.join(tmp_path, f)).read() for f in os.listdir(tmp_path)
+                  if f.startswith("log_"))
+    assert "Epoch: 0, Time(mins):" in log and "Train/_pose_loss: nan" not in log
 
 
 def test_evaluate_refuses_a_jax_orbax_directory(tmp_path):

@@ -618,8 +618,17 @@ def test_use_pallas_model_runs_through_the_attention_kernels(cuda_device):
         out, ref = fused(x, t), plain(x, t)
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 1]
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
-    with pytest.raises(ValueError, match="float32"):
-        fused.bfloat16()(x.bfloat16(), t)
+    # At bf16 the same module sends its attention to B6 and B3 at bf16.
+    fused16 = MixSTEDenoiser(num_frame=81, embed_dim=C, depth=1, num_heads=C // 64,
+                             use_pallas=True, dtype=torch.bfloat16, device=cuda_device).eval()
+    fused16.load_state_dict(plain.state_dict())
+    before = [c.launches for c in counters] + [packed_grand_attention.launches_bf16]
+    with torch.no_grad():
+        out16 = fused16(x, t)
+    after = [c.launches for c in counters] + [packed_grand_attention.launches_bf16]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert out16.dtype == torch.bfloat16 and torch.isfinite(out16.float()).all()
+    assert (out16.float() - ref).abs().mean() <= 2e-2 * ref.abs().max()
 
 
 @pytest.mark.cuda
@@ -633,6 +642,82 @@ def test_trainable_attention_grads(cuda_device, n, d):
     ref = torch.autograd.grad(grand_attention_fullseq_ref(q, k, v), (q, k, v), do)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n", [65, 72, 243])
+def test_attention_bwd_bf16_matches_ref(cuda_device, n, d):
+    """B4 at bf16 (the tensor-core pair of kernels) on strided qkv views
+    against its plain version, within the bf16 bars, with the same bits
+    in two calls."""
+    (q, k, v), gen = _qkv_views(cuda_device, 3, 2, n, n + d, dtype=torch.bfloat16, d=d)
+    do = torch.randn(3, n, 2, d, generator=gen, device=cuda_device).bfloat16().transpose(1, 2)
+    before = (grand_attention_bwd.launches, grand_attention_bwd.launches_bf16)
+    got = grand_attention_bwd(q, k, v, do)
+    assert (grand_attention_bwd.launches - before[0],
+            grand_attention_bwd.launches_bf16 - before[1]) == (2, 2)
+    for a, b in zip(got, grand_attention_bwd_ref(q, k, v, do)):
+        assert_bf16_close(a, b)
+    for a, b in zip(got, grand_attention_bwd(q, k, v, do)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n", [17, 243])
+def test_trainable_attention_grads_bf16(cuda_device, n, d):
+    """grand_attention_trainable at bf16: B6 or B3 forward, B4 (n > 64) or
+    the XLA formulas backward, against the plain versions of the same
+    steps, within the bf16 bars."""
+    (q, k, v), gen = _qkv_views(cuda_device, 2, 2, n, 11, dtype=torch.bfloat16, d=d)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    do = torch.randn(2, 2, n, d, generator=gen, device=cuda_device).bfloat16()
+    out = grand_attention_trainable(q, k, v)
+    assert_bf16_close(out, grand_attention_fullseq_ref(q, k, v).detach())
+    got = torch.autograd.grad(out, (q, k, v), do)
+    if n > 64:
+        ref = grand_attention_bwd_ref(q.detach(), k.detach(), v.detach(), do)
+    else:
+        from diff3dhpe_torch.ops.attention import grand_attention_bwd_xla
+        ref = grand_attention_bwd_xla(q.detach(), k.detach(), v.detach(), do)
+    for a, b in zip(got, ref):
+        assert_bf16_close(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_fast_train_step_matches_the_bf16_module(cuda_device):
+    """One bf16 fast-train step (attn_bwd: B1, B3, B4 and B6 at bf16) at
+    B = 4, F = 243, against the bf16 module under autograd on the same t,
+    noise and drop-path: the two round at other points (the module's
+    LayerNorms return float32, the mirror's bf16), so the bars are the
+    loss to 2e-2 relative and every gradient to 1e-1 of its max|g|."""
+    from diff3dhpe_torch import make_fast_train_denoise_fn, make_train_denoise_fn
+
+    model = _model(cuda_device, num_frame=243).train()
+    module16 = MixSTEDenoiser(num_frame=243, embed_dim=C, depth=1, num_heads=C // 64,
+                              dtype=torch.bfloat16, device=cuda_device).train()
+    module16.load_state_dict(model.state_dict())
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    gt = torch.randn(4, 243, 17, 3, generator=gen, device=cuda_device) * 0.3
+    x2d = torch.rand(4, 243, 17, 2, generator=gen, device=cuda_device) * 2 - 1
+    inject = dict(t=torch.randint(0, 1000, (4,), generator=gen, device=cuda_device),
+                  noise=torch.randn(4, 243, 17, 3, generator=gen, device=cuda_device),
+                  dp_scales=draw_drop_path_scales(gen, 4, 1, 0.1, 243, 17))
+    kw = dict(timesteps=1000, sampling_timesteps=5, clip_denoised=True, clip_loss=True)
+    fast = GaussianDiffusion.create(make_fast_train_denoise_fn(
+        model, 0.1, attn_bwd=True, dtype=torch.bfloat16), **kw)
+    plain = GaussianDiffusion.create(make_train_denoise_fn(module16, 0.1), **kw)
+    before = grand_attention_bwd.launches_bf16
+    loss = fast.training_loss(gt, x2d, **inject)
+    got = torch.autograd.grad(loss, list(model.parameters()))
+    assert grand_attention_bwd.launches_bf16 - before == 2
+    loss16 = plain.training_loss(gt, x2d, **inject)
+    want = torch.autograd.grad(loss16, list(module16.parameters()))
+    assert abs(loss.item() - loss16.item()) <= 2e-2 * abs(loss16.item())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-1 * b.abs().max()
 
 
 @pytest.mark.cuda

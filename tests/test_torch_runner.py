@@ -161,9 +161,8 @@ def test_mixed_runner_rebuilds_its_bf16_snapshot():
     ("mesh_shape", dict(mesh_shape="data:4,model:2")),
     ("eval_f32_tail_pairs", dict(eval_f32_tail_pairs=2, **MIXED)),
     ("eval_final_prec", dict(eval_final_prec="default", **MIXED)),
-    ("compute_dtype", dict(compute_dtype="bfloat16")),
+    ("compute_dtype", dict(compute_dtype="float64")),
     ("compute_dtype", dict(compute_dtype="float16")),
-    ("use_pallas_attention", dict(use_pallas_attention=True, **MIXED)),
 ])
 def test_runner_refuses_what_is_not_ported(field, overrides):
     cfg = Config(**{**BASE, "mesh_shape": None, **overrides})
@@ -181,6 +180,27 @@ def test_runner_accepts_what_means_one_device_and_exact_f32():
                       dict(remat=True), dict(remat=True, **MIXED)):
         check_supported(Config(**{**BASE, **overrides}))
         Runner(Config(**{**BASE, **overrides}), 17, JOINTS_LEFT, JOINTS_RIGHT, device="cpu")
+
+
+@pytest.mark.parametrize("overrides,remat_blocks", [
+    (dict(compute_dtype="bfloat16"), False),
+    (dict(compute_dtype="bfloat16", remat=True), True),
+    (dict(compute_dtype="bfloat16", remat=True, remat_mode="whole"), False),
+    (dict(use_pallas_attention=True, **MIXED), False),
+])
+def test_runner_builds_the_module_at_compute_dtype(overrides, remat_blocks):
+    """As JAX's runner: the module at ``compute_dtype`` (its parameters
+    float32) with ``remat_blocks`` under remat_mode "block"; the bf16 module
+    and ``use_pallas_attention`` at bf16 evaluate."""
+    runner = Runner(Config(**{**BASE, **overrides}), 17, JOINTS_LEFT, JOINTS_RIGHT, device="cpu")
+    model = runner.model
+    assert model.dtype == torch.bfloat16 and model.remat_blocks == remat_blocks
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    cfg = runner.cfg
+    ds, kps = make_synthetic_h36m_like(subjects=("S1", "S9"), n_frames=60, seed=1)
+    test_ds = PoseDataset(cfg, ds, "data", "test", keypoints_data=kps)
+    out = runner.evaluate(test_ds)
+    assert np.isfinite([out[k] for k in ("e1", "e2", "e3", "ev")]).all()
 
 
 def test_runner_needs_a_gpu_unless_the_cpu_is_asked_for(monkeypatch):

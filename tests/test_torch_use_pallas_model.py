@@ -45,10 +45,15 @@ def test_use_pallas_model_matches_flax(rng, num_frame, mode, monkeypatch):
 
 
 def test_bf16_model_with_use_pallas_raises():
+    """Parameters cast to bf16 raise (the module keeps float32 parameters);
+    a module built with dtype=bfloat16 runs its use_pallas attention at bf16."""
     model = MixSTEDenoiser(embed_dim=32, depth=1, num_heads=4, use_pallas=True, device="cpu")
     x, t = torch.zeros(1, 9, 17, 5), torch.zeros(1)
+    bf16 = MixSTEDenoiser(embed_dim=32, depth=1, num_heads=4, use_pallas=True,
+                          dtype=torch.bfloat16, device="cpu")
     with torch.no_grad():  # its attention refuses autograd
         model(x, t)
+        assert bf16(x, t).dtype == torch.bfloat16
     with pytest.raises(ValueError, match="float32"):
         model.bfloat16()(x.bfloat16(), t)
 
