@@ -55,7 +55,8 @@ mixed rows and pure-bf16 evals of a 4-head model; 5b the mixed rows step's
 profile; 6 B3 and B4 vs plain at the train shape with 8 heads (d = 64)
 and 4 heads (d = 128), B4 twice with the same bits; 6b B3 at bf16 (the
 tensor-core attention kernel alone) at both eval shapes, d = 64 and 128;
-6c B4 at bf16 at the train shapes with SDPA's backward; 7a the train
+6c B4 at bf16 at the train shapes, alone and from B3's statistics, with
+SDPA's backward; 7a the train
 step's loss, gradients and launches vs the plain module at B=4, with 8
 heads and with 4; 7b three timed AdamW steps at B=24; 7c their profile; 7d
 the bf16 train step (8 and 4 heads, attn_bwd off and on); 7e its 20-step
@@ -365,7 +366,7 @@ def main():
     from diff3dhpe_torch.models import mixste
     from diff3dhpe_torch.models.mixste import Block, init_weights
     from diff3dhpe_torch.ops._build import SOURCES, build_all
-    from diff3dhpe_torch.ops.attention import _bwd, _bwd_stats, _fullseq
+    from diff3dhpe_torch.ops.attention import _bwd, _bwd_stats, _bwd_stats_bf16, _fullseq
     from diff3dhpe_torch.ops.fused_block import (
         _gemm_bf16, _gemm_bf16_ref, _gemm_f32, _gemm_f32_ref, layer_norm_rows, layer_norm_rows_ref,
     )
@@ -1078,14 +1079,23 @@ def main():
                 del q, k, v, out
     torch.cuda.empty_cache()
 
-    # Phase 6c: B4 at bf16 (the tensor-core backward) against its plain
-    # version at the bf16 train path's shapes and layout, as phase 6 holds
-    # the f32 one: q, k, v views of one [B*J, F, 3, H, d] bf16 qkv
-    # projection, dO [B*J, H, F, d] as a transposed view, with 8 heads (d =
-    # 64) and 4 (d = 128); two calls give the same bits. The library
-    # yardstick is SDPA's backward at bf16 on the same operands. Bound: q,
-    # k, v, dO read and dq, dk, dv written once (bf16) against the formulas'
-    # 10·G·N²·d FLOP on the tensor cores.
+    # Phase 6c: B4 at bf16 (the wgmma backward) against its plain version
+    # at the bf16 train path's shapes and layout, as phase 6 holds the f32
+    # one: q, k, v views of one [B*J, F, 3, H, d] bf16 qkv projection, dO
+    # [B*J, H, F, d] as a transposed view, with 8 heads (d = 64) and 4 (d =
+    # 128); two calls give the same bits. Timed alone (its dq pass forms the
+    # rows' softmax statistics) and as the train step calls it, from the
+    # statistics that B3's launch in the trainable forward wrote, which must
+    # give the same bits. The library yardstick is SDPA's backward at bf16
+    # on the same operands. Bound: q, k, v, dO read and dq, dk, dv written
+    # once (bf16) against the formulas' 10·G·N²·d FLOP on the tensor cores;
+    # the kernels issue 14·G·N²·d on the tiles' padded rows (the dq pass's
+    # 64-query tiles against 128 or 256 keys, the dk/dv pass's 128-key
+    # blocks against 64-query tiles).
+    def b4_bf16_issued(g, n, d):
+        pad = lambda m: -(-n // m) * m
+        return g * d * (6 * pad(64) * (128 if n <= 128 else 256) + 8 * pad(128) * pad(64))
+
     attn_bwd_bf16 = {}
     for heads in (HEADS, HEADS4):
         hd = EMBED // heads
@@ -1099,25 +1109,39 @@ def main():
             before = grand_attention_bwd.launches_bf16
             outs = run()
             check(grand_attention_bwd.launches_bf16 - before == 2,
-                  "B4 at bf16 did not launch its two tensor-core kernels")
+                  "B4 at bf16 did not launch its two wgmma kernels")
             errs = [check_bf16(f"B4 bf16 d={hd} {name}", a, b)
                     for name, a, b in zip(("dq", "dk", "dv"), outs, plain())]
             check(all(torch.equal(a, b) for a, b in zip(outs, run())),
                   f"B4 bf16 d={hd}: two calls gave different bits")
+            fwd_stats = _bwd_stats_bf16(q)
+            fwd_out = _fullseq(q, k, v, None, fwd_stats)
+            train_form = lambda: _bwd(q, k, v, do, None, (fwd_stats,))
+            before = grand_attention_bwd.launches_bf16
+            check(all(torch.equal(a, b) for a, b in zip(outs, train_form())),
+                  f"B4 bf16 d={hd}: the call from B3's statistics gave other bits than alone")
+            check(grand_attention_bwd.launches_bf16 - before == 2,
+                  "B4 at bf16 from B3's statistics did not launch its two wgmma kernels")
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         with torch.enable_grad():
             lib_out = F.scaled_dot_product_attention(qg, kg, vg) - vg
         lib = lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do, retain_graph=True)
         t = timings(run, plain, lib, 10 * g_all * FRAMES * FRAMES * hd, 7 * 2 * elems, peak_bf16)
+        t["train_ms"] = cuda_ms(train_form)
+        issued = b4_bf16_issued(g_all, FRAMES, hd)
         attn_bwd_bf16[heads] = dict(abs_err=max(e[0] for e in errs), g=g_all, d=hd, **t)
         say(f"phase 6c grand_attention_bwd bf16: [B*H={g_all}, N={FRAMES}, D={hd}] as qkv views "
             f"max_abs_err={max(e[0] for e in errs):.3e} max_rel_err={max(e[1] for e in errs):.3e} "
             f"(tol {BF16_MAX_TOL}) mean_rel_err={max(e[2] for e in errs):.3e} (tol "
-            f"{BF16_MEAN_TOL}) same bits in two calls; ms={t['ms']:.4f} "
-            f"plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} (SDPA backward) "
+            f"{BF16_MEAN_TOL}) same bits in two calls and from B3's statistics; "
+            f"ms={t['ms']:.4f} (alone) train_ms={t['train_ms']:.4f} (from B3's statistics) "
+            f"library_ms={t['lib_ms']:.4f} (SDPA backward) plain_ms={t['plain_ms']:.4f} "
             f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) GFLOP={t['flops'] / 1e9:.2f} "
-            f"achieved_TFLOPs={t['flops'] / t['ms'] / 1e9:.2f}")
-        del lib_out, qg, kg, vg, qkv, q, k, v, do, outs
+            f"(formulas) achieved_TFLOPs={t['flops'] / t['ms'] / 1e9:.2f} / "
+            f"{t['flops'] / t['train_ms'] / 1e9:.2f}; issued GFLOP={issued / 1e9:.2f} "
+            f"issued_TFLOPs={issued / t['ms'] / 1e9:.2f} / {issued / t['train_ms'] / 1e9:.2f} "
+            f"(alone / from B3's statistics)")
+        del lib_out, qg, kg, vg, qkv, q, k, v, do, outs, fwd_stats, fwd_out
         torch.cuda.empty_cache()
 
     # Phase 7: the train main path.
@@ -2172,11 +2196,13 @@ def main():
                             for k, v in cli_launches.items()})
     b4_bf16 = attn_bwd_bf16[HEADS]
     entries[-1]["bf16"] = dict(
-        one_call(b4_bf16), launches=sum(b4_bf16_by_path.values()),
+        one_call(b4_bf16), train_step_form_ms=b4_bf16["train_ms"],
+        launches=sum(b4_bf16_by_path.values()),
         launches_by_path=b4_bf16_by_path,
         source="diff3dhpe_torch/csrc/grand_attention.cu (grand_attn_bwd_bf16.cuh)",
         work=f"one call, [B*H={b4_bf16['g']}, N={FRAMES}, D={b4_bf16['d']}] bf16 qkv views",
         d128=dict(one_call(attn_bwd_bf16[HEADS4]),
+                  train_step_form_ms=attn_bwd_bf16[HEADS4]["train_ms"],
                   work=f"one call, [B*H={attn_bwd_bf16[HEADS4]['g']}, N={FRAMES}, "
                        f"D={EMBED // HEADS4}] bf16 qkv views"))
     entries[2]["bf16"] = dict(

@@ -68,17 +68,21 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
-// Spins until the barrier's phase differs from `parity`.
+// Spins until the barrier's phase of parity `parity` has completed. A wait
+// that outlasts any real one (a lost TMA transaction) traps, so the launch
+// fails with an error instead of holding the card.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
+  for (long long spins = 0;; ++spins) {
+    uint32_t done;
     asm volatile(
         "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         " selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-  } while (!done);
+    if (done) return;
+    if (spins > (1LL << 26)) __trap();
+  }
 }
 // One box of a 2-D tensor map into shared memory; completion on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,

@@ -55,8 +55,9 @@
 //       arithmetic). Shared memory 93 KB for pass 1 (two blocks an SM), 48
 //       KB (D = 128) or 32 KB (D = 64) for pass 2. Each output element is
 //       written by one thread: no atomics, so the gradients are deterministic.
-//       At bf16, B4 is the tensor-core backward of grand_attn_bwd_bf16.cuh: a
-//       dq pass and a dk/dv pass on mma.sync, at JAX's rounding points.
+//       At bf16, B4 is the backward of grand_attn_bwd_bf16.cuh on wgmma and
+//       TMA: the rows' statistics from K1, a dq pass and a dk/dv pass, at
+//       JAX's rounding points.
 //   B6  the small-group kernel of grand_attn.cuh (n <= 64): persistent
 //       blocks walk the (group, head) pairs through a two-stage cp.async
 //       ring of whole pairs, a lane holds a (query, key) micro-tile of the
@@ -479,17 +480,24 @@ extern "C" int diff3dhpe_grand_attn_fwd_f32(
 // B3 at bf16: the same arguments on bf16 operands (d = 64 or 128), through
 // the tensor-core kernel of grand_attn_bf16.cuh (P rounded to bf16 after the
 // normalisation, one rounding of P·v − v). Every stride a multiple of 8
-// elements and every base 16-byte aligned (checked by the wrapper).
+// elements and every base 16-byte aligned (checked by the wrapper). stats
+// may be null; else it holds B·H·nt·192 floats (nt = n rounded up to 64,
+// over 64) and the launch writes each row's −max·scale and 1/sum there for
+// a later diff3dhpe_grand_attn_bwd_bf16.
 extern "C" int diff3dhpe_grand_attn_fwd_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, __nv_bfloat16* out,
     int B, int H, int n, int d,
     long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
-    long long o_sh, long long o_sn, float scale, int* launches, void* stream_ptr) {
+    long long o_sh, long long o_sn, float scale, float* stats, int* launches,
+    void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const cudaError_t err = grand::launch_grand_attn_bf16(q, k, v, out, STRIDES(q), STRIDES(k),
-                                                        STRIDES(v), STRIDES(o), B, H, n, n, d,
-                                                        scale, stream);
+#define FWD_ARGS q, k, v, out, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(o), B, H, n, n, d, \
+                 scale, stream
+  const cudaError_t err =
+      stats ? grand::launch_grand_attn_bf16<false, true>(FWD_ARGS, 1, stats)
+            : grand::launch_grand_attn_bf16(FWD_ARGS);
+#undef FWD_ARGS
   if (err != cudaSuccess) return (int)err;
   ++*launches;
   return 0;
@@ -524,8 +532,8 @@ extern "C" int diff3dhpe_grand_attn_small_bf16(
     long long o_sh, long long o_sn, float scale, int* launches, void* stream_ptr) {
   if (n > kSmallMaxN) return (int)cudaErrorInvalidValue;
   return diff3dhpe_grand_attn_fwd_bf16(q, k, v, out, B, H, n, d, q_sb, q_sh, q_sn, k_sb, k_sh,
-                                       k_sn, v_sb, v_sh, v_sn, o_sb, o_sh, o_sn, scale, launches,
-                                       stream_ptr);
+                                       k_sn, v_sb, v_sh, v_sn, o_sb, o_sh, o_sn, scale, nullptr,
+                                       launches, stream_ptr);
 }
 
 // B4: dq, dk, dv of B3 given dO, as two kernels (the dq pass, then the
@@ -557,27 +565,31 @@ extern "C" int diff3dhpe_grand_attn_bwd_f32(
   return (int)err;
 }
 
-// B4 at bf16: dq, dk, dv of B3 at bf16 given dO, as two kernels (the dq
-// pass, then the dk/dv pass) on the tensor cores, with P recomputed from q
-// and k, at d = 64 or 128 and n <= 256; arguments as the f32 entry point
-// without B3's output, strides as B3 at bf16. stats is scratch of
-// 3·B·H·n16 floats (n16 = n rounded up to 16): the dq pass leaves each
-// row's softmax statistics and D there for the dk/dv pass. Adds one to
-// *launches for each kernel launched; returns the first cudaError_t
-// reported.
+// B4 at bf16: dq, dk, dv of B3 at bf16 given dO, on wgmma, at d = 64 or
+// 128 and n <= 256; arguments as the f32 entry point without B3's output,
+// strides as B3 at bf16. stats: B·H·nt·192 floats (nt = n rounded up to 64,
+// over 64); with have_stats it holds the rows' statistics that a launch of
+// diff3dhpe_grand_attn_fwd_bf16 on these q, k, v wrote, else the dq pass
+// forms them (in K1's order of operations, so both give the same bits) and
+// writes them there; the dq pass adds each row's D for the dk/dv pass. Two
+// kernels; adds one to *launches for each launched; returns the first
+// cudaError_t reported.
 extern "C" int diff3dhpe_grand_attn_bwd_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const __nv_bfloat16* dout, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
-    float* stats, int B, int H, int n, int d, long long q_sb, long long q_sh, long long q_sn,
-    long long k_sb, long long k_sh, long long k_sn, long long v_sb, long long v_sh,
-    long long v_sn, long long g_sb, long long g_sh, long long g_sn, long long dq_sb,
-    long long dq_sh, long long dq_sn, long long dk_sb, long long dk_sh, long long dk_sn,
-    long long dv_sb, long long dv_sh, long long dv_sn, float scale, int* launches,
-    void* stream_ptr) {
+    float* stats, int have_stats, int B, int H, int n, int d, long long q_sb, long long q_sh,
+    long long q_sn, long long k_sb, long long k_sh, long long k_sn, long long v_sb,
+    long long v_sh, long long v_sn, long long g_sb, long long g_sh, long long g_sn,
+    long long dq_sb, long long dq_sh, long long dq_sn, long long dk_sb, long long dk_sh,
+    long long dk_sn, long long dv_sb, long long dv_sh, long long dv_sn, float scale,
+    int* launches, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || n > kMaxN || !grand::takes_head_dim(d)) return (int)cudaErrorInvalidValue;
-#define BWD_ARGS q, k, v, dout, dq, dk, dv, stats, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(g), \
-                 STRIDES(dq), STRIDES(dk), STRIDES(dv), B, H, n, scale, launches, stream
+  if (n <= 0 || n > kMaxN || !grand::takes_head_dim(d) || stats == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define BWD_ARGS q, k, v, dout, dq, dk, dv, stats, have_stats != 0, STRIDES(q), STRIDES(k), \
+                 STRIDES(v), STRIDES(g), STRIDES(dq), STRIDES(dk), STRIDES(dv), B, H, n, scale, \
+                 launches, stream
   const cudaError_t err = d == 64 ? grand::launch_bwd_bf16<64>(BWD_ARGS)
                                   : grand::launch_bwd_bf16<128>(BWD_ARGS);
 #undef BWD_ARGS

@@ -292,15 +292,25 @@ __device__ __forceinline__ void tc_store_rows(__nv_bfloat16* dst, long long row_
   }
 }
 
+// What the forward hands B4 at bf16 (grand_attn_bwd_bf16.cuh): for each
+// (group, head) pair and 64-row tile of queries, three planes of 64 floats,
+// each row's −max·scale, 1/sum and (written by B4's dq pass) D.
+constexpr int kBwdTileRows = 64;
+constexpr int kBwdStatFloats = 3 * kBwdTileRows;
+
 // Warps are grouped in teams of qtb: team s of block x takes pair
 // x·teams + s (b = pair / H, h = pair % H) and warp w of the team its
 // query rows (blockIdx.y·qtb + w)·16 ... + 15. Keys are padded to 16·KT16.
-template <int D, int KT16, bool kOuter>
+// With kStats (the trainable forward's instance; B1, B2, B5 and B3 at eval
+// run the one without), stats holds pairs·nt·kBwdStatFloats floats (nt =
+// 64-row tiles a pair) and receives each row's −max·scale and 1/sum.
+template <int D, int KT16, bool kOuter, bool kStats = false>
 __global__ void __launch_bounds__(32 * TcConfig<D, KT16>::kWarps, TcConfig<D, KT16>::kMinBlocks)
 grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                        Strides sq, Strides sk, Strides sv, Strides so, int pairs, int H,
-                       int n_keys, int n_queries, int qtb, float scale) {
+                       int n_keys, int n_queries, int qtb, float scale, float* __restrict__ stats,
+                       int nt) {
   using bf16 = __nv_bfloat16;
   constexpr int kLd = tc_ld<D>();
   constexpr int kKeys = 16 * KT16, kTiles = 2 * KT16;  // padded keys; n8 tiles of S
@@ -351,6 +361,20 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     // Normalise, then round: the C fragments of tiles 2·kc and 2·kc + 1 are
     // the A fragment of key chunk kc.
     const float r0 = 1.0f / sum0, r1 = 1.0f / sum1;
+    if constexpr (kStats) {
+      if (t == 0) {
+        float* st = stats + (size_t)pair * nt * kBwdStatFloats;
+        const int ia = i0 + g, ib = ia + 8;
+        if (ia < n_queries) {
+          st[ia / kBwdTileRows * kBwdStatFloats + ia % kBwdTileRows] = nm0;
+          st[ia / kBwdTileRows * kBwdStatFloats + kBwdTileRows + ia % kBwdTileRows] = r0;
+        }
+        if (ib < n_queries) {
+          st[ib / kBwdTileRows * kBwdStatFloats + ib % kBwdTileRows] = nm1;
+          st[ib / kBwdTileRows * kBwdStatFloats + kBwdTileRows + ib % kBwdTileRows] = r1;
+        }
+      }
+    }
 #pragma unroll
     for (int kc = 0; kc < KT16; ++kc) {
       p[kc][0] = mma::pack_bf16(s[2 * kc][0] * r0, s[2 * kc][1] * r0);
@@ -398,12 +422,13 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   tc_store_rows<D>(obase, so.n, Os, i0, n_queries, lane);
 }
 
-template <int D, int KT16, bool kOuter>
+template <int D, int KT16, bool kOuter, bool kStats>
 inline cudaError_t launch_grand_attn_bf16_keys(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                                const __nv_bfloat16* v, __nv_bfloat16* out,
                                                Strides sq, Strides sk, Strides sv, Strides so,
                                                int B, int H, int n_keys, int n_queries,
-                                               float scale, cudaStream_t stream, int outer) {
+                                               float scale, cudaStream_t stream, int outer,
+                                               float* stats) {
   using Cfg = TcConfig<D, KT16>;
   const int q_tiles = (n_queries + 15) / 16;
   const int qtb = q_tiles < Cfg::kWarps ? q_tiles : Cfg::kWarps;
@@ -411,46 +436,52 @@ inline cudaError_t launch_grand_attn_bf16_keys(const __nv_bfloat16* q, const __n
   while (teams > 1 && teams * tc_slot_bytes<D>(KT16, qtb) > Cfg::kSmemBudget) --teams;
   const size_t bytes = teams * tc_slot_bytes<D>(KT16, qtb);
   const cudaError_t err =
-      cudaFuncSetAttribute(grand_attn_bf16_kernel<D, KT16, kOuter>,
+      cudaFuncSetAttribute(grand_attn_bf16_kernel<D, KT16, kOuter, kStats>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const int pairs = B * H;
   const dim3 grid((pairs + teams - 1) / teams, (q_tiles + qtb - 1) / qtb, outer);
-  grand_attn_bf16_kernel<D, KT16, kOuter><<<grid, 32 * qtb * teams, bytes, stream>>>(
-      q, k, v, out, sq, sk, sv, so, pairs, H, n_keys, n_queries, qtb, scale);
+  grand_attn_bf16_kernel<D, KT16, kOuter, kStats><<<grid, 32 * qtb * teams, bytes, stream>>>(
+      q, k, v, out, sq, sk, sv, so, pairs, H, n_keys, n_queries, qtb, scale, stats,
+      (n_queries + kBwdTileRows - 1) / kBwdTileRows);
   return cudaGetLastError();
 }
 
-template <int D, bool kOuter>
+template <int D, bool kOuter, bool kStats>
 inline cudaError_t launch_grand_attn_bf16_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                             const __nv_bfloat16* v, __nv_bfloat16* out,
                                             Strides sq, Strides sk, Strides sv, Strides so, int B,
                                             int H, int n_keys, int n_queries, float scale,
-                                            cudaStream_t stream, int outer) {
-#define GRAND_TC_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer
-  if (n_keys <= 32) return launch_grand_attn_bf16_keys<D, 2, kOuter>(GRAND_TC_ARGS);
-  if (n_keys <= 64) return launch_grand_attn_bf16_keys<D, 4, kOuter>(GRAND_TC_ARGS);
-  if (n_keys <= 128) return launch_grand_attn_bf16_keys<D, 8, kOuter>(GRAND_TC_ARGS);
-  return launch_grand_attn_bf16_keys<D, 16, kOuter>(GRAND_TC_ARGS);
+                                            cudaStream_t stream, int outer, float* stats) {
+#define GRAND_TC_ARGS \
+  q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer, stats
+  if (n_keys <= 32) return launch_grand_attn_bf16_keys<D, 2, kOuter, kStats>(GRAND_TC_ARGS);
+  if (n_keys <= 64) return launch_grand_attn_bf16_keys<D, 4, kOuter, kStats>(GRAND_TC_ARGS);
+  if (n_keys <= 128) return launch_grand_attn_bf16_keys<D, 8, kOuter, kStats>(GRAND_TC_ARGS);
+  return launch_grand_attn_bf16_keys<D, 16, kOuter, kStats>(GRAND_TC_ARGS);
 #undef GRAND_TC_ARGS
 }
 
 // Launches the bf16 attention on (B, H[, outer]) groups of n_keys keys and
 // n_queries >= n_keys query rows at head width d (64 or 128), n_keys <=
 // kMaxN; every stride a multiple of 8 elements and every base 16-byte
-// aligned (checked by the callers).
-template <bool kOuter = false>
+// aligned (checked by the callers). kStats adds B4's row statistics into
+// stats.
+template <bool kOuter = false, bool kStats = false>
 inline cudaError_t launch_grand_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                           const __nv_bfloat16* v, __nv_bfloat16* out, Strides sq,
                                           Strides sk, Strides sv, Strides so, int B, int H,
                                           int n_keys, int n_queries, int d, float scale,
-                                          cudaStream_t stream, int outer = 1) {
-  if (n_keys <= 0 || n_keys > kMaxN || n_queries < n_keys || !takes_head_dim(d)) {
+                                          cudaStream_t stream, int outer = 1,
+                                          float* stats = nullptr) {
+  if (n_keys <= 0 || n_keys > kMaxN || n_queries < n_keys || !takes_head_dim(d) ||
+      (kStats && stats == nullptr)) {
     return cudaErrorInvalidValue;
   }
-#define GRAND_TC_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer
-  return d == 64 ? launch_grand_attn_bf16_d<64, kOuter>(GRAND_TC_ARGS)
-                 : launch_grand_attn_bf16_d<128, kOuter>(GRAND_TC_ARGS);
+#define GRAND_TC_ARGS \
+  q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer, stats
+  return d == 64 ? launch_grand_attn_bf16_d<64, kOuter, kStats>(GRAND_TC_ARGS)
+                 : launch_grand_attn_bf16_d<128, kOuter, kStats>(GRAND_TC_ARGS);
 #undef GRAND_TC_ARGS
 }
 

@@ -76,19 +76,19 @@ SIGNATURES = {
         "diff3dhpe_ln_max_c": [_I],                  # bytes of an element
     },
     "grand_attention": {
-        "diff3dhpe_grand_attn_fwd_f32": (
+        name: (
             [_P] * 4 + [_I] * 4                # q, k, v, out; B, H, n, head_dim
             + [_L] * 12                        # (b, h, n) strides of q, k, v, out
             + [_F, _P, ctypes.POINTER(_I), _P]  # scale, B4's statistics or NULL, launches, stream
-        ),
+        )
+        for name in ("diff3dhpe_grand_attn_fwd_f32", "diff3dhpe_grand_attn_fwd_bf16")
     } | {
         name: (
-            [_P] * 4 + [_I] * 4                # q, k, v, out; B, H, n (B6: n <= 64), head_dim
+            [_P] * 4 + [_I] * 4                # q, k, v, out; B, H, n (<= 64), head_dim
             + [_L] * 12                        # (b, h, n) strides of q, k, v, out
             + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
         )
-        for name in ("diff3dhpe_grand_attn_fwd_bf16", "diff3dhpe_grand_attn_small_f32",
-                     "diff3dhpe_grand_attn_small_bf16")
+        for name in ("diff3dhpe_grand_attn_small_f32", "diff3dhpe_grand_attn_small_bf16")
     } | {
         "diff3dhpe_grand_attn_bwd_f32": (
             [_P] * 10 + [_I] * 4               # q, k, v, dO, B3's out and statistics or NULL,
@@ -97,8 +97,8 @@ SIGNATURES = {
             + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
         ),
         "diff3dhpe_grand_attn_bwd_bf16": (
-            [_P] * 8 + [_I] * 4                # q, k, v, dO, dq, dk, dv, statistics scratch;
-                                               # B, H, n, head_dim
+            [_P] * 8 + [_I] * 5                # q, k, v, dO, dq, dk, dv, the rows' statistics;
+                                               # whether the forward wrote them; B, H, n, head_dim
             + [_L] * 21                        # (b, h, n) strides of q, k, v, dO, dq, dk, dv
             + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
         ),

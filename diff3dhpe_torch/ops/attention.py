@@ -27,7 +27,7 @@ their operands through strides (unit stride on the head dim), so views of a
 qkv projection go in without a copy. B3 and B6 also take bfloat16 (JAX's
 take q's dtype): the tensor-core kernel of ``csrc/grand_attn_bf16.cuh``,
 which rounds P to bf16 after the normalisation and the output once, as
-``grand_attention_stored`` does. So does B4: the tensor-core backward of
+``grand_attention_stored`` does. So does B4: the ``wgmma`` backward of
 ``csrc/grand_attn_bwd_bf16.cuh``, at the rounding points of JAX's Pallas
 tile (``grand_attention_bwd_ref``).
 """
@@ -159,8 +159,8 @@ grand_attention_fullseq.launches = 0
 
 
 def _fullseq(q, k, v, scale, stats=None):
-    """B3 on CUDA tensors; ``stats``: B4's statistics (``_bwd_stats``) for B3
-    at float32 to fill with the rows' max and 1/sum, or None."""
+    """B3 on CUDA tensors; ``stats``: B4's statistics for B3 to fill
+    (``_bwd_stats`` at float32, ``_bwd_stats_bf16`` at bfloat16), or None."""
     q4, k4, v4 = (_as4d(t) for t in (q, k, v))
     out = _empty_like_heads(q4)
     _launch_fwd(q4, k4, v4, out, scale, stats=stats)
@@ -216,10 +216,11 @@ def grand_attention_bwd(q, k, v, do, scale=None):
     operands, given the output gradient ``do``; q, k, v and do all float32
     or all bfloat16 (else ``ValueError``), the gradients in their dtype.
 
-    A CPU tensor runs the plain version. A CUDA tensor launches the two
+    A CPU tensor runs the plain version. A CUDA tensor launches the
     kernels of the backward (``grand_attention_bwd.launches`` counts them,
-    ``.launches_bf16`` those at bf16): at float32 the CUDA-core pair, at
-    bfloat16 the tensor-core pair; or raises."""
+    ``.launches_bf16`` those at bf16) or raises: at float32 the CUDA-core
+    dq and dk/dv passes; at bfloat16 the dq pass (which also forms the
+    rows' softmax statistics) and the dk/dv pass on ``wgmma``."""
     _check_dtypes(q, k, v)
     if do.dtype != q.dtype:
         raise ValueError(f"do must be {q.dtype} like q, k and v, got {do.dtype}")
@@ -229,12 +230,11 @@ def grand_attention_bwd(q, k, v, do, scale=None):
 
 
 def _bwd(q, k, v, do, scale, fwd=None):
-    """B4 on a CUDA tensor; ``fwd``: (B3's output, its statistics) from the
-    trainable forward, or None."""
+    """B4 on a CUDA tensor; ``fwd``: what the trainable forward kept, or
+    None (``_launch_bwd``)."""
     q4, k4, v4, do4 = (_as4d(t) for t in (q, k, v, do))
     dq, dk, dv = (_empty_like_heads(q4) for _ in range(3))
-    _launch_bwd(q4, k4, v4, do4, dq, dk, dv, scale,
-                None if fwd is None else (_as4d(fwd[0]), fwd[1]))
+    _launch_bwd(q4, k4, v4, do4, dq, dk, dv, scale, fwd)
     if q.ndim == 3:
         return tuple(t.view(q.shape) for t in (dq, dk, dv))
     return dq, dk, dv
@@ -249,18 +249,20 @@ class _GrandAttentionTrainable(torch.autograd.Function):
     through ``fused_grand_attention`` (B6 or B3), the backward through B4
     for N > 64 and through the XLA formulas for N <= 64 (JAX ``_gat_bwd``:
     there is no small-N backward kernel), in q's dtype, float32 or bfloat16.
-    On CUDA float32 with N > 64, B3 also keeps each row's softmax max and
-    1/sum, and B4 starts from them and from B3's output instead of
-    recomputing the forward (its first sweep); at bfloat16 B4 recomputes P
-    from q and k, as JAX's kernel does."""
+    On CUDA with N > 64, B3 also keeps each row's softmax statistics, and
+    B4 starts from them: at float32 from the max, 1/sum and B3's output
+    instead of recomputing the forward (its first sweep); at bfloat16 from
+    −max·scale and 1/sum instead of forming them in its dq pass (the same
+    bits either way)."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        if q.device.type == "cuda" and q.shape[-2] > SMALL_N and q.dtype == torch.float32:
+        if q.device.type == "cuda" and q.shape[-2] > SMALL_N:
             _check_dtypes(q, k, v)
-            stats = _bwd_stats(_as4d(q))
+            f32 = q.dtype == torch.float32
+            stats = (_bwd_stats if f32 else _bwd_stats_bf16)(_as4d(q))
             out = _fullseq(q, k, v, None, stats)
-            ctx.save_for_backward(q, k, v, out, stats)
+            ctx.save_for_backward(q, k, v, *((out, stats) if f32 else (stats,)))
             return out
         ctx.save_for_backward(q, k, v)
         return fused_grand_attention(q, k, v)
@@ -348,10 +350,20 @@ def _bwd_stats(q):
     return torch.empty((2, b * h * _n64(n)), device=q.device, dtype=torch.float32)
 
 
+def _bwd_stats_bf16(q):
+    """What B3 at bfloat16 hands B4 for [B, H, N, D] operands: for each
+    (b, h) and 64-row tile of queries, three planes of 64 floats, the rows'
+    −max·scale and 1/sum (B3's launch writes them) and D = Σ P∘dP (B4's dq
+    pass writes it for its dk/dv pass)."""
+    b, h, n, _ = q.shape
+    return torch.empty((b * h * _n64(n) * 3,), device=q.device, dtype=torch.float32)
+
+
 def _launch_fwd(q, k, v, out, scale, small=False, stats=None):
     """Launches B3, or B6 with ``small``, in q's dtype, and counts it on
-    its wrapper. ``stats``: B4's statistics (``_bwd_stats``), which B3 at
-    float32 fills with the rows' max and 1/sum."""
+    its wrapper. ``stats``: B4's statistics (``_bwd_stats`` at float32,
+    ``_bwd_stats_bf16`` at bfloat16), which B3 fills with the rows' softmax
+    statistics."""
     f32 = q.dtype == torch.float32
     lib, scale = _library(q, scale, small)
     q, k, v = (_kernel_operand(t, q) for t in (q, k, v))
@@ -361,8 +373,8 @@ def _launch_fwd(q, k, v, out, scale, small=False, stats=None):
     wrapper = packed_grand_attention if small else grand_attention_fullseq
     kind, dt = "small" if small else "fwd", "f32" if f32 else "bf16"
     fn = getattr(lib, f"diff3dhpe_grand_attn_{kind}_{dt}")
-    # The f32 B3 entry point's statistics pointer.
-    extra = [None if stats is None else stats.data_ptr()] if f32 and not small else []
+    # B3's statistics pointer.
+    extra = [] if small else [None if stats is None else stats.data_ptr()]
     launched = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         err = fn(
@@ -379,11 +391,13 @@ def _launch_fwd(q, k, v, out, scale, small=False, stats=None):
 
 
 def _launch_bwd(q, k, v, do, dq, dk, dv, scale, fwd=None):
-    """Launches B4's two kernels in q's dtype; ``fwd``: (B3's output, the
-    statistics its launch wrote) or None (always None at bfloat16). At
-    float32 the dq pass hands P and dS to the dk/dv pass through a scratch
-    of two [B·H, n64, n64] planes; at bfloat16 each row's softmax
-    statistics and D through three [B·H, n16] planes."""
+    """Launches B4's kernels in q's dtype; ``fwd``: what the trainable
+    forward kept (float32: B3's output and the statistics its launch wrote;
+    bfloat16: the statistics) or None. At float32 the dq pass hands P and dS
+    to the dk/dv pass through a scratch of two [B·H, n64, n64] planes; at
+    bfloat16 the rows' statistics and D go from pass to pass through
+    ``_bwd_stats_bf16``'s planes, whose statistics the dq pass forms itself
+    where the forward did not leave them."""
     lib, scale = _library(q, scale)
     bf16 = q.dtype == torch.bfloat16
     if bf16 and not scale > 0:  # as the forward: the row max is taken before the scale
@@ -394,16 +408,15 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale, fwd=None):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if bf16:
-            stats = torch.empty((3, b * h * (-(-n // 16) * 16)), device=q.device,
-                                dtype=torch.float32)
+            stats = _bwd_stats_bf16(q) if fwd is None else fwd[0]
             err = lib.diff3dhpe_grand_attn_bwd_bf16(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h, n, d,
+                dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), fwd is not None, b, h, n, d,
                 *_strides(q), *_strides(k), *_strides(v), *_strides(do),
                 *_strides(dq), *_strides(dk), *_strides(dv), scale, ctypes.byref(launched), stream,
             )
         else:
-            out, stats = (None, None) if fwd is None else fwd
+            out, stats = (None, None) if fwd is None else (_as4d(fwd[0]), fwd[1])
             pds = torch.empty((2, b * h, _n64(n), _n64(n)), device=q.device, dtype=torch.float32)
             err = lib.diff3dhpe_grand_attn_bwd_f32(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

@@ -24,9 +24,12 @@ of JAX-bf16's deviation from f32) and 0.51-0.55 of that deviation from
 JAX-bf16; a float32 port measures 1.0 on both. The gradient bar holds the
 port between: at least half of JAX-bf16's deviation from f32 (it rounds
 where bf16 rounds), at most all of it, and at most 0.6 of it from JAX-bf16.
-Each JAX program is built once (module-scoped fixtures)."""
+Each JAX program is built once, and the three slow ones (the strict builds
+at F = 9 and F = 72, JAX's bf16 ``fit``) together in threads
+(``jax_builds``)."""
 import os
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import jax
@@ -149,8 +152,7 @@ def _jax_case(model, params, x, t, dp, num_frame, depth, heads, attn_bwds, modul
     return _np(strict_jit(run, params))
 
 
-@pytest.fixture(scope="module")
-def case9():
+def _case9():
     """(port model, inputs, JAX's results): F = 9, embed 32, depth 1, 4
     heads (head_dim 8), drop-path scales drawn at rate 0.5."""
     rng = np.random.default_rng(1)
@@ -161,8 +163,7 @@ def case9():
                                        module=True)
 
 
-@pytest.fixture(scope="module")
-def case72():
+def _case72():
     """The same at F = 72, 2 heads (head_dim 16): the temporal attention (n
     = 72 > 64) goes through B3 and B4 in both packages."""
     rng = np.random.default_rng(72)
@@ -170,6 +171,48 @@ def case72():
     x = rng.standard_normal((2, 72, J, 5)).astype(np.float32)
     t, dp = np.array([3.0, 700.0], np.float32), _dp(9, 2, 1, 72)
     return port, (x, t, dp), _jax_case(model, params, x, t, dp, 72, 1, 2, (True,))
+
+
+BF16_FIT = dict(compute_dtype="bfloat16", fast_train=True, fast_train_attn_bwd=True,
+                drop_path_rate=0.1, remat=True)
+
+
+def _jax_bf16_fit(jax_dir):
+    """JAX's side of ``test_bf16_fit_matches_jax``: its bf16 ``fit`` from
+    ``_params()`` and its draws, keyed as the port's ``fit(draws=...)``
+    asks for them."""
+    kw = {**BASE, **BF16_FIT}
+    cfg, jax_cfg = Config(**kw), JaxConfig(**kw, checkpoint=jax_dir)
+    port_ds, jax_ds = _datasets(cfg, jax_cfg)
+    jax_runner = JaxRunner(jax_cfg, J, JOINTS_LEFT, JOINTS_RIGHT)
+    jax_runner.set_params(_params())
+    with mock.patch.object(jax_runner_module, "build_train_state",
+                           _state_on_mesh(jax_runner.mesh)):
+        expected = jax_runner.fit(jax_ds["train"], jax_ds["val"])
+    n_val = -(-len(port_ds["val"]) // cfg.batch_size_eval)
+    return expected, _jax_draws(cfg, len(port_ds["train"]) // cfg.batch_size, n_val)
+
+
+@pytest.fixture(scope="module")
+def jax_builds(tmp_path_factory):
+    """Every JAX result of this file that takes a compile of many seconds
+    (the two strict builds and JAX's bf16 fit), started together on first
+    use, each once for the file. XLA compiles without holding the GIL, so
+    one build's compile overlaps the others' tracing and compiles; the
+    tests wait for the result they compare with."""
+    with ThreadPoolExecutor(3) as pool:
+        yield {"case9": pool.submit(_case9), "case72": pool.submit(_case72),
+               "fit": pool.submit(_jax_bf16_fit, str(tmp_path_factory.mktemp("bf16_fit")))}
+
+
+@pytest.fixture(scope="module")
+def case9(jax_builds):
+    return jax_builds["case9"].result()
+
+
+@pytest.fixture(scope="module")
+def case72(jax_builds):
+    return jax_builds["case72"].result()
 
 
 def _port_pair_grads(port, inputs, dtype, attn_bwd):
@@ -337,11 +380,7 @@ def test_bf16_training_drift_bounded():
     assert l16 != l32  # the bf16 run did round
 
 
-BF16_FIT = dict(compute_dtype="bfloat16", fast_train=True, fast_train_attn_bwd=True,
-                drop_path_rate=0.1, remat=True)
-
-
-def test_bf16_fit_matches_jax(tmp_path):
+def test_bf16_fit_matches_jax(tmp_path, jax_builds):
     """One bf16 ``Runner.fit`` of 2 epochs (fast_train with attn_bwd, remat;
     the validation loss on the bf16 module) against JAX's, with JAX's draws
     replayed through ``fit(draws=...)``. Per-epoch train loss, validation
@@ -349,21 +388,14 @@ def test_bf16_fit_matches_jax(tmp_path):
     (1e-3: bf16 rounding of the loss's inputs through two epochs of
     training)."""
     kw = {**BASE, **BF16_FIT}
-    port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
-    cfg, jax_cfg = Config(**kw, checkpoint=port_dir), JaxConfig(**kw, checkpoint=jax_dir)
-    port_ds, jax_ds = _datasets(cfg, jax_cfg)
-    params = _params()
-    jax_runner = JaxRunner(jax_cfg, J, JOINTS_LEFT, JOINTS_RIGHT)
-    jax_runner.set_params(params)
-    with mock.patch.object(jax_runner_module, "build_train_state",
-                           _state_on_mesh(jax_runner.mesh)):
-        expected = jax_runner.fit(jax_ds["train"], jax_ds["val"])
+    port_dir = str(tmp_path / "port")
+    cfg = Config(**kw, checkpoint=port_dir)
+    port_ds, _ = _datasets(cfg, JaxConfig(**kw))
+    expected, draws = jax_builds["fit"].result()
     runner = Runner(cfg, J, JOINTS_LEFT, JOINTS_RIGHT, logger=RunLogger(port_dir), device="cpu")
     assert runner.model.dtype == torch.bfloat16 and runner.model.remat_blocks
-    runner.set_params(params)
-    n_val = -(-len(port_ds["val"]) // cfg.batch_size_eval)
-    out = runner.fit(port_ds["train"], port_ds["val"],
-                     draws=_jax_draws(cfg, len(port_ds["train"]) // cfg.batch_size, n_val))
+    runner.set_params(_params())
+    out = runner.fit(port_ds["train"], port_ds["val"], draws=draws)
     np.testing.assert_allclose(out["losses_train"], expected["losses_train"], rtol=1e-3)
     np.testing.assert_allclose(out["losses_valid"], expected["losses_valid"], rtol=1e-3)
     assert out["best_epoch"] == expected["best_epoch"]

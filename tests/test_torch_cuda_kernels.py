@@ -648,9 +648,10 @@ def test_trainable_attention_grads(cuda_device, n, d):
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("n", [65, 72, 243])
 def test_attention_bwd_bf16_matches_ref(cuda_device, n, d):
-    """B4 at bf16 (the tensor-core pair of kernels) on strided qkv views
-    against its plain version, within the bf16 bars, with the same bits
-    in two calls."""
+    """B4 at bf16 (the dq pass, which also forms the rows' softmax
+    statistics, and the dk/dv pass, both on wgmma) on strided qkv views
+    against its plain version, within the bf16 bars, with the same bits in
+    two calls."""
     (q, k, v), gen = _qkv_views(cuda_device, 3, 2, n, n + d, dtype=torch.bfloat16, d=d)
     do = torch.randn(3, n, 2, d, generator=gen, device=cuda_device).bfloat16().transpose(1, 2)
     before = (grand_attention_bwd.launches, grand_attention_bwd.launches_bf16)
@@ -661,6 +662,27 @@ def test_attention_bwd_bf16_matches_ref(cuda_device, n, d):
         assert_bf16_close(a, b)
     for a, b in zip(got, grand_attention_bwd(q, k, v, do)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n", [72, 243, 256])
+def test_attention_bwd_bf16_from_forward_stats_is_bitwise(cuda_device, n, d):
+    """B4 at bf16 as the train step calls it, from the rows' statistics
+    that the trainable forward's B3 wrote, gives the bits of B4 called
+    alone (whose dq pass forms them in B3's order of operations), and the
+    same bits again in a second backward."""
+    (q, k, v), gen = _qkv_views(cuda_device, 2, 3, n, 7 * n + d, dtype=torch.bfloat16, d=d)
+    do = torch.randn(2, n, 3, d, generator=gen, device=cuda_device).bfloat16().transpose(1, 2)
+    alone = grand_attention_bwd(q, k, v, do)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = grand_attention_trainable(q, k, v)
+    before = grand_attention_bwd.launches_bf16
+    got = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+    assert grand_attention_bwd.launches_bf16 - before == 2
+    again = torch.autograd.grad(out, (q, k, v), do)
+    for a, b, c in zip(got, alone, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 @pytest.mark.cuda

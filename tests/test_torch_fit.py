@@ -120,13 +120,16 @@ def _val_draw(key, b_eval, f, t_max):
 def _jax_draws(cfg, n_train, n_val):
     """JAX's draws of an unbroken ``fit`` from PRNGKey(seed), keyed as
     the port's ``draws`` asks for them."""
-    f, t_max = cfg.number_of_frames, cfg.timesteps
+    f, t_max, depth = cfg.number_of_frames, cfg.timesteps, cfg.transformer_depth
+    # At depth 1 the one block pair's rate is linspace(0, rate, 1)[0] = 0
+    # whatever the config's rate, so every rate draws the same bits: pass 0
+    # and compile the draw once for the fits of both files.
+    rate = cfg.drop_path_rate if depth > 1 else 0.0
     out = {}
     key = jax.random.PRNGKey(cfg.seed)
     for epoch in range(cfg.epochs):
         for i in range(n_train):
-            key, out["train", epoch, i] = _train_draw(
-                key, cfg.batch_size, f, t_max, cfg.transformer_depth, cfg.drop_path_rate)
+            key, out["train", epoch, i] = _train_draw(key, cfg.batch_size, f, t_max, depth, rate)
         val_key = key
         for i in range(n_val):
             val_key, out["val", epoch, i] = _val_draw(val_key, cfg.batch_size_eval, f, t_max)
