@@ -38,7 +38,14 @@ the port's seeded init:
          each epoch, then the run resumed from epoch_0, then --evaluate
          best_epoch, each held against the unbroken run; then the same on
          configs/h36m_gt_s2s_243f_tpu.json (bf16 training, remat, 4 heads,
-         mixed validation) with fast_train_attn_bwd.
+         mixed validation) with fast_train_attn_bwd;
+  bench  the port's bench, bench_torch.py, as a user runs it (a
+         subprocess at the flagship protocol, BENCH_ITERS=4), at mixed and
+         at float32;
+  study  the accuracy study, scripts/accuracy_study_torch.py, into a
+         temporary STUDY_DIR at full width cut to depth 2, 1 action and 1
+         epoch: bf16 training through fit, then its eight eval variants on
+         the same weights and x_T, gated against the plain f32 module.
 
 Any failed check raises and the script exits non-zero.
 
@@ -71,7 +78,8 @@ epoch's loss, validation MPJPE and seconds, samples/s through fit, the
 checkpoint's size and write seconds, peak memory, the launches of one
 epoch, the resumed run and --evaluate best_epoch against the unbroken run,
 and no host wait inside the train loop; 11c the same on the TPU config at
-bf16); then a JSON line with every kernel's
+bf16; 12 bench_torch.py's JSON line at mixed and float32, with its launches;
+13 the accuracy study's table, its gate and its launches); then a JSON line with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}. Exits non-zero
 without a CUDA device, and where the port's package is not beside this
 script.
@@ -365,6 +373,7 @@ def main():
     from diff3dhpe_torch.cli.run import main as cli_main
     from diff3dhpe_torch.models import mixste
     from diff3dhpe_torch.models.mixste import Block, init_weights
+    from diff3dhpe_torch.ops import read_launches, reset_launches
     from diff3dhpe_torch.ops._build import SOURCES, build_all
     from diff3dhpe_torch.ops.attention import _bwd, _bwd_stats, _bwd_stats_bf16, _fullseq
     from diff3dhpe_torch.ops.fused_block import (
@@ -2068,6 +2077,93 @@ def main():
         f"{ {k: {n: v for n, v in c['launches'].items() if v} for k, c in tpu_cli.items()} }")
     del run_tpu, resumed_tpu
     fits.clear()
+    torch.cuda.empty_cache()
+
+    # Phase 12: the port's bench, bench_torch.py, as a user runs it: a
+    # subprocess (it supervises its own child) at the flagship protocol
+    # (243 frames, DDIM-9, flip-TTA, batch 2, seed-0 weights) with
+    # BENCH_ITERS=4, at mixed and at float32. Each prints one JSON line,
+    # whose numbers must be finite and whose card must be this one; its
+    # launches, counted by the wrappers in the bench's own process around
+    # its 3 timed loops of 4 steps, must be those of 12 eval steps.
+    bench_steps = 3 * 4
+    for dtype in ("mixed", "float32"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(here, "bench_torch.py")], cwd=here,
+                              env=dict(os.environ, BENCH_DTYPE=dtype, BENCH_ITERS="4"),
+                              capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"bench_torch.py at {dtype} exited {proc.returncode}:\n"
+              f"{proc.stderr[-3000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        d = line["detail"]
+        numbers = [line["value"], d["frames_per_sec_per_chip"], d["achieved_tflops"], d["mfu"],
+                   d["model_tflops_per_seq"], *d["seq_per_s_repeats"], *d["wall_s"]]
+        check(all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0 for v in numbers),
+              f"bench_torch.py at {dtype}: numbers {numbers}")
+        check(d["card"] == kind and d["power_limit"] and d["device"] == "cuda"
+              and d["dtype"] == dtype and d["out_shape"] == [BATCH, FRAMES, JOINTS, 3],
+              f"bench_torch.py at {dtype}: {d}")
+        b1 = bench_steps * DDIM_STEPS * 2 * DEPTH * per_call
+        want = {"fused_transformer_block": b1}
+        if dtype == "mixed":
+            want["fused_transformer_block_bf16"] = b1 * (DDIM_STEPS - 1) // DDIM_STEPS
+        check(d["launches"] == want, f"bench_torch.py at {dtype} launched {d['launches']}, "
+              f"expected {want}")
+        cli_launches[f"bench_torch_{dtype}"] = {c.__name__: 0 for c in kernel_counters} | {
+            "fused_transformer_block_bf16": 0, "plain_attention_calls": 0} | d["launches"]
+        say(f"phase 12 bench_torch.py BENCH_DTYPE={dtype} BENCH_ITERS=4 "
+            f"({time.perf_counter() - t0:.1f} s): {proc.stdout.strip().splitlines()[-1]}")
+
+    # Phase 13: the accuracy study, scripts/accuracy_study_torch.py, at full
+    # width (243 frames, embed 512, 8 heads) cut to depth 2, 1 action and 1
+    # epoch, into a temporary STUDY_DIR: training through Runner.fit (bf16,
+    # fast_train with the attention backward kernels, bf16 validation),
+    # then the eight variants on the same weights and x_T. The
+    # table must have the JAX study's layout, every variant finite, and
+    # fast_f32 must pass the gate against plain_f32.
+    sys.path.insert(0, os.path.join(here, "scripts"))
+    import accuracy_study_torch as study
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            table = study.main({"STUDY_DIR": tmp, "STUDY_DEPTH": "2", "STUDY_ACTIONS": "1",
+                                "STUDY_EPOCHS": "1"})
+        torch.cuda.synchronize()
+        study_files = sorted(os.listdir(tmp))
+    study_s = time.perf_counter() - t0
+    study_launches = read_launches()
+    cli_launches["accuracy_study"] = dict(study_launches, plain_attention_calls=0)
+    names = [v[0] for v in study.VARIANTS]
+    check(set(table) == {"config", "results", "deltas_vs_plain_f32_mm", "gate",
+                         "raw_prediction_deviation_vs_plain_f32", "jax_counterparts",
+                         "not_ported"} and list(table["results"]) == names
+          and set(table["gate"]["paths"]) == {n for n in names if study.is_gated(n)} - {
+              study.BASELINE}
+          and len(table["not_ported"]) == len(study.NOT_PORTED)
+          and study_files == ["accuracy_study_torch.json", "study_ckpt_torch", "study_out_torch"],
+          f"accuracy study: the table's layout {sorted(table)}, results {list(table['results'])},"
+          f" files {study_files}")
+    check(all(math.isfinite(v) for r in table["results"].values() for v in r.values()),
+          f"accuracy study: results {table['results']}")
+    check(table["config"]["card"] == kind and table["config"]["epochs_run"] == 1,
+          f"accuracy study: config {table['config']}")
+    check(table["gate"]["paths"]["fast_f32"]["passes"],
+          f"accuracy study: fast_f32 fails the gate: {table['gate']['paths']['fast_f32']}")
+    check(all(study_launches[k] > 0 for k in (
+        "fused_transformer_block", "fused_transformer_block_bf16", "grand_attention_fullseq",
+        "grand_attention_bwd_bf16", "packed_grand_attention", "packed_grand_attention_bf16")),
+          f"accuracy study: a kernel of its paths was launched no time: {study_launches}")
+    say(f"phase 13 accuracy study at embed {EMBED}, {HEADS} heads, {FRAMES} frames, depth 2, "
+        f"1 action, 1 epoch ({study_s:.1f} s): windows {table['config']['windows']}; "
+        f"best val MPJPE {table['config']['best_val_mpjpe_mm']:.3f} mm; results "
+        f"{ {k: {m: round(v, 4) for m, v in r.items()} for k, r in table['results'].items()} }; "
+        f"gate passes { {k: g['passes'] for k, g in table['gate']['paths'].items()} }; "
+        f"eval_s { {k: round(v, 2) for k, v in table['config']['eval_s'].items()} }; "
+        f"launches { {k: v for k, v in study_launches.items() if v} }")
+    del table
     torch.cuda.empty_cache()
 
     # One entry per kernel. B1's work is one spatial + one temporal call at

@@ -1,14 +1,18 @@
-"""Evaluation metrics: Protocols #1/#2/#3 and the velocity error.
+"""Evaluation metrics: Protocols #1/#2/#3, velocity errors, the auxiliary
+bone losses, and 3DHP PCK/AUC.
 
-The host-side NumPy functions of ``diff3dhpe_tpu/metrics/metrics.py`` that
-the evaluate path calls, operation for operation, so the two packages
-report bit-equal numbers on the same arrays (reference:
-common/loss.py:15-142). The remaining metrics of that module (PCK/AUC, the
-device Procrustes variant, the auxiliary losses) are not ported yet.
+``mpjpe``, ``n_mpjpe``, ``p_mpjpe`` and ``mean_velocity_error`` are the
+host-side NumPy functions of ``diff3dhpe_tpu/metrics/metrics.py`` that the
+evaluate path calls, operation for operation, so the two packages report
+bit-equal numbers on the same arrays (reference: common/loss.py:15-142).
+The rest of that module is here in torch, on tensors of any device: what
+JAX runs under ``jax.numpy`` (``xp=jnp``) runs here as torch operations,
+and ``p_mpjpe_device`` is the batched Procrustes on ``torch.linalg.svd``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _norm(x, axis, xp):
@@ -94,3 +98,112 @@ def mean_velocity_error(predicted, target):
     return np.mean(
         np.linalg.norm(velocity_predicted - velocity_target, axis=len(target.shape) - 1)
     )
+
+
+def _tnorm(x):
+    return torch.sqrt(torch.sum(x * x, dim=-1))
+
+
+def _reduce(per_joint, reduce):
+    if reduce == "mean":
+        return per_joint.mean()
+    if reduce == "none":
+        return per_joint.mean(dim=-1)
+    raise ValueError(f"Unknown reduce method: {reduce}")
+
+
+def weighted_mpjpe(predicted, target, w, reduce="mean"):
+    """MPJPE with per-joint weights ``w`` (broadcast against [..., J])."""
+    assert predicted.shape == target.shape
+    return _reduce(w * _tnorm(predicted - target), reduce)
+
+
+def p_mpjpe_device(predicted, target):
+    """Protocol #2 on the tensors' device: :func:`p_mpjpe`'s algorithm
+    (reflection fix and scale included) with a batched
+    ``torch.linalg.svd``. predicted/target: [N, J, 3]."""
+    assert predicted.shape == target.shape
+    mu_x = target.mean(dim=1, keepdim=True)
+    mu_y = predicted.mean(dim=1, keepdim=True)
+    x0, y0 = target - mu_x, predicted - mu_y
+    norm_x = torch.sqrt((x0 ** 2).sum(dim=(1, 2), keepdim=True))
+    norm_y = torch.sqrt((y0 ** 2).sum(dim=(1, 2), keepdim=True))
+    x0, y0 = x0 / norm_x, y0 / norm_y
+
+    h = x0.transpose(1, 2) @ y0
+    u, s, vt = torch.linalg.svd(h)
+    v = vt.transpose(1, 2)
+    sign_det_r = torch.sign(torch.linalg.det(v @ u.transpose(1, 2)))
+    v = torch.cat([v[:, :, :-1], v[:, :, -1:] * sign_det_r[:, None, None]], dim=2)
+    s = torch.cat([s[:, :-1], s[:, -1:] * sign_det_r[:, None]], dim=1)
+    r = v @ u.transpose(1, 2)
+
+    tr = s.sum(dim=1, keepdim=True)[:, :, None]
+    a = tr * norm_x / norm_y  # optimal scale
+    t = mu_x - a * (mu_y @ r)  # optimal translation
+    aligned = a * (predicted @ r) + t
+    return _tnorm(aligned - target).mean()
+
+
+def mean_velocity_error_train(predicted, target, axis=0, reduce="mean"):
+    """MPJVE over ``axis`` (0 or 1) of 4-D inputs, differentiable."""
+    assert predicted.shape == target.shape
+    assert predicted.dim() == 4
+    if axis not in (0, 1):
+        raise ValueError(f"Unsupported axis {axis}")
+    diff = lambda a: torch.diff(a, dim=axis)
+    return _reduce(_tnorm(diff(predicted) - diff(target)), reduce)
+
+
+def weighted_bonelen_loss(predict_3d_length, gt_3d_length):
+    """Auxiliary bone-length penalty (reference: common/loss.py:96-98)."""
+    return 0.001 * ((predict_3d_length - gt_3d_length) ** 2).mean()
+
+
+def weighted_boneratio_loss(predict_3d_length, gt_3d_length):
+    """Auxiliary bone-ratio penalty (reference: common/loss.py:100-102)."""
+    return 0.1 * (((predict_3d_length - gt_3d_length) / gt_3d_length) ** 2).mean()
+
+
+def bone_lengths(poses, parents):
+    """Per-bone lengths [..., n_bones] from poses [..., J, 3] and a parent
+    table (root entries with parent -1 are skipped)."""
+    idx = [(j, p) for j, p in enumerate(parents) if p != -1]
+    child = torch.tensor([j for j, _ in idx], device=poses.device)
+    par = torch.tensor([p for _, p in idx], device=poses.device)
+    return _tnorm(poses[..., child, :] - poses[..., par, :])
+
+
+def l1_loss(predicted, target, reduce="mean"):
+    assert predicted.shape == target.shape
+    err = (predicted - target).abs()
+    return err.mean() if reduce == "mean" else err
+
+
+def l2_loss(predicted, target, reduce="mean"):
+    assert predicted.shape == target.shape
+    err = (predicted - target) ** 2
+    return err.mean() if reduce == "mean" else err
+
+
+def pck(predicted, target, threshold=150.0, valid_mask=None):
+    """3DHP PCK: percentage of joints within ``threshold`` (mm, inclusive)
+    of the ground truth. predicted/target: [N, J, 3] in millimetres;
+    valid_mask: optional [N] bool of the frames to count."""
+    assert predicted.shape == target.shape
+    correct = (_tnorm(predicted - target) <= threshold).to(predicted.dtype)
+    if valid_mask is not None:
+        correct = correct[valid_mask]
+    return 100.0 * correct.mean()
+
+
+def auc(predicted, target, thresholds=None, valid_mask=None):
+    """3DHP AUC: mean PCK over thresholds 0..150 mm, step 5 (31 points)."""
+    assert predicted.shape == target.shape
+    if thresholds is None:
+        thresholds = np.arange(0, 151, 5, dtype=np.float64)
+    dist = _tnorm(predicted - target)
+    if valid_mask is not None:
+        dist = dist[valid_mask]
+    pcks = torch.stack([(dist <= float(th)).to(dist.dtype).mean() for th in thresholds])
+    return 100.0 * pcks.mean()

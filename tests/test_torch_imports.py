@@ -1,4 +1,7 @@
-"""The port's import boundary: diff3dhpe_torch and chip_smoke.py load
+"""The port's import boundary: diff3dhpe_torch, chip_smoke.py and the
+port's bench and study scripts (bench_torch.py,
+scripts/accuracy_study_torch.py, scripts/train_bench_torch.py,
+scripts/study_training_check_torch.py) load
 without jax, flax or the JAX package, and the port's entry points refuse a
 missing GPU instead of falling back to the CPU."""
 import ast
@@ -26,18 +29,28 @@ from diff3dhpe_torch.engine.runner import Runner, check_trainable
 from diff3dhpe_torch.io import (load_matching_params, restore_checkpoint, rng_state_from_json,
                                 rng_state_to_json, save_checkpoint)
 assert callable(Runner.fit) and callable(Runner._validate) and callable(Runner._export_curves)
-tree = ast.parse(open("chip_smoke.py").read())
-imported = set()
-for node in ast.walk(tree):
-    if isinstance(node, ast.Import):
-        imported.update(a.name.split(".")[0] for a in node.names)
-    elif isinstance(node, ast.ImportFrom) and node.module:
-        imported.add(node.module.split(".")[0])
+# The entry points beside the package: imported as modules, and every
+# import statement in them (function bodies included) read from the source.
+sys.path[:0] = [".", "scripts"]
+scripts = {"chip_smoke": "chip_smoke.py", "bench_torch": "bench_torch.py",
+           "accuracy_study_torch": "scripts/accuracy_study_torch.py",
+           "train_bench_torch": "scripts/train_bench_torch.py",
+           "study_training_check_torch": "scripts/study_training_check_torch.py"}
+imported = {}
+for module, path in scripts.items():
+    importlib.import_module(module)
+    found = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            found.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            found.add(node.module.split(".")[0])
+    imported[path] = sorted(found)
 loaded = sorted(
     m for m, mod in sys.modules.items()
     if mod is not None and m.split(".")[0] in BANNED
 )
-print("MODULES", sorted(names), "LOADED", loaded, "CHIP_SMOKE_IMPORTS", sorted(imported))
+print("MODULES", sorted(names), "LOADED", loaded, "SCRIPT_IMPORTS", imported)
 """
 
 
@@ -47,9 +60,15 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     line = proc.stdout.strip().splitlines()[-1]
     assert "LOADED []" in line, line
-    smoke_imports = set(ast.literal_eval(line.split("CHIP_SMOKE_IMPORTS ", 1)[1]))
-    assert not smoke_imports & {"jax", "jaxlib", "flax", "optax", "orbax",
-                                "diff3dhpe_tpu"}, smoke_imports
+    script_imports = ast.literal_eval(line.split("SCRIPT_IMPORTS ", 1)[1])
+    assert set(script_imports) == {"chip_smoke.py", "bench_torch.py",
+                                   "scripts/accuracy_study_torch.py",
+                                   "scripts/train_bench_torch.py",
+                                   "scripts/study_training_check_torch.py"}
+    for path, imports in script_imports.items():
+        assert "diff3dhpe_torch" in imports, (path, imports)
+        assert not set(imports) & {"jax", "jaxlib", "flax", "optax", "orbax",
+                                   "diff3dhpe_tpu"}, (path, imports)
     # Every sub-package was walked, the evaluate path's among them.
     walked = set(ast.literal_eval(line.split("MODULES ", 1)[1].split(" LOADED", 1)[0]))
     assert {f"diff3dhpe_torch.{name}" for name in (
@@ -59,6 +78,7 @@ def test_port_and_chip_smoke_import_without_jax():
         "engine.steps", "geometry.camera", "geometry.quaternion", "geometry.skeleton",
         "io.checkpoint", "io.convert", "metrics.metrics", "models.fast_eval", "models.mixste",
         "models.registry", "ops.attention", "ops.fused_block", "utils.misc", "utils.profiling",
+        "utils.supervise", "utils.sync",
     )} <= walked, sorted(walked)
 
 
@@ -74,6 +94,25 @@ def test_default_device_raises_without_gpu(monkeypatch):
         make_eval_step(GaussianDiffusion.create(None, 10, 2), [1], [4])
     cpu_model = MixSTEDenoiser(embed_dim=32, depth=1, num_heads=4, device="cpu")
     assert next(cpu_model.parameters()).device.type == "cpu"
+
+
+def test_bench_and_study_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    """bench_torch.py, scripts/train_bench_torch.py and
+    scripts/accuracy_study_torch.py measure on the card unless the caller
+    asks for the CPU: without one they raise before any work."""
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
+    import accuracy_study_torch
+    import bench_torch
+    import train_bench_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench_torch.measure(frames=9, embed=32, depth=1, heads=4, ddim=2, iters=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_bench_torch.measure("fast_f32", 2, 9, embed=32, depth=1, heads=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        accuracy_study_torch.main({"STUDY_DIR": str(tmp_path)})
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_every_binding_names_a_function_of_its_source():
