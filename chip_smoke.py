@@ -45,7 +45,19 @@ the port's seeded init:
   study  the accuracy study, scripts/accuracy_study_torch.py, into a
          temporary STUDY_DIR at full width cut to depth 2, 1 action and 1
          epoch: bf16 training through fit, then its eight eval variants on
-         the same weights and x_T, gated against the plain f32 module.
+         the same weights and x_T, gated against the plain f32 module;
+  3dhp   the MPI-INF-3DHP entry point, diff3dhpe_torch.cli.run_3dhp.main,
+         on configs/3dhp_gt_s2s_ConditionalDiffusionMixSTES2SGRANDLinLift.json
+         as it stands (27 frames, embed 512, depth 8, 8 heads, DDIM-5, eval
+         batch 512, TS1-TS6) with --synthetic data and a seed-0 .bin: the
+         plain module, --fast-eval at f32, mixed and pure bf16, each with
+         its per-sequence report, PCK, AUC and inference_data.mat; then
+         Runner.evaluate on two full batches of 512 windows, 3 times at f32
+         and at mixed; then 2 epochs of --fast-train and --evaluate
+         best_epoch;
+  humaneva and custom  cli.run.main --dataset humaneva15 --synthetic on
+         configs/h36m_gt_s2s_243f.json (15 joints) in the evaluate
+         configurations, and on a 2D-only custom archive.
 
 Any failed check raises and the script exits non-zero.
 
@@ -79,7 +91,10 @@ checkpoint's size and write seconds, peak memory, the launches of one
 epoch, the resumed run and --evaluate best_epoch against the unbroken run,
 and no host wait inside the train loop; 11c the same on the TPU config at
 bf16; 12 bench_torch.py's JSON line at mixed and float32, with its launches;
-13 the accuracy study's table, its gate and its launches); then a JSON line with every kernel's
+13 the accuracy study's table, its gate and its launches; 9b B1 at groups
+of 27 and 15, B2 with j_groups = 15 and B6 at n = 15, f32 and bf16, vs
+plain; 14 the 3DHP entry point's runs, frames/s and launches; 15 HumanEva's
+runs; 16 the custom archive's report); then a JSON line with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}. Exits non-zero
 without a CUDA device, and where the port's package is not beside this
 script.
@@ -353,6 +368,464 @@ def train_step_flops(b, hidden):
     attn_fwd = 4 * r * EMBED * (JOINTS + FRAMES) * DEPTH
     return 4 * gemm + 2 * attn_fwd + 10 * attn_fwd // 4
 
+
+THREEDHP_CONFIG = "configs/3dhp_gt_s2s_ConditionalDiffusionMixSTES2SGRANDLinLift.json"
+HE_JOINTS, F_3DHP = 15, 27  # HumanEva's joints; the 3DHP config's frames
+# Per-sequence report of cli/run_3dhp.py, and the per-action one of cli/run.py.
+REPORT_3DHP = ("----TS1----", "----TS6----", "eval_frame:", "inference_speed:",
+               "Protocol #1 Error (MPJPE):", "e1 sequence-wise average:",
+               "ev sequence-wise average:", "PCK@150mm:", "AUC:", "Saved raw predictions to")
+REPORT_RUN = ("eval_frame:", "inference_speed:", "Protocol #1 Error (MPJPE):",
+              "Velocity Error (MPJVE):", "Protocol #1   (MPJPE) action-wise average:")
+
+
+def drive(fn, *args, **kwargs):
+    """Runs fn(*args, **kwargs) as a driven path: every kernel wrapper's
+    launch counts (the blocks' f32 GEMM and LN counts too) set to 0 just
+    before it, read just after it (synchronised); its standard output
+    captured; every Runner.evaluate result and every call of the module's
+    plain attention recorded. Returns (fn's result, dict(launches=,
+    inner=, records=, text=, wall_s=))."""
+    from diff3dhpe_torch.engine.runner import Runner
+    from diff3dhpe_torch.models import mixste
+    from diff3dhpe_torch.ops import (
+        fused_attention_block, fused_temporal_block_cols, fused_transformer_block, read_launches,
+        reset_launches,
+    )
+
+    blocks = (fused_transformer_block, fused_temporal_block_cols, fused_attention_block)
+    records, plain_calls = [], [0]
+    evaluate, plain_attention = Runner.evaluate, mixste.grand_attention
+
+    def recording_evaluate(self, test_ds, *a, **kw):
+        m = evaluate(self, test_ds, *a, **kw)
+        records.append(dict(m, scale=test_ds.scale))
+        return m
+
+    def counting_attention(*a, **kw):
+        plain_calls[0] += 1
+        return plain_attention(*a, **kw)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    for b in blocks:
+        b.launches_gemm_f32 = b.launches_ln = 0
+    text = io.StringIO()
+    Runner.evaluate, mixste.grand_attention = recording_evaluate, counting_attention
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(text):
+            result = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        Runner.evaluate, mixste.grand_attention = evaluate, plain_attention
+    wall = time.perf_counter() - t0
+    launches = dict(read_launches(), plain_attention_calls=plain_calls[0])
+    inner = {"gemm_f32": sum(b.launches_gemm_f32 for b in blocks),
+             "layer_norm": sum(b.launches_ln for b in blocks)}
+    return result, dict(launches=launches, inner=inner, records=records, text=text.getvalue(),
+                        wall_s=wall)
+
+
+def normalised_predictions(records):
+    """The predictions of a run's Runner.evaluate calls, in normalised units."""
+    return torch.cat([torch.from_numpy(r["predictions"] / r["scale"]) for r in records])
+
+
+def check_group_sizes(make_block, timings, check_bf16, randn, peak_flops, peak_bf16):
+    """Phase 9b: B1 (rows) at groups of 27 (the 3DHP config's frames, at
+    its eval rows: 512 windows x2 flip x 27 frames x 17 joints) and of 15
+    (HumanEva's joints, at the 243-frame eval rows: 2 x2 flip x 243 x 15),
+    B2 with j_groups = 15, and B6 at n = 15, each at float32 and bfloat16
+    with 8 heads, against its plain version with the bars of phases 2, 2b,
+    2c and 8. Returns {kernel: {shape: numbers}} for the kernels line."""
+    from torch.nn import functional as F
+
+    from diff3dhpe_torch import (
+        fused_temporal_block_cols, fused_temporal_block_cols_ref, fused_transformer_block,
+        fused_transformer_block_ref, packed_grand_attention, packed_grand_attention_ref,
+    )
+
+    hidden = int(EMBED * MLP_RATIO)
+    out = {"B1": {}, "B2": {}, "B6": {}}
+
+    def errors(label, dt, got, ref, abs_tol=None):
+        if dt == torch.bfloat16:
+            abs_err, rel, mean_rel = check_bf16(label, got, ref)
+            return abs_err, f"max_rel_err={rel:.3e} mean_rel_err={mean_rel:.3e} (tol " \
+                            f"{BF16_MAX_TOL}, {BF16_MEAN_TOL})"
+        check(torch.isfinite(got).all().item(), f"{label}: output not finite")
+        abs_err, rel = rel_err(got, ref)
+        if abs_tol is not None:
+            check(abs_err <= abs_tol, f"{label}: abs err {abs_err:.3e} > {abs_tol}")
+            return abs_err, f"(tol {abs_tol}), same bits twice"
+        check(rel <= KERNEL_REL_TOL, f"{label}: rel err {rel:.3e} > {KERNEL_REL_TOL}")
+        return abs_err, f"rel_err={rel:.3e} (tol {KERNEL_REL_TOL})"
+
+    with torch.no_grad():
+        block, out_ln = make_block(11)
+        for dt in (torch.float32, torch.bfloat16):
+            blk, oln = block, out_ln
+            if dt == torch.bfloat16:
+                blk = copy.deepcopy(block)
+                for m in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+                    m.weight.data = m.weight.data.bfloat16()
+            lib_blk, lib_oln = copy.deepcopy(block).to(dt), copy.deepcopy(out_ln).to(dt)
+            peak, suffix = (peak_flops, "") if dt == torch.float32 else (peak_bf16, "_bf16")
+            for name, items, per_item, n in (("n27", 1024, F_3DHP * JOINTS, F_3DHP),
+                                             ("n15", 2 * BATCH, FRAMES * HE_JOINTS, HE_JOINTS)):
+                r = items * per_item
+                x = randn(r, EMBED).to(dt)
+                t_rows = randn(items, EMBED, scale=0.5).to(dt)
+                kw = dict(t_rows=t_rows, rows_per_item=per_item, out_ln=oln)
+                run = lambda: fused_transformer_block(x, blk, n, HEADS, **kw)
+                plain = lambda: fused_transformer_block_ref(x, blk, n, HEADS, **kw)
+                lib = lambda: library_block(x, lib_blk, n, HEADS, t_rows, per_item, lib_oln)
+                label = f"B1 {name} {dt}"
+                abs_err, errs = errors(label, dt, run(), plain())
+                t = timings(run, plain, lib, *block_work(r, n, EMBED, hidden, items,
+                                                         dt.itemsize), peak)
+                out["B1"][name + suffix] = dict(abs_err=abs_err, **t)
+                say(f"phase 9b fused_transformer_block {name} {dt}: R={r} n={n} heads={HEADS} "
+                    f"max_abs_err={abs_err:.3e} {errs} ms={t['ms']:.4f} "
+                    f"plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} "
+                    f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
+                del x, t_rows
+            # B2 on HumanEva's cols layout: x [items*F, 15*C], groups of F frames.
+            items = 2 * BATCH
+            x = randn(items * FRAMES, HE_JOINTS * EMBED).to(dt)
+            t_rows = randn(items, EMBED, scale=0.5).to(dt)
+            kw = dict(t_rows=t_rows, out_ln=oln)
+            run = lambda: fused_temporal_block_cols(x, blk, FRAMES, HE_JOINTS, HEADS, **kw)
+            plain = lambda: fused_temporal_block_cols_ref(x, blk, FRAMES, HE_JOINTS, HEADS, **kw)
+            lib = lambda: library_cols(x, lib_blk, FRAMES, HE_JOINTS, HEADS, t_rows, lib_oln)
+            abs_err, errs = errors(f"B2 j_groups 15 {dt}", dt, run(), plain())
+            r = items * FRAMES * HE_JOINTS
+            t = timings(run, plain, lib, *block_work(r, FRAMES, EMBED, hidden, items,
+                                                     dt.itemsize), peak)
+            out["B2"]["j15" + suffix] = dict(abs_err=abs_err, **t)
+            say(f"phase 9b fused_temporal_block_cols j_groups={HE_JOINTS} {dt}: x=[{items}*"
+                f"{FRAMES}, {HE_JOINTS}*{EMBED}] max_abs_err={abs_err:.3e} {errs} "
+                f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} "
+                f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
+            del x, t_rows, lib_blk, lib_oln
+            # B6 at n = 15 on views of a qkv projection, in device time.
+            b, hd = 2 * BATCH * FRAMES, EMBED // HEADS
+            q, k, v = randn(b, HE_JOINTS, 3, HEADS, hd).to(dt).permute(2, 0, 3, 1, 4)
+            run = lambda: packed_grand_attention(q, k, v)
+            plain = lambda: packed_grand_attention_ref(q, k, v)
+            lib = lambda: F.scaled_dot_product_attention(q, k, v) - v
+            got = run()
+            abs_err, errs = errors(f"B6 n15 {dt}", dt, got, plain(),
+                                   SMALL_ATTN_ABS_TOL if dt == torch.float32 else None)
+            if dt == torch.float32:
+                check(torch.equal(got, run()), "B6 n15: two calls gave different bits")
+            pairs = b * HEADS
+            t = timings(run, plain, lib, 4 * pairs * HE_JOINTS ** 2 * hd,
+                        4 * dt.itemsize * pairs * HE_JOINTS * hd, peak, device_ms)
+            out["B6"]["n15" + suffix] = dict(abs_err=abs_err, **t)
+            say(f"phase 9b packed_grand_attention n={HE_JOINTS} {dt}: [G={pairs}, N={HE_JOINTS}, "
+                f"D={hd}] max_abs_err={abs_err:.3e} {errs} device ms={t['ms']:.4f} "
+                f"plain_ms={t['plain_ms']:.4f} library_ms={t['lib_ms']:.4f} (SDPA - v) "
+                f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
+            del q, k, v, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def seed_weights(path, frames, joints, dev):
+    """A seed-0 state dict of the full-width denoiser, as a reference .bin."""
+    from diff3dhpe_torch import MixSTEDenoiser
+
+    torch.save(MixSTEDenoiser(num_frame=frames, num_joints=joints, embed_dim=EMBED, depth=DEPTH,
+                              num_heads=HEADS, mlp_ratio=MLP_RATIO, seed=0,
+                              device=dev).state_dict(), path)
+
+
+def eval_want(forwards, per_call):
+    """The launches of each evaluate mode over ``forwards`` denoiser
+    forwards: the plain module's attention calls, B1's (and its bf16 ones,
+    all but the f32 final step of each DDIM-5 loop in the mixed mode), and
+    with use_pallas B6 for the joints and B3 for the frames."""
+    zero = {"plain_attention_calls": 0, "fused_transformer_block": 0,
+            "fused_transformer_block_bf16": 0, "packed_grand_attention": 0,
+            "grand_attention_fullseq": 0}
+    b1 = 2 * DEPTH * per_call * forwards
+    return {
+        "plain": dict(zero, plain_attention_calls=2 * DEPTH * forwards),
+        "use_pallas": dict(zero, packed_grand_attention=DEPTH * forwards,
+                           grand_attention_fullseq=DEPTH * forwards),
+        "fast_eval": dict(zero, fused_transformer_block=b1),
+        "mixed": dict(zero, fused_transformer_block=b1, fused_transformer_block_bf16=b1 * 4 // 5),
+        "bf16": dict(zero, fused_transformer_block=b1, fused_transformer_block_bf16=b1),
+    }
+
+
+EVAL_MODES = {  # the evaluate configurations of phases 14 and 15
+    "plain": [],
+    "fast_eval": ["--fast-eval"],
+    "mixed": ["--fast-eval", "--compute-dtype", "bfloat16", "--eval-f32-head",
+              "--eval-f32-final-steps", "1"],
+    "bf16": ["--fast-eval", "--compute-dtype", "bfloat16"],
+}
+
+
+def hold_eval_modes(phase, runs, want):
+    """Checks each evaluate run's launches against ``want`` (zero for every
+    key not named there) and holds the kernel runs against the plain one:
+    use_pallas and fast_eval within EVAL_ABS_BOUND, mixed no further in
+    MPJPE than pure bf16. Prints one line a run."""
+    plain = runs["plain"]["pred"]
+    for name, r in runs.items():
+        got = {k: r["launches"].get(k, 0) for k in want[name]}
+        others = {k: v for k, v in r["launches"].items() if v and k not in want[name]}
+        check(got == want[name] and not others,
+              f"{phase} {name} launched {r['launches']}, expected {want[name]}")
+        check(torch.isfinite(r["pred"]).all().item(), f"{phase} {name}: predictions not finite")
+        r["dev"] = (r["pred"] - plain).abs().max().item()
+        r["mpjpe"] = mpjpe(r["pred"], plain)
+    for name in ("use_pallas", "fast_eval"):
+        if name in runs:
+            check(runs[name]["dev"] <= EVAL_ABS_BOUND, f"{phase} {name} deviates from the plain "
+                  f"run by {runs[name]['dev']:.3e} > {EVAL_ABS_BOUND}")
+    check(runs["mixed"]["mpjpe"] <= runs["bf16"]["mpjpe"], f"{phase} mixed mpjpe "
+          f"{runs['mixed']['mpjpe']:.4e} > the bf16 run's {runs['bf16']['mpjpe']:.4e}")
+
+
+def drive_3dhp(dev, per_call):
+    """Phase 14: the MPI-INF-3DHP entry point, cli/run_3dhp.main, on the
+    3DHP config as it stands (27 frames, embed 512, depth 8, 8 heads,
+    DDIM-5, eval batch 512, TS1-TS6) with --synthetic data (108 frames a
+    sequence: 4 windows, one padded batch) and a seed-0 .bin through
+    --evaluate, as the plain module, --fast-eval at f32, mixed and pure
+    bf16; then Runner.evaluate on 1,024 windows of one sequence (two full
+    batches) at f32 fast-eval and mixed, 3 times each; then training with
+    --fast-train (and the attention kernels of the recompute) for 2 epochs
+    of the config's batch 64 and --evaluate best_epoch on the same
+    checkpoint directory. Returns ({path: launches}, {path: inner counts})."""
+    import scipy.io
+
+    from diff3dhpe_torch.cli.run_3dhp import main as main_3dhp
+    from diff3dhpe_torch.config import load_config
+    from diff3dhpe_torch.data import PoseDataset3DHP
+    from diff3dhpe_torch.data.mpiinf3dhp import JOINTS_LEFT as JL, JOINTS_RIGHT as JR
+    from diff3dhpe_torch.data.synthetic import make_synthetic_3dhp
+    from diff3dhpe_torch.engine.runner import Runner
+    from diff3dhpe_torch.io.checkpoint import load_torch_state_dict
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(here, THREEDHP_CONFIG)
+    with open(config) as f:
+        params = json.load(f)["params"]
+    seqs = params["subjects_test"].split(",")
+    launches, inner = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "seed0_27f.bin")
+        seed_weights(weights, F_3DHP, JOINTS, dev)
+        runs = {}
+        for name, extra in EVAL_MODES.items():
+            out_dir = os.path.join(tmp, name)
+            result, d = drive(main_3dhp, ["--config", config, "--synthetic", "-c", out_dir,
+                                          "--evaluate", weights] + extra)
+            say(f"phase 14 cli_3dhp {name}: the report\n{d['text'].rstrip()}")
+            check(all(line in d["text"] for line in REPORT_3DHP),
+                  f"cli_3dhp {name}: a line of the report is missing")
+            errs = result["errors"]
+            check(all(len(v) == len(seqs) and all(math.isfinite(e) for e in v)
+                      for v in errs.values()), f"cli_3dhp {name}: errors {errs}")
+            check(0 <= result["pck"] <= 100 and 0 <= result["auc"] <= 100,
+                  f"cli_3dhp {name}: PCK {result['pck']}, AUC {result['auc']}")
+            mat = scipy.io.loadmat(os.path.join(out_dir, "inference_data.mat"))
+            recs = d["records"]
+            shapes = {s: tuple(mat[s].shape) for s in seqs}
+            check(len(recs) == len(seqs) and all(
+                shapes[s] == (3, JOINTS, r["n_frames"]) for s, r in zip(seqs, recs)),
+                f"cli_3dhp {name}: inference_data.mat {shapes}, frames "
+                f"{[r['n_frames'] for r in recs]}")
+            frames = sum(r["n_frames"] for r in recs)
+            runs[name] = dict(pred=normalised_predictions(recs), launches=d["launches"],
+                              frames_per_s=frames / sum(r["model_time"] for r in recs))
+            launches[f"cli_3dhp_{name}"], inner[f"cli_3dhp_{name}"] = d["launches"], d["inner"]
+            say(f"phase 14 cli_3dhp {name}: per sequence "
+                + " | ".join(f"{s} e1={errs['e1'][i]:.3f} e2={errs['e2'][i]:.3f} "
+                             f"e3={errs['e3'][i]:.3f} ev={errs['ev'][i]:.3f}"
+                             for i, s in enumerate(seqs))
+                + f"; PCK@150={result['pck']:.4f} AUC={result['auc']:.4f}; frames={frames} "
+                f"inference_speed_frames_per_s={runs[name]['frames_per_s']:.1f} "
+                f"(padded batch of {params['batch_size_eval']} windows a sequence); "
+                f"inference_data.mat {shapes}; B1 launches="
+                f"{d['launches']['fused_transformer_block']} (bf16 "
+                f"{d['launches']['fused_transformer_block_bf16']}); wall_s={d['wall_s']:.1f}")
+        # A warm-up step and one timed step a sequence, DDIM-5 each.
+        steps = params["sampling_timesteps"] * 2 * len(seqs)
+        hold_eval_modes("cli_3dhp", runs, eval_want(steps, per_call))
+        say(f"phase 14 cli_3dhp vs the plain run (normalised units): " + "; ".join(
+            f"{k} max_abs_dev={r['dev']:.3e} mpjpe={r['mpjpe']:.4e}"
+            for k, r in runs.items() if k != "plain"))
+
+        # Runner.evaluate at two full batches of 512 windows, 3 times a mode.
+        data = make_synthetic_3dhp(["S1"], ["TS1"], n_frames=1024 * F_3DHP, seed=0)
+        state = load_torch_state_dict(weights)
+        for name in ("fast_eval", "mixed"):
+            mixed = name == "mixed"
+            cfg = load_config(config, dict(
+                fast_eval=True, compute_dtype="bfloat16" if mixed else "float32",
+                eval_f32_head=mixed, eval_f32_final_steps=1 if mixed else 0,
+                subjects_test="TS1"))
+            ds = PoseDataset3DHP(cfg, data._test, data._pos_3d_min, data._pos_3d_max,
+                                 split="test")
+            check(len(ds) == 1024, f"3dhp evaluate: {len(ds)} windows")
+            runner = Runner(cfg, JOINTS, JL, JR, device=dev)
+            runner.set_params(state)
+            ms, d = drive(lambda: [runner.evaluate(ds, unit_scale=1.0) for _ in range(3)])
+            fps = [float(m["frames_per_sec"]) for m in ms]
+            check(all(math.isfinite(m[k]) for m in ms for k in ("e1", "e2", "e3", "ev"))
+                  and all(m["e1"] == ms[0]["e1"] for m in ms),
+                  f"3dhp evaluate {name}: errors {[m['e1'] for m in ms]}")
+            want = 3 * 3 * params["sampling_timesteps"] * 2 * DEPTH * per_call
+            check(d["launches"]["fused_transformer_block"] == want,
+                  f"3dhp evaluate {name}: B1 launched {d['launches']}, expected {want}")
+            launches[f"evaluate_3dhp_{name}"] = d["launches"]
+            inner[f"evaluate_3dhp_{name}"] = d["inner"]
+            say(f"phase 14 Runner.evaluate 3dhp {name}: {len(ds)} windows of {F_3DHP} frames "
+                f"(batch {cfg.batch_size_eval} x2 flip, DDIM-{cfg.sampling_timesteps}), "
+                f"{ms[0]['n_frames']} frames evaluated, 3 runs: frames_per_s median="
+                f"{statistics.median(fps):.1f} min={min(fps):.1f} max={max(fps):.1f} "
+                f"({[round(v, 1) for v in fps]}); e1_mm={ms[0]['e1']:.3f}; B1 launches="
+                f"{d['launches']['fused_transformer_block']} (bf16 "
+                f"{d['launches']['fused_transformer_block_bf16']})")
+            del runner, ds
+            torch.cuda.empty_cache()
+
+        # Training: fast_train with the recompute's attention through the
+        # kernels (B6 for the 17 joints and the 27 frames), fast-eval
+        # validation, 2 epochs; the final evaluation and --evaluate
+        # best_epoch on TS1 (cut from TS1-TS6) at eval batch 64 (cut from 512).
+        train_config = os.path.join(tmp, "train_3dhp.json")
+        with open(train_config, "w") as f:
+            json.dump({"params": dict(params, fast_train_attn_bwd=True, fast_eval=True)}, f)
+        run_dir = os.path.join(tmp, "train")
+        common = ["--config", train_config, "--synthetic", "-ste", "TS1", "--batch-size-eval",
+                  "64", "-c", run_dir]
+        reports = {}
+        for name, argv in (("train", common + ["--fast-train", "-e", "2"]),
+                           ("train_evaluate", common + ["--evaluate", "best_epoch"])):
+            result, d = drive(main_3dhp, argv)
+            say(f"phase 14 cli_3dhp {name}: the log and report\n{d['text'].rstrip()}")
+            reports[name] = result
+            check(all(len(v) == 1 and math.isfinite(v[0]) for v in result["errors"].values()),
+                  f"cli_3dhp {name}: errors {result['errors']}")
+            launches[f"cli_3dhp_{name}"], inner[f"cli_3dhp_{name}"] = d["launches"], d["inner"]
+            if name == "train":
+                n_train = int(d["text"].split("INFO: Training on ")[1].split()[0])
+                steps = 2 * (n_train // params["batch_size"])
+                check(steps >= 2 and "Epoch: 1," in d["text"]
+                      and os.path.isdir(os.path.join(run_dir, "best_epoch")),
+                      f"cli_3dhp train: {n_train} windows, the epochs or best_epoch missing")
+                # Each step's recompute: B6 for the 8 spatial and the 8
+                # temporal attentions (n = 17 and 27), no B3 or B4.
+                lc = d["launches"]
+                check(lc["packed_grand_attention"] == 2 * DEPTH * steps
+                      and lc["grand_attention_fullseq"] == lc["grand_attention_bwd"] == 0
+                      and lc["fused_transformer_block"] > 0,
+                      f"cli_3dhp train launched {lc}, expected B6 {2 * DEPTH * steps}")
+            say(f"phase 14 cli_3dhp {name}: e1={result['errors']['e1'][0]:.4f} "
+                f"PCK@150={result['pck']:.4f} AUC={result['auc']:.4f} wall_s={d['wall_s']:.1f} "
+                f"launches={ {k: v for k, v in d['launches'].items() if v} }")
+        dev_mm = max(abs(a[0] - b[0]) for a, b in zip(reports["train"]["errors"].values(),
+                                                         reports["train_evaluate"]["errors"].values()))
+        check(dev_mm <= EVAL_REPORT_TOL_MM, f"cli_3dhp --evaluate best_epoch differs from the "
+              f"training run's report by {dev_mm:.3e} mm")
+    torch.cuda.empty_cache()
+    return launches, inner
+
+
+def drive_humaneva_custom(dev, per_call):
+    """Phase 15: cli.run.main --dataset humaneva15 --synthetic on
+    configs/h36m_gt_s2s_243f.json (243 frames, 15 joints, embed 512, depth
+    8; DDIM-5) with a seed-0 15-joint .bin, action Walking (12 windows,
+    batch 2), as the plain module, with use_pallas (B6 for the 15 joints,
+    B3 for the frames), --fast-eval at f32, mixed and pure bf16. Phase 16:
+    cli.run.main on a 2D-only custom archive that it writes (the layout of
+    tests/test_datasets.py), --fast-eval: the report prints its frames and
+    NaN errors. Returns ({path: launches}, {path: inner counts})."""
+    import numpy as np
+
+    from diff3dhpe_torch.cli.run import main as cli_main
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(here, CLI_CONFIG)
+    with open(config) as f:
+        params = json.load(f)["params"]
+    launches, inner = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "seed0_15j.bin")
+        seed_weights(weights, FRAMES, HE_JOINTS, dev)
+        use_pallas = os.path.join(tmp, "use_pallas.json")
+        with open(use_pallas, "w") as f:
+            json.dump({"params": dict(params, use_pallas_attention=True)}, f)
+        runs = {}
+        for name, (cfg_path, extra) in {**{k: (config, v) for k, v in EVAL_MODES.items()},
+                                        "use_pallas": (use_pallas, [])}.items():
+            errors, d = drive(cli_main, [
+                "--config", cfg_path, "--dataset", "humaneva15", "--synthetic", "-str",
+                "Train/S1", "-ste", "Validate/S1", "-a", "Walking", "--batch-size-eval",
+                str(BATCH), "-c", os.path.join(tmp, name), "--evaluate", weights] + extra)
+            say(f"phase 15 cli_humaneva {name}: the report\n{d['text'].rstrip()}")
+            check(all(line in d["text"] for line in REPORT_RUN + ("----Walking----",)),
+                  f"cli_humaneva {name}: a line of the report is missing")
+            check(all(len(v) == 1 and math.isfinite(v[0]) for v in errors.values()),
+                  f"cli_humaneva {name}: errors {errors}")
+            (rec,) = d["records"]
+            runs[name] = dict(pred=normalised_predictions(d["records"]), launches=d["launches"],
+                              frames_per_s=rec["n_frames"] / rec["model_time"])
+            launches[f"cli_humaneva_{name}"] = d["launches"]
+            inner[f"cli_humaneva_{name}"] = d["inner"]
+            say(f"phase 15 cli_humaneva {name} B={BATCH} (x2 flip) DDIM-"
+                f"{params['sampling_timesteps']}: frames={rec['n_frames']} "
+                f"inference_speed_frames_per_s={runs[name]['frames_per_s']:.1f} "
+                f"e1_mm={errors['e1'][0]:.4f} e2_mm={errors['e2'][0]:.4f} "
+                f"e3_mm={errors['e3'][0]:.4f} ev_mm={errors['ev'][0]:.4f} launches="
+                f"{ {k: v for k, v in d['launches'].items() if v} } wall_s={d['wall_s']:.1f}")
+        # 3 cameras x 4 windows of Walking in batches of 2, and a warm-up step.
+        windows = runs["plain"]["pred"].shape[0] // FRAMES
+        check(windows == 12, f"cli_humaneva: {windows} windows")
+        forwards = (windows // BATCH + 1) * params["sampling_timesteps"]
+        hold_eval_modes("cli_humaneva", runs, eval_want(forwards, per_call))
+        say(f"phase 15 cli_humaneva vs the plain run (normalised units): " + "; ".join(
+            f"{k} max_abs_dev={r['dev']:.3e} mpjpe={r['mpjpe']:.4e}"
+            for k, r in runs.items() if k != "plain"))
+
+        # Phase 16: 2D detections of one 486-frame video, 17 joints.
+        rng = np.random.default_rng(0)
+        np.savez_compressed(
+            os.path.join(tmp, "data_2d_custom_smoke.npz"),
+            positions_2d={"video.mp4": {"custom": [
+                rng.uniform(0, 1080, (2 * FRAMES, JOINTS, 2)).astype("float32")]}},
+            metadata={"layout_name": "coco", "num_joints": JOINTS,
+                      "keypoints_symmetry": [[1, 3, 5], [2, 4, 6]],
+                      "video_metadata": {"video.mp4": {"w": 1920, "h": 1080}}})
+        weights17 = os.path.join(tmp, "seed0.bin")
+        seed_weights(weights17, FRAMES, JOINTS, dev)
+        errors, d = drive(cli_main, [
+            "--config", config, "--dataset", "custom", "--keypoints", "smoke", "--data-root", tmp,
+            "-str", "video.mp4", "-ste", "video.mp4", "--batch-size-eval", str(BATCH),
+            "-c", os.path.join(tmp, "custom"), "--fast-eval", "--evaluate", weights17])
+        say(f"phase 16 cli_custom: the report\n{d['text'].rstrip()}")
+        (rec,) = d["records"]
+        want_b1 = 2 * params["sampling_timesteps"] * 2 * DEPTH * per_call  # warm-up + one step
+        check(all(line in d["text"] for line in REPORT_RUN + ("----custom----",))
+              and all(len(v) == 1 and math.isnan(v[0]) for v in errors.values())
+              and rec["n_frames"] == 2 * FRAMES and np.isfinite(rec["predictions"]).all()
+              and d["launches"]["fused_transformer_block"] == want_b1,
+              f"cli_custom: errors {errors}, frames {rec['n_frames']}, launches {d['launches']}")
+        launches["cli_custom"], inner["cli_custom"] = d["launches"], d["inner"]
+        say(f"phase 16 cli_custom: {rec['n_frames']} frames of 2D detections, predictions finite, "
+            f"errors NaN (no ground truth); inference_speed_frames_per_s="
+            f"{rec['n_frames'] / rec['model_time']:.1f}; B1 launches="
+            f"{d['launches']['fused_transformer_block']}")
+    torch.cuda.empty_cache()
+    return launches, inner
 
 def main():
     if not torch.cuda.is_available():
@@ -1571,6 +2044,10 @@ def main():
         del drive, x, block, block_bf, block_lib_bf, block4, block4_bf, block4_lib_bf
     torch.cuda.empty_cache()
 
+    # Phase 9b: B1, B2 and B6 at the group sizes of the 3DHP and HumanEva
+    # paths (phases 14 and 15).
+    group_sizes = check_group_sizes(make_block, timings, check_bf16, randn, peak_flops, peak_bf16)
+
     # Phase 10: the evaluate entry point, as a user calls it: a config JSON,
     # --synthetic data (subject S9, action Walking: 4 cameras x 972 frames =
     # 16 windows of 243 frames), a seed-0 state dict in a reference .bin,
@@ -2166,6 +2643,11 @@ def main():
     del table
     torch.cuda.empty_cache()
 
+    # Phases 14-16: the MPI-INF-3DHP entry point, HumanEva and custom footage.
+    for launches, inner_counts in (drive_3dhp(dev, per_call), drive_humaneva_custom(dev, per_call)):
+        cli_launches.update(launches)
+        inner_by_path.update(inner_counts)
+
     # One entry per kernel. B1's work is one spatial + one temporal call at
     # the eval shape, the pair each depth level of a forward runs (f32, and
     # under "bf16" the same at bf16); B2's one call at the eval shape; B3
@@ -2252,6 +2734,7 @@ def main():
         "bf16_d128": dict(pair_numbers(per_shape_bf16_hd128, peak_bf16),
                           work=f"the same pair of calls with {HEADS4} heads (head_dim 128), bf16"),
         "bf16_gemm": gemms,
+        "group_sizes": {k: one_call(v) for k, v in group_sizes["B1"].items()},
         "gemm_f32": gemm_part,
         "layer_norm": ln_part,
         "work": f"one spatial (n={JOINTS}) + one temporal (n={FRAMES}) call, R={rows}, C={EMBED}",
@@ -2267,6 +2750,7 @@ def main():
         "bf16": one_call(cols_res["bf16"]),
         "bf16_d128": dict(one_call(cols_res["bf16_d128"]),
                           work=f"the same call with {HEADS4} heads (head_dim 128), bf16"),
+        "group_sizes": {k: one_call(v) for k, v in group_sizes["B2"].items()},
         "work": f"one call, x=[{2 * BATCH}*{FRAMES}, {JOINTS}*{EMBED}] (n={FRAMES}), f32",
     }]
     for name, replaces in (("grand_attention_fullseq", "diff3dhpe_tpu/ops/attention.py:185"),
@@ -2339,6 +2823,7 @@ def main():
         **one_call(small["qkv_views"]),
         "max_abs_err": max(v["abs_err"] for v in small.values()),
         "other_shapes": {k: one_call(v) for k, v in small.items() if k != "qkv_views"},
+        "group_sizes": {k: one_call(v) for k, v in group_sizes["B6"].items()},
         "work": f"one call, [G={2 * BATCH * FRAMES * HEADS}, N={JOINTS}, D={EMBED // HEADS}] "
                 f"f32 as views of a qkv projection, device time",
         "bf16": dict(

@@ -1,4 +1,4 @@
-"""H3.6M train + eval entry point.
+"""H3.6M / HumanEva / custom train + eval entry point.
 
 Port of ``diff3dhpe_tpu/cli/run.py`` (itself the equivalent of the
 reference's run_conditionalDiffusionDDIM3dhpeNormalDirectPredictVariableLoss.py):
@@ -20,7 +20,11 @@ loads every parameter whose name and shape match (the reference's
 Runs on the CUDA device; ``main(argv, device="cpu")`` runs the plain
 PyTorch path on the CPU. The ``Params | FLOPs/forward`` line counts FLOPs
 by formula (``utils.profiling.denoiser_matmul_flops``) where JAX asks XLA's
-cost analysis.
+cost analysis. A custom archive holds 2D detections only: its report
+prints the frames and their speed, and NaN for every error, where JAX's
+evaluation stops at the missing ground truth. A dataset name other than
+h36m, humaneva* or custom* raises a ValueError naming it (JAX: KeyError,
+or with ``--synthetic`` the H3.6M-like set whatever the name).
 """
 from __future__ import annotations
 
@@ -56,10 +60,18 @@ def main(argv=None, device="cuda"):
     all_subjects = tuple(
         dict.fromkeys(cfg.subjects_train.split(",") + cfg.subjects_test.split(","))
     )
-    if cfg.dataset.startswith(("humaneva", "custom")):
-        raise ValueError(f"dataset={cfg.dataset!r} is not ported: only h36m (and its "
-                         "synthetic stand-in) so far")
-    if args.synthetic:
+    if not (cfg.dataset == "h36m" or cfg.dataset.startswith(("humaneva", "custom"))):
+        raise ValueError(f"dataset={cfg.dataset!r} is not a dataset of this entry point: "
+                         "h36m, humaneva* or custom* (3dhp: cli/run_3dhp.py)")
+    if args.synthetic and cfg.dataset.startswith("humaneva"):
+        from diff3dhpe_torch.data.synthetic import make_synthetic_humaneva
+
+        dataset, keypoints_data = make_synthetic_humaneva(
+            subjects=all_subjects,
+            n_frames=max(4 * cfg.number_of_frames, 100),
+            seed=cfg.seed,
+        )
+    elif args.synthetic:
         dataset, keypoints_data = make_synthetic_h36m_like(
             subjects=all_subjects,
             n_frames=max(4 * cfg.number_of_frames, 100),
@@ -68,8 +80,14 @@ def main(argv=None, device="cuda"):
         )
     elif cfg.dataset == "h36m":
         dataset = Human36mDataset(f"{cfg.data_root}/data_3d_{cfg.dataset}.npz")
+    elif cfg.dataset.startswith("humaneva"):
+        from diff3dhpe_torch.data.humaneva import HumanEvaDataset
+
+        dataset = HumanEvaDataset(f"{cfg.data_root}/data_3d_{cfg.dataset}.npz")
     else:
-        raise KeyError("Invalid dataset")
+        from diff3dhpe_torch.data.custom import CustomDataset
+
+        dataset = CustomDataset(f"{cfg.data_root}/data_2d_{cfg.dataset}_{cfg.keypoints}.npz")
 
     print(f"INFO: Receptive field: {cfg.number_of_frames} frames")
     logger.log(f"INFO: Receptive field: {cfg.number_of_frames} frames\n")

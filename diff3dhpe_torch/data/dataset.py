@@ -1,7 +1,7 @@
 """Dataset wrappers: windowed pose datasets + fixed-shape batch iteration.
 
-Functional re-design of the reference's load_Dataset
-(reference: data/load_noisy_data.py:20-291) on top of the immutable chunk
+Functional re-design of the reference's load_Dataset / load_Dataset_3dhp
+(reference: data/load_noisy_data.py:20-441) on top of the immutable chunk
 index in chunking.py. Differences by design:
 
 - No torch DataLoader: windows are cheap numpy gathers; an in-process
@@ -155,6 +155,9 @@ class _WindowedPoseData:
         spec = self.pairs[index]
         w = self._window(spec)
         gt_3d = w["gt_3d"]
+        if gt_3d is None:  # 2D-only footage (custom): NaN targets, no errors
+            frames = w["input_2d"].shape[0] if self.out_all else spec.end - spec.start
+            gt_3d = np.full((frames, w["input_2d"].shape[1], 3), np.nan, "float32")
         target_mask = w["target_mask"]
         if target_mask is None:
             target_mask = np.full(gt_3d.shape[0], True, dtype=bool)
@@ -435,3 +438,61 @@ class PoseDataset(_WindowedPoseData):
                 poses_2d[key] = poses_2d[key][::stride]
                 if key in poses_3d:
                     poses_3d[key] = poses_3d[key][::stride]
+
+
+class PoseDataset3DHP(_WindowedPoseData):
+    """3DHP dataset wrapper with valid-frame masking and per-TS filtering
+    (reference load_Dataset_3dhp:293-441)."""
+
+    def __init__(
+        self,
+        opt,
+        split_data,
+        pos_3d_min,
+        pos_3d_max,
+        split: str = "train",
+        noise_std: float = 0.0,
+        joint_drop_rate: float = 0.0,
+        seq_filter: Optional[str] = None,
+    ):
+        self.split = split
+        scale = max(abs(float(pos_3d_max)), abs(float(pos_3d_min)))
+        receptive_field = opt.number_of_frames
+        pad = 0 if opt.out_all else (receptive_field - 1) // 2
+
+        poses_3d = split_data.poses_3d
+        poses_2d = split_data.poses_2d
+        valid_frame = getattr(split_data, "valid_frame", None)
+        if seq_filter is not None:
+            assert seq_filter in poses_3d
+            poses_3d = {seq_filter: poses_3d[seq_filter]}
+            poses_2d = {seq_filter: poses_2d[seq_filter]}
+            if valid_frame is not None:
+                valid_frame = {seq_filter: valid_frame[seq_filter]}
+
+        self.num_joints = split_data.num_joints
+        self.kps_left, self.kps_right = split_data.kps_left, split_data.kps_right
+        self.joints_left, self.joints_right = (
+            split_data.joints_left,
+            split_data.joints_right,
+        )
+
+        super().__init__(
+            poses_2d=poses_2d,
+            poses_3d=poses_3d,
+            cameras=None,
+            valid_frame=valid_frame if split == "test" else None,
+            scale=scale,
+            chunk_length=opt.stride,
+            pad=pad,
+            out_all=opt.out_all,
+            kps_left=self.kps_left,
+            kps_right=self.kps_right,
+            joints_left=self.joints_left,
+            joints_right=self.joints_right,
+            augment=(split == "train") and opt.data_augmentation,
+            test_aug=opt.test_time_augmentation,
+            train=(split == "train"),
+            noise_std=noise_std,
+            joint_drop_rate=joint_drop_rate,
+        )

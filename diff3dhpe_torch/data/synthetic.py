@@ -161,3 +161,112 @@ def make_synthetic_h36m_like(subjects=("S1", "S5", "S9"), actions=("Walking 1", 
         },
     }
     return dataset, keypoints_data
+
+
+def make_synthetic_humaneva(subjects=("Train/S1", "Validate/S1"),
+                            actions=("Walking 1", "Jog 1"),
+                            n_frames=120, seed=0):
+    """Synthetic HumanEva-shaped dataset: world-space 15-joint walks plus
+    GT 2D keypoints projected through the real HumanEva cameras. Returns
+    (dataset, keypoints_data) like make_synthetic_h36m_like."""
+    from diff3dhpe_torch.data.humaneva import HumanEvaDataset
+
+    rng = np.random.default_rng(seed)
+    positions_3d = {}
+    for subject in subjects:
+        positions_3d[subject] = {
+            action: _random_walk_poses(rng, n_frames, n_joints=15)
+            for action in actions
+        }
+    dataset = HumanEvaDataset(data=positions_3d)
+
+    positions_2d = {}
+    for subject in subjects:
+        positions_2d[subject] = {}
+        for action in dataset[subject].keys():
+            anim = dataset[subject][action]
+            kps_all = []
+            for cam in anim["cameras"]:
+                pos_3d = world_to_camera(
+                    anim["positions"], R=cam["orientation"], t=cam["translation"]
+                )
+                pos_2d = project_to_2d(pos_3d[None], cam["intrinsic"][None])[0]
+                pos_2d_pixel = image_coordinates(pos_2d, w=cam["res_w"], h=cam["res_h"])
+                kps_all.append(pos_2d_pixel.astype(np.float32))
+            positions_2d[subject][action] = kps_all
+
+    keypoints_data = {
+        "positions_2d": positions_2d,
+        "metadata": {
+            "num_joints": 15,
+            "keypoints_symmetry": [
+                list(dataset.skeleton().joints_left()),
+                list(dataset.skeleton().joints_right()),
+            ],
+        },
+    }
+    return dataset, keypoints_data
+
+
+class _SynthSplit:
+    """Duck-typed Base3DHPSplit carrying synthetic sequences."""
+
+    def __init__(self, poses_3d, poses_2d, valid_frame=None):
+        from diff3dhpe_torch.data.mpiinf3dhp import (
+            JOINTS_LEFT,
+            JOINTS_RIGHT,
+            KPS_LEFT,
+            KPS_RIGHT,
+            NUM_JOINTS,
+        )
+
+        self.poses_3d = poses_3d
+        self.poses_2d = poses_2d
+        self.valid_frame = valid_frame
+        self.kps_left, self.kps_right = KPS_LEFT, KPS_RIGHT
+        self.joints_left, self.joints_right = JOINTS_LEFT, JOINTS_RIGHT
+        self.num_joints = NUM_JOINTS
+        cat = np.concatenate(list(poses_3d.values()))
+        self.pos_3d_min = cat.min()
+        self.pos_3d_max = cat.max()
+
+
+class _Synth3DHP:
+    def __init__(self, train, test):
+        self._train = train
+        self._test = test
+        self._pos_3d_min = min(train.pos_3d_min, test.pos_3d_min)
+        self._pos_3d_max = max(train.pos_3d_max, test.pos_3d_max)
+
+
+def make_synthetic_3dhp(subjects_train=("S1",), subjects_test=("TS1", "TS2"),
+                        n_frames=100, seed=0):
+    """Synthetic MPI-INF-3DHP-shaped dataset (mm units, root joint 14)."""
+    rng = np.random.default_rng(seed)
+
+    def gen(n):
+        pose = _random_walk_poses(rng, n) * 1000.0  # metres -> mm
+        pose = pose - pose[:, 14:15]
+        pose2d = pose[..., :2] / 2048.0  # already-normalised-looking 2D
+        return pose.astype(np.float32), pose2d.astype(np.float32)
+
+    train_3d, train_2d = {}, {}
+    for s in subjects_train:
+        for cam in (0, 1):
+            p3, p2 = gen(n_frames)
+            train_3d[(s, "Seq1", cam)] = p3
+            train_2d[(s, "Seq1", cam)] = p2
+
+    test_3d, test_2d, valid = {}, {}, {}
+    for ts in subjects_test:
+        p3, p2 = gen(n_frames)
+        test_3d[ts] = p3
+        test_2d[ts] = p2
+        v = np.ones((n_frames, 1))
+        v[: n_frames // 10] = 0  # some invalid frames, like the real TS files
+        valid[ts] = v
+
+    return _Synth3DHP(
+        _SynthSplit(train_3d, train_2d),
+        _SynthSplit(test_3d, test_2d, valid_frame=valid),
+    )

@@ -494,7 +494,8 @@ class Runner:
         ([rows, F_out, J, 3], rows as ``make_eval_step`` orders them), so
         that a test can inject another sampler's draws. unit_scale converts
         the dataset's native pose units into the mm the report prints: 1000
-        for meter-based datasets (H3.6M et al.)."""
+        for meter-based datasets (H3.6M et al.). Targets that are NaN (2D-only
+        footage) make every error NaN; the predictions and the speed stand."""
         cfg = self.cfg
         log = self.logger
         self.model.eval()
@@ -540,6 +541,9 @@ class Runner:
             predictions.append(pred_f)
             k = mask.sum()
             n += k
+            if np.isnan(gt_f).any():  # no ground truth (custom footage): no errors
+                e1_sum = e2_sum = e3_sum = ev_sum = float("nan")
+                continue
             e1_sum += float(mpjpe(pred_f[:, None], gt_f[:, None])) * k
             e3_sum += float(n_mpjpe(pred_f[:, None], gt_f[:, None])) * k
             e2_sum += float(p_mpjpe(pred_f, gt_f)) * k

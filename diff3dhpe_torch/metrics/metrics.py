@@ -189,9 +189,10 @@ def l2_loss(predicted, target, reduce="mean"):
 def pck(predicted, target, threshold=150.0, valid_mask=None):
     """3DHP PCK: percentage of joints within ``threshold`` (mm, inclusive)
     of the ground truth. predicted/target: [N, J, 3] in millimetres;
-    valid_mask: optional [N] bool of the frames to count."""
+    valid_mask: optional [N] bool of the frames to count. The distances
+    are in the inputs' dtype and the count is float64, as JAX's numpy path."""
     assert predicted.shape == target.shape
-    correct = (_tnorm(predicted - target) <= threshold).to(predicted.dtype)
+    correct = (_tnorm(predicted - target) <= threshold).to(torch.float64)
     if valid_mask is not None:
         correct = correct[valid_mask]
     return 100.0 * correct.mean()
@@ -205,5 +206,5 @@ def auc(predicted, target, thresholds=None, valid_mask=None):
     dist = _tnorm(predicted - target)
     if valid_mask is not None:
         dist = dist[valid_mask]
-    pcks = torch.stack([(dist <= float(th)).to(dist.dtype).mean() for th in thresholds])
+    pcks = torch.stack([(dist <= float(th)).to(torch.float64).mean() for th in thresholds])
     return 100.0 * pcks.mean()

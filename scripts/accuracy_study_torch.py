@@ -23,7 +23,9 @@ STUDY_DDIM (9), STUDY_HEADS (8; other counts write *_h{H} files),
 STUDY_VARIANTS (a comma-separated subset; plain_f32 always runs),
 STUDY_REUSE (1: reuse a finished checkpoint), STUDY_FRESH (1: re-run every
 variant; a run that trains re-runs them too), STUDY_TRAIN_DTYPE
-(bfloat16). Added here: STUDY_DIR (where the checkpoint, the per-variant
+(bfloat16). Added here: STUDY_ATTN_BWD (1: train with the attention
+backward kernels, fast_train_attn_bwd; 0: fast_train alone, as JAX's study
+trained, into *_no_attn_bwd files), STUDY_DIR (where the checkpoint, the per-variant
 npz files and the JSON go; default scripts/), STUDY_DEVICE (cuda; cpu for
 tests) and STUDY_MAX_MINUTES (stop training after the first epoch that
 ends past it; the JSON records the epochs run).
@@ -133,6 +135,7 @@ def settings(env=None) -> dict:
     env = os.environ if env is None else env
     get = lambda name, default: env.get(name, default)
     heads = int(get("STUDY_HEADS", "8"))
+    attn_bwd = get("STUDY_ATTN_BWD", "1") == "1"
     max_minutes = get("STUDY_MAX_MINUTES", "")
     return dict(
         frames=int(get("STUDY_FRAMES", "243")),
@@ -143,6 +146,7 @@ def settings(env=None) -> dict:
         actions=int(get("STUDY_ACTIONS", "8")),
         ddim=int(get("STUDY_DDIM", "9")),
         heads=heads,
+        attn_bwd=attn_bwd,
         variants=[v for v in get("STUDY_VARIANTS", "").split(",") if v],
         reuse=get("STUDY_REUSE", "1") == "1",
         fresh=get("STUDY_FRESH", "0") == "1",
@@ -150,7 +154,7 @@ def settings(env=None) -> dict:
         out_dir=get("STUDY_DIR", os.path.join(ROOT, "scripts")),
         device=get("STUDY_DEVICE", "cuda"),
         max_minutes=float(max_minutes) if max_minutes else None,
-        suffix="" if heads == 8 else f"_h{heads}",
+        suffix=("" if heads == 8 else f"_h{heads}") + ("" if attn_bwd else "_no_attn_bwd"),
     )
 
 
@@ -165,9 +169,10 @@ def study_config(s, checkpoint: str):
         num_heads=s["heads"], learning_rate=4e-4, subjects_train="S1,S5", subjects_test="S9",
         checkpoint=checkpoint, patience=s["epochs"],
         # The fused training forward in the training dtype with the
-        # attention backward kernels; validation (checkpoint selection)
-        # through the fused eval. Each variant below sets its own eval path.
-        fast_train=True, fast_train_attn_bwd=True, compute_dtype=s["train_dtype"],
+        # attention backward kernels (unless STUDY_ATTN_BWD=0); validation
+        # (checkpoint selection) through the fused eval. Each variant below
+        # sets its own eval path.
+        fast_train=True, fast_train_attn_bwd=s["attn_bwd"], compute_dtype=s["train_dtype"],
         fast_eval=True, remat=s["frames"] > 100,
     )
     if s["max_minutes"] is not None:
@@ -178,7 +183,8 @@ def study_config(s, checkpoint: str):
 def fingerprint(s) -> dict:
     return dict(frames=s["frames"], embed=s["embed"], depth=s["depth"], actions=s["actions"],
                 motion="latent", seed=0, port="torch",
-                **({} if s["heads"] == 8 else dict(heads=s["heads"])))
+                **({} if s["heads"] == 8 else dict(heads=s["heads"])),
+                **({} if s["attn_bwd"] else dict(attn_bwd=False)))
 
 
 def _guard(directory: str, fp: dict, what: str) -> None:
@@ -387,6 +393,7 @@ def main(env=None) -> dict:
             epochs_cut=record["epochs_run"] < s["epochs"], ddim_eval=s["ddim"],
             best_val_mpjpe_mm=record["min_loss"], best_epoch=record["best_epoch"],
             evaluated_epoch=record["evaluated_epoch"], train_dtype=s["train_dtype"],
+            train_attn_bwd=s["attn_bwd"],
             train_batch=s["batch"], eval_batch=cfg.batch_size_eval, actions=s["actions"],
             motion="latent", windows=dict(train=len(train_ds), val=len(val_ds),
                                           test=len(test_ds)),

@@ -150,7 +150,7 @@ def test_main_without_evaluate_exits(tmp_path, capsys):
     ("mesh_shape", ["--mesh-shape", "data:8"]),
     ("eval_f32_tail_pairs", MIXED + ["--eval-f32-tail-pairs", "1"]),
     ("eval_final_prec", MIXED + ["--eval-final-prec", "default"]),
-    ("dataset", ["-d", "humaneva15"]),
+    ("dataset", ["-d", "not_a_dataset"]),
     ("evaluate", ["--evaluate", "not_a_port_checkpoint"]),
 ])
 def test_main_refuses_what_is_not_ported(tmp_path, field, extra):

@@ -51,6 +51,8 @@ def _model(device, num_frame=27, embed_dim=C, head_dim=64, **kw):
     (17, 17, 40, True, True, C), (243, 243, 4, True, True, C), (27, 32, 12, True, True, C),
     (17, 17, 8, False, False, C), (200, 256, 2, False, True, C), (256, 256, 2, True, True, C),
     (17, 17, 10, True, True, 192),  # 3C = 576 and M = 170: partial GEMM tiles both ways
+    # The 3DHP config's 27 frames and HumanEva's 15 joints with 8 heads of 64.
+    (27, 27, 24, True, True, 512), (15, 15, 40, True, True, 512),
 ])
 def test_block_kernel_matches_ref(cuda_device, n, n_pad, groups, with_t, with_out_ln, c):
     model = _model(cuda_device, embed_dim=c)
@@ -130,6 +132,7 @@ def assert_bf16_close(out, ref):
     (17, 17, 40, True, True, C), (243, 243, 4, True, True, C), (27, 32, 12, True, True, C),
     (17, 17, 8, False, False, C), (256, 256, 2, True, True, C),
     (17, 17, 10, True, True, 192),  # 3C = 576 and M = 170: partial GEMM tiles both ways
+    (27, 27, 24, True, True, 512), (15, 15, 40, True, True, 512),  # 3DHP, HumanEva
 ])
 def test_block_kernel_bf16_matches_ref(cuda_device, n, n_pad, groups, with_t, with_out_ln, c):
     model = _model(cuda_device, embed_dim=c)
@@ -155,7 +158,7 @@ def test_block_kernel_bf16_matches_ref(cuda_device, n, n_pad, groups, with_t, wi
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,f,j", [(2, 27, 17), (1, 243, 5), (3, 9, 4)])
+@pytest.mark.parametrize("b,f,j", [(2, 27, 17), (1, 243, 5), (3, 9, 4), (2, 243, 15)])
 def test_cols_kernel_matches_ref(cuda_device, dtype, b, f, j):
     model = _model(cuda_device, num_frame=f)
     gen = torch.Generator(device=cuda_device).manual_seed(f)
@@ -262,7 +265,7 @@ def test_packed_attention_matches_ref(cuda_device, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["views", "contiguous"])
-@pytest.mark.parametrize("n", [17, 27, 33, 64])
+@pytest.mark.parametrize("n", [15, 17, 27, 33, 64])
 @pytest.mark.parametrize("d", [64, 128])
 def test_small_kernel_matches_ref(cuda_device, d, n, layout):
     """The small-group kernel (B6 at f32) on qkv views and on contiguous
@@ -283,7 +286,7 @@ def test_small_kernel_matches_ref(cuda_device, d, n, layout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [17, 27, 64])
+@pytest.mark.parametrize("n", [15, 17, 27, 64])
 @pytest.mark.parametrize("d", [64, 128])
 def test_packed_attention_bf16_matches_ref(cuda_device, d, n):
     """B6 at bf16 (B3's tensor-core kernel) on qkv views and contiguous

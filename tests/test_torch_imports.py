@@ -1,7 +1,7 @@
 """The port's import boundary: diff3dhpe_torch, chip_smoke.py and the
 port's bench and study scripts (bench_torch.py,
 scripts/accuracy_study_torch.py, scripts/train_bench_torch.py,
-scripts/study_training_check_torch.py) load
+scripts/study_training_check_torch.py, scripts/c9_check_torch.py) load
 without jax, flax or the JAX package, and the port's entry points refuse a
 missing GPU instead of falling back to the CPU."""
 import ast
@@ -35,7 +35,8 @@ sys.path[:0] = [".", "scripts"]
 scripts = {"chip_smoke": "chip_smoke.py", "bench_torch": "bench_torch.py",
            "accuracy_study_torch": "scripts/accuracy_study_torch.py",
            "train_bench_torch": "scripts/train_bench_torch.py",
-           "study_training_check_torch": "scripts/study_training_check_torch.py"}
+           "study_training_check_torch": "scripts/study_training_check_torch.py",
+           "c9_check_torch": "scripts/c9_check_torch.py"}
 imported = {}
 for module, path in scripts.items():
     importlib.import_module(module)
@@ -64,7 +65,8 @@ def test_port_and_chip_smoke_import_without_jax():
     assert set(script_imports) == {"chip_smoke.py", "bench_torch.py",
                                    "scripts/accuracy_study_torch.py",
                                    "scripts/train_bench_torch.py",
-                                   "scripts/study_training_check_torch.py"}
+                                   "scripts/study_training_check_torch.py",
+                                   "scripts/c9_check_torch.py"}
     for path, imports in script_imports.items():
         assert "diff3dhpe_torch" in imports, (path, imports)
         assert not set(imports) & {"jax", "jaxlib", "flax", "optax", "orbax",
@@ -72,8 +74,9 @@ def test_port_and_chip_smoke_import_without_jax():
     # Every sub-package was walked, the evaluate path's among them.
     walked = set(ast.literal_eval(line.split("MODULES ", 1)[1].split(" LOADED", 1)[0]))
     assert {f"diff3dhpe_torch.{name}" for name in (
-        "cli.args", "cli.run", "config.config", "data.chunking", "data.dataset", "data.h36m",
-        "device",
+        "cli.args", "cli.run", "cli.run_3dhp", "config.config", "data.chunking",
+        "data.custom", "data.dataset", "data.h36m", "data.humaneva", "data.mpiinf3dhp",
+        "data.prepare_h36m", "device",
         "data.mocap", "data.synthetic", "diffusion.gaussian_diffusion", "engine.runner",
         "engine.steps", "geometry.camera", "geometry.quaternion", "geometry.skeleton",
         "io.checkpoint", "io.convert", "metrics.metrics", "models.fast_eval", "models.mixste",
