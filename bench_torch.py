@@ -27,14 +27,19 @@ as bench.py names them:
   BENCH_MIXED_F32_STEPS  DDIM steps at f32 in the mixed mode (1)
   BENCH_DDIM             DDIM steps (9)
   BENCH_FINAL_PREC       high3 or highest (one exact-f32 path in the port)
+  BENCH_TAIL_PAIRS       k > 0: the mixed mode's final step runs its last k
+                         block pairs and head at f32, the rest bf16
+  BENCH_EXPORTED         1: time the eval step exported with torch.export
+                         and restored (io/export.py) in place of the live
+                         one; x_T is drawn outside the artifact, from the
+                         same generator
   BENCH_TIMEOUT, BENCH_RETRIES, BENCH_NO_SUPERVISE=1: the supervision.
-Refused, with a ValueError naming the knob: BENCH_EXPORTED=1 (no exported
-serving artifact yet), BENCH_TAIL_PAIRS > 0 and BENCH_FINAL_PREC=default
-(the port's final step runs whole and in exact f32).
+Refused, with a ValueError naming the knob: BENCH_FINAL_PREC=default (the
+port's float32 kernels contract in exact f32; ROADMAP A.11) and
+BENCH_TAIL_PAIRS outside the fused mixed mode.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import math
 import os
@@ -57,13 +62,6 @@ def settings_from_env(env=None) -> dict:
     a ValueError naming the knob for a value the port does not run."""
     env = os.environ if env is None else env
     get = lambda name, default: env.get(name, default)
-    if get("BENCH_EXPORTED", "0") == "1":
-        raise ValueError("BENCH_EXPORTED=1 is not ported: the port has no exported serving "
-                         "artifact (torch.export of the eval step, ROADMAP A.10)")
-    tail_pairs = int(get("BENCH_TAIL_PAIRS", "0"))
-    if tail_pairs > 0:
-        raise ValueError(f"BENCH_TAIL_PAIRS={tail_pairs} is not ported: the mixed mode's final "
-                         "step runs its forward in float32 as a whole (ROADMAP A.6)")
     final_prec = get("BENCH_FINAL_PREC", "high3")
     if final_prec not in ("high3", "highest"):
         raise ValueError(f"BENCH_FINAL_PREC={final_prec!r} is not ported: the port's float32 "
@@ -78,6 +76,11 @@ def settings_from_env(env=None) -> dict:
     repeats = int(get("BENCH_REPEATS", "3"))
     if repeats < 3:
         raise ValueError(f"BENCH_REPEATS={repeats}: at least 3 timed loops give a spread")
+    fast = get("BENCH_FAST", "1") == "1"
+    tail_pairs = int(get("BENCH_TAIL_PAIRS", "0"))
+    if tail_pairs < 0 or (tail_pairs and not (fast and dtype == "mixed")):
+        raise ValueError(f"BENCH_TAIL_PAIRS={tail_pairs}: a float32 tail of the final step's "
+                         "forward needs BENCH_DTYPE=mixed and BENCH_FAST=1")
     return dict(
         frames=int(get("BENCH_FRAMES", "243")),
         heads=int(get("BENCH_HEADS", "8")),
@@ -88,59 +91,85 @@ def settings_from_env(env=None) -> dict:
         ddim=int(get("BENCH_DDIM", "9")),
         tmode=tmode,
         use_pallas=get("BENCH_PALLAS", "0") == "1",
-        fast=get("BENCH_FAST", "1") == "1",
+        fast=fast,
         repeat_n=int(get("BENCH_REPEAT_N", "1")),
         mixed_f32_steps=int(get("BENCH_MIXED_F32_STEPS", "1")),
         final_prec=final_prec,
+        tail_pairs=tail_pairs,
+        exported=get("BENCH_EXPORTED", "0") == "1",
     )
 
 
-def build_eval_step(*, frames, joints, embed, depth, heads, dtype, ddim, tmode, use_pallas, fast,
-                    repeat_n, mixed_f32_steps, seed, device):
-    """The eval step bench.py:85-135 builds, on the port: the plain module
-    (at bf16 for ``dtype="bfloat16"``) or the fused forward, and in the
-    mixed mode the f32 fused forward for the last ``mixed_f32_steps``."""
-    from diff3dhpe_torch import (
-        GaussianDiffusion, MixSTEDenoiser, make_denoise_fn, make_eval_step, make_fast_denoise_fn,
-    )
+def build_eval_source(*, frames, joints, embed, depth, heads, dtype, ddim, use_pallas, fast,
+                      repeat_n, mixed_f32_steps, tail_pairs, seed, device):
+    """What bench.py:85-135 builds, on the port, as a runner-like namespace
+    (``cfg``, ``model``, ``diffusion`` and the joints; what
+    ``io.export.live_eval_step`` and ``export_eval_step`` take): the plain
+    module (at bf16 for ``dtype="bfloat16"``) or the fused forward, and in
+    the mixed mode the f32 fused forward for the last ``mixed_f32_steps``,
+    or with ``tail_pairs`` a bf16 one whose last pairs and head run f32."""
+    from types import SimpleNamespace
+
+    from diff3dhpe_torch import GaussianDiffusion, MixSTEDenoiser, make_denoise_fn
+    from diff3dhpe_torch.config import Config
 
     model = MixSTEDenoiser(
         num_frame=frames, num_joints=joints, in_chans=2, embed_dim=embed, depth=depth,
         num_heads=heads, mlp_ratio=2.0, qkv_bias=True, with_time_emb=True, mode="s2s",
         use_pallas=use_pallas, dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32,
         seed=seed, device=device).eval()
-    if fast:
-        denoise_fn = make_fast_denoise_fn(
-            model, torch.float32 if dtype == "float32" else torch.bfloat16, tmode,
-            f32_head=dtype == "mixed")
-    else:
-        denoise_fn = make_denoise_fn(model)
-    diffusion = GaussianDiffusion.create(denoise_fn, timesteps=1000, sampling_timesteps=ddim,
-                                         clip_denoised=True, beta_schedule="cosine", mode="s2s")
-    if fast and dtype == "mixed":
-        diffusion = dataclasses.replace(
-            diffusion, final_denoise_fn=make_fast_denoise_fn(model, torch.float32, tmode),
-            final_denoise_steps=mixed_f32_steps)
-    return make_eval_step(diffusion, JOINTS_LEFT, JOINTS_RIGHT, repeat_n=repeat_n, device=device)
+    mixed = fast and dtype == "mixed"
+    cfg = Config(number_of_frames=frames, embed_dim=embed, transformer_depth=depth,
+                 num_heads=heads, compute_dtype="float32" if dtype == "float32" else "bfloat16",
+                 fast_eval=fast, eval_f32_head=mixed,
+                 eval_f32_final_steps=mixed_f32_steps if mixed else 0,
+                 eval_f32_tail_pairs=tail_pairs, use_pallas_attention=use_pallas,
+                 timesteps=1000, sampling_timesteps=ddim, clip_denoised=True,
+                 beta_schedule="cosine", repeat_n=repeat_n, seed=seed)
+    diffusion = GaussianDiffusion.create(make_denoise_fn(model), timesteps=1000,
+                                         sampling_timesteps=ddim, clip_denoised=True,
+                                         beta_schedule="cosine", mode="s2s")
+    return SimpleNamespace(cfg=cfg, model=model, diffusion=diffusion, device=device,
+                           num_joints=joints, joints_left=JOINTS_LEFT, joints_right=JOINTS_RIGHT)
 
 
 def measure(*, frames=243, joints=17, embed=512, depth=8, heads=8, dtype="mixed", batch=None,
             iters=16, repeats=3, ddim=9, tmode="rows", use_pallas=False, fast=True, repeat_n=1,
-            mixed_f32_steps=1, final_prec="high3", seed=0, device="cuda") -> dict:
+            mixed_f32_steps=1, final_prec="high3", tail_pairs=0, exported=False, seed=0,
+            device="cuda") -> dict:
     """Runs the protocol and returns its numbers: seq/s of each timed loop,
     their median, the kernels' launches inside the timed loops, and the
-    sizes. ``device``: "cuda" (the card; raises without one) or "cpu"
-    (the kernels' plain versions, for tests)."""
+    sizes. ``exported``: the timed step is the eval step exported with
+    ``torch.export`` and restored (its seconds and bytes are reported),
+    fed the same x_T the live step would draw. ``device``: "cuda" (the
+    card; raises without one) or "cpu" (the kernels' plain versions, for
+    tests)."""
     from diff3dhpe_torch.device import resolve_device
+    from diff3dhpe_torch.io.export import export_eval_step, live_eval_step, restore_eval_step
     from diff3dhpe_torch.ops import read_launches, reset_launches
     from diff3dhpe_torch.utils.sync import device_sync
 
     device = resolve_device(device)
     batch = batch or (4 if dtype == "bfloat16" else 2)
-    eval_step = build_eval_step(
+    source = build_eval_source(
         frames=frames, joints=joints, embed=embed, depth=depth, heads=heads, dtype=dtype,
-        ddim=ddim, tmode=tmode, use_pallas=use_pallas, fast=fast, repeat_n=repeat_n,
-        mixed_f32_steps=mixed_f32_steps, seed=seed, device=device)
+        ddim=ddim, use_pallas=use_pallas, fast=fast, repeat_n=repeat_n,
+        mixed_f32_steps=mixed_f32_steps, tail_pairs=tail_pairs, seed=seed, device=device)
+    export = None
+    if exported:
+        t0 = time.perf_counter()
+        data = export_eval_step(source, batch, temporal_mode=tmode)
+        served = restore_eval_step(data)
+        export = dict(export_s=time.perf_counter() - t0, artifact_bytes=len(data))
+        state = source.model.state_dict()
+        x_shape = (2 * batch * repeat_n, frames, joints, 3)
+
+        def eval_step(x2d, x2d_flip, generator):
+            # x_T drawn as the live step draws it (ddim_sample_loop).
+            x_t = torch.randn(x_shape, generator=generator, device=device)
+            return served(state, x2d, x2d_flip, x_t)
+    else:
+        eval_step = live_eval_step(source, tmode)
     make_gen = lambda s: torch.Generator(device=device).manual_seed(s)
     x2d = torch.randn(batch, frames, joints, 2, generator=make_gen(1), device=device)
     x2d_flip = torch.randn(batch, frames, joints, 2, generator=make_gen(2), device=device)
@@ -166,7 +195,7 @@ def measure(*, frames=243, joints=17, embed=512, depth=8, heads=8, dtype="mixed"
         joints=joints, embed=embed, depth=depth, heads=heads, dtype=dtype, batch=batch,
         iters=iters, repeats=repeats, ddim=ddim, tmode=tmode, use_pallas=use_pallas, fast=fast,
         repeat_n=repeat_n, mixed_f32_steps=mixed_f32_steps, final_prec=final_prec,
-        out_shape=list(outs[-1].shape))
+        tail_pairs=tail_pairs, exported=export, out_shape=list(outs[-1].shape))
 
 
 def _baseline(frames) -> float:
@@ -219,7 +248,11 @@ def result_line(r: dict) -> dict:
             temporal_mode=r["tmode"],
             mixed_f32_steps=r["mixed_f32_steps"] if mixed else 0,
             mixed_final_prec=r["final_prec"] if mixed else None,
-            mixed_f32_tail_pairs=0,
+            mixed_f32_tail_pairs=r["tail_pairs"] if mixed else 0,
+            # The step timed: the live one, or the restored torch.export
+            # artifact (with its export seconds and bytes).
+            exported_artifact=r["exported"] is not None,
+            export=r["exported"],
             repeat_n=r["repeat_n"],
             baseline_torch_cpu_seqs_per_sec=round(baseline, 4),
             baseline_note="bench_baseline.json: the reference torch code on a host CPU, read "

@@ -57,7 +57,16 @@ the port's seeded init:
          best_epoch;
   humaneva and custom  cli.run.main --dataset humaneva15 --synthetic on
          configs/h36m_gt_s2s_243f.json (15 joints) in the evaluate
-         configurations, and on a 2D-only custom archive.
+         configurations, and on a 2D-only custom archive;
+  tail   the mixed eval step whose final forward runs its last k block
+         pairs and head at f32 (k = 2, 4, 6, 8), rows and cols;
+  export the eval step exported through cli/export.py (mixed rows, fast
+         f32) and io.export (mixed cols) from a seed-0 .bin, restored in a
+         fresh process and run on the seed-0 and a seed-1 state dict, bit
+         for bit as the live step; bench_torch.py with BENCH_EXPORTED=1;
+  viz    cli/viz.py's model work (compute) on --synthetic data at
+         repeat_n 1 and 2, and p_sample_loop over T = 1,000 steps through
+         the use_pallas module.
 
 Any failed check raises and the script exits non-zero.
 
@@ -94,10 +103,14 @@ bf16; 12 bench_torch.py's JSON line at mixed and float32, with its launches;
 13 the accuracy study's table, its gate and its launches; 9b B1 at groups
 of 27 and 15, B2 with j_groups = 15 and B6 at n = 15, f32 and bf16, vs
 plain; 14 the 3DHP entry point's runs, frames/s and launches; 15 HumanEva's
-runs; 16 the custom archive's report); then a JSON line with every kernel's
-numbers; the last line is {"ok": true, "device": {...}}. Exits non-zero
-without a CUDA device, and where the port's package is not beside this
-script.
+runs; 16 the custom archive's report; 17 (after 5b) the mixed step with a
+float32 tail of 2, 4, 6, 8 pairs, rows and cols: launches by dtype, the
+deviation beside 4b's, seq/s; 18 the export's seconds and bytes, the
+restored step in a fresh process against the live one, bench_torch.py
+with BENCH_EXPORTED=1; 19 cli/viz.py's compute and p_sample_loop); then a
+JSON line with every kernel's numbers; the last line is {"ok": true,
+"device": {...}}. Exits non-zero without a CUDA device, and where the
+port's package is not beside this script.
 """
 import contextlib
 import copy
@@ -827,6 +840,329 @@ def drive_humaneva_custom(dev, per_call):
     torch.cuda.empty_cache()
     return launches, inner
 
+TAIL_PAIRS = (2, 4, 6, 8)  # phase 17's float32 tails of the mixed step's final forward
+
+
+def drive_tail(model, kw, inputs, pred_plain, ref, per_call, dev, card):
+    """Phase 17: the flagship mixed eval step (bench.py's "mixed": 8 bf16
+    steps with an f32 head, then the final step) whose final forward runs
+    its last k block pairs and head at float32 and the first 8 - k pairs at
+    bf16 (``make_mixed_diffusion(f32_tail_pairs=k)``, JAX's precision tail),
+    k = 2, 4, 6, 8, in rows and cols, on phase 4's weights and x_T. Each run:
+    B1's (and B2's) launches by dtype as counted, finite predictions, the
+    deviation from the plain f32 eval beside phase 4b's (``ref``: the mixed
+    and pure-bf16 runs), with phase 4b's bound (MPJPE no more than pure
+    bf16's), and one timed step (median of 3). Returns ({path: launches},
+    {path: inner counts})."""
+    from diff3dhpe_torch import make_eval_step, make_mixed_diffusion
+
+    def timed(step):
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(*inputs[:2], x_init=inputs[2])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return statistics.median(secs)
+
+    launches, inner = {}, {}
+    for mode, spatial, temporal in (("rows", "fused_transformer_block", "fused_transformer_block"),
+                                    ("cols", "fused_transformer_block",
+                                     "fused_temporal_block_cols")):
+        for k in TAIL_PAIRS:
+            step = make_eval_step(make_mixed_diffusion(model, mode, f32_tail_pairs=k, **kw),
+                                  JOINTS_LEFT, JOINTS_RIGHT, device=dev)
+            out, d = drive(step, *inputs[:2], x_init=inputs[2])
+            # 8 bf16 steps of 16 block calls; the final step's first 8 - k
+            # pairs at bf16 and its last k at f32.
+            want = {}
+            for name in (spatial, temporal):
+                calls = DEPTH if spatial != temporal else 2 * DEPTH
+                bf16_calls = (DDIM_STEPS - 1) * calls + (DEPTH - k) * calls // DEPTH
+                want[name] = DDIM_STEPS * calls * per_call
+                want[f"{name}_bf16"] = bf16_calls * per_call
+            got = {key: d["launches"][key] for key in want}
+            others = {key: v for key, v in d["launches"].items() if v and key not in want}
+            check(got == want and not others,
+                  f"phase 17 tail {k} {mode} launched {d['launches']}, expected {want}")
+            check(out.shape == pred_plain.shape and torch.isfinite(out).all().item(),
+                  f"phase 17 tail {k} {mode}: predictions not finite")
+            dev_abs, err = (out - pred_plain).abs().max().item(), mpjpe(out, pred_plain)
+            step_s = timed(step)
+            path = f"mixed_tail{k}_{mode}"
+            launches[path], inner[path] = d["launches"], d["inner"]
+            say(f"phase 17 mixed eval step {mode} with a float32 tail of {k} pairs B={BATCH} "
+                f"(x2 flip) DDIM-{DDIM_STEPS}: vs plain f32 max_abs_dev={dev_abs:.3e} "
+                f"mpjpe={err:.4e} (phase 4b: mixed {ref['mixed'][mode]['mpjpe']:.4e}, pure bf16 "
+                f"{ref['bf16']['mpjpe']:.4e}, the bound) step_s={step_s:.4f} "
+                f"seq_per_s={BATCH / step_s:.3f} ({card}) launches={got}")
+            check(err <= ref["bf16"]["mpjpe"], f"phase 17 tail {k} {mode} mpjpe {err:.4e} > the "
+                  f"bf16 eval's {ref['bf16']['mpjpe']:.4e}")
+            del step, out
+    torch.cuda.empty_cache()
+    return launches, inner
+
+
+# Runs in a fresh process (phase 18): restores each artifact, runs it on
+# each state dict with the same inputs, counts launches and times a step.
+RESTORE_CHILD = r"""
+import json, statistics, sys, time
+import torch
+spec = json.load(open(sys.argv[1]))
+sys.path.insert(0, spec["root"])
+from diff3dhpe_torch.io.checkpoint import load_torch_state_dict
+from diff3dhpe_torch.io.export import restore_eval_step
+from diff3dhpe_torch.ops import read_launches, reset_launches
+inputs = torch.load(spec["inputs"])
+# Each state dict on the card once, as a server holds it between calls.
+weights = {name: {k: v.cuda() for k, v in load_torch_state_dict(p).items()}
+           for name, p in spec["weights"].items()}
+results = {}
+for name, path in spec["artifacts"].items():
+    t0 = time.perf_counter()
+    step = restore_eval_step(path)
+    restore_s = time.perf_counter() - t0
+    for wname, state in weights.items():
+        run = lambda: step(state, inputs["x2d"], inputs["x2d_flip"], inputs["x_init"])
+        torch.cuda.synchronize()
+        reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        torch.save(out.cpu(), f"{spec['out']}/{name}_{wname}.pt")
+        results[f"{name}/{wname}"] = dict(launches=launches, step_s=statistics.median(secs),
+                                          restore_s=restore_s)
+print(json.dumps(results))
+"""
+
+
+def drive_export(dev, per_call, card):
+    """Phase 18: the serving export at the flagship shape (243 frames, embed
+    512, depth 8, 8 heads, DDIM-9, batch 2 x2 flip) for the mixed mode in
+    rows (through cli/export.py from a seed-0 .bin) and cols
+    (``io.export.export_eval_step(temporal_mode="cols")``) and for fast f32
+    (through cli/export.py): the export's seconds and the artifact's bytes;
+    the artifact restored in a fresh process and run on the same x_T with
+    the seed-0 weights and with a seed-1 state dict, each equal bit for bit
+    to the live step (``Runner.eval_step``; in cols the same sampler in
+    cols) on those weights, with the same launches by wrapper and dtype;
+    then bench_torch.py with BENCH_EXPORTED=1 (mixed, rows, 4 steps a
+    loop). Returns ({path: launches}, {path: inner counts})."""
+    from diff3dhpe_torch.cli.args import args_to_overrides
+    from diff3dhpe_torch.cli.export import build_export_parser
+    from diff3dhpe_torch.cli.export import main as export_main
+    from diff3dhpe_torch.config import load_config
+    from diff3dhpe_torch.engine.runner import Runner
+    from diff3dhpe_torch.io.checkpoint import load_torch_state_dict
+    from diff3dhpe_torch.io.export import export_eval_step, live_eval_step
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(here, CLI_CONFIG)
+    mixed = ["--fast-eval", "--compute-dtype", "bfloat16", "--eval-f32-head",
+             "--eval-f32-final-steps", "1"]
+    modes = {"mixed_rows": (mixed, "rows"), "mixed_cols": (mixed, "cols"),
+             "fast_f32": (["--fast-eval"], "rows")}
+    launches, inner = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(18)
+    inputs = dict(x2d=torch.rand(BATCH, FRAMES, JOINTS, 2, generator=gen, device=dev) * 2 - 1,
+                  x_init=torch.randn(2 * BATCH, FRAMES, JOINTS, 3, generator=gen, device=dev))
+    inputs["x2d_flip"] = inputs["x2d"].flip(-1)
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = {"seed0": os.path.join(tmp, "seed0.bin"), "seed1": os.path.join(tmp, "seed1.bin")}
+        seed_weights(weights["seed0"], FRAMES, JOINTS, dev)
+        from diff3dhpe_torch import MixSTEDenoiser
+
+        torch.save(MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED,
+                                  depth=DEPTH, num_heads=HEADS, mlp_ratio=MLP_RATIO, seed=1,
+                                  device=dev).state_dict(), weights["seed1"])
+        torch.save({k: v.cpu() for k, v in inputs.items()}, os.path.join(tmp, "inputs.pt"))
+        artifacts, live = {}, {}
+        for name, (flags, tmode) in modes.items():
+            path = os.path.join(tmp, f"{name}.pt2")
+            argv = ["--config", config, "--sampling_timesteps", str(DDIM_STEPS),
+                    "--evaluate", weights["seed0"], "--output", path,
+                    "--export-batch-size", str(BATCH)] + flags
+            args = build_export_parser().parse_args(argv)
+            cfg = load_config(args.config, args_to_overrides(args))
+            t0 = time.perf_counter()
+            if tmode == "rows":
+                with contextlib.redirect_stdout(io.StringIO()):
+                    data = export_main(argv)
+            else:
+                runner = Runner(cfg, JOINTS, JOINTS_LEFT, JOINTS_RIGHT, device=dev)
+                runner.set_params(load_torch_state_dict(weights["seed0"]))
+                data = export_eval_step(runner, BATCH, path, temporal_mode=tmode)
+                del runner
+            export_s = time.perf_counter() - t0
+            check(len(data) == os.path.getsize(path) > 0, f"phase 18 {name}: the artifact")
+            artifacts[name] = path
+            runner = Runner(cfg, JOINTS, JOINTS_LEFT, JOINTS_RIGHT, device=dev)
+            for wname, wpath in weights.items():
+                runner.set_params(load_torch_state_dict(wpath))
+                step = runner.eval_step if tmode == "rows" else live_eval_step(runner, tmode)
+                out, d = drive(step, inputs["x2d"], inputs["x2d_flip"], x_init=inputs["x_init"])
+                secs = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    step(inputs["x2d"], inputs["x2d_flip"], x_init=inputs["x_init"])
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                live[f"{name}/{wname}"] = dict(out=out.cpu(), launches=d["launches"],
+                                               step_s=statistics.median(secs))
+                launches[f"export_live_{name}_{wname}"] = d["launches"]
+                inner[f"export_live_{name}_{wname}"] = d["inner"]
+            say(f"phase 18 export {name} ({tmode}) B={BATCH} (x2 flip) DDIM-{DDIM_STEPS}: "
+                f"export_s={export_s:.2f} artifact_bytes={len(data)}")
+            del runner
+        torch.cuda.empty_cache()
+        spec = dict(root=here, inputs=os.path.join(tmp, "inputs.pt"), weights=weights,
+                    artifacts=artifacts, out=tmp)
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", RESTORE_CHILD, os.path.join(tmp, "spec.json")],
+                              cwd=here, capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"phase 18 restore process exited {proc.returncode}:\n"
+              f"{proc.stderr[-3000:]}")
+        served = json.loads(proc.stdout.strip().splitlines()[-1])
+        child_s = time.perf_counter() - t0
+        for key, r in served.items():
+            name, wname = key.split("/")
+            got = torch.load(os.path.join(tmp, f"{name}_{wname}.pt"))
+            want = live[key]
+            check(torch.equal(got, want["out"]), f"phase 18 {key}: the restored artifact differs "
+                  f"from the live step by {(got - want['out']).abs().max().item():.3e}")
+            live_counts = {k: v for k, v in want["launches"].items() if k != "plain_attention_calls"}
+            check(r["launches"] == live_counts and any(r["launches"].values()),
+                  f"phase 18 {key}: launches {r['launches']}, live {live_counts}")
+            check(torch.isfinite(got).all().item(), f"phase 18 {key}: not finite")
+            say(f"phase 18 restored {key} in a fresh process: equals the live step bit for bit, "
+                f"launches={ {k: v for k, v in r['launches'].items() if v} }, "
+                f"restore_s={r['restore_s']:.2f} step_s={r['step_s']:.4f} "
+                f"seq_per_s={BATCH / r['step_s']:.3f} (the live step in this run: "
+                f"{BATCH / want['step_s']:.3f}) ({card})")
+        check(not torch.equal(live["mixed_rows/seed0"]["out"], live["mixed_rows/seed1"]["out"]),
+              "phase 18: two checkpoints gave the same prediction")
+        say(f"phase 18 the fresh restore process took {child_s:.1f} s")
+
+    # bench_torch.py times the restored artifact (mixed, rows): 3 loops of 4.
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(here, "bench_torch.py")], cwd=here,
+                          env=dict(os.environ, BENCH_EXPORTED="1", BENCH_ITERS="4"),
+                          capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"bench_torch.py BENCH_EXPORTED=1 exited {proc.returncode}:\n"
+          f"{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    d = line["detail"]
+    b1 = 3 * 4 * DDIM_STEPS * 2 * DEPTH * per_call
+    want = {"fused_transformer_block": b1,
+            "fused_transformer_block_bf16": b1 * (DDIM_STEPS - 1) // DDIM_STEPS}
+    check(d["exported_artifact"] and d["export"]["artifact_bytes"] > 0
+          and d["card"] == torch.cuda.get_device_name(0)
+          and math.isfinite(line["value"]) and line["value"] > 0 and d["launches"] == want,
+          f"bench_torch.py BENCH_EXPORTED=1: {line}")
+    launches["bench_torch_exported"] = dict(
+        {k: 0 for k in next(iter(launches.values()))}, **d["launches"])
+    say(f"phase 18 bench_torch.py BENCH_EXPORTED=1 BENCH_ITERS=4 "
+        f"({time.perf_counter() - t0:.1f} s): {proc.stdout.strip().splitlines()[-1]}")
+    return launches, inner
+
+
+def drive_viz(dev, per_call, card):
+    """Phase 19: the visualisation's model work, cli/viz.py::compute, on
+    --synthetic data (S9, the first action, camera 0: 4 windows of 243
+    frames) with configs/h36m_gt_s2s_243f.json (its DDIM-5, fast-eval at
+    f32; the eval batch cut to 2, since a sequence pads its windows to a
+    whole batch) at repeat_n 1 and 2: the predictions, the forward chain
+    (20 snapshots), the reverse DDIM chain on the plain module, whose last
+    state must equal the live DDIM sample on the same x_T bit for bit, and
+    the hypotheses; then ``p_sample_loop`` over all T = 1,000 steps at batch
+    1 through the module with use_pallas_attention (B6 for the joints, B3
+    for the frames). Checks shapes, finite values, chain lengths and the
+    launches; prints the seconds of each part. Returns ({path: launches},
+    {path: inner counts})."""
+    import numpy as np
+
+    from diff3dhpe_torch import GaussianDiffusion, MixSTEDenoiser, make_denoise_fn
+    from diff3dhpe_torch.cli.args import args_to_overrides
+    from diff3dhpe_torch.cli.viz import build_viz_parser, compute
+    from diff3dhpe_torch.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    launches, inner = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for repeat_n in (1, 2):
+        args = build_viz_parser().parse_args([
+            "--config", os.path.join(here, CLI_CONFIG), "--synthetic", "-str", "S1", "-ste", "S9",
+            "--fast-eval", "--batch-size-eval", str(BATCH), "--repeat_n", str(repeat_n)])
+        cfg = load_config(args.config, args_to_overrides(args))
+        x_rev = torch.randn(1, FRAMES, JOINTS, 3, generator=gen, device=dev)
+        out, d = drive(compute, cfg, args, dev, dict(reverse_x_init=x_rev))
+        steps, samples = cfg.sampling_timesteps, args.viz_chain_samples
+        shapes = dict(forward_chain=(FRAMES, JOINTS, 3, samples),
+                      reverse_states=(FRAMES, JOINTS, 3, steps),
+                      reverse_x0=(FRAMES, JOINTS, 3, steps),
+                      predictions=(out["windows"] * FRAMES, JOINTS, 3))
+        if repeat_n > 1:
+            shapes["hypotheses"] = (repeat_n, FRAMES, JOINTS, 3)
+        for key, shape in shapes.items():
+            check(tuple(out[key].shape) == shape and bool(np.isfinite(out[key]).all()),
+                  f"phase 19 repeat_n={repeat_n} {key}: shape {out[key].shape}, want {shape}")
+        check(len(out["t_list"]) == samples and (out["hypotheses"] is None) == (repeat_n == 1),
+              f"phase 19 repeat_n={repeat_n}: t_list {out['t_list']}")
+        runner = out["runner"]
+        sample = runner.diffusion.ddim_sample_loop(out["window_2d"], (1, FRAMES, JOINTS, 3),
+                                                   x_init=x_rev)
+        check(torch.equal(torch.from_numpy(out["reverse_states"][..., -1]), sample[0].cpu()),
+              f"phase 19 repeat_n={repeat_n}: the chain's last state is not the DDIM sample")
+        # Runner.evaluate: the batches and a warm-up step; the hypotheses one
+        # sampling loop; each DDIM-5 loop 16 B1 calls a step. The reverse
+        # chain runs the plain module: 16 attention calls a step.
+        loops = -(-out["windows"] // BATCH) + 1 + (repeat_n > 1)
+        want = dict(fused_transformer_block=loops * steps * 2 * DEPTH * per_call,
+                    plain_attention_calls=steps * 2 * DEPTH)
+        got = {k: v for k, v in d["launches"].items() if v}
+        check(got == want, f"phase 19 repeat_n={repeat_n} launched {got}, expected {want}")
+        path = f"viz_compute_repeat{repeat_n}"
+        launches[path], inner[path] = d["launches"], d["inner"]
+        say(f"phase 19 cli/viz.py compute repeat_n={repeat_n} ({out['windows']} windows, DDIM-"
+            f"{steps}, fast-eval f32): {d['wall_s']:.1f} s; forward chain {shapes['forward_chain']},"
+            f" reverse chain {shapes['reverse_states']} (last state = the DDIM sample, bit for "
+            f"bit), hypotheses {shapes.get('hypotheses')}, e1_mm="
+            f"{out['metrics']['e1']:.3f}; launches={got} ({card})")
+        del out, runner, sample
+
+    model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
+                           num_heads=HEADS, mlp_ratio=MLP_RATIO, use_pallas=True, seed=0,
+                           device=dev).eval()
+    diffusion = GaussianDiffusion.create(make_denoise_fn(model), timesteps=TIMESTEPS,
+                                         beta_schedule="cosine")
+    x_cond = torch.rand(1, FRAMES, JOINTS, 2, generator=gen, device=dev) * 2 - 1
+    x_t = torch.randn(1, FRAMES, JOINTS, 3, generator=gen, device=dev)
+    noises = torch.randn(TIMESTEPS, 1, FRAMES, JOINTS, 3, generator=gen, device=dev)
+    x0, d = drive(diffusion.p_sample_loop, x_cond, (1, FRAMES, JOINTS, 3), x_init=x_t,
+                  noises=noises)
+    want = dict(grand_attention_fullseq=TIMESTEPS * DEPTH, packed_grand_attention=TIMESTEPS * DEPTH)
+    got = {k: v for k, v in d["launches"].items() if v}
+    check(got == want, f"phase 19 p_sample_loop launched {got}, expected {want}")
+    check(x0.shape == (1, FRAMES, JOINTS, 3) and torch.isfinite(x0).all().item(),
+          "phase 19 p_sample_loop: the sample")
+    launches["p_sample_loop_use_pallas"], inner["p_sample_loop_use_pallas"] = (d["launches"],
+                                                                              d["inner"])
+    say(f"phase 19 p_sample_loop T={TIMESTEPS} B=1 through the use_pallas module: "
+        f"{d['wall_s']:.2f} s per {TIMESTEPS} steps, |x0| max {x0.abs().max().item():.3f}, "
+        f"launches={got} ({card})")
+    del model, diffusion, noises
+    torch.cuda.empty_cache()
+    return launches, inner
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -859,7 +1195,8 @@ def main():
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
-    say(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    say(card)
     peak_flops, peak_bf16, mem_rate = next(v for k, v in CARD_PEAKS.items() if k in kind)
 
     # Phase 1: build every kernel source from the checkout.
@@ -1453,6 +1790,14 @@ def main():
     mixed_launches = {f"mixed_eval_{mode}": m["launches"] for mode, m in mixed.items()}
     mixed_launches["bf16_eval_rows"] = bf16_launches
     mixed_launches.update(mixed_launches_h4)
+
+    # Phase 17: the mixed step with a float32 tail of k block pairs in its
+    # final forward, k = 2, 4, 6, 8, rows and cols, held as phase 4b's.
+    tail_launches, tail_inner = drive_tail(
+        model, kw, (x2d, x2d_flip, x_init), pred_plain,
+        dict(mixed=mixed, bf16=dict(mpjpe=bf16_mpjpe)), per_call, dev, card)
+    mixed_launches.update(tail_launches)
+    inner_by_path.update(tail_inner)
     del step_fast, step_plain, step_bf16, step, out, model, pred, pred_plain, pred_bf16, mixed
     torch.cuda.empty_cache()
 
@@ -2648,6 +2993,13 @@ def main():
         cli_launches.update(launches)
         inner_by_path.update(inner_counts)
 
+    # Phase 18: the serving export, restored in a fresh process; phase 19:
+    # the visualisation's model work and the ancestral DDPM loop.
+    for launches, inner_counts in (drive_export(dev, per_call, card),
+                                   drive_viz(dev, per_call, card)):
+        cli_launches.update(launches)
+        inner_by_path.update(inner_counts)
+
     # One entry per kernel. B1's work is one spatial + one temporal call at
     # the eval shape, the pair each depth level of a forward runs (f32, and
     # under "bf16" the same at bf16); B2's one call at the eval shape; B3
@@ -2677,7 +3029,8 @@ def main():
     b2_by_path = by_path("fused_temporal_block_cols", mixed_key="fused_temporal_block_cols")
     b1_bf16_by_path = {k: v["fused_transformer_block_bf16"]
                        for k, v in {**mixed_launches, **cli_launches}.items()}
-    b2_bf16_by_path = {k: v["fused_temporal_block_cols_bf16"] for k, v in mixed_launches.items()}
+    b2_bf16_by_path = {k: v.get("fused_temporal_block_cols_bf16", 0)
+                       for k, v in {**mixed_launches, **cli_launches}.items()}
     # The f32 GEMM and LN launches the block wrappers counted on each path
     # (inner_by_path), held against the blocks' structure: a B1 or B2 call
     # of per_call kernels launches 3 LNs and 4 GEMMs, f32 ones in an f32

@@ -34,6 +34,35 @@ import sys
 import numpy as np
 
 
+def resolve_checkpoint(cfg, name):
+    """``name`` as given where it exists, else under ``cfg.checkpoint``."""
+    return os.path.join(cfg.checkpoint, name) if not os.path.exists(name) else name
+
+
+def load_weights(path, field):
+    """The denoiser's state dict of a reference ``.bin`` file or a checkpoint
+    directory the port wrote; ``field`` names the flag in a refusal."""
+    from diff3dhpe_torch.io.checkpoint import load_torch_state_dict, restore_checkpoint
+
+    if path.endswith(".bin"):
+        return load_torch_state_dict(path)
+    return restore_checkpoint(path, field=field)[0]["model_diffusion"]
+
+
+def load_evaluated_weights(cfg, runner):
+    """Loads ``cfg.evaluate`` (else ``cfg.pretrained_model``) into ``runner``
+    as the export and visualisation entry points do (JAX cli/export.py:
+    93-110, cli/viz.py:102-113); returns the path, or None where neither is
+    set."""
+    name = cfg.evaluate or cfg.pretrained_model
+    if not name:
+        return None
+    path = resolve_checkpoint(cfg, name)
+    runner.set_params(load_weights(path, "evaluate" if cfg.evaluate else "pretrained_model"))
+    print(f"Loaded checkpoint {path}")
+    return path
+
+
 def main(argv=None, device="cuda"):
     from diff3dhpe_torch.cli.args import args_to_overrides, build_parser
     from diff3dhpe_torch.config import load_config
@@ -46,7 +75,6 @@ def main(argv=None, device="cuda"):
 
     from diff3dhpe_torch.data import Human36mDataset, PoseDataset, make_synthetic_h36m_like
     from diff3dhpe_torch.engine.runner import Runner, RunLogger
-    from diff3dhpe_torch.io.checkpoint import load_torch_state_dict, restore_checkpoint
     from diff3dhpe_torch.io.convert import load_matching_params
     from diff3dhpe_torch.utils.profiling import clever_format, denoiser_matmul_flops
 
@@ -121,13 +149,7 @@ def main(argv=None, device="cuda"):
     # Optional weight loading (reference .bin or the port's checkpoint dir)
     # ------------------------------------------------------------------
     def resolve(name):
-        return os.path.join(cfg.checkpoint, name) if not os.path.exists(name) else name
-
-    def load_weights(path, field):
-        """The denoiser's state dict of the .bin file or checkpoint directory."""
-        if path.endswith(".bin"):
-            return load_torch_state_dict(path)
-        return restore_checkpoint(path, field=field)[0]["model_diffusion"]
+        return resolve_checkpoint(cfg, name)
 
     if cfg.evaluate:
         path = resolve(cfg.evaluate)

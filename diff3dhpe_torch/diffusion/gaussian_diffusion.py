@@ -1,8 +1,9 @@
 """Conditional Gaussian diffusion (direct-x0 prediction, variable loss).
 
 Port of ``diff3dhpe_tpu/diffusion/gaussian_diffusion.py``: the DDIM reverse
-loop, the forward process, the multi-hypothesis pose estimate and the
-training loss. The denoiser is any callable ``denoise_fn(x, t) -> x0``
+loop (with its chain for the visualisation), the forward process and its
+snapshots, the ancestral DDPM loop, the multi-hypothesis pose estimate and
+the training loss. The denoiser is any callable ``denoise_fn(x, t) -> x0``
 ([B, F, J, Cin + 3], [B] -> [B, F_out, J, 3]); the JAX scan over steps
 becomes a Python loop. A training denoiser also takes ``dp_scales`` and
 ``generator`` keywords (``engine.steps.make_fast_train_denoise_fn``).
@@ -104,6 +105,22 @@ class GaussianDiffusion:
         return (self._at("sqrt_alphas_cumprod", t, x_start) * x_start
                 + self._at("sqrt_one_minus_alphas_cumprod", t, x_start) * noise)
 
+    def get_noisy_pose(self, x_start, num_sample: int, noise=None, generator=None):
+        """Forward-diffusion snapshots for the visualisation (reference
+        :378-389, JAX :120-134): x_t of ``x_start`` [B, ...] at t = 0, T //
+        num_sample, 2 T // num_sample, ... with one ``noise`` (drawn from
+        ``generator`` when not given). Returns (stack [B, ..., len(t_list)],
+        t_list)."""
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, dtype=x_start.dtype,
+                                device=x_start.device)
+        t_list = list(range(0, self.num_timesteps, self.num_timesteps // num_sample))
+        b = x_start.shape[0]
+        snaps = [self.q_sample(x_start, torch.full((b,), t, dtype=torch.long,
+                                                   device=x_start.device), noise)
+                 for t in t_list]
+        return torch.stack(snaps, dim=-1), t_list
+
     def p_losses(self, x_start, pose_2d, *, t=None, noise=None, generator=None,
                  dp_scales=None):
         """Per-element training loss (reference p_losses:392-419), with
@@ -172,14 +189,20 @@ class GaussianDiffusion:
         return x_start.to(torch.float32)
 
     @torch.no_grad()
-    def ddim_sample_loop(self, x_cond, target_shape, x_init=None, generator=None):
+    def ddim_sample_loop(self, x_cond, target_shape, x_init=None, generator=None,
+                         collect_chain: bool = False, noises=None):
         """DDIM reverse diffusion (reference :263-300).
 
         x_cond [B, F, J, Cin] conditioning; target_shape (B, F_out, J, 3).
         ``x_init`` is x_T; without it x_T ~ N(0, I) is drawn from
         ``generator`` (which must then be given, on x_cond's device), as is
-        the per-step noise when ddim_sampling_eta != 0."""
-        if (x_init is None or self.ddim_sampling_eta) and generator is None:
+        the per-step noise when ddim_sampling_eta != 0, unless ``noises``
+        [S, B, F_out, J, 3] gives it (step i adds noises[i]; the last step
+        adds none). With ``collect_chain`` it returns (x_0, states, x0
+        estimates), the per-step states and x0 estimates stacked on a last
+        axis of length S (JAX :220-303, the visualisation's)."""
+        eta = self.ddim_sampling_eta
+        if (x_init is None or (eta and noises is None)) and generator is None:
             raise ValueError("pass x_init, or a torch.Generator to draw the noise from")
 
         def noise():
@@ -191,33 +214,83 @@ class GaussianDiffusion:
             raise ValueError(f"x_init has shape {tuple(x.shape)}, expected {tuple(target_shape)}")
         tb = self._ddim_step_tables()
         s = self.sampling_timesteps
+        if eta and noises is not None and tuple(noises.shape) != (s,) + tuple(target_shape):
+            raise ValueError(f"noises has shape {tuple(noises.shape)}, expected "
+                             f"{(s,) + tuple(target_shape)}")
         n_final = min(self.final_denoise_steps, s) if self.final_denoise_fn else 0
+        states, x0s = [], []
         for i in range(s):
             fn = self.final_denoise_fn if i >= s - n_final else self.denoise_fn
             x_start = self._model_x_start(x, tb["t"][i], x_cond, fn)
             if tb["is_last"][i]:
                 x = x_start
-                continue
-            # The reference multiplies x_start by alpha (NOT sqrt(alpha)) in
-            # the eps-extraction term (reference :296); reproduced here.
-            x = x_start * float(tb["sqrt_alpha_next"][i]) + float(tb["coef"][i]) * (
-                (x - float(tb["alpha"][i]) * x_start) / float(tb["sqrt_om"][i])
-            )
-            if self.ddim_sampling_eta:
-                x = x + float(tb["sigma"][i]) * noise()
+            else:
+                # The reference multiplies x_start by alpha (NOT sqrt(alpha))
+                # in the eps-extraction term (reference :296); reproduced here.
+                x = x_start * float(tb["sqrt_alpha_next"][i]) + float(tb["coef"][i]) * (
+                    (x - float(tb["alpha"][i]) * x_start) / float(tb["sqrt_om"][i])
+                )
+                if eta:
+                    x = x + float(tb["sigma"][i]) * (noise() if noises is None else noises[i])
+            if collect_chain:
+                states.append(x)
+                x0s.append(x_start)
+        if collect_chain:
+            return x, torch.stack(states, dim=-1), torch.stack(x0s, dim=-1)
+        return x
+
+    @torch.no_grad()
+    def p_sample_loop(self, x_cond, target_shape, x_init=None, noises=None, generator=None):
+        """Ancestral DDPM sampling over all T steps (reference
+        p_sample_loop:235-248, JAX :305-345), for the visualisation: the
+        denoiser's output is read as the noise eps, and its time input is
+        the noise level sqrt(acp[t + 1]) as the reference's p_mean_variance
+        passes it (reference :211-220). ``x_init`` (x_T) and ``noises`` [T,
+        *target_shape] (step s, at t = T - 1 - s, adds noises[s]; the last
+        adds none) are drawn from ``generator`` where not given."""
+        if (x_init is None or noises is None) and generator is None:
+            raise ValueError("pass x_init and noises, or a torch.Generator to draw them from")
+        c, n = self.constants, self.num_timesteps
+        dev, shape = x_cond.device, tuple(target_shape)
+        if noises is not None and tuple(noises.shape) != (n,) + shape:
+            raise ValueError(f"noises has shape {tuple(noises.shape)}, expected {(n,) + shape}")
+        x = (torch.randn(shape, generator=generator, device=dev) if x_init is None
+             else x_init.to(torch.float32))
+        f32 = lambda a: np.asarray(a, np.float32)
+        level = f32(c.sqrt_alphas_cumprod_prev)
+        sqrt_om, sqrt_acp = f32(c.sqrt_one_minus_alphas_cumprod), f32(c.sqrt_alphas_cumprod)
+        coef1, coef2 = f32(c.posterior_mean_coef1), f32(c.posterior_mean_coef2)
+        sigma = np.exp(np.float32(0.5) * f32(c.posterior_log_variance_clipped))
+        for step, t in enumerate(range(n - 1, -1, -1)):
+            x_in = x
+            if self.mode == "s2f" and self.conditional:
+                x_in = x.repeat_interleave(x_cond.shape[1], dim=1)
+            model_in = torch.cat([x_cond, x_in], dim=-1) if self.conditional else x_in
+            time = torch.full((x.shape[0],), float(level[t + 1]), dtype=torch.float32, device=dev)
+            eps = self.denoise_fn(model_in, time).to(torch.float32)
+            x_start = (x - float(sqrt_om[t]) * eps) / float(sqrt_acp[t])
+            x = float(coef1[t]) * x_start + float(coef2[t]) * x
+            if t > 0:
+                z = (torch.randn(shape, generator=generator, device=dev) if noises is None
+                     else noises[step])
+                x = x + z * float(sigma[t])
         return x
 
     def estimate_pose(self, pose_2d, target_shape, repeat_n: int = 1, x_init=None,
-                      generator=None):
+                      generator=None, reduce: bool = True, noises=None):
         """DDIM-sample a 3D pose estimate; with repeat_n > 1 the hypotheses
         ride a tiled batch (hypothesis r of row i at row r * B + i, also
-        the row order of ``x_init``) and are averaged (reference :434-448)."""
+        the row order of ``x_init`` and of each step of ``noises``) and are
+        averaged (reference :434-448). ``reduce=False`` returns the
+        hypotheses [repeat_n, B, ...] instead of their mean (JAX :350-380,
+        the reference's multi-hypothesis visualisation)."""
         b = target_shape[0]
         if repeat_n > 1:
             pose_2d = pose_2d.repeat(repeat_n, 1, 1, 1)
             target_shape = (b * repeat_n,) + tuple(target_shape[1:])
         pred = self.ddim_sample_loop(pose_2d, tuple(target_shape), x_init=x_init,
-                                     generator=generator)
+                                     generator=generator, noises=noises)
         if repeat_n > 1:
-            return pred.reshape((repeat_n, b) + tuple(pred.shape[1:])).mean(dim=0)
-        return pred
+            pred = pred.reshape((repeat_n, b) + tuple(pred.shape[1:]))
+            return pred.mean(dim=0) if reduce else pred
+        return pred if reduce else pred[None]

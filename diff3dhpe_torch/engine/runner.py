@@ -100,8 +100,12 @@ def check_supported(cfg: Config, device="cpu") -> None:
     bf16 = cfg.compute_dtype == "bfloat16"
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         refuse("compute_dtype", "float32 or bfloat16")
-    if cfg.eval_f32_tail_pairs > 0:
-        refuse("eval_f32_tail_pairs", "the final step's forward runs float32 as a whole")
+    if cfg.eval_f32_tail_pairs > 0 and not (cfg.fast_eval and bf16):
+        refuse("eval_f32_tail_pairs", "the float32 tail splits the fused bf16 eval's final "
+               "forward: it needs fast_eval and compute_dtype 'bfloat16'")
+    if cfg.eval_f32_tail_pairs > 0 and cfg.eval_f32_final_steps <= 0:
+        refuse("eval_f32_tail_pairs", "the float32 tail splits the final steps' forward, and "
+               "eval_f32_final_steps is 0")
     if cfg.eval_final_prec not in ("high3", "highest"):
         refuse("eval_final_prec", "the float32 kernels contract in exact float32 "
                "('high3' and 'highest' both mean that)")
@@ -124,6 +128,32 @@ def _check_head_dim(cfg):
 
 def _dtype(cfg):
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def eval_diffusion(cfg: Config, diffusion, model, temporal_mode: str = "rows"):
+    """The sampler of ``cfg``'s eval path on ``model``'s weights (JAX
+    runner.py:128-171): ``diffusion`` itself (the plain or ``use_pallas``
+    module), or with ``fast_eval`` the fused forward at ``compute_dtype``
+    (a bf16 one holds a ``bf16_snapshot``), whose last
+    ``eval_f32_final_steps`` steps run the float32 fused forward, or with
+    ``eval_f32_tail_pairs`` a bf16 forward whose last that-many block pairs
+    and head run at float32. ``temporal_mode``: the fused forward's
+    temporal layout (the runner's is "rows", JAX's default; the bench and
+    the export also take "cols")."""
+    if not cfg.fast_eval:
+        return diffusion
+    bf16 = cfg.compute_dtype == "bfloat16"
+    out = dataclasses.replace(diffusion, denoise_fn=make_fast_denoise_fn(
+        model, _dtype(cfg), temporal_mode, f32_head=bf16 and cfg.eval_f32_head))
+    if bf16 and cfg.eval_f32_final_steps > 0:
+        if cfg.eval_f32_tail_pairs > 0:
+            final = make_fast_denoise_fn(model, torch.bfloat16, temporal_mode, f32_head=True,
+                                         f32_tail_pairs=cfg.eval_f32_tail_pairs)
+        else:
+            final = make_fast_denoise_fn(model, torch.float32, temporal_mode)
+        out = dataclasses.replace(out, final_denoise_fn=final,
+                                  final_denoise_steps=cfg.eval_f32_final_steps)
+    return out
 
 
 def check_trainable(cfg: Config, device="cpu") -> None:
@@ -224,20 +254,7 @@ class Runner:
         model's current weights (a bf16 denoise_fn holds a snapshot of
         them, so this runs again whenever the weights are replaced)."""
         cfg = self.cfg
-        self.eval_diffusion = self.diffusion
-        if cfg.fast_eval:
-            is_bf16 = cfg.compute_dtype == "bfloat16"
-            self.eval_diffusion = dataclasses.replace(
-                self.diffusion,
-                denoise_fn=make_fast_denoise_fn(self.model, _dtype(cfg),
-                                                f32_head=is_bf16 and cfg.eval_f32_head),
-            )
-            if is_bf16 and cfg.eval_f32_final_steps > 0:
-                self.eval_diffusion = dataclasses.replace(
-                    self.eval_diffusion,
-                    final_denoise_fn=make_fast_denoise_fn(self.model, torch.float32),
-                    final_denoise_steps=cfg.eval_f32_final_steps,
-                )
+        self.eval_diffusion = eval_diffusion(cfg, self.diffusion, self.model)
         self.eval_step = make_eval_step(
             self.eval_diffusion, self.joints_left, self.joints_right,
             repeat_n=cfg.repeat_n, tta=cfg.test_time_augmentation, device=self.device,

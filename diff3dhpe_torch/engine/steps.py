@@ -45,7 +45,7 @@ def make_denoise_fn(model) -> Callable:
 
 
 def make_fast_denoise_fn(model, dtype=torch.float32, temporal_mode: str = "rows",
-                         f32_head: bool = False) -> Callable:
+                         f32_head: bool = False, f32_tail_pairs: int = 0) -> Callable:
     """denoise_fn(x, t) through the fused-block forward
     (``models.fast_eval.fast_forward_denoise``), JAX ``make_fast_denoise_fn``.
 
@@ -54,27 +54,41 @@ def make_fast_denoise_fn(model, dtype=torch.float32, temporal_mode: str = "rows"
     weights taken when it is made (``bf16_snapshot``: the bf16 copies are
     made once, not on every call; later changes to ``model`` are not seen).
     ``temporal_mode``: "rows" or "cols". ``f32_head``: the head runs at
-    float32 on the bf16 trunk's output, as in the mixed mode."""
-    weights = model if dtype == torch.float32 else bf16_snapshot(model, f32_head)
+    float32 on the bf16 trunk's output, as in the mixed mode.
+    ``f32_tail_pairs`` (bf16 only): the last this-many block pairs and the
+    head run at float32 on ``model``'s own float32 weights, as they are at
+    each call, while the pairs before them read the snapshot (JAX's
+    precision tail). The port's float32 kernels contract in exact float32,
+    so no contraction mode goes with it."""
+    bf16 = dtype == torch.bfloat16
+    weights = bf16_snapshot(model, f32_head) if bf16 else model
+    tail = f32_tail_pairs if bf16 else 0
 
     def denoise_fn(x, t):
         return fast_forward_denoise(weights, x, t, dtype=dtype, temporal_mode=temporal_mode,
-                                    f32_head=f32_head)
+                                    f32_head=f32_head, f32_tail_pairs=tail, f32_model=model)
 
     return denoise_fn
 
 
-def make_mixed_diffusion(model, temporal_mode: str = "rows", **diffusion_kw) -> GaussianDiffusion:
+def make_mixed_diffusion(model, temporal_mode: str = "rows", f32_tail_pairs: int = 0,
+                         **diffusion_kw) -> GaussianDiffusion:
     """The JAX package's default eval (``bench.py`` DTYPE="mixed", :101-135):
     a bf16 trunk with an f32 head for the DDIM steps, and the f32 fused
-    forward for the last one. JAX runs that final step under its hand-split
-    bf16x3 contraction ("high3"), a TPU workaround for Precision.HIGH; the
-    port's f32 kernels contract in full float32. ``diffusion_kw`` go to
-    ``GaussianDiffusion.create``."""
+    forward for the last one, or with ``f32_tail_pairs`` > 0 a bf16 forward
+    whose last that-many block pairs and head run at f32 (``bench.py``
+    TAIL_PAIRS, :119-127). JAX runs the f32 parts of that final step under
+    its hand-split bf16x3 contraction ("high3"), a TPU workaround for
+    Precision.HIGH; the port's f32 kernels contract in full float32.
+    ``diffusion_kw`` go to ``GaussianDiffusion.create``."""
+    if f32_tail_pairs > 0:
+        final = make_fast_denoise_fn(model, torch.bfloat16, temporal_mode, f32_head=True,
+                                     f32_tail_pairs=f32_tail_pairs)
+    else:
+        final = make_fast_denoise_fn(model, torch.float32, temporal_mode)
     return GaussianDiffusion.create(
         make_fast_denoise_fn(model, torch.bfloat16, temporal_mode, f32_head=True),
-        final_denoise_fn=make_fast_denoise_fn(model, torch.float32, temporal_mode),
-        final_denoise_steps=1, **diffusion_kw,
+        final_denoise_fn=final, final_denoise_steps=1, **diffusion_kw,
     )
 
 
@@ -188,10 +202,13 @@ def make_eval_step(
     device="cuda",
 ):
     """Returns eval_step(input_2d, input_2d_flip, *, x_init=None,
-    generator=None) -> predicted_3d_norm [B, F_out, J, 3] on ``device``.
+    generator=None, noises=None) -> predicted_3d_norm [B, F_out, J, 3] on
+    ``device``.
 
     With ``tta`` the batch is doubled: ``x_init`` (x_T) then has
-    2 * B * repeat_n rows, ordered [hypothesis][normal | flipped][row].
+    2 * B * repeat_n rows, ordered [hypothesis][normal | flipped][row], as
+    has each step of ``noises`` (the per-step noise where
+    ddim_sampling_eta > 0, ``GaussianDiffusion.ddim_sample_loop``).
     ``tta=False`` runs a single pass and ignores ``input_2d_flip``
     (reference run.py:577-587)."""
     device = resolve_device(device)
@@ -199,19 +216,20 @@ def make_eval_step(
     if len(jl) != len(jr):
         raise ValueError("joints_left and joints_right must pair up")
 
-    def eval_step(input_2d, input_2d_flip, *, x_init=None, generator=None):
+    def eval_step(input_2d, input_2d_flip, *, x_init=None, generator=None, noises=None):
         input_2d = torch.as_tensor(input_2d, dtype=torch.float32, device=device)
         b, f, j, _ = input_2d.shape
         f_out = f if diffusion.mode == "s2s" else 1
-        if x_init is not None:
-            x_init = torch.as_tensor(x_init, dtype=torch.float32, device=device)
+        x_init, noises = (None if a is None else torch.as_tensor(a, dtype=torch.float32,
+                                                                 device=device)
+                          for a in (x_init, noises))
         if not tta:
             return diffusion.estimate_pose(input_2d, (b, f_out, j, 3), repeat_n=repeat_n,
-                                           x_init=x_init, generator=generator)
+                                           x_init=x_init, generator=generator, noises=noises)
         input_2d_flip = torch.as_tensor(input_2d_flip, dtype=torch.float32, device=device)
         both = torch.cat([input_2d, input_2d_flip], dim=0)
         pred = diffusion.estimate_pose(both, (2 * b, f_out, j, 3), repeat_n=repeat_n,
-                                       x_init=x_init, generator=generator)
+                                       x_init=x_init, generator=generator, noises=noises)
         return (pred[:b] + flip_pose(pred[b:], jl, jr)) / 2.0
 
     return eval_step

@@ -1,0 +1,168 @@
+"""Serving export: the flip-TTA DDIM eval step as a ``torch.export``
+artifact. Port of ``diff3dhpe_tpu/io/export.py``.
+
+The artifact holds the whole eval step of the runner's eval mode (the
+plain or ``use_pallas`` module, the fused forward at float32 or bf16, the
+mixed mode with or without its float32 tail): the DDIM loop, the
+flip-TTA doubling and average. The kernels are the ``diff3dhpe::``
+operators (``ops._library``), so the artifact runs them on the card, or
+their plain versions on the CPU, by the device it was exported on. The
+trained weights are runtime INPUTS, under the reference's state-dict
+names, so one artifact serves every checkpoint of its shape; the bf16
+copies of the bf16 paths are made inside the graph, once per call.
+
+    data = export_eval_step(runner, batch_size=4, path="eval.pt2")
+    # ... serving process ...
+    step = restore_eval_step("eval.pt2")
+    pred_norm = step(state_dict, x2d, x2d_flip, x_init)   # [B, F_out, J, 3]
+
+x_T (``x_init``, 2 · B · repeat_n rows with flip-TTA, ordered as
+``engine.steps.make_eval_step`` takes it) is an input, where JAX's artifact
+takes a PRNG key and draws it inside: torch cannot draw JAX's keyed noise,
+and every other path of the port takes x_T too. Where
+``ddim_sampling_eta`` > 0 the per-step noise ``noises`` [S, rows, F_out, J,
+3] is a fifth input. CLI front end: ``python -m diff3dhpe_torch.cli.export``.
+"""
+from __future__ import annotations
+
+import io
+import json
+import os
+from typing import Union
+
+import torch
+
+META = "diff3dhpe_eval_step.json"
+
+
+def live_eval_step(runner, temporal_mode: str = "rows"):
+    """The eval step that ``export_eval_step`` exports, live: the runner's
+    own ``eval_step`` in "rows", the same in "cols"."""
+    from diff3dhpe_torch.engine.runner import eval_diffusion
+    from diff3dhpe_torch.engine.steps import make_eval_step
+
+    cfg = runner.cfg
+    return make_eval_step(eval_diffusion(cfg, runner.diffusion, runner.model, temporal_mode),
+                          runner.joints_left, runner.joints_right, repeat_n=cfg.repeat_n,
+                          tta=cfg.test_time_augmentation, device=runner.device)
+
+
+class _EvalStep(torch.nn.Module):
+    """``live_eval_step`` on ``self.model``'s weights as they are at each
+    call: the sampler is built inside ``forward``, so the bf16 snapshot's
+    casts are part of the traced graph."""
+
+    def __init__(self, runner, temporal_mode):
+        super().__init__()
+        self.model = runner.model
+        self.runner, self.temporal_mode = runner, temporal_mode
+
+    def forward(self, input_2d, input_2d_flip, x_init, noises=None):
+        step = live_eval_step(self.runner, self.temporal_mode)
+        return step(input_2d, input_2d_flip, x_init=x_init, noises=noises)
+
+
+class _Serving(torch.nn.Module):
+    """What is exported: forward(state, input_2d, input_2d_flip, x_init[,
+    noises]), the weights ``state`` handed to ``_EvalStep`` by
+    ``functional_call``. The step is no submodule, so the artifact holds no
+    weights."""
+
+    def __init__(self, step):
+        super().__init__()
+        object.__setattr__(self, "step", step)
+
+    def forward(self, state, *inputs):
+        params = {f"model.{k}": v for k, v in state.items()}
+        return torch.func.functional_call(self.step, params, inputs, strict=True)
+
+
+def _inputs(runner, batch_size):
+    """Example inputs of the exported signature, at their fixed shapes."""
+    cfg, dev = runner.cfg, runner.device
+    f, j = cfg.number_of_frames, runner.num_joints
+    rows = batch_size * cfg.repeat_n * (2 if cfg.test_time_augmentation else 1)
+    x_shape = (rows, f if cfg.out_all else 1, j, 3)
+    x2d = torch.zeros(batch_size, f, j, 2, device=dev)
+    inputs = [x2d, x2d.clone(), torch.zeros(x_shape, device=dev)]
+    if cfg.ddim_sampling_eta:
+        inputs.append(torch.zeros((cfg.sampling_timesteps,) + x_shape, device=dev))
+    return inputs
+
+
+def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool = False,
+                     temporal_mode: str = "rows") -> bytes:
+    """Serializes ``runner``'s eval step at batch ``batch_size``: the
+    artifact's bytes, also written to ``path`` if given. ``runner``: an
+    ``engine.runner.Runner``, or anything with its ``cfg``, ``model``,
+    ``diffusion``, ``device``, ``num_joints``, ``joints_left`` and
+    ``joints_right``. ``temporal_mode``: the fused forward's temporal
+    layout, "rows" (the runner's) or "cols".
+
+    The signature is step(state, input_2d, input_2d_flip, x_init[, noises])
+    -> predicted_3d_norm [B, F_out, J, 3], ``make_eval_step``'s
+    single-device contract (flip-TTA averaged, normalised units). ``state``
+    is a state dict of the runner's model (its weights only shape the
+    export). ``sharded=True`` (JAX: the mesh-bound data-parallel program)
+    raises a ValueError: data-parallel eval is not ported (ROADMAP A.9)."""
+    if sharded:
+        raise ValueError("sharded=True: the data-parallel eval step is not ported "
+                         "(ROADMAP A.9); the port exports a single-device step")
+    state = {k: v.detach() for k, v in runner.model.state_dict().items()}
+    inputs = _inputs(runner, batch_size)
+    with torch.no_grad():
+        program = torch.export.export(_Serving(_EvalStep(runner, temporal_mode)),
+                                      (state, *inputs),
+                                      strict=False)
+    # The example inputs would be saved with the program: the weights too.
+    program.example_inputs = None
+    cfg = runner.cfg
+    meta = dict(keys=list(state), device=str(runner.device), batch_size=batch_size,
+                temporal_mode=temporal_mode,
+                num_frames=cfg.number_of_frames, num_joints=runner.num_joints,
+                noises=bool(cfg.ddim_sampling_eta),
+                input_shapes=[list(t.shape) for t in inputs])
+    buf = io.BytesIO()
+    torch.export.save(program, buf, extra_files={META: json.dumps(meta)})
+    data = buf.getvalue()
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+    return data
+
+
+def restore_eval_step(artifact: Union[str, bytes, bytearray]):
+    """Loads an exported eval step (a path or the bytes) -> step(state,
+    input_2d, input_2d_flip, x_init[, noises]).
+
+    ``state`` is a state dict under the reference's names, as
+    ``load_state_dict(strict=True)`` takes it (a missing or unexpected key
+    raises a KeyError naming it); its tensors, and the inputs (tensors or
+    arrays), are moved to the device the artifact was exported on. The
+    inputs must have the export's shapes. Runs without autograd."""
+    import diff3dhpe_torch.ops  # noqa: F401 (registers the diff3dhpe:: operators)
+
+    extra = {META: ""}
+    src = io.BytesIO(bytes(artifact)) if isinstance(artifact, (bytes, bytearray)) else artifact
+    module = torch.export.load(src, extra_files=extra).module()
+    meta = json.loads(extra[META])
+    keys, dev = meta["keys"], torch.device(meta["device"])
+
+    def step(state, input_2d, input_2d_flip, x_init, noises=None):
+        missing = [k for k in keys if k not in state]
+        unexpected = [k for k in state if k not in set(keys)]
+        if missing or unexpected:
+            raise KeyError(f"state does not fit the artifact: missing {missing[:5]}, "
+                           f"unexpected {unexpected[:5]}")
+        if (noises is not None) != meta["noises"]:
+            raise ValueError("noises is an input exactly where ddim_sampling_eta > 0 "
+                             f"(this artifact: {'with' if meta['noises'] else 'without'})")
+        params = {k: torch.as_tensor(state[k], device=dev) for k in keys}
+        inputs = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                  for a in (input_2d, input_2d_flip, x_init, noises) if a is not None]
+        with torch.no_grad():
+            return module(params, *inputs)
+
+    step.meta = meta
+    return step

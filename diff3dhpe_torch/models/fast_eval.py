@@ -24,7 +24,9 @@ dense layer outside the kernels takes its weight and bias in the
 activation dtype and adds the bias after the product's rounding
 (``_dense``, JAX fast_eval.py:29-33), the position embeddings are added in
 bf16, and ``f32_head`` casts the trunk output to float32 before the head.
-``bf16_snapshot`` makes those bf16 weights once.
+``bf16_snapshot`` makes those bf16 weights once. ``f32_tail_pairs`` runs
+the last block pairs and the head of a bf16 forward at float32 (JAX's
+precision tail).
 
 Training runs the fused forward with a recompute backward at float32 or
 bf16, as JAX's ``FastTrainCfg.dtype_name``. The recompute is the mirror
@@ -63,30 +65,49 @@ from diff3dhpe_torch.ops.fused_block import fused_temporal_block_cols, fused_tra
 TEMPORAL_MODES = ("rows", "cols")
 
 
-def bf16_snapshot(model, f32_head=False):
-    """A copy of ``model`` with the weights the bf16 forward reads in bf16,
-    as JAX casts them: the fusion layer, the time MLP and the per-block time
+def _bf16_names(model, f32_head):
+    """The names of the parameters the bf16 forward reads in bf16, as JAX
+    casts them: the fusion layer, the time MLP and the per-block time
     projections (weights and biases), the block GEMM weights (their biases
     and every LayerNorm stay float32), the position embeddings, and the head
     projection unless ``f32_head``."""
-    snap = copy.deepcopy(model).requires_grad_(False)
-    bf = torch.bfloat16
-    dense = [snap.fusion_layer]
-    if snap.time_mlp is not None:
-        dense += [snap.time_mlp[1], snap.time_mlp[3]]
+    dense = ["fusion_layer"]
+    if model.time_mlp is not None:
+        dense += ["time_mlp.1", "time_mlp.3"]
     if not f32_head:
-        dense.append(snap.head[1])
-    for block in [*snap.STEblocks, *snap.TTEblocks]:
-        if block.time_mlp is not None:
-            dense.append(block.time_mlp[1])
-        for m in (block.attn.qkv, block.attn.proj, block.mlp.fc1, block.mlp.fc2):
-            m.weight.data = m.weight.data.to(bf)
-    for m in dense:
-        for p in m.parameters():
-            p.data = p.data.to(bf)
-    for p in (snap.Spatial_pos_embed, snap.Temporal_pos_embed):
-        p.data = p.data.to(bf)
-    return snap
+        dense.append("head.1")
+    names = {"Spatial_pos_embed", "Temporal_pos_embed"}
+    for kind in ("STEblocks", "TTEblocks"):
+        for i, block in enumerate(getattr(model, kind)):
+            if block.time_mlp is not None:
+                dense.append(f"{kind}.{i}.time_mlp.1")
+            names |= {f"{kind}.{i}.{m}.weight" for m in ("attn.qkv", "attn.proj", "mlp.fc1",
+                                                         "mlp.fc2")}
+    for prefix in dense:
+        names |= {f"{prefix}.{n}" for n, _ in model.get_submodule(prefix).named_parameters()}
+    return names
+
+
+@torch.no_grad()
+def bf16_snapshot(model, f32_head=False):
+    """A copy of ``model`` with the weights the bf16 forward reads
+    (``_bf16_names``) cast to bf16 and the others copied: the same modules
+    with the copies in place of the parameters, for ``fast_forward_denoise``
+    to read. Made with tensor ops only (no ``deepcopy``), so that an
+    exported eval step (``io.export``) makes its casts inside the graph from
+    the weights it is given, once per call."""
+    cast = _bf16_names(model, f32_head)
+
+    def copied(module, prefix):
+        new = copy.copy(module)
+        new._parameters = {
+            k: None if p is None else p.detach().to(torch.bfloat16) if prefix + k in cast
+            else p.detach().clone() for k, p in module._parameters.items()}
+        new._modules = {k: None if m is None else copied(m, f"{prefix}{k}.")
+                        for k, m in module._modules.items()}
+        return new
+
+    return copied(model, "")
 
 
 def _fused_pair(model, i, shape, x_flat, t, dp_s, dp_t, temporal_mode="rows"):
@@ -155,7 +176,8 @@ def _check_dtype(dtype):
 
 @torch.no_grad()
 def fast_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
-                         temporal_mode="rows", f32_head=False):
+                         temporal_mode="rows", f32_head=False, f32_tail_pairs=0,
+                         f32_model=None):
     """x [B, F, J, in_chans + 3], time [B] -> [B, F_out, J, 3] with the
     weights of ``model`` (a MixSTEDenoiser, or its ``bf16_snapshot``), no
     autograd. ``dp_scales``: None, or (dp_spatial [depth, B, F, 2],
@@ -163,20 +185,37 @@ def fast_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
     or bfloat16 (weights in another dtype are cast on the fly).
     ``temporal_mode``: "rows" or "cols" (module doc). ``f32_head``: the
     trunk output is cast to float32 before the head, whose output is then
-    float32; else the output is in ``dtype``."""
+    float32; else the output is in ``dtype``.
+
+    ``f32_tail_pairs`` (JAX fast_eval.py:128-133, :210-215): with a bf16
+    ``dtype``, the last this-many block pairs and the head run at float32
+    activations, reading ``f32_model``'s weights (default ``model``; a bf16
+    snapshot's would carry its roundings into the tail): at the first tail
+    pair the rows are cast to float32 and the time embedding is recomputed
+    at float32. The fusion layer stays bf16 even when the tail covers every
+    pair. An eval feature: it refuses ``dp_scales``, as JAX's assert does."""
     _check_mode(temporal_mode)
     _check_dtype(dtype)
     b, f, p, _ = x.shape
+    tail_start = model.depth
+    if f32_tail_pairs and dtype == torch.bfloat16:
+        if dp_scales is not None:
+            raise ValueError("f32_tail_pairs is an eval-path feature: dp_scales must be None")
+        tail_start = max(0, model.depth - int(f32_tail_pairs))
     dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
     x = _dense(model.fusion_layer, x.to(dtype))
     t = model.time_embedding(time, dtype)
     x = x + model.Spatial_pos_embed[None].to(dtype)
     x_flat = x.reshape(b * f * p, model.embed_dim).contiguous()
+    weights = model
     for i in range(model.depth):
-        x_flat = _fused_pair(model, i, (b, f, p), x_flat, t,
+        if i == tail_start:
+            weights = model if f32_model is None else f32_model
+            x_flat, t = x_flat.float(), weights.time_embedding(time, torch.float32)
+        x_flat = _fused_pair(weights, i, (b, f, p), x_flat, t,
                              None if dp_sp is None else dp_sp[i],
                              None if dp_tp is None else dp_tp[i], temporal_mode)
-    return _head(model, x_flat, (b, f, p), f32_head)
+    return _head(weights, x_flat, (b, f, p), f32_head)
 
 
 def _mirror_pair(model, i, x4, t, dp_s, dp_t, dtype, core, ckpt_blocks=False):

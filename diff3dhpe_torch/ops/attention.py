@@ -37,6 +37,8 @@ import ctypes
 
 import torch
 
+from diff3dhpe_torch.ops._library import register
+
 # n at or below which the dispatcher sends a group to B6 and the trainable
 # backward stays on the plain formulas (JAX ops/attention.py:240, :401-402).
 SMALL_N = 64
@@ -206,9 +208,23 @@ def fused_grand_attention(q, k, v, scale=None):
     it raises (``refuse_autograd``)."""
     _check_dtypes(q, k, v)
     refuse_autograd("fused_grand_attention", q, k, v)
-    if q.shape[-2] <= SMALL_N:
-        return packed_grand_attention(q, k, v, scale)
-    return grand_attention_fullseq(q, k, v, scale)
+    return _DISPATCH(q, k, v, None if scale is None else float(scale))
+
+
+def _dispatch_impl(q, k, v, scale):
+    """The dispatcher's operator: B6 or B3, their plain versions on the
+    CPU, in the layout the kernels write ([B, N, H, D] seen as [B, H, N,
+    D]) on both devices."""
+    small = q.shape[-2] <= SMALL_N
+    out = (packed_grand_attention if small else grand_attention_fullseq)(q, k, v, scale)
+    if q.device.type == "cuda":
+        return out
+    return _dispatch_fake(q, k, v, scale).copy_(out)
+
+
+def _dispatch_fake(q, k, v, scale):
+    out = _empty_like_heads(_as4d(q))
+    return out.view(q.shape) if q.ndim == 3 else out
 
 
 def grand_attention_bwd(q, k, v, do, scale=None):
@@ -432,3 +448,7 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale, fwd=None):
         grand_attention_bwd.launches_bf16 += launched.value
     if err:
         raise RuntimeError(f"grand_attention backward kernels failed: cudaError_t {err}")
+
+
+_DISPATCH = register("fused_grand_attention(Tensor q, Tensor k, Tensor v, float? scale) -> Tensor",
+                     _dispatch_impl, _dispatch_impl, _dispatch_fake)

@@ -31,14 +31,22 @@ The kernels write into buffers autograd does not see, so the three
 wrappers refuse to run where autograd would record them, on the CPU too
 (``_refuse_autograd``); training runs them inside ``_FusedPair``
 (``models.fast_eval``), whose backward recomputes the pair.
+
+B1 and B2 reach their kernels (or plain versions) through the operators
+``diff3dhpe::fused_transformer_block`` and
+``diff3dhpe::fused_temporal_block_cols`` (``ops._library``), which take the
+block's tensors one by one, so that ``torch.export`` traces through them.
 """
 from __future__ import annotations
 
 import ctypes
+from operator import attrgetter
+from types import SimpleNamespace as _NS
 
 import torch
 from torch.nn import functional as F
 
+from diff3dhpe_torch.ops._library import register
 from diff3dhpe_torch.ops.attention import HEAD_DIMS, grand_attention_stored, refuse_autograd
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -72,7 +80,7 @@ def _check_block(x, block, heads):
         "mlp.fc1.weight": (hidden, c), "mlp.fc2.weight": (c, hidden),
     }
     for name, shape in expected.items():
-        got = tuple(block.get_parameter(name).shape)
+        got = tuple(attrgetter(name)(block).shape)
         if got != shape:
             raise ValueError(f"block {name} has shape {got}, expected {shape}")
 
@@ -199,11 +207,8 @@ def fused_transformer_block(x, block, n, heads, *, n_pad=None, t_rows=None,
     n_pad = n if n_pad is None else n_pad
     _check_args(x, block, n, heads, n_pad, t_rows, rows_per_item, dp_scales)
     _refuse_autograd("fused_transformer_block", x, block, out_ln, t_rows, dp_scales)
-    if x.device.type == "cpu":
-        return _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item,
-                          _out_ln_params(out_ln), dp_scales)
-    return _launch(fused_transformer_block, x, block, n, heads, n_pad, 0, t_rows,
-                   rows_per_item, _out_ln_params(out_ln), dp_scales)
+    return _B1(x, t_rows, dp_scales, *_block_operands(block, out_ln), n, heads, n_pad,
+               rows_per_item or 0)
 
 
 fused_transformer_block.launches = 0
@@ -217,12 +222,18 @@ def fused_temporal_block_cols_ref(x, block, n, j_groups, heads, *, t_rows=None, 
     """Plain PyTorch version of ``fused_temporal_block_cols`` (same
     arguments, same result): the block on the transposed rows."""
     _check_cols_args(x, block, n, j_groups, heads, t_rows, dp_scales)
+    return _cols_ref(x, block, n, j_groups, heads, t_rows, _out_ln_params(out_ln), dp_scales)
+
+
+def _cols_ref(x, block, n, j_groups, heads, t_rows, out_ln, dp_scales):
+    """``fused_temporal_block_cols_ref`` on checked arguments, ``out_ln`` as
+    (w, b, eps) or None."""
     rows, cols = x.shape
     b, c = rows // n, cols // j_groups
     xt = x.view(b, n, j_groups, c).transpose(1, 2).reshape(b * j_groups * n, c)
     dp = None if dp_scales is None else dp_scales.view(b * j_groups, 1, 2).expand(
         b * j_groups, n, 2).reshape(-1, 2)
-    out = _block_ref(xt, block, n, heads, n, t_rows, j_groups * n, _out_ln_params(out_ln), dp)
+    out = _block_ref(xt, block, n, heads, n, t_rows, j_groups * n, out_ln, dp)
     return out.view(b, j_groups, n, c).transpose(1, 2).reshape(rows, cols)
 
 
@@ -246,22 +257,84 @@ def fused_temporal_block_cols(x, block, n, j_groups, heads, *, t_rows=None, out_
     _check_device(fused_temporal_block_cols, x)
     _check_cols_args(x, block, n, j_groups, heads, t_rows, dp_scales)
     _refuse_autograd("fused_temporal_block_cols", x, block, out_ln, t_rows, dp_scales)
-    if x.device.type == "cpu":
-        return fused_temporal_block_cols_ref(x, block, n, j_groups, heads, t_rows=t_rows,
-                                             out_ln=out_ln, dp_scales=dp_scales)
-    rows, cols = x.shape
-    b, c = rows // n, cols // j_groups
-    dp = None if dp_scales is None else dp_scales.view(b, 1, j_groups, 2).expand(
-        b, n, j_groups, 2).reshape(rows * j_groups, 2)  # per row, spatial-major order
-    out = _launch(fused_temporal_block_cols, x.view(rows * j_groups, c), block, n, heads, n,
-                  j_groups, t_rows, n * j_groups, _out_ln_params(out_ln), dp)
-    return out.view(rows, cols)
+    return _B2(x, t_rows, dp_scales, *_block_operands(block, out_ln), n, j_groups, heads)
 
 
 fused_temporal_block_cols.launches = 0
 fused_temporal_block_cols.launches_bf16 = 0
 fused_temporal_block_cols.launches_ln = 0
 fused_temporal_block_cols.launches_gemm_f32 = 0
+
+
+# The block's tensors and LayerNorm epsilons as the two operators take them.
+_BLOCK_SCHEMA = ("Tensor ln1_w, Tensor ln1_b, Tensor w_qkv, Tensor? b_qkv, Tensor w_proj, "
+                 "Tensor? b_proj, Tensor ln2_w, Tensor ln2_b, Tensor w_fc1, Tensor? b_fc1, "
+                 "Tensor w_fc2, Tensor? b_fc2, Tensor? oln_w, Tensor? oln_b, float eps1, "
+                 "float eps2, float oln_eps")
+_N_BLOCK = 17
+
+
+def _block_operands(block, out_ln):
+    """``block``'s tensors and epsilons in ``_BLOCK_SCHEMA``'s order."""
+    attn, mlp = block.attn, block.mlp
+    oln = (None, None) if out_ln is None else (out_ln.weight, out_ln.bias)
+    return (block.norm1.weight, block.norm1.bias, attn.qkv.weight, attn.qkv.bias,
+            attn.proj.weight, attn.proj.bias, block.norm2.weight, block.norm2.bias,
+            mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias, *oln,
+            float(block.norm1.eps), float(block.norm2.eps),
+            0.0 if out_ln is None else float(out_ln.eps))
+
+
+def _as_block(operands):
+    """(block, out_ln as (w, b, eps) or None) from ``_block_operands``'s
+    tuple: a namespace with the attributes the kernels and plain versions
+    read."""
+    (ln1_w, ln1_b, wq, bq, wp, bp, ln2_w, ln2_b, w1, b1, w2, b2,
+     oln_w, oln_b, eps1, eps2, oln_eps) = operands
+    lin = lambda w, b: _NS(weight=w, bias=b)
+    block = _NS(norm1=_NS(weight=ln1_w, bias=ln1_b, eps=eps1),
+                attn=_NS(qkv=lin(wq, bq), proj=lin(wp, bp)),
+                norm2=_NS(weight=ln2_w, bias=ln2_b, eps=eps2),
+                mlp=_NS(fc1=lin(w1, b1), fc2=lin(w2, b2)))
+    return block, None if oln_w is None else (oln_w, oln_b, oln_eps)
+
+
+def _b1_impl(x, t_rows, dp_scales, *rest):
+    """B1's operator: the plain version on the CPU, the kernels on CUDA."""
+    operands, (n, heads, n_pad, rows_per_item) = rest[:_N_BLOCK], rest[_N_BLOCK:]
+    block, out_ln = _as_block(operands)
+    rows_per_item = rows_per_item or None
+    if x.device.type == "cpu":
+        return _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, out_ln, dp_scales)
+    return _launch(fused_transformer_block, x, block, n, heads, n_pad, 0, t_rows,
+                   rows_per_item, out_ln, dp_scales)
+
+
+def _b2_impl(x, t_rows, dp_scales, *rest):
+    """B2's operator: the plain version on the CPU, the kernels on CUDA."""
+    operands, (n, j_groups, heads) = rest[:_N_BLOCK], rest[_N_BLOCK:]
+    block, out_ln = _as_block(operands)
+    if x.device.type == "cpu":
+        return _cols_ref(x, block, n, j_groups, heads, t_rows, out_ln, dp_scales)
+    rows, cols = x.shape
+    b, c = rows // n, cols // j_groups
+    dp = None if dp_scales is None else dp_scales.view(b, 1, j_groups, 2).expand(
+        b, n, j_groups, 2).reshape(rows * j_groups, 2)  # per row, spatial-major order
+    out = _launch(fused_temporal_block_cols, x.view(rows * j_groups, c), block, n, heads, n,
+                  j_groups, t_rows, n * j_groups, out_ln, dp)
+    return out.view(rows, cols)
+
+
+def _same_as_x(x, *rest):
+    return x.new_empty(x.shape)
+
+
+_B1 = register("fused_transformer_block(Tensor x, Tensor? t_rows, Tensor? dp_scales, "
+               f"{_BLOCK_SCHEMA}, int n, int heads, int n_pad, int rows_per_item) -> Tensor",
+               _b1_impl, _b1_impl, _same_as_x)
+_B2 = register("fused_temporal_block_cols(Tensor x, Tensor? t_rows, Tensor? dp_scales, "
+               f"{_BLOCK_SCHEMA}, int n, int j_groups, int heads) -> Tensor",
+               _b2_impl, _b2_impl, _same_as_x)
 
 
 def _check_attn_args(x, block, n, heads):

@@ -33,6 +33,16 @@ with the same seed and draws unless an offset says otherwise:
       EVERY steps: the temporal blocks' qkv bias norms by part, the norms
       of the k and v parts of its gradient (zero in exact arithmetic), and
       the largest attention score;
+  python scripts/c9_check_torch.py exact [EPOCHS [OFFSET ...]]
+      bfloat16 with B4 replaced by the float64 gradients of its operands
+      rounded once at the tile's points (``_tile_exact_bwd``: dS and P
+      rounded to bfloat16, each product then formed in float64), at the
+      study's seed plus each OFFSET (default 0 to 5): which of the two
+      summation orders, the kernel's or the plain tile version's, is the
+      odd one out;
+  python scripts/c9_check_torch.py lowlr [EPOCHS [OFFSET ...]]
+      bfloat16 with B4's kernel and with its plain tile version at lr 2e-4
+      (half the study's), offsets default 0, 1, 2: the operating point;
   python scripts/c9_check_torch.py grads [EPOCHS]
       the weights after EPOCHS (2) epochs of the bf16 run with ``attn_bwd``,
       then one step's gradients on a training batch, each tensor's relative
@@ -310,6 +320,56 @@ def _exact_bwd(q, k, v, do, scale):
     return ds @ kd, ds.transpose(-1, -2) @ qd, p.transpose(-1, -2) @ dod - dod
 
 
+def _tile_exact_bwd(q, k, v, do, scale):
+    """B4 with the plain tile version's rounding points and no other
+    rounding: S, P, dP and their row sum in float64, dS and P rounded once
+    to q's dtype, each product then formed in float64 from those values
+    and rounded once to q's dtype, in ``grand_attention_bwd_ref``'s order."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    dt = q.dtype
+    qd, kd, vd, dod = (t.double() for t in (q, k, v, do))
+    p = torch.softmax(qd @ kd.transpose(-1, -2) * scale, dim=-1)
+    dp = dod @ vd.transpose(-1, -2)
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dt).double()
+    pq = p.to(dt).double()
+    return ((ds @ kd).to(dt), (ds.transpose(-1, -2) @ qd).to(dt),
+            (pq.transpose(-1, -2) @ dod - dod).to(dt))
+
+
+def exact(epochs=3, *offsets):
+    """bf16 training with B4 := ``_tile_exact_bwd`` at the study's seed plus
+    each offset (default 0 to 5, the seeds of the ``seeds`` replicates and
+    the study's own)."""
+    from diff3dhpe_torch.config import Config
+
+    base = Config().seed
+    for off in offsets or range(6):
+        with _b4_as(_tile_exact_bwd):
+            _, ep, steps, sec = _fit(epochs, compute_dtype="bfloat16", fast_train_attn_bwd=True,
+                                     seed=base + off)
+        yield _row("bf16_b4_tile_exact", ep, steps, sec, seed=base + off, step_losses=steps)
+        torch.cuda.empty_cache() if DEVICE == "cuda" else None
+
+
+def lowlr(epochs=3, *offsets):
+    """bf16 training at lr 2e-4 with B4's kernel and with its plain tile
+    version, at the study's seed plus each offset (default 0, 1, 2)."""
+    from diff3dhpe_torch.config import Config
+    from diff3dhpe_torch.ops import attention as A
+
+    base = Config().seed
+    for off in offsets or (0, 1, 2):
+        for name, fn in (("bf16_lr2e-4_attn_bwd_kernels", None),
+                         ("bf16_lr2e-4_b4_plain_tile_ref", A.grand_attention_bwd_ref)):
+            with _b4_as(fn):
+                _, ep, steps, sec = _fit(epochs, compute_dtype="bfloat16",
+                                         fast_train_attn_bwd=True, seed=base + off,
+                                         learning_rate=2e-4)
+            yield _row(name, ep, steps, sec, seed=base + off, learning_rate=2e-4,
+                       step_losses=steps)
+            torch.cuda.empty_cache() if DEVICE == "cuda" else None
+
+
 def _rel(a, exact):
     return ((a.double() - exact).norm() / exact.norm()).item()
 
@@ -481,7 +541,7 @@ def main(argv=None):
 
     resolve_device(DEVICE)
     phases = dict(control=control, swaps=swaps, seeds=seeds, hybrids=hybrids, trace=trace,
-                  grads=grads, calls=calls)
+                  exact=exact, lowlr=lowlr, grads=grads, calls=calls)
     if not argv or argv[0] not in phases:
         raise SystemExit(__doc__)
     rows = []

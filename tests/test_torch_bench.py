@@ -28,6 +28,7 @@ DETAIL_FIELDS = {
     "temporal_mode", "mixed_f32_steps", "mixed_final_prec", "mixed_f32_tail_pairs", "repeat_n",
     "baseline_torch_cpu_seqs_per_sec", "baseline_note", "model_tflops_per_seq",
     "achieved_tflops", "peak_tflops", "peak_dtype", "mfu", "launches", "out_shape",
+    "exported_artifact", "export",
 }
 BENCH_CASES = {
     "mixed_rows": {},
@@ -36,6 +37,10 @@ BENCH_CASES = {
     "mixed_two_f32_steps_highest": {"BENCH_MIXED_F32_STEPS": "2", "BENCH_FINAL_PREC": "highest"},
     "plain_module_use_pallas": {"BENCH_FAST": "0", "BENCH_PALLAS": "1", "BENCH_DTYPE": "float32"},
     "repeat_n": {"BENCH_REPEAT_N": "2", "BENCH_BATCH": "1", "BENCH_REPEATS": "4"},
+    "mixed_f32_tail": {"BENCH_TAIL_PAIRS": "1"},
+    "exported_mixed_tail_cols": {"BENCH_EXPORTED": "1", "BENCH_TAIL_PAIRS": "1",
+                                 "BENCH_TMODE": "cols"},
+    "exported_float32": {"BENCH_EXPORTED": "1", "BENCH_DTYPE": "float32"},
 }
 
 
@@ -63,24 +68,30 @@ def test_bench_prints_one_line(case, capsys):
     assert d["power_limit"] is None and d["peak_tflops"] is None and d["mfu"] is None
     assert d["model_tflops_per_seq"] >= 0 and d["achieved_tflops"] >= 0
     assert d["launches"] == {}  # the plain versions ran: no kernel was launched
+    assert d["mixed_f32_tail_pairs"] == settings["tail_pairs"]
+    assert d["exported_artifact"] == settings["exported"] == (d["export"] is not None)
+    if d["exported_artifact"]:  # the export's seconds and bytes ride the line
+        assert d["export"]["export_s"] > 0 and d["export"]["artifact_bytes"] > 0
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("BENCH_EXPORTED", "1"), ("BENCH_TAIL_PAIRS", "2"), ("BENCH_FINAL_PREC", "default"),
-    ("BENCH_DTYPE", "float16"), ("BENCH_TMODE", "diagonal"), ("BENCH_REPEATS", "2"),
+@pytest.mark.parametrize("knob,value,extra", [
+    ("BENCH_TAIL_PAIRS", "2", {"BENCH_DTYPE": "float32"}),  # a tail needs the mixed mode
+    ("BENCH_TAIL_PAIRS", "1", {"BENCH_FAST": "0"}),
+    ("BENCH_FINAL_PREC", "default", {}),
+    ("BENCH_DTYPE", "float16", {}), ("BENCH_TMODE", "diagonal", {}), ("BENCH_REPEATS", "2", {}),
 ])
-def test_bench_refuses(knob, value):
+def test_bench_refuses(knob, value, extra):
     with pytest.raises(ValueError, match=f"^{knob}="):
-        bench_torch.settings_from_env({knob: value})
+        bench_torch.settings_from_env({knob: value, **extra})
     with pytest.raises(ValueError, match=f"^{knob}="):
-        bench_torch.main({**TINY_ENV, knob: value}, device="cpu", **TINY)
+        bench_torch.main({**TINY_ENV, knob: value, **extra}, device="cpu", **TINY)
 
 
 def test_bench_defaults_are_the_flagship_protocol():
     s = bench_torch.settings_from_env({})
     assert s == dict(frames=243, heads=8, dtype="mixed", batch=2, iters=16, repeats=3, ddim=9,
                      tmode="rows", use_pallas=False, fast=True, repeat_n=1, mixed_f32_steps=1,
-                     final_prec="high3")
+                     final_prec="high3", tail_pairs=0, exported=False)
     assert bench_torch.settings_from_env({"BENCH_DTYPE": "bfloat16"})["batch"] == 4
 
 

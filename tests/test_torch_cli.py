@@ -148,7 +148,7 @@ def test_main_without_evaluate_exits(tmp_path, capsys):
 
 @pytest.mark.parametrize("field,extra", [
     ("mesh_shape", ["--mesh-shape", "data:8"]),
-    ("eval_f32_tail_pairs", MIXED + ["--eval-f32-tail-pairs", "1"]),
+    ("eval_f32_tail_pairs", ["--fast-eval", "--eval-f32-tail-pairs", "1"]),  # needs bf16
     ("eval_final_prec", MIXED + ["--eval-final-prec", "default"]),
     ("dataset", ["-d", "not_a_dataset"]),
     ("evaluate", ["--evaluate", "not_a_port_checkpoint"]),

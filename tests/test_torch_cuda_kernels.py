@@ -855,3 +855,47 @@ def test_cols_forward_equals_rows_at_head_dim_128(cuda_device, frames):
         plain = model(x, t)
     torch.testing.assert_close(cols, rows, rtol=0, atol=0)
     torch.testing.assert_close(rows, plain, rtol=2e-4, atol=2e-5)
+
+
+def _operator_cases(device):
+    """Arguments of each ``diff3dhpe::`` operator at a small shape on
+    ``device``: B1 (f32 with the time add and drop-path, and bf16), B2 and
+    the attention dispatcher at n = 17 (B6) and n = 81 (B3)."""
+    from diff3dhpe_torch.ops.fused_block import _block_operands
+
+    model = _model(device)
+    ops = tuple(t.detach() if isinstance(t, torch.Tensor) else t
+                for t in _block_operands(model.STEblocks[0], model.Spatial_norm))
+    g = torch.Generator(device=device).manual_seed(3)
+    rand = lambda *shape: torch.randn(*shape, generator=g, device=device)
+    x, t_rows = rand(4 * 17, C), rand(4, C)
+    dp = (torch.rand(4 * 17, 2, generator=g, device=device) < 0.7).float() / 0.7
+    qkv = rand(2, 17, 3, 2, 64)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    long_q, long_k, long_v = (rand(4, 81, 64) for _ in range(3))
+    return {
+        "fused_transformer_block": (x, t_rows, dp, *ops, 17, 2, 17, 17),
+        "fused_transformer_block_bf16": (x.bfloat16(), t_rows, None, *ops, 17, 2, 17, 17),
+        "fused_temporal_block_cols": (rand(2 * 27, 17 * C), rand(2, C), None, *ops, 27, 17, 2),
+        "fused_grand_attention": (q, k, v, None),
+        "fused_grand_attention_bf16": (q.bfloat16(), k.bfloat16(), v.bfloat16(), None),
+        "fused_grand_attention_long": (long_q, long_k, long_v, None),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fused_transformer_block", "fused_transformer_block_bf16",
+                                  "fused_temporal_block_cols", "fused_grand_attention",
+                                  "fused_grand_attention_bf16", "fused_grand_attention_long"])
+def test_operators_pass_opcheck_on_the_card(cuda_device, case):
+    """``torch.library.opcheck`` on each operator's CUDA implementation (the
+    kernel): its fake implementation gives the kernel's shape, dtype and
+    strides, and AOT autograd traces it; the kernel is launched and counted
+    on its wrapper."""
+    from diff3dhpe_torch.ops import read_launches, reset_launches
+
+    args = _operator_cases(cuda_device)[case]
+    name = case.replace("_bf16", "").replace("_long", "")
+    reset_launches()
+    torch.library.opcheck(getattr(torch.ops.diff3dhpe, name).default, args)
+    assert sum(read_launches().values()) > 0

@@ -82,7 +82,34 @@ def test_port_and_chip_smoke_import_without_jax():
         "io.checkpoint", "io.convert", "metrics.metrics", "models.fast_eval", "models.mixste",
         "models.registry", "ops.attention", "ops.fused_block", "utils.misc", "utils.profiling",
         "utils.supervise", "utils.sync",
+        # The serving and visualisation slice's.
+        "cli.export", "cli.viz", "io.export", "ops._library", "viz", "viz.render",
     )} <= walked, sorted(walked)
+
+
+_PROBE_NO_MPL = r"""
+import sys
+for banned in ("jax", "jaxlib", "flax", "optax", "orbax", "diff3dhpe_tpu", "matplotlib", "PIL",
+               "imageio"):
+    sys.modules[banned] = None
+import diff3dhpe_torch.viz, diff3dhpe_torch.cli.viz, diff3dhpe_torch.io.export
+from diff3dhpe_torch.cli.viz import compute, main, render, world_views
+from diff3dhpe_torch.viz.render import _import_mpl
+try:
+    _import_mpl()
+except ImportError:
+    print("RENDER_REFUSED")
+"""
+
+
+def test_visualisation_imports_without_matplotlib():
+    """The render layer imports matplotlib (and PIL, imageio) inside each
+    function, as JAX's ``_import_mpl`` does: the package, ``cli.viz`` and its
+    model work import without them, and rendering raises an ImportError."""
+    proc = subprocess.run([sys.executable, "-c", _PROBE_NO_MPL], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "RENDER_REFUSED"
 
 
 def test_default_device_raises_without_gpu(monkeypatch):
