@@ -66,7 +66,16 @@ the port's seeded init:
          for bit as the live step; bench_torch.py with BENCH_EXPORTED=1;
   viz    cli/viz.py's model work (compute) on --synthetic data at
          repeat_n 1 and 2, and p_sample_loop over T = 1,000 steps through
-         the use_pallas module.
+         the use_pallas module;
+  parallel  data parallelism (diff3dhpe_torch/parallel): "python -m
+         torch.distributed.run --standalone --nproc-per-node 1" running
+         cli.run.main with --mesh-shape data:1 over nccl (phase 11's
+         training, 1 epoch), then --evaluate best_epoch in one process;
+         then two ranks on the one card over gloo (nccl takes one rank a
+         device): the f32 and mixed eval steps at global batch 4, one f32
+         and three bf16 fast-train steps at global batch 8 (4 heads,
+         attn_bwd), and the f32 step exported sharded and restored in both
+         ranks, each against one process.
 
 Any failed check raises and the script exits non-zero.
 
@@ -107,7 +116,13 @@ runs; 16 the custom archive's report; 17 (after 5b) the mixed step with a
 float32 tail of 2, 4, 6, 8 pairs, rows and cols: launches by dtype, the
 deviation beside 4b's, seq/s; 18 the export's seconds and bytes, the
 restored step in a fresh process against the live one, bench_torch.py
-with BENCH_EXPORTED=1; 19 cli/viz.py's compute and p_sample_loop); then a
+with BENCH_EXPORTED=1; 19 cli/viz.py's compute and p_sample_loop; 20a
+torchrun at world size 1 on nccl: the report, the launches, the train
+loop's host waits, --evaluate in one process against it; 20b two gloo
+ranks on the card against one process: the gathered predictions, the
+step-1 gradients, the ranks' parameters, the launches of each rank, the
+gradient all-reduce's seconds (gloo through host memory: no multi-GPU
+figure), the sharded export); then a
 JSON line with every kernel's numbers; the last line is {"ok": true,
 "device": {...}}. Exits non-zero without a CUDA device, and where the
 port's package is not beside this script.
@@ -1160,6 +1175,426 @@ def drive_viz(dev, per_call, card):
         f"launches={got} ({card})")
     del model, diffusion, noises
     torch.cuda.empty_cache()
+    return launches, inner
+
+
+
+# Phase 20 (a): cli.run.main as rank 0 of "torchrun --nproc-per-node 1"
+# (nccl): every launch and the train loop's host waits counted as phase
+# 11 counts them; rank 0 writes them to spec["out"].
+LAUNCHED_RANK = r"""
+import json, os, sys, warnings
+import torch
+spec = json.load(open(sys.argv[1]))
+sys.path.insert(0, spec["root"])
+from diff3dhpe_torch.cli.run import main
+from diff3dhpe_torch.engine.runner import Runner
+from diff3dhpe_torch.models import mixste
+from diff3dhpe_torch.ops import (fused_attention_block, fused_temporal_block_cols,
+                                 fused_transformer_block, read_launches, reset_launches)
+fit, evaluate, plain_attention = Runner.fit, Runner.evaluate, mixste.grand_attention
+record = dict(evals=[], sync_warnings=[], plain_attention_calls=0)
+
+def watched(batches):
+    def gen(*args, **kwargs):
+        for b in batches(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("warn")  # the step's body: upload + train step
+            try:
+                yield b
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    return gen
+
+def recording_fit(self, train_ds, val_ds, *args, **kwargs):
+    train_ds.batches = watched(train_ds.batches)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        result = fit(self, train_ds, val_ds, *args, **kwargs)
+    record["sync_warnings"] += [str(w.message) for w in caught
+                                if "called a synchronizing CUDA operation" in str(w.message)]
+    del train_ds.batches
+    record.update(mesh=repr(self.mesh), n_val=len(val_ds), losses_train=result["losses_train"],
+                  losses_valid=[float(v) for v in result["losses_valid"]],
+                  batches=sum(1 for _ in train_ds.batches(self.cfg.batch_size, shuffle=True,
+                                                          drop_last=True)))
+    return result
+
+def recording_evaluate(self, test_ds, *args, **kwargs):
+    m = evaluate(self, test_ds, *args, **kwargs)
+    record["evals"].append(m["n_frames"])
+    return m
+
+def counting_attention(*args, **kwargs):
+    record["plain_attention_calls"] += 1
+    return plain_attention(*args, **kwargs)
+
+Runner.fit, Runner.evaluate, mixste.grand_attention = (recording_fit, recording_evaluate,
+                                                       counting_attention)
+blocks = (fused_transformer_block, fused_temporal_block_cols, fused_attention_block)
+reset_launches()
+for b in blocks:
+    b.launches_gemm_f32 = b.launches_ln = 0
+errors = main(spec["argv"])
+torch.cuda.synchronize()
+record.update(errors={k: [float(e) for e in v] for k, v in errors.items()},
+              launches=dict(read_launches(), plain_attention_calls=record["plain_attention_calls"]),
+              inner={"gemm_f32": sum(b.launches_gemm_f32 for b in blocks),
+                     "layer_norm": sum(b.launches_ln for b in blocks)})
+if int(os.environ["RANK"]) == 0:
+    with open(spec["out"], "w") as f:
+        json.dump(record, f)
+"""
+
+# Phase 20 (b): one of two gloo ranks on the one card.
+GLOO_RANK = r"""
+import json, sys
+import torch
+spec = json.load(open(sys.argv[1]))
+rank = int(sys.argv[2])
+sys.path.insert(0, spec["root"])
+import chip_smoke
+from diff3dhpe_torch.parallel import start_ranks
+mesh = start_ranks("cuda:0", backend="gloo", init_method="file://" + spec["rendezvous"],
+                   rank=rank, world_size=spec["world_size"], timeout=600)
+try:
+    torch.save(chip_smoke.parallel_cases(mesh.device, mesh, spec["artifact"]),
+               f"{spec['out']}/rank{rank}.pt")
+finally:
+    torch.distributed.destroy_process_group()
+"""
+
+PAR_EVAL_BATCH, PAR_TRAIN_BATCH, PAR_TRAIN_STEPS = 4, 8, 3
+
+
+def counted(fn, *args, **kwargs):
+    """(fn's result, the launches of every kernel wrapper, the blocks' f32
+    GEMM and LN launches) of one synchronised call."""
+    from diff3dhpe_torch.ops import (
+        fused_attention_block, fused_temporal_block_cols, fused_transformer_block, read_launches,
+        reset_launches,
+    )
+
+    blocks = (fused_transformer_block, fused_temporal_block_cols, fused_attention_block)
+    torch.cuda.synchronize()
+    reset_launches()
+    for b in blocks:
+        b.launches_gemm_f32 = b.launches_ln = 0
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, read_launches(), {"gemm_f32": sum(b.launches_gemm_f32 for b in blocks),
+                                  "layer_norm": sum(b.launches_ln for b in blocks)}
+
+
+def parallel_cases(dev, mesh=None, artifact=None):
+    """Phase 20 (b)'s cases on ``mesh`` (a rank of the gloo group), or with
+    ``mesh`` None in this process alone, at full width on seed-0 weights:
+    the f32 fused and the mixed flip-TTA DDIM-9 eval steps at global batch
+    PAR_EVAL_BATCH, x_T from a generator seeded alike; the fast-train step
+    with attn_bwd at 4 heads (configs/h36m_gt_s2s_243f_tpu.json's
+    geometry), one at f32 and PAR_TRAIN_STEPS at bf16, at global batch
+    PAR_TRAIN_BATCH with t, noise and drop-path scales from a generator
+    seeded alike; on a mesh, the f32 fused step exported sharded to
+    ``artifact`` (rank 0 writes it) and restored in every rank. Returns
+    CPU tensors, launches and seconds."""
+    from diff3dhpe_torch import (
+        GaussianDiffusion, MixSTEDenoiser, Runner, flip_pose, make_eval_step,
+        make_fast_denoise_fn, make_fast_train_denoise_fn, make_mixed_diffusion, make_optimizer,
+        make_train_step,
+    )
+    from diff3dhpe_torch.config import Config
+    from diff3dhpe_torch.io.export import export_eval_step, restore_eval_step
+
+    res = {}
+    size = 1 if mesh is None else mesh.size
+    gen = torch.Generator(device=dev).manual_seed(20)
+    x2d = torch.rand(PAR_EVAL_BATCH, FRAMES, JOINTS, 2, generator=gen, device=dev) * 2 - 1
+    x2d_flip = flip_pose(x2d, JOINTS_LEFT, JOINTS_RIGHT)
+    model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
+                           num_heads=HEADS, mlp_ratio=MLP_RATIO, seed=0, device=dev).eval()
+    kw = dict(timesteps=TIMESTEPS, sampling_timesteps=DDIM_STEPS, clip_denoised=True,
+              beta_schedule="cosine")
+    for name, diffusion in (("f32", GaussianDiffusion.create(make_fast_denoise_fn(model), **kw)),
+                            ("mixed", make_mixed_diffusion(model, **kw))):
+        step = make_eval_step(diffusion, JOINTS_LEFT, JOINTS_RIGHT, device=dev, mesh=mesh)
+        step(x2d, x2d_flip, generator=torch.Generator(device=dev).manual_seed(1))  # warm-up
+        t0 = time.perf_counter()
+        pred, launches, inner = counted(step, x2d, x2d_flip,
+                                        generator=torch.Generator(device=dev).manual_seed(22))
+        res[f"eval_{name}"] = dict(pred=pred.cpu(), launches=launches, inner=inner,
+                                   step_s=time.perf_counter() - t0)
+    del model
+
+    dkw = dict(timesteps=TIMESTEPS, sampling_timesteps=DDIM_STEPS, clip_denoised=True,
+               clip_loss=True, beta_schedule="cosine")
+    for name, dtype, steps in (("f32", torch.float32, 1),
+                               ("bf16", torch.bfloat16, PAR_TRAIN_STEPS)):
+        model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
+                               num_heads=HEADS4, mlp_ratio=MLP_RATIO, seed=0, device=dev).train()
+        diffusion = GaussianDiffusion.create(make_fast_train_denoise_fn(
+            model, DROP_PATH, attn_bwd=True, dtype=dtype), **dkw)
+        optimizer, scheduler = make_optimizer(model.parameters(), LR, LR_DECAY, 1000)
+        step = make_train_step(diffusion, optimizer, scheduler, mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(23)
+        gt = torch.randn(PAR_TRAIN_BATCH, FRAMES, JOINTS, 3, generator=gen, device=dev) * 0.3
+        x2d_t = torch.rand(PAR_TRAIN_BATCH, FRAMES, JOINTS, 2, generator=gen, device=dev) * 2 - 1
+        draws = torch.Generator(device=dev).manual_seed(24)
+        reduce_s = []
+        if mesh is not None:
+            average = mesh.average_grads_
+
+            def timed_average(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = average(*args, **kwargs)
+                torch.cuda.synchronize()
+                reduce_s.append(time.perf_counter() - t0)
+                return out
+
+            mesh.average_grads_ = timed_average
+        losses, step_s = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            loss, launches, inner = counted(step, gt, x2d_t, generator=draws)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            if i == 0:
+                grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+                res[f"train_{name}_launches"] = dict(launches=launches, inner=inner)
+        if mesh is not None:
+            del mesh.average_grads_
+        res[f"train_{name}"] = dict(
+            grads=grads, losses=losses, step_s=step_s, reduce_s=reduce_s,
+            params={n: p.detach().cpu() for n, p in model.named_parameters()})
+        del model, diffusion, optimizer, scheduler, step
+        torch.cuda.empty_cache()
+
+    if mesh is not None:
+        # The f32 fused step of a data-parallel Runner, exported sharded
+        # (rank 0 writes it), restored in every rank, against the live
+        # step (phase 18 exports the mixed one; f32 traces in half its time).
+        cfg = Config(number_of_frames=FRAMES, embed_dim=EMBED, transformer_depth=DEPTH,
+                     num_heads=HEADS, timesteps=TIMESTEPS, sampling_timesteps=DDIM_STEPS,
+                     fast_eval=True, mesh_shape=f"data:{size}", seed=0)
+        runner = Runner(cfg, JOINTS, JOINTS_LEFT, JOINTS_RIGHT, mesh=mesh)
+        x_init = torch.randn(2 * PAR_EVAL_BATCH, FRAMES, JOINTS, 3, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(25))
+        t0 = time.perf_counter()
+        data = export_eval_step(runner, PAR_EVAL_BATCH, artifact, sharded=True)
+        export_s = time.perf_counter() - t0
+        served = restore_eval_step(artifact, mesh)
+        out, launches, inner = counted(served, runner.model.state_dict(), x2d, x2d_flip, x_init)
+        live, live_launches, _ = counted(runner.eval_step, x2d, x2d_flip, x_init=x_init)
+        res["export"] = dict(served=out.cpu(), live=live.cpu(), launches=launches, inner=inner,
+                             live_launches=live_launches, export_s=export_s,
+                             bytes=None if data is None else len(data), meta=served.meta)
+        del runner, served
+        torch.cuda.empty_cache()
+    return res
+
+
+def want_fit(zero, per_step, fwd_b1, ddim, b_eval, batches, n_val, epochs, evals):
+    """The launches of a cli.run training run: per train step ``per_step``
+    (B1's 2·DEPTH calls, B3 and B6 once and B4 (2 kernels) once per block
+    pair in the recompute); per validation batch and per evaluate batch (with each evaluate's
+    warm-up batch) ``ddim`` fused forwards of ``fwd_b1`` B1 launches, and
+    the validation loss's two plain-module forwards of 2·DEPTH attention
+    calls each."""
+    steps = epochs * batches
+    val_batches = -(-n_val // b_eval)
+    eval_batches = sum(-(-(n // FRAMES) // b_eval) + 1 for n in evals)
+    forwards = ddim * (epochs * val_batches + eval_batches)
+    return dict(zero, fused_transformer_block=steps * per_step["fused_transformer_block"]
+                + forwards * fwd_b1,
+                grand_attention_fullseq=steps * per_step["grand_attention_fullseq"],
+                grand_attention_bwd=steps * per_step["grand_attention_bwd"],
+                packed_grand_attention=steps * per_step["packed_grand_attention"],
+                plain_attention_calls=epochs * val_batches * 2 * 2 * DEPTH)
+
+
+def grad_rel_l2(got, ref):
+    """sqrt(sum |got - ref|²) / sqrt(sum |ref|²) over every parameter."""
+    num = sum(float((got[n] - g).double().pow(2).sum()) for n, g in ref.items())
+    den = sum(float(g.double().pow(2).sum()) for g in ref.values())
+    return math.sqrt(num / den)
+
+
+def drive_parallel(dev, per_call, per_step, card):
+    """Phase 20: data parallelism (diff3dhpe_torch/parallel). (a) NCCL at
+    world size 1 through the real launcher: ``python -m
+    torch.distributed.run --standalone --nproc-per-node 1`` runs
+    cli.run.main with ``--mesh-shape data:1`` on phase 11's command line (1
+    epoch, a checkpoint), its launches and its train loop's host waits
+    counted in the rank; then --evaluate best_epoch in this process alone,
+    its report against the launched run's. (b) Two ranks on the one card
+    over gloo (NCCL refuses two ranks on one device; gloo moves CUDA
+    tensors through host memory): ``parallel_cases`` in each, against the
+    same cases in this process alone. Returns ({path: launches}, {path:
+    inner counts})."""
+    from diff3dhpe_torch.cli.run import main as cli_main
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    launches, inner = {}, {}
+    with open(os.path.join(here, CLI_CONFIG)) as f:
+        config = json.load(f)
+    config["params"].update(fast_train=True, fast_train_attn_bwd=True, fast_eval=True)
+    ddim, b_eval = config["params"]["sampling_timesteps"], 8
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) torchrun, nccl, world size 1.
+        train_config = os.path.join(tmp, "train.json")
+        with open(train_config, "w") as f:
+            json.dump(config, f)
+        run_dir = os.path.join(tmp, "run")
+        common = ["--config", train_config, "--synthetic", "-str", "S1,S5", "-ste", "S9", "-a", "*",
+                  "--batch-size-eval", "8", "--checkpoint-frequency", "1", "-c", run_dir]
+        spec = dict(root=here, argv=common + ["-e", "1", "--mesh-shape", "data:1"],
+                    out=os.path.join(tmp, "launched.json"))
+        for name, text in (("spec.json", json.dumps(spec)), ("rank.py", LAUNCHED_RANK)):
+            with open(os.path.join(tmp, name), "w") as f:
+                f.write(text)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc-per-node", "1", os.path.join(tmp, "rank.py"),
+                               os.path.join(tmp, "spec.json")], cwd=here, capture_output=True,
+                              text=True, timeout=900)
+        launch_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"phase 20a torchrun exited {proc.returncode}:\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        with open(spec["out"]) as f:
+            rec = json.load(f)
+        check("DataMesh(rank=0, size=1, backend='nccl', device='cuda:0')" == rec["mesh"],
+              f"phase 20a ran as {rec['mesh']}")
+        check("INFO: data parallel: world size 1, backend nccl, rank 0 on device cuda:0"
+              in proc.stdout, "phase 20a: no INFO line naming the ranks")
+        single, d = drive(cli_main, common + ["--evaluate", "best_epoch"])
+        report_dev = max(abs(a - b) for k in ("e1", "e2", "e3", "ev")
+                         for a, b in zip(single[k], rec["errors"][k], strict=True))
+        check(report_dev <= EVAL_REPORT_TOL_MM, f"phase 20a: --evaluate best_epoch in one process "
+              f"deviates from the launched run's report by {report_dev:.3e} mm")
+        check(not rec["sync_warnings"], f"phase 20a: the train loop made the host wait for the "
+              f"card {len(rec['sync_warnings'])} times under nccl: {rec['sync_warnings'][:3]}")
+        zero = {k: 0 for k in rec["launches"]}
+        fwd_b1 = 2 * DEPTH * per_call
+        want = want_fit(zero, per_step, fwd_b1, ddim, b_eval, rec["batches"], rec["n_val"], 1,
+                        rec["evals"])
+        single_evals = [r["n_frames"] for r in d["records"]]
+        want_single = want_fit({k: 0 for k in d["launches"]}, per_step, fwd_b1, ddim, b_eval,
+                               rec["batches"], rec["n_val"], 0, single_evals)
+        check(rec["launches"] == want, f"phase 20a launched {rec['launches']}, expected {want}")
+        check(d["launches"] == want_single, f"phase 20a --evaluate launched {d['launches']}, "
+              f"expected {want_single}")
+        launches["parallel_nccl_fit"], inner["parallel_nccl_fit"] = rec["launches"], rec["inner"]
+        launches["parallel_nccl_evaluate"], inner["parallel_nccl_evaluate"] = (d["launches"],
+                                                                               d["inner"])
+        say(f"phase 20a torchrun --nproc-per-node 1 (backend nccl, world size 1, rank 0 on "
+            f"cuda:0), cli.run.main --mesh-shape data:1 on {CLI_CONFIG} with fast_train, "
+            f"fast_train_attn_bwd, fast_eval: {rec['batches']} steps of "
+            f"{config['params']['batch_size']}, train loss {rec['losses_train']}, val MPJPE (m) "
+            f"{rec['losses_valid']}, report {rec['errors']}; --evaluate best_epoch in one "
+            f"process: max |d| {report_dev:.3e} mm; syncs in the train loop "
+            f"{len(rec['sync_warnings'])}; launches (launched run) "
+            f"{ {k: v for k, v in rec['launches'].items() if v} } as counted; wall_s "
+            f"{launch_s:.1f} (launcher, rank start and build load included)")
+
+        # (b) two gloo ranks on the one card, against this process alone.
+        world = 2
+        spec = dict(root=here, rendezvous=os.path.join(tmp, "rendezvous"), world_size=world,
+                    out=tmp, artifact=os.path.join(tmp, "eval_sharded.pt2"))
+        with open(os.path.join(tmp, "gloo.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(world)]
+        procs = []
+        try:
+            for r in range(world):
+                with open(logs[r], "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-c", GLOO_RANK, os.path.join(tmp, "gloo.json"), str(r)],
+                        cwd=here, stdout=log, stderr=subprocess.STDOUT))
+            for p in procs:
+                p.wait(timeout=900)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            with open(logs[r]) as log:
+                check(p.returncode == 0, f"phase 20b gloo rank {r} exited {p.returncode}:\n"
+                      f"{log.read()[-4000:]}")
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+               for r in range(world)]
+    torch.cuda.empty_cache()
+    ref = parallel_cases(dev)
+    lines = []
+    for name in ("f32", "mixed"):
+        key = f"eval_{name}"
+        out0, want_out = got[0][key]["pred"], ref[key]["pred"]
+        check(torch.equal(out0, got[1][key]["pred"]), f"phase 20b {key}: the ranks' gathered "
+              f"predictions differ")
+        check(torch.isfinite(out0).all().item()
+              and out0.shape == (PAR_EVAL_BATCH, FRAMES, JOINTS, 3),
+              f"phase 20b {key}: shape {tuple(out0.shape)} or not finite")
+        abs_err, rel = rel_err(out0, want_out)
+        if name == "f32":
+            check(rel <= 1e-5, f"phase 20b {key}: 2 ranks vs 1 max |d| {abs_err:.3e}, {rel:.3e} "
+                  f"of max|out| > 1e-5")
+        else:
+            _, max_rel, mean_rel = bf16_errs(out0, want_out)
+            check(max_rel <= BF16_MAX_TOL and mean_rel <= BF16_MEAN_TOL, f"phase 20b {key}: 2 "
+                  f"ranks vs 1 max rel {max_rel:.3e}, mean rel {mean_rel:.3e}")
+        for r in range(world):
+            check(got[r][key]["launches"] == ref[key]["launches"], f"phase 20b {key} rank {r} "
+                  f"launched {got[r][key]['launches']}, one process {ref[key]['launches']}")
+            launches[f"parallel_gloo_{key}_rank{r}"] = got[r][key]["launches"]
+            inner[f"parallel_gloo_{key}_rank{r}"] = got[r][key]["inner"]
+        lines.append(f"{key} (global batch {PAR_EVAL_BATCH}, DDIM-{DDIM_STEPS}, flip-TTA) vs one "
+                     f"process: max |d| {abs_err:.3e} ({rel:.3e} of max|out|), bit for bit "
+                     f"{torch.equal(out0, want_out)}, step_s per rank "
+                     f"{[round(g[key]['step_s'], 3) for g in got]} (one process "
+                     f"{ref[key]['step_s']:.3f})")
+    for name, bar in (("f32", 1e-5), ("bf16", 1e-2)):
+        key = f"train_{name}"
+        g0, g1 = got[0][key], got[1][key]
+        rel = grad_rel_l2(g0["grads"], ref[key]["grads"])
+        check(rel <= bar, f"phase 20b {key}: step-1 gradients of 2 ranks vs 1, relative L2 "
+              f"{rel:.3e} > {bar}")
+        same = all(torch.equal(g0["params"][n], g1["params"][n]) for n in g0["params"])
+        check(same and g0["losses"] == g1["losses"], f"phase 20b {key}: the ranks' parameters "
+              f"or losses differ after {len(g0['losses'])} steps")
+        check(all(math.isfinite(v) for v in g0["losses"]), f"phase 20b {key}: {g0['losses']}")
+        for r in range(world):
+            counts = got[r][f"{key}_launches"]
+            check(counts["launches"] == ref[f"{key}_launches"]["launches"], f"phase 20b {key} "
+                  f"rank {r} launched {counts['launches']}, one process "
+                  f"{ref[f'{key}_launches']['launches']}")
+            launches[f"parallel_gloo_{key}_rank{r}"] = counts["launches"]
+            inner[f"parallel_gloo_{key}_rank{r}"] = counts["inner"]
+        lines.append(f"{key} (4 heads, attn_bwd, global batch {PAR_TRAIN_BATCH}, "
+                     f"{len(g0['losses'])} steps): step-1 gradients vs one process relative L2 "
+                     f"{rel:.3e} (bar {bar}), losses {g0['losses']} (one process "
+                     f"{ref[key]['losses']}), parameters equal on both ranks {same}, step_s rank "
+                     f"0 {[round(v, 3) for v in g0['step_s']]} (one process "
+                     f"{[round(v, 3) for v in ref[key]['step_s']]}), gradient all-reduce s a step "
+                     f"{[round(v, 4) for v in g0['reduce_s']]} (gloo through host memory on one "
+                     f"card: no multi-GPU figure)")
+    e0, e1 = got[0]["export"], got[1]["export"]
+    for r, e in enumerate((e0, e1)):
+        check(torch.equal(e["served"], e["live"]), f"phase 20b sharded export rank {r}: the "
+              f"restored step differs from the live one by "
+              f"{(e['served'] - e['live']).abs().max().item():.3e}")
+        check(e["launches"] == e["live_launches"] and e["launches"]["fused_transformer_block"],
+              f"phase 20b sharded export rank {r}: launches {e['launches']}, live "
+              f"{e['live_launches']}")
+        launches[f"parallel_gloo_export_rank{r}"], inner[f"parallel_gloo_export_rank{r}"] = (
+            e["launches"], e["inner"])
+    check(e0["bytes"] > 0 and e1["bytes"] is None and e0["meta"]["sharded"] == dict(
+        world_size=world, global_batch=PAR_EVAL_BATCH), f"phase 20b sharded export: {e0['meta']}")
+    lines.append(f"sharded export of the f32 fused step (local batch {PAR_EVAL_BATCH // world} of "
+                 f"{PAR_EVAL_BATCH}): {e0['bytes']} bytes in {e0['export_s']:.1f} s on rank 0, "
+                 f"restored in both ranks bit for bit as the live step")
+    say(f"phase 20b gloo, world size {world}, both ranks on cuda:0 ({card}), {ranks_s:.1f} s for "
+        f"the ranks: " + "; ".join(lines))
     return launches, inner
 
 
@@ -2685,25 +3120,14 @@ def main():
     check(not sync_warnings, f"the train loop made the host wait for the card "
           f"{len(sync_warnings)} times: {sync_warnings[:3]}")
 
-    # The launches each run must show: per train step B1's 2·DEPTH calls, B3
-    # and B6 once and B4 (2 kernels) once per block pair in the recompute;
-    # per validation batch and per evaluate batch (with each evaluate's
-    # warm-up batch) DDIM-steps fused forwards of 2·DEPTH B1 calls, and the
-    # validation loss's two plain-module forwards.
+    # The launches each run must show (want_fit).
     ddim, b_eval = config["params"]["sampling_timesteps"], 8
     fwd_b1 = 2 * DEPTH * per_call
     val_batches = -(-run["n_val"] // b_eval)
 
     def want_train(f, epochs, evals):
-        steps = epochs * f["batches"]
-        eval_batches = sum(-(-(n // FRAMES) // b_eval) + 1 for n in evals)  # + warm-up
-        forwards = ddim * (epochs * val_batches + eval_batches)
-        return dict(zero, fused_transformer_block=steps * per_step["fused_transformer_block"]
-                    + forwards * fwd_b1,
-                    grand_attention_fullseq=steps * per_step["grand_attention_fullseq"],
-                    grand_attention_bwd=steps * per_step["grand_attention_bwd"],
-                    packed_grand_attention=steps * per_step["packed_grand_attention"],
-                    plain_attention_calls=epochs * val_batches * 2 * 2 * DEPTH)
+        return want_fit(zero, per_step, fwd_b1, ddim, b_eval, f["batches"], f["n_val"], epochs,
+                        evals)
 
     want = {"train": want_train(run, 2, train_cli["train"]["evals"]),
             "train_resume": want_train(resumed, 1, train_cli["train_resume"]["evals"]),
@@ -2994,9 +3418,12 @@ def main():
         inner_by_path.update(inner_counts)
 
     # Phase 18: the serving export, restored in a fresh process; phase 19:
-    # the visualisation's model work and the ancestral DDPM loop.
+    # the visualisation's model work and the ancestral DDPM loop; phase 20:
+    # data parallelism, nccl at world size 1 through torchrun, then two
+    # gloo ranks on the card.
     for launches, inner_counts in (drive_export(dev, per_call, card),
-                                   drive_viz(dev, per_call, card)):
+                                   drive_viz(dev, per_call, card),
+                                   drive_parallel(dev, per_call, per_step, card)):
         cli_launches.update(launches)
         inner_by_path.update(inner_counts)
 

@@ -34,7 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--evaluate", default="", type=str, metavar="FILENAME")
     parser.add_argument("--by-subject", action="store_true")
     parser.add_argument("--export-training-curves", action="store_true")
-    parser.add_argument("--gpu_id", nargs="+", help="accepted for CLI compat; ignored (the port runs on one CUDA device)")
+    parser.add_argument("--gpu_id", nargs="+", help="accepted for CLI compat; ignored (each rank "
+                        "runs on cuda:LOCAL_RANK)")
     parser.add_argument("--out_all")
     parser.add_argument("--repeat_n", type=int)
 
@@ -66,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     # Extensions of the JAX package, kept flag for flag
     parser.add_argument("--mesh-shape", type=str, default=None,
-                        help="JAX device mesh; the port runs on one device")
+                        help="data-parallel ranks, 'data:N' with N the number of processes "
+                             "torchrun starts (a 'model' axis is not ported)")
     parser.add_argument("--matmul-precision", type=str, default=None,
                         choices=["highest", "default", "bfloat16"])
     parser.add_argument("--compute-dtype", type=str, default=None,

@@ -16,8 +16,10 @@ is not derivable without the data archive (humaneva*, custom*), pass
 
 The artifact runs on the device it was exported on (the card, or the CPU
 with ``main(argv, device="cpu")``), so ``--export-platforms`` raises a
-ValueError naming it; ``--export-sharded`` raises one too, since
-data-parallel eval is not ported (ROADMAP A.9).
+ValueError naming it. ``--export-sharded`` exports a data-parallel run's
+per-rank step (``io.export``): run the command under ``torchrun
+--nproc-per-node N ... --mesh-shape data:N``, with ``--export-batch-size``
+the global batch; rank 0 writes the file.
 """
 from __future__ import annotations
 
@@ -55,7 +57,8 @@ def build_export_parser():
     parser.add_argument("--export-platforms", type=str, default=None, metavar="LIST",
                         help="not taken: the artifact runs on the device it was exported on")
     parser.add_argument("--export-sharded", action="store_true",
-                        help="not taken: data-parallel eval is not ported (ROADMAP A.9)")
+                        help="export the per-rank step of a data-parallel run (under torchrun "
+                             "with --mesh-shape data:N) at the global batch / N")
     parser.add_argument("--export-num-joints", type=int, default=None)
     parser.add_argument("--export-joints-left", type=str, default=None,
                         help="comma-separated joint indices")
@@ -65,7 +68,15 @@ def build_export_parser():
 
 def main(argv=None, device="cuda"):
     """Exports the eval step of the config's eval mode on ``device``;
-    returns the artifact's bytes."""
+    returns the artifact's bytes (in a data-parallel run: rank 0's; the
+    other ranks return None)."""
+    from diff3dhpe_torch.parallel import entry_ranks
+
+    with entry_ranks(device) as mesh:
+        return _main(argv, device, mesh)
+
+
+def _main(argv, device, mesh):
     from diff3dhpe_torch.cli.args import args_to_overrides
     from diff3dhpe_torch.config import load_config
 
@@ -74,9 +85,10 @@ def main(argv=None, device="cuda"):
         raise ValueError(f"export_platforms={args.export_platforms!r} is not taken: a torch.export "
                          "artifact runs on the device it was exported on (pass device='cpu' to "
                          "main for a CPU artifact)")
-    if args.export_sharded:
-        raise ValueError("export_sharded=True is not taken: data-parallel eval is not ported "
-                         "(ROADMAP A.9)")
+    if args.export_sharded and mesh is None:
+        raise ValueError("export_sharded=True exports the per-rank step of a data-parallel run: "
+                         "run this command under torchrun --nproc-per-node N with --mesh-shape "
+                         "data:N")
     cfg = load_config(args.config, args_to_overrides(args))
 
     from diff3dhpe_torch.cli.run import load_evaluated_weights
@@ -100,20 +112,25 @@ def main(argv=None, device="cuda"):
             sys.exit(1)
     num_joints, joints_left, joints_right = meta
 
-    runner = Runner(cfg, num_joints, joints_left, joints_right, device=device)
+    runner = Runner(cfg, num_joints, joints_left, joints_right, device=device, mesh=mesh)
     if load_evaluated_weights(cfg, runner) is None:
         print("WARNING: exporting freshly-initialised weights "
               "(no --evaluate/--pretrained_model given)")
 
     batch = args.export_batch_size or cfg.batch_size_eval
-    data = export_eval_step(runner, batch_size=batch, path=args.output)
+    data = export_eval_step(runner, batch_size=batch, path=args.output,
+                            sharded=args.export_sharded)
+    if data is None:  # a data-parallel run's rank other than 0
+        return None
     rows = batch * cfg.repeat_n * (2 if cfg.test_time_augmentation else 1)
     f_out = cfg.number_of_frames if cfg.out_all else 1
+    sharded = f", per rank {batch // runner.world_size} rows of {runner.world_size} ranks" \
+        if args.export_sharded else ""
     print(
         f"Exported eval step -> {args.output} ({len(data)} bytes): "
         f"eval(state_dict, x2d, x2d_flip, x_init{', noises' if cfg.ddim_sampling_eta else ''}) "
         f"with x2d [{batch}, {cfg.number_of_frames}, {num_joints}, 2] and x_init "
-        f"[{rows}, {f_out}, {num_joints}, 3], device={runner.device}"
+        f"[{rows}, {f_out}, {num_joints}, 3], device={runner.device}{sharded}"
     )
     return data
 

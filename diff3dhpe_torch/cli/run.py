@@ -18,7 +18,16 @@ loads every parameter whose name and shape match (the reference's
 ``load_pretrained_weights``) before training.
 
 Runs on the CUDA device; ``main(argv, device="cpu")`` runs the plain
-PyTorch path on the CPU. The ``Params | FLOPs/forward`` line counts FLOPs
+PyTorch path on the CPU. Data parallel across N processes (``--mesh-shape
+data:N``; the batch sizes are global, split over the ranks):
+
+    torchrun --nproc-per-node N -m diff3dhpe_torch.cli.run --mesh-shape data:N ...
+
+(``python -m torch.distributed.run`` is the same launcher); each rank runs
+on ``cuda:LOCAL_RANK`` over ``nccl`` (on the CPU, ``device="cpu"``, over
+``gloo``), and only rank 0 writes the run's files and prints its report. A
+process that already belongs to a process group runs as its rank
+(``parallel.entry_ranks``). The ``Params | FLOPs/forward`` line counts FLOPs
 by formula (``utils.profiling.denoiser_matmul_flops``) where JAX asks XLA's
 cost analysis. A custom archive holds 2D detections only: its report
 prints the frames and their speed, and NaN for every error, where JAX's
@@ -63,7 +72,29 @@ def load_evaluated_weights(cfg, runner):
     return path
 
 
+def rank_print(mesh):
+    """``print`` on rank 0 (or in one process), else a function that prints
+    nothing."""
+    return print if mesh is None or mesh.is_main else (lambda *args, **kwargs: None)
+
+
+def describe_ranks(mesh, device):
+    """The INFO line naming the device, and in a data-parallel run the world
+    size, the backend and this rank."""
+    if mesh is None:
+        return f"INFO: device: {device}"
+    return (f"INFO: data parallel: world size {mesh.size}, backend {mesh.backend}, rank "
+            f"{mesh.rank} on device {device}")
+
+
 def main(argv=None, device="cuda"):
+    from diff3dhpe_torch.parallel import entry_ranks
+
+    with entry_ranks(device) as mesh:
+        return _main(argv, device, mesh)
+
+
+def _main(argv, device, mesh):
     from diff3dhpe_torch.cli.args import args_to_overrides, build_parser
     from diff3dhpe_torch.config import load_config
 
@@ -78,8 +109,11 @@ def main(argv=None, device="cuda"):
     from diff3dhpe_torch.io.convert import load_matching_params
     from diff3dhpe_torch.utils.profiling import clever_format, denoiser_matmul_flops
 
-    os.makedirs(cfg.checkpoint, exist_ok=True)
-    logger = RunLogger(cfg.checkpoint, enabled=True)
+    say = rank_print(mesh)
+    main_rank = mesh is None or mesh.is_main
+    if main_rank:
+        os.makedirs(cfg.checkpoint, exist_ok=True)
+    logger = RunLogger(cfg.checkpoint, enabled=main_rank, echo=main_rank)
 
     # ------------------------------------------------------------------
     # Dataset
@@ -117,7 +151,7 @@ def main(argv=None, device="cuda"):
 
         dataset = CustomDataset(f"{cfg.data_root}/data_2d_{cfg.dataset}_{cfg.keypoints}.npz")
 
-    print(f"INFO: Receptive field: {cfg.number_of_frames} frames")
+    say(f"INFO: Receptive field: {cfg.number_of_frames} frames")
     logger.log(f"INFO: Receptive field: {cfg.number_of_frames} frames\n")
 
     test_ds = PoseDataset(
@@ -129,21 +163,22 @@ def main(argv=None, device="cuda"):
     joints_left = list(dataset.skeleton().joints_left())
     joints_right = list(dataset.skeleton().joints_right())
 
-    runner = Runner(cfg, num_joints, joints_left, joints_right, logger=logger, device=device)
+    runner = Runner(cfg, num_joints, joints_left, joints_right, logger=logger, device=device,
+                    mesh=mesh)
     n_params = runner.param_count()
-    print(f"INFO: Trainable parameter count: {n_params}")
+    say(f"INFO: Trainable parameter count: {n_params}")
 
     # Params | FLOPs printout (reference run.py:195-200, thop-equivalent).
     flops = denoiser_matmul_flops(cfg.number_of_frames, num_joints, cfg.embed_dim,
                                   cfg.transformer_depth, cfg.mlp_ratio)
-    print("Params | FLOPs/forward")
-    print("---|---")
-    print(f"{clever_format(n_params)} | {clever_format(flops)}")
+    say("Params | FLOPs/forward")
+    say("---|---")
+    say(f"{clever_format(n_params)} | {clever_format(flops)}")
     logger.config(
         f"Dataset: {cfg.dataset},\nModel: {cfg.model}\n\nparams={cfg}\n\n\n"
         f"Total Parameters: {n_params}\n\n"
     )
-    print(f"INFO: device: {runner.device}")
+    print(describe_ranks(mesh, runner.device))
 
     # ------------------------------------------------------------------
     # Optional weight loading (reference .bin or the port's checkpoint dir)
@@ -154,12 +189,12 @@ def main(argv=None, device="cuda"):
     if cfg.evaluate:
         path = resolve(cfg.evaluate)
         runner.set_params(load_weights(path, "evaluate"))
-        print(f"Loaded checkpoint {path}")
+        say(f"Loaded checkpoint {path}")
     elif cfg.pretrained_model:
         merged, matched, discarded = load_matching_params(
             runner.model.state_dict(), load_weights(cfg.pretrained_model, "pretrained_model"))
         runner.set_params(merged)
-        print(f"Loaded checkpoint {cfg.pretrained_model}: {len(matched)} parameters, "
+        say(f"Loaded checkpoint {cfg.pretrained_model}: {len(matched)} parameters, "
               f"{len(discarded)} discarded {discarded}")
 
     # ------------------------------------------------------------------
@@ -179,7 +214,7 @@ def main(argv=None, device="cuda"):
             joint_drop_rate=cfg.train_val_joint_drop,
             keypoints_data=keypoints_data,
         )
-        print(
+        say(
             f"INFO: Training on {len(train_ds)} windows, validating on "
             f"{len(val_ds)}, testing on {len(test_ds)}"
         )
@@ -195,7 +230,7 @@ def main(argv=None, device="cuda"):
         f"Dataset: {cfg.dataset},\nModel: {cfg.model}\n\nargs={cfg}\n\n\n"
         f"Total Parameters: {n_params}\n\n"
     )
-    print("Evaluating...")
+    say("Evaluating...")
 
     subjects_test = cfg.subjects_test.split(",")
     all_actions = {}

@@ -15,7 +15,11 @@ Usage:
 Checkpoints as ``cli/run.py`` takes them: a reference ``.bin`` file or a
 checkpoint directory the port wrote (a name that does not exist as given
 is looked up under ``--checkpoint``). Runs on the CUDA device;
-``main(argv, device="cpu")`` runs the plain PyTorch path on the CPU.
+``main(argv, device="cpu")`` runs the plain PyTorch path on the CPU. Data
+parallel across N processes as ``cli/run.py`` is (``torchrun
+--nproc-per-node N -m diff3dhpe_torch.cli.run_3dhp --mesh-shape data:N
+...``): only rank 0 writes the run's files and ``inference_data.mat`` and
+prints the report.
 
 Note on units: the 3DHP arrays are in millimetres (the reference's 3DHP
 MPJPE prints are mm without the x1000 used for H3.6M, run_3dhp.py:561-568).
@@ -30,7 +34,15 @@ import torch
 
 
 def main(argv=None, device="cuda"):
+    from diff3dhpe_torch.parallel import entry_ranks
+
+    with entry_ranks(device) as mesh:
+        return _main(argv, device, mesh)
+
+
+def _main(argv, device, mesh):
     from diff3dhpe_torch.cli.args import args_to_overrides, build_parser
+    from diff3dhpe_torch.cli.run import describe_ranks, rank_print
     from diff3dhpe_torch.config import load_config
 
     args = build_parser().parse_args(argv)
@@ -50,8 +62,11 @@ def main(argv=None, device="cuda"):
     from diff3dhpe_torch.io.checkpoint import load_torch_state_dict, restore_checkpoint
     from diff3dhpe_torch.io.convert import load_matching_params
 
-    os.makedirs(cfg.checkpoint, exist_ok=True)
-    logger = RunLogger(cfg.checkpoint, enabled=True)
+    say = rank_print(mesh)
+    main_rank = mesh is None or mesh.is_main
+    if main_rank:
+        os.makedirs(cfg.checkpoint, exist_ok=True)
+    logger = RunLogger(cfg.checkpoint, enabled=main_rank, echo=main_rank)
 
     if args.synthetic:
         from diff3dhpe_torch.data.synthetic import make_synthetic_3dhp
@@ -67,15 +82,16 @@ def main(argv=None, device="cuda"):
             cfg.subjects_train, cfg.subjects_test, root_path=cfg.data_root
         )
 
-    print(f"INFO: Receptive field: {cfg.number_of_frames} frames")
-    runner = Runner(cfg, NUM_JOINTS, JOINTS_LEFT, JOINTS_RIGHT, logger=logger, device=device)
+    say(f"INFO: Receptive field: {cfg.number_of_frames} frames")
+    runner = Runner(cfg, NUM_JOINTS, JOINTS_LEFT, JOINTS_RIGHT, logger=logger, device=device,
+                    mesh=mesh)
     n_params = runner.param_count()
     logger.config(
         f"Dataset: 3dhp,\nModel: {cfg.model}\n\nparams={cfg}\n\n\n"
         f"Total Parameters: {n_params}\n\n"
     )
-    print(f"INFO: Trainable parameter count: {n_params}")
-    print(f"INFO: device: {runner.device}")
+    say(f"INFO: Trainable parameter count: {n_params}")
+    print(describe_ranks(mesh, runner.device))
 
     def resolve(name):
         return os.path.join(cfg.checkpoint, name) if not os.path.exists(name) else name
@@ -89,12 +105,12 @@ def main(argv=None, device="cuda"):
     if cfg.evaluate:
         path = resolve(cfg.evaluate)
         runner.set_params(load_weights(path, "evaluate"))
-        print(f"Loaded checkpoint {path}")
+        say(f"Loaded checkpoint {path}")
     elif cfg.pretrained_model:
         merged, matched, discarded = load_matching_params(
             runner.model.state_dict(), load_weights(cfg.pretrained_model, "pretrained_model"))
         runner.set_params(merged)
-        print(f"Loaded checkpoint {cfg.pretrained_model}: {len(matched)} parameters, "
+        say(f"Loaded checkpoint {cfg.pretrained_model}: {len(matched)} parameters, "
               f"{len(discarded)} discarded {discarded}")
 
     test_all_ds = PoseDataset3DHP(
@@ -116,7 +132,7 @@ def main(argv=None, device="cuda"):
             split="val", noise_std=cfg.train_extra_noise_std,
             joint_drop_rate=cfg.train_joint_drop,
         )
-        print(
+        say(
             f"INFO: Training on {len(train_ds)} windows, validating on "
             f"{len(val_ds)}, testing on {len(test_all_ds)}"
         )
@@ -131,7 +147,7 @@ def main(argv=None, device="cuda"):
     logger.result(
         f"Dataset: 3dhp,\nModel: {cfg.model}\n\nargs={cfg}\n\n\nTotal Parameters: {n_params}\n\n"
     )
-    print("Evaluating...")
+    say("Evaluating...")
     per_seq, errors, frames_per_sec = sequence_inference(runner, cfg, dataset)
     pred_cat = np.concatenate([p for p, _ in per_seq.values()])
     gt_cat = np.concatenate([g for _, g in per_seq.values()])
@@ -148,8 +164,9 @@ def main(argv=None, device="cuda"):
     import scipy.io as scio
 
     mat_path = os.path.join(cfg.checkpoint, "inference_data.mat")
-    scio.savemat(mat_path, data_inference)
-    print(f"Saved raw predictions to {mat_path}")
+    if main_rank:
+        scio.savemat(mat_path, data_inference)
+    say(f"Saved raw predictions to {mat_path}")
     return dict(errors=errors, pck=pck_v, auc=auc_v, frames_per_sec=frames_per_sec)
 
 

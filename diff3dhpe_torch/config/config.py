@@ -78,7 +78,9 @@ class Config:
     # Execution. Every field of the JAX package's Config is kept, so its
     # config files and command lines parse; ``engine.runner.Runner`` refuses
     # the values the port cannot run yet (see its docstring).
-    mesh_shape: Optional[str] = None  # JAX device mesh; the port runs on one device
+    # Data-parallel ranks, "data:N" with N the world size (None: every rank
+    # on data); a "model" axis > 1 (JAX's tensor parallelism) is refused.
+    mesh_shape: Optional[str] = None
     matmul_precision: str = "highest"  # the JAX default matmul precision; the port's f32 is exact f32
     compute_dtype: str = "float32"  # "bfloat16" for the fast eval path
     # The module's attention goes through the attention kernels

@@ -132,13 +132,8 @@ class GaussianDiffusion:
         from ``generator`` when not given, in that order; ``dp_scales`` and
         ``generator`` go on to the denoiser, which draws its drop-path
         scales from the generator when ``dp_scales`` is None."""
-        b, f = x_start.shape[0], pose_2d.shape[1]
-        dev = x_start.device
-        if t is None:
-            t = torch.randint(0, self.num_timesteps, (b,), generator=generator, device=dev)
-        t = torch.as_tensor(t, device=dev)
-        if noise is None:
-            noise = torch.randn(x_start.shape, generator=generator, device=dev)
+        f = pose_2d.shape[1]
+        t, noise = self.loss_draws(x_start, t=t, noise=noise, generator=generator)
         x_noisy = self.q_sample(x_start, t, noise)
         x_in = x_noisy.repeat_interleave(f, dim=1) if self.mode == "s2f" else x_noisy
         model_in = torch.cat([pose_2d, x_in], dim=-1) if self.conditional else x_in
@@ -151,6 +146,17 @@ class GaussianDiffusion:
         diff = model_out - x_start
         err = diff ** 2 if self.loss_type == "l2" else diff.abs()
         return err * coef
+
+    def loss_draws(self, x_start, t=None, noise=None, generator=None):
+        """(t [B], noise) of ``p_losses`` on ``x_start`` [B, ...]: each
+        drawn from ``generator`` where not given, t first."""
+        dev = x_start.device
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (x_start.shape[0],), generator=generator,
+                              device=dev)
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, device=dev)
+        return torch.as_tensor(t, device=dev), noise
 
     def training_loss(self, x_start, pose_2d, **kw):
         """Mean training loss (a scalar tensor); ``kw`` as ``p_losses``."""
@@ -187,6 +193,17 @@ class GaussianDiffusion:
         # A bf16 estimate enters the float32 update exactly, as JAX promotes
         # it against its float32 step tables.
         return x_start.to(torch.float32)
+
+    def ddim_noises(self, target_shape, generator, device):
+        """[S, *target_shape]: the per-step noise that ``ddim_sample_loop``
+        draws from ``generator`` where ddim_sampling_eta > 0, drawn up front
+        in its order (x_T, when drawn, comes first); the last step adds
+        none, and its entry is zeros."""
+        shape = tuple(target_shape)
+        return torch.stack([
+            torch.zeros(shape, device=device) if last else
+            torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+            for last in self._ddim_step_tables()["is_last"]])
 
     @torch.no_grad()
     def ddim_sample_loop(self, x_cond, target_shape, x_init=None, generator=None,

@@ -42,14 +42,17 @@ from diff3dhpe_torch.metrics import mean_velocity_error, mpjpe, n_mpjpe, p_mpjpe
 from diff3dhpe_torch.models import HPE_model
 from diff3dhpe_torch.ops.attention import HEAD_DIMS
 from diff3dhpe_torch.ops.fused_block import LN_MAX_C
+from diff3dhpe_torch.parallel import check_mesh_shape
 
 
 class RunLogger:
     """Timestamped plain-text run logs, mirroring the reference's
-    config_*/log_*/results_* files (reference run.py:136-138,209-214)."""
+    config_*/log_*/results_* files (reference run.py:136-138,209-214).
+    ``echo``: the log and result lines are printed too (the ranks of a
+    data-parallel run other than rank 0 neither write nor print)."""
 
-    def __init__(self, checkpoint_dir: str, enabled: bool = True):
-        self.enabled = enabled
+    def __init__(self, checkpoint_dir: str, enabled: bool = True, echo: bool = True):
+        self.enabled, self.echo = enabled, echo
         self.config_path = self.log_path = self.results_path = None
         if not enabled:
             return
@@ -68,11 +71,13 @@ class RunLogger:
         self._write(self.config_path, text)
 
     def log(self, text):
-        print(text, end="" if text.endswith("\n") else "\n")
+        if self.echo:
+            print(text, end="" if text.endswith("\n") else "\n")
         self._write(self.log_path, text if text.endswith("\n") else text + "\n")
 
     def result(self, text):
-        print(text, end="" if text.endswith("\n") else "\n")
+        if self.echo:
+            print(text, end="" if text.endswith("\n") else "\n")
         self._write(self.results_path, text if text.endswith("\n") else text + "\n")
 
 
@@ -80,9 +85,12 @@ def _refuse(cfg, field, why):
     raise ValueError(f"{field}={getattr(cfg, field)!r} is not ported: {why}")
 
 
-def check_supported(cfg: Config, device="cpu") -> None:
+def check_supported(cfg: Config, device="cpu", world_size: int = 1) -> None:
     """Raises ValueError, naming the field, for a configuration the JAX
-    package runs and the port does not yet. On a CUDA ``device`` also for a
+    package runs and the port does not yet, or that this run's
+    ``world_size`` ranks cannot take: ``mesh_shape`` must be "data:N" with
+    N = ``world_size`` (or unset); a ``model`` axis > 1, tensor
+    parallelism, is not ported (ROADMAP A.12). On a CUDA ``device`` also for a
     head width that the kernels of the configured path do not take: they
     take head_dim 64 and 128 (float32 and bf16); and, with ``fast_eval``,
     for an ``embed_dim`` wider than the block's LayerNorm kernel holds
@@ -95,8 +103,7 @@ def check_supported(cfg: Config, device="cpu") -> None:
     (diff3dhpe_tpu/models/mixste.py:262-279, engine/steps.py:33-60), so an
     evaluation with it computes what one without it computes."""
     refuse = lambda field, why: _refuse(cfg, field, why)
-    if cfg.mesh_shape is not None and cfg.mesh_shape.replace(" ", "") not in ("data:1", ""):
-        refuse("mesh_shape", "the port runs on one device")
+    check_mesh_shape(cfg.mesh_shape, world_size)
     bf16 = cfg.compute_dtype == "bfloat16"
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         refuse("compute_dtype", "float32 or bfloat16")
@@ -156,7 +163,7 @@ def eval_diffusion(cfg: Config, diffusion, model, temporal_mode: str = "rows"):
     return out
 
 
-def check_trainable(cfg: Config, device="cpu") -> None:
+def check_trainable(cfg: Config, device="cpu", world_size: int = 1) -> None:
     """What ``fit`` refuses beyond ``check_supported``, naming the field:
     ``use_pallas_attention`` without ``fast_train``, whose attention kernels
     have no backward (JAX's ``jax.grad`` through them raises too). On a
@@ -165,7 +172,7 @@ def check_trainable(cfg: Config, device="cpu") -> None:
     LayerNorm kernel holds at the training dtype. bfloat16 training,
     ``remat`` (both modes) and the monolithic backward
     (``fast_train_pair_vjp=False``) train."""
-    check_supported(cfg, device)
+    check_supported(cfg, device, world_size)
     if cfg.use_pallas_attention and not cfg.fast_train:
         _refuse(cfg, "use_pallas_attention", "its attention kernels have no backward; train "
                 "with fast_train (and fast_train_attn_bwd for the attention backward kernels)")
@@ -201,17 +208,25 @@ class Runner:
 
     ``device`` is "cuda" unless the caller asks for "cpu"; nothing falls
     back. ``check_supported`` lists what is refused, ``check_trainable``
-    what ``fit`` refuses besides."""
+    what ``fit`` refuses besides.
+
+    ``mesh``: a ``parallel.DataMesh``, this process's rank of a
+    data-parallel run; the runner then runs on ``mesh.device``, its steps
+    take the global batches (``cfg.batch_size``, ``cfg.batch_size_eval``)
+    and each rank runs its rows (``engine.steps``), and only rank 0 writes
+    checkpoints and logs and prints (the other ranks' default logger
+    neither writes nor prints)."""
 
     def __init__(self, cfg: Config, num_joints: int, joints_left, joints_right,
-                 logger: Optional[RunLogger] = None, device="cuda"):
-        self.device = resolve_device(device)
-        check_supported(cfg, self.device)
+                 logger: Optional[RunLogger] = None, device="cuda", mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
+        check_supported(cfg, self.device, self.world_size)
         self.cfg = cfg
         self.num_joints = num_joints
         self.joints_left = list(joints_left)
         self.joints_right = list(joints_right)
-        self.logger = logger or RunLogger(cfg.checkpoint, enabled=False)
+        self.logger = logger or RunLogger(cfg.checkpoint, enabled=False, echo=self.is_main)
 
         self._model_kw = dict(
             num_frame=cfg.number_of_frames,
@@ -258,12 +273,22 @@ class Runner:
         self.eval_step = make_eval_step(
             self.eval_diffusion, self.joints_left, self.joints_right,
             repeat_n=cfg.repeat_n, tta=cfg.test_time_augmentation, device=self.device,
+            mesh=self.mesh,
         )
         self.val_step = make_val_step(
             self.diffusion, self.joints_left, self.joints_right,
             sample_diffusion=self.eval_diffusion, tta=cfg.test_time_augmentation,
-            device=self.device,
+            device=self.device, mesh=self.mesh,
         )
+
+    @property
+    def world_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes the run's files: rank 0, or the one process."""
+        return self.mesh is None or self.mesh.is_main
 
     # ------------------------------------------------------------------
     def init_params(self, seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
@@ -280,6 +305,8 @@ class Runner:
             params = state_dict_from_flax(
                 params, self.cfg.transformer_depth, self.cfg.with_time_emb, self.model.mode)
         self.model.load_state_dict(params, strict=True)
+        if self.mesh is not None:
+            self.mesh.check_replicated(self.model.parameters())
         self._build_eval()
 
     def param_count(self) -> int:
@@ -328,16 +355,24 @@ class Runner:
         noise_flip))), as ``make_train_step`` and ``make_val_step`` take
         them. Entry points pass None.
 
+        In a data-parallel run (``mesh``) every rank iterates the same
+        global batches (the same ``shuffle_rng``) and runs its rows of each;
+        the ranks must start from the same weights (checked, after a
+        resume too). Only rank 0 writes checkpoints, logs and the curve, and
+        every rank waits at a barrier after each checkpoint; a checkpoint is
+        the same state dict at any world size, so it resumes or evaluates at
+        another. The stop on ``max_time`` is rank 0's.
+
         Returns dict(losses_train, losses_valid (MPJPE in m), best_epoch,
         min_loss (mm), best_path (None without a best checkpoint), seconds:
         per epoch run, dict(train=, validate=, save=) host seconds)."""
         cfg = self.cfg
         log = self.logger
-        check_trainable(cfg, self.device)
+        check_trainable(cfg, self.device, self.world_size)
         steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
         optimizer, scheduler = make_optimizer(self.model.parameters(), cfg.learning_rate,
                                               cfg.lr_decay, steps_per_epoch, cfg.weight_decay)
-        train_step = make_train_step(self.train_diffusion, optimizer, scheduler)
+        train_step = make_train_step(self.train_diffusion, optimizer, scheduler, mesh=self.mesh)
 
         epoch = 0
         best_epoch = 0
@@ -357,6 +392,8 @@ class Runner:
             if meta.get("shuffle_rng_state"):
                 train_ds.shuffle_rng = rng_state_from_json(meta["shuffle_rng_state"])
             log.log(f"Resumed from {resume} at epoch {epoch}\n")
+        if self.mesh is not None:
+            self.mesh.check_replicated(self.model.parameters())
 
         losses_train: List[float] = []
         losses_valid: List[float] = []
@@ -365,9 +402,12 @@ class Runner:
         best_path = os.path.join(cfg.checkpoint, "best_epoch")
 
         def save(path):
-            save_checkpoint(path, dict(
-                model_diffusion=self.model.state_dict(), optimizer=optimizer.state_dict(),
-                lr_scheduler=scheduler.state_dict(), step=scheduler.last_epoch), meta)
+            if self.is_main:
+                save_checkpoint(path, dict(
+                    model_diffusion=self.model.state_dict(), optimizer=optimizer.state_dict(),
+                    lr_scheduler=scheduler.state_dict(), step=scheduler.last_epoch), meta)
+            if self.mesh is not None:
+                self.mesh.barrier()
 
         while epoch < cfg.epochs:
             start_time = time.time()
@@ -434,20 +474,24 @@ class Runner:
             if curr_step >= cfg.patience:
                 log.log("Early stop!\n")
                 break
-            if time.time() - start_training_time > cfg.max_time * 3600:
+            out_of_time = time.time() - start_training_time > cfg.max_time * 3600
+            if out_of_time if self.mesh is None else self.mesh.from_main(out_of_time):
                 log.log(f"Max_time for training elapsed {cfg.max_time:.2f} hours, stopping\n")
                 break
             epoch += 1
 
         log.log(f"Training finished! Total time: {(time.time() - start_training_time) / 60}\n")
-        if cfg.export_training_curves and len(losses_train) > 3:
+        if cfg.export_training_curves and len(losses_train) > 3 and self.is_main:
             self._export_curves(losses_train, losses_valid)
+        has_best = os.path.isdir(best_path)  # rank 0's files decide, on every rank
+        if self.mesh is not None:
+            has_best = self.mesh.from_main(has_best)
         return dict(
             losses_train=losses_train,
             losses_valid=losses_valid,
             best_epoch=best_epoch,
             min_loss=min_loss,
-            best_path=best_path if os.path.isdir(best_path) else None,
+            best_path=best_path if has_best else None,
             seconds=seconds,
         )
 
@@ -512,7 +556,12 @@ class Runner:
         that a test can inject another sampler's draws. unit_scale converts
         the dataset's native pose units into the mm the report prints: 1000
         for meter-based datasets (H3.6M et al.). Targets that are NaN (2D-only
-        footage) make every error NaN; the predictions and the speed stand."""
+        footage) make every error NaN; the predictions and the speed stand.
+
+        In a data-parallel run each rank samples its rows of a batch and the
+        step gathers the prediction on every rank: the metrics are those of
+        the gathered predictions, and ``model_time`` is the rank's wall
+        time of the steps, the gather included (rank 0's in the report)."""
         cfg = self.cfg
         log = self.logger
         self.model.eval()

@@ -11,6 +11,15 @@ Port of ``diff3dhpe_tpu/engine/steps.py``:
   averaged;
 - val step (reference run.py:364-403): the eval step's prediction and the
   mean ``p_losses`` of both orientations, without autograd.
+
+Each factory takes ``mesh``, a ``parallel.DataMesh`` (JAX: the mesh's
+``data`` axis, :216-314, :327-428, :437-469); None keeps the
+single-process step. With one, the step takes the global batch, and every
+rank draws what the single process draws (t, noise, drop-path scales, x_T,
+the per-step noise) for the global batch, in the same order, then keeps
+its rows: the step computes the same thing at every world size. JAX's
+``shard_map`` fast train draws per shard instead (``fold_in(key,
+axis_index)``); tests reproduce that by injecting its draws.
 """
 from __future__ import annotations
 
@@ -97,12 +106,17 @@ def _train_denoise_fn(model, drop_path_rate, forward):
     ``forward(x, t, dp_scales)``, with the drop-path scales drawn from the
     generator when they are not given (neither: no drop-path)."""
 
+    def draw_dp_scales(generator, batch, num_frame, num_joints):
+        return draw_drop_path_scales(generator, batch, model.depth, drop_path_rate, num_frame,
+                                     num_joints)
+
     def denoise_fn(x, t, *, dp_scales=None, generator=None):
         if dp_scales is None and generator is not None:
-            dp_scales = draw_drop_path_scales(generator, x.shape[0], model.depth, drop_path_rate,
-                                              x.shape[1], x.shape[2])
+            dp_scales = draw_dp_scales(generator, x.shape[0], x.shape[1], x.shape[2])
         return forward(x, t, dp_scales)
 
+    # The data-parallel train step draws the global batch's scales itself.
+    denoise_fn.draw_dp_scales = draw_dp_scales
     return denoise_fn
 
 
@@ -163,18 +177,50 @@ def make_optimizer(params, learning_rate: float, lr_decay: float, steps_per_epoc
     return opt, sched
 
 
-def make_train_step(diffusion: GaussianDiffusion, optimizer, scheduler=None):
+def _global_train_draws(diffusion, gt_3d_norm, input_2d, generator, t, noise, dp_scales):
+    """t, noise and the drop-path scales of a global batch, each drawn from
+    ``generator`` where not given, in the order the single-process step
+    draws them (``p_losses``, then its denoiser)."""
+    t, noise = diffusion.loss_draws(gt_3d_norm, t=t, noise=noise, generator=generator)
+    draw = getattr(diffusion.denoise_fn, "draw_dp_scales", None)
+    if dp_scales is None and generator is not None and draw is not None:
+        dp_scales = draw(generator, input_2d.shape[0], input_2d.shape[1], input_2d.shape[2])
+    return t, noise, dp_scales
+
+
+def make_train_step(diffusion: GaussianDiffusion, optimizer, scheduler=None, mesh=None):
     """Returns train_step(gt_3d_norm, input_2d, *, generator=None, t=None,
     noise=None, dp_scales=None) -> loss (a detached scalar tensor): one
     AdamW step on mean(p_losses) over the parameters ``optimizer`` holds.
     t, noise and the drop-path scales are drawn from ``generator`` where
-    they are not given."""
+    they are not given.
+
+    With ``mesh``: the inputs and the draws (given or drawn) are those of
+    the global batch, which must divide the ranks (else a ValueError, "does
+    not divide"); each rank runs its rows (``DataMesh.rows``; the
+    drop-path scales [depth, B, ...] on their axis 1), then the gradients
+    and the loss are averaged over the ranks after the backward in one
+    all-reduce (JAX's ``pmean``), and every rank takes the same AdamW step.
+    The gradients are averaged explicitly: the fused train forward is no
+    module ``forward``, so a ``DistributedDataParallel`` wrapper would
+    leave them unreduced."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def train_step(gt_3d_norm, input_2d, *, generator=None, t=None, noise=None, dp_scales=None):
         optimizer.zero_grad(set_to_none=True)
+        if mesh is not None:
+            rows = mesh.rows(gt_3d_norm.shape[0])
+            t, noise, dp_scales = _global_train_draws(diffusion, gt_3d_norm, input_2d, generator,
+                                                      t, noise, dp_scales)
+            gt_3d_norm, input_2d, t, noise = (a[rows] for a in (gt_3d_norm, input_2d, t, noise))
+            if dp_scales is not None:
+                dp_scales = tuple(d[:, rows] for d in dp_scales)
+            generator = None  # every draw is made
         loss = diffusion.training_loss(gt_3d_norm, input_2d, t=t, noise=noise,
                                        generator=generator, dp_scales=dp_scales)
         loss.backward()
+        if mesh is not None:
+            loss = mesh.average_grads_(params, loss)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -200,6 +246,7 @@ def make_eval_step(
     repeat_n: int = 1,
     tta: bool = True,
     device="cuda",
+    mesh=None,
 ):
     """Returns eval_step(input_2d, input_2d_flip, *, x_init=None,
     generator=None, noises=None) -> predicted_3d_norm [B, F_out, J, 3] on
@@ -210,7 +257,14 @@ def make_eval_step(
     has each step of ``noises`` (the per-step noise where
     ddim_sampling_eta > 0, ``GaussianDiffusion.ddim_sample_loop``).
     ``tta=False`` runs a single pass and ignores ``input_2d_flip``
-    (reference run.py:577-587)."""
+    (reference run.py:577-587).
+
+    With ``mesh`` the inputs, x_T and ``noises`` (given or drawn from
+    ``generator`` up front, in the single-process order) are the global
+    batch's, which must divide the ranks (else a ValueError, "does not
+    divide"); each rank samples its rows (``DataMesh.shard``: rows h·2B +
+    s·B + [r·b, (r+1)·b) of x_T) and the prediction is gathered back in
+    global order on every rank."""
     device = resolve_device(device)
     jl, jr = list(joints_left), list(joints_right)
     if len(jl) != len(jr):
@@ -218,11 +272,27 @@ def make_eval_step(
 
     def eval_step(input_2d, input_2d_flip, *, x_init=None, generator=None, noises=None):
         input_2d = torch.as_tensor(input_2d, dtype=torch.float32, device=device)
-        b, f, j, _ = input_2d.shape
-        f_out = f if diffusion.mode == "s2s" else 1
         x_init, noises = (None if a is None else torch.as_tensor(a, dtype=torch.float32,
                                                                  device=device)
                           for a in (x_init, noises))
+        if mesh is None:
+            return local_step(input_2d, input_2d_flip, x_init, generator, noises)
+        b, f, j, _ = input_2d.shape
+        rows = mesh.rows(b)
+        shape = (b * repeat_n * (2 if tta else 1), f if diffusion.mode == "s2s" else 1, j, 3)
+        if x_init is None and generator is not None:
+            x_init = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        if diffusion.ddim_sampling_eta and noises is None and generator is not None:
+            noises = diffusion.ddim_noises(shape, generator, device)
+        x_init = None if x_init is None else mesh.shard(x_init, b)
+        noises = None if noises is None else mesh.shard(noises, b, dim=1)
+        flip = None if input_2d_flip is None else torch.as_tensor(
+            input_2d_flip, dtype=torch.float32, device=device)[rows]
+        return mesh.gather_rows(local_step(input_2d[rows], flip, x_init, generator, noises))
+
+    def local_step(input_2d, input_2d_flip, x_init, generator, noises):
+        b, f, j, _ = input_2d.shape
+        f_out = f if diffusion.mode == "s2s" else 1
         if not tta:
             return diffusion.estimate_pose(input_2d, (b, f_out, j, 3), repeat_n=repeat_n,
                                            x_init=x_init, generator=generator, noises=noises)
@@ -242,6 +312,7 @@ def make_val_step(
     sample_diffusion: GaussianDiffusion = None,
     tta: bool = True,
     device="cuda",
+    mesh=None,
 ):
     """End-of-epoch validation (JAX ``make_val_step``; reference
     run.py:364-403), without autograd. Returns val_step(gt_3d_norm,
@@ -252,10 +323,16 @@ def make_val_step(
     of its flipped copy, averaged. x_T, then t and noise of each
     orientation are drawn from ``generator`` in that order, unless given:
     ``x_init`` as ``make_eval_step`` takes it, ``losses`` as ((t, noise),
-    (t_flip, noise_flip))."""
+    (t_flip, noise_flip)).
+
+    With ``mesh``: the eval step's (the prediction gathered on every
+    rank), and each orientation's t and noise drawn (or given) for the
+    global batch, in the single-process order, then sliced to the rank's
+    rows; the loss is the mean over the ranks of their losses."""
     device = resolve_device(device)
     jl, jr = list(joints_left), list(joints_right)
-    eval_step = make_eval_step(sample_diffusion or diffusion, jl, jr, tta=tta, device=device)
+    eval_step = make_eval_step(sample_diffusion or diffusion, jl, jr, tta=tta, device=device,
+                               mesh=mesh)
 
     @torch.no_grad()
     def val_step(gt_3d_norm, input_2d, input_2d_flip, *, generator=None, x_init=None,
@@ -265,13 +342,18 @@ def make_val_step(
         pred = eval_step(input_2d, input_2d_flip, x_init=x_init, generator=generator)
         (t, noise), (t_flip, noise_flip) = losses or ((None, None), (None, None))
         inject = lambda a: None if a is None else torch.as_tensor(a, device=device)
-        loss = diffusion.training_loss(gt_3d_norm, input_2d, t=inject(t), noise=inject(noise),
-                                       generator=generator)
+        pairs = [(gt_3d_norm, input_2d, inject(t), inject(noise))]
         if tta:
-            loss_flip = diffusion.training_loss(
-                flip_pose(gt_3d_norm, jl, jr), as_tensor(input_2d_flip), t=inject(t_flip),
-                noise=inject(noise_flip), generator=generator)
-            loss = 0.5 * (loss + loss_flip)
-        return pred, loss
+            pairs.append((flip_pose(gt_3d_norm, jl, jr), as_tensor(input_2d_flip),
+                          inject(t_flip), inject(noise_flip)))
+        terms = []
+        for gt, x2d, t, noise in pairs:
+            if mesh is not None:
+                t, noise = diffusion.loss_draws(gt, t=t, noise=noise, generator=generator)
+                rows = mesh.rows(gt.shape[0])
+                gt, x2d, t, noise = gt[rows], x2d[rows], t[rows], noise[rows]
+            terms.append(diffusion.training_loss(gt, x2d, t=t, noise=noise, generator=generator))
+        loss = terms[0] if len(terms) == 1 else 0.5 * (terms[0] + terms[1])
+        return pred, loss if mesh is None else mesh.mean(loss)
 
     return val_step

@@ -22,6 +22,14 @@ takes a PRNG key and draws it inside: torch cannot draw JAX's keyed noise,
 and every other path of the port takes x_T too. Where
 ``ddim_sampling_eta`` > 0 the per-step noise ``noises`` [S, rows, F_out, J,
 3] is a fifth input. CLI front end: ``python -m diff3dhpe_torch.cli.export``.
+
+``sharded=True`` (JAX: the mesh-bound ``shard_map`` program, :53-72)
+exports a data-parallel run's per-rank step at the local batch B / N; its
+metadata records N and the global batch B. Restored in an N-rank run
+(``restore_eval_step(path, mesh)``), the step takes the global inputs,
+runs the rank's rows and gathers the prediction in global order on every
+rank; restored with another number of ranks, or in one process, it raises
+a ValueError naming both sizes (``jax.export``'s ``nr_devices`` check).
 """
 from __future__ import annotations
 
@@ -103,13 +111,28 @@ def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool
     -> predicted_3d_norm [B, F_out, J, 3], ``make_eval_step``'s
     single-device contract (flip-TTA averaged, normalised units). ``state``
     is a state dict of the runner's model (its weights only shape the
-    export). ``sharded=True`` (JAX: the mesh-bound data-parallel program)
-    raises a ValueError: data-parallel eval is not ported (ROADMAP A.9)."""
+    export).
+
+    ``sharded=True``: the per-rank step of the runner's data-parallel run
+    (``runner.mesh``, which it needs) at ``batch_size`` / N rows, which
+    must divide (a ValueError, "does not divide", otherwise); the artifact
+    is restored in a run of N ranks (``restore_eval_step``). In a
+    data-parallel run rank 0 alone traces and writes the artifact, and the
+    other ranks wait for it and return None."""
+    mesh = getattr(runner, "mesh", None)
+    if sharded and mesh is None:
+        raise ValueError("sharded=True exports the per-rank step of a data-parallel run: build "
+                         "the runner with its DataMesh (Runner(mesh=...); the CLI under torchrun "
+                         "with --mesh-shape data:N)")
+    local = batch_size
     if sharded:
-        raise ValueError("sharded=True: the data-parallel eval step is not ported "
-                         "(ROADMAP A.9); the port exports a single-device step")
+        rows = mesh.rows(batch_size)
+        local = rows.stop - rows.start
+    if mesh is not None and not mesh.is_main:
+        mesh.barrier()
+        return None
     state = {k: v.detach() for k, v in runner.model.state_dict().items()}
-    inputs = _inputs(runner, batch_size)
+    inputs = _inputs(runner, local)
     with torch.no_grad():
         program = torch.export.export(_Serving(_EvalStep(runner, temporal_mode)),
                                       (state, *inputs),
@@ -117,7 +140,8 @@ def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool
     # The example inputs would be saved with the program: the weights too.
     program.example_inputs = None
     cfg = runner.cfg
-    meta = dict(keys=list(state), device=str(runner.device), batch_size=batch_size,
+    meta = dict(keys=list(state), device=str(runner.device), batch_size=local,
+                sharded=dict(world_size=mesh.size, global_batch=batch_size) if sharded else None,
                 temporal_mode=temporal_mode,
                 num_frames=cfg.number_of_frames, num_joints=runner.num_joints,
                 noises=bool(cfg.ddim_sampling_eta),
@@ -129,10 +153,12 @@ def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         with open(path, "wb") as f:
             f.write(data)
+    if mesh is not None:
+        mesh.barrier()
     return data
 
 
-def restore_eval_step(artifact: Union[str, bytes, bytearray]):
+def restore_eval_step(artifact: Union[str, bytes, bytearray], mesh=None):
     """Loads an exported eval step (a path or the bytes) -> step(state,
     input_2d, input_2d_flip, x_init[, noises]).
 
@@ -140,14 +166,35 @@ def restore_eval_step(artifact: Union[str, bytes, bytearray]):
     ``load_state_dict(strict=True)`` takes it (a missing or unexpected key
     raises a KeyError naming it); its tensors, and the inputs (tensors or
     arrays), are moved to the device the artifact was exported on. The
-    inputs must have the export's shapes. Runs without autograd."""
+    inputs must have the export's shapes. Runs without autograd.
+
+    A sharded artifact is restored in a data-parallel run of as many ranks
+    as it was exported for, each passing its ``mesh``; the step then takes
+    the global inputs (the export's global batch), runs on ``mesh.device``
+    the rank's rows (x_T's and ``noises``' as ``make_eval_step`` slices
+    them) and returns the prediction gathered in global order. The world
+    size (1 for an artifact that is not sharded, and without ``mesh``) must
+    be the artifact's: a ValueError names both otherwise."""
     import diff3dhpe_torch.ops  # noqa: F401 (registers the diff3dhpe:: operators)
 
     extra = {META: ""}
     src = io.BytesIO(bytes(artifact)) if isinstance(artifact, (bytes, bytearray)) else artifact
-    module = torch.export.load(src, extra_files=extra).module()
+    program = torch.export.load(src, extra_files=extra)
     meta = json.loads(extra[META])
+    sharded = meta.get("sharded")
+    want, have = (sharded["world_size"] if sharded else 1), (1 if mesh is None else mesh.size)
+    if want != have:
+        batch = sharded["global_batch"] if sharded else meta["batch_size"]
+        raise ValueError(f"this eval step was exported for {want} data-parallel rank(s) (global "
+                         f"batch {batch}) and is restored with {have}: restore it in a run of "
+                         f"{want} rank(s), passing each rank's DataMesh")
     keys, dev = meta["keys"], torch.device(meta["device"])
+    if mesh is not None and mesh.device != dev:
+        # Exported on rank 0's device; each rank runs on its own.
+        from torch.export.passes import move_to_device_pass
+
+        program, dev = move_to_device_pass(program, {str(dev): str(mesh.device)}), mesh.device
+    module = program.module()
 
     def step(state, input_2d, input_2d_flip, x_init, noises=None):
         missing = [k for k in keys if k not in state]
@@ -161,8 +208,14 @@ def restore_eval_step(artifact: Union[str, bytes, bytearray]):
         params = {k: torch.as_tensor(state[k], device=dev) for k in keys}
         inputs = [torch.as_tensor(a, dtype=torch.float32, device=dev)
                   for a in (input_2d, input_2d_flip, x_init, noises) if a is not None]
+        if mesh is not None:
+            b = sharded["global_batch"]
+            rows = mesh.rows(b)
+            inputs = [inputs[0][rows], inputs[1][rows], mesh.shard(inputs[2], b),
+                      *(mesh.shard(a, b, dim=1) for a in inputs[3:])]
         with torch.no_grad():
-            return module(params, *inputs)
+            out = module(params, *inputs)
+        return out if mesh is None else mesh.gather_rows(out)
 
     step.meta = meta
     return step

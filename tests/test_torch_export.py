@@ -4,8 +4,9 @@ JAX's tests/test_export.py cases that apply (the round trip equals the
 live step bit for bit, :29; the artifact is weight-agnostic, :53; the CLI
 end to end, :106), in every eval mode; the restored artifact against JAX's
 eval step on the same x_T; ``torch.library.opcheck`` on each operator; and
-the refusals of what is not ported (the sharded export, ROADMAP A.9; the
-platform list, since an artifact runs on the device it was exported on)."""
+the refusals (the sharded export outside a data-parallel run, whose cases
+are in tests/test_torch_parallel.py; the platform list, since an artifact
+runs on the device it was exported on)."""
 import os
 
 import jax
@@ -215,7 +216,7 @@ def test_export_cli_refuses_what_is_not_taken(tmp_path, extra, field):
 
 def test_export_refuses_sharded_and_needs_the_card_by_default(tmp_path, monkeypatch):
     runner = Runner(Config(**BASE), 17, JOINTS_LEFT, JOINTS_RIGHT, device="cpu")
-    with pytest.raises(ValueError, match="A.9"):
+    with pytest.raises(ValueError, match="data-parallel run"):
         export_eval_step(runner, batch_size=2, sharded=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):

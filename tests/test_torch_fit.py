@@ -270,8 +270,8 @@ def test_resume_equals_the_unbroken_run(tmp_path, monkeypatch):
     lrs = {}
     make_train_step = port_runner.make_train_step
 
-    def recording(diffusion, optimizer, scheduler):
-        step = make_train_step(diffusion, optimizer, scheduler)
+    def recording(diffusion, optimizer, scheduler, **kwargs):
+        step = make_train_step(diffusion, optimizer, scheduler, **kwargs)
 
         def train_step(*args, **kwargs):
             lrs.setdefault(id(optimizer), []).append(optimizer.param_groups[0]["lr"])
