@@ -26,7 +26,9 @@ as bench.py names them:
   BENCH_REPEAT_N         hypotheses per sequence (1)
   BENCH_MIXED_F32_STEPS  DDIM steps at f32 in the mixed mode (1)
   BENCH_DDIM             DDIM steps (9)
-  BENCH_FINAL_PREC       high3 or highest (one exact-f32 path in the port)
+  BENCH_FINAL_PREC       the mixed mode's final-step contraction mode: high3
+                         (default, bf16x3), default (one bf16 pass) or
+                         highest (exact f32)
   BENCH_TAIL_PAIRS       k > 0: the mixed mode's final step runs its last k
                          block pairs and head at f32, the rest bf16
   BENCH_EXPORTED         1: time the eval step exported with torch.export
@@ -34,9 +36,8 @@ as bench.py names them:
                          one; x_T is drawn outside the artifact, from the
                          same generator
   BENCH_TIMEOUT, BENCH_RETRIES, BENCH_NO_SUPERVISE=1: the supervision.
-Refused, with a ValueError naming the knob: BENCH_FINAL_PREC=default (the
-port's float32 kernels contract in exact f32; ROADMAP A.11) and
-BENCH_TAIL_PAIRS outside the fused mixed mode.
+Refused, with a ValueError naming the knob: a BENCH_FINAL_PREC other than
+those three, and BENCH_TAIL_PAIRS outside the fused mixed mode.
 """
 from __future__ import annotations
 
@@ -62,11 +63,11 @@ def settings_from_env(env=None) -> dict:
     a ValueError naming the knob for a value the port does not run."""
     env = os.environ if env is None else env
     get = lambda name, default: env.get(name, default)
+    from diff3dhpe_torch.ops.fused_block import F32_MODES
+
     final_prec = get("BENCH_FINAL_PREC", "high3")
-    if final_prec not in ("high3", "highest"):
-        raise ValueError(f"BENCH_FINAL_PREC={final_prec!r} is not ported: the port's float32 "
-                         "kernels contract in exact float32 ('high3' and 'highest' both mean "
-                         "that; ROADMAP C.2)")
+    if final_prec not in F32_MODES:
+        raise ValueError(f"BENCH_FINAL_PREC={final_prec!r}: one of {F32_MODES}")
     dtype = get("BENCH_DTYPE", "mixed")
     if dtype not in DTYPES:
         raise ValueError(f"BENCH_DTYPE={dtype!r}: one of {DTYPES}")
@@ -101,13 +102,14 @@ def settings_from_env(env=None) -> dict:
 
 
 def build_eval_source(*, frames, joints, embed, depth, heads, dtype, ddim, use_pallas, fast,
-                      repeat_n, mixed_f32_steps, tail_pairs, seed, device):
+                      repeat_n, mixed_f32_steps, tail_pairs, seed, device, final_prec="high3"):
     """What bench.py:85-135 builds, on the port, as a runner-like namespace
     (``cfg``, ``model``, ``diffusion`` and the joints; what
     ``io.export.live_eval_step`` and ``export_eval_step`` take): the plain
     module (at bf16 for ``dtype="bfloat16"``) or the fused forward, and in
     the mixed mode the f32 fused forward for the last ``mixed_f32_steps``,
-    or with ``tail_pairs`` a bf16 one whose last pairs and head run f32."""
+    or with ``tail_pairs`` a bf16 one whose last pairs and head run f32,
+    those final-step parts at contraction mode ``final_prec``."""
     from types import SimpleNamespace
 
     from diff3dhpe_torch import GaussianDiffusion, MixSTEDenoiser, make_denoise_fn
@@ -123,7 +125,8 @@ def build_eval_source(*, frames, joints, embed, depth, heads, dtype, ddim, use_p
                  num_heads=heads, compute_dtype="float32" if dtype == "float32" else "bfloat16",
                  fast_eval=fast, eval_f32_head=mixed,
                  eval_f32_final_steps=mixed_f32_steps if mixed else 0,
-                 eval_f32_tail_pairs=tail_pairs, use_pallas_attention=use_pallas,
+                 eval_f32_tail_pairs=tail_pairs, eval_final_prec=final_prec,
+                 use_pallas_attention=use_pallas,
                  timesteps=1000, sampling_timesteps=ddim, clip_denoised=True,
                  beta_schedule="cosine", repeat_n=repeat_n, seed=seed)
     diffusion = GaussianDiffusion.create(make_denoise_fn(model), timesteps=1000,
@@ -154,7 +157,8 @@ def measure(*, frames=243, joints=17, embed=512, depth=8, heads=8, dtype="mixed"
     source = build_eval_source(
         frames=frames, joints=joints, embed=embed, depth=depth, heads=heads, dtype=dtype,
         ddim=ddim, use_pallas=use_pallas, fast=fast, repeat_n=repeat_n,
-        mixed_f32_steps=mixed_f32_steps, tail_pairs=tail_pairs, seed=seed, device=device)
+        mixed_f32_steps=mixed_f32_steps, tail_pairs=tail_pairs, seed=seed, device=device,
+        final_prec=final_prec)
     export = None
     if exported:
         t0 = time.perf_counter()

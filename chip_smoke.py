@@ -64,6 +64,9 @@ the port's seeded init:
          f32) and io.export (mixed cols) from a seed-0 .bin, restored in a
          fresh process and run on the seed-0 and a seed-1 state dict, bit
          for bit as the live step; bench_torch.py with BENCH_EXPORTED=1;
+         then --export-platforms cpu,cuda: artifacts exported on the card
+         restored on the CPU and the other way round, against the live
+         step on the device they run on;
   viz    cli/viz.py's model work (compute) on --synthetic data at
          repeat_n 1 and 2, and p_sample_loop over T = 1,000 steps through
          the use_pallas module;
@@ -75,7 +78,13 @@ the port's seeded init:
          device): the f32 and mixed eval steps at global batch 4, one f32
          and three bf16 fast-train steps at global batch 8 (4 heads,
          attn_bwd), and the f32 step exported sharded and restored in both
-         ranks, each against one process.
+         ranks, each against one process;
+  modes  the f32 contraction modes "high3" and "default" of the block
+         kernels (JAX's f32_contract_mode): B1, B2 and B5 at the eval
+         shapes and each of their kernels alone against its plain version,
+         and the mixed step with its final forward at each mode (4b). The
+         Runner's mixed final steps run at Config.eval_final_prec, "high3"
+         by default, so every mixed path through the Runner runs them.
 
 Any failed check raises and the script exits non-zero.
 
@@ -122,7 +131,11 @@ loop's host waits, --evaluate in one process against it; 20b two gloo
 ranks on the card against one process: the gathered predictions, the
 step-1 gradients, the ranks' parameters, the launches of each rank, the
 gradient all-reduce's seconds (gloo through host memory: no multi-GPU
-figure), the sharded export); then a
+figure), the sharded export), with what the profiler records before,
+between and after; 21 (printed after 2f) the contraction modes (B1, B2,
+B5 and each kernel alone at "high3" and "default", with each one's
+separation r from "highest", times, bounds and library times; after 4b the mixed step at each final mode, its deviation,
+seq/s, launches by kind, and its profile at "high3"); then a
 JSON line with every kernel's numbers; the last line is {"ok": true,
 "device": {...}}. Exits non-zero without a CUDA device, and where the
 port's package is not beside this script.
@@ -177,6 +190,40 @@ EVAL_REPORT_TOL_MM = 1e-3
 # K <= 1024 products of order 1 exactly in f32, in other orders.
 GEMM_F32_REL_TOL = 1e-5
 SMALL_ATTN_ABS_TOL = 1e-5  # B6 vs its plain version, absolute (outputs of order 1)
+# Kernels of one block call with the out-LN (csrc/fused_block.cu); at f32
+# under the contraction modes "high3" and "default" 16: 8 splits, 4
+# f32-output tensor-core GEMMs, the attention and 3 LNs. The Runner's mixed
+# final steps contract at Config.eval_final_prec, "high3" by default (as
+# in the JAX package), so every path through the Runner's mixed mode runs
+# them; make_mixed_diffusion without f32_prec runs "highest".
+PER_CALL, PER_CALL_MODE = 8, 16
+# The f32 kernels under "high3" vs their plain versions, relative to
+# max|plain|: both sum the same exact bf16 products in f32, in other
+# orders; where the f32 values entering a split differ by a rounding, a lo
+# half moves by 2^-17 of its value (one operand in ~2^7), and the LNs
+# carry that on.
+MODE_HIGH3_TOL = 2e-5
+# "default", max and mean |kernel − plain| relative to max|plain|: both
+# round the same values to bf16 and sum exact products, so they part only
+# where an f32 sum taken in another order moves a value across a bf16
+# rounding boundary (2^-8 of it). Measured on an H100 (PERF.md, phase 21):
+# at most 4.1e-4 and 1.03e-5 (the blocks); the bars are 2.4 times that.
+MODE_DEFAULT_MAX_TOL, MODE_DEFAULT_MEAN_TOL = 1e-3, 2.5e-5
+# The mode's separation, r = mean|kernel − plain at the mode| / mean|plain
+# at the mode − plain at "highest"|: a kernel that ran another mode, or
+# skipped a rounding, sits at r >= 0.40 ("default" without rounding e) and
+# r >= 0.66 ("high3" with its second product exact), r = 1 when it ran
+# "highest" (tests/test_torch_contract_modes.py, on the plain versions).
+# Held for the attention alone (CUDA cores) in both modes (measured on an
+# H100: "default" below 1e-4, "high3" 0.135–0.298, where a lo half rounds
+# the other way after an exponential taken in another order) and for the
+# blocks and the GEMM alone at "default" (at most 0.071). At "high3" the
+# tensor cores' f32 accumulation, which drops the bits below the
+# accumulator's last place at each k-step, parts the GEMM from exact f32
+# sums by about as much as high3 parts from "highest" (r 0.55–1.11, the
+# blocks 0.93), so there r is printed, and the GEMM's passes are held by
+# GEMM_F32_REL_TOL on split operands.
+MODE_SEPARATION = {"default": 0.1, "high3": 0.45}
 ATTN_BLOCK_ABS_TOL = 1e-5  # B5 at f32 vs its plain version, absolute, beside KERNEL_REL_TOL
 CLI_CONFIG = "configs/h36m_gt_s2s_243f.json"
 TPU_CONFIG = "configs/h36m_gt_s2s_243f_tpu.json"  # 4 heads, mixed, remat: the TPU-recommended
@@ -232,8 +279,8 @@ def kernel_label(sym):
             args = []
             if rest.startswith("I"):
                 region = rest[:rest.find("Ev")] if "Ev" in rest else rest
-                for m in re.finditer(r"L[ib](\d+)E|13__nv_bfloat16|I(f)", region):
-                    args.append(m.group(1) or ("float" if m.group(2) else "bf16"))
+                for m in re.finditer(r"L[ib](\d+)E|13__nv_bfloat16|I(f)|(?<=E)(f)(?=L)", region):
+                    args.append(m.group(1) or ("float" if m.group(2) or m.group(3) else "bf16"))
             return f"{ident}<{','.join(args)}>"
         i = j + max(n, 1)
     return sym
@@ -262,41 +309,103 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, tries=3):
-    """Mean device time of fn() in ms: the sum of every kernel's own device
-    time over `iters` calls, from the profiler. Unlike cuda_ms it leaves out
-    the host's time between launches, which a short kernel called through
-    Python does not hide. A profile that records no kernel is taken again."""
+PROFILES = [0]  # profiler sessions this process has opened (device_ms, profile_step)
+SENTINEL = "spin_kernel"  # the kernel of torch.cuda._sleep
+
+
+@contextlib.contextmanager
+def recording():
+    """A profiler session over the CPU and the card whose first launches
+    are sentinels (torch.cuda._sleep), waited for before the body runs:
+    once the card has idled for some seconds, the profiler drops the first
+    one to three kernels of each session (PERF.md §7), and these are what
+    it drops. device_events leaves the sentinels out."""
     from torch.profiler import ProfilerActivity, profile
 
+    PROFILES[0] += 1
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.002)
+        yield prof
+
+
+def device_events(prof):
+    """{kernel name: (events, device time in us)} of a recording, without
+    its sentinels."""
+    return {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and SENTINEL not in e.key}
+
+
+def kernel_events(fn, iters):
+    """device_events of `iters` calls of fn()."""
+    with recording() as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return device_events(prof)
+
+
+def device_ms(fn, iters=20, tries=3, kernels=None):
+    """Mean device time of fn() in ms from the profiler: for each kernel
+    the mean device time of its events, times its launches a call. Unlike
+    cuda_ms it leaves out the host's time between launches, which a short
+    kernel called through Python does not hide. The profile must hold every
+    launch but at most one (recording's sentinels take the launches the
+    profiler drops at a session's start): each kernel's events within one
+    of a whole number of `iters`, and `kernels` launches a call in all
+    where given; else (and where a session recorded nothing) it is taken
+    again, `tries` times in all, then fails."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total > 0:
-            return total / 1e3 / iters
-    check(False, "the profiler saw no device time")
+        got = kernel_events(fn, iters)
+        per_call = {k: max(1, round(c / iters)) for k, (c, _) in got.items()}
+        dropped = sum(per_call[k] * iters - c for k, (c, _) in got.items())
+        if (got and all(c > 0 and t > 0 for c, t in got.values()) and 0 <= dropped <= 1
+                and all(c <= per_call[k] * iters for k, (c, _) in got.items())
+                and (kernels is None or sum(per_call.values()) == kernels)):
+            return sum(per_call[k] * t / c for k, (c, t) in got.items()) / 1e3
+    check(False, f"the profiler recorded {got} (events, us) over {iters} calls (expected "
+          f"{kernels or 'a whole number of'} launches a call, at most one event dropped), "
+          f"profiler session {PROFILES[0]}")
 
 
-def profile_step(label, fn, top_n=10):
+def profiler_probe(label, iters=20):
+    """Prints how many of `iters` launches of one small kernel (the split)
+    the profiler records now, and how many profiler sessions this process
+    has opened: where the profiler goes blind in a long run."""
+    from diff3dhpe_torch.ops.fused_block import split_bf16
+
+    x = torch.ones(4096, device="cuda")
+    split_bf16(x)
+    torch.cuda.synchronize()
+    got = kernel_events(lambda: split_bf16(x), iters)
+    n = sum(c for c, _ in got.values())
+    say(f"profiler probe {label}: {n} of {iters} kernel events recorded, after "
+        f"{PROFILES[0] - 1} profiler sessions in this process")
+    return n == iters
+
+
+def profile_step(label, fn, top_n=10, tries=3):
     """Profiles one fn() and prints its wall time, device busy time, idle
     share and the device time of the top kernels by name. Returns the names
-    of all kernels that ran."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    of all kernels that ran. A profile that recorded no kernel (one
+    session in ~60 once the card has idled; PERF.md §7) is taken again,
+    `tries` times in all."""
+    for _ in range(tries):
+        with recording() as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0 and SENTINEL not in e.key]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        if busy_ms > 0:
+            break
     check(busy_ms > 0, "the profiler saw no device time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
     say(f"{label}: wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
@@ -436,8 +545,7 @@ def drive(fn, *args, **kwargs):
 
     torch.cuda.synchronize()
     reset_launches()
-    for b in blocks:
-        b.launches_gemm_f32 = b.launches_ln = 0
+    reset_inner(blocks)
     text = io.StringIO()
     Runner.evaluate, mixste.grand_attention = recording_evaluate, counting_attention
     t0 = time.perf_counter()
@@ -449,10 +557,27 @@ def drive(fn, *args, **kwargs):
         Runner.evaluate, mixste.grand_attention = evaluate, plain_attention
     wall = time.perf_counter() - t0
     launches = dict(read_launches(), plain_attention_calls=plain_calls[0])
-    inner = {"gemm_f32": sum(b.launches_gemm_f32 for b in blocks),
-             "layer_norm": sum(b.launches_ln for b in blocks)}
-    return result, dict(launches=launches, inner=inner, records=records, text=text.getvalue(),
-                        wall_s=wall)
+    return result, dict(launches=launches, inner=count_inner(blocks), records=records,
+                        text=text.getvalue(), wall_s=wall)
+
+
+# The block wrappers' launch counts by kind (csrc/fused_block.cu,
+# LaunchCount): the exact f32 GEMMs, the LNs, the splits, the f32-output
+# tensor-core GEMMs of the contraction modes, and the attention's and the
+# time add's LN instances under a mode.
+INNER = {"gemm_f32": "launches_gemm_f32", "layer_norm": "launches_ln",
+         "split": "launches_split", "gemm_mode": "launches_gemm_mode",
+         "attn_mode": "launches_attn_mode", "ln_mode": "launches_ln_mode"}
+
+
+def reset_inner(blocks):
+    for b in blocks:
+        for attr in INNER.values():
+            setattr(b, attr, 0)
+
+
+def count_inner(blocks):
+    return {k: sum(getattr(b, attr) for b in blocks) for k, attr in INNER.items()}
 
 
 def normalised_predictions(records):
@@ -570,21 +695,33 @@ def seed_weights(path, frames, joints, dev):
                               device=dev).state_dict(), path)
 
 
-def eval_want(forwards, per_call):
+def mixed_b1(forwards, ddim, calls=2 * DEPTH):
+    """(B1 launches, of them bf16) of ``forwards`` forwards of the Runner's
+    mixed mode in DDIM-``ddim`` loops: all but the last step of a loop at
+    bf16, the last at f32 under "high3" (``calls`` block calls a forward)."""
+    loops = forwards // ddim
+    bf16 = calls * PER_CALL * loops * (ddim - 1)
+    return bf16 + calls * PER_CALL_MODE * loops, bf16
+
+
+def eval_want(forwards, per_call, ddim=5):
     """The launches of each evaluate mode over ``forwards`` denoiser
     forwards: the plain module's attention calls, B1's (and its bf16 ones,
-    all but the f32 final step of each DDIM-5 loop in the mixed mode), and
-    with use_pallas B6 for the joints and B3 for the frames."""
+    all but the f32 final step of each DDIM-5 loop in the mixed mode, which
+    runs at "high3"), and with use_pallas B6 for the joints and B3 for the
+    frames."""
     zero = {"plain_attention_calls": 0, "fused_transformer_block": 0,
             "fused_transformer_block_bf16": 0, "packed_grand_attention": 0,
             "grand_attention_fullseq": 0}
     b1 = 2 * DEPTH * per_call * forwards
+    b1_mixed, b1_mixed_bf16 = mixed_b1(forwards, ddim)
     return {
         "plain": dict(zero, plain_attention_calls=2 * DEPTH * forwards),
         "use_pallas": dict(zero, packed_grand_attention=DEPTH * forwards,
                            grand_attention_fullseq=DEPTH * forwards),
         "fast_eval": dict(zero, fused_transformer_block=b1),
-        "mixed": dict(zero, fused_transformer_block=b1, fused_transformer_block_bf16=b1 * 4 // 5),
+        "mixed": dict(zero, fused_transformer_block=b1_mixed,
+                      fused_transformer_block_bf16=b1_mixed_bf16),
         "bf16": dict(zero, fused_transformer_block=b1, fused_transformer_block_bf16=b1),
     }
 
@@ -710,7 +847,9 @@ def drive_3dhp(dev, per_call):
             check(all(math.isfinite(m[k]) for m in ms for k in ("e1", "e2", "e3", "ev"))
                   and all(m["e1"] == ms[0]["e1"] for m in ms),
                   f"3dhp evaluate {name}: errors {[m['e1'] for m in ms]}")
-            want = 3 * 3 * params["sampling_timesteps"] * 2 * DEPTH * per_call
+            forwards = 3 * 3 * params["sampling_timesteps"]
+            want = (mixed_b1(forwards, params["sampling_timesteps"])[0] if mixed
+                    else forwards * 2 * DEPTH * per_call)
             check(d["launches"]["fused_transformer_block"] == want,
                   f"3dhp evaluate {name}: B1 launched {d['launches']}, expected {want}")
             launches[f"evaluate_3dhp_{name}"] = d["launches"]
@@ -1065,6 +1204,7 @@ def drive_export(dev, per_call, card):
         check(not torch.equal(live["mixed_rows/seed0"]["out"], live["mixed_rows/seed1"]["out"]),
               "phase 18: two checkpoints gave the same prediction")
         say(f"phase 18 the fresh restore process took {child_s:.1f} s")
+        cross_device(config, mixed, tmp, dev)
 
     # bench_torch.py times the restored artifact (mixed, rows): 3 loops of 4.
     t0 = time.perf_counter()
@@ -1075,9 +1215,8 @@ def drive_export(dev, per_call, card):
           f"{proc.stderr[-3000:]}")
     line = json.loads(proc.stdout.strip().splitlines()[-1])
     d = line["detail"]
-    b1 = 3 * 4 * DDIM_STEPS * 2 * DEPTH * per_call
-    want = {"fused_transformer_block": b1,
-            "fused_transformer_block_bf16": b1 * (DDIM_STEPS - 1) // DDIM_STEPS}
+    want = dict(zip(("fused_transformer_block", "fused_transformer_block_bf16"),
+                    mixed_b1(3 * 4 * DDIM_STEPS, DDIM_STEPS)))
     check(d["exported_artifact"] and d["export"]["artifact_bytes"] > 0
           and d["card"] == torch.cuda.get_device_name(0)
           and math.isfinite(line["value"]) and line["value"] > 0 and d["launches"] == want,
@@ -1087,6 +1226,73 @@ def drive_export(dev, per_call, card):
     say(f"phase 18 bench_torch.py BENCH_EXPORTED=1 BENCH_ITERS=4 "
         f"({time.perf_counter() - t0:.1f} s): {proc.stdout.strip().splitlines()[-1]}")
     return launches, inner
+
+
+def cross_device(config, mixed, tmp, dev):
+    """Phase 18, the export's platforms (ROADMAP A.13): an eval step
+    exported through cli/export.py with --export-platforms cpu,cuda on the
+    card and restored on the CPU, and one exported on the CPU and restored
+    on the card (``restore_eval_step(device=...)``: move_to_device_pass),
+    each held against the live step of a Runner on the device it runs on:
+    bit for bit at f32 (fast-eval), the bf16 bars for mixed. At 27 frames,
+    depth 1, DDIM-3, batch 2 (x2 flip): the CPU runs the plain versions."""
+    from diff3dhpe_torch import MixSTEDenoiser
+    from diff3dhpe_torch.cli.args import args_to_overrides
+    from diff3dhpe_torch.cli.export import build_export_parser
+    from diff3dhpe_torch.cli.export import main as export_main
+    from diff3dhpe_torch.config import load_config
+    from diff3dhpe_torch.engine.runner import Runner
+    from diff3dhpe_torch.io.export import restore_eval_step
+
+    frames, depth = 27, 1
+    weights = os.path.join(tmp, "cross.bin")
+    state = MixSTEDenoiser(num_frame=frames, num_joints=JOINTS, embed_dim=EMBED, depth=depth,
+                           num_heads=HEADS, mlp_ratio=MLP_RATIO, seed=0, device="cpu").state_dict()
+    torch.save(state, weights)
+    gen = torch.Generator().manual_seed(180)
+    x2d = torch.rand(BATCH, frames, JOINTS, 2, generator=gen) * 2 - 1
+    x_init = torch.randn(2 * BATCH, frames, JOINTS, 3, generator=gen)
+    lines = []
+    for export_dev, run_dev in (("cuda", "cpu"), ("cpu", "cuda")):
+        for name, flags in (("fast_f32", ["--fast-eval"]), ("mixed", mixed)):
+            path = os.path.join(tmp, f"cross_{export_dev}_{name}.pt2")
+            argv = ["--config", config, "--sampling_timesteps", "3", "-frame", str(frames),
+                    "-s", str(frames), "--transformer_depth", str(depth), "--evaluate", weights,
+                    "--output", path, "--export-batch-size", str(BATCH),
+                    "--export-platforms", "cpu,cuda"] + flags
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                export_main(argv, device=export_dev)
+            export_s = time.perf_counter() - t0
+            step = restore_eval_step(path, device=run_dev)
+            check(step.meta["platforms"] == ["cpu", "cuda"]
+                  and step.meta["device"].startswith(export_dev),
+                  f"phase 18 cross-device {name}: meta {step.meta}")
+            cfg = load_config(config, args_to_overrides(build_export_parser().parse_args(argv)))
+            runner = Runner(cfg, JOINTS, JOINTS_LEFT, JOINTS_RIGHT, device=run_dev)
+            runner.set_params(state)
+            inputs = [a.to(run_dev) for a in (x2d, x2d.flip(-1), x_init)]
+            served = step(state, *inputs).float().cpu()
+            live = runner.eval_step(inputs[0], inputs[1], x_init=inputs[2]).float().cpu()
+            check(torch.isfinite(served).all().item(), f"phase 18 cross-device {name}: not finite")
+            if name == "fast_f32":
+                check(torch.equal(served, live), f"phase 18 {export_dev} artifact on {run_dev} "
+                      f"{name}: differs from the live step by "
+                      f"{(served - live).abs().max().item():.3e}")
+                err = "bit for bit"
+            else:
+                _, max_rel, mean_rel = bf16_errs(served, live)
+                check(max_rel <= BF16_MAX_TOL and mean_rel <= BF16_MEAN_TOL,
+                      f"phase 18 {export_dev} artifact on {run_dev} {name}: max rel "
+                      f"{max_rel:.3e}, mean {mean_rel:.3e}")
+                err = f"max rel {max_rel:.3e}, mean rel {mean_rel:.3e}"
+            lines.append(f"{name} exported on {export_dev} ({export_s:.1f} s, final_prec "
+                         f"{step.meta['final_prec']}) restored on {run_dev}: {err} against the "
+                         f"live {run_dev} step")
+            del runner, step
+    torch.cuda.empty_cache()
+    say("phase 18 export platforms cpu,cuda (A.13), 27 frames, depth 1, DDIM-3: "
+        + "; ".join(lines))
 
 
 def drive_viz(dev, per_call, card):
@@ -1230,16 +1436,15 @@ def counting_attention(*args, **kwargs):
 
 Runner.fit, Runner.evaluate, mixste.grand_attention = (recording_fit, recording_evaluate,
                                                        counting_attention)
+import chip_smoke
 blocks = (fused_transformer_block, fused_temporal_block_cols, fused_attention_block)
 reset_launches()
-for b in blocks:
-    b.launches_gemm_f32 = b.launches_ln = 0
+chip_smoke.reset_inner(blocks)
 errors = main(spec["argv"])
 torch.cuda.synchronize()
 record.update(errors={k: [float(e) for e in v] for k, v in errors.items()},
               launches=dict(read_launches(), plain_attention_calls=record["plain_attention_calls"]),
-              inner={"gemm_f32": sum(b.launches_gemm_f32 for b in blocks),
-                     "layer_norm": sum(b.launches_ln for b in blocks)})
+              inner=chip_smoke.count_inner(blocks))
 if int(os.environ["RANK"]) == 0:
     with open(spec["out"], "w") as f:
         json.dump(record, f)
@@ -1267,8 +1472,8 @@ PAR_EVAL_BATCH, PAR_TRAIN_BATCH, PAR_TRAIN_STEPS = 4, 8, 3
 
 
 def counted(fn, *args, **kwargs):
-    """(fn's result, the launches of every kernel wrapper, the blocks' f32
-    GEMM and LN launches) of one synchronised call."""
+    """(fn's result, the launches of every kernel wrapper, the blocks'
+    launches by kind) of one synchronised call."""
     from diff3dhpe_torch.ops import (
         fused_attention_block, fused_temporal_block_cols, fused_transformer_block, read_launches,
         reset_launches,
@@ -1277,12 +1482,10 @@ def counted(fn, *args, **kwargs):
     blocks = (fused_transformer_block, fused_temporal_block_cols, fused_attention_block)
     torch.cuda.synchronize()
     reset_launches()
-    for b in blocks:
-        b.launches_gemm_f32 = b.launches_ln = 0
+    reset_inner(blocks)
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
-    return out, read_launches(), {"gemm_f32": sum(b.launches_gemm_f32 for b in blocks),
-                                  "layer_norm": sum(b.launches_ln for b in blocks)}
+    return out, read_launches(), count_inner(blocks)
 
 
 def parallel_cases(dev, mesh=None, artifact=None):
@@ -1495,6 +1698,8 @@ def drive_parallel(dev, per_call, per_step, card):
             f"{ {k: v for k, v in rec['launches'].items() if v} } as counted; wall_s "
             f"{launch_s:.1f} (launcher, rank start and build load included)")
 
+        profiler_probe("after phase 20a")
+
         # (b) two gloo ranks on the one card, against this process alone.
         world = 2
         spec = dict(root=here, rendezvous=os.path.join(tmp, "rendezvous"), world_size=world,
@@ -1525,6 +1730,7 @@ def drive_parallel(dev, per_call, per_step, card):
         got = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                for r in range(world)]
     torch.cuda.empty_cache()
+    profiler_probe("after phase 20b's gloo ranks")
     ref = parallel_cases(dev)
     lines = []
     for name in ("f32", "mixed"):
@@ -1598,6 +1804,387 @@ def drive_parallel(dev, per_call, per_step, card):
     return launches, inner
 
 
+def mode_block_work(r, n, c, hidden, items, passes, gemms=4):
+    """(FLOPs, bytes) of one f32 block call (``gemms`` 4, or 2 for B5) under
+    a contraction mode of ``passes`` bf16 passes (3 "high3", 1 "default"):
+    every product, the GEMMs' and the attention's, is of bf16 operands
+    summed in f32, ``passes`` times, the work of the card's bf16 peak; x,
+    t_rows and the f32 weights read once, the output written once."""
+    macs = r * c * (3 * c + c + (2 * hidden if gemms == 4 else 0))
+    weights = 4 * c * c + (2 * c * hidden if gemms == 4 else 0)
+    nbytes = 4 * (2 * r * c + items * c + weights) + 4 * (3 * c + c + hidden + c + 6 * c)
+    return (2 * macs + 4 * r * n * c) * passes, nbytes
+
+
+def drive_modes(dev, card, peaks):
+    """Phase 21: the float32 contraction modes "high3" and "default" of the
+    block kernels (csrc/fused_block.cu, gemm_wgmma.cuh, grand_attn.cuh) at
+    the eval shapes, each against its plain version: B1 in rows (the time
+    add and the out-LN; groups of 17 and 243, 8 heads, and 4 heads of
+    head_dim 128), B2 (n = 243, 8 and 4 heads) and B5 (n = 17 and 243);
+    then each kernel alone: the split, the f32-output tensor-core GEMM at 1
+    and 3 passes at the block's four products, the attention step in each
+    mode, and the LN's time add. Bars: "high3" MODE_HIGH3_TOL of max|plain|
+    (the split alone bit for bit, the GEMM alone GEMM_F32_REL_TOL),
+    "default" MODE_DEFAULT_MAX_TOL and MODE_DEFAULT_MEAN_TOL; the
+    separation from "highest" by MODE_SEPARATION; every time of the port's
+    kernels and plain versions at least 0.95 of its bound. Returns the
+    numbers for the kernels line."""
+    from torch.nn import functional as F
+
+    from diff3dhpe_torch import (
+        fused_attention_block, fused_attention_block_ref, fused_temporal_block_cols,
+        fused_temporal_block_cols_ref, fused_transformer_block, fused_transformer_block_ref,
+    )
+    from diff3dhpe_torch.models.mixste import Block, init_weights
+    from diff3dhpe_torch.ops.fused_block import (
+        _gemm_f32_ref, _gemm_wgmma_f32, _gemm_wgmma_f32_ref, block_attention,
+        block_attention_ref, layer_norm_rows, layer_norm_rows_ref, split_bf16, split_bf16_ref,
+    )
+
+    _, peak_bf16, mem_rate = peaks
+    gen = torch.Generator(device=dev).manual_seed(21)
+    randn = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device=dev) * scale
+    rows, hidden, items = 2 * BATCH * FRAMES * JOINTS, int(EMBED * MLP_RATIO), 2 * BATCH
+    passes = {"high3": 3, "default": 1}
+
+    def errors(label, mode, out, ref, highest, held=True):
+        """The kernel's distance from its plain version at the mode (the
+        bars) and r, its separation from the plain "highest" result."""
+        abs_err, rel, mean_rel = bf16_errs(out, ref)
+        r = ((out - ref).abs().mean() / (ref - highest).abs().mean()).item()
+        check(torch.isfinite(out).all().item(), f"phase 21 {label} {mode}: not finite")
+        if mode == "high3":
+            check(rel <= MODE_HIGH3_TOL, f"phase 21 {label} high3: rel err {rel:.3e} > "
+                  f"{MODE_HIGH3_TOL}")
+        else:
+            check(rel <= MODE_DEFAULT_MAX_TOL and mean_rel <= MODE_DEFAULT_MEAN_TOL,
+                  f"phase 21 {label} default: max rel {rel:.3e} (tol {MODE_DEFAULT_MAX_TOL}), "
+                  f"mean {mean_rel:.3e} (tol {MODE_DEFAULT_MEAN_TOL})")
+        if held:
+            check(r <= MODE_SEPARATION[mode], f"phase 21 {label} {mode}: r = {r:.3f} > "
+                  f"{MODE_SEPARATION[mode]}: the kernel is not nearer its mode's plain version "
+                  f"than the mode is to 'highest'")
+        return dict(abs_err=abs_err, rel=rel, mean_rel=mean_rel, r=r)
+
+    def bound(flops, nbytes):
+        """The least time of the work: its products, of bf16 operands, at
+        the card's bf16 peak, or its bytes at the memory rate."""
+        ops_s = flops / peak_bf16
+        return dict(bound_ms=max(ops_s, nbytes / mem_rate) * 1e3,
+                    bound_by="operations" if ops_s >= nbytes / mem_rate else "bytes")
+
+    def above_bound(label, r):
+        for key in ("ms", "plain_ms"):
+            check(r[key] >= 0.95 * r["bound_ms"], f"phase 21 {label}: {key} {r[key]:.4f} is "
+                  f"below 0.95 of its bound {r['bound_ms']:.4f}: a partial measurement")
+
+    def make_block(seed, heads):
+        block = Block(EMBED, heads, MLP_RATIO, qkv_bias=True)
+        init_weights(block, torch.Generator().manual_seed(seed))
+        block = block.to(dev)
+        out_ln = torch.nn.LayerNorm(EMBED, eps=1e-6).to(dev)
+        with torch.no_grad():
+            for ln in (block.norm1, block.norm2, out_ln):
+                ln.weight.copy_(1.0 + randn(EMBED, scale=0.2))
+                ln.bias.copy_(randn(EMBED, scale=0.2))
+        return block, out_ln
+
+    res = dict(blocks={}, split={}, gemm={}, attention={}, layer_norm={})
+    lines = []
+    with torch.no_grad():
+        # The blocks in each mode.
+        for heads in (HEADS, HEADS4):
+            block, out_ln = make_block(21 + heads, heads)
+            x, t_rows = randn(rows, EMBED), randn(items, EMBED, scale=0.5)
+            x_cols = randn(items * FRAMES, JOINTS * EMBED)
+            for mode in passes:
+                kw = dict(t_rows=t_rows, rows_per_item=rows // items, out_ln=out_ln)
+                cases = {f"B1 n={n} heads={heads}": (
+                    lambda n=n: fused_transformer_block(x, block, n, heads, f32_prec=mode, **kw),
+                    lambda n=n, m=mode: fused_transformer_block_ref(x, block, n, heads,
+                                                                    f32_prec=m, **kw),
+                    lambda n=n: library_block(x, block, n, heads, t_rows, rows // items, out_ln),
+                    mode_block_work(rows, n, EMBED, hidden, items, passes[mode]))
+                    for n in (JOINTS, FRAMES)}
+                cols_kw = dict(t_rows=t_rows, out_ln=out_ln)
+                cases[f"B2 n={FRAMES} heads={heads}"] = (
+                    lambda: fused_temporal_block_cols(x_cols, block, FRAMES, JOINTS, heads,
+                                                      f32_prec=mode, **cols_kw),
+                    lambda m=mode: fused_temporal_block_cols_ref(x_cols, block, FRAMES, JOINTS,
+                                                                 heads, f32_prec=m, **cols_kw),
+                    lambda: library_cols(x_cols, block, FRAMES, JOINTS, heads, t_rows, out_ln),
+                    mode_block_work(rows, FRAMES, EMBED, hidden, items, passes[mode]))
+                if heads == HEADS:
+                    for n in (JOINTS, FRAMES):
+                        cases[f"B5 n={n} heads={heads}"] = (
+                            lambda n=n: fused_attention_block(x, block, n, heads, f32_prec=mode),
+                            lambda n=n, m=mode: fused_attention_block_ref(x, block, n, heads,
+                                                                          f32_prec=m),
+                            lambda n=n: library_attn_block(x, block, n, heads),
+                            mode_block_work(rows, n, EMBED, hidden, 0, passes[mode], gemms=2))
+                for label, (run, plain, lib, work) in cases.items():
+                    r = errors(label, mode, run(), plain(), plain(m="highest"),
+                               held=mode == "default")
+                    r.update(ms=cuda_ms(run), plain_ms=cuda_ms(plain), lib_ms=cuda_ms(lib),
+                             **bound(*work), gflop=work[0] / 1e9)
+                    above_bound(f"{label} {mode}", r)
+                    res["blocks"][f"{label} {mode}"] = r
+                    lines.append(f"{label} {mode}: max_abs_err={r['abs_err']:.3e} rel={r['rel']:.3e} "
+                                 f"mean_rel={r['mean_rel']:.3e} r={r['r']:.4f} ms={r['ms']:.4f} "
+                                 f"plain_ms={r['plain_ms']:.4f} library_ms(f32 library calls)="
+                                 f"{r['lib_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+            del block, out_ln, x, x_cols
+
+        # The split alone, at the widest activation of a block's products.
+        x = randn(rows, hidden)
+        for lo, name in ((True, "high3"), (False, "default")):
+            hi, low = split_bf16(x, lo)
+            ref_hi, ref_lo = split_bf16_ref(x, lo)
+            check(torch.equal(hi, ref_hi) and (not lo or torch.equal(low, ref_lo)),
+                  f"phase 21 split ({name}): not bit for bit its plain version")
+            nbytes = x.numel() * (4 + (4 if lo else 2))
+            r = dict(abs_err=0.0, ms=device_ms(lambda: split_bf16(x, lo), kernels=1),
+                     plain_ms=device_ms(lambda: split_bf16_ref(x, lo)),
+                     lib_ms=device_ms(lambda: x.to(torch.bfloat16)), **bound(0, nbytes))
+            above_bound(f"split {name}", r)
+            res["split"][name] = r
+            lines.append(f"split_bf16 [{rows}, {hidden}] {'hi+lo' if lo else 'hi'}: bit for bit; "
+                         f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms(x.to(bf16), "
+                         f"hi alone)={r['lib_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                         f"GB/s={nbytes / r['ms'] / 1e6:.0f}")
+        del x
+
+        # The f32-output tensor-core GEMM alone at the block's four products.
+        mm_out_dtype = True
+        try:
+            torch.mm(torch.ones(8, 8, device=dev, dtype=torch.bfloat16),
+                     torch.ones(8, 8, device=dev, dtype=torch.bfloat16), out_dtype=torch.float32)
+        except TypeError:
+            mm_out_dtype = False
+        for label, n, k, epi in (("qkv", 3 * EMBED, EMBED, "bias"),
+                                 ("proj", EMBED, EMBED, "residual"),
+                                 ("fc1", hidden, EMBED, "gelu"),
+                                 ("fc2", EMBED, hidden, "residual")):
+            a, w = randn(rows, k), randn(n, k, scale=k ** -0.5)
+            bias = randn(n, scale=0.1)
+            res_t = randn(rows, n) if epi == "residual" else None
+            rscale = ((torch.rand(rows, 2, generator=gen, device=dev) < 0.9) / 0.9).float() \
+                if epi == "residual" else None
+            (a_hi, a_lo), (w_hi, w_lo) = split_bf16(a), split_bf16(w)
+            exact = _gemm_f32_ref(a, w, bias, epi, res_t, rscale)  # "highest" on a and w
+            for mode in passes:
+                args = (a_hi, a_lo, w_hi, w_lo) if mode == "high3" else (a_hi, None, w_hi, None)
+                run = lambda: _gemm_wgmma_f32(*args, bias, epi, res_t, rscale)
+                plain = lambda: _gemm_wgmma_f32_ref(*args, bias, epi, res_t, rscale)
+                out, ref = run(), plain()
+                abs_err, rel = rel_err(out, ref)
+                sep = ((out - ref).abs().mean() / (ref - exact).abs().mean()).item()
+                check(rel <= GEMM_F32_REL_TOL, f"phase 21 wgmma f32 GEMM {label} {mode}: rel err "
+                      f"{rel:.3e} > {GEMM_F32_REL_TOL}")
+                check(mode == "high3" or sep <= MODE_SEPARATION[mode], f"phase 21 wgmma f32 GEMM "
+                      f"{label} {mode}: r = {sep:.3f} > {MODE_SEPARATION[mode]}")
+                if mode == "default":
+                    lib = ((lambda: torch.mm(a_hi, w_hi.t(), out_dtype=torch.float32))
+                           if mm_out_dtype else (lambda: F.linear(a_hi, w_hi)))
+                    lib_name = ("torch.mm(bf16, bf16, out_dtype=float32)" if mm_out_dtype
+                                else "F.linear at bf16 (bf16 output)")
+                else:
+                    lib, lib_name = (lambda: torch.addmm(bias, a, w.t()),
+                                     "no single call computes bf16x3; torch.addmm at f32")
+                flops = 2 * rows * n * k * passes[mode]
+                nbytes = ((4 if mode == "high3" else 2) * (rows * k + n * k)
+                          + 4 * rows * n * (2 if res_t is not None else 1) + 4 * n)
+                r = dict(abs_err=abs_err, rel=rel, r=sep, ms=cuda_ms(run), plain_ms=cuda_ms(plain),
+                         lib_ms=cuda_ms(lib), lib_name=lib_name, **bound(flops, nbytes))
+                above_bound(f"wgmma f32 GEMM {label} {mode}", r)
+                res["gemm"][f"{label} {mode}"] = r
+                lines.append(f"gemm_bf16_wgmma_kernel<float, {passes[mode]}> {label} M={rows} "
+                             f"N={n} K={k}: rel_err={rel:.3e} r={sep:.4f} ms={r['ms']:.4f} "
+                             f"plain_ms={r['plain_ms']:.4f} library_ms={r['lib_ms']:.4f} "
+                             f"({lib_name}) bound_ms={r['bound_ms']:.4f} "
+                             f"TFLOP/s={flops / r['ms'] / 1e9:.1f}")
+            del a, w, a_hi, a_lo, w_hi, w_lo, res_t, exact, out, ref
+
+        # The attention step alone in each mode, on a qkv projection.
+        for heads, n in ((HEADS, JOINTS), (HEADS, FRAMES), (HEADS4, JOINTS), (HEADS4, FRAMES)):
+            qkv = randn(rows, 3 * EMBED)
+            d = EMBED // heads
+            q, k, v = qkv.view(rows // n, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+            for mode in passes:
+                run = lambda: block_attention(qkv, n, heads, f32_prec=mode)
+                plain = lambda: block_attention_ref(qkv, n, heads, f32_prec=mode)
+                r = errors(f"attention n={n} heads={heads}", mode, run(), plain(),
+                           block_attention_ref(qkv, n, heads))
+                r.update(ms=device_ms(run, kernels=1), plain_ms=device_ms(plain),
+                         lib_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v) - v),
+                         **bound(4 * rows * n * EMBED * passes[mode], 4 * rows * 4 * EMBED))
+                above_bound(f"attention n={n} heads={heads} {mode}", r)
+                res["attention"][f"n={n} heads={heads} {mode}"] = r
+                lines.append(f"attention n={n} heads={heads} {mode}: rel={r['rel']:.3e} "
+                             f"mean_rel={r['mean_rel']:.3e} r={r['r']:.4f} ms={r['ms']:.4f} "
+                             f"plain_ms={r['plain_ms']:.4f} library_ms(SDPA f32 - v)="
+                             f"{r['lib_ms']:.4f} bound_ms={r['bound_ms']:.4f}")
+            del qkv, q, k, v
+
+        # The LN with the time add under each mode; each timed call reads
+        # the next of 6 copies of x (cold, as phase 2f), the median of 3.
+        xs_cold = [randn(rows, EMBED) for _ in range(6)]
+        x, t = xs_cold[0], randn(items, EMBED, scale=0.5)
+        w, b = 1.0 + randn(EMBED, scale=0.2), randn(EMBED, scale=0.2)
+        turn = [0]
+
+        def cold(fn, kernels=None):
+            def call():
+                turn[0] += 1
+                return fn(xs_cold[turn[0] % 6])
+            return statistics.median(device_ms(call, kernels=kernels) for _ in range(3))
+
+        xs_highest = layer_norm_rows_ref(x, w, b, t_rows=t, rows_per_item=rows // items)[1]
+
+        for mode in passes:
+            kw = dict(t_rows=t, rows_per_item=rows // items, f32_prec=mode)
+            (y, xs), (ry, rxs) = layer_norm_rows(x, w, b, **kw), layer_norm_rows_ref(x, w, b, **kw)
+            abs_err, rel = rel_err(y, ry)
+            check(torch.equal(xs, rxs) and rel <= GEMM_F32_REL_TOL, f"phase 21 LN time add "
+                  f"{mode}: xs bit for bit {torch.equal(xs, rxs)}, y rel err {rel:.3e}")
+            check(not torch.equal(xs, xs_highest), f"phase 21 LN time add {mode}: xs equals the "
+                  f"time add at 'highest'")
+            r = dict(abs_err=abs_err, ms=cold(lambda a: layer_norm_rows(a, w, b, **kw), 1),
+                     plain_ms=cold(lambda a: layer_norm_rows_ref(a, w, b, **kw)),
+                     lib_ms=cold(lambda a: F.layer_norm(a, (EMBED,), w, b, 1e-6)),
+                     **bound(0, 4 * (3 * rows * EMBED + items * EMBED + 2 * EMBED)))
+            above_bound(f"LN time add {mode}", r)
+            res["layer_norm"][mode] = r
+            lines.append(f"ln_rows_kernel time add {mode} R={rows}: xs bit for bit, "
+                         f"y rel={rel:.3e} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                         f"library_ms(F.layer_norm, no add)={r['lib_ms']:.4f} "
+                         f"bound_ms={r['bound_ms']:.4f}")
+        del xs_cold, xs_highest
+    torch.cuda.empty_cache()
+    say(f"phase 21 contraction modes ({card}): " + "; ".join(lines))
+    return res
+
+
+def one_call(r):
+    """A phase's numbers of one call in the kernels line's keys."""
+    return {"max_abs_err": r["abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["lib_ms"]}
+
+
+def kernel_part(name, source, replaces, by_path_counts, numbers, work):
+    """A kernel's entry of the kernels line, its launches summed over paths."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(by_path_counts.values()), "launches_by_path": by_path_counts,
+            **numbers, "work": work}
+
+
+def sum_numbers(items):
+    """The kernels line's numbers of several calls, summed (the largest error)."""
+    tot = lambda key: sum(g[key] for g in items)
+    return {"max_abs_err": max(g["max_abs_err"] for g in items), "ms": tot("ms"),
+            "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+            "bound_by": "operations" if all(g["bound_by"] == "operations" for g in items)
+            else "bytes", "library_ms": tot("library_ms")}
+
+
+def check_inner(inner_by_path, b1_by_path, b2_by_path, b1_bf16_by_path, b2_bf16_by_path,
+                b5_launches, per_call):
+    """The launches by kind the block wrappers counted on each path
+    (inner_by_path), held against the blocks' structure: a B1 or B2 call
+    of per_call kernels launches 3 LNs and 4 GEMMs, f32 ones in an f32
+    call; under "high3" or "default" PER_CALL_MODE kernels, of them 3 LNs
+    (the first the time add's instance under the mode), 8 splits, 4
+    f32-output tensor-core GEMMs and the attention's instance under the
+    mode; a B5 call 1 LN and 2 GEMMs. The B1 and B2 totals of each path are
+    held by its phase. Returns {kind: {path: launches}}, paths without a
+    kind's launches left out of the modes' kinds."""
+    for path, got in inner_by_path.items():
+        b12, b12_bf16 = (b1_by_path.get(path, 0) + b2_by_path.get(path, 0),
+                         b1_bf16_by_path.get(path, 0) + b2_bf16_by_path.get(path, 0))
+        b5, b5_bf16 = b5_launches if path == "b5_op" else (0, 0)
+        calls = got["attn_mode"]  # block calls under a contraction mode, one attention each
+        exact = b12 - PER_CALL_MODE * calls
+        want = {"gemm_f32": 4 * (exact - b12_bf16) // per_call + 2 * (b5 - b5_bf16) // 4,
+                "layer_norm": 3 * exact // per_call + 3 * calls + b5 // 4,
+                "split": 8 * calls, "gemm_mode": 4 * calls, "attn_mode": calls,
+                "ln_mode": calls}
+        check(got == want and exact >= b12_bf16, f"{path}: the blocks launched {got} by kind, "
+              f"expected {want}")
+    return {kind: {k: v[kind] for k, v in inner_by_path.items()
+                   if v[kind] or kind in ("gemm_f32", "layer_norm")} for kind in INNER}
+
+
+def mode_kernel_parts(mode_res, by_kind, rows, hidden):
+    """The kernels line's numbers of the contraction modes (phase 21's
+    ``mode_res``): B1's, B2's and B5's "f32_modes" entries, B1's with the
+    split, the f32-output GEMM, the attention and the LN under the modes
+    ("parts" too), each launched on every path whose f32 blocks ran at
+    "high3" or "default" (the Runner's mixed final steps; phase 4b's mixed
+    steps), as the block wrappers counted them (``by_kind``): 8 splits, 4
+    tensor-core GEMMs, one attention step and one LN with the time add a
+    block call, each counted where it launches. The "high3" numbers at the
+    top level, "default"'s beside."""
+    mb = mode_res["blocks"]
+    split_by_path, gemm_mode_by_path = by_kind["split"], by_kind["gemm_mode"]
+    mode_calls = by_kind["attn_mode"]  # block calls under a mode: one attention launch each
+
+    def mode_pair(mode, heads=HEADS, kind="B1"):
+        return sum_numbers([one_call(mb[f"{kind} n={n} heads={heads} {mode}"])
+                            for n in (JOINTS, FRAMES)])
+
+    def by_mode(numbers_of, **extra):
+        return dict(numbers_of("high3"), default=numbers_of("default"), **extra)
+
+    gemms_mode = {m: [dict(one_call(v), product=k.split()[0], library=v["lib_name"])
+                      for k, v in mode_res["gemm"].items() if k.endswith(m)]
+                  for m in ("high3", "default")}
+    split_part = kernel_part(
+        "split_bf16_kernel", "diff3dhpe_torch/csrc/fused_block.cu",
+        "diff3dhpe_tpu/ops/fused_block.py:137 (_dot_f32_3pass's hi/lo casts; _dot_f32's "
+        "one bf16 pass at default, :154)", split_by_path,
+        by_mode(lambda m: one_call(mode_res["split"][m])),
+        f"one call on [{rows}, {hidden}] f32: hi and lo (high3), hi alone (default); library: "
+        f"x.to(bfloat16), the hi half alone (launches: 8 a block call under a mode)")
+    gemm_mode_part = kernel_part(
+        "gemm_bf16_wgmma_kernel<EPI, float, 3 or 1>", "diff3dhpe_torch/csrc/gemm_wgmma.cuh",
+        "diff3dhpe_tpu/ops/fused_block.py:127 (_dot_f32_3pass) and :147 (_dot_f32 at default)",
+        gemm_mode_by_path, by_mode(lambda m: sum_numbers(gemms_mode[m])),
+        f"the four products of an f32 block at M={rows} from split operands: 3 passes (high3) "
+        f"or 1 (default) (launches: 4 a block call under a mode)")
+    gemm_mode_part["products"] = gemms_mode
+    attention = lambda m, heads: sum_numbers([
+        one_call(mode_res["attention"][f"n={n} heads={heads} {m}"]) for n in (JOINTS, FRAMES)])
+    attn_mode_part = kernel_part(
+        "grand_attn_tiled_kernel / grand_attn_small_kernel <kMode>",
+        "diff3dhpe_torch/csrc/grand_attn.cuh",
+        "diff3dhpe_tpu/ops/attention.py:52 (grand_attend_tile contracting through _dot_f32)",
+        by_kind["attn_mode"], by_mode(lambda m: attention(m, HEADS),
+                            d128=by_mode(lambda m: attention(m, HEADS4))),
+        f"one call at n={JOINTS} + one at n={FRAMES} on a qkv [{rows}, {3 * EMBED}], f32, "
+        f"device time (launches: 1 a block call under a mode)")
+    ln_mode_part = kernel_part(
+        "ln_rows_kernel<float, kPL, kMode>", "diff3dhpe_torch/csrc/fused_block.cu",
+        "diff3dhpe_tpu/ops/fused_block.py:271 (the one-hot time gather through _dot_f32)",
+        by_kind["ln_mode"], by_mode(lambda m: one_call(mode_res["layer_norm"][m])),
+        f"one call with the time add at R={rows}, C={EMBED}, f32, device time, input cold "
+        f"(launches: 1 a block call under a mode, its first LN)")
+    parts = [split_part, gemm_mode_part, attn_mode_part, ln_mode_part]
+    b1 = dict(
+        by_mode(mode_pair), d128=by_mode(lambda m: mode_pair(m, HEADS4)),
+        launches=sum(PER_CALL_MODE * c for c in mode_calls.values()),
+        launches_by_path={k: PER_CALL_MODE * c for k, c in mode_calls.items()},
+        split=split_part, gemm_mode=gemm_mode_part, attention=attn_mode_part,
+        layer_norm=ln_mode_part,
+        work=f"one spatial (n={JOINTS}) + one temporal (n={FRAMES}) call at f32 under high3 "
+             f"(default beside it), R={rows}, C={EMBED}; library: the f32 block from library "
+             f"calls; launches: B1 and B2 calls under a mode, {PER_CALL_MODE} kernels each")
+    b2 = by_mode(lambda m: one_call(mb[f"B2 n={FRAMES} heads={HEADS} {m}"]),
+                 d128=by_mode(lambda m: one_call(mb[f"B2 n={FRAMES} heads={HEADS4} {m}"])))
+    return {"B1": b1, "B2": b2, "B5": by_mode(lambda m: mode_pair(m, kind="B5")),
+            "parts": parts}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -1654,12 +2241,10 @@ def main():
     inner_by_path = {}
 
     def zero_inner():
-        for b in blocks:
-            b.launches_gemm_f32 = b.launches_ln = 0
+        reset_inner(blocks)
 
     def inner():
-        return {"gemm_f32": sum(b.launches_gemm_f32 for b in blocks),
-                "layer_norm": sum(b.launches_ln for b in blocks)}
+        return count_inner(blocks)
 
     # Phase 2: the block kernel against its plain version at both main-path shapes.
     per_shape = {}
@@ -2059,6 +2644,13 @@ def main():
                 del x, copies, y, xs, y_ref, xs_ref
     torch.cuda.empty_cache()
 
+    # Phase 21 (printed here, beside the other kernels alone): the float32
+    # contraction modes of the block kernels. Its device times come from
+    # the profiler, which device_ms holds to every launch; after phase 20 a
+    # profile of this process once recorded no kernel, and profiler_probe
+    # reads what it records before, within and after that phase.
+    mode_res = drive_modes(dev, card, (peak_flops, peak_bf16, mem_rate))
+
     # Phase 3: one full-width denoiser forward, kernel path vs plain module.
     model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
                            num_heads=HEADS, mlp_ratio=MLP_RATIO, seed=0, device=dev).eval()
@@ -2189,6 +2781,42 @@ def main():
     check(cols_vs_rows <= COLS_VS_ROWS_BOUND,
           f"mixed cols vs rows {cols_vs_rows:.3e} > {COLS_VS_ROWS_BOUND}")
 
+    # Phase 4b under the contraction modes: the mixed rows step with its
+    # final forward at "high3" (the Runner's default eval_final_prec) and
+    # at "default", beside the "highest" one above. The final forward's 16
+    # block calls run 8 splits and 4 f32-output tensor-core GEMMs each in
+    # place of 4 gemm_nt_kernel launches; the bf16 steps are unchanged.
+    mixed_modes = {}
+    for fmode in ("high3", "default"):
+        step = make_eval_step(make_mixed_diffusion(model, "rows", f32_prec=fmode, **kw),
+                              JOINTS_LEFT, JOINTS_RIGHT, device=dev)
+        path = f"mixed_eval_rows_{fmode}"
+        out, got = drive(step, path)
+        want = counts(2 * DEPTH, 0, DDIM_STEPS - 1)
+        want["fused_transformer_block"] += 2 * DEPTH * (PER_CALL_MODE - per_call)
+        want_inner = {"gemm_f32": 0, "layer_norm": 3 * 2 * DEPTH * DDIM_STEPS,
+                      "split": 8 * 2 * DEPTH, "gemm_mode": 4 * 2 * DEPTH,
+                      "attn_mode": 2 * DEPTH, "ln_mode": 2 * DEPTH}
+        check(got == want and inner_by_path[path] == want_inner,
+              f"mixed rows eval at {fmode} launched {got}, {inner_by_path[path]}; expected "
+              f"{want}, {want_inner}")
+        check(torch.isfinite(out).all().item(), f"mixed rows eval at {fmode}: not finite")
+        mixed_modes[fmode] = dict(
+            launches=got, inner=inner_by_path[path], dev=(out - pred_plain).abs().max().item(),
+            mpjpe=mpjpe(out, pred_plain), step_s=timed(step), step=step,
+            vs_highest=(out - mixed["rows"]["out"]).abs().max().item())
+        say(f"phase 4b mixed eval step rows, final step at {fmode}: vs plain f32 "
+            f"max_abs_dev={mixed_modes[fmode]['dev']:.3e} mpjpe={mixed_modes[fmode]['mpjpe']:.4e} "
+            f"(final step at highest: {mixed['rows']['dev']:.3e}, {mixed['rows']['mpjpe']:.4e}; "
+            f"pure bf16: {bf16_dev:.3e}, {bf16_mpjpe:.4e}); vs the highest-final step "
+            f"max_abs={mixed_modes[fmode]['vs_highest']:.3e}; "
+            f"step_s={mixed_modes[fmode]['step_s']:.4f} "
+            f"seq_per_s={BATCH / mixed_modes[fmode]['step_s']:.3f} (highest-final "
+            f"{BATCH / mixed['rows']['step_s']:.3f}); launches={got} by kind "
+            f"{inner_by_path[path]}")
+    check(mixed_modes["high3"]["mpjpe"] <= bf16_mpjpe, f"mixed at high3 mpjpe "
+          f"{mixed_modes['high3']['mpjpe']:.4e} > the bf16 eval's {bf16_mpjpe:.4e}")
+
     # Phase 4b at 4 heads (head_dim 128, the TPU-recommended config's
     # width): the mixed rows eval and the pure-bf16 eval of a seed-0 4-head
     # model, held against its plain f32 eval on the same x_T by MPJPE.
@@ -2222,7 +2850,18 @@ def main():
                          lambda: mixed["rows"]["step"](x2d, x2d_flip, x_init=x_init), top_n=14)
     for kernel in ("grand_attn_bf16_kernel", "gemm_bf16_wgmma_kernel"):
         check(any(kernel in name for name in names), f"the mixed step ran no {kernel}")
+    # Phase 5b under "high3": the mixed rows step whose final forward runs
+    # the split and the f32-output tensor-core GEMM, and no gemm_nt_kernel.
+    names = profile_step("phase 5b profile of one mixed rows eval step, final step at high3",
+                         lambda: mixed_modes["high3"]["step"](x2d, x2d_flip, x_init=x_init),
+                         top_n=16)
+    check(any("split_bf16_kernel" in n for n in names)
+          and any("gemm_bf16_wgmma_kernel<" in n and ", float, " in n.split("(")[0]
+                  for n in names)
+          and not any("gemm_nt_kernel" in n for n in names),
+          "the mixed step at high3 ran no split or f32-output wgmma GEMM, or a gemm_nt_kernel")
     mixed_launches = {f"mixed_eval_{mode}": m["launches"] for mode, m in mixed.items()}
+    mixed_launches.update({f"mixed_eval_rows_{m}": r["launches"] for m, r in mixed_modes.items()})
     mixed_launches["bf16_eval_rows"] = bf16_launches
     mixed_launches.update(mixed_launches_h4)
 
@@ -2234,6 +2873,7 @@ def main():
     mixed_launches.update(tail_launches)
     inner_by_path.update(tail_inner)
     del step_fast, step_plain, step_bf16, step, out, model, pred, pred_plain, pred_bf16, mixed
+    del mixed_modes
     torch.cuda.empty_cache()
 
     # Phase 6: the attention kernels B3 and B4 against their plain versions
@@ -2939,7 +3579,9 @@ def main():
     zero.update(fused_transformer_block_bf16=0, plain_attention_calls=0)
     forwards = {name: steps * k for name, k in ddim_steps.items()}
     b1 = {name: 2 * DEPTH * per_call * f for name, f in forwards.items()}
-    mixed_bf16 = lambda name: b1[name] * (ddim_steps[name] - 1) // ddim_steps[name]
+    for name in ("mixed", "tpu_config"):  # the final steps at "high3"
+        b1[name] = mixed_b1(forwards[name], ddim_steps[name])[0]
+    mixed_bf16 = lambda name: mixed_b1(forwards[name], ddim_steps[name])[1]
     want = {
         "plain": dict(zero, plain_attention_calls=2 * DEPTH * forwards["plain"]),
         "use_pallas": dict(zero, packed_grand_attention=DEPTH * forwards["use_pallas"],
@@ -3292,8 +3934,9 @@ def main():
         batches_fwd = epochs * val_batches_tpu + eval_batches
         want = {c.__name__: 0 for c in kernel_counters}
         want.update({k: steps * v for k, v in per_step_bf16[True].items()})
-        want["fused_transformer_block"] += batches_fwd * ddim_tpu * fwd_b1
-        want["fused_transformer_block_bf16"] += batches_fwd * (ddim_tpu - 1) * fwd_b1
+        b1, b1_bf16 = mixed_b1(batches_fwd * ddim_tpu, ddim_tpu)
+        want["fused_transformer_block"] += b1
+        want["fused_transformer_block_bf16"] += b1_bf16
         want["plain_attention_calls"] = epochs * val_batches_tpu * 2 * 2 * DEPTH
         return want
 
@@ -3351,8 +3994,9 @@ def main():
               f"bench_torch.py at {dtype}: {d}")
         b1 = bench_steps * DDIM_STEPS * 2 * DEPTH * per_call
         want = {"fused_transformer_block": b1}
-        if dtype == "mixed":
-            want["fused_transformer_block_bf16"] = b1 * (DDIM_STEPS - 1) // DDIM_STEPS
+        if dtype == "mixed":  # BENCH_FINAL_PREC=high3
+            want = dict(zip(("fused_transformer_block", "fused_transformer_block_bf16"),
+                            mixed_b1(bench_steps * DDIM_STEPS, DDIM_STEPS)))
         check(d["launches"] == want, f"bench_torch.py at {dtype} launched {d['launches']}, "
               f"expected {want}")
         cli_launches[f"bench_torch_{dtype}"] = {c.__name__: 0 for c in kernel_counters} | {
@@ -3385,10 +4029,10 @@ def main():
     names = [v[0] for v in study.VARIANTS]
     check(set(table) == {"config", "results", "deltas_vs_plain_f32_mm", "gate",
                          "raw_prediction_deviation_vs_plain_f32", "jax_counterparts",
-                         "not_ported"} and list(table["results"]) == names
+                         "f32_prec", "verdicts_beside_jax"} and list(table["results"]) == names
           and set(table["gate"]["paths"]) == {n for n in names if study.is_gated(n)} - {
               study.BASELINE}
-          and len(table["not_ported"]) == len(study.NOT_PORTED)
+          and {"fast_f32_mxdefault", "fast_mixed1_default"} <= set(table["verdicts_beside_jax"])
           and study_files == ["accuracy_study_torch.json", "study_ckpt_torch", "study_out_torch"],
           f"accuracy study: the table's layout {sorted(table)}, results {list(table['results'])},"
           f" files {study_files}")
@@ -3407,6 +4051,8 @@ def main():
         f"best val MPJPE {table['config']['best_val_mpjpe_mm']:.3f} mm; results "
         f"{ {k: {m: round(v, 4) for m, v in r.items()} for k, r in table['results'].items()} }; "
         f"gate passes { {k: g['passes'] for k, g in table['gate']['paths'].items()} }; "
+        f"beside JAX's (scripts/accuracy_study.json, 100 epochs at depth 8: another operating "
+        f"point) { {k: (v['port'], v['jax']) for k, v in table['verdicts_beside_jax'].items()} }; "
         f"eval_s { {k: round(v, 2) for k, v in table['config']['eval_s'].items()} }; "
         f"launches { {k: v for k, v in study_launches.items() if v} }")
     del table
@@ -3420,12 +4066,17 @@ def main():
     # Phase 18: the serving export, restored in a fresh process; phase 19:
     # the visualisation's model work and the ancestral DDPM loop; phase 20:
     # data parallelism, nccl at world size 1 through torchrun, then two
-    # gloo ranks on the card.
+    # gloo ranks on the card, with the profiler probed before, between and
+    # after.
     for launches, inner_counts in (drive_export(dev, per_call, card),
-                                   drive_viz(dev, per_call, card),
-                                   drive_parallel(dev, per_call, per_step, card)):
+                                   drive_viz(dev, per_call, card)):
         cli_launches.update(launches)
         inner_by_path.update(inner_counts)
+    profiler_probe("before phase 20")
+    launches, inner_counts = drive_parallel(dev, per_call, per_step, card)
+    profiler_probe("after phase 20")
+    cli_launches.update(launches)
+    inner_by_path.update(inner_counts)
 
     # One entry per kernel. B1's work is one spatial + one temporal call at
     # the eval shape, the pair each depth level of a forward runs (f32, and
@@ -3442,10 +4093,6 @@ def main():
                 "bound_by": "operations" if flops / peak >= nbytes / mem_rate else "bytes",
                 "library_ms": tot("lib_ms")}
 
-    def one_call(r):
-        return {"max_abs_err": r["abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["lib_ms"]}
-
     def by_path(name, eval_step=0, train_step=0, mixed_key=None):
         return {"eval_step": eval_step, "train_step": train_step,
                 **{k: v[mixed_key] if mixed_key else 0 for k, v in mixed_launches.items()},
@@ -3458,47 +4105,26 @@ def main():
                        for k, v in {**mixed_launches, **cli_launches}.items()}
     b2_bf16_by_path = {k: v.get("fused_temporal_block_cols_bf16", 0)
                        for k, v in {**mixed_launches, **cli_launches}.items()}
-    # The f32 GEMM and LN launches the block wrappers counted on each path
-    # (inner_by_path), held against the blocks' structure: a B1 or B2 call
-    # of per_call kernels launches 3 LNs and 4 GEMMs, f32 ones in an f32
-    # call; a B5 call 1 LN and 2 GEMMs.
-    for path, got in inner_by_path.items():
-        b12, b12_bf16 = (b1_by_path.get(path, 0) + b2_by_path.get(path, 0),
-                         b1_bf16_by_path.get(path, 0) + b2_bf16_by_path.get(path, 0))
-        b5, b5_bf16 = b5_launches if path == "b5_op" else (0, 0)
-        want = {"gemm_f32": 4 * (b12 - b12_bf16) // per_call + 2 * (b5 - b5_bf16) // 4,
-                "layer_norm": 3 * b12 // per_call + b5 // 4}
-        check(got == want, f"{path}: the blocks launched {got} f32 GEMMs and LNs, expected "
-              f"{want}")
-    gemm_f32_by_path = {k: v["gemm_f32"] for k, v in inner_by_path.items()}
-    ln_by_path = {k: v["layer_norm"] for k, v in inner_by_path.items()}
+    by_kind = check_inner(inner_by_path, b1_by_path, b2_by_path, b1_bf16_by_path,
+                          b2_bf16_by_path, b5_launches, per_call)
+    gemm_f32_by_path, ln_by_path = by_kind["gemm_f32"], by_kind["layer_norm"]
 
-    def part(name, source, replaces, by_path_counts, numbers, work):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": sum(by_path_counts.values()), "launches_by_path": by_path_counts,
-                **numbers, "work": work}
-
-    def sum_numbers(items):
-        tot = lambda key: sum(g[key] for g in items)
-        return {"max_abs_err": max(g["max_abs_err"] for g in items), "ms": tot("ms"),
-                "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
-                "bound_by": "operations" if all(g["bound_by"] == "operations" for g in items)
-                else "bytes", "library_ms": tot("library_ms")}
-
-    gemm_part = part(
+    gemm_part = kernel_part(
         "gemm_nt_kernel", "diff3dhpe_torch/csrc/fused_block.cu",
         "diff3dhpe_tpu/ops/fused_block.py:147 (_dot_f32 inside the block kernel)",
         gemm_f32_by_path, sum_numbers(gemms_f32[rows]),
         f"the four products of an f32 block at M={rows} (launches: counted by the block "
         f"wrappers, 4 a B1 or B2 call at f32, 2 a B5 call)")
     gemm_part["products"] = [g for m_rows in gemms_f32 for g in gemms_f32[m_rows]]
-    ln_part = part(
+    ln_part = kernel_part(
         "ln_rows_kernel", "diff3dhpe_torch/csrc/fused_block.cu",
         "diff3dhpe_tpu/ops/fused_block.py:175 (_layernorm_rows inside the block kernel)",
         ln_by_path, sum_numbers(layer_norms[:1]),
         f"one f32 call at R={rows}, C={EMBED}, input cold (launches: counted by the block "
         f"wrappers, 3 a B1 or B2 call, 1 a B5 call, f32 or bf16)")
     ln_part["calls"] = layer_norms
+
+    f32_modes = mode_kernel_parts(mode_res, by_kind, rows, hidden)
     entries = [{
         "name": "fused_transformer_block",
         "route": "cuda",
@@ -3517,6 +4143,7 @@ def main():
         "group_sizes": {k: one_call(v) for k, v in group_sizes["B1"].items()},
         "gemm_f32": gemm_part,
         "layer_norm": ln_part,
+        "f32_modes": f32_modes["B1"],
         "work": f"one spatial (n={JOINTS}) + one temporal (n={FRAMES}) call, R={rows}, C={EMBED}",
     }, {
         "name": "fused_temporal_block_cols",
@@ -3531,6 +4158,7 @@ def main():
         "bf16_d128": dict(one_call(cols_res["bf16_d128"]),
                           work=f"the same call with {HEADS4} heads (head_dim 128), bf16"),
         "group_sizes": {k: one_call(v) for k, v in group_sizes["B2"].items()},
+        "f32_modes": f32_modes["B2"],
         "work": f"one call, x=[{2 * BATCH}*{FRAMES}, {JOINTS}*{EMBED}] (n={FRAMES}), f32",
     }]
     for name, replaces in (("grand_attention_fullseq", "diff3dhpe_tpu/ops/attention.py:185"),
@@ -3585,6 +4213,7 @@ def main():
         "bf16": pair_numbers(attn_block["bf16"], peak_bf16),
         "bf16_d128": dict(pair_numbers(attn_block["bf16_d128"], peak_bf16),
                           work=f"the same pair of calls with {HEADS4} heads (head_dim 128), bf16"),
+        "f32_modes": f32_modes["B5"],
         "work": f"one call with n={JOINTS} + one with n={FRAMES}, R={rows}, C={EMBED}",
     })
     paths = by_path("packed_grand_attention",
@@ -3616,7 +4245,8 @@ def main():
             work=f"one call, [G={2 * BATCH * FRAMES * HEADS}, N={JOINTS}, D={EMBED // HEADS}] "
                  f"bf16 as views of a qkv projection, device time"),
     })
-    check(len(entries) == 6 and all(e["launches"] > 0 for e in entries + [gemm_part, ln_part])
+    check(len(entries) == 6 and all(e["launches"] > 0 for e in entries + [
+              gemm_part, ln_part, *f32_modes["parts"]])
           and entries[-1]["bf16"]["launches"] > 0 and entries[3]["bf16"]["launches"] > 0,
           f"a kernel was launched no time: { {e['name']: e['launches'] for e in entries} }, "
           f"f32 GEMM {gemm_part['launches']}, LN {ln_part['launches']}")

@@ -98,7 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--eval-final-prec", type=str, default=None,
                         choices=["default", "high3", "highest"],
                         help="f32 contraction mode of the final f32 DDIM"
-                             " steps; high3 and highest both mean exact f32")
+                             " steps and the tail: default (one bf16 pass),"
+                             " high3 (bf16x3) or highest (exact f32)")
     parser.add_argument("--eval-f32-tail-pairs", type=int, default=None,
                         metavar="K",
                         help="inside the final f32 DDIM step(s), run only"

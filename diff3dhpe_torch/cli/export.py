@@ -15,8 +15,11 @@ is not derivable without the data archive (humaneva*, custom*), pass
 ``--export-num-joints/--export-joints-left/--export-joints-right``.
 
 The artifact runs on the device it was exported on (the card, or the CPU
-with ``main(argv, device="cpu")``), so ``--export-platforms`` raises a
-ValueError naming it. ``--export-sharded`` exports a data-parallel run's
+with ``main(argv, device="cpu")``) and on the other device types that
+``--export-platforms cpu,cuda`` names (``restore_eval_step(path,
+device=...)``); the list must name the export's own device type and holds
+only "cpu" and "cuda" (a ValueError names the flag otherwise).
+``--export-sharded`` exports a data-parallel run's
 per-rank step (``io.export``): run the command under ``torchrun
 --nproc-per-node N ... --mesh-shape data:N``, with ``--export-batch-size``
 the global batch; rank 0 writes the file.
@@ -55,7 +58,8 @@ def build_export_parser():
                         help="fixed batch shape baked into the artifact "
                              "(default: batch_size_eval)")
     parser.add_argument("--export-platforms", type=str, default=None, metavar="LIST",
-                        help="not taken: the artifact runs on the device it was exported on")
+                        help="comma-separated device types the artifact may be restored on, "
+                             "'cpu' and 'cuda' (default: the export's device)")
     parser.add_argument("--export-sharded", action="store_true",
                         help="export the per-rank step of a data-parallel run (under torchrun "
                              "with --mesh-shape data:N) at the global batch / N")
@@ -79,12 +83,13 @@ def main(argv=None, device="cuda"):
 def _main(argv, device, mesh):
     from diff3dhpe_torch.cli.args import args_to_overrides
     from diff3dhpe_torch.config import load_config
+    from diff3dhpe_torch.io.export import check_platforms
 
     args = build_export_parser().parse_args(argv)
-    if args.export_platforms:
-        raise ValueError(f"export_platforms={args.export_platforms!r} is not taken: a torch.export "
-                         "artifact runs on the device it was exported on (pass device='cpu' to "
-                         "main for a CPU artifact)")
+    platforms = None
+    if args.export_platforms is not None:
+        platforms = check_platforms([p.strip() for p in args.export_platforms.split(",")
+                                     if p.strip()], device, field="export_platforms")
     if args.export_sharded and mesh is None:
         raise ValueError("export_sharded=True exports the per-rank step of a data-parallel run: "
                          "run this command under torchrun --nproc-per-node N with --mesh-shape "
@@ -119,7 +124,7 @@ def _main(argv, device, mesh):
 
     batch = args.export_batch_size or cfg.batch_size_eval
     data = export_eval_step(runner, batch_size=batch, path=args.output,
-                            sharded=args.export_sharded)
+                            sharded=args.export_sharded, platforms=platforms)
     if data is None:  # a data-parallel run's rank other than 0
         return None
     rows = batch * cfg.repeat_n * (2 if cfg.test_time_augmentation else 1)

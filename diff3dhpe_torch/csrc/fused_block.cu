@@ -82,6 +82,25 @@
 // The intermediates (LN output, qkv, attention output, h1, MLP hidden)
 // make one round trip through device memory each: a block call is 7
 // launches (8 with the out-LN), 4 for B5.
+//
+// f32 contraction modes (JAX f32_contract_mode, fused_block.py:84-164): at
+// f32 every product follows one of "highest" (the above: exact f32 FMAs),
+// "high3" (bf16x3: _dot_f32_3pass) or "default" (one bf16 pass), F32Mode in
+// grand_attn.cuh. Under "high3" and "default" each of the four products is
+//   split_bf16_kernel     A (and W) f32 -> bf16 hi and lo (hi alone for
+//                         "default") in scratch, one pass bound by bytes;
+//                         the weights are split on every call, since the
+//                         f32 path reads the model's weights as they are;
+//   gemm_bf16_wgmma_kernel<EPI, float, 3 or 1>
+//                         gemm_wgmma.cuh's tensor-core GEMM walking the
+//                         three (hi, hi), (hi, lo), (lo, hi) pairs, or the
+//                         one, into f32 accumulators, with the same
+//                         epilogues on an f32 residual and an f32 output;
+// the attention step runs the f32 attention kernels at that mode (q, k and
+// then e, v rounded or split as the micro-tiles load them), and the time add
+// reads t rounded to bf16 ("default") or as t_hi + t_lo ("high3"), as JAX's
+// one-hot gather contracts it. A block call under a mode is 15 launches (16
+// with the out-LN): 8 splits, 4 GEMMs, the attention and the LNs; B5 8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -148,7 +167,12 @@ struct Piece {
 // stream the block adds to). Statistics and the affine map in float. One
 // warp a row: lane l holds pieces l, l + 32, ... (kPL of them at most) of
 // the row; C is a multiple of a piece (checked by the caller).
-template <typename T, int kPL>
+//
+// kMode (F32Mode; T = float only): the time row as JAX's one-hot gather
+// contracts it under the block's mode: t itself (kHighest), bf16(t)
+// (kDefault), or t_hi + t_lo with t_hi = bf16(t), t_lo = bf16(t − t_hi)
+// (kHigh3).
+template <typename T, int kPL, int kMode = grand::kHighest>
 __global__ void __launch_bounds__(256)
 ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ t, int rows_per_item,
                const float* __restrict__ w, const float* __restrict__ b, float eps,
@@ -181,7 +205,14 @@ ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ t, int rows_per_it
       float tv[kE];
       P::unpack(traw[p], tv);
 #pragma unroll
-      for (int e = 0; e < kE; ++e) v[p][e] = round_to(v[p][e] + tv[e], T());
+      for (int e = 0; e < kE; ++e) {
+        if constexpr (kMode == grand::kDefault) tv[e] = bf16_round(tv[e]);
+        if constexpr (kMode == grand::kHigh3) {
+          const float hi = bf16_round(tv[e]);
+          tv[e] = hi + bf16_round(tv[e] - hi);
+        }
+        v[p][e] = round_to(v[p][e] + tv[e], T());
+      }
     }
 #pragma unroll
     for (int e = 0; e < kE; ++e) sum += v[p][e];
@@ -222,6 +253,44 @@ ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ t, int rows_per_it
 // The most 16-byte pieces a lane holds: rows of up to 32 · 16 pieces
 // (C <= 2048 at f32, 4096 at bf16).
 constexpr int kLnMaxPiecesPerLane = 16;
+
+// ---- f32 -> bf16 hi/lo split (the operands of the contraction modes) -----------
+
+// Replaces the operand casts of diff3dhpe_tpu/ops/fused_block.py::
+// _dot_f32_3pass (:137-140) and _dot_f32's "default" pass: hi = bf16(x)
+// (nearest even) and, where lo is not null, lo = bf16(x − hi), for n8 pieces
+// of 8 values (n a multiple of 8, 16-byte aligned). Bound by bytes: 4 read
+// and 2 or 4 written a value; each thread moves 32 bytes in and 16 (or 32)
+// out a piece, grid-stride.
+__global__ void __launch_bounds__(256)
+split_bf16_kernel(const float* __restrict__ x, bf16* __restrict__ hi, bf16* __restrict__ lo,
+                  long long n8) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n8;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float4 a = reinterpret_cast<const float4*>(x)[2 * i];
+    const float4 b = reinterpret_cast<const float4*>(x)[2 * i + 1];
+    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    uint4 h, l;
+    __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(&h);
+    __nv_bfloat162* lp = reinterpret_cast<__nv_bfloat162*>(&l);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      hp[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      const float2 hf = __bfloat1622float2(hp[j]);
+      lp[j] = __floats2bfloat162_rn(v[2 * j] - hf.x, v[2 * j + 1] - hf.y);
+    }
+    reinterpret_cast<uint4*>(hi)[i] = h;
+    if (lo) reinterpret_cast<uint4*>(lo)[i] = l;
+  }
+}
+
+cudaError_t launch_split(const float* x, bf16* hi, bf16* lo, long long n, cudaStream_t stream) {
+  if (n <= 0 || n % 8) return cudaErrorInvalidValue;
+  const long long n8 = n / 8, want = (n8 + 255) / 256;
+  const int blocks = want < 132 * 16 ? (int)want : 132 * 16;
+  split_bf16_kernel<<<blocks, 256, 0, stream>>>(x, hi, lo, n8);
+  return cudaGetLastError();
+}
 
 // ---- f32 GEMM on the CUDA cores ------------------------------------------------
 
@@ -355,7 +424,8 @@ cudaError_t launch_gemm(const bf16* A, const bf16* W, const float* bias, const b
 // Where the attention groups lie among the R rows.
 //   rows (B1): group g is rows g·n_pad + i, i < n_pad (keys i < n).
 //   cols (B2): group (b, j) is rows (b·n + f)·J + j, f < n, for J = j_groups.
-template <typename T>
+// kMode: the f32 kernels' contraction mode (F32Mode).
+template <typename T, int kMode = grand::kHighest>
 cudaError_t launch_attention(const T* qkv, T* out, int R, int C, int heads, int n, int n_pad,
                              int j_groups, float scale, cudaStream_t stream) {
   // q of row r, head h at qkv[r, h * d] (d = C / heads), k and v C and 2C
@@ -368,8 +438,9 @@ cudaError_t launch_attention(const T* qkv, T* out, int R, int C, int heads, int 
     const grand::Strides s_in{n_pad * ld, d, ld};
     const grand::Strides s_out{(long long)n_pad * C, d, C};
     if constexpr (kF32) {
-      return grand::launch_grand_attn(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in, s_out,
-                                      R / n_pad, heads, n, n_pad, (int)d, scale, stream);
+      return grand::launch_grand_attn<false, kMode>(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in,
+                                                    s_in, s_out, R / n_pad, heads, n, n_pad,
+                                                    (int)d, scale, stream);
     } else {
       return grand::launch_grand_attn_bf16(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in,
                                            s_out, R / n_pad, heads, n, n_pad, (int)d, scale,
@@ -380,9 +451,9 @@ cudaError_t launch_attention(const T* qkv, T* out, int R, int C, int heads, int 
   const grand::Strides s_in{ld, d, J * ld, n * J * ld};
   const grand::Strides s_out{C, d, J * C, n * J * C};
   if constexpr (kF32) {
-    return grand::launch_grand_attn<true>(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in,
-                                          s_out, j_groups, heads, n, n, (int)d, scale, stream,
-                                          R / (n * j_groups));
+    return grand::launch_grand_attn<true, kMode>(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in,
+                                                 s_out, j_groups, heads, n, n, (int)d, scale,
+                                                 stream, R / (n * j_groups));
   } else {
     return grand::launch_grand_attn_bf16<true>(qkv, qkv + C, qkv + 2 * C, out, s_in, s_in, s_in,
                                                s_out, j_groups, heads, n, n, (int)d, scale,
@@ -390,25 +461,62 @@ cudaError_t launch_attention(const T* qkv, T* out, int R, int C, int heads, int 
   }
 }
 
+// The attention step at a runtime mode: bf16 ignores it (JAX's _dot_f32
+// contracts bf16 operands in one bf16 pass whatever the mode).
+template <typename T>
+cudaError_t launch_attention(const T* qkv, T* out, int R, int C, int heads, int n, int n_pad,
+                             int j_groups, float scale, int mode, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (mode == grand::kHigh3) {
+      return launch_attention<T, grand::kHigh3>(qkv, out, R, C, heads, n, n_pad, j_groups, scale,
+                                                stream);
+    }
+    if (mode == grand::kDefault) {
+      return launch_attention<T, grand::kDefault>(qkv, out, R, C, heads, n, n_pad, j_groups,
+                                                  scale, stream);
+    }
+    if (mode != grand::kHighest) return cudaErrorInvalidValue;
+  }
+  return launch_attention<T, grand::kHighest>(qkv, out, R, C, heads, n, n_pad, j_groups, scale,
+                                              stream);
+}
+
 template <typename T, int kPL>
 cudaError_t launch_ln_pieces(const T* x, const T* t, int rows_per_item, const float* w,
-                             const float* b, float eps, T* xs, T* y, int R, int C,
+                             const float* b, float eps, T* xs, T* y, int R, int C, int mode,
                              cudaStream_t stream) {
   constexpr int kRowsPerBlock = 8;
-  ln_rows_kernel<T, kPL><<<(R + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0,
-                           stream>>>(x, t, rows_per_item, w, b, eps, xs, y, R, C);
+  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock), block(32 * kRowsPerBlock);
+  if constexpr (std::is_same<T, float>::value) {
+    if (t != nullptr && mode == grand::kHigh3) {
+      ln_rows_kernel<T, kPL, grand::kHigh3><<<grid, block, 0, stream>>>(x, t, rows_per_item, w, b,
+                                                                        eps, xs, y, R, C);
+      return cudaGetLastError();
+    }
+    if (t != nullptr && mode == grand::kDefault) {
+      ln_rows_kernel<T, kPL, grand::kDefault><<<grid, block, 0, stream>>>(x, t, rows_per_item, w,
+                                                                          b, eps, xs, y, R, C);
+      return cudaGetLastError();
+    }
+  }
+  ln_rows_kernel<T, kPL><<<grid, block, 0, stream>>>(x, t, rows_per_item, w, b, eps, xs, y, R, C);
   return cudaGetLastError();
 }
 
 // The LN kernel instance that holds a row of C values: C a multiple of a
-// 16-byte piece and at most 32 · kLnMaxPiecesPerLane pieces.
+// 16-byte piece and at most 32 · kLnMaxPiecesPerLane pieces. mode: the time
+// add's contraction mode at f32 (see ln_rows_kernel).
 template <typename T>
 cudaError_t launch_ln(const T* x, const T* t, int rows_per_item, const float* w, const float* b,
-                      float eps, T* xs, T* y, int R, int C, cudaStream_t stream) {
+                      float eps, T* xs, T* y, int R, int C, cudaStream_t stream,
+                      int mode = grand::kHighest) {
   constexpr int kE = 16 / sizeof(T);
   const int per_lane = (C / kE + 31) / 32;
-  if (C <= 0 || C % kE || per_lane > kLnMaxPiecesPerLane) return cudaErrorInvalidValue;
-#define LN_ARGS x, t, rows_per_item, w, b, eps, xs, y, R, C, stream
+  if (C <= 0 || C % kE || per_lane > kLnMaxPiecesPerLane || mode < grand::kHighest ||
+      mode > grand::kDefault) {
+    return cudaErrorInvalidValue;
+  }
+#define LN_ARGS x, t, rows_per_item, w, b, eps, xs, y, R, C, mode, stream
   if (per_lane <= 1) return launch_ln_pieces<T, 1>(LN_ARGS);
   if (per_lane <= 2) return launch_ln_pieces<T, 2>(LN_ARGS);
   if (per_lane <= 4) return launch_ln_pieces<T, 4>(LN_ARGS);
@@ -417,26 +525,100 @@ cudaError_t launch_ln(const T* x, const T* t, int rows_per_item, const float* w,
 #undef LN_ARGS
 }
 
-// A block entry point counts its launches in launches[3]: every kernel
-// (kAll), and of them the LayerNorms (kLn) and the GEMMs (kGemm); the rest
-// are the attention step's.
-enum LaunchCount { kAll = 0, kLn = 1, kGemm = 2 };
+// A block entry point counts its launches in launches[kCounts]: every
+// kernel (kAll), and of them the LayerNorms (kLn), the GEMMs of the block's
+// storage type (kGemm: gemm_nt_kernel at f32, the wgmma GEMM at bf16), the
+// splits (kSplit) and the f32-output wgmma GEMMs of the contraction modes
+// (kGemmMode); the rest are the attention step's. Of these, the attention
+// kernels' and ln_rows_kernel's instances under "high3" or "default" are
+// also counted in kAttnMode and kLnMode.
+enum LaunchCount {
+  kAll = 0, kLn = 1, kGemm = 2, kSplit = 3, kGemmMode = 4, kAttnMode = 5, kLnMode = 6,
+  kCounts = 7
+};
 
-#define DIFF_CHECK(kind, call)             \
-  do {                                     \
-    const cudaError_t e_ = (call);         \
-    if (e_ != cudaSuccess) return (int)e_; \
-    ++launches[kAll];                      \
-    if (kind != kAll) ++launches[kind];    \
+// Launches `call` and, when it reports success, counts it in kAll, in
+// `kind` and in `also` (kAll for neither).
+#define DIFF_CHECK_AS(kind, also, call)         \
+  do {                                          \
+    const cudaError_t e_ = (call);              \
+    if (e_ != cudaSuccess) return (int)e_;      \
+    ++launches[kAll];                           \
+    if ((kind) != kAll) ++launches[kind];       \
+    if ((also) != kAll) ++launches[also];       \
+  } while (0)
+#define DIFF_CHECK(kind, call) DIFF_CHECK_AS(kind, kAll, call)
+
+// One f32 product of a block under "high3" or "default": A [M, K] and W
+// [N, K] split into scratch (a_hi, a_lo [M, K]; w_hi, w_lo [N, K]; the lo
+// halves unused under "default"), then the f32-output wgmma GEMM at 3 passes
+// or 1. 3 launches.
+template <int EPI>
+int run_mode_gemm(int mode, const float* A, const float* W, const float* bias, const float* res,
+                  const float* rscale, float* out, int M, int N, int K, bf16* a_hi, bf16* a_lo,
+                  bf16* w_hi, bf16* w_lo, int* launches, cudaStream_t stream) {
+  const bool three = mode == grand::kHigh3;
+  if (!three && mode != grand::kDefault) return (int)cudaErrorInvalidValue;
+  DIFF_CHECK(kSplit, launch_split(W, w_hi, three ? w_lo : nullptr, (long long)N * K, stream));
+  DIFF_CHECK(kSplit, launch_split(A, a_hi, three ? a_lo : nullptr, (long long)M * K, stream));
+  if (three) {
+    DIFF_CHECK(kGemmMode, (wg::launch_gemm_wgmma<EPI, float, 3>(a_hi, a_lo, w_hi, w_lo, bias, res,
+                                                               rscale, out, M, N, K, stream)));
+  } else {
+    DIFF_CHECK(kGemmMode, (wg::launch_gemm_wgmma<EPI, float, 1>(a_hi, nullptr, w_hi, nullptr,
+                                                               bias, res, rscale, out, M, N, K,
+                                                               stream)));
+  }
+  return 0;
+}
+
+// Carves the split scratch of a block's products under a mode: for the
+// activations 2 · R · max(C, hidden) bf16 (a_split), for the weights 2 ·
+// (3C·C + C·C + 2 · hidden·C) bf16 (w_split), the layout the wrapper sizes.
+struct ModeScratch {
+  bf16 *a_hi, *a_lo, *w_hi[4], *w_lo[4];
+  ModeScratch(bf16* a_split, bf16* w_split, int R, int C, int hidden)
+      : a_hi(), a_lo(), w_hi(), w_lo() {
+    if (!a_split || !w_split) return;  // "highest": no scratch
+    const size_t widest = (size_t)R * (C > hidden ? C : hidden);
+    a_hi = a_split, a_lo = a_split + widest;
+    const size_t sizes[4] = {3 * (size_t)C * C, (size_t)C * C, (size_t)hidden * C,
+                             (size_t)C * hidden};
+    bf16* p = w_split;
+    for (int i = 0; i < 4; ++i) w_hi[i] = p, w_lo[i] = p + sizes[i], p += 2 * sizes[i];
+  }
+};
+
+// A block product: the storage type's GEMM under "highest" (and at bf16),
+// else run_mode_gemm on product i's weight scratch.
+template <int EPI, typename T>
+int block_gemm(int mode, const ModeScratch& ms, int i, const T* A, const T* W, const float* bias,
+               const T* res, const float* rscale, T* out, int M, int N, int K, int* launches,
+               cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (mode != grand::kHighest) {
+      return run_mode_gemm<EPI>(mode, A, W, bias, res, rscale, out, M, N, K, ms.a_hi, ms.a_lo,
+                                ms.w_hi[i], ms.w_lo[i], launches, stream);
+    }
+  }
+  DIFF_CHECK(kGemm, launch_gemm<EPI>(A, W, bias, res, rscale, out, M, N, K, stream));
+  return 0;
+}
+
+#define DIFF_RUN(call)             \
+  do {                             \
+    const int e_ = (call);         \
+    if (e_ != 0) return e_;        \
   } while (0)
 
 // The whole block in storage type T (float, or bf16 with f32 LN parameters
 // and biases), launched on `stream` as 7 kernels (8 with the out-LN).
 // Returns the first cudaError_t that a launch reported (0 on success) and
-// counts every kernel it launched in launches[3] (see LaunchCount). Null bias pointers
-// mean "no bias"; t_rows == nullptr skips the time add (xs is then unused);
-// oln_w == nullptr skips the out-LN; dp == nullptr skips the drop-path
-// scales, else dp is [R, 2] (attention, MLP branch) per row. j_groups == 0
+// counts every kernel it launched in launches[kCounts] (see LaunchCount).
+// Null bias pointers mean "no bias"; t_rows == nullptr skips the time add
+// (xs is then unused); oln_w == nullptr skips the out-LN; dp == nullptr
+// skips the drop-path scales, else dp is [R, 2] (attention, MLP branch)
+// per row. j_groups == 0
 // selects the rows layout (groups of n_pad rows), j_groups = J the cols
 // layout (n frames of J joints per sample). Scratch: xn [R, C], qkv [R, 3C],
 // attn [R, C], h1 [R, C], mid [R, hidden].
@@ -447,22 +629,30 @@ int run_block(const T* x, const T* t_rows, int rows_per_item, const float* dp,
               const float* ln2_b, float ln2_eps, const T* w_fc1, const float* b_fc1,
               const T* w_fc2, const float* b_fc2, const float* oln_w, const float* oln_b,
               float oln_eps, T* xs, T* xn, T* qkv, T* attn, T* h1, T* mid, T* out, int R, int C,
-              int hidden, int n, int n_pad, int j_groups, int heads, float scale, int* launches,
-              cudaStream_t stream) {
+              int hidden, int n, int n_pad, int j_groups, int heads, float scale, int mode,
+              bf16* a_split, bf16* w_split, int* launches, cudaStream_t stream) {
+  if (!std::is_same<T, float>::value) mode = grand::kHighest;
+  if (mode != grand::kHighest && (!a_split || !w_split)) return (int)cudaErrorInvalidValue;
+  const ModeScratch ms(a_split, w_split, R, C, hidden);
   const T* resid = t_rows ? xs : x;
-  DIFF_CHECK(kLn, launch_ln(x, t_rows, rows_per_item, ln1_w, ln1_b, ln1_eps,
-                            t_rows ? xs : nullptr, xn, R, C, stream));
-  DIFF_CHECK(kGemm, launch_gemm<kEpiBias>(xn, w_qkv, b_qkv, nullptr, nullptr, qkv, R, 3 * C, C,
-                                          stream));
-  DIFF_CHECK(kAll, launch_attention(qkv, attn, R, C, heads, n, n_pad, j_groups, scale, stream));
-  DIFF_CHECK(kGemm, launch_gemm<kEpiResidual>(attn, w_proj, b_proj, resid, dp, h1, R, C, C,
-                                              stream));
+  const int attn_kind = mode != grand::kHighest ? kAttnMode : kAll;
+  // The LN reads the time rows under the mode (launch_ln_pieces).
+  DIFF_CHECK_AS(kLn, t_rows && mode != grand::kHighest ? kLnMode : kAll,
+                launch_ln(x, t_rows, rows_per_item, ln1_w, ln1_b, ln1_eps,
+                          t_rows ? xs : nullptr, xn, R, C, stream, mode));
+  DIFF_RUN(block_gemm<kEpiBias>(mode, ms, 0, (const T*)xn, w_qkv, b_qkv, (const T*)nullptr,
+                                nullptr, qkv, R, 3 * C, C, launches, stream));
+  DIFF_CHECK(attn_kind, launch_attention(qkv, attn, R, C, heads, n, n_pad, j_groups, scale, mode,
+                                         stream));
+  DIFF_RUN(block_gemm<kEpiResidual>(mode, ms, 1, (const T*)attn, w_proj, b_proj, resid, dp, h1,
+                                    R, C, C, launches, stream));
   DIFF_CHECK(kLn, launch_ln<T>(h1, nullptr, 1, ln2_w, ln2_b, ln2_eps, nullptr, xn, R, C, stream));
-  DIFF_CHECK(kGemm, launch_gemm<kEpiGelu>(xn, w_fc1, b_fc1, nullptr, nullptr, mid, R, hidden, C,
-                                          stream));
+  DIFF_RUN(block_gemm<kEpiGelu>(mode, ms, 2, (const T*)xn, w_fc1, b_fc1, (const T*)nullptr,
+                                nullptr, mid, R, hidden, C, launches, stream));
   T* fc2_out = oln_w ? attn : out;
-  DIFF_CHECK(kGemm, launch_gemm<kEpiResidual>(mid, w_fc2, b_fc2, h1, dp ? dp + 1 : nullptr,
-                                              fc2_out, R, C, hidden, stream));
+  DIFF_RUN(block_gemm<kEpiResidual>(mode, ms, 3, (const T*)mid, w_fc2, b_fc2, (const T*)h1,
+                                    dp ? dp + 1 : nullptr, fc2_out, R, C, hidden, launches,
+                                    stream));
   if (oln_w) {
     DIFF_CHECK(kLn, launch_ln<T>(fc2_out, nullptr, 1, oln_w, oln_b, oln_eps, nullptr, out, R, C,
                                  stream));
@@ -475,18 +665,23 @@ int run_block(const T* x, const T* t_rows, int rows_per_item, const float* dp,
 // out = x + proj(GRAND(LN1(x))) on groups of n consecutive rows. bf16
 // rounds xn, qkv (bias added first), the attention output and out, where
 // the TPU kernel rounds (fused_block.py:206-228). Scratch: xn [R, C],
-// qkv [R, 3C], attn [R, C].
+// qkv [R, 3C], attn [R, C]; under a mode at f32 also a_split 2·R·C and
+// w_split 2·4·C·C bf16 (qkv's weight, then proj's).
 template <typename T>
 int run_attn_block(const T* x, const float* ln_w, const float* ln_b, float ln_eps, const T* w_qkv,
                    const float* b_qkv, const T* w_proj, const float* b_proj, T* xn, T* qkv,
-                   T* attn, T* out, int R, int C, int n, int heads, float scale, int* launches,
-                   cudaStream_t stream) {
+                   T* attn, T* out, int R, int C, int n, int heads, float scale, int mode,
+                   bf16* a_split, bf16* w_split, int* launches, cudaStream_t stream) {
+  if (!std::is_same<T, float>::value) mode = grand::kHighest;
+  if (mode != grand::kHighest && (!a_split || !w_split)) return (int)cudaErrorInvalidValue;
+  const ModeScratch ms(a_split, w_split, R, C, C);
   DIFF_CHECK(kLn, launch_ln<T>(x, nullptr, 1, ln_w, ln_b, ln_eps, nullptr, xn, R, C, stream));
-  DIFF_CHECK(kGemm, launch_gemm<kEpiBias>(xn, w_qkv, b_qkv, nullptr, nullptr, qkv, R, 3 * C, C,
-                                          stream));
-  DIFF_CHECK(kAll, launch_attention(qkv, attn, R, C, heads, n, n, 0, scale, stream));
-  DIFF_CHECK(kGemm, launch_gemm<kEpiResidual>(attn, w_proj, b_proj, x, nullptr, out, R, C, C,
-                                              stream));
+  DIFF_RUN(block_gemm<kEpiBias>(mode, ms, 0, (const T*)xn, w_qkv, b_qkv, (const T*)nullptr,
+                                nullptr, qkv, R, 3 * C, C, launches, stream));
+  DIFF_CHECK(mode != grand::kHighest ? kAttnMode : kAll,
+             launch_attention(qkv, attn, R, C, heads, n, n, 0, scale, mode, stream));
+  DIFF_RUN(block_gemm<kEpiResidual>(mode, ms, 1, (const T*)attn, w_proj, b_proj, x, nullptr, out,
+                                    R, C, C, launches, stream));
   return 0;
 }
 
@@ -495,12 +690,14 @@ int run_attn_block(const T* x, const float* ln_w, const float* ln_b, float ln_ep
 #define BLOCK_ARGS                                                                              \
   x, t_rows, rows_per_item, dp, ln1_w, ln1_b, ln1_eps, w_qkv, b_qkv, w_proj, b_proj, ln2_w,    \
       ln2_b, ln2_eps, w_fc1, b_fc1, w_fc2, b_fc2, oln_w, oln_b, oln_eps, xs, xn, qkv, attn, h1, \
-      mid, out, R, C, hidden, n, n_pad, j_groups, heads, scale, launches,                       \
-      static_cast<cudaStream_t>(stream_ptr)
+      mid, out, R, C, hidden, n, n_pad, j_groups, heads, scale, mode, a_split, w_split,          \
+      launches, static_cast<cudaStream_t>(stream_ptr)
 
 // The block at f32: B1 with j_groups == 0 (groups of n_pad rows, the first
 // n real), B2 with j_groups = J (groups of n frames of the spatial-major
-// rows; n_pad unused, rows_per_item = n·J). launches points at int[3]
+// rows; n_pad unused, rows_per_item = n·J). mode: the products' F32Mode,
+// with a_split and w_split the split scratch under "high3" and "default"
+// (see ModeScratch; null under "highest"). launches points at int[kCounts]
 // (LaunchCount). See run_block.
 extern "C" int diff3dhpe_fused_block_f32(
     const float* x, const float* t_rows, int rows_per_item, const float* dp,
@@ -510,13 +707,14 @@ extern "C" int diff3dhpe_fused_block_f32(
     const float* w_fc1, const float* b_fc1, const float* w_fc2, const float* b_fc2,
     const float* oln_w, const float* oln_b, float oln_eps,
     float* xs, float* xn, float* qkv, float* attn, float* h1, float* mid, float* out,
-    int R, int C, int hidden, int n, int n_pad, int j_groups, int heads, float scale,
-    int* launches, void* stream_ptr) {
+    int R, int C, int hidden, int n, int n_pad, int j_groups, int heads, float scale, int mode,
+    bf16* a_split, bf16* w_split, int* launches, void* stream_ptr) {
   return run_block<float>(BLOCK_ARGS);
 }
 
 // The same at bf16: activations, weights and scratch bf16; LN parameters,
-// biases and dp float.
+// biases and dp float. mode is ignored (bf16 operands contract in one bf16
+// pass whatever the mode, as in JAX).
 extern "C" int diff3dhpe_fused_block_bf16(
     const bf16* x, const bf16* t_rows, int rows_per_item, const float* dp,
     const float* ln1_w, const float* ln1_b, float ln1_eps,
@@ -525,23 +723,24 @@ extern "C" int diff3dhpe_fused_block_bf16(
     const bf16* w_fc1, const float* b_fc1, const bf16* w_fc2, const float* b_fc2,
     const float* oln_w, const float* oln_b, float oln_eps,
     bf16* xs, bf16* xn, bf16* qkv, bf16* attn, bf16* h1, bf16* mid, bf16* out,
-    int R, int C, int hidden, int n, int n_pad, int j_groups, int heads, float scale,
-    int* launches, void* stream_ptr) {
+    int R, int C, int hidden, int n, int n_pad, int j_groups, int heads, float scale, int mode,
+    bf16* a_split, bf16* w_split, int* launches, void* stream_ptr) {
   return run_block<bf16>(BLOCK_ARGS);
 }
 
 #define ATTN_BLOCK_ARGS                                                                    \
   x, ln_w, ln_b, ln_eps, w_qkv, b_qkv, w_proj, b_proj, xn, qkv, attn, out, R, C, n, heads, \
-      scale, launches, static_cast<cudaStream_t>(stream_ptr)
+      scale, mode, a_split, w_split, launches, static_cast<cudaStream_t>(stream_ptr)
 
 // B5 at f32 and at bf16 (activations, weights and scratch bf16; LN
-// parameters and biases float). launches points at int[3] (LaunchCount).
-// See run_attn_block.
+// parameters and biases float). mode, a_split, w_split as the block's.
+// launches points at int[kCounts] (LaunchCount). See run_attn_block.
 extern "C" int diff3dhpe_fused_attn_block_f32(
     const float* x, const float* ln_w, const float* ln_b, float ln_eps,
     const float* w_qkv, const float* b_qkv, const float* w_proj, const float* b_proj,
     float* xn, float* qkv, float* attn, float* out,
-    int R, int C, int n, int heads, float scale, int* launches, void* stream_ptr) {
+    int R, int C, int n, int heads, float scale, int mode, bf16* a_split, bf16* w_split,
+    int* launches, void* stream_ptr) {
   return run_attn_block<float>(ATTN_BLOCK_ARGS);
 }
 
@@ -549,7 +748,8 @@ extern "C" int diff3dhpe_fused_attn_block_bf16(
     const bf16* x, const float* ln_w, const float* ln_b, float ln_eps,
     const bf16* w_qkv, const float* b_qkv, const bf16* w_proj, const float* b_proj,
     bf16* xn, bf16* qkv, bf16* attn, bf16* out,
-    int R, int C, int n, int heads, float scale, int* launches, void* stream_ptr) {
+    int R, int C, int n, int heads, float scale, int mode, bf16* a_split, bf16* w_split,
+    int* launches, void* stream_ptr) {
   return run_attn_block<bf16>(ATTN_BLOCK_ARGS);
 }
 
@@ -598,15 +798,16 @@ extern "C" int diff3dhpe_gemm_bf16(const bf16* a, const bf16* w, const float* bi
 
 // The block's LayerNorm alone, f32 or bf16: y = LN(xs) · w + b on R rows of
 // C with xs = x + t[row / rows_per_item] rounded to the storage type (t may
-// be null; xs, when not null, receives xs). w, b float. One kernel; adds one
-// to *launches when it launched. For measuring and testing: the block calls
-// the same kernel.
+// be null; xs, when not null, receives xs); at f32 t is read under mode
+// (F32Mode, see ln_rows_kernel; bf16 ignores it). w, b float. One kernel;
+// adds one to *launches when it launched. For measuring and testing: the
+// block calls the same kernel.
 extern "C" int diff3dhpe_layer_norm_f32(const float* x, const float* t, int rows_per_item,
                                         const float* w, const float* b, float eps, float* xs,
-                                        float* y, int R, int C, int* launches,
+                                        float* y, int R, int C, int mode, int* launches,
                                         void* stream_ptr) {
   const cudaError_t err = launch_ln(x, t, rows_per_item, w, b, eps, xs, y, R, C,
-                                    static_cast<cudaStream_t>(stream_ptr));
+                                    static_cast<cudaStream_t>(stream_ptr), mode);
   if (err != cudaSuccess) return (int)err;
   ++*launches;
   return 0;
@@ -614,9 +815,66 @@ extern "C" int diff3dhpe_layer_norm_f32(const float* x, const float* t, int rows
 
 extern "C" int diff3dhpe_layer_norm_bf16(const bf16* x, const bf16* t, int rows_per_item,
                                          const float* w, const float* b, float eps, bf16* xs,
-                                         bf16* y, int R, int C, int* launches, void* stream_ptr) {
+                                         bf16* y, int R, int C, int mode, int* launches,
+                                         void* stream_ptr) {
   const cudaError_t err = launch_ln(x, t, rows_per_item, w, b, eps, xs, y, R, C,
                                     static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return (int)err;
+  ++*launches;
+  return 0;
+}
+
+// The split of the contraction modes alone: hi = bf16(x), and lo = bf16(x −
+// hi) where lo is not null, over n values (n % 8 == 0, 16-byte aligned).
+// One kernel; adds one to *launches when it launched. The block calls the
+// same kernel.
+extern "C" int diff3dhpe_split_bf16(const float* x, bf16* hi, bf16* lo, long long n,
+                                    int* launches, void* stream_ptr) {
+  const cudaError_t err = launch_split(x, hi, lo, n, static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return (int)err;
+  ++*launches;
+  return 0;
+}
+
+// The f32-output wgmma GEMM of the contraction modes alone, on split
+// operands: out[M, N] = epilogue(Σ_p A_p · W_pᵀ + bias) in f32 over the
+// three passes (a_hi, w_hi), (a_hi, w_lo), (a_lo, w_hi) with passes = 3, or
+// (a_hi, w_hi) with passes = 1; res, out f32; epilogues as
+// diff3dhpe_gemm_f32's. K % 8 == 0, N % 8 == 0. One kernel; adds one to
+// *launches when it launched. The block calls the same kernel.
+extern "C" int diff3dhpe_gemm_wgmma_f32(const bf16* a_hi, const bf16* a_lo, const bf16* w_hi,
+                                        const bf16* w_lo, const float* bias, const float* res,
+                                        const float* rscale, float* out, int M, int N, int K,
+                                        int epilogue, int passes, int* launches,
+                                        void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err = cudaErrorInvalidValue;
+#define WG_F32(EPI, P) \
+  wg::launch_gemm_wgmma<EPI, float, P>(a_hi, a_lo, w_hi, w_lo, bias, res, rscale, out, M, N, K, stream)
+  if (passes == 3) {
+    if (epilogue == kEpiBias) err = WG_F32(kEpiBias, 3);
+    if (epilogue == kEpiGelu) err = WG_F32(kEpiGelu, 3);
+    if (epilogue == kEpiResidual && res) err = WG_F32(kEpiResidual, 3);
+  } else if (passes == 1) {
+    if (epilogue == kEpiBias) err = WG_F32(kEpiBias, 1);
+    if (epilogue == kEpiGelu) err = WG_F32(kEpiGelu, 1);
+    if (epilogue == kEpiResidual && res) err = WG_F32(kEpiResidual, 1);
+  }
+#undef WG_F32
+  if (err != cudaSuccess) return (int)err;
+  ++*launches;
+  return 0;
+}
+
+// The block's attention step alone at f32, in the rows layout (groups of
+// n_pad rows, the first n real): out[R, C] from qkv [R, 3C] under mode
+// (F32Mode), as run_block launches it. One kernel; adds one to *launches
+// when it launched. For measuring and testing.
+extern "C" int diff3dhpe_block_attn_f32(const float* qkv, float* out, int R, int C, int heads,
+                                        int n, int n_pad, float scale, int mode, int* launches,
+                                        void* stream_ptr) {
+  const cudaError_t err = launch_attention(qkv, out, R, C, heads, n, n_pad, 0, scale, mode,
+                                           static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return (int)err;
   ++*launches;
   return 0;

@@ -41,7 +41,7 @@ from diff3dhpe_torch.io.convert import state_dict_from_flax
 from diff3dhpe_torch.metrics import mean_velocity_error, mpjpe, n_mpjpe, p_mpjpe
 from diff3dhpe_torch.models import HPE_model
 from diff3dhpe_torch.ops.attention import HEAD_DIMS
-from diff3dhpe_torch.ops.fused_block import LN_MAX_C
+from diff3dhpe_torch.ops.fused_block import F32_MODES, LN_MAX_C
 from diff3dhpe_torch.parallel import check_mesh_shape
 
 
@@ -113,9 +113,8 @@ def check_supported(cfg: Config, device="cpu", world_size: int = 1) -> None:
     if cfg.eval_f32_tail_pairs > 0 and cfg.eval_f32_final_steps <= 0:
         refuse("eval_f32_tail_pairs", "the float32 tail splits the final steps' forward, and "
                "eval_f32_final_steps is 0")
-    if cfg.eval_final_prec not in ("high3", "highest"):
-        refuse("eval_final_prec", "the float32 kernels contract in exact float32 "
-               "('high3' and 'highest' both mean that)")
+    if cfg.eval_final_prec not in F32_MODES:
+        refuse("eval_final_prec", f"the float32 contraction modes are {F32_MODES}")
     if torch.device(device).type == "cuda" and (cfg.fast_eval or cfg.use_pallas_attention):
         _check_head_dim(cfg)
     if torch.device(device).type == "cuda" and cfg.fast_eval:
@@ -144,9 +143,11 @@ def eval_diffusion(cfg: Config, diffusion, model, temporal_mode: str = "rows"):
     (a bf16 one holds a ``bf16_snapshot``), whose last
     ``eval_f32_final_steps`` steps run the float32 fused forward, or with
     ``eval_f32_tail_pairs`` a bf16 forward whose last that-many block pairs
-    and head run at float32. ``temporal_mode``: the fused forward's
-    temporal layout (the runner's is "rows", JAX's default; the bench and
-    the export also take "cols")."""
+    and head run at float32; those final steps contract at
+    ``eval_final_prec``, where JAX's runner pins them (:148-163). An f32
+    ``fast_eval`` run ignores ``eval_final_prec``, as JAX's does.
+    ``temporal_mode``: the fused forward's temporal layout (the runner's is
+    "rows", JAX's default; the bench and the export also take "cols")."""
     if not cfg.fast_eval:
         return diffusion
     bf16 = cfg.compute_dtype == "bfloat16"
@@ -155,9 +156,11 @@ def eval_diffusion(cfg: Config, diffusion, model, temporal_mode: str = "rows"):
     if bf16 and cfg.eval_f32_final_steps > 0:
         if cfg.eval_f32_tail_pairs > 0:
             final = make_fast_denoise_fn(model, torch.bfloat16, temporal_mode, f32_head=True,
-                                         f32_tail_pairs=cfg.eval_f32_tail_pairs)
+                                         f32_tail_pairs=cfg.eval_f32_tail_pairs,
+                                         f32_prec=cfg.eval_final_prec)
         else:
-            final = make_fast_denoise_fn(model, torch.float32, temporal_mode)
+            final = make_fast_denoise_fn(model, torch.float32, temporal_mode,
+                                         f32_prec=cfg.eval_final_prec)
         out = dataclasses.replace(out, final_denoise_fn=final,
                                   final_denoise_steps=cfg.eval_f32_final_steps)
     return out

@@ -54,7 +54,8 @@ def make_denoise_fn(model) -> Callable:
 
 
 def make_fast_denoise_fn(model, dtype=torch.float32, temporal_mode: str = "rows",
-                         f32_head: bool = False, f32_tail_pairs: int = 0) -> Callable:
+                         f32_head: bool = False, f32_tail_pairs: int = 0,
+                         f32_prec: str = "highest") -> Callable:
     """denoise_fn(x, t) through the fused-block forward
     (``models.fast_eval.fast_forward_denoise``), JAX ``make_fast_denoise_fn``.
 
@@ -67,34 +68,37 @@ def make_fast_denoise_fn(model, dtype=torch.float32, temporal_mode: str = "rows"
     ``f32_tail_pairs`` (bf16 only): the last this-many block pairs and the
     head run at float32 on ``model``'s own float32 weights, as they are at
     each call, while the pairs before them read the snapshot (JAX's
-    precision tail). The port's float32 kernels contract in exact float32,
-    so no contraction mode goes with it."""
+    precision tail). ``f32_prec`` pins the contraction mode of the fused
+    blocks at float32, the float32 forward's or the tail's ("highest",
+    "high3" or "default"; JAX's ``f32_prec``, :80-101), for this function
+    alone; the port reads no mode from the environment."""
     bf16 = dtype == torch.bfloat16
     weights = bf16_snapshot(model, f32_head) if bf16 else model
     tail = f32_tail_pairs if bf16 else 0
 
     def denoise_fn(x, t):
         return fast_forward_denoise(weights, x, t, dtype=dtype, temporal_mode=temporal_mode,
-                                    f32_head=f32_head, f32_tail_pairs=tail, f32_model=model)
+                                    f32_head=f32_head, f32_tail_pairs=tail, f32_model=model,
+                                    f32_prec=f32_prec)
 
     return denoise_fn
 
 
 def make_mixed_diffusion(model, temporal_mode: str = "rows", f32_tail_pairs: int = 0,
-                         **diffusion_kw) -> GaussianDiffusion:
+                         f32_prec: str = "highest", **diffusion_kw) -> GaussianDiffusion:
     """The JAX package's default eval (``bench.py`` DTYPE="mixed", :101-135):
     a bf16 trunk with an f32 head for the DDIM steps, and the f32 fused
     forward for the last one, or with ``f32_tail_pairs`` > 0 a bf16 forward
     whose last that-many block pairs and head run at f32 (``bench.py``
-    TAIL_PAIRS, :119-127). JAX runs the f32 parts of that final step under
-    its hand-split bf16x3 contraction ("high3"), a TPU workaround for
-    Precision.HIGH; the port's f32 kernels contract in full float32.
+    TAIL_PAIRS, :119-127). ``f32_prec`` is the contraction mode of the f32
+    parts of that final step: JAX's bench runs them at "high3"
+    (``BENCH_FINAL_PREC``), as does the runner (``Config.eval_final_prec``).
     ``diffusion_kw`` go to ``GaussianDiffusion.create``."""
     if f32_tail_pairs > 0:
         final = make_fast_denoise_fn(model, torch.bfloat16, temporal_mode, f32_head=True,
-                                     f32_tail_pairs=f32_tail_pairs)
+                                     f32_tail_pairs=f32_tail_pairs, f32_prec=f32_prec)
     else:
-        final = make_fast_denoise_fn(model, torch.float32, temporal_mode)
+        final = make_fast_denoise_fn(model, torch.float32, temporal_mode, f32_prec=f32_prec)
     return GaussianDiffusion.create(
         make_fast_denoise_fn(model, torch.bfloat16, temporal_mode, f32_head=True),
         final_denoise_fn=final, final_denoise_steps=1, **diffusion_kw,

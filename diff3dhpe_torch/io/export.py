@@ -5,11 +5,16 @@ The artifact holds the whole eval step of the runner's eval mode (the
 plain or ``use_pallas`` module, the fused forward at float32 or bf16, the
 mixed mode with or without its float32 tail): the DDIM loop, the
 flip-TTA doubling and average. The kernels are the ``diff3dhpe::``
-operators (``ops._library``), so the artifact runs them on the card, or
-their plain versions on the CPU, by the device it was exported on. The
-trained weights are runtime INPUTS, under the reference's state-dict
-names, so one artifact serves every checkpoint of its shape; the bf16
-copies of the bf16 paths are made inside the graph, once per call.
+operators (``ops._library``), each with a CPU and a CUDA implementation,
+so the artifact runs the kernels on the card, or their plain versions on
+the CPU. It runs on the device it was exported on, and on any other of the
+``platforms`` its export names ("cpu", "cuda"; JAX's lowering platforms,
+:37): ``restore_eval_step(path, device=...)`` moves the program there
+(``move_to_device_pass``). The mixed step records the contraction mode of
+its float32 final step (``final_prec``). The trained weights are runtime
+INPUTS, under the reference's state-dict names, so one artifact serves
+every checkpoint of its shape; the bf16 copies of the bf16 paths are made
+inside the graph, once per call.
 
     data = export_eval_step(runner, batch_size=4, path="eval.pt2")
     # ... serving process ...
@@ -41,6 +46,25 @@ from typing import Union
 import torch
 
 META = "diff3dhpe_eval_step.json"
+# The device types an artifact can name as its platforms.
+PLATFORMS = ("cpu", "cuda")
+
+
+def check_platforms(platforms, device, field="platforms"):
+    """``platforms`` (a list of device types, or None for ``device``'s
+    type alone) checked: each one of ``PLATFORMS``, and ``device``'s type
+    among them. Returns the list; a ValueError names ``field`` otherwise."""
+    export_type = torch.device(device).type
+    if platforms is None:
+        return [export_type]
+    platforms = list(dict.fromkeys(platforms))
+    bad = [p for p in platforms if p not in PLATFORMS]
+    if bad or not platforms:
+        raise ValueError(f"{field}={platforms!r} is not taken: an artifact runs on {PLATFORMS}")
+    if export_type not in platforms:
+        raise ValueError(f"{field}={platforms!r} does not name {export_type!r}, the device this "
+                         "artifact is exported on")
+    return platforms
 
 
 def live_eval_step(runner, temporal_mode: str = "rows"):
@@ -99,13 +123,16 @@ def _inputs(runner, batch_size):
 
 
 def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool = False,
-                     temporal_mode: str = "rows") -> bytes:
+                     temporal_mode: str = "rows", platforms=None) -> bytes:
     """Serializes ``runner``'s eval step at batch ``batch_size``: the
     artifact's bytes, also written to ``path`` if given. ``runner``: an
     ``engine.runner.Runner``, or anything with its ``cfg``, ``model``,
     ``diffusion``, ``device``, ``num_joints``, ``joints_left`` and
     ``joints_right``. ``temporal_mode``: the fused forward's temporal
-    layout, "rows" (the runner's) or "cols".
+    layout, "rows" (the runner's) or "cols". ``platforms``: the device
+    types ("cpu", "cuda") the artifact may be restored on, recorded in its
+    metadata; they must name the runner's device's type, which alone is
+    the default.
 
     The signature is step(state, input_2d, input_2d_flip, x_init[, noises])
     -> predicted_3d_norm [B, F_out, J, 3], ``make_eval_step``'s
@@ -120,6 +147,7 @@ def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool
     data-parallel run rank 0 alone traces and writes the artifact, and the
     other ranks wait for it and return None."""
     mesh = getattr(runner, "mesh", None)
+    platforms = check_platforms(platforms, runner.device)
     if sharded and mesh is None:
         raise ValueError("sharded=True exports the per-rank step of a data-parallel run: build "
                          "the runner with its DataMesh (Runner(mesh=...); the CLI under torchrun "
@@ -140,7 +168,9 @@ def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool
     # The example inputs would be saved with the program: the weights too.
     program.example_inputs = None
     cfg = runner.cfg
-    meta = dict(keys=list(state), device=str(runner.device), batch_size=local,
+    mixed = cfg.fast_eval and cfg.compute_dtype == "bfloat16" and cfg.eval_f32_final_steps > 0
+    meta = dict(keys=list(state), device=str(runner.device), platforms=platforms,
+                final_prec=cfg.eval_final_prec if mixed else None, batch_size=local,
                 sharded=dict(world_size=mesh.size, global_batch=batch_size) if sharded else None,
                 temporal_mode=temporal_mode,
                 num_frames=cfg.number_of_frames, num_joints=runner.num_joints,
@@ -158,15 +188,18 @@ def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool
     return data
 
 
-def restore_eval_step(artifact: Union[str, bytes, bytearray], mesh=None):
+def restore_eval_step(artifact: Union[str, bytes, bytearray], mesh=None, device=None):
     """Loads an exported eval step (a path or the bytes) -> step(state,
     input_2d, input_2d_flip, x_init[, noises]).
 
     ``state`` is a state dict under the reference's names, as
     ``load_state_dict(strict=True)`` takes it (a missing or unexpected key
     raises a KeyError naming it); its tensors, and the inputs (tensors or
-    arrays), are moved to the device the artifact was exported on. The
-    inputs must have the export's shapes. Runs without autograd.
+    arrays), are moved to the step's device: ``device``, or the device the
+    artifact was exported on. ``device`` must be of a type among the
+    artifact's ``platforms`` (a ValueError names it otherwise); the program
+    is moved there. The inputs must have the export's shapes. Runs without
+    autograd.
 
     A sharded artifact is restored in a data-parallel run of as many ranks
     as it was exported for, each passing its ``mesh``; the step then takes
@@ -189,11 +222,18 @@ def restore_eval_step(artifact: Union[str, bytes, bytearray], mesh=None):
                          f"batch {batch}) and is restored with {have}: restore it in a run of "
                          f"{want} rank(s), passing each rank's DataMesh")
     keys, dev = meta["keys"], torch.device(meta["device"])
-    if mesh is not None and mesh.device != dev:
-        # Exported on rank 0's device; each rank runs on its own.
+    platforms = meta.get("platforms") or [dev.type]
+    if device is not None and torch.device(device).type not in platforms:
+        raise ValueError(f"device={str(device)!r} is not among this artifact's platforms "
+                         f"{platforms}: export it with platforms naming {torch.device(device).type!r}"
+                         " (cli.export --export-platforms)")
+    target = torch.device(device) if device is not None else (
+        mesh.device if mesh is not None else dev)
+    if target != dev:
+        # Exported on another device (rank 0's, or another platform's).
         from torch.export.passes import move_to_device_pass
 
-        program, dev = move_to_device_pass(program, {str(dev): str(mesh.device)}), mesh.device
+        program, dev = move_to_device_pass(program, str(target)), target
     module = program.module()
 
     def step(state, input_2d, input_2d_flip, x_init, noises=None):

@@ -60,7 +60,9 @@ from diff3dhpe_torch.device import to_device
 from diff3dhpe_torch.models.mixste import dense as _dense
 from diff3dhpe_torch.models.mixste import layer_norm, silu
 from diff3dhpe_torch.ops.attention import grand_attention, grand_attention_trainable
-from diff3dhpe_torch.ops.fused_block import fused_temporal_block_cols, fused_transformer_block
+from diff3dhpe_torch.ops.fused_block import (
+    f32_mode_index, fused_temporal_block_cols, fused_transformer_block,
+)
 
 TEMPORAL_MODES = ("rows", "cols")
 
@@ -110,12 +112,14 @@ def bf16_snapshot(model, f32_head=False):
     return copied(model, "")
 
 
-def _fused_pair(model, i, shape, x_flat, t, dp_s, dp_t, temporal_mode="rows"):
+def _fused_pair(model, i, shape, x_flat, t, dp_s, dp_t, temporal_mode="rows",
+                f32_prec="highest"):
     """Block pair i on the flat spatial-major rows x_flat [B*F*J, C]
     through two fused block calls, the temporal one in ``temporal_mode``;
     returns rows in the same order. t [B, 2C] is the time embedding (or
     None); dp_s [B, F, 2], dp_t [B, J, 2] the per-group drop-path scales (or
-    None), broadcast here to per-row scales as the JAX pair does."""
+    None), broadcast here to per-row scales as the JAX pair does.
+    ``f32_prec``: the blocks' contraction mode at float32."""
     b, f, p = shape
     c, heads, rows_item = model.embed_dim, model.num_heads, f * p
 
@@ -132,7 +136,7 @@ def _fused_pair(model, i, shape, x_flat, t, dp_s, dp_t, temporal_mode="rows"):
     block_s, block_t = model.STEblocks[i], model.TTEblocks[i]
     x_flat = fused_transformer_block(
         x_flat, block_s, n=p, heads=heads, t_rows=time_rows(block_s), rows_per_item=rows_item,
-        out_ln=model.Spatial_norm, dp_scales=dp_rows(dp_s, f, p),
+        out_ln=model.Spatial_norm, dp_scales=dp_rows(dp_s, f, p), f32_prec=f32_prec,
     )
     x4 = x_flat.view(b, f, p, c)
     if i == 0:
@@ -141,13 +145,13 @@ def _fused_pair(model, i, shape, x_flat, t, dp_s, dp_t, temporal_mode="rows"):
         x_cols = fused_temporal_block_cols(
             x4.reshape(b * f, p * c), block_t, n=f, j_groups=p, heads=heads,
             t_rows=time_rows(block_t), out_ln=model.Temporal_norm,
-            dp_scales=None if dp_t is None else dp_t.reshape(b * p, 2),
+            dp_scales=None if dp_t is None else dp_t.reshape(b * p, 2), f32_prec=f32_prec,
         )
         return x_cols.view(b * rows_item, c)
     x_t = x4.transpose(1, 2).contiguous().view(b * rows_item, c)
     x_t = fused_transformer_block(
         x_t, block_t, n=f, heads=heads, t_rows=time_rows(block_t), rows_per_item=rows_item,
-        out_ln=model.Temporal_norm, dp_scales=dp_rows(dp_t, p, f),
+        out_ln=model.Temporal_norm, dp_scales=dp_rows(dp_t, p, f), f32_prec=f32_prec,
     )
     return x_t.view(b, p, f, c).transpose(1, 2).contiguous().view(b * rows_item, c)
 
@@ -177,7 +181,7 @@ def _check_dtype(dtype):
 @torch.no_grad()
 def fast_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
                          temporal_mode="rows", f32_head=False, f32_tail_pairs=0,
-                         f32_model=None):
+                         f32_model=None, f32_prec="highest"):
     """x [B, F, J, in_chans + 3], time [B] -> [B, F_out, J, 3] with the
     weights of ``model`` (a MixSTEDenoiser, or its ``bf16_snapshot``), no
     autograd. ``dp_scales``: None, or (dp_spatial [depth, B, F, 2],
@@ -193,9 +197,15 @@ def fast_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
     snapshot's would carry its roundings into the tail): at the first tail
     pair the rows are cast to float32 and the time embedding is recomputed
     at float32. The fusion layer stays bf16 even when the tail covers every
-    pair. An eval feature: it refuses ``dp_scales``, as JAX's assert does."""
+    pair. An eval feature: it refuses ``dp_scales``, as JAX's assert does.
+
+    ``f32_prec`` (JAX fast_eval.py:98-112): the contraction mode of every
+    fused block call at float32, the float32 forward's and the tail's
+    ("highest", "high3" or "default"; ``ops.fused_block``). bf16 blocks
+    ignore it. The dense layers outside the kernels contract in float32."""
     _check_mode(temporal_mode)
     _check_dtype(dtype)
+    f32_mode_index(f32_prec)
     b, f, p, _ = x.shape
     tail_start = model.depth
     if f32_tail_pairs and dtype == torch.bfloat16:
@@ -214,7 +224,7 @@ def fast_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
             x_flat, t = x_flat.float(), weights.time_embedding(time, torch.float32)
         x_flat = _fused_pair(weights, i, (b, f, p), x_flat, t,
                              None if dp_sp is None else dp_sp[i],
-                             None if dp_tp is None else dp_tp[i], temporal_mode)
+                             None if dp_tp is None else dp_tp[i], temporal_mode, f32_prec)
     return _head(weights, x_flat, (b, f, p), f32_head)
 
 

@@ -45,7 +45,8 @@ SIGNATURES = {
             + [_P, _P, _F]                     # out-LN w, b, eps
             + [_P] * 7                         # xs, xn, qkv, attn, h1, mid, out
             + [_I] * 7 + [_F]                  # R, C, hidden, n, n_pad, j_groups, heads, scale
-            + [ctypes.POINTER(_I), _P]         # launches[3], stream
+            + [_I, _P, _P]                     # f32 mode, a_split, w_split
+            + [ctypes.POINTER(_I), _P]         # launches[5], stream
         )
         for name in ("diff3dhpe_fused_block_f32", "diff3dhpe_fused_block_bf16")
     } | {
@@ -54,7 +55,8 @@ SIGNATURES = {
             + [_P, _P, _P, _P]                 # qkv w, b; proj w, b
             + [_P] * 4                         # xn, qkv, attn, out
             + [_I] * 4 + [_F]                  # R, C, n, heads, scale
-            + [ctypes.POINTER(_I), _P]         # launches[3], stream
+            + [_I, _P, _P]                     # f32 mode, a_split, w_split
+            + [ctypes.POINTER(_I), _P]         # launches[5], stream
         )
         for name in ("diff3dhpe_fused_attn_block_f32", "diff3dhpe_fused_attn_block_bf16")
     } | {
@@ -66,10 +68,21 @@ SIGNATURES = {
     } | {
         name: (
             [_P, _P, _I, _P, _P, _F]           # x, t, rows_per_item, w, b, eps
-            + [_P, _P, _I, _I]                 # xs, y, R, C
+            + [_P, _P, _I, _I, _I]             # xs, y, R, C, f32 mode
             + [ctypes.POINTER(_I), _P]         # launches, stream
         )
         for name in ("diff3dhpe_layer_norm_f32", "diff3dhpe_layer_norm_bf16")
+    } | {
+        "diff3dhpe_split_bf16": [_P, _P, _P, _L, ctypes.POINTER(_I), _P],  # x, hi, lo, n
+        "diff3dhpe_block_attn_f32": (
+            [_P, _P] + [_I] * 5 + [_F, _I]     # qkv, out; R, C, heads, n, n_pad; scale, mode
+            + [ctypes.POINTER(_I), _P]         # launches, stream
+        ),
+        "diff3dhpe_gemm_wgmma_f32": (
+            [_P] * 8 + [_I] * 5                # a_hi, a_lo, w_hi, w_lo, bias, res, rscale, out;
+                                               # M, N, K, epilogue, passes
+            + [ctypes.POINTER(_I), _P]         # launches, stream
+        ),
     } | {
         "diff3dhpe_attn_takes_head_dim": [_I],       # head_dim
         "diff3dhpe_attn_max_n": [],

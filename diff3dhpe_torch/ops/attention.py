@@ -77,15 +77,27 @@ def grand_attention(q, k, v, scale=None):
     return torch.matmul(attn, v) - v
 
 
-def grand_attention_stored(q, k, v, scale, rnd, v_self=None):
+def grand_attention_stored(q, k, v, scale, rnd, v_self=None, dot=None):
     """GRAND attention in float32 on float32 q, k, v that hold values of a
     storage type, with ``rnd`` rounding to that type where the kernels
     store: P after the normalisation, and the output (P·v − v) once. The
     attention step of the block kernels' plain versions and the plain
     version of B3 at bf16. ``v_self``: the rows subtracted where they are
-    not v (B1's pad query rows attend to the real keys only)."""
-    logits = q @ k.transpose(-1, -2) * scale
-    return rnd(rnd(torch.softmax(logits, dim=-1)) @ v - (v if v_self is None else v_self))
+    not v (B1's pad query rows attend to the real keys only).
+
+    ``dot(a, b)``: a · bᵀ over the last dims, the caller's contraction (as
+    JAX ``grand_attend_tile`` takes ``dot``), for the f32 block kernels
+    under a contraction mode. With it the normalisation comes after the
+    second product, as in JAX's f32 epilogue (ops/attention.py:91-94):
+    out = dot(e, vᵀ) · (1 / Σ e) − v with e = exp(s − max s) unnormalised;
+    the sum and the − v read the unrounded values."""
+    v_self = v if v_self is None else v_self
+    if dot is None:
+        logits = q @ k.transpose(-1, -2) * scale
+        return rnd(rnd(torch.softmax(logits, dim=-1)) @ v - v_self)
+    logits = dot(q, k) * scale
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return rnd(dot(e, v.transpose(-1, -2)) * (1.0 / e.sum(dim=-1, keepdim=True)) - v_self)
 
 
 def grand_attention_fullseq_ref(q, k, v, scale=None):

@@ -36,6 +36,20 @@ B1 and B2 reach their kernels (or plain versions) through the operators
 ``diff3dhpe::fused_transformer_block`` and
 ``diff3dhpe::fused_temporal_block_cols`` (``ops._library``), which take the
 block's tensors one by one, so that ``torch.export`` traces through them.
+
+At float32 every product of the three follows an explicit contraction mode
+``f32_prec`` (JAX ``_dot_f32`` under ``f32_contract_mode``,
+fused_block.py:84-164; ``contract`` here): "highest" (exact float32, the
+default), "high3" (bf16x3: a = a_hi + a_lo, a_hi·b_hi + a_hi·b_lo +
+a_lo·b_hi summed in float32) or "default" (one pass of the operands rounded
+to bf16). It covers the four dense products (the bias added after), q·kᵀ,
+e·v with e the unnormalised exponentials (JAX's f32 epilogue defers the
+normalisation; the row sum and the trailing − v read the unrounded values),
+and the time add, which reads t as JAX's one-hot gather contracts it
+(bf16(t), or t_hi + t_lo). A bfloat16 x ignores the mode, as ``_dot_f32``
+does for bf16 operands. JAX also reads a process-wide mode from the
+environment (``DIFF_FUSED_F32_PREC``); the port takes it only as this
+argument.
 """
 from __future__ import annotations
 
@@ -50,6 +64,9 @@ from diff3dhpe_torch.ops._library import register
 from diff3dhpe_torch.ops.attention import HEAD_DIMS, grand_attention_stored, refuse_autograd
 
 DTYPES = (torch.float32, torch.bfloat16)
+# The float32 contraction modes by the index the operators and the kernels
+# take (csrc/grand_attn.cuh::F32Mode).
+F32_MODES = ("highest", "high3", "default")
 # The widest row the LayerNorm kernel holds (32 lanes x 16 pieces of 16
 # bytes; csrc/fused_block.cu::diff3dhpe_ln_max_c).
 LN_MAX_C = {torch.float32: 2048, torch.bfloat16: 4096}
@@ -117,6 +134,55 @@ def _check_cols_args(x, block, n, j_groups, heads, t_rows, dp_scales):
     _check_block(x.view(-1, c), block, heads)
 
 
+def f32_mode_index(f32_prec, dtype=torch.float32):
+    """The index of contraction mode ``f32_prec`` in ``F32_MODES`` for
+    activations of ``dtype``: bfloat16 contracts in one bf16 pass whatever
+    the mode, so it maps to 0. Raises a ValueError on an unknown mode."""
+    if f32_prec not in F32_MODES:
+        raise ValueError(f"f32_prec must be one of {F32_MODES}, got {f32_prec!r}")
+    return F32_MODES.index(f32_prec) if dtype == torch.float32 else 0
+
+
+def _bf16_round(a):
+    return a.to(torch.bfloat16).float()
+
+
+def bf16_split(a):
+    """(a_hi, a_lo) in float32: a_hi = bf16(a), a_lo = bf16(a − a_hi)
+    (JAX ``_dot_f32_3pass``'s casts, fused_block.py:137-140)."""
+    hi = _bf16_round(a)
+    return hi, _bf16_round(a - hi)
+
+
+def contract(a, b, mode="highest"):
+    """a [..., M, K] · b [..., N, K]ᵀ of float32 operands in float32 under
+    contraction ``mode``: the port of JAX ``_dot_f32`` (fused_block.py:147-164)
+    on float32 operands. "highest": exact float32; "default": the operands
+    rounded to bf16, their products exact, the sums float32 (the MXU's one
+    bf16 pass); "high3": a_hi·b_hi + a_hi·b_lo + a_lo·b_hi, summed in that
+    order (``_dot_f32_3pass``)."""
+    if mode not in F32_MODES:
+        raise ValueError(f"mode must be one of {F32_MODES}, got {mode!r}")
+    if mode == "highest":
+        return torch.matmul(a, b.transpose(-1, -2))
+    if mode == "default":
+        return torch.matmul(_bf16_round(a), _bf16_round(b).transpose(-1, -2))
+    (a_hi, a_lo), (b_hi, b_lo) = bf16_split(a), bf16_split(b)
+    b_hi, b_lo = b_hi.transpose(-1, -2), b_lo.transpose(-1, -2)
+    return torch.matmul(a_hi, b_hi) + torch.matmul(a_hi, b_lo) + torch.matmul(a_lo, b_hi)
+
+
+def time_rows_under(t, mode):
+    """The float32 time rows as JAX's one-hot gather contracts them under
+    ``mode`` (fused_block.py:271-281, :664-674): t, bf16(t) or t_hi + t_lo."""
+    if mode == "default":
+        return _bf16_round(t)
+    if mode == "high3":
+        hi, lo = bf16_split(t)
+        return hi + lo
+    return t
+
+
 def _out_ln_params(out_ln):
     """(weight, bias, eps) of the out-LN, or None. Both layouts read them in
     float32. (JAX's B2 casts them to x's dtype, fused_block.py:846, where
@@ -125,15 +191,20 @@ def _out_ln_params(out_ln):
     return None if out_ln is None else (out_ln.weight, out_ln.bias, out_ln.eps)
 
 
-def _ref_ops(dt):
+def _ref_ops(dt, mode="highest"):
     """(rnd, lin, ln) of the plain versions for storage type ``dt``: ``rnd``
     rounds to dt where a kernel stores; ``lin`` is a float32 matmul of the
-    operands as the kernel sees them (weights rounded to dt, bias float32);
-    ``ln`` a float32 LayerNorm."""
+    operands as the kernel sees them (weights rounded to dt, bias float32),
+    at float32 under contraction ``mode`` (``contract``, the bias added
+    after); ``ln`` a float32 LayerNorm."""
     rnd = (lambda a: a) if dt == torch.float32 else (lambda a: a.to(dt).float())
 
     def lin(a, m):
-        return F.linear(a, rnd(m.weight.float()), None if m.bias is None else m.bias.float())
+        bias = None if m.bias is None else m.bias.float()
+        if mode == "highest":
+            return F.linear(a, rnd(m.weight.float()), bias)
+        out = contract(a, m.weight.float(), mode)
+        return out if bias is None else out + bias
 
     def ln(a, m):
         return F.layer_norm(a, (a.shape[-1],), m.weight.float(), m.bias.float(), m.eps)
@@ -141,32 +212,39 @@ def _ref_ops(dt):
     return rnd, lin, ln
 
 
-def _attn_branch_ref(x, block, n, heads, n_pad, dt):
+def _attn_branch_ref(x, block, n, heads, n_pad, dt, mode="highest"):
     """proj(GRAND(LN1(x))) in float32 on float32 rows x [R, C] that hold
     values of type ``dt``, rounding to dt where the kernels store: the LN
-    output, qkv (after the bias), P and the attention output."""
-    rnd, lin, ln = _ref_ops(dt)
+    output, qkv (after the bias), P and the attention output. At float32
+    every product contracts under ``mode``."""
+    rnd, lin, ln = _ref_ops(dt, mode)
     r, c = x.shape
     qkv = rnd(lin(rnd(ln(x, block.norm1)), block.attn.qkv))
     q, k, v = qkv.reshape(r // n_pad, n_pad, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
-    attn = grand_attention_stored(q, k[:, :, :n], v[:, :, :n], (c // heads) ** -0.5, rnd, v_self=v)
+    dot = None if mode == "highest" else (lambda a, b: contract(a, b, mode))
+    attn = grand_attention_stored(q, k[:, :, :n], v[:, :, :n], (c // heads) ** -0.5, rnd, v_self=v,
+                                  dot=dot)
     return lin(attn.permute(0, 2, 1, 3).reshape(r, c), block.attn.proj)
 
 
-def _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, out_ln, dp_scales):
+def _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, out_ln, dp_scales,
+               mode="highest"):
     """The plain block on groups of n_pad rows; ``out_ln`` is (w, b, eps)
     or None. Every product is a float32 matmul of the operands as the
-    kernel sees them (exact for bf16-rounded operands), and ``rnd`` rounds
-    to x's dtype where the kernel stores."""
+    kernel sees them (exact for bf16-rounded operands), at float32 under
+    contraction ``mode`` (the time add too), and ``rnd`` rounds to x's dtype
+    where the kernel stores."""
     dt = x.dtype
-    rnd, lin, ln = _ref_ops(dt)
+    mode = mode if dt == torch.float32 else "highest"
+    rnd, lin, ln = _ref_ops(dt, mode)
     r, c = x.shape
     s_attn, s_mlp = (1.0, 1.0) if dp_scales is None else (dp_scales[:, 0:1], dp_scales[:, 1:2])
 
     x = x.float()
     if t_rows is not None:
-        x = rnd(x + rnd(t_rows.float())[torch.arange(r, device=x.device) // rows_per_item])
-    h1 = rnd(x + s_attn * _attn_branch_ref(x, block, n, heads, n_pad, dt))
+        t = time_rows_under(rnd(t_rows.float()), mode)
+        x = rnd(x + t[torch.arange(r, device=x.device) // rows_per_item])
+    h1 = rnd(x + s_attn * _attn_branch_ref(x, block, n, heads, n_pad, dt, mode))
     mid = rnd(F.gelu(lin(rnd(ln(h1, block.norm2)), block.mlp.fc1)))
     out = h1 + s_mlp * lin(mid, block.mlp.fc2)
     if out_ln is not None:
@@ -176,19 +254,22 @@ def _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, out_ln, dp_scal
 
 
 def fused_transformer_block_ref(x, block, n, heads, *, n_pad=None, t_rows=None,
-                                rows_per_item=None, out_ln=None, dp_scales=None):
+                                rows_per_item=None, out_ln=None, dp_scales=None,
+                                f32_prec="highest"):
     """Plain PyTorch version of ``fused_transformer_block`` (same
     arguments, same result). Pad query rows (n..n_pad-1 of a group) attend
     to the group's real keys; their outputs are garbage the caller ignores,
     as in the JAX kernel."""
     n_pad = n if n_pad is None else n_pad
     _check_args(x, block, n, heads, n_pad, t_rows, rows_per_item, dp_scales)
+    mode = F32_MODES[f32_mode_index(f32_prec, x.dtype)]
     return _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item,
-                      _out_ln_params(out_ln), dp_scales)
+                      _out_ln_params(out_ln), dp_scales, mode)
 
 
 def fused_transformer_block(x, block, n, heads, *, n_pad=None, t_rows=None,
-                            rows_per_item=None, out_ln=None, dp_scales=None):
+                            rows_per_item=None, out_ln=None, dp_scales=None,
+                            f32_prec="highest"):
     """B1: whole transformer block on flat rows x [R, C] (see the module doc).
 
     ``n``: real rows per attention group; ``n_pad``: rows per group in x
@@ -197,35 +278,50 @@ def fused_transformer_block(x, block, n, heads, *, n_pad=None, t_rows=None,
     t_rows[i // rows_per_item]. ``out_ln``: LayerNorm applied to the
     output. ``dp_scales`` [R, 2]: per-row drop-path scales of the attention
     and MLP branches (JAX ``fused_transformer_block(dp_scales=...)``).
+    ``f32_prec``: the contraction mode of a float32 x (module doc).
 
     A CPU tensor runs the plain version. A CUDA tensor launches the
-    kernels (7, or 8 with ``out_ln``; ``fused_transformer_block.launches``
-    counts them, ``.launches_bf16`` those at bf16, ``.launches_ln`` the
-    LayerNorms and ``.launches_gemm_f32`` the GEMMs at f32) or raises.
-    Under autograd it raises (``_refuse_autograd``)."""
+    kernels (7, or 8 with ``out_ln``; 15 and 16 under "high3" and
+    "default"; ``fused_transformer_block.launches`` counts them,
+    ``.launches_bf16`` those at bf16, ``.launches_ln`` the LayerNorms,
+    ``.launches_gemm_f32`` the exact f32 GEMMs, ``.launches_split`` the
+    splits, ``.launches_gemm_mode`` the f32-output tensor-core GEMMs of
+    the two modes, and ``.launches_attn_mode`` and ``.launches_ln_mode``
+    the attention's and the time add's LayerNorm's instances under them)
+    or raises. Under autograd it raises
+    (``_refuse_autograd``)."""
     _check_device(fused_transformer_block, x)
     n_pad = n if n_pad is None else n_pad
     _check_args(x, block, n, heads, n_pad, t_rows, rows_per_item, dp_scales)
+    mode = f32_mode_index(f32_prec, x.dtype)
     _refuse_autograd("fused_transformer_block", x, block, out_ln, t_rows, dp_scales)
     return _B1(x, t_rows, dp_scales, *_block_operands(block, out_ln), n, heads, n_pad,
-               rows_per_item or 0)
+               rows_per_item or 0, mode)
 
 
-fused_transformer_block.launches = 0
-fused_transformer_block.launches_bf16 = 0
-fused_transformer_block.launches_ln = 0
-fused_transformer_block.launches_gemm_f32 = 0
+def _zero_counts(wrapper):
+    for kind in COUNTS:
+        setattr(wrapper, kind, 0)
+
+
+# The launch counters of the three block wrappers.
+COUNTS = ("launches", "launches_bf16", "launches_ln", "launches_gemm_f32", "launches_split",
+          "launches_gemm_mode", "launches_attn_mode", "launches_ln_mode")
+_LAUNCH_KINDS = 7  # the block entry points' counts (kCounts, csrc/fused_block.cu)
+_zero_counts(fused_transformer_block)
 
 
 def fused_temporal_block_cols_ref(x, block, n, j_groups, heads, *, t_rows=None, out_ln=None,
-                                  dp_scales=None):
+                                  dp_scales=None, f32_prec="highest"):
     """Plain PyTorch version of ``fused_temporal_block_cols`` (same
     arguments, same result): the block on the transposed rows."""
     _check_cols_args(x, block, n, j_groups, heads, t_rows, dp_scales)
-    return _cols_ref(x, block, n, j_groups, heads, t_rows, _out_ln_params(out_ln), dp_scales)
+    mode = F32_MODES[f32_mode_index(f32_prec, x.dtype)]
+    return _cols_ref(x, block, n, j_groups, heads, t_rows, _out_ln_params(out_ln), dp_scales,
+                     mode)
 
 
-def _cols_ref(x, block, n, j_groups, heads, t_rows, out_ln, dp_scales):
+def _cols_ref(x, block, n, j_groups, heads, t_rows, out_ln, dp_scales, mode="highest"):
     """``fused_temporal_block_cols_ref`` on checked arguments, ``out_ln`` as
     (w, b, eps) or None."""
     rows, cols = x.shape
@@ -233,12 +329,12 @@ def _cols_ref(x, block, n, j_groups, heads, t_rows, out_ln, dp_scales):
     xt = x.view(b, n, j_groups, c).transpose(1, 2).reshape(b * j_groups * n, c)
     dp = None if dp_scales is None else dp_scales.view(b * j_groups, 1, 2).expand(
         b * j_groups, n, 2).reshape(-1, 2)
-    out = _block_ref(xt, block, n, heads, n, t_rows, j_groups * n, out_ln, dp)
+    out = _block_ref(xt, block, n, heads, n, t_rows, j_groups * n, out_ln, dp, mode)
     return out.view(b, j_groups, n, c).transpose(1, 2).reshape(rows, cols)
 
 
 def fused_temporal_block_cols(x, block, n, j_groups, heads, *, t_rows=None, out_ln=None,
-                              dp_scales=None):
+                              dp_scales=None, f32_prec="highest"):
     """B2: the temporal block over the spatial-major activations, with JAX's
     signature (without frame padding: F8 = F = n).
 
@@ -247,23 +343,21 @@ def fused_temporal_block_cols(x, block, n, j_groups, heads, *, t_rows=None, out_
     ``t_rows`` [B, C]: one time-embedding row per sample. ``out_ln``: the
     inter-block LayerNorm. ``dp_scales`` [B*J, 2]: one pair of drop-path
     scales per group (b, j), row b*J + j. The result equals B1's on the
-    transposed rows (``fused_temporal_block_cols_ref``).
+    transposed rows (``fused_temporal_block_cols_ref``). ``f32_prec``: the
+    contraction mode of a float32 x (module doc).
 
     A CPU tensor runs the plain version. A CUDA tensor launches the kernels
-    (7, or 8 with ``out_ln``; ``fused_temporal_block_cols.launches`` counts
-    them, ``.launches_bf16``, ``.launches_ln`` and ``.launches_gemm_f32`` as
-    ``fused_transformer_block``'s) or raises. Under autograd it raises
-    (``_refuse_autograd``)."""
+    (as ``fused_transformer_block``'s, counted on
+    ``fused_temporal_block_cols`` in the same counters) or raises. Under
+    autograd it raises (``_refuse_autograd``)."""
     _check_device(fused_temporal_block_cols, x)
     _check_cols_args(x, block, n, j_groups, heads, t_rows, dp_scales)
+    mode = f32_mode_index(f32_prec, x.dtype)
     _refuse_autograd("fused_temporal_block_cols", x, block, out_ln, t_rows, dp_scales)
-    return _B2(x, t_rows, dp_scales, *_block_operands(block, out_ln), n, j_groups, heads)
+    return _B2(x, t_rows, dp_scales, *_block_operands(block, out_ln), n, j_groups, heads, mode)
 
 
-fused_temporal_block_cols.launches = 0
-fused_temporal_block_cols.launches_bf16 = 0
-fused_temporal_block_cols.launches_ln = 0
-fused_temporal_block_cols.launches_gemm_f32 = 0
+_zero_counts(fused_temporal_block_cols)
 
 
 # The block's tensors and LayerNorm epsilons as the two operators take them.
@@ -301,27 +395,28 @@ def _as_block(operands):
 
 def _b1_impl(x, t_rows, dp_scales, *rest):
     """B1's operator: the plain version on the CPU, the kernels on CUDA."""
-    operands, (n, heads, n_pad, rows_per_item) = rest[:_N_BLOCK], rest[_N_BLOCK:]
+    operands, (n, heads, n_pad, rows_per_item, mode) = rest[:_N_BLOCK], rest[_N_BLOCK:]
     block, out_ln = _as_block(operands)
     rows_per_item = rows_per_item or None
     if x.device.type == "cpu":
-        return _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, out_ln, dp_scales)
+        return _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, out_ln, dp_scales,
+                          F32_MODES[mode])
     return _launch(fused_transformer_block, x, block, n, heads, n_pad, 0, t_rows,
-                   rows_per_item, out_ln, dp_scales)
+                   rows_per_item, out_ln, dp_scales, mode)
 
 
 def _b2_impl(x, t_rows, dp_scales, *rest):
     """B2's operator: the plain version on the CPU, the kernels on CUDA."""
-    operands, (n, j_groups, heads) = rest[:_N_BLOCK], rest[_N_BLOCK:]
+    operands, (n, j_groups, heads, mode) = rest[:_N_BLOCK], rest[_N_BLOCK:]
     block, out_ln = _as_block(operands)
     if x.device.type == "cpu":
-        return _cols_ref(x, block, n, j_groups, heads, t_rows, out_ln, dp_scales)
+        return _cols_ref(x, block, n, j_groups, heads, t_rows, out_ln, dp_scales, F32_MODES[mode])
     rows, cols = x.shape
     b, c = rows // n, cols // j_groups
     dp = None if dp_scales is None else dp_scales.view(b, 1, j_groups, 2).expand(
         b, n, j_groups, 2).reshape(rows * j_groups, 2)  # per row, spatial-major order
     out = _launch(fused_temporal_block_cols, x.view(rows * j_groups, c), block, n, heads, n,
-                  j_groups, t_rows, n * j_groups, out_ln, dp)
+                  j_groups, t_rows, n * j_groups, out_ln, dp, mode)
     return out.view(rows, cols)
 
 
@@ -330,10 +425,11 @@ def _same_as_x(x, *rest):
 
 
 _B1 = register("fused_transformer_block(Tensor x, Tensor? t_rows, Tensor? dp_scales, "
-               f"{_BLOCK_SCHEMA}, int n, int heads, int n_pad, int rows_per_item) -> Tensor",
+               f"{_BLOCK_SCHEMA}, int n, int heads, int n_pad, int rows_per_item, "
+               "int f32_mode) -> Tensor",
                _b1_impl, _b1_impl, _same_as_x)
 _B2 = register("fused_temporal_block_cols(Tensor x, Tensor? t_rows, Tensor? dp_scales, "
-               f"{_BLOCK_SCHEMA}, int n, int j_groups, int heads) -> Tensor",
+               f"{_BLOCK_SCHEMA}, int n, int j_groups, int heads, int f32_mode) -> Tensor",
                _b2_impl, _b2_impl, _same_as_x)
 
 
@@ -351,38 +447,37 @@ def _check_attn_args(x, block, n, heads):
             raise ValueError(f"block attn.{name}.weight has shape {got}, expected {shape}")
 
 
-def fused_attention_block_ref(x, block, n, heads):
+def fused_attention_block_ref(x, block, n, heads, f32_prec="highest"):
     """Plain PyTorch version of ``fused_attention_block`` (same arguments,
     same result)."""
     _check_attn_args(x, block, n, heads)
-    return (x.float() + _attn_branch_ref(x.float(), block, n, heads, n, x.dtype)).to(x.dtype)
+    mode = F32_MODES[f32_mode_index(f32_prec, x.dtype)]
+    return (x.float() + _attn_branch_ref(x.float(), block, n, heads, n, x.dtype, mode)).to(x.dtype)
 
 
-def fused_attention_block(x, block, n, heads):
+def fused_attention_block(x, block, n, heads, f32_prec="highest"):
     """B5: the attention half of a block on flat rows x [R, C], groups of
     ``n`` consecutive rows: x + proj(GRAND(LN1(x))), without the time add,
     drop-path, MLP or out-LN. Reads ``block.norm1``, ``block.attn.qkv`` and
     ``block.attn.proj``. x float32 or bfloat16; bf16 rounds the LN output,
     qkv (after the bias), the attention output and the result, as JAX's
-    kernel does (fused_block.py:206-228).
+    kernel does (fused_block.py:206-228). ``f32_prec``: the contraction
+    mode of a float32 x (module doc).
 
     A CPU tensor runs the plain version. A CUDA tensor launches the 4
-    kernels (``fused_attention_block.launches`` counts them,
-    ``.launches_bf16``, ``.launches_ln`` and ``.launches_gemm_f32`` as
-    ``fused_transformer_block``'s) or raises. Under autograd it raises
-    (``_refuse_autograd``)."""
+    kernels (8 under "high3" and "default"; counted on
+    ``fused_attention_block`` as ``fused_transformer_block``'s) or raises.
+    Under autograd it raises (``_refuse_autograd``)."""
     _check_device(fused_attention_block, x)
     _check_attn_args(x, block, n, heads)
+    mode = f32_mode_index(f32_prec, x.dtype)
     _refuse_autograd("fused_attention_block", x, block)
     if x.device.type == "cpu":
-        return fused_attention_block_ref(x, block, n, heads)
-    return _launch_attn(x, block, n, heads)
+        return fused_attention_block_ref(x, block, n, heads, f32_prec)
+    return _launch_attn(x, block, n, heads, mode)
 
 
-fused_attention_block.launches = 0
-fused_attention_block.launches_bf16 = 0
-fused_attention_block.launches_ln = 0
-fused_attention_block.launches_gemm_f32 = 0
+_zero_counts(fused_attention_block)
 
 
 EPILOGUES = ("bias", "gelu", "residual")  # the kernels' epilogue codes 0, 1, 2
@@ -477,6 +572,144 @@ def _gemm_bf16(a, w, bias=None, epilogue="bias", res=None, rscale=None):
 _gemm_bf16.launches = 0
 
 
+def split_bf16_ref(x, lo=True):
+    """Plain version of ``split_bf16``: ``bf16_split`` in bfloat16, lo or None."""
+    hi, low = bf16_split(x)
+    return hi.bfloat16(), low.bfloat16() if lo else None
+
+
+def split_bf16(x, lo=True):
+    """The split kernel of the contraction modes alone, for tests and
+    measurements (the block launches the same kernel): hi = bf16(x) and,
+    with ``lo``, bf16(x − hi), from float32 x whose element count is a
+    multiple of 8.
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the kernel
+    (``split_bf16.launches`` counts launches) or raises."""
+    if x.dtype != torch.float32 or x.numel() % 8:
+        raise ValueError(f"x must be float32 with a multiple of 8 elements, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return split_bf16_ref(x, lo)
+    from diff3dhpe_torch.ops._build import load_library
+
+    bf = torch.bfloat16
+    hi = torch.empty(x.shape, device=x.device, dtype=bf)
+    low = torch.empty(x.shape, device=x.device, dtype=bf) if lo else None
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        err = load_library("fused_block").diff3dhpe_split_bf16(
+            _ptr(x, torch.float32), _ptr(hi, bf), _ptr(low, bf), x.numel(), ctypes.byref(launched),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    split_bf16.launches += launched.value
+    if err:
+        raise RuntimeError(f"the split_bf16 kernel failed: cudaError_t {err}")
+    return hi, low
+
+
+split_bf16.launches = 0
+
+
+def _gemm_wgmma_f32_ref(a_hi, a_lo, w_hi, w_lo, bias=None, epilogue="bias", res=None,
+                        rscale=None):
+    """Plain version of ``_gemm_wgmma_f32``: the float32 matmuls of the
+    bf16 passes summed in order, then the epilogue."""
+    acc = F.linear(a_hi.float(), w_hi.float())
+    if a_lo is not None:
+        acc = acc + F.linear(a_hi.float(), w_lo.float()) + F.linear(a_lo.float(), w_hi.float())
+    return _epilogue_ref(acc if bias is None else acc + bias, epilogue, res, rscale)
+
+
+def _gemm_wgmma_f32(a_hi, a_lo, w_hi, w_lo, bias=None, epilogue="bias", res=None, rscale=None):
+    """The f32-output tensor-core GEMM of the contraction modes alone, for
+    tests and measurements (the block launches the same kernel):
+    epilogue(Σ_p A_p · W_pᵀ + bias) in float32 over the passes (a_hi,
+    w_hi), (a_hi, w_lo), (a_lo, w_hi) ("high3"), or (a_hi, w_hi) alone
+    with a_lo and w_lo None ("default"). a_* [M, K] and w_* [N, K]
+    bfloat16; bias [N], res [M, N] and rscale [M, 2] float32; epilogues as
+    ``_gemm_f32``'s.
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the kernel
+    (``_gemm_wgmma_f32.launches`` counts launches) or raises."""
+    (m, k), n = a_hi.shape, w_hi.shape[0]
+    if (a_lo is None) != (w_lo is None):
+        raise ValueError("give a_lo and w_lo together (three passes) or neither (one)")
+    if epilogue not in EPILOGUES or (epilogue == "residual") != (res is not None):
+        raise ValueError(f"epilogue must be one of {EPILOGUES}, with res for 'residual' only")
+    if a_hi.device.type == "cpu":
+        return _gemm_wgmma_f32_ref(a_hi, a_lo, w_hi, w_lo, bias, epilogue, res, rscale)
+    if k % 8 or n % 8:
+        raise ValueError(f"the CUDA kernel needs K % 8 == 0 and N % 8 == 0, got K={k}, N={n}")
+    from diff3dhpe_torch.ops._build import load_library
+
+    bf, f32 = torch.bfloat16, torch.float32
+    out = torch.empty((m, n), device=a_hi.device, dtype=f32)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(a_hi.device):
+        err = load_library("fused_block").diff3dhpe_gemm_wgmma_f32(
+            _ptr(a_hi, bf), _ptr(a_lo, bf), _ptr(w_hi, bf), _ptr(w_lo, bf), _ptr(bias, f32),
+            _ptr(res, f32), _ptr(rscale, f32), _ptr(out, f32), m, n, k, EPILOGUES.index(epilogue),
+            1 if a_lo is None else 3, ctypes.byref(launched),
+            torch.cuda.current_stream(a_hi.device).cuda_stream)
+    _gemm_wgmma_f32.launches += launched.value
+    if err:
+        raise RuntimeError(f"the _gemm_wgmma_f32 kernel failed: cudaError_t {err}")
+    return out
+
+
+_gemm_wgmma_f32.launches = 0
+
+
+def block_attention_ref(qkv, n, heads, n_pad=None, f32_prec="highest"):
+    """Plain version of ``block_attention`` (same arguments, same result)."""
+    r, c3 = qkv.shape
+    c, n_pad = c3 // 3, n if n_pad is None else n_pad
+    mode = F32_MODES[f32_mode_index(f32_prec)]
+    q, k, v = qkv.reshape(r // n_pad, n_pad, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+    dot = None if mode == "highest" else (lambda a, b: contract(a, b, mode))
+    out = grand_attention_stored(q, k[:, :, :n], v[:, :, :n], (c // heads) ** -0.5,
+                                 lambda a: a, v_self=v, dot=dot)
+    return out.permute(0, 2, 1, 3).reshape(r, c)
+
+
+def block_attention(qkv, n, heads, n_pad=None, f32_prec="highest"):
+    """The f32 block kernels' attention step alone, for tests and
+    measurements (B1 launches the same kernels): GRAND attention on qkv
+    [R, 3C] float32 in groups of ``n_pad`` rows (default n), over each
+    group's n real keys, under contraction mode ``f32_prec``; out [R, C].
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the kernel
+    (``block_attention.launches`` counts launches) or raises."""
+    r, c3 = qkv.shape
+    n_pad = n if n_pad is None else n_pad
+    if qkv.dtype != torch.float32 or c3 % (3 * heads) or r % n_pad or not 0 < n <= n_pad:
+        raise ValueError(f"qkv must be float32 [R, 3C] with C a multiple of heads={heads} and R "
+                         f"of n_pad={n_pad} >= n={n}, got {qkv.dtype} {tuple(qkv.shape)}")
+    mode = f32_mode_index(f32_prec)
+    if qkv.device.type == "cpu":
+        return block_attention_ref(qkv, n, heads, n_pad, f32_prec)
+    from diff3dhpe_torch.ops._build import load_library
+
+    lib = load_library("fused_block")
+    c, f32 = c3 // 3, torch.float32
+    if not lib.diff3dhpe_attn_takes_head_dim(c // heads) or n > lib.diff3dhpe_attn_max_n():
+        raise ValueError(f"the CUDA kernel takes head_dim {HEAD_DIMS} and n <= "
+                         f"{lib.diff3dhpe_attn_max_n()}, got head_dim {c // heads} and n {n}")
+    out = torch.empty((r, c), device=qkv.device, dtype=f32)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(qkv.device):
+        err = lib.diff3dhpe_block_attn_f32(
+            _ptr(qkv, f32), _ptr(out, f32), r, c, heads, n, n_pad, (c // heads) ** -0.5, mode,
+            ctypes.byref(launched), torch.cuda.current_stream(qkv.device).cuda_stream)
+    block_attention.launches += launched.value
+    if err:
+        raise RuntimeError(f"the block_attention kernel failed: cudaError_t {err}")
+    return out
+
+
+block_attention.launches = 0
+
+
 def _check_ln_args(x, weight, bias, t_rows, rows_per_item):
     if x.ndim != 2 or x.dtype not in DTYPES:
         raise ValueError(f"x must be [R, C] float32 or bfloat16, got {tuple(x.shape)} {x.dtype}")
@@ -491,34 +724,39 @@ def _check_ln_args(x, weight, bias, t_rows, rows_per_item):
                          f"not cover R={r} rows at C={c}")
 
 
-def layer_norm_rows_ref(x, weight, bias, eps=1e-6, *, t_rows=None, rows_per_item=None):
+def layer_norm_rows_ref(x, weight, bias, eps=1e-6, *, t_rows=None, rows_per_item=None,
+                        f32_prec="highest"):
     """Plain version of ``layer_norm_rows`` (same arguments, same result)."""
     _check_ln_args(x, weight, bias, t_rows, rows_per_item)
     dt = x.dtype
+    mode = F32_MODES[f32_mode_index(f32_prec, dt)]
     rnd = (lambda a: a) if dt == torch.float32 else (lambda a: a.to(dt).float())
     xs = x.float()
     if t_rows is not None:
         rows = torch.arange(x.shape[0], device=x.device) // rows_per_item
-        xs = rnd(xs + rnd(t_rows.float())[rows])
+        xs = rnd(xs + time_rows_under(rnd(t_rows.float()), mode)[rows])
     y = F.layer_norm(xs, (x.shape[1],), weight.float(), bias.float(), eps)
     return y.to(dt), xs.to(dt)
 
 
-def layer_norm_rows(x, weight, bias, eps=1e-6, *, t_rows=None, rows_per_item=None):
+def layer_norm_rows(x, weight, bias, eps=1e-6, *, t_rows=None, rows_per_item=None,
+                    f32_prec="highest"):
     """The block kernels' LayerNorm alone, for tests and measurements (the
     block launches the same kernel): (y, xs) with xs = x + t_rows[row //
     rows_per_item] (x itself without ``t_rows``) and y = LN(xs) · weight +
     bias, on rows x [R, C] of float32 or bfloat16. At bf16 xs is rounded to
     bf16 before the statistics (JAX's ``_layernorm_rows`` on the stored
     residual stream), which are float32, and y is rounded once. ``weight``
-    and ``bias`` [C] are read as float32.
+    and ``bias`` [C] are read as float32. At float32 the time rows are read
+    under contraction mode ``f32_prec`` (``time_rows_under``).
 
     A CPU tensor runs the plain version. A CUDA tensor launches the kernel
     (``layer_norm_rows.launches`` counts launches) or raises."""
     if x.device.type == "cpu":
         return layer_norm_rows_ref(x, weight, bias, eps, t_rows=t_rows,
-                                   rows_per_item=rows_per_item)
+                                   rows_per_item=rows_per_item, f32_prec=f32_prec)
     _check_ln_args(x, weight, bias, t_rows, rows_per_item)
+    mode = f32_mode_index(f32_prec, x.dtype)
     from diff3dhpe_torch.ops._build import load_library
 
     dt, f32 = x.dtype, torch.float32
@@ -533,7 +771,7 @@ def layer_norm_rows(x, weight, bias, eps=1e-6, *, t_rows=None, rows_per_item=Non
     with torch.cuda.device(x.device):
         err = fn(
             _ptr(x, dt), _ptr(t, dt), rows_per_item or 1, _ptr(w, f32), _ptr(b, f32), eps,
-            None if t is None else _ptr(xs, dt), _ptr(y, dt), r, c, ctypes.byref(launched),
+            None if t is None else _ptr(xs, dt), _ptr(y, dt), r, c, mode, ctypes.byref(launched),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     layer_norm_rows.launches += launched.value
@@ -589,18 +827,34 @@ def _kernel_limits(lib, x, n, heads, widths):
 
 
 def _count(wrapper, launched, dt):
-    """Adds a block entry point's launches [all, LayerNorms, GEMMs] (see
-    LaunchCount in csrc/fused_block.cu) to the wrapper's counts."""
-    every, ln, gemm = launched
+    """Adds a block entry point's launches [all, LayerNorms, GEMMs, splits,
+    f32-output tensor-core GEMMs, attention and LayerNorm instances under a
+    mode] (see LaunchCount in csrc/fused_block.cu) to the wrapper's counts."""
+    every, ln, gemm, split, gemm_mode, attn_mode, ln_mode = launched
     wrapper.launches += every
     wrapper.launches_ln += ln
+    wrapper.launches_split += split
+    wrapper.launches_gemm_mode += gemm_mode
+    wrapper.launches_attn_mode += attn_mode
+    wrapper.launches_ln_mode += ln_mode
     if dt == torch.float32:
         wrapper.launches_gemm_f32 += gemm
     else:
         wrapper.launches_bf16 += every
 
 
-def _launch_attn(x, block, n, heads):
+def _split_scratch(mode, r, c, hidden, device):
+    """(a_split, w_split) bf16 scratch of the products' splits under mode
+    index ``mode`` > 0 (csrc/fused_block.cu::ModeScratch's layout), or
+    (None, None) under "highest"."""
+    if mode == 0:
+        return None, None
+    bf = torch.bfloat16
+    return (torch.empty(2 * r * max(c, hidden), device=device, dtype=bf),
+            torch.empty(2 * (4 * c * c + 2 * hidden * c), device=device, dtype=bf))
+
+
+def _launch_attn(x, block, n, heads, mode=0):
     """Launches B5's kernels on rows x [R, C] and counts them."""
     from diff3dhpe_torch.ops._build import load_library
 
@@ -619,14 +873,16 @@ def _launch_attn(x, block, n, heads):
     ln_w, ln_b, wq, bq, wp, bp = operands
     empty = lambda cols: torch.empty((r, cols), device=x.device, dtype=dt)
     xn, qkv, att, out = empty(c), empty(3 * c), empty(c), empty(c)
-    launched = (ctypes.c_int * 3)()
+    a_split, w_split = _split_scratch(mode, r, c, c, x.device)
+    launched = (ctypes.c_int * _LAUNCH_KINDS)()
     fn = lib.diff3dhpe_fused_attn_block_f32 if dt == f32 else lib.diff3dhpe_fused_attn_block_bf16
     with torch.cuda.device(x.device):
         err = fn(
             _ptr(x, dt), _ptr(ln_w, f32), _ptr(ln_b, f32), block.norm1.eps,
             _ptr(wq, dt), _ptr(bq, f32), _ptr(wp, dt), _ptr(bp, f32),
             _ptr(xn, dt), _ptr(qkv, dt), _ptr(att, dt), _ptr(out, dt),
-            r, c, n, heads, (c // heads) ** -0.5,
+            r, c, n, heads, (c // heads) ** -0.5, mode,
+            _ptr(a_split, torch.bfloat16), _ptr(w_split, torch.bfloat16),
             launched, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _count(fused_attention_block, launched, dt)
@@ -636,11 +892,11 @@ def _launch_attn(x, block, n, heads):
 
 
 def _launch(wrapper, x, block, n, heads, n_pad, j_groups, t_rows, rows_per_item, out_ln,
-            dp_scales):
+            dp_scales, mode=0):
     """Launches the block kernels on rows x [R, C]: the rows layout (groups
     of n_pad rows) with j_groups == 0, else the cols layout; ``out_ln`` is
-    (w, b, eps) or None, ``dp_scales`` per row. Counts the launches on
-    ``wrapper``."""
+    (w, b, eps) or None, ``dp_scales`` per row, ``mode`` the contraction
+    mode's index. Counts the launches on ``wrapper``."""
     from diff3dhpe_torch.ops._build import load_library
 
     lib = load_library("fused_block")
@@ -669,7 +925,8 @@ def _launch(wrapper, x, block, n, heads, n_pad, j_groups, t_rows, rows_per_item,
     empty = lambda cols: torch.empty((r, cols), device=x.device, dtype=dt)
     xs = empty(c) if t_rows is not None else None
     xn, qkv, attn, h1, mid, out = empty(c), empty(3 * c), empty(c), empty(c), empty(hidden), empty(c)
-    launched = (ctypes.c_int * 3)()
+    a_split, w_split = _split_scratch(mode, r, c, hidden, x.device)
+    launched = (ctypes.c_int * _LAUNCH_KINDS)()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     fn = lib.diff3dhpe_fused_block_f32 if dt == f32 else lib.diff3dhpe_fused_block_bf16
     with torch.cuda.device(x.device):
@@ -682,7 +939,8 @@ def _launch(wrapper, x, block, n, heads, n_pad, j_groups, t_rows, rows_per_item,
             olnw, olnb, out_ln[2] if out_ln is not None else 0.0,
             _ptr(xs, dt), _ptr(xn, dt), _ptr(qkv, dt), _ptr(attn, dt), _ptr(h1, dt),
             _ptr(mid, dt), _ptr(out, dt),
-            r, c, hidden, n, n_pad, j_groups, heads, d ** -0.5,
+            r, c, hidden, n, n_pad, j_groups, heads, d ** -0.5, mode,
+            _ptr(a_split, torch.bfloat16), _ptr(w_split, torch.bfloat16),
             launched, stream,
         )
     _count(wrapper, launched, dt)

@@ -64,12 +64,17 @@ VARIANTS = (
     ("pallas_f32", dict(fast_eval=False, compute_dtype="float32", use_pallas_attention=True),
      None),
     ("fast_f32", dict(fast_eval=True, compute_dtype="float32"), "fast_f32_mxhighest"),
+    # Every step's f32 fused forward at the contraction mode "default"
+    # (F32_PREC below; JAX's DIFF_FUSED_F32_PREC=default).
+    ("fast_f32_mxdefault", dict(fast_eval=True, compute_dtype="float32"), "fast_f32_mxdefault"),
     ("fast_bf16", dict(fast_eval=True, compute_dtype="bfloat16"), "fast_bf16"),
     ("fast_bf16_f32head", dict(fast_eval=True, compute_dtype="bfloat16", eval_f32_head=True),
      "fast_bf16_f32head"),
     ("fast_mixed1", dict(fast_eval=True, compute_dtype="bfloat16", eval_f32_head=True,
-                         eval_f32_final_steps=1, eval_final_prec="high3"),
-     "fast_mixed1_h3 / fast_mixed1_hx"),
+                         eval_f32_final_steps=1, eval_final_prec="high3"), "fast_mixed1_h3"),
+    ("fast_mixed1_default", dict(fast_eval=True, compute_dtype="bfloat16", eval_f32_head=True,
+                                 eval_f32_final_steps=1, eval_final_prec="default"),
+     "fast_mixed1"),
     ("fast_mixed2", dict(fast_eval=True, compute_dtype="bfloat16", eval_f32_head=True,
                          eval_f32_final_steps=2, eval_final_prec="high3"), "fast_mixed2_hx"),
     ("fast_f32_rep4", dict(fast_eval=True, compute_dtype="float32", repeat_n=4),
@@ -81,12 +86,13 @@ VARIANTS = (
                                        eval_final_prec="high3", eval_f32_tail_pairs=k),
        f"fast_mixed1_h3_tail{k}") for k in (6, 4, 2)),
 )
-# JAX's variants that the port refuses; the table lists each with the
-# refusal's text.
-NOT_PORTED = (
-    ("fast_f32_mxdefault", dict(fast_eval=True, compute_dtype="float32",
-                                eval_final_prec="default")),
-)
+# The contraction mode of a float32 fused eval, where a variant's is not
+# "highest": the Config's eval_final_prec reaches only the mixed mode's
+# final steps, so the study passes it to the f32 forward itself.
+F32_PREC = {"fast_f32_mxdefault": "default"}
+# JAX's table (scripts/accuracy_study.json), whose gate verdicts the
+# table sets beside the port's.
+JAX_TABLE = os.path.join(ROOT, "scripts", "accuracy_study.json")
 
 
 def is_gated(name: str) -> bool:
@@ -273,18 +279,30 @@ def train(runner, cfg, train_ds, val_ds, reuse: bool) -> dict:
     return record
 
 
-def evaluate_variant(cfg, params, test_ds, fixed, device, x_init=None):
+def evaluate_variant(cfg, params, test_ds, fixed, device, x_init=None, f32_prec=None):
     """e1, e2, e3, ev of ``Runner.evaluate`` with ``cfg`` (a variant's
     Config) on ``params``, and its predictions on the ``fixed`` batches
     (name -> Batch). x_T: ``x_init`` (batch index -> array), default the
-    study's numpy draws."""
+    study's numpy draws. ``f32_prec``: the contraction mode of a float32
+    ``fast_eval`` forward (every step's), in place of "highest"."""
+    import dataclasses
+
     import torch
 
     from diff3dhpe_torch.engine.runner import Runner
+    from diff3dhpe_torch.engine.steps import make_eval_step, make_fast_denoise_fn
 
     runner = Runner(cfg, test_ds.num_joints, test_ds.joints_left, test_ds.joints_right,
                     device=device)
     runner.set_params(params)
+    if f32_prec is not None:
+        if not (cfg.fast_eval and cfg.compute_dtype == "float32"):
+            raise ValueError(f"f32_prec={f32_prec!r} sets a float32 fast_eval forward's mode")
+        runner.eval_diffusion = dataclasses.replace(
+            runner.diffusion, denoise_fn=make_fast_denoise_fn(runner.model, f32_prec=f32_prec))
+        runner.eval_step = make_eval_step(
+            runner.eval_diffusion, runner.joints_left, runner.joints_right,
+            repeat_n=cfg.repeat_n, tta=cfg.test_time_augmentation, device=runner.device)
     rows = cfg.batch_size_eval * (2 if cfg.test_time_augmentation else 1) * cfg.repeat_n
     f_out = cfg.number_of_frames if cfg.out_all else 1
     if x_init is None:
@@ -325,10 +343,24 @@ def deviations(raw_preds, test_ds, base_e1):
     return out
 
 
+def verdicts_beside_jax(gate, variants, jax_table=JAX_TABLE):
+    """{variant: {"port": passes, "jax": JAX's passes for its counterpart,
+    "agree": ...}} for the gated variants whose counterpart JAX's table
+    gates."""
+    with open(jax_table) as f:
+        jax_paths = json.load(f)["gate"]["paths"]
+    out = {}
+    for name, _, jax in variants:
+        if name in gate and jax in jax_paths:
+            port, theirs = gate[name]["passes"], jax_paths[jax]["passes"]
+            out[name] = dict(jax_variant=jax, port=port, jax=theirs, agree=port == theirs)
+    return out
+
+
 def main(env=None) -> dict:
     """Runs the study; writes and returns its table."""
     from diff3dhpe_torch.device import resolve_device
-    from diff3dhpe_torch.engine.runner import Runner, check_supported
+    from diff3dhpe_torch.engine.runner import Runner
     from diff3dhpe_torch.utils.profiling import card_info
 
     s = settings(env)
@@ -365,7 +397,8 @@ def main(env=None) -> dict:
             print(f"{name}: reusing {path}", flush=True)
             continue
         vcfg = cfg.replace(sampling_timesteps=s["ddim"], **patch)
-        r = evaluate_variant(vcfg, params, test_ds, fixed, s["device"])
+        r = evaluate_variant(vcfg, params, test_ds, fixed, s["device"],
+                             f32_prec=F32_PREC.get(name))
         eval_s[name] = r.pop("eval_s")
         print(f"{name}: MPJPE {r['e1']:.4f} mm  P-MPJPE {r['e2']:.4f} mm  N-MPJPE "
               f"{r['e3']:.4f} mm  MPJVE {r['ev']:.4f} mm ({eval_s[name]:.1f} s)", flush=True)
@@ -379,14 +412,7 @@ def main(env=None) -> dict:
         for split in fixed:
             raw_preds[split][name] = z[f"preds_{split}"]
     base = results[BASELINE]
-    not_ported = {}
-    for name, patch in NOT_PORTED:
-        try:
-            check_supported(cfg.replace(sampling_timesteps=s["ddim"], **patch), s["device"])
-        except ValueError as e:
-            not_ported[name] = str(e)
-        else:
-            raise RuntimeError(f"{name} is listed as not ported, yet the port accepts it")
+    gate = compute_gate(results, base)
 
     table = {
         "config": dict(
@@ -413,10 +439,11 @@ def main(env=None) -> dict:
                      gated_metrics=list(GATED_METRICS), baseline=BASELINE,
                      baseline_mpjpe_mm=round(base["e1"], 4),
                      baseline_metrics_mm={m: round(base[m], 4) for m in GATED_METRICS},
-                     paths=compute_gate(results, base)),
+                     paths=gate),
         "raw_prediction_deviation_vs_plain_f32": deviations(raw_preds, test_ds, base["e1"]),
         "jax_counterparts": {name: jax for name, _, jax in variants},
-        "not_ported": not_ported,
+        "f32_prec": {name: F32_PREC[name] for name, _, _ in variants if name in F32_PREC},
+        "verdicts_beside_jax": verdicts_beside_jax(gate, variants),
     }
     with open(out_json, "w") as f:
         json.dump(table, f, indent=2)

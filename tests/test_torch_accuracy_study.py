@@ -87,7 +87,7 @@ def test_tiny_study_writes_jax_keys_and_resumes(tmp_path, capsys):
     assert set(jax_table["config"]) <= set(table["config"])
     assert set(table) == {"config", "results", "deltas_vs_plain_f32_mm", "gate",
                           "raw_prediction_deviation_vs_plain_f32", "jax_counterparts",
-                          "not_ported"}
+                          "f32_prec", "verdicts_beside_jax"}
     assert list(table["results"]) == list(table["deltas_vs_plain_f32_mm"]) == names
     assert all(set(r) == set(study.GATED_METRICS) and all(np.isfinite(list(r.values())))
                for r in table["results"].values())
@@ -102,8 +102,15 @@ def test_tiny_study_writes_jax_keys_and_resumes(tmp_path, capsys):
         assert set(devs) == {"clip_frac_plain"} | set(names[1:])
         assert set(devs["fast_f32"]) == set(
             jax_table["raw_prediction_deviation_vs_flax_f32"][split]["fast_f32_mxhighest"])
-    assert set(table["not_ported"]) == {"fast_f32_mxdefault"}
-    assert table["not_ported"]["fast_f32_mxdefault"].startswith("eval_final_prec=")
+    # JAX's "default" rows run (ROADMAP A.11): every step's f32 forward at
+    # "default", and the mixed step's final one; each gated beside JAX's.
+    assert {"fast_f32_mxdefault", "fast_mixed1_default"} <= set(table["gate"]["paths"])
+    assert table["f32_prec"] == {"fast_f32_mxdefault": "default"}
+    assert table["jax_counterparts"]["fast_mixed1_default"] == "fast_mixed1"
+    assert table["jax_counterparts"]["fast_mixed1"] == "fast_mixed1_h3"
+    verdicts = table["verdicts_beside_jax"]
+    assert verdicts["fast_f32_mxdefault"]["jax"] is False and verdicts["fast_mixed1"]["jax"]
+    assert all(v["agree"] == (v["port"] == v["jax"]) for v in verdicts.values())
     for k in (6, 4, 2):  # the float32 tails run, under JAX's names
         assert table["jax_counterparts"][f"fast_mixed1_h3_tail{k}"] == f"fast_mixed1_h3_tail{k}"
     cfg = table["config"]

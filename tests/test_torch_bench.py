@@ -38,6 +38,8 @@ BENCH_CASES = {
     "plain_module_use_pallas": {"BENCH_FAST": "0", "BENCH_PALLAS": "1", "BENCH_DTYPE": "float32"},
     "repeat_n": {"BENCH_REPEAT_N": "2", "BENCH_BATCH": "1", "BENCH_REPEATS": "4"},
     "mixed_f32_tail": {"BENCH_TAIL_PAIRS": "1"},
+    "mixed_final_default": {"BENCH_FINAL_PREC": "default"},
+    "mixed_f32_tail_default": {"BENCH_TAIL_PAIRS": "1", "BENCH_FINAL_PREC": "default"},
     "exported_mixed_tail_cols": {"BENCH_EXPORTED": "1", "BENCH_TAIL_PAIRS": "1",
                                  "BENCH_TMODE": "cols"},
     "exported_float32": {"BENCH_EXPORTED": "1", "BENCH_DTYPE": "float32"},
@@ -77,7 +79,7 @@ def test_bench_prints_one_line(case, capsys):
 @pytest.mark.parametrize("knob,value,extra", [
     ("BENCH_TAIL_PAIRS", "2", {"BENCH_DTYPE": "float32"}),  # a tail needs the mixed mode
     ("BENCH_TAIL_PAIRS", "1", {"BENCH_FAST": "0"}),
-    ("BENCH_FINAL_PREC", "default", {}),
+    ("BENCH_FINAL_PREC", "tf32", {}),  # not a contraction mode
     ("BENCH_DTYPE", "float16", {}), ("BENCH_TMODE", "diagonal", {}), ("BENCH_REPEATS", "2", {}),
 ])
 def test_bench_refuses(knob, value, extra):

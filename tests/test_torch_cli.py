@@ -117,6 +117,7 @@ BF16 = ["--compute-dtype", "bfloat16"]
     ("remat", [], 0.0),
     ("bf16_module", BF16, None),
     ("use_pallas_attention", BF16, None),
+    ("mixed", MIXED + ["--eval-final-prec", "default"], None),  # the final step at one bf16 pass
 ])
 def test_main_in_the_kernel_configurations(tmp_path, default_errors, name, extra, tol_mm):
     """The configurations that run kernels on the card run their plain
@@ -149,7 +150,7 @@ def test_main_without_evaluate_exits(tmp_path, capsys):
 @pytest.mark.parametrize("field,extra", [
     ("mesh_shape", ["--mesh-shape", "data:8"]),
     ("eval_f32_tail_pairs", ["--fast-eval", "--eval-f32-tail-pairs", "1"]),  # needs bf16
-    ("eval_final_prec", MIXED + ["--eval-final-prec", "default"]),
+    ("mesh_shape", ["--mesh-shape", "data:2,model:2"]),  # tensor parallelism: ROADMAP A.12
     ("dataset", ["-d", "not_a_dataset"]),
     ("evaluate", ["--evaluate", "not_a_port_checkpoint"]),
 ])

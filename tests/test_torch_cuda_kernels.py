@@ -20,8 +20,9 @@ from diff3dhpe_torch import (
 )
 from diff3dhpe_torch.ops._build import load_library
 from diff3dhpe_torch.ops.fused_block import (
-    LN_MAX_C, _gemm_bf16, _gemm_bf16_ref, _gemm_f32, _gemm_f32_ref, layer_norm_rows,
-    layer_norm_rows_ref,
+    LN_MAX_C, _gemm_bf16, _gemm_bf16_ref, _gemm_f32, _gemm_f32_ref, _gemm_wgmma_f32,
+    _gemm_wgmma_f32_ref, block_attention, block_attention_ref, layer_norm_rows,
+    layer_norm_rows_ref, split_bf16, split_bf16_ref,
 )
 
 C = 128  # heads = C // 64: head width 64
@@ -874,9 +875,13 @@ def _operator_cases(device):
     q, k, v = qkv.permute(2, 0, 3, 1, 4)
     long_q, long_k, long_v = (rand(4, 81, 64) for _ in range(3))
     return {
-        "fused_transformer_block": (x, t_rows, dp, *ops, 17, 2, 17, 17),
-        "fused_transformer_block_bf16": (x.bfloat16(), t_rows, None, *ops, 17, 2, 17, 17),
-        "fused_temporal_block_cols": (rand(2 * 27, 17 * C), rand(2, C), None, *ops, 27, 17, 2),
+        "fused_transformer_block": (x, t_rows, dp, *ops, 17, 2, 17, 17, 0),
+        "fused_transformer_block_high3": (x, t_rows, dp, *ops, 17, 2, 17, 17, 1),
+        "fused_transformer_block_bf16": (x.bfloat16(), t_rows, None, *ops, 17, 2, 17, 17, 0),
+        "fused_temporal_block_cols": (rand(2 * 27, 17 * C), rand(2, C), None, *ops, 27, 17, 2,
+                                      0),
+        "fused_temporal_block_cols_default": (rand(2 * 27, 17 * C), rand(2, C), None, *ops, 27,
+                                              17, 2, 2),
         "fused_grand_attention": (q, k, v, None),
         "fused_grand_attention_bf16": (q.bfloat16(), k.bfloat16(), v.bfloat16(), None),
         "fused_grand_attention_long": (long_q, long_k, long_v, None),
@@ -884,8 +889,9 @@ def _operator_cases(device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["fused_transformer_block", "fused_transformer_block_bf16",
-                                  "fused_temporal_block_cols", "fused_grand_attention",
+@pytest.mark.parametrize("case", ["fused_transformer_block", "fused_transformer_block_high3",
+                                  "fused_transformer_block_bf16", "fused_temporal_block_cols",
+                                  "fused_temporal_block_cols_default", "fused_grand_attention",
                                   "fused_grand_attention_bf16", "fused_grand_attention_long"])
 def test_operators_pass_opcheck_on_the_card(cuda_device, case):
     """``torch.library.opcheck`` on each operator's CUDA implementation (the
@@ -895,7 +901,192 @@ def test_operators_pass_opcheck_on_the_card(cuda_device, case):
     from diff3dhpe_torch.ops import read_launches, reset_launches
 
     args = _operator_cases(cuda_device)[case]
-    name = case.replace("_bf16", "").replace("_long", "")
+    name = case.replace("_bf16", "").replace("_long", "").replace("_high3", "").replace(
+        "_default", "")
     reset_launches()
     torch.library.opcheck(getattr(torch.ops.diff3dhpe, name).default, args)
     assert sum(read_launches().values()) > 0
+
+
+# ---- the f32 contraction modes "high3" and "default" ------------------------
+# "high3": kernel and plain version sum the same exact bf16 products in f32
+# in other orders: 1e-5 of max|plain| (2e-5 through a whole block, whose
+# LayerNorms pass differences on). "default": a bf16 rounding of an operand
+# (q, k, e, v, or an activation between products) flips where the f32 sums
+# before it differ in order: max and mean |kernel − plain| within 1e-3 and
+# 2.5e-5 of max|plain|, phase 21's bars (chip_smoke.py). The separation r =
+# mean|kernel − plain| / mean|plain − plain at "highest"| within phase 21's
+# MODE_SEPARATION: a kernel that skipped a rounding or ran another mode sits
+# at r >= 0.4 (tests/test_torch_contract_modes.py).
+MODE_REL_TOL = {"high3": 1e-5, "default": None}
+MODE_SEPARATION = {"default": 0.1, "high3": 0.45}
+
+
+def _assert_mode_close(out, ref, mode, tol=None, highest=None):
+    diff, scale = (out - ref).abs(), ref.abs().max()
+    if mode == "default":
+        assert diff.max() <= 1e-3 * scale and diff.mean() <= 2.5e-5 * scale, (diff.max(), scale)
+    else:
+        assert diff.max() <= (tol or MODE_REL_TOL[mode]) * scale, (diff.max(), scale)
+    if highest is not None:  # the kernel is nearer its mode's plain version than "highest"
+        r = diff.mean() / (ref - highest).abs().mean()
+        assert r <= MODE_SEPARATION[mode], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo", [True, False])
+@pytest.mark.parametrize("shape", [(1536, 512), (17, 8), (3, 1000, 24)])
+def test_split_bf16_matches_ref(cuda_device, shape, lo):
+    """The split is exact: bit for bit its plain version."""
+    x = torch.randn(*shape, generator=torch.Generator(device=cuda_device).manual_seed(1),
+                    device=cuda_device) * 3
+    before = split_bf16.launches
+    hi, low = split_bf16(x, lo)
+    torch.cuda.synchronize()
+    assert split_bf16.launches - before == 1
+    ref_hi, ref_lo = split_bf16_ref(x, lo)
+    assert torch.equal(hi, ref_hi)
+    assert (low is None) == (not lo) and (low is None or torch.equal(low, ref_lo))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("epilogue,with_rscale", [("bias", False), ("gelu", False),
+                                                  ("residual", True)])
+@pytest.mark.parametrize("m,n,k", [(170, 576, 192), (1000, 1024, 512), (300, 512, 1024)])
+def test_gemm_wgmma_f32_matches_ref(cuda_device, m, n, k, epilogue, with_rscale, passes):
+    """The f32-output tensor-core GEMM of the modes at 1 and 3 passes, with
+    partial tiles along M, N and K."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + n)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=cuda_device)
+    (a_hi, a_lo), (w_hi, w_lo) = split_bf16(randn(m, k)), split_bf16(randn(n, k) * k ** -0.5)
+    if passes == 1:
+        a_lo = w_lo = None
+    bias = randn(n)
+    res = randn(m, n) if epilogue == "residual" else None
+    rscale = ((torch.rand(m, 2, generator=gen, device=cuda_device) < 0.7) / 0.7).float() \
+        if with_rscale else None
+    before = _gemm_wgmma_f32.launches
+    out = _gemm_wgmma_f32(a_hi, a_lo, w_hi, w_lo, bias, epilogue, res, rscale)
+    torch.cuda.synchronize()
+    assert _gemm_wgmma_f32.launches - before == 1 and out.dtype == torch.float32
+    ref = _gemm_wgmma_f32_ref(a_hi, a_lo, w_hi, w_lo, bias, epilogue, res, rscale)
+    _assert_mode_close(out, ref, "high3")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["high3", "default"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n,n_pad,groups", [(17, 17, 40), (27, 32, 12), (243, 243, 3),
+                                            (81, 81, 4)])
+def test_block_attention_modes_match_ref(cuda_device, mode, d, n, n_pad, groups):
+    """The f32 attention step under each mode: the small-group kernel (n <=
+    32) and the tiled one, which under a mode forms the row maxima in a
+    first pass so that e is rounded relative to the row's maximum, as the
+    plain version rounds it; each nearer its mode's plain version than the
+    mode is to "highest"."""
+    heads = 2
+    qkv = torch.randn(groups * n_pad, 3 * heads * d, device=cuda_device,
+                      generator=torch.Generator(device=cuda_device).manual_seed(n + d))
+    before = block_attention.launches
+    out = block_attention(qkv, n, heads, n_pad, f32_prec=mode)
+    torch.cuda.synchronize()
+    assert block_attention.launches - before == 1
+    real = lambda a: a.reshape(groups, n_pad, -1)[:, :n]
+    ref = block_attention_ref(qkv, n, heads, n_pad, f32_prec=mode)
+    exact = block_attention_ref(qkv, n, heads, n_pad)
+    _assert_mode_close(real(out), real(ref), mode, highest=real(exact))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["high3", "default"])
+def test_layer_norm_time_add_modes_match_ref(cuda_device, mode):
+    """The time add reads t as bf16(t) or t_hi + t_lo: bit for bit the
+    plain version's xs; y to 1e-5 (f32 statistics in another order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x, t = (torch.randn(r, 512, generator=gen, device=cuda_device) for r in (1001, 7))
+    w, b = torch.randn(512, device=cuda_device), torch.randn(512, device=cuda_device)
+    kw = dict(t_rows=t, rows_per_item=143, f32_prec=mode)
+    (y, xs), (ry, rxs) = layer_norm_rows(x, w, b, **kw), layer_norm_rows_ref(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(xs, rxs)
+    torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-5)
+    assert not torch.equal(xs, layer_norm_rows_ref(x, w, b, t_rows=t, rows_per_item=143)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["high3", "default"])
+@pytest.mark.parametrize("kind", ["rows17", "rows243", "cols", "attn_block"])
+def test_f32_blocks_under_modes_match_ref(cuda_device, mode, kind):
+    """B1 (with the time add and the out-LN), B2 and B5 at f32 under each
+    mode: 15 launches a block (8 splits, 4 tensor-core GEMMs, the attention,
+    2 LNs) plus the out-LN, no exact f32 GEMM, the attention's and the
+    first LN's instances under the mode; 8 for B5 (4 splits, 2 GEMMs, the
+    attention, 1 LN without the time add). At "default" each is nearer its
+    plain version than the mode is to "highest" (at "high3" the tensor
+    cores' accumulation is as far from exact f32 sums as the mode is)."""
+    model = _model(cuda_device, embed_dim=256, head_dim=64 if kind != "rows243" else 128)
+    heads = 256 // (64 if kind != "rows243" else 128)
+    block = model.STEblocks[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=cuda_device)
+    wrapper = {"cols": fused_temporal_block_cols,
+               "attn_block": fused_attention_block}.get(kind, fused_transformer_block)
+    counts = lambda: [getattr(wrapper, k) for k in (
+        "launches", "launches_split", "launches_gemm_mode", "launches_gemm_f32",
+        "launches_attn_mode", "launches_ln_mode")]
+    before = counts()
+    with torch.no_grad():
+        if kind == "attn_block":
+            x = randn(40 * 17, 256)
+            out, ref = (f(x, block, 17, heads, f32_prec=mode)
+                        for f in (fused_attention_block, fused_attention_block_ref))
+            highest = fused_attention_block_ref(x, block, 17, heads)
+            want = [8, 4, 2, 0, 1, 0]
+        elif kind == "cols":
+            x, t = randn(2 * 27, 17 * 256), randn(2, 256)
+            kw = dict(t_rows=t, out_ln=model.Temporal_norm, f32_prec=mode)
+            out = fused_temporal_block_cols(x, block, 27, 17, heads, **kw)
+            ref = fused_temporal_block_cols_ref(x, block, 27, 17, heads, **kw)
+            highest = fused_temporal_block_cols_ref(x, block, 27, 17, heads,
+                                                    **dict(kw, f32_prec="highest"))
+            want = [16, 8, 4, 0, 1, 1]
+        else:
+            n = 17 if kind == "rows17" else 243
+            x, t = randn(4 * n, 256), randn(2, 256)
+            kw = dict(t_rows=t, rows_per_item=2 * n, out_ln=model.Spatial_norm, f32_prec=mode)
+            out = fused_transformer_block(x, block, n, heads, **kw)
+            ref = fused_transformer_block_ref(x, block, n, heads, **kw)
+            highest = fused_transformer_block_ref(x, block, n, heads,
+                                                  **dict(kw, f32_prec="highest"))
+            want = [16, 8, 4, 0, 1, 1]
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == want
+    _assert_mode_close(out, ref, mode, tol=2e-5, highest=highest if mode == "default" else None)
+
+
+@pytest.mark.cuda
+def test_mixed_eval_final_step_modes(cuda_device):
+    """The mixed eval step at each final mode: "highest" keeps the exact
+    f32 GEMM, "high3" and "default" send the final forward's products (2
+    blocks of 4) to the split and the tensor-core GEMM; "high3" lands
+    within 1e-4 of max|out| of the exact final step."""
+    model = _model(cuda_device)
+    gen = lambda: torch.Generator(device=cuda_device).manual_seed(9)
+    x2d = torch.randn(2, 27, 17, 2, device=cuda_device, generator=gen())
+    kw = dict(timesteps=50, sampling_timesteps=3, clip_denoised=True)
+    preds, counts = {}, {}
+    for mode in ("highest", "high3", "default"):
+        step = make_eval_step(make_mixed_diffusion(model, f32_prec=mode, **kw),
+                              [4, 5, 6, 11, 12, 13], [1, 2, 3, 14, 15, 16], device=cuda_device)
+        before = (fused_transformer_block.launches_gemm_f32,
+                  fused_transformer_block.launches_gemm_mode)
+        preds[mode] = step(x2d, x2d, generator=gen())
+        torch.cuda.synchronize()
+        counts[mode] = (fused_transformer_block.launches_gemm_f32 - before[0],
+                        fused_transformer_block.launches_gemm_mode - before[1])
+    assert counts["highest"] == (8, 0)
+    assert counts["high3"] == counts["default"] == (0, 8)
+    assert all(torch.isfinite(p).all() for p in preds.values())
+    scale = preds["highest"].abs().max()
+    assert (preds["high3"] - preds["highest"]).abs().max() <= 1e-4 * scale

@@ -141,9 +141,11 @@ def _op_cases():
     q, k, v = qkv.permute(2, 0, 3, 1, 4)
     cols = torch.randn(2 * F, 17 * 32, generator=torch.Generator().manual_seed(2))
     return {
-        "fused_transformer_block": (x, t_rows, dp, *ops, 17, 4, 17, 17),
-        "fused_transformer_block_bf16": (x.bfloat16(), t_rows, None, *ops, 17, 4, 17, 17),
-        "fused_temporal_block_cols": (cols, torch.randn(2, 32), None, *ops, F, 17, 4),
+        "fused_transformer_block": (x, t_rows, dp, *ops, 17, 4, 17, 17, 0),
+        "fused_transformer_block_high3": (x, t_rows, dp, *ops, 17, 4, 17, 17, 1),
+        "fused_transformer_block_bf16": (x.bfloat16(), t_rows, None, *ops, 17, 4, 17, 17, 0),
+        "fused_temporal_block_cols": (cols, torch.randn(2, 32), None, *ops, F, 17, 4, 0),
+        "fused_temporal_block_cols_default": (cols, torch.randn(2, 32), None, *ops, F, 17, 4, 2),
         "fused_grand_attention": (q, k, v, None),
         "fused_grand_attention_bf16": (q.bfloat16(), k.bfloat16(), v.bfloat16(), 0.35),
         "fused_grand_attention_long": tuple(torch.randn(6, 81, 8) for _ in range(3)) + (None,),
@@ -157,7 +159,8 @@ def test_operators_pass_opcheck(case):
     strides), and its tracing by AOT autograd."""
     import diff3dhpe_torch.ops  # noqa: F401
 
-    name = case.replace("_bf16", "").replace("_long", "")
+    name = case.replace("_bf16", "").replace("_long", "").replace("_high3", "").replace(
+        "_default", "")
     op = getattr(torch.ops.diff3dhpe, name).default
     torch.library.opcheck(op, _op_cases()[case])
 
@@ -205,7 +208,7 @@ def test_export_cli_end_to_end(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra,field", [
     (["--export-sharded"], "export_sharded"),
-    (["--export-platforms", "cpu,cuda"], "export_platforms"),
+    (["--export-platforms", "cpu,tpu"], "export_platforms"),  # tpu: not a torch platform
 ])
 def test_export_cli_refuses_what_is_not_taken(tmp_path, extra, field):
     with pytest.raises(ValueError, match=f"^{field}="):

@@ -160,7 +160,7 @@ def test_mixed_runner_rebuilds_its_bf16_snapshot():
     ("mesh_shape", dict(mesh_shape="data:8")),
     ("mesh_shape", dict(mesh_shape="data:4,model:2")),
     ("eval_f32_tail_pairs", dict(eval_f32_tail_pairs=2, fast_eval=True)),  # needs bf16
-    ("eval_final_prec", dict(eval_final_prec="default", **MIXED)),
+    ("eval_final_prec", dict(eval_final_prec="tf32", **MIXED)),  # not a mode of JAX's
     ("compute_dtype", dict(compute_dtype="float64")),
     ("compute_dtype", dict(compute_dtype="float16")),
 ])
@@ -177,6 +177,7 @@ def test_runner_accepts_what_means_one_device_and_exact_f32():
     runner evaluates (tests/test_torch_bf16_hd128.py holds the results)."""
     for overrides in (dict(mesh_shape=None), dict(mesh_shape="data:1"),
                       dict(eval_final_prec="highest", **MIXED), dict(eval_final_prec="high3"),
+                      dict(eval_final_prec="default", **MIXED),
                       dict(remat=True), dict(remat=True, **MIXED),
                       dict(eval_f32_tail_pairs=1, **MIXED)):
         check_supported(Config(**{**BASE, **overrides}))

@@ -58,24 +58,25 @@ def eval_step(port, fused, repeat_n, mesh=None, eta=0.0):
                           device="cpu", mesh=mesh)
 
 
-def train_step(port, fast, mesh=None):
+def train_step(port, fast, mesh=None, dtype=torch.float32, attn_bwd=False):
     """One AdamW step of ``port`` at TRAIN_KW: the fast-train path with
-    drop-path (``fast``) or the plain module without."""
-    fn = (make_fast_train_denoise_fn(port, DROP_PATH) if fast
+    drop-path (``fast``, in ``dtype``, with the attention backward kernels
+    under ``attn_bwd``) or the plain module without."""
+    fn = (make_fast_train_denoise_fn(port, DROP_PATH, attn_bwd=attn_bwd, dtype=dtype) if fast
           else make_train_denoise_fn(port, 0.0))
     optimizer, scheduler = make_optimizer(port.parameters(), LR, 0.99, steps_per_epoch=10)
     return make_train_step(GaussianDiffusion.create(fn, **TRAIN_KW), optimizer, scheduler,
                            mesh=mesh)
 
 
-def run_train(weights, fast, batch, mesh=None, **draws):
+def run_train(weights, fast, batch, mesh=None, dtype=torch.float32, attn_bwd=False, **draws):
     """(loss, {name: grad}, {name: param after the step}) of one step on
     ``batch`` (gt, x2d) with the injected ``draws`` or, with ``seed``, the
     generator's."""
     port = model(weights).train()
     seed = draws.pop("seed", None)
     generator = None if seed is None else torch.Generator().manual_seed(seed)
-    loss = train_step(port, fast, mesh)(*batch, generator=generator, **draws)
+    loss = train_step(port, fast, mesh, dtype, attn_bwd)(*batch, generator=generator, **draws)
     return (loss, {n: p.grad.clone() for n, p in port.named_parameters()},
             {n: p.detach().clone() for n, p in port.named_parameters()})
 
@@ -206,7 +207,17 @@ def run_cases(spec, mesh, out_dir):
     return res
 
 
-def run_rank(rank, world_size, init_file, spec_path, out_dir):
+def run_bf16_cases(spec, mesh, out_dir):
+    """The bf16 fast-train step with the attention backward kernels
+    (ROADMAP C.10; tests/test_torch_parallel_bf16.py) on ``spec["batch"]``
+    with ``spec["draws"]``, the global draws, injected."""
+    return dict(train_bf16=run_train(spec["weights"], True, spec["batch"], mesh,
+                                     dtype=torch.bfloat16, attn_bwd=True, **spec["draws"]))
+
+
+def run_rank(rank, world_size, init_file, spec_path, out_dir, cases="run_cases"):
+    """Starts the rank and runs the spec's cases through ``cases``, a
+    function of this module by name (``run_cases``, ``run_bf16_cases``)."""
     from diff3dhpe_torch.parallel import start_ranks
 
     torch.set_num_threads(1)
@@ -214,7 +225,7 @@ def run_rank(rank, world_size, init_file, spec_path, out_dir):
                        world_size=world_size, timeout=120)
     try:
         spec = torch.load(spec_path, weights_only=False)
-        res = dict(mesh=repr(mesh), cases=run_cases(spec, mesh, out_dir))
+        res = dict(mesh=repr(mesh), cases=globals()[cases](spec, mesh, out_dir))
     except Exception:  # the rank's failure, reported to the test as its result
         res = dict(error=traceback.format_exc())
         raise
