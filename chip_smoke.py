@@ -84,7 +84,12 @@ the port's seeded init:
          shapes and each of their kernels alone against its plain version,
          and the mixed step with its final forward at each mode (4b). The
          Runner's mixed final steps run at Config.eval_final_prec, "high3"
-         by default, so every mixed path through the Runner runs them.
+         by default, so every mixed path through the Runner runs them. The
+         attention step under a mode is the tensor-core kernel of
+         csrc/grand_attn_mode.cuh, also held alone in both layouts (21);
+         B3, B4 and B6 at f32 under the session matmul precision "default"
+         (Config.matmul_precision) against their plain versions (21b), and
+         the TPU config, which sets it, through the CLI (11c).
 
 Any failed check raises and the script exits non-zero.
 
@@ -117,7 +122,7 @@ epoch's loss, validation MPJPE and seconds, samples/s through fit, the
 checkpoint's size and write seconds, peak memory, the launches of one
 epoch, the resumed run and --evaluate best_epoch against the unbroken run,
 and no host wait inside the train loop; 11c the same on the TPU config at
-bf16; 12 bench_torch.py's JSON line at mixed and float32, with its launches;
+bf16 and the session matmul precision "default"; 12 bench_torch.py's JSON line at mixed and float32, with its launches;
 13 the accuracy study's table, its gate and its launches; 9b B1 at groups
 of 27 and 15, B2 with j_groups = 15 and B6 at n = 15, f32 and bf16, vs
 plain; 14 the 3DHP entry point's runs, frames/s and launches; 15 HumanEva's
@@ -133,9 +138,12 @@ step-1 gradients, the ranks' parameters, the launches of each rank, the
 gradient all-reduce's seconds (gloo through host memory: no multi-GPU
 figure), the sharded export), with what the profiler records before,
 between and after; 21 (printed after 2f) the contraction modes (B1, B2,
-B5 and each kernel alone at "high3" and "default", with each one's
-separation r from "highest", times, bounds and library times; after 4b the mixed step at each final mode, its deviation,
-seq/s, launches by kind, and its profile at "high3"); then a
+B5 and each kernel alone at "high3" and "default", the tensor-core
+attention at n = 17 and 243, 8 and 4 heads, rows and cols, with each one's
+separation r from "highest", times, bounds and library times; after 4b the
+mixed step at each final mode, its deviation, seq/s, launches by kind, and
+its profile at "high3"); 21b B3 (with and without B4's statistics), B4 and
+B6 at f32 under the session precision "default" vs plain; then a
 JSON line with every kernel's numbers; the last line is {"ok": true,
 "device": {...}}. Exits non-zero without a CUDA device, and where the
 port's package is not beside this script.
@@ -310,6 +318,7 @@ def cuda_ms(fn, iters=10, warmup=2):
 
 
 PROFILES = [0]  # profiler sessions this process has opened (device_ms, profile_step)
+PROFILER_FALLBACKS = []  # the profiler session after which device_ms took CUDA events
 SENTINEL = "spin_kernel"  # the kernel of torch.cuda._sleep
 
 
@@ -319,12 +328,13 @@ def recording():
     are sentinels (torch.cuda._sleep), waited for before the body runs:
     once the card has idled for some seconds, the profiler drops the first
     one to three kernels of each session (PERF.md §7), and these are what
-    it drops. device_events leaves the sentinels out."""
+    it drops; eight of them, as a session late in a long run may drop
+    more. device_events leaves the sentinels out."""
     from torch.profiler import ProfilerActivity, profile
 
     PROFILES[0] += 1
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(4):
+        for _ in range(8):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         time.sleep(0.002)
@@ -356,7 +366,12 @@ def device_ms(fn, iters=20, tries=3, kernels=None):
     profiler drops at a session's start): each kernel's events within one
     of a whole number of `iters`, and `kernels` launches a call in all
     where given; else (and where a session recorded nothing) it is taken
-    again, `tries` times in all, then fails."""
+    again, `tries` times in all. Where no session held every launch but
+    one, the time is taken with CUDA events instead (cuda_ms, which also
+    counts the host's time between launches, so it is no lower than the
+    device's), said on a line of its own and counted in
+    PROFILER_FALLBACKS; a session that recorded launches must still show
+    `kernels` of them a call."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -367,9 +382,15 @@ def device_ms(fn, iters=20, tries=3, kernels=None):
                 and all(c <= per_call[k] * iters for k, (c, _) in got.items())
                 and (kernels is None or sum(per_call.values()) == kernels)):
             return sum(per_call[k] * t / c for k, (c, t) in got.items()) / 1e3
-    check(False, f"the profiler recorded {got} (events, us) over {iters} calls (expected "
-          f"{kernels or 'a whole number of'} launches a call, at most one event dropped), "
-          f"profiler session {PROFILES[0]}")
+    check(kernels is None or not got or sum(per_call.values()) == kernels,
+          f"the profiler recorded {got} (events, us) over {iters} calls: not {kernels} "
+          f"launches a call, profiler session {PROFILES[0]}")
+    ms = cuda_ms(fn, iters)
+    PROFILER_FALLBACKS.append(PROFILES[0])
+    say(f"device_ms: the profiler recorded {got} (events, us) over {iters} calls in "
+        f"each of {tries} sessions, more than one event dropped (profiler session "
+        f"{PROFILES[0]}); timed with CUDA events instead: {ms:.4f} ms")
+    return ms
 
 
 def profiler_probe(label, iters=20):
@@ -2006,25 +2027,38 @@ def drive_modes(dev, card, peaks):
                              f"TFLOP/s={flops / r['ms'] / 1e9:.1f}")
             del a, w, a_hi, a_lo, w_hi, w_lo, res_t, exact, out, ref
 
-        # The attention step alone in each mode, on a qkv projection.
-        for heads, n in ((HEADS, JOINTS), (HEADS, FRAMES), (HEADS4, JOINTS), (HEADS4, FRAMES)):
+        # The attention step alone in each mode, on a qkv projection: the
+        # tensor-core kernel of csrc/grand_attn_mode.cuh in the rows layout
+        # (groups of 17 and 243) and in B2's cols layout (the groups (b, j)
+        # of 243 frames, kOuter), 8 heads of 64 and 4 of 128. Beside each:
+        # its bound and SDPA − v on the same q, k, v.
+        for heads, n, cols in ((HEADS, JOINTS, False), (HEADS, FRAMES, False),
+                               (HEADS4, JOINTS, False), (HEADS4, FRAMES, False),
+                               (HEADS, FRAMES, True), (HEADS4, FRAMES, True)):
             qkv = randn(rows, 3 * EMBED)
             d = EMBED // heads
-            q, k, v = qkv.view(rows // n, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+            j = JOINTS if cols else 0
+            if cols:  # the temporal groups of the spatial-major rows
+                q, k, v = qkv.view(rows // (n * j), n, j, 3, heads, d).permute(
+                    3, 0, 2, 4, 1, 5).reshape(3, rows // n, heads, n, d)
+            else:
+                q, k, v = qkv.view(rows // n, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+            label = f"{'cols ' if cols else ''}n={n} heads={heads}"
             for mode in passes:
-                run = lambda: block_attention(qkv, n, heads, f32_prec=mode)
-                plain = lambda: block_attention_ref(qkv, n, heads, f32_prec=mode)
-                r = errors(f"attention n={n} heads={heads}", mode, run(), plain(),
-                           block_attention_ref(qkv, n, heads))
+                run = lambda: block_attention(qkv, n, heads, f32_prec=mode, j_groups=j)
+                plain = lambda: block_attention_ref(qkv, n, heads, f32_prec=mode, j_groups=j)
+                r = errors(f"attention {label}", mode, run(), plain(),
+                           block_attention_ref(qkv, n, heads, j_groups=j))
                 r.update(ms=device_ms(run, kernels=1), plain_ms=device_ms(plain),
                          lib_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v) - v),
                          **bound(4 * rows * n * EMBED * passes[mode], 4 * rows * 4 * EMBED))
-                above_bound(f"attention n={n} heads={heads} {mode}", r)
-                res["attention"][f"n={n} heads={heads} {mode}"] = r
-                lines.append(f"attention n={n} heads={heads} {mode}: rel={r['rel']:.3e} "
+                above_bound(f"attention {label} {mode}", r)
+                res["attention"][f"{label} {mode}"] = r
+                lines.append(f"grand_attn_mode_kernel {label} {mode}: rel={r['rel']:.3e} "
                              f"mean_rel={r['mean_rel']:.3e} r={r['r']:.4f} ms={r['ms']:.4f} "
                              f"plain_ms={r['plain_ms']:.4f} library_ms(SDPA f32 - v)="
-                             f"{r['lib_ms']:.4f} bound_ms={r['bound_ms']:.4f}")
+                             f"{r['lib_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                             f"({r['bound_by']})")
             del qkv, q, k, v
 
         # The LN with the time add under each mode; each timed call reads
@@ -2063,6 +2097,138 @@ def drive_modes(dev, card, peaks):
         del xs_cold, xs_highest
     torch.cuda.empty_cache()
     say(f"phase 21 contraction modes ({card}): " + "; ".join(lines))
+    return res
+
+
+def drive_session_default(dev, card, peaks):
+    """Phase 21b (printed after phase 21): the session matmul precision
+    "default" (Config.matmul_precision) on B3, B4 and B6 at f32, each
+    kernel's one-bf16-pass instance (B3 and B6: the tensor-core kernel of
+    csrc/grand_attn_mode.cuh; B4: the kDefault dq and dk/dv passes) against
+    its plain version at "default", at the "default" bars
+    (MODE_DEFAULT_MAX_TOL, MODE_DEFAULT_MEAN_TOL) and r <=
+    MODE_SEPARATION["default"] from the plain version at "highest": B3 and
+    B4 at phase 6's train shape ([B*J = 408, H, 243, d] qkv views, 8 heads
+    of 64 and 4 of 128), B6 at phase 8's eval shape ([3888, 8, 17, 64]
+    views). B3 also with B4's statistics: the same bits, and each row's
+    maximum and 1/l against the plain ones. Device times beside the bound
+    (the products of bf16 operands at the bf16 peak, or the bytes) and
+    SDPA − v (B4: SDPA's f32 backward). Returns the numbers for the kernels
+    line."""
+    from torch.nn import functional as F
+
+    from diff3dhpe_torch import (
+        grand_attention_bwd, grand_attention_bwd_ref, grand_attention_fullseq,
+        grand_attention_fullseq_ref, packed_grand_attention, packed_grand_attention_ref,
+    )
+    from diff3dhpe_torch.ops.attention import _bwd_stats, _fullseq
+
+    _, peak_bf16, mem_rate = peaks
+    gen = torch.Generator(device=dev).manual_seed(23)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    prec = dict(matmul_precision="default")
+    res, lines = {}, []
+
+    def hold(label, outs, refs, highs):
+        abs_err = rel = mean_rel = r = 0.0
+        for out, ref, high in zip(outs, refs, highs):
+            a, b, c = bf16_errs(out, ref)
+            sep = ((out - ref).abs().mean() / (ref - high).abs().mean()).item()
+            check(torch.isfinite(out).all().item() and b <= MODE_DEFAULT_MAX_TOL
+                  and c <= MODE_DEFAULT_MEAN_TOL and sep <= MODE_SEPARATION["default"],
+                  f"phase 21b {label} at default: max rel {b:.3e} (tol {MODE_DEFAULT_MAX_TOL}), "
+                  f"mean {c:.3e} (tol {MODE_DEFAULT_MEAN_TOL}), r {sep:.4f} (bar "
+                  f"{MODE_SEPARATION['default']})")
+            abs_err, rel, mean_rel, r = max(abs_err, a), max(rel, b), max(mean_rel, c), max(r, sep)
+        return dict(abs_err=abs_err, rel=rel, mean_rel=mean_rel, r=r)
+
+    def timed(label, r, run, plain, lib, flops, nbytes, kernels):
+        ops_s = flops / peak_bf16
+        r.update(ms=device_ms(run, kernels=kernels), plain_ms=device_ms(plain),
+                 lib_ms=device_ms(lib), bound_ms=max(ops_s, nbytes / mem_rate) * 1e3,
+                 bound_by="operations" if ops_s >= nbytes / mem_rate else "bytes")
+        check(min(r["ms"], r["plain_ms"]) >= 0.95 * r["bound_ms"], f"phase 21b {label}: a time "
+              f"below 0.95 of its bound {r['bound_ms']:.4f}: a partial measurement")
+        lines.append(f"{label} at default: rel={r['rel']:.3e} mean_rel={r['mean_rel']:.3e} "
+                     f"r={r['r']:.4f} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                     f"library_ms={r['lib_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                     f"({r['bound_by']})")
+        return r
+
+    wrappers = (grand_attention_fullseq, grand_attention_bwd, packed_grand_attention)
+    before = [w.launches for w in wrappers]
+    held_launches = [0, 0, 0]
+    groups = TRAIN_BATCH * JOINTS
+    with torch.no_grad():
+        for heads in (HEADS, HEADS4):
+            d = EMBED // heads
+            q, k, v = randn(groups, FRAMES, 3, heads, d).permute(2, 0, 3, 1, 4)
+            do = randn(groups, FRAMES, heads, d).transpose(1, 2)
+            g, n = groups * heads, FRAMES
+            elems = g * n * d
+            out = grand_attention_fullseq(q, k, v, **prec)
+            r = hold(f"B3 d={d}", [out], [grand_attention_fullseq_ref(q, k, v, **prec)],
+                     [grand_attention_fullseq_ref(q, k, v)])
+            stats = _bwd_stats(q)
+            check(torch.equal(_fullseq(q, k, v, None, stats, "default"), out),
+                  f"phase 21b B3 d={d}: with B4's statistics not the same bits")
+            logits = (torch.matmul(q.bfloat16().float(), k.bfloat16().float().transpose(-1, -2))
+                      * d ** -0.5)
+            m = logits.amax(-1)
+            inv = 1.0 / torch.exp(logits - m[..., None]).sum(-1)
+            planes = stats.view(2, g, -1)[:, :, :n]
+            stat_err = max((planes[0] - m.reshape(g, n)).abs().max().item(),
+                           ((planes[1] - inv.reshape(g, n)).abs() / inv.reshape(g, n)).max().item())
+            check(stat_err <= 1e-4, f"phase 21b B3 d={d}: the statistics part from the plain "
+                  f"rows' maximum and 1/l by {stat_err:.3e}")
+            del logits, m, inv
+            r["stats_err"] = stat_err
+            r["stats_ms"] = device_ms(lambda: _fullseq(q, k, v, None, stats, "default"), kernels=1)
+            held_launches[0] += 2
+            res[f"B3 d={d}"] = timed(
+                f"grand_attention_fullseq [B*H={g}, N={n}, D={d}]", r,
+                lambda: grand_attention_fullseq(q, k, v, **prec),
+                lambda: grand_attention_fullseq_ref(q, k, v, **prec),
+                lambda: F.scaled_dot_product_attention(q, k, v) - v, 4 * g * n * n * d,
+                4 * 4 * elems, 1)
+            lines[-1] += (f"; with B4's statistics the same bits, ms={r['stats_ms']:.4f}, "
+                          f"statistics err {stat_err:.2e}")
+            del out, stats
+            got = grand_attention_bwd(q, k, v, do, **prec)
+            r = hold(f"B4 d={d}", got, grand_attention_bwd_ref(q, k, v, do, **prec),
+                     grand_attention_bwd_ref(q, k, v, do))
+            held_launches[1] += 2
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            with torch.enable_grad():
+                lib_out = F.scaled_dot_product_attention(qg, kg, vg) - vg
+            res[f"B4 d={d}"] = timed(
+                f"grand_attention_bwd [B*H={g}, N={n}, D={d}]", r,
+                lambda: grand_attention_bwd(q, k, v, do, **prec),
+                lambda: grand_attention_bwd_ref(q, k, v, do, **prec),
+                lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do, retain_graph=True),
+                10 * g * n * n * d, 7 * 4 * elems, 2)
+            del got, lib_out, qg, kg, vg, q, k, v, do
+            torch.cuda.empty_cache()
+        heads, d, n = HEADS, EMBED // HEADS, JOINTS
+        b = 2 * BATCH * FRAMES
+        q, k, v = randn(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+        out = packed_grand_attention(q, k, v, **prec)
+        r = hold(f"B6 d={d}", [out], [packed_grand_attention_ref(q, k, v, **prec)],
+                 [packed_grand_attention_ref(q, k, v)])
+        held_launches[2] += 1
+        res["B6"] = timed(f"packed_grand_attention [B*H={b * heads}, N={n}, D={d}]", r,
+                          lambda: packed_grand_attention(q, k, v, **prec),
+                          lambda: packed_grand_attention_ref(q, k, v, **prec),
+                          lambda: F.scaled_dot_product_attention(q, k, v) - v,
+                          4 * b * heads * n * n * d, 4 * 4 * b * heads * n * d, 1)
+        del q, k, v, out
+    torch.cuda.empty_cache()
+    # Each wrapper counted its held calls (the timed ones besides).
+    check(all(w.launches - b0 >= h for w, b0, h in zip(wrappers, before, held_launches)),
+          f"phase 21b: the wrappers counted {[w.launches - b0 for w, b0 in zip(wrappers, before)]}"
+          f" launches, at least {held_launches} expected")
+    say(f"phase 21b the session matmul precision 'default' on B3, B4 and B6 at f32 ({card}): "
+        + "; ".join(lines))
     return res
 
 
@@ -2153,16 +2319,26 @@ def mode_kernel_parts(mode_res, by_kind, rows, hidden):
         f"the four products of an f32 block at M={rows} from split operands: 3 passes (high3) "
         f"or 1 (default) (launches: 4 a block call under a mode)")
     gemm_mode_part["products"] = gemms_mode
-    attention = lambda m, heads: sum_numbers([
-        one_call(mode_res["attention"][f"n={n} heads={heads} {m}"]) for n in (JOINTS, FRAMES)])
+    ma = mode_res["attention"]
+    attention = lambda m, heads, cols="": sum_numbers([
+        one_call(ma[f"{cols}n={n} heads={heads} {m}"]) for n in ((FRAMES,) if cols else
+                                                               (JOINTS, FRAMES))])
     attn_mode_part = kernel_part(
-        "grand_attn_tiled_kernel / grand_attn_small_kernel <kMode>",
-        "diff3dhpe_torch/csrc/grand_attn.cuh",
-        "diff3dhpe_tpu/ops/attention.py:52 (grand_attend_tile contracting through _dot_f32)",
-        by_kind["attn_mode"], by_mode(lambda m: attention(m, HEADS),
-                            d128=by_mode(lambda m: attention(m, HEADS4))),
+        "grand_attn_mode_kernel<D, KT16, kOuter, kMode>",
+        "diff3dhpe_torch/csrc/grand_attn_mode.cuh",
+        "diff3dhpe_tpu/ops/attention.py:52 (grand_attend_tile contracting through "
+        "_dot_f32 / _dot_f32_3pass, fused_block.py:127-164; and B3's and B6's f32 tiles at the "
+        "session precision 'default', attention.py:103)",
+        by_kind["attn_mode"], by_mode(
+            lambda m: attention(m, HEADS), d128=by_mode(lambda m: attention(m, HEADS4)),
+            **{f"n{n}": by_mode(lambda m, n=n: one_call(ma[f"n={n} heads={HEADS} {m}"]))
+               for n in (JOINTS, FRAMES)},
+            cols=by_mode(lambda m: attention(m, HEADS, "cols "),
+                         d128=by_mode(lambda m: attention(m, HEADS4, "cols "))),
+            r={k: v["r"] for k, v in ma.items()}),
         f"one call at n={JOINTS} + one at n={FRAMES} on a qkv [{rows}, {3 * EMBED}], f32, "
-        f"device time (launches: 1 a block call under a mode)")
+        f"device time; n{JOINTS} and n{FRAMES} each alone; cols: B2's layout at n={FRAMES} "
+        f"(launches: 1 a block call under a mode)")
     ln_mode_part = kernel_part(
         "ln_rows_kernel<float, kPL, kMode>", "diff3dhpe_torch/csrc/fused_block.cu",
         "diff3dhpe_tpu/ops/fused_block.py:271 (the one-hot time gather through _dot_f32)",
@@ -2182,7 +2358,7 @@ def mode_kernel_parts(mode_res, by_kind, rows, hidden):
     b2 = by_mode(lambda m: one_call(mb[f"B2 n={FRAMES} heads={HEADS} {m}"]),
                  d128=by_mode(lambda m: one_call(mb[f"B2 n={FRAMES} heads={HEADS4} {m}"])))
     return {"B1": b1, "B2": b2, "B5": by_mode(lambda m: mode_pair(m, kind="B5")),
-            "parts": parts}
+            "parts": parts, "attention": attn_mode_part}
 
 
 def main():
@@ -2650,6 +2826,7 @@ def main():
     # profile of this process once recorded no kernel, and profiler_probe
     # reads what it records before, within and after that phase.
     mode_res = drive_modes(dev, card, (peak_flops, peak_bf16, mem_rate))
+    session_res = drive_session_default(dev, card, (peak_flops, peak_bf16, mem_rate))
 
     # Phase 3: one full-width denoiser forward, kernel path vs plain module.
     model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
@@ -3839,7 +4016,10 @@ def main():
 
     # Phase 11c: the training entry point on the TPU-recommended config:
     # cli.run.main without --evaluate on a copy of TPU_CONFIG (bf16
-    # fast_train, remat, 4 heads of 128, the mixed fast eval) with
+    # fast_train, remat, 4 heads of 128, the mixed fast eval, the session
+    # matmul precision "default": the float32 products outside the fused
+    # blocks, in the validation's and evaluation's f32 head and final step,
+    # in one bf16 pass) with
     # fast_train_attn_bwd on, on phase 11's data, epochs and flags: 2 epochs
     # with a checkpoint each, the run resumed from a copy of epoch_0 (its
     # epoch-1 loss equal to the unbroken run's bit for bit), then --evaluate
@@ -3904,8 +4084,9 @@ def main():
     check(len(fits) == 2, f"fit ran {len(fits)} times on the TPU config")
     run_tpu, resumed_tpu = fits
     cfg_tpu = run_tpu["cfg"]
-    check((cfg_tpu.compute_dtype, cfg_tpu.remat, cfg_tpu.num_heads, cfg_tpu.fast_train_attn_bwd)
-          == ("bfloat16", True, HEADS4, True), f"the TPU config ran as {cfg_tpu}")
+    check((cfg_tpu.compute_dtype, cfg_tpu.remat, cfg_tpu.num_heads, cfg_tpu.fast_train_attn_bwd,
+           cfg_tpu.matmul_precision) == ("bfloat16", True, HEADS4, True, "default"),
+          f"the TPU config ran as {cfg_tpu}")
     for line in ("Epoch: 1, Time(mins):", "Saved checkpoint to", "Loaded the best model from",
                  "Protocol #1   (MPJPE) action-wise average:"):
         check(line in tpu_cli["tpu_train"]["out"], f"cli tpu_train: no line {line!r}")
@@ -3954,7 +4135,8 @@ def main():
             f"val_mpjpe_mm={run_tpu['losses_valid'][e] * 1000:.4f} train_s={secs['train']:.3f} "
             f"validate_s={secs['validate']:.3f} checkpoint_write_s={secs['save']:.3f}")
     say(f"phase 11c cli train on {TPU_CONFIG} with fast_train_attn_bwd (bf16, remat, {HEADS4} "
-        f"heads, batch {cfg_tpu.batch_size}, DDIM-{ddim_tpu} mixed validation): samples_per_s "
+        f"heads, batch {cfg_tpu.batch_size}, DDIM-{ddim_tpu} mixed validation, matmul_precision "
+        f"{cfg_tpu.matmul_precision!r}): samples_per_s "
         f"through fit (median of 3 epochs)={run_tpu['batches'] * cfg_tpu.batch_size / tpu_train_s:.3f}"
         f" beside phase 7d's {TRAIN_BATCH / tpu_step:.3f}; validate_s="
         f"{[round(s['validate'], 3) for s in run_tpu['seconds']]}; resumed epoch-1 train loss "
@@ -4216,6 +4398,14 @@ def main():
         "f32_modes": f32_modes["B5"],
         "work": f"one call with n={JOINTS} + one with n={FRAMES}, R={rows}, C={EMBED}",
     })
+    # The session matmul precision "default" (phase 21b): B3's, B4's and
+    # B6's one-bf16-pass instances, held and timed there alone.
+    for entry, key in ((entries[2], "B3"), (entries[3], "B4")):
+        entry["session_default"] = dict(
+            one_call(session_res[f"{key} d={EMBED // HEADS}"]),
+            d128=one_call(session_res[f"{key} d={EMBED // HEADS4}"]),
+            work=f"one call at phase 6's shape, f32 at matmul_precision 'default' (phase 21b)")
+    entries[2]["session_default"]["with_stats_ms"] = session_res[f"B3 d={EMBED // HEADS}"]["stats_ms"]
     paths = by_path("packed_grand_attention",
                     train_step=train_launches["packed_grand_attention"])
     b6_bf16_train = {f"train_step_bf16 {label}": r["launches"]["packed_grand_attention_bf16"]
@@ -4235,6 +4425,8 @@ def main():
         "group_sizes": {k: one_call(v) for k, v in group_sizes["B6"].items()},
         "work": f"one call, [G={2 * BATCH * FRAMES * HEADS}, N={JOINTS}, D={EMBED // HEADS}] "
                 f"f32 as views of a qkv projection, device time",
+        "session_default": dict(one_call(session_res["B6"]), work="one call at the eval shape, "
+                                "f32 at matmul_precision 'default' (phase 21b)"),
         "bf16": dict(
             one_call(small_bf16["qkv_views"]),
             launches=b6_bf16_launches[1] + sum(b6_bf16_train.values()),
@@ -4245,11 +4437,14 @@ def main():
             work=f"one call, [G={2 * BATCH * FRAMES * HEADS}, N={JOINTS}, D={EMBED // HEADS}] "
                  f"bf16 as views of a qkv projection, device time"),
     })
-    check(len(entries) == 6 and all(e["launches"] > 0 for e in entries + [
+    entries.append(f32_modes["attention"])
+    check(len(entries) == 7 and all(e["launches"] > 0 for e in entries + [
               gemm_part, ln_part, *f32_modes["parts"]])
-          and entries[-1]["bf16"]["launches"] > 0 and entries[3]["bf16"]["launches"] > 0,
+          and entries[5]["bf16"]["launches"] > 0 and entries[3]["bf16"]["launches"] > 0,
           f"a kernel was launched no time: { {e['name']: e['launches'] for e in entries} }, "
           f"f32 GEMM {gemm_part['launches']}, LN {ln_part['launches']}")
+    say(f"profiler: {len(PROFILER_FALLBACKS)} device_ms calls timed with CUDA events "
+        f"instead (after profiler sessions {PROFILER_FALLBACKS}) of {PROFILES[0]} sessions")
     say(json.dumps({"kernels": entries}))
     check(all(math.isfinite(e["ms"]) for e in entries), "timing failed")
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

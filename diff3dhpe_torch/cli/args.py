@@ -70,7 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="data-parallel ranks, 'data:N' with N the number of processes "
                              "torchrun starts (a 'model' axis is not ported)")
     parser.add_argument("--matmul-precision", type=str, default=None,
-                        choices=["highest", "default", "bfloat16"])
+                        choices=["highest", "default", "bfloat16"],
+                        help="the session precision of the float32 products outside the fused "
+                             "blocks: exact float32, or one bf16 pass ('default', 'bfloat16')")
     parser.add_argument("--compute-dtype", type=str, default=None,
                         choices=["float32", "bfloat16"])
     parser.add_argument("--data-root", type=str, default=None)

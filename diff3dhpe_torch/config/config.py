@@ -81,7 +81,10 @@ class Config:
     # Data-parallel ranks, "data:N" with N the world size (None: every rank
     # on data); a "model" axis > 1 (JAX's tensor parallelism) is refused.
     mesh_shape: Optional[str] = None
-    matmul_precision: str = "highest"  # the JAX default matmul precision; the port's f32 is exact f32
+    # The session matmul precision of the float32 products outside the fused
+    # blocks (ops/matmul_precision.py): "highest", or one bf16 pass at
+    # "default" / "bfloat16".
+    matmul_precision: str = "highest"
     compute_dtype: str = "float32"  # "bfloat16" for the fast eval path
     # The module's attention goes through the attention kernels
     # (ops.attention.fused_grand_attention); float32 only.

@@ -96,11 +96,12 @@
 //                         three (hi, hi), (hi, lo), (lo, hi) pairs, or the
 //                         one, into f32 accumulators, with the same
 //                         epilogues on an f32 residual and an f32 output;
-// the attention step runs the f32 attention kernels at that mode (q, k and
-// then e, v rounded or split as the micro-tiles load them), and the time add
-// reads t rounded to bf16 ("default") or as t_hi + t_lo ("high3"), as JAX's
-// one-hot gather contracts it. A block call under a mode is 15 launches (16
-// with the out-LN): 8 splits, 4 GEMMs, the attention and the LNs; B5 8.
+// the attention step runs at that mode on the tensor-core kernel of
+// grand_attn_mode.cuh (the operands rounded or split once into shared
+// memory, both products on mma.sync); and the time add reads t rounded to
+// bf16 ("default") or as t_hi + t_lo ("high3"), as JAX's one-hot gather
+// contracts it. A block call under a mode is 15 launches (16 with the
+// out-LN): 8 splits, 4 GEMMs, the attention and the LNs; B5 8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,6 +112,7 @@
 #include "gemm_wgmma.cuh"
 #include "grand_attn.cuh"
 #include "grand_attn_bf16.cuh"
+#include "grand_attn_mode.cuh"
 
 namespace {
 
@@ -866,14 +868,15 @@ extern "C" int diff3dhpe_gemm_wgmma_f32(const bf16* a_hi, const bf16* a_lo, cons
   return 0;
 }
 
-// The block's attention step alone at f32, in the rows layout (groups of
-// n_pad rows, the first n real): out[R, C] from qkv [R, 3C] under mode
-// (F32Mode), as run_block launches it. One kernel; adds one to *launches
-// when it launched. For measuring and testing.
+// The block's attention step alone at f32: out[R, C] from qkv [R, 3C]
+// under mode (F32Mode), as run_block launches it, in the rows layout
+// (j_groups == 0: groups of n_pad rows, the first n real) or the cols
+// layout (j_groups = J: the groups (b, j) of n frames). One kernel; adds
+// one to *launches when it launched. For measuring and testing.
 extern "C" int diff3dhpe_block_attn_f32(const float* qkv, float* out, int R, int C, int heads,
-                                        int n, int n_pad, float scale, int mode, int* launches,
-                                        void* stream_ptr) {
-  const cudaError_t err = launch_attention(qkv, out, R, C, heads, n, n_pad, 0, scale, mode,
+                                        int n, int n_pad, int j_groups, float scale, int mode,
+                                        int* launches, void* stream_ptr) {
+  const cudaError_t err = launch_attention(qkv, out, R, C, heads, n, n_pad, j_groups, scale, mode,
                                            static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return (int)err;
   ++*launches;

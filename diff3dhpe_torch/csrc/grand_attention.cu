@@ -28,11 +28,18 @@
 // (7,776 groups of N = 17) does 0.58 GFLOP against 135 MB, so memory
 // bounds it.
 //
+// The session matmul precision (Config.matmul_precision; JAX's kernels pass
+// precision=None for f32 operands, ops/attention.py:103-117, :277-282):
+// under "default" every f32 product of B3, B4 and B6 is one bf16 pass, its
+// operands rounded to bf16 and summed in f32 (the mode argument, F32Mode
+// kDefault); "highest" is the exact f32 above.
+//
 // Design:
-//   B3  the shared f32 launcher of grand_attn.cuh, which B1, B2 and B5 run
-//       for their attention step: 64-query blocks streaming key tiles of K
-//       and V through a cp.async ring with an online softmax, or at n <= 32
-//       B6's small-group kernel.
+//   B3  the shared f32 launcher of grand_attn_mode.cuh, which B1, B2 and B5
+//       run for their attention step: 64-query blocks streaming key tiles
+//       of K and V through a cp.async ring with an online softmax, or at
+//       n <= 32 B6's small-group kernel; under "default" above 32 keys the
+//       tensor-core kernel of grand_attn_mode.cuh.
 //   B4  two kernels, with P and dS spilled to HBM, because K, V, Q and dO
 //       of one group (4 x 124 KB at N = 243, D = 128) do not fit a block and
 //       a one-pass dk/dv with dq would need float atomics:
@@ -73,6 +80,7 @@
 #include "grand_attn.cuh"
 #include "grand_attn_bf16.cuh"
 #include "grand_attn_bwd_bf16.cuh"
+#include "grand_attn_mode.cuh"
 
 namespace {
 
@@ -122,7 +130,7 @@ struct DqLayout {
 // Sweep 2 forms S and dP, P = exp(S − m) / l and dS = P ∘ (dP − D) · scale
 // into pds (two [B·H][n64][n64] planes, zero past n) and dS into shared
 // memory, and dQ += dS·K.
-template <int D, bool kFwdStats>
+template <int D, bool kFwdStats, int kMode>
 __global__ void __launch_bounds__(kThreads)
 grand_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
@@ -222,7 +230,8 @@ grand_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
           const float* gi = dob + (long long)(tq + 16 * i) * sdo.n + 4 * tk;
 #pragma unroll
           for (int cc = 0; cc < kC; ++cc) {
-            const float4 gv = ld4(gi + 32 * cc);
+            float4 gv = ld4(gi + 32 * cc);
+            if constexpr (kMode == grand::kDefault) gv = grand::bf16_round4(gv);
             part = fmaf(gv.x, acc[i][4 * cc], part);
             part = fmaf(gv.y, acc[i][4 * cc + 1], part);
             part = fmaf(gv.z, acc[i][4 * cc + 2], part);
@@ -248,7 +257,7 @@ grand_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
 #pragma unroll
             for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
         }
-        mm_rows<4, 8, 16, 8>(s, st, kLdC, tq, st + L::kBlock, kLdC, tk);
+        mm_rows<4, 8, 16, 8, kMode>(s, st, kLdC, tq, st + L::kBlock, kLdC, tk);
         if (c == L::kSC - 1) {  // online softmax, as the forward
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -279,8 +288,9 @@ grand_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
 #pragma unroll
             for (int j = 0; j < 8; ++j) s[i][j] = dp4[i][j] = 0.f;
         }
-        mm_rows<4, 8, 16, 8>(s, st, kLdC, tq, st + L::kBlock, kLdC, tk);
-        mm_rows<4, 8, 16, 8>(dp4, st + 2 * L::kBlock, kLdC, tq, st + 3 * L::kBlock, kLdC, tk);
+        mm_rows<4, 8, 16, 8, kMode>(s, st, kLdC, tq, st + L::kBlock, kLdC, tk);
+        mm_rows<4, 8, 16, 8, kMode>(dp4, st + 2 * L::kBlock, kLdC, tq, st + 3 * L::kBlock, kLdC,
+                                    tk);
         if (c == L::kSC - 1) {  // P and dS of the tile to shared memory and to pds
           const size_t n64 = (size_t)q_tiles * kQT;
           float* pg = pds + (((size_t)b * H + h) * n64 + q0) * n64 + t * kKT + tk;
@@ -301,8 +311,12 @@ grand_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
           }
         }
       }
-    } else {  // sweep 1: O += P·V; sweep 2: dQ += dS·K
-      mm_acc<4, 16, kC, 32>(acc, Ws + (c - L::kSC) * L::kRR, L::kLdW, tq, st, D + 4, tk, L::kRR);
+    } else if (sweep == 0) {  // sweep 1: O += P·V, P unrounded (D = Σ P·dP)
+      mm_acc<4, 16, kC, 32, kMode, false>(acc, Ws + (c - L::kSC) * L::kRR, L::kLdW, tq, st, D + 4,
+                                          tk, L::kRR);
+    } else {  // sweep 2: dQ += dS·K
+      mm_acc<4, 16, kC, 32, kMode>(acc, Ws + (c - L::kSC) * L::kRR, L::kLdW, tq, st, D + 4, tk,
+                                   L::kRR);
     }
   }
 
@@ -338,7 +352,7 @@ struct DkdvLayout {
 // (tid / 8, tid % 8) owns keys k0 + 4·tk + i (i < 4) and columns 4·tc + 32c
 // (c < D / 32): per query row one 128-bit load of four P (or dS) and D / 32
 // of dO (or Q) feed 16·D/32 FMAs, as the forward's P·V.
-template <int D>
+template <int D, int kMode>
 __global__ void __launch_bounds__(kThreads)
 grand_attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ dout,
                            const float* __restrict__ pds, float* __restrict__ dk,
@@ -378,10 +392,12 @@ grand_attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict_
     const float* Xs = As + L::kA;
 #pragma unroll 8
     for (int r = 0; r < kQR; ++r) {
-      const float4 a = ld4(As + r * kKB + 4 * tk);
+      float4 a = ld4(As + r * kKB + 4 * tk);
+      if constexpr (kMode == grand::kDefault) a = grand::bf16_round4(a);
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
-        const float4 x = ld4(Xs + r * D + 4 * tc + 32 * c);
+        float4 x = ld4(Xs + r * D + 4 * tc + 32 * c);
+        if constexpr (kMode == grand::kDefault) x = grand::bf16_round4(x);
         axpy4(a.x, x, &acc[0][4 * c]);
         axpy4(a.y, x, &acc[1][4 * c]);
         axpy4(a.z, x, &acc[2][4 * c]);
@@ -412,25 +428,25 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int D, bool kFwdStats>
+template <int D, bool kFwdStats, int kMode>
 cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
                       const float* fout, const float* stats, float* dq, float* pds, Strides sq,
                       Strides sk, Strides sv, Strides sdo, Strides sfo, Strides sdq, int B, int H,
                       int n, float scale, cudaStream_t stream) {
   const int q_tiles = stat_rows(n) / kQT;
   const size_t bytes = DqLayout<D>::kFloats * sizeof(float);
-  const cudaError_t err = allow_smem(grand_attn_bwd_dq_kernel<D, kFwdStats>, bytes);
+  const cudaError_t err = allow_smem(grand_attn_bwd_dq_kernel<D, kFwdStats, kMode>, bytes);
   if (err != cudaSuccess) return err;
-  grand_attn_bwd_dq_kernel<D, kFwdStats><<<dim3(B * q_tiles, H), kThreads, bytes, stream>>>(
+  grand_attn_bwd_dq_kernel<D, kFwdStats, kMode><<<dim3(B * q_tiles, H), kThreads, bytes, stream>>>(
       q, k, v, dout, fout, stats, dq, pds, sq, sk, sv, sdo, sfo, sdq, n, q_tiles, scale);
   return cudaGetLastError();
 }
 
-// B4 at head width D: the dq pass, then the dk/dv pass. With fout (the
-// forward's output, whose launch also wrote m and 1/l into stats) the dq
-// pass skips its first sweep. Adds one to *launches for each kernel
-// launched.
-template <int D>
+// B4 at head width D under kMode (kHighest or kDefault): the dq pass, then
+// the dk/dv pass. With fout (the forward's output, whose launch also wrote
+// m and 1/l into stats; kHighest only) the dq pass skips its first sweep.
+// Adds one to *launches for each kernel launched.
+template <int D, int kMode>
 cudaError_t launch_bwd(const float* q, const float* k, const float* v, const float* dout,
                        const float* fout, const float* stats, float* dq, float* dk, float* dv,
                        float* pds, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sfo,
@@ -438,18 +454,41 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v, const flo
                        int* launches, cudaStream_t stream) {
 #define DQ_ARGS \
   q, k, v, dout, fout, stats, dq, pds, sq, sk, sv, sdo, sfo, sdq, B, H, n, scale, stream
-  cudaError_t err = fout ? launch_dq<D, true>(DQ_ARGS) : launch_dq<D, false>(DQ_ARGS);
+  cudaError_t err;
+  if constexpr (kMode == grand::kHighest) {
+    err = fout ? launch_dq<D, true, kMode>(DQ_ARGS) : launch_dq<D, false, kMode>(DQ_ARGS);
+  } else {
+    err = fout ? cudaErrorInvalidValue : launch_dq<D, false, kMode>(DQ_ARGS);
+  }
 #undef DQ_ARGS
   if (err != cudaSuccess) return err;
   ++*launches;
   const int k_tiles = stat_rows(n) / kKB;
   const size_t bytes = DkdvLayout<D>::kFloats * sizeof(float);
-  if ((err = allow_smem(grand_attn_bwd_dkdv_kernel<D>, bytes)) != cudaSuccess) return err;
-  grand_attn_bwd_dkdv_kernel<D><<<dim3(B * k_tiles, H, 2), kThreads, bytes, stream>>>(
+  if ((err = allow_smem(grand_attn_bwd_dkdv_kernel<D, kMode>, bytes)) != cudaSuccess) return err;
+  grand_attn_bwd_dkdv_kernel<D, kMode><<<dim3(B * k_tiles, H, 2), kThreads, bytes, stream>>>(
       q, dout, pds, dk, dv, sq, sdo, sdk, sdv, n, k_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ++*launches;
   return cudaSuccess;
+}
+
+// The f32 forward under the session matmul precision (F32Mode kHighest
+// or kDefault): launch_grand_attn at that mode; with small, B6's groups of
+// up to kSmallMaxN keys, which under kHighest take the small-group kernel
+// alone.
+cudaError_t launch_fwd_f32(const float* q, const float* k, const float* v, float* out,
+                           Strides sq, Strides sk, Strides sv, Strides so, int B, int H, int n,
+                           int d, float scale, float* stats, int mode, bool small,
+                           cudaStream_t stream) {
+  if (mode == grand::kDefault) {
+    return grand::launch_grand_attn<false, grand::kDefault>(q, k, v, out, sq, sk, sv, so, B, H,
+                                                            n, n, d, scale, stream, 1, stats);
+  }
+  if (mode != grand::kHighest) return cudaErrorInvalidValue;
+  if (small) return grand::launch_small(q, k, v, out, sq, sk, sv, so, B, H, n, n, d, scale, stream);
+  return grand::launch_grand_attn(q, k, v, out, sq, sk, sv, so, B, H, n, n, d, scale, stream, 1,
+                                  stats);
 }
 
 }  // namespace
@@ -460,18 +499,20 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v, const flo
 // operands (d = 64 or 128) given by their element strides (sb, sh, sn).
 // stats may be null; else (n > 32) it holds 2·B·H·n64 floats, and the
 // launch writes each row's max and 1/sum into its two planes for a later
-// diff3dhpe_grand_attn_bwd_f32. One kernel; adds one to
-// *launches when it launched. Returns the cudaError_t of the launch.
+// diff3dhpe_grand_attn_bwd_f32. mode: the session matmul precision as
+// F32Mode, kHighest (exact f32) or kDefault (one bf16 pass: the
+// tensor-core kernel of grand_attn_mode.cuh above 32 keys). One kernel;
+// adds one to *launches when it launched. Returns the cudaError_t of the
+// launch.
 extern "C" int diff3dhpe_grand_attn_fwd_f32(
     const float* q, const float* k, const float* v, float* out, int B, int H, int n, int d,
     long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
-    long long o_sh, long long o_sn, float scale, float* stats, int* launches,
+    long long o_sh, long long o_sn, float scale, float* stats, int mode, int* launches,
     void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const cudaError_t err = grand::launch_grand_attn(q, k, v, out, STRIDES(q), STRIDES(k),
-                                                   STRIDES(v), STRIDES(o), B, H, n, n, d, scale,
-                                                   stream, 1, stats);
+  const cudaError_t err = launch_fwd_f32(q, k, v, out, STRIDES(q), STRIDES(k), STRIDES(v),
+                                         STRIDES(o), B, H, n, d, scale, stats, mode, false,
+                                         static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return (int)err;
   ++*launches;
   return 0;
@@ -505,16 +546,19 @@ extern "C" int diff3dhpe_grand_attn_fwd_bf16(
 
 // B6: the same function for small groups, n <= 64, through the
 // small-group kernel of grand_attn.cuh (persistent blocks walking the
-// (b, h) pairs). One kernel; adds one to *launches when it launched.
-// Returns the cudaError_t of the launch.
+// (b, h) pairs); under mode kDefault the small-group kernel's instance at
+// that mode up to 32 keys, the tensor-core kernel of grand_attn_mode.cuh
+// above. One kernel; adds one to *launches when it launched. Returns the
+// cudaError_t of the launch.
 extern "C" int diff3dhpe_grand_attn_small_f32(
     const float* q, const float* k, const float* v, float* out, int B, int H, int n, int d,
     long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
-    long long o_sh, long long o_sn, float scale, int* launches, void* stream_ptr) {
-  const cudaError_t err =
-      grand::launch_small(q, k, v, out, STRIDES(q), STRIDES(k), STRIDES(v), STRIDES(o), B, H, n,
-                          n, d, scale, static_cast<cudaStream_t>(stream_ptr));
+    long long o_sh, long long o_sn, float scale, int mode, int* launches, void* stream_ptr) {
+  if (n > kSmallMaxN) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = launch_fwd_f32(q, k, v, out, STRIDES(q), STRIDES(k), STRIDES(v),
+                                         STRIDES(o), B, H, n, d, scale, nullptr, mode, true,
+                                         static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return (int)err;
   ++*launches;
   return 0;
@@ -542,8 +586,11 @@ extern "C" int diff3dhpe_grand_attn_small_bf16(
 // there for the dk/dv pass. fout may be null; else it is B3's output for
 // these q, k, v, from a launch of diff3dhpe_grand_attn_fwd_f32 that wrote
 // its statistics into stats (2·B·H·n64 floats), and the dq pass starts from
-// them. Adds one to *launches for each kernel launched; returns the first
-// cudaError_t reported.
+// them. mode: the session matmul precision as F32Mode, kHighest or kDefault
+// (every product of bf16-rounded operands; the row sums D = Σ P·dP take the
+// unrounded P, which the forward's rounded exponentials cannot give, so fout
+// must be null there). Adds one to *launches for each kernel launched;
+// returns the first cudaError_t reported.
 extern "C" int diff3dhpe_grand_attn_bwd_f32(
     const float* q, const float* k, const float* v, const float* dout, const float* fout,
     const float* stats, float* dq, float* dk, float* dv, float* pds, int B, int H, int n, int d,
@@ -551,16 +598,24 @@ extern "C" int diff3dhpe_grand_attn_bwd_f32(
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long g_sb,
     long long g_sh, long long g_sn, long long f_sb, long long f_sh, long long f_sn,
     long long dq_sb, long long dq_sh, long long dq_sn, long long dk_sb, long long dk_sh,
-    long long dk_sn, long long dv_sb, long long dv_sh, long long dv_sn, float scale,
+    long long dk_sn, long long dv_sb, long long dv_sh, long long dv_sn, float scale, int mode,
     int* launches, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || n > kMaxN || !grand::takes_head_dim(d) || (fout != nullptr && stats == nullptr)) {
+  if (n <= 0 || n > kMaxN || !grand::takes_head_dim(d) || (fout != nullptr && stats == nullptr) ||
+      (mode != grand::kHighest && mode != grand::kDefault)) {
     return (int)cudaErrorInvalidValue;
   }
 #define BWD_ARGS q, k, v, dout, fout, stats, dq, dk, dv, pds, STRIDES(q), STRIDES(k), STRIDES(v), \
                  STRIDES(g), STRIDES(f), STRIDES(dq), STRIDES(dk), STRIDES(dv), B, H, n, scale, \
                  launches, stream
-  const cudaError_t err = d == 64 ? launch_bwd<64>(BWD_ARGS) : launch_bwd<128>(BWD_ARGS);
+  cudaError_t err;
+  if (mode == grand::kDefault) {
+    err = d == 64 ? launch_bwd<64, grand::kDefault>(BWD_ARGS)
+                  : launch_bwd<128, grand::kDefault>(BWD_ARGS);
+  } else {
+    err = d == 64 ? launch_bwd<64, grand::kHighest>(BWD_ARGS)
+                  : launch_bwd<128, grand::kHighest>(BWD_ARGS);
+  }
 #undef BWD_ARGS
   return (int)err;
 }

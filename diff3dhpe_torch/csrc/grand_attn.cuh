@@ -18,17 +18,15 @@
 // <= 256. Products in exact f32 FMAs (no TF32), expf and one IEEE
 // reciprocal a row, no fast math.
 //
-// Contraction modes (kMode, the block kernels' f32 products under JAX's
-// f32_contract_mode, diff3dhpe_tpu/ops/fused_block.py:84-164): kHighest is
-// the above; kDefault rounds q and k to bf16 (nearest even) where a
-// micro-tile loads them, and in P·V the unnormalised exponentials e and v,
-// so every product is of bf16 values and exact, summed in f32 (the MXU's
-// one bf16 pass); kHigh3 splits each operand as a = a_hi + a_lo (a_hi =
-// bf16(a), a_lo = bf16(a − a_hi)) and sums a_hi·b_hi + a_hi·b_lo + a_lo·b_hi
-// (_dot_f32_3pass). The row sum l and the trailing − v read the unrounded
-// values. e is taken relative to the row's maximum, as JAX takes it: under
-// a mode the tiled kernel forms the row maxima in a first pass over the
-// logits (the QKᵀ work once more) before its online softmax.
+// The float32 contraction modes (F32Mode): kHighest is the above;
+// kDefault (the MXU's one bf16 pass: operands rounded to bf16, nearest
+// even, products exact, f32 sums) and kHigh3 (bf16x3, _dot_f32_3pass) are
+// the block kernels' f32 products under JAX's f32_contract_mode
+// (diff3dhpe_tpu/ops/fused_block.py:84-164), and kDefault also B3's, B4's
+// and B6's under the session matmul precision. The attention forward under
+// a mode runs the tensor-core kernel of grand_attn_mode.cuh; here the
+// micro-tile products take kDefault for B4 (grand_attention.cu), and the
+// two kernels are exact f32 alone.
 //
 // What bounds it on an H100: at B3's train shape (3,264 (group, head) pairs
 // of n = 243, D = 64) the two products are 49 GFLOP against 0.8 GB, so
@@ -100,12 +98,6 @@ __device__ __forceinline__ float bf16_round(float x) {
 
 __device__ __forceinline__ float4 bf16_round4(float4 v) {
   return make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z), bf16_round(v.w));
-}
-
-// v = hi + lo + O(2^-16 |v|): hi = bf16(v), lo = bf16(v − hi), as float.
-__device__ __forceinline__ void bf16_split4(float4 v, float4& hi, float4& lo) {
-  hi = bf16_round4(v);
-  lo = bf16_round4(make_float4(v.x - hi.x, v.y - hi.y, v.z - hi.z, v.w - hi.w));
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -190,33 +182,27 @@ __device__ __forceinline__ void load_block(float* dst, int ld, const float* src,
 //   s[i][j] += Σ_{d < 32} A[(a0 + kAS·i)·lda + d] · B[(b0 + kBS·j)·ldb + d]
 // from 128-bit loads: per 4 columns, kI + kJ loads feed 4·kI·kJ FMAs. Each
 // dot product runs over d in order, so every kernel that forms the same
-// logit forms the same bits. kMode: the operands rounded (kDefault) or split
-// (kHigh3, three FMAs a term) as they are loaded.
+// logit forms the same bits. kMode: kHighest, or kDefault (B4 at the
+// session precision "default"), which rounds the operands to bf16 as they
+// are loaded.
 template <int kI, int kJ, int kAS, int kBS, int kMode = kHighest>
 __device__ __forceinline__ void mm_rows(float (&s)[kI][kJ], const float* A, int lda, int a0,
                                         const float* B, int ldb, int b0) {
+  static_assert(kMode == kHighest || kMode == kDefault, "the micro-tiles take two modes");
 #pragma unroll
   for (int d = 0; d < 32; d += 4) {
-    float4 a[kI], a_lo[kI];
+    float4 a[kI];
 #pragma unroll
     for (int i = 0; i < kI; ++i) {
       a[i] = ld4(A + (a0 + kAS * i) * lda + d);
       if constexpr (kMode == kDefault) a[i] = bf16_round4(a[i]);
-      if constexpr (kMode == kHigh3) bf16_split4(a[i], a[i], a_lo[i]);
     }
 #pragma unroll
     for (int j = 0; j < kJ; ++j) {
-      float4 b = ld4(B + (b0 + kBS * j) * ldb + d), b_lo;
+      float4 b = ld4(B + (b0 + kBS * j) * ldb + d);
       if constexpr (kMode == kDefault) b = bf16_round4(b);
-      if constexpr (kMode == kHigh3) bf16_split4(b, b, b_lo);
 #pragma unroll
-      for (int i = 0; i < kI; ++i) {
-        s[i][j] = dot4(a[i], b, s[i][j]);
-        if constexpr (kMode == kHigh3) {
-          s[i][j] = dot4(a[i], b_lo, s[i][j]);
-          s[i][j] = dot4(a_lo[i], b, s[i][j]);
-        }
-      }
+      for (int i = 0; i < kI; ++i) s[i][j] = dot4(a[i], b, s[i][j]);
     }
   }
 }
@@ -224,35 +210,30 @@ __device__ __forceinline__ void mm_rows(float (&s)[kI][kJ], const float* A, int 
 // Register micro-tile of a product over `rows` (a multiple of 4) rows:
 //   o[i][4c + e] += Σ_{r < rows} W[(a0 + kAS·i)·ldw + r] · V[r·ldv + 4·t + kCS·c + e]
 // for the thread's kI rows and kC groups of 4 columns; per 4 rows, kI + 4·kC
-// loads feed 16·kI·kC FMAs. kMode as mm_rows's, on W and V.
-template <int kI, int kAS, int kC, int kCS, int kMode = kHighest>
+// loads feed 16·kI·kC FMAs. kMode as mm_rows's, on V and, with kRoundW, on
+// W (B4's first sweep keeps P in f32 under "default": its row sums D take
+// the unrounded P).
+template <int kI, int kAS, int kC, int kCS, int kMode = kHighest, bool kRoundW = true>
 __device__ __forceinline__ void mm_acc(float (&o)[kI][4 * kC], const float* W, int ldw, int a0,
                                        const float* V, int ldv, int t, int rows) {
+  static_assert(kMode == kHighest || kMode == kDefault, "the micro-tiles take two modes");
 #pragma unroll
   for (int r = 0; r < rows; r += 4) {
-    float4 w[kI], w_lo[kI];
+    float4 w[kI];
 #pragma unroll
     for (int i = 0; i < kI; ++i) {
       w[i] = ld4(W + (a0 + kAS * i) * ldw + r);
-      if constexpr (kMode == kDefault) w[i] = bf16_round4(w[i]);
-      if constexpr (kMode == kHigh3) bf16_split4(w[i], w[i], w_lo[i]);
+      if constexpr (kMode == kDefault && kRoundW) w[i] = bf16_round4(w[i]);
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float* vr = V + (r + e) * ldv + 4 * t;
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
-        float4 vv = ld4(vr + kCS * c), v_lo;
+        float4 vv = ld4(vr + kCS * c);
         if constexpr (kMode == kDefault) vv = bf16_round4(vv);
-        if constexpr (kMode == kHigh3) bf16_split4(vv, vv, v_lo);
 #pragma unroll
-        for (int i = 0; i < kI; ++i) {
-          axpy4(lane_of(w[i], e), vv, &o[i][4 * c]);
-          if constexpr (kMode == kHigh3) {
-            axpy4(lane_of(w[i], e), v_lo, &o[i][4 * c]);
-            axpy4(lane_of(w_lo[i], e), vv, &o[i][4 * c]);
-          }
-        }
+        for (int i = 0; i < kI; ++i) axpy4(lane_of(w[i], e), vv, &o[i][4 * c]);
       }
     }
   }
@@ -279,7 +260,7 @@ struct FwdLayout {
   static constexpr int kFloats = kP + kQT * kLdP;
 };
 
-template <int D, bool kOuter, int kMode = kHighest>
+template <int D, bool kOuter>
 __global__ void __launch_bounds__(kThreads)
 grand_attn_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ out, Strides sq,
@@ -306,27 +287,10 @@ grand_attn_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k
     obase += z * so.z;
   }
 
-  // Under a contraction mode P·V rounds (or splits) the exponentials, so
-  // they are taken relative to the row's maximum, as JAX's grand_attend_tile
-  // takes them, not to a running one: a first pass over the key tiles'
-  // logit chunks (`pre` chunks of the ring's sequence) forms the row maxima,
-  // and the online softmax then never rescales (alpha = expf(0) = 1).
-  const int tiles = (n_keys + kKT - 1) / kKT;
-  const int pre = kMode == kHighest ? 0 : tiles * L::kSC;
-  const int total = pre + tiles * L::kChunks;
-  // Chunk g of the sequence: key tile t, chunk c of the tile (logit chunks
-  // only in the first pass).
-  auto tile_chunk = [&](int g, int& t, int& c) {
-    if (g < pre) {
-      t = g / L::kSC, c = g % L::kSC;
-    } else {
-      t = (g - pre) / L::kChunks, c = (g - pre) % L::kChunks;
-    }
-  };
+  const int total = (n_keys + kKT - 1) / kKT * L::kChunks;
   auto issue = [&](int g) {
     float* st = ring + (g & 1) * L::kStage;
-    int t, c;
-    tile_chunk(g, t, c);
+    const int t = g / L::kChunks, c = g % L::kChunks;
     if (c < L::kSC) {
       load_block<kKT, 32>(st, kLdC, kbase, sk.n, t * kKT, 32 * c, n_keys);
     } else {
@@ -353,9 +317,7 @@ grand_attn_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k
     if (g + 1 < total) issue(g + 1);
     cp_async_commit();
     const float* st = ring + (g & 1) * L::kStage;
-    const bool first_pass = g < pre;
-    int t, c;
-    tile_chunk(g, t, c);
+    const int t = g / L::kChunks, c = g % L::kChunks;
     if (c < L::kSC) {  // logits of queries tq + 16i, keys tk + 8j, columns 32c..32c+31
       if (c == 0) {
 #pragma unroll
@@ -363,7 +325,7 @@ grand_attn_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
           for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
       }
-      mm_rows<4, 8, 16, 8, kMode>(s, Qs + 32 * c, L::kLdQ, tq, st, kLdC, tk);
+      mm_rows<4, 8, 16, 8>(s, Qs + 32 * c, L::kLdQ, tq, st, kLdC, tk);
       if (c == L::kSC - 1) {  // the tile's logits are complete: online softmax, P
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -374,10 +336,6 @@ grand_attn_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k
             mt = fmaxf(mt, s[i][j]);
           }
           const float m_new = fmaxf(m[i], oct_max(mt));
-          if (first_pass) {  // the row maxima alone
-            m[i] = m_new;
-            continue;
-          }
           const float alpha = expf(m[i] - m_new);  // 0 on the first tile
           m[i] = m_new;
           l[i] *= alpha;
@@ -392,8 +350,7 @@ grand_attn_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k
         }
       }
     } else {  // O += P·V over keys (c - kSC)·kVR of the tile
-      mm_acc<4, 16, kC, 32, kMode>(o, Ps + (c - L::kSC) * L::kVR, L::kLdP, tq, st, D + 4, tk,
-                                   L::kVR);
+      mm_acc<4, 16, kC, 32>(o, Ps + (c - L::kSC) * L::kVR, L::kLdP, tq, st, D + 4, tk, L::kVR);
     }
   }
 
@@ -503,7 +460,7 @@ __host__ __device__ inline SmallLayout small_layout(int n, int nq, int team) {
 // of [B, H, n, D] operands (pair = (z·B + b)·H + h; z is the outer index of
 // B2's layout, 0 elsewhere) with n_keys keys and n_queries >= n_keys query
 // rows. Block x takes pairs x, x + gridDim.x, ...; gridDim.x <= pairs.
-template <int D, int KJ, int kMode = kHighest>
+template <int D, int KJ>
 __global__ void __launch_bounds__(32 * SmallTile<D, KJ>::kMaxTeam)
 grand_attn_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ out, Strides sq,
@@ -572,8 +529,7 @@ grand_attn_small_kernel(const float* __restrict__ q, const float* __restrict__ k
         for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
 #pragma unroll
       for (int cc = 0; cc < D / 32; ++cc) {
-        mm_rows<T::kQI, KJ, 4, 8, kMode>(s, st + 32 * cc, T::kLd, r0 + a, Ks + 32 * cc, T::kLd,
-                                         b);
+        mm_rows<T::kQI, KJ, 4, 8>(s, st + 32 * cc, T::kLd, r0 + a, Ks + 32 * cc, T::kLd, b);
       }
       __syncwarp();  // every lane is done reading the previous chunk's P
       float inv[T::kQI];
@@ -601,7 +557,7 @@ grand_attn_small_kernel(const float* __restrict__ q, const float* __restrict__ k
       for (int i = 0; i < T::kQI; ++i)
 #pragma unroll
         for (int e = 0; e < 4 * kC; ++e) o[i][e] = 0.f;
-      mm_acc<T::kQI, 4, kC, 32, kMode>(o, Pw, T::kLdP, a, Vs, T::kLd, b, n4);
+      mm_acc<T::kQI, 4, kC, 32>(o, Pw, T::kLdP, a, Vs, T::kLd, b, n4);
 #pragma unroll
       for (int i = 0; i < T::kQI; ++i) {
         const int row = r0 + a + 4 * i;
@@ -621,7 +577,7 @@ grand_attn_small_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-template <int D, int KJ, int kMode>
+template <int D, int KJ>
 inline cudaError_t launch_small_keys(const float* q, const float* k, const float* v, float* out,
                                      Strides sq, Strides sk, Strides sv, Strides so, int B,
                                      int H, int n_keys, int n_queries, float scale,
@@ -630,21 +586,21 @@ inline cudaError_t launch_small_keys(const float* q, const float* k, const float
   const int chunks = (n_queries + T::kChunk - 1) / T::kChunk;
   const int team = chunks < T::kMaxTeam ? chunks : T::kMaxTeam;
   const int bytes = small_layout<D, KJ>(n_keys, n_queries, team).total * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(grand_attn_small_kernel<D, KJ, kMode>,
+  cudaError_t err = cudaFuncSetAttribute(grand_attn_small_kernel<D, KJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, grand_attn_small_kernel<D, KJ, kMode>, 32 * team, bytes);
+        &per_sm, grand_attn_small_kernel<D, KJ>, 32 * team, bytes);
   }
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long pairs = (long long)B * H * outer;
   if (pairs > 0x7fffffff) return cudaErrorInvalidValue;
   const int grid = (long long)sms * per_sm < pairs ? sms * per_sm : (int)pairs;
-  grand_attn_small_kernel<D, KJ, kMode><<<grid, 32 * team, bytes, stream>>>(
+  grand_attn_small_kernel<D, KJ><<<grid, 32 * team, bytes, stream>>>(
       q, k, v, out, sq, sk, sv, so, (int)pairs, B, H, n_keys, n_queries, scale);
   return cudaGetLastError();
 }
@@ -652,8 +608,7 @@ inline cudaError_t launch_small_keys(const float* q, const float* k, const float
 // The small-group kernel on (B, H[, outer]) groups of n_keys <= kSmallMaxN
 // keys and n_keys <= n_queries <= kSmallMaxN query rows, head width d (64
 // or 128); strides as launch_grand_attn's. B6 takes it at n <= 64, the
-// block's attention step at n <= kSmallKeys (in kMode).
-template <int kMode = kHighest>
+// block's exact f32 attention step at n <= kSmallKeys.
 inline cudaError_t launch_small(const float* q, const float* k, const float* v, float* out,
                                 Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
                                 int n_keys, int n_queries, int d, float scale,
@@ -663,71 +618,33 @@ inline cudaError_t launch_small(const float* q, const float* k, const float* v, 
     return cudaErrorInvalidValue;
   }
 #define SMALL_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer
-  if constexpr (kMode != kHighest) {
-    // The modes serve the block's attention step alone, whose small groups
-    // have at most kSmallKeys keys: no instance for B6's n <= 64.
-    if (n_keys > kSmallKeys) return cudaErrorInvalidValue;
-    if (d == 64) {
-      return n_keys <= 24 ? launch_small_keys<64, 3, kMode>(SMALL_ARGS)
-                          : launch_small_keys<64, 4, kMode>(SMALL_ARGS);
-    }
-    return n_keys <= 24 ? launch_small_keys<128, 3, kMode>(SMALL_ARGS)
-                        : launch_small_keys<128, 4, kMode>(SMALL_ARGS);
-  }
   if (d == 64) {
-    return n_keys <= 24   ? launch_small_keys<64, 3, kHighest>(SMALL_ARGS)
-           : n_keys <= 32 ? launch_small_keys<64, 4, kHighest>(SMALL_ARGS)
-                          : launch_small_keys<64, 8, kHighest>(SMALL_ARGS);
+    return n_keys <= 24   ? launch_small_keys<64, 3>(SMALL_ARGS)
+           : n_keys <= 32 ? launch_small_keys<64, 4>(SMALL_ARGS)
+                          : launch_small_keys<64, 8>(SMALL_ARGS);
   }
-  return n_keys <= 24   ? launch_small_keys<128, 3, kHighest>(SMALL_ARGS)
-         : n_keys <= 32 ? launch_small_keys<128, 4, kHighest>(SMALL_ARGS)
-                        : launch_small_keys<128, 8, kHighest>(SMALL_ARGS);
+  return n_keys <= 24   ? launch_small_keys<128, 3>(SMALL_ARGS)
+         : n_keys <= 32 ? launch_small_keys<128, 4>(SMALL_ARGS)
+                        : launch_small_keys<128, 8>(SMALL_ARGS);
 #undef SMALL_ARGS
 }
 
-template <int D, bool kOuter, int kMode>
+template <int D, bool kOuter>
 inline cudaError_t launch_tiled(const float* q, const float* k, const float* v, float* out,
                                 Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
                                 int n_keys, int n_queries, float scale, cudaStream_t stream,
                                 int outer, float* stats = nullptr) {
   constexpr size_t kBytes = FwdLayout<D>::kFloats * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(grand_attn_tiled_kernel<D, kOuter, kMode>,
+  const cudaError_t err = cudaFuncSetAttribute(grand_attn_tiled_kernel<D, kOuter>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)kBytes);
   if (err != cudaSuccess) return err;
   const int q_tiles = (n_queries + kQT - 1) / kQT;
-  grand_attn_tiled_kernel<D, kOuter, kMode>
+  grand_attn_tiled_kernel<D, kOuter>
       <<<dim3(B * q_tiles, H, outer), kThreads, kBytes, stream>>>(q, k, v, out, sq, sk, sv, so,
                                                                   n_keys, n_queries, q_tiles,
                                                                   scale, stats);
   return cudaGetLastError();
-}
-
-// Launches the f32 attention on (B, H[, outer]) groups of n_keys keys and
-// n_queries >= n_keys query rows at head width d (64 or 128), n_keys <=
-// kMaxN: the small-group kernel for n_keys <= 32 (and at most 64 query
-// rows), else the tiled kernel. Every stride a multiple of 4 floats and
-// every base 16-byte aligned (checked by the callers). With stats (the
-// tiled kernel only, no outer index) it also writes each row's max m and
-// 1/l into the two [B·H, n64] planes of B4's statistics. kMode: the
-// contraction mode of both products (F32Mode).
-template <bool kOuter = false, int kMode = kHighest>
-inline cudaError_t launch_grand_attn(const float* q, const float* k, const float* v, float* out,
-                                     Strides sq, Strides sk, Strides sv, Strides so, int B,
-                                     int H, int n_keys, int n_queries, int d, float scale,
-                                     cudaStream_t stream, int outer = 1, float* stats = nullptr) {
-  if (n_keys <= 0 || n_keys > kMaxN || n_queries < n_keys || !takes_head_dim(d) ||
-      (stats != nullptr && (kOuter || n_keys <= kSmallKeys))) {
-    return cudaErrorInvalidValue;
-  }
-  if (n_keys <= kSmallKeys && n_queries <= kSmallMaxN) {
-    return launch_small<kMode>(q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, d, scale,
-                               stream, outer);
-  }
-#define GRAND_F32_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer
-  return d == 64 ? launch_tiled<64, kOuter, kMode>(GRAND_F32_ARGS, stats)
-                 : launch_tiled<128, kOuter, kMode>(GRAND_F32_ARGS, stats);
-#undef GRAND_F32_ARGS
 }
 
 }  // namespace grand

@@ -42,6 +42,7 @@ from diff3dhpe_torch.metrics import mean_velocity_error, mpjpe, n_mpjpe, p_mpjpe
 from diff3dhpe_torch.models import HPE_model
 from diff3dhpe_torch.ops.attention import HEAD_DIMS
 from diff3dhpe_torch.ops.fused_block import F32_MODES, LN_MAX_C
+from diff3dhpe_torch.ops.matmul_precision import check_matmul_precision
 from diff3dhpe_torch.parallel import check_mesh_shape
 
 
@@ -104,6 +105,7 @@ def check_supported(cfg: Config, device="cpu", world_size: int = 1) -> None:
     evaluation with it computes what one without it computes."""
     refuse = lambda field, why: _refuse(cfg, field, why)
     check_mesh_shape(cfg.mesh_shape, world_size)
+    check_matmul_precision(cfg.matmul_precision)
     bf16 = cfg.compute_dtype == "bfloat16"
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         refuse("compute_dtype", "float32 or bfloat16")
@@ -145,22 +147,26 @@ def eval_diffusion(cfg: Config, diffusion, model, temporal_mode: str = "rows"):
     ``eval_f32_tail_pairs`` a bf16 forward whose last that-many block pairs
     and head run at float32; those final steps contract at
     ``eval_final_prec``, where JAX's runner pins them (:148-163). An f32
-    ``fast_eval`` run ignores ``eval_final_prec``, as JAX's does.
+    ``fast_eval`` run ignores ``eval_final_prec``, as JAX's does. The
+    float32 products outside the fused blocks contract at
+    ``matmul_precision``, the session precision JAX's runner sets (:93).
     ``temporal_mode``: the fused forward's temporal layout (the runner's is
     "rows", JAX's default; the bench and the export also take "cols")."""
     if not cfg.fast_eval:
         return diffusion
     bf16 = cfg.compute_dtype == "bfloat16"
+    prec = cfg.matmul_precision
     out = dataclasses.replace(diffusion, denoise_fn=make_fast_denoise_fn(
-        model, _dtype(cfg), temporal_mode, f32_head=bf16 and cfg.eval_f32_head))
+        model, _dtype(cfg), temporal_mode, f32_head=bf16 and cfg.eval_f32_head,
+        matmul_precision=prec))
     if bf16 and cfg.eval_f32_final_steps > 0:
         if cfg.eval_f32_tail_pairs > 0:
             final = make_fast_denoise_fn(model, torch.bfloat16, temporal_mode, f32_head=True,
                                          f32_tail_pairs=cfg.eval_f32_tail_pairs,
-                                         f32_prec=cfg.eval_final_prec)
+                                         f32_prec=cfg.eval_final_prec, matmul_precision=prec)
         else:
             final = make_fast_denoise_fn(model, torch.float32, temporal_mode,
-                                         f32_prec=cfg.eval_final_prec)
+                                         f32_prec=cfg.eval_final_prec, matmul_precision=prec)
         out = dataclasses.replace(out, final_denoise_fn=final,
                                   final_denoise_steps=cfg.eval_f32_final_steps)
     return out
@@ -207,7 +213,10 @@ class Runner:
     ``compute_dtype`` with the pair-boundary recompute backward, or the
     monolithic one with ``fast_train_pair_vjp=False``
     (``fast_train_attn_bwd``: its attention through the attention
-    kernels), drop-path at ``drop_path_rate`` either way.
+    kernels), drop-path at ``drop_path_rate`` either way. Every float32
+    product of these denoisers outside the fused blocks contracts at
+    ``matmul_precision`` (JAX's session precision, set from the same field,
+    :93), passed to each as an argument.
 
     ``device`` is "cuda" unless the caller asks for "cpu"; nothing falls
     back. ``check_supported`` lists what is refused, ``check_trainable``
@@ -246,8 +255,9 @@ class Runner:
             remat_blocks=cfg.remat and cfg.remat_mode == "block",
         )
         self.model = HPE_model(cfg.model)(**self._model_kw, seed=cfg.seed, device=self.device)
+        prec = cfg.matmul_precision
         self.diffusion = GaussianDiffusion.create(
-            make_denoise_fn(self.model),
+            make_denoise_fn(self.model, prec),
             timesteps=cfg.timesteps,
             sampling_timesteps=cfg.sampling_timesteps,
             loss_type=cfg.loss_type,
@@ -260,10 +270,11 @@ class Runner:
         if cfg.fast_train:
             train_fn = make_fast_train_denoise_fn(
                 self.model, cfg.drop_path_rate, attn_bwd=cfg.fast_train_attn_bwd,
-                dtype=_dtype(cfg), pair_vjp=cfg.fast_train_pair_vjp)
+                dtype=_dtype(cfg), pair_vjp=cfg.fast_train_pair_vjp, matmul_precision=prec)
         else:
             train_fn = make_train_denoise_fn(self.model, cfg.drop_path_rate,
-                                             remat=cfg.remat and cfg.remat_mode == "whole")
+                                             remat=cfg.remat and cfg.remat_mode == "whole",
+                                             matmul_precision=prec)
         self.train_diffusion = dataclasses.replace(self.diffusion, denoise_fn=train_fn)
         self._build_eval()
 

@@ -20,6 +20,13 @@ the per-step noise) for the global batch, in the same order, then keeps
 its rows: the step computes the same thing at every world size. JAX's
 ``shard_map`` fast train draws per shard instead (``fold_in(key,
 axis_index)``); tests reproduce that by injecting its draws.
+
+The denoiser factories take ``matmul_precision``, the session precision
+that JAX's Runner sets (``Config.matmul_precision``;
+``ops.matmul_precision``): the float32 products outside the fused kernels,
+and every float32 product of the plain module and of the training
+recompute, contract at it. The train, eval and val steps contract nothing
+themselves: they run the denoiser their diffusion holds.
 """
 from __future__ import annotations
 
@@ -40,22 +47,24 @@ from diff3dhpe_torch.models.fast_eval import (
 )
 
 
-def make_denoise_fn(model) -> Callable:
+def make_denoise_fn(model, matmul_precision: str = "highest") -> Callable:
     """denoise_fn(x, t) through the plain PyTorch module (the parity path),
-    without autograd. It also takes ``p_losses``'s keywords, as the
-    validation loss calls it: ``dp_scales`` (None: no drop-path) and
-    ``generator``, which it does not draw from."""
+    without autograd, its float32 products at ``matmul_precision``. It also
+    takes ``p_losses``'s keywords, as the validation loss calls it:
+    ``dp_scales`` (None: no drop-path) and ``generator``, which it does not
+    draw from."""
 
     @torch.no_grad()
     def denoise_fn(x, t, *, dp_scales=None, generator=None):
-        return model(x, t, dp_scales)
+        return model(x, t, dp_scales, matmul_precision)
 
     return denoise_fn
 
 
 def make_fast_denoise_fn(model, dtype=torch.float32, temporal_mode: str = "rows",
                          f32_head: bool = False, f32_tail_pairs: int = 0,
-                         f32_prec: str = "highest") -> Callable:
+                         f32_prec: str = "highest",
+                         matmul_precision: str = "highest") -> Callable:
     """denoise_fn(x, t) through the fused-block forward
     (``models.fast_eval.fast_forward_denoise``), JAX ``make_fast_denoise_fn``.
 
@@ -71,7 +80,9 @@ def make_fast_denoise_fn(model, dtype=torch.float32, temporal_mode: str = "rows"
     precision tail). ``f32_prec`` pins the contraction mode of the fused
     blocks at float32, the float32 forward's or the tail's ("highest",
     "high3" or "default"; JAX's ``f32_prec``, :80-101), for this function
-    alone; the port reads no mode from the environment."""
+    alone; the port reads no mode from the environment.
+    ``matmul_precision``: the session precision of the float32 products
+    outside the fused blocks."""
     bf16 = dtype == torch.bfloat16
     weights = bf16_snapshot(model, f32_head) if bf16 else model
     tail = f32_tail_pairs if bf16 else 0
@@ -79,13 +90,14 @@ def make_fast_denoise_fn(model, dtype=torch.float32, temporal_mode: str = "rows"
     def denoise_fn(x, t):
         return fast_forward_denoise(weights, x, t, dtype=dtype, temporal_mode=temporal_mode,
                                     f32_head=f32_head, f32_tail_pairs=tail, f32_model=model,
-                                    f32_prec=f32_prec)
+                                    f32_prec=f32_prec, matmul_precision=matmul_precision)
 
     return denoise_fn
 
 
 def make_mixed_diffusion(model, temporal_mode: str = "rows", f32_tail_pairs: int = 0,
-                         f32_prec: str = "highest", **diffusion_kw) -> GaussianDiffusion:
+                         f32_prec: str = "highest", matmul_precision: str = "highest",
+                         **diffusion_kw) -> GaussianDiffusion:
     """The JAX package's default eval (``bench.py`` DTYPE="mixed", :101-135):
     a bf16 trunk with an f32 head for the DDIM steps, and the f32 fused
     forward for the last one, or with ``f32_tail_pairs`` > 0 a bf16 forward
@@ -93,14 +105,18 @@ def make_mixed_diffusion(model, temporal_mode: str = "rows", f32_tail_pairs: int
     TAIL_PAIRS, :119-127). ``f32_prec`` is the contraction mode of the f32
     parts of that final step: JAX's bench runs them at "high3"
     (``BENCH_FINAL_PREC``), as does the runner (``Config.eval_final_prec``).
-    ``diffusion_kw`` go to ``GaussianDiffusion.create``."""
+    ``matmul_precision``: the session precision of the float32 products
+    outside the fused blocks (the f32 heads, the final step's dense
+    layers). ``diffusion_kw`` go to ``GaussianDiffusion.create``."""
+    prec = dict(f32_prec=f32_prec, matmul_precision=matmul_precision)
     if f32_tail_pairs > 0:
         final = make_fast_denoise_fn(model, torch.bfloat16, temporal_mode, f32_head=True,
-                                     f32_tail_pairs=f32_tail_pairs, f32_prec=f32_prec)
+                                     f32_tail_pairs=f32_tail_pairs, **prec)
     else:
-        final = make_fast_denoise_fn(model, torch.float32, temporal_mode, f32_prec=f32_prec)
+        final = make_fast_denoise_fn(model, torch.float32, temporal_mode, **prec)
     return GaussianDiffusion.create(
-        make_fast_denoise_fn(model, torch.bfloat16, temporal_mode, f32_head=True),
+        make_fast_denoise_fn(model, torch.bfloat16, temporal_mode, f32_head=True,
+                             matmul_precision=matmul_precision),
         final_denoise_fn=final, final_denoise_steps=1, **diffusion_kw,
     )
 
@@ -126,7 +142,8 @@ def _train_denoise_fn(model, drop_path_rate, forward):
 
 def make_fast_train_denoise_fn(model, drop_path_rate: float = 0.1, attn_bwd: bool = False,
                                temporal_mode: str = "rows", dtype=torch.float32,
-                               pair_vjp: bool = True, ckpt_blocks: bool = False) -> Callable:
+                               pair_vjp: bool = True, ckpt_blocks: bool = False,
+                               matmul_precision: str = "highest") -> Callable:
     """Training denoise_fn on the fused forward in ``dtype`` (float32 or
     bfloat16) with a recompute backward, JAX ``make_fast_train_denoise_fn``
     (:108-175): ``pair_vjp`` the pair-boundary backward
@@ -136,7 +153,9 @@ def make_fast_train_denoise_fn(model, drop_path_rate: float = 0.1, attn_bwd: boo
     has nothing to act on and a warning says so, as JAX's does.
     ``attn_bwd``: the recompute's attention runs through
     ``grand_attention_trainable`` (its kernels on CUDA). ``temporal_mode``:
-    the fused forward's temporal layout, "rows" or "cols" (B2)."""
+    the fused forward's temporal layout, "rows" or "cols" (B2).
+    ``matmul_precision``: the session precision of the float32 products
+    outside the fused blocks and of the recompute, forward and backward."""
     if pair_vjp and ckpt_blocks:
         warnings.warn(
             "ckpt_blocks has no effect when pair_vjp=True (the pair backward already "
@@ -146,24 +165,26 @@ def make_fast_train_denoise_fn(model, drop_path_rate: float = 0.1, attn_bwd: boo
     def forward(x, t, dp):
         if pair_vjp:
             return fast_forward_denoise_train_pairs(model, x, t, dp, attn_bwd, temporal_mode,
-                                                    dtype)
+                                                    dtype, matmul_precision)
         return fast_forward_denoise_train(model, x, t, dp, attn_bwd, temporal_mode, dtype,
-                                          ckpt_blocks)
+                                          ckpt_blocks, matmul_precision)
 
     return _train_denoise_fn(model, drop_path_rate, forward)
 
 
-def make_train_denoise_fn(model, drop_path_rate: float = 0.1, remat: bool = False) -> Callable:
+def make_train_denoise_fn(model, drop_path_rate: float = 0.1, remat: bool = False,
+                          matmul_precision: str = "highest") -> Callable:
     """The plain counterpart: the module under ordinary autograd, with the
-    same drop-path scales. ``remat``: the whole forward is recomputed in the
+    same drop-path scales, its float32 products at ``matmul_precision``
+    forward and backward. ``remat``: the whole forward is recomputed in the
     backward (``checkpoint``; JAX ``make_denoise_fn(remat=True)``,
     ``Config.remat_mode="whole"``); the module's own ``remat_blocks`` is the
     per-block form."""
 
     def forward(x, t, dp):
         if remat and torch.is_grad_enabled():
-            return checkpoint(model, x, t, dp, use_reentrant=False)
-        return model(x, t, dp)
+            return checkpoint(model, x, t, dp, matmul_precision, use_reentrant=False)
+        return model(x, t, dp, matmul_precision)
 
     return _train_denoise_fn(model, drop_path_rate, forward)
 

@@ -11,7 +11,10 @@ the CPU. It runs on the device it was exported on, and on any other of the
 ``platforms`` its export names ("cpu", "cuda"; JAX's lowering platforms,
 :37): ``restore_eval_step(path, device=...)`` moves the program there
 (``move_to_device_pass``). The mixed step records the contraction mode of
-its float32 final step (``final_prec``). The trained weights are runtime
+its float32 final step (``final_prec``), and every step records the session
+matmul precision of its float32 products outside the fused blocks
+(``matmul_precision``), which is baked into the traced program as JAX bakes
+it into its trace. The trained weights are runtime
 INPUTS, under the reference's state-dict names, so one artifact serves
 every checkpoint of its shape; the bf16 copies of the bf16 paths are made
 inside the graph, once per call.
@@ -170,7 +173,8 @@ def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool
     cfg = runner.cfg
     mixed = cfg.fast_eval and cfg.compute_dtype == "bfloat16" and cfg.eval_f32_final_steps > 0
     meta = dict(keys=list(state), device=str(runner.device), platforms=platforms,
-                final_prec=cfg.eval_final_prec if mixed else None, batch_size=local,
+                final_prec=cfg.eval_final_prec if mixed else None,
+                matmul_precision=cfg.matmul_precision, batch_size=local,
                 sharded=dict(world_size=mesh.size, global_batch=batch_size) if sharded else None,
                 temporal_mode=temporal_mode,
                 num_frames=cfg.number_of_frames, num_joints=runner.num_joints,

@@ -28,6 +28,13 @@ bf16, and ``f32_head`` casts the trunk output to float32 before the head.
 the last block pairs and the head of a bf16 forward at float32 (JAX's
 precision tail).
 
+``matmul_precision`` (``ops.matmul_precision``), the session precision:
+every float32 product outside the fused kernels (the fusion layer, the
+time MLP and the blocks' time projections, the head and the s2f weighted
+mean) and, in training, every float32 product of the recompute (its dense
+layers and attention, forward and backward) contracts at it. The fused
+blocks take ``f32_prec`` alone, as JAX's ``_dot_f32`` pins its own mode.
+
 Training runs the fused forward with a recompute backward at float32 or
 bf16, as JAX's ``FastTrainCfg.dtype_name``. The recompute is the mirror
 ``mirror_forward_denoise`` (JAX ``xla_forward_denoise``): the module's
@@ -113,20 +120,21 @@ def bf16_snapshot(model, f32_head=False):
 
 
 def _fused_pair(model, i, shape, x_flat, t, dp_s, dp_t, temporal_mode="rows",
-                f32_prec="highest"):
+                f32_prec="highest", matmul_precision="highest"):
     """Block pair i on the flat spatial-major rows x_flat [B*F*J, C]
     through two fused block calls, the temporal one in ``temporal_mode``;
     returns rows in the same order. t [B, 2C] is the time embedding (or
     None); dp_s [B, F, 2], dp_t [B, J, 2] the per-group drop-path scales (or
     None), broadcast here to per-row scales as the JAX pair does.
-    ``f32_prec``: the blocks' contraction mode at float32."""
+    ``f32_prec``: the blocks' contraction mode at float32;
+    ``matmul_precision``: the time projections'."""
     b, f, p = shape
     c, heads, rows_item = model.embed_dim, model.num_heads, f * p
 
     def time_rows(block):
         if t is None or block.time_mlp is None:
             return None
-        return _dense(block.time_mlp[1], silu(t)).contiguous()
+        return _dense(block.time_mlp[1], silu(t), matmul_precision=matmul_precision).contiguous()
 
     def dp_rows(d, groups, per_group):
         if d is None:
@@ -156,16 +164,18 @@ def _fused_pair(model, i, shape, x_flat, t, dp_s, dp_t, temporal_mode="rows",
     return x_t.view(b, p, f, c).transpose(1, 2).contiguous().view(b * rows_item, c)
 
 
-def _head(model, x_flat, shape, f32_head=False):
+def _head(model, x_flat, shape, f32_head=False, matmul_precision="highest"):
     """[s2f weighted mean], [cast to float32], head LayerNorm (computed in
-    float32, stored in the activation dtype) and projection."""
+    float32, stored in the activation dtype) and projection; the float32
+    products at ``matmul_precision``."""
     b, f, p = shape
     x = x_flat.view(b, f, p, model.embed_dim)
     if model.mode == "s2f":
-        x = model.weighted_mean_over_frames(x)
+        x = model.weighted_mean_over_frames(x, matmul_precision)
     if f32_head:
         x = x.float()
-    return _dense(model.head[1], layer_norm(model.head[0], x, x.dtype))
+    return _dense(model.head[1], layer_norm(model.head[0], x, x.dtype),
+                  matmul_precision=matmul_precision)
 
 
 def _check_mode(temporal_mode):
@@ -181,7 +191,7 @@ def _check_dtype(dtype):
 @torch.no_grad()
 def fast_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
                          temporal_mode="rows", f32_head=False, f32_tail_pairs=0,
-                         f32_model=None, f32_prec="highest"):
+                         f32_model=None, f32_prec="highest", matmul_precision="highest"):
     """x [B, F, J, in_chans + 3], time [B] -> [B, F_out, J, 3] with the
     weights of ``model`` (a MixSTEDenoiser, or its ``bf16_snapshot``), no
     autograd. ``dp_scales``: None, or (dp_spatial [depth, B, F, 2],
@@ -202,10 +212,12 @@ def fast_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
     ``f32_prec`` (JAX fast_eval.py:98-112): the contraction mode of every
     fused block call at float32, the float32 forward's and the tail's
     ("highest", "high3" or "default"; ``ops.fused_block``). bf16 blocks
-    ignore it. The dense layers outside the kernels contract in float32."""
+    ignore it. ``matmul_precision``: the session precision of the float32
+    dense layers outside the kernels (module doc)."""
     _check_mode(temporal_mode)
     _check_dtype(dtype)
     f32_mode_index(f32_prec)
+    prec = matmul_precision
     b, f, p, _ = x.shape
     tail_start = model.depth
     if f32_tail_pairs and dtype == torch.bfloat16:
@@ -213,32 +225,36 @@ def fast_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
             raise ValueError("f32_tail_pairs is an eval-path feature: dp_scales must be None")
         tail_start = max(0, model.depth - int(f32_tail_pairs))
     dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
-    x = _dense(model.fusion_layer, x.to(dtype))
-    t = model.time_embedding(time, dtype)
+    x = _dense(model.fusion_layer, x.to(dtype), matmul_precision=prec)
+    t = model.time_embedding(time, dtype, prec)
     x = x + model.Spatial_pos_embed[None].to(dtype)
     x_flat = x.reshape(b * f * p, model.embed_dim).contiguous()
     weights = model
     for i in range(model.depth):
         if i == tail_start:
             weights = model if f32_model is None else f32_model
-            x_flat, t = x_flat.float(), weights.time_embedding(time, torch.float32)
+            x_flat, t = x_flat.float(), weights.time_embedding(time, torch.float32, prec)
         x_flat = _fused_pair(weights, i, (b, f, p), x_flat, t,
                              None if dp_sp is None else dp_sp[i],
-                             None if dp_tp is None else dp_tp[i], temporal_mode, f32_prec)
-    return _head(weights, x_flat, (b, f, p), f32_head)
+                             None if dp_tp is None else dp_tp[i], temporal_mode, f32_prec, prec)
+    return _head(weights, x_flat, (b, f, p), f32_head, prec)
 
 
-def _mirror_pair(model, i, x4, t, dp_s, dp_t, dtype, core, ckpt_blocks=False):
+def _mirror_pair(model, i, x4, t, dp_s, dp_t, dtype, core, ckpt_blocks=False,
+                 matmul_precision="highest"):
     """Block pair i of the mirror on x4 [B, F, J, C] (JAX ``_xla_pair``):
     the spatial block, Spatial_norm, [the temporal position embedding when
     i == 0], the temporal block, Temporal_norm, the dense layers and the
-    attention (``core``) in ``dtype`` and each LayerNorm returning its
-    input's dtype. ``ckpt_blocks``: each block under ``checkpoint``."""
+    attention (``core``, called at ``matmul_precision``) in ``dtype`` and
+    each LayerNorm returning its input's dtype. ``ckpt_blocks``: each block
+    under ``checkpoint``."""
+    prec = matmul_precision
+    attn = lambda q, k, v: core(q, k, v, matmul_precision=prec)
 
     def block(blk, y, is_spatial, dp):
         if ckpt_blocks:
-            return checkpoint(blk, y, is_spatial, t, dp, core, dtype, use_reentrant=False)
-        return blk(y, is_spatial, t, dp, core, dtype)
+            return checkpoint(blk, y, is_spatial, t, dp, attn, dtype, prec, use_reentrant=False)
+        return blk(y, is_spatial, t, dp, attn, dtype, prec)
 
     y = block(model.STEblocks[i], x4, True, dp_s)
     x4 = layer_norm(model.Spatial_norm, y, y.dtype)
@@ -249,21 +265,24 @@ def _mirror_pair(model, i, x4, t, dp_s, dp_t, dtype, core, ckpt_blocks=False):
 
 
 def mirror_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
-                           core=grand_attention, ckpt_blocks=False):
+                           core=grand_attention, ckpt_blocks=False, matmul_precision="highest"):
     """The differentiable mirror of the fused forward (JAX
     ``xla_forward_denoise``) on the weights of ``model``: the recompute
     target of the training backward. At float32 it computes what the
-    module computes; at bf16 the trunk stays bf16 (module doc)."""
+    module computes; at bf16 the trunk stays bf16 (module doc). ``core``
+    takes q, k, v and ``matmul_precision``, the session precision of every
+    float32 product."""
     dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
-    x = _dense(model.fusion_layer, x, dtype)
-    t = model.time_embedding(time, dtype)
+    prec = matmul_precision
+    x = _dense(model.fusion_layer, x, dtype, prec)
+    t = model.time_embedding(time, dtype, prec)
     x = x + model.Spatial_pos_embed[None].to(x.dtype)
     for i in range(model.depth):
         x = _mirror_pair(model, i, x, t, None if dp_sp is None else dp_sp[i],
-                         None if dp_tp is None else dp_tp[i], dtype, core, ckpt_blocks)
+                         None if dp_tp is None else dp_tp[i], dtype, core, ckpt_blocks, prec)
     if model.mode == "s2f":
-        x = model.weighted_mean_over_frames(x)
-    return _dense(model.head[1], layer_norm(model.head[0], x, x.dtype))
+        x = model.weighted_mean_over_frames(x, prec)
+    return _dense(model.head[1], layer_norm(model.head[0], x, x.dtype), matmul_precision=prec)
 
 
 class _FusedPair(torch.autograd.Function):
@@ -277,10 +296,13 @@ class _FusedPair(torch.autograd.Function):
     input rows."""
 
     @staticmethod
-    def forward(ctx, model, i, shape, attn_bwd, temporal_mode, x_flat, t, dp_s, dp_t, *params):
+    def forward(ctx, model, i, shape, attn_bwd, temporal_mode, matmul_precision, x_flat, t, dp_s,
+                dp_t, *params):
         ctx.model, ctx.i, ctx.shape, ctx.attn_bwd = model, i, shape, attn_bwd
+        ctx.matmul_precision = matmul_precision
         ctx.save_for_backward(x_flat, t, dp_s, dp_t)
-        return _fused_pair(model, i, shape, x_flat, t, dp_s, dp_t, temporal_mode)
+        return _fused_pair(model, i, shape, x_flat, t, dp_s, dp_t, temporal_mode,
+                           matmul_precision=matmul_precision)
 
     @staticmethod
     def backward(ctx, grad):
@@ -293,16 +315,18 @@ class _FusedPair(torch.autograd.Function):
             x4 = x_flat.detach().view(b, f, p, c).requires_grad_()
             tt = None if t is None else t.detach().requires_grad_()
             core = grand_attention_trainable if ctx.attn_bwd else grand_attention
-            out = _mirror_pair(model, i, x4, tt, dp_s, dp_t, x4.dtype, core)
+            out = _mirror_pair(model, i, x4, tt, dp_s, dp_t, x4.dtype, core,
+                               matmul_precision=ctx.matmul_precision)
             inputs = [x4] + ([] if tt is None else [tt]) + params
             grads = torch.autograd.grad(out, inputs, grad.view(b, f, p, c), allow_unused=True)
         d_x, grads = grads[0].reshape(b * f * p, c), list(grads[1:])
         d_t = None if tt is None else grads.pop(0)
-        return (None, None, None, None, None, d_x, d_t, None, None, *grads)
+        return (None, None, None, None, None, None, d_x, d_t, None, None, *grads)
 
 
 def fast_forward_denoise_train_pairs(model, x, time, dp_scales=None, attn_bwd=False,
-                                     temporal_mode="rows", dtype=torch.float32):
+                                     temporal_mode="rows", dtype=torch.float32,
+                                     matmul_precision="highest"):
     """Training forward (JAX ``fast_forward_denoise_train_pairs``): the
     fused forward of ``fast_forward_denoise`` in ``dtype`` (float32 or
     bfloat16; the parameters stay float32 and are cast on the way),
@@ -313,21 +337,24 @@ def fast_forward_denoise_train_pairs(model, x, time, dp_scales=None, attn_bwd=Fa
     boundary per pair plus one pair's recompute at a time. ``attn_bwd``:
     the recompute's attention runs through ``grand_attention_trainable``
     (its kernels on CUDA). ``temporal_mode`` picks the forward's layout; the
-    recompute backward does not depend on it."""
+    recompute backward does not depend on it. ``matmul_precision``: the
+    session precision of the float32 products outside the fused kernels
+    and of the recompute's (module doc)."""
     _check_mode(temporal_mode)
     _check_dtype(dtype)
     b, f, p, _ = x.shape
     dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
-    x = _dense(model.fusion_layer, x, dtype)
-    t = model.time_embedding(time, dtype)
+    prec = matmul_precision
+    x = _dense(model.fusion_layer, x, dtype, prec)
+    t = model.time_embedding(time, dtype, prec)
     x_flat = (x + model.Spatial_pos_embed[None].to(dtype)).reshape(b * f * p, model.embed_dim)
     for i in range(model.depth):
         x_flat = _FusedPair.apply(
-            model, i, (b, f, p), attn_bwd, temporal_mode, x_flat, t,
+            model, i, (b, f, p), attn_bwd, temporal_mode, prec, x_flat, t,
             None if dp_sp is None else dp_sp[i], None if dp_tp is None else dp_tp[i],
             *model.pair_parameters(i),
         )
-    return _head(model, x_flat, (b, f, p))
+    return _head(model, x_flat, (b, f, p), matmul_precision=prec)
 
 
 class _FusedTrain(torch.autograd.Function):
@@ -344,7 +371,8 @@ class _FusedTrain(torch.autograd.Function):
         ctx.save_for_backward(x, time, dp_sp, dp_tp)
         dp = None if dp_sp is None else (dp_sp, dp_tp)
         return fast_forward_denoise(model, x, time, dp, dtype=opts["dtype"],
-                                    temporal_mode=opts["temporal_mode"])
+                                    temporal_mode=opts["temporal_mode"],
+                                    matmul_precision=opts["matmul_precision"])
 
     @staticmethod
     def backward(ctx, grad):
@@ -355,13 +383,15 @@ class _FusedTrain(torch.autograd.Function):
         with torch.enable_grad():
             out = mirror_forward_denoise(model, x, time, None if dp_sp is None else (dp_sp, dp_tp),
                                          dtype=opts["dtype"], core=core,
-                                         ckpt_blocks=opts["ckpt_blocks"])
+                                         ckpt_blocks=opts["ckpt_blocks"],
+                                         matmul_precision=opts["matmul_precision"])
             grads = torch.autograd.grad(out, params, grad, allow_unused=True)
         return (None,) * 6 + tuple(grads)
 
 
 def fast_forward_denoise_train(model, x, time, dp_scales=None, attn_bwd=False,
-                               temporal_mode="rows", dtype=torch.float32, ckpt_blocks=False):
+                               temporal_mode="rows", dtype=torch.float32, ckpt_blocks=False,
+                               matmul_precision="highest"):
     """Training forward with the monolithic backward (JAX
     ``fast_forward_denoise_train``, ``fast_train_pair_vjp=False``): the
     fused forward of ``fast_forward_denoise`` in ``dtype``, whose backward
@@ -374,7 +404,7 @@ def fast_forward_denoise_train(model, x, time, dp_scales=None, attn_bwd=False,
     _check_dtype(dtype)
     dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
     opts = dict(attn_bwd=attn_bwd, temporal_mode=temporal_mode, dtype=dtype,
-                ckpt_blocks=ckpt_blocks)
+                ckpt_blocks=ckpt_blocks, matmul_precision=matmul_precision)
     return _FusedTrain.apply(model, opts, x, time, dp_sp, dp_tp, *model.parameters())
 
 

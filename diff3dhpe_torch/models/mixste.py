@@ -22,6 +22,12 @@ dp_scales)`` with one scale per attention group and residual branch, the
 counterpart of the flax ``DropPath`` and of JAX's ``xla_forward_denoise``
 with ``dp_scales``. Dropout is 0 in every shipped config and not ported.
 
+``matmul_precision`` (``forward``'s argument; ``ops.matmul_precision``) is
+the session precision JAX's Runner sets: at "default" or "bfloat16" every
+float32 product of the module (the dense layers, the attention's two
+products, the s2f weighted mean) contracts in one bf16 pass, forward and
+backward; "highest", the default, is exact float32.
+
 ``dtype=torch.bfloat16`` is flax's ``MixSTEDenoiser(dtype=bfloat16)``:
 parameters stay float32 (flax's ``param_dtype``), every dense layer casts
 its input, weight and bias to bf16 (``dense``), the attention runs on bf16
@@ -43,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from diff3dhpe_torch.device import resolve_device
 from diff3dhpe_torch.ops.attention import fused_grand_attention, grand_attention
+from diff3dhpe_torch.ops.matmul_precision import matmul, session_mode
 
 
 def sinusoidal_pos_emb(t, dim: int):
@@ -73,13 +80,17 @@ def init_weights(module: nn.Module, generator: torch.Generator):
                 m.bias.uniform_(-bound, bound, generator=generator)
 
 
-def dense(layer, x, dtype=None):
+def dense(layer, x, dtype=None, matmul_precision="highest"):
     """flax ``TorchDense`` (JAX ``fast_eval._dense``): x @ W + b in ``dtype``
     (default x's), x, W and b cast to it; below float32 the bias is added to
-    the rounded product."""
+    the rounded product. At float32 the product contracts at
+    ``matmul_precision`` (the bias added after it)."""
     dtype = x.dtype if dtype is None else dtype
     x, w = x.to(dtype), layer.weight.to(dtype)
     b = None if layer.bias is None else layer.bias.to(dtype)
+    if dtype == torch.float32 and session_mode(matmul_precision) != "highest":
+        y = matmul(x, w.t(), matmul_precision)
+        return y if b is None else y + b
     if dtype == torch.float32:
         return F.linear(x, w, b)
     y = F.linear(x, w)
@@ -114,8 +125,9 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x, dtype=torch.float32):
-        return dense(self.fc2, gelu(dense(self.fc1, x, dtype)), dtype)
+    def forward(self, x, dtype=torch.float32, matmul_precision="highest"):
+        return dense(self.fc2, gelu(dense(self.fc1, x, dtype, matmul_precision)), dtype,
+                     matmul_precision)
 
 
 class Attention(nn.Module):
@@ -133,21 +145,23 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, core=None, dtype=torch.float32):
+    def forward(self, x, core=None, dtype=torch.float32, matmul_precision="highest"):
         """``core``: the attention core, (q, k, v) [B, H, N, D] -> [B, H, N,
-        D] at the scale D^-½; default the module's own (the dispatcher with
-        ``use_pallas``, else the plain formulas). ``dtype``: of the dense
-        layers and so of q, k, v and the attention."""
+        D] at the scale D^-½ and at the caller's matmul precision; default
+        the module's own (the dispatcher with ``use_pallas``, else the plain
+        formulas, at ``matmul_precision``). ``dtype``: of the dense layers
+        and so of q, k, v and the attention."""
         b, n, c = x.shape
-        qkv = dense(self.qkv, x, dtype).reshape(b, n, 3, self.num_heads, c // self.num_heads)
+        prec = matmul_precision
+        qkv = dense(self.qkv, x, dtype, prec).reshape(b, n, 3, self.num_heads, c // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
         if core is not None:
             out = core(q, k, v)
         elif self.use_pallas:
-            out = fused_grand_attention(q, k, v, self.scale)
+            out = fused_grand_attention(q, k, v, self.scale, prec)
         else:
-            out = grand_attention(q, k, v, self.scale)
-        return dense(self.proj, out.transpose(1, 2).reshape(b, n, c), dtype)
+            out = grand_attention(q, k, v, self.scale, prec)
+        return dense(self.proj, out.transpose(1, 2).reshape(b, n, c), dtype, prec)
 
 
 class Block(nn.Module):
@@ -170,14 +184,16 @@ class Block(nn.Module):
         )
 
     def forward(self, x, is_spatial: bool, time_emb=None, dp=None, attn_core=None,
-                dtype=torch.float32):
+                dtype=torch.float32, matmul_precision="highest"):
         """``dtype``: of the dense layers and the attention (flax's
         ``dtype``); norm1 and norm2 feed dense layers only, so their output
         type does not matter. A drop-path scale multiplies its branch in the
-        branch's dtype (JAX ``_xla_block``)."""
+        branch's dtype (JAX ``_xla_block``). ``matmul_precision``: of the
+        float32 products."""
         b, f, p, c = x.shape
+        prec = matmul_precision
         if self.time_mlp is not None and time_emb is not None:
-            x = x + dense(self.time_mlp[1], silu(time_emb), dtype)[:, None, None, :]
+            x = x + dense(self.time_mlp[1], silu(time_emb), dtype, prec)[:, None, None, :]
         if is_spatial:
             tokens = x.reshape(b * f, p, c)
         else:
@@ -186,8 +202,9 @@ class Block(nn.Module):
         def branch(col, y):
             return y if dp is None else y * dp[:, :, col].reshape(-1, 1, 1).to(y.dtype)
 
-        tokens = tokens + branch(0, self.attn(layer_norm(self.norm1, tokens), attn_core, dtype))
-        tokens = tokens + branch(1, self.mlp(layer_norm(self.norm2, tokens), dtype))
+        tokens = tokens + branch(0, self.attn(layer_norm(self.norm1, tokens), attn_core, dtype,
+                                              prec))
+        tokens = tokens + branch(1, self.mlp(layer_norm(self.norm2, tokens), dtype, prec))
         if is_spatial:
             return tokens.reshape(b, f, p, c)
         return tokens.reshape(b, p, f, c).transpose(1, 2)
@@ -265,19 +282,26 @@ class MixSTEDenoiser(nn.Module):
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(device)
 
-    def time_embedding(self, time, dtype=None):
+    def time_embedding(self, time, dtype=None, matmul_precision="highest"):
         """[B] diffusion times -> [B, 2C] time embedding in ``dtype`` (default
         the module's; None without), JAX ``compute_t``."""
         if self.time_mlp is None:
             return None
         dtype = self.dtype if dtype is None else dtype
-        t = dense(self.time_mlp[1], sinusoidal_pos_emb(time, self.embed_dim), dtype)
-        return dense(self.time_mlp[3], gelu(t), dtype)
+        t = dense(self.time_mlp[1], sinusoidal_pos_emb(time, self.embed_dim), dtype,
+                  matmul_precision)
+        return dense(self.time_mlp[3], gelu(t), dtype, matmul_precision)
 
-    def weighted_mean_over_frames(self, x):
-        """s2f head: [B, F, J, C] -> [B, 1, J, C], with the weights in x's dtype."""
+    def weighted_mean_over_frames(self, x, matmul_precision="highest"):
+        """s2f head: [B, F, J, C] -> [B, 1, J, C], with the weights in x's
+        dtype; at float32 the contraction over frames at ``matmul_precision``."""
         w = self.weighted_mean.weight.reshape(-1).to(x.dtype)
-        return torch.einsum("bfpc,f->bpc", x, w)[:, None] + self.weighted_mean.bias.to(x.dtype)
+        bias = self.weighted_mean.bias.to(x.dtype)
+        if x.dtype == torch.float32 and session_mode(matmul_precision) != "highest":
+            b, f, p, c = x.shape
+            mean = matmul(w[None], x.reshape(b, f, p * c), matmul_precision)
+            return mean.reshape(b, 1, p, c) + bias
+        return torch.einsum("bfpc,f->bpc", x, w)[:, None] + bias
 
     def pair_parameters(self, i):
         """The parameters that block pair i reads, in a fixed order."""
@@ -285,14 +309,15 @@ class MixSTEDenoiser(nn.Module):
         params = [p for m in mods for p in m.parameters()]
         return params + [self.Temporal_pos_embed] if i == 0 else params
 
-    def forward(self, x, time, dp_scales=None):
+    def forward(self, x, time, dp_scales=None, matmul_precision="highest"):
         """``dp_scales``: None, or (dp_spatial [depth, B, F, 2], dp_temporal
         [depth, B, J, 2]) drop-path scales (``draw_drop_path_scales``). Each
         block pair: spatial block, Spatial_norm, [the temporal position
         embedding before the first temporal block], temporal block,
         Temporal_norm; with ``remat_blocks`` and autograd recording, each
         block under ``checkpoint`` (the drop-path scales are inputs, so the
-        recompute sees the same masks)."""
+        recompute sees the same masks). ``matmul_precision``: the session
+        precision of the float32 products (module doc)."""
         if x.ndim != 4:
             raise ValueError(f"expected x of shape [B, F, J, C], got {tuple(x.shape)}")
         if self.fusion_layer.weight.dtype != torch.float32:
@@ -300,15 +325,15 @@ class MixSTEDenoiser(nn.Module):
                              f"{self.fusion_layer.weight.dtype}; build it with dtype="
                              "torch.bfloat16 to compute at bf16")
         dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
-        dt = self.dtype
-        x = dense(self.fusion_layer, x, dt)
-        t = self.time_embedding(time)
+        dt, prec = self.dtype, matmul_precision
+        x = dense(self.fusion_layer, x, dt, prec)
+        t = self.time_embedding(time, matmul_precision=prec)
         x = x + self.Spatial_pos_embed[None].to(x.dtype)
 
         def block(blk, y, is_spatial, dp):
             if self.remat_blocks and torch.is_grad_enabled():
-                return checkpoint(blk, y, is_spatial, t, dp, None, dt, use_reentrant=False)
-            return blk(y, is_spatial, t, dp, None, dt)
+                return checkpoint(blk, y, is_spatial, t, dp, None, dt, prec, use_reentrant=False)
+            return blk(y, is_spatial, t, dp, None, dt, prec)
 
         for i in range(self.depth):
             x = layer_norm(self.Spatial_norm, block(
@@ -318,5 +343,5 @@ class MixSTEDenoiser(nn.Module):
             x = layer_norm(self.Temporal_norm, block(
                 self.TTEblocks[i], x, False, None if dp_tp is None else dp_tp[i]))
         if self.mode == "s2f":
-            x = self.weighted_mean_over_frames(x)
-        return dense(self.head[1], layer_norm(self.head[0], x), dt)
+            x = self.weighted_mean_over_frames(x, prec)
+        return dense(self.head[1], layer_norm(self.head[0], x), dt, prec)

@@ -46,7 +46,7 @@ SIGNATURES = {
             + [_P] * 7                         # xs, xn, qkv, attn, h1, mid, out
             + [_I] * 7 + [_F]                  # R, C, hidden, n, n_pad, j_groups, heads, scale
             + [_I, _P, _P]                     # f32 mode, a_split, w_split
-            + [ctypes.POINTER(_I), _P]         # launches[5], stream
+            + [ctypes.POINTER(_I), _P]         # launches[7], stream
         )
         for name in ("diff3dhpe_fused_block_f32", "diff3dhpe_fused_block_bf16")
     } | {
@@ -56,7 +56,7 @@ SIGNATURES = {
             + [_P] * 4                         # xn, qkv, attn, out
             + [_I] * 4 + [_F]                  # R, C, n, heads, scale
             + [_I, _P, _P]                     # f32 mode, a_split, w_split
-            + [ctypes.POINTER(_I), _P]         # launches[5], stream
+            + [ctypes.POINTER(_I), _P]         # launches[7], stream
         )
         for name in ("diff3dhpe_fused_attn_block_f32", "diff3dhpe_fused_attn_block_bf16")
     } | {
@@ -75,7 +75,8 @@ SIGNATURES = {
     } | {
         "diff3dhpe_split_bf16": [_P, _P, _P, _L, ctypes.POINTER(_I), _P],  # x, hi, lo, n
         "diff3dhpe_block_attn_f32": (
-            [_P, _P] + [_I] * 5 + [_F, _I]     # qkv, out; R, C, heads, n, n_pad; scale, mode
+            [_P, _P] + [_I] * 6 + [_F, _I]     # qkv, out; R, C, heads, n, n_pad, j_groups;
+                                               # scale, mode
             + [ctypes.POINTER(_I), _P]         # launches, stream
         ),
         "diff3dhpe_gemm_wgmma_f32": (
@@ -92,22 +93,26 @@ SIGNATURES = {
         name: (
             [_P] * 4 + [_I] * 4                # q, k, v, out; B, H, n, head_dim
             + [_L] * 12                        # (b, h, n) strides of q, k, v, out
-            + [_F, _P, ctypes.POINTER(_I), _P]  # scale, B4's statistics or NULL, launches, stream
+            + [_F, _P] + mode                  # scale, B4's statistics or NULL[, f32 mode]
+            + [ctypes.POINTER(_I), _P]         # launches, stream
         )
-        for name in ("diff3dhpe_grand_attn_fwd_f32", "diff3dhpe_grand_attn_fwd_bf16")
+        for name, mode in (("diff3dhpe_grand_attn_fwd_f32", [_I]),
+                           ("diff3dhpe_grand_attn_fwd_bf16", []))
     } | {
         name: (
             [_P] * 4 + [_I] * 4                # q, k, v, out; B, H, n (<= 64), head_dim
             + [_L] * 12                        # (b, h, n) strides of q, k, v, out
-            + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
+            + [_F] + mode                      # scale[, f32 mode]
+            + [ctypes.POINTER(_I), _P]         # launches, stream
         )
-        for name in ("diff3dhpe_grand_attn_small_f32", "diff3dhpe_grand_attn_small_bf16")
+        for name, mode in (("diff3dhpe_grand_attn_small_f32", [_I]),
+                           ("diff3dhpe_grand_attn_small_bf16", []))
     } | {
         "diff3dhpe_grand_attn_bwd_f32": (
             [_P] * 10 + [_I] * 4               # q, k, v, dO, B3's out and statistics or NULL,
                                                # dq, dk, dv, P/dS scratch; B, H, n, head_dim
             + [_L] * 24                        # (b, h, n) strides of q, k, v, dO, out, dq, dk, dv
-            + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
+            + [_F, _I, ctypes.POINTER(_I), _P]  # scale, f32 mode, launches, stream
         ),
         "diff3dhpe_grand_attn_bwd_bf16": (
             [_P] * 8 + [_I] * 5                # q, k, v, dO, dq, dk, dv, the rows' statistics;

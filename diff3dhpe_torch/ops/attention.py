@@ -30,6 +30,17 @@ which rounds P to bf16 after the normalisation and the output once, as
 ``grand_attention_stored`` does. So does B4: the ``wgmma`` backward of
 ``csrc/grand_attn_bwd_bf16.cuh``, at the rounding points of JAX's Pallas
 tile (``grand_attention_bwd_ref``).
+
+At float32 every function here takes the session matmul precision
+(``matmul_precision``, ``ops.matmul_precision``), as JAX's kernels and
+formulas honour ``jax_default_matmul_precision`` for float32 operands:
+"highest" (the default) is exact float32; "default" or "bfloat16" rounds
+the operands of every product to bf16 (on the card, B3 and B6 run the
+kernels' one-bf16-pass instances, above 32 keys the tensor-core kernel of
+``csrc/grand_attn_mode.cuh``, and B4 its ``kDefault`` instances). JAX's
+dispatcher sends n <= 64 to its plain formulas, which round the normalised
+P at "default"; the port's B6 (and its plain version) rounds the
+unnormalised exponentials, as JAX's packed kernel and B3 do.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import ctypes
 import torch
 
 from diff3dhpe_torch.ops._library import register
+from diff3dhpe_torch.ops.matmul_precision import matmul, session_mode
 
 # n at or below which the dispatcher sends a group to B6 and the trainable
 # backward stays on the plain formulas (JAX ops/attention.py:240, :401-402).
@@ -45,6 +57,8 @@ SMALL_N = 64
 # Head widths the kernels take, at float32 and at bfloat16 (the library's
 # diff3dhpe_grand_takes_head_dim is what the wrappers ask).
 HEAD_DIMS = (64, 128)
+# The session modes by the index the kernels take (csrc/grand_attn.cuh::F32Mode).
+_MODE_INDEX = {"highest": 0, "default": 2}
 
 
 def refuse_autograd(op: str, *tensors,
@@ -61,20 +75,22 @@ def refuse_autograd(op: str, *tensors,
             f"Call it under torch.no_grad(), or train through {route}")
 
 
-def grand_attention(q, k, v, scale=None):
+def grand_attention(q, k, v, scale=None, matmul_precision="highest"):
     """q, k, v: [..., N, head_dim] -> [..., N, head_dim] in the input dtype.
 
     The softmax runs in float32 whatever the activation dtype. Below
     float32 every other step rounds to the input dtype, as JAX's formulas
     are typed, the scale too (a Python float is weakly typed in JAX: a
-    constant of the input dtype)."""
+    constant of the input dtype). At float32 both products contract at
+    ``matmul_precision`` (JAX's einsums at the session precision: at
+    "default" the normalised P is rounded)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.dtype != torch.float32:  # the scale rounded to q's dtype, as a host float
         scale = float(torch.tensor(scale, dtype=q.dtype))
-    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    logits = matmul(q, k.transpose(-1, -2), matmul_precision) * scale
     attn = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-    return torch.matmul(attn, v) - v
+    return matmul(attn, v, matmul_precision) - v
 
 
 def grand_attention_stored(q, k, v, scale, rnd, v_self=None, dot=None):
@@ -100,13 +116,20 @@ def grand_attention_stored(q, k, v, scale, rnd, v_self=None, dot=None):
     return rnd(dot(e, v.transpose(-1, -2)) * (1.0 / e.sum(dim=-1, keepdim=True)) - v_self)
 
 
-def grand_attention_fullseq_ref(q, k, v, scale=None):
-    """The plain version of B3: ``grand_attention`` at float32; at bfloat16
-    ``grand_attention_stored``, float32 sums of the bf16 operands with P and
-    the output rounded to bf16 (JAX ``grand_attend_tile``'s bf16 branch)."""
-    if q.dtype == torch.float32:
-        return grand_attention(q, k, v, scale)
+def grand_attention_fullseq_ref(q, k, v, scale=None, matmul_precision="highest"):
+    """The plain version of B3: at float32 ``grand_attention`` under
+    "highest", and under "default" JAX's f32 epilogue contracting at one
+    bf16 pass (``grand_attention_stored`` with the normalisation after
+    P·V: q, k, the unnormalised exponentials and v rounded to bf16); at
+    bfloat16 ``grand_attention_stored``, float32 sums of the bf16 operands
+    with P and the output rounded to bf16 (JAX ``grand_attend_tile``'s bf16
+    branch), whatever ``matmul_precision``."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.dtype == torch.float32:
+        if session_mode(matmul_precision) == "highest":
+            return grand_attention(q, k, v, scale)
+        return grand_attention_stored(q, k, v, scale, lambda a: a,
+                                      dot=lambda a, b: matmul(a, b.transpose(-1, -2), "default"))
     rnd = lambda a: a.to(q.dtype).float()
     return grand_attention_stored(q.float(), k.float(), v.float(), scale, rnd).to(q.dtype)
 
@@ -116,72 +139,82 @@ def grand_attention_fullseq_ref(q, k, v, scale=None):
 packed_grand_attention_ref = grand_attention_fullseq_ref
 
 
-def grand_attention_bwd_xla(q, k, v, do, scale=None):
+def grand_attention_bwd_xla(q, k, v, do, scale=None, matmul_precision="highest"):
     """(dq, dk, dv) of ``grand_attention`` given the output gradient ``do``:
     the port of JAX's ``_grand_attention_bwd_xla`` (P recomputed), which the
     trainable attention runs for n <= 64. Below float32 every product
     rounds its output to the input dtype, as JAX's einsums are typed (so S,
     dP and Pᵀ·do before the "− do"; B4's tile does not,
-    ``grand_attention_bwd_ref``)."""
+    ``grand_attention_bwd_ref``). At float32 every product contracts at
+    ``matmul_precision``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float() * scale, dim=-1)
-    dp = torch.matmul(do, v.transpose(-1, -2)).float()
+    mm = lambda a, b: matmul(a, b, matmul_precision)
+    p = torch.softmax(mm(q, k.transpose(-1, -2)).float() * scale, dim=-1)
+    dp = mm(do, v.transpose(-1, -2)).float()
     dsum = (dp * p).sum(dim=-1, keepdim=True)
     ds = (p * (dp - dsum) * scale).to(q.dtype)
     pq = p.to(q.dtype)
-    dq = torch.matmul(ds, k)
-    dk = torch.matmul(ds.transpose(-1, -2), q)
-    dv = torch.matmul(pq.transpose(-1, -2), do) - do
+    dq = mm(ds, k)
+    dk = mm(ds.transpose(-1, -2), q)
+    dv = mm(pq.transpose(-1, -2), do) - do
     return dq, dk, dv
 
 
-def grand_attention_bwd_ref(q, k, v, do, scale=None):
+def grand_attention_bwd_ref(q, k, v, do, scale=None, matmul_precision="highest"):
     """The plain version of B4: (dq, dk, dv) of ``grand_attention`` given
     ``do``, as JAX's Pallas tile ``_grand_attn_bwd_tile`` forms them, P
     recomputed. Every product sums its operands in float32; S, P and dP
     stay float32, dS and P are rounded to q's dtype, dq and dk once at the
-    end, and dv = Pᵀ·do − do is subtracted in float32 and rounded once."""
+    end, and dv = Pᵀ·do − do is subtracted in float32 and rounded once. At
+    float32 every product contracts at ``matmul_precision`` (JAX's tile
+    passes ``precision=None``); D = Σ P∘dP and the trailing − do read the
+    unrounded values."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     dt = q.dtype
+    mm = lambda a, b: matmul(a, b, matmul_precision if dt == torch.float32 else "highest")
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
-    p = torch.softmax(qf @ kf.transpose(-1, -2) * scale, dim=-1)
-    dp = dof @ vf.transpose(-1, -2)
+    p = torch.softmax(mm(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    dp = mm(dof, vf.transpose(-1, -2))
     dsum = (dp * p).sum(dim=-1, keepdim=True)
     ds = (p * (dp - dsum) * scale).to(dt).float()
     pq = p.to(dt).float()
-    return ((ds @ kf).to(dt), (ds.transpose(-1, -2) @ qf).to(dt),
-            (pq.transpose(-1, -2) @ dof - dof).to(dt))
+    return (mm(ds, kf).to(dt), mm(ds.transpose(-1, -2), qf).to(dt),
+            (mm(pq.transpose(-1, -2), dof) - dof).to(dt))
 
 
-def grand_attention_fullseq(q, k, v, scale=None):
+def grand_attention_fullseq(q, k, v, scale=None, matmul_precision="highest"):
     """B3: GRAND attention on q, k, v [G, N, D] (or [B, H, N, D]).
 
     q, k and v are all float32 or all bfloat16 (else ``ValueError``). A CPU
     tensor runs the plain version. A CUDA tensor launches the kernel, the
-    CUDA-core one at float32 and the tensor-core one at bfloat16
-    (``grand_attention_fullseq.launches`` counts launches) or raises.
-    Under autograd it raises (``refuse_autograd``)."""
+    CUDA-core one at float32 (under "default" the one-bf16-pass instances:
+    above 32 keys the tensor-core kernel of ``csrc/grand_attn_mode.cuh``)
+    and the tensor-core one at bfloat16 (``grand_attention_fullseq.launches``
+    counts launches) or raises. ``matmul_precision``: the session precision
+    of float32 operands (module doc). Under autograd it raises
+    (``refuse_autograd``)."""
     _check_dtypes(q, k, v)
+    session_mode(matmul_precision)
     refuse_autograd("grand_attention_fullseq", q, k, v)
     if q.device.type == "cpu":
-        return grand_attention_fullseq_ref(q, k, v, scale)
-    return _fullseq(q, k, v, scale)
+        return grand_attention_fullseq_ref(q, k, v, scale, matmul_precision)
+    return _fullseq(q, k, v, scale, matmul_precision=matmul_precision)
 
 
 grand_attention_fullseq.launches = 0
 
 
-def _fullseq(q, k, v, scale, stats=None):
+def _fullseq(q, k, v, scale, stats=None, matmul_precision="highest"):
     """B3 on CUDA tensors; ``stats``: B4's statistics for B3 to fill
     (``_bwd_stats`` at float32, ``_bwd_stats_bf16`` at bfloat16), or None."""
     q4, k4, v4 = (_as4d(t) for t in (q, k, v))
     out = _empty_like_heads(q4)
-    _launch_fwd(q4, k4, v4, out, scale, stats=stats)
+    _launch_fwd(q4, k4, v4, out, scale, stats=stats, matmul_precision=matmul_precision)
     return out.view(q.shape) if q.ndim == 3 else out
 
 
-def packed_grand_attention(q, k, v, scale=None):
+def packed_grand_attention(q, k, v, scale=None, matmul_precision="highest"):
     """B6: GRAND attention for many small groups, q, k, v [G, N, D] (or
     [B, H, N, D]) with N <= 64, all float32 or all bfloat16 (else
     ``ValueError``).
@@ -192,16 +225,20 @@ def packed_grand_attention(q, k, v, scale=None):
     persistent blocks walk the (group, head) pairs; at bfloat16 B3's
     tensor-core kernel, which packs the pairs of small groups into a block.
     The name is JAX's, whose kernel packs groups into one tile of its
-    matrix unit. Under autograd it raises (``refuse_autograd``)."""
+    matrix unit. ``matmul_precision``: as B3's (under "default" the
+    small-group kernel's one-bf16-pass instance up to 32 keys, the
+    tensor-core kernel of ``csrc/grand_attn_mode.cuh`` above). Under
+    autograd it raises (``refuse_autograd``)."""
     if q.shape[-2] > SMALL_N:
         raise ValueError(f"packed_grand_attention takes n <= {SMALL_N}, got n {q.shape[-2]}")
     _check_dtypes(q, k, v)
+    session_mode(matmul_precision)
     refuse_autograd("packed_grand_attention", q, k, v)
     if q.device.type == "cpu":
-        return packed_grand_attention_ref(q, k, v, scale)
+        return packed_grand_attention_ref(q, k, v, scale, matmul_precision)
     q4, k4, v4 = (_as4d(t) for t in (q, k, v))
     out = _empty_like_heads(q4)
-    _launch_fwd(q4, k4, v4, out, scale, small=True)
+    _launch_fwd(q4, k4, v4, out, scale, small=True, matmul_precision=matmul_precision)
     return out.view(q.shape) if q.ndim == 3 else out
 
 
@@ -209,9 +246,10 @@ packed_grand_attention.launches = 0
 packed_grand_attention.launches_bf16 = 0
 
 
-def fused_grand_attention(q, k, v, scale=None):
+def fused_grand_attention(q, k, v, scale=None, matmul_precision="highest"):
     """q, k, v [B, H, N, D] -> [B, H, N, D], float32 or bfloat16: N <= 64
-    through B6, larger N through B3.
+    through B6, larger N through B3, at the session precision
+    ``matmul_precision`` (module doc).
 
     JAX's dispatcher keeps N <= 64 on its plain formulas, because its
     packed kernel needs a relayout of [G, 17, 64] into 119-row tiles first
@@ -219,50 +257,58 @@ def fused_grand_attention(q, k, v, scale=None):
     and needs none, so the port sends small N to its kernel. Under autograd
     it raises (``refuse_autograd``)."""
     _check_dtypes(q, k, v)
+    mode = _MODE_INDEX[session_mode(matmul_precision)]
     refuse_autograd("fused_grand_attention", q, k, v)
-    return _DISPATCH(q, k, v, None if scale is None else float(scale))
+    return _DISPATCH(q, k, v, None if scale is None else float(scale), mode)
 
 
-def _dispatch_impl(q, k, v, scale):
+def _dispatch_impl(q, k, v, scale, f32_mode=0):
     """The dispatcher's operator: B6 or B3, their plain versions on the
     CPU, in the layout the kernels write ([B, N, H, D] seen as [B, H, N,
-    D]) on both devices."""
+    D]) on both devices; ``f32_mode`` the session mode's index (0,
+    "highest", where a call leaves it out: the schema's default, which a
+    Python implementation is not handed)."""
     small = q.shape[-2] <= SMALL_N
-    out = (packed_grand_attention if small else grand_attention_fullseq)(q, k, v, scale)
+    prec = "default" if f32_mode else "highest"
+    out = (packed_grand_attention if small else grand_attention_fullseq)(q, k, v, scale, prec)
     if q.device.type == "cuda":
         return out
-    return _dispatch_fake(q, k, v, scale).copy_(out)
+    return _dispatch_fake(q, k, v, scale, f32_mode).copy_(out)
 
 
-def _dispatch_fake(q, k, v, scale):
+def _dispatch_fake(q, k, v, scale, f32_mode=0):
     out = _empty_like_heads(_as4d(q))
     return out.view(q.shape) if q.ndim == 3 else out
 
 
-def grand_attention_bwd(q, k, v, do, scale=None):
+def grand_attention_bwd(q, k, v, do, scale=None, matmul_precision="highest"):
     """B4: (dq, dk, dv) of GRAND attention on [G, N, D] (or [B, H, N, D])
     operands, given the output gradient ``do``; q, k, v and do all float32
     or all bfloat16 (else ``ValueError``), the gradients in their dtype.
+    ``matmul_precision``: the session precision of float32 operands
+    (module doc).
 
     A CPU tensor runs the plain version. A CUDA tensor launches the
     kernels of the backward (``grand_attention_bwd.launches`` counts them,
     ``.launches_bf16`` those at bf16) or raises: at float32 the CUDA-core
-    dq and dk/dv passes; at bfloat16 the dq pass (which also forms the
-    rows' softmax statistics) and the dk/dv pass on ``wgmma``."""
+    dq and dk/dv passes (their ``kDefault`` instances under "default"); at
+    bfloat16 the dq pass (which also forms the rows' softmax statistics)
+    and the dk/dv pass on ``wgmma``."""
     _check_dtypes(q, k, v)
+    session_mode(matmul_precision)
     if do.dtype != q.dtype:
         raise ValueError(f"do must be {q.dtype} like q, k and v, got {do.dtype}")
     if q.device.type == "cpu":
-        return grand_attention_bwd_ref(q, k, v, do, scale)
-    return _bwd(q, k, v, do, scale)
+        return grand_attention_bwd_ref(q, k, v, do, scale, matmul_precision)
+    return _bwd(q, k, v, do, scale, matmul_precision=matmul_precision)
 
 
-def _bwd(q, k, v, do, scale, fwd=None):
+def _bwd(q, k, v, do, scale, fwd=None, matmul_precision="highest"):
     """B4 on a CUDA tensor; ``fwd``: what the trainable forward kept, or
     None (``_launch_bwd``)."""
     q4, k4, v4, do4 = (_as4d(t) for t in (q, k, v, do))
     dq, dk, dv = (_empty_like_heads(q4) for _ in range(3))
-    _launch_bwd(q4, k4, v4, do4, dq, dk, dv, scale, fwd)
+    _launch_bwd(q4, k4, v4, do4, dq, dk, dv, scale, fwd, matmul_precision)
     if q.ndim == 3:
         return tuple(t.view(q.shape) for t in (dq, dk, dv))
     return dq, dk, dv
@@ -276,36 +322,47 @@ class _GrandAttentionTrainable(torch.autograd.Function):
     """Port of JAX's ``grand_attention_trainable`` custom VJP: the forward
     through ``fused_grand_attention`` (B6 or B3), the backward through B4
     for N > 64 and through the XLA formulas for N <= 64 (JAX ``_gat_bwd``:
-    there is no small-N backward kernel), in q's dtype, float32 or bfloat16.
-    On CUDA with N > 64, B3 also keeps each row's softmax statistics, and
-    B4 starts from them: at float32 from the max, 1/sum and B3's output
-    instead of recomputing the forward (its first sweep); at bfloat16 from
-    −max·scale and 1/sum instead of forming them in its dq pass (the same
-    bits either way)."""
+    there is no small-N backward kernel), in q's dtype, float32 or bfloat16,
+    at the session precision ``matmul_precision``. On CUDA with N > 64, B3
+    also keeps each row's softmax statistics, and B4 starts from them: at
+    float32 from the max, 1/sum and B3's output instead of recomputing the
+    forward (its first sweep); at bfloat16 from −max·scale and 1/sum instead
+    of forming them in its dq pass (the same bits either way). Under a
+    float32 "default" B4 forms them itself: its row sums D = Σ P∘dP take the
+    unrounded P, which B3's output, formed from rounded exponentials, does
+    not give."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        if q.device.type == "cuda" and q.shape[-2] > SMALL_N:
+    def forward(ctx, q, k, v, matmul_precision):
+        ctx.matmul_precision = matmul_precision
+        f32 = q.dtype == torch.float32
+        keep = not f32 or session_mode(matmul_precision) == "highest"
+        if q.device.type == "cuda" and q.shape[-2] > SMALL_N and keep:
             _check_dtypes(q, k, v)
-            f32 = q.dtype == torch.float32
             stats = (_bwd_stats if f32 else _bwd_stats_bf16)(_as4d(q))
             out = _fullseq(q, k, v, None, stats)
             ctx.save_for_backward(q, k, v, *((out, stats) if f32 else (stats,)))
             return out
         ctx.save_for_backward(q, k, v)
-        return fused_grand_attention(q, k, v)
+        return fused_grand_attention(q, k, v, None, matmul_precision)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, *fwd = ctx.saved_tensors
+        prec = ctx.matmul_precision
         if q.shape[-2] <= SMALL_N:
-            return grand_attention_bwd_xla(q, k, v, do)
-        return _bwd(q, k, v, do, None, fwd) if fwd else grand_attention_bwd(q, k, v, do)
+            grads = grand_attention_bwd_xla(q, k, v, do, matmul_precision=prec)
+        elif fwd:
+            grads = _bwd(q, k, v, do, None, fwd)
+        else:
+            grads = grand_attention_bwd(q, k, v, do, matmul_precision=prec)
+        return (*grads, None)
 
 
-def grand_attention_trainable(q, k, v):
-    """GRAND attention on [B, H, N, D] with the hand-written backward."""
-    return _GrandAttentionTrainable.apply(q, k, v)
+def grand_attention_trainable(q, k, v, matmul_precision="highest"):
+    """GRAND attention on [B, H, N, D] with the hand-written backward, at
+    the session precision ``matmul_precision`` (module doc)."""
+    return _GrandAttentionTrainable.apply(q, k, v, matmul_precision)
 
 
 def _check_dtypes(q, k, v):
@@ -387,11 +444,11 @@ def _bwd_stats_bf16(q):
     return torch.empty((b * h * _n64(n) * 3,), device=q.device, dtype=torch.float32)
 
 
-def _launch_fwd(q, k, v, out, scale, small=False, stats=None):
+def _launch_fwd(q, k, v, out, scale, small=False, stats=None, matmul_precision="highest"):
     """Launches B3, or B6 with ``small``, in q's dtype, and counts it on
     its wrapper. ``stats``: B4's statistics (``_bwd_stats`` at float32,
     ``_bwd_stats_bf16`` at bfloat16), which B3 fills with the rows' softmax
-    statistics."""
+    statistics. ``matmul_precision``: the session precision at float32."""
     f32 = q.dtype == torch.float32
     lib, scale = _library(q, scale, small)
     q, k, v = (_kernel_operand(t, q) for t in (q, k, v))
@@ -401,8 +458,10 @@ def _launch_fwd(q, k, v, out, scale, small=False, stats=None):
     wrapper = packed_grand_attention if small else grand_attention_fullseq
     kind, dt = "small" if small else "fwd", "f32" if f32 else "bf16"
     fn = getattr(lib, f"diff3dhpe_grand_attn_{kind}_{dt}")
-    # B3's statistics pointer.
+    # B3's statistics pointer; at float32 the session mode's index.
     extra = [] if small else [None if stats is None else stats.data_ptr()]
+    if f32:
+        extra.append(_MODE_INDEX[session_mode(matmul_precision)])
     launched = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         err = fn(
@@ -418,14 +477,15 @@ def _launch_fwd(q, k, v, out, scale, small=False, stats=None):
         raise RuntimeError(f"{wrapper.__name__} kernel failed: cudaError_t {err}")
 
 
-def _launch_bwd(q, k, v, do, dq, dk, dv, scale, fwd=None):
+def _launch_bwd(q, k, v, do, dq, dk, dv, scale, fwd=None, matmul_precision="highest"):
     """Launches B4's kernels in q's dtype; ``fwd``: what the trainable
     forward kept (float32: B3's output and the statistics its launch wrote;
     bfloat16: the statistics) or None. At float32 the dq pass hands P and dS
     to the dk/dv pass through a scratch of two [B·H, n64, n64] planes; at
     bfloat16 the rows' statistics and D go from pass to pass through
     ``_bwd_stats_bf16``'s planes, whose statistics the dq pass forms itself
-    where the forward did not leave them."""
+    where the forward did not leave them. ``matmul_precision``: the session
+    precision at float32 (under "default" ``fwd`` must be None)."""
     lib, scale = _library(q, scale)
     bf16 = q.dtype == torch.bfloat16
     if bf16 and not scale > 0:  # as the forward: the row max is taken before the scale
@@ -453,7 +513,7 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale, fwd=None):
                 *_strides(q), *_strides(k), *_strides(v), *_strides(do),
                 *(_strides(out) if out is not None else [ctypes.c_longlong(0)] * 3),
                 *_strides(dq), *_strides(dk), *_strides(dv),
-                scale, ctypes.byref(launched), stream,
+                scale, _MODE_INDEX[session_mode(matmul_precision)], ctypes.byref(launched), stream,
             )
     grand_attention_bwd.launches += launched.value
     if bf16:
@@ -462,5 +522,5 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale, fwd=None):
         raise RuntimeError(f"grand_attention backward kernels failed: cudaError_t {err}")
 
 
-_DISPATCH = register("fused_grand_attention(Tensor q, Tensor k, Tensor v, float? scale) -> Tensor",
-                     _dispatch_impl, _dispatch_impl, _dispatch_fake)
+_DISPATCH = register("fused_grand_attention(Tensor q, Tensor k, Tensor v, float? scale, "
+                     "int f32_mode=0) -> Tensor", _dispatch_impl, _dispatch_impl, _dispatch_fake)

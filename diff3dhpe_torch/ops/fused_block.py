@@ -62,6 +62,7 @@ from torch.nn import functional as F
 
 from diff3dhpe_torch.ops._library import register
 from diff3dhpe_torch.ops.attention import HEAD_DIMS, grand_attention_stored, refuse_autograd
+from diff3dhpe_torch.ops.matmul_precision import bf16_round as _bf16_round
 
 DTYPES = (torch.float32, torch.bfloat16)
 # The float32 contraction modes by the index the operators and the kernels
@@ -141,10 +142,6 @@ def f32_mode_index(f32_prec, dtype=torch.float32):
     if f32_prec not in F32_MODES:
         raise ValueError(f"f32_prec must be one of {F32_MODES}, got {f32_prec!r}")
     return F32_MODES.index(f32_prec) if dtype == torch.float32 else 0
-
-
-def _bf16_round(a):
-    return a.to(torch.bfloat16).float()
 
 
 def bf16_split(a):
@@ -287,8 +284,8 @@ def fused_transformer_block(x, block, n, heads, *, n_pad=None, t_rows=None,
     ``.launches_gemm_f32`` the exact f32 GEMMs, ``.launches_split`` the
     splits, ``.launches_gemm_mode`` the f32-output tensor-core GEMMs of
     the two modes, and ``.launches_attn_mode`` and ``.launches_ln_mode``
-    the attention's and the time add's LayerNorm's instances under them)
-    or raises. Under autograd it raises
+    the attention's (the tensor-core kernel) and the time add's LayerNorm's
+    instances under them) or raises. Under autograd it raises
     (``_refuse_autograd``)."""
     _check_device(fused_transformer_block, x)
     n_pad = n if n_pad is None else n_pad
@@ -660,9 +657,14 @@ def _gemm_wgmma_f32(a_hi, a_lo, w_hi, w_lo, bias=None, epilogue="bias", res=None
 _gemm_wgmma_f32.launches = 0
 
 
-def block_attention_ref(qkv, n, heads, n_pad=None, f32_prec="highest"):
+def block_attention_ref(qkv, n, heads, n_pad=None, f32_prec="highest", j_groups=0):
     """Plain version of ``block_attention`` (same arguments, same result)."""
     r, c3 = qkv.shape
+    if j_groups:  # the cols layout: the rows layout on the transposed rows
+        b = r // (n * j_groups)
+        t = qkv.view(b, n, j_groups, c3).transpose(1, 2).reshape(r, c3)
+        out = block_attention_ref(t, n, heads, f32_prec=f32_prec)
+        return out.view(b, j_groups, n, c3 // 3).transpose(1, 2).reshape(r, c3 // 3)
     c, n_pad = c3 // 3, n if n_pad is None else n_pad
     mode = F32_MODES[f32_mode_index(f32_prec)]
     q, k, v = qkv.reshape(r // n_pad, n_pad, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
@@ -672,22 +674,26 @@ def block_attention_ref(qkv, n, heads, n_pad=None, f32_prec="highest"):
     return out.permute(0, 2, 1, 3).reshape(r, c)
 
 
-def block_attention(qkv, n, heads, n_pad=None, f32_prec="highest"):
+def block_attention(qkv, n, heads, n_pad=None, f32_prec="highest", j_groups=0):
     """The f32 block kernels' attention step alone, for tests and
-    measurements (B1 launches the same kernels): GRAND attention on qkv
+    measurements (B1 and B2 launch the same kernels): GRAND attention on qkv
     [R, 3C] float32 in groups of ``n_pad`` rows (default n), over each
     group's n real keys, under contraction mode ``f32_prec``; out [R, C].
+    ``j_groups`` = J > 0: B2's layout instead, the groups (b, j) of n
+    frames of the spatial-major rows (b·n + f)·J + j (``n_pad`` unused).
 
     A CPU tensor runs the plain version. A CUDA tensor launches the kernel
     (``block_attention.launches`` counts launches) or raises."""
     r, c3 = qkv.shape
-    n_pad = n if n_pad is None else n_pad
-    if qkv.dtype != torch.float32 or c3 % (3 * heads) or r % n_pad or not 0 < n <= n_pad:
+    n_pad = n if n_pad is None or j_groups else n_pad
+    if (qkv.dtype != torch.float32 or c3 % (3 * heads) or r % (n_pad * max(j_groups, 1))
+            or not 0 < n <= n_pad):
         raise ValueError(f"qkv must be float32 [R, 3C] with C a multiple of heads={heads} and R "
-                         f"of n_pad={n_pad} >= n={n}, got {qkv.dtype} {tuple(qkv.shape)}")
+                         f"of n_pad={n_pad} >= n={n} (times j_groups={j_groups}), got "
+                         f"{qkv.dtype} {tuple(qkv.shape)}")
     mode = f32_mode_index(f32_prec)
     if qkv.device.type == "cpu":
-        return block_attention_ref(qkv, n, heads, n_pad, f32_prec)
+        return block_attention_ref(qkv, n, heads, n_pad, f32_prec, j_groups)
     from diff3dhpe_torch.ops._build import load_library
 
     lib = load_library("fused_block")
@@ -699,8 +705,8 @@ def block_attention(qkv, n, heads, n_pad=None, f32_prec="highest"):
     launched = ctypes.c_int(0)
     with torch.cuda.device(qkv.device):
         err = lib.diff3dhpe_block_attn_f32(
-            _ptr(qkv, f32), _ptr(out, f32), r, c, heads, n, n_pad, (c // heads) ** -0.5, mode,
-            ctypes.byref(launched), torch.cuda.current_stream(qkv.device).cuda_stream)
+            _ptr(qkv, f32), _ptr(out, f32), r, c, heads, n, n_pad, j_groups, (c // heads) ** -0.5,
+            mode, ctypes.byref(launched), torch.cuda.current_stream(qkv.device).cuda_stream)
     block_attention.launches += launched.value
     if err:
         raise RuntimeError(f"the block_attention kernel failed: cudaError_t {err}")

@@ -978,13 +978,15 @@ def test_gemm_wgmma_f32_matches_ref(cuda_device, m, n, k, epilogue, with_rscale,
 @pytest.mark.parametrize("mode", ["high3", "default"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("n,n_pad,groups", [(17, 17, 40), (27, 32, 12), (243, 243, 3),
-                                            (81, 81, 4)])
+                                            (81, 81, 4), (32, 32, 8), (65, 80, 4), (243, 256, 2),
+                                            (1, 1, 3)])
 def test_block_attention_modes_match_ref(cuda_device, mode, d, n, n_pad, groups):
-    """The f32 attention step under each mode: the small-group kernel (n <=
-    32) and the tiled one, which under a mode forms the row maxima in a
-    first pass so that e is rounded relative to the row's maximum, as the
-    plain version rounds it; each nearer its mode's plain version than the
-    mode is to "highest"."""
+    """The f32 attention step under each mode, the tensor-core kernel
+    (csrc/grand_attn_mode.cuh: its 32-key instance up to n = 32), with pad
+    query rows: it rounds e relative to the row's maximum, as the plain
+    version rounds it; each nearer its mode's plain version than the mode
+    is to "highest" (n = 1 has no softmax to round: out is 0 at every
+    mode)."""
     heads = 2
     qkv = torch.randn(groups * n_pad, 3 * heads * d, device=cuda_device,
                       generator=torch.Generator(device=cuda_device).manual_seed(n + d))
@@ -995,7 +997,7 @@ def test_block_attention_modes_match_ref(cuda_device, mode, d, n, n_pad, groups)
     real = lambda a: a.reshape(groups, n_pad, -1)[:, :n]
     ref = block_attention_ref(qkv, n, heads, n_pad, f32_prec=mode)
     exact = block_attention_ref(qkv, n, heads, n_pad)
-    _assert_mode_close(real(out), real(ref), mode, highest=real(exact))
+    _assert_mode_close(real(out), real(ref), mode, highest=real(exact) if n > 1 else None)
 
 
 @pytest.mark.cuda
@@ -1016,22 +1018,23 @@ def test_layer_norm_time_add_modes_match_ref(cuda_device, mode):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["high3", "default"])
-@pytest.mark.parametrize("kind", ["rows17", "rows243", "cols", "attn_block"])
+@pytest.mark.parametrize("kind", ["rows17", "rows243", "cols", "cols64", "attn_block"])
 def test_f32_blocks_under_modes_match_ref(cuda_device, mode, kind):
     """B1 (with the time add and the out-LN), B2 and B5 at f32 under each
     mode: 15 launches a block (8 splits, 4 tensor-core GEMMs, the attention,
     2 LNs) plus the out-LN, no exact f32 GEMM, the attention's and the
-    first LN's instances under the mode; 8 for B5 (4 splits, 2 GEMMs, the
-    attention, 1 LN without the time add). At "default" each is nearer its
-    plain version than the mode is to "highest" (at "high3" the tensor
-    cores' accumulation is as far from exact f32 sums as the mode is)."""
+    first LN's instances under the mode, the attention on the tensor-core
+    kernel; 8 for B5 (4 splits, 2 GEMMs, the attention, 1 LN without the
+    time add). At "default" each is nearer its plain version
+    than the mode is to "highest" (at "high3" the tensor cores'
+    accumulation is as far from exact f32 sums as the mode is)."""
     model = _model(cuda_device, embed_dim=256, head_dim=64 if kind != "rows243" else 128)
     heads = 256 // (64 if kind != "rows243" else 128)
     block = model.STEblocks[0]
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     randn = lambda *shape: torch.randn(*shape, generator=gen, device=cuda_device)
-    wrapper = {"cols": fused_temporal_block_cols,
-               "attn_block": fused_attention_block}.get(kind, fused_transformer_block)
+    wrapper = (fused_temporal_block_cols if kind.startswith("cols") else
+               fused_attention_block if kind == "attn_block" else fused_transformer_block)
     counts = lambda: [getattr(wrapper, k) for k in (
         "launches", "launches_split", "launches_gemm_mode", "launches_gemm_f32",
         "launches_attn_mode", "launches_ln_mode")]
@@ -1043,12 +1046,13 @@ def test_f32_blocks_under_modes_match_ref(cuda_device, mode, kind):
                         for f in (fused_attention_block, fused_attention_block_ref))
             highest = fused_attention_block_ref(x, block, 17, heads)
             want = [8, 4, 2, 0, 1, 0]
-        elif kind == "cols":
-            x, t = randn(2 * 27, 17 * 256), randn(2, 256)
+        elif kind.startswith("cols"):
+            f, j = (27, 17) if kind == "cols" else (64, 5)
+            x, t = randn(2 * f, j * 256), randn(2, 256)
             kw = dict(t_rows=t, out_ln=model.Temporal_norm, f32_prec=mode)
-            out = fused_temporal_block_cols(x, block, 27, 17, heads, **kw)
-            ref = fused_temporal_block_cols_ref(x, block, 27, 17, heads, **kw)
-            highest = fused_temporal_block_cols_ref(x, block, 27, 17, heads,
+            out = fused_temporal_block_cols(x, block, f, j, heads, **kw)
+            ref = fused_temporal_block_cols_ref(x, block, f, j, heads, **kw)
+            highest = fused_temporal_block_cols_ref(x, block, f, j, heads,
                                                     **dict(kw, f32_prec="highest"))
             want = [16, 8, 4, 0, 1, 1]
         else:
@@ -1090,3 +1094,72 @@ def test_mixed_eval_final_step_modes(cuda_device):
     assert all(torch.isfinite(p).all() for p in preds.values())
     scale = preds["highest"].abs().max()
     assert (preds["high3"] - preds["highest"]).abs().max() <= 1e-4 * scale
+
+
+# ---- the session matmul precision "default" on B3, B4 and B6 at f32 -------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n", [17, 27, 33, 64, 81, 243])
+def test_session_default_attention_kernels_match_ref(cuda_device, d, n):
+    """B3, B4 and (n <= 64) B6 at f32 under matmul_precision "default" on
+    strided qkv views against their plain versions at "default", at the
+    "default" bars, each nearer its plain version than "default" is to
+    "highest"; B3 with and without B4's statistics (n > 32: the
+    tensor-core kernel writes each row's maximum and 1/l)."""
+    (q, k, v), gen = _qkv_views(cuda_device, 3, 2, n, 5 * n + d, d=d)
+    do = torch.randn(3, n, 2, d, generator=gen, device=cuda_device).transpose(1, 2)
+    prec = dict(matmul_precision="default")
+    counters = (grand_attention_fullseq, grand_attention_bwd, packed_grand_attention)
+    before = [c.launches for c in counters]
+    out = grand_attention_fullseq(q, k, v, **prec)
+    _assert_mode_close(out, grand_attention_fullseq_ref(q, k, v, **prec), "default",
+                       highest=grand_attention_fullseq_ref(q, k, v))
+    for a, b, h in zip(grand_attention_bwd(q, k, v, do, **prec),
+                       grand_attention_bwd_ref(q, k, v, do, **prec),
+                       grand_attention_bwd_ref(q, k, v, do)):
+        _assert_mode_close(a, b, "default", highest=h)
+    if n <= 64:
+        _assert_mode_close(packed_grand_attention(q, k, v, **prec),
+                           packed_grand_attention_ref(q, k, v, **prec), "default",
+                           highest=packed_grand_attention_ref(q, k, v))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 2, int(n <= 64)]
+    if n > 32:
+        from diff3dhpe_torch.ops.attention import _bwd_stats, _fullseq
+
+        stats = _bwd_stats(q)
+        with_stats = _fullseq(q, k, v, None, stats, "default")
+        torch.cuda.synchronize()
+        assert torch.equal(with_stats, out)
+        qb, kb = (t.bfloat16().float() for t in (q, k))
+        logits = qb @ kb.transpose(-1, -2) * d ** -0.5
+        m = logits.amax(-1)
+        inv = 1.0 / torch.exp(logits - m[..., None]).sum(-1)
+        n64 = -(-n // 64) * 64
+        planes = stats.view(2, 3 * 2, n64)[:, :, :n]
+        torch.testing.assert_close(planes[0], m.reshape(6, n), rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(planes[1], inv.reshape(6, n), rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 243])
+def test_trainable_attention_grads_at_session_default(cuda_device, n):
+    """The trainable attention at f32 under "default": the forward (B6 or
+    B3) and the backward (the plain formulas at n <= 64, else B4, which forms
+    its own statistics) against autograd of the plain module's attention at
+    "default" (JAX's VJP keeps the precision)."""
+    from diff3dhpe_torch.ops.attention import grand_attention_bwd_xla
+
+    (q, k, v), gen = _qkv_views(cuda_device, 2, 2, n, 11)
+    do = torch.randn(2, 2, n, 64, generator=gen, device=cuda_device)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = grand_attention_trainable(q, k, v, matmul_precision="default")
+    got = torch.autograd.grad(out, (q, k, v), do)
+    ref_out = grand_attention_fullseq_ref(q, k, v, matmul_precision="default")
+    _assert_mode_close(out.detach(), ref_out, "default")
+    want = (grand_attention_bwd_xla if n <= 64 else grand_attention_bwd_ref)(
+        q.detach(), k.detach(), v.detach(), do, matmul_precision="default")
+    for a, b in zip(got, want):
+        _assert_mode_close(a, b, "default")
