@@ -91,10 +91,11 @@
 //                         "default") in scratch, one pass bound by bytes;
 //                         the weights are split on every call, since the
 //                         f32 path reads the model's weights as they are;
-//   gemm_bf16_wgmma_kernel<EPI, float, 3 or 1>
-//                         gemm_wgmma.cuh's tensor-core GEMM walking the
-//                         three (hi, hi), (hi, lo), (lo, hi) pairs, or the
-//                         one, into f32 accumulators, with the same
+//   gemm_f32out_wgmma_kernel<EPI, 3 or 1>
+//                         gemm_wgmma_f32.cuh's persistent tensor-core GEMM:
+//                         (hi, hi) into one set of f32 accumulators and
+//                         (hi, lo) + (lo, hi) into a second, added once in
+//                         the epilogue, or the one pass, with the same
 //                         epilogues on an f32 residual and an f32 output;
 // the attention step runs at that mode on the tensor-core kernel of
 // grand_attn_mode.cuh (the operands rounded or split once into shared
@@ -110,6 +111,7 @@
 #include <type_traits>
 
 #include "gemm_wgmma.cuh"
+#include "gemm_wgmma_f32.cuh"
 #include "grand_attn.cuh"
 #include "grand_attn_bf16.cuh"
 #include "grand_attn_mode.cuh"
@@ -564,12 +566,11 @@ int run_mode_gemm(int mode, const float* A, const float* W, const float* bias, c
   DIFF_CHECK(kSplit, launch_split(W, w_hi, three ? w_lo : nullptr, (long long)N * K, stream));
   DIFF_CHECK(kSplit, launch_split(A, a_hi, three ? a_lo : nullptr, (long long)M * K, stream));
   if (three) {
-    DIFF_CHECK(kGemmMode, (wg::launch_gemm_wgmma<EPI, float, 3>(a_hi, a_lo, w_hi, w_lo, bias, res,
-                                                               rscale, out, M, N, K, stream)));
+    DIFF_CHECK(kGemmMode, (wgf::launch_gemm_f32out<EPI, 3>(a_hi, a_lo, w_hi, w_lo, bias, res,
+                                                          rscale, out, M, N, K, stream)));
   } else {
-    DIFF_CHECK(kGemmMode, (wg::launch_gemm_wgmma<EPI, float, 1>(a_hi, nullptr, w_hi, nullptr,
-                                                               bias, res, rscale, out, M, N, K,
-                                                               stream)));
+    DIFF_CHECK(kGemmMode, (wgf::launch_gemm_f32out<EPI, 1>(a_hi, nullptr, w_hi, nullptr, bias,
+                                                          res, rscale, out, M, N, K, stream)));
   }
   return 0;
 }
@@ -840,8 +841,8 @@ extern "C" int diff3dhpe_split_bf16(const float* x, bf16* hi, bf16* lo, long lon
 
 // The f32-output wgmma GEMM of the contraction modes alone, on split
 // operands: out[M, N] = epilogue(Σ_p A_p · W_pᵀ + bias) in f32 over the
-// three passes (a_hi, w_hi), (a_hi, w_lo), (a_lo, w_hi) with passes = 3, or
-// (a_hi, w_hi) with passes = 1; res, out f32; epilogues as
+// three passes (a_hi, w_hi) + ((a_hi, w_lo) + (a_lo, w_hi)) with passes =
+// 3, or (a_hi, w_hi) with passes = 1; res, out f32; epilogues as
 // diff3dhpe_gemm_f32's. K % 8 == 0, N % 8 == 0. One kernel; adds one to
 // *launches when it launched. The block calls the same kernel.
 extern "C" int diff3dhpe_gemm_wgmma_f32(const bf16* a_hi, const bf16* a_lo, const bf16* w_hi,
@@ -852,7 +853,7 @@ extern "C" int diff3dhpe_gemm_wgmma_f32(const bf16* a_hi, const bf16* a_lo, cons
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = cudaErrorInvalidValue;
 #define WG_F32(EPI, P) \
-  wg::launch_gemm_wgmma<EPI, float, P>(a_hi, a_lo, w_hi, w_lo, bias, res, rscale, out, M, N, K, stream)
+  wgf::launch_gemm_f32out<EPI, P>(a_hi, a_lo, w_hi, w_lo, bias, res, rscale, out, M, N, K, stream)
   if (passes == 3) {
     if (epilogue == kEpiBias) err = WG_F32(kEpiBias, 3);
     if (epilogue == kEpiGelu) err = WG_F32(kEpiGelu, 3);

@@ -1,19 +1,14 @@
 // GEMM with bf16 operands and a fused epilogue on Hopper's warpgroup matrix
-// multiply (sm_90a): the four products of a bf16 block in fused_block.cu,
-// and of an f32 block under the contraction modes "high3" and "default".
+// multiply (sm_90a): the four products of a bf16 block in fused_block.cu.
+// (The f32-output GEMM of an f32 block under the contraction modes is
+// gemm_wgmma_f32.cuh, which shares the helpers here.)
 //
-//   out[M, N] = TO(epilogue(Σ_p A_p[M, K] · W_p[N, K]ᵀ + bias))
+//   out[M, N] = bf16(epilogue(A[M, K] · W[N, K]ᵀ + bias))
 //
-// A_p, W_p bf16, bias and rscale f32, the products and the epilogue in f32,
-// res and out of type TO (bf16, rounded once, or float). kPasses = 1 sums
-// A · Wᵀ; kPasses = 3 sums the three passes (A_hi, W_hi), (A_hi, W_lo),
-// (A_lo, W_hi) of f32 operands split as a = a_hi + a_lo (bf16x3) into the
-// same accumulators, in that order over the same K tiles. Stands for the
-// _dot_f32 products of the TPU kernel
-// diff3dhpe_tpu/ops/fused_block.py::_fused_full_block_kernel: at bf16
-// (one pass, TO = bf16), and at f32 under "default" (one pass of the rounded
-// operands, TO = float) and "high3" (_dot_f32_3pass, :127-144: three passes,
-// TO = float).
+// A, W, res and out bf16, bias and rscale f32, the products and the
+// epilogue in f32, out rounded once. Stands for the _dot_f32 products of
+// the TPU kernel diff3dhpe_tpu/ops/fused_block.py::_fused_full_block_kernel
+// at bf16.
 //
 // What bounds it on an H100: at M = 16,524 and (N, K) = (1536, 512) the
 // product is 26 GFLOP against 69 MB, bound by the tensor cores' 989 TFLOP/s
@@ -21,16 +16,13 @@
 // through shared memory: a 128 x 128 tile does 32 FMAs for each byte it
 // loads, so at the tensor cores' 2,048 FMAs a clock TMA would write 64 bytes
 // a clock and SM while the two warpgroups' wgmma read 96, of the 128 that
-// shared memory moves; the kernel runs at 260-385 TFLOP/s. Three passes are
-// three times the products over three times the operand bytes, so "high3"
-// is bound by the same path at three times the time.
+// shared memory moves; the kernel runs at 260-385 TFLOP/s.
 //
 // Design: one block computes a 128 x 128 tile of the output with nine warps.
 // The producer (one thread of the ninth warp) copies 128 x 64 tiles of A and
 // of W with TMA into a 3-stage ring of 128-byte-swizzled shared tiles, the
 // layout wgmma's matrix descriptors read; A and W are both K-major, wgmma's
-// native form. With three passes it walks the K tiles three times, taking
-// the pass's (A, W) pair of tensor maps. TMA zero-fills what lies past M, N
+// native form. TMA zero-fills what lies past M, N
 // or K, so ragged edges need no branch in the main loop. Two consumer
 // warpgroups each own 64 rows: per stage four wgmma m64n128k16 on 64 f32
 // accumulators a thread, one group in flight while the previous stage is
@@ -106,6 +98,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Marks every register of d as written here, so that no use of a wgmma
+// accumulator moves above the wait that completes it.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 // Descriptor of a K-major bf16 tile with 128-byte rows in the 128-byte
 // swizzle: start address, stride between 8-row groups 1024 bytes.
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
@@ -164,11 +164,7 @@ __device__ __forceinline__ void load8(const bf16* p, float (&r)[8]) {
     r[2 * i] = f.x, r[2 * i + 1] = f.y;
   }
 }
-__device__ __forceinline__ void load8(const float* p, float (&r)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
-  r[0] = a.x, r[1] = a.y, r[2] = a.z, r[3] = a.w, r[4] = b.x, r[5] = b.y, r[6] = b.z, r[7] = b.w;
-}
-// 8 values of a row of out: bf16 rounded to nearest even, or float.
+// 8 values of a row of out, rounded to bf16 (nearest even).
 __device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
   uint4 o;
   __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&o);
@@ -176,23 +172,13 @@ __device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
   for (int i = 0; i < 4; ++i) op[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = o;
 }
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
 
-// map_a, map_w: the first pass's operands (A_hi, W_hi with three passes);
-// map_a_lo, map_w_lo: A_lo and W_lo, read by passes 2 (W_lo) and 3 (A_lo)
-// only.
-template <int EPI, typename TO, int kPasses>
+template <int EPI>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
-                       const __grid_constant__ CUtensorMap map_w,
-                       const __grid_constant__ CUtensorMap map_a_lo,
-                       const __grid_constant__ CUtensorMap map_w_lo, const float* __restrict__ bias,
-                       const TO* __restrict__ res, const float* __restrict__ rscale,
-                       TO* __restrict__ out, int M, int N, int K) {
-  static_assert(kPasses == 1 || kPasses == 3, "one pass, or the three of bf16x3");
+                       const __grid_constant__ CUtensorMap map_w, const float* __restrict__ bias,
+                       const bf16* __restrict__ res, const float* __restrict__ rscale,
+                       bf16* __restrict__ out, int M, int N, int K) {
   extern __shared__ unsigned char wg_smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -200,7 +186,7 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   const uint32_t ring = smem_u32(smem), full0 = smem_u32(bars), empty0 = full0 + 8 * kStages;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, group = warp >> 2;  // group 2: the producer warp
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int nk = (K + kBK - 1) / kBK, total = kPasses * nk;
+  const int nk = (K + kBK - 1) / kBK;
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -212,16 +198,14 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   __syncthreads();
 
   if (group == 2) {
-    // ---- producer: one thread keeps the ring full, pass after pass ----
+    // ---- producer: one thread keeps the ring full ----
     if (tid == kConsumerThreads) {
-      for (int it = 0; it < total; ++it) {
-        const int s = it % kStages, pass = it / nk, kt = it % nk;
-        const CUtensorMap* ma = pass == 2 ? &map_a_lo : &map_a;
-        const CUtensorMap* mw = pass == 1 ? &map_w_lo : &map_w;
-        mbar_wait(empty0 + 8 * s, ((it / kStages) & 1) ^ 1);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(empty0 + 8 * s, ((kt / kStages) & 1) ^ 1);
         mbar_expect_tx(full0 + 8 * s, kStageBytes);
-        tma_load(ring + s * kStageBytes, ma, full0 + 8 * s, kt * kBK, m0);
-        tma_load(ring + s * kStageBytes + kABytes, mw, full0 + 8 * s, kt * kBK, n0);
+        tma_load(ring + s * kStageBytes, &map_a, full0 + 8 * s, kt * kBK, m0);
+        tma_load(ring + s * kStageBytes + kABytes, &map_w, full0 + 8 * s, kt * kBK, n0);
       }
     }
   } else {
@@ -229,7 +213,7 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     float acc[kAcc];
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-    for (int it = 0; it < total; ++it) {
+    for (int it = 0; it < nk; ++it) {
       const int s = it % kStages;
       mbar_wait(full0 + 8 * s, (it / kStages) & 1);
       const uint64_t da = make_desc(ring + s * kStageBytes + group * (64 * kBK * 2));
@@ -320,40 +304,24 @@ inline bool make_map(CUtensorMap* map, const bf16* base, int rows, int K, int bo
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// K % 8 == 0 (16-byte rows for TMA), N % 8 == 0 and 16-byte aligned bases
-// (checked by the caller); any M. kPasses = 3 reads A_lo and W_lo (see the
-// kernel), kPasses = 1 reads neither.
-template <int EPI, typename TO, int kPasses>
-cudaError_t launch_gemm_wgmma(const bf16* A, const bf16* A_lo, const bf16* W, const bf16* W_lo,
-                              const float* bias, const TO* res, const float* rscale, TO* out,
-                              int M, int N, int K, cudaStream_t stream) {
-  CUtensorMap map_a, map_w, map_a_lo, map_w_lo;
-  if (!make_map(&map_a, A, M, K, kBM) || !make_map(&map_w, W, N, K, kBN)) {
-    return cudaErrorInvalidValue;
-  }
-  if (kPasses == 1) {
-    map_a_lo = map_a, map_w_lo = map_w;
-  } else if (!A_lo || !W_lo || !make_map(&map_a_lo, A_lo, M, K, kBM) ||
-             !make_map(&map_w_lo, W_lo, N, K, kBN)) {
-    return cudaErrorInvalidValue;
-  }
-  const cudaError_t err =
-      cudaFuncSetAttribute(gemm_bf16_wgmma_kernel<EPI, TO, kPasses>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_bf16_wgmma_kernel<EPI, TO, kPasses><<<grid, kThreads, kSmemBytes, stream>>>(
-      map_a, map_w, map_a_lo, map_w_lo, bias, res, rscale, out, M, N, K);
-  return cudaGetLastError();
-}
-
-// The bf16 GEMM of a bf16 block: one pass, bf16 out.
+// The bf16 GEMM of a bf16 block. K % 8 == 0 (16-byte rows for TMA), N % 8
+// == 0 and 16-byte aligned bases (checked by the caller); any M.
 template <int EPI>
 cudaError_t launch_gemm_wgmma(const bf16* A, const bf16* W, const float* bias, const bf16* res,
                               const float* rscale, bf16* out, int M, int N, int K,
                               cudaStream_t stream) {
-  return launch_gemm_wgmma<EPI, bf16, 1>(A, nullptr, W, nullptr, bias, res, rscale, out, M, N, K,
-                                         stream);
+  CUtensorMap map_a, map_w;
+  if (!make_map(&map_a, A, M, K, kBM) || !make_map(&map_w, W, N, K, kBN)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err =
+      cudaFuncSetAttribute(gemm_bf16_wgmma_kernel<EPI>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  gemm_bf16_wgmma_kernel<EPI><<<grid, kThreads, kSmemBytes, stream>>>(map_a, map_w, bias, res,
+                                                                      rscale, out, M, N, K);
+  return cudaGetLastError();
 }
 
 }  // namespace wg

@@ -32,7 +32,9 @@
 // precision=None for f32 operands, ops/attention.py:103-117, :277-282):
 // under "default" every f32 product of B3, B4 and B6 is one bf16 pass, its
 // operands rounded to bf16 and summed in f32 (the mode argument, F32Mode
-// kDefault); "highest" is the exact f32 above.
+// kDefault); "highest" is the exact f32 above. B3 and B6 under "default"
+// run the tensor-core kernel of grand_attn_mode.cuh, B4 the bf16 B4's
+// tensor-core passes with f32 outputs (below).
 //
 // Design:
 //   B3  the shared f32 launcher of grand_attn_mode.cuh, which B1, B2 and B5
@@ -64,7 +66,27 @@
 //       written by one thread: no atomics, so the gradients are deterministic.
 //       At bf16, B4 is the backward of grand_attn_bwd_bf16.cuh on wgmma and
 //       TMA: the rows' statistics from K1, a dq pass and a dk/dv pass, at
-//       JAX's rounding points.
+//       JAX's rounding points. At f32 under "default" it is the same two
+//       passes with f32 outputs: "default" takes every product of
+//       bf16-rounded operands summed in f32, which are the bf16 kernel's
+//       rounding points term for term (S and dP summed in f32, P and D in
+//       f32, dS and P rounded only as operands; S and dP summed k16 step by
+//       k16 step in f32, wgmma_ss_promoted). The f32 q, k, v and dO
+//       are rounded once into bf16 planes by round_heads_kernel (one launch
+//       for a qkv projection's three views, one for dO: ~1.2 GB at the
+//       train shape, 0.36 ms at the card's rate) rather than by the passes'
+//       producer warpgroup, which would have to stage f32 tiles and write
+//       the swizzled bf16 operands itself, K and V of a pair too, in the
+//       40 registers it keeps. Measured at [3264, 243, 64] (H100 80GB HBM3,
+//       700 W, utils/mode_attn_profile.py): the two roundings 0.420 ms of
+//       a 1.535 ms call (27%, at 87% of the memory rate). Fusing them into
+//       the producer would save at most those 0.42 ms, where the producer's conversions hide behind
+//       the products, while the passes read twice the bytes (f32 rows, Q
+//       and dO once for each 128-key block); it is left open (ROADMAP
+//       B.11). dq and dk leave the passes' f32 accumulators unrounded, and
+//       dv's "− dO" reads the f32 dO. No P or dS scratch: the dq pass forms
+//       the rows' statistics and D (the forward under "default" hands over
+//       none) into 192 floats a 64-query tile.
 //   B6  the small-group kernel of grand_attn.cuh (n <= 64): persistent
 //       blocks walk the (group, head) pairs through a two-stage cp.async
 //       ring of whole pairs, a lane holds a (query, key) micro-tile of the
@@ -130,7 +152,7 @@ struct DqLayout {
 // Sweep 2 forms S and dP, P = exp(S − m) / l and dS = P ∘ (dP − D) · scale
 // into pds (two [B·H][n64][n64] planes, zero past n) and dS into shared
 // memory, and dQ += dS·K.
-template <int D, bool kFwdStats, int kMode>
+template <int D, bool kFwdStats>
 __global__ void __launch_bounds__(kThreads)
 grand_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
@@ -230,8 +252,7 @@ grand_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
           const float* gi = dob + (long long)(tq + 16 * i) * sdo.n + 4 * tk;
 #pragma unroll
           for (int cc = 0; cc < kC; ++cc) {
-            float4 gv = ld4(gi + 32 * cc);
-            if constexpr (kMode == grand::kDefault) gv = grand::bf16_round4(gv);
+            const float4 gv = ld4(gi + 32 * cc);
             part = fmaf(gv.x, acc[i][4 * cc], part);
             part = fmaf(gv.y, acc[i][4 * cc + 1], part);
             part = fmaf(gv.z, acc[i][4 * cc + 2], part);
@@ -257,7 +278,7 @@ grand_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
 #pragma unroll
             for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
         }
-        mm_rows<4, 8, 16, 8, kMode>(s, st, kLdC, tq, st + L::kBlock, kLdC, tk);
+        mm_rows<4, 8, 16, 8>(s, st, kLdC, tq, st + L::kBlock, kLdC, tk);
         if (c == L::kSC - 1) {  // online softmax, as the forward
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -288,9 +309,8 @@ grand_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
 #pragma unroll
             for (int j = 0; j < 8; ++j) s[i][j] = dp4[i][j] = 0.f;
         }
-        mm_rows<4, 8, 16, 8, kMode>(s, st, kLdC, tq, st + L::kBlock, kLdC, tk);
-        mm_rows<4, 8, 16, 8, kMode>(dp4, st + 2 * L::kBlock, kLdC, tq, st + 3 * L::kBlock, kLdC,
-                                    tk);
+        mm_rows<4, 8, 16, 8>(s, st, kLdC, tq, st + L::kBlock, kLdC, tk);
+        mm_rows<4, 8, 16, 8>(dp4, st + 2 * L::kBlock, kLdC, tq, st + 3 * L::kBlock, kLdC, tk);
         if (c == L::kSC - 1) {  // P and dS of the tile to shared memory and to pds
           const size_t n64 = (size_t)q_tiles * kQT;
           float* pg = pds + (((size_t)b * H + h) * n64 + q0) * n64 + t * kKT + tk;
@@ -311,12 +331,8 @@ grand_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
           }
         }
       }
-    } else if (sweep == 0) {  // sweep 1: O += P·V, P unrounded (D = Σ P·dP)
-      mm_acc<4, 16, kC, 32, kMode, false>(acc, Ws + (c - L::kSC) * L::kRR, L::kLdW, tq, st, D + 4,
-                                          tk, L::kRR);
-    } else {  // sweep 2: dQ += dS·K
-      mm_acc<4, 16, kC, 32, kMode>(acc, Ws + (c - L::kSC) * L::kRR, L::kLdW, tq, st, D + 4, tk,
-                                   L::kRR);
+    } else {  // sweep 1: O += P·V; sweep 2: dQ += dS·K
+      mm_acc<4, 16, kC, 32>(acc, Ws + (c - L::kSC) * L::kRR, L::kLdW, tq, st, D + 4, tk, L::kRR);
     }
   }
 
@@ -352,7 +368,7 @@ struct DkdvLayout {
 // (tid / 8, tid % 8) owns keys k0 + 4·tk + i (i < 4) and columns 4·tc + 32c
 // (c < D / 32): per query row one 128-bit load of four P (or dS) and D / 32
 // of dO (or Q) feed 16·D/32 FMAs, as the forward's P·V.
-template <int D, int kMode>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 grand_attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ dout,
                            const float* __restrict__ pds, float* __restrict__ dk,
@@ -392,12 +408,10 @@ grand_attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict_
     const float* Xs = As + L::kA;
 #pragma unroll 8
     for (int r = 0; r < kQR; ++r) {
-      float4 a = ld4(As + r * kKB + 4 * tk);
-      if constexpr (kMode == grand::kDefault) a = grand::bf16_round4(a);
+      const float4 a = ld4(As + r * kKB + 4 * tk);
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
-        float4 x = ld4(Xs + r * D + 4 * tc + 32 * c);
-        if constexpr (kMode == grand::kDefault) x = grand::bf16_round4(x);
+        const float4 x = ld4(Xs + r * D + 4 * tc + 32 * c);
         axpy4(a.x, x, &acc[0][4 * c]);
         axpy4(a.y, x, &acc[1][4 * c]);
         axpy4(a.z, x, &acc[2][4 * c]);
@@ -428,25 +442,25 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int D, bool kFwdStats, int kMode>
+template <int D, bool kFwdStats>
 cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
                       const float* fout, const float* stats, float* dq, float* pds, Strides sq,
                       Strides sk, Strides sv, Strides sdo, Strides sfo, Strides sdq, int B, int H,
                       int n, float scale, cudaStream_t stream) {
   const int q_tiles = stat_rows(n) / kQT;
   const size_t bytes = DqLayout<D>::kFloats * sizeof(float);
-  const cudaError_t err = allow_smem(grand_attn_bwd_dq_kernel<D, kFwdStats, kMode>, bytes);
+  const cudaError_t err = allow_smem(grand_attn_bwd_dq_kernel<D, kFwdStats>, bytes);
   if (err != cudaSuccess) return err;
-  grand_attn_bwd_dq_kernel<D, kFwdStats, kMode><<<dim3(B * q_tiles, H), kThreads, bytes, stream>>>(
+  grand_attn_bwd_dq_kernel<D, kFwdStats><<<dim3(B * q_tiles, H), kThreads, bytes, stream>>>(
       q, k, v, dout, fout, stats, dq, pds, sq, sk, sv, sdo, sfo, sdq, n, q_tiles, scale);
   return cudaGetLastError();
 }
 
-// B4 at head width D under kMode (kHighest or kDefault): the dq pass, then
-// the dk/dv pass. With fout (the forward's output, whose launch also wrote
-// m and 1/l into stats; kHighest only) the dq pass skips its first sweep.
-// Adds one to *launches for each kernel launched.
-template <int D, int kMode>
+// B4 at head width D in exact f32: the dq pass, then the dk/dv pass. With
+// fout (the forward's output, whose launch also wrote m and 1/l into
+// stats) the dq pass skips its first sweep. Adds one to *launches for each
+// kernel launched.
+template <int D>
 cudaError_t launch_bwd(const float* q, const float* k, const float* v, const float* dout,
                        const float* fout, const float* stats, float* dq, float* dk, float* dv,
                        float* pds, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sfo,
@@ -454,23 +468,95 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v, const flo
                        int* launches, cudaStream_t stream) {
 #define DQ_ARGS \
   q, k, v, dout, fout, stats, dq, pds, sq, sk, sv, sdo, sfo, sdq, B, H, n, scale, stream
-  cudaError_t err;
-  if constexpr (kMode == grand::kHighest) {
-    err = fout ? launch_dq<D, true, kMode>(DQ_ARGS) : launch_dq<D, false, kMode>(DQ_ARGS);
-  } else {
-    err = fout ? cudaErrorInvalidValue : launch_dq<D, false, kMode>(DQ_ARGS);
-  }
+  cudaError_t err = fout ? launch_dq<D, true>(DQ_ARGS) : launch_dq<D, false>(DQ_ARGS);
 #undef DQ_ARGS
   if (err != cudaSuccess) return err;
   ++*launches;
   const int k_tiles = stat_rows(n) / kKB;
   const size_t bytes = DkdvLayout<D>::kFloats * sizeof(float);
-  if ((err = allow_smem(grand_attn_bwd_dkdv_kernel<D, kMode>, bytes)) != cudaSuccess) return err;
-  grand_attn_bwd_dkdv_kernel<D, kMode><<<dim3(B * k_tiles, H, 2), kThreads, bytes, stream>>>(
+  if ((err = allow_smem(grand_attn_bwd_dkdv_kernel<D>, bytes)) != cudaSuccess) return err;
+  grand_attn_bwd_dkdv_kernel<D><<<dim3(B * k_tiles, H, 2), kThreads, bytes, stream>>>(
       q, dout, pds, dk, dv, sq, sdo, sdk, sdv, n, k_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ++*launches;
   return cudaSuccess;
+}
+
+// ---- B4 under the session precision "default": the bf16 passes ----
+
+// Rounds the f32 rows of a [B, Hs, n, D] view x to bf16 (nearest even)
+// into the view y, both by element strides (x's rows 16-byte aligned, y's
+// 16-byte aligned): the operands of B4's tensor-core passes under
+// "default". 8 values a thread and step, grid-stride, the heads of a row
+// (b, r) next to each other, as q, k and v lie in a qkv projection. Bound by
+// bytes: 4 read and 2 written a value.
+__global__ void __launch_bounds__(256)
+round_heads_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ y, Strides sx,
+                   Strides sy, int Hs, int n, int d8, long long pieces) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < pieces;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(i % d8) * 8;
+    long long row = i / d8;
+    const int h = (int)(row % Hs);
+    row /= Hs;
+    const long long r = row % n, b = row / n;
+    const float* src = x + b * sx.b + h * sx.h + r * sx.n + c;
+    const float4 lo = *reinterpret_cast<const float4*>(src);
+    const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+    uint4 o;
+    __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&o);
+    op[0] = __floats2bfloat162_rn(lo.x, lo.y);
+    op[1] = __floats2bfloat162_rn(lo.z, lo.w);
+    op[2] = __floats2bfloat162_rn(hi.x, hi.y);
+    op[3] = __floats2bfloat162_rn(hi.z, hi.w);
+    *reinterpret_cast<uint4*>(y + b * sy.b + h * sy.h + r * sy.n + c) = o;
+  }
+}
+
+cudaError_t launch_round(const float* x, __nv_bfloat16* y, Strides sx, Strides sy, int B, int Hs,
+                         int n, int d, int* launches, cudaStream_t stream) {
+  const long long pieces = (long long)B * Hs * n * (d / 8), want = (pieces + 255) / 256;
+  round_heads_kernel<<<want < 132 * 16 ? (int)want : 132 * 16, 256, 0, stream>>>(
+      x, y, sx, sy, Hs, n, d / 8, pieces);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launches;
+  return err;
+}
+
+// B4 at f32 under "default" at head width D: q, k, v and dO rounded once
+// into bf16 planes (qkv [B, n, 3H, D], then dO [B, n, H, D]: one launch for
+// q, k and v where they are heads [0, H), [H, 2H) and [2H, 3H) of one view,
+// as the trainable attention's qkv projection gives them, else one each,
+// and one for dO), then the tensor-core passes of grand_attn_bwd_bf16.cuh
+// with f32 outputs, the statistics formed in the dq pass into stats, and
+// dv's "− dO" from the f32 dout. Adds one to *launches for each kernel
+// launched.
+template <int D>
+cudaError_t launch_bwd_default(const float* q, const float* k, const float* v, const float* dout,
+                               float* stats, __nv_bfloat16* planes, float* dq, float* dk,
+                               float* dv, Strides sq, Strides sk, Strides sv, Strides sdo,
+                               Strides sdq, Strides sdk, Strides sdv, int B, int H, int n,
+                               float scale, int* launches, cudaStream_t stream) {
+  const long long hd = (long long)H * D;
+  const Strides s3{n * 3 * hd, D, 3 * hd, 0}, s1{n * hd, D, hd, 0};
+  __nv_bfloat16* qkv = planes;
+  __nv_bfloat16* g = planes + 3 * hd * n * B;
+  const auto same = [](Strides a, Strides b) { return a.b == b.b && a.h == b.h && a.n == b.n; };
+  cudaError_t err;
+  if (k == q + hd && v == k + hd && sq.h == D && same(sq, sk) && same(sq, sv)) {
+    err = launch_round(q, qkv, sq, s3, B, 3 * H, n, D, launches, stream);
+  } else if ((err = launch_round(q, qkv, sq, s3, B, H, n, D, launches, stream)) == cudaSuccess &&
+             (err = launch_round(k, qkv + hd, sk, s3, B, H, n, D, launches, stream)) ==
+                 cudaSuccess) {
+    err = launch_round(v, qkv + 2 * hd, sv, s3, B, H, n, D, launches, stream);
+  }
+  if (err != cudaSuccess) return err;
+  if ((err = launch_round(dout, g, sdo, s1, B, H, n, D, launches, stream)) != cudaSuccess) {
+    return err;
+  }
+  return grand::launch_bwd_bf16<D, float>(qkv, qkv + hd, qkv + 2 * hd, g, dout, dq, dk, dv, stats,
+                                          false, s3, s3, s3, s1, sdo, sdq, sdk, sdv, B, H, n,
+                                          scale, launches, stream);
 }
 
 // The f32 forward under the session matmul precision (F32Mode kHighest
@@ -580,42 +666,51 @@ extern "C" int diff3dhpe_grand_attn_small_bf16(
                                        launches, stream_ptr);
 }
 
-// B4: dq, dk, dv of B3 given dO, as two kernels (the dq pass, then the
-// dk/dv pass), at d = 64 or 128 and n <= 256. pds is scratch of
-// 2·B·H·n64² floats, n64 = n rounded up to 64: the dq pass stores P and dS
-// there for the dk/dv pass. fout may be null; else it is B3's output for
-// these q, k, v, from a launch of diff3dhpe_grand_attn_fwd_f32 that wrote
-// its statistics into stats (2·B·H·n64 floats), and the dq pass starts from
-// them. mode: the session matmul precision as F32Mode, kHighest or kDefault
-// (every product of bf16-rounded operands; the row sums D = Σ P·dP take the
-// unrounded P, which the forward's rounded exponentials cannot give, so fout
-// must be null there). Adds one to *launches for each kernel launched;
-// returns the first cudaError_t reported.
+// B4: dq, dk, dv of B3 given dO, at d = 64 or 128 and n <= 256, under the
+// session matmul precision mode (F32Mode):
+// - kHighest, exact f32: two kernels, the dq pass, then the dk/dv pass.
+//   pds is scratch of 2·B·H·n64² floats, n64 = n rounded up to 64: the dq
+//   pass stores P and dS there for the dk/dv pass. fout may be null; else
+//   it is B3's output for these q, k, v, from a launch of
+//   diff3dhpe_grand_attn_fwd_f32 that wrote its statistics into stats
+//   (2·B·H·n64 floats), and the dq pass starts from them.
+// - kDefault, every product of bf16-rounded operands summed in f32: the
+//   bf16 B4's tensor-core passes with f32 outputs (launch_bwd_default).
+//   planes is scratch of 4·B·n·H·d bf16 for the rounded q, k, v and dO;
+//   stats is scratch of B·H·nt·192 floats (nt = n rounded up to 64, over
+//   64), where the dq pass forms the rows' statistics and D; pds and fout
+//   are unused and fout must be null (the row sums D take the unrounded P,
+//   which the forward's rounded exponentials cannot give).
+// Adds one to *launches for each kernel launched; returns the first
+// cudaError_t reported.
 extern "C" int diff3dhpe_grand_attn_bwd_f32(
     const float* q, const float* k, const float* v, const float* dout, const float* fout,
-    const float* stats, float* dq, float* dk, float* dv, float* pds, int B, int H, int n, int d,
-    long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
+    float* stats, float* dq, float* dk, float* dv, float* pds, __nv_bfloat16* planes, int B, int H,
+    int n, int d, long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long g_sb,
     long long g_sh, long long g_sn, long long f_sb, long long f_sh, long long f_sn,
     long long dq_sb, long long dq_sh, long long dq_sn, long long dk_sb, long long dk_sh,
     long long dk_sn, long long dv_sb, long long dv_sh, long long dv_sn, float scale, int mode,
     int* launches, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || n > kMaxN || !grand::takes_head_dim(d) || (fout != nullptr && stats == nullptr) ||
-      (mode != grand::kHighest && mode != grand::kDefault)) {
+  if (n <= 0 || n > kMaxN || !grand::takes_head_dim(d)) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (mode == grand::kDefault) {
+    if (fout != nullptr || stats == nullptr || planes == nullptr) return (int)cudaErrorInvalidValue;
+#define BWD_ARGS q, k, v, dout, stats, planes, dq, dk, dv, STRIDES(q), STRIDES(k), STRIDES(v), \
+                 STRIDES(g), STRIDES(dq), STRIDES(dk), STRIDES(dv), B, H, n, scale, launches, \
+                 stream
+    err = d == 64 ? launch_bwd_default<64>(BWD_ARGS) : launch_bwd_default<128>(BWD_ARGS);
+#undef BWD_ARGS
+    return (int)err;
+  }
+  if (mode != grand::kHighest || pds == nullptr || (fout != nullptr && stats == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
 #define BWD_ARGS q, k, v, dout, fout, stats, dq, dk, dv, pds, STRIDES(q), STRIDES(k), STRIDES(v), \
                  STRIDES(g), STRIDES(f), STRIDES(dq), STRIDES(dk), STRIDES(dv), B, H, n, scale, \
                  launches, stream
-  cudaError_t err;
-  if (mode == grand::kDefault) {
-    err = d == 64 ? launch_bwd<64, grand::kDefault>(BWD_ARGS)
-                  : launch_bwd<128, grand::kDefault>(BWD_ARGS);
-  } else {
-    err = d == 64 ? launch_bwd<64, grand::kHighest>(BWD_ARGS)
-                  : launch_bwd<128, grand::kHighest>(BWD_ARGS);
-  }
+  err = d == 64 ? launch_bwd<64>(BWD_ARGS) : launch_bwd<128>(BWD_ARGS);
 #undef BWD_ARGS
   return (int)err;
 }
@@ -642,11 +737,11 @@ extern "C" int diff3dhpe_grand_attn_bwd_bf16(
   if (n <= 0 || n > kMaxN || !grand::takes_head_dim(d) || stats == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-#define BWD_ARGS q, k, v, dout, dq, dk, dv, stats, have_stats != 0, STRIDES(q), STRIDES(k), \
-                 STRIDES(v), STRIDES(g), STRIDES(dq), STRIDES(dk), STRIDES(dv), B, H, n, scale, \
-                 launches, stream
-  const cudaError_t err = d == 64 ? grand::launch_bwd_bf16<64>(BWD_ARGS)
-                                  : grand::launch_bwd_bf16<128>(BWD_ARGS);
+#define BWD_ARGS q, k, v, dout, dout, dq, dk, dv, stats, have_stats != 0, STRIDES(q), STRIDES(k), \
+                 STRIDES(v), STRIDES(g), STRIDES(g), STRIDES(dq), STRIDES(dk), STRIDES(dv), B, H, \
+                 n, scale, launches, stream
+  const cudaError_t err = d == 64 ? grand::launch_bwd_bf16<64, __nv_bfloat16>(BWD_ARGS)
+                                  : grand::launch_bwd_bf16<128, __nv_bfloat16>(BWD_ARGS);
 #undef BWD_ARGS
   return (int)err;
 }

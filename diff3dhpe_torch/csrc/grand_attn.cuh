@@ -24,9 +24,9 @@
 // the block kernels' f32 products under JAX's f32_contract_mode
 // (diff3dhpe_tpu/ops/fused_block.py:84-164), and kDefault also B3's, B4's
 // and B6's under the session matmul precision. The attention forward under
-// a mode runs the tensor-core kernel of grand_attn_mode.cuh; here the
-// micro-tile products take kDefault for B4 (grand_attention.cu), and the
-// two kernels are exact f32 alone.
+// a mode runs the tensor-core kernel of grand_attn_mode.cuh, and B4 under
+// "default" the tensor-core passes of grand_attn_bwd_bf16.cuh; the two
+// kernels here, and the micro-tiles B4 shares, are exact f32 alone.
 //
 // What bounds it on an H100: at B3's train shape (3,264 (group, head) pairs
 // of n = 243, D = 64) the two products are 49 GFLOP against 0.8 GB, so
@@ -94,10 +94,6 @@ struct Strides {
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float4 bf16_round4(float4 v) {
-  return make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z), bf16_round(v.w));
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -182,25 +178,18 @@ __device__ __forceinline__ void load_block(float* dst, int ld, const float* src,
 //   s[i][j] += Σ_{d < 32} A[(a0 + kAS·i)·lda + d] · B[(b0 + kBS·j)·ldb + d]
 // from 128-bit loads: per 4 columns, kI + kJ loads feed 4·kI·kJ FMAs. Each
 // dot product runs over d in order, so every kernel that forms the same
-// logit forms the same bits. kMode: kHighest, or kDefault (B4 at the
-// session precision "default"), which rounds the operands to bf16 as they
-// are loaded.
-template <int kI, int kJ, int kAS, int kBS, int kMode = kHighest>
+// logit forms the same bits.
+template <int kI, int kJ, int kAS, int kBS>
 __device__ __forceinline__ void mm_rows(float (&s)[kI][kJ], const float* A, int lda, int a0,
                                         const float* B, int ldb, int b0) {
-  static_assert(kMode == kHighest || kMode == kDefault, "the micro-tiles take two modes");
 #pragma unroll
   for (int d = 0; d < 32; d += 4) {
     float4 a[kI];
 #pragma unroll
-    for (int i = 0; i < kI; ++i) {
-      a[i] = ld4(A + (a0 + kAS * i) * lda + d);
-      if constexpr (kMode == kDefault) a[i] = bf16_round4(a[i]);
-    }
+    for (int i = 0; i < kI; ++i) a[i] = ld4(A + (a0 + kAS * i) * lda + d);
 #pragma unroll
     for (int j = 0; j < kJ; ++j) {
-      float4 b = ld4(B + (b0 + kBS * j) * ldb + d);
-      if constexpr (kMode == kDefault) b = bf16_round4(b);
+      const float4 b = ld4(B + (b0 + kBS * j) * ldb + d);
 #pragma unroll
       for (int i = 0; i < kI; ++i) s[i][j] = dot4(a[i], b, s[i][j]);
     }
@@ -210,28 +199,21 @@ __device__ __forceinline__ void mm_rows(float (&s)[kI][kJ], const float* A, int 
 // Register micro-tile of a product over `rows` (a multiple of 4) rows:
 //   o[i][4c + e] += Σ_{r < rows} W[(a0 + kAS·i)·ldw + r] · V[r·ldv + 4·t + kCS·c + e]
 // for the thread's kI rows and kC groups of 4 columns; per 4 rows, kI + 4·kC
-// loads feed 16·kI·kC FMAs. kMode as mm_rows's, on V and, with kRoundW, on
-// W (B4's first sweep keeps P in f32 under "default": its row sums D take
-// the unrounded P).
-template <int kI, int kAS, int kC, int kCS, int kMode = kHighest, bool kRoundW = true>
+// loads feed 16·kI·kC FMAs.
+template <int kI, int kAS, int kC, int kCS>
 __device__ __forceinline__ void mm_acc(float (&o)[kI][4 * kC], const float* W, int ldw, int a0,
                                        const float* V, int ldv, int t, int rows) {
-  static_assert(kMode == kHighest || kMode == kDefault, "the micro-tiles take two modes");
 #pragma unroll
   for (int r = 0; r < rows; r += 4) {
     float4 w[kI];
 #pragma unroll
-    for (int i = 0; i < kI; ++i) {
-      w[i] = ld4(W + (a0 + kAS * i) * ldw + r);
-      if constexpr (kMode == kDefault && kRoundW) w[i] = bf16_round4(w[i]);
-    }
+    for (int i = 0; i < kI; ++i) w[i] = ld4(W + (a0 + kAS * i) * ldw + r);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float* vr = V + (r + e) * ldv + 4 * t;
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
-        float4 vv = ld4(vr + kCS * c);
-        if constexpr (kMode == kDefault) vv = bf16_round4(vv);
+        const float4 vv = ld4(vr + kCS * c);
 #pragma unroll
         for (int i = 0; i < kI; ++i) axpy4(lane_of(w[i], e), vv, &o[i][4 * c]);
       }

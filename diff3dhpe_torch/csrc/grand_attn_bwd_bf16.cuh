@@ -1,5 +1,7 @@
 // bf16 GRAND attention backward on Hopper's warpgroup matrix multiply
-// (sm_90a): B4 at bf16 (grand_attention.cu), head width 64 or 128, n <= 256.
+// (sm_90a): B4 at bf16 (grand_attention.cu), head width 64 or 128, n <= 256;
+// and, with f32 outputs (TO = float), B4 at f32 under the session
+// precision "default" on bf16-rounded copies of its f32 operands.
 //
 // Replaces diff3dhpe_tpu/ops/attention.py::_grand_attn_bwd_kernel on bf16
 // operands (its tile _grand_attn_bwd_tile, :275-300, under
@@ -10,6 +12,18 @@
 //   dS = bf16(P ∘ (dP − D) · scale),  P̃ = bf16(P)
 //   dq = bf16(dS·k),  dk = bf16(dSᵀ·q)   (f32 sums)
 //   dv = bf16(P̃ᵀ·dO − dO)                 (f32 sum and difference, one rounding)
+// With TO = float the outputs leave the f32 accumulators unrounded and dv's
+// "− dO" takes the f32 dO (JAX's tile under "default": dot(pq, do) − dof,
+// diff3dhpe_tpu/ops/attention.py:298); every other rounding point is the
+// same, which is what "default" asks of an f32 backward. There S and dP are
+// summed k16 step by k16 step in f32 (wgmma_ss_promoted): the tensor cores'
+// own sums over a whole row part from exact f32 sums by enough to turn single
+// bf16 roundings of dS the other way (2^-8 of a term of dq or dk). Measured
+// at chip_smoke.py phase 21b's draws against S and dP summed exactly
+// (utils/mode_attn_profile.py --parts bwd; H100 80GB HBM3, 700 W): with the
+// tensor cores' own sums max 1.719e-3 of max|oracle| at d = 64 (the bar is
+// 1e-3) and 7.57e-4 at d = 128, 1.313 and 1.136 ms; promoted 8.25e-4 and
+// 8.35e-4, 1.520 and 1.301 ms.
 // P is exp(S·scale − max·scale) times the row's 1/sum, both statistics in
 // K1's (grand_attn_bf16.cuh) order of operations: the trainable forward's
 // K1 writes them, and B4 called without them forms them in its dq pass
@@ -67,6 +81,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "gemm_wgmma.cuh"
 #include "grand_attn_bf16.cuh"
 
@@ -74,6 +90,7 @@ namespace grand {
 namespace tcb {
 
 using bf16 = __nv_bfloat16;
+using wg::fence_regs;
 using wg::mbar_arrive;
 using wg::mbar_expect_tx;
 using wg::mbar_init;
@@ -100,13 +117,6 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Marks every register of d as written here, so that no use of an
-// accumulator moves above the wgmma_wait that completes it.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // Descriptor of a 128-byte-swizzled bf16 tile read MN-major (the N index
@@ -251,6 +261,34 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+// d[64 x N] = A · Bᵀ over kSteps k16 steps of K-major 128-byte-swizzled
+// tiles, A's 64 rows at a and B's N rows at b (64-column panels pa and pb
+// bytes apart), for S and dP at f32 outputs: each k16 step of each 32
+// columns is its own wgmma group, summed by the tensor cores into t and
+// added to d in f32, rounding to nearest. The tensor cores drop the bits
+// below their accumulator's last place at every step, which over a whole
+// row of d parts S and dP from f32 sums by enough to turn single bf16
+// roundings of dS and P the other way. Each group is waited for.
+template <int N, int kSteps>
+__device__ __forceinline__ void wgmma_ss_promoted(float (&d)[N / 2], uint32_t a, int pa, uint32_t b,
+                                                  int pb) {
+#pragma unroll
+  for (int c = 0; c < N / 32; ++c) {
+#pragma unroll
+    for (int kd = 0; kd < kSteps; ++kd) {
+      float t[16];
+      wgmma_fence();
+      wgmma_ss<32>(t, wg::make_desc(a + (kd / 4) * pa + (kd % 4) * 32),
+                   wg::make_desc(b + c * 32 * kPanelBytes + (kd / 4) * pb + (kd % 4) * 32), 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(t);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) d[16 * c + i] = kd == 0 ? t[i] : d[16 * c + i] + t[i];
+    }
+  }
+}
+
 // ---- TMA ----
 
 // One box of a 4-D tensor map into shared memory; completion on `bar`.
@@ -298,6 +336,21 @@ __device__ __forceinline__ void warp_release(uint32_t bar, int lane) {
 // dS = bf16(P ∘ (dP − D) · scale), in JAX's order of operations.
 __device__ __forceinline__ float bwd_ds(float p, float dp, float dsum, float scale) {
   return p * (dp - dsum) * scale;
+}
+
+// Two neighbouring values of an output row: bf16 rounded once (nearest
+// even), or float; and two of dO's, as float.
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 
 // The mbarriers of a kernel: a ring of `stages` tiles and one of `slots`
@@ -357,14 +410,14 @@ struct DqLayout {
 // (the max over both groups' keys; the sum of each lane's columns in key
 // order, the second group continuing the first group's partial sums, then
 // across the row's four lanes), and writes them; else it reads them. It
-// writes D. dq: [B, H, n, D] bf16 by strides.
-template <int D, int KW, bool kOwnStats>
+// writes D. dq: [B, H, n, D] of TO (bf16 or float) by strides.
+template <int D, int KW, bool kOwnStats, typename TO>
 __global__ void __launch_bounds__(kThreads, 1)
 grand_attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                const __grid_constant__ CUtensorMap map_k,
                                const __grid_constant__ CUtensorMap map_v,
                                const __grid_constant__ CUtensorMap map_do,
-                               float* __restrict__ stats, bf16* __restrict__ dq, Strides sdq,
+                               float* __restrict__ stats, TO* __restrict__ dq, Strides sdq,
                                int H, int n, int nt, int pairs, int swap, float scale) {
   using L = DqLayout<D, KW>;
   extern __shared__ unsigned char bwd_dq_raw[];
@@ -433,25 +486,30 @@ grand_attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
       // S = Q·Kᵀ and dP = dO·Vᵀ for the group's keys, two wgmma groups.
       float sc[KW / 2], dp[KW / 2];
+      if constexpr (std::is_same_v<TO, float>) {  // B4 at f32: each k16 step added in f32
+        wgmma_ss_promoted<KW, D / 16>(sc, qb, kQPanel, kw, kKPanel);
+        wgmma_ss_promoted<KW, D / 16>(dp, gb, kQPanel, vw, kKPanel);
+      } else {
 #pragma unroll
-      for (int i = 0; i < KW / 2; ++i) sc[i] = dp[i] = 0.f;
-      wgmma_fence();
+        for (int i = 0; i < KW / 2; ++i) sc[i] = dp[i] = 0.f;
+        wgmma_fence();
 #pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        const int off = (kd / 4) * kQPanel + (kd % 4) * 32;
-        const int koff = (kd / 4) * kKPanel + (kd % 4) * 32;
-        wgmma_ss<KW>(sc, wg::make_desc(qb + off), wg::make_desc(kw + koff), 1);
+        for (int kd = 0; kd < D / 16; ++kd) {
+          const int off = (kd / 4) * kQPanel + (kd % 4) * 32;
+          const int koff = (kd / 4) * kKPanel + (kd % 4) * 32;
+          wgmma_ss<KW>(sc, wg::make_desc(qb + off), wg::make_desc(kw + koff), 1);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kd = 0; kd < D / 16; ++kd) {
+          const int off = (kd / 4) * kQPanel + (kd % 4) * 32;
+          const int koff = (kd / 4) * kKPanel + (kd % 4) * 32;
+          wgmma_ss<KW>(dp, wg::make_desc(gb + off), wg::make_desc(vw + koff), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(sc);
       }
-      wgmma_commit();
-#pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        const int off = (kd / 4) * kQPanel + (kd % 4) * 32;
-        const int koff = (kd / 4) * kKPanel + (kd % 4) * 32;
-        wgmma_ss<KW>(dp, wg::make_desc(gb + off), wg::make_desc(vw + koff), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(sc);
 
       // P = exp(S·scale − max·scale) · (1 / sum), zero at pad keys.
       float nm0, nm1, rs0, rs1;
@@ -604,7 +662,7 @@ grand_attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         }
       }
       named_sync(2);
-      bf16* out = dq + b * sdq.b + h * sdq.h;
+      TO* out = dq + b * sdq.b + h * sdq.h;
       const int row0 = qt * kRows + r0;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
@@ -613,12 +671,11 @@ grand_attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           const float2 o0 = *reinterpret_cast<const float2*>(xq + r0 * D + col);
           const float2 o1 = *reinterpret_cast<const float2*>(xq + (r0 + 8) * D + col);
           if (row0 < n) {
-            *reinterpret_cast<__nv_bfloat162*>(out + row0 * sdq.n + 8 * j + 2 * t) =
-                __floats2bfloat162_rn(acc[4 * j] + o0.x, acc[4 * j + 1] + o0.y);
+            store2(out + row0 * sdq.n + 8 * j + 2 * t, acc[4 * j] + o0.x, acc[4 * j + 1] + o0.y);
           }
           if (row0 + 8 < n) {
-            *reinterpret_cast<__nv_bfloat162*>(out + (row0 + 8) * sdq.n + 8 * j + 2 * t) =
-                __floats2bfloat162_rn(acc[4 * j + 2] + o1.x, acc[4 * j + 3] + o1.y);
+            store2(out + (row0 + 8) * sdq.n + 8 * j + 2 * t, acc[4 * j + 2] + o1.x,
+                   acc[4 * j + 3] + o1.y);
           }
         }
       }
@@ -650,15 +707,16 @@ struct DkdvLayout {
 
 // Pass 2 on work items blockIdx.x, blockIdx.x + gridDim.x, ...: item =
 // pair·nkb + key block (128 keys), over all nt query tiles of the pair.
-// dout: dO by strides (its rows at the keys, for dv's "− dO").
-template <int D>
+// dout: dO of TO by strides (its rows at the keys, for dv's "− dO"); dk,
+// dv: TO (bf16 or float).
+template <int D, typename TO>
 __global__ void __launch_bounds__(kThreads, 1)
 grand_attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                  const __grid_constant__ CUtensorMap map_k,
                                  const __grid_constant__ CUtensorMap map_v,
                                  const __grid_constant__ CUtensorMap map_do,
-                                 const float* __restrict__ stats, const bf16* __restrict__ dout,
-                                 bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdo,
+                                 const float* __restrict__ stats, const TO* __restrict__ dout,
+                                 TO* __restrict__ dk, TO* __restrict__ dv, Strides sdo,
                                  Strides sdk, Strides sdv, int H, int n, int nt, int nkb,
                                  int items, int swap, float scale) {
   using L = DkdvLayout<D>;
@@ -722,25 +780,30 @@ grand_attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
       // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: the group's 64 keys by the tile's 64 queries.
       float sc[kRows / 2], dp[kRows / 2];
+      if constexpr (std::is_same_v<TO, float>) {  // B4 at f32: each k16 step added in f32
+        wgmma_ss_promoted<kRows, D / 16>(sc, kw, kKPanel, qb, kQPanel);
+        wgmma_ss_promoted<kRows, D / 16>(dp, vw, kKPanel, gb, kQPanel);
+      } else {
 #pragma unroll
-      for (int i = 0; i < kRows / 2; ++i) sc[i] = dp[i] = 0.f;
-      wgmma_fence();
+        for (int i = 0; i < kRows / 2; ++i) sc[i] = dp[i] = 0.f;
+        wgmma_fence();
 #pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        const int koff = (kd / 4) * kKPanel + (kd % 4) * 32;
-        const int qoff = (kd / 4) * kQPanel + (kd % 4) * 32;
-        wgmma_ss<kRows>(sc, wg::make_desc(kw + koff), wg::make_desc(qb + qoff), 1);
+        for (int kd = 0; kd < D / 16; ++kd) {
+          const int koff = (kd / 4) * kKPanel + (kd % 4) * 32;
+          const int qoff = (kd / 4) * kQPanel + (kd % 4) * 32;
+          wgmma_ss<kRows>(sc, wg::make_desc(kw + koff), wg::make_desc(qb + qoff), 1);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kd = 0; kd < D / 16; ++kd) {
+          const int koff = (kd / 4) * kKPanel + (kd % 4) * 32;
+          const int qoff = (kd / 4) * kQPanel + (kd % 4) * 32;
+          wgmma_ss<kRows>(dp, wg::make_desc(vw + koff), wg::make_desc(gb + qoff), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(sc);
       }
-      wgmma_commit();
-#pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        const int koff = (kd / 4) * kKPanel + (kd % 4) * 32;
-        const int qoff = (kd / 4) * kQPanel + (kd % 4) * 32;
-        wgmma_ss<kRows>(dp, wg::make_desc(vw + koff), wg::make_desc(gb + qoff), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(sc);
       // Pᵀ from the queries' statistics, zero at pad queries.
 #pragma unroll
       for (int j = 0; j < kRows / 8; ++j) {
@@ -799,11 +862,11 @@ grand_attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     warp_release(bars.kv_empty + 8 * slot, lane);
 
-    // dv = bf16(P̃ᵀ·dO − dO) at the keys' own dO rows, dk = bf16(dSᵀ·Q).
+    // dv = TO(P̃ᵀ·dO − dO) at the keys' own dO rows, dk = TO(dSᵀ·Q).
     const int key0 = kb * L::kKeys + 64 * wgi + 16 * (warp & 3) + g;
-    const bf16* gsrc = dout + b * sdo.b + h * sdo.h;
-    bf16* dko = dk + b * sdk.b + h * sdk.h;
-    bf16* dvo = dv + b * sdv.b + h * sdv.h;
+    const TO* gsrc = dout + b * sdo.b + h * sdo.h;
+    TO* dko = dk + b * sdk.b + h * sdk.h;
+    TO* dvo = dv + b * sdv.b + h * sdv.h;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int key = key0 + 8 * half;
@@ -811,12 +874,10 @@ grand_attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int col = 8 * j + 2 * t;
-        const float2 gv =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gsrc + key * sdo.n + col));
-        *reinterpret_cast<__nv_bfloat162*>(dvo + key * sdv.n + col) = __floats2bfloat162_rn(
-            dva[4 * j + 2 * half] - gv.x, dva[4 * j + 2 * half + 1] - gv.y);
-        *reinterpret_cast<__nv_bfloat162*>(dko + key * sdk.n + col) =
-            __floats2bfloat162_rn(dka[4 * j + 2 * half], dka[4 * j + 2 * half + 1]);
+        const float2 gv = load2(gsrc + key * sdo.n + col);
+        store2(dvo + key * sdv.n + col, dva[4 * j + 2 * half] - gv.x,
+               dva[4 * j + 2 * half + 1] - gv.y);
+        store2(dko + key * sdk.n + col, dka[4 * j + 2 * half], dka[4 * j + 2 * half + 1]);
       }
     }
   }
@@ -874,16 +935,16 @@ inline bool make_maps(HeadMaps* m, const bf16* q, const bf16* k, const bf16* v, 
   return true;
 }
 
-template <int D, int KW, bool kOwnStats>
+template <int D, int KW, bool kOwnStats, typename TO>
 inline cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                             float* stats, bf16* dq, Strides sq, Strides sk, Strides sv,
+                             float* stats, TO* dq, Strides sq, Strides sk, Strides sv,
                              Strides sdo, Strides sdq, int B, int H, int n, float scale,
                              int sms, cudaStream_t stream) {
   using L = DqLayout<D, KW>;
   // The runtime call first: it makes the device's context current on this
   // thread (autograd's backward thread may have none), which encoding a
   // tensor map needs.
-  const auto kernel = grand_attn_bwd_dq_wgmma_kernel<D, KW, kOwnStats>;
+  const auto kernel = grand_attn_bwd_dq_wgmma_kernel<D, KW, kOwnStats, TO>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return err;
@@ -897,58 +958,64 @@ inline cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v, const 
   return cudaGetLastError();
 }
 
-template <int D>
-inline cudaError_t launch_dkdv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                               const float* stats, bf16* dk, bf16* dv, Strides sq, Strides sk,
-                               Strides sv, Strides sdo, Strides sdk, Strides sdv, int B, int H,
-                               int n, float scale, int sms, cudaStream_t stream) {
+// g: dO as the tensor maps read it (bf16); dres: dO for dv's "− dO".
+template <int D, typename TO>
+inline cudaError_t launch_dkdv(const bf16* q, const bf16* k, const bf16* v, const bf16* g,
+                               const TO* dres, const float* stats, TO* dk, TO* dv, Strides sq,
+                               Strides sk, Strides sv, Strides sg, Strides sres, Strides sdk,
+                               Strides sdv, int B, int H, int n, float scale, int sms,
+                               cudaStream_t stream) {
   using L = DkdvLayout<D>;
-  const auto kernel = grand_attn_bwd_dkdv_wgmma_kernel<D>;  // as launch_dq: this call first
+  const auto kernel = grand_attn_bwd_dkdv_wgmma_kernel<D, TO>;  // as launch_dq: this call first
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return err;
   HeadMaps m;
-  if (!make_maps(&m, q, k, v, dout, sq, sk, sv, sdo, B, H, n, D, L::kKeys)) {
+  if (!make_maps(&m, q, k, v, g, sq, sk, sv, sg, B, H, n, D, L::kKeys)) {
     return cudaErrorInvalidValue;
   }
   const int nt = (n + kRows - 1) / kRows, nkb = (n + L::kKeys - 1) / L::kKeys;
   const int items = B * H * nkb;
   kernel<<<items < sms ? items : sms, kThreads, L::kBytes, stream>>>(
-      m.q, m.k, m.v, m.g, stats, dout, dk, dv, sdo, sdk, sdv, H, n, nt, nkb, items, m.swap,
+      m.q, m.k, m.v, m.g, stats, dres, dk, dv, sres, sdk, sdv, H, n, nt, nkb, items, m.swap,
       scale);
   return cudaGetLastError();
 }
 
 }  // namespace tcb
 
-// B4 at bf16 on (B, H) pairs of n <= kMaxN rows at head width D. stats:
-// [B·H][nt][3][64] floats (nt = n rounded up to 64, over 64); with
-// have_stats it holds each row's −max·scale and 1/sum from the forward's
-// K1, else the dq pass forms and writes them. The dq pass (which adds D),
-// then the dk/dv pass. Adds one to *launches for each kernel launched;
-// returns the first cudaError_t reported.
-template <int D>
+// B4's tensor-core passes on (B, H) pairs of n <= kMaxN rows at head width
+// D, on bf16 q, k, v and g (dO), with outputs of TO: bf16 (B4 at bf16), or
+// float (B4 at f32 under "default", on rounded copies of f32 operands).
+// dres: dO for dv's "− dO" by strides sres (g itself at bf16, the f32 dO
+// at float). stats: [B·H][nt][3][64] floats (nt = n rounded up to 64, over
+// 64); with have_stats it holds each row's −max·scale and 1/sum from the
+// forward's K1, else the dq pass forms and writes them. The dq pass (which
+// adds D), then the dk/dv pass. Adds one to *launches for each kernel
+// launched; returns the first cudaError_t reported.
+template <int D, typename TO>
 inline cudaError_t launch_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                   const __nv_bfloat16* v, const __nv_bfloat16* dout,
-                                   __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
-                                   float* stats, bool have_stats, Strides sq, Strides sk,
-                                   Strides sv, Strides sdo, Strides sdq, Strides sdk, Strides sdv,
-                                   int B, int H, int n, float scale, int* launches,
-                                   cudaStream_t stream) {
+                                   const __nv_bfloat16* v, const __nv_bfloat16* g, const TO* dres,
+                                   TO* dq, TO* dk, TO* dv, float* stats, bool have_stats,
+                                   Strides sq, Strides sk, Strides sv, Strides sg, Strides sres,
+                                   Strides sdq, Strides sdk, Strides sdv, int B, int H, int n,
+                                   float scale, int* launches, cudaStream_t stream) {
   const int sms = tcb::sm_count();
   if (sms <= 0) return cudaErrorInvalidDevice;
   cudaError_t err;
-#define DQ_ARGS q, k, v, dout, stats, dq, sq, sk, sv, sdo, sdq, B, H, n, scale, sms, stream
+#define DQ_ARGS q, k, v, g, stats, dq, sq, sk, sv, sg, sdq, B, H, n, scale, sms, stream
   if (have_stats) {
-    err = n <= 128 ? tcb::launch_dq<D, 64, false>(DQ_ARGS) : tcb::launch_dq<D, 128, false>(DQ_ARGS);
+    err = n <= 128 ? tcb::launch_dq<D, 64, false, TO>(DQ_ARGS)
+                   : tcb::launch_dq<D, 128, false, TO>(DQ_ARGS);
   } else {
-    err = n <= 128 ? tcb::launch_dq<D, 64, true>(DQ_ARGS) : tcb::launch_dq<D, 128, true>(DQ_ARGS);
+    err = n <= 128 ? tcb::launch_dq<D, 64, true, TO>(DQ_ARGS)
+                   : tcb::launch_dq<D, 128, true, TO>(DQ_ARGS);
   }
 #undef DQ_ARGS
   if (err != cudaSuccess) return err;
   ++*launches;
-  err = tcb::launch_dkdv<D>(q, k, v, dout, stats, dk, dv, sq, sk, sv, sdo, sdk, sdv, B, H, n,
-                            scale, sms, stream);
+  err = tcb::launch_dkdv<D, TO>(q, k, v, g, dres, stats, dk, dv, sq, sk, sv, sg, sres, sdk, sdv, B,
+                                H, n, scale, sms, stream);
   if (err != cudaSuccess) return err;
   ++*launches;
   return cudaSuccess;

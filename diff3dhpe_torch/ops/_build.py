@@ -109,8 +109,9 @@ SIGNATURES = {
                            ("diff3dhpe_grand_attn_small_bf16", []))
     } | {
         "diff3dhpe_grand_attn_bwd_f32": (
-            [_P] * 10 + [_I] * 4               # q, k, v, dO, B3's out and statistics or NULL,
-                                               # dq, dk, dv, P/dS scratch; B, H, n, head_dim
+            [_P] * 11 + [_I] * 4               # q, k, v, dO, B3's out or NULL, the statistics,
+                                               # dq, dk, dv, P/dS scratch, bf16 planes;
+                                               # B, H, n, head_dim
             + [_L] * 24                        # (b, h, n) strides of q, k, v, dO, out, dq, dk, dv
             + [_F, _I, ctypes.POINTER(_I), _P]  # scale, f32 mode, launches, stream
         ),

@@ -290,10 +290,13 @@ def grand_attention_bwd(q, k, v, do, scale=None, matmul_precision="highest"):
 
     A CPU tensor runs the plain version. A CUDA tensor launches the
     kernels of the backward (``grand_attention_bwd.launches`` counts them,
-    ``.launches_bf16`` those at bf16) or raises: at float32 the CUDA-core
-    dq and dk/dv passes (their ``kDefault`` instances under "default"); at
-    bfloat16 the dq pass (which also forms the rows' softmax statistics)
-    and the dk/dv pass on ``wgmma``."""
+    ``.launches_bf16`` those at bf16) or raises: at float32 under
+    "highest" the CUDA-core dq and dk/dv passes; at bfloat16 the dq pass
+    (which also forms the rows' softmax statistics) and the dk/dv pass on
+    ``wgmma``; at float32 under "default" the same two passes with float32
+    outputs, after one kernel that rounds q, k and v (one for each where
+    they are not views of one qkv projection) and one that rounds do to
+    bf16."""
     _check_dtypes(q, k, v)
     session_mode(matmul_precision)
     if do.dtype != q.dtype:
@@ -328,9 +331,11 @@ class _GrandAttentionTrainable(torch.autograd.Function):
     float32 from the max, 1/sum and B3's output instead of recomputing the
     forward (its first sweep); at bfloat16 from −max·scale and 1/sum instead
     of forming them in its dq pass (the same bits either way). Under a
-    float32 "default" B4 forms them itself: its row sums D = Σ P∘dP take the
-    unrounded P, which B3's output, formed from rounded exponentials, does
-    not give."""
+    float32 "default" B4 is the bfloat16 backward's tensor-core passes on
+    bf16-rounded copies of q, k, v and do, with float32 gradients, and forms
+    the statistics itself: its row sums D = Σ P∘dP take the unrounded P,
+    which B3's output, formed from rounded exponentials, does not give, and
+    the mode forward's max and 1/sum are not those passes' bits."""
 
     @staticmethod
     def forward(ctx, q, k, v, matmul_precision):
@@ -480,16 +485,21 @@ def _launch_fwd(q, k, v, out, scale, small=False, stats=None, matmul_precision="
 def _launch_bwd(q, k, v, do, dq, dk, dv, scale, fwd=None, matmul_precision="highest"):
     """Launches B4's kernels in q's dtype; ``fwd``: what the trainable
     forward kept (float32: B3's output and the statistics its launch wrote;
-    bfloat16: the statistics) or None. At float32 the dq pass hands P and dS
-    to the dk/dv pass through a scratch of two [B·H, n64, n64] planes; at
-    bfloat16 the rows' statistics and D go from pass to pass through
-    ``_bwd_stats_bf16``'s planes, whose statistics the dq pass forms itself
-    where the forward did not leave them. ``matmul_precision``: the session
-    precision at float32 (under "default" ``fwd`` must be None)."""
+    bfloat16: the statistics) or None. At float32 under "highest" the dq
+    pass hands P and dS to the dk/dv pass through a scratch of two [B·H,
+    n64, n64] planes. At bfloat16, and at float32 under "default", the
+    tensor-core passes run: the rows' statistics and D go from pass to pass
+    through ``_bwd_stats_bf16``'s planes, whose statistics the dq pass forms
+    itself where the forward did not leave them; at float32 they run on q,
+    k, v and do rounded once into bf16 planes (one kernel for q, k and v
+    where they are views of one qkv projection, else one each, and one for
+    do). ``matmul_precision``: the session precision at float32 (under
+    "default" ``fwd`` must be None)."""
     lib, scale = _library(q, scale)
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and not scale > 0:  # as the forward: the row max is taken before the scale
-        raise ValueError(f"the bf16 attention kernels take a positive scale, got {scale}")
+    mode = session_mode(matmul_precision)
+    if (bf16 or mode == "default") and not scale > 0:  # the row max is taken before the scale
+        raise ValueError(f"the tensor-core backward takes a positive scale, got {scale}")
     q, k, v, do = (_kernel_operand(t, q) for t in (q, k, v, do))
     b, h, n, d = q.shape
     launched = ctypes.c_int(0)
@@ -505,15 +515,23 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale, fwd=None, matmul_precision="high
             )
         else:
             out, stats = (None, None) if fwd is None else (_as4d(fwd[0]), fwd[1])
-            pds = torch.empty((2, b * h, _n64(n), _n64(n)), device=q.device, dtype=torch.float32)
+            pds = planes = None
+            if mode == "default":
+                if fwd is not None:
+                    raise ValueError("B4 under 'default' forms its own statistics: fwd must be None")
+                stats = _bwd_stats_bf16(q)
+                planes = torch.empty(4 * b * n * h * d, device=q.device, dtype=torch.bfloat16)
+            else:
+                pds = torch.empty((2, b * h, _n64(n), _n64(n)), device=q.device,
+                                  dtype=torch.float32)
+            ptr = lambda t: None if t is None else t.data_ptr()
             err = lib.diff3dhpe_grand_attn_bwd_f32(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                None if out is None else out.data_ptr(), None if out is None else stats.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), pds.data_ptr(), b, h, n, d,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), ptr(out), ptr(stats),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(pds), ptr(planes), b, h, n, d,
                 *_strides(q), *_strides(k), *_strides(v), *_strides(do),
                 *(_strides(out) if out is not None else [ctypes.c_longlong(0)] * 3),
                 *_strides(dq), *_strides(dk), *_strides(dv),
-                scale, _MODE_INDEX[session_mode(matmul_precision)], ctypes.byref(launched), stream,
+                scale, _MODE_INDEX[mode], ctypes.byref(launched), stream,
             )
     grand_attention_bwd.launches += launched.value
     if bf16:

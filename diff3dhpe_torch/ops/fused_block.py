@@ -610,10 +610,11 @@ split_bf16.launches = 0
 def _gemm_wgmma_f32_ref(a_hi, a_lo, w_hi, w_lo, bias=None, epilogue="bias", res=None,
                         rscale=None):
     """Plain version of ``_gemm_wgmma_f32``: the float32 matmuls of the
-    bf16 passes summed in order, then the epilogue."""
+    bf16 passes, summed as the kernel sums them, hh + (hl + lh), then the
+    epilogue."""
     acc = F.linear(a_hi.float(), w_hi.float())
     if a_lo is not None:
-        acc = acc + F.linear(a_hi.float(), w_lo.float()) + F.linear(a_lo.float(), w_hi.float())
+        acc = acc + (F.linear(a_hi.float(), w_lo.float()) + F.linear(a_lo.float(), w_hi.float()))
     return _epilogue_ref(acc if bias is None else acc + bias, epilogue, res, rscale)
 
 
@@ -621,8 +622,9 @@ def _gemm_wgmma_f32(a_hi, a_lo, w_hi, w_lo, bias=None, epilogue="bias", res=None
     """The f32-output tensor-core GEMM of the contraction modes alone, for
     tests and measurements (the block launches the same kernel):
     epilogue(Σ_p A_p · W_pᵀ + bias) in float32 over the passes (a_hi,
-    w_hi), (a_hi, w_lo), (a_lo, w_hi) ("high3"), or (a_hi, w_hi) alone
-    with a_lo and w_lo None ("default"). a_* [M, K] and w_* [N, K]
+    w_hi) + ((a_hi, w_lo) + (a_lo, w_hi)), the cross terms in their own
+    accumulators ("high3"), or (a_hi, w_hi) alone with a_lo and w_lo None
+    ("default"). a_* [M, K] and w_* [N, K]
     bfloat16; bias [N], res [M, N] and rscale [M, 2] float32; epilogues as
     ``_gemm_f32``'s.
 
