@@ -49,7 +49,7 @@ the port's seeded init:
   3dhp   the MPI-INF-3DHP entry point, diff3dhpe_torch.cli.run_3dhp.main,
          on configs/3dhp_gt_s2s_ConditionalDiffusionMixSTES2SGRANDLinLift.json
          as it stands (27 frames, embed 512, depth 8, 8 heads, DDIM-5, eval
-         batch 512, TS1-TS6) with --synthetic data and a seed-0 .bin: the
+         batch 512; TS1, TS2 of TS1-TS6) with --synthetic data and a seed-0 .bin: the
          plain module, --fast-eval at f32, mixed and pure bf16, each with
          its per-sequence report, PCK, AUC and inference_data.mat; then
          Runner.evaluate on two full batches of 512 windows, 3 times at f32
@@ -79,6 +79,14 @@ the port's seeded init:
          and three bf16 fast-train steps at global batch 8 (4 heads,
          attn_bwd), and the f32 step exported sharded and restored in both
          ranks, each against one process;
+  tensor parallelism  the model axis of mesh_shape (diff3dhpe_torch/
+         parallel/tensor.py) with gloo ranks on the one card: at
+         "data:1,model:2" the plain module's f32 train step, the
+         use_pallas eval step (B3 and B6 on 4 local heads of 64, and on 2
+         local heads of 128) and the fused f32 and mixed evals on the
+         gathered replica, each against this process alone; at
+         "data:2,model:2" cli.run.main's training (1 epoch, a checkpoint),
+         --evaluate best_epoch and the resume in this process alone;
   modes  the f32 contraction modes "high3" and "default" of the block
          kernels (JAX's f32_contract_mode): B1, B2 and B5 at the eval
          shapes and each of their kernels alone against its plain version,
@@ -142,7 +150,14 @@ ranks on the card against one process: the gathered predictions, the
 step-1 gradients, the ranks' parameters, the launches of each rank, the
 gradient all-reduce's seconds (gloo through host memory: no multi-GPU
 figure), the sharded export), with what the profiler records before,
-between and after; 21 (printed after 2f) the contraction modes (B1, B2,
+between and after; 22 tensor parallelism: (a) two gloo ranks at
+"data:1,model:2" against one process (the train step's loss and
+gradients, the use_pallas eval at 8 and 4 heads with each rank's B3 and B6
+launches and rank 0's calls against their plain versions, the fused evals
+on the gathered replica bit for bit, seconds per step and the all-reduces'
+share), (b) four gloo ranks at "data:2,model:2" through cli.run.main
+(training, the report against --evaluate best_epoch in one process, the
+resume in one process); 21 (printed after 2f) the contraction modes (B1, B2,
 B5 and each kernel alone at "high3" and "default", the tensor-core
 attention at n = 17 and 243, 8 and 4 heads, rows and cols, with each one's
 separation r from "highest", times, bounds and library times; after 4b the
@@ -312,8 +327,17 @@ def check(cond, msg):
         raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
+# Seconds since the script started at each phase's first printed line
+# ("phase <name>"), printed before the kernels line.
+STARTED = time.perf_counter()
+PHASE_SECONDS = {}
+
+
 def say(*parts):
-    print(*parts, flush=True)
+    text = " ".join(str(p) for p in parts)
+    if text.startswith("phase "):
+        PHASE_SECONDS.setdefault(text.split()[1], round(time.perf_counter() - STARTED, 1))
+    print(text, flush=True)
 
 
 def cuda_ms(fn, iters=10, warmup=2):
@@ -543,7 +567,7 @@ def train_step_flops(b, hidden):
 THREEDHP_CONFIG = "configs/3dhp_gt_s2s_ConditionalDiffusionMixSTES2SGRANDLinLift.json"
 HE_JOINTS, F_3DHP = 15, 27  # HumanEva's joints; the 3DHP config's frames
 # Per-sequence report of cli/run_3dhp.py, and the per-action one of cli/run.py.
-REPORT_3DHP = ("----TS1----", "----TS6----", "eval_frame:", "inference_speed:",
+REPORT_3DHP = ("eval_frame:", "inference_speed:",  # and each sequence's "----TSn----"
                "Protocol #1 Error (MPJPE):", "e1 sequence-wise average:",
                "ev sequence-wise average:", "PCK@150mm:", "AUC:", "Saved raw predictions to")
 REPORT_RUN = ("eval_frame:", "inference_speed:", "Protocol #1 Error (MPJPE):",
@@ -794,7 +818,9 @@ def hold_eval_modes(phase, runs, want):
 def drive_3dhp(dev, per_call):
     """Phase 14: the MPI-INF-3DHP entry point, cli/run_3dhp.main, on the
     3DHP config as it stands (27 frames, embed 512, depth 8, 8 heads,
-    DDIM-5, eval batch 512, TS1-TS6) with --synthetic data (108 frames a
+    DDIM-5, eval batch 512) but for its test sequences, cut from TS1-TS6
+    to TS1 and TS2 (each pads to a batch of 512 windows),
+    with --synthetic data (108 frames a
     sequence: 4 windows, one padded batch) and a seed-0 .bin through
     --evaluate, as the plain module, --fast-eval at f32, mixed and pure
     bf16; then Runner.evaluate on 1,024 windows of one sequence (two full
@@ -816,7 +842,7 @@ def drive_3dhp(dev, per_call):
     config = os.path.join(here, THREEDHP_CONFIG)
     with open(config) as f:
         params = json.load(f)["params"]
-    seqs = params["subjects_test"].split(",")
+    seqs = params["subjects_test"].split(",")[:2]
     launches, inner = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         weights = os.path.join(tmp, "seed0_27f.bin")
@@ -825,9 +851,10 @@ def drive_3dhp(dev, per_call):
         for name, extra in EVAL_MODES.items():
             out_dir = os.path.join(tmp, name)
             result, d = drive(main_3dhp, ["--config", config, "--synthetic", "-c", out_dir,
-                                          "--evaluate", weights] + extra)
+                                          "--evaluate", weights, "-ste", ",".join(seqs)] + extra)
             say(f"phase 14 cli_3dhp {name}: the report\n{d['text'].rstrip()}")
-            check(all(line in d["text"] for line in REPORT_3DHP),
+            check(all(line in d["text"] for line in REPORT_3DHP + tuple(
+                f"----{q}----" for q in seqs)),
                   f"cli_3dhp {name}: a line of the report is missing")
             errs = result["errors"]
             check(all(len(v) == len(seqs) and all(math.isfinite(e) for e in v)
@@ -1738,29 +1765,7 @@ def drive_parallel(dev, per_call, per_step, card):
         world = 2
         spec = dict(root=here, rendezvous=os.path.join(tmp, "rendezvous"), world_size=world,
                     out=tmp, artifact=os.path.join(tmp, "eval_sharded.pt2"))
-        with open(os.path.join(tmp, "gloo.json"), "w") as f:
-            json.dump(spec, f)
-        t0 = time.perf_counter()
-        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(world)]
-        procs = []
-        try:
-            for r in range(world):
-                with open(logs[r], "w") as log:
-                    procs.append(subprocess.Popen(
-                        [sys.executable, "-c", GLOO_RANK, os.path.join(tmp, "gloo.json"), str(r)],
-                        cwd=here, stdout=log, stderr=subprocess.STDOUT))
-            for p in procs:
-                p.wait(timeout=900)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        ranks_s = time.perf_counter() - t0
-        for r, p in enumerate(procs):
-            with open(logs[r]) as log:
-                check(p.returncode == 0, f"phase 20b gloo rank {r} exited {p.returncode}:\n"
-                      f"{log.read()[-4000:]}")
+        ranks_s = spawn_ranks(GLOO_RANK, spec, tmp, "phase 20b gloo", 900)
         got = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                for r in range(world)]
     torch.cuda.empty_cache()
@@ -1835,6 +1840,414 @@ def drive_parallel(dev, per_call, per_step, card):
                  f"restored in both ranks bit for bit as the live step")
     say(f"phase 20b gloo, world size {world}, both ranks on cuda:0 ({card}), {ranks_s:.1f} s for "
         f"the ranks: " + "; ".join(lines))
+    return launches, inner
+
+
+# Phase 22 (a): one of two gloo ranks on the one card at "data:1,model:2".
+TP_RANK = r"""
+import json, sys
+import torch
+spec = json.load(open(sys.argv[1]))
+rank = int(sys.argv[2])
+sys.path.insert(0, spec["root"])
+import chip_smoke
+from diff3dhpe_torch.parallel import start_ranks
+world = start_ranks("cuda:0", backend="gloo", init_method="file://" + spec["rendezvous"],
+                    rank=rank, world_size=spec["world_size"], timeout=900)
+try:
+    torch.save(chip_smoke.tp_cases(world.device, world.with_model_axis(spec["world_size"])),
+               f"{spec['out']}/rank{rank}.pt")
+finally:
+    torch.distributed.destroy_process_group()
+"""
+
+# Phase 22 (b): one of four gloo ranks on the one card running cli.run.main
+# at "data:2,model:2", its launches counted as chip_smoke.drive counts them.
+TP_CLI_RANK = r"""
+import json, sys
+import torch
+spec = json.load(open(sys.argv[1]))
+rank = int(sys.argv[2])
+sys.path.insert(0, spec["root"])
+import chip_smoke
+from diff3dhpe_torch.cli.run import main
+from diff3dhpe_torch.engine.runner import Runner
+from diff3dhpe_torch.parallel import start_ranks
+start_ranks("cuda:0", backend="gloo", init_method="file://" + spec["rendezvous"], rank=rank,
+            world_size=spec["world_size"], timeout=900)
+fit, record = Runner.fit, {}
+
+def recording_fit(self, train_ds, val_ds, *args, **kwargs):
+    result = fit(self, train_ds, val_ds, *args, **kwargs)
+    record.update(mesh=repr(self.mesh), n_val=len(val_ds), seconds=result["seconds"],
+                  losses_train=result["losses_train"],
+                  batches=sum(1 for _ in train_ds.batches(self.cfg.batch_size, shuffle=True,
+                                                          drop_last=True)))
+    return result
+
+Runner.fit = recording_fit
+try:
+    errors, d = chip_smoke.drive(main, spec["argv"])
+    record.update(errors={k: [float(e) for e in v] for k, v in errors.items()},
+                  launches=d["launches"], inner=d["inner"], text=d["text"], wall_s=d["wall_s"],
+                  evals=[r["n_frames"] for r in d["records"]],
+                  model_time=[r["model_time"] for r in d["records"]])
+    torch.save(record, f"{spec['out']}/cli_rank{rank}.pt")
+finally:
+    torch.distributed.destroy_process_group()
+"""
+
+TP_TRAIN_BATCH, TP_EVAL_BATCH, TP_DEPTH4 = 4, 2, 2
+# The tensor-parallel step against one process, JAX's own bar for its
+# mesh layouts (tests/test_parallel.py:88-92): the loss to 1e-5 relative,
+# each gradient to 2e-5 of max(max|g|, 1e-3); the eval to 1e-5 absolute
+# (tests/test_parallel.py:158-159).
+TP_LOSS_TOL, TP_GRAD_TOL, TP_EVAL_ABS_TOL = 1e-5, 2e-5, 1e-5
+
+
+def timed_all_reduces(fn, *args, **kwargs):
+    """(fn's result, its wall seconds, the seconds inside the model axis's
+    all-reduces): each all-reduce synchronised before and after, so the
+    run is slower than an untimed one and the share is an upper bound."""
+    from diff3dhpe_torch.parallel import tensor
+
+    spent, all_reduce = [0.0], tensor._all_reduce
+
+    def timed(x, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(x, group)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    tensor._all_reduce = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, spent[0]
+    finally:
+        tensor._all_reduce = all_reduce
+
+
+class HeldKernel:
+    """A stand-in for an attention wrapper of ops/attention.py that holds
+    each call against ``ref`` on the call's own inputs (max |d|, relative
+    to max|ref| where ``rel``) and records it in ``errs``. The wrapper's
+    launch counter is looked up by name, so this stand-in counts the call's
+    launches and hands them to the wrapper's own."""
+
+    def __init__(self, kernel, ref, rel, errs):
+        self.kernel, self.ref, self.rel, self.errs = kernel, ref, rel, errs
+        self.launches = self.launches_bf16 = 0
+        self.__name__ = kernel.__name__
+
+    def __call__(self, q, k, v, scale=None, matmul_precision="highest"):
+        out = self.kernel(q, k, v, scale, matmul_precision)
+        self.kernel.launches += self.launches
+        if hasattr(self.kernel, "launches_bf16"):
+            self.kernel.launches_bf16 += self.launches_bf16
+        self.launches = self.launches_bf16 = 0
+        want = self.ref(q, k, v, scale, matmul_precision)
+        err = (out - want).abs().max() / (want.abs().max() if self.rel else 1.0)
+        self.errs.append(err.item())
+        return out
+
+
+@contextlib.contextmanager
+def holding_attention():
+    """Every B3 and B6 call held against its plain version on the call's
+    own inputs (``HeldKernel``): B3's max |d| relative to max|plain|, B6's
+    absolute. Yields {"B3": [errors], "B6": [errors]}."""
+    from diff3dhpe_torch.ops import attention
+
+    errs = {"B3": [], "B6": []}
+    saved = {}
+    for key, name, ref, rel in (("B3", "grand_attention_fullseq",
+                                 attention.grand_attention_fullseq_ref, True),
+                                ("B6", "packed_grand_attention",
+                                 attention.packed_grand_attention_ref, False)):
+        saved[name] = getattr(attention, name)
+        setattr(attention, name, HeldKernel(saved[name], ref, rel, errs[key]))
+    try:
+        yield errs
+    finally:
+        for name, fn in saved.items():
+            setattr(attention, name, fn)
+
+
+def tp_cases(dev, mesh=None):
+    """Phase 22 (a)'s cases on ``mesh`` (a rank at "data:1,model:2"), or with
+    ``mesh`` None in this process alone, at full width on seed-0 weights:
+    the plain module's f32 train step at global batch TP_TRAIN_BATCH
+    (drop-path, lr 4e-5; step 1 held, step 2 timed, step 3 with its
+    all-reduces timed), the use_pallas DDIM-9 flip-TTA eval at batch
+    TP_EVAL_BATCH with 8 heads and with 4 (TP_DEPTH4 deep; one run counted,
+    every B3 and B6 call held against its plain version, the all-reduces
+    timed; in one process a clean timed run besides), and the Runner's
+    fused f32 and mixed evals (on the gathered replica under the mesh).
+    Returns CPU tensors, launches and seconds."""
+    from diff3dhpe_torch import (
+        GaussianDiffusion, MixSTEDenoiser, Runner, flip_pose, make_denoise_fn, make_eval_step,
+        make_optimizer, make_train_denoise_fn, make_train_step,
+    )
+    from diff3dhpe_torch.config import Config
+    from diff3dhpe_torch.parallel import gather_params, shard_model
+
+    res = {}
+    whole = lambda d: d if mesh is None else gather_params(d, mesh)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+
+    def build(heads=HEADS, depth=DEPTH, use_pallas=False):
+        m = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=depth,
+                           num_heads=heads, mlp_ratio=MLP_RATIO, use_pallas=use_pallas, seed=0,
+                           device=dev)
+        return m if mesh is None else shard_model(m, mesh)
+
+    model = build().train()
+    dkw = dict(timesteps=TIMESTEPS, sampling_timesteps=DDIM_STEPS, clip_denoised=True,
+               clip_loss=True, beta_schedule="cosine")
+    optimizer, scheduler = make_optimizer(model.parameters(), LR, LR_DECAY, 1000)
+    step = make_train_step(GaussianDiffusion.create(make_train_denoise_fn(model, DROP_PATH),
+                                                    **dkw), optimizer, scheduler, mesh=mesh)
+    g = gen(23)
+    gt = torch.randn(TP_TRAIN_BATCH, FRAMES, JOINTS, 3, generator=g, device=dev) * 0.3
+    x2d = torch.rand(TP_TRAIN_BATCH, FRAMES, JOINTS, 2, generator=g, device=dev) * 2 - 1
+    draws = gen(24)
+    loss, launches, _ = counted(step, gt, x2d, generator=draws)
+    grads = {k: v.cpu() for k, v in whole({n: p.grad for n, p in model.named_parameters()}).items()}
+    _, step_s, reduce_s = timed_all_reduces(step, gt, x2d, generator=draws)
+    res["train"] = dict(loss=loss.item(), grads=grads, launches=launches, step_s=step_s,
+                        reduce_s=reduce_s, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del model, optimizer, scheduler, step, grads
+    torch.cuda.empty_cache()
+
+    x2d = torch.rand(TP_EVAL_BATCH, FRAMES, JOINTS, 2, generator=gen(20), device=dev) * 2 - 1
+    x2d_flip = flip_pose(x2d, JOINTS_LEFT, JOINTS_RIGHT)
+    ekw = dict(timesteps=TIMESTEPS, sampling_timesteps=DDIM_STEPS, clip_denoised=True,
+               beta_schedule="cosine")
+    for key, heads, depth in (("pallas", HEADS, DEPTH), ("pallas_d128", HEADS4, TP_DEPTH4)):
+        model = build(heads, depth, use_pallas=True).eval()
+        step = make_eval_step(GaussianDiffusion.create(make_denoise_fn(model), **ekw),
+                              JOINTS_LEFT, JOINTS_RIGHT, device=dev, mesh=mesh)
+        with holding_attention() as held:
+            (pred, launches, inner), step_s, reduce_s = timed_all_reduces(
+                counted, step, x2d, x2d_flip, generator=gen(22))
+        if mesh is None:  # one process's step without the holding
+            _, step_s, _ = timed_all_reduces(step, x2d, x2d_flip, generator=gen(22))
+        res[key] = dict(pred=pred.cpu(), launches=launches, inner=inner, step_s=step_s,
+                        reduce_s=reduce_s, held=held, heads=heads, depth=depth)
+        del model, step
+        torch.cuda.empty_cache()
+
+    x_init = torch.randn(2 * TP_EVAL_BATCH, FRAMES, JOINTS, 3, generator=gen(25), device=dev)
+    for key, fields in (("fused_f32", {}), ("fused_mixed", dict(
+            compute_dtype="bfloat16", eval_f32_final_steps=1, eval_f32_head=True))):
+        cfg = Config(number_of_frames=FRAMES, embed_dim=EMBED, transformer_depth=DEPTH,
+                     num_heads=HEADS, timesteps=TIMESTEPS, sampling_timesteps=DDIM_STEPS,
+                     batch_size_eval=TP_EVAL_BATCH, fast_eval=True, seed=0,
+                     mesh_shape=None if mesh is None else mesh.shape, **fields)
+        runner = Runner(cfg, JOINTS, JOINTS_LEFT, JOINTS_RIGHT, device=dev, mesh=mesh)
+        runner.eval_step(x2d, x2d_flip, x_init=x_init)  # warm-up
+        t0 = time.perf_counter()
+        pred, launches, inner = counted(runner.eval_step, x2d, x2d_flip, x_init=x_init)
+        res[key] = dict(pred=pred.cpu(), launches=launches, inner=inner,
+                        step_s=time.perf_counter() - t0)
+        del runner
+        torch.cuda.empty_cache()
+    return res
+
+
+def spawn_ranks(script, spec, tmp, name, timeout):
+    """Runs ``script`` in spec["world_size"] processes on the card (``python
+    -c script spec.json rank``) and waits for them; each rank's output goes
+    to a log, whose end a failed rank's check, naming ``name``, prints.
+    Returns the seconds."""
+    stem = os.path.join(tmp, name.replace(" ", "_"))
+    with open(f"{stem}.json", "w") as f:
+        json.dump(spec, f)
+    logs = [f"{stem}{r}.log" for r in range(spec["world_size"])]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r, log_path in enumerate(logs):
+            with open(log_path, "w") as log:
+                procs.append(subprocess.Popen([sys.executable, "-c", script, f"{stem}.json",
+                                               str(r)],
+                                              cwd=spec["root"], stdout=log,
+                                              stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        with open(logs[r]) as log:
+            check(p.returncode == 0, f"{name} rank {r} exited {p.returncode}:\n"
+                  f"{log.read()[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def drive_tensor_parallel(dev, per_call, card):
+    """Phase 22: tensor parallelism (diff3dhpe_torch/parallel/tensor.py),
+    the model axis of mesh_shape, with gloo ranks on the one card (NCCL
+    refuses two ranks on one device; gloo moves CUDA tensors through host
+    memory, so no figure here is a multi-GPU one). (a) Two ranks at
+    "data:1,model:2": ``tp_cases`` in each against the same cases in this
+    process alone. (b) Four ranks at "data:2,model:2": cli.run.main on
+    phase 11's command line cut to S1 and Walking (the plain module's
+    training, fast_train being refused under a model axis; fast_eval's
+    validation and evaluation on the gathered replica; global batch 8, 1
+    epoch, a checkpoint), then
+    --evaluate best_epoch and --resume epoch_0 (1 more epoch) in this
+    process alone. Returns ({path: launches}, {path: inner counts})."""
+    from diff3dhpe_torch.cli.run import main as cli_main
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    launches, inner, lines = {}, {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) data:1,model:2.
+        world = 2
+        spec = dict(root=here, rendezvous=os.path.join(tmp, "rendezvous_a"), world_size=world,
+                    out=tmp)
+        ranks_s = spawn_ranks(TP_RANK, spec, tmp, "phase 22a tp", 600)
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+               for r in range(world)]
+
+        # (b) data:2,model:2 through the CLI.
+        with open(os.path.join(here, CLI_CONFIG)) as f:
+            config = json.load(f)
+        config["params"].update(fast_eval=True)
+        ddim = config["params"]["sampling_timesteps"]
+        train_config = os.path.join(tmp, "train.json")
+        with open(train_config, "w") as f:
+            json.dump(config, f)
+        run_dir = os.path.join(tmp, "run")
+        # Cut from phase 11's S1,S5 and every action (the plain module's
+        # all-reduces through host memory cost seconds a step).
+        common = ["--config", train_config, "--synthetic", "-str", "S1", "-ste", "S9", "-a",
+                  "Walking", "-b", "8", "--batch-size-eval", "8", "--checkpoint-frequency", "1",
+                  "-c", run_dir]
+        spec = dict(root=here, rendezvous=os.path.join(tmp, "rendezvous_b"), world_size=4,
+                    out=tmp, argv=common + ["-e", "1", "--mesh-shape", "data:2,model:2"])
+        cli_s = spawn_ranks(TP_CLI_RANK, spec, tmp, "phase 22b tp_cli", 600)
+        cli = [torch.load(os.path.join(tmp, f"cli_rank{r}.pt"), weights_only=False)
+               for r in range(4)]
+        single, d = drive(cli_main, common + ["--evaluate", "best_epoch"])
+        shutil.copytree(os.path.join(run_dir, "epoch_0"), os.path.join(run_dir, "resume_from"))
+        resumed, dr = drive(cli_main, common + ["-e", "2", "--resume", "resume_from"])
+    torch.cuda.empty_cache()
+    profiler_probe("after phase 22's gloo ranks")
+    ref = tp_cases(dev)
+
+    # (a) against this process alone.
+    t0, t1 = got[0]["train"], got[1]["train"]
+    loss_rel = abs(t0["loss"] - ref["train"]["loss"]) / abs(ref["train"]["loss"])
+    grad_err = max(((t0["grads"][n] - g).abs().max() / max(g.abs().max().item(), 1e-3)).item()
+                   for n, g in ref["train"]["grads"].items())
+    check(t0["loss"] == t1["loss"] and all(torch.equal(t0["grads"][n], t1["grads"][n])
+                                           for n in t0["grads"]),
+          "phase 22a train: the ranks' losses or gathered gradients differ")
+    check(math.isfinite(t0["loss"]) and loss_rel <= TP_LOSS_TOL and grad_err <= TP_GRAD_TOL,
+          f"phase 22a train: loss rel {loss_rel:.3e} (tol {TP_LOSS_TOL}), gradients "
+          f"{grad_err:.3e} of max(|g|, 1e-3) (tol {TP_GRAD_TOL}) from one process")
+    for r in range(world):
+        check(not any(got[r]["train"]["launches"].values()), f"phase 22a train rank {r}: the "
+              f"plain module launched {got[r]['train']['launches']}")
+    lines.append(
+        f"train step (plain module, f32, global batch {TP_TRAIN_BATCH}, drop-path {DROP_PATH}) vs "
+        f"one process: loss rel {loss_rel:.3e}, gradients {grad_err:.3e} of max(|g|, 1e-3); "
+        f"step_s per rank (each all-reduce synchronised) "
+        f"{[round(g['train']['step_s'], 3) for g in got]} (one process "
+        f"{ref['train']['step_s']:.3f}), of it in the all-reduces "
+        f"{[round(g['train']['reduce_s'], 3) for g in got]} s (share "
+        f"{[round(g['train']['reduce_s'] / g['train']['step_s'], 3) for g in got]}); peak "
+        f"GB per rank {[round(g['train']['peak_gb'], 2) for g in got]}")
+    for key in ("pallas", "pallas_d128"):
+        p0, want = got[0][key], ref[key]
+        depth = p0["depth"]
+        per_kernel = DDIM_STEPS * depth
+        abs_err = (p0["pred"] - want["pred"]).abs().max().item()
+        check(torch.equal(p0["pred"], got[1][key]["pred"]),
+              f"phase 22a {key}: the ranks' predictions differ")
+        check(torch.isfinite(p0["pred"]).all().item() and abs_err <= TP_EVAL_ABS_TOL,
+              f"phase 22a {key} eval vs one process: max |d| {abs_err:.3e} (tol {TP_EVAL_ABS_TOL})")
+        for r in range(world):
+            n = got[r][key]["launches"]
+            check(n["grand_attention_fullseq"] == n["packed_grand_attention"] == per_kernel
+                  and n == want["launches"], f"phase 22a {key} rank {r}: launches {n}, expected "
+                  f"B3 = B6 = {per_kernel} as one process's {want['launches']}")
+            launches[f"tp_{key}_eval_rank{r}"] = n
+            inner[f"tp_{key}_eval_rank{r}"] = got[r][key]["inner"]
+        for k, tol in (("B3", KERNEL_REL_TOL), ("B6", SMALL_ATTN_ABS_TOL)):
+            errs = p0["held"][k]
+            check(len(errs) == per_kernel and max(errs) <= tol, f"phase 22a {key} rank 0: {k} "
+                  f"calls held {len(errs)} (expected {per_kernel}), max err {max(errs):.3e} "
+                  f"(tol {tol})")
+        lines.append(
+            f"use_pallas eval ({p0['heads']} heads, depth {depth}: {p0['heads'] // world} local "
+            f"heads of {EMBED // p0['heads']}, DDIM-{DDIM_STEPS}, flip-TTA, batch "
+            f"{TP_EVAL_BATCH}) vs one process: max |d| {abs_err:.3e}; launches per rank B3 "
+            f"{per_kernel}, B6 {per_kernel}; rank 0's calls vs plain: B3 max rel "
+            f"{max(p0['held']['B3']):.3e}, B6 max abs {max(p0['held']['B6']):.3e}; step_s per "
+            f"rank (the calls held, each all-reduce synchronised) "
+            f"{[round(g[key]['step_s'], 3) for g in got]} (one process "
+            f"{want['step_s']:.3f}), all-reduce share "
+            f"{[round(g[key]['reduce_s'] / g[key]['step_s'], 3) for g in got]}")
+    for key in ("fused_f32", "fused_mixed"):
+        same = all(torch.equal(g[key]["pred"], ref[key]["pred"]) for g in got)
+        check(same, f"phase 22a {key}: the gathered replica's eval is not bit for bit this "
+              f"process's (max |d| {(got[0][key]['pred'] - ref[key]['pred']).abs().max():.3e})")
+        for r in range(world):
+            check(got[r][key]["launches"] == ref[key]["launches"], f"phase 22a {key} rank {r}: "
+                  f"launches {got[r][key]['launches']}, one process {ref[key]['launches']}")
+            launches[f"tp_{key}_eval_rank{r}"] = got[r][key]["launches"]
+            inner[f"tp_{key}_eval_rank{r}"] = got[r][key]["inner"]
+        lines.append(f"{key} eval on the gathered replica: bit for bit one process's, B1 "
+                     f"{got[0][key]['launches']['fused_transformer_block']} launches a rank, "
+                     f"step_s per rank {[round(g[key]['step_s'], 3) for g in got]}")
+
+    # (b) four ranks through the CLI.
+    c0 = cli[0]
+    check(c0["mesh"] == "DataMesh(rank=0, size=4, backend='gloo', device='cuda:0', data=0/2, "
+          "model=0/2)", f"phase 22b ran as {c0['mesh']}")
+    report_dev = max(abs(a - b) for k in ("e1", "e2", "e3", "ev")
+                     for a, b in zip(single[k], c0["errors"][k], strict=True))
+    check(report_dev <= EVAL_REPORT_TOL_MM, f"phase 22b: --evaluate best_epoch in one process "
+          f"deviates from the four ranks' report by {report_dev:.3e} mm")
+    check(all(c["errors"] == c0["errors"] and c["launches"] == c0["launches"] for c in cli),
+          "phase 22b: the ranks' reports or launches differ")
+    check("Protocol #1   (MPJPE) action-wise average:" in c0["text"]
+          and all(c["text"].strip().startswith("INFO: mesh data:2,model:2") for c in cli[1:]),
+          "phase 22b: rank 0 alone prints the report")
+    fwd_b1 = 2 * DEPTH * per_call
+    zero_steps = dict(fused_transformer_block=0, grand_attention_fullseq=0, grand_attention_bwd=0,
+                      packed_grand_attention=0)
+    want = want_fit({k: 0 for k in c0["launches"]}, zero_steps, fwd_b1, ddim, 8, c0["batches"],
+                    c0["n_val"], 1, c0["evals"])
+    want["plain_attention_calls"] += c0["batches"] * 2 * DEPTH  # the plain module's training
+    check(c0["launches"] == want, f"phase 22b launched {c0['launches']}, expected {want}")
+    check(all(math.isfinite(v) for v in resumed["e1"]) and "Resumed from" in dr["text"],
+          "phase 22b: the resume in one process")
+    for r, c in enumerate(cli):
+        launches[f"tp_cli_fit_rank{r}"], inner[f"tp_cli_fit_rank{r}"] = c["launches"], c["inner"]
+    steps = c0["batches"]
+    lines.append(
+        f"cli.run.main at data:2,model:2 on {CLI_CONFIG} (S1, Walking; plain module training, "
+        f"fast_eval on the replica, global batch 8, {steps} steps): train loss {c0['losses_train']}, train s a "
+        f"step per rank {[round(c['seconds'][0]['train'] / steps, 3) for c in cli]}, validation "
+        f"s {[round(c['seconds'][0]['validate'], 2) for c in cli]}, evaluate model s "
+        f"{[round(sum(c['model_time']), 2) for c in cli]}; --evaluate best_epoch in one process: "
+        f"max |d| {report_dev:.3e} mm; resumed in one process for epoch 1: report MPJPE "
+        f"{[round(e, 3) for e in resumed['e1']][:3]}...; B1 launches a rank "
+        f"{c0['launches']['fused_transformer_block']} as counted; {cli_s:.1f} s for the ranks")
+    say(f"phase 22 tensor parallelism, gloo ranks on cuda:0 ({card}; gloo moves the all-reduces "
+        f"through host memory: no multi-GPU or NVLink figure), (a) data:1,model:2 in "
+        f"{ranks_s:.1f} s: " + "; ".join(lines))
     return launches, inner
 
 
@@ -2216,8 +2629,10 @@ def drive_session_default(dev, card, peaks):
             # MODE_DEFAULT_MAX_TOL at d = 128 (PERF.md, ROADMAP C.14). So
             # the max bar holds B4 against b4_default_exact, the plain
             # formulas with S and dP summed exactly; the mean and r bars
-            # hold it against both; the max from the plain version is
-            # printed beside the plain version's own from the oracle.
+            # hold it against both; the max from the plain version is held
+            # at MODE_DEFAULT_MAX_TOL + px, px the plain version's own max
+            # from the oracle at the same draws (the triangle inequality:
+            # a fault that shows only against the plain version fails).
             got = grand_attention_bwd(q, k, v, do, **prec)
             plain, highest = grand_attention_bwd_ref(q, k, v, do, **prec), \
                 grand_attention_bwd_ref(q, k, v, do)
@@ -2225,6 +2640,10 @@ def drive_session_default(dev, card, peaks):
             exact = b4_default_exact(q, k, v, do)
             rx = hold(f"B4 d={d} from the exact-sum oracle", got, exact, highest)
             px = max(bf16_errs(a, b)[1] for a, b in zip(plain, exact))
+            plain_bar = MODE_DEFAULT_MAX_TOL + px
+            check(r["rel"] <= plain_bar, f"phase 21b B4 d={d} at default: max rel {r['rel']:.3e} "
+                  f"from the plain version > {plain_bar:.3e} (MODE_DEFAULT_MAX_TOL + the plain "
+                  f"version's own {px:.3e} from the exact-sum oracle)")
             del plain, highest, exact
             held_launches[1] += 4
             # Scratch beyond inputs and outputs: the CUDA-core passes' P and
@@ -2245,7 +2664,8 @@ def drive_session_default(dev, card, peaks):
                 10 * g * n * n * d, 7 * 4 * elems, 4)
             lines[-1] += (f"; from the exact-sum oracle rel={rx['rel']:.3e} (tol "
                           f"{MODE_DEFAULT_MAX_TOL}) mean_rel={rx['mean_rel']:.3e} r={rx['r']:.4f}"
-                          f", the plain version's own rel={px:.3e}")
+                          f", the plain version's own rel={px:.3e}; from the plain version "
+                          f"rel={r['rel']:.3e} (bar {plain_bar:.3e})")
             lines[-1] += (f"; launches 4 (2 roundings, 2 passes); scratch "
                           f"{r['scratch_bytes'] / 1e9:.3f} GB (the CUDA-core path's P and dS: "
                           f"{r['scratch_bytes_before'] / 1e9:.3f} GB)")
@@ -4489,6 +4909,11 @@ def main():
     profiler_probe("after phase 20")
     cli_launches.update(launches)
     inner_by_path.update(inner_counts)
+    # Phase 22: tensor parallelism, gloo ranks on the card.
+    launches, inner_counts = drive_tensor_parallel(dev, per_call, card)
+    profiler_probe("after phase 22")
+    cli_launches.update(launches)
+    inner_by_path.update(inner_counts)
 
     # One entry per kernel. B1's work is one spatial + one temporal call at
     # the eval shape, the pair each depth level of a forward runs (f32, and
@@ -4680,6 +5105,8 @@ def main():
           and entries[5]["bf16"]["launches"] > 0 and entries[3]["bf16"]["launches"] > 0,
           f"a kernel was launched no time: { {e['name']: e['launches'] for e in entries} }, "
           f"f32 GEMM {gemm_part['launches']}, LN {ln_part['launches']}")
+    say(f"seconds since the start at each phase's first line: {PHASE_SECONDS}; now "
+        f"{time.perf_counter() - STARTED:.1f}")
     say(f"profiler: {len(PROFILER_FALLBACKS)} device_ms calls timed with CUDA events "
         f"instead (after profiler sessions {PROFILER_FALLBACKS}) of {PROFILES[0]} sessions")
     say(json.dumps({"kernels": entries}))

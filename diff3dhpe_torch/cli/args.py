@@ -67,8 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     # Extensions of the JAX package, kept flag for flag
     parser.add_argument("--mesh-shape", type=str, default=None,
-                        help="data-parallel ranks, 'data:N' with N the number of processes "
-                             "torchrun starts (a 'model' axis is not ported)")
+                        help="the ranks' layout, 'data:N' or 'data:N,model:M' (M-way tensor "
+                             "parallelism), with N*M the number of processes torchrun starts")
     parser.add_argument("--matmul-precision", type=str, default=None,
                         choices=["highest", "default", "bfloat16"],
                         help="the session precision of the float32 products outside the fused "

@@ -22,7 +22,9 @@ only "cpu" and "cuda" (a ValueError names the flag otherwise).
 ``--export-sharded`` exports a data-parallel run's
 per-rank step (``io.export``): run the command under ``torchrun
 --nproc-per-node N ... --mesh-shape data:N``, with ``--export-batch-size``
-the global batch; rank 0 writes the file.
+the global batch; rank 0 writes the file. Under ``--mesh-shape
+data:N,model:M`` with M > 1 the command exports the whole step from the
+gathered weights, and ``--export-sharded`` raises (ROADMAP A.15).
 """
 from __future__ import annotations
 

@@ -19,13 +19,18 @@ loads every parameter whose name and shape match (the reference's
 
 Runs on the CUDA device; ``main(argv, device="cpu")`` runs the plain
 PyTorch path on the CPU. Data parallel across N processes (``--mesh-shape
-data:N``; the batch sizes are global, split over the ranks):
+data:N``; the batch sizes are global, split over the data ranks), and with
+a ``model`` axis of M tensor parallel too, on N·M processes (``--mesh-shape
+data:N,model:M``; the plain module's blocks split over each model group's
+M ranks, ``parallel.tensor``):
 
     torchrun --nproc-per-node N -m diff3dhpe_torch.cli.run --mesh-shape data:N ...
+    torchrun --nproc-per-node N*M -m diff3dhpe_torch.cli.run --mesh-shape data:N,model:M ...
 
 (``python -m torch.distributed.run`` is the same launcher); each rank runs
 on ``cuda:LOCAL_RANK`` over ``nccl`` (on the CPU, ``device="cpu"``, over
-``gloo``), and only rank 0 writes the run's files and prints its report. A
+``gloo``; several ranks on one card take ``gloo`` too, as NCCL refuses
+them), and only rank 0 writes the run's files and prints its report. A
 process that already belongs to a process group runs as its rank
 (``parallel.entry_ranks``). The ``Params | FLOPs/forward`` line counts FLOPs
 by formula (``utils.profiling.denoiser_matmul_flops``) where JAX asks XLA's
@@ -79,10 +84,15 @@ def rank_print(mesh):
 
 
 def describe_ranks(mesh, device):
-    """The INFO line naming the device, and in a data-parallel run the world
-    size, the backend and this rank."""
+    """The INFO line naming the device, and in a run across processes the
+    world size, the backend and this rank; under a model axis > 1 both
+    axes and this rank's place on each."""
     if mesh is None:
         return f"INFO: device: {device}"
+    if mesh.model_size > 1:
+        return (f"INFO: mesh data:{mesh.data_size},model:{mesh.model_size} (data parallel x "
+                f"tensor parallel): world size {mesh.size}, backend {mesh.backend}, rank "
+                f"{mesh.rank} (data {mesh.data_rank}, model {mesh.model_rank}) on device {device}")
     return (f"INFO: data parallel: world size {mesh.size}, backend {mesh.backend}, rank "
             f"{mesh.rank} on device {device}")
 
@@ -178,7 +188,7 @@ def _main(argv, device, mesh):
         f"Dataset: {cfg.dataset},\nModel: {cfg.model}\n\nparams={cfg}\n\n\n"
         f"Total Parameters: {n_params}\n\n"
     )
-    print(describe_ranks(mesh, runner.device))
+    print(describe_ranks(runner.mesh, runner.device))
 
     # ------------------------------------------------------------------
     # Optional weight loading (reference .bin or the port's checkpoint dir)
@@ -192,7 +202,7 @@ def _main(argv, device, mesh):
         say(f"Loaded checkpoint {path}")
     elif cfg.pretrained_model:
         merged, matched, discarded = load_matching_params(
-            runner.model.state_dict(), load_weights(cfg.pretrained_model, "pretrained_model"))
+            runner.full_state_dict(), load_weights(cfg.pretrained_model, "pretrained_model"))
         runner.set_params(merged)
         say(f"Loaded checkpoint {cfg.pretrained_model}: {len(matched)} parameters, "
               f"{len(discarded)} discarded {discarded}")

@@ -16,10 +16,11 @@ Checkpoints as ``cli/run.py`` takes them: a reference ``.bin`` file or a
 checkpoint directory the port wrote (a name that does not exist as given
 is looked up under ``--checkpoint``). Runs on the CUDA device;
 ``main(argv, device="cpu")`` runs the plain PyTorch path on the CPU. Data
-parallel across N processes as ``cli/run.py`` is (``torchrun
---nproc-per-node N -m diff3dhpe_torch.cli.run_3dhp --mesh-shape data:N
-...``): only rank 0 writes the run's files and ``inference_data.mat`` and
-prints the report.
+parallel across N processes, and tensor parallel on N·M, as ``cli/run.py``
+is (``torchrun --nproc-per-node N -m diff3dhpe_torch.cli.run_3dhp
+--mesh-shape data:N ...``, or ``--nproc-per-node N*M ... --mesh-shape
+data:N,model:M``): only rank 0 writes the run's files and
+``inference_data.mat`` and prints the report.
 
 Note on units: the 3DHP arrays are in millimetres (the reference's 3DHP
 MPJPE prints are mm without the x1000 used for H3.6M, run_3dhp.py:561-568).
@@ -91,7 +92,7 @@ def _main(argv, device, mesh):
         f"Total Parameters: {n_params}\n\n"
     )
     say(f"INFO: Trainable parameter count: {n_params}")
-    print(describe_ranks(mesh, runner.device))
+    print(describe_ranks(runner.mesh, runner.device))
 
     def resolve(name):
         return os.path.join(cfg.checkpoint, name) if not os.path.exists(name) else name
@@ -108,7 +109,7 @@ def _main(argv, device, mesh):
         say(f"Loaded checkpoint {path}")
     elif cfg.pretrained_model:
         merged, matched, discarded = load_matching_params(
-            runner.model.state_dict(), load_weights(cfg.pretrained_model, "pretrained_model"))
+            runner.full_state_dict(), load_weights(cfg.pretrained_model, "pretrained_model"))
         runner.set_params(merged)
         say(f"Loaded checkpoint {cfg.pretrained_model}: {len(matched)} parameters, "
               f"{len(discarded)} discarded {discarded}")

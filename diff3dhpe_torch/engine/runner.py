@@ -43,7 +43,17 @@ from diff3dhpe_torch.models import HPE_model
 from diff3dhpe_torch.ops.attention import HEAD_DIMS
 from diff3dhpe_torch.ops.fused_block import F32_MODES, LN_MAX_C
 from diff3dhpe_torch.ops.matmul_precision import check_matmul_precision
-from diff3dhpe_torch.parallel import check_mesh_shape
+from diff3dhpe_torch.parallel import check_mesh_shape, parse_mesh_shape
+from diff3dhpe_torch.parallel.tensor import (
+    check_divisible,
+    check_params_replicated,
+    full_param_count,
+    gather_optimizer_state,
+    gather_params,
+    shard_model,
+    shard_optimizer_state,
+    shard_params,
+)
 
 
 class RunLogger:
@@ -89,9 +99,11 @@ def _refuse(cfg, field, why):
 def check_supported(cfg: Config, device="cpu", world_size: int = 1) -> None:
     """Raises ValueError, naming the field, for a configuration the JAX
     package runs and the port does not yet, or that this run's
-    ``world_size`` ranks cannot take: ``mesh_shape`` must be "data:N" with
-    N = ``world_size`` (or unset); a ``model`` axis > 1, tensor
-    parallelism, is not ported (ROADMAP A.12). On a CUDA ``device`` also for a
+    ``world_size`` ranks cannot take: ``mesh_shape`` "data:N,model:M" must
+    have N·M = ``world_size`` ranks (unset: "data:``world_size``"), and a
+    ``model`` axis M > 1 (tensor parallelism) must divide ``num_heads`` and
+    the MLP's hidden width (the ValueError names ``num_heads`` or
+    ``mlp_ratio``, and ``mesh_shape``). On a CUDA ``device`` also for a
     head width that the kernels of the configured path do not take: they
     take head_dim 64 and 128 (float32 and bf16); and, with ``fast_eval``,
     for an ``embed_dim`` wider than the block's LayerNorm kernel holds
@@ -105,6 +117,10 @@ def check_supported(cfg: Config, device="cpu", world_size: int = 1) -> None:
     evaluation with it computes what one without it computes."""
     refuse = lambda field, why: _refuse(cfg, field, why)
     check_mesh_shape(cfg.mesh_shape, world_size)
+    model_axis = _model_axis(cfg, world_size)
+    if model_axis > 1:
+        check_divisible(cfg.num_heads, int(cfg.embed_dim * cfg.mlp_ratio), model_axis,
+                        cfg.mesh_shape)
     check_matmul_precision(cfg.matmul_precision)
     bf16 = cfg.compute_dtype == "bfloat16"
     if cfg.compute_dtype not in ("float32", "bfloat16"):
@@ -125,6 +141,10 @@ def check_supported(cfg: Config, device="cpu", world_size: int = 1) -> None:
         if cfg.embed_dim > widest:
             refuse("embed_dim", f"the CUDA LayerNorm of the fused blocks takes rows of up to "
                    f"{widest} at this path's dtypes")
+
+
+def _model_axis(cfg, world_size):
+    return parse_mesh_shape(cfg.mesh_shape, world_size)["model"]
 
 
 def _check_head_dim(cfg):
@@ -180,8 +200,17 @@ def check_trainable(cfg: Config, device="cpu", world_size: int = 1) -> None:
     kernels do not take (64, 128) and an ``embed_dim`` wider than the
     LayerNorm kernel holds at the training dtype. bfloat16 training,
     ``remat`` (both modes) and the monolithic backward
-    (``fast_train_pair_vjp=False``) train."""
+    (``fast_train_pair_vjp=False``) train. ``fast_train`` under a
+    ``mesh_shape`` with a ``model`` axis > 1: the fused forward holds whole
+    weights (JAX raises at a data axis > 1 too, engine/steps.py:238-246,
+    and at data 1 trains on replicas that XLA gathers; the port refuses
+    both)."""
     check_supported(cfg, device, world_size)
+    if cfg.fast_train and _model_axis(cfg, world_size) > 1:
+        raise ValueError(f"fast_train=True is not ported under mesh_shape={cfg.mesh_shape!r}: "
+                         f"the fused training forward runs whole weights, and a model axis "
+                         f"shards them; train the plain module (fast_train off) or use a "
+                         f"data-only mesh")
     if cfg.use_pallas_attention and not cfg.fast_train:
         _refuse(cfg, "use_pallas_attention", "its attention kernels have no backward; train "
                 "with fast_train (and fast_train_attn_bwd for the attention backward kernels)")
@@ -222,19 +251,29 @@ class Runner:
     back. ``check_supported`` lists what is refused, ``check_trainable``
     what ``fit`` refuses besides.
 
-    ``mesh``: a ``parallel.DataMesh``, this process's rank of a
-    data-parallel run; the runner then runs on ``mesh.device``, its steps
+    ``mesh``: a ``parallel.DataMesh``, this process's rank of a run across
+    processes, laid out by ``cfg.mesh_shape`` (the runner's ``mesh`` has
+    its model axis); the runner then runs on ``mesh.device``, its steps
     take the global batches (``cfg.batch_size``, ``cfg.batch_size_eval``)
-    and each rank runs its rows (``engine.steps``), and only rank 0 writes
-    checkpoints and logs and prints (the other ranks' default logger
-    neither writes nor prints)."""
+    and each data rank runs its rows (``engine.steps``), and only rank 0
+    writes checkpoints and logs and prints (the other ranks' default logger
+    neither writes nor prints). Under a ``model`` axis > 1 (tensor
+    parallelism, ``parallel.tensor``) ``model`` holds the rank's shards
+    and the plain module's train, val and eval steps run on them; the
+    fused eval runs on a whole replica, ``full_model()``, rebuilt from
+    the gathered weights before each validation and evaluation (JAX's
+    ``shard_map`` with ``P()`` parameters); ``set_params`` and the
+    checkpoints take and write whole state dicts."""
 
     def __init__(self, cfg: Config, num_joints: int, joints_left, joints_right,
                  logger: Optional[RunLogger] = None, device="cuda", mesh=None):
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None else mesh.device)
         check_supported(cfg, self.device, self.world_size)
+        if mesh is not None:
+            self.mesh = mesh.with_model_axis(_model_axis(cfg, mesh.size))
         self.cfg = cfg
+        self._replica = None
         self.num_joints = num_joints
         self.joints_left = list(joints_left)
         self.joints_right = list(joints_right)
@@ -255,6 +294,8 @@ class Runner:
             remat_blocks=cfg.remat and cfg.remat_mode == "block",
         )
         self.model = HPE_model(cfg.model)(**self._model_kw, seed=cfg.seed, device=self.device)
+        if self.tp:
+            shard_model(self.model, self.mesh)
         prec = cfg.matmul_precision
         self.diffusion = GaussianDiffusion.create(
             make_denoise_fn(self.model, prec),
@@ -283,7 +324,8 @@ class Runner:
         model's current weights (a bf16 denoise_fn holds a snapshot of
         them, so this runs again whenever the weights are replaced)."""
         cfg = self.cfg
-        self.eval_diffusion = eval_diffusion(cfg, self.diffusion, self.model)
+        model = self.full_model() if cfg.fast_eval else self.model
+        self.eval_diffusion = eval_diffusion(cfg, self.diffusion, model)
         self.eval_step = make_eval_step(
             self.eval_diffusion, self.joints_left, self.joints_right,
             repeat_n=cfg.repeat_n, tta=cfg.test_time_augmentation, device=self.device,
@@ -298,6 +340,30 @@ class Runner:
     @property
     def world_size(self) -> int:
         return 1 if self.mesh is None else self.mesh.size
+
+    @property
+    def tp(self) -> bool:
+        """Whether the module is sharded over a model axis > 1."""
+        return self.mesh is not None and self.mesh.model_size > 1
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The module's whole state dict under the reference's names: its
+        own, or under tensor parallelism its shards gathered (collective:
+        every rank calls it)."""
+        state = self.model.state_dict()
+        return gather_params(state, self.mesh) if self.tp else state
+
+    def full_model(self):
+        """The whole module: ``model``, or under tensor parallelism a
+        replica loaded with the gathered weights as they are now
+        (collective)."""
+        if not self.tp:
+            return self.model
+        if self._replica is None:
+            self._replica = HPE_model(self.cfg.model)(
+                **self._model_kw, seed=self.cfg.seed, device=self.device).eval()
+        self._replica.load_state_dict(self.full_state_dict(), strict=True)
+        return self._replica
 
     @property
     def is_main(self) -> bool:
@@ -318,13 +384,16 @@ class Runner:
         if "fusion_layer" in params:  # the flax tree's top level
             params = state_dict_from_flax(
                 params, self.cfg.transformer_depth, self.cfg.with_time_emb, self.model.mode)
+        if self.tp:
+            params = shard_params(params, self.mesh)
         self.model.load_state_dict(params, strict=True)
         if self.mesh is not None:
-            self.mesh.check_replicated(self.model.parameters())
+            check_params_replicated(self.model, self.mesh)
         self._build_eval()
 
     def param_count(self) -> int:
-        return sum(p.numel() for p in self.model.parameters())
+        """The parameters of the whole module (under tensor parallelism too)."""
+        return full_param_count(self.model, self.mesh)
 
     def _to_device(self, value):
         """Arrays (and tuples of them, and dicts of those) as tensors on the
@@ -372,10 +441,13 @@ class Runner:
         In a data-parallel run (``mesh``) every rank iterates the same
         global batches (the same ``shuffle_rng``) and runs its rows of each;
         the ranks must start from the same weights (checked, after a
-        resume too). Only rank 0 writes checkpoints, logs and the curve, and
-        every rank waits at a barrier after each checkpoint; a checkpoint is
-        the same state dict at any world size, so it resumes or evaluates at
-        another. The stop on ``max_time`` is rank 0's.
+        resume too; under tensor parallelism the replicated parameters on
+        every rank, the shards across the data group). Only rank 0 writes
+        checkpoints, logs and the curve, and every rank waits at a barrier
+        after each checkpoint; a checkpoint is the same whole state dict
+        (the model's and AdamW's moments gathered) at any world size and
+        mesh, so it resumes or evaluates under another. The stop on
+        ``max_time`` is rank 0's.
 
         Returns dict(losses_train, losses_valid (MPJPE in m), best_epoch,
         min_loss (mm), best_path (None without a best checkpoint), seconds:
@@ -394,10 +466,15 @@ class Runner:
         min_train_loss = np.inf
         curr_step = 0
 
+        names = [n for n, _ in self.model.named_parameters()]
         if resume:
             state, meta = restore_checkpoint(resume, field="resume")
-            self.model.load_state_dict(state["model_diffusion"], strict=True)
-            optimizer.load_state_dict(state["optimizer"])
+            model_state, opt_state = state["model_diffusion"], state["optimizer"]
+            if self.tp:
+                model_state = shard_params(model_state, self.mesh)
+                opt_state = shard_optimizer_state(opt_state, names, self.mesh)
+            self.model.load_state_dict(model_state, strict=True)
+            optimizer.load_state_dict(opt_state)
             scheduler.load_state_dict(state["lr_scheduler"])
             epoch = meta["epoch"] + 1
             best_epoch = meta.get("best_epoch", 0)
@@ -407,7 +484,7 @@ class Runner:
                 train_ds.shuffle_rng = rng_state_from_json(meta["shuffle_rng_state"])
             log.log(f"Resumed from {resume} at epoch {epoch}\n")
         if self.mesh is not None:
-            self.mesh.check_replicated(self.model.parameters())
+            check_params_replicated(self.model, self.mesh)
 
         losses_train: List[float] = []
         losses_valid: List[float] = []
@@ -416,9 +493,14 @@ class Runner:
         best_path = os.path.join(cfg.checkpoint, "best_epoch")
 
         def save(path):
+            # Under tensor parallelism every rank gathers, rank 0 writes.
+            opt_state = optimizer.state_dict()
+            if self.tp:
+                opt_state = gather_optimizer_state(opt_state, names, self.mesh)
+            model_state = self.full_state_dict()
             if self.is_main:
                 save_checkpoint(path, dict(
-                    model_diffusion=self.model.state_dict(), optimizer=optimizer.state_dict(),
+                    model_diffusion=model_state, optimizer=opt_state,
                     lr_scheduler=scheduler.state_dict(), step=scheduler.last_epoch), meta)
             if self.mesh is not None:
                 self.mesh.barrier()
@@ -579,6 +661,8 @@ class Runner:
         cfg = self.cfg
         log = self.logger
         self.model.eval()
+        if self.tp and cfg.fast_eval:
+            self._build_eval()  # the replica from the weights as they are now
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         e1_sum = e2_sum = e3_sum = ev_sum = 0.0

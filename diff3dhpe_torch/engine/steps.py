@@ -17,7 +17,10 @@ Each factory takes ``mesh``, a ``parallel.DataMesh`` (JAX: the mesh's
 single-process step. With one, the step takes the global batch, and every
 rank draws what the single process draws (t, noise, drop-path scales, x_T,
 the per-step noise) for the global batch, in the same order, then keeps
-its rows: the step computes the same thing at every world size. JAX's
+its rows: the step computes the same thing at every world size. Under a
+``model`` axis (``parallel.tensor``) the rows are the data rank's, which
+the ranks of one model group compute together, and the sums and gathers
+run over the data group. JAX's
 ``shard_map`` fast train draws per shard instead (``fold_in(key,
 axis_index)``); tests reproduce that by injecting its draws.
 
@@ -221,10 +224,10 @@ def make_train_step(diffusion: GaussianDiffusion, optimizer, scheduler=None, mes
     they are not given.
 
     With ``mesh``: the inputs and the draws (given or drawn) are those of
-    the global batch, which must divide the ranks (else a ValueError, "does
-    not divide"); each rank runs its rows (``DataMesh.rows``; the
+    the global batch, which must divide the data ranks (else a ValueError,
+    "does not divide"); each rank runs its rows (``DataMesh.rows``; the
     drop-path scales [depth, B, ...] on their axis 1), then the gradients
-    and the loss are averaged over the ranks after the backward in one
+    and the loss are averaged over the data ranks after the backward in one
     all-reduce (JAX's ``pmean``), and every rank takes the same AdamW step.
     The gradients are averaged explicitly: the fused train forward is no
     module ``forward``, so a ``DistributedDataParallel`` wrapper would

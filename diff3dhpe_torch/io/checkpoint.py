@@ -20,7 +20,10 @@ denoiser's state dict under the reference's names), ``optimizer``,
 ``lr_scheduler`` and ``step``. Where JAX keeps params and optimizer state in
 orbax, the port keeps torch's; because the weights sit under
 ``model_diffusion``, JAX's ``load_torch_model_params`` reads the file as it
-reads a reference ``.bin``.
+reads a reference ``.bin``. The file holds the whole module at any mesh:
+a tensor-parallel run gathers its shards (and AdamW's moments) before rank
+0 writes, and shards what it restores (``engine.runner.Runner.fit``), as
+JAX's checkpoints hold global arrays.
 """
 from __future__ import annotations
 

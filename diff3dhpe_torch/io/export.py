@@ -38,6 +38,13 @@ metadata records N and the global batch B. Restored in an N-rank run
 runs the rank's rows and gathers the prediction in global order on every
 rank; restored with another number of ranks, or in one process, it raises
 a ValueError naming both sizes (``jax.export``'s ``nr_devices`` check).
+
+From a tensor-parallel runner (a ``mesh_shape`` with a ``model`` axis > 1)
+the one-process export traces the whole module, loaded with the gathered
+weights (JAX's default ``sharded=False``, :74-81), so the artifact is
+the one a single process exports; ``sharded=True`` there raises a
+ValueError naming ``mesh_shape`` (the per-rank step of a tensor-parallel
+run is not ported, ROADMAP A.15).
 """
 from __future__ import annotations
 
@@ -70,14 +77,21 @@ def check_platforms(platforms, device, field="platforms"):
     return platforms
 
 
-def live_eval_step(runner, temporal_mode: str = "rows"):
-    """The eval step that ``export_eval_step`` exports, live: the runner's
-    own ``eval_step`` in "rows", the same in "cols"."""
+def live_eval_step(runner, temporal_mode: str = "rows", model=None):
+    """The eval step that ``export_eval_step`` exports, live, in one
+    process: the runner's own ``eval_step`` in "rows" (without its mesh),
+    the same in "cols"; on ``model`` (default ``runner.model``), a whole
+    module."""
+    import dataclasses
+
     from diff3dhpe_torch.engine.runner import eval_diffusion
-    from diff3dhpe_torch.engine.steps import make_eval_step
+    from diff3dhpe_torch.engine.steps import make_denoise_fn, make_eval_step
 
     cfg = runner.cfg
-    return make_eval_step(eval_diffusion(cfg, runner.diffusion, runner.model, temporal_mode),
+    model = runner.model if model is None else model
+    diffusion = dataclasses.replace(runner.diffusion,
+                                    denoise_fn=make_denoise_fn(model, cfg.matmul_precision))
+    return make_eval_step(eval_diffusion(cfg, diffusion, model, temporal_mode),
                           runner.joints_left, runner.joints_right, repeat_n=cfg.repeat_n,
                           tta=cfg.test_time_augmentation, device=runner.device)
 
@@ -87,13 +101,13 @@ class _EvalStep(torch.nn.Module):
     call: the sampler is built inside ``forward``, so the bf16 snapshot's
     casts are part of the traced graph."""
 
-    def __init__(self, runner, temporal_mode):
+    def __init__(self, runner, temporal_mode, model):
         super().__init__()
-        self.model = runner.model
+        self.model = model
         self.runner, self.temporal_mode = runner, temporal_mode
 
     def forward(self, input_2d, input_2d_flip, x_init, noises=None):
-        step = live_eval_step(self.runner, self.temporal_mode)
+        step = live_eval_step(self.runner, self.temporal_mode, self.model)
         return step(input_2d, input_2d_flip, x_init=x_init, noises=noises)
 
 
@@ -146,26 +160,34 @@ def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool
     ``sharded=True``: the per-rank step of the runner's data-parallel run
     (``runner.mesh``, which it needs) at ``batch_size`` / N rows, which
     must divide (a ValueError, "does not divide", otherwise); the artifact
-    is restored in a run of N ranks (``restore_eval_step``). In a
-    data-parallel run rank 0 alone traces and writes the artifact, and the
-    other ranks wait for it and return None."""
+    is restored in a run of N ranks (``restore_eval_step``); under a model
+    axis > 1 it raises a ValueError naming ``mesh_shape``. In a run across
+    processes rank 0 alone traces and writes the artifact, and the other
+    ranks wait for it and return None; a tensor-parallel runner's ranks
+    first gather the whole weights (module doc)."""
     mesh = getattr(runner, "mesh", None)
     platforms = check_platforms(platforms, runner.device)
     if sharded and mesh is None:
         raise ValueError("sharded=True exports the per-rank step of a data-parallel run: build "
                          "the runner with its DataMesh (Runner(mesh=...); the CLI under torchrun "
                          "with --mesh-shape data:N)")
+    if sharded and mesh.model_size > 1:
+        raise ValueError(f"sharded=True under mesh_shape={mesh.shape!r} is not ported: the "
+                         f"per-rank step of a tensor-parallel run (ROADMAP A.15); export the "
+                         f"whole step (sharded=False) or from a data-only mesh")
     local = batch_size
     if sharded:
         rows = mesh.rows(batch_size)
         local = rows.stop - rows.start
+    full = getattr(runner, "full_model", None)
+    model = runner.model if full is None else full()  # collective under tensor parallelism
     if mesh is not None and not mesh.is_main:
         mesh.barrier()
         return None
-    state = {k: v.detach() for k, v in runner.model.state_dict().items()}
+    state = {k: v.detach() for k, v in model.state_dict().items()}
     inputs = _inputs(runner, local)
     with torch.no_grad():
-        program = torch.export.export(_Serving(_EvalStep(runner, temporal_mode)),
+        program = torch.export.export(_Serving(_EvalStep(runner, temporal_mode, model)),
                                       (state, *inputs),
                                       strict=False)
     # The example inputs would be saved with the program: the weights too.

@@ -22,6 +22,13 @@ dp_scales)`` with one scale per attention group and residual branch, the
 counterpart of the flax ``DropPath`` and of JAX's ``xla_forward_denoise``
 with ``dp_scales``. Dropout is 0 in every shipped config and not ported.
 
+Tensor parallelism (``parallel.tensor.shard_model``): each ``Attention``
+and ``Mlp`` holds its model rank's heads and hidden columns and its
+``model_group``; the column-parallel ``qkv`` and ``fc1`` read their input
+through ``copy_to_model`` and the row-parallel ``proj`` and ``fc2`` sum
+their partial products with ``reduce_from_model`` before adding the bias
+once. Without a model group the code path is the one-process module's.
+
 ``matmul_precision`` (``forward``'s argument; ``ops.matmul_precision``) is
 the session precision JAX's Runner sets: at "default" or "bfloat16" every
 float32 product of the module (the dense layers, the attention's two
@@ -50,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from diff3dhpe_torch.device import resolve_device
 from diff3dhpe_torch.ops.attention import fused_grand_attention, grand_attention
 from diff3dhpe_torch.ops.matmul_precision import matmul, session_mode
+from diff3dhpe_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 
 def sinusoidal_pos_emb(t, dim: int):
@@ -80,20 +88,24 @@ def init_weights(module: nn.Module, generator: torch.Generator):
                 m.bias.uniform_(-bound, bound, generator=generator)
 
 
-def dense(layer, x, dtype=None, matmul_precision="highest"):
+def dense(layer, x, dtype=None, matmul_precision="highest", model_group=None):
     """flax ``TorchDense`` (JAX ``fast_eval._dense``): x @ W + b in ``dtype``
     (default x's), x, W and b cast to it; below float32 the bias is added to
     the rounded product. At float32 the product contracts at
-    ``matmul_precision`` (the bias added after it)."""
+    ``matmul_precision`` (the bias added after it). ``model_group``: the
+    layer is row-parallel, its partial products summed over the group
+    (``reduce_from_model``) before the bias is added."""
     dtype = x.dtype if dtype is None else dtype
     x, w = x.to(dtype), layer.weight.to(dtype)
     b = None if layer.bias is None else layer.bias.to(dtype)
     if dtype == torch.float32 and session_mode(matmul_precision) != "highest":
         y = matmul(x, w.t(), matmul_precision)
-        return y if b is None else y + b
-    if dtype == torch.float32:
+    elif dtype == torch.float32 and model_group is None:
         return F.linear(x, w, b)
-    y = F.linear(x, w)
+    else:
+        y = F.linear(x, w)
+    if model_group is not None:
+        y = reduce_from_model(y, model_group)
     return y if b is None else y + b
 
 
@@ -120,14 +132,21 @@ def layer_norm(ln, x, dtype=torch.float32):
 
 
 class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2; under tensor parallelism (``model_group``) fc1's
+    output columns and fc2's input columns are the model rank's."""
+
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.model_group = None
 
     def forward(self, x, dtype=torch.float32, matmul_precision="highest"):
+        group = self.model_group
+        if group is not None:
+            x = copy_to_model(x, group)
         return dense(self.fc2, gelu(dense(self.fc1, x, dtype, matmul_precision)), dtype,
-                     matmul_precision)
+                     matmul_precision, group)
 
 
 class Attention(nn.Module):
@@ -135,13 +154,17 @@ class Attention(nn.Module):
     ``use_pallas`` (JAX's name for it): the attention core goes through the
     dispatcher ``fused_grand_attention``, at float32 or bfloat16. The
     dispatcher has no backward and refuses to run under autograd, as
-    ``jax.grad`` through JAX's ``use_pallas`` module raises."""
+    ``jax.grad`` through JAX's ``use_pallas`` module raises. Under tensor
+    parallelism (``model_group``) ``num_heads`` counts the model rank's
+    heads, of the global width ``head_dim``."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool, use_pallas: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.use_pallas = use_pallas
-        self.scale = (dim // num_heads) ** -0.5
+        self.model_group = None
+        self.scale = self.head_dim ** -0.5
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
@@ -151,9 +174,11 @@ class Attention(nn.Module):
         the module's own (the dispatcher with ``use_pallas``, else the plain
         formulas, at ``matmul_precision``). ``dtype``: of the dense layers
         and so of q, k, v and the attention."""
-        b, n, c = x.shape
-        prec = matmul_precision
-        qkv = dense(self.qkv, x, dtype, prec).reshape(b, n, 3, self.num_heads, c // self.num_heads)
+        b, n, _ = x.shape
+        prec, group = matmul_precision, self.model_group
+        if group is not None:
+            x = copy_to_model(x, group)
+        qkv = dense(self.qkv, x, dtype, prec).reshape(b, n, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
         if core is not None:
             out = core(q, k, v)
@@ -161,7 +186,8 @@ class Attention(nn.Module):
             out = fused_grand_attention(q, k, v, self.scale, prec)
         else:
             out = grand_attention(q, k, v, self.scale, prec)
-        return dense(self.proj, out.transpose(1, 2).reshape(b, n, c), dtype, prec)
+        out = out.transpose(1, 2).reshape(b, n, self.num_heads * self.head_dim)
+        return dense(self.proj, out, dtype, prec, group)
 
 
 class Block(nn.Module):

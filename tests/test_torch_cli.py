@@ -150,7 +150,7 @@ def test_main_without_evaluate_exits(tmp_path, capsys):
 @pytest.mark.parametrize("field,extra", [
     ("mesh_shape", ["--mesh-shape", "data:8"]),
     ("eval_f32_tail_pairs", ["--fast-eval", "--eval-f32-tail-pairs", "1"]),  # needs bf16
-    ("mesh_shape", ["--mesh-shape", "data:2,model:2"]),  # tensor parallelism: ROADMAP A.12
+    ("mesh_shape", ["--mesh-shape", "data:2,model:2"]),  # 4 ranks, and one process runs
     ("dataset", ["-d", "not_a_dataset"]),
     ("evaluate", ["--evaluate", "not_a_port_checkpoint"]),
 ])

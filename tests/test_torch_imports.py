@@ -27,6 +27,7 @@ for name in names:
 from diff3dhpe_torch.engine import make_val_step
 from diff3dhpe_torch.engine.runner import Runner, check_trainable
 from diff3dhpe_torch.parallel import DataMesh, entry_ranks, start_ranks
+from diff3dhpe_torch.parallel.tensor import gather_params, shard_model, shard_params
 from diff3dhpe_torch.io import (load_matching_params, restore_checkpoint, rng_state_from_json,
                                 rng_state_to_json, save_checkpoint)
 assert callable(Runner.fit) and callable(Runner._validate) and callable(Runner._export_curves)
@@ -87,6 +88,8 @@ def test_port_and_chip_smoke_import_without_jax():
         "cli.export", "cli.viz", "io.export", "ops._library", "viz", "viz.render",
         # The data-parallel slice's.
         "parallel", "parallel.mesh",
+        # The tensor-parallel slice's.
+        "parallel.tensor",
     )} <= walked, sorted(walked)
 
 

@@ -342,11 +342,12 @@ def test_check_replicated(run):
     (None, 2, True), ("data:2", 2, True), (" data:2 ", 2, True), ("data:2,model:1", 2, True),
     ("data:1", 1, True), ("data:2,model:2", 2, False), ("data:4", 2, False),
     ("data:1", 2, False), ("model:2", 1, False),
+    ("data:2,model:2", 4, True), ("model:2", 2, True), ("data:1,model:2", 2, True),
 ])
 def test_mesh_shape_against_the_world_size(spec, world, ok):
-    """check_supported takes "data:N" where N is the world size and
-    refuses a model axis > 1 (ROADMAP A.12) or another data size, naming
-    mesh_shape."""
+    """check_supported takes "data:N,model:M" where N·M is the world size
+    and refuses any other size, naming mesh_shape: "data:2,model:2" needs 4
+    ranks and "model:2" 2, so each is refused at a world of 2 and 1."""
     cfg = Config(mesh_shape=spec, embed_dim=32, transformer_depth=1, num_heads=4,
                  number_of_frames=9)
     if ok:

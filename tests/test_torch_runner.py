@@ -158,7 +158,7 @@ def test_mixed_runner_rebuilds_its_bf16_snapshot():
 
 @pytest.mark.parametrize("field,overrides", [
     ("mesh_shape", dict(mesh_shape="data:8")),
-    ("mesh_shape", dict(mesh_shape="data:4,model:2")),
+    ("mesh_shape", dict(mesh_shape="data:4,model:2")),  # 8 ranks, and one process runs
     ("eval_f32_tail_pairs", dict(eval_f32_tail_pairs=2, fast_eval=True)),  # needs bf16
     ("eval_final_prec", dict(eval_final_prec="tf32", **MIXED)),  # not a mode of JAX's
     ("compute_dtype", dict(compute_dtype="float64")),
@@ -170,6 +170,15 @@ def test_runner_refuses_what_is_not_ported(field, overrides):
         check_supported(cfg)
     with pytest.raises(ValueError, match=f"^{field}="):
         Runner(cfg, 17, JOINTS_LEFT, JOINTS_RIGHT, device="cpu")
+
+
+@pytest.mark.parametrize("spec,world", [("data:4,model:2", 8), ("model:2", 2),
+                                        ("data:1,model:4", 4)])
+def test_runner_takes_a_model_axis_at_its_world_size(spec, world):
+    """The same mesh_shape is taken where its N·M ranks run, for the plain
+    module and its fused eval."""
+    for fields in ({}, dict(fast_eval=True), dict(use_pallas_attention=True)):
+        check_supported(Config(**{**BASE, "mesh_shape": spec, **fields}), "cpu", world)
 
 
 def test_runner_accepts_what_means_one_device_and_exact_f32():
