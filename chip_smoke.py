@@ -189,6 +189,12 @@ FRAMES, JOINTS, EMBED, DEPTH, HEADS, MLP_RATIO = 243, 17, 512, 8, 8, 2.0
 HEADS4 = 4  # num_heads of configs/h36m_gt_s2s_243f_tpu.json: head_dim 128 at embed 512
 BATCH = 2  # logical sequences per eval step; flip-TTA doubles the rows
 TIMESTEPS, DDIM_STEPS = 1000, 9
+# The DDIM steps of the exports that are not the shipped mixed rows step
+# (phase 18's cols and f32 artifacts and its bench_torch.py run, phase
+# 20b's sharded export): a trace's seconds grow with the steps it unrolls,
+# and these paths hold the export's mechanics, which three steps exercise
+# as nine do (the first bf16 steps and the f32 final one of the mixed mode).
+CUT_DDIM_STEPS = 3
 JOINTS_LEFT, JOINTS_RIGHT = [4, 5, 6, 11, 12, 13], [1, 2, 3, 14, 15, 16]
 KERNEL_REL_TOL = 1e-4   # kernel and forward vs the plain version, relative to max|plain|
 # Eval-step bound: the output is an x0 estimate clipped to [-1, 1]. Each of
@@ -1168,7 +1174,9 @@ def drive_export(dev, per_call, card):
     to the live step (``Runner.eval_step``; in cols the same sampler in
     cols) on those weights, with the same launches by wrapper and dtype;
     then bench_torch.py with BENCH_EXPORTED=1 (mixed, rows, 4 steps a
-    loop). Returns ({path: launches}, {path: inner counts})."""
+    loop). The cols and f32 artifacts and the bench's run DDIM-CUT_DDIM_STEPS
+    (the mixed rows one, the shipped mode, DDIM-9). Returns ({path:
+    launches}, {path: inner counts})."""
     from diff3dhpe_torch.cli.args import args_to_overrides
     from diff3dhpe_torch.cli.export import build_export_parser
     from diff3dhpe_torch.cli.export import main as export_main
@@ -1181,8 +1189,9 @@ def drive_export(dev, per_call, card):
     config = os.path.join(here, CLI_CONFIG)
     mixed = ["--fast-eval", "--compute-dtype", "bfloat16", "--eval-f32-head",
              "--eval-f32-final-steps", "1"]
-    modes = {"mixed_rows": (mixed, "rows"), "mixed_cols": (mixed, "cols"),
-             "fast_f32": (["--fast-eval"], "rows")}
+    modes = {"mixed_rows": (mixed, "rows", DDIM_STEPS),
+             "mixed_cols": (mixed, "cols", CUT_DDIM_STEPS),
+             "fast_f32": (["--fast-eval"], "rows", CUT_DDIM_STEPS)}
     launches, inner = {}, {}
     gen = torch.Generator(device=dev).manual_seed(18)
     inputs = dict(x2d=torch.rand(BATCH, FRAMES, JOINTS, 2, generator=gen, device=dev) * 2 - 1,
@@ -1198,9 +1207,9 @@ def drive_export(dev, per_call, card):
                                   device=dev).state_dict(), weights["seed1"])
         torch.save({k: v.cpu() for k, v in inputs.items()}, os.path.join(tmp, "inputs.pt"))
         artifacts, live = {}, {}
-        for name, (flags, tmode) in modes.items():
+        for name, (flags, tmode, ddim) in modes.items():
             path = os.path.join(tmp, f"{name}.pt2")
-            argv = ["--config", config, "--sampling_timesteps", str(DDIM_STEPS),
+            argv = ["--config", config, "--sampling_timesteps", str(ddim),
                     "--evaluate", weights["seed0"], "--output", path,
                     "--export-batch-size", str(BATCH)] + flags
             args = build_export_parser().parse_args(argv)
@@ -1232,7 +1241,7 @@ def drive_export(dev, per_call, card):
                                                step_s=statistics.median(secs))
                 launches[f"export_live_{name}_{wname}"] = d["launches"]
                 inner[f"export_live_{name}_{wname}"] = d["inner"]
-            say(f"phase 18 export {name} ({tmode}) B={BATCH} (x2 flip) DDIM-{DDIM_STEPS}: "
+            say(f"phase 18 export {name} ({tmode}) B={BATCH} (x2 flip) DDIM-{ddim}: "
                 f"export_s={export_s:.2f} artifact_bytes={len(data)}")
             del runner
         torch.cuda.empty_cache()
@@ -1270,21 +1279,22 @@ def drive_export(dev, per_call, card):
     # bench_torch.py times the restored artifact (mixed, rows): 3 loops of 4.
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.join(here, "bench_torch.py")], cwd=here,
-                          env=dict(os.environ, BENCH_EXPORTED="1", BENCH_ITERS="4"),
+                          env=dict(os.environ, BENCH_EXPORTED="1", BENCH_ITERS="4",
+                                   BENCH_DDIM=str(CUT_DDIM_STEPS)),
                           capture_output=True, text=True, timeout=900)
     check(proc.returncode == 0, f"bench_torch.py BENCH_EXPORTED=1 exited {proc.returncode}:\n"
           f"{proc.stderr[-3000:]}")
     line = json.loads(proc.stdout.strip().splitlines()[-1])
     d = line["detail"]
     want = dict(zip(("fused_transformer_block", "fused_transformer_block_bf16"),
-                    mixed_b1(3 * 4 * DDIM_STEPS, DDIM_STEPS)))
+                    mixed_b1(3 * 4 * CUT_DDIM_STEPS, CUT_DDIM_STEPS)))
     check(d["exported_artifact"] and d["export"]["artifact_bytes"] > 0
           and d["card"] == torch.cuda.get_device_name(0)
           and math.isfinite(line["value"]) and line["value"] > 0 and d["launches"] == want,
           f"bench_torch.py BENCH_EXPORTED=1: {line}")
     launches["bench_torch_exported"] = dict(
         {k: 0 for k in next(iter(launches.values()))}, **d["launches"])
-    say(f"phase 18 bench_torch.py BENCH_EXPORTED=1 BENCH_ITERS=4 "
+    say(f"phase 18 bench_torch.py BENCH_EXPORTED=1 BENCH_ITERS=4 BENCH_DDIM={CUT_DDIM_STEPS} "
         f"({time.perf_counter() - t0:.1f} s): {proc.stdout.strip().splitlines()[-1]}")
     return launches, inner
 
@@ -1635,9 +1645,10 @@ def parallel_cases(dev, mesh=None, artifact=None):
     if mesh is not None:
         # The f32 fused step of a data-parallel Runner, exported sharded
         # (rank 0 writes it), restored in every rank, against the live
-        # step (phase 18 exports the mixed one; f32 traces in half its time).
+        # step (phase 18 exports the mixed one; f32 traces in half its time,
+        # and at DDIM-CUT_DDIM_STEPS in a third of that).
         cfg = Config(number_of_frames=FRAMES, embed_dim=EMBED, transformer_depth=DEPTH,
-                     num_heads=HEADS, timesteps=TIMESTEPS, sampling_timesteps=DDIM_STEPS,
+                     num_heads=HEADS, timesteps=TIMESTEPS, sampling_timesteps=CUT_DDIM_STEPS,
                      fast_eval=True, mesh_shape=f"data:{size}", seed=0)
         runner = Runner(cfg, JOINTS, JOINTS_LEFT, JOINTS_RIGHT, mesh=mesh)
         x_init = torch.randn(2 * PAR_EVAL_BATCH, FRAMES, JOINTS, 3, device=dev,
@@ -1656,12 +1667,12 @@ def parallel_cases(dev, mesh=None, artifact=None):
     return res
 
 
-def want_fit(zero, per_step, fwd_b1, ddim, b_eval, batches, n_val, epochs, evals):
+def want_fit(zero, per_step, fwd_b1, ddim, b_eval, batches, n_val, epochs, evals, depth=DEPTH):
     """The launches of a cli.run training run: per train step ``per_step``
-    (B1's 2·DEPTH calls, B3 and B6 once and B4 (2 kernels) once per block
+    (B1's 2·depth calls, B3 and B6 once and B4 (2 kernels) once per block
     pair in the recompute); per validation batch and per evaluate batch (with each evaluate's
     warm-up batch) ``ddim`` fused forwards of ``fwd_b1`` B1 launches, and
-    the validation loss's two plain-module forwards of 2·DEPTH attention
+    the validation loss's two plain-module forwards of 2·depth attention
     calls each."""
     steps = epochs * batches
     val_batches = -(-n_val // b_eval)
@@ -1672,7 +1683,7 @@ def want_fit(zero, per_step, fwd_b1, ddim, b_eval, batches, n_val, epochs, evals
                 grand_attention_fullseq=steps * per_step["grand_attention_fullseq"],
                 grand_attention_bwd=steps * per_step["grand_attention_bwd"],
                 packed_grand_attention=steps * per_step["packed_grand_attention"],
-                plain_attention_calls=epochs * val_batches * 2 * 2 * DEPTH)
+                plain_attention_calls=epochs * val_batches * 2 * 2 * depth)
 
 
 def grad_rel_l2(got, ref):
@@ -1834,8 +1845,10 @@ def drive_parallel(dev, per_call, per_step, card):
         launches[f"parallel_gloo_export_rank{r}"], inner[f"parallel_gloo_export_rank{r}"] = (
             e["launches"], e["inner"])
     check(e0["bytes"] > 0 and e1["bytes"] is None and e0["meta"]["sharded"] == dict(
-        world_size=world, global_batch=PAR_EVAL_BATCH), f"phase 20b sharded export: {e0['meta']}")
-    lines.append(f"sharded export of the f32 fused step (local batch {PAR_EVAL_BATCH // world} of "
+        world_size=world, data=world, model=1, global_batch=PAR_EVAL_BATCH),
+        f"phase 20b sharded export: {e0['meta']}")
+    lines.append(f"sharded export of the f32 fused step at DDIM-{CUT_DDIM_STEPS} (local batch "
+                 f"{PAR_EVAL_BATCH // world} of "
                  f"{PAR_EVAL_BATCH}): {e0['bytes']} bytes in {e0['export_s']:.1f} s on rank 0, "
                  f"restored in both ranks bit for bit as the live step")
     say(f"phase 20b gloo, world size {world}, both ranks on cuda:0 ({card}), {ranks_s:.1f} s for "
@@ -1862,7 +1875,8 @@ finally:
 """
 
 # Phase 22 (b): one of four gloo ranks on the one card running cli.run.main
-# at "data:2,model:2", its launches counted as chip_smoke.drive counts them.
+# at "data:2,model:2", its launches counted as chip_smoke.drive counts them;
+# then (d), the sharded export at "data:2,model:2" in the same ranks.
 TP_CLI_RANK = r"""
 import json, sys
 import torch
@@ -1873,8 +1887,8 @@ import chip_smoke
 from diff3dhpe_torch.cli.run import main
 from diff3dhpe_torch.engine.runner import Runner
 from diff3dhpe_torch.parallel import start_ranks
-start_ranks("cuda:0", backend="gloo", init_method="file://" + spec["rendezvous"], rank=rank,
-            world_size=spec["world_size"], timeout=900)
+world = start_ranks("cuda:0", backend="gloo", init_method="file://" + spec["rendezvous"],
+                    rank=rank, world_size=spec["world_size"], timeout=900)
 fit, record = Runner.fit, {}
 
 def recording_fit(self, train_ds, val_ds, *args, **kwargs):
@@ -1892,12 +1906,18 @@ try:
                   launches=d["launches"], inner=d["inner"], text=d["text"], wall_s=d["wall_s"],
                   evals=[r["n_frames"] for r in d["records"]],
                   model_time=[r["model_time"] for r in d["records"]])
+    record["export"] = chip_smoke.tp_export_case(world.device, world, spec["artifact"])
     torch.save(record, f"{spec['out']}/cli_rank{rank}.pt")
 finally:
     torch.distributed.destroy_process_group()
 """
 
-TP_TRAIN_BATCH, TP_EVAL_BATCH, TP_DEPTH4 = 4, 2, 2
+TP_TRAIN_BATCH, TP_EVAL_BATCH, TP_DEPTH4, TP_EXPORT_BATCH = 4, 2, 2, 8
+# The depth of phase 22's plain-module paths, whose every block product makes
+# a gloo all-reduce through host memory (about 40 ms each): (a)'s train step
+# and 8-head use_pallas eval, and (b)'s CLI run. The fused paths, which
+# gather once, and (c) and (d) run the flagship depth.
+TP_DEPTH = 4
 # The tensor-parallel step against one process, JAX's own bar for its
 # mesh layouts (tests/test_parallel.py:88-92): the loss to 1e-5 relative,
 # each gradient to 2e-5 of max(max|g|, 1e-3); the eval to 1e-5 absolute
@@ -1978,35 +1998,115 @@ def holding_attention():
             setattr(attention, name, fn)
 
 
+# A bf16 kernel call inside the fused training step, held against its plain
+# version on the call's own inputs: mean |kernel - plain| at most a quarter
+# of mean |plain - the plain version at float32| on the same inputs (the
+# quarter bar of tests/test_torch_bf16_train.py, which holds the bf16
+# forwards and B4 so), and at most BF16_MEAN_TOL of max|plain|. No bar on
+# the max: B1 rounds its residual to bf16 before the out-LN, which divides
+# it by the row's standard deviation, so on the step's own activations a
+# flipped rounding there can move an output by more than BF16_MAX_TOL of
+# max|plain| (one call of 16 read 1.007e-2 at a mean of 2.85e-5 on an NVIDIA
+# H100 80GB HBM3 at 700 W).
+BF16_QUARTER = 0.25
+
+
+@contextlib.contextmanager
+def holding_train_kernels():
+    """Every B1 call of the fused training forward and every B4 call of its
+    recompute backward held against its plain version on the call's own
+    inputs: (max |d|, mean |d|) relative to max|plain|, the worst of dq,
+    dk and dv for B4, and at bf16 the quarter bar's ratio (BF16_QUARTER).
+    The kernels' outputs are what the step goes on with, and the wrappers
+    count their launches as always. Yields {"B1": [(max, mean, ratio or
+    None)], "B4": [...]}."""
+    from diff3dhpe_torch.models import fast_eval
+    from diff3dhpe_torch.ops import attention, fused_block
+
+    errs = {"B1": [], "B4": []}
+    block, bwd = fast_eval.fused_transformer_block, attention._bwd
+    up = lambda a: None if a is None else a.float()
+
+    def errors(outs, plain, plain_f32=None):
+        worst = [bf16_errs(o, r)[1:] for o, r in zip(outs, plain)]
+        ratio = None
+        if plain_f32 is not None:
+            ratio = max((o.float() - r.float()).abs().mean().item()
+                        / (r.float() - r32).abs().mean().item()
+                        for o, r, r32 in zip(outs, plain, plain_f32))
+        return max(w[0] for w in worst), max(w[1] for w in worst), ratio
+
+    def held_block(x, blk, n, heads, **kw):
+        out = block(x, blk, n, heads, **kw)
+        ref = fused_block.fused_transformer_block_ref
+        with torch.no_grad():
+            plain = ref(x, blk, n, heads, **kw)
+            f32 = None if x.dtype == torch.float32 else [ref(x.float(), blk, n, heads, **dict(
+                kw, t_rows=up(kw.get("t_rows")), dp_scales=up(kw.get("dp_scales"))))]
+            errs["B1"].append(errors([out], [plain], f32))
+        return out
+
+    def held_bwd(q, k, v, do, scale, fwd=None, matmul_precision="highest"):
+        out = bwd(q, k, v, do, scale, fwd, matmul_precision)
+        ref = attention.grand_attention_bwd_ref
+        f32 = None if q.dtype == torch.float32 else ref(
+            *(a.float() for a in (q, k, v, do)), scale, matmul_precision)
+        errs["B4"].append(errors(out, ref(q, k, v, do, scale, matmul_precision), f32))
+        return out
+
+    fast_eval.fused_transformer_block, attention._bwd = held_block, held_bwd
+    try:
+        yield errs
+    finally:
+        fast_eval.fused_transformer_block, attention._bwd = block, bwd
+
+
+def held_train_ok(held, bf16):
+    """Whether a fused train step held 2·DEPTH B1 calls and DEPTH B4 calls
+    (the temporal groups, n > 64), each within its bar: at float32
+    KERNEL_REL_TOL on the max; at bf16 BF16_MEAN_TOL on the mean and
+    BF16_QUARTER on the quarter bar's ratio."""
+    ok = lambda e: (e[1] <= BF16_MEAN_TOL and e[2] <= BF16_QUARTER) if bf16 else (
+        e[0] <= KERNEL_REL_TOL)
+    return (len(held["B1"]) == 2 * DEPTH and len(held["B4"]) == DEPTH
+            and all(ok(e) for k in held for e in held[k]))
+
+
 def tp_cases(dev, mesh=None):
     """Phase 22 (a)'s cases on ``mesh`` (a rank at "data:1,model:2"), or with
     ``mesh`` None in this process alone, at full width on seed-0 weights:
-    the plain module's f32 train step at global batch TP_TRAIN_BATCH
-    (drop-path, lr 4e-5; step 1 held, step 2 timed, step 3 with its
-    all-reduces timed), the use_pallas DDIM-9 flip-TTA eval at batch
-    TP_EVAL_BATCH with 8 heads and with 4 (TP_DEPTH4 deep; one run counted,
+    the plain module's f32 train step at global batch TP_TRAIN_BATCH,
+    TP_DEPTH deep (drop-path, lr 4e-5; step 1 held, step 2 timed, step 3
+    with its all-reduces timed), the use_pallas DDIM-9 flip-TTA eval at
+    batch TP_EVAL_BATCH with 8 heads (TP_DEPTH deep) and with 4
+    (TP_DEPTH4 deep; one run counted,
     every B3 and B6 call held against its plain version, the all-reduces
     timed; in one process a clean timed run besides), and the Runner's
     fused f32 and mixed evals (on the gathered replica under the mesh).
+    Phase 22 (c)'s: the fused training step at f32 and at bf16
+    (``attn_bwd``, drop-path) on the train step's batch and draws, under
+    the mesh on a whole replica loaded from the gathered shards
+    (``WholeWeights``): step 1 counted with every B1 and B4 call held
+    (``holding_train_kernels``), step 2 timed with its gather timed.
     Returns CPU tensors, launches and seconds."""
     from diff3dhpe_torch import (
         GaussianDiffusion, MixSTEDenoiser, Runner, flip_pose, make_denoise_fn, make_eval_step,
-        make_optimizer, make_train_denoise_fn, make_train_step,
+        make_fast_train_denoise_fn, make_optimizer, make_train_denoise_fn, make_train_step,
     )
     from diff3dhpe_torch.config import Config
-    from diff3dhpe_torch.parallel import gather_params, shard_model
+    from diff3dhpe_torch.parallel import WholeWeights, gather_params, shard_model
 
     res = {}
-    whole = lambda d: d if mesh is None else gather_params(d, mesh)
+    whole_of = lambda d: d if mesh is None else gather_params(d, mesh)
     gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
 
-    def build(heads=HEADS, depth=DEPTH, use_pallas=False):
+    def build(heads=HEADS, depth=DEPTH, use_pallas=False, shard=True):
         m = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=depth,
                            num_heads=heads, mlp_ratio=MLP_RATIO, use_pallas=use_pallas, seed=0,
                            device=dev)
-        return m if mesh is None else shard_model(m, mesh)
+        return m if mesh is None or not shard else shard_model(m, mesh)
 
-    model = build().train()
+    model = build(depth=TP_DEPTH).train()
     dkw = dict(timesteps=TIMESTEPS, sampling_timesteps=DDIM_STEPS, clip_denoised=True,
                clip_loss=True, beta_schedule="cosine")
     optimizer, scheduler = make_optimizer(model.parameters(), LR, LR_DECAY, 1000)
@@ -2017,18 +2117,57 @@ def tp_cases(dev, mesh=None):
     x2d = torch.rand(TP_TRAIN_BATCH, FRAMES, JOINTS, 2, generator=g, device=dev) * 2 - 1
     draws = gen(24)
     loss, launches, _ = counted(step, gt, x2d, generator=draws)
-    grads = {k: v.cpu() for k, v in whole({n: p.grad for n, p in model.named_parameters()}).items()}
+    grads = {k: v.cpu() for k, v in whole_of(
+        {n: p.grad for n, p in model.named_parameters()}).items()}
     _, step_s, reduce_s = timed_all_reduces(step, gt, x2d, generator=draws)
     res["train"] = dict(loss=loss.item(), grads=grads, launches=launches, step_s=step_s,
                         reduce_s=reduce_s, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     del model, optimizer, scheduler, step, grads
     torch.cuda.empty_cache()
 
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        model = build().train()
+        whole = None if mesh is None else WholeWeights(build(shard=False), model, mesh)
+        fn = make_fast_train_denoise_fn(model if whole is None else whole.replica, DROP_PATH,
+                                        attn_bwd=True, dtype=dtype)
+        optimizer, scheduler = make_optimizer(model.parameters(), LR, LR_DECAY, 1000)
+        step = make_train_step(GaussianDiffusion.create(fn, **dkw), optimizer, scheduler,
+                               mesh=mesh, whole=whole)
+        draws = gen(24)
+        with holding_train_kernels() as held:
+            loss, launches, inner = counted(step, gt, x2d, generator=draws)
+        grads = {k: v.cpu() for k, v in whole_of(
+            {n: p.grad for n, p in model.named_parameters()}).items()}
+        params = {k: v.cpu() for k, v in whole_of(
+            {n: p.detach() for n, p in model.named_parameters()}).items()}
+        gather_s = []
+        if whole is not None:
+            load = whole.load
+
+            def timed_load():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                load()
+                torch.cuda.synchronize()
+                gather_s.append(time.perf_counter() - t0)
+
+            whole.load = timed_load
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(gt, x2d, generator=draws)
+        torch.cuda.synchronize()
+        res[f"fast_train_{name}"] = dict(
+            loss=loss.item(), grads=grads, params=params, launches=launches, inner=inner,
+            held=held, step_s=time.perf_counter() - t0, gather_s=sum(gather_s),
+            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        del model, whole, fn, optimizer, scheduler, step, grads, params
+        torch.cuda.empty_cache()
+
     x2d = torch.rand(TP_EVAL_BATCH, FRAMES, JOINTS, 2, generator=gen(20), device=dev) * 2 - 1
     x2d_flip = flip_pose(x2d, JOINTS_LEFT, JOINTS_RIGHT)
     ekw = dict(timesteps=TIMESTEPS, sampling_timesteps=DDIM_STEPS, clip_denoised=True,
                beta_schedule="cosine")
-    for key, heads, depth in (("pallas", HEADS, DEPTH), ("pallas_d128", HEADS4, TP_DEPTH4)):
+    for key, heads, depth in (("pallas", HEADS, TP_DEPTH), ("pallas_d128", HEADS4, TP_DEPTH4)):
         model = build(heads, depth, use_pallas=True).eval()
         step = make_eval_step(GaussianDiffusion.create(make_denoise_fn(model), **ekw),
                               JOINTS_LEFT, JOINTS_RIGHT, device=dev, mesh=mesh)
@@ -2058,6 +2197,48 @@ def tp_cases(dev, mesh=None):
         del runner
         torch.cuda.empty_cache()
     return res
+
+
+def tp_export_case(dev, world, artifact):
+    """Phase 22 (d) on a rank of four (``world``, laid out "data:4"): the
+    Runner's mixed eval at "data:2,model:2" (global batch TP_EXPORT_BATCH,
+    rows, x_T from a seeded generator) exported sharded to ``artifact``
+    (rank 0 traces on the gathered weights and writes; the others wait),
+    restored on its mesh and run on the whole weights (counted), against
+    the live ``runner.eval_step``; then restored under ``world``'s own
+    layout, which must be refused. Returns CPU tensors, launches, seconds
+    and the refusal's text."""
+    from diff3dhpe_torch import Runner, flip_pose
+    from diff3dhpe_torch.config import Config
+    from diff3dhpe_torch.io.export import export_eval_step, restore_eval_step
+
+    cfg = Config(number_of_frames=FRAMES, embed_dim=EMBED, transformer_depth=DEPTH,
+                 num_heads=HEADS, timesteps=TIMESTEPS, sampling_timesteps=DDIM_STEPS,
+                 batch_size_eval=TP_EXPORT_BATCH, fast_eval=True, compute_dtype="bfloat16",
+                 eval_f32_final_steps=1, eval_f32_head=True, seed=0, mesh_shape="data:2,model:2")
+    runner = Runner(cfg, JOINTS, JOINTS_LEFT, JOINTS_RIGHT, device=dev, mesh=world)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    x2d = torch.rand(TP_EXPORT_BATCH, FRAMES, JOINTS, 2, generator=gen, device=dev) * 2 - 1
+    x2d_flip = flip_pose(x2d, JOINTS_LEFT, JOINTS_RIGHT)
+    x_init = torch.randn(2 * TP_EXPORT_BATCH, FRAMES, JOINTS, 3, generator=gen, device=dev)
+    t0 = time.perf_counter()
+    data = export_eval_step(runner, TP_EXPORT_BATCH, artifact, sharded=True)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step = restore_eval_step(artifact, runner.mesh)
+    restore_s = time.perf_counter() - t0
+    state = runner.full_state_dict()
+    served, launches, inner = counted(step, state, x2d, x2d_flip, x_init)
+    live, live_launches, _ = counted(runner.eval_step, x2d, x2d_flip, x_init=x_init)
+    try:
+        restore_eval_step(artifact, world)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return dict(served=served.cpu(), live=live.cpu(), launches=launches, inner=inner,
+                live_launches=live_launches, export_s=export_s, restore_s=restore_s,
+                bytes=None if data is None else len(data), meta=step.meta, refused=refused,
+                mesh=repr(runner.mesh))
 
 
 def spawn_ranks(script, spec, tmp, name, timeout):
@@ -2098,13 +2279,17 @@ def drive_tensor_parallel(dev, per_call, card):
     refuses two ranks on one device; gloo moves CUDA tensors through host
     memory, so no figure here is a multi-GPU one). (a) Two ranks at
     "data:1,model:2": ``tp_cases`` in each against the same cases in this
-    process alone. (b) Four ranks at "data:2,model:2": cli.run.main on
-    phase 11's command line cut to S1 and Walking (the plain module's
-    training, fast_train being refused under a model axis; fast_eval's
-    validation and evaluation on the gathered replica; global batch 8, 1
-    epoch, a checkpoint), then
+    process alone, (c) among them: the fused training on whole weights
+    gathered from the shards. (b) Four ranks at "data:2,model:2":
+    cli.run.main on phase 11's command line cut to S1, Walking and depth
+    TP_DEPTH (the
+    plain module's training, as fast_train beside a data axis > 1 is
+    refused, as in JAX; fast_eval's validation and evaluation on the
+    gathered replica; global batch 8, 1 epoch, a checkpoint), then
     --evaluate best_epoch and --resume epoch_0 (1 more epoch) in this
-    process alone. Returns ({path: launches}, {path: inner counts})."""
+    process alone; (d) in the same four ranks, the sharded export of the
+    mixed eval (``tp_export_case``). Returns ({path: launches}, {path:
+    inner counts})."""
     from diff3dhpe_torch.cli.run import main as cli_main
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2131,9 +2316,10 @@ def drive_tensor_parallel(dev, per_call, card):
         # all-reduces through host memory cost seconds a step).
         common = ["--config", train_config, "--synthetic", "-str", "S1", "-ste", "S9", "-a",
                   "Walking", "-b", "8", "--batch-size-eval", "8", "--checkpoint-frequency", "1",
-                  "-c", run_dir]
+                  "--transformer_depth", str(TP_DEPTH), "-c", run_dir]
         spec = dict(root=here, rendezvous=os.path.join(tmp, "rendezvous_b"), world_size=4,
-                    out=tmp, argv=common + ["-e", "1", "--mesh-shape", "data:2,model:2"])
+                    out=tmp, argv=common + ["-e", "1", "--mesh-shape", "data:2,model:2"],
+                    artifact=os.path.join(tmp, "tp_export.pt2"))
         cli_s = spawn_ranks(TP_CLI_RANK, spec, tmp, "phase 22b tp_cli", 600)
         cli = [torch.load(os.path.join(tmp, f"cli_rank{r}.pt"), weights_only=False)
                for r in range(4)]
@@ -2159,7 +2345,8 @@ def drive_tensor_parallel(dev, per_call, card):
         check(not any(got[r]["train"]["launches"].values()), f"phase 22a train rank {r}: the "
               f"plain module launched {got[r]['train']['launches']}")
     lines.append(
-        f"train step (plain module, f32, global batch {TP_TRAIN_BATCH}, drop-path {DROP_PATH}) vs "
+        f"train step (plain module, f32, depth {TP_DEPTH}, global batch {TP_TRAIN_BATCH}, "
+        f"drop-path {DROP_PATH}) vs "
         f"one process: loss rel {loss_rel:.3e}, gradients {grad_err:.3e} of max(|g|, 1e-3); "
         f"step_s per rank (each all-reduce synchronised) "
         f"{[round(g['train']['step_s'], 3) for g in got]} (one process "
@@ -2211,6 +2398,56 @@ def drive_tensor_parallel(dev, per_call, card):
                      f"{got[0][key]['launches']['fused_transformer_block']} launches a rank, "
                      f"step_s per rank {[round(g[key]['step_s'], 3) for g in got]}")
 
+    # (c) the fused training on the gathered weights, against this process.
+    for name in ("f32", "bf16"):
+        key = f"fast_train_{name}"
+        want = ref[key]
+        for r in range(world):
+            g = got[r][key]
+            diff = {n: (g["grads"][n] - v).abs().max().item() for n, v in want["grads"].items()
+                    if not torch.equal(g["grads"][n], v)}
+            moved = {n: (g["params"][n] - v).abs().max().item()
+                     for n, v in want["params"].items() if not torch.equal(g["params"][n], v)}
+            check(g["loss"] == want["loss"] and not diff and not moved
+                  and list(g["grads"]) == list(want["grads"]),
+                  f"phase 22c {key} rank {r}: not bit for bit one process's step: loss "
+                  f"{g['loss']!r} vs {want['loss']!r}, gradients differing {diff}, updated "
+                  f"weights differing {moved}")
+            n = g["launches"]
+            check(n == want["launches"] and g["inner"] == want["inner"]
+                  and n["fused_transformer_block"] and n["grand_attention_bwd"]
+                  and n["grand_attention_fullseq"] and n["packed_grand_attention"],
+                  f"phase 22c {key} rank {r}: launches {n}, one process {want['launches']}")
+            launches[f"tp_{key}_rank{r}"], inner[f"tp_{key}_rank{r}"] = n, g["inner"]
+        held = got[0][key]["held"]
+        worst = {k: [max(e[i] for e in held[k]) if held[k] and held[k][0][i] is not None
+                     else None for i in range(3)] for k in held}
+        check(held_train_ok(held, name == "bf16") and held_train_ok(want["held"], name == "bf16"),
+              f"phase 22c {key}: held calls B1 {len(held['B1'])} (expected {2 * DEPTH}), B4 "
+              f"{len(held['B4'])} (expected {DEPTH}); worst (max rel, mean rel, quarter ratio) "
+              f"{worst}; one process {want['held']}")
+        if name == "bf16":
+            held_text = "; ".join(
+                f"{k} max rel {w[0]:.3e} (no bar on the max at bf16: BF16_QUARTER's comment), "
+                f"mean rel {w[1]:.3e} (tol {BF16_MEAN_TOL}), quarter ratio {w[2]:.3e} (tol "
+                f"{BF16_QUARTER})" for k, w in worst.items())
+        else:
+            held_text = "; ".join(f"{k} max rel {w[0]:.3e} (tol {KERNEL_REL_TOL})"
+                                  for k, w in worst.items())
+        n0 = got[0][key]["launches"]
+        lines.append(
+            f"(c) fused train step {name} (attn_bwd, global batch {TP_TRAIN_BATCH}, drop-path "
+            f"{DROP_PATH}) on the gathered weights: loss, gradients and updated weights bit "
+            f"for bit one process's on both ranks (bar: bit for bit); launches a rank B1 "
+            f"{n0['fused_transformer_block']} ({n0['fused_transformer_block_bf16']} bf16), B3 "
+            f"{n0['grand_attention_fullseq']}, B4 {n0['grand_attention_bwd']} "
+            f"({n0['grand_attention_bwd_bf16']} bf16), B6 {n0['packed_grand_attention']} as one "
+            f"process's; rank 0's calls vs plain, worst of each: {held_text}; step 2 s per rank {[round(g[key]['step_s'], 3) for g in got]} (one "
+            f"process {want['step_s']:.3f}), of it the gather "
+            f"{[round(g[key]['gather_s'], 3) for g in got]} s (share "
+            f"{[round(g[key]['gather_s'] / g[key]['step_s'], 3) for g in got]}); peak GB per "
+            f"rank {[round(g[key]['peak_gb'], 2) for g in got]}")
+
     # (b) four ranks through the CLI.
     c0 = cli[0]
     check(c0["mesh"] == "DataMesh(rank=0, size=4, backend='gloo', device='cuda:0', data=0/2, "
@@ -2224,12 +2461,12 @@ def drive_tensor_parallel(dev, per_call, card):
     check("Protocol #1   (MPJPE) action-wise average:" in c0["text"]
           and all(c["text"].strip().startswith("INFO: mesh data:2,model:2") for c in cli[1:]),
           "phase 22b: rank 0 alone prints the report")
-    fwd_b1 = 2 * DEPTH * per_call
+    fwd_b1 = 2 * TP_DEPTH * per_call
     zero_steps = dict(fused_transformer_block=0, grand_attention_fullseq=0, grand_attention_bwd=0,
                       packed_grand_attention=0)
     want = want_fit({k: 0 for k in c0["launches"]}, zero_steps, fwd_b1, ddim, 8, c0["batches"],
-                    c0["n_val"], 1, c0["evals"])
-    want["plain_attention_calls"] += c0["batches"] * 2 * DEPTH  # the plain module's training
+                    c0["n_val"], 1, c0["evals"], depth=TP_DEPTH)
+    want["plain_attention_calls"] += c0["batches"] * 2 * TP_DEPTH  # the plain module's training
     check(c0["launches"] == want, f"phase 22b launched {c0['launches']}, expected {want}")
     check(all(math.isfinite(v) for v in resumed["e1"]) and "Resumed from" in dr["text"],
           "phase 22b: the resume in one process")
@@ -2237,7 +2474,8 @@ def drive_tensor_parallel(dev, per_call, card):
         launches[f"tp_cli_fit_rank{r}"], inner[f"tp_cli_fit_rank{r}"] = c["launches"], c["inner"]
     steps = c0["batches"]
     lines.append(
-        f"cli.run.main at data:2,model:2 on {CLI_CONFIG} (S1, Walking; plain module training, "
+        f"cli.run.main at data:2,model:2 on {CLI_CONFIG} (S1, Walking, depth {TP_DEPTH}; plain "
+        f"module training, "
         f"fast_eval on the replica, global batch 8, {steps} steps): train loss {c0['losses_train']}, train s a "
         f"step per rank {[round(c['seconds'][0]['train'] / steps, 3) for c in cli]}, validation "
         f"s {[round(c['seconds'][0]['validate'], 2) for c in cli]}, evaluate model s "
@@ -2245,6 +2483,37 @@ def drive_tensor_parallel(dev, per_call, card):
         f"max |d| {report_dev:.3e} mm; resumed in one process for epoch 1: report MPJPE "
         f"{[round(e, 3) for e in resumed['e1']][:3]}...; B1 launches a rank "
         f"{c0['launches']['fused_transformer_block']} as counted; {cli_s:.1f} s for the ranks")
+
+    # (d) the sharded export at data:2,model:2, in the same four ranks.
+    exports = [c["export"] for c in cli]
+    e0 = exports[0]
+    check(e0["mesh"] == "DataMesh(rank=0, size=4, backend='gloo', device='cuda:0', data=0/2, "
+          "model=0/2)" and e0["bytes"] > 0 and all(e["bytes"] is None for e in exports[1:]),
+          f"phase 22d: ran as {e0['mesh']}, bytes {[e['bytes'] for e in exports]}")
+    meta_want = dict(world_size=4, data=2, model=2, global_batch=TP_EXPORT_BATCH)
+    for r, e in enumerate(exports):
+        check(e["meta"]["sharded"] == meta_want and e["meta"]["batch_size"] == TP_EXPORT_BATCH // 2,
+              f"phase 22d rank {r}: meta {e['meta']['sharded']}, batch {e['meta']['batch_size']}")
+        check(torch.equal(e["served"], e["live"]) and torch.isfinite(e["served"]).all().item()
+              and e["served"].shape == (TP_EXPORT_BATCH, FRAMES, JOINTS, 3),
+              f"phase 22d rank {r}: the restored step differs from the live one by "
+              f"{(e['served'] - e['live']).abs().max().item():.3e}")
+        check(e["launches"] == e["live_launches"] and e["launches"]["fused_transformer_block"],
+              f"phase 22d rank {r}: launches {e['launches']}, live {e['live_launches']}")
+        check(e["refused"] is not None and "'data:2,model:2'" in e["refused"]
+              and "'data:4,model:1'" in e["refused"],
+              f"phase 22d rank {r}: restored under data:4: {e['refused']!r}")
+        launches[f"tp_export_mixed_rank{r}"], inner[f"tp_export_mixed_rank{r}"] = (e["launches"],
+                                                                                  e["inner"])
+    lines.append(
+        f"(d) the mixed eval exported sharded at data:2,model:2 (global batch {TP_EXPORT_BATCH}, "
+        f"local {TP_EXPORT_BATCH // 2}, DDIM-{DDIM_STEPS}, flip-TTA, rows): {e0['bytes']} bytes "
+        f"in {e0['export_s']:.1f} s on rank 0, metadata {e0['meta']['sharded']}; restored in "
+        f"every rank ({[round(e['restore_s'], 1) for e in exports]} s) and run on the whole "
+        f"weights: bit for bit its live runner.eval_step on each (bar: bit for bit); B1 "
+        f"{e0['launches']['fused_transformer_block']} launches a rank "
+        f"({e0['launches']['fused_transformer_block_bf16']} bf16) as live; under data:4 "
+        f"refused on every rank: {e0['refused']!r}")
     say(f"phase 22 tensor parallelism, gloo ranks on cuda:0 ({card}; gloo moves the all-reduces "
         f"through host memory: no multi-GPU or NVLink figure), (a) data:1,model:2 in "
         f"{ranks_s:.1f} s: " + "; ".join(lines))

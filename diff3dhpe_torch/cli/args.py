@@ -89,7 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fast-eval", action="store_true",
                         help="fused-kernel inference path for evaluation")
     parser.add_argument("--fast-train", action="store_true",
-                        help="fused-kernel training forward (custom VJP)")
+                        help="fused-kernel training forward (custom VJP); under a model axis "
+                             "at data:1 only, on whole weights gathered from the shards")
     parser.add_argument("--eval-f32-final-steps", type=int, default=None,
                         metavar="N",
                         help="mixed-precision fast eval: run the last N DDIM"

@@ -19,12 +19,14 @@ with ``main(argv, device="cpu")``) and on the other device types that
 ``--export-platforms cpu,cuda`` names (``restore_eval_step(path,
 device=...)``); the list must name the export's own device type and holds
 only "cpu" and "cuda" (a ValueError names the flag otherwise).
-``--export-sharded`` exports a data-parallel run's
-per-rank step (``io.export``): run the command under ``torchrun
---nproc-per-node N ... --mesh-shape data:N``, with ``--export-batch-size``
-the global batch; rank 0 writes the file. Under ``--mesh-shape
-data:N,model:M`` with M > 1 the command exports the whole step from the
-gathered weights, and ``--export-sharded`` raises (ROADMAP A.15).
+``--export-sharded`` exports the per-rank step of a run across processes
+(``io.export``): run the command under ``torchrun --nproc-per-node N·M ...
+--mesh-shape data:N,model:M`` (or ``data:N``), with
+``--export-batch-size`` the global batch, which N must divide; rank 0
+writes the file, which restores in a run of the same mesh shape. Under a
+model axis M > 1 every rank gathers the whole weights first, and the step
+runs the whole module on its data rank's B / N rows. Without
+``--export-sharded`` a run of any mesh shape exports the one-process step.
 """
 from __future__ import annotations
 
@@ -63,8 +65,9 @@ def build_export_parser():
                         help="comma-separated device types the artifact may be restored on, "
                              "'cpu' and 'cuda' (default: the export's device)")
     parser.add_argument("--export-sharded", action="store_true",
-                        help="export the per-rank step of a data-parallel run (under torchrun "
-                             "with --mesh-shape data:N) at the global batch / N")
+                        help="export the per-rank step of a run across processes (under "
+                             "torchrun with --mesh-shape data:N or data:N,model:M) at the "
+                             "global batch / N")
     parser.add_argument("--export-num-joints", type=int, default=None)
     parser.add_argument("--export-joints-left", type=str, default=None,
                         help="comma-separated joint indices")
@@ -93,9 +96,9 @@ def _main(argv, device, mesh):
         platforms = check_platforms([p.strip() for p in args.export_platforms.split(",")
                                      if p.strip()], device, field="export_platforms")
     if args.export_sharded and mesh is None:
-        raise ValueError("export_sharded=True exports the per-rank step of a data-parallel run: "
-                         "run this command under torchrun --nproc-per-node N with --mesh-shape "
-                         "data:N")
+        raise ValueError("export_sharded=True exports the per-rank step of a run across "
+                         "processes: run this command under torchrun --nproc-per-node N*M with "
+                         "--mesh-shape data:N,model:M (or data:N)")
     cfg = load_config(args.config, args_to_overrides(args))
 
     from diff3dhpe_torch.cli.run import load_evaluated_weights
@@ -131,8 +134,8 @@ def _main(argv, device, mesh):
         return None
     rows = batch * cfg.repeat_n * (2 if cfg.test_time_augmentation else 1)
     f_out = cfg.number_of_frames if cfg.out_all else 1
-    sharded = f", per rank {batch // runner.world_size} rows of {runner.world_size} ranks" \
-        if args.export_sharded else ""
+    sharded = (f", per rank {batch // runner.mesh.data_size} rows of {runner.world_size} ranks "
+               f"({runner.mesh.shape})" if args.export_sharded else "")
     print(
         f"Exported eval step -> {args.output} ({len(data)} bytes): "
         f"eval(state_dict, x2d, x2d_flip, x_init{', noises' if cfg.ddim_sampling_eta else ''}) "

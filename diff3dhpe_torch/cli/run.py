@@ -22,10 +22,14 @@ PyTorch path on the CPU. Data parallel across N processes (``--mesh-shape
 data:N``; the batch sizes are global, split over the data ranks), and with
 a ``model`` axis of M tensor parallel too, on N·M processes (``--mesh-shape
 data:N,model:M``; the plain module's blocks split over each model group's
-M ranks, ``parallel.tensor``):
+M ranks, ``parallel.tensor``; ``--fast-train`` at N = 1 trains the fused
+path on whole weights gathered from the shards before every step, and is
+refused beside N > 1, as in JAX):
 
     torchrun --nproc-per-node N -m diff3dhpe_torch.cli.run --mesh-shape data:N ...
     torchrun --nproc-per-node N*M -m diff3dhpe_torch.cli.run --mesh-shape data:N,model:M ...
+    torchrun --nproc-per-node M -m diff3dhpe_torch.cli.run --mesh-shape data:1,model:M \
+        --fast-train ...
 
 (``python -m torch.distributed.run`` is the same launcher); each rank runs
 on ``cuda:LOCAL_RANK`` over ``nccl`` (on the CPU, ``device="cpu"``, over

@@ -19,8 +19,9 @@ is looked up under ``--checkpoint``). Runs on the CUDA device;
 parallel across N processes, and tensor parallel on N·M, as ``cli/run.py``
 is (``torchrun --nproc-per-node N -m diff3dhpe_torch.cli.run_3dhp
 --mesh-shape data:N ...``, or ``--nproc-per-node N*M ... --mesh-shape
-data:N,model:M``): only rank 0 writes the run's files and
-``inference_data.mat`` and prints the report.
+data:N,model:M``; ``--fast-train`` under a model axis at N = 1 only):
+only rank 0 writes the run's files and ``inference_data.mat`` and prints
+the report.
 
 Note on units: the 3DHP arrays are in millimetres (the reference's 3DHP
 MPJPE prints are mm without the x1000 used for H3.6M, run_3dhp.py:561-568).

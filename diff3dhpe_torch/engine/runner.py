@@ -53,6 +53,7 @@ from diff3dhpe_torch.parallel.tensor import (
     shard_model,
     shard_optimizer_state,
     shard_params,
+    WholeWeights,
 )
 
 
@@ -201,16 +202,18 @@ def check_trainable(cfg: Config, device="cpu", world_size: int = 1) -> None:
     LayerNorm kernel holds at the training dtype. bfloat16 training,
     ``remat`` (both modes) and the monolithic backward
     (``fast_train_pair_vjp=False``) train. ``fast_train`` under a
-    ``mesh_shape`` with a ``model`` axis > 1: the fused forward holds whole
-    weights (JAX raises at a data axis > 1 too, engine/steps.py:238-246,
-    and at data 1 trains on replicas that XLA gathers; the port refuses
-    both)."""
+    ``mesh_shape`` whose ``model`` and ``data`` axes are both > 1, as JAX
+    raises there (engine/steps.py:239-246); at a data axis of 1 it trains
+    on whole weights gathered from the shards, as JAX's jit path does
+    (``parallel.tensor.WholeWeights``)."""
     check_supported(cfg, device, world_size)
-    if cfg.fast_train and _model_axis(cfg, world_size) > 1:
-        raise ValueError(f"fast_train=True is not ported under mesh_shape={cfg.mesh_shape!r}: "
-                         f"the fused training forward runs whole weights, and a model axis "
-                         f"shards them; train the plain module (fast_train off) or use a "
-                         f"data-only mesh")
+    sizes = parse_mesh_shape(cfg.mesh_shape, world_size)
+    if cfg.fast_train and sizes["model"] > 1 and sizes["data"] > 1:
+        raise ValueError(f"fast_train=True is not supported under mesh_shape="
+                         f"{cfg.mesh_shape!r}: a model axis beside a data axis > 1, where "
+                         f"JAX's fused training raises too; use 'data:1,model:"
+                         f"{sizes['model']}' or a data-only mesh, or train the plain module "
+                         f"(fast_train off)")
     if cfg.use_pallas_attention and not cfg.fast_train:
         _refuse(cfg, "use_pallas_attention", "its attention kernels have no backward; train "
                 "with fast_train (and fast_train_attn_bwd for the attention backward kernels)")
@@ -262,8 +265,11 @@ class Runner:
     and the plain module's train, val and eval steps run on them; the
     fused eval runs on a whole replica, ``full_model()``, rebuilt from
     the gathered weights before each validation and evaluation (JAX's
-    ``shard_map`` with ``P()`` parameters); ``set_params`` and the
-    checkpoints take and write whole state dicts."""
+    ``shard_map`` with ``P()`` parameters), and ``fast_train`` (at a data
+    axis of 1) trains that replica, loaded from the shards before every
+    step, its gradients sliced back to the shards that AdamW steps
+    (``parallel.tensor.WholeWeights``); ``set_params`` and the checkpoints
+    take and write whole state dicts."""
 
     def __init__(self, cfg: Config, num_joints: int, joints_left, joints_right,
                  logger: Optional[RunLogger] = None, device="cuda", mesh=None):
@@ -273,7 +279,7 @@ class Runner:
         if mesh is not None:
             self.mesh = mesh.with_model_axis(_model_axis(cfg, mesh.size))
         self.cfg = cfg
-        self._replica = None
+        self._replica = self._whole = None
         self.num_joints = num_joints
         self.joints_left = list(joints_left)
         self.joints_right = list(joints_right)
@@ -309,8 +315,12 @@ class Runner:
             mode="s2s" if cfg.out_all else "s2f",
         )
         if cfg.fast_train:
+            train_model = self.model
+            if self.tp:
+                self._whole = WholeWeights(self._replica_module(), self.model, self.mesh)
+                train_model = self._whole.replica
             train_fn = make_fast_train_denoise_fn(
-                self.model, cfg.drop_path_rate, attn_bwd=cfg.fast_train_attn_bwd,
+                train_model, cfg.drop_path_rate, attn_bwd=cfg.fast_train_attn_bwd,
                 dtype=_dtype(cfg), pair_vjp=cfg.fast_train_pair_vjp, matmul_precision=prec)
         else:
             train_fn = make_train_denoise_fn(self.model, cfg.drop_path_rate,
@@ -359,10 +369,16 @@ class Runner:
         (collective)."""
         if not self.tp:
             return self.model
+        replica = self._replica_module()
+        replica.load_state_dict(self.full_state_dict(), strict=True)
+        return replica
+
+    def _replica_module(self):
+        """The whole module that the fused paths run under tensor
+        parallelism, made once (its weights as last loaded)."""
         if self._replica is None:
             self._replica = HPE_model(self.cfg.model)(
                 **self._model_kw, seed=self.cfg.seed, device=self.device).eval()
-        self._replica.load_state_dict(self.full_state_dict(), strict=True)
         return self._replica
 
     @property
@@ -458,7 +474,8 @@ class Runner:
         steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
         optimizer, scheduler = make_optimizer(self.model.parameters(), cfg.learning_rate,
                                               cfg.lr_decay, steps_per_epoch, cfg.weight_decay)
-        train_step = make_train_step(self.train_diffusion, optimizer, scheduler, mesh=self.mesh)
+        train_step = make_train_step(self.train_diffusion, optimizer, scheduler, mesh=self.mesh,
+                                     whole=self._whole)
 
         epoch = 0
         best_epoch = 0

@@ -20,7 +20,8 @@ the per-step noise) for the global batch, in the same order, then keeps
 its rows: the step computes the same thing at every world size. Under a
 ``model`` axis (``parallel.tensor``) the rows are the data rank's, which
 the ranks of one model group compute together, and the sums and gathers
-run over the data group. JAX's
+run over the data group; the fused training step there runs on whole
+weights gathered from the shards (``make_train_step``'s ``whole``). JAX's
 ``shard_map`` fast train draws per shard instead (``fold_in(key,
 axis_index)``); tests reproduce that by injecting its draws.
 
@@ -216,7 +217,8 @@ def _global_train_draws(diffusion, gt_3d_norm, input_2d, generator, t, noise, dp
     return t, noise, dp_scales
 
 
-def make_train_step(diffusion: GaussianDiffusion, optimizer, scheduler=None, mesh=None):
+def make_train_step(diffusion: GaussianDiffusion, optimizer, scheduler=None, mesh=None,
+                    whole=None):
     """Returns train_step(gt_3d_norm, input_2d, *, generator=None, t=None,
     noise=None, dp_scales=None) -> loss (a detached scalar tensor): one
     AdamW step on mean(p_losses) over the parameters ``optimizer`` holds.
@@ -231,11 +233,20 @@ def make_train_step(diffusion: GaussianDiffusion, optimizer, scheduler=None, mes
     all-reduce (JAX's ``pmean``), and every rank takes the same AdamW step.
     The gradients are averaged explicitly: the fused train forward is no
     module ``forward``, so a ``DistributedDataParallel`` wrapper would
-    leave them unreduced."""
+    leave them unreduced.
+
+    ``whole``: a ``parallel.tensor.WholeWeights`` where ``diffusion``'s
+    denoiser runs whole weights under a model axis > 1 (the fused training
+    forward, on ``whole.replica``) while ``optimizer`` holds the rank's
+    shards: before every forward the replica is loaded with the gathered
+    shards, and after the backward each shard takes its slice of the whole
+    gradient; AdamW then steps the shards."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def train_step(gt_3d_norm, input_2d, *, generator=None, t=None, noise=None, dp_scales=None):
         optimizer.zero_grad(set_to_none=True)
+        if whole is not None:
+            whole.load()
         if mesh is not None:
             rows = mesh.rows(gt_3d_norm.shape[0])
             t, noise, dp_scales = _global_train_draws(diffusion, gt_3d_norm, input_2d, generator,
@@ -247,6 +258,8 @@ def make_train_step(diffusion: GaussianDiffusion, optimizer, scheduler=None, mes
         loss = diffusion.training_loss(gt_3d_norm, input_2d, t=t, noise=noise,
                                        generator=generator, dp_scales=dp_scales)
         loss.backward()
+        if whole is not None:
+            whole.shard_grads_()
         if mesh is not None:
             loss = mesh.average_grads_(params, loss)
         optimizer.step()

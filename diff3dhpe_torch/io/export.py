@@ -32,19 +32,22 @@ and every other path of the port takes x_T too. Where
 3] is a fifth input. CLI front end: ``python -m diff3dhpe_torch.cli.export``.
 
 ``sharded=True`` (JAX: the mesh-bound ``shard_map`` program, :53-72)
-exports a data-parallel run's per-rank step at the local batch B / N; its
-metadata records N and the global batch B. Restored in an N-rank run
-(``restore_eval_step(path, mesh)``), the step takes the global inputs,
-runs the rank's rows and gathers the prediction in global order on every
-rank; restored with another number of ranks, or in one process, it raises
-a ValueError naming both sizes (``jax.export``'s ``nr_devices`` check).
+exports the per-rank step of a run of ``mesh_shape`` "data:N,model:M" at
+the local batch B / N; its metadata records the world size N·M, both axis
+sizes and the global batch B. Under a model axis > 1 the step is traced,
+as the live fused eval runs, on the whole module of the gathered weights,
+which enter the artifact whole (as JAX's ``P()`` parameters do). Restored
+in a run of the same mesh shape (``restore_eval_step(path, mesh)``, each
+rank's mesh laid out as the export's), the step takes the global inputs,
+runs the rank's data rows and gathers the prediction in global order on
+every rank; restored under another mesh shape (another world size, or the
+same one laid out otherwise), or in one process, it raises a ValueError
+naming both shapes. JAX's ``nr_devices`` check counts devices only; the
+port's per-rank batch B / N depends on the layout.
 
-From a tensor-parallel runner (a ``mesh_shape`` with a ``model`` axis > 1)
-the one-process export traces the whole module, loaded with the gathered
-weights (JAX's default ``sharded=False``, :74-81), so the artifact is
-the one a single process exports; ``sharded=True`` there raises a
-ValueError naming ``mesh_shape`` (the per-rank step of a tensor-parallel
-run is not ported, ROADMAP A.15).
+From a tensor-parallel runner the one-process export traces the same whole
+module (JAX's default ``sharded=False``, :74-81), so the artifact is the
+one a single process exports.
 """
 from __future__ import annotations
 
@@ -157,24 +160,21 @@ def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool
     is a state dict of the runner's model (its weights only shape the
     export).
 
-    ``sharded=True``: the per-rank step of the runner's data-parallel run
-    (``runner.mesh``, which it needs) at ``batch_size`` / N rows, which
-    must divide (a ValueError, "does not divide", otherwise); the artifact
-    is restored in a run of N ranks (``restore_eval_step``); under a model
-    axis > 1 it raises a ValueError naming ``mesh_shape``. In a run across
-    processes rank 0 alone traces and writes the artifact, and the other
-    ranks wait for it and return None; a tensor-parallel runner's ranks
-    first gather the whole weights (module doc)."""
+    ``sharded=True``: the per-rank step of the runner's run across
+    processes (``runner.mesh``, which it needs, "data:N,model:M") at
+    ``batch_size`` / N rows, which must divide (a ValueError, "does not
+    divide", otherwise); the artifact is restored in a run of the same
+    mesh shape (``restore_eval_step``). In a run across processes rank 0
+    alone traces and writes the artifact, and the other ranks wait for it
+    and return None; a tensor-parallel runner's ranks first gather the
+    whole weights (module doc)."""
     mesh = getattr(runner, "mesh", None)
     platforms = check_platforms(platforms, runner.device)
     if sharded and mesh is None:
-        raise ValueError("sharded=True exports the per-rank step of a data-parallel run: build "
-                         "the runner with its DataMesh (Runner(mesh=...); the CLI under torchrun "
-                         "with --mesh-shape data:N)")
-    if sharded and mesh.model_size > 1:
-        raise ValueError(f"sharded=True under mesh_shape={mesh.shape!r} is not ported: the "
-                         f"per-rank step of a tensor-parallel run (ROADMAP A.15); export the "
-                         f"whole step (sharded=False) or from a data-only mesh")
+        raise ValueError("sharded=True exports the per-rank step of a data-parallel run (or "
+                         "a tensor-parallel one): build the runner with its DataMesh "
+                         "(Runner(mesh=...); the CLI under torchrun with --mesh-shape data:N or "
+                         "data:N,model:M)")
     local = batch_size
     if sharded:
         rows = mesh.rows(batch_size)
@@ -197,7 +197,8 @@ def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool
     meta = dict(keys=list(state), device=str(runner.device), platforms=platforms,
                 final_prec=cfg.eval_final_prec if mixed else None,
                 matmul_precision=cfg.matmul_precision, batch_size=local,
-                sharded=dict(world_size=mesh.size, global_batch=batch_size) if sharded else None,
+                sharded=dict(world_size=mesh.size, data=mesh.data_size, model=mesh.model_size,
+                             global_batch=batch_size) if sharded else None,
                 temporal_mode=temporal_mode,
                 num_frames=cfg.number_of_frames, num_joints=runner.num_joints,
                 noises=bool(cfg.ddim_sampling_eta),
@@ -214,6 +215,15 @@ def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool
     return data
 
 
+def _mesh_shape(sizes) -> str:
+    """The words for a mesh shape (data N, model M): its ``mesh_shape``
+    and rank count, or one process where there is none."""
+    if not sizes:
+        return "one process"
+    data, model = sizes
+    return f"mesh_shape 'data:{data},model:{model}' ({data * model} rank(s))"
+
+
 def restore_eval_step(artifact: Union[str, bytes, bytearray], mesh=None, device=None):
     """Loads an exported eval step (a path or the bytes) -> step(state,
     input_2d, input_2d_flip, x_init[, noises]).
@@ -227,13 +237,14 @@ def restore_eval_step(artifact: Union[str, bytes, bytearray], mesh=None, device=
     is moved there. The inputs must have the export's shapes. Runs without
     autograd.
 
-    A sharded artifact is restored in a data-parallel run of as many ranks
-    as it was exported for, each passing its ``mesh``; the step then takes
-    the global inputs (the export's global batch), runs on ``mesh.device``
-    the rank's rows (x_T's and ``noises``' as ``make_eval_step`` slices
-    them) and returns the prediction gathered in global order. The world
-    size (1 for an artifact that is not sharded, and without ``mesh``) must
-    be the artifact's: a ValueError names both otherwise."""
+    A sharded artifact is restored in a run of the mesh shape it was
+    exported for ("data:N,model:M"), each rank passing its ``mesh`` of that
+    layout; the step then takes the global inputs (the export's global
+    batch) and the whole state dict, runs on ``mesh.device`` the rank's
+    data rows (x_T's and ``noises``' as ``make_eval_step`` slices them) and
+    returns the prediction gathered in global order. The mesh shape (none
+    for an artifact that is not sharded, and without ``mesh``) must be the
+    artifact's: a ValueError names both otherwise."""
     import diff3dhpe_torch.ops  # noqa: F401 (registers the diff3dhpe:: operators)
 
     extra = {META: ""}
@@ -241,12 +252,14 @@ def restore_eval_step(artifact: Union[str, bytes, bytearray], mesh=None, device=
     program = torch.export.load(src, extra_files=extra)
     meta = json.loads(extra[META])
     sharded = meta.get("sharded")
-    want, have = (sharded["world_size"] if sharded else 1), (1 if mesh is None else mesh.size)
+    want = _mesh_shape(None if not sharded else (sharded.get("data", sharded["world_size"]),
+                                                 sharded.get("model", 1)))
+    have = _mesh_shape(None if mesh is None else (mesh.data_size, mesh.model_size))
     if want != have:
         batch = sharded["global_batch"] if sharded else meta["batch_size"]
-        raise ValueError(f"this eval step was exported for {want} data-parallel rank(s) (global "
-                         f"batch {batch}) and is restored with {have}: restore it in a run of "
-                         f"{want} rank(s), passing each rank's DataMesh")
+        raise ValueError(f"this eval step was exported for {want} (global batch {batch}) and is "
+                         f"restored {'in' if mesh is None else 'under'} {have}: restore it in a "
+                         f"run of that mesh shape, passing each rank's DataMesh of that layout")
     keys, dev = meta["keys"], torch.device(meta["device"])
     platforms = meta.get("platforms") or [dev.type]
     if device is not None and torch.device(device).type not in platforms:

@@ -18,10 +18,11 @@ from diff3dhpe_torch.parallel.tensor import (
     shard_model,
     shard_optimizer_state,
     shard_params,
+    WholeWeights,
 )
 
 __all__ = ["DataMesh", "check_divisible", "check_mesh_shape", "check_params_replicated",
            "copy_to_model", "entry_ranks", "full_param_count", "gather_optimizer_state",
            "gather_params", "param_sharding_rules", "parse_mesh_shape",
            "rank_device", "reduce_from_model", "shard_model", "shard_optimizer_state",
-           "shard_params", "start_ranks"]
+           "shard_params", "start_ranks", "WholeWeights"]

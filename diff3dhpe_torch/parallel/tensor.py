@@ -27,6 +27,12 @@ and ``reduce_from_model`` after each row-parallel one (all-reduce forward,
 identity backward), the bias added once after it. A replicated parameter
 then gets the same gradient on every rank of a model group. Every
 collective is an ``all_reduce``, which ``gloo`` also takes on CUDA tensors.
+
+The fused paths run whole weights (JAX's XLA gathers the sharded
+parameters for its Pallas calls): the fused eval and the export on a
+replica loaded with the gathered shards, and the fused training step
+through ``WholeWeights``, which loads that replica before every step and
+hands each shard its slice of the whole gradient after the backward.
 """
 from __future__ import annotations
 
@@ -196,6 +202,37 @@ def _map_moments(optimizer_state, names, fn):
         for name, value in fn(part).items():
             out[names.index(name)][key] = value
     return dict(optimizer_state, state=out)
+
+
+class WholeWeights:
+    """A whole module, ``replica``, beside a model rank's shards,
+    ``model``, for a training step that runs whole weights (the fused
+    training forward; JAX's jit path at "data:1,model:M", where XLA gathers
+    the sharded parameters). ``load()`` fills the replica with the gathered
+    shards (exact, ``gather_params``; collective over the model group) and
+    clears its gradients; ``shard_grads_()``, after the backward, sets each
+    shard's gradient to its slice of the replica's (``shard_params``). Every
+    rank of a model group computes the same whole gradient, so the slice
+    needs no sum: the transpose of a gather is a slice."""
+
+    def __init__(self, replica: torch.nn.Module, model: torch.nn.Module, mesh):
+        self.replica, self.model, self.mesh = replica, model, mesh
+
+    def load(self) -> None:
+        whole = gather_params({n: p.detach() for n, p in self.model.named_parameters()},
+                              self.mesh)
+        with torch.no_grad():
+            for name, param in self.replica.named_parameters():
+                param.copy_(whole[name])
+                param.grad = None
+
+    def shard_grads_(self) -> None:
+        grads = {n: p.grad for n, p in self.replica.named_parameters() if p.grad is not None}
+        local = shard_params(grads, self.mesh)
+        for name, param in self.model.named_parameters():
+            param.grad = local.get(name)
+        for param in self.replica.parameters():
+            param.grad = None
 
 
 class _CopyToModel(torch.autograd.Function):

@@ -320,7 +320,8 @@ def test_sharded_export_round_trip(run):
     for bit the live two-rank step."""
     e0, e1 = (res["export"] for res in run["ranks"])
     assert e0["bytes"] > 0 and e1["bytes"] is None
-    assert e0["meta"] == e1["meta"] == dict(world_size=WORLD, global_batch=B)
+    assert e0["meta"] == e1["meta"] == dict(world_size=WORLD, data=WORLD, model=1,
+                                            global_batch=B)
     for e in (e0, e1):
         assert e["served"].shape == (B, F, J, 3)
         assert torch.equal(e["served"], e["live"])
@@ -328,7 +329,8 @@ def test_sharded_export_round_trip(run):
 
 
 def test_sharded_export_refuses_another_world_size(run):
-    with pytest.raises(ValueError, match=r"exported for 2 data-parallel rank\(s\).*with 1"):
+    with pytest.raises(ValueError, match=r"exported for mesh_shape 'data:2,model:1' \(2 "
+                                         r"rank\(s\)\).*restored in one process"):
         restore_eval_step(run["spec"]["artifact"])
 
 

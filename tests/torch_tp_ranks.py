@@ -1,6 +1,7 @@
 """The rank side of tests/test_torch_tensor_parallel.py: the port's tensor
 parallelism (``mesh_shape`` "data:2,model:2", and "data:1,model:2" on two
-groups of two side by side) run by each of four processes of one gloo
+groups of two side by side: the plain module, the fused training on whole
+weights, the sharded export) run by each of four processes of one gloo
 group on the CPU. It imports no JAX; the test process imports it too, for
 the one-process references of the same cases.
 
@@ -18,14 +19,15 @@ from diff3dhpe_torch.config import Config
 from diff3dhpe_torch.data import PoseDataset, make_synthetic_h36m_like
 from diff3dhpe_torch.diffusion import GaussianDiffusion
 from diff3dhpe_torch.engine import (
-    make_denoise_fn, make_eval_step, make_optimizer, make_train_denoise_fn, make_train_step,
+    make_denoise_fn, make_eval_step, make_fast_train_denoise_fn, make_optimizer,
+    make_train_denoise_fn, make_train_step,
 )
 from diff3dhpe_torch.engine import runner as runner_module
 from diff3dhpe_torch.engine.runner import Runner, RunLogger
 from diff3dhpe_torch.models import MixSTEDenoiser
 from diff3dhpe_torch.parallel import DataMesh
 from diff3dhpe_torch.parallel.tensor import (
-    check_params_replicated, gather_params, shard_model, shard_params,
+    WholeWeights, check_params_replicated, gather_params, shard_model, shard_params,
 )
 
 F, J, EMBED, DEPTH, HEADS = 9, 17, 32, 1, 8
@@ -37,12 +39,14 @@ EVAL_KW = dict(timesteps=20, sampling_timesteps=3, clip_denoised=True)
 TRAIN_KW = dict(timesteps=1000, sampling_timesteps=3, clip_loss=True)
 DROP_PATH, LR = 0.5, 1e-3
 # tests/torch_parallel_ranks.py's fit (96 train windows: 6 steps of 16 an
-# epoch; 48 val windows), on the plain module: fast_train takes no model axis.
+# epoch; 48 val windows), on the plain module; FAST_FIT trains the fused path
+# at "data:1,model:2" (JAX refuses it beside a data axis > 1).
 FIT = dict(subjects_train="S1", subjects_test="S9", number_of_frames=F, stride=F,
            embed_dim=EMBED, transformer_depth=DEPTH, num_heads=HEADS, timesteps=50,
            sampling_timesteps=3, batch_size=16, batch_size_eval=16, actions="Walking", seed=5,
            epochs=2, learning_rate=1e-3, lr_decay=0.5, drop_path_rate=0.1,
            checkpoint_frequency=1)
+FAST_FIT = dict(fast_train=True, fast_train_attn_bwd=True, no_eval=True)
 MIXED = dict(fast_eval=True, compute_dtype="bfloat16", eval_f32_final_steps=1,
              eval_f32_head=True)
 FUSED = {"f32": dict(fast_eval=True), "mixed": MIXED}
@@ -64,16 +68,27 @@ def whole(tensors, mesh):
     return tensors if mesh is None else gather_params(tensors, mesh)
 
 
-def run_train(weights, batch, mesh=None, dtype=torch.float32, drop_path=0.0, **draws):
+def run_train(weights, batch, mesh=None, dtype=torch.float32, drop_path=0.0, fast=False,
+              **draws):
     """(loss, {name: whole grad}, {name: whole param after the step}) of one
     AdamW step of the plain module on ``batch`` (gt, x2d) with the injected
-    ``draws`` or, with ``seed``, the generator's."""
+    ``draws`` or, with ``seed``, the generator's. ``fast``: the fused
+    training path (``attn_bwd``) at ``dtype``, under ``mesh``'s model axis
+    on a whole replica loaded from the shards (``WholeWeights``)."""
     port = model(weights, mesh, dtype).train()
     seed = draws.pop("seed", None)
     generator = None if seed is None else torch.Generator().manual_seed(seed)
+    replica = None
+    if fast and mesh is not None:
+        replica = WholeWeights(model(weights, dtype=dtype), port, mesh)
+    if fast:
+        fn = make_fast_train_denoise_fn(port if replica is None else replica.replica, drop_path,
+                                        attn_bwd=True, dtype=dtype)
+    else:
+        fn = make_train_denoise_fn(port, drop_path)
     optimizer, scheduler = make_optimizer(port.parameters(), LR, 0.99, steps_per_epoch=10)
-    step = make_train_step(GaussianDiffusion.create(make_train_denoise_fn(port, drop_path),
-                                                    **TRAIN_KW), optimizer, scheduler, mesh=mesh)
+    step = make_train_step(GaussianDiffusion.create(fn, **TRAIN_KW), optimizer, scheduler,
+                           mesh=mesh, whole=replica)
     loss = step(*batch, generator=generator, **draws)
     grads = {n: p.grad.clone() for n, p in port.named_parameters()}
     params = {n: p.detach().clone() for n, p in port.named_parameters()}
@@ -97,8 +112,8 @@ def fused_eval(weights, mode, mesh=None, mesh_shape=None, **inputs):
     return runner.eval_step(inputs["x2d"], inputs["x2d_flip"], x_init=inputs["x_init"])
 
 
-def fit_runner(checkpoint, mesh=None, logger=None, mesh_shape=None):
-    cfg = Config(**FIT, checkpoint=str(checkpoint), mesh_shape=mesh_shape)
+def fit_runner(checkpoint, mesh=None, logger=None, mesh_shape=None, **fields):
+    cfg = Config(**{**FIT, **fields}, checkpoint=str(checkpoint), mesh_shape=mesh_shape)
     runner = Runner(cfg, J, JOINTS_LEFT, JOINTS_RIGHT, logger=logger, device="cpu", mesh=mesh)
     ds, kps = make_synthetic_h36m_like(subjects=("S1", "S9"), n_frames=100, seed=1)
     return runner, PoseDataset(cfg, ds, "data", "train", keypoints_data=kps), PoseDataset(
@@ -108,6 +123,31 @@ def fit_runner(checkpoint, mesh=None, logger=None, mesh_shape=None):
 def fit_summary(out):
     return dict(losses_train=list(out["losses_train"]), losses_valid=list(out["losses_valid"]),
                 best_epoch=out["best_epoch"], min_loss=float(out["min_loss"]))
+
+
+def fast_fit(checkpoint, mesh=None, mesh_shape=None):
+    """``Runner.fit`` of FAST_FIT (2 epochs, a checkpoint each), then the
+    run resumed from its epoch_0 for epoch 1: dict(losses, resumed (the
+    resumed run's losses), state (the whole weights after the 2 epochs))."""
+    runner, train_ds, val_ds = fit_runner(checkpoint, mesh, None, mesh_shape, **FAST_FIT)
+    out = dict(losses=runner.fit(train_ds, val_ds)["losses_train"])
+    out["state"] = {k: v.clone() for k, v in runner.full_state_dict().items()}
+    runner, train_ds, val_ds = fit_runner(os.path.join(checkpoint, "resumed"), mesh, None,
+                                          mesh_shape, **FAST_FIT)
+    out["resumed"] = runner.fit(train_ds, val_ds, resume=os.path.join(checkpoint, "epoch_0"))[
+        "losses_train"]
+    return out
+
+
+def served_and_live(runner, path, inputs, mesh=None):
+    """The artifact at ``path`` restored under ``mesh`` and run on the
+    runner's whole weights, and the runner's live eval step, on ``inputs``."""
+    from diff3dhpe_torch.io.export import restore_eval_step
+
+    step = restore_eval_step(path, mesh)
+    served = step(runner.full_state_dict(), inputs["x2d"], inputs["x2d_flip"], inputs["x_init"])
+    live = runner.eval_step(inputs["x2d"], inputs["x2d_flip"], x_init=inputs["x_init"])
+    return dict(served=served, live=live, meta=step.meta)
 
 
 def cli_argv(weights_path, checkpoint, extra=()):
@@ -135,7 +175,7 @@ def _wait_for(path, seconds=120):
 def run_tp_cases(spec, world, out_dir):
     """Every case of ``spec`` on this rank of four; returns {case: result}."""
     from diff3dhpe_torch.cli.run import main as cli_main
-    from diff3dhpe_torch.io.export import export_eval_step
+    from diff3dhpe_torch.io.export import export_eval_step, restore_eval_step
 
     res = {}
     w = spec["weights"]
@@ -199,14 +239,41 @@ def run_tp_cases(spec, world, out_dir):
     res["cli"] = dict(errors={k: [float(e) for e in v] for k, v in errors.items()},
                       stdout=text.getvalue())
 
-    # The sharded export refuses a model axis.
-    runner = Runner(Config(**{**FIT, "batch_size_eval": 4, "mesh_shape": MESH}), J,
-                    JOINTS_LEFT, JOINTS_RIGHT, device="cpu", mesh=world)
+    # The fused training at data:1,model:2, on whole weights gathered from
+    # the shards: one step at f32 and at bf16 with JAX's draws, then fit.
+    pair_mesh = meshes["data:1,model:2"]
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        res[f"fast_train/{name}"] = run_train(w, batch, pair_mesh, dtype, DROP_PATH, fast=True,
+                                              **spec["jax_fast_draws"])
+    res["fast_fit"] = fast_fit(f"{spec['fit_dir']}_pair{world.rank // 2}", pair_mesh,
+                               "data:1,model:2")
+
+    # The sharded export at data:2,model:2: rank 0 traces, every rank
+    # restores; then the same artifact under data:4, and the CLI's.
+    for mode in FUSED:
+        runner = Runner(Config(**{**FIT, "batch_size_eval": 4, **FUSED[mode], "mesh_shape": MESH}),
+                        J, JOINTS_LEFT, JOINTS_RIGHT, device="cpu", mesh=world)
+        runner.set_params(w)
+        path = os.path.join(out_dir, f"sharded_{mode}.pt2")
+        data = export_eval_step(runner, batch_size=4, path=path, sharded=True)
+        res[f"export/{mode}"] = dict(served_and_live(runner, path, inputs, runner.mesh),
+                                     bytes=None if data is None else len(data))
     try:
-        export_eval_step(runner, batch_size=4, sharded=True)
-        res["export_sharded"] = None
+        served_and_live(runner, path, inputs, world)
+        res["export/data:4"] = None
     except ValueError as e:
-        res["export_sharded"] = str(e)
+        res["export/data:4"] = str(e)
+    from diff3dhpe_torch.cli.export import main as export_main
+
+    path = os.path.join(out_dir, "sharded_cli.pt2")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        export_main(cli_argv(spec["weights_path"], os.path.join(out_dir, "cli_export"), [
+            "--mesh-shape", MESH, "--export-sharded", "--output", path,
+            "--export-batch-size", "4"]), device="cpu")
+    step = restore_eval_step(path, mesh)
+    res["export/cli"] = dict(stdout=text.getvalue(), meta=step.meta, served=step(
+        w, x2d, x2d_flip, spec["jax_x_init"][1]))
     return res
 
 
