@@ -24,6 +24,7 @@ from diff3dhpe_torch.models import (
     MixSTEDenoiser,
     bf16_snapshot,
     draw_drop_path_scales,
+    draw_dropout_masks,
     fast_forward_denoise,
     fast_forward_denoise_train,
     fast_forward_denoise_train_pairs,
@@ -48,7 +49,7 @@ from diff3dhpe_torch.ops import (
 
 __all__ = [
     "GaussianDiffusion", "HPE_model", "MixSTEDenoiser", "RunLogger", "Runner", "bf16_snapshot",
-    "ddim_time_pairs", "draw_drop_path_scales", "fast_forward_denoise",
+    "ddim_time_pairs", "draw_drop_path_scales", "draw_dropout_masks", "fast_forward_denoise",
     "fast_forward_denoise_train", "fast_forward_denoise_train_pairs", "flip_pose", "fused_attention_block",
     "fused_attention_block_ref", "fused_grand_attention", "fused_temporal_block_cols",
     "fused_temporal_block_cols_ref", "fused_transformer_block", "fused_transformer_block_ref",

@@ -78,8 +78,10 @@ class Config:
     # Execution. Every field of the JAX package's Config is kept, so its
     # config files and command lines parse; ``engine.runner.Runner`` refuses
     # the values the port cannot run yet (see its docstring).
-    # Data-parallel ranks, "data:N" with N the world size (None: every rank
-    # on data); a "model" axis > 1 (JAX's tensor parallelism) is refused.
+    # The ranks' mesh, "data:N,model:M" with N·M the world size (None: every
+    # rank on data): N data-parallel groups (parallel/mesh.py), each of M
+    # ranks splitting the heads and the MLP's hidden width (tensor
+    # parallelism, parallel/tensor.py); M must divide both.
     mesh_shape: Optional[str] = None
     # The session matmul precision of the float32 products outside the fused
     # blocks (ops/matmul_precision.py): "highest", or one bf16 pass at
@@ -87,7 +89,7 @@ class Config:
     matmul_precision: str = "highest"
     compute_dtype: str = "float32"  # "bfloat16" for the fast eval path
     # The module's attention goes through the attention kernels
-    # (ops.attention.fused_grand_attention); float32 only.
+    # (ops.attention.fused_grand_attention), at float32 or bfloat16.
     use_pallas_attention: bool = False
     remat: bool = False  # rematerialised backward of training (JAX); evaluation ignores it
     remat_mode: str = "block"
@@ -98,12 +100,13 @@ class Config:
     # (final LN + [C, 3] projection) stays float32 on the bf16 trunk.
     eval_f32_final_steps: int = 0
     eval_f32_head: bool = False
-    # float32 contraction mode of those final steps in JAX: "high3" and
-    # "highest" both mean exact float32 here; "default" (one bf16 pass) is
-    # not ported.
+    # The float32 contraction mode of those final steps' fused blocks
+    # (ops/fused_block.py): "highest" (exact float32), "high3" (bf16x3) or
+    # "default" (one bf16 pass).
     eval_final_prec: str = "high3"
-    # N > 0: only the last N block pairs of the final step run float32
-    # (JAX); not ported.
+    # N > 0: only the last N block pairs and the head of the final steps
+    # run float32, on a bf16 forward (fast_eval with compute_dtype
+    # "bfloat16" and eval_f32_final_steps > 0; the precision tail).
     eval_f32_tail_pairs: int = 0
     # Fused-kernel training forward with the pair-boundary recompute
     # backward (models/fast_eval.py), and its attention backward kernels.

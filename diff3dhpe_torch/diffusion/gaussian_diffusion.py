@@ -68,7 +68,12 @@ class GaussianDiffusion:
         clip_loss: bool = False,
         final_denoise_fn=None,
         final_denoise_steps: int = 1,
+        p2_loss_weight_gamma: float = 0.0,
+        p2_loss_weight_k: float = 1.0,
     ) -> "GaussianDiffusion":
+        """``p2_loss_weight_gamma`` and ``p2_loss_weight_k`` set
+        ``constants.p2_loss_weight`` (``make_diffusion_constants``), as
+        JAX's ``create`` does; no loss reads it, in either package."""
         if sampling_timesteps is None:
             sampling_timesteps = timesteps
         if not 0 < sampling_timesteps <= timesteps:
@@ -78,7 +83,8 @@ class GaussianDiffusion:
             raise ValueError(f"invalid loss type {loss_type}")
         return cls(
             denoise_fn=denoise_fn,
-            constants=make_diffusion_constants(beta_schedule, timesteps),
+            constants=make_diffusion_constants(beta_schedule, timesteps, p2_loss_weight_gamma,
+                                               p2_loss_weight_k),
             sampling_timesteps=int(sampling_timesteps),
             clip_denoised=clip_denoised,
             ddim_sampling_eta=float(ddim_sampling_eta),

@@ -44,11 +44,14 @@ from diff3dhpe_torch.device import resolve_device
 from diff3dhpe_torch.diffusion.gaussian_diffusion import GaussianDiffusion
 from diff3dhpe_torch.models.fast_eval import (
     bf16_snapshot,
+    check_fused,
     draw_drop_path_scales,
     fast_forward_denoise,
     fast_forward_denoise_train,
     fast_forward_denoise_train_pairs,
 )
+from diff3dhpe_torch.models.mixste import draw_dropout_masks
+from diff3dhpe_torch.parallel.tensor import shard_dropout_masks
 
 
 def make_denoise_fn(model, matmul_precision: str = "highest") -> Callable:
@@ -86,7 +89,9 @@ def make_fast_denoise_fn(model, dtype=torch.float32, temporal_mode: str = "rows"
     "high3" or "default"; JAX's ``f32_prec``, :80-101), for this function
     alone; the port reads no mode from the environment.
     ``matmul_precision``: the session precision of the float32 products
-    outside the fused blocks."""
+    outside the fused blocks. A module with ``qk_scale`` or dropout is
+    refused (``models.fast_eval.check_fused``)."""
+    check_fused(model)
     bf16 = dtype == torch.bfloat16
     weights = bf16_snapshot(model, f32_head) if bf16 else model
     tail = f32_tail_pairs if bf16 else 0
@@ -128,11 +133,15 @@ def make_mixed_diffusion(model, temporal_mode: str = "rows", f32_tail_pairs: int
 def _train_denoise_fn(model, drop_path_rate, forward):
     """denoise_fn(x, t, *, dp_scales=None, generator=None) for training:
     ``forward(x, t, dp_scales)``, with the drop-path scales drawn from the
-    generator when they are not given (neither: no drop-path)."""
+    generator when they are not given (neither: no drop-path), and after
+    them, where the module drops, its dropout masks (``dp_scales``' third
+    entry, ``models.mixste.draw_dropout_masks``)."""
 
     def draw_dp_scales(generator, batch, num_frame, num_joints):
-        return draw_drop_path_scales(generator, batch, model.depth, drop_path_rate, num_frame,
-                                     num_joints)
+        dp = draw_drop_path_scales(generator, batch, model.depth, drop_path_rate, num_frame,
+                                   num_joints)
+        masks = draw_dropout_masks(model, generator, batch, num_frame, num_joints)
+        return dp if masks is None else (*dp, masks)
 
     def denoise_fn(x, t, *, dp_scales=None, generator=None):
         if dp_scales is None and generator is not None:
@@ -159,7 +168,10 @@ def make_fast_train_denoise_fn(model, drop_path_rate: float = 0.1, attn_bwd: boo
     ``grand_attention_trainable`` (its kernels on CUDA). ``temporal_mode``:
     the fused forward's temporal layout, "rows" or "cols" (B2).
     ``matmul_precision``: the session precision of the float32 products
-    outside the fused blocks and of the recompute, forward and backward."""
+    outside the fused blocks and of the recompute, forward and backward.
+    A module with ``qk_scale`` or dropout is refused
+    (``models.fast_eval.check_fused``)."""
+    check_fused(model)
     if pair_vjp and ckpt_blocks:
         warnings.warn(
             "ckpt_blocks has no effect when pair_vjp=True (the pair backward already "
@@ -217,6 +229,15 @@ def _global_train_draws(diffusion, gt_3d_norm, input_2d, generator, t, noise, dp
     return t, noise, dp_scales
 
 
+def _local_draws(dp_scales, rows, mesh):
+    """The rank's part of a global batch's drop-path scales (and dropout
+    masks): its rows, and its model rank's part of each mask."""
+    local = [None if d is None else d[:, rows] for d in dp_scales[:2]]
+    if len(dp_scales) > 2:
+        local.append(shard_dropout_masks({k: m[:, rows] for k, m in dp_scales[2].items()}, mesh))
+    return tuple(local)
+
+
 def make_train_step(diffusion: GaussianDiffusion, optimizer, scheduler=None, mesh=None,
                     whole=None):
     """Returns train_step(gt_3d_norm, input_2d, *, generator=None, t=None,
@@ -228,7 +249,9 @@ def make_train_step(diffusion: GaussianDiffusion, optimizer, scheduler=None, mes
     With ``mesh``: the inputs and the draws (given or drawn) are those of
     the global batch, which must divide the data ranks (else a ValueError,
     "does not divide"); each rank runs its rows (``DataMesh.rows``; the
-    drop-path scales [depth, B, ...] on their axis 1), then the gradients
+    drop-path scales [depth, B, ...] and the dropout masks on their axis 1;
+    under a model axis the masks' heads and hidden columns of the model
+    rank, ``parallel.tensor.shard_dropout_masks``), then the gradients
     and the loss are averaged over the data ranks after the backward in one
     all-reduce (JAX's ``pmean``), and every rank takes the same AdamW step.
     The gradients are averaged explicitly: the fused train forward is no
@@ -253,7 +276,7 @@ def make_train_step(diffusion: GaussianDiffusion, optimizer, scheduler=None, mes
                                                       t, noise, dp_scales)
             gt_3d_norm, input_2d, t, noise = (a[rows] for a in (gt_3d_norm, input_2d, t, noise))
             if dp_scales is not None:
-                dp_scales = tuple(d[:, rows] for d in dp_scales)
+                dp_scales = _local_draws(dp_scales, rows, mesh)
             generator = None  # every draw is made
         loss = diffusion.training_loss(gt_3d_norm, input_2d, t=t, noise=noise,
                                        generator=generator, dp_scales=dp_scales)

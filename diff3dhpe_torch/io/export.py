@@ -167,7 +167,10 @@ def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool
     mesh shape (``restore_eval_step``). In a run across processes rank 0
     alone traces and writes the artifact, and the other ranks wait for it
     and return None; a tensor-parallel runner's ranks first gather the
-    whole weights (module doc)."""
+    whole weights (module doc). A fused eval step refuses a module with
+    ``qk_scale`` or dropout (``models.fast_eval.check_fused``)."""
+    from diff3dhpe_torch.models.fast_eval import check_fused
+
     mesh = getattr(runner, "mesh", None)
     platforms = check_platforms(platforms, runner.device)
     if sharded and mesh is None:
@@ -181,6 +184,8 @@ def export_eval_step(runner, batch_size: int, path: str = None, *, sharded: bool
         local = rows.stop - rows.start
     full = getattr(runner, "full_model", None)
     model = runner.model if full is None else full()  # collective under tensor parallelism
+    if runner.cfg.fast_eval:  # on every rank, before rank 0 alone traces
+        check_fused(model)
     if mesh is not None and not mesh.is_main:
         mesh.barrier()
         return None

@@ -54,6 +54,12 @@ mirror ignores it too).
   whole fused forward (JAX's monolithic ``fast_forward_denoise_train``, the
   ``pair_vjp=False`` path) whose backward recomputes the whole mirror,
   each block under ``checkpoint`` with ``ckpt_blocks``.
+
+Every entry point here refuses a module that sets ``qk_scale`` or a
+dropout rate (``check_fused``): the fused blocks and the mirror run
+head_dim^-½ and drop nothing. JAX's fused paths read only the parameters
+and ``num_heads`` and run the same whatever the module says
+(diff3dhpe_tpu/models/fast_eval.py:151-164, :363).
 """
 from __future__ import annotations
 
@@ -188,6 +194,19 @@ def _check_dtype(dtype):
         raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
 
 
+def check_fused(model):
+    """Raises a ValueError naming the field where ``model`` (a
+    MixSTEDenoiser or its ``bf16_snapshot``) sets ``qk_scale`` or a dropout
+    rate above 0, which the fused paths do not run (module doc)."""
+    for field in ("qk_scale", "drop_rate", "attn_drop_rate"):
+        value = getattr(model, field, None)
+        if value:
+            raise ValueError(
+                f"{field}={value!r}: the fused forward runs its attention at head_dim^-0.5 and "
+                "drops nothing, so it refuses the field (JAX's fused paths ignore it); run the "
+                "plain module (make_denoise_fn, make_train_denoise_fn) instead")
+
+
 @torch.no_grad()
 def fast_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
                          temporal_mode="rows", f32_head=False, f32_tail_pairs=0,
@@ -217,6 +236,7 @@ def fast_forward_denoise(model, x, time, dp_scales=None, *, dtype=torch.float32,
     _check_mode(temporal_mode)
     _check_dtype(dtype)
     f32_mode_index(f32_prec)
+    check_fused(model)
     prec = matmul_precision
     b, f, p, _ = x.shape
     tail_start = model.depth
@@ -342,6 +362,7 @@ def fast_forward_denoise_train_pairs(model, x, time, dp_scales=None, attn_bwd=Fa
     and of the recompute's (module doc)."""
     _check_mode(temporal_mode)
     _check_dtype(dtype)
+    check_fused(model)
     b, f, p, _ = x.shape
     dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
     prec = matmul_precision
@@ -402,6 +423,7 @@ def fast_forward_denoise_train(model, x, time, dp_scales=None, attn_bwd=False,
     rounding."""
     _check_mode(temporal_mode)
     _check_dtype(dtype)
+    check_fused(model)
     dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
     opts = dict(attn_bwd=attn_bwd, temporal_mode=temporal_mode, dtype=dtype,
                 ckpt_blocks=ckpt_blocks, matmul_precision=matmul_precision)

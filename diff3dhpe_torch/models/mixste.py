@@ -20,7 +20,16 @@ Per denoise call (x: [B, F, J, in_chans + 3] = 2D xy ++ noisy 3D xyz):
 Drop-path (stochastic depth) takes explicit scales: ``forward(x, time,
 dp_scales)`` with one scale per attention group and residual branch, the
 counterpart of the flax ``DropPath`` and of JAX's ``xla_forward_denoise``
-with ``dp_scales``. Dropout is 0 in every shipped config and not ported.
+with ``dp_scales``. Dropout (``drop_rate``, ``attn_drop_rate``; 0 in every
+shipped config) takes explicit masks the same way, as a third entry of
+``dp_scales`` (``draw_dropout_masks``), at flax's sites and in flax's
+order: after each position embedding, after the attention's ``proj``,
+after the MLP's GELU and after its ``fc2`` (``drop_rate``), and, where
+``attn_drop_rate`` > 0, on the materialised attention probabilities,
+ahead of ``use_pallas`` (JAX mixste.py:138-143). Without masks (the
+evaluation) no element is dropped. ``qk_scale`` is the attention's scale
+in place of head_dim^-½, with JAX's ``or``: None and 0 both mean
+head_dim^-½.
 
 Tensor parallelism (``parallel.tensor.shard_model``): each ``Attention``
 and ``Mlp`` holds its model rank's heads and hidden columns and its
@@ -124,6 +133,71 @@ def silu(x):
     return F.silu(x) if x.dtype == torch.float32 else x * (1 / (1 + torch.exp(-x)))
 
 
+def dropout(x, kept, rate):
+    """flax ``nn.Dropout`` on x with its mask given: ``kept`` (bool, x's
+    shape) marks the kept elements, each x / (1 − rate) in x's dtype (a
+    division by the keep rate as a constant of x's dtype, JAX's weakly
+    typed Python float), the others 0. With ``kept`` None or a rate of 0 it
+    returns x; at a rate of 1 zeros whose gradient is 0 (flax returns
+    zeros there: x / 0 would make it NaN)."""
+    if kept is None or rate <= 0.0:
+        return x
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if rate >= 1.0:
+        return torch.where(torch.zeros_like(kept), x, zero)
+    keep = 1.0 - rate
+    if x.dtype != torch.float32:
+        keep = float(torch.tensor(keep, dtype=x.dtype))
+    return torch.where(kept, x / keep, zero)
+
+
+# The dropout sites of one block (``Block.forward``'s ``drop``): the
+# attention probabilities at attn_drop_rate, the others at drop_rate.
+BLOCK_DROP_SITES = ("attn", "proj", "fc1", "fc2")
+
+
+def draw_dropout_masks(model, generator, batch, num_frame, num_joints):
+    """The dropout masks of one training forward of ``model`` (None where
+    its ``drop_rate`` and ``attn_drop_rate`` are both 0), drawn from
+    ``generator`` on its device: each element kept where a uniform draw
+    falls below 1 − rate, as ``jax.random.bernoulli`` keeps it. A dict of
+    bool tensors, each with the batch on dim 1, for the whole module (all
+    heads, the whole hidden width) whatever its model axis:
+
+    - ``pos`` [2, B, F, J, C]: after the spatial and the temporal position
+      embedding;
+    - ``{site}_spatial`` [depth, B, F, ...] and ``{site}_temporal`` [depth,
+      B, J, ...], one per block, the group's tokens in flax's order: ``attn``
+      [..., H, N, N] (with ``attn_drop_rate`` > 0), ``proj`` and ``fc2``
+      [..., N, C], ``fc1`` [..., N, hidden].
+
+    The draws are torch's, not JAX's: tests inject the same masks into
+    both."""
+    rates = {"attn": model.attn_drop_rate}
+    rates.update(dict.fromkeys(("pos", "proj", "fc1", "fc2"), model.drop_rate))
+    if not any(r > 0.0 for r in rates.values()):
+        return None
+    b, f, p, c = batch, num_frame, num_joints, model.embed_dim
+    h, hidden, depth = model.num_heads, model.mlp_hidden, model.depth
+    dev = generator.device
+    groups = {"spatial": (f, p), "temporal": (p, f)}  # (groups a sample, tokens a group)
+    shapes = {"pos": (2, b, f, p, c)}
+    for kind, (g, n) in groups.items():
+        shapes.update({f"attn_{kind}": (depth, b, g, h, n, n), f"proj_{kind}": (depth, b, g, n, c),
+                       f"fc1_{kind}": (depth, b, g, n, hidden),
+                       f"fc2_{kind}": (depth, b, g, n, c)})
+    masks = {}
+    for name, shape in shapes.items():
+        rate = rates[name.split("_")[0]]
+        if rate <= 0.0:
+            continue
+        kept = torch.empty(shape, dtype=torch.bool, device=dev)
+        for i in range(shape[0]):  # a layer at a time: a float draw of the whole is 4x its size
+            kept[i] = torch.rand(shape[1:], generator=generator, device=dev) < 1.0 - rate
+        masks[name] = kept
+    return masks
+
+
 def layer_norm(ln, x, dtype=torch.float32):
     """The LayerNorm ``ln`` computed in float32 on x, returned in ``dtype``:
     float32 as flax's LayerNorm returns it (the type of x promoted with its
@@ -132,21 +206,27 @@ def layer_norm(ln, x, dtype=torch.float32):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2; under tensor parallelism (``model_group``) fc1's
-    output columns and fc2's input columns are the model rank's."""
+    """fc1 -> GELU -> [dropout] -> fc2 -> [dropout] at rate ``drop``; under
+    tensor parallelism (``model_group``) fc1's output columns and fc2's
+    input columns are the model rank's."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, drop: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.drop = drop
         self.model_group = None
 
-    def forward(self, x, dtype=torch.float32, matmul_precision="highest"):
-        group = self.model_group
+    def forward(self, x, dtype=torch.float32, matmul_precision="highest", drop=None):
+        """``drop``: None, or the block's masks (``fc1``: this rank's
+        hidden columns; ``fc2``)."""
+        group, kept = self.model_group, drop or {}
         if group is not None:
             x = copy_to_model(x, group)
-        return dense(self.fc2, gelu(dense(self.fc1, x, dtype, matmul_precision)), dtype,
-                     matmul_precision, group)
+        mid = dropout(gelu(dense(self.fc1, x, dtype, matmul_precision)), kept.get("fc1"),
+                      self.drop)
+        return dropout(dense(self.fc2, mid, dtype, matmul_precision, group), kept.get("fc2"),
+                       self.drop)
 
 
 class Attention(nn.Module):
@@ -156,38 +236,50 @@ class Attention(nn.Module):
     dispatcher has no backward and refuses to run under autograd, as
     ``jax.grad`` through JAX's ``use_pallas`` module raises. Under tensor
     parallelism (``model_group``) ``num_heads`` counts the model rank's
-    heads, of the global width ``head_dim``."""
+    heads, of the global width ``head_dim``, and the scale stays the global
+    width's. ``qk_scale``: the scale, JAX's ``qk_scale or head_dim^-½``.
+    ``attn_drop`` and ``proj_drop``: the dropout rates of the
+    probabilities and of the output."""
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool, use_pallas: bool = False):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool, use_pallas: bool = False,
+                 qk_scale=None, attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.use_pallas = use_pallas
         self.model_group = None
-        self.scale = self.head_dim ** -0.5
+        self.scale = qk_scale or self.head_dim ** -0.5
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, core=None, dtype=torch.float32, matmul_precision="highest"):
+    def forward(self, x, core=None, dtype=torch.float32, matmul_precision="highest", drop=None):
         """``core``: the attention core, (q, k, v) [B, H, N, D] -> [B, H, N,
         D] at the scale D^-½ and at the caller's matmul precision; default
         the module's own (the dispatcher with ``use_pallas``, else the plain
-        formulas, at ``matmul_precision``). ``dtype``: of the dense layers
-        and so of q, k, v and the attention."""
+        formulas, at ``matmul_precision``, each at ``self.scale``).
+        ``dtype``: of the dense layers and so of q, k, v and the attention.
+        ``drop``: None, or the block's masks; with ``attn`` the
+        probabilities are materialised and dropped, whatever ``core`` and
+        ``use_pallas`` (JAX's branch, taken first)."""
         b, n, _ = x.shape
-        prec, group = matmul_precision, self.model_group
+        prec, group, kept = matmul_precision, self.model_group, drop or {}
         if group is not None:
             x = copy_to_model(x, group)
         qkv = dense(self.qkv, x, dtype, prec).reshape(b, n, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        if core is not None:
+        if kept.get("attn") is not None:
+            out = grand_attention(q, k, v, self.scale, prec,
+                                  drop=lambda p: dropout(p, kept["attn"], self.attn_drop))
+        elif core is not None:
             out = core(q, k, v)
         elif self.use_pallas:
             out = fused_grand_attention(q, k, v, self.scale, prec)
         else:
             out = grand_attention(q, k, v, self.scale, prec)
         out = out.transpose(1, 2).reshape(b, n, self.num_heads * self.head_dim)
-        return dense(self.proj, out, dtype, prec, group)
+        return dropout(dense(self.proj, out, dtype, prec, group), kept.get("proj"),
+                       self.proj_drop)
 
 
 class Block(nn.Module):
@@ -196,26 +288,31 @@ class Block(nn.Module):
     selects whether attention mixes joints (per frame) or frames (per
     joint). ``dp`` [B, G, 2] scales the attention (column 0) and MLP
     (column 1) branches of each attention group: G = F frames for a spatial
-    block, J joints for a temporal one (JAX ``_xla_block``)."""
+    block, J joints for a temporal one (JAX ``_xla_block``). ``drop`` and
+    ``attn_drop``: the dropout rates of the attention's output and the MLP,
+    and of the attention probabilities; ``qk_scale`` the attention's."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, qkv_bias: bool,
-                 with_time_emb: bool = True, use_pallas: bool = False):
+                 with_time_emb: bool = True, use_pallas: bool = False, qk_scale=None,
+                 drop: float = 0.0, attn_drop: float = 0.0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, qkv_bias, use_pallas)
+        self.attn = Attention(dim, num_heads, qkv_bias, use_pallas, qk_scale, attn_drop, drop)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop)
         self.time_mlp = (
             nn.Sequential(nn.SiLU(), nn.Linear(dim * 2, dim)) if with_time_emb else None
         )
 
     def forward(self, x, is_spatial: bool, time_emb=None, dp=None, attn_core=None,
-                dtype=torch.float32, matmul_precision="highest"):
+                dtype=torch.float32, matmul_precision="highest", drop=None):
         """``dtype``: of the dense layers and the attention (flax's
         ``dtype``); norm1 and norm2 feed dense layers only, so their output
         type does not matter. A drop-path scale multiplies its branch in the
-        branch's dtype (JAX ``_xla_block``). ``matmul_precision``: of the
-        float32 products."""
+        branch's dtype (JAX ``_xla_block``), after the branch's dropout.
+        ``matmul_precision``: of the float32 products. ``drop``: None, or
+        {site: mask} of ``BLOCK_DROP_SITES``, each with the groups' tokens
+        in its leading dim (B·G)."""
         b, f, p, c = x.shape
         prec = matmul_precision
         if self.time_mlp is not None and time_emb is not None:
@@ -229,8 +326,8 @@ class Block(nn.Module):
             return y if dp is None else y * dp[:, :, col].reshape(-1, 1, 1).to(y.dtype)
 
         tokens = tokens + branch(0, self.attn(layer_norm(self.norm1, tokens), attn_core, dtype,
-                                              prec))
-        tokens = tokens + branch(1, self.mlp(layer_norm(self.norm2, tokens), dtype, prec))
+                                              prec, drop))
+        tokens = tokens + branch(1, self.mlp(layer_norm(self.norm2, tokens), dtype, prec, drop))
         if is_spatial:
             return tokens.reshape(b, f, p, c)
         return tokens.reshape(b, p, f, c).transpose(1, 2)
@@ -248,7 +345,10 @@ class MixSTEDenoiser(nn.Module):
     for the frames, on CUDA, at float32 or bfloat16; their plain versions on
     the CPU). ``dtype``: float32 or bfloat16, the compute dtype of the
     module doc (parameters stay float32). ``remat_blocks``: each block is
-    recomputed in the backward instead of keeping its activations."""
+    recomputed in the backward instead of keeping its activations.
+    ``qk_scale``, ``drop_rate`` and ``attn_drop_rate``: flax's fields (module
+    doc); the fused paths of ``models.fast_eval`` refuse a module that sets
+    any of them, where JAX's silently run head_dim^-½ and no dropout."""
 
     def __init__(
         self,
@@ -268,6 +368,9 @@ class MixSTEDenoiser(nn.Module):
         remat_blocks: bool = False,
         seed: int = 0,
         device="cuda",
+        qk_scale=None,
+        drop_rate: float = 0.0,
+        attn_drop_rate: float = 0.0,
     ):
         super().__init__()
         if mode not in ("s2s", "s2f"):
@@ -280,6 +383,8 @@ class MixSTEDenoiser(nn.Module):
         self.num_heads, self.embed_dim, self.mode = num_heads, c, mode
         self.with_time_emb, self.use_pallas = with_time_emb, use_pallas
         self.dtype, self.remat_blocks = dtype, remat_blocks
+        self.qk_scale, self.drop_rate, self.attn_drop_rate = qk_scale, drop_rate, attn_drop_rate
+        self.mlp_hidden = int(c * mlp_ratio)
 
         self.fusion_layer = nn.Linear(in_chans + 3, c)
         # nn.Sequential(SinusoidalPosEmb, Linear, GELU, Linear) in the
@@ -293,7 +398,8 @@ class MixSTEDenoiser(nn.Module):
 
         def blocks():
             return nn.ModuleList(
-                Block(c, num_heads, mlp_ratio, qkv_bias, with_time_emb, use_pallas)
+                Block(c, num_heads, mlp_ratio, qkv_bias, with_time_emb, use_pallas, qk_scale,
+                      drop_rate, attn_drop_rate)
                 for _ in range(depth)
             )
 
@@ -337,12 +443,14 @@ class MixSTEDenoiser(nn.Module):
 
     def forward(self, x, time, dp_scales=None, matmul_precision="highest"):
         """``dp_scales``: None, or (dp_spatial [depth, B, F, 2], dp_temporal
-        [depth, B, J, 2]) drop-path scales (``draw_drop_path_scales``). Each
-        block pair: spatial block, Spatial_norm, [the temporal position
-        embedding before the first temporal block], temporal block,
-        Temporal_norm; with ``remat_blocks`` and autograd recording, each
-        block under ``checkpoint`` (the drop-path scales are inputs, so the
-        recompute sees the same masks). ``matmul_precision``: the session
+        [depth, B, J, 2]) drop-path scales (``draw_drop_path_scales``; None
+        for none), with a third entry, the dropout masks
+        (``draw_dropout_masks``), where the step drops. Each block pair:
+        spatial block, Spatial_norm, [the temporal position embedding before
+        the first temporal block], temporal block, Temporal_norm; with
+        ``remat_blocks`` and autograd recording, each block under
+        ``checkpoint`` (the drop-path scales and the masks are inputs, so
+        the recompute sees the same ones). ``matmul_precision``: the session
         precision of the float32 products (module doc)."""
         if x.ndim != 4:
             raise ValueError(f"expected x of shape [B, F, J, C], got {tuple(x.shape)}")
@@ -350,24 +458,31 @@ class MixSTEDenoiser(nn.Module):
             raise ValueError("the module keeps float32 parameters (flax's param_dtype), got "
                              f"{self.fusion_layer.weight.dtype}; build it with dtype="
                              "torch.bfloat16 to compute at bf16")
-        dp_sp, dp_tp = (None, None) if dp_scales is None else dp_scales
+        dp_sp, dp_tp, masks = (None, None, None) if dp_scales is None else (*dp_scales, None)[:3]
+        masks = masks or {}
         dt, prec = self.dtype, matmul_precision
+        pos = masks.get("pos")
         x = dense(self.fusion_layer, x, dt, prec)
         t = self.time_embedding(time, matmul_precision=prec)
-        x = x + self.Spatial_pos_embed[None].to(x.dtype)
+        x = dropout(x + self.Spatial_pos_embed[None].to(x.dtype), None if pos is None else pos[0],
+                    self.drop_rate)
 
-        def block(blk, y, is_spatial, dp):
+        def block(blk, y, is_spatial, dp, kind, i):
+            drop = {s: masks[f"{s}_{kind}"][i].flatten(0, 1) for s in BLOCK_DROP_SITES
+                    if f"{s}_{kind}" in masks} or None
             if self.remat_blocks and torch.is_grad_enabled():
-                return checkpoint(blk, y, is_spatial, t, dp, None, dt, prec, use_reentrant=False)
-            return blk(y, is_spatial, t, dp, None, dt, prec)
+                return checkpoint(blk, y, is_spatial, t, dp, None, dt, prec, drop,
+                                  use_reentrant=False)
+            return blk(y, is_spatial, t, dp, None, dt, prec, drop)
 
         for i in range(self.depth):
             x = layer_norm(self.Spatial_norm, block(
-                self.STEblocks[i], x, True, None if dp_sp is None else dp_sp[i]))
+                self.STEblocks[i], x, True, None if dp_sp is None else dp_sp[i], "spatial", i))
             if i == 0:
-                x = x + self.Temporal_pos_embed[:, :, None, :].to(x.dtype)
+                x = dropout(x + self.Temporal_pos_embed[:, :, None, :].to(x.dtype),
+                            None if pos is None else pos[1], self.drop_rate)
             x = layer_norm(self.Temporal_norm, block(
-                self.TTEblocks[i], x, False, None if dp_tp is None else dp_tp[i]))
+                self.TTEblocks[i], x, False, None if dp_tp is None else dp_tp[i], "temporal", i))
         if self.mode == "s2f":
             x = self.weighted_mean_over_frames(x, prec)
         return dense(self.head[1], layer_norm(self.head[0], x), dt, prec)

@@ -75,7 +75,7 @@ def refuse_autograd(op: str, *tensors,
             f"Call it under torch.no_grad(), or train through {route}")
 
 
-def grand_attention(q, k, v, scale=None, matmul_precision="highest"):
+def grand_attention(q, k, v, scale=None, matmul_precision="highest", drop=None):
     """q, k, v: [..., N, head_dim] -> [..., N, head_dim] in the input dtype.
 
     The softmax runs in float32 whatever the activation dtype. Below
@@ -83,13 +83,17 @@ def grand_attention(q, k, v, scale=None, matmul_precision="highest"):
     are typed, the scale too (a Python float is weakly typed in JAX: a
     constant of the input dtype). At float32 both products contract at
     ``matmul_precision`` (JAX's einsums at the session precision: at
-    "default" the normalised P is rounded)."""
+    "default" the normalised P is rounded). ``drop``: a function applied
+    to the probabilities in q's dtype before the second product (the
+    module's attention dropout, JAX mixste.py:138-144)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.dtype != torch.float32:  # the scale rounded to q's dtype, as a host float
         scale = float(torch.tensor(scale, dtype=q.dtype))
     logits = matmul(q, k.transpose(-1, -2), matmul_precision) * scale
     attn = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    if drop is not None:
+        attn = drop(attn)
     return matmul(attn, v, matmul_precision) - v
 
 

@@ -13,7 +13,8 @@ form attention groups:
                                               over its n real keys
     out = h1 + s1 * fc2(GELU(fc1(LN2(h1))))   [then out_ln]
 
-where s0, s1 are the row's drop-path scales (1 without). B1 takes groups
+where s0, s1 are the row's drop-path scales (1 without) and the attention
+scales q·kᵀ by ``scale`` (JAX's ``scale=None``: head_dim^-½). B1 takes groups
 of ``n_pad`` consecutive rows; B2 the temporal group (b, j) of the
 spatial-major rows (b·F + f)·J + j, with no transpose.
 
@@ -188,71 +189,106 @@ def _out_ln_params(out_ln):
     return None if out_ln is None else (out_ln.weight, out_ln.bias, out_ln.eps)
 
 
-def _ref_ops(dt, mode="highest"):
-    """(rnd, lin, ln) of the plain versions for storage type ``dt``: ``rnd``
-    rounds to dt where a kernel stores; ``lin`` is a float32 matmul of the
-    operands as the kernel sees them (weights rounded to dt, bias float32),
-    at float32 under contraction ``mode`` (``contract``, the bias added
-    after); ``ln`` a float32 LayerNorm."""
-    rnd = (lambda a: a) if dt == torch.float32 else (lambda a: a.to(dt).float())
+def round_to(a, dt):
+    """``a`` rounded once to ``dt``, to nearest even. torch takes a float64
+    to bfloat16 through float32, which would round twice, so that float32
+    step rounds to odd (truncated, its last bit set where inexact), which
+    the second rounding cannot turn."""
+    if a.dtype != torch.float64 or dt == torch.float32:
+        return a.to(dt)
+    f = a.float()
+    t = torch.where(f.double().abs() > a.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+    return (t.view(torch.int32) | (t.double() != a).int()).view(torch.float32).to(dt)
+
+
+def _ref_ops(dt, mode="highest", acc=torch.float32):
+    """(rnd, lin, ln) of the plain versions for storage type ``dt``, on
+    values held in ``acc``: ``rnd`` rounds to dt where a kernel stores;
+    ``lin`` is a matmul in acc of the operands as the kernel sees them
+    (weights rounded to dt, bias float32), at float32 under contraction
+    ``mode`` (``contract``, the bias added after); ``ln`` a LayerNorm in
+    acc. float64 makes them the exact-sum oracle's."""
+    rnd = (lambda a: a) if dt == acc else (lambda a: round_to(a, dt).to(acc))
 
     def lin(a, m):
-        bias = None if m.bias is None else m.bias.float()
+        bias = None if m.bias is None else m.bias.to(acc)
         if mode == "highest":
-            return F.linear(a, rnd(m.weight.float()), bias)
+            return F.linear(a, rnd(m.weight.to(acc)), bias)
         out = contract(a, m.weight.float(), mode)
         return out if bias is None else out + bias
 
     def ln(a, m):
-        return F.layer_norm(a, (a.shape[-1],), m.weight.float(), m.bias.float(), m.eps)
+        return F.layer_norm(a, (a.shape[-1],), m.weight.to(acc), m.bias.to(acc), m.eps)
 
     return rnd, lin, ln
 
 
-def _attn_branch_ref(x, block, n, heads, n_pad, dt, mode="highest"):
-    """proj(GRAND(LN1(x))) in float32 on float32 rows x [R, C] that hold
-    values of type ``dt``, rounding to dt where the kernels store: the LN
-    output, qkv (after the bias), P and the attention output. At float32
-    every product contracts under ``mode``."""
-    rnd, lin, ln = _ref_ops(dt, mode)
+def _scale(scale, c, heads):
+    """The attention's scale: ``scale``, or JAX's default head_dim^-½."""
+    return (c // heads) ** -0.5 if scale is None else scale
+
+
+def _attn_branch_ref(x, block, n, heads, n_pad, dt, mode="highest", scale=None,
+                     acc=torch.float32):
+    """proj(GRAND(LN1(x))) in ``acc`` on rows x [R, C] that hold values of
+    type ``dt``, rounding to dt where the kernels store: the LN output, qkv
+    (after the bias), P and the attention output. At float32 every product
+    contracts under ``mode``."""
+    rnd, lin, ln = _ref_ops(dt, mode, acc)
     r, c = x.shape
     qkv = rnd(lin(rnd(ln(x, block.norm1)), block.attn.qkv))
     q, k, v = qkv.reshape(r // n_pad, n_pad, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
     dot = None if mode == "highest" else (lambda a, b: contract(a, b, mode))
-    attn = grand_attention_stored(q, k[:, :, :n], v[:, :, :n], (c // heads) ** -0.5, rnd, v_self=v,
-                                  dot=dot)
+    attn = grand_attention_stored(q, k[:, :, :n], v[:, :, :n], _scale(scale, c, heads), rnd,
+                                  v_self=v, dot=dot)
     return lin(attn.permute(0, 2, 1, 3).reshape(r, c), block.attn.proj)
 
 
-def _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, out_ln, dp_scales,
-               mode="highest"):
-    """The plain block on groups of n_pad rows; ``out_ln`` is (w, b, eps)
-    or None. Every product is a float32 matmul of the operands as the
-    kernel sees them (exact for bf16-rounded operands), at float32 under
-    contraction ``mode`` (the time add too), and ``rnd`` rounds to x's dtype
-    where the kernel stores."""
+def _residual_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, dp_scales, mode="highest",
+                  scale=None, acc=torch.float32):
+    """(the block's residual stream before the out-LN, unrounded in
+    ``acc``; ``rnd``) on groups of n_pad rows. Every product is a matmul in
+    acc of the operands as the kernel sees them (exact for bf16-rounded
+    operands), at float32 under contraction ``mode`` (the time add too),
+    and ``rnd`` rounds to x's dtype where the kernel stores."""
     dt = x.dtype
     mode = mode if dt == torch.float32 else "highest"
-    rnd, lin, ln = _ref_ops(dt, mode)
+    rnd, lin, ln = _ref_ops(dt, mode, acc)
     r, c = x.shape
-    s_attn, s_mlp = (1.0, 1.0) if dp_scales is None else (dp_scales[:, 0:1], dp_scales[:, 1:2])
+    s_attn, s_mlp = (1.0, 1.0) if dp_scales is None else (dp_scales[:, 0:1].to(acc),
+                                                          dp_scales[:, 1:2].to(acc))
 
-    x = x.float()
+    x = x.to(acc)
     if t_rows is not None:
-        t = time_rows_under(rnd(t_rows.float()), mode)
+        t = time_rows_under(rnd(t_rows.to(acc)), mode)
         x = rnd(x + t[torch.arange(r, device=x.device) // rows_per_item])
-    h1 = rnd(x + s_attn * _attn_branch_ref(x, block, n, heads, n_pad, dt, mode))
+    h1 = rnd(x + s_attn * _attn_branch_ref(x, block, n, heads, n_pad, dt, mode, scale, acc))
     mid = rnd(F.gelu(lin(rnd(ln(h1, block.norm2)), block.mlp.fc1)))
-    out = h1 + s_mlp * lin(mid, block.mlp.fc2)
+    return h1 + s_mlp * lin(mid, block.mlp.fc2), rnd
+
+
+def _out_ln_ref(out, rnd, out_ln, dt):
+    """The block's output from its residual stream ``out``: [the out-LN
+    ``out_ln`` = (w, b, eps), in out's dtype, of ``rnd(out)``,] rounded to
+    ``dt``."""
     if out_ln is not None:
         w, b, eps = out_ln
-        out = F.layer_norm(rnd(out), (c,), w.float(), b.float(), eps)
-    return out.to(dt)
+        out = F.layer_norm(rnd(out), (out.shape[-1],), w.to(out.dtype), b.to(out.dtype), eps)
+    return round_to(out, dt)
+
+
+def _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, out_ln, dp_scales,
+               mode="highest", scale=None, acc=torch.float32):
+    """The plain block on groups of n_pad rows (``_residual_ref``, then
+    ``_out_ln_ref``); ``out_ln`` is (w, b, eps) or None."""
+    out, rnd = _residual_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, dp_scales, mode,
+                             scale, acc)
+    return _out_ln_ref(out, rnd, out_ln, x.dtype)
 
 
 def fused_transformer_block_ref(x, block, n, heads, *, n_pad=None, t_rows=None,
                                 rows_per_item=None, out_ln=None, dp_scales=None,
-                                f32_prec="highest"):
+                                f32_prec="highest", scale=None):
     """Plain PyTorch version of ``fused_transformer_block`` (same
     arguments, same result). Pad query rows (n..n_pad-1 of a group) attend
     to the group's real keys; their outputs are garbage the caller ignores,
@@ -261,12 +297,44 @@ def fused_transformer_block_ref(x, block, n, heads, *, n_pad=None, t_rows=None,
     _check_args(x, block, n, heads, n_pad, t_rows, rows_per_item, dp_scales)
     mode = F32_MODES[f32_mode_index(f32_prec, x.dtype)]
     return _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item,
-                      _out_ln_params(out_ln), dp_scales, mode)
+                      _out_ln_params(out_ln), dp_scales, mode, scale)
+
+
+def fused_transformer_block_exact(x, block, n, heads, *, n_pad=None, t_rows=None,
+                                  rows_per_item=None, out_ln=None, dp_scales=None, scale=None):
+    """B1's order-free oracle at bf16 (for checks, no model path runs it):
+    the plain version with every sum in float64 and each rounding to x's
+    dtype taken once from there, at the points where JAX's kernel rounds.
+    Any float32 summation order, the plain version's and the kernel's
+    included, turns single roundings of those points the other way; the
+    kernel and its plain version are both measured from this."""
+    n_pad = n if n_pad is None else n_pad
+    _check_args(x, block, n, heads, n_pad, t_rows, rows_per_item, dp_scales)
+    return _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, _out_ln_params(out_ln),
+                      dp_scales, scale=scale, acc=torch.float64)
+
+
+def fused_transformer_block_flipped(x, block, n, heads, row, col, *, n_pad=None, t_rows=None,
+                                    rows_per_item=None, out_ln=None, dp_scales=None, scale=None):
+    """B1's plain version at bf16 with one rounding turned the other way
+    (for checks, no model path runs it): the residual stream's element
+    (``row``, ``col``) rounds to the other bf16 neighbour of its float32
+    value before the out-LN. With it a check asks whether one such
+    rounding accounts for a deviation of the kernel's at that element."""
+    n_pad = n if n_pad is None else n_pad
+    _check_args(x, block, n, heads, n_pad, t_rows, rows_per_item, dp_scales)
+    out, rnd = _residual_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, dp_scales,
+                             scale=scale)
+    near = rnd(out)
+    v, r = out[row, col], near[row, col]
+    step = torch.tensor(float("inf") if v >= r else float("-inf"), dtype=x.dtype)
+    near[row, col] = torch.nextafter(r.to(x.dtype).cpu(), step).to(near)
+    return _out_ln_ref(near, lambda a: a, _out_ln_params(out_ln), x.dtype)
 
 
 def fused_transformer_block(x, block, n, heads, *, n_pad=None, t_rows=None,
                             rows_per_item=None, out_ln=None, dp_scales=None,
-                            f32_prec="highest"):
+                            f32_prec="highest", scale=None):
     """B1: whole transformer block on flat rows x [R, C] (see the module doc).
 
     ``n``: real rows per attention group; ``n_pad``: rows per group in x
@@ -276,6 +344,7 @@ def fused_transformer_block(x, block, n, heads, *, n_pad=None, t_rows=None,
     output. ``dp_scales`` [R, 2]: per-row drop-path scales of the attention
     and MLP branches (JAX ``fused_transformer_block(dp_scales=...)``).
     ``f32_prec``: the contraction mode of a float32 x (module doc).
+    ``scale``: the attention's, default head_dim^-½ (JAX's ``scale``).
 
     A CPU tensor runs the plain version. A CUDA tensor launches the
     kernels (7, or 8 with ``out_ln``; 15 and 16 under "high3" and
@@ -293,7 +362,13 @@ def fused_transformer_block(x, block, n, heads, *, n_pad=None, t_rows=None,
     mode = f32_mode_index(f32_prec, x.dtype)
     _refuse_autograd("fused_transformer_block", x, block, out_ln, t_rows, dp_scales)
     return _B1(x, t_rows, dp_scales, *_block_operands(block, out_ln), n, heads, n_pad,
-               rows_per_item or 0, mode)
+               rows_per_item or 0, mode, *_scale_arg(scale))
+
+
+def _scale_arg(scale):
+    """The operators' trailing ``scale``, left out where it is None (the
+    schema's default), so that a call without it traces as before."""
+    return () if scale is None else (float(scale),)
 
 
 def _zero_counts(wrapper):
@@ -309,16 +384,17 @@ _zero_counts(fused_transformer_block)
 
 
 def fused_temporal_block_cols_ref(x, block, n, j_groups, heads, *, t_rows=None, out_ln=None,
-                                  dp_scales=None, f32_prec="highest"):
+                                  dp_scales=None, f32_prec="highest", scale=None):
     """Plain PyTorch version of ``fused_temporal_block_cols`` (same
     arguments, same result): the block on the transposed rows."""
     _check_cols_args(x, block, n, j_groups, heads, t_rows, dp_scales)
     mode = F32_MODES[f32_mode_index(f32_prec, x.dtype)]
     return _cols_ref(x, block, n, j_groups, heads, t_rows, _out_ln_params(out_ln), dp_scales,
-                     mode)
+                     mode, scale)
 
 
-def _cols_ref(x, block, n, j_groups, heads, t_rows, out_ln, dp_scales, mode="highest"):
+def _cols_ref(x, block, n, j_groups, heads, t_rows, out_ln, dp_scales, mode="highest",
+              scale=None):
     """``fused_temporal_block_cols_ref`` on checked arguments, ``out_ln`` as
     (w, b, eps) or None."""
     rows, cols = x.shape
@@ -326,12 +402,12 @@ def _cols_ref(x, block, n, j_groups, heads, t_rows, out_ln, dp_scales, mode="hig
     xt = x.view(b, n, j_groups, c).transpose(1, 2).reshape(b * j_groups * n, c)
     dp = None if dp_scales is None else dp_scales.view(b * j_groups, 1, 2).expand(
         b * j_groups, n, 2).reshape(-1, 2)
-    out = _block_ref(xt, block, n, heads, n, t_rows, j_groups * n, out_ln, dp, mode)
+    out = _block_ref(xt, block, n, heads, n, t_rows, j_groups * n, out_ln, dp, mode, scale)
     return out.view(b, j_groups, n, c).transpose(1, 2).reshape(rows, cols)
 
 
 def fused_temporal_block_cols(x, block, n, j_groups, heads, *, t_rows=None, out_ln=None,
-                              dp_scales=None, f32_prec="highest"):
+                              dp_scales=None, f32_prec="highest", scale=None):
     """B2: the temporal block over the spatial-major activations, with JAX's
     signature (without frame padding: F8 = F = n).
 
@@ -341,7 +417,8 @@ def fused_temporal_block_cols(x, block, n, j_groups, heads, *, t_rows=None, out_
     inter-block LayerNorm. ``dp_scales`` [B*J, 2]: one pair of drop-path
     scales per group (b, j), row b*J + j. The result equals B1's on the
     transposed rows (``fused_temporal_block_cols_ref``). ``f32_prec``: the
-    contraction mode of a float32 x (module doc).
+    contraction mode of a float32 x (module doc). ``scale``: the
+    attention's, default head_dim^-½.
 
     A CPU tensor runs the plain version. A CUDA tensor launches the kernels
     (as ``fused_transformer_block``'s, counted on
@@ -351,7 +428,8 @@ def fused_temporal_block_cols(x, block, n, j_groups, heads, *, t_rows=None, out_
     _check_cols_args(x, block, n, j_groups, heads, t_rows, dp_scales)
     mode = f32_mode_index(f32_prec, x.dtype)
     _refuse_autograd("fused_temporal_block_cols", x, block, out_ln, t_rows, dp_scales)
-    return _B2(x, t_rows, dp_scales, *_block_operands(block, out_ln), n, j_groups, heads, mode)
+    return _B2(x, t_rows, dp_scales, *_block_operands(block, out_ln), n, j_groups, heads, mode,
+               *_scale_arg(scale))
 
 
 _zero_counts(fused_temporal_block_cols)
@@ -391,29 +469,34 @@ def _as_block(operands):
 
 
 def _b1_impl(x, t_rows, dp_scales, *rest):
-    """B1's operator: the plain version on the CPU, the kernels on CUDA."""
-    operands, (n, heads, n_pad, rows_per_item, mode) = rest[:_N_BLOCK], rest[_N_BLOCK:]
+    """B1's operator: the plain version on the CPU, the kernels on CUDA.
+    A call without the trailing ``scale`` (the schema's default, which a
+    Python implementation is not handed) runs head_dim^-½."""
+    operands, (n, heads, n_pad, rows_per_item, mode, *scale) = rest[:_N_BLOCK], rest[_N_BLOCK:]
     block, out_ln = _as_block(operands)
-    rows_per_item = rows_per_item or None
+    rows_per_item, scale = rows_per_item or None, scale[0] if scale else None
     if x.device.type == "cpu":
         return _block_ref(x, block, n, heads, n_pad, t_rows, rows_per_item, out_ln, dp_scales,
-                          F32_MODES[mode])
+                          F32_MODES[mode], scale)
     return _launch(fused_transformer_block, x, block, n, heads, n_pad, 0, t_rows,
-                   rows_per_item, out_ln, dp_scales, mode)
+                   rows_per_item, out_ln, dp_scales, mode, scale)
 
 
 def _b2_impl(x, t_rows, dp_scales, *rest):
-    """B2's operator: the plain version on the CPU, the kernels on CUDA."""
-    operands, (n, j_groups, heads, mode) = rest[:_N_BLOCK], rest[_N_BLOCK:]
+    """B2's operator: the plain version on the CPU, the kernels on CUDA
+    (``scale`` as B1's)."""
+    operands, (n, j_groups, heads, mode, *scale) = rest[:_N_BLOCK], rest[_N_BLOCK:]
     block, out_ln = _as_block(operands)
+    scale = scale[0] if scale else None
     if x.device.type == "cpu":
-        return _cols_ref(x, block, n, j_groups, heads, t_rows, out_ln, dp_scales, F32_MODES[mode])
+        return _cols_ref(x, block, n, j_groups, heads, t_rows, out_ln, dp_scales, F32_MODES[mode],
+                         scale)
     rows, cols = x.shape
     b, c = rows // n, cols // j_groups
     dp = None if dp_scales is None else dp_scales.view(b, 1, j_groups, 2).expand(
         b, n, j_groups, 2).reshape(rows * j_groups, 2)  # per row, spatial-major order
     out = _launch(fused_temporal_block_cols, x.view(rows * j_groups, c), block, n, heads, n,
-                  j_groups, t_rows, n * j_groups, out_ln, dp, mode)
+                  j_groups, t_rows, n * j_groups, out_ln, dp, mode, scale)
     return out.view(rows, cols)
 
 
@@ -423,10 +506,11 @@ def _same_as_x(x, *rest):
 
 _B1 = register("fused_transformer_block(Tensor x, Tensor? t_rows, Tensor? dp_scales, "
                f"{_BLOCK_SCHEMA}, int n, int heads, int n_pad, int rows_per_item, "
-               "int f32_mode) -> Tensor",
+               "int f32_mode, float? scale=None) -> Tensor",
                _b1_impl, _b1_impl, _same_as_x)
 _B2 = register("fused_temporal_block_cols(Tensor x, Tensor? t_rows, Tensor? dp_scales, "
-               f"{_BLOCK_SCHEMA}, int n, int j_groups, int heads, int f32_mode) -> Tensor",
+               f"{_BLOCK_SCHEMA}, int n, int j_groups, int heads, int f32_mode, "
+               "float? scale=None) -> Tensor",
                _b2_impl, _b2_impl, _same_as_x)
 
 
@@ -444,22 +528,24 @@ def _check_attn_args(x, block, n, heads):
             raise ValueError(f"block attn.{name}.weight has shape {got}, expected {shape}")
 
 
-def fused_attention_block_ref(x, block, n, heads, f32_prec="highest"):
+def fused_attention_block_ref(x, block, n, heads, f32_prec="highest", scale=None):
     """Plain PyTorch version of ``fused_attention_block`` (same arguments,
     same result)."""
     _check_attn_args(x, block, n, heads)
     mode = F32_MODES[f32_mode_index(f32_prec, x.dtype)]
-    return (x.float() + _attn_branch_ref(x.float(), block, n, heads, n, x.dtype, mode)).to(x.dtype)
+    return (x.float() + _attn_branch_ref(x.float(), block, n, heads, n, x.dtype, mode,
+                                         scale)).to(x.dtype)
 
 
-def fused_attention_block(x, block, n, heads, f32_prec="highest"):
+def fused_attention_block(x, block, n, heads, f32_prec="highest", scale=None):
     """B5: the attention half of a block on flat rows x [R, C], groups of
     ``n`` consecutive rows: x + proj(GRAND(LN1(x))), without the time add,
     drop-path, MLP or out-LN. Reads ``block.norm1``, ``block.attn.qkv`` and
     ``block.attn.proj``. x float32 or bfloat16; bf16 rounds the LN output,
     qkv (after the bias), the attention output and the result, as JAX's
     kernel does (fused_block.py:206-228). ``f32_prec``: the contraction
-    mode of a float32 x (module doc).
+    mode of a float32 x (module doc). ``scale``: the attention's, default
+    head_dim^-½.
 
     A CPU tensor runs the plain version. A CUDA tensor launches the 4
     kernels (8 under "high3" and "default"; counted on
@@ -470,8 +556,8 @@ def fused_attention_block(x, block, n, heads, f32_prec="highest"):
     mode = f32_mode_index(f32_prec, x.dtype)
     _refuse_autograd("fused_attention_block", x, block)
     if x.device.type == "cpu":
-        return fused_attention_block_ref(x, block, n, heads, f32_prec)
-    return _launch_attn(x, block, n, heads, mode)
+        return fused_attention_block_ref(x, block, n, heads, f32_prec, scale)
+    return _launch_attn(x, block, n, heads, mode, scale)
 
 
 _zero_counts(fused_attention_block)
@@ -862,13 +948,14 @@ def _split_scratch(mode, r, c, hidden, device):
             torch.empty(2 * (4 * c * c + 2 * hidden * c), device=device, dtype=bf))
 
 
-def _launch_attn(x, block, n, heads, mode=0):
+def _launch_attn(x, block, n, heads, mode=0, scale=None):
     """Launches B5's kernels on rows x [R, C] and counts them."""
     from diff3dhpe_torch.ops._build import load_library
 
     lib = load_library("fused_block")
     r, c = x.shape
     _kernel_limits(lib, x, n, heads, (c,))
+    scale = _kernel_scale(scale, x, heads)
     dt, f32 = x.dtype, torch.float32
     # Cast copies are held here until the launch is enqueued (see _launch).
     attn = block.attn
@@ -889,7 +976,7 @@ def _launch_attn(x, block, n, heads, mode=0):
             _ptr(x, dt), _ptr(ln_w, f32), _ptr(ln_b, f32), block.norm1.eps,
             _ptr(wq, dt), _ptr(bq, f32), _ptr(wp, dt), _ptr(bp, f32),
             _ptr(xn, dt), _ptr(qkv, dt), _ptr(att, dt), _ptr(out, dt),
-            r, c, n, heads, (c // heads) ** -0.5, mode,
+            r, c, n, heads, scale, mode,
             _ptr(a_split, torch.bfloat16), _ptr(w_split, torch.bfloat16),
             launched, torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -899,19 +986,29 @@ def _launch_attn(x, block, n, heads, mode=0):
     return out
 
 
+def _kernel_scale(scale, x, heads):
+    """The attention's scale as the block kernels take it; the bf16 kernels
+    take the row maximum before they scale, so they need it positive."""
+    scale = _scale(scale, x.shape[1], heads)
+    if x.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError(f"the bf16 block kernels take a positive scale, got {scale}")
+    return scale
+
+
 def _launch(wrapper, x, block, n, heads, n_pad, j_groups, t_rows, rows_per_item, out_ln,
-            dp_scales, mode=0):
+            dp_scales, mode=0, scale=None):
     """Launches the block kernels on rows x [R, C]: the rows layout (groups
     of n_pad rows) with j_groups == 0, else the cols layout; ``out_ln`` is
     (w, b, eps) or None, ``dp_scales`` per row, ``mode`` the contraction
-    mode's index. Counts the launches on ``wrapper``."""
+    mode's index, ``scale`` the attention's (None: head_dim^-½). Counts the
+    launches on ``wrapper``."""
     from diff3dhpe_torch.ops._build import load_library
 
     lib = load_library("fused_block")
     r, c = x.shape
-    d = c // heads
     hidden = block.mlp.fc1.weight.shape[0]
     _kernel_limits(lib, x, n, heads, (c, hidden))
+    scale = _kernel_scale(scale, x, heads)
     dt, f32 = x.dtype, torch.float32
     # Operands in the types the kernels read, held here until the launch
     # is enqueued (a cast copy freed earlier could be handed to the scratch
@@ -947,7 +1044,7 @@ def _launch(wrapper, x, block, n, heads, n_pad, j_groups, t_rows, rows_per_item,
             olnw, olnb, out_ln[2] if out_ln is not None else 0.0,
             _ptr(xs, dt), _ptr(xn, dt), _ptr(qkv, dt), _ptr(attn, dt), _ptr(h1, dt),
             _ptr(mid, dt), _ptr(out, dt),
-            r, c, hidden, n, n_pad, j_groups, heads, d ** -0.5, mode,
+            r, c, hidden, n, n_pad, j_groups, heads, scale, mode,
             _ptr(a_split, torch.bfloat16), _ptr(w_split, torch.bfloat16),
             launched, stream,
         )

@@ -130,6 +130,24 @@ def gather_params(state: Mapping[str, torch.Tensor], mesh) -> Dict[str, torch.Te
     return {n: full.get(n, v) for n, v in state.items()}
 
 
+def shard_dropout_masks(masks: Mapping[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """The model rank's part of whole dropout masks
+    (``models.mixste.draw_dropout_masks``): its heads of the attention
+    probabilities' masks (``attn_*``, dim 3) and its hidden columns of
+    fc1's (``fc1_*``, the last dim); the masks of whole-width outputs stay
+    whole."""
+    m, size = mesh.model_rank, mesh.model_size
+    out = {}
+    for name, mask in masks.items():
+        dim = {"attn": 3, "fc1": mask.ndim - 1}.get(name.split("_")[0])
+        if dim is None:
+            out[name] = mask
+            continue
+        w = mask.shape[dim] // size
+        out[name] = mask.narrow(dim, m * w, w)
+    return out
+
+
 def shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
     """Slices ``model``'s split weights in place to ``mesh``'s model rank's
     shards and sets each block's local head and hidden counts and its

@@ -2,8 +2,10 @@
 parallelism (``mesh_shape`` "data:2,model:2", and "data:1,model:2" on two
 groups of two side by side: the plain module, the fused training on whole
 weights, the sharded export) run by each of four processes of one gloo
-group on the CPU. It imports no JAX; the test process imports it too, for
-the one-process references of the same cases.
+group on the CPU; and the rank side of tests/test_torch_dropout.py, the
+plain module's dropout at "data:1,model:2" on two ranks
+(``run_dropout_cases``). It imports no JAX; the test processes import it
+too, for the one-process references of the same cases.
 
 ``run_rank`` follows tests/torch_parallel_ranks.py's protocol (a
 ``file://`` rendezvous, the results saved to ``out_dir/rank{rank}.pt``).
@@ -53,10 +55,12 @@ FUSED = {"f32": dict(fast_eval=True), "mixed": MIXED}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def model(weights, mesh=None, dtype=torch.float32, use_pallas=False):
+def model(weights, mesh=None, dtype=torch.float32, use_pallas=False, module=None):
     """The module on ``weights`` (a whole state dict), sharded over
-    ``mesh``'s model axis where it has one."""
-    port = MixSTEDenoiser(**MODEL_KW, dtype=dtype, use_pallas=use_pallas, device="cpu")
+    ``mesh``'s model axis where it has one; ``module``: more of its
+    constructor's arguments (the dropout rates)."""
+    port = MixSTEDenoiser(**MODEL_KW, **(module or {}), dtype=dtype, use_pallas=use_pallas,
+                          device="cpu")
     port.load_state_dict(weights, strict=True)
     if mesh is not None:
         shard_model(port, mesh)
@@ -69,13 +73,14 @@ def whole(tensors, mesh):
 
 
 def run_train(weights, batch, mesh=None, dtype=torch.float32, drop_path=0.0, fast=False,
-              **draws):
+              module=None, **draws):
     """(loss, {name: whole grad}, {name: whole param after the step}) of one
     AdamW step of the plain module on ``batch`` (gt, x2d) with the injected
     ``draws`` or, with ``seed``, the generator's. ``fast``: the fused
     training path (``attn_bwd``) at ``dtype``, under ``mesh``'s model axis
-    on a whole replica loaded from the shards (``WholeWeights``)."""
-    port = model(weights, mesh, dtype).train()
+    on a whole replica loaded from the shards (``WholeWeights``).
+    ``module``: as ``model``'s."""
+    port = model(weights, mesh, dtype, module=module).train()
     seed = draws.pop("seed", None)
     generator = None if seed is None else torch.Generator().manual_seed(seed)
     replica = None
@@ -277,9 +282,18 @@ def run_tp_cases(spec, world, out_dir):
     return res
 
 
-def run_rank(rank, world_size, init_file, spec_path, out_dir):
-    """Starts the rank, runs ``run_tp_cases`` and saves its results to
-    ``out_dir/rank{rank}.pt`` (tests/torch_parallel_ranks.py's protocol)."""
+def run_dropout_cases(spec, world, out_dir):
+    """The plain module's f32 train step with dropout and drop-path, the
+    draws from one seed, at "data:1,model:2" on this rank of two."""
+    mesh = world.with_model_axis(2)
+    return {"train": run_train(spec["weights"], (spec["gt"], spec["x2d"]), mesh,
+                               drop_path=DROP_PATH, module=spec["module"], seed=4)}
+
+
+def run_rank(rank, world_size, init_file, spec_path, out_dir, cases="run_tp_cases"):
+    """Starts the rank, runs ``cases`` (``run_tp_cases`` or
+    ``run_dropout_cases``) and saves its results to ``out_dir/rank{rank}.pt``
+    (tests/torch_parallel_ranks.py's protocol)."""
     import traceback
 
     from diff3dhpe_torch.parallel import start_ranks
@@ -289,7 +303,7 @@ def run_rank(rank, world_size, init_file, spec_path, out_dir):
                         world_size=world_size, timeout=120)
     try:
         spec = torch.load(spec_path, weights_only=False)
-        res = dict(cases=run_tp_cases(spec, world, out_dir))
+        res = dict(cases=globals()[cases](spec, world, out_dir))
     except Exception:  # the rank's failure, reported to the test as its result
         res = dict(error=traceback.format_exc())
         raise
