@@ -164,7 +164,12 @@ separation r from "highest", times, bounds and library times; after 4b the
 mixed step at each final mode, its deviation, seq/s, launches by kind, and
 its profile at "high3"); 21b B3 (with and without B4's statistics), B4
 (its launches and scratch beside the CUDA-core path's) and B6 at f32 under
-the session precision "default" vs plain; then a
+the session precision "default" vs plain; 24 (printed after 9b) head
+widths other than 64 and 128: B1, B2, B5, B3 and B6 at head_dim 32 (16
+heads at embed 512) and 96 (4 at 384) at every dtype and mode vs plain,
+timed, each attention launch bit for bit its 64 or 128 instance on
+zero-padded copies, and cli.run.main at --num-heads 16 (plain, fast-eval,
+mixed, bf16; use_pallas at DDIM-3) held against the plain run; then a
 JSON line with every kernel's numbers; the last line is {"ok": true,
 "device": {...}}. Exits non-zero without a CUDA device, and where the
 port's package is not beside this script.
@@ -3565,6 +3570,321 @@ def hold_train_default(card, model, dkw, diff_d, diff_plain, params, batch, gen,
     return dict(b4=worst, rel_l2=g_l2, spread=spread, r_plain=r_plain)
 
 
+# Phase 24's head widths: head_dim -> (embed_dim, num_heads). 32 is
+# --num-heads 16 at the flagship's embed 512; 96 is 4 heads at embed 384.
+# The attention kernels are compiled for 64 and 128, and a width runs on
+# the next of them with its columns past head_dim zero-filled.
+WIDTHS = {32: (EMBED, 16), 96: (384, 4)}
+WIDTH_CLI_HEADS = 16  # phase 24 (c)'s --num-heads at embed EMBED (head_dim 32)
+HEAD_WIDTHS_WORK = {  # the work of the kernels line's "head_widths" entries (phase 24)
+    "pair": f"d32: 16 heads of 32 at C={EMBED}, d96: 4 heads of 96 at C=384 (f32, and _bf16); "
+            f"one call with n={JOINTS} + one with n={FRAMES}, R={2 * BATCH * FRAMES * JOINTS}",
+    "B2": f"d32 (C={EMBED}, 16 heads) and d96 (C=384, 4 heads), f32 and _bf16; one call, "
+          f"x=[{2 * BATCH}*{FRAMES}, {JOINTS}*C] (n={FRAMES})",
+    "B3": f"d32 and d96, f32 and _bf16: one call, [{2 * BATCH * JOINTS}, H, {FRAMES}, d] qkv "
+          f"views, H = 16 and 4",
+    "B6": f"d32 and d96, f32 and _bf16: one call, [{2 * BATCH * FRAMES}, H, {JOINTS}, d] qkv "
+          f"views, H = 16 and 4, device time",
+}
+
+
+def drive_head_widths(dev, card, peaks, per_call):
+    """Phase 24: the attention kernels at head widths other than 64 and 128
+    (ROADMAP A.19), on the serving path.
+
+    (a) For head_dim 32 (embed 512, 16 heads) and 96 (embed 384, 4 heads):
+    B1 in rows at R = 2·BATCH·FRAMES·JOINTS rows in groups of JOINTS and
+    FRAMES, B2 (FRAMES frames of JOINTS joints, the cols layout) and B5 (n =
+    JOINTS and FRAMES) at f32 ("highest", "high3", "default") and bf16; B3
+    at [2·BATCH·JOINTS, H, FRAMES, d] and B6 at [2·BATCH·FRAMES, H, JOINTS,
+    d] as qkv views at f32, under the session "default" and at bf16: each
+    against its plain version at the bars it meets at 64 and 128
+    (KERNEL_REL_TOL, with ATTN_BLOCK_ABS_TOL for B5 and SMALL_ATTN_ABS_TOL
+    for B6; the bf16 bars; MODE_HIGH3_TOL; the "default" bars). At f32
+    ("highest") and bf16 each is timed beside its plain version and its
+    library yardstick (the block from library calls; SDPA − v), its bound
+    at the true head_dim (B1, B2 and B5 by block_work / attn_block_work at
+    the width's C; B3 4·G·N²·d FLOP; B6 its bytes).
+
+    (b) The attention step each of them runs, bit for bit its compiled
+    instance's output on copies zero-padded to 64 or 128 with the same scale
+    d^-½: the blocks' step (block_attention) in rows at n = JOINTS and
+    FRAMES (B1, B5) and in cols (B2) at f32 under each mode and at bf16,
+    and B3 and B6 themselves at f32, "default" and bf16.
+
+    (c) cli.run.main --synthetic --evaluate on CLI_CONFIG with --num-heads
+    WIDTH_CLI_HEADS (FRAMES frames, embed EMBED, depth DEPTH; S9 Walking,
+    16 windows, batch BATCH) on seed-0 16-head weights: the plain module,
+    --fast-eval at f32, the mixed mode (its final step at "high3") and pure
+    bf16 at DDIM-DDIM_STEPS, held by hold_eval_modes (f32 within
+    EVAL_ABS_BOUND of the plain run, mixed MPJPE from it no more than pure
+    bf16's); then the plain module and use_pallas_attention at
+    DDIM-CUT_DDIM_STEPS (use_pallas within EVAL_ABS_BOUND). Each run's
+    launches counted from 0.
+
+    Returns ({path: launches}, {path: inner counts}, {kernel: {width key:
+    numbers}}) for the kernels line."""
+    from torch.nn import functional as F
+
+    from diff3dhpe_torch import (
+        MixSTEDenoiser, fused_attention_block, fused_attention_block_ref,
+        fused_temporal_block_cols, fused_temporal_block_cols_ref, fused_transformer_block,
+        fused_transformer_block_ref, grand_attention_fullseq, grand_attention_fullseq_ref,
+        packed_grand_attention, packed_grand_attention_ref,
+    )
+    from diff3dhpe_torch.cli.run import main as cli_main
+    from diff3dhpe_torch.models.mixste import Block, init_weights
+    from diff3dhpe_torch.ops.fused_block import block_attention, block_attention_ref
+
+    t0 = time.perf_counter()
+    peak_flops, peak_bf16, mem_rate = peaks
+    gen = torch.Generator(device=dev).manual_seed(24)
+    randn = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device=dev) * scale
+    rows, items = 2 * BATCH * FRAMES * JOINTS, 2 * BATCH
+    held, timed, numbers, padded = {}, {}, {}, []
+
+    def hold(label, out, ref, kind):
+        """The bars of the kernel at its dtype and mode: 'f32'
+        (KERNEL_REL_TOL), 'b5' (and ATTN_BLOCK_ABS_TOL), 'small'
+        (SMALL_ATTN_ABS_TOL), 'bf16', 'high3', 'default'."""
+        check(torch.isfinite(out.float()).all().item() and out.shape == ref.shape
+              and out.dtype == ref.dtype, f"phase 24 {label}: not finite, or shape or dtype")
+        abs_err, rel, mean_rel = bf16_errs(out, ref)
+        bars = {"f32": rel <= KERNEL_REL_TOL, "small": abs_err <= SMALL_ATTN_ABS_TOL,
+                "b5": rel <= KERNEL_REL_TOL and abs_err <= ATTN_BLOCK_ABS_TOL,
+                "bf16": rel <= BF16_MAX_TOL and mean_rel <= BF16_MEAN_TOL,
+                "high3": rel <= MODE_HIGH3_TOL,
+                "default": rel <= MODE_DEFAULT_MAX_TOL and mean_rel <= MODE_DEFAULT_MEAN_TOL}
+        check(bars[kind], f"phase 24 {label}: max abs {abs_err:.3e}, max rel {rel:.3e}, mean "
+              f"rel {mean_rel:.3e} ({kind} bars)")
+        held[label] = (abs_err, rel, mean_rel)
+        return abs_err
+
+    def kind(dt, mode, f32_kind="f32"):
+        """hold's bars for a call at dt and mode ("highest": f32_kind)."""
+        if dt == torch.bfloat16:
+            return "bf16"
+        return f32_kind if mode == "highest" else mode
+
+    def tag(d, dt, mode):
+        return f"d={d} {'bf16' if dt == torch.bfloat16 else mode}"
+
+    def times(key, run, plain, lib, work, peak, timer, abs_err):
+        """Kernel, plain and library times by `timer`, the bound from work."""
+        flops, nbytes = work
+        timed[key] = dict(abs_err=abs_err, ms=timer(run), plain_ms=timer(plain),
+                          lib_ms=timer(lib), flops=flops, bytes=nbytes)
+
+    def summed(keys, peak):
+        """The kernels line's numbers of the calls under keys, summed."""
+        parts = [timed[k] for k in keys]
+        tot = lambda name: sum(p[name] for p in parts)
+        flops, nbytes = tot("flops"), tot("bytes")
+        return {"max_abs_err": max(p["abs_err"] for p in parts), "ms": tot("ms"),
+                "plain_ms": tot("plain_ms"), "bound_ms": max(flops / peak, nbytes / mem_rate) * 1e3,
+                "bound_by": "operations" if flops / peak >= nbytes / mem_rate else "bytes",
+                "library_ms": tot("lib_ms")}
+
+    def pad_heads(t, d, width):
+        """[..., H·d] or [..., d] zero-padded per head to width (a copy)."""
+        return F.pad(t.unflatten(-1, (-1, d)), (0, width - d)).flatten(-2)
+
+    def same_as_padded(label, out, run_padded, d, width):
+        """out equals, bit for bit, the instance's output on padded copies."""
+        wide = run_padded()
+        narrow = wide.unflatten(-1, (-1, width))[..., :d].flatten(-2)
+        check(torch.equal(out, narrow), f"phase 24 {label}: not bit for bit the {width} "
+              f"instance on zero-padded copies (max |d| "
+              f"{(out.float() - narrow.float()).abs().max().item():.3e})")
+        padded.append(label)
+
+    with torch.no_grad():
+        for d, (c, heads) in WIDTHS.items():
+            width, scale = (64 if d <= 64 else 128), d ** -0.5
+            hidden = int(c * MLP_RATIO)
+            block = Block(c, heads, MLP_RATIO, qkv_bias=True)
+            init_weights(block, torch.Generator().manual_seed(d))
+            block = block.to(dev)
+            out_ln = torch.nn.LayerNorm(c, eps=1e-6).to(dev)
+            for ln in (block.norm1, block.norm2, out_ln):
+                ln.weight.copy_(1.0 + randn(c, scale=0.2))
+                ln.bias.copy_(randn(c, scale=0.2))
+            block_bf = copy.deepcopy(block)
+            for m in (block_bf.attn.qkv, block_bf.attn.proj, block_bf.mlp.fc1, block_bf.mlp.fc2):
+                m.weight.data = m.weight.data.bfloat16()
+            x32, t32 = randn(rows, c), randn(items, c, scale=0.5)
+            cols32 = randn(items * FRAMES, JOINTS * c)
+            for dt in (torch.float32, torch.bfloat16):
+                f32 = dt == torch.float32
+                blk = block if f32 else block_bf
+                lib_blk, lib_oln = copy.deepcopy(block).to(dt), copy.deepcopy(out_ln).to(dt)
+                x, t_rows, cols = x32.to(dt), t32.to(dt), cols32.to(dt)
+                modes = ("highest", "high3", "default") if f32 else ("highest",)
+                peak = peak_flops if f32 else peak_bf16
+                # B1 in rows, B5, at both group sizes.
+                for n in (JOINTS, FRAMES):
+                    kw = dict(t_rows=t_rows, rows_per_item=rows // items, out_ln=out_ln)
+                    for mode in modes:
+                        out = fused_transformer_block(x, blk, n, heads, f32_prec=mode, **kw)
+                        err = hold(f"B1 {tag(d, dt, mode)} n={n}", out, fused_transformer_block_ref(
+                            x, blk, n, heads, f32_prec=mode, **kw), kind(dt, mode))
+                        if mode == "highest":
+                            times(f"B1 {tag(d, dt, mode)} n={n}",
+                                  lambda: fused_transformer_block(x, blk, n, heads, **kw),
+                                  lambda: fused_transformer_block_ref(x, blk, n, heads, **kw),
+                                  lambda: library_block(x, lib_blk, n, heads, t_rows,
+                                                        rows // items, lib_oln),
+                                  block_work(rows, n, c, hidden, items, dt.itemsize), peak,
+                                  cuda_ms, err)
+                        out = fused_attention_block(x, blk, n, heads, f32_prec=mode)
+                        err = hold(f"B5 {tag(d, dt, mode)} n={n}", out, fused_attention_block_ref(
+                            x, blk, n, heads, f32_prec=mode), kind(dt, mode, "b5"))
+                        if mode == "highest":
+                            times(f"B5 {tag(d, dt, mode)} n={n}",
+                                  lambda: fused_attention_block(x, blk, n, heads),
+                                  lambda: fused_attention_block_ref(x, blk, n, heads),
+                                  lambda: library_attn_block(x, lib_blk, n, heads),
+                                  attn_block_work(rows, n, c, dt.itemsize), peak, cuda_ms, err)
+                # B2 in cols.
+                kw = dict(t_rows=t_rows, out_ln=out_ln)
+                for mode in modes:
+                    out = fused_temporal_block_cols(cols, blk, FRAMES, JOINTS, heads,
+                                                    f32_prec=mode, **kw)
+                    err = hold(f"B2 {tag(d, dt, mode)}", out, fused_temporal_block_cols_ref(
+                        cols, blk, FRAMES, JOINTS, heads, f32_prec=mode, **kw), kind(dt, mode))
+                    if mode == "highest":
+                        times(f"B2 {tag(d, dt, mode)}",
+                              lambda: fused_temporal_block_cols(cols, blk, FRAMES, JOINTS, heads,
+                                                                **kw),
+                              lambda: fused_temporal_block_cols_ref(cols, blk, FRAMES, JOINTS,
+                                                                    heads, **kw),
+                              lambda: library_cols(cols, lib_blk, FRAMES, JOINTS, heads, t_rows,
+                                                   lib_oln),
+                              block_work(rows, FRAMES, c, hidden, items, dt.itemsize), peak,
+                              cuda_ms, err)
+                del x, t_rows, cols, lib_blk, lib_oln
+                # (b) the blocks' attention step against its instance.
+                for label, n, j in (("rows", JOINTS, 0), ("rows", FRAMES, 0),
+                                    ("cols", FRAMES, JOINTS)):
+                    qkv = randn(rows, 3 * c).to(dt)
+                    wide = pad_heads(qkv, d, width)
+                    for mode in modes:
+                        out = block_attention(qkv, n, heads, f32_prec=mode, j_groups=j)
+                        hold(f"block attention {label} {tag(d, dt, mode)} n={n}", out,
+                             block_attention_ref(qkv, n, heads, f32_prec=mode, j_groups=j),
+                             kind(dt, mode))
+                        same_as_padded(f"block attention {label} {tag(d, dt, mode)} n={n}", out,
+                                       lambda: block_attention(wide, n, heads, f32_prec=mode,
+                                                               j_groups=j, scale=scale),
+                                       d, width)
+                    del qkv, wide
+                # B3 and B6 on qkv views, at f32 (and the session "default") and bf16.
+                for name, fn, ref, b, n, f32_kind, timer in (
+                        ("B3", grand_attention_fullseq, grand_attention_fullseq_ref,
+                         2 * BATCH * JOINTS, FRAMES, "f32", cuda_ms if f32 else device_ms),
+                        ("B6", packed_grand_attention, packed_grand_attention_ref,
+                         2 * BATCH * FRAMES, JOINTS, "small", device_ms)):
+                    q, k, v = randn(b, n, 3, heads, d).to(dt).permute(2, 0, 3, 1, 4)
+                    wide = [F.pad(t, (0, width - d)) for t in (q, k, v)]
+                    for prec in (("highest", "default") if f32 else ("highest",)):
+                        out = fn(q, k, v, matmul_precision=prec)
+                        label = f"{name} {tag(d, dt, prec)}"
+                        err = hold(label, out, ref(q, k, v, matmul_precision=prec),
+                                   kind(dt, prec, f32_kind))
+                        same_as_padded(label, out.transpose(1, 2),
+                                       lambda: fn(*wide, scale, matmul_precision=prec)
+                                       .transpose(1, 2), d, width)
+                        if prec == "highest":
+                            elems = b * heads * n * d
+                            flops = 4 * elems * n
+                            times(label, lambda: fn(q, k, v), lambda: ref(q, k, v),
+                                  lambda: F.scaled_dot_product_attention(q, k, v) - v,
+                                  (flops, 4 * dt.itemsize * elems), peak, timer, err)
+                    del q, k, v, wide
+            del block, block_bf, out_ln, x32, t32, cols32
+            torch.cuda.empty_cache()
+            pair = (f"n={JOINTS}", f"n={FRAMES}")
+            for name, keys in (("B1", pair), ("B5", pair),
+                               ("B2", ("",)), ("B3", ("",)), ("B6", ("",))):
+                for dt_key, tag_key, peak in (("", "highest", peak_flops),
+                                              ("_bf16", "bf16", peak_bf16)):
+                    ks = [f"{name} d={d} {tag_key}" + (f" {k}" if k else "") for k in keys]
+                    numbers.setdefault(name, {})[f"d{d}{dt_key}"] = summed(ks, peak)
+    lines = [f"{k} max rel {v[1]:.3e} (max abs {v[0]:.3e}, mean rel {v[2]:.3e})"
+             for k, v in held.items()]
+    lines.append(f"{len(padded)} attention launches bit for bit their instance on "
+                 f"zero-padded copies")
+    lines += [f"{k}: ms {v['ms']:.4f} plain_ms {v['plain_ms']:.4f} library_ms "
+              f"{v['lib_ms']:.4f}" for k, v in timed.items()]
+    say(f"phase 24a,b head widths {sorted(WIDTHS)} ({card}): " + "; ".join(lines))
+    say(f"phase 24a kernels line numbers: {json.dumps(numbers)}")
+
+    # (c) the CLI at --num-heads 16.
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(here, CLI_CONFIG)
+    with open(config) as f:
+        params = json.load(f)["params"]
+    launches, inner, runs, cut = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "seed0_heads16.bin")
+        torch.save(MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED,
+                                  depth=DEPTH, num_heads=WIDTH_CLI_HEADS, mlp_ratio=MLP_RATIO,
+                                  seed=0, device=dev).state_dict(), weights)
+        use_pallas = os.path.join(tmp, "use_pallas.json")
+        with open(use_pallas, "w") as f:
+            json.dump({"params": dict(params, use_pallas_attention=True)}, f)
+        for name, cfg_path, extra, ddim in (
+                *((k, config, v, DDIM_STEPS) for k, v in EVAL_MODES.items()),
+                ("plain_cut", config, [], CUT_DDIM_STEPS),
+                ("use_pallas", use_pallas, [], CUT_DDIM_STEPS)):
+            errors, dr = drive(cli_main, [
+                "--config", cfg_path, "--synthetic", "-str", "S1", "-ste", "S9", "-a", "Walking",
+                "--num-heads", str(WIDTH_CLI_HEADS), "--sampling_timesteps", str(ddim),
+                "--batch-size-eval", str(BATCH), "-c", os.path.join(tmp, name),
+                "--evaluate", weights] + extra)
+            check(all(line in dr["text"] for line in REPORT_RUN + ("----Walking----",))
+                  and all(len(v) == 1 and math.isfinite(v[0]) for v in errors.values()),
+                  f"phase 24c cli {name}: a line of the report is missing, or errors {errors}")
+            (rec,) = dr["records"]
+            run = dict(pred=normalised_predictions(dr["records"]), launches=dr["launches"],
+                       frames_per_s=rec["n_frames"] / rec["model_time"], errors=errors,
+                       wall_s=dr["wall_s"])
+            (cut if ddim == CUT_DDIM_STEPS else runs)[name.replace("_cut", "")] = run
+            launches[f"cli_heads16_{name}"], inner[f"cli_heads16_{name}"] = (dr["launches"],
+                                                                              dr["inner"])
+        windows = runs["plain"]["pred"].shape[0] // FRAMES
+        check(windows == 16, f"phase 24c: {windows} windows")
+        steps = windows // BATCH + 1  # and the warm-up step
+        hold_eval_modes("phase 24c cli", runs, eval_want(steps * DDIM_STEPS, per_call,
+                                                         DDIM_STEPS))
+        want_cut = eval_want(steps * CUT_DDIM_STEPS, per_call, CUT_DDIM_STEPS)
+        for name, r in cut.items():
+            got = {k: r["launches"].get(k, 0) for k in want_cut[name]}
+            check(got == want_cut[name] and not any(
+                v for k, v in r["launches"].items() if k not in want_cut[name]),
+                f"phase 24c cli {name} DDIM-{CUT_DDIM_STEPS} launched {r['launches']}, "
+                f"expected {want_cut[name]}")
+        cut["use_pallas"]["dev"] = (cut["use_pallas"]["pred"] - cut["plain"]["pred"]).abs().max(
+        ).item()
+        check(torch.isfinite(cut["use_pallas"]["pred"]).all().item()
+              and cut["use_pallas"]["dev"] <= EVAL_ABS_BOUND,
+              f"phase 24c use_pallas DDIM-{CUT_DDIM_STEPS} deviates from the plain run by "
+              f"{cut['use_pallas']['dev']:.3e} > {EVAL_ABS_BOUND}")
+    say(f"phase 24c cli at --num-heads {WIDTH_CLI_HEADS} (head_dim {EMBED // WIDTH_CLI_HEADS}; "
+        f"{FRAMES} frames, embed {EMBED}, depth {DEPTH}; S9 Walking, {windows} windows, batch "
+        f"{BATCH} x2 flip; {card}): " + "; ".join(
+            f"{k} DDIM-{DDIM_STEPS if k in runs and r is runs[k] else CUT_DDIM_STEPS} "
+            f"frames/s {r['frames_per_s']:.1f} e1_mm {r['errors']['e1'][0]:.4f}"
+            + (f" max_abs_dev {r['dev']:.3e} mpjpe {r['mpjpe']:.4e}" if "mpjpe" in r else "")
+            + (f" max_abs_dev {r['dev']:.3e}" if "dev" in r and "mpjpe" not in r else "")
+            + f" launches { {a: b for a, b in r['launches'].items() if b} } wall_s "
+              f"{r['wall_s']:.1f}"
+            for k, r in [*runs.items(), *((f"{k} (cut)", v) for k, v in cut.items())])
+        + f"; phase 24 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return launches, inner, numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -3608,6 +3928,23 @@ def main():
     regs = [f"{name}.cu {entry}" for name, log in reports.items() for entry in ptxas_summary(log)]
     say(f"phase 1 build: {time.perf_counter() - t0:.3f} s for {list(SOURCES)}; "
         f"{len(reports)} built now; ptxas: {' | '.join(regs)}")
+    # The wrappers' and the runner's mirrors of the libraries' limits.
+    from diff3dhpe_torch.ops._build import load_library
+    from diff3dhpe_torch.ops.attention import MAX_N, takes_head_dim
+
+    libs = {name: load_library(name) for name in SOURCES}
+    limits = {"diff3dhpe_grand_max_n": libs["grand_attention"].diff3dhpe_grand_max_n(),
+              "diff3dhpe_attn_max_n": libs["fused_block"].diff3dhpe_attn_max_n()}
+    rule = {name: [d for d in range(260) if fn(d)] for name, fn in (
+        ("diff3dhpe_grand_takes_head_dim", libs["grand_attention"].diff3dhpe_grand_takes_head_dim),
+        ("diff3dhpe_attn_takes_head_dim", libs["fused_block"].diff3dhpe_attn_takes_head_dim))}
+    check(all(v == MAX_N for v in limits.values())
+          and all(v == [d for d in range(260) if takes_head_dim(d)] for v in rule.values()),
+          f"phase 1: the libraries' limits {limits} and head widths {rule} are not the Python "
+          f"mirrors' (MAX_N {MAX_N}, takes_head_dim)")
+    say(f"phase 1 limits: {limits} (MAX_N {MAX_N}); head widths the forward kernels take: "
+        f"{rule['diff3dhpe_grand_takes_head_dim']} (takes_head_dim agrees); B4: "
+        f"{[d for d in range(260) if libs['grand_attention'].diff3dhpe_grand_bwd_takes_head_dim(d)]}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device=dev) * scale
@@ -4895,6 +5232,11 @@ def main():
     # paths (phases 14 and 15).
     group_sizes = check_group_sizes(make_block, timings, check_bf16, randn, peak_flops, peak_bf16)
 
+    # Phase 24: head widths other than 64 and 128 on the serving path (B1,
+    # B2, B5, B3, B6 at head_dim 32 and 96; the CLI at --num-heads 16).
+    head_width_launches, head_width_inner, head_widths = drive_head_widths(
+        dev, card, (peak_flops, peak_bf16, mem_rate), per_call)
+
     # Phase 10: the evaluate entry point, as a user calls it: a config JSON,
     # --synthetic data (subject S9, action Walking: 4 cameras x 972 frames =
     # 16 windows of 243 frames), a seed-0 state dict in a reference .bin,
@@ -5051,6 +5393,8 @@ def main():
               f"{cli[mixed_run]['mpjpe']:.4e} > the {bf16_run} run's "
               f"{cli[bf16_run]['mpjpe']:.4e}")
     cli_launches = {f"cli_{name}": c["launches"] for name, c in cli.items()}
+    cli_launches.update(head_width_launches)
+    inner_by_path.update(head_width_inner)
 
     # Phase 10b: where one eval step of the use_pallas module goes.
     model = MixSTEDenoiser(num_frame=FRAMES, num_joints=JOINTS, embed_dim=EMBED, depth=DEPTH,
@@ -5585,6 +5929,7 @@ def main():
         "gemm_f32": gemm_part,
         "layer_norm": ln_part,
         "f32_modes": f32_modes["B1"],
+        "head_widths": dict(head_widths["B1"], work=HEAD_WIDTHS_WORK["pair"]),
         "work": f"one spatial (n={JOINTS}) + one temporal (n={FRAMES}) call, R={rows}, C={EMBED}",
     }, {
         "name": "fused_temporal_block_cols",
@@ -5600,6 +5945,7 @@ def main():
                           work=f"the same call with {HEADS4} heads (head_dim 128), bf16"),
         "group_sizes": {k: one_call(v) for k, v in group_sizes["B2"].items()},
         "f32_modes": f32_modes["B2"],
+        "head_widths": dict(head_widths["B2"], work=HEAD_WIDTHS_WORK["B2"]),
         "work": f"one call, x=[{2 * BATCH}*{FRAMES}, {JOINTS}*{EMBED}] (n={FRAMES}), f32",
     }]
     for name, replaces in (("grand_attention_fullseq", "diff3dhpe_tpu/ops/attention.py:185"),
@@ -5639,6 +5985,7 @@ def main():
         pair_numbers(attn_bf16, peak_bf16),
         work=f"one call at [{2 * BATCH * JOINTS}, {HEADS}, {FRAMES}, {EMBED // HEADS}] + one at "
              f"[{2 * BATCH * FRAMES}, {HEADS}, {JOINTS}, {EMBED // HEADS}], bf16 qkv views")
+    entries[2]["head_widths"] = dict(head_widths["B3"], work=HEAD_WIDTHS_WORK["B3"])
     entries[2]["bf16_d128"] = dict(
         pair_numbers(attn_bf16_hd128, peak_bf16),
         work=f"one call at [{2 * BATCH * JOINTS}, {HEADS4}, {FRAMES}, {EMBED // HEADS4}] + one at "
@@ -5656,6 +6003,7 @@ def main():
         "bf16_d128": dict(pair_numbers(attn_block["bf16_d128"], peak_bf16),
                           work=f"the same pair of calls with {HEADS4} heads (head_dim 128), bf16"),
         "f32_modes": f32_modes["B5"],
+        "head_widths": dict(head_widths["B5"], work=HEAD_WIDTHS_WORK["pair"]),
         "work": f"one call with n={JOINTS} + one with n={FRAMES}, R={rows}, C={EMBED}",
     })
     # The session matmul precision "default" (phase 21b): B3's, B4's and
@@ -5689,6 +6037,7 @@ def main():
         "max_abs_err": max(v["abs_err"] for v in small.values()),
         "other_shapes": {k: one_call(v) for k, v in small.items() if k != "qkv_views"},
         "group_sizes": {k: one_call(v) for k, v in group_sizes["B6"].items()},
+        "head_widths": dict(head_widths["B6"], work=HEAD_WIDTHS_WORK["B6"]),
         "work": f"one call, [G={2 * BATCH * FRAMES * HEADS}, N={JOINTS}, D={EMBED // HEADS}] "
                 f"f32 as views of a qkv projection, device time",
         "session_default": dict(one_call(session_res["B6"]), work="one call at the eval shape, "

@@ -85,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "manifold motion for convergence studies)")
     parser.add_argument("--num-heads", type=int, default=None, metavar="N",
                         help="attention heads (default 8 = reference geometry;"
-                             " the CUDA kernels take head_dim 64 and 128)")
+                             " the CUDA kernels take head_dim a multiple of 8 up"
+                             " to 128, fused training 64 and 128)")
     parser.add_argument("--fast-eval", action="store_true",
                         help="fused-kernel inference path for evaluation")
     parser.add_argument("--fast-train", action="store_true",

@@ -64,7 +64,10 @@
 //                         16-byte pieces of a row.
 //   grand_attn_tiled_kernel, grand_attn_small_kernel
 //                         f32, grand_attn.cuh, shared with grand_attention.cu
-//                         (head width 64 or 128): 64-query blocks streaming
+//                         (compiled for head width 64 and 128; every
+//                         multiple of 8 up to 128 runs on the next one,
+//                         its columns past d zero-filled): 64-query blocks
+//                         streaming
 //                         64-key tiles of K and V through a cp.async ring
 //                         with an online softmax, or at n <= 32 persistent
 //                         blocks walking the (group, head) pairs through a
@@ -73,7 +76,7 @@
 //                         adds the outer group index b (blockIdx.z, or part
 //                         of the pair index).
 //   grand_attn_bf16_kernel
-//                         bf16, grand_attn_bf16.cuh (head width 64 or 128):
+//                         bf16, grand_attn_bf16.cuh (the same head widths):
 //                         the TPU device function grand_attend_tile with
 //                         both products as mma.sync m16n8k16, a warp's whole
 //                         score block in registers (normalise first, then
@@ -435,7 +438,7 @@ cudaError_t launch_attention(const T* qkv, T* out, int R, int C, int heads, int 
   // q of row r, head h at qkv[r, h * d] (d = C / heads), k and v C and 2C
   // columns further; the output at out[r, h * d]. float runs the f32
   // kernels of grand_attn.cuh, bf16 the tensor-core kernel of
-  // grand_attn_bf16.cuh (both d = 64 or 128).
+  // grand_attn_bf16.cuh (both take d a multiple of 8 up to 128).
   constexpr bool kF32 = std::is_same<T, float>::value;
   const long long ld = 3LL * C, d = C / heads;
   if (j_groups == 0) {
@@ -884,9 +887,22 @@ extern "C" int diff3dhpe_block_attn_f32(const float* qkv, float* out, int R, int
   return 0;
 }
 
-// 1 where the block's attention step takes head width d (64 or 128, at f32
-// and at bf16), and the most keys per group it holds; the wrapper checks
-// both before launching.
+// The same at bf16: the tensor-core kernel of grand_attn_bf16.cuh, as
+// run_block<bf16> launches it. For measuring and testing.
+extern "C" int diff3dhpe_block_attn_bf16(const bf16* qkv, bf16* out, int R, int C, int heads,
+                                         int n, int n_pad, int j_groups, float scale,
+                                         int* launches, void* stream_ptr) {
+  const cudaError_t err = launch_attention(qkv, out, R, C, heads, n, n_pad, j_groups, scale,
+                                           grand::kHighest,
+                                           static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return (int)err;
+  ++*launches;
+  return 0;
+}
+
+// 1 where the block's attention step takes head width d (a multiple of 8 up
+// to 128, at f32 and at bf16), and the most keys per group it holds; the
+// wrapper checks both before launching.
 extern "C" int diff3dhpe_attn_takes_head_dim(int d) { return grand::takes_head_dim(d); }
 extern "C" int diff3dhpe_attn_max_n() { return grand::kMaxN; }
 

@@ -15,8 +15,10 @@
 //      n <= 64 (the spatial attention: n = 17 joints), f32 and bf16.
 //
 // Operands are [B, H, N, D] read through element strides (unit stride on
-// the head dimension), D = 64 or 128 (one template, two instances) and
-// N <= 256, so the trainable attention hands over q, k and v as views of its
+// the head dimension), N <= 256; the forward (B3, B6) takes every D that is
+// a multiple of 8 up to 128, on the instance of 64 or 128 (grand_attn.cuh,
+// "Head widths"), the backward (B4) D = 64 or 128 (one template, two
+// instances), so the trainable attention hands over q, k and v as views of its
 // [B, N, 3, H, D] qkv projection and receives outputs laid out [B, N, H, D],
 // with no copy on either side.
 //
@@ -582,7 +584,7 @@ cudaError_t launch_fwd_f32(const float* q, const float* k, const float* v, float
 #define STRIDES(p) Strides{p##_sb, p##_sh, p##_sn}
 
 // B3: out = softmax(q kᵀ·scale) v − v for every (b, h) of [B, H, n, d]
-// operands (d = 64 or 128) given by their element strides (sb, sh, sn).
+// operands (d a multiple of 8 up to 128) given by their element strides (sb, sh, sn).
 // stats may be null; else (n > 32) it holds 2·B·H·n64 floats, and the
 // launch writes each row's max and 1/sum into its two planes for a later
 // diff3dhpe_grand_attn_bwd_f32. mode: the session matmul precision as
@@ -604,7 +606,7 @@ extern "C" int diff3dhpe_grand_attn_fwd_f32(
   return 0;
 }
 
-// B3 at bf16: the same arguments on bf16 operands (d = 64 or 128), through
+// B3 at bf16: the same arguments on bf16 operands (the same d), through
 // the tensor-core kernel of grand_attn_bf16.cuh (P rounded to bf16 after the
 // normalisation, one rounding of P·v − v). Every stride a multiple of 8
 // elements and every base 16-byte aligned (checked by the wrapper). stats
@@ -693,7 +695,7 @@ extern "C" int diff3dhpe_grand_attn_bwd_f32(
     long long dk_sn, long long dv_sb, long long dv_sh, long long dv_sn, float scale, int mode,
     int* launches, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || n > kMaxN || !grand::takes_head_dim(d)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n > kMaxN || !grand::bwd_takes_head_dim(d)) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (mode == grand::kDefault) {
     if (fout != nullptr || stats == nullptr || planes == nullptr) return (int)cudaErrorInvalidValue;
@@ -734,7 +736,7 @@ extern "C" int diff3dhpe_grand_attn_bwd_bf16(
     long long dk_sn, long long dv_sb, long long dv_sh, long long dv_sn, float scale,
     int* launches, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || n > kMaxN || !grand::takes_head_dim(d) || stats == nullptr) {
+  if (n <= 0 || n > kMaxN || !grand::bwd_takes_head_dim(d) || stats == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
 #define BWD_ARGS q, k, v, dout, dout, dq, dk, dv, stats, have_stats != 0, STRIDES(q), STRIDES(k), \
@@ -746,8 +748,11 @@ extern "C" int diff3dhpe_grand_attn_bwd_bf16(
   return (int)err;
 }
 
-// 1 where the kernels take head width d (64 or 128, at f32 and at bf16).
+// 1 where the forward kernels (B3, B6) take head width d (a multiple of 8
+// up to 128, at f32 and at bf16), and where the backward (B4) takes it (64
+// or 128).
 extern "C" int diff3dhpe_grand_takes_head_dim(int d) { return grand::takes_head_dim(d); }
+extern "C" int diff3dhpe_grand_bwd_takes_head_dim(int d) { return grand::bwd_takes_head_dim(d); }
 // The most keys per group the kernels take; the wrappers check it.
 extern "C" int diff3dhpe_grand_max_n() { return kMaxN; }
 // The most keys per group B6 takes.

@@ -18,6 +18,17 @@
 // <= 256. Products in exact f32 FMAs (no TF32), expf and one IEEE
 // reciprocal a row, no fast math.
 //
+// Head widths: every attention kernel of the port takes a width d that is
+// a multiple of 8 with 8 <= d <= 128 (takes_head_dim), on the instance of
+// the next compiled width, D̂ = 64 for d <= 64, else 128 (instance_head_dim).
+// The operands' columns at or past d are zero-filled in shared memory by
+// the same cp.async predicate that zero-fills rows past n, and the stores
+// are masked to d. A zero column adds exact zeros to every sum, so a width
+// gives, bit for bit, what the instance gives on copies of q, k and v
+// zero-padded to D̂ with the same scale (the caller's d^-½): shared memory
+// holds the same values. The backward (B4) takes 64 and 128 alone
+// (bwd_takes_head_dim).
+//
 // The float32 contraction modes (F32Mode): kHighest is the above;
 // kDefault (the MXU's one bf16 pass: operands rounded to bf16, nearest
 // even, products exact, f32 sums) and kHigh3 (bf16x3, _dot_f32_3pass) are
@@ -79,9 +90,16 @@ constexpr int kMaxN = 256;    // keys per group the kernels take
 constexpr int kSmallKeys = 32;     // at or below: the small-group kernel (with <= 64 query rows)
 constexpr int kSmallMaxN = 64;     // the most keys the small-group kernel takes (B6)
 
-// True for the head widths the kernels are compiled for (f32 here, bf16 in
-// grand_attn_bf16.cuh).
-__host__ __device__ inline bool takes_head_dim(int d) { return d == 64 || d == 128; }
+// True for the head widths the forward kernels take (f32 here, bf16 in
+// grand_attn_bf16.cuh, the modes in grand_attn_mode.cuh): a multiple of 8
+// (16-byte rows at bf16) up to 128.
+__host__ __device__ inline bool takes_head_dim(int d) { return d % 8 == 0 && 8 <= d && d <= 128; }
+// The compiled width a forward launch of width d runs on.
+__host__ __device__ inline int instance_head_dim(int d) { return d <= 64 ? 64 : 128; }
+// True for the head widths the backward kernels (B4) are compiled for.
+__host__ __device__ inline bool bwd_takes_head_dim(int d) { return d == 64 || d == 128; }
+// load_block's column bound where a block has none (B4's loads).
+constexpr int kAllCols = 1 << 30;
 
 // The float32 contraction modes, by the index the wrappers pass.
 enum F32Mode { kHighest = 0, kHigh3 = 1, kDefault = 2 };
@@ -161,16 +179,17 @@ __device__ __forceinline__ float lane_of(float4 v, int e) {
 
 // Rows [r0, r0 + kRows) x columns [c0, c0 + kCols) of one head of a
 // strided operand into a [kRows][ld] shared tile by cp.async, 16 bytes at a
-// time; rows at or past n are zero-filled. Every thread of the block takes
-// part.
+// time; rows at or past n and columns at or past d (the head's width, a
+// multiple of 4) are zero-filled. Every thread of the block takes part.
 template <int kRows, int kCols>
 __device__ __forceinline__ void load_block(float* dst, int ld, const float* src,
-                                           long long row_stride, int r0, int c0, int n) {
+                                           long long row_stride, int r0, int c0, int n,
+                                           int d = kAllCols) {
   constexpr int kC4 = kCols / 4;
   for (int e = threadIdx.x; e < kRows * kC4; e += blockDim.x) {
     const int r = e / kC4, c = (e % kC4) * 4;
-    const bool ok = r0 + r < n;
-    cp_async16(dst + r * ld + c, src + (long long)(ok ? r0 + r : 0) * row_stride + c0 + c, ok);
+    const bool ok = r0 + r < n && c0 + c < d;
+    cp_async16(dst + r * ld + c, src + (ok ? (long long)(r0 + r) * row_stride + c0 + c : 0), ok);
   }
 }
 
@@ -247,7 +266,7 @@ __global__ void __launch_bounds__(kThreads)
 grand_attn_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ out, Strides sq,
                         Strides sk, Strides sv, Strides so, int n_keys, int n_queries,
-                        int q_tiles, float scale, float* __restrict__ stats) {
+                        int q_tiles, float scale, float* __restrict__ stats, int d) {
   using L = FwdLayout<D>;
   constexpr int kC = D / 32;  // 4-column groups a thread holds of the output
   extern __shared__ __align__(16) float fwd_smem[];
@@ -274,12 +293,13 @@ grand_attn_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k
     float* st = ring + (g & 1) * L::kStage;
     const int t = g / L::kChunks, c = g % L::kChunks;
     if (c < L::kSC) {
-      load_block<kKT, 32>(st, kLdC, kbase, sk.n, t * kKT, 32 * c, n_keys);
+      load_block<kKT, 32>(st, kLdC, kbase, sk.n, t * kKT, 32 * c, n_keys, d);
     } else {
-      load_block<L::kVR, D>(st, D + 4, vbase, sv.n, t * kKT + (c - L::kSC) * L::kVR, 0, n_keys);
+      load_block<L::kVR, D>(st, D + 4, vbase, sv.n, t * kKT + (c - L::kSC) * L::kVR, 0, n_keys,
+                            d);
     }
   };
-  load_block<kQT, D>(Qs, L::kLdQ, qbase + (long long)q0 * sq.n, sq.n, 0, 0, n_queries - q0);
+  load_block<kQT, D>(Qs, L::kLdQ, qbase + (long long)q0 * sq.n, sq.n, 0, 0, n_queries - q0, d);
   issue(0);
   cp_async_commit();
 
@@ -351,6 +371,7 @@ grand_attn_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k
     float* oi = obase + (long long)row * so.n + 4 * tk;
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
+      if (32 * c + 4 * tk >= d) continue;  // columns past the head's width
       const float4 vv = ld4(vi + 32 * c);
       *reinterpret_cast<float4*>(oi + 32 * c) =
           make_float4(o[i][4 * c] * inv - vv.x, o[i][4 * c + 1] * inv - vv.y,
@@ -447,7 +468,7 @@ __global__ void __launch_bounds__(32 * SmallTile<D, KJ>::kMaxTeam)
 grand_attn_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ out, Strides sq,
                         Strides sk, Strides sv, Strides so, int pairs, int B, int H,
-                        int n_keys, int n_queries, float scale) {
+                        int n_keys, int n_queries, float scale, int d) {
   using T = SmallTile<D, KJ>;
   constexpr int kC = D / 32;   // 4-column groups a lane holds of an output row
   constexpr int kP4 = D / 4;   // 16-byte pieces a row
@@ -473,19 +494,22 @@ grand_attn_small_kernel(const float* __restrict__ q, const float* __restrict__ k
     const int h = p % H, rest = p / H;
     return (long long)(rest % B) * s.b + (long long)h * s.h + (long long)(rest / B) * s.z;
   };
-  // Pair p's Q, K and V rows into a stage, by every thread of the block.
+  // Pair p's Q, K and V rows into a stage, by every thread of the block;
+  // columns at or past d zero-filled.
   auto issue = [&](int p, float* st) {
     const float* qb = q + base(p, sq);
     const float* kb = k + base(p, sk);
     const float* vb = v + base(p, sv);
     for (int e = threadIdx.x; e < nq * kP4; e += blockDim.x) {
       const int r = e / kP4, c4 = (e % kP4) * 4;
-      cp_async16(st + r * T::kLd + c4, qb + r * sq.n + c4, true);
-      cp_async16(st + L.v + r * T::kLd + c4, vb + r * sv.n + c4, true);
+      const bool ok = c4 < d;
+      cp_async16(st + r * T::kLd + c4, qb + (ok ? r * sq.n + c4 : 0), ok);
+      cp_async16(st + L.v + r * T::kLd + c4, vb + (ok ? r * sv.n + c4 : 0), ok);
     }
     for (int e = threadIdx.x; e < n * kP4; e += blockDim.x) {
       const int r = e / kP4, c4 = (e % kP4) * 4;
-      cp_async16(st + L.k + r * T::kLd + c4, kb + r * sk.n + c4, true);
+      const bool ok = c4 < d;
+      cp_async16(st + L.k + r * T::kLd + c4, kb + (ok ? r * sk.n + c4 : 0), ok);
     }
   };
 
@@ -548,6 +572,7 @@ grand_attn_small_kernel(const float* __restrict__ q, const float* __restrict__ k
         float* oi = ob + (long long)row * so.n + 4 * b;
 #pragma unroll
         for (int cc = 0; cc < kC; ++cc) {
+          if (32 * cc + 4 * b >= d) continue;  // columns past the head's width
           const float4 vv = ld4(vi + 32 * cc);
           *reinterpret_cast<float4*>(oi + 32 * cc) =
               make_float4(o[i][4 * cc] * inv[i] - vv.x, o[i][4 * cc + 1] * inv[i] - vv.y,
@@ -562,7 +587,7 @@ grand_attn_small_kernel(const float* __restrict__ q, const float* __restrict__ k
 template <int D, int KJ>
 inline cudaError_t launch_small_keys(const float* q, const float* k, const float* v, float* out,
                                      Strides sq, Strides sk, Strides sv, Strides so, int B,
-                                     int H, int n_keys, int n_queries, float scale,
+                                     int H, int n_keys, int n_queries, int d, float scale,
                                      cudaStream_t stream, int outer) {
   using T = SmallTile<D, KJ>;
   const int chunks = (n_queries + T::kChunk - 1) / T::kChunk;
@@ -583,13 +608,14 @@ inline cudaError_t launch_small_keys(const float* q, const float* k, const float
   if (pairs > 0x7fffffff) return cudaErrorInvalidValue;
   const int grid = (long long)sms * per_sm < pairs ? sms * per_sm : (int)pairs;
   grand_attn_small_kernel<D, KJ><<<grid, 32 * team, bytes, stream>>>(
-      q, k, v, out, sq, sk, sv, so, (int)pairs, B, H, n_keys, n_queries, scale);
+      q, k, v, out, sq, sk, sv, so, (int)pairs, B, H, n_keys, n_queries, scale, d);
   return cudaGetLastError();
 }
 
 // The small-group kernel on (B, H[, outer]) groups of n_keys <= kSmallMaxN
-// keys and n_keys <= n_queries <= kSmallMaxN query rows, head width d (64
-// or 128); strides as launch_grand_attn's. B6 takes it at n <= 64, the
+// keys and n_keys <= n_queries <= kSmallMaxN query rows, head width d
+// (takes_head_dim, on the instance_head_dim instance); strides as
+// launch_grand_attn's. B6 takes it at n <= 64, the
 // block's exact f32 attention step at n <= kSmallKeys.
 inline cudaError_t launch_small(const float* q, const float* k, const float* v, float* out,
                                 Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
@@ -599,8 +625,8 @@ inline cudaError_t launch_small(const float* q, const float* k, const float* v, 
       !takes_head_dim(d) || B <= 0 || H <= 0 || outer <= 0) {
     return cudaErrorInvalidValue;
   }
-#define SMALL_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer
-  if (d == 64) {
+#define SMALL_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, d, scale, stream, outer
+  if (instance_head_dim(d) == 64) {
     return n_keys <= 24   ? launch_small_keys<64, 3>(SMALL_ARGS)
            : n_keys <= 32 ? launch_small_keys<64, 4>(SMALL_ARGS)
                           : launch_small_keys<64, 8>(SMALL_ARGS);
@@ -611,11 +637,12 @@ inline cudaError_t launch_small(const float* q, const float* k, const float* v, 
 #undef SMALL_ARGS
 }
 
+// The tiled kernel's instance D (instance_head_dim(d)) at head width d.
 template <int D, bool kOuter>
 inline cudaError_t launch_tiled(const float* q, const float* k, const float* v, float* out,
                                 Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
-                                int n_keys, int n_queries, float scale, cudaStream_t stream,
-                                int outer, float* stats = nullptr) {
+                                int n_keys, int n_queries, int d, float scale,
+                                cudaStream_t stream, int outer, float* stats) {
   constexpr size_t kBytes = FwdLayout<D>::kFloats * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(grand_attn_tiled_kernel<D, kOuter>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -625,7 +652,7 @@ inline cudaError_t launch_tiled(const float* q, const float* k, const float* v, 
   grand_attn_tiled_kernel<D, kOuter>
       <<<dim3(B * q_tiles, H, outer), kThreads, kBytes, stream>>>(q, k, v, out, sq, sk, sv, so,
                                                                   n_keys, n_queries, q_tiles,
-                                                                  scale, stats);
+                                                                  scale, stats, d);
   return cudaGetLastError();
 }
 

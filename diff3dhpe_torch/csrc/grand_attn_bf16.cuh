@@ -1,6 +1,9 @@
 // bf16 GRAND attention forward on the tensor cores, for Hopper (sm_90a):
 // the attention step of B1, B2 and B5 at bf16 (fused_block.cu) and B3 at
-// bf16 (grand_attention.cu), at head width 64 or 128.
+// bf16 (grand_attention.cu), compiled for head width 64 and 128; a width d
+// (a multiple of 8 up to 128) runs on the next instance with its columns
+// past d zero-filled in shared memory and its stores masked to d
+// (grand_attn.cuh, "Head widths").
 //
 //   out[i] = bf16( Σ_j bf16(softmax_j(q_i·k_j·scale)) v_j − v_i )
 //
@@ -142,16 +145,17 @@ struct TcConfig {
 
 // Rows [row0, row0 + rows) of one head of a strided operand into a
 // [rows][D + 8] shared tile by the `threads` threads of a team; rows at or
-// past n_valid are zero-filled.
+// past n_valid and columns at or past d (the head's width, a multiple of
+// 8) are zero-filled.
 template <int D>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                            long long row_stride, int row0, int rows, int n_valid,
-                                           int tid, int threads) {
+                                           int tid, int threads, int d = D) {
   constexpr int kChunks = D / 8;  // 16-byte pieces of a row
   for (int e = tid; e < rows * kChunks; e += threads) {
     const int r = e / kChunks, c = (e % kChunks) * 8, i = row0 + r;
-    const bool ok = i < n_valid;
-    mma::cp_async16(dst + r * tc_ld<D>() + c, src + (ok ? i : 0) * row_stride + c, ok);
+    const bool ok = i < n_valid && c < d;
+    mma::cp_async16(dst + r * tc_ld<D>() + c, src + (ok ? i * row_stride + c : 0), ok);
   }
 }
 
@@ -275,17 +279,18 @@ __device__ __forceinline__ void tc_acc_chunk(float (&acc)[D / 8][4], const unsig
 }
 
 // Rows i0 .. i0 + 15 of a warp's output, staged as bf16 in Os ([16][D + 8],
-// written by the warp), to rows of dst below n_rows as 16-byte chunks.
+// written by the warp), to rows of dst below n_rows as 16-byte chunks, the
+// columns below d (a multiple of 8).
 template <int D>
 __device__ __forceinline__ void tc_store_rows(__nv_bfloat16* dst, long long row_stride,
                                               const __nv_bfloat16* Os, int i0, int n_rows,
-                                              int lane) {
+                                              int lane, int d = D) {
   constexpr int kChunks = D / 8;  // 16-byte pieces of a row
   __syncwarp();
 #pragma unroll
   for (int it = 0; it < 16 * kChunks / 32; ++it) {
     const int e = it * 32 + lane, r = e / kChunks, c = (e % kChunks) * 8;
-    if (i0 + r < n_rows) {
+    if (i0 + r < n_rows && c < d) {
       *reinterpret_cast<uint4*>(dst + (i0 + r) * row_stride + c) =
           *reinterpret_cast<const uint4*>(Os + r * tc_ld<D>() + c);
     }
@@ -310,7 +315,7 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                        Strides sq, Strides sk, Strides sv, Strides so, int pairs, int H,
                        int n_keys, int n_queries, int qtb, float scale, float* __restrict__ stats,
-                       int nt) {
+                       int nt, int d) {
   using bf16 = __nv_bfloat16;
   constexpr int kLd = tc_ld<D>();
   constexpr int kKeys = 16 * KT16, kTiles = 2 * KT16;  // padded keys; n8 tiles of S
@@ -340,10 +345,10 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   // Q and K first, V as a second group that lands during the softmax.
   const int q0 = blockIdx.y * qtb * 16;  // first query row of the team
   const int tid = wq * 32 + lane, team_threads = qtb * 32;
-  stage_rows<D>(Qs, qbase, sq.n, q0, qtb * 16, live ? n_queries : 0, tid, team_threads);
-  stage_rows<D>(Ks, kbase, sk.n, 0, kKeys, live ? n_keys : 0, tid, team_threads);
+  stage_rows<D>(Qs, qbase, sq.n, q0, qtb * 16, live ? n_queries : 0, tid, team_threads, d);
+  stage_rows<D>(Ks, kbase, sk.n, 0, kKeys, live ? n_keys : 0, tid, team_threads, d);
   mma::cp_async_commit();
-  stage_rows<D>(Vs, vbase, sv.n, 0, kKeys, live ? n_keys : 0, tid, team_threads);
+  stage_rows<D>(Vs, vbase, sv.n, 0, kKeys, live ? n_keys : 0, tid, team_threads, d);
   mma::cp_async_commit();
   mma::cp_async_wait<1>();
   __syncthreads();
@@ -400,7 +405,8 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
   // out = bf16(O − v), staged in this warp's Q rows (no other warp reads
   // them) and stored as 16-byte chunks. v_i comes from the V tile; a pad
-  // query row (n_keys <= i < n_queries) reads it from device memory.
+  // query row (n_keys <= i < n_queries) reads it from device memory, its
+  // columns below d (the others are not stored).
   bf16* Os = Qs + wq * 16 * kLd;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -411,7 +417,7 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
       float2 vv = make_float2(0.f, 0.f);
       if (i < n_keys) {
         vv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Vs + i * kLd + col));
-      } else if (i < n_queries) {
+      } else if (i < n_queries && col < d) {
         vv = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(vbase + i * sv.n + col));
       }
@@ -419,14 +425,14 @@ grand_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
           __floats2bfloat162_rn(o[jd][2 * half] - vv.x, o[jd][2 * half + 1] - vv.y);
     }
   }
-  tc_store_rows<D>(obase, so.n, Os, i0, n_queries, lane);
+  tc_store_rows<D>(obase, so.n, Os, i0, n_queries, lane, d);
 }
 
 template <int D, int KT16, bool kOuter, bool kStats>
 inline cudaError_t launch_grand_attn_bf16_keys(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                                const __nv_bfloat16* v, __nv_bfloat16* out,
                                                Strides sq, Strides sk, Strides sv, Strides so,
-                                               int B, int H, int n_keys, int n_queries,
+                                               int B, int H, int n_keys, int n_queries, int d,
                                                float scale, cudaStream_t stream, int outer,
                                                float* stats) {
   using Cfg = TcConfig<D, KT16>;
@@ -443,7 +449,7 @@ inline cudaError_t launch_grand_attn_bf16_keys(const __nv_bfloat16* q, const __n
   const dim3 grid((pairs + teams - 1) / teams, (q_tiles + qtb - 1) / qtb, outer);
   grand_attn_bf16_kernel<D, KT16, kOuter, kStats><<<grid, 32 * qtb * teams, bytes, stream>>>(
       q, k, v, out, sq, sk, sv, so, pairs, H, n_keys, n_queries, qtb, scale, stats,
-      (n_queries + kBwdTileRows - 1) / kBwdTileRows);
+      (n_queries + kBwdTileRows - 1) / kBwdTileRows, d);
   return cudaGetLastError();
 }
 
@@ -451,10 +457,10 @@ template <int D, bool kOuter, bool kStats>
 inline cudaError_t launch_grand_attn_bf16_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                             const __nv_bfloat16* v, __nv_bfloat16* out,
                                             Strides sq, Strides sk, Strides sv, Strides so, int B,
-                                            int H, int n_keys, int n_queries, float scale,
+                                            int H, int n_keys, int n_queries, int d, float scale,
                                             cudaStream_t stream, int outer, float* stats) {
 #define GRAND_TC_ARGS \
-  q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer, stats
+  q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, d, scale, stream, outer, stats
   if (n_keys <= 32) return launch_grand_attn_bf16_keys<D, 2, kOuter, kStats>(GRAND_TC_ARGS);
   if (n_keys <= 64) return launch_grand_attn_bf16_keys<D, 4, kOuter, kStats>(GRAND_TC_ARGS);
   if (n_keys <= 128) return launch_grand_attn_bf16_keys<D, 8, kOuter, kStats>(GRAND_TC_ARGS);
@@ -463,10 +469,10 @@ inline cudaError_t launch_grand_attn_bf16_d(const __nv_bfloat16* q, const __nv_b
 }
 
 // Launches the bf16 attention on (B, H[, outer]) groups of n_keys keys and
-// n_queries >= n_keys query rows at head width d (64 or 128), n_keys <=
-// kMaxN; every stride a multiple of 8 elements and every base 16-byte
-// aligned (checked by the callers). kStats adds B4's row statistics into
-// stats.
+// n_queries >= n_keys query rows at head width d (takes_head_dim, on the
+// instance_head_dim instance), n_keys <= kMaxN; every stride a multiple of
+// 8 elements and every base 16-byte aligned (checked by the callers).
+// kStats adds B4's row statistics into stats.
 template <bool kOuter = false, bool kStats = false>
 inline cudaError_t launch_grand_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                           const __nv_bfloat16* v, __nv_bfloat16* out, Strides sq,
@@ -479,9 +485,10 @@ inline cudaError_t launch_grand_attn_bf16(const __nv_bfloat16* q, const __nv_bfl
     return cudaErrorInvalidValue;
   }
 #define GRAND_TC_ARGS \
-  q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer, stats
-  return d == 64 ? launch_grand_attn_bf16_d<64, kOuter, kStats>(GRAND_TC_ARGS)
-                 : launch_grand_attn_bf16_d<128, kOuter, kStats>(GRAND_TC_ARGS);
+  q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, d, scale, stream, outer, stats
+  return instance_head_dim(d) == 64
+             ? launch_grand_attn_bf16_d<64, kOuter, kStats>(GRAND_TC_ARGS)
+             : launch_grand_attn_bf16_d<128, kOuter, kStats>(GRAND_TC_ARGS);
 #undef GRAND_TC_ARGS
 }
 

@@ -2,7 +2,8 @@
 // tensor cores, for Hopper (sm_90a): the attention step of B1, B2 and B5
 // at f32 under "default" and "high3" (fused_block.cu), and B3 and B6 at f32
 // under the session matmul precision "default" (grand_attention.cu), at
-// every group size.
+// every group size and every head width of takes_head_dim (grand_attn.cuh,
+// "Head widths": compiled for 64 and 128, columns past d zero-filled).
 //
 //   out[i] = Σ_j e_ij v_j · (1 / Σ_j e_ij) − v_i,  e_ij = exp(s_ij − max_j s_ij),
 //   s_ij = q_i·k_j · scale
@@ -100,12 +101,13 @@ __device__ __forceinline__ void split_pack(float x, float y, unsigned& hi, unsig
 
 // Rows [row0, row0 + rows) of one head of a strided f32 operand into bf16
 // planes [rows][D + 8]: hi = bf16(x) and, under kHigh3, lo = bf16(x − hi);
-// rows at or past n_valid are zeros. Every thread of the block takes part,
-// with four 16-byte loads in flight before it converts them.
+// rows at or past n_valid and columns at or past d (the head's width) are
+// zeros. Every thread of the block takes part, with four 16-byte loads in
+// flight before it converts them.
 template <int D, int kMode>
 __device__ __forceinline__ void split_rows(__nv_bfloat16* hi, __nv_bfloat16* lo, const float* src,
                                            long long row_stride, int row0, int rows,
-                                           int n_valid) {
+                                           int n_valid, int d) {
   constexpr int kC4 = D / 4, kLd = tc_ld<D>();
   const int total = rows * kC4, step = blockDim.x;
   for (int e0 = threadIdx.x; e0 < total; e0 += 4 * step) {
@@ -113,8 +115,9 @@ __device__ __forceinline__ void split_rows(__nv_bfloat16* hi, __nv_bfloat16* lo,
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int e = e0 + u * step, r = e / kC4, c = (e % kC4) * 4;
-      x[u] = e < total && row0 + r < n_valid ? ld4(src + (long long)(row0 + r) * row_stride + c)
-                                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      x[u] = e < total && row0 + r < n_valid && c < d
+                 ? ld4(src + (long long)(row0 + r) * row_stride + c)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -190,12 +193,12 @@ __device__ __forceinline__ void mode_acc_cols(float (&acc)[kCols / 8][4], const 
 
 // Rows g and g + 8 (lane (g, t)) of the warp's output over kCols columns
 // from col0: out = acc · inv − v, v read unrounded; rows at or past
-// n_queries are not stored.
+// n_queries and columns at or past d are not stored.
 template <int kCols>
 __device__ __forceinline__ void mode_store(float* obase, long long o_row, const float* vbase,
                                            long long v_row, const float (&acc)[kCols / 8][4],
                                            int i0, int col0, float inv0, float inv1,
-                                           int n_queries, int lane) {
+                                           int n_queries, int d, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -205,6 +208,7 @@ __device__ __forceinline__ void mode_store(float* obase, long long o_row, const 
 #pragma unroll
     for (int jd = 0; jd < kCols / 8; ++jd) {
       const int col = col0 + jd * 8 + 2 * t;
+      if (col >= d) continue;
       const float2 vv = *reinterpret_cast<const float2*>(vbase + i * v_row + col);
       *reinterpret_cast<float2*>(obase + i * o_row + col) =
           make_float2(acc[jd][2 * half] * inv - vv.x, acc[jd][2 * half + 1] * inv - vv.y);
@@ -222,7 +226,8 @@ __global__ void __launch_bounds__(32 * ModeConfig<D>::kWarps, ModeConfig<D>::kMi
 grand_attn_mode_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out, Strides sq,
                        Strides sk, Strides sv, Strides so, int n_keys, int n_queries,
-                       int q_blocks, float scale, float* __restrict__ stats, int stat_rows) {
+                       int q_blocks, float scale, float* __restrict__ stats, int stat_rows,
+                       int d) {
   using bf16 = __nv_bfloat16;
   static_assert(kMode == kDefault || kMode == kHigh3, "the exact f32 kernel is the tiled one");
   constexpr int kLd = tc_ld<D>();
@@ -248,8 +253,8 @@ grand_attn_mode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     obase += z * so.z;
   }
 
-  split_rows<D, kMode>(Qh, Ql, qbase, sq.n, q0, q_rows, n_queries);
-  split_rows<D, kMode>(Xh, Xl, kbase, sk.n, 0, n16, n_keys);
+  split_rows<D, kMode>(Qh, Ql, qbase, sq.n, q0, q_rows, n_queries, d);
+  split_rows<D, kMode>(Xh, Xl, kbase, sk.n, 0, n16, n_keys, d);
   __syncthreads();
 
   const int i0 = q0 + 16 * warp;  // this warp's first query row
@@ -263,7 +268,7 @@ grand_attn_mode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   __syncthreads();  // every warp is done with K: V takes its planes
-  split_rows<D, kMode>(Xh, Xl, vbase, sv.n, 0, n16, n_keys);
+  split_rows<D, kMode>(Xh, Xl, vbase, sv.n, 0, n16, n_keys, d);
   __syncthreads();  // V has landed
   if (!active) return;
 
@@ -327,7 +332,7 @@ grand_attn_mode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int kc = 0; kc < KT16; ++kc) {
       if (kc * 16 < n_keys) mode_acc_cols<kLd, D>(o, ph[kc], Xh + kc * 16 * kLd, lane);
     }
-    mode_store<D>(obase, so.n, vbase, sv.n, o, i0, 0, inv0, inv1, n_queries, lane);
+    mode_store<D>(obase, so.n, vbase, sv.n, o, i0, 0, inv0, inv1, n_queries, d, lane);
   } else {
 #pragma unroll
     for (int c0 = 0; c0 < D; c0 += 64) {  // 64-column slabs
@@ -349,7 +354,7 @@ grand_attn_mode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int jd = 0; jd < 8; ++jd)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o1[jd][e] += o2[jd][e];
-      mode_store<64>(obase, so.n, vbase, sv.n, o1, i0, c0, inv0, inv1, n_queries, lane);
+      mode_store<64>(obase, so.n, vbase, sv.n, o1, i0, c0, inv0, inv1, n_queries, d, lane);
     }
   }
 }
@@ -357,8 +362,8 @@ grand_attn_mode_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D, int KT16, bool kOuter, int kMode>
 inline cudaError_t launch_mode_keys(const float* q, const float* k, const float* v, float* out,
                                     Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
-                                    int n_keys, int n_queries, float scale, cudaStream_t stream,
-                                    int outer, float* stats) {
+                                    int n_keys, int n_queries, int d, float scale,
+                                    cudaStream_t stream, int outer, float* stats) {
   constexpr int kPlanes = kMode == kHigh3 ? 2 : 1;
   const int q_tiles = (n_queries + 15) / 16;
   const int warps = q_tiles < ModeConfig<D>::kWarps ? q_tiles : ModeConfig<D>::kWarps;
@@ -372,12 +377,13 @@ inline cudaError_t launch_mode_keys(const float* q, const float* k, const float*
   grand_attn_mode_kernel<D, KT16, kOuter, kMode>
       <<<dim3(B * q_blocks, H, outer), 32 * warps, bytes, stream>>>(
           q, k, v, out, sq, sk, sv, so, n_keys, n_queries, q_blocks, scale, stats,
-          (n_queries + 63) / 64 * 64);
+          (n_queries + 63) / 64 * 64, d);
   return cudaGetLastError();
 }
 
 // The tensor-core kernel above on (B, H[, outer]) groups of n_keys <= kMaxN
-// keys and n_queries >= n_keys query rows at head width d (64 or 128),
+// keys and n_queries >= n_keys query rows at head width d (takes_head_dim,
+// on the instance_head_dim instance),
 // under kMode (kDefault or kHigh3); strides, alignment and stats as
 // launch_grand_attn's. The register arrays hold 32 keys (n_keys <= 32) or
 // 256.
@@ -390,18 +396,21 @@ inline cudaError_t launch_mode(const float* q, const float* k, const float* v, f
       (stats != nullptr && kOuter) || (kMode != kDefault && kMode != kHigh3)) {
     return cudaErrorInvalidValue;
   }
-#define MODE_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer, stats
+#define MODE_ARGS \
+  q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, d, scale, stream, outer, stats
+  const bool d64 = instance_head_dim(d) == 64;
   if (n_keys <= kSmallKeys) {
-    return d == 64 ? launch_mode_keys<64, 2, kOuter, kMode>(MODE_ARGS)
-                   : launch_mode_keys<128, 2, kOuter, kMode>(MODE_ARGS);
+    return d64 ? launch_mode_keys<64, 2, kOuter, kMode>(MODE_ARGS)
+               : launch_mode_keys<128, 2, kOuter, kMode>(MODE_ARGS);
   }
-  return d == 64 ? launch_mode_keys<64, kMaxN / 16, kOuter, kMode>(MODE_ARGS)
-                 : launch_mode_keys<128, kMaxN / 16, kOuter, kMode>(MODE_ARGS);
+  return d64 ? launch_mode_keys<64, kMaxN / 16, kOuter, kMode>(MODE_ARGS)
+             : launch_mode_keys<128, kMaxN / 16, kOuter, kMode>(MODE_ARGS);
 #undef MODE_ARGS
 }
 
 // Launches the f32 attention on (B, H[, outer]) groups of n_keys keys and
-// n_queries >= n_keys query rows at head width d (64 or 128), n_keys <=
+// n_queries >= n_keys query rows at head width d (takes_head_dim: a
+// multiple of 8 up to 128, on the instance_head_dim instance), n_keys <=
 // kMaxN: in exact f32 the small-group kernel for n_keys <= 32 (and at most
 // 64 query rows), else the tiled kernel; under a contraction mode (kMode,
 // F32Mode) the tensor-core kernel above. Every stride a multiple of 4
@@ -426,9 +435,10 @@ inline cudaError_t launch_grand_attn(const float* q, const float* k, const float
     return launch_small(q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, d, scale, stream,
                         outer);
   }
-#define GRAND_F32_ARGS q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, scale, stream, outer
-  return d == 64 ? launch_tiled<64, kOuter>(GRAND_F32_ARGS, stats)
-                 : launch_tiled<128, kOuter>(GRAND_F32_ARGS, stats);
+#define GRAND_F32_ARGS \
+  q, k, v, out, sq, sk, sv, so, B, H, n_keys, n_queries, d, scale, stream, outer, stats
+  return instance_head_dim(d) == 64 ? launch_tiled<64, kOuter>(GRAND_F32_ARGS)
+                                    : launch_tiled<128, kOuter>(GRAND_F32_ARGS);
 #undef GRAND_F32_ARGS
 }
 

@@ -40,7 +40,7 @@ from diff3dhpe_torch.io.checkpoint import (
 from diff3dhpe_torch.io.convert import state_dict_from_flax
 from diff3dhpe_torch.metrics import mean_velocity_error, mpjpe, n_mpjpe, p_mpjpe
 from diff3dhpe_torch.models import HPE_model
-from diff3dhpe_torch.ops.attention import HEAD_DIMS
+from diff3dhpe_torch.ops.attention import BWD_HEAD_DIMS, HEAD_DIM_RULE, MAX_N, takes_head_dim
 from diff3dhpe_torch.ops.fused_block import F32_MODES, LN_MAX_C
 from diff3dhpe_torch.ops.matmul_precision import check_matmul_precision
 from diff3dhpe_torch.parallel import check_mesh_shape, parse_mesh_shape
@@ -104,12 +104,17 @@ def check_supported(cfg: Config, device="cpu", world_size: int = 1) -> None:
     have N·M = ``world_size`` ranks (unset: "data:``world_size``"), and a
     ``model`` axis M > 1 (tensor parallelism) must divide ``num_heads`` and
     the MLP's hidden width (the ValueError names ``num_heads`` or
-    ``mlp_ratio``, and ``mesh_shape``). On a CUDA ``device`` also for a
-    head width that the kernels of the configured path do not take: they
-    take head_dim 64 and 128 (float32 and bf16); and, with ``fast_eval``,
+    ``mlp_ratio``, and ``mesh_shape``). On a CUDA ``device``, where
+    ``fast_eval`` or ``use_pallas_attention`` sends the attention through
+    the kernels, also for a head width that they do not take (``num_heads``:
+    they take head_dim a multiple of 8 from 8 to 128, float32 and bf16, at
+    every contraction mode), for more frames than they hold keys a group
+    (``number_of_frames`` above ``MAX_N``: the temporal attention keeps a
+    whole score row resident); and, with ``fast_eval``,
     for an ``embed_dim`` wider than the block's LayerNorm kernel holds
     (``LN_MAX_C``: 2048 where a step runs float32, 4096 at bf16 alone). The
-    CPU runs every width. ``check_trainable`` adds what ``fit`` refuses.
+    CPU, and the plain module on either device, run every width and length.
+    ``check_trainable`` adds what ``fit`` refuses.
 
     ``compute_dtype="bfloat16"`` builds the module at bf16 (flax's
     ``dtype``), with or without ``fast_eval`` and ``use_pallas_attention``.
@@ -135,7 +140,7 @@ def check_supported(cfg: Config, device="cpu", world_size: int = 1) -> None:
     if cfg.eval_final_prec not in F32_MODES:
         refuse("eval_final_prec", f"the float32 contraction modes are {F32_MODES}")
     if torch.device(device).type == "cuda" and (cfg.fast_eval or cfg.use_pallas_attention):
-        _check_head_dim(cfg)
+        _check_kernel_shapes(cfg)
     if torch.device(device).type == "cuda" and cfg.fast_eval:
         f32_steps = not bf16 or cfg.eval_f32_final_steps > 0
         widest = LN_MAX_C[torch.float32 if f32_steps else torch.bfloat16]
@@ -148,11 +153,23 @@ def _model_axis(cfg, world_size):
     return parse_mesh_shape(cfg.mesh_shape, world_size)["model"]
 
 
-def _check_head_dim(cfg):
-    head_dim = cfg.embed_dim // cfg.num_heads
-    if head_dim not in HEAD_DIMS:
+def _check_kernel_shapes(cfg, train=False):
+    """Refuses, by field, a head width or a frame count that the CUDA
+    attention kernels of the configured path do not take; ``train``: fused
+    training's, whose attention backward (B4) takes head_dim 64 and 128."""
+    head_dim, divides = cfg.embed_dim // cfg.num_heads, cfg.embed_dim % cfg.num_heads == 0
+    if not divides or not takes_head_dim(head_dim):
+        _refuse(cfg, "num_heads", f"head_dim {cfg.embed_dim / cfg.num_heads:g} (embed_dim "
+                f"{cfg.embed_dim}): the CUDA attention kernels of this path take head_dim "
+                f"{HEAD_DIM_RULE}")
+    if train and head_dim not in BWD_HEAD_DIMS:
         _refuse(cfg, "num_heads", f"head_dim {head_dim} (embed_dim {cfg.embed_dim}): the CUDA "
-                f"kernels of this path take head_dim {HEAD_DIMS}")
+                f"kernels of fused training take head_dim {BWD_HEAD_DIMS} (its attention "
+                f"backward is compiled for those)")
+    if cfg.number_of_frames > MAX_N:
+        _refuse(cfg, "number_of_frames", f"the CUDA attention kernels of this path take at most "
+                f"{MAX_N} keys a group, and the temporal attention's group is the window's "
+                f"frames (the plain module takes every length)")
 
 
 def _dtype(cfg):
@@ -198,8 +215,9 @@ def check_trainable(cfg: Config, device="cpu", world_size: int = 1) -> None:
     ``use_pallas_attention`` without ``fast_train``, whose attention kernels
     have no backward (JAX's ``jax.grad`` through them raises too). On a
     CUDA ``device``, with ``fast_train``: a head width the fast-train
-    kernels do not take (64, 128) and an ``embed_dim`` wider than the
-    LayerNorm kernel holds at the training dtype. bfloat16 training,
+    kernels do not take (64, 128), more frames than their attention holds
+    keys (``MAX_N``), and an ``embed_dim`` wider than the LayerNorm kernel
+    holds at the training dtype. bfloat16 training,
     ``remat`` (both modes) and the monolithic backward
     (``fast_train_pair_vjp=False``) train. ``fast_train`` under a
     ``mesh_shape`` whose ``model`` and ``data`` axes are both > 1, as JAX
@@ -218,7 +236,7 @@ def check_trainable(cfg: Config, device="cpu", world_size: int = 1) -> None:
         _refuse(cfg, "use_pallas_attention", "its attention kernels have no backward; train "
                 "with fast_train (and fast_train_attn_bwd for the attention backward kernels)")
     if torch.device(device).type == "cuda" and cfg.fast_train:
-        _check_head_dim(cfg)
+        _check_kernel_shapes(cfg, train=True)
         widest = LN_MAX_C[_dtype(cfg)]
         if cfg.embed_dim > widest:
             _refuse(cfg, "embed_dim", f"the CUDA LayerNorm of the fused blocks takes rows of up "

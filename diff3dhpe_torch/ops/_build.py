@@ -79,6 +79,11 @@ SIGNATURES = {
                                                # scale, mode
             + [ctypes.POINTER(_I), _P]         # launches, stream
         ),
+        "diff3dhpe_block_attn_bf16": (
+            [_P, _P] + [_I] * 6 + [_F]         # qkv, out; R, C, heads, n, n_pad, j_groups;
+                                               # scale
+            + [ctypes.POINTER(_I), _P]         # launches, stream
+        ),
         "diff3dhpe_gemm_wgmma_f32": (
             [_P] * 8 + [_I] * 5                # a_hi, a_lo, w_hi, w_lo, bias, res, rscale, out;
                                                # M, N, K, epilogue, passes
@@ -122,6 +127,7 @@ SIGNATURES = {
             + [_F, ctypes.POINTER(_I), _P]     # scale, launches, stream
         ),
         "diff3dhpe_grand_takes_head_dim": [_I],      # head_dim
+        "diff3dhpe_grand_bwd_takes_head_dim": [_I],  # head_dim
         "diff3dhpe_grand_max_n": [],
         "diff3dhpe_grand_small_max_n": [],
     },

@@ -22,7 +22,11 @@ dispatcher refuse to run where autograd would record them
 ``grand_attention_trainable``, as ``jax.grad`` through JAX's kernels
 raises.
 
-The kernels take head_dim 64 or 128 and n <= 256 (B6: n <= 64) and read
+The forward kernels (B3, B6) take every head_dim that is a multiple of 8
+from 8 to 128 (``takes_head_dim``; compiled for 64 and 128, a narrower
+width runs on the next one with its columns past head_dim zero-filled in
+shared memory), the backward (B4) head_dim 64 or 128 (``BWD_HEAD_DIMS``),
+and all of them n <= ``MAX_N`` keys (B6: n <= 64). They read
 their operands through strides (unit stride on the head dim), so views of a
 qkv projection go in without a copy. B3 and B6 also take bfloat16 (JAX's
 take q's dtype): the tensor-core kernel of ``csrc/grand_attn_bf16.cuh``,
@@ -54,11 +58,27 @@ from diff3dhpe_torch.ops.matmul_precision import matmul, session_mode
 # n at or below which the dispatcher sends a group to B6 and the trainable
 # backward stays on the plain formulas (JAX ops/attention.py:240, :401-402).
 SMALL_N = 64
-# Head widths the kernels take, at float32 and at bfloat16 (the library's
-# diff3dhpe_grand_takes_head_dim is what the wrappers ask).
-HEAD_DIMS = (64, 128)
+# The most keys a group every attention kernel takes (B1, B2, B5, B3, B4,
+# B6: each keeps a whole score row or pair resident;
+# csrc/grand_attn.cuh::kMaxN, which the libraries report as
+# diff3dhpe_grand_max_n and diff3dhpe_attn_max_n).
+MAX_N = 256
+# The forward kernels' head widths, in words (``takes_head_dim``).
+HEAD_DIM_RULE = "a multiple of 8 from 8 to 128"
+# Head widths the backward kernels (B4) take, at float32 and at bfloat16
+# (the library's diff3dhpe_grand_bwd_takes_head_dim).
+BWD_HEAD_DIMS = (64, 128)
 # The session modes by the index the kernels take (csrc/grand_attn.cuh::F32Mode).
 _MODE_INDEX = {"highest": 0, "default": 2}
+
+
+def takes_head_dim(d: int) -> bool:
+    """True for a head width the forward attention kernels take, at every
+    dtype and contraction mode (B1, B2, B5, B3, B6): a multiple of 8 from 8
+    to 128, as csrc/grand_attn.cuh::takes_head_dim, which the libraries
+    export as diff3dhpe_grand_takes_head_dim and
+    diff3dhpe_attn_takes_head_dim for the wrappers to ask."""
+    return d % 8 == 0 and 8 <= d <= 128
 
 
 def refuse_autograd(op: str, *tensors,
@@ -344,6 +364,9 @@ class _GrandAttentionTrainable(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, matmul_precision):
         ctx.matmul_precision = matmul_precision
+        if q.device.type == "cuda" and q.shape[-2] > SMALL_N and q.shape[-1] not in BWD_HEAD_DIMS:
+            raise ValueError(f"the CUDA attention backward (B4) takes head_dim {BWD_HEAD_DIMS}, "
+                             f"got head_dim {q.shape[-1]} at n {q.shape[-2]} > {SMALL_N}")
         f32 = q.dtype == torch.float32
         keep = not f32 or session_mode(matmul_precision) == "highest"
         if q.device.type == "cuda" and q.shape[-2] > SMALL_N and keep:
@@ -415,9 +438,9 @@ def _strides(t):
     return [ctypes.c_longlong(s) for s in t.stride()[:3]]
 
 
-def _library(q, scale, small=False):
+def _library(q, scale, small=False, bwd=False):
     """The loaded library and the scale, after checking what the kernel
-    takes (B6's bound on n with ``small``)."""
+    takes (B6's bound on n with ``small``, B4's head widths with ``bwd``)."""
     from diff3dhpe_torch.ops._build import load_library
 
     if q.device.type != "cuda":
@@ -425,9 +448,10 @@ def _library(q, scale, small=False):
     lib = load_library("grand_attention")
     b, h, n, d = q.shape
     max_n = lib.diff3dhpe_grand_small_max_n() if small else lib.diff3dhpe_grand_max_n()
-    if not lib.diff3dhpe_grand_takes_head_dim(d) or not 0 < n <= max_n:
+    takes = lib.diff3dhpe_grand_bwd_takes_head_dim if bwd else lib.diff3dhpe_grand_takes_head_dim
+    if not takes(d) or not 0 < n <= max_n:
         raise ValueError(
-            f"the CUDA kernel takes head_dim {HEAD_DIMS} and "
+            f"the CUDA kernel takes head_dim {BWD_HEAD_DIMS if bwd else HEAD_DIM_RULE} and "
             f"0 < n <= {max_n}, got head_dim {d} and n {n}"
         )
     return lib, d ** -0.5 if scale is None else float(scale)
@@ -499,7 +523,7 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale, fwd=None, matmul_precision="high
     where they are views of one qkv projection, else one each, and one for
     do). ``matmul_precision``: the session precision at float32 (under
     "default" ``fwd`` must be None)."""
-    lib, scale = _library(q, scale)
+    lib, scale = _library(q, scale, bwd=True)
     bf16 = q.dtype == torch.bfloat16
     mode = session_mode(matmul_precision)
     if (bf16 or mode == "default") and not scale > 0:  # the row max is taken before the scale

@@ -62,7 +62,7 @@ import torch
 from torch.nn import functional as F
 
 from diff3dhpe_torch.ops._library import register
-from diff3dhpe_torch.ops.attention import HEAD_DIMS, grand_attention_stored, refuse_autograd
+from diff3dhpe_torch.ops.attention import HEAD_DIM_RULE, grand_attention_stored, refuse_autograd
 from diff3dhpe_torch.ops.matmul_precision import bf16_round as _bf16_round
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -745,56 +745,62 @@ def _gemm_wgmma_f32(a_hi, a_lo, w_hi, w_lo, bias=None, epilogue="bias", res=None
 _gemm_wgmma_f32.launches = 0
 
 
-def block_attention_ref(qkv, n, heads, n_pad=None, f32_prec="highest", j_groups=0):
+def block_attention_ref(qkv, n, heads, n_pad=None, f32_prec="highest", j_groups=0, scale=None):
     """Plain version of ``block_attention`` (same arguments, same result)."""
     r, c3 = qkv.shape
     if j_groups:  # the cols layout: the rows layout on the transposed rows
         b = r // (n * j_groups)
         t = qkv.view(b, n, j_groups, c3).transpose(1, 2).reshape(r, c3)
-        out = block_attention_ref(t, n, heads, f32_prec=f32_prec)
+        out = block_attention_ref(t, n, heads, f32_prec=f32_prec, scale=scale)
         return out.view(b, j_groups, n, c3 // 3).transpose(1, 2).reshape(r, c3 // 3)
     c, n_pad = c3 // 3, n if n_pad is None else n_pad
-    mode = F32_MODES[f32_mode_index(f32_prec)]
-    q, k, v = qkv.reshape(r // n_pad, n_pad, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+    dt = qkv.dtype
+    mode = F32_MODES[f32_mode_index(f32_prec)] if dt == torch.float32 else "highest"
+    q, k, v = qkv.float().reshape(r // n_pad, n_pad, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
     dot = None if mode == "highest" else (lambda a, b: contract(a, b, mode))
-    out = grand_attention_stored(q, k[:, :, :n], v[:, :, :n], (c // heads) ** -0.5,
-                                 lambda a: a, v_self=v, dot=dot)
-    return out.permute(0, 2, 1, 3).reshape(r, c)
+    out = grand_attention_stored(q, k[:, :, :n], v[:, :, :n], _scale(scale, c, heads),
+                                 lambda a: a.to(dt).float(), v_self=v, dot=dot)
+    return out.permute(0, 2, 1, 3).reshape(r, c).to(dt)
 
 
-def block_attention(qkv, n, heads, n_pad=None, f32_prec="highest", j_groups=0):
-    """The f32 block kernels' attention step alone, for tests and
-    measurements (B1 and B2 launch the same kernels): GRAND attention on qkv
-    [R, 3C] float32 in groups of ``n_pad`` rows (default n), over each
-    group's n real keys, under contraction mode ``f32_prec``; out [R, C].
+def block_attention(qkv, n, heads, n_pad=None, f32_prec="highest", j_groups=0, scale=None):
+    """The block kernels' attention step alone, for tests and measurements
+    (B1 and B2 launch the same kernels): GRAND attention on qkv [R, 3C]
+    float32 or bfloat16 in groups of ``n_pad`` rows (default n), over each
+    group's n real keys, at float32 under contraction mode ``f32_prec``
+    (bfloat16 ignores it, as the blocks do); out [R, C] in qkv's dtype.
     ``j_groups`` = J > 0: B2's layout instead, the groups (b, j) of n
     frames of the spatial-major rows (b·n + f)·J + j (``n_pad`` unused).
+    ``scale``: the attention's, default head_dim^-½.
 
     A CPU tensor runs the plain version. A CUDA tensor launches the kernel
     (``block_attention.launches`` counts launches) or raises."""
     r, c3 = qkv.shape
     n_pad = n if n_pad is None or j_groups else n_pad
-    if (qkv.dtype != torch.float32 or c3 % (3 * heads) or r % (n_pad * max(j_groups, 1))
+    if (qkv.dtype not in DTYPES or c3 % (3 * heads) or r % (n_pad * max(j_groups, 1))
             or not 0 < n <= n_pad):
-        raise ValueError(f"qkv must be float32 [R, 3C] with C a multiple of heads={heads} and R "
-                         f"of n_pad={n_pad} >= n={n} (times j_groups={j_groups}), got "
-                         f"{qkv.dtype} {tuple(qkv.shape)}")
+        raise ValueError(f"qkv must be float32 or bfloat16 [R, 3C] with C a multiple of "
+                         f"heads={heads} and R of n_pad={n_pad} >= n={n} (times j_groups="
+                         f"{j_groups}), got {qkv.dtype} {tuple(qkv.shape)}")
     mode = f32_mode_index(f32_prec)
     if qkv.device.type == "cpu":
-        return block_attention_ref(qkv, n, heads, n_pad, f32_prec, j_groups)
+        return block_attention_ref(qkv, n, heads, n_pad, f32_prec, j_groups, scale)
     from diff3dhpe_torch.ops._build import load_library
 
     lib = load_library("fused_block")
-    c, f32 = c3 // 3, torch.float32
+    c, dt = c3 // 3, qkv.dtype
     if not lib.diff3dhpe_attn_takes_head_dim(c // heads) or n > lib.diff3dhpe_attn_max_n():
-        raise ValueError(f"the CUDA kernel takes head_dim {HEAD_DIMS} and n <= "
+        raise ValueError(f"the CUDA kernel takes head_dim {HEAD_DIM_RULE} and n <= "
                          f"{lib.diff3dhpe_attn_max_n()}, got head_dim {c // heads} and n {n}")
-    out = torch.empty((r, c), device=qkv.device, dtype=f32)
+    out = torch.empty((r, c), device=qkv.device, dtype=dt)
     launched = ctypes.c_int(0)
+    extra = [mode] if dt == torch.float32 else []
+    fn = lib.diff3dhpe_block_attn_f32 if dt == torch.float32 else lib.diff3dhpe_block_attn_bf16
     with torch.cuda.device(qkv.device):
-        err = lib.diff3dhpe_block_attn_f32(
-            _ptr(qkv, f32), _ptr(out, f32), r, c, heads, n, n_pad, j_groups, (c // heads) ** -0.5,
-            mode, ctypes.byref(launched), torch.cuda.current_stream(qkv.device).cuda_stream)
+        err = fn(
+            _ptr(qkv, dt), _ptr(out, dt), r, c, heads, n, n_pad, j_groups,
+            _scale(scale, c, heads), *extra, ctypes.byref(launched),
+            torch.cuda.current_stream(qkv.device).cuda_stream)
     block_attention.launches += launched.value
     if err:
         raise RuntimeError(f"the block_attention kernel failed: cudaError_t {err}")
@@ -911,7 +917,7 @@ def _kernel_limits(lib, x, n, heads, widths):
     d = x.shape[1] // heads
     if not lib.diff3dhpe_attn_takes_head_dim(d) or n > lib.diff3dhpe_attn_max_n():
         raise ValueError(
-            f"the CUDA kernel takes head_dim {HEAD_DIMS} and "
+            f"the CUDA kernel takes head_dim {HEAD_DIM_RULE} and "
             f"n <= {lib.diff3dhpe_attn_max_n()}, got head_dim {d} and n {n}"
         )
     step = 8 if x.dtype == torch.float32 else 32  # the bf16 GEMM takes K in steps of 32

@@ -8,7 +8,8 @@ depth 1 and 9 frames against the flax one. On the CPU the wrappers run
 their plain versions; the CUDA kernels are held against the same plain
 versions at head_dim 128 by tests/test_torch_cuda_kernels.py and
 chip_smoke.py. Also: which head widths ``check_supported`` accepts and
-refuses on a CUDA device.
+refuses on a CUDA device (every multiple of 8 from 8 to 128, so 16 heads
+at embed 512 too; tests/test_torch_head_widths.py holds those widths).
 
 Bars: the forward 1e-5 absolute (float32 sums in another order, outputs of
 order 1); the backward 2e-4 of max|g| (gradients sum n products of order
@@ -96,8 +97,8 @@ MIXED = dict(fast_eval=True, compute_dtype="bfloat16", eval_f32_final_steps=1, e
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(num_heads=16, fast_eval=True),              # head_dim 32: no instance
-    dict(num_heads=16, use_pallas_attention=True),
+    dict(num_heads=2, fast_eval=True),               # head_dim 256: past K1's shared memory
+    dict(embed_dim=480, num_heads=24, use_pallas_attention=True),  # 20: no multiple of 8
 ])
 def test_check_supported_refuses_head_widths_the_kernels_do_not_take(overrides):
     cfg = Config(**{**HEADS4, **overrides})
@@ -126,6 +127,8 @@ def test_check_supported_refuses_rows_wider_than_the_layer_norm_takes(overrides)
     dict(num_heads=8, **MIXED),                                      # head_dim 64 at bf16
     dict(fast_eval=True, compute_dtype="bfloat16"),  # pure bf16 at 128: the bf16 block (K1, wgmma)
     MIXED,                                           # the mixed mode's bf16 steps at 128
+    dict(num_heads=16, fast_eval=True),              # head_dim 32 on the 64 instance
+    dict(num_heads=16, use_pallas_attention=True),
 ])
 def test_check_supported_accepts_what_the_kernels_take(overrides):
     check_supported(Config(**{**HEADS4, **overrides}), torch.device("cuda"))

@@ -83,8 +83,9 @@ def test_block_kernel_matches_ref(cuda_device, n, n_pad, groups, with_t, with_ou
                                             (200, 256, 2)])
 def test_block_kernel_at_head_dim_128_matches_ref(cuda_device, n, n_pad, groups):
     """B1 with head_dim 128 (C = 256, 2 heads) at f32, and at bf16 (the
-    tensor-core attention's d = 128 instance) under the bf16 bars; a head
-    width the kernels lack is refused by the wrapper."""
+    tensor-core attention's d = 128 instance) under the bf16 bars; with 8
+    heads (head_dim 32, run on the 64 instance) at bf16 under the same bars;
+    a head width the kernels lack (256, 1 head) is refused by the wrapper."""
     c = 256
     model = _model(cuda_device, embed_dim=c, head_dim=128)
     gen = torch.Generator(device=cuda_device).manual_seed(n + 3)
@@ -100,8 +101,10 @@ def test_block_kernel_at_head_dim_128_matches_ref(cuda_device, n, n_pad, groups)
         xb = x.bfloat16()
         assert_bf16_close(real(fused_transformer_block(xb, model.STEblocks[0], n, 2, **kw)),
                           real(fused_transformer_block_ref(xb, model.STEblocks[0], n, 2, **kw)))
+        assert_bf16_close(real(fused_transformer_block(xb, model.STEblocks[0], n, 8, **kw)),
+                          real(fused_transformer_block_ref(xb, model.STEblocks[0], n, 8, **kw)))
         with pytest.raises(ValueError, match="head_dim"):
-            fused_transformer_block(xb, model.STEblocks[0], n, 8, **kw)
+            fused_transformer_block(xb, model.STEblocks[0], n, 1, **kw)
 
 
 @pytest.mark.cuda
@@ -345,14 +348,19 @@ def test_dispatcher_picks_the_kernel_by_n(cuda_device):
         torch.testing.assert_close(out, grand_attention_fullseq_ref(q, k, v), rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="n <= 64"):
         packed_grand_attention(q, k, v)  # n = 243
+    narrow = [t[:, :, :17, :32] for t in (q, k, v)]  # head_dim 32, rows 3·2·64 floats apart
+    torch.testing.assert_close(packed_grand_attention(*narrow),
+                               packed_grand_attention_ref(*narrow), rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="head_dim"):
-        packed_grand_attention(*(t[:, :, :17, :32] for t in (q, k, v)))
+        packed_grand_attention(*_qkv_views(cuda_device, 2, 1, 17, 0, d=256)[0])
     with pytest.raises(ValueError, match="all be float32 or all bfloat16"):
         packed_grand_attention(*(t[:, :, :17].double() for t in (q, k, v)))
     with pytest.raises(ValueError, match="all be float32 or all bfloat16"):
         fused_grand_attention(q.bfloat16(), k, v)
     (q, k, v), _ = _qkv_views(cuda_device, 2, 2, 243, 0, torch.bfloat16, d=32)
-    with pytest.raises(ValueError, match="head_dim"):  # the bf16 kernel takes 64 and 128
+    assert_bf16_close(grand_attention_fullseq(q, k, v), grand_attention_fullseq_ref(q, k, v))
+    (q, k, v), _ = _qkv_views(cuda_device, 2, 1, 243, 0, torch.bfloat16, d=256)
+    with pytest.raises(ValueError, match="head_dim"):  # past 128: K and V would not fit K1
         grand_attention_fullseq(q, k, v)
 
 
@@ -1231,3 +1239,68 @@ def test_trainable_attention_grads_at_session_default(cuda_device, n):
         q.detach(), k.detach(), v.detach(), do, matmul_precision="default")
     for a, b in zip(got, want):
         _assert_mode_close(a, b, "default")
+
+
+# ---- head widths other than 64 and 128 (on the next compiled instance) ------
+
+def _padded(t, width):
+    """t [..., d] zero-padded along the last dim to width (a copy)."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def _padded_qkv(qkv, heads, d, width):
+    """A block's qkv [R, 3·heads·d] with each head zero-padded to width."""
+    r = qkv.shape[0]
+    return _padded(qkv.view(r, 3, heads, d), width).reshape(r, 3 * heads * width)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 24, 32, 40, 96, 120])
+@pytest.mark.parametrize("n", [17, 243])
+def test_attention_kernels_at_narrow_head_widths(cuda_device, d, n):
+    """Every forward attention kernel at a head width that runs on the next
+    compiled instance (64 for d <= 64, else 128): B3 (n > 64) or B6 at f32,
+    under the session "default" and at bf16 on strided qkv views, and the
+    blocks' attention step in rows (pad query rows too) and in B2's cols
+    layout at f32 under each mode and at bf16, each against its plain
+    version at its bars and bit for bit the instance's output on copies
+    zero-padded to its width with the same scale d^-½."""
+    width, heads, scale = (64 if d <= 64 else 128), 3, d ** -0.5
+    for dt in (torch.float32, torch.bfloat16):
+        (q, k, v), gen = _qkv_views(cuda_device, 5, heads, n, n + d, dt, d=d)
+        fn, ref = ((packed_grand_attention, packed_grand_attention_ref) if n <= 64
+                   else (grand_attention_fullseq, grand_attention_fullseq_ref))
+        for prec in (("highest", "default") if dt == torch.float32 else ("highest",)):
+            out = fn(q, k, v, matmul_precision=prec)
+            want = ref(q, k, v, matmul_precision=prec)
+            if dt == torch.bfloat16:
+                assert_bf16_close(out, want)
+            elif prec == "default":
+                _assert_mode_close(out, want, "default")
+            else:
+                torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+            padded = fn(*(_padded(t, width) for t in (q, k, v)), scale, matmul_precision=prec)
+            assert torch.equal(out, padded[..., :d]), (dt, prec)
+        n_pad = n if n > 32 else 24
+        for layout, j in (("rows", 0), ("cols", 3)):
+            g = (2 if layout == "cols" else 4) * (n_pad if layout == "rows" else n)
+            qkv = torch.randn(g * max(j, 1), 3 * heads * d, generator=gen,
+                              device=cuda_device).to(dt)
+            kw = dict(n_pad=None if j else n_pad, j_groups=j)
+            modes = ("highest", "high3", "default") if dt == torch.float32 else ("highest",)
+            for mode in modes:
+                out = block_attention(qkv, n, heads, f32_prec=mode, **kw)
+                want = block_attention_ref(qkv, n, heads, f32_prec=mode, **kw)
+                real = (lambda a: a) if j else (lambda a: a.reshape(-1, n_pad, heads * d)[:, :n])
+                if dt == torch.bfloat16:
+                    assert_bf16_close(real(out), real(want))
+                elif mode == "highest":
+                    torch.testing.assert_close(real(out), real(want), rtol=1e-5, atol=1e-5)
+                else:
+                    _assert_mode_close(real(out), real(want), mode)
+                padded = block_attention(_padded_qkv(qkv, heads, d, width), n, heads,
+                                         f32_prec=mode, scale=scale, **kw)
+                rows = padded.shape[0]
+                assert torch.equal(real(out), real(
+                    padded.view(rows, heads, width)[..., :d].reshape(rows, heads * d))), (
+                    dt, mode, layout)
